@@ -1,0 +1,388 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``hig_tpu_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+  1. device: the card's name and power limit (nvidia-smi), torch and CUDA
+     versions; TF32 is turned off so float32 products stay float32;
+  2. build: nvcc builds every kernel library of the serving path, one
+     process per source, all started together;
+  3. kernels: each kernel against its plain PyTorch version on the card at
+     the serving shape (N = 16 sequences = 8 caption pairs, T = 91 tokens,
+     D = 512, 8 heads, float32, ragged lengths), with its time, the plain
+     version's time and the card's lower bound for the same work;
+  4. denoiser: one full-width denoiser call through each kernel against the
+     same call through the plain versions;
+  5. serve: 8 caption-pair requests at full width with seeded random
+     weights, DDIM-50, once with --blocks fused and once with --blocks
+     projected, through hig_tpu_torch.serve's functions; the launch counts
+     of each of 3 timed calls, finite outputs of the right shape, the
+     median wall time per call,
+     agreement with the same sampler through the plain versions, and the
+     device time by kernel of one more call (torch.profiler).
+Then the kernel table, the nvidia-smi line, and as the last line
+{"ok": true, "device": {...}}. Any failed check exits non-zero without
+that line. Imports nothing of JAX or of the JAX package.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+N_PAIRS, T, D, HEADS = 8, 91, 512, 8
+LENGTHS = (90, 84, 77, 63, 90, 51, 35, 70)  # frames; T = max + 1 (init token)
+DDIM_STEPS = 50
+LAUNCHES_PER_CALL = 8 * 2 * DDIM_STEPS  # layers × kernel blocks × steps
+SERVE_CALLS = 3  # timed serving calls per --blocks value
+# Card rates for the bound: float32 without tensor cores and HBM3 bandwidth
+# of an H100 SXM (NVIDIA data sheet).
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# Kernel vs plain version, float32: sums run in another order and the
+# block's second LayerNorm rescales y by 1/std(y) (~30 at these inputs).
+KERNEL_TOL = 1e-4
+# Full-width denoiser, 8 layers of 4 blocks: the per-block differences add up.
+DENOISER_TOL = 1e-3
+# DDIM-50 output with random weights, relative to max |plain|: each step
+# multiplies x by c1 ≥ 1, so differences of the first steps grow.
+SAMPLER_REL_TOL = 1e-3
+
+
+def fail_if(failures: list, cond: bool, what: str) -> None:
+    if cond:
+        failures.append(what)
+        print(json.dumps({"check_failed": what}), flush=True)
+
+
+def time_ms(fn, warmup: int = 3, calls: int = 20, repeats: int = 5) -> float:
+    """Device ms per call: CUDA events around ``calls`` back-to-back calls,
+    divided by ``calls``; the median of ``repeats`` such runs after
+    ``warmup`` calls. Back to back, the host queues work ahead of the card,
+    so host gaps between single calls do not count."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+@contextlib.contextmanager
+def plain_blocks():
+    """Route the attention blocks through the plain versions (on any device)."""
+    from hig_tpu_torch.models import attention
+    from hig_tpu_torch.ops import fused_block, pallas_attention
+
+    saved = attention.fused_attention_block, attention.fused_projected_attention
+    attention.fused_attention_block = fused_block.fused_attention_block_plain
+    attention.fused_projected_attention = pallas_attention.fused_projected_attention_plain
+    try:
+        yield
+    finally:
+        attention.fused_attention_block, attention.fused_projected_attention = saved
+
+
+def profile_call(fn) -> dict:
+    """Device time by kernel over one call of ``fn`` (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = []
+    for e in prof.key_averages():
+        if "CUDA" not in str(e.device_type):
+            continue
+        us = e.self_device_time_total
+        if us > 0 and e.count > 0:
+            kernels.append((e.key, us / 1e3, e.count))
+    kernels.sort(key=lambda k: -k[1])
+    device_ms = sum(k[1] for k in kernels)
+    return {"profiled_wall_ms": wall_ms, "device_ms": device_ms,
+            "port_kernels_ms": sum(k[1] for k in kernels if "hig::" in k[0]),
+            "top": [[name[:90], ms, n] for name, ms, n in kernels[:10]]}
+
+
+def phase_device() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(json.dumps({
+        "phase": "device", "nvidia_smi": smi, "name": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(), "torch": torch.__version__,
+        "cuda": torch.version.cuda, "python": sys.version.split()[0],
+    }), flush=True)
+    return smi
+
+
+def phase_build() -> None:
+    from hig_tpu_torch.ops import _build
+
+    log = _build.build_all()
+    ptxas = {
+        lib: [ln.strip() for ln in text.splitlines() if "registers" in ln or "spill" in ln]
+        for lib, text in log.items() if lib != "seconds"
+    }
+    print(json.dumps({"phase": "build", "seconds": log["seconds"], "ptxas": ptxas}),
+          flush=True)
+
+
+def block_inputs(device):
+    gen = torch.Generator().manual_seed(1)
+    from hig_tpu_torch.ops.fused_block import BlockWeights
+
+    def randn(*shape, std=1.0):
+        return (std * torch.randn(shape, generator=gen)).to(device)
+
+    w = BlockWeights(
+        1 + randn(D, std=0.1), randn(D, std=0.1),
+        randn(D, D, std=D ** -0.5), randn(D, std=0.1),
+        randn(D, D, std=D ** -0.5), randn(D, std=0.1),
+        randn(D, D, std=D ** -0.5), randn(D, std=0.1),
+        1 + randn(D, std=0.1), randn(D, std=0.1),
+        randn(D, D, std=D ** -0.5), randn(D, std=0.1),
+    )
+    x = randn(N_PAIRS, 2, T, D)
+    lengths = torch.tensor(LENGTHS, device=device) + 1
+    mask = (torch.arange(T, device=device) < lengths[:, None]).float()[:, None, :]
+    mask = mask.expand(N_PAIRS, 2, T).contiguous()
+    scale, shift = randn(N_PAIRS, 2, 1, D, std=0.5), randn(N_PAIRS, 2, 1, D, std=0.5)
+    return w, x, mask, scale, shift
+
+
+def phase_kernels(device, failures) -> dict:
+    from hig_tpu_torch.ops.fused_block import fused_attention_block, fused_attention_block_plain
+    from hig_tpu_torch.ops.pallas_attention import (
+        fused_projected_attention,
+        fused_projected_attention_plain,
+    )
+
+    w, x, mask, scale, shift = block_inputs(device)
+    N, M, hd = 2 * N_PAIRS, 2 * N_PAIRS * T, D // HEADS
+    attn_flops = 2 * 2 * N * HEADS * T * hd * hd
+    rows = {}
+
+    errs, ms, plain_ms = [], [], []
+    for interaction in (False, True):
+        args = (x, mask, scale, shift, w, HEADS, interaction)
+        got = fused_attention_block(*args)
+        want = fused_attention_block_plain(*args)
+        torch.cuda.synchronize()
+        errs.append((got - want).abs().max().item())
+        ms.append(time_ms(lambda: fused_attention_block(*args)))
+        plain_ms.append(time_ms(lambda: fused_attention_block_plain(*args)))
+    flops = 2 * M * D * 3 * D + 2 * M * D * D + attn_flops
+    nbytes = 4 * (2 * M * D + M + 2 * N * D + 4 * D * D + 8 * D)
+    b_ms, b_by = bound(flops, nbytes)
+    rows["fused_block"] = {
+        "name": "fused_block", "route": "cuda", "source": "hig_tpu_torch/csrc/fused_block.cu",
+        "replaces": "hig_tpu/ops/fused_block.py:48", "max_abs_err": max(errs),
+        "ms": max(ms), "plain_ms": max(plain_ms), "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+    }
+    print(json.dumps({"phase": "kernel", "kernel": "fused_block",
+                      "shape": [N, T, D, HEADS], "tol": KERNEL_TOL,
+                      "max_abs_err_self": errs[0], "max_abs_err_interaction": errs[1],
+                      "ms_self": ms[0], "ms_interaction": ms[1],
+                      "plain_ms_self": plain_ms[0], "plain_ms_interaction": plain_ms[1],
+                      "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+                      "bound_us": b_ms * 1e3, "bound_by": b_by}), flush=True)
+    fail_if(failures, not max(errs) <= KERNEL_TOL, f"fused_block max |err| {max(errs)}")
+
+    xn = torch.nn.functional.layer_norm(x, (D,), w.ln_g, w.ln_b, 1e-6)
+    kv, kmask = xn.flip(1).contiguous(), mask.flip(1).contiguous()
+    args = (xn, kv, w.wq, w.bq, w.wk, w.bk, w.wv, w.bv, HEADS, kmask)
+    got = fused_projected_attention(*args)
+    want = fused_projected_attention_plain(*args)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    k_ms = time_ms(lambda: fused_projected_attention(*args))
+    p_ms = time_ms(lambda: fused_projected_attention_plain(*args))
+    flops = 2 * M * D * 3 * D + attn_flops
+    nbytes = 4 * (3 * M * D + M + 3 * D * D + 3 * D)
+    b_ms, b_by = bound(flops, nbytes)
+    rows["projected_attention"] = {
+        "name": "projected_attention", "route": "cuda",
+        "source": "hig_tpu_torch/csrc/projected_attention.cu",
+        "replaces": "hig_tpu/ops/pallas_attention.py:116", "max_abs_err": err,
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+    }
+    print(json.dumps({"phase": "kernel", "kernel": "projected_attention",
+                      "shape": [N, T, D, HEADS], "tol": KERNEL_TOL, "max_abs_err": err,
+                      "ms": k_ms, "plain_ms": p_ms, "gflop": flops / 1e9,
+                      "mbytes": nbytes / 1e6, "bound_us": b_ms * 1e3,
+                      "bound_by": b_by}), flush=True)
+    fail_if(failures, not err <= KERNEL_TOL, f"projected_attention max |err| {err}")
+    return rows
+
+
+def phase_denoiser(models: dict, device, failures) -> None:
+    gen = torch.Generator().manual_seed(2)
+    cfg = models["fused"].cfg
+    x = torch.randn((N_PAIRS, 2, T, cfg.input_feats), generator=gen).to(device)
+    t = torch.full((N_PAIRS,), 500, device=device)
+    lengths = torch.tensor(LENGTHS, device=device) + 1
+    xf_proj = torch.randn((N_PAIRS, 2, cfg.time_embed_dim), generator=gen).to(device)
+    xf_out = torch.randn((N_PAIRS, 2, 77, cfg.text_latent_dim), generator=gen).to(device)
+    with torch.no_grad():
+        for blocks, model in models.items():
+            kv = model.text_kv(xf_out)
+            got = model.denoise(x, t, lengths, xf_proj, text_kv=kv)
+            with plain_blocks():
+                want = model.denoise(x, t, lengths, xf_proj, text_kv=kv)
+            err = (got - want).abs().max().item()
+            print(json.dumps({"phase": "denoiser", "blocks": blocks, "tol": DENOISER_TOL,
+                              "max_abs_err": err, "max_abs_out": want.abs().max().item()}),
+                  flush=True)
+            fail_if(failures, not err <= DENOISER_TOL, f"denoiser ({blocks}) max |err| {err}")
+
+
+def phase_serve(models: dict, device, failures) -> dict:
+    from hig_tpu_torch import serve
+    from hig_tpu_torch.data.vocab import CLASSID2CAPS
+    from hig_tpu_torch.diffusion import gaussian as g
+    from hig_tpu_torch.ops.fused_block import fused_attention_block
+    from hig_tpu_torch.ops.pallas_attention import fused_projected_attention
+    from hig_tpu_torch.train.trainer import make_sampler
+
+    requests = [
+        {"caption1": c1, "caption2": c2, "length": L, "id": f"req{i}"}
+        for i, ((c1, c2), L) in enumerate(zip(CLASSID2CAPS, LENGTHS))
+    ]
+    sched = g.make_schedule(g.linear_betas(1000))
+    mean, std = serve.load_stats(None, models["fused"].cfg.input_feats)
+    wrappers = {"fused": fused_attention_block, "projected": fused_projected_attention}
+    launches, runs, walls = {}, {}, {}
+    for blocks, model in models.items():
+        sample_fn = make_sampler(model, sched, T=T, dim_pose=model.cfg.input_feats,
+                                 ddim_steps=DDIM_STEPS)
+
+        def run(seed=0, sample_fn=sample_fn):
+            gen = torch.Generator(device=device).manual_seed(seed)
+            return serve.serve_batch(sample_fn, requests, mean, std, device, gen)
+
+        run()  # warm-up
+        # The host clock varies from call to call (the machine's CPU cores
+        # are shared), so the wall time is the median of a few calls, each
+        # with the launch counts set to 0 before it and read after it.
+        call_walls, call_counts = [], []
+        for _ in range(SERVE_CALLS):
+            for w in wrappers.values():
+                w.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            features, joints = run()
+            torch.cuda.synchronize()
+            call_walls.append(time.perf_counter() - t0)
+            call_counts.append({name: w.launches for name, w in wrappers.items()})
+        wall = statistics.median(call_walls)
+        counts = call_counts[0]
+        with plain_blocks():
+            t1 = time.perf_counter()
+            ref_features, _ = run()
+            torch.cuda.synchronize()
+            plain_wall = time.perf_counter() - t1
+        rel = float(np.abs(features - ref_features).max() / np.abs(ref_features).max())
+        print(json.dumps({
+            "phase": "serve", "blocks": blocks, "requests": len(requests), "T": T,
+            "ddim_steps": DDIM_STEPS, "launches": counts, "wall_s_per_call": wall,
+            "wall_s_calls": call_walls, "plain_wall_s_per_call": plain_wall, "features_shape": list(features.shape),
+            "joints_shape": list(joints.shape), "finite": bool(
+                np.isfinite(features).all() and np.isfinite(joints).all()),
+            "max_abs_features": float(np.abs(features).max()),
+            "rel_err_vs_plain": rel, "rel_tol": SAMPLER_REL_TOL,
+        }), flush=True)
+        other = "projected" if blocks == "fused" else "fused"
+        fail_if(failures, any(c[blocks] != LAUNCHES_PER_CALL or c[other] != 0
+                              for c in call_counts),
+                f"serve ({blocks}) launches {call_counts}")
+        fail_if(failures, tuple(joints.shape) != (N_PAIRS, 2, T - 1, 22, 3),
+                f"serve ({blocks}) joints shape {joints.shape}")
+        fail_if(failures, not (np.isfinite(features).all() and np.isfinite(joints).all()),
+                f"serve ({blocks}) non-finite output")
+        fail_if(failures, not rel <= SAMPLER_REL_TOL, f"serve ({blocks}) rel err {rel}")
+        launches[blocks], runs[blocks], walls[blocks] = counts[blocks], run, wall
+    # Profiling last: once the profiler has run, later launches in the
+    # process are slower, so no timing is taken after it.
+    for blocks, run in runs.items():
+        prof = profile_call(run)
+        prof["device_busy_share_unprofiled"] = prof["device_ms"] / (walls[blocks] * 1e3)
+        prof["port_kernels_ms_per_launch"] = prof["port_kernels_ms"] / launches[blocks]
+        print(json.dumps({"phase": "profile", "blocks": blocks, **prof}), flush=True)
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 1
+    if not os.path.isdir(os.path.join(ROOT, "hig_tpu_torch")):
+        print(f"chip_smoke: no hig_tpu_torch package beside {__file__}", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from hig_tpu_torch import serve
+    from hig_tpu_torch.models.interaction_model import ModelConfig
+
+    failures: list = []
+    smi = phase_device()
+    device = torch.device("cuda")
+    phase_build()
+    rows = phase_kernels(device, failures)
+
+    t0 = time.perf_counter()
+    models = {
+        blocks: serve.build_model(ModelConfig(fused_blocks=blocks == "fused"), device,
+                                  random_init=0)
+        for blocks in ("fused", "projected")
+    }
+    print(json.dumps({"phase": "weights", "seconds": time.perf_counter() - t0,
+                      "params": sum(p.numel() for p in models["fused"].parameters())}),
+          flush=True)
+    phase_denoiser(models, device, failures)
+    launches = phase_serve(models, device, failures)
+
+    rows["fused_block"]["launches"] = launches["fused"]
+    rows["projected_attention"]["launches"] = launches["projected"]
+    print(json.dumps({"kernels": list(rows.values())}), flush=True)
+    print(smi, flush=True)
+    if failures:
+        print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)
+        return 1
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,32 @@
+// B2: efficient attention with the Q/K/V projections fused in, forward.
+// Replaces hig_tpu/ops/pallas_attention.py::_proj_kernel (Pallas TPU).
+//
+//   q = q_src Wq + bq;  k, v = kv_src Wk + bk, kv_src Wv + bv
+//   k += (1 - mask) * -1e6; v *= mask
+//   per head: y_h = softmax_feat(q_h) . [softmax_time(k_h)^T v_h]
+//
+// Two launches on the caller's stream: the QKV GEMM (q columns from q_src,
+// k/v columns from kv_src) into `qkv`, then the attention core into `out`
+// (N, T, D). Returns the cudaError_t of the launches.
+#include "linear_attention.cuh"
+
+extern "C" int hig_projected_attention(
+    const float* q_src, const float* kv_src,
+    const float* wq, const float* bq, const float* wk, const float* bk,
+    const float* wv, const float* bv, const float* mask,
+    float* qkv, float* out, int N, int T, int D, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+
+  hig::GemmArgs a{};
+  a.a0 = q_src; a.a1 = kv_src;
+  a.w0 = wq; a.w1 = wk; a.w2 = wv;
+  a.b0 = bq; a.b1 = bk; a.b2 = bv;
+  a.out = qkv;
+  a.M = N * T; a.K = D; a.D = D; a.T = T; a.ldo = 3 * D;
+  hig::launch_gemm(hig::QKV_PLAIN, a, 3 * D, stream);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  hig::launch_core(qkv, mask, out, N, T, D, 0, stream);
+  return cudaGetLastError();
+}

@@ -1,0 +1,112 @@
+"""The two-actor interaction denoiser (counterpart of
+``hig_tpu/models/denoiser.py:39-321``).
+
+Actors are an explicit axis, ``x: (B, 2, T, D)``. Each layer runs efficient
+self-attention, text cross-attention, cross-actor interaction attention and
+an FFN, each gated by its own AdaLN ``StylizationBlock``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from hig_tpu_torch.models.attention import (
+    FFN,
+    EfficientCrossAttention,
+    EfficientInteractionAttention,
+    EfficientSelfAttention,
+)
+from hig_tpu_torch.models.embeddings import TimeEmbedMLP, length_mask
+
+BLOCKS = (("sa", "sa_block"), ("ca", "ca_block"), ("int", "int_ca_block"), ("ffn", "ffn"))
+
+
+class InteractionDenoiserLayer(nn.Module):
+    """self-attn → text cross-attn → cross-actor interaction → FFN."""
+
+    def __init__(self, latent_dim: int, text_latent_dim: int, ff_size: int,
+                 num_heads: int, emb_dim: int, fused_blocks: bool = False):
+        super().__init__()
+        self.sa_block = EfficientSelfAttention(latent_dim, num_heads, emb_dim, fused_blocks)
+        self.ca_block = EfficientCrossAttention(latent_dim, text_latent_dim, num_heads, emb_dim)
+        self.int_ca_block = EfficientInteractionAttention(
+            latent_dim, num_heads, emb_dim, fused_blocks
+        )
+        self.ffn = FFN(latent_dim, ff_size, emb_dim)
+
+    def text_kv(self, xf_out):
+        return self.ca_block.kv(xf_out)
+
+    def forward(self, x, xf_out, emb, src_mask, text_kv=None, adaln=None):
+        a = adaln or {}
+        x = self.sa_block(x, emb, src_mask, adaln=a.get("sa"))
+        if text_kv is None:
+            x = self.ca_block(x, xf_out, emb, adaln=a.get("ca"))
+        else:
+            x = self.ca_block.from_kv(x, text_kv, emb, adaln=a.get("ca"))
+        x = self.int_ca_block(x, emb, src_mask, adaln=a.get("int"))
+        return self.ffn(x, emb, adaln=a.get("ffn"))
+
+
+class InteractionDenoiser(nn.Module):
+    """Two-actor text-conditioned ε-predictor.
+
+    x (B, 2, T, input_feats) with token 0 the init-pose token (channels 0:4);
+    timesteps (B,); lengths (B,) valid tokens including the init token;
+    xf_proj (B, 2, 4·latent_dim); xf_out (B, 2, L, text_latent_dim).
+    Separate output heads for the init token (``out2``) and the frames
+    (``out``).
+    """
+
+    def __init__(self, input_feats: int = 263, num_frames: int = 196,
+                 latent_dim: int = 512, ff_size: int = 1024, num_layers: int = 8,
+                 num_heads: int = 8, text_latent_dim: int = 256,
+                 fused_blocks: bool = False):
+        super().__init__()
+        self.latent_dim = latent_dim
+        self.time_embed_dim = 4 * latent_dim
+        self.sequence_embedding = nn.Parameter(torch.empty(num_frames, latent_dim))
+        self.joint_embed = nn.Linear(input_feats, latent_dim)
+        self.joint_embed2 = nn.Linear(4, latent_dim)
+        self.time_embed = TimeEmbedMLP(latent_dim, self.time_embed_dim)
+        self.layers = nn.ModuleList(
+            InteractionDenoiserLayer(latent_dim, text_latent_dim, ff_size, num_heads,
+                                     self.time_embed_dim, fused_blocks)
+            for _ in range(num_layers)
+        )
+        self.out = nn.Linear(latent_dim, input_feats)
+        self.out2 = nn.Linear(latent_dim, input_feats)
+
+    def text_kv(self, xf_out) -> tuple:
+        """Per-layer text cross-attention state, computed once per call."""
+        return tuple(layer.text_kv(xf_out) for layer in self.layers)
+
+    def embed_inputs(self, x, lengths):
+        """(B, 2, T, D_in) → (hidden (B, 2, T, D), src_mask (B, 1, T))."""
+        T = x.shape[2]
+        move = self.joint_embed(x[:, :, 1:]) + self.sequence_embedding[: T - 1]
+        init = self.joint_embed2(x[:, :, 0, :4])
+        h = torch.cat([init[:, :, None, :], move], dim=2)
+        return h, length_mask(lengths, T, x.dtype)[:, None, :]
+
+    def conditioning(self, timesteps, xf_proj):
+        """(B,) timesteps + (B, 2, E) pooled text → per-block emb (B, 2, E)."""
+        return self.time_embed(timesteps)[:, None, :] + xf_proj
+
+    def project_out(self, h):
+        return torch.cat([self.out2(h[:, :, :1]), self.out(h[:, :, 1:])], dim=2)
+
+    def forward(self, x, timesteps, lengths, xf_proj, xf_out=None, text_kv=None,
+                adaln=None):
+        """``adaln``: per-layer dicts of precomputed (scale, shift) pairs
+        (``adaln_scale_shift_grid``); emb is then not computed."""
+        if x.shape[1] != 2:
+            raise ValueError(f"actor axis must be 2, got {tuple(x.shape)}")
+        h, src_mask = self.embed_inputs(x, lengths)
+        emb = self.conditioning(timesteps, xf_proj) if adaln is None else None
+        for i, layer in enumerate(self.layers):
+            h = layer(h, xf_out, emb, src_mask,
+                      text_kv=None if text_kv is None else text_kv[i],
+                      adaln=None if adaln is None else adaln[i])
+        return self.project_out(h)

@@ -1,0 +1,98 @@
+"""Text conditioning stack + interaction denoiser under one parameter tree
+(counterpart of ``hig_tpu/models/interaction_model.py:25-189,261-291``).
+
+The port serves the caption-token conditioning path in float32. Caption-id
+conditioning, classifier-free guidance, bf16 compute, ``fast_ln``, RMSNorm,
+the quadratic (``--no_eff``), causal and single-transformer variants are not
+ported yet and are refused by :class:`ModelConfig`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from hig_tpu_torch.models.denoiser import InteractionDenoiser
+from hig_tpu_torch.models.text_encoder import ClipTextConfig, TextEncoder
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Hyper-parameters of the interaction model; defaults are the flagship
+    (the JAX ``InteractionModel`` defaults and ``bench.py``'s model)."""
+
+    input_feats: int = 263
+    num_frames: int = 196
+    latent_dim: int = 512
+    ff_size: int = 1024
+    num_layers: int = 8
+    num_heads: int = 8
+    text_latent_dim: int = 256
+    text_ff_size: int = 2048
+    text_num_heads: int = 4
+    num_text_layers: int = 4
+    clip: ClipTextConfig = ClipTextConfig()
+    fused_blocks: bool = False
+    # not ported yet: must stay at these values
+    compute_dtype: str = "float32"
+    fast_ln: bool = False
+    rms_norm: bool = False
+
+    def __post_init__(self):
+        if isinstance(self.clip, dict):
+            object.__setattr__(self, "clip", ClipTextConfig(**self.clip))
+        if self.compute_dtype != "float32" or self.fast_ln or self.rms_norm:
+            raise ValueError(
+                "hig_tpu_torch serves float32 LayerNorm models only: bf16 "
+                "compute, fast_ln and RMSNorm are not ported yet"
+            )
+
+    @property
+    def time_embed_dim(self) -> int:
+        return 4 * self.latent_dim
+
+
+class InteractionModel(nn.Module):
+    """Two-actor denoiser + its text conditioning stack."""
+
+    def __init__(self, cfg: ModelConfig = ModelConfig()):
+        super().__init__()
+        self.cfg = cfg
+        self.text = TextEncoder(
+            clip_config=cfg.clip,
+            text_latent_dim=cfg.text_latent_dim,
+            text_ff_size=cfg.text_ff_size,
+            text_num_heads=cfg.text_num_heads,
+            num_text_layers=cfg.num_text_layers,
+            time_embed_dim=cfg.time_embed_dim,
+        )
+        self.denoiser = InteractionDenoiser(
+            input_feats=cfg.input_feats,
+            num_frames=cfg.num_frames,
+            latent_dim=cfg.latent_dim,
+            ff_size=cfg.ff_size,
+            num_layers=cfg.num_layers,
+            num_heads=cfg.num_heads,
+            text_latent_dim=cfg.text_latent_dim,
+            fused_blocks=cfg.fused_blocks,
+        )
+
+    def encode_text(self, tokens: torch.Tensor):
+        """(B, 2, 77) tokens → ((B, 2, E), (B, 2, L, Dt))."""
+        B, A = tokens.shape[:2]
+        xf_proj, xf_out = self.text(tokens.reshape(B * A, -1).long())
+        return xf_proj.reshape(B, A, -1), xf_out.reshape(B, A, *xf_out.shape[1:])
+
+    def text_kv(self, xf_out: torch.Tensor) -> tuple:
+        return self.denoiser.text_kv(xf_out)
+
+    def denoise(self, x, timesteps, lengths, xf_proj, xf_out=None, text_kv=None,
+                adaln=None):
+        return self.denoiser(x, timesteps, lengths, xf_proj, xf_out,
+                             text_kv=text_kv, adaln=adaln)
+
+    def forward(self, x, timesteps, lengths, tokens):
+        xf_proj, xf_out = self.encode_text(tokens)
+        return self.denoise(x, timesteps, lengths, xf_proj, xf_out)

@@ -1,0 +1,152 @@
+"""Text conditioning stack: frozen CLIP text tower + learnable suffix
+(counterpart of ``hig_tpu/models/text_encoder.py``).
+
+  tokens → CLIP ViT-B/32 text transformer (pre-LN, QuickGELU, causal)
+         → text_pre_proj (when the widths differ)
+         → post-LN encoder layers (exact GELU, no mask)   → text_ln = xf_out
+         → pooled at the EOT position (argmax token id) → text_proj = xf_proj
+
+This runs once per sampling call, outside the step loop, as plain PyTorch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from hig_tpu_torch.models.embeddings import layer_norm
+
+
+@dataclasses.dataclass(frozen=True)
+class ClipTextConfig:
+    """OpenAI CLIP ViT-B/32 text-tower hyperparameters."""
+
+    vocab_size: int = 49408
+    context_length: int = 77
+    width: int = 512
+    heads: int = 8
+    layers: int = 12
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(1.702 * x)
+
+
+def _attention(x, in_proj: nn.Linear, out_proj: nn.Linear, heads: int, causal: bool):
+    N, L, D = x.shape
+    q, k, v = in_proj(x).reshape(N, L, 3, heads, D // heads).permute(2, 0, 3, 1, 4)
+    logits = q @ k.transpose(-1, -2) / math.sqrt(D // heads)
+    if causal:
+        keep = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+        logits = logits.masked_fill(~keep, float("-inf"))
+    y = logits.softmax(dim=-1) @ v  # (N, H, L, hd)
+    return out_proj(y.transpose(1, 2).reshape(N, L, D))
+
+
+class ClipAttention(nn.Module):
+    def __init__(self, width: int, heads: int):
+        super().__init__()
+        self.heads = heads
+        self.in_proj = nn.Linear(width, 3 * width)
+        self.out_proj = nn.Linear(width, width)
+
+    def forward(self, x, causal: bool = True):
+        return _attention(x, self.in_proj, self.out_proj, self.heads, causal)
+
+
+class ClipResidualBlock(nn.Module):
+    """Pre-LN residual attention block with QuickGELU MLP."""
+
+    def __init__(self, width: int, heads: int):
+        super().__init__()
+        self.ln_1 = layer_norm(width)
+        self.attn = ClipAttention(width, heads)
+        self.ln_2 = layer_norm(width)
+        self.mlp_fc = nn.Linear(width, 4 * width)
+        self.mlp_proj = nn.Linear(4 * width, width)
+
+    def forward(self, x):
+        x = x + self.attn(self.ln_1(x))
+        return x + self.mlp_proj(quick_gelu(self.mlp_fc(self.ln_2(x))))
+
+
+class ClipTextTower(nn.Module):
+    """Token ids (N, 77) → final-LN token features (N, 77, width)."""
+
+    def __init__(self, config: ClipTextConfig = ClipTextConfig()):
+        super().__init__()
+        self.token_embedding = nn.Parameter(torch.empty(config.vocab_size, config.width))
+        self.positional_embedding = nn.Parameter(
+            torch.empty(config.context_length, config.width)
+        )
+        self.blocks = nn.ModuleList(
+            ClipResidualBlock(config.width, config.heads) for _ in range(config.layers)
+        )
+        self.ln_final = layer_norm(config.width)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        x = self.token_embedding[tokens.long()] + self.positional_embedding
+        for block in self.blocks:
+            x = block(x)
+        return self.ln_final(x)
+
+
+class PostLNEncoderLayer(nn.Module):
+    """torch nn.TransformerEncoderLayer (norm_first=False, gelu) equivalent,
+    with flax's LayerNorm eps; no padding mask on the serving path."""
+
+    def __init__(self, d_model: int, heads: int, ff_size: int):
+        super().__init__()
+        self.heads = heads
+        self.in_proj = nn.Linear(d_model, 3 * d_model)
+        self.out_proj = nn.Linear(d_model, d_model)
+        self.norm1 = layer_norm(d_model)
+        self.linear1 = nn.Linear(d_model, ff_size)
+        self.linear2 = nn.Linear(ff_size, d_model)
+        self.norm2 = layer_norm(d_model)
+
+    def forward(self, x):
+        x = self.norm1(x + _attention(x, self.in_proj, self.out_proj, self.heads, False))
+        return self.norm2(x + self.linear2(F.gelu(self.linear1(x))))
+
+
+class TextEncoder(nn.Module):
+    """tokens → (xf_proj (N, time_embed_dim), xf_out (N, 77, text_latent_dim))."""
+
+    def __init__(self, clip_config: ClipTextConfig = ClipTextConfig(),
+                 text_latent_dim: int = 256, text_ff_size: int = 2048,
+                 text_num_heads: int = 4, num_text_layers: int = 4,
+                 time_embed_dim: int = 2048):
+        super().__init__()
+        self.clip = ClipTextTower(clip_config)
+        self.text_pre_proj = (
+            nn.Linear(clip_config.width, text_latent_dim)
+            if text_latent_dim != clip_config.width else None
+        )
+        self.text_blocks = nn.ModuleList(
+            PostLNEncoderLayer(text_latent_dim, text_num_heads, text_ff_size)
+            for _ in range(num_text_layers)
+        )
+        self.text_ln = layer_norm(text_latent_dim)
+        self.text_proj = nn.Linear(text_latent_dim, time_embed_dim)
+
+    def tower(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Frozen CLIP features (N, 77, width)."""
+        return self.clip(tokens)
+
+    def from_tower(self, tower_out: torch.Tensor, tokens: torch.Tensor):
+        """Learnable suffix: tower features + tokens → (xf_proj, xf_out)."""
+        x = tower_out if self.text_pre_proj is None else self.text_pre_proj(tower_out)
+        for block in self.text_blocks:
+            x = block(x)
+        xf_out = self.text_ln(x)
+        eot = tokens.argmax(dim=-1)
+        pooled = xf_out[torch.arange(xf_out.shape[0], device=xf_out.device), eot]
+        return self.text_proj(pooled), xf_out
+
+    def forward(self, tokens: torch.Tensor):
+        return self.from_tower(self.tower(tokens), tokens)

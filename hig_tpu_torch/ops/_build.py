@@ -1,0 +1,113 @@
+"""Build the CUDA sources under ``hig_tpu_torch/csrc`` with nvcc and load them
+with ctypes.
+
+Each ``csrc/<name>.cu`` becomes one shared library with a plain C interface,
+``hig_tpu_torch/_build/lib<name>-<hash>.so``, where the hash covers the
+source and every header of ``csrc``, so an edited source is rebuilt and a
+built one is reused. Nothing is built when a module is imported: the first
+wrapper call on a CUDA tensor builds its library, and :func:`build_all`
+builds every library at once, one nvcc process per source.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+SOURCES = ("fused_block", "projected_attention")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+        return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def library_path(name: str) -> str:
+    h = hashlib.sha1()
+    for path in [os.path.join(CSRC_DIR, f"{name}.cu")] + sorted(
+        glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+    ):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
+
+
+def _start_build(name: str) -> tuple[subprocess.Popen, str, str] | None:
+    out = library_path(name)
+    if os.path.exists(out):
+        return None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp,
+           os.path.join(CSRC_DIR, f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, tmp, out
+
+
+def _finish_build(job: tuple[subprocess.Popen, str, str], log: dict) -> None:
+    proc, tmp, out = job
+    text, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {os.path.basename(out)}:\n{text}")
+    os.replace(tmp, out)
+    log[os.path.basename(out)] = text
+
+
+def build_all(names=SOURCES) -> dict:
+    """Build every library that is missing, all nvcc processes at once.
+
+    Returns {library file: nvcc output (register and shared-memory use)}
+    for the libraries built by this call, and the seconds it took under
+    ``"seconds"``.
+    """
+    t0 = time.perf_counter()
+    jobs = [job for job in (_start_build(n) for n in names) if job is not None]
+    log: dict = {}
+    try:
+        for job in jobs:
+            _finish_build(job, log)
+    finally:
+        for proc, tmp, _ in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    log["seconds"] = time.perf_counter() - t0
+    return log
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    path = library_path(name)
+    if not os.path.exists(path):
+        build_all((name,))
+    return ctypes.CDLL(path)
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())

@@ -1,0 +1,136 @@
+"""B1: one whole efficient self-attention or interaction block, forward.
+
+Counterpart of ``hig_tpu/ops/fused_block.py`` (``_block_kernel`` at :48,
+``fused_attention_block`` at :99):
+
+    xn = LayerNorm_attn(x)
+    q, k, v = xn·Wq+bq, kvn·Wk+bk, kvn·Wv+bv      (kvn = partner or self)
+    k += (1-mask)·(-1e6);  v *= mask
+    per head: y_h = softmax_feat(q_h) · [softmax_time(k_h)ᵀ v_h]
+    out = x + SiLU(LayerNorm_styl(y)·(1+scale) + shift)·Wo + bo
+
+In the interaction variant kv and the key mask are the other actor's
+(``flip`` on the actor axis of the (B, 2, T, D) layout).
+
+Kernel note (``csrc/fused_block.cu``). The TPU kernel ran the whole block
+per sequence in VMEM. On the H100 a (91, 512) f32 activation tile is 186 KB
+and one (512, 512) weight 1 MB against 227 KB of shared memory, and one
+block per sequence would fill 16 of 132 SMs. So the block is three
+launches: (a) a LayerNorm-prologue QKV GEMM (row statistics computed in the
+block, normalization applied as the A tile is loaded), (b) the
+per-(sequence, head) attention core shared with B2, which reads the
+partner's k/v rows (sequence n ^ 1) so no flipped copy is made, and (c) a
+LayerNorm + AdaLN + SiLU prologue Wo GEMM with the bias and residual in its
+epilogue. At N = 16, T = 91, D = 512 the block is ~3.2 GFLOP against ~10 MB
+of traffic: bound by the f32 FMA rate (67 TFLOP/s without tensor cores),
+so the GEMMs reuse each shared-memory load 4 times from 4×4 register
+tiles, and the q|k|v and y intermediates (12 MB) stay in L2 between
+launches. ``wgmma``, TMA and bf16 are left for later work.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from hig_tpu_torch.ops import _build
+from hig_tpu_torch.ops.pallas_attention import (
+    check_cuda_operand,
+    check_cuda_width,
+    efficient_attention,
+)
+
+LN_EPS = 1e-6
+
+
+class BlockWeights(NamedTuple):
+    """A block's parameters in torch layout (Linear weights are (out, in))."""
+
+    ln_g: torch.Tensor
+    ln_b: torch.Tensor
+    wq: torch.Tensor
+    bq: torch.Tensor
+    wk: torch.Tensor
+    bk: torch.Tensor
+    wv: torch.Tensor
+    bv: torch.Tensor
+    styl_g: torch.Tensor
+    styl_b: torch.Tensor
+    wo: torch.Tensor
+    bo: torch.Tensor
+
+
+def fused_attention_block_plain(x, key_mask, scale, shift, w: BlockWeights,
+                                num_heads: int, interaction: bool = False):
+    """Plain PyTorch version of B1.
+
+    x (..., T, D) — (B, 2, T, D) for the interaction variant; key_mask
+    broadcastable to (..., T), x's own mask; scale/shift (..., 1, D).
+    """
+    D = x.shape[-1]
+    mask = key_mask.to(x.dtype).expand(x.shape[:-1])
+    xn = F.layer_norm(x, (D,), w.ln_g, w.ln_b, LN_EPS)
+    kvn = xn
+    if interaction:
+        kvn, mask = xn.flip(-3), mask.flip(-2)
+    q = F.linear(xn, w.wq, w.bq)
+    k = F.linear(kvn, w.wk, w.bk)
+    v = F.linear(kvn, w.wv, w.bv)
+    y = efficient_attention(q, k, v, num_heads, mask)
+    z = F.layer_norm(y, (D,), w.styl_g, w.styl_b, LN_EPS) * (1 + scale) + shift
+    return x + F.linear(F.silu(z), w.wo, w.bo)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("fused_block")
+    fn = lib.hig_fused_block
+    fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.hig_error_string.argtypes = [ctypes.c_int]
+    lib.hig_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def fused_attention_block(x, key_mask, scale, shift, w: BlockWeights,
+                          num_heads: int, interaction: bool = False):
+    """One fused efficient-attention block (B1 forward); see the module doc.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    """
+    if x.device.type == "cpu":
+        return fused_attention_block_plain(x, key_mask, scale, shift, w, num_heads,
+                                           interaction)
+    lead, (T, D) = x.shape[:-2], x.shape[-2:]
+    if interaction and (x.dim() != 4 or x.shape[1] != 2):
+        raise ValueError(f"the interaction variant takes (B, 2, T, D), got {tuple(x.shape)}")
+    check_cuda_width(D, num_heads)
+    check_cuda_operand("x", x)
+    N = x.numel() // (T * D)
+    mask = key_mask.to(torch.float32).expand(*lead, T).reshape(N, T).contiguous()
+    scale = scale.expand(*lead, 1, D).reshape(N, D).contiguous()
+    shift = shift.expand(*lead, 1, D).reshape(N, D).contiguous()
+    for name, t in (("key_mask", mask), ("scale", scale), ("shift", shift)):
+        check_cuda_operand(name, t)
+    shapes = ((D,), (D,), (D, D), (D,), (D, D), (D,), (D, D), (D,), (D,), (D,), (D, D), (D,))
+    for name, t, shape in zip(BlockWeights._fields, w, shapes):
+        check_cuda_operand(name, t, shape)
+    qkv = torch.empty((N * T, 3 * D), device=x.device, dtype=torch.float32)
+    y = torch.empty((N * T, D), device=x.device, dtype=torch.float32)
+    out = torch.empty_like(x)
+    lib = _lib()
+    err = lib.hig_fused_block(
+        *map(_build.ptr, (x, mask, scale, shift, *w, qkv, y, out)),
+        N, T, D, int(interaction), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"fused block kernel: {lib.hig_error_string(err).decode()}")
+    fused_attention_block.launches += 1
+    return out
+
+
+fused_attention_block.launches = 0

@@ -1,0 +1,156 @@
+"""B2: efficient attention with the Q/K/V projections fused in, and the
+plain linear-attention core it shares with B1.
+
+Counterpart of ``hig_tpu/ops/pallas_attention.py``: only the projected
+kernel (``_proj_kernel`` at :116, ``fused_projected_attention`` at :202) is
+ported here. The attention core alone (``_kernel`` at :46) is not on the
+serving path and is still to be ported; so is B2's backward, which belongs
+to training.
+
+Kernel note (``csrc/projected_attention.cu``). The TPU kernel ran one grid
+step per sequence with the three (D, D) weights resident in VMEM. On the
+H100 one f32 (512, 512) weight is 1 MB and a block has 227 KB of shared
+memory, and 16 sequences would fill 16 of 132 SMs, so the work is split in
+two launches: a shared-memory-tiled FMA GEMM over the (N·T, 3·D) q|k|v
+output (64×64 tiles, the weights K-tiled by 16; 23 × 24 = 552 blocks at
+N = 16, T = 91, D = 512) and a core with one block per (sequence, head)
+that builds the 64×64 KᵀV state in shared memory. At the serving shape the
+work is ~2.3 GFLOP of f32 GEMM against ~9 MB of traffic, so the bound is
+the card's f32 FMA rate (67 TFLOP/s without tensor cores): the GEMM keeps
+4×4 accumulators per thread to reuse each shared-memory load 4 times, and
+the q|k|v intermediate (9 MB) stays in L2 between the two launches.
+``wgmma``, TMA and bf16 are left for later work.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from hig_tpu_torch.ops import _build
+
+HEAD_DIM = 64  # the only head width the CUDA core takes
+MASK_BIAS = -1000000.0
+
+
+def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    return x.reshape(*x.shape[:-1], num_heads, x.shape[-1] // num_heads)
+
+
+def efficient_attention(query, key, value, num_heads: int, key_mask=None):
+    """Shared plain core of the linear-attention family.
+
+    query (..., T, D), key/value (..., N, D); key_mask (..., N) 0/1.
+    softmax(Q over features) · [softmax(K over time)ᵀ V].
+    """
+    D = query.shape[-1]
+    q = split_heads(query, num_heads)
+    if key_mask is not None:
+        key = key + (1.0 - key_mask[..., None]) * MASK_BIAS
+        value = value * key_mask[..., None]
+    k = split_heads(key, num_heads).softmax(dim=-3)  # over the time axis
+    v = split_heads(value, num_heads)
+    q = q.softmax(dim=-1)
+    attention = torch.einsum("...nhd,...nhl->...hdl", k, v)
+    y = torch.einsum("...nhd,...hdl->...nhl", q, attention)
+    return y.reshape(*y.shape[:-2], D)
+
+
+def merged_qkv(xn, wq, bq, wk, bk, wv, bv):
+    """One (D, 3D) product instead of three (D, D) ones; q, k, v order."""
+    w = torch.cat([wq, wk, wv], dim=0)
+    b = torch.cat([bq, bk, bv])
+    return F.linear(xn, w, b).chunk(3, dim=-1)
+
+
+def fused_projected_attention_plain(q_src, kv_src, wq, bq, wk, bk, wv, bv,
+                                    num_heads: int, key_mask=None):
+    """Plain PyTorch version of B2. Weights are torch Linear (out, in)."""
+    if kv_src is q_src:
+        q, k, v = merged_qkv(q_src, wq, bq, wk, bk, wv, bv)
+    else:
+        q = F.linear(q_src, wq, bq)
+        k = F.linear(kv_src, wk, bk)
+        v = F.linear(kv_src, wv, bv)
+    return efficient_attention(q, k, v, num_heads, key_mask)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("projected_attention")
+    fn = lib.hig_projected_attention
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.hig_error_string.argtypes = [ctypes.c_int]
+    lib.hig_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_cuda_operand(name: str, t: torch.Tensor, shape=None) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def check_cuda_width(D: int, num_heads: int) -> None:
+    if D % num_heads or D // num_heads != HEAD_DIM:
+        raise ValueError(
+            f"the CUDA kernels take a head dim of {HEAD_DIM}; "
+            f"got D={D}, heads={num_heads}"
+        )
+
+
+def fused_projected_attention(q_src, kv_src, wq, bq, wk, bk, wv, bv,
+                              num_heads: int, key_mask=None):
+    """Efficient attention with the QKV projections fused in (B2 forward).
+
+    q_src (..., T, D) and kv_src (..., T, D), already normalized; weights in
+    torch Linear layout (out, in); key_mask broadcastable to (..., T), the
+    mask of kv_src's tokens. Returns the pre-gate output (..., T, D).
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    """
+    if q_src.device.type == "cpu":
+        return fused_projected_attention_plain(q_src, kv_src, wq, bq, wk, bk, wv, bv,
+                                               num_heads, key_mask)
+    lead, (T, D) = q_src.shape[:-2], q_src.shape[-2:]
+    if tuple(kv_src.shape) != tuple(q_src.shape):
+        raise ValueError(
+            f"the CUDA kernel takes q_src and kv_src of one shape; got "
+            f"{tuple(q_src.shape)} and {tuple(kv_src.shape)}"
+        )
+    check_cuda_width(D, num_heads)
+    check_cuda_operand("q_src", q_src)
+    check_cuda_operand("kv_src", kv_src)
+    for name, w, b in (("query", wq, bq), ("key", wk, bk), ("value", wv, bv)):
+        check_cuda_operand(f"{name} weight", w, (D, D))
+        check_cuda_operand(f"{name} bias", b, (D,))
+    N = q_src.numel() // (T * D)
+    if key_mask is None:
+        mask = torch.ones((N, T), device=q_src.device, dtype=torch.float32)
+    else:
+        mask = key_mask.to(torch.float32).expand(*lead, T).reshape(N, T).contiguous()
+    check_cuda_operand("key_mask", mask)
+    qkv = torch.empty((N * T, 3 * D), device=q_src.device, dtype=torch.float32)
+    out = torch.empty_like(q_src)
+    lib = _lib()
+    err = lib.hig_projected_attention(
+        *map(_build.ptr, (q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, qkv, out)),
+        N, T, D, torch.cuda.current_stream(q_src.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"projected attention kernel: {lib.hig_error_string(err).decode()}")
+    fused_projected_attention.launches += 1
+    return out
+
+
+fused_projected_attention.launches = 0

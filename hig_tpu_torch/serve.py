@@ -1,0 +1,179 @@
+"""Batch serving: caption-pair requests → sampled motions (counterpart of
+``tools/serve.py``).
+
+Request file: one JSON object per line,
+  {"caption1": "...", "caption2": "...", "length": 60, "id": "req0"}
+(id and length optional; length defaults to --motion_length).
+
+Outputs per request: <out_dir>/<id>.npz with features (2, L+1, 263) and
+joints (2, L, 22, 3); plus index.json.
+
+Weights come from --params (a flattened JAX parameter tree saved with
+np.savez under "params/denoiser/layer_0/..." keys) or from --random_init
+SEED (seeded random weights, every leaf nonzero). The model's widths come
+from --model_config (a JSON object of ModelConfig fields), default the
+flagship. --blocks fused runs the self-attention and interaction blocks
+through the fused-block kernel, --blocks projected through the
+projected-attention kernel.
+
+    python -m hig_tpu_torch.serve --requests reqs.jsonl --random_init 0
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from hig_tpu_torch import resolve_device
+from hig_tpu_torch.diffusion import gaussian as g
+from hig_tpu_torch.models.interaction_model import InteractionModel, ModelConfig
+from hig_tpu_torch.models.tokenizer import tokenize
+from hig_tpu_torch.train.trainer import eval_params, make_sampler
+from hig_tpu_torch.utils.motion_codec import recover_from_ric2
+from hig_tpu_torch.weights import load_flax_tree, load_npz, random_flax_tree
+
+JOINTS_NUM = 22
+
+
+def load_requests(path: str, motion_length: int) -> list[dict]:
+    requests = []
+    with open(path) as f:
+        for i, line in enumerate(f):
+            line = line.strip()
+            if not line:
+                continue
+            req = json.loads(line)
+            req.setdefault("id", f"req{i}")
+            req.setdefault("length", motion_length)
+            requests.append(req)
+    return requests
+
+
+def load_stats(stats_dir: str | None, dim_pose: int):
+    """mean/std (dim_pose + 4,) from <stats_dir>/{mean,std}.npy, else
+    identity."""
+    if stats_dir is None:
+        return np.zeros(dim_pose + 4, np.float32), np.ones(dim_pose + 4, np.float32)
+    mean = np.load(os.path.join(stats_dir, "mean.npy")).astype(np.float32)
+    std = np.load(os.path.join(stats_dir, "std.npy")).astype(np.float32)
+    return mean, std
+
+
+def build_model(cfg: ModelConfig, device, params: str | None = None,
+                random_init: int | None = None) -> InteractionModel:
+    """The model on ``device`` with weights from a JAX tree file or a seed."""
+    if (params is None) == (random_init is None):
+        raise ValueError("give exactly one of params and random_init")
+    if params is not None:
+        tree = load_npz(params)
+        if "params" not in tree:
+            raise ValueError(f"{params}: expected keys under params/ (and maybe ema_params/)")
+        weights = eval_params(tree)
+    else:
+        weights = random_flax_tree(cfg, random_init)["params"]
+    model = InteractionModel(cfg)
+    load_flax_tree(model, weights)
+    return model.to(device).eval()
+
+
+def tokens_for(requests: list[dict]) -> np.ndarray:
+    """(B, 2, 77) caption-pair token ids."""
+    return np.stack([
+        np.stack([tokenize(r["caption1"])[0], tokenize(r["caption2"])[0]])
+        for r in requests
+    ]).astype(np.int64)
+
+
+def decode(out: torch.Tensor, mean: np.ndarray, std: np.ndarray):
+    """Sampled (B, 2, T, F) → (de-normalized features, joints (B, 2, T-1, J, 3))."""
+    mean = torch.as_tensor(mean, device=out.device)
+    std = torch.as_tensor(std, device=out.device)
+    frames = out[:, :, 1:] * std[:-4] + mean[:-4]
+    init = out[:, :, :1, :4] * std[-4:] + mean[-4:]
+    denorm = torch.cat([torch.cat([init, out[:, :, :1, 4:]], dim=-1), frames], dim=2)
+    rolled = torch.cat([denorm[:, :, 1:], denorm[:, :, :1]], dim=2)
+    j1, j2 = recover_from_ric2(rolled[:, 0], rolled[:, 1], JOINTS_NUM, init_last=True)
+    return denorm, torch.stack([j1, j2], dim=1)
+
+
+def serve_batch(sample_fn, requests: list[dict], mean, std, device, generator=None):
+    """Sample and decode one batch; returns (features, joints) on the host."""
+    tokens = tokens_for(requests)
+    lengths = np.asarray([r["length"] + 1 for r in requests], np.int64)
+    out = sample_fn(torch.from_numpy(tokens).to(device),
+                    torch.from_numpy(lengths).to(device), generator=generator)
+    denorm, joints = decode(out, mean, std)
+    return denorm.cpu().numpy(), joints.cpu().numpy()
+
+
+def write_results(out_dir: str, requests: list[dict], features, joints, index: list):
+    for i, req in enumerate(requests):
+        L = req["length"]
+        path = os.path.join(out_dir, f"{req['id']}.npz")
+        np.savez(path, features=features[i, :, : L + 1], joints=joints[i, :, :L])
+        index.append({"id": req["id"], "path": path, "length": L})
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--requests", required=True, help="jsonl of caption-pair requests")
+    parser.add_argument("--out_dir", default="./result/serve")
+    parser.add_argument("--params", default=None, help="npz of a flattened JAX param tree")
+    parser.add_argument("--random_init", type=int, default=None,
+                        help="seed of random weights (instead of --params)")
+    parser.add_argument("--model_config", default=None,
+                        help="JSON file of ModelConfig fields (default: flagship)")
+    parser.add_argument("--stats", default=None, help="directory with mean.npy and std.npy")
+    parser.add_argument("--blocks", choices=("fused", "projected"), default="fused")
+    parser.add_argument("--batch_size", type=int, default=256)
+    parser.add_argument("--motion_length", type=int, default=60)
+    parser.add_argument("--ddim_steps", type=int, default=50)
+    parser.add_argument("--diffusion_steps", type=int, default=1000)
+    parser.add_argument("--seed", type=int, default=0, help="seed of the initial noise")
+    parser.add_argument("--device", default="cuda")
+    args = parser.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg_fields = {}
+    if args.model_config:
+        with open(args.model_config) as f:
+            cfg_fields = json.load(f)
+    cfg = ModelConfig(**{**cfg_fields, "fused_blocks": args.blocks == "fused"})
+    model = build_model(cfg, device, args.params, args.random_init)
+    mean, std = load_stats(args.stats, cfg.input_feats)
+
+    requests = load_requests(args.requests, args.motion_length)
+    print(f"{len(requests)} requests")
+    T = max(r["length"] for r in requests) + 1  # + init token
+    sched = g.make_schedule(g.linear_betas(args.diffusion_steps))
+    sample_fn = make_sampler(model, sched, T=T, dim_pose=cfg.input_feats,
+                             ddim_steps=args.ddim_steps)
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+
+    os.makedirs(args.out_dir, exist_ok=True)
+    index: list = []
+    t_start = time.time()
+    frames_done = 0
+    for lo in range(0, len(requests), args.batch_size):
+        chunk = requests[lo : lo + args.batch_size]
+        features, joints = serve_batch(sample_fn, chunk, mean, std, device, generator)
+        write_results(args.out_dir, chunk, features, joints, index)
+        frames_done += sum(r["length"] * 2 for r in chunk)
+        elapsed = time.time() - t_start
+        print(f"[{elapsed:.1f}s] {lo + len(chunk)}/{len(requests)} "
+              f"({frames_done / elapsed:.0f} frames/s)")
+    with open(os.path.join(args.out_dir, "index.json"), "w") as f:
+        json.dump(index, f)
+    print(f"wrote {len(index)} results to {args.out_dir} "
+          f"(model {json.dumps(dataclasses.asdict(cfg))})")
+
+
+if __name__ == "__main__":
+    main()

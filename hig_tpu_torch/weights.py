@@ -1,0 +1,190 @@
+"""Weights carried across from the JAX package's parameter trees.
+
+A JAX ``InteractionModel`` tree is nested dicts of arrays under
+``params/{text,denoiser}``. :func:`load_flax_tree` maps it onto the port's
+modules: flax Dense ``kernel`` (in, out) becomes Linear ``weight``
+(out, in), LayerNorm ``scale`` becomes ``weight``, and the flax names
+``layer_{i}``, ``text_blocks_{i}`` and ``clip/block_{i}`` become the
+``ModuleList`` entries ``layers.{i}``, ``text_blocks.{i}`` and
+``clip.blocks.{i}``. A leaf left over or a parameter left unset is an
+error.
+
+:func:`random_flax_tree` builds that same tree from a seed with every leaf
+nonzero. (The JAX init zeroes ``out``, ``out2``, ``ffn/linear2`` and every
+``proj_out/out``, so a freshly initialized model predicts ε ≡ 0 and any
+comparison against it passes vacuously.)
+"""
+
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+from torch import nn
+
+from hig_tpu_torch.models.interaction_model import ModelConfig
+
+_LIST_NAMES = (
+    (re.compile(r"layer_(\d+)"), "layers.{}"),
+    (re.compile(r"text_blocks_(\d+)"), "text_blocks.{}"),
+    (re.compile(r"block_(\d+)"), "blocks.{}"),
+)
+
+
+def flatten(tree: dict, prefix: tuple = ()) -> dict:
+    """Nested dict → {path tuple: leaf}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def unflatten(flat: dict) -> dict:
+    """{"a/b/c": leaf} or {(a, b, c): leaf} → nested dict."""
+    tree: dict = {}
+    for key, v in flat.items():
+        parts = key.split("/") if isinstance(key, str) else key
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return tree
+
+
+def _torch_key(path: tuple) -> str:
+    parts = []
+    for p in path[:-1]:
+        for pattern, fmt in _LIST_NAMES:
+            m = pattern.fullmatch(p)
+            if m:
+                p = fmt.format(m.group(1))
+                break
+        parts.append(p)
+    leaf = path[-1]
+    parts.append({"kernel": "weight", "scale": "weight"}.get(leaf, leaf))
+    return ".".join(parts)
+
+
+def torch_state_from_flax(tree: dict) -> dict[str, torch.Tensor]:
+    """A flax param tree (with or without the outer ``params``) → a torch
+    state dict of float32 CPU tensors."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    state = {}
+    for path, leaf in flatten(tree).items():
+        arr = np.asarray(leaf, dtype=np.float32)
+        if path[-1] == "kernel":
+            arr = arr.T
+        state[_torch_key(path)] = torch.from_numpy(np.ascontiguousarray(arr))
+    return state
+
+
+def load_flax_tree(model: nn.Module, tree: dict) -> nn.Module:
+    """Load a JAX parameter tree into ``model``; every leaf must land on one
+    parameter of matching shape and every parameter must be set."""
+    state = torch_state_from_flax(tree)
+    expected = model.state_dict()
+    unused = sorted(set(state) - set(expected))
+    unset = sorted(set(expected) - set(state))
+    if unused or unset:
+        raise ValueError(f"flax tree does not match the model: unused leaves {unused}, "
+                         f"unset parameters {unset}")
+    bad = [(k, tuple(state[k].shape), tuple(v.shape)) for k, v in expected.items()
+           if state[k].shape != v.shape]
+    if bad:
+        raise ValueError(f"shape mismatch (name, tree, model): {bad}")
+    model.load_state_dict(state, strict=True)
+    return model
+
+
+def load_npz(path: str) -> dict:
+    """A flattened flax tree saved with ``np.savez`` under "a/b/c" keys."""
+    with np.load(path) as f:
+        return unflatten({k: f[k] for k in f.files})
+
+
+def _dense(d_in: int, d_out: int) -> dict:
+    return {"kernel": (d_in, d_out), "bias": (d_out,)}
+
+
+def _ln(d: int) -> dict:
+    return {"scale": (d,), "bias": (d,)}
+
+
+def flax_param_shapes(cfg: ModelConfig) -> dict:
+    """The JAX ``InteractionModel`` parameter tree of ``cfg`` as shapes."""
+    W, D, Dt, E = cfg.clip.width, cfg.latent_dim, cfg.text_latent_dim, cfg.time_embed_dim
+    clip = {
+        "token_embedding": (cfg.clip.vocab_size, W),
+        "positional_embedding": (cfg.clip.context_length, W),
+        "ln_final": _ln(W),
+    }
+    for i in range(cfg.clip.layers):
+        clip[f"block_{i}"] = {
+            "ln_1": _ln(W),
+            "attn": {"in_proj": _dense(W, 3 * W), "out_proj": _dense(W, W)},
+            "ln_2": _ln(W),
+            "mlp_fc": _dense(W, 4 * W),
+            "mlp_proj": _dense(4 * W, W),
+        }
+    text = {"clip": clip, "text_ln": _ln(Dt), "text_proj": _dense(Dt, E)}
+    if Dt != W:
+        text["text_pre_proj"] = _dense(W, Dt)
+    for i in range(cfg.num_text_layers):
+        text[f"text_blocks_{i}"] = {
+            "in_proj": _dense(Dt, 3 * Dt), "out_proj": _dense(Dt, Dt),
+            "norm1": _ln(Dt), "linear1": _dense(Dt, cfg.text_ff_size),
+            "linear2": _dense(cfg.text_ff_size, Dt), "norm2": _ln(Dt),
+        }
+
+    def styl():
+        return {"emb": _dense(E, 2 * D), "norm": _ln(D), "out": _dense(D, D)}
+
+    def attn(d_kv):
+        return {"norm": _ln(D), "query": _dense(D, D), "key": _dense(d_kv, D),
+                "value": _dense(d_kv, D), "proj_out": styl()}
+
+    den = {
+        "sequence_embedding": (cfg.num_frames, D),
+        "joint_embed": _dense(cfg.input_feats, D),
+        "joint_embed2": _dense(4, D),
+        "time_embed": {"fc1": _dense(D, E), "fc2": _dense(E, E)},
+        "out": _dense(D, cfg.input_feats),
+        "out2": _dense(D, cfg.input_feats),
+    }
+    for i in range(cfg.num_layers):
+        den[f"layer_{i}"] = {
+            "sa_block": attn(D),
+            "ca_block": {**attn(Dt), "text_norm": _ln(Dt)},
+            "int_ca_block": attn(D),
+            "ffn": {"linear1": _dense(D, cfg.ff_size), "linear2": _dense(cfg.ff_size, D),
+                    "proj_out": styl()},
+        }
+    return {"params": {"text": text, "denoiser": den}}
+
+
+def random_flax_tree(cfg: ModelConfig, seed: int) -> dict:
+    """Seeded random JAX-layout parameter tree with every leaf nonzero:
+    kernels ~ N(0, 1/fan_in), biases ~ N(0, 0.1²), LayerNorm scales
+    ~ 1 + N(0, 0.1²), embeddings at the JAX init's scales."""
+    rng = np.random.default_rng(seed)
+    embed_std = {"token_embedding": 0.02, "positional_embedding": 0.01,
+                 "sequence_embedding": 1.0}
+    flat = {}
+    for path, shape in sorted(flatten(flax_param_shapes(cfg)).items()):
+        z = rng.standard_normal(shape, dtype=np.float32)
+        leaf = path[-1]
+        if leaf == "kernel":
+            z *= np.float32(1.0 / np.sqrt(shape[0]))
+        elif leaf == "scale":
+            z = np.float32(1.0) + np.float32(0.1) * z
+        elif leaf == "bias":
+            z *= np.float32(0.1)
+        else:
+            z *= np.float32(embed_std[leaf])
+        flat[path] = z
+    return unflatten(flat)

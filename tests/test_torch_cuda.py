@@ -1,0 +1,91 @@
+"""CUDA kernels of the PyTorch port against their plain versions on the card.
+
+Marked ``cuda``: each test skips without an NVIDIA GPU. The GPU machine has
+no JAX, so run this file there without the repository's conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Shapes are the serving path's: 8 caption pairs (N = 16 sequences), T = 91,
+D = 512, 8 heads of 64, float32, ragged lengths. Tolerance 1e-4 absolute:
+float32 sums run in another order than cuBLAS's, and the block's second
+LayerNorm rescales the attention output by 1/std.
+"""
+
+import pytest
+import torch
+
+from hig_tpu_torch.ops.fused_block import (
+    BlockWeights,
+    fused_attention_block,
+    fused_attention_block_plain,
+)
+from hig_tpu_torch.ops.pallas_attention import (
+    fused_projected_attention,
+    fused_projected_attention_plain,
+)
+
+pytestmark = pytest.mark.cuda
+N_PAIRS, T, D, H = 8, 91, 512, 8
+TOL = 1e-4
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(device):
+    gen = torch.Generator().manual_seed(0)
+
+    def randn(*shape, std=1.0):
+        return (std * torch.randn(shape, generator=gen)).to(device)
+
+    w = BlockWeights(*(
+        1 + randn(D, std=0.1) if name.endswith("_g") else
+        randn(D, D, std=D ** -0.5) if name.startswith("w") else randn(D, std=0.1)
+        for name in BlockWeights._fields
+    ))
+    lengths = torch.tensor([91, 80, 64, 91, 33, 70, 12, 50], device=device)
+    mask = (torch.arange(T, device=device) < lengths[:, None]).float()
+    mask = mask[:, None, :].expand(N_PAIRS, 2, T).contiguous()
+    return (w, randn(N_PAIRS, 2, T, D), mask, randn(N_PAIRS, 2, 1, D, std=0.5),
+            randn(N_PAIRS, 2, 1, D, std=0.5))
+
+
+@pytest.mark.parametrize("interaction", [False, True], ids=["self", "interaction"])
+def test_fused_block_kernel(cuda, interaction):
+    w, x, mask, scale, shift = _inputs(cuda)
+    before = fused_attention_block.launches
+    got = fused_attention_block(x, mask, scale, shift, w, H, interaction)
+    torch.cuda.synchronize()
+    assert fused_attention_block.launches == before + 1
+    want = fused_attention_block_plain(x, mask, scale, shift, w, H, interaction)
+    assert (got - want).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("same_source", [True, False], ids=["self", "partner"])
+def test_projected_attention_kernel(cuda, same_source):
+    w, x, mask, _, _ = _inputs(cuda)
+    xn = torch.nn.functional.layer_norm(x, (D,), w.ln_g, w.ln_b, 1e-6)
+    kv, kmask = (xn, mask) if same_source else (xn.flip(1).contiguous(),
+                                               mask.flip(1).contiguous())
+    args = (xn, kv, w.wq, w.bq, w.wk, w.bk, w.wv, w.bv, H, kmask)
+    before = fused_projected_attention.launches
+    got = fused_projected_attention(*args)
+    torch.cuda.synchronize()
+    assert fused_projected_attention.launches == before + 1
+    assert (got - fused_projected_attention_plain(*args)).abs().max().item() <= TOL
+
+
+def test_kernels_refuse_unsupported_shapes(cuda):
+    w, x, mask, scale, shift = _inputs(cuda)
+    with pytest.raises(ValueError):  # head dim 32
+        fused_attention_block(x, mask, scale, shift, w, 16)
+    with pytest.raises(ValueError):  # not contiguous
+        fused_attention_block(x.transpose(0, 1), mask, scale, shift, w, H)
+    with pytest.raises(ValueError):  # float64
+        fused_projected_attention(x.double(), x.double(), w.wq, w.bq, w.wk, w.bk,
+                                  w.wv, w.bv, H)

@@ -6,21 +6,26 @@
 Phases, each printing one JSON line:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; TF32 is turned off so float32 products stay float32;
-  2. build: nvcc builds every kernel library of the serving path, one
-     process per source, all started together;
+  2. build: nvcc builds every kernel library (B1-B4), one process per
+     source, all started together;
   3. kernels: each kernel against its plain PyTorch version on the card at
      the serving shape (N = 16 sequences = 8 caption pairs, T = 91 tokens,
-     D = 512, 8 heads, float32, ragged lengths), with its time, the plain
-     version's time and the card's lower bound for the same work;
+     D = 512, 8 heads, float32, ragged lengths): B1 self and interaction;
+     B2; B3 through the model's ``_attend`` with 91 and 77 keys; B4 self
+     (q, k, v read in place from one merged product), partner, causal, and
+     91 queries on 77 keys. Each with its time, the plain version's time,
+     the card's lower bound for the same work and, for B4, the time of
+     torch's scaled_dot_product_attention on the same inputs;
   4. denoiser: one full-width denoiser call through each kernel against the
-     same call through the plain versions;
+     same call through the plain versions: efficient blocks through B1 and
+     through B2, and the quadratic (--no_eff) denoiser through B4;
   5. serve: 8 caption-pair requests at full width with seeded random
-     weights, DDIM-50, once with --blocks fused and once with --blocks
-     projected, through hig_tpu_torch.serve's functions; the launch counts
-     of each of 3 timed calls, finite outputs of the right shape, the
-     median wall time per call,
-     agreement with the same sampler through the plain versions, and the
-     device time by kernel of one more call (torch.profiler).
+     weights, DDIM-50, three times: --blocks fused, --blocks projected and
+     --no_eff, through hig_tpu_torch.serve's functions; the launch counts
+     of each of 3 timed calls (800 for the run's own kernel, 0 for every
+     other), finite outputs of the right shape, the median wall time per
+     call, agreement with the same sampler through the plain versions, and
+     the device time by kernel of one more call (torch.profiler).
 Then the kernel table, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero without
 that line. Imports nothing of JAX or of the JAX package.
@@ -44,7 +49,11 @@ N_PAIRS, T, D, HEADS = 8, 91, 512, 8
 LENGTHS = (90, 84, 77, 63, 90, 51, 35, 70)  # frames; T = max + 1 (init token)
 DDIM_STEPS = 50
 LAUNCHES_PER_CALL = 8 * 2 * DDIM_STEPS  # layers × kernel blocks × steps
-SERVE_CALLS = 3  # timed serving calls per --blocks value
+SERVE_CALLS = 3  # timed serving calls per serving run
+TK_SHORT = 77  # keys of the Tq != Tk kernel checks
+# serving run → the kernel its self-attention and interaction blocks launch
+SERVE_RUNS = {"fused": "fused_block", "projected": "projected_attention",
+              "no_eff": "flash_attention"}
 # Card rates for the bound: float32 without tensor cores and HBM3 bandwidth
 # of an H100 SXM (NVIDIA data sheet).
 PEAK_F32_FLOPS = 67e12
@@ -66,19 +75,29 @@ def fail_if(failures: list, cond: bool, what: str) -> None:
 
 
 def time_ms(fn, warmup: int = 3, calls: int = 20, repeats: int = 5) -> float:
-    """Device ms per call: CUDA events around ``calls`` back-to-back calls,
-    divided by ``calls``; the median of ``repeats`` such runs after
-    ``warmup`` calls. Back to back, the host queues work ahead of the card,
-    so host gaps between single calls do not count."""
-    for _ in range(warmup):
-        fn()
+    """Device ms per call: ``calls`` back-to-back calls captured in one CUDA
+    graph after ``warmup`` eager calls, CUDA events around a replay, divided
+    by ``calls``; the median of ``repeats`` replays. A replay launches the
+    captured kernels without the host, so the wrapper's host work (checks,
+    ctypes) does not count where it is slower than the kernel it launches;
+    the small device ops a wrapper adds (mask copies) do."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
     times = []
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(calls):
-            fn()
+        graph.replay()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
@@ -90,27 +109,50 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def wrappers() -> dict:
+    """Every kernel wrapper of the port by kernel name."""
+    from hig_tpu_torch.ops.flash_attention import flash_attention
+    from hig_tpu_torch.ops.fused_block import fused_attention_block
+    from hig_tpu_torch.ops.pallas_attention import (
+        fused_efficient_attention,
+        fused_projected_attention,
+    )
+
+    return {"fused_block": fused_attention_block,
+            "projected_attention": fused_projected_attention,
+            "efficient_attention": fused_efficient_attention,
+            "flash_attention": flash_attention}
+
+
 @contextlib.contextmanager
 def plain_blocks():
     """Route the attention blocks through the plain versions (on any device)."""
     from hig_tpu_torch.models import attention
-    from hig_tpu_torch.ops import fused_block, pallas_attention
+    from hig_tpu_torch.ops import flash_attention, fused_block, pallas_attention
 
-    saved = attention.fused_attention_block, attention.fused_projected_attention
-    attention.fused_attention_block = fused_block.fused_attention_block_plain
-    attention.fused_projected_attention = pallas_attention.fused_projected_attention_plain
+    plain = {"fused_attention_block": fused_block.fused_attention_block_plain,
+             "fused_projected_attention": pallas_attention.fused_projected_attention_plain,
+             "fused_efficient_attention": pallas_attention.efficient_attention,
+             "flash_attention": flash_attention.flash_attention_plain}
+    saved = {name: getattr(attention, name) for name in plain}
+    for name, fn in plain.items():
+        setattr(attention, name, fn)
     try:
         yield
     finally:
-        attention.fused_attention_block, attention.fused_projected_attention = saved
+        for name, fn in saved.items():
+            setattr(attention, name, fn)
 
 
 def profile_call(fn) -> dict:
-    """Device time by kernel over one call of ``fn`` (torch.profiler)."""
+    """Device time by kernel over one call of ``fn`` (torch.profiler). Only
+    device activity is recorded: host op events would add ~30,000 events
+    to a call and some 15 s to their summary, and no number here reads
+    them."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -243,7 +285,116 @@ def phase_kernels(device, failures) -> dict:
                       "mbytes": nbytes / 1e6, "bound_us": b_ms * 1e3,
                       "bound_by": b_by}), flush=True)
     fail_if(failures, not err <= KERNEL_TOL, f"projected_attention max |err| {err}")
+
+    rows["efficient_attention"] = check_efficient_attention(w, x, mask, failures)
+    rows["flash_attention"] = check_flash_attention(w, x, mask, failures)
     return rows
+
+
+def check_efficient_attention(w, x, mask, failures) -> dict:
+    """B3 through the model's ``_attend``, with 91 and with 77 keys."""
+    from hig_tpu_torch.models import attention
+    from hig_tpu_torch.ops.pallas_attention import efficient_attention
+
+    F = torch.nn.functional
+    N, hd = 2 * N_PAIRS, D // HEADS
+    q, k, v = F.linear(x, w.wq, w.bq), F.linear(x, w.wk, w.bk), F.linear(x, w.wv, w.bv)
+    cases = {}
+    for Tk in (T, TK_SHORT):
+        args = (q, k[..., :Tk, :].contiguous(), v[..., :Tk, :].contiguous(), HEADS,
+                mask[..., :Tk].contiguous())
+        got = attention._attend(*args)
+        want = efficient_attention(*args)
+        torch.cuda.synchronize()
+        flops = 2 * N * HEADS * hd * hd * (T + Tk)
+        nbytes = 4 * (2 * N * T * D + 2 * N * Tk * D + N * Tk)
+        b_ms, b_by = bound(flops, nbytes)
+        cases[f"tk{Tk}"] = {
+            "max_abs_err": (got - want).abs().max().item(),
+            "ms": time_ms(lambda: attention._attend(*args)),
+            "plain_ms": time_ms(lambda: efficient_attention(*args)),
+            "gflop": flops / 1e9, "mbytes": nbytes / 1e6, "bound_ms": b_ms, "bound_by": b_by,
+        }
+    err = max(c["max_abs_err"] for c in cases.values())
+    print(json.dumps({"phase": "kernel", "kernel": "efficient_attention",
+                      "shape": [N, T, D, HEADS], "tol": KERNEL_TOL, "cases": cases}),
+          flush=True)
+    fail_if(failures, not err <= KERNEL_TOL, f"efficient_attention max |err| {err}")
+    full = cases[f"tk{T}"]
+    return {
+        "name": "efficient_attention", "route": "cuda",
+        "source": "hig_tpu_torch/csrc/efficient_attention.cu",
+        "replaces": "hig_tpu/ops/pallas_attention.py:46", "max_abs_err": err,
+        "ms": full["ms"], "plain_ms": full["plain_ms"], "bound_ms": full["bound_ms"],
+        "bound_by": full["bound_by"], "library_ms": None,
+    }
+
+
+def check_flash_attention(w, x, mask, failures) -> dict:
+    """B4 as the quadratic blocks call it (self: q, k, v read in place from
+    one merged product; partner: k, v from a (.., 2D) product of the
+    unflipped x), causal, and 91 queries on 77 keys; against the plain
+    version, and torch's scaled_dot_product_attention timed on the same
+    inputs (its mask as a float bias, the partner's k, v flipped first)."""
+    from hig_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    F = torch.nn.functional
+    N, hd = 2 * N_PAIRS, D // HEADS
+    qkv = F.linear(x, torch.cat([w.wq, w.wk, w.wv]), torch.cat([w.bq, w.bk, w.bv]))
+    q, k, v = qkv.chunk(3, dim=-1)
+    kv = F.linear(x, torch.cat([w.wk, w.wv]), torch.cat([w.bk, w.bv]))
+    pk, pv = kv.chunk(2, dim=-1)
+    short = (q.contiguous(), k[..., :TK_SHORT, :].contiguous(),
+             v[..., :TK_SHORT, :].contiguous(), HEADS, mask[..., :TK_SHORT], False, False)
+    cases = {"self": (q, k, v, HEADS, mask, False, False),
+             "partner": (q, pk, pv, HEADS, mask, False, True),
+             "causal": (q, k, v, HEADS, mask, True, False),
+             f"tq{T}_tk{TK_SHORT}": short}
+
+    def heads(t):  # (B, 2, T, D) → (N, H, T, hd), a view
+        return t.reshape(N, t.shape[-2], HEADS, hd).transpose(1, 2)
+
+    out = {}
+    for name, args in cases.items():
+        qq, kk, vv, _, m, causal, partner = args
+        Tk = kk.shape[-2]
+        got = flash_attention(*args)
+        want = flash_attention_plain(*args)
+        if partner:
+            kk, vv, m = kk.flip(1), vv.flip(1), m.flip(1)
+        bias = ((1.0 - m.reshape(N, 1, 1, Tk)) * -1e6).expand(N, 1, T, Tk)
+        if causal:
+            bias = bias + (torch.arange(Tk, device=x.device)[None, :]
+                           > torch.arange(T, device=x.device)[:, None]) * -1e6
+        sdpa_args = (heads(qq), heads(kk), heads(vv), bias.contiguous())
+        lib = F.scaled_dot_product_attention(*sdpa_args[:3], attn_mask=sdpa_args[3])
+        torch.cuda.synchronize()
+        flops = 4 * N * HEADS * T * Tk * hd
+        nbytes = 4 * (2 * N * T * D + 2 * N * Tk * D + N * Tk)
+        b_ms, b_by = bound(flops, nbytes)
+        out[name] = {
+            "max_abs_err": (got - want).abs().max().item(),
+            "library_max_abs_err": (lib.transpose(1, 2).reshape(want.shape) - want)
+            .abs().max().item(),
+            "ms": time_ms(lambda: flash_attention(*args)),
+            "plain_ms": time_ms(lambda: flash_attention_plain(*args)),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                *sdpa_args[:3], attn_mask=sdpa_args[3])),
+            "gflop": flops / 1e9, "mbytes": nbytes / 1e6, "bound_ms": b_ms, "bound_by": b_by,
+        }
+    err = max(c["max_abs_err"] for c in out.values())
+    print(json.dumps({"phase": "kernel", "kernel": "flash_attention",
+                      "shape": [N, T, D, HEADS], "tol": KERNEL_TOL, "cases": out}), flush=True)
+    fail_if(failures, not err <= KERNEL_TOL, f"flash_attention max |err| {err}")
+    path = [out[c] for c in ("self", "partner", "causal")]  # the serving shape
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "hig_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "hig_tpu/ops/flash_attention.py:53", "max_abs_err": err,
+        "ms": max(c["ms"] for c in path), "plain_ms": max(c["plain_ms"] for c in path),
+        "bound_ms": path[0]["bound_ms"], "bound_by": path[0]["bound_by"],
+        "library_ms": max(c["library_ms"] for c in path),
+    }
 
 
 def phase_denoiser(models: dict, device, failures) -> None:
@@ -261,7 +412,7 @@ def phase_denoiser(models: dict, device, failures) -> None:
             with plain_blocks():
                 want = model.denoise(x, t, lengths, xf_proj, text_kv=kv)
             err = (got - want).abs().max().item()
-            print(json.dumps({"phase": "denoiser", "blocks": blocks, "tol": DENOISER_TOL,
+            print(json.dumps({"phase": "denoiser", "run": blocks, "tol": DENOISER_TOL,
                               "max_abs_err": err, "max_abs_out": want.abs().max().item()}),
                   flush=True)
             fail_if(failures, not err <= DENOISER_TOL, f"denoiser ({blocks}) max |err| {err}")
@@ -271,8 +422,6 @@ def phase_serve(models: dict, device, failures) -> dict:
     from hig_tpu_torch import serve
     from hig_tpu_torch.data.vocab import CLASSID2CAPS
     from hig_tpu_torch.diffusion import gaussian as g
-    from hig_tpu_torch.ops.fused_block import fused_attention_block
-    from hig_tpu_torch.ops.pallas_attention import fused_projected_attention
     from hig_tpu_torch.train.trainer import make_sampler
 
     requests = [
@@ -281,9 +430,12 @@ def phase_serve(models: dict, device, failures) -> dict:
     ]
     sched = g.make_schedule(g.linear_betas(1000))
     mean, std = serve.load_stats(None, models["fused"].cfg.input_feats)
-    wrappers = {"fused": fused_attention_block, "projected": fused_projected_attention}
-    launches, runs, walls = {}, {}, {}
-    for blocks, model in models.items():
+    kernels = wrappers()
+    launches = {name: 0 for name in kernels}
+    runs, walls = {}, {}
+    for run_name, model in models.items():
+        own = SERVE_RUNS[run_name]
+        t_run = time.perf_counter()
         sample_fn = make_sampler(model, sched, T=T, dim_pose=model.cfg.input_feats,
                                  ddim_steps=DDIM_STEPS)
 
@@ -297,14 +449,14 @@ def phase_serve(models: dict, device, failures) -> dict:
         # with the launch counts set to 0 before it and read after it.
         call_walls, call_counts = [], []
         for _ in range(SERVE_CALLS):
-            for w in wrappers.values():
+            for w in kernels.values():
                 w.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             features, joints = run()
             torch.cuda.synchronize()
             call_walls.append(time.perf_counter() - t0)
-            call_counts.append({name: w.launches for name, w in wrappers.items()})
+            call_counts.append({name: w.launches for name, w in kernels.items()})
         wall = statistics.median(call_walls)
         counts = call_counts[0]
         with plain_blocks():
@@ -314,31 +466,35 @@ def phase_serve(models: dict, device, failures) -> dict:
             plain_wall = time.perf_counter() - t1
         rel = float(np.abs(features - ref_features).max() / np.abs(ref_features).max())
         print(json.dumps({
-            "phase": "serve", "blocks": blocks, "requests": len(requests), "T": T,
+            "phase": "serve", "run": run_name, "requests": len(requests), "T": T,
             "ddim_steps": DDIM_STEPS, "launches": counts, "wall_s_per_call": wall,
-            "wall_s_calls": call_walls, "plain_wall_s_per_call": plain_wall, "features_shape": list(features.shape),
-            "joints_shape": list(joints.shape), "finite": bool(
-                np.isfinite(features).all() and np.isfinite(joints).all()),
+            "wall_s_calls": call_walls, "plain_wall_s_per_call": plain_wall,
+            "features_shape": list(features.shape), "joints_shape": list(joints.shape),
+            "finite": bool(np.isfinite(features).all() and np.isfinite(joints).all()),
             "max_abs_features": float(np.abs(features).max()),
             "rel_err_vs_plain": rel, "rel_tol": SAMPLER_REL_TOL,
+            "seconds": time.perf_counter() - t_run,
         }), flush=True)
-        other = "projected" if blocks == "fused" else "fused"
-        fail_if(failures, any(c[blocks] != LAUNCHES_PER_CALL or c[other] != 0
-                              for c in call_counts),
-                f"serve ({blocks}) launches {call_counts}")
+        fail_if(failures, any(c[name] != (LAUNCHES_PER_CALL if name == own else 0)
+                              for c in call_counts for name in kernels),
+                f"serve ({run_name}) launches {call_counts}")
         fail_if(failures, tuple(joints.shape) != (N_PAIRS, 2, T - 1, 22, 3),
-                f"serve ({blocks}) joints shape {joints.shape}")
+                f"serve ({run_name}) joints shape {joints.shape}")
         fail_if(failures, not (np.isfinite(features).all() and np.isfinite(joints).all()),
-                f"serve ({blocks}) non-finite output")
-        fail_if(failures, not rel <= SAMPLER_REL_TOL, f"serve ({blocks}) rel err {rel}")
-        launches[blocks], runs[blocks], walls[blocks] = counts[blocks], run, wall
+                f"serve ({run_name}) non-finite output")
+        fail_if(failures, not rel <= SAMPLER_REL_TOL, f"serve ({run_name}) rel err {rel}")
+        for name in kernels:
+            launches[name] += counts[name]
+        runs[run_name], walls[run_name] = run, wall
     # Profiling last: once the profiler has run, later launches in the
     # process are slower, so no timing is taken after it.
-    for blocks, run in runs.items():
+    for run_name, run in runs.items():
+        t_run = time.perf_counter()
         prof = profile_call(run)
-        prof["device_busy_share_unprofiled"] = prof["device_ms"] / (walls[blocks] * 1e3)
-        prof["port_kernels_ms_per_launch"] = prof["port_kernels_ms"] / launches[blocks]
-        print(json.dumps({"phase": "profile", "blocks": blocks, **prof}), flush=True)
+        prof["seconds"] = time.perf_counter() - t_run
+        prof["device_busy_share_unprofiled"] = prof["device_ms"] / (walls[run_name] * 1e3)
+        prof["port_kernels_ms_per_launch"] = prof["port_kernels_ms"] / LAUNCHES_PER_CALL
+        print(json.dumps({"phase": "profile", "run": run_name, **prof}), flush=True)
     return launches
 
 
@@ -354,25 +510,36 @@ def main() -> int:
     from hig_tpu_torch.models.interaction_model import ModelConfig
 
     failures: list = []
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(name: str) -> None:
+        nonlocal t0
+        seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
     smi = phase_device()
     device = torch.device("cuda")
+    lap("device")
     phase_build()
+    lap("build")
     rows = phase_kernels(device, failures)
-
-    t0 = time.perf_counter()
-    models = {
-        blocks: serve.build_model(ModelConfig(fused_blocks=blocks == "fused"), device,
-                                  random_init=0)
-        for blocks in ("fused", "projected")
-    }
-    print(json.dumps({"phase": "weights", "seconds": time.perf_counter() - t0,
-                      "params": sum(p.numel() for p in models["fused"].parameters())}),
-          flush=True)
+    lap("kernels")
+    configs = {"fused": ModelConfig(fused_blocks=True), "projected": ModelConfig(),
+               "no_eff": ModelConfig(efficient=False)}
+    models = {run: serve.build_model(cfg, device, random_init=0)
+              for run, cfg in configs.items()}
+    lap("weights")
+    print(json.dumps({"phase": "weights", "seconds": seconds["weights"],
+                      "params": {run: sum(p.numel() for p in m.parameters())
+                                 for run, m in models.items()}}), flush=True)
     phase_denoiser(models, device, failures)
+    lap("denoiser")
     launches = phase_serve(models, device, failures)
+    lap("serve")
+    print(json.dumps({"phase": "seconds", **seconds}), flush=True)
 
-    rows["fused_block"]["launches"] = launches["fused"]
-    rows["projected_attention"]["launches"] = launches["projected"]
+    for name, row in rows.items():
+        row["launches"] = launches[name]
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(smi, flush=True)
     if failures:

@@ -36,7 +36,7 @@ extern "C" int hig_fused_block(
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  hig::launch_core(qkv, mask, y, N, T, D, interaction, stream);
+  hig::launch_core_qkv(qkv, mask, y, N, T, D, interaction, stream);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 

@@ -1,12 +1,14 @@
-// Device code shared by the fused-block (B1) and projected-attention (B2)
-// kernels: a shared-memory-tiled float32 FMA GEMM with a LayerNorm / AdaLN
-// prologue and a bias / residual epilogue, and the per-(sequence, head)
-// linear-attention core.
+// Device code shared by the fused-block (B1), projected-attention (B2) and
+// efficient-attention (B3) kernels: a shared-memory-tiled float32 FMA GEMM
+// with a LayerNorm / AdaLN prologue and a bias / residual epilogue, and the
+// per-(sequence, head) linear-attention core.
 //
 // Layouts: activations are row-major (rows = N sequences x T tokens,
-// columns = features); weights are torch Linear (out, in) row-major; the
-// QKV buffer is (N*T, 3*D) with q | k | v column blocks; heads are 64-wide
-// column slices.
+// columns = features); weights are torch Linear (out, in) row-major; heads
+// are 64-wide column slices. The core reads q, k and v through a base
+// pointer and a row stride each: B1 and B2 pass the column blocks of their
+// (N*T, 3*D) q | k | v buffer (stride 3*D), B3 passes three (N, T, D)
+// tensors (stride D).
 //
 // Assumptions, checked by the Python wrappers: K % 16 == 0, D % 64 == 0,
 // head dim 64, every pointer 16-byte aligned, float32 throughout.
@@ -15,6 +17,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+
+#include "common.cuh"
 
 namespace hig {
 
@@ -51,18 +55,6 @@ struct GemmArgs {
   float* out;          // (M, ldo)
   int M, K, D, T, ldo;
 };
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 // grid (ldo / BN, ceil(M / BM)); a column block never straddles two
 // segments because D % BN == 0.
@@ -181,14 +173,17 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(const GemmArgs p) {
 }
 
 // One block per (head, sequence): grid (H, N).
-//   k += (1 - mask) * -1e6;  v *= mask              (partner's mask)
+//   k += (1 - mask) * -1e6;  v *= mask              (the keys' mask)
 //   state[d][l] = sum_t softmax_t(k)[t][d] * v[t][l]
 //   y[t] = softmax_d(q[t]) . state
-// k, v and the mask come from sequence n ^ 1 when `interaction` is set
-// (the other actor of the pair in the (B, 2) layout), else from n.
+// q has Tq rows per sequence at row stride ldq; k and v have Tk rows at
+// row stride ldkv; the mask is (N, Tk); y is (N, Tq, D). k, v and the mask
+// come from sequence n ^ 1 when `interaction` is set (the other actor of
+// the pair in the (B, 2) layout), else from n.
 __global__ void __launch_bounds__(CORE_THREADS) linear_attention_core(
-    const float* __restrict__ qkv, const float* __restrict__ mask,
-    float* __restrict__ y, int T, int D, int interaction) {
+    const float* __restrict__ qp, const float* __restrict__ kp,
+    const float* __restrict__ vp, const float* __restrict__ mask,
+    float* __restrict__ y, int Tq, int Tk, int D, int ldq, int ldkv, int interaction) {
   __shared__ float e_s[TC][HD];
   __shared__ float v_s[TC][HD];
   __shared__ float state[HD][HD];
@@ -198,19 +193,18 @@ __global__ void __launch_bounds__(CORE_THREADS) linear_attention_core(
 
   const int h = blockIdx.x, n = blockIdx.y;
   const int src = interaction ? (n ^ 1) : n;
-  const int ld = 3 * D;
-  const float* q = qkv + (size_t)n * T * ld + h * HD;
-  const float* k = qkv + (size_t)src * T * ld + D + h * HD;
-  const float* v = qkv + (size_t)src * T * ld + 2 * D + h * HD;
-  const float* m = mask + (size_t)src * T;
+  const float* q = qp + (size_t)n * Tq * ldq + h * HD;
+  const float* k = kp + (size_t)src * Tk * ldkv + h * HD;
+  const float* v = vp + (size_t)src * Tk * ldkv + h * HD;
+  const float* m = mask + (size_t)src * Tk;
   const int tid = threadIdx.x;
 
   // pass 1: column max of the masked keys over time
   {
     const int d = tid & (HD - 1), g = tid / HD;
     float mx = -INFINITY;
-    for (int t = g; t < T; t += CORE_THREADS / HD)
-      mx = fmaxf(mx, k[(size_t)t * ld + d] + (1.f - m[t]) * MASK_BIAS);
+    for (int t = g; t < Tk; t += CORE_THREADS / HD)
+      mx = fmaxf(mx, k[(size_t)t * ldkv + d] + (1.f - m[t]) * MASK_BIAS);
     red[g][d] = mx;
     __syncthreads();
     if (tid < HD) {
@@ -228,14 +222,14 @@ __global__ void __launch_bounds__(CORE_THREADS) linear_attention_core(
 #pragma unroll
   for (int j = 0; j < 16; ++j) acc[j] = 0.f;
   float z = 0.f;
-  for (int t0 = 0; t0 < T; t0 += TC) {
+  for (int t0 = 0; t0 < Tk; t0 += TC) {
     for (int i = tid; i < TC * HD; i += CORE_THREADS) {
       const int r = i / HD, c = i & (HD - 1), t = t0 + r;
       float ev = 0.f, vv = 0.f;
-      if (t < T) {
+      if (t < Tk) {
         const float mt = m[t];
-        ev = expf(k[(size_t)t * ld + c] + (1.f - mt) * MASK_BIAS - colmax[c]);
-        vv = v[(size_t)t * ld + c] * mt;
+        ev = expf(k[(size_t)t * ldkv + c] + (1.f - mt) * MASK_BIAS - colmax[c]);
+        vv = v[(size_t)t * ldkv + c] * mt;
       }
       e_s[r][c] = ev;
       v_s[r][c] = vv;
@@ -255,8 +249,8 @@ __global__ void __launch_bounds__(CORE_THREADS) linear_attention_core(
 
   // pass 3: one warp per query row; feature softmax, then q . state
   const int warp = tid >> 5, lane = tid & 31;
-  for (int t = warp; t < T; t += CORE_THREADS / 32) {
-    const float* qr = q + (size_t)t * ld;
+  for (int t = warp; t < Tq; t += CORE_THREADS / 32) {
+    const float* qr = q + (size_t)t * ldq;
     const float a0 = qr[lane], a1 = qr[lane + 32];
     const float mx = warp_max(fmaxf(a0, a1));
     const float e0 = expf(a0 - mx), e1 = expf(a1 - mx);
@@ -271,7 +265,7 @@ __global__ void __launch_bounds__(CORE_THREADS) linear_attention_core(
       y0 = fmaf(w, state[d][lane], y0);
       y1 = fmaf(w, state[d][lane + 32], y1);
     }
-    float* yr = y + ((size_t)n * T + t) * D + h * HD;
+    float* yr = y + ((size_t)n * Tq + t) * D + h * HD;
     yr[lane] = y0;
     yr[lane + 32] = y1;
     __syncwarp();
@@ -288,14 +282,19 @@ inline void launch_gemm(int mode, const GemmArgs& p, int ncols, cudaStream_t str
     gemm_kernel<OUT_STYL><<<grid, GEMM_THREADS, 0, stream>>>(p);
 }
 
-inline void launch_core(const float* qkv, const float* mask, float* y, int N, int T,
-                        int D, int interaction, cudaStream_t stream) {
+inline void launch_core(const float* q, const float* k, const float* v, const float* mask,
+                        float* y, int N, int Tq, int Tk, int D, int ldq, int ldkv,
+                        int interaction, cudaStream_t stream) {
   const dim3 grid(D / HD, N);
-  linear_attention_core<<<grid, CORE_THREADS, 0, stream>>>(qkv, mask, y, T, D, interaction);
+  linear_attention_core<<<grid, CORE_THREADS, 0, stream>>>(q, k, v, mask, y, Tq, Tk, D, ldq,
+                                                           ldkv, interaction);
+}
+
+// The core over a (N*T, 3*D) q | k | v buffer, as B1 and B2 produce it.
+inline void launch_core_qkv(const float* qkv, const float* mask, float* y, int N, int T,
+                            int D, int interaction, cudaStream_t stream) {
+  launch_core(qkv, qkv + D, qkv + 2 * D, mask, y, N, T, T, D, 3 * D, 3 * D, interaction,
+              stream);
 }
 
 }  // namespace hig
-
-extern "C" const char* hig_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}

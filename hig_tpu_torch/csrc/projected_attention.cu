@@ -27,6 +27,6 @@ extern "C" int hig_projected_attention(
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  hig::launch_core(qkv, mask, out, N, T, D, 0, stream);
+  hig::launch_core_qkv(qkv, mask, out, N, T, D, 0, stream);
   return cudaGetLastError();
 }

@@ -1,16 +1,27 @@
-"""Efficient (linear) attention blocks of the interaction denoiser
-(counterpart of ``hig_tpu/models/attention.py``).
+"""Attention blocks of the interaction denoiser (counterpart of
+``hig_tpu/models/attention.py``).
 
-softmax(Q over features) · [softmax(K over time)ᵀ V], with the residual and
-the AdaLN ``StylizationBlock`` gate applied inside each block. Every leading
-axis before (T, D) is batch, so the (B, actors, T, D) layout flows through.
+Two families, each with the residual and the AdaLN ``StylizationBlock``
+gate applied inside each block. Every leading axis before (T, D) is batch,
+so the (B, actors, T, D) layout flows through.
 
-The self-attention and interaction blocks always go through a kernel
-wrapper: B1 (``ops/fused_block.py``, the whole block) when ``fused``, else
-B2 (``ops/pallas_attention.py``, projections + attention core) between a
-plain LayerNorm and the plain gate. On CPU tensors each wrapper runs its
-plain version. The text cross-attention and the FFN are plain PyTorch on
-every device.
+* Efficient (linear) attention, the default: softmax(Q over features) ·
+  [softmax(K over time)ᵀ V]. The self-attention and interaction blocks
+  always go through a kernel wrapper: B1 (``ops/fused_block.py``, the whole
+  block) when ``fused``, else B2 (``ops/pallas_attention.py``, projections +
+  attention core) between a plain LayerNorm and the plain gate.
+* Quadratic (softmax) attention, the ``--no_eff`` model. The self-attention
+  and interaction blocks always go through B4 (``ops/flash_attention.py``).
+  The reference's quirks are kept: padded keys get a −1e6 bias (the JAX
+  package's einsum interaction path uses −1e5; both give exactly zero
+  weight in float32), and the interaction block normalizes x with ``norm``
+  and the partner with its own ``text_norm``.
+
+On CPU tensors each kernel wrapper runs its plain version. The text
+cross-attention and the FFN are plain PyTorch on every device, as JAX
+computes them outside any Pallas kernel. :func:`_attend` routes bare
+efficient attention through B3 (``fused_efficient_attention``), as the JAX
+``_attend`` does under ``use_pallas``; no block calls it.
 """
 
 from __future__ import annotations
@@ -20,12 +31,18 @@ import torch.nn.functional as F
 from torch import nn
 
 from hig_tpu_torch.models.embeddings import StylizationBlock, layer_norm
+from hig_tpu_torch.ops.flash_attention import (
+    causal_bias,
+    flash_attention,
+    quadratic_attention,
+)
 from hig_tpu_torch.ops.fused_block import BlockWeights, fused_attention_block
 from hig_tpu_torch.ops.pallas_attention import (
-    split_heads,
     efficient_attention,
+    fused_efficient_attention,
     fused_projected_attention,
     merged_qkv,
+    split_heads,
 )
 
 __all__ = [
@@ -33,9 +50,19 @@ __all__ = [
     "EfficientInteractionAttention",
     "EfficientSelfAttention",
     "FFN",
+    "QuadraticCrossAttention",
+    "QuadraticInteractionAttention",
+    "QuadraticSelfAttention",
+    "causal_bias",
     "efficient_attention",
     "merged_qkv",
+    "quadratic_attention",
 ]
+
+
+def _attend(query, key, value, num_heads: int, key_mask=None):
+    """Bare efficient attention through kernel B3."""
+    return fused_efficient_attention(query, key, value, num_heads, key_mask)
 
 
 class _KernelBlock(nn.Module):
@@ -132,6 +159,102 @@ class EfficientCrossAttention(nn.Module):
 
     def forward(self, x, xf, emb, adaln=None):
         return self.from_kv(x, self.kv(xf), emb, adaln)
+
+
+class QuadraticSelfAttention(nn.Module):
+    """Per-actor temporal softmax attention (``--no_eff``).
+
+    The reference adds the raw 0/1 mask to the logits, which masks nothing;
+    like the JAX package, padded keys get the −1e6 bias instead.
+    """
+
+    def __init__(self, latent_dim: int, num_heads: int, emb_dim: int,
+                 causal: bool = False):
+        super().__init__()
+        self.num_heads = num_heads
+        self.causal = causal
+        self.norm = layer_norm(latent_dim)
+        self.query = nn.Linear(latent_dim, latent_dim)
+        self.key = nn.Linear(latent_dim, latent_dim)
+        self.value = nn.Linear(latent_dim, latent_dim)
+        self.proj_out = StylizationBlock(latent_dim, emb_dim)
+
+    def forward(self, x, emb, src_mask, adaln=None):
+        """x (B, 2, T, D); src_mask (B, 1|2, T); ``adaln`` as in the
+        efficient blocks."""
+        scale, shift = adaln if adaln is not None else self.proj_out.scale_shift(emb)
+        # one (D, 3D) product; B4 reads q, k and v from it in place
+        q, k, v = merged_qkv(self.norm(x), self.query.weight, self.query.bias,
+                             self.key.weight, self.key.bias, self.value.weight,
+                             self.value.bias)
+        y = flash_attention(q, k, v, self.num_heads, key_mask=src_mask.expand(x.shape[:-1]),
+                            causal=self.causal)
+        return x + self.proj_out.from_scale_shift(y, scale, shift)
+
+
+class QuadraticCrossAttention(nn.Module):
+    """Text softmax cross-attention, unmasked. The text K/V are constant
+    across a sampling call: :meth:`kv` projects them once and :meth:`from_kv`
+    is the per-step body."""
+
+    def __init__(self, latent_dim: int, text_latent_dim: int, num_heads: int,
+                 emb_dim: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.norm = layer_norm(latent_dim)
+        self.text_norm = layer_norm(text_latent_dim)
+        self.query = nn.Linear(latent_dim, latent_dim)
+        self.key = nn.Linear(text_latent_dim, latent_dim)
+        self.value = nn.Linear(text_latent_dim, latent_dim)
+        self.proj_out = StylizationBlock(latent_dim, emb_dim)
+
+    def kv(self, xf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(..., L, Dt) → (k, v), each (..., L, D)."""
+        xfn = self.text_norm(xf)
+        return self.key(xfn), self.value(xfn)
+
+    def from_kv(self, x, kv, emb, adaln=None):
+        k, v = kv
+        y = quadratic_attention(self.query(self.norm(x)), k, v, self.num_heads)
+        if adaln is not None:
+            return x + self.proj_out.from_scale_shift(y, *adaln)
+        return x + self.proj_out(y, emb)
+
+    def forward(self, x, xf, emb, adaln=None):
+        return self.from_kv(x, self.kv(xf), emb, adaln)
+
+
+class QuadraticInteractionAttention(nn.Module):
+    """Cross-actor softmax attention: each actor queries the other actor's
+    timeline. Unlike the efficient block, x is normalized with ``norm`` and
+    the partner with its own ``text_norm``, and the key mask is the
+    partner's."""
+
+    def __init__(self, latent_dim: int, num_heads: int, emb_dim: int,
+                 causal: bool = False):
+        super().__init__()
+        self.num_heads = num_heads
+        self.causal = causal
+        self.norm = layer_norm(latent_dim)
+        self.text_norm = layer_norm(latent_dim)
+        self.query = nn.Linear(latent_dim, latent_dim)
+        self.key = nn.Linear(latent_dim, latent_dim)
+        self.value = nn.Linear(latent_dim, latent_dim)
+        self.proj_out = StylizationBlock(latent_dim, emb_dim)
+
+    def forward(self, x, emb, src_mask, adaln=None):
+        """x (B, 2, T, D); src_mask (B, 1|2, T), each actor's own mask."""
+        scale, shift = adaln if adaln is not None else self.proj_out.scale_shift(emb)
+        q = self.query(self.norm(x))
+        # LayerNorm and the projections act per token, so k and v are
+        # projected from the unflipped x in one (D, 2D) product and B4 reads
+        # the partner's rows (partner=True) instead of a flipped copy.
+        w = torch.cat([self.key.weight, self.value.weight])
+        b = torch.cat([self.key.bias, self.value.bias])
+        k, v = F.linear(self.text_norm(x), w, b).chunk(2, dim=-1)
+        y = flash_attention(q, k, v, self.num_heads, key_mask=src_mask.expand(x.shape[:-1]),
+                            causal=self.causal, partner=True)
+        return x + self.proj_out.from_scale_shift(y, scale, shift)
 
 
 class FFN(nn.Module):

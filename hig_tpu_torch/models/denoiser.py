@@ -1,9 +1,12 @@
 """The two-actor interaction denoiser (counterpart of
 ``hig_tpu/models/denoiser.py:39-321``).
 
-Actors are an explicit axis, ``x: (B, 2, T, D)``. Each layer runs efficient
+Actors are an explicit axis, ``x: (B, 2, T, D)``. Each layer runs
 self-attention, text cross-attention, cross-actor interaction attention and
-an FFN, each gated by its own AdaLN ``StylizationBlock``.
+an FFN, each gated by its own AdaLN ``StylizationBlock``. The attention
+blocks are the efficient (linear) family, or with ``efficient=False`` the
+quadratic (softmax) family of the reference's ``--no_eff`` mode, which may
+be ``causal``.
 """
 
 from __future__ import annotations
@@ -16,26 +19,51 @@ from hig_tpu_torch.models.attention import (
     EfficientCrossAttention,
     EfficientInteractionAttention,
     EfficientSelfAttention,
+    QuadraticCrossAttention,
+    QuadraticInteractionAttention,
+    QuadraticSelfAttention,
 )
 from hig_tpu_torch.models.embeddings import TimeEmbedMLP, length_mask
 
 BLOCKS = (("sa", "sa_block"), ("ca", "ca_block"), ("int", "int_ca_block"), ("ffn", "ffn"))
 
 
+def check_block_options(efficient: bool, causal: bool, fused_blocks: bool) -> None:
+    """Refuse the combinations the port has no blocks for."""
+    if efficient and causal:
+        raise ValueError("causal attention is ported for the quadratic (efficient=False) "
+                         "blocks only; causal efficient attention is not ported yet")
+    if fused_blocks and not efficient:
+        raise ValueError("fused_blocks fuses efficient-attention blocks; it cannot be "
+                         "combined with efficient=False")
+
+
 class InteractionDenoiserLayer(nn.Module):
     """self-attn → text cross-attn → cross-actor interaction → FFN."""
 
     def __init__(self, latent_dim: int, text_latent_dim: int, ff_size: int,
-                 num_heads: int, emb_dim: int, fused_blocks: bool = False):
+                 num_heads: int, emb_dim: int, fused_blocks: bool = False,
+                 efficient: bool = True, causal: bool = False):
         super().__init__()
-        self.sa_block = EfficientSelfAttention(latent_dim, num_heads, emb_dim, fused_blocks)
-        self.ca_block = EfficientCrossAttention(latent_dim, text_latent_dim, num_heads, emb_dim)
-        self.int_ca_block = EfficientInteractionAttention(
-            latent_dim, num_heads, emb_dim, fused_blocks
-        )
+        check_block_options(efficient, causal, fused_blocks)
+        if efficient:
+            self.sa_block = EfficientSelfAttention(latent_dim, num_heads, emb_dim, fused_blocks)
+            self.ca_block = EfficientCrossAttention(latent_dim, text_latent_dim, num_heads,
+                                                    emb_dim)
+            self.int_ca_block = EfficientInteractionAttention(
+                latent_dim, num_heads, emb_dim, fused_blocks
+            )
+        else:
+            self.sa_block = QuadraticSelfAttention(latent_dim, num_heads, emb_dim, causal)
+            self.ca_block = QuadraticCrossAttention(latent_dim, text_latent_dim, num_heads,
+                                                    emb_dim)
+            self.int_ca_block = QuadraticInteractionAttention(latent_dim, num_heads, emb_dim,
+                                                              causal)
         self.ffn = FFN(latent_dim, ff_size, emb_dim)
 
     def text_kv(self, xf_out):
+        """The text cross-attention state: a KᵀV tensor (efficient) or a
+        (k, v) pair (quadratic)."""
         return self.ca_block.kv(xf_out)
 
     def forward(self, x, xf_out, emb, src_mask, text_kv=None, adaln=None):
@@ -62,7 +90,7 @@ class InteractionDenoiser(nn.Module):
     def __init__(self, input_feats: int = 263, num_frames: int = 196,
                  latent_dim: int = 512, ff_size: int = 1024, num_layers: int = 8,
                  num_heads: int = 8, text_latent_dim: int = 256,
-                 fused_blocks: bool = False):
+                 fused_blocks: bool = False, efficient: bool = True, causal: bool = False):
         super().__init__()
         self.latent_dim = latent_dim
         self.time_embed_dim = 4 * latent_dim
@@ -72,7 +100,7 @@ class InteractionDenoiser(nn.Module):
         self.time_embed = TimeEmbedMLP(latent_dim, self.time_embed_dim)
         self.layers = nn.ModuleList(
             InteractionDenoiserLayer(latent_dim, text_latent_dim, ff_size, num_heads,
-                                     self.time_embed_dim, fused_blocks)
+                                     self.time_embed_dim, fused_blocks, efficient, causal)
             for _ in range(num_layers)
         )
         self.out = nn.Linear(latent_dim, input_feats)

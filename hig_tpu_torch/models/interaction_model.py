@@ -1,10 +1,12 @@
 """Text conditioning stack + interaction denoiser under one parameter tree
 (counterpart of ``hig_tpu/models/interaction_model.py:25-189,261-291``).
 
-The port serves the caption-token conditioning path in float32. Caption-id
-conditioning, classifier-free guidance, bf16 compute, ``fast_ln``, RMSNorm,
-the quadratic (``--no_eff``), causal and single-transformer variants are not
-ported yet and are refused by :class:`ModelConfig`.
+The port serves the caption-token conditioning path in float32, with the
+efficient (linear) denoiser or, with ``efficient=False``, the quadratic
+(``--no_eff``) one, optionally ``causal``. Caption-id conditioning,
+classifier-free guidance, bf16 compute, ``fast_ln``, RMSNorm, causal
+efficient attention and the single-transformer variant are not ported yet:
+:class:`ModelConfig` refuses the ones it has fields for.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import dataclasses
 import torch
 from torch import nn
 
-from hig_tpu_torch.models.denoiser import InteractionDenoiser
+from hig_tpu_torch.models.denoiser import InteractionDenoiser, check_block_options
 from hig_tpu_torch.models.text_encoder import ClipTextConfig, TextEncoder
 
 
@@ -35,6 +37,8 @@ class ModelConfig:
     num_text_layers: int = 4
     clip: ClipTextConfig = ClipTextConfig()
     fused_blocks: bool = False
+    efficient: bool = True
+    causal: bool = False
     # not ported yet: must stay at these values
     compute_dtype: str = "float32"
     fast_ln: bool = False
@@ -48,6 +52,7 @@ class ModelConfig:
                 "hig_tpu_torch serves float32 LayerNorm models only: bf16 "
                 "compute, fast_ln and RMSNorm are not ported yet"
             )
+        check_block_options(self.efficient, self.causal, self.fused_blocks)
 
     @property
     def time_embed_dim(self) -> int:
@@ -77,6 +82,8 @@ class InteractionModel(nn.Module):
             num_heads=cfg.num_heads,
             text_latent_dim=cfg.text_latent_dim,
             fused_blocks=cfg.fused_blocks,
+            efficient=cfg.efficient,
+            causal=cfg.causal,
         )
 
     def encode_text(self, tokens: torch.Tensor):

@@ -23,7 +23,7 @@ import time
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("fused_block", "projected_attention")
+SOURCES = ("fused_block", "projected_attention", "efficient_attention", "flash_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -109,5 +109,23 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(path)
 
 
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+@functools.cache
+def _entry(name: str, n_pointers: int, n_ints: int):
+    lib = load(name)
+    fn = getattr(lib, f"hig_{name}")
+    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.hig_error_string.argtypes = [ctypes.c_int]
+    lib.hig_error_string.restype = ctypes.c_char_p
+    return fn, lib.hig_error_string
+
+
+def launch(name: str, tensors, ints, stream: int) -> None:
+    """Call ``hig_<name>`` of ``csrc/<name>.cu``'s library with the tensors'
+    device pointers, then the ints, then the CUDA stream handle; raise if
+    it returns a CUDA error (a refused launch never runs, and a later
+    synchronize would not report it)."""
+    fn, error_string = _entry(name, len(tensors), len(ints))
+    err = fn(*(ctypes.c_void_p(t.data_ptr()) for t in tensors), *ints, stream)
+    if err:
+        raise RuntimeError(f"{name} kernel: {error_string(err).decode()}")

@@ -30,8 +30,6 @@ launches. ``wgmma``, TMA and bf16 are left for later work.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import NamedTuple
 
 import torch
@@ -85,17 +83,6 @@ def fused_attention_block_plain(x, key_mask, scale, shift, w: BlockWeights,
     return x + F.linear(F.silu(z), w.wo, w.bo)
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("fused_block")
-    fn = lib.hig_fused_block
-    fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.hig_error_string.argtypes = [ctypes.c_int]
-    lib.hig_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def fused_attention_block(x, key_mask, scale, shift, w: BlockWeights,
                           num_heads: int, interaction: bool = False):
     """One fused efficient-attention block (B1 forward); see the module doc.
@@ -122,13 +109,8 @@ def fused_attention_block(x, key_mask, scale, shift, w: BlockWeights,
     qkv = torch.empty((N * T, 3 * D), device=x.device, dtype=torch.float32)
     y = torch.empty((N * T, D), device=x.device, dtype=torch.float32)
     out = torch.empty_like(x)
-    lib = _lib()
-    err = lib.hig_fused_block(
-        *map(_build.ptr, (x, mask, scale, shift, *w, qkv, y, out)),
-        N, T, D, int(interaction), torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(f"fused block kernel: {lib.hig_error_string(err).decode()}")
+    _build.launch("fused_block", (x, mask, scale, shift, *w, qkv, y, out),
+                  (N, T, D, int(interaction)), torch.cuda.current_stream(x.device).cuda_stream)
     fused_attention_block.launches += 1
     return out
 

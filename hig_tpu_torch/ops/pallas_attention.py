@@ -1,11 +1,11 @@
-"""B2: efficient attention with the Q/K/V projections fused in, and the
-plain linear-attention core it shares with B1.
+"""B2: efficient attention with the Q/K/V projections fused in; B3: the
+efficient-attention core alone; and the plain linear-attention core both
+are held against.
 
-Counterpart of ``hig_tpu/ops/pallas_attention.py``: only the projected
-kernel (``_proj_kernel`` at :116, ``fused_projected_attention`` at :202) is
-ported here. The attention core alone (``_kernel`` at :46) is not on the
-serving path and is still to be ported; so is B2's backward, which belongs
-to training.
+Counterpart of ``hig_tpu/ops/pallas_attention.py``: the projected kernel
+(``_proj_kernel`` at :116, ``fused_projected_attention`` at :202) and the
+core kernel (``_kernel`` at :46, ``fused_efficient_attention`` at :238). The
+backwards, which belong to training, are still to be ported.
 
 Kernel note (``csrc/projected_attention.cu``). The TPU kernel ran one grid
 step per sequence with the three (D, D) weights resident in VMEM. On the
@@ -20,12 +20,17 @@ the card's f32 FMA rate (67 TFLOP/s without tensor cores): the GEMM keeps
 4×4 accumulators per thread to reuse each shared-memory load 4 times, and
 the q|k|v intermediate (9 MB) stays in L2 between the two launches.
 ``wgmma``, TMA and bf16 are left for later work.
+
+Kernel note (``csrc/efficient_attention.cu``). The TPU kernel ran one grid
+step per (sequence, head) on an (N·H, T, hd) copy of q, k and v. On the
+H100 B3 is one launch of the same core, which reads each head's columns of
+the (N, T, D) tensors in place (row stride D): 128 blocks at N = 16, H = 8.
+The work is ~0.19 GFLOP against ~12 MB, so the bound is bytes (~3.6 µs at
+3.35 TB/s), and the core reads each input once from device memory and
+keeps the KᵀV state in shared memory.
 """
 
 from __future__ import annotations
-
-import ctypes
-import functools
 
 import torch
 import torch.nn.functional as F
@@ -76,17 +81,6 @@ def fused_projected_attention_plain(q_src, kv_src, wq, bq, wk, bk, wv, bv,
         k = F.linear(kv_src, wk, bk)
         v = F.linear(kv_src, wv, bv)
     return efficient_attention(q, k, v, num_heads, key_mask)
-
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("projected_attention")
-    fn = lib.hig_projected_attention
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.hig_error_string.argtypes = [ctypes.c_int]
-    lib.hig_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def check_cuda_operand(name: str, t: torch.Tensor, shape=None) -> None:
@@ -142,15 +136,40 @@ def fused_projected_attention(q_src, kv_src, wq, bq, wk, bk, wv, bv,
     check_cuda_operand("key_mask", mask)
     qkv = torch.empty((N * T, 3 * D), device=q_src.device, dtype=torch.float32)
     out = torch.empty_like(q_src)
-    lib = _lib()
-    err = lib.hig_projected_attention(
-        *map(_build.ptr, (q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, qkv, out)),
-        N, T, D, torch.cuda.current_stream(q_src.device).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(f"projected attention kernel: {lib.hig_error_string(err).decode()}")
+    _build.launch("projected_attention", (q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, qkv, out),
+                  (N, T, D), torch.cuda.current_stream(q_src.device).cuda_stream)
     fused_projected_attention.launches += 1
     return out
 
 
 fused_projected_attention.launches = 0
+
+
+def fused_efficient_attention(query, key, value, num_heads: int, key_mask=None):
+    """Efficient attention through kernel B3 (forward).
+
+    query (..., Tq, D); key/value (..., Tk, D); key_mask broadcastable to
+    (..., Tk), 0/1. Returns (..., Tq, D). CPU tensors take the plain
+    :func:`efficient_attention`; CUDA tensors launch the kernel.
+    """
+    if query.device.type == "cpu":
+        return efficient_attention(query, key, value, num_heads, key_mask)
+    lead, (Tq, D), Tk = query.shape[:-2], query.shape[-2:], key.shape[-2]
+    check_cuda_width(D, num_heads)
+    check_cuda_operand("query", query)
+    for name, t in (("key", key), ("value", value)):
+        check_cuda_operand(name, t, (*lead, Tk, D))
+    N = query.numel() // (Tq * D)
+    if key_mask is None:
+        mask = torch.ones((N, Tk), device=query.device, dtype=torch.float32)
+    else:
+        mask = key_mask.to(torch.float32).expand(*lead, Tk).reshape(N, Tk).contiguous()
+    check_cuda_operand("key_mask", mask)
+    out = torch.empty_like(query)
+    _build.launch("efficient_attention", (query, key, value, mask, out), (N, Tq, Tk, D),
+                  torch.cuda.current_stream(query.device).cuda_stream)
+    fused_efficient_attention.launches += 1
+    return out
+
+
+fused_efficient_attention.launches = 0

@@ -12,11 +12,16 @@ Weights come from --params (a flattened JAX parameter tree saved with
 np.savez under "params/denoiser/layer_0/..." keys) or from --random_init
 SEED (seeded random weights, every leaf nonzero). The model's widths come
 from --model_config (a JSON object of ModelConfig fields), default the
-flagship. --blocks fused runs the self-attention and interaction blocks
-through the fused-block kernel, --blocks projected through the
-projected-attention kernel.
+flagship. --blocks fused (the default) runs the efficient self-attention
+and interaction blocks through the fused-block kernel, --blocks projected
+through the projected-attention kernel. --no_eff serves the quadratic
+(softmax-attention) model instead, whose self-attention and interaction
+blocks go through the flash-attention kernel; --causal makes its
+attention causal. --blocks has no effect with --no_eff and is refused
+there.
 
     python -m hig_tpu_torch.serve --requests reqs.jsonl --random_init 0
+    python -m hig_tpu_torch.serve --requests reqs.jsonl --random_init 0 --no_eff
 """
 
 from __future__ import annotations
@@ -131,7 +136,12 @@ def main(argv=None):
     parser.add_argument("--model_config", default=None,
                         help="JSON file of ModelConfig fields (default: flagship)")
     parser.add_argument("--stats", default=None, help="directory with mean.npy and std.npy")
-    parser.add_argument("--blocks", choices=("fused", "projected"), default="fused")
+    parser.add_argument("--blocks", choices=("fused", "projected"), default=None,
+                        help="kernel of the efficient blocks (default fused)")
+    parser.add_argument("--no_eff", action="store_true",
+                        help="quadratic (softmax) attention blocks")
+    parser.add_argument("--causal", action="store_true",
+                        help="causal attention (with --no_eff)")
     parser.add_argument("--batch_size", type=int, default=256)
     parser.add_argument("--motion_length", type=int, default=60)
     parser.add_argument("--ddim_steps", type=int, default=50)
@@ -140,12 +150,21 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
 
-    device = resolve_device(args.device)
     cfg_fields = {}
     if args.model_config:
         with open(args.model_config) as f:
             cfg_fields = json.load(f)
-    cfg = ModelConfig(**{**cfg_fields, "fused_blocks": args.blocks == "fused"})
+    if args.no_eff:
+        cfg_fields["efficient"] = False
+    if args.causal:
+        cfg_fields["causal"] = True
+    efficient = cfg_fields.get("efficient", True)
+    if not efficient and args.blocks is not None:
+        parser.error("--blocks picks the kernel of the efficient blocks; the quadratic "
+                     "(--no_eff) model has none to pick")
+    cfg_fields["fused_blocks"] = efficient and (args.blocks or "fused") == "fused"
+    cfg = ModelConfig(**cfg_fields)
+    device = resolve_device(args.device)
     model = build_model(cfg, device, args.params, args.random_init)
     mean, std = load_stats(args.stats, cfg.input_feats)
 

@@ -2,9 +2,10 @@
 ``hig_tpu/train/trainer.py:402-562``).
 
 Everything loop-invariant is hoisted out of the step loop: the text is
-encoded once, each layer's text KᵀV state is computed once, and every
-block's AdaLN (scale, shift) is computed for every step of the DDIM grid in
-one batched pass. Unlike the JAX sampler, which turns the AdaLN hoist off
+encoded once, each layer's text state is computed once (the KᵀV tensor of
+the efficient model, the projected (k, v) pair of the quadratic one), and
+every block's AdaLN (scale, shift) is computed for every step of the DDIM
+grid in one batched pass. Unlike the JAX sampler, which turns the AdaLN hoist off
 under ``fused_blocks``, the port hoists it for all four blocks and feeds the
 fused-block kernel the hoisted (scale, shift): the function computed is the
 same. Only DDIM with ``guidance_scale`` 1 is ported; training, DDPM, DPM++

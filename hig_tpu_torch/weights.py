@@ -160,7 +160,9 @@ def flax_param_shapes(cfg: ModelConfig) -> dict:
         den[f"layer_{i}"] = {
             "sa_block": attn(D),
             "ca_block": {**attn(Dt), "text_norm": _ln(Dt)},
-            "int_ca_block": attn(D),
+            # the quadratic interaction block normalizes the partner with
+            # its own text_norm; the efficient one shares ``norm``
+            "int_ca_block": attn(D) if cfg.efficient else {**attn(D), "text_norm": _ln(D)},
             "ffn": {"linear1": _dense(D, cfg.ff_size), "linear2": _dense(cfg.ff_size, D),
                     "proj_out": styl()},
         }

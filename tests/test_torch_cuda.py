@@ -5,21 +5,25 @@ no JAX, so run this file there without the repository's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Shapes are the serving path's: 8 caption pairs (N = 16 sequences), T = 91,
-D = 512, 8 heads of 64, float32, ragged lengths. Tolerance 1e-4 absolute:
-float32 sums run in another order than cuBLAS's, and the block's second
-LayerNorm rescales the attention output by 1/std.
+Shapes are the serving path's: 8 caption pairs (N = 16 sequences), T = 91
+(and 77 keys where Tq != Tk), D = 512, 8 heads of 64, float32, ragged
+lengths. Tolerance 1e-4 absolute: float32 sums run in another order than
+cuBLAS's, and the block's second LayerNorm rescales the attention output by
+1/std.
 """
 
 import pytest
 import torch
 
+from hig_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 from hig_tpu_torch.ops.fused_block import (
     BlockWeights,
     fused_attention_block,
     fused_attention_block_plain,
 )
 from hig_tpu_torch.ops.pallas_attention import (
+    efficient_attention,
+    fused_efficient_attention,
     fused_projected_attention,
     fused_projected_attention_plain,
 )
@@ -80,6 +84,43 @@ def test_projected_attention_kernel(cuda, same_source):
     assert (got - fused_projected_attention_plain(*args)).abs().max().item() <= TOL
 
 
+@pytest.mark.parametrize("case", ["self", "partner", "causal", "tq_ne_tk"])
+def test_flash_attention_kernel(cuda, case):
+    """B4 as the quadratic blocks call it: self-attention reads q, k and v
+    in place from one merged (..., T, 3D) product, the interaction block k
+    and v from a (..., T, 2D) one with partner=True."""
+    w, x, mask, _, _ = _inputs(cuda)
+    Tk = 77 if case == "tq_ne_tk" else T
+    if case == "partner":
+        q = torch.nn.functional.linear(x, w.wq, w.bq)
+        k, v = torch.nn.functional.linear(
+            x, torch.cat([w.wk, w.wv]), torch.cat([w.bk, w.bv])).chunk(2, dim=-1)
+    else:
+        q, k, v = torch.nn.functional.linear(
+            x, torch.cat([w.wq, w.wk, w.wv]), torch.cat([w.bq, w.bk, w.bv])).chunk(3, dim=-1)
+    if case == "tq_ne_tk":
+        k, v, mask = k[..., :Tk, :].contiguous(), v[..., :Tk, :].contiguous(), mask[..., :Tk]
+    args = (q, k, v, H, mask, case == "causal", case == "partner")
+    before = flash_attention.launches
+    got = flash_attention(*args)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert (got - flash_attention_plain(*args)).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("Tk", [T, 77])
+def test_efficient_attention_kernel(cuda, Tk):
+    w, x, mask, _, _ = _inputs(cuda)
+    gen = torch.Generator().manual_seed(1)
+    k, v = (torch.randn((N_PAIRS, 2, Tk, D), generator=gen).to(cuda) for _ in range(2))
+    args = (x, k, v, H, mask[..., :Tk])
+    before = fused_efficient_attention.launches
+    got = fused_efficient_attention(*args)
+    torch.cuda.synchronize()
+    assert fused_efficient_attention.launches == before + 1
+    assert (got - efficient_attention(*args)).abs().max().item() <= TOL
+
+
 def test_kernels_refuse_unsupported_shapes(cuda):
     w, x, mask, scale, shift = _inputs(cuda)
     with pytest.raises(ValueError):  # head dim 32
@@ -89,3 +130,12 @@ def test_kernels_refuse_unsupported_shapes(cuda):
     with pytest.raises(ValueError):  # float64
         fused_projected_attention(x.double(), x.double(), w.wq, w.bq, w.wk, w.bk,
                                   w.wv, w.bv, H)
+    for kernel in (flash_attention, fused_efficient_attention):
+        with pytest.raises(ValueError):  # head dim 32
+            kernel(x, x, x, 16, mask)
+        with pytest.raises(ValueError):  # float64
+            kernel(x.double(), x.double(), x.double(), H, mask)
+        with pytest.raises(ValueError):  # rows not evenly spaced
+            kernel(x.transpose(0, 1), x.transpose(0, 1), x.transpose(0, 1), H)
+    with pytest.raises(ValueError):  # partner without an actor axis of 2
+        flash_attention(x[:, 0], x[:, 0], x[:, 0], H, partner=True)

@@ -309,9 +309,12 @@ def test_port_imports_neither_jax_nor_hig_tpu():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
-        "print(len(names))\n"
+        "print(' '.join(names))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 20
+    names = set(res.stdout.split())
+    assert len(names) >= 23
+    assert {"hig_tpu_torch.ops.flash_attention", "hig_tpu_torch.ops.pallas_attention",
+            "hig_tpu_torch.models.attention", "hig_tpu_torch.serve"} <= names

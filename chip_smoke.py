@@ -14,8 +14,10 @@ Phases, each printing one JSON line:
      B2; B3 through the model's ``_attend`` with 91 and 77 keys; B4 self
      (q, k, v read in place from one merged product), partner, causal, and
      91 queries on 77 keys. Each with its time, the plain version's time,
-     the card's lower bound for the same work and, for B4, the time of
-     torch's scaled_dot_product_attention on the same inputs;
+     the card's lower bound for the same work (``bound``: bytes, or
+     float32-accurate operations at the faster of FMA and 3xTF32) and, for
+     B4, the time of torch's scaled_dot_product_attention on the same
+     inputs;
   4. denoiser: one full-width denoiser call through each kernel against the
      same call through the plain versions: efficient blocks through B1 and
      through B2, and the quadratic (--no_eff) denoiser through B4;
@@ -54,9 +56,11 @@ TK_SHORT = 77  # keys of the Tq != Tk kernel checks
 # serving run → the kernel its self-attention and interaction blocks launch
 SERVE_RUNS = {"fused": "fused_block", "projected": "projected_attention",
               "no_eff": "flash_attention"}
-# Card rates for the bound: float32 without tensor cores and HBM3 bandwidth
-# of an H100 SXM (NVIDIA data sheet).
+# Card rates for the bound, H100 SXM (NVIDIA data sheet): float32 FMA
+# without tensor cores, dense TF32 on the tensor cores, HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+TF32_SPLIT = 3  # a float32-accurate product in 3xTF32 takes three TF32 ones
 PEAK_BYTES = 3.35e12
 # Kernel vs plain version, float32: sums run in another order and the
 # block's second LayerNorm rescales y by 1/std(y) (~30 at these inputs).
@@ -104,9 +108,18 @@ def time_ms(fn, warmup: int = 3, calls: int = 20, repeats: int = 5) -> float:
     return statistics.median(times)
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+def bound(flops: float, nbytes: float) -> tuple[float, str, str]:
+    """The least time the card could take for ``flops`` float32-accurate
+    operations on ``nbytes`` of input and output: the larger of the bytes'
+    time and the operations' time, where the operations run at the faster
+    of the two float32-accurate rates (FMA, or TF32 / 3 for 3xTF32). Returns
+    (ms, "operations" or "bytes", and what bounds it: "ops_fma",
+    "ops_3xtf32" or "bytes")."""
+    t_fma, t_3x = flops / PEAK_F32_FLOPS, TF32_SPLIT * flops / PEAK_TF32_FLOPS
+    t_ops, t_bytes = min(t_fma, t_3x), nbytes / PEAK_BYTES
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes", "bytes"
+    return t_ops * 1e3, "operations", ("ops_3xtf32" if t_3x <= t_fma else "ops_fma")
 
 
 def wrappers() -> dict:
@@ -168,7 +181,7 @@ def profile_call(fn) -> dict:
     device_ms = sum(k[1] for k in kernels)
     return {"profiled_wall_ms": wall_ms, "device_ms": device_ms,
             "port_kernels_ms": sum(k[1] for k in kernels if "hig::" in k[0]),
-            "top": [[name[:90], ms, n] for name, ms, n in kernels[:10]]}
+            "top": [[name[:90], ms, n] for name, ms, n in kernels[:16]]}
 
 
 def phase_device() -> str:
@@ -244,12 +257,12 @@ def phase_kernels(device, failures) -> dict:
         plain_ms.append(time_ms(lambda: fused_attention_block_plain(*args)))
     flops = 2 * M * D * 3 * D + 2 * M * D * D + attn_flops
     nbytes = 4 * (2 * M * D + M + 2 * N * D + 4 * D * D + 8 * D)
-    b_ms, b_by = bound(flops, nbytes)
+    b_ms, b_by, b_kind = bound(flops, nbytes)
     rows["fused_block"] = {
         "name": "fused_block", "route": "cuda", "source": "hig_tpu_torch/csrc/fused_block.cu",
         "replaces": "hig_tpu/ops/fused_block.py:48", "max_abs_err": max(errs),
         "ms": max(ms), "plain_ms": max(plain_ms), "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None,
+        "bound_kind": b_kind, "library_ms": None,
     }
     print(json.dumps({"phase": "kernel", "kernel": "fused_block",
                       "shape": [N, T, D, HEADS], "tol": KERNEL_TOL,
@@ -257,7 +270,8 @@ def phase_kernels(device, failures) -> dict:
                       "ms_self": ms[0], "ms_interaction": ms[1],
                       "plain_ms_self": plain_ms[0], "plain_ms_interaction": plain_ms[1],
                       "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-                      "bound_us": b_ms * 1e3, "bound_by": b_by}), flush=True)
+                      "bound_us": b_ms * 1e3, "bound_by": b_by,
+                      "bound_kind": b_kind}), flush=True)
     fail_if(failures, not max(errs) <= KERNEL_TOL, f"fused_block max |err| {max(errs)}")
 
     xn = torch.nn.functional.layer_norm(x, (D,), w.ln_g, w.ln_b, 1e-6)
@@ -271,19 +285,19 @@ def phase_kernels(device, failures) -> dict:
     p_ms = time_ms(lambda: fused_projected_attention_plain(*args))
     flops = 2 * M * D * 3 * D + attn_flops
     nbytes = 4 * (3 * M * D + M + 3 * D * D + 3 * D)
-    b_ms, b_by = bound(flops, nbytes)
+    b_ms, b_by, b_kind = bound(flops, nbytes)
     rows["projected_attention"] = {
         "name": "projected_attention", "route": "cuda",
         "source": "hig_tpu_torch/csrc/projected_attention.cu",
         "replaces": "hig_tpu/ops/pallas_attention.py:116", "max_abs_err": err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None,
+        "bound_kind": b_kind, "library_ms": None,
     }
     print(json.dumps({"phase": "kernel", "kernel": "projected_attention",
                       "shape": [N, T, D, HEADS], "tol": KERNEL_TOL, "max_abs_err": err,
                       "ms": k_ms, "plain_ms": p_ms, "gflop": flops / 1e9,
                       "mbytes": nbytes / 1e6, "bound_us": b_ms * 1e3,
-                      "bound_by": b_by}), flush=True)
+                      "bound_by": b_by, "bound_kind": b_kind}), flush=True)
     fail_if(failures, not err <= KERNEL_TOL, f"projected_attention max |err| {err}")
 
     rows["efficient_attention"] = check_efficient_attention(w, x, mask, failures)
@@ -308,12 +322,13 @@ def check_efficient_attention(w, x, mask, failures) -> dict:
         torch.cuda.synchronize()
         flops = 2 * N * HEADS * hd * hd * (T + Tk)
         nbytes = 4 * (2 * N * T * D + 2 * N * Tk * D + N * Tk)
-        b_ms, b_by = bound(flops, nbytes)
+        b_ms, b_by, b_kind = bound(flops, nbytes)
         cases[f"tk{Tk}"] = {
             "max_abs_err": (got - want).abs().max().item(),
             "ms": time_ms(lambda: attention._attend(*args)),
             "plain_ms": time_ms(lambda: efficient_attention(*args)),
             "gflop": flops / 1e9, "mbytes": nbytes / 1e6, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_kind": b_kind,
         }
     err = max(c["max_abs_err"] for c in cases.values())
     print(json.dumps({"phase": "kernel", "kernel": "efficient_attention",
@@ -326,7 +341,7 @@ def check_efficient_attention(w, x, mask, failures) -> dict:
         "source": "hig_tpu_torch/csrc/efficient_attention.cu",
         "replaces": "hig_tpu/ops/pallas_attention.py:46", "max_abs_err": err,
         "ms": full["ms"], "plain_ms": full["plain_ms"], "bound_ms": full["bound_ms"],
-        "bound_by": full["bound_by"], "library_ms": None,
+        "bound_by": full["bound_by"], "bound_kind": full["bound_kind"], "library_ms": None,
     }
 
 
@@ -371,7 +386,7 @@ def check_flash_attention(w, x, mask, failures) -> dict:
         torch.cuda.synchronize()
         flops = 4 * N * HEADS * T * Tk * hd
         nbytes = 4 * (2 * N * T * D + 2 * N * Tk * D + N * Tk)
-        b_ms, b_by = bound(flops, nbytes)
+        b_ms, b_by, b_kind = bound(flops, nbytes)
         out[name] = {
             "max_abs_err": (got - want).abs().max().item(),
             "library_max_abs_err": (lib.transpose(1, 2).reshape(want.shape) - want)
@@ -381,6 +396,7 @@ def check_flash_attention(w, x, mask, failures) -> dict:
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 *sdpa_args[:3], attn_mask=sdpa_args[3])),
             "gflop": flops / 1e9, "mbytes": nbytes / 1e6, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_kind": b_kind,
         }
     err = max(c["max_abs_err"] for c in out.values())
     print(json.dumps({"phase": "kernel", "kernel": "flash_attention",
@@ -393,6 +409,7 @@ def check_flash_attention(w, x, mask, failures) -> dict:
         "replaces": "hig_tpu/ops/flash_attention.py:53", "max_abs_err": err,
         "ms": max(c["ms"] for c in path), "plain_ms": max(c["plain_ms"] for c in path),
         "bound_ms": path[0]["bound_ms"], "bound_by": path[0]["bound_by"],
+        "bound_kind": path[0]["bound_kind"],
         "library_ms": max(c["library_ms"] for c in path),
     }
 

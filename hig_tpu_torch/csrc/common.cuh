@@ -1,8 +1,17 @@
-// Helpers shared by every kernel library of the port: warp reductions and
-// the error string a wrapper reports when a launch returns a cudaError_t.
+// Helpers shared by every kernel library of the port: warp reductions, the
+// 3xTF32 tensor-core product, cp.async copies, and the error string a
+// wrapper reports when a launch returns a cudaError_t.
+//
+// 3xTF32. A float32 x is split into hi = cvt.rna.tf32(x) and
+// lo = cvt.rna.tf32(x - hi); a product a * b is taken as
+// a_lo * b_hi + a_hi * b_lo + a_hi * b_hi on the tensor cores
+// (mma.sync m16n8k8, float32 accumulators). Only lo * lo (~2^-22 of the
+// product) is dropped, so the result keeps float32-level error, where one
+// plain TF32 product keeps ~2^-11.
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace hig {
 
@@ -16,6 +25,72 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// A float32 operand as the high and low TF32 parts of the 3xTF32 product.
+struct Split {
+  uint32_t hi, lo;
+};
+
+__device__ __forceinline__ Split split_tf32(float x) {
+  const uint32_t hi = to_tf32(x);
+  return {hi, to_tf32(x - __uint_as_float(hi))};
+}
+
+// d += a * b for one m16n8k8 tile, TF32 inputs, float32 accumulators.
+// Fragments (g = lane / 4, c = lane % 4): a[0] (row g, k c), a[1] (g + 8, c),
+// a[2] (g, c + 4), a[3] (g + 8, c + 4); b[0] (k c, col g), b[1] (c + 4, g);
+// d[0] (row g, col 2c), d[1] (g, 2c + 1), d[2] (g + 8, 2c), d[3] (g + 8, 2c + 1).
+// Not volatile, so the compiler may interleave independent products.
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc[i][j] += a[i] * b[j] in 3xTF32 for I x J tiles: acc is [I][J][4], a
+// [I][4] and b [J][2] split fragments. Each accumulator takes lo*hi, then
+// hi*lo, then hi*hi, and the three terms run over every tile in turn, so
+// consecutive products go to different accumulators instead of waiting on
+// each other.
+template <int I, int J>
+__device__ __forceinline__ void mma_3xtf32(float* acc, const Split* a, const Split* b) {
+#pragma unroll
+  for (int term = 0; term < 3; ++term)
+#pragma unroll
+    for (int i = 0; i < I; ++i)
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        uint32_t af[4], bf[2];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) af[r] = term == 0 ? a[4 * i + r].lo : a[4 * i + r].hi;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) bf[r] = term == 1 ? b[2 * j + r].lo : b[2 * j + r].hi;
+        mma_tf32(acc + 4 * (J * i + j), af, bf);
+      }
+}
+
+// 16-byte asynchronous copy global -> shared; `valid` false writes zeros.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(gmem), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
 }  // namespace hig

@@ -14,23 +14,35 @@
 // n ^ 1, the other actor of the pair in the (B, 2) layout, so the
 // interaction block needs no flipped copy.
 //
-// Design. Grid (N*H, ceil(Tq / 64)); 256 threads; each query row belongs to
-// a quad of 4 lanes. A thread keeps its row of q (scaled) in 64 registers
-// and 16 of the row's 64 output columns in registers; the quad shares the
-// running max and sum of the online softmax through shuffles. Keys stream
-// through shared memory in chunks of 32 rows of k and v (8 + 8 KB, k rows
-// padded to 68 floats so the 4 lanes of a quad read 4 different banks);
-// the lane at quad position p scores keys p, p + 4, ..., p + 28 of a
-// chunk, and the quad hands the probabilities to each other by shuffle for
-// the P . V product. Keys past Tk score -inf; a chunk always ends with the row's max
-// finite because key 0 exists, so exp never sees -inf - -inf. Products are
-// float32 FMAs; the output is written once.
+// Numerics: q k^T and P v run on the tensor cores in 3xTF32 (common.cuh:
+// hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi), lo*hi + hi*lo + hi*hi in
+// float32 accumulators), which keeps float32-level error. mma.sync m16n8k8
+// rather than wgmma: a 16-row tile per warp wastes at most 15 rows of a
+// ragged T (wgmma's 64-row tiles would waste 37 of 128 at T = 91), and the
+// softmax stays in the accumulator registers, where P becomes the A operand
+// of P v without a trip through shared memory.
 //
-// Bound on this card: at N = 16, H = 8, T = 91 the work is
-// 4 * N * H * T^2 * 64 = 0.27 GFLOP against 12 MB of q, k, v and out, i.e.
-// ~4 us at the 67 TFLOP/s float32 FMA rate and ~3.6 us at 3.35 TB/s. The
-// kernel is latency bound at that size: 256 blocks of 3 chunks each.
-// wgmma, TMA and bf16 are left for later work.
+// Design. One block per (sequence, head, up to 128 query rows), one warp per
+// 16 query rows: at N = 16, H = 8, T = 91 that is 128 blocks of 6 warps (768
+// warps, 5 idle rows). A warp keeps its 16 rows of q (scaled by 1/8, exact)
+// split into hi and lo fragments in registers. The block copies the head's
+// keys and values into dynamic shared memory once (cp.async, one commit
+// group per 32 keys, so the first keys are scored while the rest arrive;
+// up to 256 keys at a time, longer key ranges in tiles of 256), and every
+// warp streams them in steps of 32 keys with an online softmax in float32
+// registers inside the product's fragment layout. Within each 8-deep step
+// the depth index is permuted (logical k c and c + 4 are the pair 2c, 2c + 1)
+// identically on both operands: q and k fragments are then 64-bit loads, and
+// the S accumulator of 8 keys is exactly P's A fragment for P v, with v's
+// rows taken in the same order. Row strides (72 floats for k, 68 for v) make
+// every fragment load free of bank conflicts. When causal and key 0 is
+// unmasked, blocks and warps skip key steps past their last query: those
+// keys' weights are exp(-1e6 + ...) = 0 in float32 exactly. Key 0 keeps
+// every running max finite, so exp never sees -inf - -inf.
+//
+// Bound on this card at N = 16, H = 8, T = 91: 4 * N * H * T^2 * 64 = 0.27
+// GFLOP (1.6 us in 3xTF32 at 495 / 3 TFLOP/s) against 11.9 MB of q, k, v,
+// mask and out (3.6 us at 3.35 TB/s): bytes.
 #include <math.h>
 #include <stddef.h>
 
@@ -38,136 +50,207 @@
 
 namespace hig {
 
-constexpr int FA_HD = 64;       // head dim
-constexpr int FA_BQ = 64;       // query rows per block
-constexpr int FA_BK = 32;       // key rows per chunk
-constexpr int FA_THREADS = 256; // 4 lanes per query row
-constexpr int FA_KPAD = FA_HD + 4;
+constexpr int FA_HD = 64;        // head dim
+constexpr int FA_MAX_WARPS = 8;  // 16 query rows each
+constexpr int FA_STEP = 32;      // keys per online-softmax step
+constexpr int FA_TILE = 256;     // most keys resident in shared memory at once
+constexpr int FA_KS = FA_HD + 8; // row stride of k in shared memory
+constexpr int FA_VS = FA_HD + 4; // row stride of v
 constexpr float FA_SCALE = 0.125f;  // 1 / sqrt(FA_HD), exact in float32
 constexpr float FA_MASK_BIAS = -1000000.0f;
 
-__global__ void __launch_bounds__(FA_THREADS) flash_attention_kernel(
+constexpr size_t fa_smem(int rows) {
+  return sizeof(float) * (size_t)rows * (FA_KS + FA_VS + 1);
+}
+
+// Wait until at most n of this thread's cp.async groups are pending.
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>(); break;
+  }
+}
+
+__global__ void __launch_bounds__(FA_MAX_WARPS * 32) flash_attention_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ mask, float* __restrict__ out, int H, int Tq, int Tk,
-    int ldq, int ldkv, int ldo, int partner, int causal) {
-  __shared__ __align__(16) float k_s[FA_BK][FA_KPAD];
-  __shared__ __align__(16) float v_s[FA_BK][FA_HD];
-  __shared__ float bias_s[FA_BK];
+    int ldq, int ldkv, int ldo, int partner, int causal, int tile) {
+  extern __shared__ __align__(16) float smem[];
+  float* k_s = smem;                         // [tile][FA_KS]
+  float* v_s = k_s + tile * FA_KS;           // [tile][FA_VS]
+  float* bias_s = v_s + tile * FA_VS;        // [tile]
 
   const int n = blockIdx.x / H, h = blockIdx.x % H;
   const int src = partner ? (n ^ 1) : n;
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int part = tid & 3;  // this lane's quarter of the keys and output columns
-  const int t = blockIdx.y * FA_BQ + (tid >> 2);  // query row
-  const bool valid = t < Tq;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, c = lane & 3;
+  const int nthreads = blockDim.x;
+  const int bq = blockDim.x / 2;  // 16 query rows per warp
+  const int tb0 = blockIdx.y * bq;
+  const int tw0 = tb0 + warp * 16;  // first query row of this warp
+  const int t_lo = tw0 + g, t_hi = tw0 + g + 8;
   const float* kb = k + (size_t)src * Tk * ldkv + h * FA_HD;
   const float* vb = v + (size_t)src * Tk * ldkv + h * FA_HD;
   const float* mb = mask + (size_t)src * Tk;
 
-  float qr[FA_HD];
+  // Past the last query, causal keys weigh exactly 0 as long as key 0 is
+  // unmasked (the row max is then at least key 0's score).
+  const bool skip = causal && mb[0] != 0.f;
+  const int kv_end = skip ? min(Tk, min(Tq, tb0 + bq)) : Tk;
+  const int warp_end = skip ? min(Tk, tw0 + 16) : Tk;
+  const bool warp_rows = tw0 < Tq;
+
+  // q fragments, scaled, split once: qa[kk][*] for depth 8 kk .. 8 kk + 7.
+  Split qa[FA_HD / 8][4];
   {
-    const float4* qp = reinterpret_cast<const float4*>(q + ((size_t)n * Tq + t) * ldq + h * FA_HD);
+    const float* q0 = q + ((size_t)n * Tq + min(t_lo, Tq - 1)) * ldq + h * FA_HD + 2 * c;
+    const float* q1 = q + ((size_t)n * Tq + min(t_hi, Tq - 1)) * ldq + h * FA_HD + 2 * c;
 #pragma unroll
-    for (int i = 0; i < FA_HD / 4; ++i) {
-      const float4 a = valid ? qp[i] : make_float4(0.f, 0.f, 0.f, 0.f);
-      qr[4 * i + 0] = a.x * FA_SCALE;
-      qr[4 * i + 1] = a.y * FA_SCALE;
-      qr[4 * i + 2] = a.z * FA_SCALE;
-      qr[4 * i + 3] = a.w * FA_SCALE;
+    for (int kk = 0; kk < FA_HD / 8; ++kk) {
+      const float2 a = *reinterpret_cast<const float2*>(q0 + 8 * kk);
+      const float2 b = *reinterpret_cast<const float2*>(q1 + 8 * kk);
+      qa[kk][0] = split_tf32(a.x * FA_SCALE);
+      qa[kk][2] = split_tf32(a.y * FA_SCALE);
+      qa[kk][1] = split_tf32(b.x * FA_SCALE);
+      qa[kk][3] = split_tf32(b.y * FA_SCALE);
     }
   }
-  // acc[4 * c + e] is output column 16 * c + 4 * part + e: the quad's four
-  // float4 reads of a v row are then 64 contiguous bytes.
-  float acc[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
-  float m = -INFINITY, l = 0.f;
 
-  for (int k0 = 0; k0 < Tk; k0 += FA_BK) {
-    for (int i = tid; i < FA_BK * FA_HD / 4; i += FA_THREADS) {
-      const int r = i / (FA_HD / 4), c = (i % (FA_HD / 4)) * 4;
-      const int key = k0 + r;
-      float4 kk = make_float4(0.f, 0.f, 0.f, 0.f), vv = kk;
-      if (key < Tk) {
-        kk = *reinterpret_cast<const float4*>(kb + (size_t)key * ldkv + c);
-        vv = *reinterpret_cast<const float4*>(vb + (size_t)key * ldkv + c);
+  float o[FA_HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < FA_HD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+
+  for (int kt0 = 0; kt0 < kv_end; kt0 += tile) {
+    const int steps = (min(tile, kv_end - kt0) + FA_STEP - 1) / FA_STEP;
+    for (int s = 0; s < steps; ++s) {
+      for (int i = tid; i < FA_STEP * (FA_HD / 4); i += nthreads) {
+        const int r = s * FA_STEP + i / (FA_HD / 4), col = (i % (FA_HD / 4)) * 4;
+        const int key = kt0 + r;
+        const bool ok = key < Tk;
+        const size_t off = (size_t)(ok ? key : 0) * ldkv + col;
+        cp_async16(k_s + r * FA_KS + col, kb + off, ok);
+        cp_async16(v_s + r * FA_VS + col, vb + off, ok);
       }
-      *reinterpret_cast<float4*>(&k_s[r][c]) = kk;
-      *reinterpret_cast<float4*>(&v_s[r][c]) = vv;
+      cp_async_commit();
     }
-    if (tid < FA_BK) {
-      const int key = k0 + tid;
-      bias_s[tid] = key < Tk ? (1.f - mb[key]) * FA_MASK_BIAS : -INFINITY;
+    for (int r = tid; r < steps * FA_STEP; r += nthreads) {
+      const int key = kt0 + r;
+      bias_s[r] = key < Tk ? (1.f - mb[key]) * FA_MASK_BIAS : -INFINITY;
     }
-    __syncthreads();
 
-    float s[8];
+    for (int s = 0; s < steps; ++s) {
+      cp_async_wait_upto(steps - 1 - s);
+      __syncthreads();  // keys of step s (and the bias) are in for every warp
+      const int key0 = kt0 + s * FA_STEP;
+      if (!warp_rows || key0 >= warp_end) continue;
+      const int r0 = s * FA_STEP;
+
+      // S = q k^T for 32 keys: 4 n8 tiles, keys key0 + 8 j + {2c, 2c + 1}.
+      float sc[FA_STEP / 8][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) s[j] = 0.f;
+      for (int j = 0; j < FA_STEP / 8; ++j)
 #pragma unroll
-    for (int d = 0; d < FA_HD; d += 4) {
+        for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float4 kk = *reinterpret_cast<const float4*>(&k_s[part + 4 * j][d]);
-        s[j] = fmaf(qr[d + 0], kk.x, s[j]);
-        s[j] = fmaf(qr[d + 1], kk.y, s[j]);
-        s[j] = fmaf(qr[d + 2], kk.z, s[j]);
-        s[j] = fmaf(qr[d + 3], kk.w, s[j]);
+      for (int kk = 0; kk < FA_HD / 8; ++kk) {
+        Split b[FA_STEP / 8][2];
+#pragma unroll
+        for (int j = 0; j < FA_STEP / 8; ++j) {
+          const float2 kv = *reinterpret_cast<const float2*>(
+              k_s + (r0 + 8 * j + g) * FA_KS + 8 * kk + 2 * c);
+          b[j][0] = split_tf32(kv.x);
+          b[j][1] = split_tf32(kv.y);
+        }
+        mma_3xtf32<1, FA_STEP / 8>(&sc[0][0], qa[kk], &b[0][0]);
       }
-    }
-    float cmax = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int key = k0 + part + 4 * j;
-      float sj = s[j] + bias_s[part + 4 * j];
-      if (causal && key > t) sj += FA_MASK_BIAS;
-      s[j] = sj;
-      cmax = fmaxf(cmax, sj);
-    }
-    cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, 1));
-    cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, 2));
-    const float m_new = fmaxf(m, cmax);
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j] = expf(s[j] - m_new);
-      psum += s[j];
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l = l * alpha + psum;
-    m = m_new;
-#pragma unroll
-    for (int i = 0; i < 16; ++i) acc[i] *= alpha;
 
+      // Bias, masks and the online softmax of rows t_lo (e = 0, 1) and
+      // t_hi (e = 2, 3); the four lanes of a quad hold one row's 32 keys.
+      float mx_lo = -INFINITY, mx_hi = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < FA_STEP / 8; ++j) {
 #pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        const float pw = __shfl_sync(0xffffffffu, s[j], (lane & ~3) | p);
-        const float* vr = &v_s[p + 4 * j][4 * part];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float4 vv = *reinterpret_cast<const float4*>(vr + 16 * c);
-          acc[4 * c + 0] = fmaf(pw, vv.x, acc[4 * c + 0]);
-          acc[4 * c + 1] = fmaf(pw, vv.y, acc[4 * c + 1]);
-          acc[4 * c + 2] = fmaf(pw, vv.z, acc[4 * c + 2]);
-          acc[4 * c + 3] = fmaf(pw, vv.w, acc[4 * c + 3]);
+        for (int e = 0; e < 4; ++e) {
+          const int r = r0 + 8 * j + 2 * c + (e & 1);
+          const int key = kt0 + r;
+          const int t = e < 2 ? t_lo : t_hi;
+          float x = sc[j][e] + bias_s[r];
+          if (causal && key > t) x += FA_MASK_BIAS;
+          sc[j][e] = x;
+          if (e < 2) mx_lo = fmaxf(mx_lo, x); else mx_hi = fmaxf(mx_hi, x);
         }
       }
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
+      const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+      const float al_lo = expf(m_lo - mn_lo), al_hi = expf(m_hi - mn_hi);
+      m_lo = mn_lo;
+      m_hi = mn_hi;
+      l_lo *= al_lo;
+      l_hi *= al_hi;
+#pragma unroll
+      for (int j = 0; j < FA_STEP / 8; ++j) {
+        sc[j][0] = expf(sc[j][0] - mn_lo);
+        sc[j][1] = expf(sc[j][1] - mn_lo);
+        sc[j][2] = expf(sc[j][2] - mn_hi);
+        sc[j][3] = expf(sc[j][3] - mn_hi);
+        l_lo += sc[j][0] + sc[j][1];
+        l_hi += sc[j][2] + sc[j][3];
+      }
+#pragma unroll
+      for (int j = 0; j < FA_HD / 8; ++j) {
+        o[j][0] *= al_lo;
+        o[j][1] *= al_lo;
+        o[j][2] *= al_hi;
+        o[j][3] *= al_hi;
+      }
+
+      // O += P v: the S tile of keys 8 j .. 8 j + 7 is P's A fragment for
+      // depth step j, with logical k c <-> key 2c and c + 4 <-> key 2c + 1.
+#pragma unroll
+      for (int j = 0; j < FA_STEP / 8; ++j) {
+        const Split a[4] = {split_tf32(sc[j][0]), split_tf32(sc[j][2]),
+                            split_tf32(sc[j][1]), split_tf32(sc[j][3])};
+        const float* v0 = v_s + (r0 + 8 * j + 2 * c) * FA_VS + g;
+        Split b[FA_HD / 8][2];
+#pragma unroll
+        for (int jn = 0; jn < FA_HD / 8; ++jn) {
+          b[jn][0] = split_tf32(v0[8 * jn]);
+          b[jn][1] = split_tf32(v0[FA_VS + 8 * jn]);
+        }
+        mma_3xtf32<1, FA_HD / 8>(&o[0][0], a, &b[0][0]);
+      }
     }
-    __syncthreads();
+    __syncthreads();  // every warp is done with this tile before the next one
   }
 
-  if (valid) {
-    const float inv = 1.f / l;
-    float* o = out + ((size_t)n * Tq + t) * ldo + h * FA_HD + 4 * part;
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
+  const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
+  if (t_lo < Tq) {
+    float* orow = out + ((size_t)n * Tq + t_lo) * ldo + h * FA_HD + 2 * c;
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
-      *reinterpret_cast<float4*>(o + 16 * c) =
-          make_float4(acc[4 * c] * inv, acc[4 * c + 1] * inv, acc[4 * c + 2] * inv,
-                      acc[4 * c + 3] * inv);
+    for (int j = 0; j < FA_HD / 8; ++j)
+      *reinterpret_cast<float2*>(orow + 8 * j) = make_float2(o[j][0] * inv_lo, o[j][1] * inv_lo);
+  }
+  if (t_hi < Tq) {
+    float* orow = out + ((size_t)n * Tq + t_hi) * ldo + h * FA_HD + 2 * c;
+#pragma unroll
+    for (int j = 0; j < FA_HD / 8; ++j)
+      *reinterpret_cast<float2*>(orow + 8 * j) = make_float2(o[j][2] * inv_hi, o[j][3] * inv_hi);
   }
 }
 
@@ -177,9 +260,17 @@ extern "C" int hig_flash_attention(
     const float* q, const float* k, const float* v, const float* mask, float* out,
     int N, int H, int Tq, int Tk, int ldq, int ldkv, int ldo, int partner, int causal,
     void* stream_ptr) {
-  const dim3 grid(N * H, (Tq + hig::FA_BQ - 1) / hig::FA_BQ);
-  hig::flash_attention_kernel<<<grid, hig::FA_THREADS, 0,
+  const cudaError_t attr = cudaFuncSetAttribute(
+      hig::flash_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)hig::fa_smem(hig::FA_TILE));
+  if (attr != cudaSuccess) return attr;
+  const int tiles = (Tq + 15) / 16;
+  const int warps = tiles < hig::FA_MAX_WARPS ? tiles : hig::FA_MAX_WARPS;
+  const int keys = (Tk + hig::FA_STEP - 1) / hig::FA_STEP * hig::FA_STEP;
+  const int tile = keys < hig::FA_TILE ? keys : hig::FA_TILE;
+  const dim3 grid(N * H, (tiles + warps - 1) / warps);
+  hig::flash_attention_kernel<<<grid, 32 * warps, hig::fa_smem(tile),
                                 static_cast<cudaStream_t>(stream_ptr)>>>(
-      q, k, v, mask, out, H, Tq, Tk, ldq, ldkv, ldo, partner, causal);
+      q, k, v, mask, out, H, Tq, Tk, ldq, ldkv, ldo, partner, causal, tile);
   return cudaGetLastError();
 }

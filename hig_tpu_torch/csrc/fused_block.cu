@@ -9,9 +9,13 @@
 //   per head: y_h = softmax_feat(q_h) . [softmax_time(k_h)^T v_h]
 //   out = x + SiLU(LN_styl(y) * (1 + scale) + shift) Wo + bo
 //
-// Three launches on the caller's stream: (a) LN + QKV GEMM into `qkv`,
-// (b) the attention core into `y`, (c) LN + AdaLN + SiLU + Wo GEMM with the
-// bias and residual into `out`. Returns the cudaError_t of the launches.
+// Five launches on the caller's stream (linear_attention.cuh has the
+// design): (1) a row pass writes xn = LN_attn(x) into `y`; (2) the 3xTF32
+// QKV GEMM reads xn and writes `qkv` (N*T, 3*D); (3) the attention core
+// writes y; (4) a row pass turns y in place into
+// SiLU(LN_styl(y) * (1 + scale) + shift); (5) the 3xTF32 Wo GEMM adds bo and
+// the residual x into `out`. Each row is normalized once, so the GEMMs'
+// main loops do copies and products only. Returns the first cudaError_t.
 #include "linear_attention.cuh"
 
 extern "C" int hig_fused_block(
@@ -25,30 +29,31 @@ extern "C" int hig_fused_block(
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int M = N * T;
 
-  hig::GemmArgs a{};
-  a.a0 = x; a.a1 = x;
-  a.w0 = wq; a.w1 = wk; a.w2 = wv;
-  a.b0 = bq; a.b1 = bk; a.b2 = bv;
-  a.ln_g = ln_g; a.ln_b = ln_b;
-  a.out = qkv;
-  a.M = M; a.K = D; a.D = D; a.T = T; a.ldo = 3 * D;
-  hig::launch_gemm(hig::QKV_LN, a, 3 * D, stream);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = hig::launch_row_norm<false>(x, y, ln_g, ln_b, nullptr, nullptr, M, D, T,
+                                                stream);
   if (err != cudaSuccess) return err;
 
-  hig::launch_core_qkv(qkv, mask, y, N, T, D, interaction, stream);
-  err = cudaGetLastError();
+  hig::GemmArgs a{};
+  a.a0 = y; a.a1 = y;
+  a.w0 = wq; a.w1 = wk; a.w2 = wv;
+  a.b0 = bq; a.b1 = bk; a.b2 = bv;
+  a.out = qkv;
+  a.M = M; a.K = D; a.D = D; a.ldo = 3 * D;
+  err = hig::launch_gemm_qkv(a, stream);
+  if (err != cudaSuccess) return err;
+
+  err = hig::launch_core_qkv(qkv, mask, y, N, T, D, interaction, stream);
+  if (err != cudaSuccess) return err;
+
+  err = hig::launch_row_norm<true>(y, y, styl_g, styl_b, scale, shift, M, D, T, stream);
   if (err != cudaSuccess) return err;
 
   hig::GemmArgs c{};
   c.a0 = y; c.a1 = y;
   c.w0 = wo; c.w1 = wo; c.w2 = wo;
   c.b0 = bo; c.b1 = bo; c.b2 = bo;
-  c.ln_g = styl_g; c.ln_b = styl_b;
-  c.scale = scale; c.shift = shift;
   c.resid = x;
   c.out = out;
-  c.M = M; c.K = D; c.D = D; c.T = T; c.ldo = D;
-  hig::launch_gemm(hig::OUT_STYL, c, D, stream);
-  return cudaGetLastError();
+  c.M = M; c.K = D; c.D = D; c.ldo = D;
+  return hig::launch_gemm_out(c, stream);
 }

@@ -5,9 +5,10 @@
 //   k += (1 - mask) * -1e6; v *= mask
 //   per head: y_h = softmax_feat(q_h) . [softmax_time(k_h)^T v_h]
 //
-// Two launches on the caller's stream: the QKV GEMM (q columns from q_src,
-// k/v columns from kv_src) into `qkv`, then the attention core into `out`
-// (N, T, D). Returns the cudaError_t of the launches.
+// Two launches on the caller's stream (linear_attention.cuh has the
+// design): the 3xTF32 QKV GEMM (q columns from q_src, k/v columns from
+// kv_src) into `qkv`, then the attention core into `out` (N, T, D).
+// Returns the first cudaError_t.
 #include "linear_attention.cuh"
 
 extern "C" int hig_projected_attention(
@@ -22,11 +23,8 @@ extern "C" int hig_projected_attention(
   a.w0 = wq; a.w1 = wk; a.w2 = wv;
   a.b0 = bq; a.b1 = bk; a.b2 = bv;
   a.out = qkv;
-  a.M = N * T; a.K = D; a.D = D; a.T = T; a.ldo = 3 * D;
-  hig::launch_gemm(hig::QKV_PLAIN, a, 3 * D, stream);
-  cudaError_t err = cudaGetLastError();
+  a.M = N * T; a.K = D; a.D = D; a.ldo = 3 * D;
+  const cudaError_t err = hig::launch_gemm_qkv(a, stream);
   if (err != cudaSuccess) return err;
-
-  hig::launch_core_qkv(qkv, mask, out, N, T, D, 0, stream);
-  return cudaGetLastError();
+  return hig::launch_core_qkv(qkv, mask, out, N, T, D, 0, stream);
 }

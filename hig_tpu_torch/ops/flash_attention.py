@@ -12,14 +12,16 @@ aligned blocks. On the H100 the kernel reads each head's 64 columns in
 place through a row stride instead, so self-attention reads the three
 column blocks of one merged q|k|v product and no copy is made; with
 ``partner`` it reads k, v and the key mask of sequence n ^ 1 (the other
-actor), so the interaction block needs no flipped copy either. The grid is
-((sequence, head), 64-row query tiles): at N = 16, H = 8, T = 91 that is 256
-blocks for 132 SMs. Each query row belongs to 4 lanes that keep the row of
-q and a quarter of the output in registers; keys stream through shared
-memory in chunks of 32. The work there is 0.27 GFLOP against 12 MB, so the
-card's bound is ~4 µs from the float32 FMA rate (67 TFLOP/s without tensor
-cores), and a launch that small is bound by latency. ``wgmma``, TMA and
-bf16 are left for later work.
+actor), so the interaction block needs no flipped copy either. One block
+per (sequence, head, up to 128 queries), one warp per 16 query rows (128
+blocks of 6 warps at N = 16, H = 8, T = 91). The block copies the head's
+keys and values into shared memory once (cp.async, a commit group per 32
+keys); each warp runs q·kᵀ and P·v on the tensor cores in 3xTF32
+(mma.sync m16n8k8, hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x − hi), lo·hi +
+hi·lo + hi·hi in float32) with the online softmax in the accumulator
+registers; key ranges past 256 go through in tiles, and causal blocks skip
+keys past their last query when key 0 is unmasked. The work there is 0.27
+GFLOP against 12 MB, so the card's bound is bytes: 3.6 µs at 3.35 TB/s.
 """
 
 from __future__ import annotations

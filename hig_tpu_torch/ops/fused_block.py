@@ -12,20 +12,23 @@ Counterpart of ``hig_tpu/ops/fused_block.py`` (``_block_kernel`` at :48,
 In the interaction variant kv and the key mask are the other actor's
 (``flip`` on the actor axis of the (B, 2, T, D) layout).
 
-Kernel note (``csrc/fused_block.cu``). The TPU kernel ran the whole block
-per sequence in VMEM. On the H100 a (91, 512) f32 activation tile is 186 KB
-and one (512, 512) weight 1 MB against 227 KB of shared memory, and one
-block per sequence would fill 16 of 132 SMs. So the block is three
-launches: (a) a LayerNorm-prologue QKV GEMM (row statistics computed in the
-block, normalization applied as the A tile is loaded), (b) the
-per-(sequence, head) attention core shared with B2, which reads the
-partner's k/v rows (sequence n ^ 1) so no flipped copy is made, and (c) a
-LayerNorm + AdaLN + SiLU prologue Wo GEMM with the bias and residual in its
-epilogue. At N = 16, T = 91, D = 512 the block is ~3.2 GFLOP against ~10 MB
-of traffic: bound by the f32 FMA rate (67 TFLOP/s without tensor cores),
-so the GEMMs reuse each shared-memory load 4 times from 4×4 register
-tiles, and the q|k|v and y intermediates (12 MB) stay in L2 between
-launches. ``wgmma``, TMA and bf16 are left for later work.
+Kernel note (``csrc/fused_block.cu`` over ``csrc/linear_attention.cuh``).
+The TPU kernel ran the whole block per sequence in VMEM. On the H100 a
+(91, 512) f32 activation tile is 186 KB and one (512, 512) weight 1 MB
+against 227 KB of shared memory, and one block per sequence would fill 16
+of 132 SMs. So the block is five launches on the caller's stream: a row
+pass writes LayerNorm_attn(x); a GEMM writes the (N·T, 3D) q|k|v product;
+the per-(sequence, head, 32 queries) attention core, shared with B2 and
+B3, reads the partner's k/v rows (sequence n ^ 1) so no flipped copy is
+made; a row pass turns y in place into SiLU(LayerNorm_styl(y)·(1+scale) +
+shift); a GEMM adds bo and the residual. Each row is normalized once, so
+the GEMMs' main loops only copy (a 3-stage cp.async ring) and multiply.
+Every product runs on the tensor cores in 3xTF32 (mma.sync m16n8k8): each
+float32 operand is split into hi = cvt.rna.tf32(x) and lo =
+cvt.rna.tf32(x − hi), summed as lo·hi + hi·lo + hi·hi in float32, which
+keeps float32-level error. At N = 16, T = 91, D = 512 the block is 3.24
+GFLOP against 10 MB, so the card's bound is its 3xTF32 rate (495 / 3
+TFLOP/s): 0.020 ms.
 """
 
 from __future__ import annotations
@@ -96,6 +99,8 @@ def fused_attention_block(x, key_mask, scale, shift, w: BlockWeights,
     if interaction and (x.dim() != 4 or x.shape[1] != 2):
         raise ValueError(f"the interaction variant takes (B, 2, T, D), got {tuple(x.shape)}")
     check_cuda_width(D, num_heads)
+    if D % 128 or D > 1024:
+        raise ValueError(f"the CUDA block takes D a multiple of 128 up to 1024, got {D}")
     check_cuda_operand("x", x)
     N = x.numel() // (T * D)
     mask = key_mask.to(torch.float32).expand(*lead, T).reshape(N, T).contiguous()

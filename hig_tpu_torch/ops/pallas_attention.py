@@ -10,24 +10,24 @@ backwards, which belong to training, are still to be ported.
 Kernel note (``csrc/projected_attention.cu``). The TPU kernel ran one grid
 step per sequence with the three (D, D) weights resident in VMEM. On the
 H100 one f32 (512, 512) weight is 1 MB and a block has 227 KB of shared
-memory, and 16 sequences would fill 16 of 132 SMs, so the work is split in
-two launches: a shared-memory-tiled FMA GEMM over the (N·T, 3·D) q|k|v
-output (64×64 tiles, the weights K-tiled by 16; 23 × 24 = 552 blocks at
-N = 16, T = 91, D = 512) and a core with one block per (sequence, head)
-that builds the 64×64 KᵀV state in shared memory. At the serving shape the
-work is ~2.3 GFLOP of f32 GEMM against ~9 MB of traffic, so the bound is
-the card's f32 FMA rate (67 TFLOP/s without tensor cores): the GEMM keeps
-4×4 accumulators per thread to reuse each shared-memory load 4 times, and
-the q|k|v intermediate (9 MB) stays in L2 between the two launches.
-``wgmma``, TMA and bf16 are left for later work.
+memory, and 16 sequences would fill 16 of 132 SMs, so the work is two
+launches: the q|k|v GEMM of B1 (96×64 tiles, a 3-stage cp.async ring,
+3xTF32 products on the tensor cores through mma.sync m16n8k8; 16 × 24 =
+384 blocks at N = 16, T = 91, D = 512) and the attention core of B1 (one
+block per (head, sequence, 32 queries), 384 blocks, which builds the
+64×64 KᵀV state on the tensor cores while the next 32 keys arrive by
+cp.async). At the serving shape the work is 2.5 GFLOP against 12 MB, so
+the bound is the card's 3xTF32 rate (495 / 3 TFLOP/s): 0.015 ms; the
+q|k|v intermediate (9 MB) stays in L2 between the two launches.
 
 Kernel note (``csrc/efficient_attention.cu``). The TPU kernel ran one grid
 step per (sequence, head) on an (N·H, T, hd) copy of q, k and v. On the
 H100 B3 is one launch of the same core, which reads each head's columns of
-the (N, T, D) tensors in place (row stride D): 128 blocks at N = 16, H = 8.
-The work is ~0.19 GFLOP against ~12 MB, so the bound is bytes (~3.6 µs at
-3.35 TB/s), and the core reads each input once from device memory and
-keeps the KᵀV state in shared memory.
+the (N, T, D) tensors in place (row stride D): 384 blocks at N = 16, H = 8,
+T = 91. The work is ~0.19 GFLOP against ~12 MB, so the bound is bytes
+(~3.6 µs at 3.35 TB/s); the core reads q, k and v once from device memory
+(k again, from L2, for its column max and in each query block of a head)
+and keeps the KᵀV state in shared memory.
 """
 
 from __future__ import annotations

@@ -13,7 +13,9 @@ Phases, each printing one JSON line:
      D = 512, 8 heads, float32, ragged lengths): B1 self and interaction;
      B2; B3 through the model's ``_attend`` with 91 and 77 keys; B4 self
      (q, k, v read in place from one merged product), partner, causal, and
-     91 queries on 77 keys. Each with its time, the plain version's time,
+     91 queries on 77 keys; B2 and B4 also at the training shape (128
+     sequences: a PIT step's 32 pairs under both caption assignments).
+     Each with its time, the plain version's time,
      the card's lower bound for the same work (``bound``: bytes, or
      float32-accurate operations at the faster of FMA and 3xTF32) and, for
      B4, the time of torch's scaled_dot_product_attention on the same
@@ -26,8 +28,20 @@ Phases, each printing one JSON line:
      --no_eff, through hig_tpu_torch.serve's functions; the launch counts
      of each of 3 timed calls (800 for the run's own kernel, 0 for every
      other), finite outputs of the right shape, the median wall time per
-     call, agreement with the same sampler through the plain versions, and
-     the device time by kernel of one more call (torch.profiler).
+     call, and agreement with the same sampler through the plain versions;
+  6. train: ``python -m hig_tpu_torch.train``'s main at full width (global
+     batch 32 caption pairs, T = 91, CLIP frozen) on a seeded dataset in the
+     reference's layout written to a temporary directory: PIT through B2 (6
+     steps), PIT --no_eff through B4 (4 steps) and the supervised stage with
+     a 0/1 label file (2 steps). Each run's launch counts (16 a step of its
+     own kernel, 0 of the others), finite losses in metrics.jsonl, the
+     latest checkpoint, ms per step, pairs/s and peak device memory; for
+     the two PIT runs, one batch's loss and every gradient through the
+     kernels against the plain route, at the run's initial weights and, with
+     both routes also against a float64 plain route, at its trained ones;
+     then 8 requests served from the PIT run's checkpoint through B1;
+  7. profile: the device time by kernel of one more serving call of each
+     run and of one more PIT training step (torch.profiler).
 Then the kernel table, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero without
 that line. Imports nothing of JAX or of the JAX package.
@@ -36,11 +50,14 @@ that line. Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import copy
+import dataclasses
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -56,6 +73,31 @@ TK_SHORT = 77  # keys of the Tq != Tk kernel checks
 # serving run → the kernel its self-attention and interaction blocks launch
 SERVE_RUNS = {"fused": "fused_block", "projected": "projected_attention",
               "no_eff": "flash_attention"}
+# Training runs at full width, global batch 32, T = 91: run → (extra
+# arguments of python -m hig_tpu_torch.train, steps, the kernel its attention
+# blocks launch). 48 clips: 4 passes make 6 batches of 32, 3 passes 4; the
+# supervised stage keeps 32 clips for 2 passes, 2 batches.
+TRAIN_PAIRS, TRAIN_CLIPS = 32, 48
+TRAIN_RUNS = {
+    "pit": (["--times", "4"], 6, "projected_attention"),
+    "pit_no_eff": (["--times", "3", "--no_eff"], 4, "flash_attention"),
+    "supervised": (["--times", "2", "--limit_data_num", "32", "--label_path",
+                    "{data}/labels.json"], 2, "projected_attention"),
+}
+LAUNCHES_PER_STEP = 8 * 2  # layers × (self-attention, interaction): one forward a step
+# Kernel route against plain route on one batch: the backwards recompute the
+# plain versions, so only the forwards' float32 rounding (≤ 2e-5 per kernel)
+# differs, carried through 8 layers and the loss. The key biases' exact
+# gradient is 0 (a softmax over the keys ignores a constant added to every
+# key), so those leaves hold rounding noise, bounded against the model's
+# largest gradient. Every other leaf is held to TRAIN_GRAD_TOL of its own
+# largest magnitude at the run's initial (seeded) weights. After a few steps
+# the text cross-attention's gradients fall to ~5e-6 of the model's largest,
+# where float32 itself misses a float64 reference by ~1e-3 of the leaf in
+# either route, so at the trained weights the per-leaf errors are reported,
+# beside both routes' errors against float64, and not held to the tolerance.
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_ZERO_GRAD_TOL = 1e-4, 1e-3, 1e-6
+KEY_BIAS = "_block.key.bias"
 # Card rates for the bound, H100 SXM (NVIDIA data sheet): float32 FMA
 # without tensor cores, dense TF32 on the tensor cores, HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
@@ -211,7 +253,9 @@ def phase_build() -> None:
           flush=True)
 
 
-def block_inputs(device):
+def block_inputs(device, pairs: int = N_PAIRS):
+    """Seeded block weights and (pairs, 2, T, D) inputs, lengths LENGTHS
+    repeated, AdaLN (scale, shift)."""
     gen = torch.Generator().manual_seed(1)
     from hig_tpu_torch.ops.fused_block import BlockWeights
 
@@ -226,20 +270,16 @@ def block_inputs(device):
         1 + randn(D, std=0.1), randn(D, std=0.1),
         randn(D, D, std=D ** -0.5), randn(D, std=0.1),
     )
-    x = randn(N_PAIRS, 2, T, D)
-    lengths = torch.tensor(LENGTHS, device=device) + 1
+    x = randn(pairs, 2, T, D)
+    lengths = torch.tensor(LENGTHS * (pairs // N_PAIRS), device=device) + 1
     mask = (torch.arange(T, device=device) < lengths[:, None]).float()[:, None, :]
-    mask = mask.expand(N_PAIRS, 2, T).contiguous()
-    scale, shift = randn(N_PAIRS, 2, 1, D, std=0.5), randn(N_PAIRS, 2, 1, D, std=0.5)
+    mask = mask.expand(pairs, 2, T).contiguous()
+    scale, shift = randn(pairs, 2, 1, D, std=0.5), randn(pairs, 2, 1, D, std=0.5)
     return w, x, mask, scale, shift
 
 
 def phase_kernels(device, failures) -> dict:
     from hig_tpu_torch.ops.fused_block import fused_attention_block, fused_attention_block_plain
-    from hig_tpu_torch.ops.pallas_attention import (
-        fused_projected_attention,
-        fused_projected_attention_plain,
-    )
 
     w, x, mask, scale, shift = block_inputs(device)
     N, M, hd = 2 * N_PAIRS, 2 * N_PAIRS * T, D // HEADS
@@ -274,6 +314,31 @@ def phase_kernels(device, failures) -> dict:
                       "bound_kind": b_kind}), flush=True)
     fail_if(failures, not max(errs) <= KERNEL_TOL, f"fused_block max |err| {max(errs)}")
 
+    rows["projected_attention"] = check_projected_attention(w, x, mask, failures)
+    rows["efficient_attention"] = check_efficient_attention(w, x, mask, failures)
+    rows["flash_attention"] = check_flash_attention(w, x, mask, failures)
+    # B2 and B4 at the training shape: a PIT step denoises its TRAIN_PAIRS
+    # pairs under both caption assignments (2 × 32 pairs, 128 sequences)
+    w, x, mask, _, _ = block_inputs(device, 2 * TRAIN_PAIRS)
+    for name, check in (("projected_attention", check_projected_attention),
+                        ("flash_attention", check_flash_attention)):
+        rows[name]["train_shape"] = {k: v for k, v in check(w, x, mask, failures).items()
+                                     if k in TRAIN_SHAPE_KEYS}
+    return rows
+
+
+TRAIN_SHAPE_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+
+def check_projected_attention(w, x, mask, failures) -> dict:
+    """B2 as the interaction block calls it (kv from the partner, flipped)."""
+    from hig_tpu_torch.ops.pallas_attention import (
+        fused_projected_attention,
+        fused_projected_attention_plain,
+    )
+
+    N, hd = 2 * x.shape[0], D // HEADS
+    M = N * T
     xn = torch.nn.functional.layer_norm(x, (D,), w.ln_g, w.ln_b, 1e-6)
     kv, kmask = xn.flip(1).contiguous(), mask.flip(1).contiguous()
     args = (xn, kv, w.wq, w.bq, w.wk, w.bk, w.wv, w.bv, HEADS, kmask)
@@ -283,26 +348,22 @@ def phase_kernels(device, failures) -> dict:
     err = (got - want).abs().max().item()
     k_ms = time_ms(lambda: fused_projected_attention(*args))
     p_ms = time_ms(lambda: fused_projected_attention_plain(*args))
-    flops = 2 * M * D * 3 * D + attn_flops
+    flops = 2 * M * D * 3 * D + 2 * 2 * N * HEADS * T * hd * hd
     nbytes = 4 * (3 * M * D + M + 3 * D * D + 3 * D)
     b_ms, b_by, b_kind = bound(flops, nbytes)
-    rows["projected_attention"] = {
+    print(json.dumps({"phase": "kernel", "kernel": "projected_attention",
+                      "shape": [N, T, D, HEADS], "tol": KERNEL_TOL, "max_abs_err": err,
+                      "ms": k_ms, "plain_ms": p_ms, "gflop": flops / 1e9,
+                      "mbytes": nbytes / 1e6, "bound_us": b_ms * 1e3,
+                      "bound_by": b_by, "bound_kind": b_kind}), flush=True)
+    fail_if(failures, not err <= KERNEL_TOL, f"projected_attention {N} sequences max |err| {err}")
+    return {
         "name": "projected_attention", "route": "cuda",
         "source": "hig_tpu_torch/csrc/projected_attention.cu",
         "replaces": "hig_tpu/ops/pallas_attention.py:116", "max_abs_err": err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "bound_kind": b_kind, "library_ms": None,
     }
-    print(json.dumps({"phase": "kernel", "kernel": "projected_attention",
-                      "shape": [N, T, D, HEADS], "tol": KERNEL_TOL, "max_abs_err": err,
-                      "ms": k_ms, "plain_ms": p_ms, "gflop": flops / 1e9,
-                      "mbytes": nbytes / 1e6, "bound_us": b_ms * 1e3,
-                      "bound_by": b_by, "bound_kind": b_kind}), flush=True)
-    fail_if(failures, not err <= KERNEL_TOL, f"projected_attention max |err| {err}")
-
-    rows["efficient_attention"] = check_efficient_attention(w, x, mask, failures)
-    rows["flash_attention"] = check_flash_attention(w, x, mask, failures)
-    return rows
 
 
 def check_efficient_attention(w, x, mask, failures) -> dict:
@@ -354,7 +415,7 @@ def check_flash_attention(w, x, mask, failures) -> dict:
     from hig_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
     F = torch.nn.functional
-    N, hd = 2 * N_PAIRS, D // HEADS
+    N, hd = 2 * x.shape[0], D // HEADS
     qkv = F.linear(x, torch.cat([w.wq, w.wk, w.wv]), torch.cat([w.bq, w.bk, w.bv]))
     q, k, v = qkv.chunk(3, dim=-1)
     kv = F.linear(x, torch.cat([w.wk, w.wv]), torch.cat([w.bk, w.bv]))
@@ -401,8 +462,8 @@ def check_flash_attention(w, x, mask, failures) -> dict:
     err = max(c["max_abs_err"] for c in out.values())
     print(json.dumps({"phase": "kernel", "kernel": "flash_attention",
                       "shape": [N, T, D, HEADS], "tol": KERNEL_TOL, "cases": out}), flush=True)
-    fail_if(failures, not err <= KERNEL_TOL, f"flash_attention max |err| {err}")
-    path = [out[c] for c in ("self", "partner", "causal")]  # the serving shape
+    fail_if(failures, not err <= KERNEL_TOL, f"flash_attention {N} sequences max |err| {err}")
+    path = [out[c] for c in ("self", "partner", "causal")]  # the model's calls
     return {
         "name": "flash_attention", "route": "cuda",
         "source": "hig_tpu_torch/csrc/flash_attention.cu",
@@ -435,16 +496,20 @@ def phase_denoiser(models: dict, device, failures) -> None:
             fail_if(failures, not err <= DENOISER_TOL, f"denoiser ({blocks}) max |err| {err}")
 
 
-def phase_serve(models: dict, device, failures) -> dict:
-    from hig_tpu_torch import serve
+def serve_requests() -> list:
+    """8 caption pairs of the NTU table with the lengths of LENGTHS."""
     from hig_tpu_torch.data.vocab import CLASSID2CAPS
+
+    return [{"caption1": c1, "caption2": c2, "length": L, "id": f"req{i}"}
+            for i, ((c1, c2), L) in enumerate(zip(CLASSID2CAPS, LENGTHS))]
+
+
+def phase_serve(models: dict, device, failures) -> tuple[dict, dict, dict]:
+    from hig_tpu_torch import serve
     from hig_tpu_torch.diffusion import gaussian as g
     from hig_tpu_torch.train.trainer import make_sampler
 
-    requests = [
-        {"caption1": c1, "caption2": c2, "length": L, "id": f"req{i}"}
-        for i, ((c1, c2), L) in enumerate(zip(CLASSID2CAPS, LENGTHS))
-    ]
+    requests = serve_requests()
     sched = g.make_schedule(g.linear_betas(1000))
     mean, std = serve.load_stats(None, models["fused"].cfg.input_feats)
     kernels = wrappers()
@@ -503,16 +568,220 @@ def phase_serve(models: dict, device, failures) -> dict:
         for name in kernels:
             launches[name] += counts[name]
         runs[run_name], walls[run_name] = run, wall
-    # Profiling last: once the profiler has run, later launches in the
-    # process are slower, so no timing is taken after it.
+    return launches, runs, walls
+
+
+def phase_profile(runs: dict, walls: dict, launches_per_call: dict) -> None:
+    """One profiled call of each run (serving calls and a training step).
+    Profiling comes last: once the profiler has run, later launches in the
+    process are slower, so no timing is taken after it."""
     for run_name, run in runs.items():
         t_run = time.perf_counter()
         prof = profile_call(run)
         prof["seconds"] = time.perf_counter() - t_run
         prof["device_busy_share_unprofiled"] = prof["device_ms"] / (walls[run_name] * 1e3)
-        prof["port_kernels_ms_per_launch"] = prof["port_kernels_ms"] / LAUNCHES_PER_CALL
+        prof["port_kernels_ms_per_launch"] = (prof["port_kernels_ms"]
+                                              / launches_per_call[run_name])
         print(json.dumps({"phase": "profile", "run": run_name, **prof}), flush=True)
-    return launches
+
+
+def write_train_data(root: str, seed: int = 0) -> None:
+    """A seeded dataset in the reference's layout: TRAIN_CLIPS clips of 60 to
+    198 frames (+ the init row) of random 263-d features, caption pairs from
+    the port's caption table, train_sub.txt, Mean.npy/Std.npy, and a 0/1
+    label file for the supervised stage."""
+    from hig_tpu_torch.data.vocab import CLASSID2CAPS
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "new_joint_vecs"))
+    os.makedirs(os.path.join(root, "texts"))
+    names = []
+    for i in range(TRAIN_CLIPS):
+        name, frames = f"T{i:03d}", int(rng.integers(60, 199))
+        motion = rng.standard_normal((2, frames + 1, 263), dtype=np.float32)
+        np.save(os.path.join(root, "new_joint_vecs", name + ".npy"), motion)
+        c1, c2 = CLASSID2CAPS[i % len(CLASSID2CAPS)]
+        with open(os.path.join(root, "texts", name + ".txt"), "w") as f:
+            f.write(f"{c1}_{c2}#none#0.0#0.0\n")
+        names.append(name)
+    with open(os.path.join(root, "train_sub.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    np.save(os.path.join(root, "Mean.npy"), np.zeros(267, np.float32))
+    np.save(os.path.join(root, "Std.npy"), np.ones(267, np.float32))
+    with open(os.path.join(root, "labels.json"), "w") as f:
+        json.dump({name: int(rng.integers(2)) for name in names}, f)
+
+
+def route_grads(model, sched, batch: dict, pit: bool, t, noise, plain: bool):
+    """Loss and every gradient of ``batch`` through the kernels or, with
+    ``plain``, through the plain versions."""
+    from hig_tpu_torch.train import trainer as tr
+
+    with plain_blocks() if plain else contextlib.nullcontext():
+        loss = tr.compute_grads(model, tr.make_loss_fn(model, sched, pit), batch, t=t, noise=noise)
+    return float(loss), {n: p.grad.clone() for n, p in model.named_parameters()
+                         if p.grad is not None}
+
+
+def leaf_rel_errs(got: dict, want: dict) -> dict:
+    """max |got − want| over each leaf ÷ that leaf's max |want|, for every
+    leaf but the key biases (their exact gradient is 0: rounding noise)."""
+    return {name: float((got[name].double() - w).abs().max()) / float(w.abs().max())
+            for name, w in want.items() if not name.endswith(KEY_BIAS)}
+
+
+def grad_route_errors(model, sched, batch, pit: bool, float64: bool = False) -> dict:
+    """Loss and every gradient of one fixed batch (explicit t and noise)
+    through the kernels against the plain versions, on the card. With
+    ``float64``, both routes are also held against the plain versions in
+    float64 (the model and batch cast), the reference of each leaf's
+    float32 rounding."""
+    device = batch["motion"].device
+    gen = torch.Generator(device=device).manual_seed(5)
+    B = batch["motion"].shape[0]
+    t = torch.randint(0, 1000, (B,), generator=gen, device=device)
+    noise = torch.randn(batch["motion"].shape, generator=gen, device=device)
+    loss_k, got = route_grads(model, sched, batch, pit, t, noise, plain=False)
+    loss_p, want = route_grads(model, sched, batch, pit, t, noise, plain=True)
+    scale = max(float(w.abs().max()) for w in want.values())
+    rel = leaf_rel_errs(got, want)
+    worst = max(rel, key=rel.get)
+    out = {"loss_kernels": loss_k, "loss_plain": loss_p,
+           "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p), "leaves": len(want),
+           "same_leaves": got.keys() == want.keys(), "grad_rel_err_max": rel[worst],
+           "grad_rel_err_worst_leaf": worst, "worst_leaf_max": float(want[worst].abs().max()),
+           "grad_rel_err_median": statistics.median(rel.values()),
+           "zero_grad_leaves_max": max(float(got[n].abs().max()) / scale
+                                       for n in got if n.endswith(KEY_BIAS)),
+           "grad_max": scale}
+    if float64:
+        model64 = copy.deepcopy(model).double()
+        batch64 = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
+        loss_64, exact = route_grads(model64, sched, batch64, pit, t, noise.double(), plain=True)
+        del model64, batch64
+        k64, p64 = leaf_rel_errs(got, exact), leaf_rel_errs(want, exact)
+        out["float64"] = {
+            "loss": loss_64, "kernel_route_rel_err_max": max(k64.values()),
+            "plain_route_rel_err_max": max(p64.values()),
+            "at_worst_leaf": {"kernel_route": k64[worst], "plain_route": p64[worst]}}
+    return out
+
+
+def phase_train(device, failures, smi: str, requests: list, tmp: str) -> tuple[dict, object]:
+    """Drive ``python -m hig_tpu_torch.train``'s main at full width on a
+    seeded dataset: PIT through B2, PIT --no_eff through B4, the supervised
+    stage; hold one fixed batch's loss and gradients through the kernels
+    against the plain route; serve 8 requests from the PIT run's checkpoint.
+    Returns the launch counts of the three runs and a function that runs one
+    more PIT training step (profiled last). Files go under ``tmp``."""
+    from hig_tpu_torch import serve
+    from hig_tpu_torch.data.dataset import epoch_batches
+    from hig_tpu_torch.diffusion import gaussian as g
+    from hig_tpu_torch.train import trainer as tr
+    from hig_tpu_torch.train.__main__ import main as train_main
+
+    kernels = wrappers()
+    launches = {name: 0 for name in kernels}
+    data = os.path.join(tmp, "data")
+    write_train_data(data)
+    kept = {}
+    for run, (extra, steps, own) in TRAIN_RUNS.items():
+        argv = ["--name", run, "--data_root", data, "--checkpoints_dir", os.path.join(tmp, "runs"),
+                "--batch_size", str(TRAIN_PAIRS), "--num_epochs", "1", "--log_every", "1",
+                "--seed", "0", *[a.replace("{data}", data) for a in extra]]
+        for w in kernels.values():
+            w.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer, state = train_main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {name: w.launches for name, w in kernels.items()}
+        peak = torch.cuda.max_memory_allocated()
+        cfg = trainer.cfg
+        with open(os.path.join(cfg.save_root, "metrics.jsonl")) as f:
+            losses = [json.loads(line)["loss_mot_rec"] for line in f]
+        step_ms = [1e3 * x for x in trainer.step_seconds]
+        steady = statistics.median(step_ms[1:]) if len(step_ms) > 1 else step_ms[0]
+        row = {"phase": "train", "run": run, "nvidia_smi": smi, "pairs_per_step": TRAIN_PAIRS,
+               "T": T, "steps": state.step, "launches": counts, "step_ms": step_ms,
+               "median_ms_per_step_after_first": steady, "pairs_per_s": TRAIN_PAIRS * 1e3 / steady,
+               "max_memory_allocated_gb": peak / 1e9, "losses": losses, "wall_s": wall,
+               "params": sum(p.numel() for p in state.model.parameters()),
+               "trainable": sum(p.numel() for p in state.optimizer.params)}
+        if run != "supervised":
+            # the run's first batch; the run's initial weights, rebuilt from its seed
+            batch = trainer._device_batch(
+                next(epoch_batches(trainer_dataset(cfg), TRAIN_PAIRS, 0, seed=cfg.seed)),
+                trainer.precompute_tower(state.model))
+            initial = trainer.init_state().model
+            row["grad_check"] = grad_route_errors(initial, trainer.sched, batch, pit=True)
+            del initial
+            row["grad_check"]["tol"] = {"loss_rel": TRAIN_LOSS_TOL, "grad_rel": TRAIN_GRAD_TOL,
+                                        "zero_grad": TRAIN_ZERO_GRAD_TOL}
+            row["grad_check_trained"] = grad_route_errors(state.model, trainer.sched, batch,
+                                                          pit=True, float64=True)
+        print(json.dumps(row), flush=True)
+        fail_if(failures, any(counts[n] != (LAUNCHES_PER_STEP * steps if n == own else 0)
+                              for n in kernels), f"train ({run}) launches {counts}")
+        fail_if(failures, state.step != steps or len(losses) != steps,
+                f"train ({run}) ran {state.step} steps, logged {len(losses)}")
+        fail_if(failures, not all(np.isfinite(losses)), f"train ({run}) non-finite loss {losses}")
+        fail_if(failures, not os.path.exists(os.path.join(cfg.model_dir, "latest.pt")),
+                f"train ({run}) wrote no latest checkpoint")
+        for key in ("grad_check", "grad_check_trained"):
+            if key in row:
+                gc = row[key]
+                fail_if(failures, not (gc["same_leaves"] and gc["loss_rel_err"] <= TRAIN_LOSS_TOL
+                                       and gc["zero_grad_leaves_max"] <= TRAIN_ZERO_GRAD_TOL
+                                       and (key == "grad_check_trained"
+                                            or gc["grad_rel_err_max"] <= TRAIN_GRAD_TOL)),
+                        f"train ({run}) {key}: kernel route against plain route {gc}")
+        for name in kernels:
+            launches[name] += counts[name]
+        if run == "pit":
+            kept = {"trainer": trainer, "state": state, "batch": batch, "step_ms": steady,
+                    "model_dir": cfg.model_dir, "meta_dir": cfg.meta_dir,
+                    "model_config": dataclasses.replace(trainer.model_config,
+                                                        fused_blocks=True)}
+        del trainer, state
+
+    # serve from the PIT run's checkpoint, through the fused blocks (B1)
+    model = serve.build_model(kept["model_config"], device,
+                              params=os.path.join(kept["model_dir"], "latest.pt"))
+    mean, std = serve.load_stats(kept["meta_dir"], model.cfg.input_feats)
+    sample_fn = tr.make_sampler(model, g.make_schedule(g.linear_betas(1000)), T=T,
+                                dim_pose=model.cfg.input_feats, ddim_steps=DDIM_STEPS)
+    for w in kernels.values():
+        w.launches = 0
+    gen = torch.Generator(device=device).manual_seed(0)
+    features, joints = serve.serve_batch(sample_fn, requests, mean, std, device, gen)
+    counts = {name: w.launches for name, w in kernels.items()}
+    finite = bool(np.isfinite(features).all() and np.isfinite(joints).all())
+    print(json.dumps({"phase": "serve_trained", "checkpoint": "pit/model/latest.pt",
+                      "requests": len(requests), "launches": counts, "finite": finite,
+                      "joints_shape": list(joints.shape)}), flush=True)
+    fail_if(failures, not finite or tuple(joints.shape) != (N_PAIRS, 2, T - 1, 22, 3)
+            or counts["fused_block"] != LAUNCHES_PER_CALL,
+            f"serving the trained checkpoint: finite {finite}, shape {joints.shape}, {counts}")
+    del model, sample_fn
+
+    train_step = tr.make_train_step(kept["trainer"].sched, True)
+    step_gen = torch.Generator(device=device).manual_seed(9)
+
+    def one_step():
+        return {k: float(v) for k, v in train_step(kept["state"], kept["batch"], step_gen).items()}
+
+    return launches, (one_step, kept["step_ms"] / 1e3)
+
+
+def trainer_dataset(cfg):
+    from hig_tpu_torch.data.dataset import PairDataset, load_training_stats
+
+    mean, std = load_training_stats(cfg)
+    return PairDataset(cfg, mean, std, "train_sub.txt", times=cfg.times,
+                       label_path=cfg.label_path, seed=cfg.seed)
 
 
 def main() -> int:
@@ -551,12 +820,21 @@ def main() -> int:
                                  for run, m in models.items()}}), flush=True)
     phase_denoiser(models, device, failures)
     lap("denoiser")
-    launches = phase_serve(models, device, failures)
+    launches, runs, walls = phase_serve(models, device, failures)
     lap("serve")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        train_launches, (train_step, step_s) = phase_train(device, failures, smi,
+                                                           serve_requests(), tmp)
+        lap("train")
+        runs["train_step_pit"], walls["train_step_pit"] = train_step, step_s
+        per_call = {run: LAUNCHES_PER_CALL for run in SERVE_RUNS}
+        per_call["train_step_pit"] = LAUNCHES_PER_STEP
+        phase_profile(runs, walls, per_call)
+        lap("profile")
     print(json.dumps({"phase": "seconds", **seconds}), flush=True)
 
     for name, row in rows.items():
-        row["launches"] = launches[name]
+        row["launches"] = launches[name] + train_launches[name]
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(smi, flush=True)
     if failures:

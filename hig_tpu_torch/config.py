@@ -1,0 +1,191 @@
+"""Training configuration (own copy of the ``ExperimentConfig`` fields of
+``hig_tpu/config.py`` that the trainer and ``python -m hig_tpu_torch.train``
+read, with the same names and defaults).
+
+Options this slice of the port does not carry are still fields, so that
+setting one is refused with a clear message instead of being ignored:
+caption-id conditioning, classifier-free guidance training, the loss-aware
+timestep sampler, the pipeline/FSDP/tensor-parallel layouts, the native
+loader, profiling, bf16, the single-transformer variant, dropout and the
+``--pretrained`` transfer.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+from os.path import join as pjoin
+from typing import Optional
+
+from hig_tpu_torch.models.interaction_model import ModelConfig
+from hig_tpu_torch.models.text_encoder import ClipTextConfig
+
+
+@dataclasses.dataclass
+class ExperimentConfig:
+    # identification / paths
+    name: str = "test"
+    dataset_name: str = "ntu_mul"
+    checkpoints_dir: str = "./checkpoints"
+    data_root: Optional[str] = None
+
+    # task flags
+    cap_id: bool = False
+    cap_same: bool = False
+    pretrained: bool = False
+    label_path: Optional[str] = None
+
+    # model
+    num_layers: int = 8
+    latent_dim: int = 512
+    ff_size: int = 1024
+    num_heads: int = 8
+    num_text_layers: int = 4
+    text_latent_dim: int = 256
+    text_ff_size: int = 2048
+    text_num_heads: int = 4
+    diffusion_steps: int = 1000
+    no_clip: bool = False
+    no_eff: bool = False
+    no_cross_attn: bool = False
+    dropout: float = 0.0
+    causal: bool = False
+    single_transformer: bool = False
+
+    # optimization
+    num_epochs: int = 50
+    limit_data_num: int = -1
+    lr: float = 2e-4
+    batch_size: int = 32
+    times: int = 1
+    feat_bias: float = 5.0
+    grad_clip: float = 0.5
+    is_continue: bool = False
+    log_every: int = 50
+    save_every_e: int = 5
+    save_latest: int = 500
+    seed: int = 0
+    lr_schedule: str = "constant"
+    warmup_steps: int = 0
+    lr_decay_steps: int = 0
+    ema_decay: float = 0.0
+    grad_accum: int = 1
+
+    # not ported yet: must stay at these values
+    use_native_loader: bool = False
+    compute_dtype: str = "float32"
+    cond_drop_prob: float = 0.0
+    fsdp: bool = False
+    tp: bool = False
+    pp_micro: int = 0
+    profile: bool = False
+    loss_aware_sampler: bool = False
+
+    # dataset-derived (filled by add_dataset_paths)
+    joints_num: int = 22
+    dim_pose: int = 263
+    max_motion_length: int = 196
+
+    def __post_init__(self):
+        refused = {
+            "cap_id": self.cap_id, "pretrained": self.pretrained,
+            "no_cross_attn": self.no_cross_attn, "single_transformer": self.single_transformer,
+            "use_native_loader": self.use_native_loader, "fsdp": self.fsdp, "tp": self.tp,
+            "pp_micro": self.pp_micro > 0, "profile": self.profile,
+            "loss_aware_sampler": self.loss_aware_sampler,
+            "cond_drop_prob": self.cond_drop_prob > 0.0, "dropout": self.dropout > 0.0,
+            "compute_dtype": self.compute_dtype != "float32",
+        }
+        bad = sorted(name for name, on in refused.items() if on)
+        if bad:
+            raise ValueError(f"hig_tpu_torch does not port these training options yet: {bad}")
+        if self.grad_accum < 1 or self.batch_size % self.grad_accum:
+            raise ValueError(f"batch_size {self.batch_size} not divisible into "
+                             f"{self.grad_accum} grad-accumulation microbatches")
+
+    @property
+    def save_root(self) -> str:
+        return pjoin(self.checkpoints_dir, self.dataset_name, self.name)
+
+    @property
+    def model_dir(self) -> str:
+        return pjoin(self.save_root, "model")
+
+    @property
+    def meta_dir(self) -> str:
+        return pjoin(self.save_root, "meta")
+
+    @property
+    def motion_dir(self) -> str:
+        return pjoin(self.data_root, "new_joint_vecs")
+
+    @property
+    def text_dir(self) -> str:
+        return pjoin(self.data_root, "texts")
+
+
+_DATASET_PRESETS = {
+    "ntu_mul": dict(data_root="./data/NTURGBD_multi", joints_num=22, dim_pose=263,
+                    max_motion_length=196),
+    "synthetic_mul": dict(data_root="./data/synthetic_mul", joints_num=22, dim_pose=263,
+                          max_motion_length=196),
+}
+
+
+def add_dataset_paths(cfg: ExperimentConfig) -> ExperimentConfig:
+    """Fill the per-dataset constants; an explicit ``data_root`` stays."""
+    preset = _DATASET_PRESETS.get(cfg.dataset_name)
+    if preset is None:
+        raise KeyError(f"dataset not recognized by the port: {cfg.dataset_name} "
+                       f"(it trains the two-person datasets {sorted(_DATASET_PRESETS)})")
+    for k, v in preset.items():
+        if k == "data_root" and cfg.data_root:
+            continue
+        setattr(cfg, k, v)
+    return cfg
+
+
+def model_config(cfg: ExperimentConfig, clip: ClipTextConfig | None = None) -> ModelConfig:
+    """The model the run trains; ``clip`` defaults to the ViT-B/32 tower."""
+    return ModelConfig(
+        input_feats=cfg.dim_pose, num_frames=cfg.max_motion_length,
+        latent_dim=cfg.latent_dim, ff_size=cfg.ff_size, num_layers=cfg.num_layers,
+        num_heads=cfg.num_heads, text_latent_dim=cfg.text_latent_dim,
+        text_ff_size=cfg.text_ff_size, text_num_heads=cfg.text_num_heads,
+        num_text_layers=cfg.num_text_layers, clip=clip or ClipTextConfig(),
+        efficient=not cfg.no_eff, causal=cfg.causal, dropout=cfg.dropout,
+    )
+
+
+_HEADER = "------------ Options -------------"
+_FOOTER = "-------------- End ----------------"
+
+
+def save_opt_txt(cfg: ExperimentConfig, path: str) -> None:
+    """The reference's ``key: value`` opt.txt."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(_HEADER + "\n")
+        for k, v in sorted(dataclasses.asdict(cfg).items()):
+            f.write(f"{k}: {v}\n")
+        f.write(_FOOTER + "\n")
+
+
+def add_config_args(parser: argparse.ArgumentParser) -> None:
+    """Every field as a --flag (bools as --flag/--no-flag pairs)."""
+    for f in dataclasses.fields(ExperimentConfig):
+        if f.type in ("bool", bool):
+            parser.add_argument(f"--{f.name}", action=argparse.BooleanOptionalAction,
+                                default=f.default)
+        elif f.type in ("int", int):
+            parser.add_argument(f"--{f.name}", type=int, default=f.default)
+        elif f.type in ("float", float):
+            parser.add_argument(f"--{f.name}", type=float, default=f.default)
+        else:
+            parser.add_argument(f"--{f.name}", type=str, default=f.default)
+
+
+def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
+    kwargs = {f.name: getattr(args, f.name) for f in dataclasses.fields(ExperimentConfig)}
+    return add_dataset_paths(ExperimentConfig(**kwargs))

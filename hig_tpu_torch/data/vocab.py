@@ -2,7 +2,9 @@
 ``hig_tpu/data/vocab.py``: labels of the public dataset, not code).
 
 Asymmetric actions have (active, passive) caption pairs; symmetric ones a
-single caption → 43 caption strings in ``CAPS``.
+single caption → 43 caption strings in ``CAPS``. ``CAP2KEY`` maps a caption
+to its index in ``CAPS`` (the row of the precomputed CLIP features),
+``CAP2CLASSID`` an active caption to its class index 0..25.
 """
 
 from __future__ import annotations
@@ -54,6 +56,11 @@ NTU_ACTION_MULTI = {
 }
 
 CAPS: list[str] = [cap for caps in NTU_ACTION_MULTI.values() for cap in caps]
+CAP2KEY: dict[str, int] = {cap: i for i, cap in enumerate(CAPS)}
+CAP2CLASSID: dict[str, int] = {
+    caps[0]: class_id for class_id, caps in enumerate(NTU_ACTION_MULTI.values())
+}
+NUM_CLASSES = len(NTU_ACTION_MULTI)  # 26
 
 # class id → (active caption, passive caption); symmetric classes repeat.
 CLASSID2CAPS: list[tuple[str, str]] = [

@@ -1,12 +1,13 @@
-"""Diffusion schedule tables and the DDIM sampler (counterpart of
-``hig_tpu/diffusion/gaussian.py:36-120,301-376``).
+"""Diffusion schedule tables, the forward process the trainer noises with,
+and the DDIM sampler (counterpart of
+``hig_tpu/diffusion/gaussian.py:36-140,301-376,522-541``).
 
 The coefficient tables are computed once in float64 on the host and stored
 as float32, as the JAX package does. Only the deterministic DDIM fast path
 (eta = 0, no x0 clipping) is ported: there the update is linear in
 (x, eps), x' = c1·x + c2·eps, with c1/c2 computed in float32 numpy from
 the float32 tables exactly as the JAX sampler computes them. DDPM-1000 and
-DPM-Solver++ are not ported yet.
+DPM-Solver++ are not ported yet. Training takes the epsilon target only.
 """
 
 from __future__ import annotations
@@ -74,6 +75,27 @@ class DiffusionSchedule:
 def make_schedule(betas: np.ndarray) -> DiffusionSchedule:
     tables = schedule_tables_f64(betas)
     return DiffusionSchedule(**{k: v.astype(np.float32) for k, v in tables.items()})
+
+
+def _extract(table: np.ndarray, t: torch.Tensor, ndim: int) -> torch.Tensor:
+    """Per-timestep coefficients for ``t`` (B,), shaped to broadcast over an
+    ``ndim`` tensor."""
+    out = torch.as_tensor(table, device=t.device)[t]
+    return out.reshape(*out.shape, *(1,) * (ndim - out.ndim))
+
+
+def q_sample(sched: DiffusionSchedule, x_start: torch.Tensor, t: torch.Tensor,
+             noise: torch.Tensor) -> torch.Tensor:
+    """A draw of q(x_t | x_0) with the given noise."""
+    return (_extract(sched.sqrt_alphas_cumprod, t, x_start.ndim) * x_start
+            + _extract(sched.sqrt_one_minus_alphas_cumprod, t, x_start.ndim) * noise)
+
+
+def training_targets(sched: DiffusionSchedule, x_start: torch.Tensor, t: torch.Tensor,
+                     noise: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(x_t, target) of the MSE loss; the target is the noise (epsilon
+    prediction, the only mean type the trainer uses)."""
+    return q_sample(sched, x_start, t, noise), noise
 
 
 def ddim_timesteps(T: int, num_steps: int) -> np.ndarray:

@@ -8,8 +8,11 @@ so the (B, actors, T, D) layout flows through.
 * Efficient (linear) attention, the default: softmax(Q over features) ·
   [softmax(K over time)ᵀ V]. The self-attention and interaction blocks
   always go through a kernel wrapper: B1 (``ops/fused_block.py``, the whole
-  block) when ``fused``, else B2 (``ops/pallas_attention.py``, projections +
-  attention core) between a plain LayerNorm and the plain gate.
+  block) when ``fused`` and the module is in eval mode, else B2
+  (``ops/pallas_attention.py``, projections + attention core) between a
+  plain LayerNorm and the plain gate. B1 has no backward, so a module in
+  train mode takes B2, as the JAX blocks take their unfused route when not
+  ``deterministic``.
 * Quadratic (softmax) attention, the ``--no_eff`` model. The self-attention
   and interaction blocks always go through B4 (``ops/flash_attention.py``).
   The reference's quirks are kept: padded keys get a −1e6 bias (the JAX
@@ -97,7 +100,7 @@ class _KernelBlock(nn.Module):
         shift), each (B, 2, 1, D), is given; src_mask (B, 1|2, T)."""
         scale, shift = adaln if adaln is not None else self.proj_out.scale_shift(emb)
         mask = src_mask.expand(x.shape[:-1])
-        if self.fused:
+        if self.fused and not self.training:
             return fused_attention_block(x, mask, scale, shift, self.block_weights(),
                                          self.num_heads, self.interaction)
         xn = self.norm(x)

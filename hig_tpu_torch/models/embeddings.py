@@ -43,7 +43,7 @@ class TimeEmbedMLP(nn.Module):
         self.fc2 = nn.Linear(time_embed_dim, time_embed_dim)
 
     def forward(self, timesteps: torch.Tensor) -> torch.Tensor:
-        h = timestep_embedding(timesteps, self.latent_dim)
+        h = timestep_embedding(timesteps, self.latent_dim).to(self.fc1.weight.dtype)
         return self.fc2(F.silu(self.fc1(h)))
 
 

@@ -1,12 +1,15 @@
 """Text conditioning stack + interaction denoiser under one parameter tree
 (counterpart of ``hig_tpu/models/interaction_model.py:25-189,261-291``).
 
-The port serves the caption-token conditioning path in float32, with the
-efficient (linear) denoiser or, with ``efficient=False``, the quadratic
-(``--no_eff``) one, optionally ``causal``. Caption-id conditioning,
-classifier-free guidance, bf16 compute, ``fast_ln``, RMSNorm, causal
-efficient attention and the single-transformer variant are not ported yet:
-:class:`ModelConfig` refuses the ones it has fields for.
+The port serves and trains the caption-token conditioning path in float32,
+with the efficient (linear) denoiser or, with ``efficient=False``, the
+quadratic (``--no_eff``) one, optionally ``causal``. Training feeds the
+learnable text suffix precomputed features of the frozen CLIP tower
+(:meth:`InteractionModel.clip_tower`, :meth:`~InteractionModel.encode_text_from_tower`).
+Caption-id conditioning, classifier-free guidance, dropout, bf16 compute,
+``fast_ln``, RMSNorm, causal efficient attention and the single-transformer
+variant are not ported yet: :class:`ModelConfig` refuses the ones it has
+fields for.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ class ModelConfig:
     compute_dtype: str = "float32"
     fast_ln: bool = False
     rms_norm: bool = False
+    dropout: float = 0.0
 
     def __post_init__(self):
         if isinstance(self.clip, dict):
@@ -52,6 +56,9 @@ class ModelConfig:
                 "hig_tpu_torch serves float32 LayerNorm models only: bf16 "
                 "compute, fast_ln and RMSNorm are not ported yet"
             )
+        if self.dropout > 0.0:
+            raise ValueError(f"dropout > 0 is not ported yet (got {self.dropout}); "
+                             "the JAX default, 0.0, is")
         check_block_options(self.efficient, self.causal, self.fused_blocks)
 
     @property
@@ -91,6 +98,27 @@ class InteractionModel(nn.Module):
         B, A = tokens.shape[:2]
         xf_proj, xf_out = self.text(tokens.reshape(B * A, -1).long())
         return xf_proj.reshape(B, A, -1), xf_out.reshape(B, A, *xf_out.shape[1:])
+
+    def clip_tower(self, tokens: torch.Tensor) -> torch.Tensor:
+        """(N, 77) tokens → CLIP tower features (N, 77, width); with a
+        frozen tower they are computed once and gathered per batch."""
+        return self.text.tower(tokens.long())
+
+    def encode_text_from_tower(self, tower_out: torch.Tensor, tokens: torch.Tensor):
+        """(B, 2, 77, W) tower features + (B, 2, 77) tokens → ((B, 2, E),
+        (B, 2, L, Dt)): the learnable suffix alone."""
+        B, A = tokens.shape[:2]
+        xf_proj, xf_out = self.text.from_tower(tower_out.reshape(B * A, *tower_out.shape[2:]),
+                                               tokens.reshape(B * A, -1).long())
+        return xf_proj.reshape(B, A, -1), xf_out.reshape(B, A, *xf_out.shape[1:])
+
+    def clip_parameters(self) -> set[str]:
+        """Names of the CLIP tower's parameters (the frozen partition)."""
+        return {f"text.clip.{name}" for name, _ in self.text.clip.named_parameters()}
+
+    def freeze_clip(self) -> None:
+        """Mark the CLIP tower frozen: its parameters take no gradient."""
+        self.text.clip.requires_grad_(False)
 
     def text_kv(self, xf_out: torch.Tensor) -> tuple:
         return self.denoiser.text_kv(xf_out)

@@ -135,8 +135,11 @@ class TextEncoder(nn.Module):
         self.text_proj = nn.Linear(text_latent_dim, time_embed_dim)
 
     def tower(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Frozen CLIP features (N, 77, width)."""
-        return self.clip(tokens)
+        """Frozen CLIP features (N, 77, width). No gradient flows into the
+        tower, as the JAX tower's ``stop_gradient`` has it, so the tower does
+        not train, even under ``--no_clip``."""
+        with torch.no_grad():
+            return self.clip(tokens)
 
     def from_tower(self, tower_out: torch.Tensor, tokens: torch.Tensor):
         """Learnable suffix: tower features + tokens → (xf_proj, xf_out)."""

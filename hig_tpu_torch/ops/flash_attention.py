@@ -4,7 +4,12 @@ plain quadratic attention it is held against.
 Counterpart of ``hig_tpu/ops/flash_attention.py`` (``_flash_kernel`` at :53,
 ``flash_attention`` at :156): softmax(q·kᵀ/√hd + bias)·v per (sequence,
 head), with a −1e6 bias at padded keys and, when ``causal``, at keys after
-the query. The backward, which belongs to training, is still to be ported.
+the query. Like the JAX ``custom_vjp`` (``_flash_bwd`` at :141), the
+forward launches the kernel and saves its inputs, and the backward
+recomputes the plain version under autograd (:func:`flash_attention_backward`,
+with the same ``causal`` and ``partner`` flags); ``key_mask`` gets no
+gradient. q, k and v may be views of one merged projection, which the kernel
+reads in place: their gradients flow back through the views to it.
 
 Kernel note (``csrc/flash_attention.cu``). The TPU kernel transposes to an
 (N·H, T, hd) layout and pads T to multiples of 8/128 because Mosaic needs
@@ -35,6 +40,7 @@ from hig_tpu_torch.ops.pallas_attention import (
     MASK_BIAS,
     check_cuda_operand,
     check_cuda_width,
+    recompute_grads,
     split_heads,
 )
 
@@ -103,6 +109,44 @@ def row_stride(name: str, t: torch.Tensor) -> int:
     return ld
 
 
+def flash_attention_backward(saved, grad_out, num_heads: int, causal: bool, partner: bool,
+                             needs=(True,) * 3):
+    """B4's backward (``_flash_bwd``): ``saved`` is (query, key, value,
+    key_mask); returns the gradients of the first three."""
+    *operands, mask = saved
+    return recompute_grads(
+        lambda q, k, v: flash_attention_plain(q, k, v, num_heads, mask, causal, partner),
+        operands, needs, grad_out)
+
+
+def _launch_flash(query, key, value, mask, num_heads, causal, partner):
+    lead, (Tq, D), Tk = query.shape[:-2], query.shape[-2:], key.shape[-2]
+    N = query.numel() // (Tq * D)
+    out = torch.empty((*lead, Tq, D), device=query.device, dtype=torch.float32)
+    _build.launch("flash_attention", (query, key, value, mask, out),
+                  (N, num_heads, Tq, Tk, query.stride(-2), key.stride(-2), D, int(partner),
+                   int(causal)),
+                  torch.cuda.current_stream(query.device).cuda_stream)
+    return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """B4 under autograd: the forward launches the kernel and saves its
+    inputs (views stay views), the backward is :func:`flash_attention_backward`."""
+
+    @staticmethod
+    def forward(ctx, query, key, value, mask, num_heads, causal, partner):
+        ctx.save_for_backward(query, key, value, mask)
+        ctx.flags = num_heads, causal, partner
+        return _launch_flash(query, key, value, mask, num_heads, causal, partner)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        grads = flash_attention_backward(ctx.saved_tensors, grad_out, *ctx.flags,
+                                         ctx.needs_input_grad[:3])
+        return (*grads, None, None, None, None)
+
+
 def flash_attention(query, key, value, num_heads: int, key_mask=None,
                     causal: bool = False, partner: bool = False):
     """Quadratic attention through kernel B4.
@@ -112,8 +156,9 @@ def flash_attention(query, key, value, num_heads: int, key_mask=None,
     after the query. ``partner`` attends to the other actor: k, v and the
     mask are taken flipped on the actor axis (the axis before T, of size 2).
     Returns (..., Tq, D). CPU tensors take the plain version; CUDA tensors
-    launch the kernel, which reads q, k and v in place as long as each has
-    evenly spaced contiguous rows (k and v at one stride).
+    launch the kernel, under autograd through :class:`FlashAttention`, which
+    reads q, k and v in place as long as each has evenly spaced contiguous
+    rows (k and v at one stride).
     """
     if query.device.type == "cpu":
         return flash_attention_plain(query, key, value, num_heads, key_mask, causal, partner)
@@ -124,21 +169,17 @@ def flash_attention(query, key, value, num_heads: int, key_mask=None,
     if partner and (not lead or lead[-1] != 2):
         raise ValueError(f"partner attention takes (..., 2, T, D), got {tuple(query.shape)}")
     check_cuda_width(D, num_heads)
-    ldq = row_stride("query", query)
+    row_stride("query", query)
     ldkv = row_stride("key", key)
     if row_stride("value", value) != ldkv:
         raise ValueError("the CUDA kernel takes key and value at one row stride; got "
                          f"{key.stride(-2)} and {value.stride(-2)}")
-    N = query.numel() // (Tq * D)
     if key_mask is None:
-        mask = torch.ones((N, Tk), device=query.device, dtype=torch.float32)
+        mask = torch.ones((*lead, Tk), device=query.device, dtype=torch.float32)
     else:
-        mask = key_mask.to(torch.float32).expand(*lead, Tk).reshape(N, Tk).contiguous()
+        mask = key_mask.to(torch.float32).expand(*lead, Tk).contiguous()
     check_cuda_operand("key_mask", mask)
-    out = torch.empty((*lead, Tq, D), device=query.device, dtype=torch.float32)
-    _build.launch("flash_attention", (query, key, value, mask, out),
-                  (N, num_heads, Tq, Tk, ldq, ldkv, D, int(partner), int(causal)),
-                  torch.cuda.current_stream(query.device).cuda_stream)
+    out = FlashAttention.apply(query, key, value, mask, num_heads, causal, partner)
     flash_attention.launches += 1
     return out
 

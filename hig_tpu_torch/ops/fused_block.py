@@ -90,7 +90,10 @@ def fused_attention_block(x, key_mask, scale, shift, w: BlockWeights,
                           num_heads: int, interaction: bool = False):
     """One fused efficient-attention block (B1 forward); see the module doc.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    CPU tensors take the plain version; CUDA tensors launch the kernel. B1
+    has no backward (the JAX kernel has no VJP either), so on CUDA tensors it
+    raises when grad is enabled and an input requires grad, rather than
+    return an output cut off from autograd; training takes B2.
     """
     if x.device.type == "cpu":
         return fused_attention_block_plain(x, key_mask, scale, shift, w, num_heads,
@@ -111,6 +114,12 @@ def fused_attention_block(x, key_mask, scale, shift, w: BlockWeights,
     shapes = ((D,), (D,), (D, D), (D,), (D, D), (D,), (D, D), (D,), (D,), (D,), (D, D), (D,))
     for name, t, shape in zip(BlockWeights._fields, w, shapes):
         check_cuda_operand(name, t, shape)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, scale, shift, *w)):
+        raise RuntimeError(
+            "the fused-block kernel (B1) has no backward: call it under torch.no_grad(), "
+            "or put the model in train mode, where its blocks take the projected-attention "
+            "kernel (B2)"
+        )
     qkv = torch.empty((N * T, 3 * D), device=x.device, dtype=torch.float32)
     y = torch.empty((N * T, D), device=x.device, dtype=torch.float32)
     out = torch.empty_like(x)

@@ -4,8 +4,13 @@ are held against.
 
 Counterpart of ``hig_tpu/ops/pallas_attention.py``: the projected kernel
 (``_proj_kernel`` at :116, ``fused_projected_attention`` at :202) and the
-core kernel (``_kernel`` at :46, ``fused_efficient_attention`` at :238). The
-backwards, which belong to training, are still to be ported.
+core kernel (``_kernel`` at :46, ``fused_efficient_attention`` at :238).
+
+Gradients. Like the JAX ``custom_vjp``s (``_proj_fused_bwd`` at :176,
+``_fused_bwd`` at :97), the forward launches the kernel and saves its inputs,
+and the backward recomputes the plain version under autograd
+(:func:`projected_attention_backward`, :func:`efficient_attention_backward`):
+no backward is a kernel. ``key_mask`` gets no gradient.
 
 Kernel note (``csrc/projected_attention.cu``). The TPU kernel ran one grid
 step per sequence with the three (D, D) weights resident in VMEM. On the
@@ -104,14 +109,80 @@ def check_cuda_width(D: int, num_heads: int) -> None:
         )
 
 
+def recompute_grads(plain, operands, needs, grad_out, same=()):
+    """The backward of a kernel whose JAX VJP recomputes its plain version.
+
+    Gradients of ``plain(*operands)`` against ``grad_out``, by autograd
+    through the plain version, for the operands whose ``needs`` flag is set
+    (None for the others). ``same`` holds (i, j) pairs where operand j is
+    operand i: j then reuses i's leaf, i's gradient holds both shares and
+    j's is None.
+    """
+    leaves = [t.detach().requires_grad_(bool(n)) for t, n in zip(operands, needs)]
+    for i, j in same:
+        leaves[j] = leaves[i]
+    aliased = {j for _, j in same}
+    wanted = [i for i, leaf in enumerate(leaves) if leaf.requires_grad and i not in aliased]
+    with torch.enable_grad():
+        out = plain(*leaves)
+    grads = torch.autograd.grad(out, [leaves[i] for i in wanted], grad_out, allow_unused=True)
+    result = [None] * len(leaves)
+    for i, g in zip(wanted, grads):
+        result[i] = g
+    return tuple(result)
+
+
+def projected_attention_backward(saved, grad_out, num_heads: int, merged: bool,
+                                 needs=(True,) * 8):
+    """B2's backward (``_proj_fused_bwd``): ``saved`` is (q_src, kv_src, wq,
+    bq, wk, bk, wv, bv, key_mask); returns the gradients of the first eight.
+    ``merged`` says that kv_src is q_src, so the recompute takes the plain
+    version's merged q|k|v product and q_src's gradient holds kv_src's share."""
+    *operands, mask = saved
+
+    def plain(q_src, kv_src, wq, bq, wk, bk, wv, bv):
+        return fused_projected_attention_plain(q_src, kv_src, wq, bq, wk, bk, wv, bv,
+                                               num_heads, mask)
+
+    return recompute_grads(plain, operands, needs, grad_out, ((0, 1),) if merged else ())
+
+
+def _launch_projected(q_src, kv_src, wq, bq, wk, bk, wv, bv, mask):
+    T, D = q_src.shape[-2:]
+    N = q_src.numel() // (T * D)
+    qkv = torch.empty((N * T, 3 * D), device=q_src.device, dtype=torch.float32)
+    out = torch.empty_like(q_src)
+    _build.launch("projected_attention", (q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, qkv, out),
+                  (N, T, D), torch.cuda.current_stream(q_src.device).cuda_stream)
+    return out
+
+
+class ProjectedAttention(torch.autograd.Function):
+    """B2 under autograd: the forward launches the kernel and saves its
+    inputs, the backward is :func:`projected_attention_backward`."""
+
+    @staticmethod
+    def forward(ctx, q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, num_heads, merged):
+        ctx.save_for_backward(q_src, kv_src, wq, bq, wk, bk, wv, bv, mask)
+        ctx.num_heads, ctx.merged = num_heads, merged
+        return _launch_projected(q_src, kv_src, wq, bq, wk, bk, wv, bv, mask)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        grads = projected_attention_backward(ctx.saved_tensors, grad_out, ctx.num_heads,
+                                             ctx.merged, ctx.needs_input_grad[:8])
+        return (*grads, None, None, None)
+
+
 def fused_projected_attention(q_src, kv_src, wq, bq, wk, bk, wv, bv,
                               num_heads: int, key_mask=None):
-    """Efficient attention with the QKV projections fused in (B2 forward).
+    """Efficient attention with the QKV projections fused in (B2).
 
     q_src (..., T, D) and kv_src (..., T, D), already normalized; weights in
     torch Linear layout (out, in); key_mask broadcastable to (..., T), the
     mask of kv_src's tokens. Returns the pre-gate output (..., T, D).
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    under autograd through :class:`ProjectedAttention`.
     """
     if q_src.device.type == "cpu":
         return fused_projected_attention_plain(q_src, kv_src, wq, bq, wk, bk, wv, bv,
@@ -128,16 +199,13 @@ def fused_projected_attention(q_src, kv_src, wq, bq, wk, bk, wv, bv,
     for name, w, b in (("query", wq, bq), ("key", wk, bk), ("value", wv, bv)):
         check_cuda_operand(f"{name} weight", w, (D, D))
         check_cuda_operand(f"{name} bias", b, (D,))
-    N = q_src.numel() // (T * D)
     if key_mask is None:
-        mask = torch.ones((N, T), device=q_src.device, dtype=torch.float32)
+        mask = torch.ones((*lead, T), device=q_src.device, dtype=torch.float32)
     else:
-        mask = key_mask.to(torch.float32).expand(*lead, T).reshape(N, T).contiguous()
+        mask = key_mask.to(torch.float32).expand(*lead, T).contiguous()
     check_cuda_operand("key_mask", mask)
-    qkv = torch.empty((N * T, 3 * D), device=q_src.device, dtype=torch.float32)
-    out = torch.empty_like(q_src)
-    _build.launch("projected_attention", (q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, qkv, out),
-                  (N, T, D), torch.cuda.current_stream(q_src.device).cuda_stream)
+    out = ProjectedAttention.apply(q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, num_heads,
+                                   kv_src is q_src)
     fused_projected_attention.launches += 1
     return out
 
@@ -145,12 +213,47 @@ def fused_projected_attention(q_src, kv_src, wq, bq, wk, bk, wv, bv,
 fused_projected_attention.launches = 0
 
 
+def efficient_attention_backward(saved, grad_out, num_heads: int, needs=(True,) * 3):
+    """B3's backward (``_fused_bwd``): ``saved`` is (query, key, value,
+    key_mask); returns the gradients of the first three."""
+    *operands, mask = saved
+    return recompute_grads(lambda q, k, v: efficient_attention(q, k, v, num_heads, mask),
+                           operands, needs, grad_out)
+
+
+def _launch_efficient(query, key, value, mask):
+    (Tq, D), Tk = query.shape[-2:], key.shape[-2]
+    N = query.numel() // (Tq * D)
+    out = torch.empty_like(query)
+    _build.launch("efficient_attention", (query, key, value, mask, out), (N, Tq, Tk, D),
+                  torch.cuda.current_stream(query.device).cuda_stream)
+    return out
+
+
+class EfficientAttention(torch.autograd.Function):
+    """B3 under autograd: the forward launches the kernel and saves its
+    inputs, the backward is :func:`efficient_attention_backward`."""
+
+    @staticmethod
+    def forward(ctx, query, key, value, mask, num_heads):
+        ctx.save_for_backward(query, key, value, mask)
+        ctx.num_heads = num_heads
+        return _launch_efficient(query, key, value, mask)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        grads = efficient_attention_backward(ctx.saved_tensors, grad_out, ctx.num_heads,
+                                             ctx.needs_input_grad[:3])
+        return (*grads, None, None)
+
+
 def fused_efficient_attention(query, key, value, num_heads: int, key_mask=None):
-    """Efficient attention through kernel B3 (forward).
+    """Efficient attention through kernel B3.
 
     query (..., Tq, D); key/value (..., Tk, D); key_mask broadcastable to
     (..., Tk), 0/1. Returns (..., Tq, D). CPU tensors take the plain
-    :func:`efficient_attention`; CUDA tensors launch the kernel.
+    :func:`efficient_attention`; CUDA tensors launch the kernel, under
+    autograd through :class:`EfficientAttention`.
     """
     if query.device.type == "cpu":
         return efficient_attention(query, key, value, num_heads, key_mask)
@@ -159,15 +262,12 @@ def fused_efficient_attention(query, key, value, num_heads: int, key_mask=None):
     check_cuda_operand("query", query)
     for name, t in (("key", key), ("value", value)):
         check_cuda_operand(name, t, (*lead, Tk, D))
-    N = query.numel() // (Tq * D)
     if key_mask is None:
-        mask = torch.ones((N, Tk), device=query.device, dtype=torch.float32)
+        mask = torch.ones((*lead, Tk), device=query.device, dtype=torch.float32)
     else:
-        mask = key_mask.to(torch.float32).expand(*lead, Tk).reshape(N, Tk).contiguous()
+        mask = key_mask.to(torch.float32).expand(*lead, Tk).contiguous()
     check_cuda_operand("key_mask", mask)
-    out = torch.empty_like(query)
-    _build.launch("efficient_attention", (query, key, value, mask, out), (N, Tq, Tk, D),
-                  torch.cuda.current_stream(query.device).cuda_stream)
+    out = EfficientAttention.apply(query, key, value, mask, num_heads)
     fused_efficient_attention.launches += 1
     return out
 

@@ -8,9 +8,12 @@ Request file: one JSON object per line,
 Outputs per request: <out_dir>/<id>.npz with features (2, L+1, 263) and
 joints (2, L, 22, 3); plus index.json.
 
-Weights come from --params (a flattened JAX parameter tree saved with
-np.savez under "params/denoiser/layer_0/..." keys) or from --random_init
-SEED (seeded random weights, every leaf nonzero). The model's widths come
+Weights come from --params, either a checkpoint of the port's trainer
+(``<run>/model/latest.pt``; its EMA parameters when the run kept them) or a
+flattened JAX parameter tree saved with np.savez under
+"params/denoiser/layer_0/..." keys (its ``ema_params/`` when present), or
+from --random_init SEED (seeded random weights, every leaf nonzero). A
+trained run's feature statistics are in ``<run>/meta`` (--stats). The model's widths come
 from --model_config (a JSON object of ModelConfig fields), default the
 flagship. --blocks fused (the default) runs the efficient self-attention
 and interaction blocks through the fused-block kernel, --blocks projected
@@ -39,6 +42,7 @@ from hig_tpu_torch import resolve_device
 from hig_tpu_torch.diffusion import gaussian as g
 from hig_tpu_torch.models.interaction_model import InteractionModel, ModelConfig
 from hig_tpu_torch.models.tokenizer import tokenize
+from hig_tpu_torch.train import checkpoint as ckpt
 from hig_tpu_torch.train.trainer import eval_params, make_sampler
 from hig_tpu_torch.utils.motion_codec import recover_from_ric2
 from hig_tpu_torch.weights import load_flax_tree, load_npz, random_flax_tree
@@ -72,18 +76,20 @@ def load_stats(stats_dir: str | None, dim_pose: int):
 
 def build_model(cfg: ModelConfig, device, params: str | None = None,
                 random_init: int | None = None) -> InteractionModel:
-    """The model on ``device`` with weights from a JAX tree file or a seed."""
+    """The model on ``device`` in eval mode, with weights from a trainer
+    checkpoint (``.pt``), a JAX tree file (``.npz``) or a seed."""
     if (params is None) == (random_init is None):
         raise ValueError("give exactly one of params and random_init")
-    if params is not None:
+    model = InteractionModel(cfg)
+    if params is not None and params.endswith(".pt"):
+        model.load_state_dict(eval_params(ckpt.load(params)), strict=True)
+    elif params is not None:
         tree = load_npz(params)
         if "params" not in tree:
             raise ValueError(f"{params}: expected keys under params/ (and maybe ema_params/)")
-        weights = eval_params(tree)
+        load_flax_tree(model, eval_params(tree))
     else:
-        weights = random_flax_tree(cfg, random_init)["params"]
-    model = InteractionModel(cfg)
-    load_flax_tree(model, weights)
+        load_flax_tree(model, random_flax_tree(cfg, random_init)["params"])
     return model.to(device).eval()
 
 
@@ -130,7 +136,8 @@ def main(argv=None):
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--requests", required=True, help="jsonl of caption-pair requests")
     parser.add_argument("--out_dir", default="./result/serve")
-    parser.add_argument("--params", default=None, help="npz of a flattened JAX param tree")
+    parser.add_argument("--params", default=None,
+                        help="a trainer checkpoint (.pt) or an npz of a flattened JAX param tree")
     parser.add_argument("--random_init", type=int, default=None,
                         help="seed of random weights (instead of --params)")
     parser.add_argument("--model_config", default=None,

@@ -1,0 +1,63 @@
+"""Train the two-person interaction model (counterpart of ``tools/train.py``).
+
+Stage 1-1 (PIT): run without --label_path; the loss takes the better of the
+two caption assignments of each pair. Stage 1-3 (supervised): run with
+--label_path, a JSON object of clip name → 0/1 from role discovery; clips
+labeled 1 have their actors swapped.
+
+    python -m hig_tpu_torch.train --name pit --data_root data/NTURGBD_multi \
+        --batch_size 32 --times 30 --num_epochs 50
+    python -m hig_tpu_torch.train --name interaction --label_path labels.json ...
+    python -m hig_tpu_torch.train ... --no_eff         # quadratic attention model
+    python -m hig_tpu_torch.train ... --device cpu     # plain PyTorch, no kernels
+
+The data root holds the reference's layout: new_joint_vecs/*.npy,
+texts/*.txt, train_sub.txt, Mean.npy and Std.npy. Weights start from seeded
+random values (--seed). Runs write opt.txt, metrics.jsonl, meta/{mean,std}.npy
+and model/{latest,ckpt_eNNN}.pt under <checkpoints_dir>/<dataset_name>/<name>;
+--is_continue resumes from model/latest.pt. ``python -m hig_tpu_torch.serve
+--params <...>/model/latest.pt --stats <...>/meta`` serves the result.
+"""
+
+from __future__ import annotations
+
+import argparse
+from os.path import join as pjoin
+
+from hig_tpu_torch import resolve_device
+from hig_tpu_torch.config import add_config_args, config_from_args, save_opt_txt
+from hig_tpu_torch.data.dataset import PairDataset, load_training_stats
+from hig_tpu_torch.train import checkpoint as ckpt
+from hig_tpu_torch.train.trainer import Trainer
+
+
+def main(argv=None):
+    """Parse ``argv``, train, and return (trainer, final state)."""
+    parser = argparse.ArgumentParser(description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    add_config_args(parser)
+    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = parser.parse_args(argv)
+    try:
+        cfg = config_from_args(args)
+    except (ValueError, KeyError) as e:
+        parser.error(str(e))
+    device = resolve_device(args.device)
+
+    save_opt_txt(cfg, pjoin(cfg.save_root, "opt.txt"))
+    mean, std = load_training_stats(cfg)
+    dataset = PairDataset(cfg, mean, std, "train_sub.txt", times=cfg.times,
+                          label_path=cfg.label_path, seed=cfg.seed)
+    print(f"dataset: {dataset.real_len()} clips x times={cfg.times}")
+    trainer = Trainer(cfg, device)
+    state = trainer.init_state()
+    start_epoch = 0
+    if cfg.is_continue:
+        state, start_epoch, it = ckpt.restore_state(pjoin(cfg.model_dir, "latest.pt"), state)
+        print(f"resumed from epoch {start_epoch}, it {it}")
+    state = trainer.train(dataset, state, start_epoch=start_epoch)
+    return trainer, state
+
+
+if __name__ == "__main__":
+    main()

@@ -1,29 +1,309 @@
-"""Sampling driver (counterpart of the sampling half of
-``hig_tpu/train/trainer.py:402-562``).
+"""Training runtime and the sampler (counterpart of
+``hig_tpu/train/trainer.py``).
 
-Everything loop-invariant is hoisted out of the step loop: the text is
-encoded once, each layer's text state is computed once (the KᵀV tensor of
-the efficient model, the projected (k, v) pair of the quadratic one), and
-every block's AdaLN (scale, shift) is computed for every step of the DDIM
-grid in one batched pass. Unlike the JAX sampler, which turns the AdaLN hoist off
-under ``fused_blocks``, the port hoists it for all four blocks and feeds the
-fused-block kernel the hoisted (scale, shift): the function computed is the
-same. Only DDIM with ``guidance_scale`` 1 is ported; training, DDPM, DPM++
-and classifier-free guidance are still to be ported.
+Training (``:52-394``, ``:639-980``): the PIT min-assignment loss or, with a
+label file, the supervised loss, on the epsilon target; Adam with optax's
+defaults behind a global-norm clip of the trainable partition (the CLIP
+tower is frozen unless ``no_clip``), an optional warmup or warmup+cosine
+schedule, gradient accumulation and an EMA of the parameters; the epoch
+loop with ``metrics.jsonl``, checkpoints, resume and rollback to ``latest``
+on a non-finite loss. As in the JAX package, the PIT duplication is an
+explicit assignment axis (the noised motions repeated, the captions flipped
+on the actor axis) and the frozen CLIP tower runs once per run, over the 43
+captions, instead of in every step. The model trains in train mode, where
+its self-attention and interaction blocks go through kernel B2 (or B4 in
+the ``--no_eff`` model), whose backwards recompute their plain versions.
+
+Sampling (``:402-562``): everything loop-invariant is hoisted out of the
+step loop: the text is encoded once, each layer's text state is computed
+once (the KᵀV tensor of the efficient model, the projected (k, v) pair of
+the quadratic one), and every block's AdaLN (scale, shift) is computed for
+every step of the DDIM grid in one batched pass. Unlike the JAX sampler,
+which turns the AdaLN hoist off under ``fused_blocks``, the port hoists it
+for all four blocks and feeds the fused-block kernel the hoisted (scale,
+shift): the function computed is the same. Only DDIM with
+``guidance_scale`` 1 is ported; DDPM, DPM++ and classifier-free guidance are
+still to be ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import math
+import os
+import time
+from os.path import join as pjoin
 from typing import Callable
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from hig_tpu_torch import resolve_device
+from hig_tpu_torch.config import ExperimentConfig, model_config
+from hig_tpu_torch.data.dataset import PairDataset, epoch_batches
+from hig_tpu_torch.data.vocab import CAPS
 from hig_tpu_torch.diffusion import gaussian as g
 from hig_tpu_torch.models.denoiser import BLOCKS
-from hig_tpu_torch.models.embeddings import timestep_embedding
+from hig_tpu_torch.models.embeddings import length_mask, timestep_embedding
 from hig_tpu_torch.models.interaction_model import InteractionModel
+from hig_tpu_torch.models.text_encoder import ClipTextConfig
+from hig_tpu_torch.models.tokenizer import tokenize
+from hig_tpu_torch.train import checkpoint as ckpt
+from hig_tpu_torch.weights import load_flax_tree, random_flax_tree
+
+MAX_FAILURE_RETRIES = 2  # rollbacks a run may take before a non-finite loss raises
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model (its parameters), the optimizer (Adam's moments), the
+    optimizer steps taken, and the EMA of the parameters (None when the run
+    keeps none), keyed by parameter name."""
+
+    model: InteractionModel
+    optimizer: "Optimizer"
+    step: int = 0
+    ema: dict[str, torch.Tensor] | None = None
+
+
+def param_labels(model: InteractionModel, freeze_clip: bool = True) -> dict[str, str]:
+    """"freeze" for the CLIP tower's parameters, "train" for the rest; with
+    ``freeze_clip=False`` (``--no_clip``) everything trains."""
+    frozen = model.clip_parameters() if freeze_clip else set()
+    return {name: "freeze" if name in frozen else "train"
+            for name, _ in model.named_parameters()}
+
+
+def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
+    if steps <= 0:
+        return lambda count: init
+    return lambda count: (init - end) * (1 - min(max(count, 0), steps) / steps) + end
+
+
+def lr_schedule(cfg: ExperimentConfig) -> Callable[[int], float]:
+    """The learning rate at each optimizer step count (0 for the first step),
+    as optax's schedules give it: constant (the reference), with a linear
+    warmup from 0 over ``warmup_steps``, or warmup then cosine decay to 0
+    at ``lr_decay_steps`` (``--lr_schedule cosine``)."""
+    warmup = cfg.warmup_steps
+    if cfg.lr_schedule == "cosine":
+        if cfg.lr_decay_steps <= 0:
+            raise ValueError("--lr_schedule cosine requires --lr_decay_steps > 0")
+        decay = cfg.lr_decay_steps - warmup
+        if decay <= 0:
+            raise ValueError(f"--lr_decay_steps ({cfg.lr_decay_steps}) must exceed "
+                             f"--warmup_steps ({warmup})")
+
+        def after(count):
+            return cfg.lr * 0.5 * (1 + math.cos(math.pi * min(count, decay) / decay))
+    elif cfg.lr_schedule == "constant":
+        if warmup <= 0:
+            return lambda count: cfg.lr
+
+        def after(count):
+            return cfg.lr
+    else:
+        raise ValueError(f"unknown lr_schedule {cfg.lr_schedule!r}")
+    ramp = _linear(0.0, cfg.lr, warmup)
+    return lambda count: ramp(count) if count < warmup else after(count - warmup)
+
+
+def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (a 0-dim tensor)."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+
+
+class Optimizer:
+    """optax's ``chain(clip_by_global_norm(grad_clip), adam(schedule))`` on
+    the trainable parameters; the frozen ones are left out, as
+    ``multi_transform`` sets their updates to zero. The clip's norm is over
+    the trainable gradients only. Adam keeps optax's defaults (b1 0.9, b2
+    0.999, eps 1e-8)."""
+
+    def __init__(self, params: list[torch.nn.Parameter], lr: Callable[[int], float],
+                 grad_clip: float):
+        self.params = params
+        self.lr = lr
+        self.grad_clip = grad_clip
+        self.adam = torch.optim.Adam(params, lr=lr(0), betas=(0.9, 0.999), eps=1e-8)
+
+    def step(self, count: int) -> None:
+        """One update from the parameters' ``.grad`` at optimizer step
+        ``count``; a trainable parameter without a gradient counts as 0."""
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
+        norm = global_norm(grads)
+        scale = torch.where(norm < self.grad_clip, torch.ones_like(norm),
+                            self.grad_clip / norm)
+        torch._foreach_mul_(grads, scale)
+        for group in self.adam.param_groups:
+            group["lr"] = self.lr(count)
+        self.adam.step()
+
+    def state_dict(self) -> dict:
+        return self.adam.state_dict()
+
+    def load_state_dict(self, state: dict) -> None:
+        self.adam.load_state_dict(state)
+
+
+def make_optimizer(cfg: ExperimentConfig, model: InteractionModel) -> Optimizer:
+    """Adam + global-norm clip (ref: lr 2e-4, clip 0.5) over the trainable
+    partition of :func:`param_labels`; the CLIP tower is marked frozen
+    unless ``no_clip``."""
+    if not cfg.no_clip:
+        model.freeze_clip()
+    labels = param_labels(model, freeze_clip=not cfg.no_clip)
+    params = [p for name, p in model.named_parameters() if labels[name] == "train"]
+    return Optimizer(params, lr_schedule(cfg), cfg.grad_clip)
+
+
+# --------------------------------------------------------------------------
+# losses
+# --------------------------------------------------------------------------
+
+
+def per_token_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """(N, 2, T, D) → per-token squared error (N, 2, T); the init token on
+    channels 0:4 only."""
+    init = ((pred[:, :, 0, :4] - target[:, :, 0, :4]) ** 2).mean(dim=-1)
+    move = ((pred[:, :, 1:] - target[:, :, 1:]) ** 2).mean(dim=-1)
+    return torch.cat([init[:, :, None], move], dim=-1)
+
+
+def supervised_loss(pred, target, mask):
+    """Masked MSE with known roles; mask (N, T). Returns (loss, per-sample
+    summed losses)."""
+    per_sample = (per_token_loss(pred, target) * mask[:, None, :]).sum(dim=(1, 2))
+    return per_sample.sum() / (2.0 * mask.sum()), per_sample
+
+
+def pit_loss(pred, target, mask):
+    """Min-assignment PIT loss: pred/target (B, 2 assignments, 2 actors, T,
+    D), mask (B, T). Per assignment the masked loss summed over both actors,
+    per pair the smaller of the two assignments, normalized by 2·Σmask.
+    Returns (loss, per-pair losses)."""
+    B = pred.shape[0]
+    per_tok = per_token_loss(pred.reshape(B * 2, *pred.shape[2:]),
+                             target.reshape(B * 2, *target.shape[2:]))
+    mask2 = mask.repeat_interleave(2, dim=0)[:, None, :]
+    per_sample = (per_tok * mask2).sum(dim=(1, 2)).reshape(B, 2).min(dim=1).values
+    return per_sample.sum() / (2.0 * mask.sum()), per_sample
+
+
+# --------------------------------------------------------------------------
+# train steps
+# --------------------------------------------------------------------------
+
+
+def make_loss_fn(model: InteractionModel, sched: g.DiffusionSchedule, pit: bool) -> Callable:
+    """``loss_fn(batch, generator=None, t=None, noise=None) -> (loss, aux)``.
+
+    batch: motion (B, 2, T, D), lengths (B,), tokens (B, 2, 77) and, when
+    the frozen tower was precomputed, tower_feats (B, 2, 77, W); without
+    them the tower runs in the step (``--no_clip``, where it trains). ``t``
+    (B,) and ``noise`` (like motion) are drawn from ``generator`` unless
+    given. aux holds t and the per-sample losses.
+    """
+
+    def encode(cond):
+        if isinstance(cond, tuple):
+            return model.encode_text_from_tower(*cond)
+        return model.encode_text(cond)
+
+    def loss_fn(batch, generator=None, t=None, noise=None):
+        motion = batch["motion"]
+        B, _, T, _ = motion.shape
+        lengths = batch["lengths"].clamp(max=T)
+        if t is None:
+            t = torch.randint(0, sched.num_timesteps, (B,), generator=generator,
+                              device=motion.device)
+        if noise is None:
+            noise = torch.randn(motion.shape, generator=generator, device=motion.device,
+                                dtype=motion.dtype)
+        x_t, target = g.training_targets(sched, motion, t, noise)
+        mask = length_mask(lengths, T, motion.dtype)
+        if "tower_feats" in batch:
+            cond = (batch["tower_feats"], batch["tokens"])
+        else:
+            cond = batch["tokens"]
+        if not pit:
+            xf_proj, xf_out = encode(cond)
+            pred = model.denoise(x_t, t, lengths, xf_proj, xf_out)
+            loss, per_sample = supervised_loss(pred, target, mask)
+        else:
+            # assignment axis: (c1, c2) as given, then (c2, c1), encoded in
+            # one pass and denoised over 2B pairs
+            if isinstance(cond, tuple):
+                cond = tuple(torch.cat([c, c.flip(1)]) for c in cond)
+            else:
+                cond = torch.cat([cond, cond.flip(1)])
+            xf_proj, xf_out = encode(cond)
+            pred2 = model.denoise(torch.cat([x_t, x_t]), torch.cat([t, t]),
+                                  torch.cat([lengths, lengths]), xf_proj, xf_out)
+            pred = torch.stack([pred2[:B], pred2[B:]], dim=1)
+            loss, per_sample = pit_loss(pred, torch.stack([target, target], dim=1), mask)
+        return loss, {"t": t, "per_sample": per_sample}
+
+    return loss_fn
+
+
+def compute_grads(model: InteractionModel, loss_fn: Callable, batch: dict, grad_accum: int = 1,
+                  generator=None, t=None, noise=None) -> torch.Tensor:
+    """Set each trainable parameter's ``.grad`` to the mean of its gradient
+    over ``grad_accum`` equal microbatches (activation memory of one), and
+    return the mean loss. Each microbatch draws its own t and noise from
+    ``generator``, or takes its slice of ``t`` and ``noise``."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    for p in params:
+        p.grad = None
+    size = batch["motion"].shape[0] // grad_accum
+    total = torch.zeros((), device=batch["motion"].device)
+    for i in range(grad_accum):
+        part = slice(i * size, (i + 1) * size)
+        micro = {key: value[part] for key, value in batch.items()}
+        loss, _ = loss_fn(micro, generator, None if t is None else t[part],
+                          None if noise is None else noise[part])
+        loss.backward()
+        total = total + loss.detach()
+    if grad_accum > 1:
+        torch._foreach_div_([p.grad for p in params if p.grad is not None], float(grad_accum))
+    return total / grad_accum
+
+
+def apply_update(state: TrainState, ema_decay: float = 0.0) -> None:
+    """One optimizer update from the parameters' ``.grad``, then the EMA
+    (e ← e·decay + (1 − decay)·p over every parameter)."""
+    state.optimizer.step(state.step)
+    if ema_decay > 0.0 and state.ema is not None:
+        ema = list(state.ema.values())
+        torch._foreach_mul_(ema, ema_decay)
+        torch._foreach_add_(ema, [p.detach() for _, p in state.model.named_parameters()],
+                            alpha=1.0 - ema_decay)
+    state.step += 1
+
+
+def make_train_step(sched: g.DiffusionSchedule, pit: bool, grad_accum: int = 1,
+                    ema_decay: float = 0.0) -> Callable:
+    """``train_step(state, batch, generator=None, t=None, noise=None) ->
+    metrics``: gradients (:func:`compute_grads`), :func:`apply_update`, and
+    ``{"loss_mot_rec", "grad_norm"}`` as 0-dim tensors; the logged norm is
+    over every gradient, before the clip."""
+
+    def train_step(state: TrainState, batch: dict, generator=None, t=None, noise=None):
+        model = state.model
+        loss = compute_grads(model, make_loss_fn(model, sched, pit), batch, grad_accum,
+                             generator, t, noise)
+        gnorm = global_norm([p.grad for p in model.parameters() if p.grad is not None])
+        apply_update(state, ema_decay)
+        return {"loss_mot_rec": loss, "grad_norm": gnorm}
+
+    return train_step
+
 
 
 def eval_params(state: dict) -> dict:
@@ -93,3 +373,115 @@ def make_sampler(model: InteractionModel, sched: g.DiffusionSchedule, T: int,
                                   num_steps=ddim_steps, model_aux=aux)
 
     return sample
+
+
+# --------------------------------------------------------------------------
+# host-side orchestration
+# --------------------------------------------------------------------------
+
+
+def step_generator(seed: int, it: int, generation: int, device) -> torch.Generator:
+    """The generator of one step's t and noise: a function of (seed, it,
+    rollback generation), so a resumed run draws what an unbroken one would
+    and a retry after a rollback does not replay the failed draw."""
+    key = np.random.SeedSequence([seed, it, generation]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(key >> np.uint64(1)))
+
+
+class Trainer:
+    """Epoch loop, logging and checkpoints of one training run."""
+
+    def __init__(self, cfg: ExperimentConfig, device=None,
+                 clip_config: ClipTextConfig | None = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model_config = model_config(cfg, clip_config)
+        self.sched = g.make_schedule(g.linear_betas(cfg.diffusion_steps))
+        self.pit = cfg.label_path is None
+        self.step_seconds: list[float] = []  # host time of each step, metrics read back
+
+    def init_state(self) -> TrainState:
+        """Seeded random weights (``random_flax_tree``, every leaf nonzero)
+        on the trainer's device, in train mode; the EMA starts as a copy."""
+        model = InteractionModel(self.model_config)
+        load_flax_tree(model, random_flax_tree(self.model_config, self.cfg.seed)["params"])
+        model.to(self.device).train()
+        optimizer = make_optimizer(self.cfg, model)
+        ema = None
+        if self.cfg.ema_decay > 0.0:
+            ema = {name: p.detach().clone() for name, p in model.named_parameters()}
+        return TrainState(model=model, optimizer=optimizer, step=0, ema=ema)
+
+    @torch.no_grad()
+    def precompute_tower(self, model: InteractionModel) -> torch.Tensor:
+        """Frozen CLIP features of the 43 captions (43, 77, width), row
+        ``CAP2KEY[caption]``, computed once per run."""
+        tokens = torch.from_numpy(tokenize(CAPS).astype(np.int64)).to(self.device)
+        return model.clip_tower(tokens)
+
+    def _device_batch(self, batch: dict, tower_feats) -> dict:
+        out = {
+            "motion": torch.from_numpy(batch["motion"]).to(self.device),
+            "lengths": torch.from_numpy(batch["lengths"]).long().to(self.device),
+            "tokens": torch.from_numpy(batch["tokens"]).long().to(self.device),
+        }
+        if tower_feats is not None:
+            cap_ids = torch.from_numpy(batch["cap_ids"]).long().to(self.device)
+            out["tower_feats"] = tower_feats[cap_ids]
+        return out
+
+    def train(self, dataset: PairDataset, state: TrainState, num_epochs: int | None = None,
+              log=print, start_epoch: int = 0) -> TrainState:
+        cfg = self.cfg
+        num_epochs = num_epochs or cfg.num_epochs
+        os.makedirs(cfg.model_dir, exist_ok=True)
+        train_step = make_train_step(self.sched, self.pit, cfg.grad_accum, cfg.ema_decay)
+        state.model.train()
+        # the frozen tower runs once; --no_clip trains it, so it runs in the step
+        tower_feats = None if cfg.no_clip else self.precompute_tower(state.model)
+        metrics_path = pjoin(cfg.save_root, "metrics.jsonl")
+        latest = pjoin(cfg.model_dir, "latest.pt")
+        token_cache: dict = {}
+        it, generation, retries_left = state.step, 0, MAX_FAILURE_RETRIES
+        logs: dict[str, float] = {}
+        start = time.time()
+        # a `latest` that --is_continue restored is a rollback target too
+        ckpt_exists = cfg.is_continue and os.path.exists(latest)
+        for epoch in range(start_epoch, num_epochs):
+            for batch in epoch_batches(dataset, cfg.batch_size, epoch, seed=cfg.seed,
+                                       token_cache=token_cache):
+                generator = step_generator(cfg.seed + 1, it, generation, self.device)
+                dev_batch = self._device_batch(batch, tower_feats)
+                t_step = time.perf_counter()
+                metrics = {k: float(v) for k, v in train_step(state, dev_batch, generator).items()}
+                self.step_seconds.append(time.perf_counter() - t_step)
+                if not all(math.isfinite(v) for v in metrics.values()):
+                    if retries_left <= 0 or not ckpt_exists:
+                        raise FloatingPointError(f"non-finite training loss at it {it}: {metrics}")
+                    retries_left -= 1
+                    generation += 1
+                    log(f"non-finite loss at it {it} ({metrics}); rolling back to the latest "
+                        f"checkpoint ({retries_left} retries left)")
+                    state, _, it = ckpt.restore_state(latest, state)
+                    continue
+                it += 1
+                for k, v in metrics.items():
+                    logs[k] = logs.get(k, 0.0) + v
+                if it % cfg.log_every == 0:
+                    mean = {k: v / cfg.log_every for k, v in logs.items()}
+                    logs = {}
+                    log(f"epoch {epoch} it {it} "
+                        + " ".join(f"{k}: {v:.5f}" for k, v in mean.items())
+                        + f" ({time.time() - start:.0f}s)")
+                    with open(metrics_path, "a") as f:
+                        f.write(json.dumps({"it": it, "epoch": epoch, **mean}) + "\n")
+                if it % cfg.save_latest == 0:
+                    # mid-epoch: a resume redoes this (partial) epoch
+                    ckpt.save_state(latest, state, epoch, it)
+                    ckpt_exists = True
+            # the stored epoch is the next one to run
+            ckpt.save_state(latest, state, epoch + 1, it)
+            ckpt_exists = True
+            if epoch % cfg.save_every_e == 0:
+                ckpt.save_state(pjoin(cfg.model_dir, f"ckpt_e{epoch:03d}.pt"), state, epoch + 1, it)
+        return state

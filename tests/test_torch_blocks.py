@@ -133,7 +133,8 @@ def _block_case(tree, name, fused, seed=3):
     cls = {"sa_block": (ta.EfficientSelfAttention, ja.EfficientSelfAttention),
            "int_ca_block": (ta.EfficientInteractionAttention,
                             ja.EfficientInteractionAttention)}[name]
-    port = load_flax_tree(cls[0](D, H, E, fused=fused), sub)
+    # eval mode: a fused block in train mode takes the B2 route
+    port = load_flax_tree(cls[0](D, H, E, fused=fused), sub).eval()
     return port, cls[1](D, H), sub, rand(B, 2, T, D, seed=seed), rand(B, 2, E, seed=seed + 1)
 
 

@@ -15,8 +15,18 @@ cuBLAS's and the block's second LayerNorm rescales the attention output by
 1/std; and REL_TOL of the largest magnitude of the plain output, which the
 kernels' 3xTF32 products meet and plain TF32 products (the low parts
 dropped) miss by more than an order of magnitude.
+
+Gradients: B2, B3 and B4 under autograd against autograd through their
+plain versions (the backwards recompute the plain versions, so only the
+forward's rounding differs), at the same tolerances; B1 refuses to run
+under grad; and whole training steps of the model through the kernels
+against the same steps through the plain versions: the loss within 1e-4
+relative and every gradient within 1e-3 of its leaf's largest magnitude
+(the key biases, whose exact gradient is 0, within 1e-6 of the largest
+gradient of the model).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -176,3 +186,209 @@ def test_kernels_refuse_unsupported_shapes(cuda):
             kernel(x.transpose(0, 1), x.transpose(0, 1), x.transpose(0, 1), H)
     with pytest.raises(ValueError):  # partner without an actor axis of 2
         flash_attention(x[:, 0], x[:, 0], x[:, 0], H, partner=True)
+
+
+# --- gradients ---------------------------------------------------------------------
+
+
+def _grads(fn, inputs, seed=3):
+    out = fn()
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(seed)).to(out.device)
+    return out, torch.autograd.grad(out, inputs, g)
+
+
+def _assert_grads_close(got, want):
+    for a, b in zip(got, want):
+        assert_close(a, b)
+
+
+@pytest.mark.parametrize("same_source", [True, False], ids=["self", "partner"])
+def test_projected_attention_gradients(cuda, same_source):
+    """B2 under autograd: gradients to x (through LayerNorm, twice over when
+    kv_src is q_src) and to the q/k/v weights and biases."""
+    w, x, mask, _, _ = _inputs(cuda)
+    leaves = [x.requires_grad_(), w.wq.requires_grad_(), w.bq.requires_grad_(),
+              w.wk.requires_grad_(), w.wv.requires_grad_(), w.bv.requires_grad_()]
+
+    def run(fn):
+        xn = torch.nn.functional.layer_norm(x, (D,), w.ln_g, w.ln_b, 1e-6)
+        kv, kmask = (xn, mask) if same_source else (xn.flip(1), mask.flip(1))
+        return fn(xn, kv, w.wq, w.bq, w.wk, w.bk, w.wv, w.bv, H, kmask)
+
+    before = fused_projected_attention.launches
+    out, got = _grads(lambda: run(fused_projected_attention), leaves)
+    assert out.grad_fn is not None
+    assert fused_projected_attention.launches == before + 1
+    _, want = _grads(lambda: run(fused_projected_attention_plain), leaves)
+    _assert_grads_close(got, want)
+
+
+@pytest.mark.parametrize("Tk", [T, 77])
+def test_efficient_attention_gradients(cuda, Tk):
+    _, x, mask, _, _ = _inputs(cuda)
+    gen = torch.Generator().manual_seed(1)
+    k, v = (torch.randn((N_PAIRS, 2, Tk, D), generator=gen).to(cuda).requires_grad_()
+            for _ in range(2))
+    q = x.requires_grad_()
+    out, got = _grads(lambda: fused_efficient_attention(q, k, v, H, mask[..., :Tk]), (q, k, v))
+    assert out.grad_fn is not None
+    _, want = _grads(lambda: efficient_attention(q, k, v, H, mask[..., :Tk]), (q, k, v))
+    _assert_grads_close(got, want)
+
+
+@pytest.mark.parametrize("case", ["self", "partner", "causal"])
+def test_flash_attention_gradients(cuda, case):
+    """B4 under autograd as the quadratic blocks call it: q, k and v are
+    views of one merged projection, read in place, and their gradients reach
+    the projection's weight and bias and x."""
+    w, x, mask, _, _ = _inputs(cuda)
+    weight = torch.cat([w.wq, w.wk, w.wv]).requires_grad_()
+    bias = torch.cat([w.bq, w.bk, w.bv]).requires_grad_()
+    leaves = (x.requires_grad_(), weight, bias)
+
+    def run(fn):
+        q, k, v = torch.nn.functional.linear(x, weight, bias).chunk(3, dim=-1)
+        return fn(q, k, v, H, mask, case == "causal", case == "partner")
+
+    before = flash_attention.launches
+    out, got = _grads(lambda: run(flash_attention), leaves)
+    assert out.grad_fn is not None
+    assert flash_attention.launches == before + 1
+    _, want = _grads(lambda: run(flash_attention_plain), leaves)
+    _assert_grads_close(got, want)
+
+
+def test_fused_block_refuses_grad(cuda):
+    w, x, mask, scale, shift = _inputs(cuda)
+    w = BlockWeights(*(t.requires_grad_() for t in w))
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_attention_block(x, mask, scale, shift, w, H)
+    with torch.no_grad():
+        assert fused_attention_block(x, mask, scale, shift, w, H).shape == x.shape
+
+
+# --- whole training steps ------------------------------------------------------------
+
+
+@pytest.fixture
+def plain_route(monkeypatch):
+    """Routes the model's attention blocks through the plain versions."""
+    from hig_tpu_torch.models import attention
+    from hig_tpu_torch.ops import pallas_attention
+
+    def use_plain():
+        monkeypatch.setattr(attention, "fused_projected_attention",
+                            pallas_attention.fused_projected_attention_plain)
+        monkeypatch.setattr(attention, "flash_attention", flash_attention_plain)
+        monkeypatch.setattr(attention, "fused_attention_block", fused_attention_block_plain)
+
+    return use_plain
+
+
+def _step_grads(model, pit, batch, t, noise):
+    from hig_tpu_torch.diffusion import gaussian as g
+    from hig_tpu_torch.train import trainer
+
+    loss_fn = trainer.make_loss_fn(model, g.make_schedule(g.linear_betas(1000)), pit)
+    loss = trainer.compute_grads(model, loss_fn, batch, t=t, noise=noise)
+    return float(loss), {n: p.grad.clone() for n, p in model.named_parameters()
+                         if p.grad is not None}
+
+
+def _train_case(device, cfg, pairs, seed=0):
+    """The model of ``cfg`` in train mode (CLIP frozen) and a batch with
+    explicit t and noise."""
+    from hig_tpu_torch.data.vocab import CAPS
+    from hig_tpu_torch.models.interaction_model import InteractionModel
+    from hig_tpu_torch.models.tokenizer import tokenize
+    from hig_tpu_torch.weights import load_flax_tree, random_flax_tree
+
+    model = InteractionModel(cfg)
+    load_flax_tree(model, random_flax_tree(cfg, seed)["params"])
+    model.to(device).train().freeze_clip()
+    gen = torch.Generator().manual_seed(seed)
+    cap_ids = torch.randint(0, len(CAPS), (pairs, 2), generator=gen)
+    tokens = torch.from_numpy(tokenize(CAPS).astype(np.int64))[cap_ids].to(device)
+    with torch.no_grad():
+        feats = model.clip_tower(tokens.reshape(-1, 77)).reshape(pairs, 2, 77, -1)
+    lengths = torch.tensor([max(2, L * T // 91) for L in LENGTHS] * (pairs // 8 + 1))[:pairs]
+    batch = {"motion": torch.randn((pairs, 2, T, cfg.input_feats), generator=gen).to(device),
+             "lengths": lengths.to(device), "tokens": tokens, "tower_feats": feats}
+    t = torch.randint(0, 1000, (pairs,), generator=gen).to(device)
+    noise = torch.randn((pairs, 2, T, cfg.input_feats), generator=gen).to(device)
+    return model, batch, t, noise
+
+
+def _assert_step_grads_close(got, want):
+    scale = max(float(v.abs().max()) for v in want.values())
+    assert got.keys() == want.keys()
+    for name, w in want.items():
+        err = float((got[name] - w).abs().max())
+        if name.endswith("_block.key.bias"):  # exact gradient 0
+            assert float(got[name].abs().max()) <= 1e-6 * scale, name
+            continue
+        assert err <= 1e-3 * float(w.abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("efficient", [True, False], ids=["efficient_b2", "no_eff_b4"])
+@pytest.mark.parametrize("pit", [True, False], ids=["pit", "supervised"])
+def test_full_width_train_step_grads_match_plain_route(cuda, plain_route, efficient, pit):
+    """The flagship model (latent 512, 8 layers, 12-layer CLIP frozen), 8
+    caption pairs: loss and every gradient through the kernels (16 launches
+    of B2 or B4 per step, none of B1) against the plain route."""
+    from hig_tpu_torch.models.interaction_model import ModelConfig
+
+    model, batch, t, noise = _train_case(cuda, ModelConfig(efficient=efficient), 8)
+    kernel = fused_projected_attention if efficient else flash_attention
+    counts = (kernel.launches, fused_attention_block.launches)
+    loss, got = _step_grads(model, pit, batch, t, noise)
+    assert (kernel.launches - counts[0], fused_attention_block.launches - counts[1]) == (16, 0)
+    plain_route()
+    want_loss, want = _step_grads(model, pit, batch, t, noise)
+    assert abs(loss - want_loss) <= 1e-4 * abs(want_loss)
+    _assert_step_grads_close(got, want)
+
+
+def test_every_attention_block_gets_qkv_gradients(cuda, plain_route):
+    """One denoiser step through B2 (efficient model, train mode) and one
+    through B4 (no_eff): every self-attention and interaction block's q/k/v
+    weights get a nonzero gradient, equal to the plain route's. A kernel
+    wrapper whose output is cut off from autograd leaves them without one.
+    Only the model's forward is used, so the test runs on any tree."""
+    from hig_tpu_torch.models.interaction_model import InteractionModel, ModelConfig
+    from hig_tpu_torch.models.text_encoder import ClipTextConfig
+    from hig_tpu_torch.weights import load_flax_tree, random_flax_tree
+
+    cfg = dict(latent_dim=128, ff_size=256, num_layers=2, num_heads=2, text_latent_dim=64,
+               text_ff_size=128, num_text_layers=1, clip=ClipTextConfig(width=64, layers=1))
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((4, 2, T, 263), generator=gen).to(cuda)
+    target = torch.randn((4, 2, T, 263), generator=gen).to(cuda)
+    t = torch.tensor([3, 250, 500, 999], device=cuda)
+    lengths = torch.tensor([91, 60, 33, 80], device=cuda)
+    xf_proj = torch.randn((4, 2, 512), generator=gen).to(cuda)
+    xf_out = torch.randn((4, 2, 77, 64), generator=gen).to(cuda)
+
+    def step_grads(model):
+        model.zero_grad(set_to_none=True)
+        pred = model.denoise(x, t, lengths, xf_proj, xf_out)
+        ((pred - target) ** 2).mean().backward()
+        return {n: p.grad for n, p in model.named_parameters()}
+
+    models, got = {}, {}
+    for efficient in (True, False):
+        mcfg = ModelConfig(**cfg, efficient=efficient)
+        models[efficient] = load_flax_tree(InteractionModel(mcfg),
+                                           random_flax_tree(mcfg, 0)["params"]).to(cuda).train()
+        got[efficient] = step_grads(models[efficient])
+    plain_route()
+    for efficient, model in models.items():
+        want = step_grads(model)
+        for i in range(2):
+            for block in ("sa_block", "int_ca_block"):
+                for proj in ("query", "key", "value"):
+                    name = f"denoiser.layers.{i}.{block}.{proj}.weight"
+                    assert got[efficient][name] is not None, f"no gradient for {name}"
+                    assert float(got[efficient][name].abs().max()) > 0, name
+                    err = float((got[efficient][name] - want[name]).abs().max())
+                    assert err <= 1e-3 * float(want[name].abs().max()), (name, err)

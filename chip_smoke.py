@@ -40,8 +40,25 @@ Phases, each printing one JSON line:
      kernels against the plain route, at the run's initial weights and, with
      both routes also against a float64 plain route, at its trained ones;
      then 8 requests served from the PIT run's checkpoint through B1;
-  7. profile: the device time by kernel of one more serving call of each
-     run and of one more PIT training step (torch.profiler).
+  7. pipeline: the paper's three stages through the port's entry points on
+     the same dataset: (1-1) PIT with caption ids (``train --cap_id``, 6
+     steps, B2); (1-2) ``python -m hig_tpu_torch.label``'s main, role
+     discovery on 26 annotated clips and pseudo-labels of the 48 training
+     clips through B1 (16 launches per denoiser forward, none of B2-B4),
+     complete label files, and the scorer through B1 against the plain
+     route on one batch; (1-3) the supervised stage on those labels with
+     caption dropout, the loss-aware sampler and a validation pass (2 steps
+     and one validation batch through B2, a finite val_loss line; loss and
+     gradients against the plain route with a keep mask that drops some
+     pairs); then 8 requests served with classifier-free guidance (w =
+     GUIDANCE) from stage 1-3's checkpoint through B1 (one denoiser call
+     over the conditional and null pairs a step: 800 launches a DDIM-50
+     call), against the plain route, and 8 from stage 1-1's caption-id
+     checkpoint (w = 1, 800 launches);
+  8. profile: the device time by kernel of one more serving call of each
+     run, of the guided serving call, of one labeling vote (a denoiser
+     forward over 64 pairs under both assignments) and of one more PIT
+     training step (torch.profiler).
 Then the kernel table, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero without
 that line. Imports nothing of JAX or of the JAX package.
@@ -98,6 +115,20 @@ LAUNCHES_PER_STEP = 8 * 2  # layers × (self-attention, interaction): one forwar
 # beside both routes' errors against float64, and not held to the tolerance.
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_ZERO_GRAD_TOL = 1e-4, 1e-3, 1e-6
 KEY_BIAS = "_block.key.bias"
+# With caption ids the text is one token, over which the efficient text
+# cross-attention returns the token's value whatever the query: its query,
+# key and norm have an exact gradient of 0 too.
+CAP_ID_ZERO_GRAD = (KEY_BIAS, ".ca_block.key.weight", ".ca_block.query.weight",
+                    ".ca_block.query.bias", ".ca_block.norm.weight", ".ca_block.norm.bias")
+# The three-stage pipeline (phase 7) on the same dataset: the annotated split
+# has one clip per class, the validation split VAL_CLIPS clips (one batch).
+ANN_CLIPS, VAL_CLIPS = 26, 32
+LABEL_BATCH = 64  # the label CLI's default: one batch of each split
+GUIDANCE = 2.5
+CAP_ID_RUN = (["--cap_id", "--times", "4"], 6, "projected_attention")
+CFG_RUN = (["--times", "2", "--limit_data_num", "32", "--label_path", "{data}/pseudo_labels.json",
+            "--cond_drop_prob", "0.1", "--loss_aware_sampler", "--eval_every_e", "1"], 2,
+           "projected_attention")
 # Card rates for the bound, H100 SXM (NVIDIA data sheet): float32 FMA
 # without tensor cores, dense TF32 on the tensor cores, HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
@@ -112,6 +143,10 @@ DENOISER_TOL = 1e-3
 # DDIM-50 output with random weights, relative to max |plain|: each step
 # multiplies x by c1 ≥ 1, so differences of the first steps grow.
 SAMPLER_REL_TOL = 1e-3
+# Guided DDIM-50: e_u + w·(e_c − e_u) scales the two passes' rounding by up
+# to |1 − w| + w (4 at w = 2.5), so the guided run may miss the plain route
+# by up to that multiple of SAMPLER_REL_TOL; it is held to SAMPLER_REL_TOL.
+GUIDED_REL_TOL = SAMPLER_REL_TOL
 
 
 def fail_if(failures: list, cond: bool, what: str) -> None:
@@ -279,13 +314,36 @@ def block_inputs(device, pairs: int = N_PAIRS):
 
 
 def phase_kernels(device, failures) -> dict:
+    rows = {"fused_block": check_fused_block(*block_inputs(device), failures)}
+    w, x, mask, _, _ = block_inputs(device)
+    rows["projected_attention"] = check_projected_attention(w, x, mask, failures)
+    rows["efficient_attention"] = check_efficient_attention(w, x, mask, failures)
+    rows["flash_attention"] = check_flash_attention(w, x, mask, failures)
+    # B2 and B4 at the training shape: a PIT step denoises its TRAIN_PAIRS
+    # pairs under both caption assignments (2 × 32 pairs, 128 sequences)
+    w, x, mask, _, _ = block_inputs(device, 2 * TRAIN_PAIRS)
+    for name, check in (("projected_attention", check_projected_attention),
+                        ("flash_attention", check_flash_attention)):
+        rows[name]["train_shape"] = {k: v for k, v in check(w, x, mask, failures).items()
+                                     if k in TRAIN_SHAPE_KEYS}
+    # B1 at the labeling shape: a vote denoises LABEL_BATCH pairs under both
+    # caption assignments (2 × 64 pairs, 256 sequences)
+    rows["fused_block"]["label_shape"] = {
+        k: v for k, v in check_fused_block(*block_inputs(device, 2 * LABEL_BATCH),
+                                           failures).items() if k in TRAIN_SHAPE_KEYS}
+    return rows
+
+
+TRAIN_SHAPE_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+
+def check_fused_block(w, x, mask, scale, shift, failures) -> dict:
+    """B1, self-attention and interaction variants; the slower one's time."""
     from hig_tpu_torch.ops.fused_block import fused_attention_block, fused_attention_block_plain
 
-    w, x, mask, scale, shift = block_inputs(device)
-    N, M, hd = 2 * N_PAIRS, 2 * N_PAIRS * T, D // HEADS
+    N, hd = 2 * x.shape[0], D // HEADS
+    M = N * T
     attn_flops = 2 * 2 * N * HEADS * T * hd * hd
-    rows = {}
-
     errs, ms, plain_ms = [], [], []
     for interaction in (False, True):
         args = (x, mask, scale, shift, w, HEADS, interaction)
@@ -298,12 +356,6 @@ def phase_kernels(device, failures) -> dict:
     flops = 2 * M * D * 3 * D + 2 * M * D * D + attn_flops
     nbytes = 4 * (2 * M * D + M + 2 * N * D + 4 * D * D + 8 * D)
     b_ms, b_by, b_kind = bound(flops, nbytes)
-    rows["fused_block"] = {
-        "name": "fused_block", "route": "cuda", "source": "hig_tpu_torch/csrc/fused_block.cu",
-        "replaces": "hig_tpu/ops/fused_block.py:48", "max_abs_err": max(errs),
-        "ms": max(ms), "plain_ms": max(plain_ms), "bound_ms": b_ms, "bound_by": b_by,
-        "bound_kind": b_kind, "library_ms": None,
-    }
     print(json.dumps({"phase": "kernel", "kernel": "fused_block",
                       "shape": [N, T, D, HEADS], "tol": KERNEL_TOL,
                       "max_abs_err_self": errs[0], "max_abs_err_interaction": errs[1],
@@ -312,22 +364,14 @@ def phase_kernels(device, failures) -> dict:
                       "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
                       "bound_us": b_ms * 1e3, "bound_by": b_by,
                       "bound_kind": b_kind}), flush=True)
-    fail_if(failures, not max(errs) <= KERNEL_TOL, f"fused_block max |err| {max(errs)}")
-
-    rows["projected_attention"] = check_projected_attention(w, x, mask, failures)
-    rows["efficient_attention"] = check_efficient_attention(w, x, mask, failures)
-    rows["flash_attention"] = check_flash_attention(w, x, mask, failures)
-    # B2 and B4 at the training shape: a PIT step denoises its TRAIN_PAIRS
-    # pairs under both caption assignments (2 × 32 pairs, 128 sequences)
-    w, x, mask, _, _ = block_inputs(device, 2 * TRAIN_PAIRS)
-    for name, check in (("projected_attention", check_projected_attention),
-                        ("flash_attention", check_flash_attention)):
-        rows[name]["train_shape"] = {k: v for k, v in check(w, x, mask, failures).items()
-                                     if k in TRAIN_SHAPE_KEYS}
-    return rows
-
-
-TRAIN_SHAPE_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    fail_if(failures, not max(errs) <= KERNEL_TOL,
+            f"fused_block {N} sequences max |err| {max(errs)}")
+    return {
+        "name": "fused_block", "route": "cuda", "source": "hig_tpu_torch/csrc/fused_block.cu",
+        "replaces": "hig_tpu/ops/fused_block.py:48", "max_abs_err": max(errs),
+        "ms": max(ms), "plain_ms": max(plain_ms), "bound_ms": b_ms, "bound_by": b_by,
+        "bound_kind": b_kind, "library_ms": None,
+    }
 
 
 def check_projected_attention(w, x, mask, failures) -> dict:
@@ -589,62 +633,87 @@ def write_train_data(root: str, seed: int = 0) -> None:
     """A seeded dataset in the reference's layout: TRAIN_CLIPS clips of 60 to
     198 frames (+ the init row) of random 263-d features, caption pairs from
     the port's caption table, train_sub.txt, Mean.npy/Std.npy, and a 0/1
-    label file for the supervised stage."""
+    label file for the supervised stage; then, for the pipeline, VAL_CLIPS
+    clips in val_sub.txt and ANN_CLIPS annotated clips, one per class, in
+    test_ann_ids.txt with seeded 0/1 role annotations in
+    test_active_anns.json."""
     from hig_tpu_torch.data.vocab import CLASSID2CAPS
 
     rng = np.random.default_rng(seed)
     os.makedirs(os.path.join(root, "new_joint_vecs"))
     os.makedirs(os.path.join(root, "texts"))
-    names = []
-    for i in range(TRAIN_CLIPS):
-        name, frames = f"T{i:03d}", int(rng.integers(60, 199))
-        motion = rng.standard_normal((2, frames + 1, 263), dtype=np.float32)
-        np.save(os.path.join(root, "new_joint_vecs", name + ".npy"), motion)
-        c1, c2 = CLASSID2CAPS[i % len(CLASSID2CAPS)]
-        with open(os.path.join(root, "texts", name + ".txt"), "w") as f:
-            f.write(f"{c1}_{c2}#none#0.0#0.0\n")
-        names.append(name)
-    with open(os.path.join(root, "train_sub.txt"), "w") as f:
-        f.write("\n".join(names) + "\n")
+
+    def clips(prefix: str, count: int) -> list:
+        names = []
+        for i in range(count):
+            name, frames = f"{prefix}{i:03d}", int(rng.integers(60, 199))
+            motion = rng.standard_normal((2, frames + 1, 263), dtype=np.float32)
+            np.save(os.path.join(root, "new_joint_vecs", name + ".npy"), motion)
+            c1, c2 = CLASSID2CAPS[i % len(CLASSID2CAPS)]
+            with open(os.path.join(root, "texts", name + ".txt"), "w") as f:
+                f.write(f"{c1}_{c2}#none#0.0#0.0\n")
+            names.append(name)
+        return names
+
+    def split(name: str, names: list) -> None:
+        with open(os.path.join(root, name), "w") as f:
+            f.write("\n".join(names) + "\n")
+
+    names = clips("T", TRAIN_CLIPS)
+    split("train_sub.txt", names)
     np.save(os.path.join(root, "Mean.npy"), np.zeros(267, np.float32))
     np.save(os.path.join(root, "Std.npy"), np.ones(267, np.float32))
     with open(os.path.join(root, "labels.json"), "w") as f:
         json.dump({name: int(rng.integers(2)) for name in names}, f)
+    split("val_sub.txt", clips("V", VAL_CLIPS))
+    annotated = clips("A", ANN_CLIPS)
+    split("test_ann_ids.txt", annotated)
+    with open(os.path.join(root, "test_active_anns.json"), "w") as f:
+        json.dump({name: int(rng.integers(2)) for name in annotated}, f)
 
 
-def route_grads(model, sched, batch: dict, pit: bool, t, noise, plain: bool):
+def route_grads(model, sched, batch: dict, pit: bool, t, noise, plain: bool, keep=None):
     """Loss and every gradient of ``batch`` through the kernels or, with
     ``plain``, through the plain versions."""
     from hig_tpu_torch.train import trainer as tr
 
     with plain_blocks() if plain else contextlib.nullcontext():
-        loss = tr.compute_grads(model, tr.make_loss_fn(model, sched, pit), batch, t=t, noise=noise)
+        loss, _ = tr.compute_grads(model, tr.make_loss_fn(model, sched, pit), batch, t=t,
+                                   noise=noise, keep=keep)
     return float(loss), {n: p.grad.clone() for n, p in model.named_parameters()
                          if p.grad is not None}
 
 
-def leaf_rel_errs(got: dict, want: dict) -> dict:
+def zero_grad_leaves(model) -> tuple:
+    """Suffixes of the leaves whose exact gradient is 0: the key biases (a
+    softmax over the keys ignores a constant added to every key) and, with
+    caption ids, CAP_ID_ZERO_GRAD."""
+    return CAP_ID_ZERO_GRAD if model.cfg.cap_id else (KEY_BIAS,)
+
+
+def leaf_rel_errs(got: dict, want: dict, zero: tuple) -> dict:
     """max |got − want| over each leaf ÷ that leaf's max |want|, for every
-    leaf but the key biases (their exact gradient is 0: rounding noise)."""
+    leaf but those of ``zero`` (exact gradient 0: rounding noise)."""
     return {name: float((got[name].double() - w).abs().max()) / float(w.abs().max())
-            for name, w in want.items() if not name.endswith(KEY_BIAS)}
+            for name, w in want.items() if not name.endswith(zero)}
 
 
-def grad_route_errors(model, sched, batch, pit: bool, float64: bool = False) -> dict:
-    """Loss and every gradient of one fixed batch (explicit t and noise)
-    through the kernels against the plain versions, on the card. With
-    ``float64``, both routes are also held against the plain versions in
-    float64 (the model and batch cast), the reference of each leaf's
-    float32 rounding."""
+def grad_route_errors(model, sched, batch, pit: bool, float64: bool = False, keep=None) -> dict:
+    """Loss and every gradient of one fixed batch (explicit t, noise and, for
+    caption dropout, ``keep``) through the kernels against the plain
+    versions, on the card. With ``float64``, both routes are also held
+    against the plain versions in float64 (the model and batch cast), the
+    reference of each leaf's float32 rounding."""
     device = batch["motion"].device
     gen = torch.Generator(device=device).manual_seed(5)
     B = batch["motion"].shape[0]
     t = torch.randint(0, 1000, (B,), generator=gen, device=device)
     noise = torch.randn(batch["motion"].shape, generator=gen, device=device)
-    loss_k, got = route_grads(model, sched, batch, pit, t, noise, plain=False)
-    loss_p, want = route_grads(model, sched, batch, pit, t, noise, plain=True)
+    zero = zero_grad_leaves(model)
+    loss_k, got = route_grads(model, sched, batch, pit, t, noise, plain=False, keep=keep)
+    loss_p, want = route_grads(model, sched, batch, pit, t, noise, plain=True, keep=keep)
     scale = max(float(w.abs().max()) for w in want.values())
-    rel = leaf_rel_errs(got, want)
+    rel = leaf_rel_errs(got, want, zero)
     worst = max(rel, key=rel.get)
     out = {"loss_kernels": loss_k, "loss_plain": loss_p,
            "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p), "leaves": len(want),
@@ -652,14 +721,16 @@ def grad_route_errors(model, sched, batch, pit: bool, float64: bool = False) -> 
            "grad_rel_err_worst_leaf": worst, "worst_leaf_max": float(want[worst].abs().max()),
            "grad_rel_err_median": statistics.median(rel.values()),
            "zero_grad_leaves_max": max(float(got[n].abs().max()) / scale
-                                       for n in got if n.endswith(KEY_BIAS)),
+                                       for n in got if n.endswith(zero)),
            "grad_max": scale}
+    if keep is not None:
+        out["kept_pairs"] = int(keep.sum())
     if float64:
         model64 = copy.deepcopy(model).double()
         batch64 = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
         loss_64, exact = route_grads(model64, sched, batch64, pit, t, noise.double(), plain=True)
         del model64, batch64
-        k64, p64 = leaf_rel_errs(got, exact), leaf_rel_errs(want, exact)
+        k64, p64 = leaf_rel_errs(got, exact, zero), leaf_rel_errs(want, exact, zero)
         out["float64"] = {
             "loss": loss_64, "kernel_route_rel_err_max": max(k64.values()),
             "plain_route_rel_err_max": max(p64.values()),
@@ -667,7 +738,82 @@ def grad_route_errors(model, sched, batch, pit: bool, float64: bool = False) -> 
     return out
 
 
-def phase_train(device, failures, smi: str, requests: list, tmp: str) -> tuple[dict, object]:
+def train_run(run: str, extra: list, steps: int, own: str, data: str, tmp: str, failures,
+              smi: str, val_batches: int = 0) -> tuple:
+    """One run of ``python -m hig_tpu_torch.train``'s main at full width on
+    the dataset in ``data``: its launch counts (LAUNCHES_PER_STEP a step of
+    its own kernel, and as many a validation batch; 0 of the others), steps,
+    finite losses (and validation losses) in metrics.jsonl, and the latest
+    checkpoint. Returns (trainer, state, the printed row without printing
+    it, the counts)."""
+    from hig_tpu_torch.train.__main__ import main as train_main
+
+    kernels = wrappers()
+    argv = ["--name", run, "--data_root", data, "--checkpoints_dir", os.path.join(tmp, "runs"),
+            "--batch_size", str(TRAIN_PAIRS), "--num_epochs", "1", "--log_every", "1",
+            "--seed", "0", *[a.replace("{data}", data) for a in extra]]
+    for w in kernels.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer, state = train_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: w.launches for name, w in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    cfg = trainer.cfg
+    with open(os.path.join(cfg.save_root, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    losses = [x["loss_mot_rec"] for x in lines if "loss_mot_rec" in x]
+    val_losses = [x["val_loss"] for x in lines if "val_loss" in x]
+    step_ms = [1e3 * x for x in trainer.step_seconds]
+    steady = statistics.median(step_ms[1:]) if len(step_ms) > 1 else step_ms[0]
+    row = {"phase": "train", "run": run, "nvidia_smi": smi, "pairs_per_step": TRAIN_PAIRS,
+           "T": T, "steps": state.step, "launches": counts, "step_ms": step_ms,
+           "median_ms_per_step_after_first": steady, "pairs_per_s": TRAIN_PAIRS * 1e3 / steady,
+           "max_memory_allocated_gb": peak / 1e9, "losses": losses, "wall_s": wall,
+           "params": sum(p.numel() for p in state.model.parameters()),
+           "trainable": sum(p.numel() for p in state.optimizer.params)}
+    if val_batches:
+        row["val_losses"] = val_losses
+    want = LAUNCHES_PER_STEP * (steps + val_batches)
+    fail_if(failures, any(counts[n] != (want if n == own else 0) for n in kernels),
+            f"train ({run}) launches {counts}, expected {want} of {own}")
+    fail_if(failures, state.step != steps or len(losses) != steps,
+            f"train ({run}) ran {state.step} steps, logged {len(losses)}")
+    fail_if(failures, not all(np.isfinite(losses)), f"train ({run}) non-finite loss {losses}")
+    fail_if(failures, val_batches and not (len(val_losses) == 1 and np.isfinite(val_losses[0])),
+            f"train ({run}) validation losses {val_losses}")
+    fail_if(failures, not os.path.exists(os.path.join(cfg.model_dir, "latest.pt")),
+            f"train ({run}) wrote no latest checkpoint")
+    return trainer, state, row, counts
+
+
+def gate_grad_check(failures, run: str, key: str, gc: dict) -> None:
+    """Hold a grad_route_errors result to the TRAIN_* tolerances; at trained
+    weights the per-leaf errors are reported, not held."""
+    fail_if(failures, not (gc["same_leaves"] and gc["loss_rel_err"] <= TRAIN_LOSS_TOL
+                           and gc["zero_grad_leaves_max"] <= TRAIN_ZERO_GRAD_TOL
+                           and (key == "grad_check_trained"
+                                or gc["grad_rel_err_max"] <= TRAIN_GRAD_TOL)),
+            f"train ({run}) {key}: kernel route against plain route {gc}")
+
+
+def first_batch(trainer):
+    """The run's first batch on the card, as its first step saw it."""
+    from hig_tpu_torch.data.dataset import epoch_batches
+
+    cfg = trainer.cfg
+    model = trainer.init_state().model
+    batch = trainer._device_batch(
+        next(epoch_batches(trainer_dataset(cfg), TRAIN_PAIRS, 0, seed=cfg.seed)),
+        trainer.precompute_tower(model))
+    return batch, model
+
+
+def phase_train(device, failures, smi: str, requests: list, data: str,
+                tmp: str) -> tuple[dict, object]:
     """Drive ``python -m hig_tpu_torch.train``'s main at full width on a
     seeded dataset: PIT through B2, PIT --no_eff through B4, the supervised
     stage; hold one fixed batch's loss and gradients through the kernels
@@ -675,47 +821,18 @@ def phase_train(device, failures, smi: str, requests: list, tmp: str) -> tuple[d
     Returns the launch counts of the three runs and a function that runs one
     more PIT training step (profiled last). Files go under ``tmp``."""
     from hig_tpu_torch import serve
-    from hig_tpu_torch.data.dataset import epoch_batches
     from hig_tpu_torch.diffusion import gaussian as g
     from hig_tpu_torch.train import trainer as tr
-    from hig_tpu_torch.train.__main__ import main as train_main
 
     kernels = wrappers()
     launches = {name: 0 for name in kernels}
-    data = os.path.join(tmp, "data")
-    write_train_data(data)
     kept = {}
     for run, (extra, steps, own) in TRAIN_RUNS.items():
-        argv = ["--name", run, "--data_root", data, "--checkpoints_dir", os.path.join(tmp, "runs"),
-                "--batch_size", str(TRAIN_PAIRS), "--num_epochs", "1", "--log_every", "1",
-                "--seed", "0", *[a.replace("{data}", data) for a in extra]]
-        for w in kernels.values():
-            w.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        trainer, state = train_main(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = {name: w.launches for name, w in kernels.items()}
-        peak = torch.cuda.max_memory_allocated()
+        trainer, state, row, counts = train_run(run, extra, steps, own, data, tmp, failures, smi)
         cfg = trainer.cfg
-        with open(os.path.join(cfg.save_root, "metrics.jsonl")) as f:
-            losses = [json.loads(line)["loss_mot_rec"] for line in f]
-        step_ms = [1e3 * x for x in trainer.step_seconds]
-        steady = statistics.median(step_ms[1:]) if len(step_ms) > 1 else step_ms[0]
-        row = {"phase": "train", "run": run, "nvidia_smi": smi, "pairs_per_step": TRAIN_PAIRS,
-               "T": T, "steps": state.step, "launches": counts, "step_ms": step_ms,
-               "median_ms_per_step_after_first": steady, "pairs_per_s": TRAIN_PAIRS * 1e3 / steady,
-               "max_memory_allocated_gb": peak / 1e9, "losses": losses, "wall_s": wall,
-               "params": sum(p.numel() for p in state.model.parameters()),
-               "trainable": sum(p.numel() for p in state.optimizer.params)}
         if run != "supervised":
             # the run's first batch; the run's initial weights, rebuilt from its seed
-            batch = trainer._device_batch(
-                next(epoch_batches(trainer_dataset(cfg), TRAIN_PAIRS, 0, seed=cfg.seed)),
-                trainer.precompute_tower(state.model))
-            initial = trainer.init_state().model
+            batch, initial = first_batch(trainer)
             row["grad_check"] = grad_route_errors(initial, trainer.sched, batch, pit=True)
             del initial
             row["grad_check"]["tol"] = {"loss_rel": TRAIN_LOSS_TOL, "grad_rel": TRAIN_GRAD_TOL,
@@ -723,28 +840,16 @@ def phase_train(device, failures, smi: str, requests: list, tmp: str) -> tuple[d
             row["grad_check_trained"] = grad_route_errors(state.model, trainer.sched, batch,
                                                           pit=True, float64=True)
         print(json.dumps(row), flush=True)
-        fail_if(failures, any(counts[n] != (LAUNCHES_PER_STEP * steps if n == own else 0)
-                              for n in kernels), f"train ({run}) launches {counts}")
-        fail_if(failures, state.step != steps or len(losses) != steps,
-                f"train ({run}) ran {state.step} steps, logged {len(losses)}")
-        fail_if(failures, not all(np.isfinite(losses)), f"train ({run}) non-finite loss {losses}")
-        fail_if(failures, not os.path.exists(os.path.join(cfg.model_dir, "latest.pt")),
-                f"train ({run}) wrote no latest checkpoint")
         for key in ("grad_check", "grad_check_trained"):
             if key in row:
-                gc = row[key]
-                fail_if(failures, not (gc["same_leaves"] and gc["loss_rel_err"] <= TRAIN_LOSS_TOL
-                                       and gc["zero_grad_leaves_max"] <= TRAIN_ZERO_GRAD_TOL
-                                       and (key == "grad_check_trained"
-                                            or gc["grad_rel_err_max"] <= TRAIN_GRAD_TOL)),
-                        f"train ({run}) {key}: kernel route against plain route {gc}")
+                gate_grad_check(failures, run, key, row[key])
         for name in kernels:
             launches[name] += counts[name]
         if run == "pit":
-            kept = {"trainer": trainer, "state": state, "batch": batch, "step_ms": steady,
-                    "model_dir": cfg.model_dir, "meta_dir": cfg.meta_dir,
-                    "model_config": dataclasses.replace(trainer.model_config,
-                                                        fused_blocks=True)}
+            kept = {"trainer": trainer, "state": state, "batch": batch, "step_ms": row[
+                "median_ms_per_step_after_first"], "model_dir": cfg.model_dir,
+                "meta_dir": cfg.meta_dir,
+                "model_config": dataclasses.replace(trainer.model_config, fused_blocks=True)}
         del trainer, state
 
     # serve from the PIT run's checkpoint, through the fused blocks (B1)
@@ -765,6 +870,8 @@ def phase_train(device, failures, smi: str, requests: list, tmp: str) -> tuple[d
     fail_if(failures, not finite or tuple(joints.shape) != (N_PAIRS, 2, T - 1, 22, 3)
             or counts["fused_block"] != LAUNCHES_PER_CALL,
             f"serving the trained checkpoint: finite {finite}, shape {joints.shape}, {counts}")
+    for name in kernels:
+        launches[name] += counts[name]
     del model, sample_fn
 
     train_step = tr.make_train_step(kept["trainer"].sched, True)
@@ -774,6 +881,201 @@ def phase_train(device, failures, smi: str, requests: list, tmp: str) -> tuple[d
         return {k: float(v) for k, v in train_step(kept["state"], kept["batch"], step_gen).items()}
 
     return launches, (one_step, kept["step_ms"] / 1e3)
+
+
+def phase_pipeline(device, failures, smi: str, requests: list, data: str,
+                   tmp: str) -> tuple[dict, dict]:
+    """The paper's three stages through the port's entry points on the
+    dataset in ``data`` (see the module doc, phase 7). Returns the launch
+    counts of every stage, and {run: (call, median wall s)} of one labeling
+    vote and of the guided serving call (profiled last)."""
+    from hig_tpu_torch import label, serve
+    from hig_tpu_torch.data.dataset import PairDataset, epoch_batches
+    from hig_tpu_torch.data.vocab import CAP2KEY, CLASSID2CAPS
+    from hig_tpu_torch.diffusion import gaussian as g
+    from hig_tpu_torch.models.interaction_model import InteractionModel
+    from hig_tpu_torch.train import checkpoint as ckpt
+    from hig_tpu_torch.train import labeling
+    from hig_tpu_torch.train import trainer as tr
+
+    kernels = wrappers()
+    launches = {name: 0 for name in kernels}
+    sched = g.make_schedule(g.linear_betas(1000))
+
+    def reset():
+        for w in kernels.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def read(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, {name: w.launches for name, w in kernels.items()}
+
+    def add(counts):
+        for name in kernels:
+            launches[name] += counts[name]
+
+    def only(counts, own, n):
+        return all(counts[k] == (n if k == own else 0) for k in kernels)
+
+    # stage 1-1: PIT with caption ids, through B2
+    trainer, state, row, counts = train_run("pit_cap_id", *CAP_ID_RUN, data, tmp, failures, smi)
+    add(counts)
+    batch, initial = first_batch(trainer)
+    row["grad_check"] = grad_route_errors(initial, trainer.sched, batch, pit=True)
+    del initial, batch
+    print(json.dumps({**row, "phase": "pipeline", "stage": "1-1"}), flush=True)
+    gate_grad_check(failures, "pit_cap_id", "grad_check", row["grad_check"])
+    pit_cfg, pit_model_config = trainer.cfg, trainer.model_config
+    del trainer, state
+
+    # stage 1-2: role discovery, then pseudo-labels, through B1
+    opt = os.path.join(pit_cfg.save_root, "opt.txt")
+    for flag, clips, repeats in (("--label_model", ANN_CLIPS, labeling.DISCOVERY_REPEATS),
+                                 ("--save_label", TRAIN_CLIPS, labeling.LABELING_REPEATS)):
+        t0 = reset()
+        label.main(["--opt_path", opt, flag, "--batch_size", str(LABEL_BATCH)])
+        wall, counts = read(t0)
+        add(counts)
+        forwards = -(-clips // LABEL_BATCH) * len(labeling.LABEL_T_VALUES) * repeats
+        print(json.dumps({"phase": "pipeline", "stage": "1-2", "run": flag[2:],
+                          "nvidia_smi": smi, "clips": clips, "forwards": forwards,
+                          "launches": counts, "wall_s": wall, "forwards_per_s": forwards / wall,
+                          "clips_per_s": clips / wall}), flush=True)
+        fail_if(failures, not only(counts, "fused_block", LAUNCHES_PER_STEP * forwards),
+                f"label {flag}: launches {counts}, expected {LAUNCHES_PER_STEP * forwards} of B1")
+    with open(os.path.join(pit_cfg.save_root, "pit_labels.json")) as f:
+        roles = json.load(f)
+    asymmetric = [c for c, (a, p) in enumerate(CLASSID2CAPS) if a != p]
+    roles_ok = len(roles) == len(CLASSID2CAPS) and len(asymmetric) == 17 and all(
+        {roles[str(c)].get("active_index"), roles[str(c)].get("passive_index")}
+        == {CAP2KEY[CLASSID2CAPS[c][0]], CAP2KEY[CLASSID2CAPS[c][1]]} for c in asymmetric)
+    with open(os.path.join(data, "pseudo_labels.json")) as f:
+        labels = json.load(f)
+    with open(os.path.join(data, "train_sub.txt")) as f:
+        train_names = f.read().split()
+    labels_ok = set(labels) == set(train_names) and set(labels.values()) <= {0, 1}
+    fail_if(failures, not roles_ok, f"pit_labels.json incomplete: {roles}")
+    fail_if(failures, not labels_ok, f"pseudo_labels.json incomplete: {labels}")
+
+    # the scorer through B1 against the plain route: one batch, one t
+    model = InteractionModel(dataclasses.replace(pit_model_config, fused_blocks=True))
+    model.load_state_dict(ckpt.load(os.path.join(pit_cfg.model_dir, "latest.pt"))["params"])
+    encode, score = labeling.make_assignment_scorer(model.to(device), sched)
+    mean, std = serve.load_stats(pit_cfg.meta_dir, pit_cfg.dim_pose)
+    b = next(epoch_batches(PairDataset(pit_cfg, mean, std, "train_sub.txt"), LABEL_BATCH, 0,
+                           shuffle=False, drop_last=False))
+    cond = torch.from_numpy(b["cap_ids"]).long().to(device)
+    motion = torch.from_numpy(b["motion"]).to(device)
+    lengths = torch.from_numpy(b["lengths"]).long().to(device)
+    noise = torch.randn(motion.shape, generator=torch.Generator(device=device).manual_seed(3),
+                        device=device)
+    xf_proj, xf_out = encode(cond, cond.flip(1))
+    t_vote = labeling.LABEL_T_VALUES[0]
+    got = score(motion, lengths, xf_proj, xf_out, t_vote, noise=noise)
+    with plain_blocks():
+        want = score(motion, lengths, xf_proj, xf_out, t_vote, noise=noise)
+    err = float((got - want).abs().max())
+    rel = err / float(want.abs().max())
+
+    def vote():
+        return score(motion, lengths, xf_proj, xf_out, t_vote, noise=noise)
+
+    vote_s = []
+    for _ in range(5):
+        t0 = reset()
+        vote()
+        vote_s.append(read(t0)[0])
+    differ = got.argmin(dim=1) != want.argmin(dim=1)
+    margin = (want[:, 0] - want[:, 1]).abs()
+    print(json.dumps({"phase": "pipeline", "stage": "1-2", "run": "scorer_vs_plain",
+                      "pairs": LABEL_BATCH, "t": t_vote, "max_abs_err": err, "rel_err": rel,
+                      "vote_ms_median": 1e3 * statistics.median(vote_s),
+                      "vote_ms": [1e3 * x for x in vote_s],
+                      "rel_tol": DENOISER_TOL, "votes_differing": int(differ.sum()),
+                      "smallest_margin": float(margin.min()),
+                      "largest_margin_of_a_differing_vote": float(margin[differ].max())
+                      if differ.any() else None}), flush=True)
+    fail_if(failures, not rel <= DENOISER_TOL, f"scorer through B1: rel err {rel}")
+    fail_if(failures, bool((differ & (margin > 2 * err)).any()),
+            f"scorer through B1: a vote differs with margin above 2 x {err}")
+
+    # stage 1-3: supervised on the pseudo-labels, caption dropout, loss-aware
+    # timesteps and a validation pass, through B2
+    trainer, state, row, counts = train_run("cfg_supervised", *CFG_RUN, data, tmp, failures, smi,
+                                            val_batches=VAL_CLIPS // TRAIN_PAIRS)
+    add(counts)
+    batch, initial = first_batch(trainer)
+    keep = torch.arange(TRAIN_PAIRS, device=device) % 4 != 0  # drops 8 of the 32 pairs
+    row["grad_check"] = grad_route_errors(initial, trainer.sched, batch, pit=False, keep=keep)
+    del initial, batch
+    print(json.dumps({**row, "phase": "pipeline", "stage": "1-3"}), flush=True)
+    gate_grad_check(failures, "cfg_supervised", "grad_check", row["grad_check"])
+    cfg_dir, cfg_meta, cfg_model_config = (trainer.cfg.model_dir, trainer.cfg.meta_dir,
+                                           trainer.model_config)
+    del trainer, state
+
+    # guided serving from stage 1-3's checkpoint, through B1
+    model = serve.build_model(dataclasses.replace(cfg_model_config, fused_blocks=True), device,
+                              params=os.path.join(cfg_dir, "latest.pt"))
+    mean, std = serve.load_stats(cfg_meta, model.cfg.input_feats)
+    sample_fn = tr.make_sampler(model, sched, T=T, dim_pose=model.cfg.input_feats,
+                                ddim_steps=DDIM_STEPS, guidance_scale=GUIDANCE)
+
+    def guided(seed=0):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return serve.serve_batch(sample_fn, requests, mean, std, device, gen)
+
+    guided()  # warm-up
+    call_walls, call_counts = [], []
+    for _ in range(SERVE_CALLS):
+        t0 = reset()
+        features, joints = guided()
+        wall, counts = read(t0)
+        call_walls.append(wall)
+        call_counts.append(counts)
+    with plain_blocks():
+        ref_features, _ = guided()
+    rel = float(np.abs(features - ref_features).max() / np.abs(ref_features).max())
+    finite = bool(np.isfinite(features).all() and np.isfinite(joints).all())
+    wall = statistics.median(call_walls)
+    add(call_counts[0])
+    print(json.dumps({"phase": "pipeline", "stage": "serve_guided", "nvidia_smi": smi,
+                      "guidance_scale": GUIDANCE, "requests": len(requests),
+                      "ddim_steps": DDIM_STEPS, "launches": call_counts[0],
+                      "wall_s_per_call": wall, "wall_s_calls": call_walls, "finite": finite,
+                      "joints_shape": list(joints.shape), "rel_err_vs_plain": rel,
+                      "rel_tol": GUIDED_REL_TOL,
+                      "rel_err_over_sampler_tol": rel / SAMPLER_REL_TOL}), flush=True)
+    fail_if(failures, not all(only(c, "fused_block", LAUNCHES_PER_CALL) for c in call_counts),
+            f"guided serving launches {call_counts}")
+    fail_if(failures, not finite or tuple(joints.shape) != (N_PAIRS, 2, T - 1, 22, 3),
+            f"guided serving: finite {finite}, shape {joints.shape}")
+    fail_if(failures, not rel <= GUIDED_REL_TOL, f"guided serving rel err {rel}")
+
+    # serving stage 1-1's caption-id checkpoint, w = 1, through B1
+    model = serve.build_model(dataclasses.replace(pit_model_config, fused_blocks=True), device,
+                              params=os.path.join(pit_cfg.model_dir, "latest.pt"))
+    mean, std = serve.load_stats(pit_cfg.meta_dir, model.cfg.input_feats)
+    cap_sample = tr.make_sampler(model, sched, T=T, dim_pose=model.cfg.input_feats,
+                                 ddim_steps=DDIM_STEPS)
+    t0 = reset()
+    features, joints = serve.serve_batch(cap_sample, requests, mean, std, device,
+                                         torch.Generator(device=device).manual_seed(0),
+                                         cap_id=True)
+    cap_wall, counts = read(t0)
+    add(counts)
+    finite = bool(np.isfinite(features).all() and np.isfinite(joints).all())
+    print(json.dumps({"phase": "pipeline", "stage": "serve_cap_id", "requests": len(requests),
+                      "launches": counts, "wall_s": cap_wall, "finite": finite,
+                      "joints_shape": list(joints.shape)}), flush=True)
+    fail_if(failures, not finite or tuple(joints.shape) != (N_PAIRS, 2, T - 1, 22, 3)
+            or not only(counts, "fused_block", LAUNCHES_PER_CALL),
+            f"serving the caption-id checkpoint: finite {finite}, shape {joints.shape}, {counts}")
+    del model, cap_sample
+    return launches, {"label_vote": (vote, statistics.median(vote_s)),
+                      "serve_guided": (guided, wall)}
 
 
 def trainer_dataset(cfg):
@@ -823,18 +1125,25 @@ def main() -> int:
     launches, runs, walls = phase_serve(models, device, failures)
     lap("serve")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        data = os.path.join(tmp, "data")
+        write_train_data(data)
         train_launches, (train_step, step_s) = phase_train(device, failures, smi,
-                                                           serve_requests(), tmp)
+                                                           serve_requests(), data, tmp)
         lap("train")
+        pipeline_launches, pipeline_runs = phase_pipeline(device, failures, smi,
+                                                          serve_requests(), data, tmp)
+        lap("pipeline")
         runs["train_step_pit"], walls["train_step_pit"] = train_step, step_s
-        per_call = {run: LAUNCHES_PER_CALL for run in SERVE_RUNS}
-        per_call["train_step_pit"] = LAUNCHES_PER_STEP
+        for run, (call, wall) in pipeline_runs.items():
+            runs[run], walls[run] = call, wall
+        per_call = {run: LAUNCHES_PER_CALL for run in (*SERVE_RUNS, "serve_guided")}
+        per_call["train_step_pit"] = per_call["label_vote"] = LAUNCHES_PER_STEP
         phase_profile(runs, walls, per_call)
         lap("profile")
     print(json.dumps({"phase": "seconds", **seconds}), flush=True)
 
     for name, row in rows.items():
-        row["launches"] = launches[name] + train_launches[name]
+        row["launches"] = launches[name] + train_launches[name] + pipeline_launches[name]
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(smi, flush=True)
     if failures:

@@ -2,12 +2,12 @@
 ``hig_tpu/config.py`` that the trainer and ``python -m hig_tpu_torch.train``
 read, with the same names and defaults).
 
-Options this slice of the port does not carry are still fields, so that
-setting one is refused with a clear message instead of being ignored:
-caption-id conditioning, classifier-free guidance training, the loss-aware
-timestep sampler, the pipeline/FSDP/tensor-parallel layouts, the native
-loader, profiling, bf16, the single-transformer variant, dropout and the
-``--pretrained`` transfer.
+Options the port does not carry yet are still fields, so that setting one
+is refused with a clear message instead of being ignored: the
+pipeline/FSDP/tensor-parallel layouts, the native loader, profiling, bf16,
+the single-transformer variant, dropout and the ``--pretrained`` transfer.
+Caption dropout (``cond_drop_prob``) belongs to the supervised stage and is
+refused without ``label_path``, as the JAX loss refuses it.
 """
 
 from __future__ import annotations
@@ -20,6 +20,12 @@ from typing import Optional
 
 from hig_tpu_torch.models.interaction_model import ModelConfig
 from hig_tpu_torch.models.text_encoder import ClipTextConfig
+
+CFG_UNDER_PIT = (
+    "--cond_drop_prob requires the supervised (label_path) stage: under the PIT "
+    "min-assignment loss a dropped sample's two caption assignments become identical, "
+    "degenerating the role signal. Train CFG on the final text-conditioned model."
+)
 
 
 @dataclasses.dataclass
@@ -64,6 +70,7 @@ class ExperimentConfig:
     is_continue: bool = False
     log_every: int = 50
     save_every_e: int = 5
+    eval_every_e: int = 5
     save_latest: int = 500
     seed: int = 0
     lr_schedule: str = "constant"
@@ -71,16 +78,20 @@ class ExperimentConfig:
     lr_decay_steps: int = 0
     ema_decay: float = 0.0
     grad_accum: int = 1
+    loss_aware_sampler: bool = False
+
+    # classifier-free guidance: caption dropout in training, the guidance
+    # weight w of sampling
+    cond_drop_prob: float = 0.0
+    guidance_scale: float = 1.0
 
     # not ported yet: must stay at these values
     use_native_loader: bool = False
     compute_dtype: str = "float32"
-    cond_drop_prob: float = 0.0
     fsdp: bool = False
     tp: bool = False
     pp_micro: int = 0
     profile: bool = False
-    loss_aware_sampler: bool = False
 
     # dataset-derived (filled by add_dataset_paths)
     joints_num: int = 22
@@ -89,17 +100,17 @@ class ExperimentConfig:
 
     def __post_init__(self):
         refused = {
-            "cap_id": self.cap_id, "pretrained": self.pretrained,
+            "pretrained": self.pretrained,
             "no_cross_attn": self.no_cross_attn, "single_transformer": self.single_transformer,
             "use_native_loader": self.use_native_loader, "fsdp": self.fsdp, "tp": self.tp,
             "pp_micro": self.pp_micro > 0, "profile": self.profile,
-            "loss_aware_sampler": self.loss_aware_sampler,
-            "cond_drop_prob": self.cond_drop_prob > 0.0, "dropout": self.dropout > 0.0,
-            "compute_dtype": self.compute_dtype != "float32",
+            "dropout": self.dropout > 0.0, "compute_dtype": self.compute_dtype != "float32",
         }
         bad = sorted(name for name, on in refused.items() if on)
         if bad:
             raise ValueError(f"hig_tpu_torch does not port these training options yet: {bad}")
+        if self.cond_drop_prob > 0.0 and self.label_path is None:
+            raise ValueError(CFG_UNDER_PIT)
         if self.grad_accum < 1 or self.batch_size % self.grad_accum:
             raise ValueError(f"batch_size {self.batch_size} not divisible into "
                              f"{self.grad_accum} grad-accumulation microbatches")
@@ -155,6 +166,7 @@ def model_config(cfg: ExperimentConfig, clip: ClipTextConfig | None = None) -> M
         text_ff_size=cfg.text_ff_size, text_num_heads=cfg.text_num_heads,
         num_text_layers=cfg.num_text_layers, clip=clip or ClipTextConfig(),
         efficient=not cfg.no_eff, causal=cfg.causal, dropout=cfg.dropout,
+        cap_id=cfg.cap_id, cond_drop_prob=cfg.cond_drop_prob,
     )
 
 
@@ -170,6 +182,34 @@ def save_opt_txt(cfg: ExperimentConfig, path: str) -> None:
         for k, v in sorted(dataclasses.asdict(cfg).items()):
             f.write(f"{k}: {v}\n")
         f.write(_FOOTER + "\n")
+
+
+def load_opt_txt(path: str, **overrides) -> ExperimentConfig:
+    """The configuration a run's ``opt.txt`` (:func:`save_opt_txt`) holds,
+    with ``overrides``; keys that are not fields are skipped."""
+    fields = {f.name: f.type for f in dataclasses.fields(ExperimentConfig)}
+    kwargs = {}
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line in (_HEADER, _FOOTER):
+                continue
+            key, _, value = line.partition(": ")
+            ftype = fields.get(key)
+            if ftype is None:
+                continue
+            if value == "None":
+                kwargs[key] = None
+            elif ftype in ("bool", bool):
+                kwargs[key] = value == "True"
+            elif ftype in ("int", int):
+                kwargs[key] = int(float(value))
+            elif ftype in ("float", float):
+                kwargs[key] = float(value)
+            else:
+                kwargs[key] = value
+    kwargs.update(overrides)
+    return add_dataset_paths(ExperimentConfig(**kwargs))
 
 
 def add_config_args(parser: argparse.ArgumentParser) -> None:

@@ -1,15 +1,19 @@
 """Text conditioning stack + interaction denoiser under one parameter tree
 (counterpart of ``hig_tpu/models/interaction_model.py:25-189,261-291``).
 
-The port serves and trains the caption-token conditioning path in float32,
-with the efficient (linear) denoiser or, with ``efficient=False``, the
-quadratic (``--no_eff``) one, optionally ``causal``. Training feeds the
-learnable text suffix precomputed features of the frozen CLIP tower
-(:meth:`InteractionModel.clip_tower`, :meth:`~InteractionModel.encode_text_from_tower`).
-Caption-id conditioning, classifier-free guidance, dropout, bf16 compute,
-``fast_ln``, RMSNorm, causal efficient attention and the single-transformer
-variant are not ported yet: :class:`ModelConfig` refuses the ones it has
-fields for.
+The port serves and trains in float32, with the efficient (linear) denoiser
+or, with ``efficient=False``, the quadratic (``--no_eff``) one, optionally
+``causal``. Text conditioning comes in the JAX package's flavors: caption
+tokens through the frozen CLIP tower and the learnable suffix, precomputed
+tower features through the suffix alone (training's fast path,
+:meth:`InteractionModel.clip_tower`,
+:meth:`~InteractionModel.encode_text_from_tower`), or caption ids through a
+learned table (``cap_id``, the PIT stage's model). With ``cond_drop_prob``
+> 0 the model owns the learned null conditioning of classifier-free
+guidance (:meth:`InteractionModel.null_conditioning`). Dropout, bf16
+compute, ``fast_ln``, RMSNorm, causal efficient attention and the
+single-transformer variant are not ported yet: :class:`ModelConfig` refuses
+the ones it has fields for.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import torch
 from torch import nn
 
 from hig_tpu_torch.models.denoiser import InteractionDenoiser, check_block_options
-from hig_tpu_torch.models.text_encoder import ClipTextConfig, TextEncoder
+from hig_tpu_torch.models.text_encoder import ClassConditioner, ClipTextConfig, TextEncoder
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +46,11 @@ class ModelConfig:
     fused_blocks: bool = False
     efficient: bool = True
     causal: bool = False
+    cap_id: bool = False
+    num_captions: int = 43
+    # > 0: the model owns the learned null conditioning of classifier-free
+    # guidance, and the supervised loss drops captions with this probability
+    cond_drop_prob: float = 0.0
     # not ported yet: must stay at these values
     compute_dtype: str = "float32"
     fast_ln: bool = False
@@ -72,14 +81,18 @@ class InteractionModel(nn.Module):
     def __init__(self, cfg: ModelConfig = ModelConfig()):
         super().__init__()
         self.cfg = cfg
-        self.text = TextEncoder(
-            clip_config=cfg.clip,
-            text_latent_dim=cfg.text_latent_dim,
-            text_ff_size=cfg.text_ff_size,
-            text_num_heads=cfg.text_num_heads,
-            num_text_layers=cfg.num_text_layers,
-            time_embed_dim=cfg.time_embed_dim,
-        )
+        if cfg.cap_id:
+            self.text = ClassConditioner(cfg.num_captions, cfg.text_latent_dim,
+                                         cfg.time_embed_dim)
+        else:
+            self.text = TextEncoder(
+                clip_config=cfg.clip,
+                text_latent_dim=cfg.text_latent_dim,
+                text_ff_size=cfg.text_ff_size,
+                text_num_heads=cfg.text_num_heads,
+                num_text_layers=cfg.num_text_layers,
+                time_embed_dim=cfg.time_embed_dim,
+            )
         self.denoiser = InteractionDenoiser(
             input_feats=cfg.input_feats,
             num_frames=cfg.num_frames,
@@ -92,11 +105,15 @@ class InteractionModel(nn.Module):
             efficient=cfg.efficient,
             causal=cfg.causal,
         )
+        if cfg.cond_drop_prob > 0.0:
+            self.null_xf_proj = nn.Parameter(torch.zeros(cfg.time_embed_dim))
+            self.null_xf_token = nn.Parameter(torch.zeros(cfg.text_latent_dim))
 
-    def encode_text(self, tokens: torch.Tensor):
-        """(B, 2, 77) tokens → ((B, 2, E), (B, 2, L, Dt))."""
-        B, A = tokens.shape[:2]
-        xf_proj, xf_out = self.text(tokens.reshape(B * A, -1).long())
+    def encode_text(self, cond: torch.Tensor):
+        """(B, 2, 77) tokens or, for a ``cap_id`` model, (B, 2) caption ids
+        → ((B, 2, E), (B, 2, L, Dt)); L is 77, or 1 for caption ids."""
+        B, A = cond.shape[:2]
+        xf_proj, xf_out = self.text(cond.reshape(B * A, *cond.shape[2:]).long())
         return xf_proj.reshape(B, A, -1), xf_out.reshape(B, A, *xf_out.shape[1:])
 
     def clip_tower(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -113,12 +130,26 @@ class InteractionModel(nn.Module):
         return xf_proj.reshape(B, A, -1), xf_out.reshape(B, A, *xf_out.shape[1:])
 
     def clip_parameters(self) -> set[str]:
-        """Names of the CLIP tower's parameters (the frozen partition)."""
+        """Names of the CLIP tower's parameters (the frozen partition; empty
+        for a ``cap_id`` model, which has no tower)."""
+        if self.cfg.cap_id:
+            return set()
         return {f"text.clip.{name}" for name, _ in self.text.clip.named_parameters()}
 
     def freeze_clip(self) -> None:
         """Mark the CLIP tower frozen: its parameters take no gradient."""
-        self.text.clip.requires_grad_(False)
+        if not self.cfg.cap_id:
+            self.text.clip.requires_grad_(False)
+
+    def null_conditioning(self, B: int, L: int = 1):
+        """The learned unconditional ("null caption") state of classifier-free
+        guidance: ((B, 2, E), (B, 2, L, Dt)), the two null parameters
+        broadcast. Softmax attention over L identical text tokens is the one
+        token's, so L is free. Exists only when ``cond_drop_prob`` > 0."""
+        if self.cfg.cond_drop_prob <= 0.0:
+            raise ValueError("the model has no null conditioning (cond_drop_prob is 0)")
+        return (self.null_xf_proj.expand(B, 2, -1),
+                self.null_xf_token.expand(B, 2, L, -1))
 
     def text_kv(self, xf_out: torch.Tensor) -> tuple:
         return self.denoiser.text_kv(xf_out)

@@ -6,6 +6,7 @@
          → post-LN encoder layers (exact GELU, no mask)   → text_ln = xf_out
          → pooled at the EOT position (argmax token id) → text_proj = xf_proj
 
+or, for a caption-id model, a learned caption table (:class:`ClassConditioner`).
 This runs once per sampling call, outside the step loop, as plain PyTorch.
 """
 
@@ -153,3 +154,21 @@ class TextEncoder(nn.Module):
 
     def forward(self, tokens: torch.Tensor):
         return self.from_tower(self.tower(tokens), tokens)
+
+
+class ClassConditioner(nn.Module):
+    """Caption-id conditioning (``cap_id``, the reference's PIT
+    configuration): a learned (num_captions, text_latent_dim) caption table;
+    xf_out is the table row as a one-token sequence, xf_proj its
+    ``text_proj``."""
+
+    def __init__(self, num_captions: int = 43, text_latent_dim: int = 256,
+                 time_embed_dim: int = 2048):
+        super().__init__()
+        self.cap_embedding = nn.Parameter(torch.empty(num_captions, text_latent_dim))
+        self.text_proj = nn.Linear(text_latent_dim, time_embed_dim)
+
+    def forward(self, cap_ids: torch.Tensor):
+        """(N,) caption ids → (xf_proj (N, time_embed_dim), xf_out (N, 1, Dt))."""
+        emb = self.cap_embedding[cap_ids.long()]
+        return self.text_proj(emb), emb[:, None, :]

@@ -13,18 +13,27 @@ Weights come from --params, either a checkpoint of the port's trainer
 flattened JAX parameter tree saved with np.savez under
 "params/denoiser/layer_0/..." keys (its ``ema_params/`` when present), or
 from --random_init SEED (seeded random weights, every leaf nonzero). A
-trained run's feature statistics are in ``<run>/meta`` (--stats). The model's widths come
-from --model_config (a JSON object of ModelConfig fields), default the
-flagship. --blocks fused (the default) runs the efficient self-attention
-and interaction blocks through the fused-block kernel, --blocks projected
-through the projected-attention kernel. --no_eff serves the quadratic
-(softmax-attention) model instead, whose self-attention and interaction
-blocks go through the flash-attention kernel; --causal makes its
-attention causal. --blocks has no effect with --no_eff and is refused
-there.
+trained run's feature statistics are in ``<run>/meta`` (--stats). The
+model comes from --opt_path, a training run's opt.txt (its widths,
+--cap_id, --cond_drop_prob, --no_eff, --causal, --diffusion_steps;
+--params and --stats then default to the run's model/latest.pt and meta/),
+or from --model_config (a JSON object of ModelConfig fields), default the
+flagship. A caption-id
+(--cap_id) model takes each request's captions as their ids in the NTU
+caption table. --guidance_scale w ≠ 1 samples with classifier-free
+guidance, for a model trained with --cond_drop_prob > 0 (default: the
+run's guidance_scale with --opt_path, else 1). --blocks fused (the
+default) runs the efficient self-attention and interaction blocks through
+the fused-block kernel, --blocks projected through the projected-attention
+kernel. --no_eff serves the quadratic (softmax-attention) model instead,
+whose self-attention and interaction blocks go through the flash-attention
+kernel; --causal makes its attention causal. --blocks has no effect with
+--no_eff and is refused there.
 
     python -m hig_tpu_torch.serve --requests reqs.jsonl --random_init 0
     python -m hig_tpu_torch.serve --requests reqs.jsonl --random_init 0 --no_eff
+    python -m hig_tpu_torch.serve --requests reqs.jsonl \
+        --opt_path checkpoints/ntu_mul/interaction/opt.txt --guidance_scale 2.5
 """
 
 from __future__ import annotations
@@ -39,6 +48,8 @@ import numpy as np
 import torch
 
 from hig_tpu_torch import resolve_device
+from hig_tpu_torch.config import load_opt_txt, model_config
+from hig_tpu_torch.data.vocab import CAP2KEY
 from hig_tpu_torch.diffusion import gaussian as g
 from hig_tpu_torch.models.interaction_model import InteractionModel, ModelConfig
 from hig_tpu_torch.models.tokenizer import tokenize
@@ -93,8 +104,12 @@ def build_model(cfg: ModelConfig, device, params: str | None = None,
     return model.to(device).eval()
 
 
-def tokens_for(requests: list[dict]) -> np.ndarray:
-    """(B, 2, 77) caption-pair token ids."""
+def conditioning_for(requests: list[dict], cap_id: bool = False) -> np.ndarray:
+    """(B, 2, 77) caption-pair token ids or, for a caption-id model, (B, 2)
+    caption ids."""
+    if cap_id:
+        return np.asarray([[CAP2KEY[r["caption1"]], CAP2KEY[r["caption2"]]]
+                           for r in requests], np.int64)
     return np.stack([
         np.stack([tokenize(r["caption1"])[0], tokenize(r["caption2"])[0]])
         for r in requests
@@ -113,11 +128,12 @@ def decode(out: torch.Tensor, mean: np.ndarray, std: np.ndarray):
     return denorm, torch.stack([j1, j2], dim=1)
 
 
-def serve_batch(sample_fn, requests: list[dict], mean, std, device, generator=None):
+def serve_batch(sample_fn, requests: list[dict], mean, std, device, generator=None,
+                cap_id: bool = False):
     """Sample and decode one batch; returns (features, joints) on the host."""
-    tokens = tokens_for(requests)
+    cond = conditioning_for(requests, cap_id)
     lengths = np.asarray([r["length"] + 1 for r in requests], np.int64)
-    out = sample_fn(torch.from_numpy(tokens).to(device),
+    out = sample_fn(torch.from_numpy(cond).to(device),
                     torch.from_numpy(lengths).to(device), generator=generator)
     denorm, joints = decode(out, mean, std)
     return denorm.cpu().numpy(), joints.cpu().numpy()
@@ -140,8 +156,12 @@ def main(argv=None):
                         help="a trainer checkpoint (.pt) or an npz of a flattened JAX param tree")
     parser.add_argument("--random_init", type=int, default=None,
                         help="seed of random weights (instead of --params)")
+    parser.add_argument("--opt_path", default=None,
+                        help="a training run's opt.txt: the model to serve")
     parser.add_argument("--model_config", default=None,
                         help="JSON file of ModelConfig fields (default: flagship)")
+    parser.add_argument("--guidance_scale", type=float, default=None,
+                        help="classifier-free guidance weight w (1: none)")
     parser.add_argument("--stats", default=None, help="directory with mean.npy and std.npy")
     parser.add_argument("--blocks", choices=("fused", "projected"), default=None,
                         help="kernel of the efficient blocks (default fused)")
@@ -152,15 +172,28 @@ def main(argv=None):
     parser.add_argument("--batch_size", type=int, default=256)
     parser.add_argument("--motion_length", type=int, default=60)
     parser.add_argument("--ddim_steps", type=int, default=50)
-    parser.add_argument("--diffusion_steps", type=int, default=1000)
+    parser.add_argument("--diffusion_steps", type=int, default=None,
+                        help="default: the run's with --opt_path, else 1000")
     parser.add_argument("--seed", type=int, default=0, help="seed of the initial noise")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
 
-    cfg_fields = {}
-    if args.model_config:
+    cfg_fields, guidance, steps = {}, 1.0, 1000
+    if args.opt_path:
+        if args.model_config or args.no_eff or args.causal:
+            parser.error("--opt_path gives the model; --model_config, --no_eff and "
+                         "--causal are refused with it")
+        run = load_opt_txt(args.opt_path)
+        cfg_fields = dataclasses.asdict(model_config(run))
+        guidance, steps = run.guidance_scale, run.diffusion_steps
+        if args.params is None and args.random_init is None:
+            args.params = os.path.join(run.model_dir, "latest.pt")
+        args.stats = args.stats or run.meta_dir
+    elif args.model_config:
         with open(args.model_config) as f:
             cfg_fields = json.load(f)
+    if args.guidance_scale is not None:
+        guidance = args.guidance_scale
     if args.no_eff:
         cfg_fields["efficient"] = False
     if args.causal:
@@ -178,9 +211,12 @@ def main(argv=None):
     requests = load_requests(args.requests, args.motion_length)
     print(f"{len(requests)} requests")
     T = max(r["length"] for r in requests) + 1  # + init token
-    sched = g.make_schedule(g.linear_betas(args.diffusion_steps))
-    sample_fn = make_sampler(model, sched, T=T, dim_pose=cfg.input_feats,
-                             ddim_steps=args.ddim_steps)
+    sched = g.make_schedule(g.linear_betas(args.diffusion_steps or steps))
+    try:
+        sample_fn = make_sampler(model, sched, T=T, dim_pose=cfg.input_feats,
+                                 ddim_steps=args.ddim_steps, guidance_scale=guidance)
+    except ValueError as e:
+        parser.error(str(e))
     generator = torch.Generator(device=device).manual_seed(args.seed)
 
     os.makedirs(args.out_dir, exist_ok=True)
@@ -189,7 +225,8 @@ def main(argv=None):
     frames_done = 0
     for lo in range(0, len(requests), args.batch_size):
         chunk = requests[lo : lo + args.batch_size]
-        features, joints = serve_batch(sample_fn, chunk, mean, std, device, generator)
+        features, joints = serve_batch(sample_fn, chunk, mean, std, device, generator,
+                                       cfg.cap_id)
         write_results(args.out_dir, chunk, features, joints, index)
         frames_done += sum(r["length"] * 2 for r in chunk)
         elapsed = time.time() - t_start

@@ -1,13 +1,17 @@
 """Training runtime and the sampler (counterpart of
 ``hig_tpu/train/trainer.py``).
 
-Training (``:52-394``, ``:639-980``): the PIT min-assignment loss or, with a
-label file, the supervised loss, on the epsilon target; Adam with optax's
-defaults behind a global-norm clip of the trainable partition (the CLIP
-tower is frozen unless ``no_clip``), an optional warmup or warmup+cosine
-schedule, gradient accumulation and an EMA of the parameters; the epoch
-loop with ``metrics.jsonl``, checkpoints, resume and rollback to ``latest``
-on a non-finite loss. As in the JAX package, the PIT duplication is an
+Training (``:52-394``, ``:639-1042``): the PIT min-assignment loss or, with a
+label file, the supervised loss, on the epsilon target, conditioned on
+caption tokens or (``cap_id``) caption ids; in the supervised stage,
+optionally classifier-free-guidance caption dropout (``cond_drop_prob``);
+timesteps uniform or from the loss-aware second-moment resampler; Adam
+with optax's defaults behind a global-norm clip of the trainable partition
+(the CLIP tower is frozen unless ``no_clip``), an optional warmup or
+warmup+cosine schedule, gradient accumulation and an EMA of the
+parameters; the epoch loop with ``metrics.jsonl``, checkpoints, resume,
+rollback to ``latest`` on a non-finite loss, and the validation pass
+(``eval_every_e``). As in the JAX package, the PIT duplication is an
 explicit assignment axis (the noised motions repeated, the captions flipped
 on the actor axis) and the frozen CLIP tower runs once per run, over the 43
 captions, instead of in every step. The model trains in train mode, where
@@ -21,9 +25,11 @@ the quadratic one), and every block's AdaLN (scale, shift) is computed for
 every step of the DDIM grid in one batched pass. Unlike the JAX sampler,
 which turns the AdaLN hoist off under ``fused_blocks``, the port hoists it
 for all four blocks and feeds the fused-block kernel the hoisted (scale,
-shift): the function computed is the same. Only DDIM with
-``guidance_scale`` 1 is ported; DDPM, DPM++ and classifier-free guidance are
-still to be ported.
+shift): the function computed is the same. With ``guidance_scale`` w ≠ 1
+(classifier-free guidance) each step evaluates the conditional and the
+null conditioning in one denoiser call over 2B pairs, where the JAX
+sampler makes two calls of B pairs. Only DDIM is ported; DDPM and DPM++
+are still to be ported.
 """
 
 from __future__ import annotations
@@ -41,10 +47,11 @@ import torch
 import torch.nn.functional as F
 
 from hig_tpu_torch import resolve_device
-from hig_tpu_torch.config import ExperimentConfig, model_config
+from hig_tpu_torch.config import CFG_UNDER_PIT, ExperimentConfig, model_config
 from hig_tpu_torch.data.dataset import PairDataset, epoch_batches
 from hig_tpu_torch.data.vocab import CAPS
 from hig_tpu_torch.diffusion import gaussian as g
+from hig_tpu_torch.diffusion import timestep_samplers as tss
 from hig_tpu_torch.models.denoiser import BLOCKS
 from hig_tpu_torch.models.embeddings import length_mask, timestep_embedding
 from hig_tpu_torch.models.interaction_model import InteractionModel
@@ -54,6 +61,7 @@ from hig_tpu_torch.train import checkpoint as ckpt
 from hig_tpu_torch.weights import load_flax_tree, random_flax_tree
 
 MAX_FAILURE_RETRIES = 2  # rollbacks a run may take before a non-finite loss raises
+VAL_MAX_BATCHES = 8  # validation batches per pass
 
 
 @dataclasses.dataclass
@@ -175,24 +183,31 @@ def per_token_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.cat([init[:, :, None], move], dim=-1)
 
 
-def supervised_loss(pred, target, mask):
-    """Masked MSE with known roles; mask (N, T). Returns (loss, per-sample
-    summed losses)."""
+def _weighted(per_sample, mask, sample_weights):
+    w = per_sample if sample_weights is None else per_sample * sample_weights
+    return w.sum() / (2.0 * mask.sum())
+
+
+def supervised_loss(pred, target, mask, sample_weights=None):
+    """Masked MSE with known roles; mask (N, T); ``sample_weights`` (N,)
+    importance-weight each pair (the loss-aware sampler). Returns (loss,
+    per-sample summed losses)."""
     per_sample = (per_token_loss(pred, target) * mask[:, None, :]).sum(dim=(1, 2))
-    return per_sample.sum() / (2.0 * mask.sum()), per_sample
+    return _weighted(per_sample, mask, sample_weights), per_sample
 
 
-def pit_loss(pred, target, mask):
+def pit_loss(pred, target, mask, sample_weights=None):
     """Min-assignment PIT loss: pred/target (B, 2 assignments, 2 actors, T,
     D), mask (B, T). Per assignment the masked loss summed over both actors,
-    per pair the smaller of the two assignments, normalized by 2·Σmask.
-    Returns (loss, per-pair losses)."""
+    per pair the smaller of the two assignments, normalized by 2·Σmask;
+    ``sample_weights`` as in :func:`supervised_loss`. Returns (loss,
+    per-pair losses)."""
     B = pred.shape[0]
     per_tok = per_token_loss(pred.reshape(B * 2, *pred.shape[2:]),
                              target.reshape(B * 2, *target.shape[2:]))
     mask2 = mask.repeat_interleave(2, dim=0)[:, None, :]
     per_sample = (per_tok * mask2).sum(dim=(1, 2)).reshape(B, 2).min(dim=1).values
-    return per_sample.sum() / (2.0 * mask.sum()), per_sample
+    return _weighted(per_sample, mask, sample_weights), per_sample
 
 
 # --------------------------------------------------------------------------
@@ -200,41 +215,63 @@ def pit_loss(pred, target, mask):
 # --------------------------------------------------------------------------
 
 
-def make_loss_fn(model: InteractionModel, sched: g.DiffusionSchedule, pit: bool) -> Callable:
-    """``loss_fn(batch, generator=None, t=None, noise=None) -> (loss, aux)``.
+def make_loss_fn(model: InteractionModel, sched: g.DiffusionSchedule, pit: bool,
+                 loss_aware: bool = False) -> Callable:
+    """``loss_fn(batch, generator=None, t=None, noise=None, keep=None,
+    ts_state=None) -> (loss, aux)``.
 
-    batch: motion (B, 2, T, D), lengths (B,), tokens (B, 2, 77) and, when
-    the frozen tower was precomputed, tower_feats (B, 2, 77, W); without
-    them the tower runs in the step (``--no_clip``, where it trains). ``t``
-    (B,) and ``noise`` (like motion) are drawn from ``generator`` unless
-    given. aux holds t and the per-sample losses.
+    batch: motion (B, 2, T, D), lengths (B,), and the conditioning: cap_ids
+    (B, 2) for a ``cap_id`` model, else tokens (B, 2, 77) and, when the
+    frozen tower was precomputed, tower_feats (B, 2, 77, W); without them
+    the tower runs in the step (``--no_clip``). ``t`` (B,) and ``noise``
+    (like motion) are drawn from ``generator`` unless given; with
+    ``loss_aware`` t comes from the resampler's history ``ts_state`` and the
+    loss is importance-weighted. When the model has ``cond_drop_prob`` > 0
+    (supervised stage only), ``keep`` (B,) bool says which pairs keep their
+    captions; the others, both actors together, take the null conditioning.
+    It is drawn from ``generator`` after t and noise unless given. aux holds
+    t and the per-sample losses.
     """
+    drop_prob = model.cfg.cond_drop_prob
+    if pit and drop_prob > 0.0:
+        raise ValueError(CFG_UNDER_PIT)
 
     def encode(cond):
         if isinstance(cond, tuple):
             return model.encode_text_from_tower(*cond)
         return model.encode_text(cond)
 
-    def loss_fn(batch, generator=None, t=None, noise=None):
+    def loss_fn(batch, generator=None, t=None, noise=None, keep=None, ts_state=None):
         motion = batch["motion"]
         B, _, T, _ = motion.shape
         lengths = batch["lengths"].clamp(max=T)
-        if t is None:
-            t = torch.randint(0, sched.num_timesteps, (B,), generator=generator,
-                              device=motion.device)
+        weights = None
+        if loss_aware:
+            t, weights = tss.loss_aware_sample(B, ts_state, generator, t)
+        else:
+            t, _ = tss.uniform_sample(B, sched.num_timesteps, generator, motion.device, t)
         if noise is None:
             noise = torch.randn(motion.shape, generator=generator, device=motion.device,
                                 dtype=motion.dtype)
         x_t, target = g.training_targets(sched, motion, t, noise)
         mask = length_mask(lengths, T, motion.dtype)
-        if "tower_feats" in batch:
+        if "cap_ids" in batch:
+            cond = batch["cap_ids"]
+        elif "tower_feats" in batch:
             cond = (batch["tower_feats"], batch["tokens"])
         else:
             cond = batch["tokens"]
         if not pit:
             xf_proj, xf_out = encode(cond)
+            if drop_prob > 0.0:
+                if keep is None:
+                    u = torch.rand((B,), generator=generator, device=motion.device)
+                    keep = u >= drop_prob
+                n_proj, n_out = model.null_conditioning(B, xf_out.shape[2])
+                xf_proj = torch.where(keep[:, None, None], xf_proj, n_proj)
+                xf_out = torch.where(keep[:, None, None, None], xf_out, n_out)
             pred = model.denoise(x_t, t, lengths, xf_proj, xf_out)
-            loss, per_sample = supervised_loss(pred, target, mask)
+            loss, per_sample = supervised_loss(pred, target, mask, weights)
         else:
             # assignment axis: (c1, c2) as given, then (c2, c1), encoded in
             # one pass and denoised over 2B pairs
@@ -246,33 +283,43 @@ def make_loss_fn(model: InteractionModel, sched: g.DiffusionSchedule, pit: bool)
             pred2 = model.denoise(torch.cat([x_t, x_t]), torch.cat([t, t]),
                                   torch.cat([lengths, lengths]), xf_proj, xf_out)
             pred = torch.stack([pred2[:B], pred2[B:]], dim=1)
-            loss, per_sample = pit_loss(pred, torch.stack([target, target], dim=1), mask)
+            loss, per_sample = pit_loss(pred, torch.stack([target, target], dim=1), mask,
+                                        weights)
         return loss, {"t": t, "per_sample": per_sample}
 
     return loss_fn
 
 
 def compute_grads(model: InteractionModel, loss_fn: Callable, batch: dict, grad_accum: int = 1,
-                  generator=None, t=None, noise=None) -> torch.Tensor:
+                  generator=None, t=None, noise=None, keep=None,
+                  ts_state=None) -> tuple[torch.Tensor, dict]:
     """Set each trainable parameter's ``.grad`` to the mean of its gradient
     over ``grad_accum`` equal microbatches (activation memory of one), and
-    return the mean loss. Each microbatch draws its own t and noise from
-    ``generator``, or takes its slice of ``t`` and ``noise``."""
+    return the mean loss and the aux of every microbatch (t and per-sample
+    losses, concatenated in batch order). Each microbatch draws its own t,
+    noise and keep from ``generator``, or takes its slice of ``t``,
+    ``noise`` and ``keep``."""
     params = [p for p in model.parameters() if p.requires_grad]
     for p in params:
         p.grad = None
     size = batch["motion"].shape[0] // grad_accum
     total = torch.zeros((), device=batch["motion"].device)
+    auxs = []
+
+    def part_of(x, part):
+        return None if x is None else x[part]
+
     for i in range(grad_accum):
         part = slice(i * size, (i + 1) * size)
         micro = {key: value[part] for key, value in batch.items()}
-        loss, _ = loss_fn(micro, generator, None if t is None else t[part],
-                          None if noise is None else noise[part])
+        loss, aux = loss_fn(micro, generator, part_of(t, part), part_of(noise, part),
+                            part_of(keep, part), ts_state)
         loss.backward()
         total = total + loss.detach()
+        auxs.append({k: v.detach() for k, v in aux.items()})
     if grad_accum > 1:
         torch._foreach_div_([p.grad for p in params if p.grad is not None], float(grad_accum))
-    return total / grad_accum
+    return total / grad_accum, {k: torch.cat([a[k] for a in auxs]) for k in auxs[0]}
 
 
 def apply_update(state: TrainState, ema_decay: float = 0.0) -> None:
@@ -288,19 +335,26 @@ def apply_update(state: TrainState, ema_decay: float = 0.0) -> None:
 
 
 def make_train_step(sched: g.DiffusionSchedule, pit: bool, grad_accum: int = 1,
-                    ema_decay: float = 0.0) -> Callable:
-    """``train_step(state, batch, generator=None, t=None, noise=None) ->
-    metrics``: gradients (:func:`compute_grads`), :func:`apply_update`, and
-    ``{"loss_mot_rec", "grad_norm"}`` as 0-dim tensors; the logged norm is
-    over every gradient, before the clip."""
+                    ema_decay: float = 0.0, loss_aware: bool = False) -> Callable:
+    """``train_step(state, batch, generator=None, t=None, noise=None,
+    keep=None) -> metrics``: gradients (:func:`compute_grads`),
+    :func:`apply_update`, and ``{"loss_mot_rec", "grad_norm"}`` as 0-dim
+    tensors; the logged norm is over every gradient, before the clip. With
+    ``loss_aware``: ``train_step(state, batch, generator, ..., ts_state=) ->
+    (metrics, ts_state)``, the history with the step's t and per-sample
+    losses (every microbatch's) folded in."""
 
-    def train_step(state: TrainState, batch: dict, generator=None, t=None, noise=None):
+    def train_step(state: TrainState, batch: dict, generator=None, t=None, noise=None,
+                   keep=None, ts_state=None):
         model = state.model
-        loss = compute_grads(model, make_loss_fn(model, sched, pit), batch, grad_accum,
-                             generator, t, noise)
+        loss, aux = compute_grads(model, make_loss_fn(model, sched, pit, loss_aware), batch,
+                                  grad_accum, generator, t, noise, keep, ts_state)
         gnorm = global_norm([p.grad for p in model.parameters() if p.grad is not None])
         apply_update(state, ema_decay)
-        return {"loss_mot_rec": loss, "grad_norm": gnorm}
+        metrics = {"loss_mot_rec": loss, "grad_norm": gnorm}
+        if loss_aware:
+            return metrics, tss.loss_aware_update(ts_state, aux["t"], aux["per_sample"])
+        return metrics
 
     return train_step
 
@@ -334,26 +388,39 @@ def adaln_scale_shift_grid(model: InteractionModel, ts: np.ndarray, xf_proj: tor
 def make_sampler(model: InteractionModel, sched: g.DiffusionSchedule, T: int,
                  dim_pose: int, sampler: str = "ddim", ddim_steps: int = 50,
                  guidance_scale: float = 1.0) -> Callable:
-    """Returns ``sample(tokens (B, 2, 77), lengths (B,), noise=None,
-    generator=None) -> (B, 2, T, dim_pose)``.
+    """Returns ``sample(cond, lengths (B,), noise=None, generator=None) ->
+    (B, 2, T, dim_pose)``; cond is (B, 2, 77) caption tokens or, for a
+    ``cap_id`` model, (B, 2) caption ids.
 
     ``noise`` is the initial x_T; without it one is drawn from
-    ``generator`` on the model's device.
+    ``generator`` on the model's device. With ``guidance_scale`` w ≠ 1
+    each step predicts e_u + w·(e_c − e_u) from the conditional and the
+    null conditioning (a model trained with ``cond_drop_prob`` > 0); the
+    null text state and AdaLN grid are hoisted beside the conditional ones.
     """
-    if sampler != "ddim" or guidance_scale != 1.0:
-        raise NotImplementedError(
-            "hig_tpu_torch samples with DDIM and guidance_scale 1 only "
-            f"(got sampler={sampler!r}, guidance_scale={guidance_scale})"
+    if sampler != "ddim":
+        raise NotImplementedError(f"hig_tpu_torch samples with DDIM only (got {sampler!r})")
+    guided = guidance_scale != 1.0
+    if guided and model.cfg.cond_drop_prob <= 0.0:
+        raise ValueError(
+            "--guidance_scale != 1 requires a checkpoint trained with --cond_drop_prob > 0 "
+            "(no null conditioning in this model)"
         )
     ts = g.ddim_timesteps(sched.num_timesteps, ddim_steps)
 
     @torch.no_grad()
-    def sample(tokens, lengths, noise=None, generator=None):
+    def sample(cond, lengths, noise=None, generator=None):
         device = next(model.parameters()).device
-        tokens = torch.as_tensor(tokens, device=device)
+        cond = torch.as_tensor(cond, device=device)
         lengths = torch.clamp(torch.as_tensor(lengths, device=device), max=T)
-        B = tokens.shape[0]
-        xf_proj, xf_out = model.encode_text(tokens)
+        B = cond.shape[0]
+        xf_proj, xf_out = model.encode_text(cond)
+        if guided:
+            # the null pairs follow the B conditional ones: one denoiser
+            # call over 2B pairs a step
+            n_proj, n_out = model.null_conditioning(B, xf_out.shape[2])
+            xf_proj, xf_out = torch.cat([xf_proj, n_proj]), torch.cat([xf_out, n_out])
+            lengths = torch.cat([lengths, lengths])
         text_kv = model.text_kv(xf_out)
         grid = adaln_scale_shift_grid(model, ts, xf_proj)
         aux = [
@@ -362,7 +429,12 @@ def make_sampler(model: InteractionModel, sched: g.DiffusionSchedule, T: int,
         ]
 
         def denoiser(x, t, adaln):
-            return model.denoise(x, t, lengths, xf_proj, text_kv=text_kv, adaln=adaln)
+            if not guided:
+                return model.denoise(x, t, lengths, xf_proj, text_kv=text_kv, adaln=adaln)
+            eps = model.denoise(torch.cat([x, x]), torch.cat([t, t]), lengths, xf_proj,
+                                text_kv=text_kv, adaln=adaln)
+            e_c, e_u = eps[:B], eps[B:]
+            return e_u + guidance_scale * (e_c - e_u)
 
         shape = (B, 2, T, dim_pose)
         if noise is None:
@@ -413,9 +485,13 @@ class Trainer:
         return TrainState(model=model, optimizer=optimizer, step=0, ema=ema)
 
     @torch.no_grad()
-    def precompute_tower(self, model: InteractionModel) -> torch.Tensor:
+    def precompute_tower(self, model: InteractionModel) -> torch.Tensor | None:
         """Frozen CLIP features of the 43 captions (43, 77, width), row
-        ``CAP2KEY[caption]``, computed once per run."""
+        ``CAP2KEY[caption]``, computed once per run; None where the tower
+        runs in the step (``--no_clip``, where it trains) or there is none
+        (``cap_id``)."""
+        if self.cfg.no_clip or self.cfg.cap_id:
+            return None
         tokens = torch.from_numpy(tokenize(CAPS).astype(np.int64)).to(self.device)
         return model.clip_tower(tokens)
 
@@ -423,22 +499,51 @@ class Trainer:
         out = {
             "motion": torch.from_numpy(batch["motion"]).to(self.device),
             "lengths": torch.from_numpy(batch["lengths"]).long().to(self.device),
-            "tokens": torch.from_numpy(batch["tokens"]).long().to(self.device),
         }
+        cap_ids = torch.from_numpy(batch["cap_ids"]).long().to(self.device)
+        if self.cfg.cap_id:
+            out["cap_ids"] = cap_ids
+            return out
+        out["tokens"] = torch.from_numpy(batch["tokens"]).long().to(self.device)
         if tower_feats is not None:
-            cap_ids = torch.from_numpy(batch["cap_ids"]).long().to(self.device)
             out["tower_feats"] = tower_feats[cap_ids]
         return out
 
+    def new_loss_history(self) -> tss.LossSecondMomentState | None:
+        """A fresh loss-aware history (``--loss_aware_sampler``), else None."""
+        if not self.cfg.loss_aware_sampler:
+            return None
+        return tss.LossSecondMomentState.create(self.sched.num_timesteps, device=self.device)
+
+    @torch.no_grad()
+    def val_loss(self, val_dataset: PairDataset, state: TrainState, tower_feats,
+                 epoch: int) -> float:
+        """Mean loss of up to VAL_MAX_BATCHES validation batches under the
+        raw parameters (uniform t, and caption dropout as in training); each
+        batch's t, noise and keep come from a generator seeded by (seed + 2,
+        epoch, batch)."""
+        loss_fn = make_loss_fn(state.model, self.sched, self.pit)
+        losses = []
+        for i, batch in enumerate(epoch_batches(val_dataset, self.cfg.batch_size, 0,
+                                                seed=self.cfg.seed)):
+            if i >= VAL_MAX_BATCHES:
+                break
+            generator = step_generator(self.cfg.seed + 2, epoch, i, self.device)
+            loss, _ = loss_fn(self._device_batch(batch, tower_feats), generator)
+            losses.append(float(loss))
+        return float(np.mean(losses)) if losses else float("nan")
+
     def train(self, dataset: PairDataset, state: TrainState, num_epochs: int | None = None,
-              log=print, start_epoch: int = 0) -> TrainState:
+              log=print, start_epoch: int = 0,
+              val_dataset: PairDataset | None = None) -> TrainState:
         cfg = self.cfg
         num_epochs = num_epochs or cfg.num_epochs
         os.makedirs(cfg.model_dir, exist_ok=True)
-        train_step = make_train_step(self.sched, self.pit, cfg.grad_accum, cfg.ema_decay)
+        train_step = make_train_step(self.sched, self.pit, cfg.grad_accum, cfg.ema_decay,
+                                     cfg.loss_aware_sampler)
         state.model.train()
-        # the frozen tower runs once; --no_clip trains it, so it runs in the step
-        tower_feats = None if cfg.no_clip else self.precompute_tower(state.model)
+        tower_feats = self.precompute_tower(state.model)
+        ts_state = self.new_loss_history()  # per run; not checkpointed
         metrics_path = pjoin(cfg.save_root, "metrics.jsonl")
         latest = pjoin(cfg.model_dir, "latest.pt")
         token_cache: dict = {}
@@ -453,7 +558,12 @@ class Trainer:
                 generator = step_generator(cfg.seed + 1, it, generation, self.device)
                 dev_batch = self._device_batch(batch, tower_feats)
                 t_step = time.perf_counter()
-                metrics = {k: float(v) for k, v in train_step(state, dev_batch, generator).items()}
+                if ts_state is None:
+                    metrics = train_step(state, dev_batch, generator)
+                else:
+                    metrics, ts_state = train_step(state, dev_batch, generator,
+                                                   ts_state=ts_state)
+                metrics = {k: float(v) for k, v in metrics.items()}
                 self.step_seconds.append(time.perf_counter() - t_step)
                 if not all(math.isfinite(v) for v in metrics.values()):
                     if retries_left <= 0 or not ckpt_exists:
@@ -463,6 +573,8 @@ class Trainer:
                     log(f"non-finite loss at it {it} ({metrics}); rolling back to the latest "
                         f"checkpoint ({retries_left} retries left)")
                     state, _, it = ckpt.restore_state(latest, state)
+                    # the history may hold the failed step's losses
+                    ts_state = self.new_loss_history()
                     continue
                 it += 1
                 for k, v in metrics.items():
@@ -484,4 +596,10 @@ class Trainer:
             ckpt_exists = True
             if epoch % cfg.save_every_e == 0:
                 ckpt.save_state(pjoin(cfg.model_dir, f"ckpt_e{epoch:03d}.pt"), state, epoch + 1, it)
+            if val_dataset is not None and cfg.eval_every_e > 0 \
+                    and (epoch + 1) % cfg.eval_every_e == 0:
+                val = self.val_loss(val_dataset, state, tower_feats, epoch)
+                log(f"epoch {epoch} val_loss: {val:.5f}")
+                with open(metrics_path, "a") as f:
+                    f.write(json.dumps({"it": it, "epoch": epoch, "val_loss": val}) + "\n")
         return state

@@ -1,7 +1,9 @@
 """Weights carried across from the JAX package's parameter trees.
 
 A JAX ``InteractionModel`` tree is nested dicts of arrays under
-``params/{text,denoiser}``. :func:`load_flax_tree` maps it onto the port's
+``params/{text,denoiser}`` (``text`` is the CLIP tower and suffix, or the
+caption table of a ``cap_id`` model), plus ``params/null_xf_proj`` and
+``params/null_xf_token`` when ``cond_drop_prob`` > 0. :func:`load_flax_tree` maps it onto the port's
 modules: flax Dense ``kernel`` (in, out) becomes Linear ``weight``
 (out, in), LayerNorm ``scale`` becomes ``weight``, and the flax names
 ``layer_{i}``, ``text_blocks_{i}`` and ``clip/block_{i}`` become the
@@ -117,29 +119,11 @@ def _ln(d: int) -> dict:
 
 def flax_param_shapes(cfg: ModelConfig) -> dict:
     """The JAX ``InteractionModel`` parameter tree of ``cfg`` as shapes."""
-    W, D, Dt, E = cfg.clip.width, cfg.latent_dim, cfg.text_latent_dim, cfg.time_embed_dim
-    clip = {
-        "token_embedding": (cfg.clip.vocab_size, W),
-        "positional_embedding": (cfg.clip.context_length, W),
-        "ln_final": _ln(W),
-    }
-    for i in range(cfg.clip.layers):
-        clip[f"block_{i}"] = {
-            "ln_1": _ln(W),
-            "attn": {"in_proj": _dense(W, 3 * W), "out_proj": _dense(W, W)},
-            "ln_2": _ln(W),
-            "mlp_fc": _dense(W, 4 * W),
-            "mlp_proj": _dense(4 * W, W),
-        }
-    text = {"clip": clip, "text_ln": _ln(Dt), "text_proj": _dense(Dt, E)}
-    if Dt != W:
-        text["text_pre_proj"] = _dense(W, Dt)
-    for i in range(cfg.num_text_layers):
-        text[f"text_blocks_{i}"] = {
-            "in_proj": _dense(Dt, 3 * Dt), "out_proj": _dense(Dt, Dt),
-            "norm1": _ln(Dt), "linear1": _dense(Dt, cfg.text_ff_size),
-            "linear2": _dense(cfg.text_ff_size, Dt), "norm2": _ln(Dt),
-        }
+    D, Dt, E = cfg.latent_dim, cfg.text_latent_dim, cfg.time_embed_dim
+    if cfg.cap_id:
+        text = {"cap_embedding": (cfg.num_captions, Dt), "text_proj": _dense(Dt, E)}
+    else:
+        text = _clip_text_shapes(cfg)
 
     def styl():
         return {"emb": _dense(E, 2 * D), "norm": _ln(D), "out": _dense(D, D)}
@@ -166,16 +150,49 @@ def flax_param_shapes(cfg: ModelConfig) -> dict:
             "ffn": {"linear1": _dense(D, cfg.ff_size), "linear2": _dense(cfg.ff_size, D),
                     "proj_out": styl()},
         }
-    return {"params": {"text": text, "denoiser": den}}
+    params = {"text": text, "denoiser": den}
+    if cfg.cond_drop_prob > 0.0:
+        params.update(null_xf_proj=(E,), null_xf_token=(Dt,))
+    return {"params": params}
+
+
+def _clip_text_shapes(cfg: ModelConfig) -> dict:
+    """The ``text`` subtree of a caption-token model: CLIP tower + suffix."""
+    W, Dt, E = cfg.clip.width, cfg.text_latent_dim, cfg.time_embed_dim
+    clip = {
+        "token_embedding": (cfg.clip.vocab_size, W),
+        "positional_embedding": (cfg.clip.context_length, W),
+        "ln_final": _ln(W),
+    }
+    for i in range(cfg.clip.layers):
+        clip[f"block_{i}"] = {
+            "ln_1": _ln(W),
+            "attn": {"in_proj": _dense(W, 3 * W), "out_proj": _dense(W, W)},
+            "ln_2": _ln(W),
+            "mlp_fc": _dense(W, 4 * W),
+            "mlp_proj": _dense(4 * W, W),
+        }
+    text = {"clip": clip, "text_ln": _ln(Dt), "text_proj": _dense(Dt, E)}
+    if Dt != W:
+        text["text_pre_proj"] = _dense(W, Dt)
+    for i in range(cfg.num_text_layers):
+        text[f"text_blocks_{i}"] = {
+            "in_proj": _dense(Dt, 3 * Dt), "out_proj": _dense(Dt, Dt),
+            "norm1": _ln(Dt), "linear1": _dense(Dt, cfg.text_ff_size),
+            "linear2": _dense(cfg.text_ff_size, Dt), "norm2": _ln(Dt),
+        }
+    return text
 
 
 def random_flax_tree(cfg: ModelConfig, seed: int) -> dict:
     """Seeded random JAX-layout parameter tree with every leaf nonzero:
     kernels ~ N(0, 1/fan_in), biases ~ N(0, 0.1²), LayerNorm scales
-    ~ 1 + N(0, 0.1²), embeddings at the JAX init's scales."""
+    ~ 1 + N(0, 0.1²), embeddings at the JAX init's scales, and the null
+    conditioning (zeros in the JAX init) ~ N(0, 1)."""
     rng = np.random.default_rng(seed)
     embed_std = {"token_embedding": 0.02, "positional_embedding": 0.01,
-                 "sequence_embedding": 1.0}
+                 "sequence_embedding": 1.0, "cap_embedding": 1.0,
+                 "null_xf_proj": 1.0, "null_xf_token": 1.0}
     flat = {}
     for path, shape in sorted(flatten(flax_param_shapes(cfg)).items()):
         z = rng.standard_normal(shape, dtype=np.float32)

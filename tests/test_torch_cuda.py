@@ -290,7 +290,7 @@ def _step_grads(model, pit, batch, t, noise):
     from hig_tpu_torch.train import trainer
 
     loss_fn = trainer.make_loss_fn(model, g.make_schedule(g.linear_betas(1000)), pit)
-    loss = trainer.compute_grads(model, loss_fn, batch, t=t, noise=noise)
+    loss, _ = trainer.compute_grads(model, loss_fn, batch, t=t, noise=noise)
     return float(loss), {n: p.grad.clone() for n, p in model.named_parameters()
                          if p.grad is not None}
 
@@ -392,3 +392,98 @@ def test_every_attention_block_gets_qkv_gradients(cuda, plain_route):
                     assert float(got[efficient][name].abs().max()) > 0, name
                     err = float((got[efficient][name] - want[name]).abs().max())
                     assert err <= 1e-3 * float(want[name].abs().max()), (name, err)
+
+
+# --- the pipeline's paths: labeling, guided sampling, caption-id training ------------
+
+
+def _seeded_model(device, **fields):
+    from hig_tpu_torch.models.interaction_model import InteractionModel, ModelConfig
+    from hig_tpu_torch.weights import load_flax_tree, random_flax_tree
+
+    cfg = ModelConfig(**fields)
+    return load_flax_tree(InteractionModel(cfg), random_flax_tree(cfg, 0)["params"]).to(device)
+
+
+def test_labeling_scorer_through_b1_matches_plain_route(cuda, plain_route):
+    """The flagship caption-id model scoring 8 pairs under both caption
+    assignments (one denoiser forward: 16 B1 launches, none of B2-B4): the
+    (B, 2) summed losses within 1e-4 of their largest magnitude."""
+    from hig_tpu_torch.diffusion import gaussian as g
+    from hig_tpu_torch.train import labeling
+
+    model = _seeded_model(cuda, cap_id=True, fused_blocks=True)
+    encode, score = labeling.make_assignment_scorer(model, g.make_schedule(g.linear_betas(1000)))
+    gen = torch.Generator().manual_seed(0)
+    cap_ids = torch.randint(0, 43, (N_PAIRS, 2), generator=gen).to(cuda)
+    motion = torch.randn((N_PAIRS, 2, T, 263), generator=gen).to(cuda)
+    noise = torch.randn((N_PAIRS, 2, T, 263), generator=gen).to(cuda)
+    lengths = torch.tensor(LENGTHS, device=cuda)
+    xf_proj, xf_out = encode(cap_ids, cap_ids.flip(1))
+    counts = (fused_attention_block.launches, fused_projected_attention.launches,
+              flash_attention.launches)
+    got = score(motion, lengths, xf_proj, xf_out, 860, noise=noise)
+    assert (fused_attention_block.launches - counts[0], fused_projected_attention.launches
+            - counts[1], flash_attention.launches - counts[2]) == (16, 0, 0)
+    plain_route()
+    want = score(motion, lengths, xf_proj, xf_out, 860, noise=noise)
+    assert got.shape == (N_PAIRS, 2)
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+def test_guided_ddim_step_through_b1_matches_plain_route(cuda, plain_route):
+    """One guided DDIM step (w = 2.5) of the flagship model with null
+    conditioning: one denoiser call over the 8 conditional and 8 null pairs
+    (16 B1 launches), within 1e-3 of the output's largest magnitude; the
+    guided step scales the denoiser's rounding by up to |1 − w| + w = 4."""
+    from hig_tpu_torch.data.vocab import CAPS
+    from hig_tpu_torch.diffusion import gaussian as g
+    from hig_tpu_torch.models.tokenizer import tokenize
+    from hig_tpu_torch.train.trainer import make_sampler
+
+    model = _seeded_model(cuda, fused_blocks=True, cond_drop_prob=0.1).eval()
+    gen = torch.Generator().manual_seed(1)
+    cap_ids = torch.randint(0, len(CAPS), (N_PAIRS, 2), generator=gen)
+    tokens = torch.from_numpy(tokenize(CAPS).astype(np.int64))[cap_ids].to(cuda)
+    noise = torch.randn((N_PAIRS, 2, T, 263), generator=gen).to(cuda)
+    sample = make_sampler(model, g.make_schedule(g.linear_betas(1000)), T=T, dim_pose=263,
+                          ddim_steps=1, guidance_scale=2.5)
+    lengths = torch.tensor(LENGTHS, device=cuda)
+    before = fused_attention_block.launches
+    got = sample(tokens, lengths, noise=noise)
+    assert fused_attention_block.launches - before == 16
+    plain_route()
+    want = sample(tokens, lengths, noise=noise)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item()
+
+
+def test_cap_id_pit_step_grads_match_plain_route(cuda, plain_route):
+    """A PIT step of the flagship caption-id model on 8 pairs (16 B2
+    launches, none of B1): loss within 1e-4 relative, every gradient within
+    1e-3 of its leaf's largest magnitude. Over the single caption token the
+    text cross-attention's query, key and norm get an exact gradient of 0,
+    like the key biases: within 1e-6 of the largest gradient."""
+    model = _seeded_model(cuda, cap_id=True).train()
+    gen = torch.Generator().manual_seed(2)
+    batch = {"motion": torch.randn((N_PAIRS, 2, T, 263), generator=gen).to(cuda),
+             "lengths": torch.tensor(LENGTHS, device=cuda),
+             "cap_ids": torch.randint(0, 43, (N_PAIRS, 2), generator=gen).to(cuda)}
+    t = torch.randint(0, 1000, (N_PAIRS,), generator=gen).to(cuda)
+    noise = torch.randn((N_PAIRS, 2, T, 263), generator=gen).to(cuda)
+    counts = (fused_projected_attention.launches, fused_attention_block.launches)
+    loss, got = _step_grads(model, True, batch, t, noise)
+    assert (fused_projected_attention.launches - counts[0],
+            fused_attention_block.launches - counts[1]) == (16, 0)
+    plain_route()
+    want_loss, want = _step_grads(model, True, batch, t, noise)
+    assert abs(loss - want_loss) <= 1e-4 * abs(want_loss)
+    scale = max(float(v.abs().max()) for v in want.values())
+    zero = ("_block.key.bias", ".ca_block.key.weight", ".ca_block.query.weight",
+            ".ca_block.query.bias", ".ca_block.norm.weight", ".ca_block.norm.bias")
+    assert got.keys() == want.keys()
+    for name, w in want.items():
+        if name.endswith(zero):
+            assert float(got[name].abs().max()) <= 1e-6 * scale, name
+            continue
+        assert float((got[name] - w).abs().max()) <= 1e-3 * float(w.abs().max()), name

@@ -317,4 +317,5 @@ def test_port_imports_neither_jax_nor_hig_tpu():
     names = set(res.stdout.split())
     assert len(names) >= 23
     assert {"hig_tpu_torch.ops.flash_attention", "hig_tpu_torch.ops.pallas_attention",
-            "hig_tpu_torch.models.attention", "hig_tpu_torch.serve"} <= names
+            "hig_tpu_torch.models.attention", "hig_tpu_torch.serve", "hig_tpu_torch.label",
+            "hig_tpu_torch.train.labeling", "hig_tpu_torch.diffusion.timestep_samplers"} <= names

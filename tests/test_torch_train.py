@@ -347,8 +347,8 @@ def test_whole_step_loss_and_grads_match_jax(jax_grad_fns, case):
     tt.make_optimizer(cfg, model)  # marks the CLIP tower frozen unless no_clip
     tbatch = {k: t_(v).long() if v.dtype == np.int32 else t_(v) for k, v in batch.items()}
     loss_fn = tt.make_loss_fn(model, tg.make_schedule(tg.linear_betas(100)), c["pit"])
-    loss = tt.compute_grads(model, loss_fn, tbatch, c["accum"],
-                            t=t_(np.concatenate(ts)).long(), noise=t_(np.concatenate(noises)))
+    loss, _ = tt.compute_grads(model, loss_fn, tbatch, c["accum"],
+                               t=t_(np.concatenate(ts)).long(), noise=t_(np.concatenate(noises)))
     assert abs(float(loss) - want_loss) <= LOSS_RTOL * abs(want_loss)
     got = {n: p.grad if p.grad is not None else torch.zeros_like(p)
            for n, p in model.named_parameters()}
@@ -474,16 +474,24 @@ def test_epoch_batches_match_jax_bitwise(synth_data, tmp_path, variant):
 
 # --- config ----------------------------------------------------------------------
 
-REFUSED = {"cap_id": True, "pretrained": True, "no_cross_attn": True,
+REFUSED = {"pretrained": True, "no_cross_attn": True,
            "single_transformer": True, "use_native_loader": True, "fsdp": True, "tp": True,
-           "pp_micro": 2, "profile": True, "loss_aware_sampler": True, "cond_drop_prob": 0.1,
-           "dropout": 0.1, "compute_dtype": "bfloat16"}
+           "pp_micro": 2, "profile": True, "dropout": 0.1, "compute_dtype": "bfloat16"}
 
 
 @pytest.mark.parametrize("field", sorted(REFUSED))
 def test_config_refuses_unported_options(field):
     with pytest.raises(ValueError, match=field):
         ExperimentConfig(**{field: REFUSED[field]})
+
+
+def test_config_refuses_caption_dropout_under_pit():
+    """Caption dropout belongs to the supervised stage (a label file), as
+    the JAX loss has it; the options this slice ports are accepted."""
+    with pytest.raises(ValueError, match="cond_drop_prob requires the supervised"):
+        ExperimentConfig(cond_drop_prob=0.1)
+    ExperimentConfig(cond_drop_prob=0.1, label_path="labels.json", cap_id=True,
+                     loss_aware_sampler=True)
 
 
 def test_config_fields_are_the_jax_fields_with_their_defaults():
@@ -498,10 +506,11 @@ def test_config_fields_are_the_jax_fields_with_their_defaults():
 def test_cli_refuses_unported_options(capsys):
     from hig_tpu_torch.train.__main__ import main
 
-    with pytest.raises(SystemExit) as e:
-        main(["--cap_id", "--device", "cpu"])
-    assert e.value.code == 2
-    assert "cap_id" in capsys.readouterr().err
+    for argv, what in ((["--fsdp"], "fsdp"), (["--cond_drop_prob", "0.1"], "cond_drop_prob")):
+        with pytest.raises(SystemExit) as e:
+            main([*argv, "--device", "cpu"])
+        assert e.value.code == 2
+        assert what in capsys.readouterr().err
 
 
 # --- trainer ---------------------------------------------------------------------

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing one JSON line (or several):
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; TF32 is turned off so float32 products stay float32;
   2. build: nvcc builds every kernel library (B1-B4), one process per
@@ -14,8 +14,10 @@ Phases, each printing one JSON line:
      B2; B3 through the model's ``_attend`` with 91 and 77 keys; B4 self
      (q, k, v read in place from one merged product), partner, causal, and
      91 queries on 77 keys; B2 and B4 also at the training shape (128
-     sequences: a PIT step's 32 pairs under both caption assignments).
-     Each with its time, the plain version's time,
+     sequences: a PIT step's 32 pairs under both caption assignments), B1
+     at the labeling shape (256 sequences), and B1 (self and interaction),
+     B2 and B4 at the evaluation chunk's shape (104 sequences, T = 196,
+     ragged). Each with its time, the plain version's time,
      the card's lower bound for the same work (``bound``: bytes, or
      float32-accurate operations at the faster of FMA and 3xTF32) and, for
      B4, the time of torch's scaled_dot_product_attention on the same
@@ -57,8 +59,25 @@ Phases, each printing one JSON line:
      checkpoint (w = 1, 800 launches);
   8. profile: the device time by kernel of one more serving call of each
      run, of the guided serving call, of one labeling vote (a denoiser
-     forward over 64 pairs under both assignments) and of one more PIT
-     training step (torch.profiler).
+     forward over 64 pairs under both assignments), of one more PIT
+     training step and of one DDPM-1000 serving call (torch.profiler). It
+     runs last, after phase 9: once the profiler has run, later launches
+     are slower;
+  9. evaluate, on the same dataset plus a test split of 52 clips (two per
+     class): ``python -m hig_tpu_torch.eval.train``'s main for the
+     classifier and the consistency model at full width (8 layers, latent
+     512, FFN 1024, 8 heads, batch 32, two epochs: no kernel launches,
+     finite losses, the checkpoint, ms per step, peak memory, one batch's
+     logits on the card against the CPU); ``python -m
+     hig_tpu_torch.evaluate``'s main from stage 1-3's checkpoint three times
+     (DDIM-50 guided w = GUIDANCE at T = 196 over 2 replications; DPM-20 at
+     T = 196; DDPM-1000 at T = 91), each with exactly 16 B1 launches per
+     denoiser call and none of the others, finite metrics, Acc and
+     Consistency in [0, 1], FID ≥ 0, confusion matrices of 52 clips, the
+     five metrics in summary<run>.json, and for DDPM a peak memory below
+     the size of the AdaLN grid it does not build; then DDPM-1000 at the
+     serving shape through B1 against the plain route (same x_T and step
+     noises), with its wall time per call.
 Then the kernel table, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero without
 that line. Imports nothing of JAX or of the JAX package.
@@ -125,10 +144,26 @@ CAP_ID_ZERO_GRAD = (KEY_BIAS, ".ca_block.key.weight", ".ca_block.query.weight",
 ANN_CLIPS, VAL_CLIPS = 26, 32
 LABEL_BATCH = 64  # the label CLI's default: one batch of each split
 GUIDANCE = 2.5
+# The evaluation (phase 9): the test split has two clips per class, all in
+# one generation chunk; generation runs at the evaluation length (the
+# default --gen_T, max_motion_length) except the DDPM-1000 run.
+EVAL_CLIPS, EVAL_T = 52, 196
+# evaluate run → (arguments of python -m hig_tpu_torch.evaluate, denoiser
+# calls a replication, replications)
+EVAL_RUNS = {
+    "ddim_guided": (["--sampler", "ddim", "--guidance_scale", str(GUIDANCE),
+                     "--replication_times", "2"], DDIM_STEPS, 2),
+    "dpm20": (["--sampler", "dpm", "--ddim_steps", "20"], 20, 1),
+    "ddpm1000": (["--sampler", "ddpm", "--gen_T", str(T)], 1000, 1),
+}
+METRICS = ("Acc", "Consistency", "FID", "Diversity", "MultiModality")
+# Evaluator logits on the card against the same model on the CPU (TF32 off):
+# 8 post-LN layers over 182 tokens, float32 sums in another order.
+EVAL_LOGITS_REL_TOL = 1e-4
 CAP_ID_RUN = (["--cap_id", "--times", "4"], 6, "projected_attention")
 CFG_RUN = (["--times", "2", "--limit_data_num", "32", "--label_path", "{data}/pseudo_labels.json",
-            "--cond_drop_prob", "0.1", "--loss_aware_sampler", "--eval_every_e", "1"], 2,
-           "projected_attention")
+            "--cond_drop_prob", "0.1", "--loss_aware_sampler", "--eval_every_e", "1",
+            "--result_path", "{tmp}/result"], 2, "projected_attention")
 # Card rates for the bound, H100 SXM (NVIDIA data sheet): float32 FMA
 # without tensor cores, dense TF32 on the tensor cores, HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
@@ -288,9 +323,9 @@ def phase_build() -> None:
           flush=True)
 
 
-def block_inputs(device, pairs: int = N_PAIRS):
-    """Seeded block weights and (pairs, 2, T, D) inputs, lengths LENGTHS
-    repeated, AdaLN (scale, shift)."""
+def block_inputs(device, pairs: int = N_PAIRS, tq: int = T):
+    """Seeded block weights and (pairs, 2, tq, D) inputs, lengths LENGTHS
+    repeated (scaled from T to tq), AdaLN (scale, shift)."""
     gen = torch.Generator().manual_seed(1)
     from hig_tpu_torch.ops.fused_block import BlockWeights
 
@@ -305,10 +340,11 @@ def block_inputs(device, pairs: int = N_PAIRS):
         1 + randn(D, std=0.1), randn(D, std=0.1),
         randn(D, D, std=D ** -0.5), randn(D, std=0.1),
     )
-    x = randn(pairs, 2, T, D)
-    lengths = torch.tensor(LENGTHS * (pairs // N_PAIRS), device=device) + 1
-    mask = (torch.arange(T, device=device) < lengths[:, None]).float()[:, None, :]
-    mask = mask.expand(pairs, 2, T).contiguous()
+    x = randn(pairs, 2, tq, D)
+    frames = [L * (tq - 1) // (T - 1) for L in LENGTHS * -(-pairs // N_PAIRS)][:pairs]
+    lengths = torch.tensor(frames, device=device) + 1
+    mask = (torch.arange(tq, device=device) < lengths[:, None]).float()[:, None, :]
+    mask = mask.expand(pairs, 2, tq).contiguous()
     scale, shift = randn(pairs, 2, 1, D, std=0.5), randn(pairs, 2, 1, D, std=0.5)
     return w, x, mask, scale, shift
 
@@ -331,6 +367,15 @@ def phase_kernels(device, failures) -> dict:
     rows["fused_block"]["label_shape"] = {
         k: v for k, v in check_fused_block(*block_inputs(device, 2 * LABEL_BATCH),
                                            failures).items() if k in TRAIN_SHAPE_KEYS}
+    # B1, B2 and B4 at the evaluation chunk's shape: the 52 test pairs (104
+    # sequences) at the generation length T = 196, ragged
+    inputs = block_inputs(device, EVAL_CLIPS, EVAL_T)
+    rows["fused_block"]["eval_shape"] = {
+        k: v for k, v in check_fused_block(*inputs, failures).items() if k in TRAIN_SHAPE_KEYS}
+    for name, check in (("projected_attention", check_projected_attention),
+                        ("flash_attention", check_flash_attention)):
+        rows[name]["eval_shape"] = {k: v for k, v in check(*inputs[:3], failures).items()
+                                    if k in TRAIN_SHAPE_KEYS}
     return rows
 
 
@@ -341,9 +386,9 @@ def check_fused_block(w, x, mask, scale, shift, failures) -> dict:
     """B1, self-attention and interaction variants; the slower one's time."""
     from hig_tpu_torch.ops.fused_block import fused_attention_block, fused_attention_block_plain
 
-    N, hd = 2 * x.shape[0], D // HEADS
-    M = N * T
-    attn_flops = 2 * 2 * N * HEADS * T * hd * hd
+    N, Tq, hd = 2 * x.shape[0], x.shape[2], D // HEADS
+    M = N * Tq
+    attn_flops = 2 * 2 * N * HEADS * Tq * hd * hd
     errs, ms, plain_ms = [], [], []
     for interaction in (False, True):
         args = (x, mask, scale, shift, w, HEADS, interaction)
@@ -357,7 +402,7 @@ def check_fused_block(w, x, mask, scale, shift, failures) -> dict:
     nbytes = 4 * (2 * M * D + M + 2 * N * D + 4 * D * D + 8 * D)
     b_ms, b_by, b_kind = bound(flops, nbytes)
     print(json.dumps({"phase": "kernel", "kernel": "fused_block",
-                      "shape": [N, T, D, HEADS], "tol": KERNEL_TOL,
+                      "shape": [N, Tq, D, HEADS], "tol": KERNEL_TOL,
                       "max_abs_err_self": errs[0], "max_abs_err_interaction": errs[1],
                       "ms_self": ms[0], "ms_interaction": ms[1],
                       "plain_ms_self": plain_ms[0], "plain_ms_interaction": plain_ms[1],
@@ -381,8 +426,8 @@ def check_projected_attention(w, x, mask, failures) -> dict:
         fused_projected_attention_plain,
     )
 
-    N, hd = 2 * x.shape[0], D // HEADS
-    M = N * T
+    N, Tq, hd = 2 * x.shape[0], x.shape[2], D // HEADS
+    M = N * Tq
     xn = torch.nn.functional.layer_norm(x, (D,), w.ln_g, w.ln_b, 1e-6)
     kv, kmask = xn.flip(1).contiguous(), mask.flip(1).contiguous()
     args = (xn, kv, w.wq, w.bq, w.wk, w.bk, w.wv, w.bv, HEADS, kmask)
@@ -392,11 +437,11 @@ def check_projected_attention(w, x, mask, failures) -> dict:
     err = (got - want).abs().max().item()
     k_ms = time_ms(lambda: fused_projected_attention(*args))
     p_ms = time_ms(lambda: fused_projected_attention_plain(*args))
-    flops = 2 * M * D * 3 * D + 2 * 2 * N * HEADS * T * hd * hd
+    flops = 2 * M * D * 3 * D + 2 * 2 * N * HEADS * Tq * hd * hd
     nbytes = 4 * (3 * M * D + M + 3 * D * D + 3 * D)
     b_ms, b_by, b_kind = bound(flops, nbytes)
     print(json.dumps({"phase": "kernel", "kernel": "projected_attention",
-                      "shape": [N, T, D, HEADS], "tol": KERNEL_TOL, "max_abs_err": err,
+                      "shape": [N, Tq, D, HEADS], "tol": KERNEL_TOL, "max_abs_err": err,
                       "ms": k_ms, "plain_ms": p_ms, "gflop": flops / 1e9,
                       "mbytes": nbytes / 1e6, "bound_us": b_ms * 1e3,
                       "bound_by": b_by, "bound_kind": b_kind}), flush=True)
@@ -459,7 +504,7 @@ def check_flash_attention(w, x, mask, failures) -> dict:
     from hig_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
     F = torch.nn.functional
-    N, hd = 2 * x.shape[0], D // HEADS
+    N, Tq, hd = 2 * x.shape[0], x.shape[2], D // HEADS
     qkv = F.linear(x, torch.cat([w.wq, w.wk, w.wv]), torch.cat([w.bq, w.bk, w.bv]))
     q, k, v = qkv.chunk(3, dim=-1)
     kv = F.linear(x, torch.cat([w.wk, w.wv]), torch.cat([w.bk, w.bv]))
@@ -469,7 +514,7 @@ def check_flash_attention(w, x, mask, failures) -> dict:
     cases = {"self": (q, k, v, HEADS, mask, False, False),
              "partner": (q, pk, pv, HEADS, mask, False, True),
              "causal": (q, k, v, HEADS, mask, True, False),
-             f"tq{T}_tk{TK_SHORT}": short}
+             f"tq{Tq}_tk{TK_SHORT}": short}
 
     def heads(t):  # (B, 2, T, D) → (N, H, T, hd), a view
         return t.reshape(N, t.shape[-2], HEADS, hd).transpose(1, 2)
@@ -482,15 +527,15 @@ def check_flash_attention(w, x, mask, failures) -> dict:
         want = flash_attention_plain(*args)
         if partner:
             kk, vv, m = kk.flip(1), vv.flip(1), m.flip(1)
-        bias = ((1.0 - m.reshape(N, 1, 1, Tk)) * -1e6).expand(N, 1, T, Tk)
+        bias = ((1.0 - m.reshape(N, 1, 1, Tk)) * -1e6).expand(N, 1, Tq, Tk)
         if causal:
             bias = bias + (torch.arange(Tk, device=x.device)[None, :]
-                           > torch.arange(T, device=x.device)[:, None]) * -1e6
+                           > torch.arange(Tq, device=x.device)[:, None]) * -1e6
         sdpa_args = (heads(qq), heads(kk), heads(vv), bias.contiguous())
         lib = F.scaled_dot_product_attention(*sdpa_args[:3], attn_mask=sdpa_args[3])
         torch.cuda.synchronize()
-        flops = 4 * N * HEADS * T * Tk * hd
-        nbytes = 4 * (2 * N * T * D + 2 * N * Tk * D + N * Tk)
+        flops = 4 * N * HEADS * Tq * Tk * hd
+        nbytes = 4 * (2 * N * Tq * D + 2 * N * Tk * D + N * Tk)
         b_ms, b_by, b_kind = bound(flops, nbytes)
         out[name] = {
             "max_abs_err": (got - want).abs().max().item(),
@@ -505,7 +550,7 @@ def check_flash_attention(w, x, mask, failures) -> dict:
         }
     err = max(c["max_abs_err"] for c in out.values())
     print(json.dumps({"phase": "kernel", "kernel": "flash_attention",
-                      "shape": [N, T, D, HEADS], "tol": KERNEL_TOL, "cases": out}), flush=True)
+                      "shape": [N, Tq, D, HEADS], "tol": KERNEL_TOL, "cases": out}), flush=True)
     fail_if(failures, not err <= KERNEL_TOL, f"flash_attention {N} sequences max |err| {err}")
     path = [out[c] for c in ("self", "partner", "causal")]  # the model's calls
     return {
@@ -636,7 +681,8 @@ def write_train_data(root: str, seed: int = 0) -> None:
     label file for the supervised stage; then, for the pipeline, VAL_CLIPS
     clips in val_sub.txt and ANN_CLIPS annotated clips, one per class, in
     test_ann_ids.txt with seeded 0/1 role annotations in
-    test_active_anns.json."""
+    test_active_anns.json; for the evaluation, EVAL_CLIPS clips, two per
+    class, in test_sub.txt."""
     from hig_tpu_torch.data.vocab import CLASSID2CAPS
 
     rng = np.random.default_rng(seed)
@@ -670,6 +716,7 @@ def write_train_data(root: str, seed: int = 0) -> None:
     split("test_ann_ids.txt", annotated)
     with open(os.path.join(root, "test_active_anns.json"), "w") as f:
         json.dump({name: int(rng.integers(2)) for name in annotated}, f)
+    split("test_sub.txt", clips("E", EVAL_CLIPS))
 
 
 def route_grads(model, sched, batch: dict, pit: bool, t, noise, plain: bool, keep=None):
@@ -751,7 +798,7 @@ def train_run(run: str, extra: list, steps: int, own: str, data: str, tmp: str, 
     kernels = wrappers()
     argv = ["--name", run, "--data_root", data, "--checkpoints_dir", os.path.join(tmp, "runs"),
             "--batch_size", str(TRAIN_PAIRS), "--num_epochs", "1", "--log_every", "1",
-            "--seed", "0", *[a.replace("{data}", data) for a in extra]]
+            "--seed", "0", *[a.replace("{data}", data).replace("{tmp}", tmp) for a in extra]]
     for w in kernels.values():
         w.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1078,6 +1125,176 @@ def phase_pipeline(device, failures, smi: str, requests: list, data: str,
                       "serve_guided": (guided, wall)}
 
 
+def eval_train_run(kind: str, data: str, tmp: str, failures, smi: str) -> tuple[dict, dict]:
+    """``python -m hig_tpu_torch.eval.train``'s main for one evaluator at
+    full width (8 layers, latent 512, FFN 1024, 8 heads), batch 32, two
+    epochs; its launch counts (none of any kernel: the evaluators are plain
+    PyTorch), finite losses, the checkpoint, ms per step, peak memory, and
+    one validation batch's logits on the card against the same model on the
+    CPU. Returns (the printed row, the counts)."""
+    from hig_tpu_torch.data.dataset import PairDataset, epoch_batches
+    from hig_tpu_torch.eval.trainer import BEST, logits_of
+    from hig_tpu_torch.eval.train import main as eval_train_main
+    from hig_tpu_torch.serve import load_stats
+
+    kernels = wrappers()
+    name = "eval_model" if kind == "classifier" else "consistency_eval_model"
+    for w in kernels.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer, model, best_acc, history = eval_train_main([
+        "--kind", kind, "--name", name, "--data_root", data,
+        "--checkpoints_dir", os.path.join(tmp, "runs"), "--batch_size", str(TRAIN_PAIRS),
+        "--num_epochs", "3", "--seed", "0"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: w.launches for n, w in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    cfg = trainer.cfg
+    mean, std = load_stats(cfg.meta_dir, cfg.dim_pose)
+    batch = next(epoch_batches(PairDataset(cfg, mean, std, "val_sub.txt", train_eval=True),
+                               TRAIN_PAIRS, 0, shuffle=False, drop_last=False))
+    motion = torch.from_numpy(batch["motion"][..., :-4].copy())
+    lengths = torch.from_numpy(batch["lengths"]).long()
+    model.eval()
+    with torch.no_grad():
+        got = logits_of(model, motion.to("cuda"), lengths.to("cuda")).cpu()
+        want = logits_of(copy.deepcopy(model).cpu(), motion, lengths)
+    rel = float((got - want).abs().max() / want.abs().max())
+    step_ms = [1e3 * s for s in trainer.step_seconds]
+    losses = [h["train_loss"] for h in history]
+    row = {"phase": "evaluate", "run": f"eval_train_{kind}", "nvidia_smi": smi,
+           "pairs_per_step": TRAIN_PAIRS, "epochs": len(history), "steps": len(step_ms),
+           "launches": counts, "step_ms": step_ms, "train_losses": losses,
+           "val_accs": [h["val_acc"] for h in history], "best_val_acc": best_acc,
+           "max_memory_allocated_gb": peak / 1e9, "wall_s": wall,
+           "params": sum(p.numel() for p in model.parameters()),
+           "logits_rel_err_card_vs_cpu": rel, "rel_tol": EVAL_LOGITS_REL_TOL}
+    print(json.dumps(row), flush=True)
+    fail_if(failures, any(counts.values()), f"eval.train {kind}: launches {counts}")
+    fail_if(failures, len(history) != 2 or len(step_ms) != 2 or not np.isfinite(losses).all(),
+            f"eval.train {kind}: history {history}")
+    fail_if(failures, not os.path.exists(os.path.join(cfg.model_dir, BEST)),
+            f"eval.train {kind}: no {BEST}")
+    fail_if(failures, not rel <= EVAL_LOGITS_REL_TOL,
+            f"eval.train {kind}: logits on the card vs the CPU rel err {rel}")
+    return row, counts
+
+
+def phase_evaluate(device, failures, smi: str, data: str, tmp: str, model) -> tuple[dict, dict]:
+    """Phase 9 (see the module doc): both evaluator trainings, the three
+    ``python -m hig_tpu_torch.evaluate`` runs from stage 1-3's checkpoint,
+    and DDPM-1000 through B1 against the plain route on ``model`` (the
+    flagship with fused blocks) at the serving shape. Returns the launch
+    counts and {"serve_ddpm": (call, wall s)} for the profile."""
+    from hig_tpu_torch import evaluate, serve
+    from hig_tpu_torch.diffusion import gaussian as g
+    from hig_tpu_torch.train import trainer as tr
+
+    kernels = wrappers()
+    launches = {name: 0 for name in kernels}
+    for kind in ("classifier", "consistency"):
+        for name, n in eval_train_run(kind, data, tmp, failures, smi)[1].items():
+            launches[name] += n
+
+    # stage 1-3 trained on 32 clips (--limit_data_num 32), which evaluation
+    # would apply to the test split too: evaluate its checkpoint on all of it
+    with open(os.path.join(tmp, "runs", "ntu_mul", "cfg_supervised", "opt.txt")) as f:
+        text = f.read()
+    opt = os.path.join(tmp, "cfg_supervised_eval_opt.txt")
+    with open(opt, "w") as f:
+        f.write(text.replace("limit_data_num: 32\n", "limit_data_num: -1\n"))
+    fail_if(failures, "limit_data_num: 32\n" not in text, "stage 1-3's opt.txt: no limit line")
+    ddpm_grid_bytes = 1000 * 2 * EVAL_CLIPS * 8 * 4 * 2 * D * 4  # steps × seqs × blocks × 2D
+    for run, (extra, calls, reps) in EVAL_RUNS.items():
+        for w in kernels.values():
+            w.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = evaluate.main(["--opt_path", opt, "--mm_num_times", "1", "--file_id", run,
+                             *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {name: w.launches for name, w in kernels.items()}
+        peak = torch.cuda.max_memory_allocated()
+        with open(os.path.join(out["save_dir"], f"summary{run}.json")) as f:
+            summary = json.load(f)
+        cms = [np.load(os.path.join(out["save_dir"], f"confusion_matrix{run}_rep{r}.npy"))
+               for r in range(reps)]
+        values = [v for models in summary.values() for mv in models.values() for v in mv]
+        means = {m: {k: v[0] for k, v in summary.get(m, {}).items()} for m in METRICS}
+        want = LAUNCHES_PER_STEP * calls * reps  # one chunk of EVAL_CLIPS pairs
+        print(json.dumps({
+            "phase": "evaluate", "run": run, "nvidia_smi": smi, "args": extra,
+            "test_clips": EVAL_CLIPS, "launches": counts, "expected_b1": want,
+            "wall_s": wall, "wall_s_per_replication": wall / reps,
+            "max_memory_allocated_gb": peak / 1e9, "summary": summary,
+            "confusion_sums": [int(cm.sum()) for cm in cms]}), flush=True)
+        fail_if(failures, any(counts[n] != (want if n == "fused_block" else 0) for n in kernels),
+                f"evaluate {run}: launches {counts}, expected {want} of B1")
+        fail_if(failures, list(summary) != list(METRICS) or any(
+            set(models) != {"ground truth", "text2motion"} for models in summary.values()),
+            f"evaluate {run}: summary {summary}")
+        fail_if(failures, not np.isfinite(values).all(), f"evaluate {run}: non-finite metric")
+        fail_if(failures, not all(0.0 <= v <= 1.0 for m in ("Acc", "Consistency")
+                                  for v in means[m].values()),
+                f"evaluate {run}: Acc / Consistency outside [0, 1]: {means}")
+        fail_if(failures, not all(v >= 0.0 for v in means["FID"].values()),
+                f"evaluate {run}: negative FID {means['FID']}")
+        fail_if(failures, any(int(cm.sum()) != EVAL_CLIPS for cm in cms),
+                f"evaluate {run}: confusion sums {[int(cm.sum()) for cm in cms]}")
+        if run == "ddpm1000":
+            fail_if(failures, not peak < ddpm_grid_bytes,
+                    f"evaluate {run}: peak {peak} B, not below the AdaLN grid's "
+                    f"{ddpm_grid_bytes} B")
+        for name in kernels:
+            launches[name] += counts[name]
+
+    # DDPM-1000 through B1 against the plain route: 8 requests, the same
+    # x_T and step noises (one generator seed)
+    requests = serve_requests()
+    mean, std = serve.load_stats(None, model.cfg.input_feats)
+    sample_fn = tr.make_sampler(model, g.make_schedule(g.linear_betas(1000)), T=T,
+                                dim_pose=model.cfg.input_feats, sampler="ddpm")
+
+    def ddpm(seed=0):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return serve.serve_batch(sample_fn, requests, mean, std, device, gen)
+
+    for w in kernels.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    features, joints = ddpm()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: w.launches for name, w in kernels.items()}
+    with plain_blocks():
+        t1 = time.perf_counter()
+        ref_features, _ = ddpm()
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t1
+    rel = float(np.abs(features - ref_features).max() / np.abs(ref_features).max())
+    finite = bool(np.isfinite(features).all() and np.isfinite(joints).all())
+    print(json.dumps({"phase": "evaluate", "run": "serve_ddpm1000_vs_plain", "nvidia_smi": smi,
+                      "requests": len(requests), "T": T, "steps": 1000, "launches": counts,
+                      "wall_s_per_call": wall, "plain_wall_s_per_call": plain_wall,
+                      "finite": finite, "joints_shape": list(joints.shape),
+                      "max_abs_features": float(np.abs(ref_features).max()),
+                      "rel_err_vs_plain": rel, "rel_tol": SAMPLER_REL_TOL}), flush=True)
+    fail_if(failures, any(counts[n] != (LAUNCHES_PER_STEP * 1000 if n == "fused_block" else 0)
+                          for n in kernels), f"DDPM-1000 launches {counts}")
+    fail_if(failures, not finite or tuple(joints.shape) != (N_PAIRS, 2, T - 1, 22, 3),
+            f"DDPM-1000: finite {finite}, shape {joints.shape}")
+    fail_if(failures, not rel <= SAMPLER_REL_TOL, f"DDPM-1000 rel err {rel}")
+    for name in kernels:
+        launches[name] += counts[name]
+    return launches, {"serve_ddpm": (ddpm, wall)}
+
+
 def trainer_dataset(cfg):
     from hig_tpu_torch.data.dataset import PairDataset, load_training_stats
 
@@ -1133,17 +1350,22 @@ def main() -> int:
         pipeline_launches, pipeline_runs = phase_pipeline(device, failures, smi,
                                                           serve_requests(), data, tmp)
         lap("pipeline")
+        eval_launches, eval_runs = phase_evaluate(device, failures, smi, data, tmp,
+                                                  models["fused"])
+        lap("evaluate")
         runs["train_step_pit"], walls["train_step_pit"] = train_step, step_s
-        for run, (call, wall) in pipeline_runs.items():
+        for run, (call, wall) in (*pipeline_runs.items(), *eval_runs.items()):
             runs[run], walls[run] = call, wall
         per_call = {run: LAUNCHES_PER_CALL for run in (*SERVE_RUNS, "serve_guided")}
         per_call["train_step_pit"] = per_call["label_vote"] = LAUNCHES_PER_STEP
+        per_call["serve_ddpm"] = LAUNCHES_PER_STEP * 1000
         phase_profile(runs, walls, per_call)
         lap("profile")
     print(json.dumps({"phase": "seconds", **seconds}), flush=True)
 
     for name, row in rows.items():
-        row["launches"] = launches[name] + train_launches[name] + pipeline_launches[name]
+        row["launches"] = (launches[name] + train_launches[name] + pipeline_launches[name]
+                           + eval_launches[name])
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(smi, flush=True)
     if failures:

@@ -8,6 +8,22 @@ pipeline/FSDP/tensor-parallel layouts, the native loader, profiling, bf16,
 the single-transformer variant, dropout and the ``--pretrained`` transfer.
 Caption dropout (``cond_drop_prob``) belongs to the supervised stage and is
 refused without ``label_path``, as the JAX loss refuses it.
+
+:func:`load_opt_txt` also reads a JAX run's ``opt.txt``, which holds keys
+the port has no field for. They fall in two sets:
+
+- route keys pick a JAX route or layout whose numbers the port computes
+  the same way (``use_pallas``, ``fused_blocks``, ``sampler_unroll``, the
+  mesh, ``distributed``, ``is_train``, ``label_model``,
+  ``save_label_dir``, ``multi``, and ``window_size`` at 90, the window the
+  port's datasets take): read and skipped;
+- :data:`JAX_MODEL_KEYS` change the function the model computes
+  (``fast_ln``, ``rms_norm``, ``only_language``, ``only_motion``, and
+  ``window_size`` off 90): refused, naming the key, unless at the JAX
+  default.
+
+Other unknown keys (the reference's own opt.txt extras) are skipped, as the
+JAX loader skips them.
 """
 
 from __future__ import annotations
@@ -26,6 +42,11 @@ CFG_UNDER_PIT = (
     "min-assignment loss a dropped sample's two caption assignments become identical, "
     "degenerating the role signal. Train CFG on the final text-conditioned model."
 )
+SAMPLERS = ("ddpm", "ddim", "dpm")
+# Keys of a JAX run's opt.txt without a field here (hig_tpu/config.py) that
+# change the model's function: refused unless at these JAX defaults.
+JAX_MODEL_KEYS = {"fast_ln": "False", "rms_norm": "False", "only_language": "False",
+                  "only_motion": "False", "window_size": "90"}
 
 
 @dataclasses.dataclass
@@ -85,6 +106,15 @@ class ExperimentConfig:
     cond_drop_prob: float = 0.0
     guidance_scale: float = 1.0
 
+    # sampling and evaluation: "ddpm" (ancestral), "ddim" or "dpm"
+    # (DPM-Solver++(2M)); ddim_steps is the step count of both the ddim and
+    # the dpm grids
+    which_epoch: str = "latest"
+    split_file: str = "test_sub.txt"
+    result_path: str = "./result"
+    sampler: str = "ddpm"
+    ddim_steps: int = 50
+
     # not ported yet: must stay at these values
     use_native_loader: bool = False
     compute_dtype: str = "float32"
@@ -111,6 +141,8 @@ class ExperimentConfig:
             raise ValueError(f"hig_tpu_torch does not port these training options yet: {bad}")
         if self.cond_drop_prob > 0.0 and self.label_path is None:
             raise ValueError(CFG_UNDER_PIT)
+        if self.sampler not in SAMPLERS:
+            raise ValueError(f"sampler must be one of {SAMPLERS}, got {self.sampler!r}")
         if self.grad_accum < 1 or self.batch_size % self.grad_accum:
             raise ValueError(f"batch_size {self.batch_size} not divisible into "
                              f"{self.grad_accum} grad-accumulation microbatches")
@@ -185,8 +217,11 @@ def save_opt_txt(cfg: ExperimentConfig, path: str) -> None:
 
 
 def load_opt_txt(path: str, **overrides) -> ExperimentConfig:
-    """The configuration a run's ``opt.txt`` (:func:`save_opt_txt`) holds,
-    with ``overrides``; keys that are not fields are skipped."""
+    """The configuration a run's ``opt.txt`` (the port's :func:`save_opt_txt`
+    or the JAX package's) holds, with ``overrides``. A JAX key that changes
+    the model's function and is off its default (:data:`JAX_MODEL_KEYS`)
+    raises, naming the key; the other keys without a field here (the JAX
+    route keys and the reference's extras) are skipped."""
     fields = {f.name: f.type for f in dataclasses.fields(ExperimentConfig)}
     kwargs = {}
     with open(path) as f:
@@ -195,6 +230,9 @@ def load_opt_txt(path: str, **overrides) -> ExperimentConfig:
             if not line or line in (_HEADER, _FOOTER):
                 continue
             key, _, value = line.partition(": ")
+            if key in JAX_MODEL_KEYS and value != JAX_MODEL_KEYS[key]:
+                raise ValueError(f"{path}: '{key}: {value}' changes the model's function and "
+                                 f"is not ported (the port runs {key}: {JAX_MODEL_KEYS[key]})")
             ftype = fields.get(key)
             if ftype is None:
                 continue

@@ -1,5 +1,7 @@
 """NTU two-person motion dataset pipeline, host side, for a single process
-(own numpy copy of ``hig_tpu/data/dataset.py:35-470``).
+(own numpy copy of ``hig_tpu/data/dataset.py:35-288,403-470``): the
+caption-pair dataset of training, labeling and evaluation, and the
+mismatched-pair dataset of the consistency evaluator.
 
 Every batch is a dict of fixed-shape numpy arrays with the captions already
 tokenized, and every random choice comes from an ``np.random.Generator``
@@ -134,17 +136,20 @@ def normalize_pair(motion: np.ndarray, mean: np.ndarray, std: np.ndarray) -> np.
 
 
 class PairDataset:
-    """Training dataset of caption-pair clips. ``__getitem__(item, epoch)``
-    is a function of (seed, epoch, item). With ``label_path`` (a JSON object
-    clip name → 0/1 from role discovery) the actors of a clip labeled 1 are
-    swapped, the supervised stage's input."""
+    """Dataset of caption-pair clips. ``__getitem__(item, epoch)`` is a
+    function of (seed, epoch, item). With ``label_path`` (a JSON object clip
+    name → 0/1 from role discovery) the actors of a clip labeled 1 are
+    swapped, the supervised stage's input, unless ``eval_mode`` (the test
+    split of evaluation) or ``train_eval`` (the evaluator models' data)."""
 
     def __init__(self, cfg: ExperimentConfig, mean: np.ndarray, std: np.ndarray,
                  split_file: str, times: int = 1, label_path: str | None = None,
-                 seed: int = 0):
+                 seed: int = 0, eval_mode: bool = False, train_eval: bool = False):
         self.cfg = cfg
         self.times = times
         self.seed = seed
+        self.eval_mode = eval_mode
+        self.train_eval = train_eval
         self.mean, self.std = mean, std
         self.clips = load_clips(cfg, split_file, limit=cfg.limit_data_num)
         self.labels = None
@@ -168,7 +173,8 @@ class PairDataset:
         if self.cfg.cap_same:
             caption2 = caption1
         swapped = False
-        if self.labels is not None and self.labels.get(clip.name, 0) == 1:
+        if (self.labels is not None and not (self.eval_mode or self.train_eval)
+                and self.labels.get(clip.name, 0) == 1):
             sample = sample[::-1].copy()  # actor swap
             swapped = True
         return dict(motion=sample, length=min(sample.shape[1], clip.length),
@@ -177,9 +183,50 @@ class PairDataset:
                     swapped=swapped)
 
 
+class PairMismatchDataset(PairDataset):
+    """The consistency evaluator's data: with probability 0.5 (dummy_label
+    1) a pair of actors from two different clips of the same class, each
+    trimmed to the shorter length at a random start; else the clip as it
+    is (dummy_label 0). Draws come from (seed, 7, epoch, item)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.class2indices: dict[int, list[int]] = {}
+        for i, c in enumerate(self.clips):
+            self.class2indices.setdefault(c.class_id, []).append(i)
+
+    def __getitem__(self, item: int, epoch: int = 0) -> dict:
+        clip = self.clips[item % self.real_len()]
+        rng = np.random.default_rng((self.seed, 7, epoch, item))
+        dummy_label = int(rng.random() > 0.5)
+        motion, length = clip.motion, clip.length
+        if dummy_label == 1 and len(self.class2indices[clip.class_id]) > 1:
+            while True:
+                other_idx = int(rng.choice(self.class2indices[clip.class_id]))
+                if self.clips[other_idx].name != clip.name:
+                    break
+            other = self.clips[other_idx]
+            rows = min(length, other.length)
+
+            def trim(m):
+                start = int(rng.integers(0, m.shape[0] - rows + 1))
+                return m[start : start + rows]
+
+            a, b = int(rng.integers(2)), int(rng.integers(2))
+            motion = np.stack([trim(clip.motion[a]), trim(other.motion[b])])
+            length = rows
+        else:
+            dummy_label = 0
+        nframes = motion.shape[1] - 1
+        sample = normalize_pair(motion[:, window_indices(nframes, rng)], self.mean, self.std)
+        return dict(motion=sample, length=min(sample.shape[1], length),
+                    class_id=clip.class_id, dummy_label=dummy_label, name=clip.name)
+
+
 def collate(samples: list[dict], token_cache: dict | None = None) -> dict:
     """Stack samples into fixed-shape arrays and tokenize the captions
-    (``token_cache`` keeps each caption's tokens across calls)."""
+    (``token_cache`` keeps each caption's tokens across calls); samples
+    without captions (the mismatch dataset's) carry ``dummy_label``."""
     cache = {} if token_cache is None else token_cache
 
     def tokens(caption):
@@ -187,15 +234,20 @@ def collate(samples: list[dict], token_cache: dict | None = None) -> dict:
             cache[caption] = tokenize(caption)[0]
         return cache[caption]
 
-    return dict(
+    batch = dict(
         motion=np.stack([s["motion"] for s in samples]).astype(np.float32),
         lengths=np.asarray([s["length"] for s in samples], np.int32),
         class_id=np.asarray([s["class_id"] for s in samples], np.int32),
-        tokens=np.stack([np.stack([tokens(s["caption1"]), tokens(s["caption2"])])
-                         for s in samples]).astype(np.int32),
-        cap_ids=np.asarray([[s["cap_key1"], s["cap_key2"]] for s in samples], np.int32),
-        names=[s["name"] for s in samples],
     )
+    if "caption1" in samples[0]:
+        batch["tokens"] = np.stack([np.stack([tokens(s["caption1"]), tokens(s["caption2"])])
+                                    for s in samples]).astype(np.int32)
+        batch["cap_ids"] = np.asarray([[s["cap_key1"], s["cap_key2"]] for s in samples],
+                                      np.int32)
+    if "dummy_label" in samples[0]:
+        batch["dummy_label"] = np.asarray([s["dummy_label"] for s in samples], np.int32)
+    batch["names"] = [s["name"] for s in samples]
+    return batch
 
 
 def epoch_batches(dataset: PairDataset, batch_size: int, epoch: int, shuffle: bool = True,

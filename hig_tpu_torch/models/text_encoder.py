@@ -37,13 +37,18 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
 
-def _attention(x, in_proj: nn.Linear, out_proj: nn.Linear, heads: int, causal: bool):
+def _attention(x, in_proj: nn.Linear, out_proj: nn.Linear, heads: int, causal: bool,
+               key_mask: torch.Tensor | None = None):
+    """Softmax self-attention; ``key_mask`` (N, L), 1 = attend, 0 = pad,
+    gives padded keys a bias of −inf."""
     N, L, D = x.shape
     q, k, v = in_proj(x).reshape(N, L, 3, heads, D // heads).permute(2, 0, 3, 1, 4)
     logits = q @ k.transpose(-1, -2) / math.sqrt(D // heads)
     if causal:
         keep = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
         logits = logits.masked_fill(~keep, float("-inf"))
+    if key_mask is not None:
+        logits = logits.masked_fill(~key_mask.bool()[:, None, None, :], float("-inf"))
     y = logits.softmax(dim=-1) @ v  # (N, H, L, hd)
     return out_proj(y.transpose(1, 2).reshape(N, L, D))
 
@@ -98,7 +103,8 @@ class ClipTextTower(nn.Module):
 
 class PostLNEncoderLayer(nn.Module):
     """torch nn.TransformerEncoderLayer (norm_first=False, gelu) equivalent,
-    with flax's LayerNorm eps; no padding mask on the serving path."""
+    with flax's LayerNorm eps. The text suffix calls it unmasked; the
+    evaluator models pass ``key_mask`` (N, L), 1 = attend, 0 = pad."""
 
     def __init__(self, d_model: int, heads: int, ff_size: int):
         super().__init__()
@@ -110,8 +116,9 @@ class PostLNEncoderLayer(nn.Module):
         self.linear2 = nn.Linear(ff_size, d_model)
         self.norm2 = layer_norm(d_model)
 
-    def forward(self, x):
-        x = self.norm1(x + _attention(x, self.in_proj, self.out_proj, self.heads, False))
+    def forward(self, x, key_mask=None):
+        x = self.norm1(x + _attention(x, self.in_proj, self.out_proj, self.heads, False,
+                                      key_mask))
         return self.norm2(x + self.linear2(F.gelu(self.linear1(x))))
 
 

@@ -15,8 +15,9 @@ flattened JAX parameter tree saved with np.savez under
 from --random_init SEED (seeded random weights, every leaf nonzero). A
 trained run's feature statistics are in ``<run>/meta`` (--stats). The
 model comes from --opt_path, a training run's opt.txt (its widths,
---cap_id, --cond_drop_prob, --no_eff, --causal, --diffusion_steps;
---params and --stats then default to the run's model/latest.pt and meta/),
+--cap_id, --cond_drop_prob, --no_eff, --causal, --diffusion_steps, and
+its --sampler and --ddim_steps as the defaults of these options; --params
+and --stats then default to the run's model/latest.pt and meta/),
 or from --model_config (a JSON object of ModelConfig fields), default the
 flagship. A caption-id
 (--cap_id) model takes each request's captions as their ids in the NTU
@@ -28,7 +29,9 @@ the fused-block kernel, --blocks projected through the projected-attention
 kernel. --no_eff serves the quadratic (softmax-attention) model instead,
 whose self-attention and interaction blocks go through the flash-attention
 kernel; --causal makes its attention causal. --blocks has no effect with
---no_eff and is refused there.
+--no_eff and is refused there. --sampler picks DDPM (every timestep of the
+schedule), DDIM or DPM-Solver++(2M) over --ddim_steps (default without
+--opt_path: DDIM-50).
 
     python -m hig_tpu_torch.serve --requests reqs.jsonl --random_init 0
     python -m hig_tpu_torch.serve --requests reqs.jsonl --random_init 0 --no_eff
@@ -48,7 +51,7 @@ import numpy as np
 import torch
 
 from hig_tpu_torch import resolve_device
-from hig_tpu_torch.config import load_opt_txt, model_config
+from hig_tpu_torch.config import SAMPLERS, load_opt_txt, model_config
 from hig_tpu_torch.data.vocab import CAP2KEY
 from hig_tpu_torch.diffusion import gaussian as g
 from hig_tpu_torch.models.interaction_model import InteractionModel, ModelConfig
@@ -171,7 +174,11 @@ def main(argv=None):
                         help="causal attention (with --no_eff)")
     parser.add_argument("--batch_size", type=int, default=256)
     parser.add_argument("--motion_length", type=int, default=60)
-    parser.add_argument("--ddim_steps", type=int, default=50)
+    parser.add_argument("--sampler", choices=SAMPLERS, default=None,
+                        help="default: the run's with --opt_path, else ddim")
+    parser.add_argument("--ddim_steps", type=int, default=None,
+                        help="steps of the ddim and dpm grids (default: the run's with "
+                             "--opt_path, else 50)")
     parser.add_argument("--diffusion_steps", type=int, default=None,
                         help="default: the run's with --opt_path, else 1000")
     parser.add_argument("--seed", type=int, default=0, help="seed of the initial noise")
@@ -179,6 +186,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     cfg_fields, guidance, steps = {}, 1.0, 1000
+    sampler, ddim_steps = "ddim", 50
     if args.opt_path:
         if args.model_config or args.no_eff or args.causal:
             parser.error("--opt_path gives the model; --model_config, --no_eff and "
@@ -186,6 +194,7 @@ def main(argv=None):
         run = load_opt_txt(args.opt_path)
         cfg_fields = dataclasses.asdict(model_config(run))
         guidance, steps = run.guidance_scale, run.diffusion_steps
+        sampler, ddim_steps = run.sampler, run.ddim_steps
         if args.params is None and args.random_init is None:
             args.params = os.path.join(run.model_dir, "latest.pt")
         args.stats = args.stats or run.meta_dir
@@ -214,7 +223,9 @@ def main(argv=None):
     sched = g.make_schedule(g.linear_betas(args.diffusion_steps or steps))
     try:
         sample_fn = make_sampler(model, sched, T=T, dim_pose=cfg.input_feats,
-                                 ddim_steps=args.ddim_steps, guidance_scale=guidance)
+                                 sampler=args.sampler or sampler,
+                                 ddim_steps=args.ddim_steps or ddim_steps,
+                                 guidance_scale=guidance)
     except ValueError as e:
         parser.error(str(e))
     generator = torch.Generator(device=device).manual_seed(args.seed)

@@ -18,18 +18,18 @@ captions, instead of in every step. The model trains in train mode, where
 its self-attention and interaction blocks go through kernel B2 (or B4 in
 the ``--no_eff`` model), whose backwards recompute their plain versions.
 
-Sampling (``:402-562``): everything loop-invariant is hoisted out of the
-step loop: the text is encoded once, each layer's text state is computed
-once (the KᵀV tensor of the efficient model, the projected (k, v) pair of
-the quadratic one), and every block's AdaLN (scale, shift) is computed for
-every step of the DDIM grid in one batched pass. Unlike the JAX sampler,
-which turns the AdaLN hoist off under ``fused_blocks``, the port hoists it
-for all four blocks and feeds the fused-block kernel the hoisted (scale,
-shift): the function computed is the same. With ``guidance_scale`` w ≠ 1
-(classifier-free guidance) each step evaluates the conditional and the
-null conditioning in one denoiser call over 2B pairs, where the JAX
-sampler makes two calls of B pairs. Only DDIM is ported; DDPM and DPM++
-are still to be ported.
+Sampling (``:402-562``), with DDPM, DDIM or DPM-Solver++(2M): everything
+loop-invariant is hoisted out of the step loop: the text is encoded once,
+each layer's text state is computed once (the KᵀV tensor of the efficient
+model, the projected (k, v) pair of the quadratic one), and, for DDIM and
+DPM, every block's AdaLN (scale, shift) is computed for every step of the
+grid in one batched pass. Unlike the JAX sampler, which turns the AdaLN
+hoist off under ``fused_blocks``, the port hoists it for all four blocks
+and feeds the fused-block kernel the hoisted (scale, shift): the function
+computed is the same. DDPM hoists no AdaLN grid, as in JAX. With
+``guidance_scale`` w ≠ 1 (classifier-free guidance) each step evaluates
+the conditional and the null conditioning in one denoiser call over 2B
+pairs, where the JAX sampler makes two calls of B pairs.
 """
 
 from __future__ import annotations
@@ -47,11 +47,12 @@ import torch
 import torch.nn.functional as F
 
 from hig_tpu_torch import resolve_device
-from hig_tpu_torch.config import CFG_UNDER_PIT, ExperimentConfig, model_config
+from hig_tpu_torch.config import CFG_UNDER_PIT, SAMPLERS, ExperimentConfig, model_config
 from hig_tpu_torch.data.dataset import PairDataset, epoch_batches
 from hig_tpu_torch.data.vocab import CAPS
 from hig_tpu_torch.diffusion import gaussian as g
 from hig_tpu_torch.diffusion import timestep_samplers as tss
+from hig_tpu_torch.diffusion.solvers import dpmpp_2m_sample_loop
 from hig_tpu_torch.models.denoiser import BLOCKS
 from hig_tpu_torch.models.embeddings import length_mask, timestep_embedding
 from hig_tpu_torch.models.interaction_model import InteractionModel
@@ -388,18 +389,26 @@ def adaln_scale_shift_grid(model: InteractionModel, ts: np.ndarray, xf_proj: tor
 def make_sampler(model: InteractionModel, sched: g.DiffusionSchedule, T: int,
                  dim_pose: int, sampler: str = "ddim", ddim_steps: int = 50,
                  guidance_scale: float = 1.0) -> Callable:
-    """Returns ``sample(cond, lengths (B,), noise=None, generator=None) ->
-    (B, 2, T, dim_pose)``; cond is (B, 2, 77) caption tokens or, for a
-    ``cap_id`` model, (B, 2) caption ids.
+    """Returns ``sample(cond, lengths (B,), noise=None, generator=None,
+    step_noise=None) -> (B, 2, T, dim_pose)``; cond is (B, 2, 77) caption
+    tokens or, for a ``cap_id`` model, (B, 2) caption ids.
 
-    ``noise`` is the initial x_T; without it one is drawn from
-    ``generator`` on the model's device. With ``guidance_scale`` w ≠ 1
-    each step predicts e_u + w·(e_c − e_u) from the conditional and the
-    null conditioning (a model trained with ``cond_drop_prob`` > 0); the
-    null text state and AdaLN grid are hoisted beside the conditional ones.
+    ``sampler``: "ddpm" (ancestral, every timestep of ``sched``), "ddim" or
+    "dpm" (DPM-Solver++(2M)), the last two over ``ddim_steps`` of the
+    stride grid. ``noise`` is the initial x_T and ``step_noise(i)`` the
+    DDPM step noise of step i (see ``g.p_sample_loop``); what is not given
+    is drawn from ``generator`` on the model's device. With
+    ``guidance_scale`` w ≠ 1 each step predicts e_u + w·(e_c − e_u) from
+    the conditional and the null conditioning (a model trained with
+    ``cond_drop_prob`` > 0) in one denoiser call over 2B pairs. DDIM and DPM
+    hoist every block's AdaLN (scale, shift) over their grid (the null
+    pairs' beside the conditional ones); DDPM does not, as the JAX sampler
+    does not: over 1000 steps the grid would take 1000 × 2B sequences × 32
+    blocks × 2·latent floats (13.6 GB at 52 pairs), so its denoiser computes
+    the gates each step.
     """
-    if sampler != "ddim":
-        raise NotImplementedError(f"hig_tpu_torch samples with DDIM only (got {sampler!r})")
+    if sampler not in SAMPLERS:
+        raise ValueError(f"unknown sampler {sampler!r} (one of {SAMPLERS})")
     guided = guidance_scale != 1.0
     if guided and model.cfg.cond_drop_prob <= 0.0:
         raise ValueError(
@@ -409,7 +418,7 @@ def make_sampler(model: InteractionModel, sched: g.DiffusionSchedule, T: int,
     ts = g.ddim_timesteps(sched.num_timesteps, ddim_steps)
 
     @torch.no_grad()
-    def sample(cond, lengths, noise=None, generator=None):
+    def sample(cond, lengths, noise=None, generator=None, step_noise=None):
         device = next(model.parameters()).device
         cond = torch.as_tensor(cond, device=device)
         lengths = torch.clamp(torch.as_tensor(lengths, device=device), max=T)
@@ -422,13 +431,15 @@ def make_sampler(model: InteractionModel, sched: g.DiffusionSchedule, T: int,
             xf_proj, xf_out = torch.cat([xf_proj, n_proj]), torch.cat([xf_out, n_out])
             lengths = torch.cat([lengths, lengths])
         text_kv = model.text_kv(xf_out)
-        grid = adaln_scale_shift_grid(model, ts, xf_proj)
-        aux = [
-            [{k: (s[i], sh[i]) for k, (s, sh) in layer.items()} for layer in grid]
-            for i in range(len(ts))
-        ]
+        aux = None
+        if sampler != "ddpm":
+            grid = adaln_scale_shift_grid(model, ts, xf_proj)
+            aux = [
+                [{k: (s[i], sh[i]) for k, (s, sh) in layer.items()} for layer in grid]
+                for i in range(len(ts))
+            ]
 
-        def denoiser(x, t, adaln):
+        def denoiser(x, t, adaln=None):
             if not guided:
                 return model.denoise(x, t, lengths, xf_proj, text_kv=text_kv, adaln=adaln)
             eps = model.denoise(torch.cat([x, x]), torch.cat([t, t]), lengths, xf_proj,
@@ -438,11 +449,19 @@ def make_sampler(model: InteractionModel, sched: g.DiffusionSchedule, T: int,
 
         shape = (B, 2, T, dim_pose)
         if noise is None:
+            if generator is None:
+                raise ValueError("sample needs the initial noise or a torch.Generator")
             noise = torch.randn(shape, generator=generator, device=device)
         elif tuple(noise.shape) != shape:
             raise ValueError(f"noise has shape {tuple(noise.shape)}, expected {shape}")
-        return g.ddim_sample_loop(sched, denoiser, noise.to(device, torch.float32),
-                                  num_steps=ddim_steps, model_aux=aux)
+        noise = noise.to(device, torch.float32)
+        if sampler == "ddpm":
+            return g.p_sample_loop(sched, denoiser, noise, generator=generator,
+                                   step_noise=step_noise)
+        if sampler == "dpm":
+            return dpmpp_2m_sample_loop(sched, denoiser, noise, num_steps=ddim_steps,
+                                        model_aux=aux)
+        return g.ddim_sample_loop(sched, denoiser, noise, num_steps=ddim_steps, model_aux=aux)
 
     return sample
 

@@ -11,6 +11,10 @@ modules: flax Dense ``kernel`` (in, out) becomes Linear ``weight``
 ``clip.blocks.{i}``. A leaf left over or a parameter left unset is an
 error.
 
+The evaluator models' trees (``embed``, ``block_{i}`` → ``blocks.{i}``,
+``out1``/``out2``/``fin_proj`` or ``cls_input``/``cls_output``) map the same
+way.
+
 :func:`random_flax_tree` builds that same tree from a seed with every leaf
 nonzero. (The JAX init zeroes ``out``, ``out2``, ``ffn/linear2`` and every
 ``proj_out/out``, so a freshly initialized model predicts ε ≡ 0 and any
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from hig_tpu_torch.models.eval_models import EvalModelConfig
 from hig_tpu_torch.models.interaction_model import ModelConfig
 
 _LIST_NAMES = (
@@ -117,8 +122,32 @@ def _ln(d: int) -> dict:
     return {"scale": (d,), "bias": (d,)}
 
 
-def flax_param_shapes(cfg: ModelConfig) -> dict:
-    """The JAX ``InteractionModel`` parameter tree of ``cfg`` as shapes."""
+def _post_ln_layer(d: int, ff: int) -> dict:
+    return {"in_proj": _dense(d, 3 * d), "out_proj": _dense(d, d), "norm1": _ln(d),
+            "linear1": _dense(d, ff), "linear2": _dense(ff, d), "norm2": _ln(d)}
+
+
+def _eval_model_shapes(cfg: EvalModelConfig) -> dict:
+    """The JAX ``MotionEncoder`` / ``MotionConsistencyEvalModel`` tree."""
+    D = cfg.latent_dim
+    params = {"embed": {"sequence_embedding": (cfg.num_frames, D),
+                        "joint_embed1": _dense(cfg.input_feats, D),
+                        "joint_embed2": _dense(4, D)}}
+    for i in range(cfg.num_layers):
+        params[f"block_{i}"] = _post_ln_layer(D, cfg.ff_size)
+    if cfg.kind == "classifier":
+        params.update(out1=_dense(D, D), out2=_dense(D, D), fin_proj=_dense(D, cfg.class_num))
+    else:
+        params.update(cls_input=(1, 1, D), cls_output=_dense(D, cfg.class_num))
+    return {"params": params}
+
+
+def flax_param_shapes(cfg: ModelConfig | EvalModelConfig) -> dict:
+    """The JAX parameter tree of ``cfg`` as shapes: the ``InteractionModel``
+    of a :class:`ModelConfig`, or the evaluator model of an
+    :class:`EvalModelConfig`."""
+    if isinstance(cfg, EvalModelConfig):
+        return _eval_model_shapes(cfg)
     D, Dt, E = cfg.latent_dim, cfg.text_latent_dim, cfg.time_embed_dim
     if cfg.cap_id:
         text = {"cap_embedding": (cfg.num_captions, Dt), "text_proj": _dense(Dt, E)}
@@ -176,23 +205,21 @@ def _clip_text_shapes(cfg: ModelConfig) -> dict:
     if Dt != W:
         text["text_pre_proj"] = _dense(W, Dt)
     for i in range(cfg.num_text_layers):
-        text[f"text_blocks_{i}"] = {
-            "in_proj": _dense(Dt, 3 * Dt), "out_proj": _dense(Dt, Dt),
-            "norm1": _ln(Dt), "linear1": _dense(Dt, cfg.text_ff_size),
-            "linear2": _dense(cfg.text_ff_size, Dt), "norm2": _ln(Dt),
-        }
+        text[f"text_blocks_{i}"] = _post_ln_layer(Dt, cfg.text_ff_size)
     return text
 
 
-def random_flax_tree(cfg: ModelConfig, seed: int) -> dict:
+def random_flax_tree(cfg: ModelConfig | EvalModelConfig, seed: int) -> dict:
     """Seeded random JAX-layout parameter tree with every leaf nonzero:
     kernels ~ N(0, 1/fan_in), biases ~ N(0, 0.1²), LayerNorm scales
     ~ 1 + N(0, 0.1²), embeddings at the JAX init's scales, and the null
-    conditioning (zeros in the JAX init) ~ N(0, 1)."""
+    conditioning (zeros in the JAX init) ~ N(0, 1); the evaluators'
+    ``out1`` / ``out2`` (zeros in the JAX init) are kernels like any
+    other."""
     rng = np.random.default_rng(seed)
     embed_std = {"token_embedding": 0.02, "positional_embedding": 0.01,
                  "sequence_embedding": 1.0, "cap_embedding": 1.0,
-                 "null_xf_proj": 1.0, "null_xf_token": 1.0}
+                 "null_xf_proj": 1.0, "null_xf_token": 1.0, "cls_input": 1.0}
     flat = {}
     for path, shape in sorted(flatten(flax_param_shapes(cfg)).items()):
         z = rng.standard_normal(shape, dtype=np.float32)

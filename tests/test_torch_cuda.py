@@ -8,7 +8,8 @@ no JAX, so run this file there without the repository's conftest:
 Shapes are the serving path's: 8 caption pairs (N = 16 sequences), T = 91
 (and 77 keys where Tq != Tk), D = 512, 8 heads of 64, float32, ragged
 lengths; B1 and B4 also at T = 1, 17 and 196, the ragged edges of their
-tiles, and B4 with more keys than its shared-memory tile holds.
+tiles, and B4 with more keys than its shared-memory tile holds; B1, B2 and
+B4 at an evaluation chunk's shape (52 pairs, T = 196).
 
 Tolerances: 1e-4 absolute, since float32 sums run in another order than
 cuBLAS's and the block's second LayerNorm rescales the attention output by
@@ -65,7 +66,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(device, T=T):
+def _inputs(device, T=T, pairs=N_PAIRS):
     gen = torch.Generator().manual_seed(0)
 
     def randn(*shape, std=1.0):
@@ -76,11 +77,12 @@ def _inputs(device, T=T):
         randn(D, D, std=D ** -0.5) if name.startswith("w") else randn(D, std=0.1)
         for name in BlockWeights._fields
     ))
-    lengths = torch.tensor([max(1, L * T // 91) for L in LENGTHS], device=device)
+    lengths = torch.tensor([max(1, L * T // 91) for L in LENGTHS * -(-pairs // N_PAIRS)][:pairs],
+                           device=device)
     mask = (torch.arange(T, device=device) < lengths[:, None]).float()
-    mask = mask[:, None, :].expand(N_PAIRS, 2, T).contiguous()
-    return (w, randn(N_PAIRS, 2, T, D), mask, randn(N_PAIRS, 2, 1, D, std=0.5),
-            randn(N_PAIRS, 2, 1, D, std=0.5))
+    mask = mask[:, None, :].expand(pairs, 2, T).contiguous()
+    return (w, randn(pairs, 2, T, D), mask, randn(pairs, 2, 1, D, std=0.5),
+            randn(pairs, 2, 1, D, std=0.5))
 
 
 @pytest.mark.parametrize("t", [1, 17, T, 196])
@@ -132,6 +134,38 @@ def test_flash_attention_kernel(cuda, case, t):
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     assert_close(got, flash_attention_plain(*args))
+
+
+EVAL_PAIRS, EVAL_T = 52, 196  # an evaluation chunk: the 52-clip test split at T = 196
+
+
+@pytest.mark.parametrize("case", ["b1_self", "b1_interaction", "b2_self", "b2_partner",
+                                  "b4_self", "b4_partner"])
+def test_kernels_at_the_evaluation_shape(cuda, case):
+    """B1, B2 and B4 as generation calls them in an evaluation chunk: 104
+    sequences of 196 tokens (not a multiple of the cores' 32-row tiles),
+    ragged lengths."""
+    w, x, mask, scale, shift = _inputs(cuda, EVAL_T, EVAL_PAIRS)
+    F = torch.nn.functional
+    if case.startswith("b1"):
+        args = (x, mask, scale, shift, w, H, case == "b1_interaction")
+        kernel, plain = fused_attention_block, fused_attention_block_plain
+    elif case.startswith("b2"):
+        xn = F.layer_norm(x, (D,), w.ln_g, w.ln_b, 1e-6)
+        kv, kmask = (xn, mask) if case == "b2_self" else (xn.flip(1).contiguous(),
+                                                         mask.flip(1).contiguous())
+        args = (xn, kv, w.wq, w.bq, w.wk, w.bk, w.wv, w.bv, H, kmask)
+        kernel, plain = fused_projected_attention, fused_projected_attention_plain
+    else:
+        q = F.linear(x, w.wq, w.bq)
+        k, v = F.linear(x, torch.cat([w.wk, w.wv]), torch.cat([w.bk, w.bv])).chunk(2, dim=-1)
+        args = (q, k, v, H, mask, False, case == "b4_partner")
+        kernel, plain = flash_attention, flash_attention_plain
+    before = kernel.launches
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert_close(got, plain(*args))
 
 
 @pytest.mark.parametrize("tq,tk,causal,partner", [

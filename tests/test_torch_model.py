@@ -318,4 +318,8 @@ def test_port_imports_neither_jax_nor_hig_tpu():
     assert len(names) >= 23
     assert {"hig_tpu_torch.ops.flash_attention", "hig_tpu_torch.ops.pallas_attention",
             "hig_tpu_torch.models.attention", "hig_tpu_torch.serve", "hig_tpu_torch.label",
-            "hig_tpu_torch.train.labeling", "hig_tpu_torch.diffusion.timestep_samplers"} <= names
+            "hig_tpu_torch.train.labeling", "hig_tpu_torch.diffusion.timestep_samplers",
+            "hig_tpu_torch.diffusion.solvers", "hig_tpu_torch.models.eval_models",
+            "hig_tpu_torch.eval.metrics", "hig_tpu_torch.eval.evaluator",
+            "hig_tpu_torch.eval.trainer", "hig_tpu_torch.eval.train", "hig_tpu_torch.eval.test",
+            "hig_tpu_torch.evaluate"} <= names

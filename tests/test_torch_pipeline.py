@@ -9,17 +9,17 @@
   warm and full histories, its sampling distribution and the importance
   weights of given t.
 - Losses and gradients against ``jax.value_and_grad`` of ``make_loss_fn``:
-  cap-id PIT, cap-id supervised, supervised with caption dropout, and the
-  loss-aware sampler; JAX's t, noise, keep and ``choice`` draws are
+  cap-id PIT, cap-id supervised, supervised with caption dropout (also for
+  the quadratic ``--no_eff`` model), and the loss-aware sampler; JAX's t, noise, keep and ``choice`` draws are
   reproduced from its rng and handed to the port. Tolerances of
   ``tests/test_torch_train.py`` (``assert_grads_close``).
 - Labeling: the assignment scorer's (B, 2) scores within 1e-5 relative for
-  the tokens and cap-id models, and ``discover_roles`` / ``pseudo_label``
+  the tokens, cap-id and quadratic tokens models, and ``discover_roles`` / ``pseudo_label``
   return the JAX package's dicts when the port is fed JAX's rng chain of
   noises.
 - Guided sampling: DDIM at w = 2.5 within 1e-5 of the output scale of
-  JAX's ``make_sampler`` from the same x_T, for caption tokens and caption
-  ids; w = 1 is the unguided sampler; w ≠ 1 is refused without null
+  JAX's ``make_sampler`` from the same x_T, for caption tokens, caption
+  ids and the quadratic model; w = 1 is the unguided sampler; w ≠ 1 is refused without null
   parameters.
 - The CLIs on the CPU: ``train --cap_id`` (PIT) → ``python -m
   hig_tpu_torch.label`` → ``train --cap_id --label_path ... --cond_drop_prob
@@ -105,12 +105,13 @@ def jax_model(cap_id=False, drop=0.0, no_eff=False):
     return model_from_config(jcfg, clip_config=JAX_CLIP)
 
 
-def models(cap_id=False, drop=0.0):
-    """(JAX model, its params, the port's model with the same weights)."""
-    mcfg = port_mcfg(cap_id, drop)
+def models(cap_id=False, drop=0.0, no_eff=False):
+    """(JAX model, its params, the port's model with the same weights); the
+    quadratic (``--no_eff``) model with ``no_eff``."""
+    mcfg = port_mcfg(cap_id, drop, no_eff)
     tree = random_flax_tree(mcfg, seed=0)
     port = load_flax_tree(InteractionModel(mcfg), tree["params"])
-    return jax_model(cap_id, drop), jax.tree_util.tree_map(jnp.asarray, tree), port
+    return jax_model(cap_id, drop, no_eff), jax.tree_util.tree_map(jnp.asarray, tree), port
 
 
 def assert_rel_close(got, want, rtol):
@@ -214,6 +215,8 @@ STEP_CASES = {
     "cap_id_supervised": dict(pit=False, cap_id=True, drop=0.0, loss_aware=False),
     "supervised_cfg": dict(pit=False, cap_id=False, drop=DROP, loss_aware=False),
     "pit_loss_aware": dict(pit=True, cap_id=False, drop=0.0, loss_aware=True),
+    "supervised_cfg_no_eff": dict(pit=False, cap_id=False, drop=DROP, loss_aware=False,
+                                  no_eff=True),
 }
 
 
@@ -268,7 +271,7 @@ def assert_grads_close(got: dict, want: dict, cap_id: bool):
 @pytest.mark.parametrize("case", list(STEP_CASES))
 def test_loss_and_grads_match_jax(case):
     c = STEP_CASES[case]
-    jmodel, params, model = models(c["cap_id"], c["drop"])
+    jmodel, params, model = models(c["cap_id"], c["drop"], c.get("no_eff", False))
     sched = jg.make_schedule(jg.linear_betas(100))
     batch = step_batch(c["cap_id"])
     rng = jax.random.key(7)
@@ -415,23 +418,28 @@ def jax_noise_chain(seed):
     return draw
 
 
+# (cap_id, no_eff) of the scorer and guided-sampler cases
+MODEL_CASES = {"tokens": (False, False), "cap_id": (True, False), "tokens_no_eff": (False, True)}
+
+
 @pytest.fixture(scope="module")
 def scorers():
-    """Per conditioning: the JAX params and scorer, and the port's scorer of
+    """Per model case: the JAX params and scorer, and the port's scorer of
     the same weights (the JAX scorer's compiles are shared by the tests)."""
     out = {}
-    for cap_id in (False, True):
-        jmodel, params, model = models(cap_id)
-        out[cap_id] = (params,
-                       jlab.make_assignment_scorer(jmodel, jg.make_schedule(jg.linear_betas(1000))),
-                       tl.make_assignment_scorer(model, tg.make_schedule(tg.linear_betas(1000))))
+    for name, (cap_id, no_eff) in MODEL_CASES.items():
+        jmodel, params, model = models(cap_id, no_eff=no_eff)
+        out[name] = (params,
+                     jlab.make_assignment_scorer(jmodel, jg.make_schedule(jg.linear_betas(1000))),
+                     tl.make_assignment_scorer(model, tg.make_schedule(tg.linear_betas(1000))))
         assert not model.training
     return out
 
 
-@pytest.mark.parametrize("cap_id", [False, True], ids=["tokens", "cap_id"])
-def test_scorer_matches_jax(data_root, scorers, cap_id):
-    params, (jenc, jscore), (encode, score) = scorers[cap_id]
+@pytest.mark.parametrize("case", list(MODEL_CASES))
+def test_scorer_matches_jax(data_root, scorers, case):
+    cap_id = MODEL_CASES[case][0]
+    params, (jenc, jscore), (encode, score) = scorers[case]
     jds, _ = datasets(data_root)
     batch = next(jd.epoch_batches(jds, LABEL_BATCH, 0, shuffle=False, drop_last=False))
     cond = batch["cap_ids"] if cap_id else batch["tokens"]
@@ -451,7 +459,7 @@ def test_scorer_matches_jax(data_root, scorers, cap_id):
 def test_discovery_and_pseudo_labels_match_jax(data_root, scorers, cap_id):
     """The whole labeling stage: discovery on the annotated clips, then
     labels with 3 draws per t; the port fed JAX's noises."""
-    params, jscorer, scorer = scorers[cap_id]
+    params, jscorer, scorer = scorers["cap_id" if cap_id else "tokens"]
     anns = os.path.join(data_root, "test_active_anns.json")
     jann, ann = datasets(data_root, anns)
     jtrain, train = datasets(data_root)
@@ -472,12 +480,13 @@ def test_discovery_and_pseudo_labels_match_jax(data_root, scorers, cap_id):
 # --- guided sampling -------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("cap_id", [False, True], ids=["tokens", "cap_id"])
-def test_guided_ddim_matches_jax(cap_id):
+@pytest.mark.parametrize("case", list(MODEL_CASES))
+def test_guided_ddim_matches_jax(case):
     """w = 2.5, 4 DDIM steps, from JAX's own x_T; tolerance 1e-5 of the
     output scale as the unguided sampler's test (the guided step scales the
     denoiser's rounding by up to |1 − w| + w = 4)."""
-    jmodel, params, model = models(cap_id, drop=0.1)
+    cap_id, no_eff = MODEL_CASES[case]
+    jmodel, params, model = models(cap_id, drop=0.1, no_eff=no_eff)
     model.eval()
     cond = (np.array([[3, 4], [10, 11]], np.int32) if cap_id
             else tokenize(CAPS).astype(np.int32)[[[3, 4], [10, 11]]])

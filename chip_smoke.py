@@ -78,7 +78,39 @@ Phases, each printing one JSON line (or several):
      the size of the AdaLN grid it does not build; then DDPM-1000 at the
      serving shape through B1 against the plain route (same x_T and step
      noises), with its wall time per call.
-Then the kernel table, the nvidia-smi line, and as the last line
+ 10. bf16 (after phase 9, before the profile; cuBLAS's reduced-precision
+     bf16 reductions off): each bfloat16 form (B1-bf16 self and
+     interaction, B2-bf16, B4-bf16 self, partner, causal and 91 queries on
+     77 keys) at the serving shape and at the evaluation chunk's shape
+     against its bfloat16 twin (max |err| ≤ 2 bfloat16 ulps of the twin's
+     largest magnitude; rms(kernel − twin) ≤ 0.25 · rms(twin − the float32
+     twin on the same rounded inputs), or 1.5 × the twin's distance from
+     itself run on the CPU where the float32 order of sums alone moves more
+     roundings than that), B1-bf16 beside four planted controls (its twin
+     with one core rounding left out, each of which must fail the same
+     gates), timed as phase 3 times, with its bound (each part at its own
+     rate: bf16 989 TFLOP/s for products of bfloat16 values, 3xTF32
+     495 / 3 for B2-bf16's float32 core) and, for B4-bf16, SDPA on the
+     same bfloat16 inputs and the backend it took; one full-width bfloat16
+     denoiser call each for fused (B1-bf16), projected (B2-bf16), no_eff
+     (B4-bf16), rms_norm (B2-bf16) and fast_ln (B1-bf16): at 8 layers
+     against the plain route in bfloat16 and in float32 (reported, with
+     the plain route's own move under one bfloat16 ulp of one input
+     element a pair), and cut to the first layer held to rms(kernels −
+     plain bf16) ≤ 0.7 · rms(plain bf16 − plain float32) on the same
+     inputs and weights, where the control route (the kernels' roundings
+     left out) must fail for B1 and B4 (BF16_ROUTE_RMS says why); 8
+     requests served in bfloat16, DDIM-50, for fused, projected, no_eff,
+     rms_norm and guided w = GUIDANCE (800 launches of the run's own form
+     a call, none of any other form or float32 kernel; the median wall of
+     3 calls; the same 0.7 gate on the same x_T and weights, the control
+     route's reading beside); and
+     ``python -m hig_tpu_torch.evaluate`` from stage 1-3's checkpoint as a
+     bfloat16 run with --fast_ln, DPM-20 at T = 196 (exactly 320 B1-bf16
+     launches, finite metrics in range, confusion matrices of 52 clips).
+     The profile then adds the bfloat16 fused and guided serving calls.
+Then the kernel table (the bfloat16 forms' rows after the float32 ones), the
+nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero without
 that line. Imports nothing of JAX or of the JAX package.
 """
@@ -249,9 +281,25 @@ def wrappers() -> dict:
             "flash_attention": flash_attention}
 
 
+def unrounded(fn):
+    """``fn`` on float32 upcasts of its bfloat16 arguments, the output
+    rounded to bfloat16: a plain version with its own roundings left out."""
+    from hig_tpu_torch.ops.fused_block import BlockWeights
+
+    def up(a):
+        if isinstance(a, BlockWeights):
+            return BlockWeights(*[t.float() for t in a])
+        return a.float() if torch.is_tensor(a) and a.is_floating_point() else a
+
+    return lambda *args, **kw: fn(*map(up, args), **{k: up(v) for k, v in kw.items()}) \
+        .to(torch.bfloat16)
+
+
 @contextlib.contextmanager
-def plain_blocks():
-    """Route the attention blocks through the plain versions (on any device)."""
+def plain_blocks(control: bool = False):
+    """Route the attention blocks through the plain versions (on any device);
+    with ``control``, through ``unrounded`` plain versions (phase 10's
+    control route)."""
     from hig_tpu_torch.models import attention
     from hig_tpu_torch.ops import flash_attention, fused_block, pallas_attention
 
@@ -259,6 +307,8 @@ def plain_blocks():
              "fused_projected_attention": pallas_attention.fused_projected_attention_plain,
              "fused_efficient_attention": pallas_attention.efficient_attention,
              "flash_attention": flash_attention.flash_attention_plain}
+    if control:
+        plain = {name: unrounded(fn) for name, fn in plain.items()}
     saved = {name: getattr(attention, name) for name in plain}
     for name, fn in plain.items():
         setattr(attention, name, fn)
@@ -1295,6 +1345,535 @@ def phase_evaluate(device, failures, smi: str, data: str, tmp: str, model) -> tu
     return launches, {"serve_ddpm": (ddpm, wall)}
 
 
+# --- phase 10: bfloat16 ----------------------------------------------------------------
+
+# bfloat16 form → the wrapper whose ``launches_bf16`` counts it
+BF16_FORMS = {"fused_block_bf16": "fused_block",
+              "projected_attention_bf16": "projected_attention",
+              "flash_attention_bf16": "flash_attention"}
+# serving run (a model of ``bf16_models``) → (the form its attention blocks
+# launch, guidance weight)
+BF16_SERVE_RUNS = {
+    "fused": ("fused_block_bf16", 1.0),
+    "projected": ("projected_attention_bf16", 1.0),
+    "no_eff": ("flash_attention_bf16", 1.0),
+    "rms_norm": ("projected_attention_bf16", 1.0),
+    "guided": ("fused_block_bf16", GUIDANCE),
+}
+BF16_EVAL_RUN = ["--sampler", "dpm", "--ddim_steps", "20", "--fast_ln"]
+BF16_EVAL_LAUNCHES = LAUNCHES_PER_STEP * 20  # one chunk of EVAL_CLIPS pairs, DPM-20
+# Kernel against its bfloat16 twin: both form the same exact products of
+# bfloat16 values and differ in the order of float32 sums, so a rounding
+# comes out otherwise only where a value lies within ~1e-7 of a rounding
+# boundary. max |kernel − twin| ≤ BF16_ULPS bfloat16 ulps of max |twin|,
+# and rms(kernel − twin) ≤ BF16_KERNEL_RMS · rms(twin − float32 twin), the
+# float32 twin taken on the same bfloat16-rounded inputs and weights and not
+# rounded: a form that skipped one of the Pallas kernel's roundings would
+# sit near the bfloat16 effect itself. Where the order of float32 sums alone
+# moves more roundings than that, the bound is BF16_FLOOR times the twin's
+# own distance from the same twin run on the CPU (the same roundings, sums in
+# another order): B1's KᵀV state is a sum of ~91 terms of either sign that
+# cancels, so its float32 order flips some of its bfloat16 roundings, and
+# its second LayerNorm spreads each flip over y.
+BF16_ULP, BF16_ULPS, BF16_KERNEL_RMS, BF16_FLOOR = 2.0 ** -8, 2.0, 0.25, 1.5
+# B1's core roundings that a planted control leaves out, one at a time: the
+# twin without it, put in the kernel's place, must fail the gates above.
+B1_CORE_ROUNDINGS = ("kh", "v", "att", "qh")
+# Denoiser and serving through the kernels against the plain route in
+# bfloat16, held to rms(kernel − plain bf16) ≤ BF16_ROUTE_RMS ·
+# rms(plain bf16 − plain float32) on the same inputs and weights. One
+# bfloat16 rounding that comes out otherwise moves later roundings of its
+# sequence, and each block carries the move on: through 8 layers the plain
+# route itself, one input element a pair moved by one bfloat16 ulp, lands
+# near the bfloat16 effect, and so does any route that sums in another
+# order (reported, not held). So the denoiser is held at its first layer
+# (full width, the same weights), where a route that rounds as the Pallas
+# kernels do sits below the limit and the control route (each kernel
+# replaced by its float32 plain version on the upcast inputs, output
+# rounded: the kernels' own roundings left out) above it; a control that
+# passes fails the run (PERF.md §6 has the readings). B2's Pallas kernel
+# rounds only its output, so its control is the same function and is
+# reported only. Serving (DDIM-50, full depth) is held to the same limit,
+# its control reported: there the control reads as the kernel route does,
+# so that gate bounds the drift and proves no rounding point.
+BF16_ROUTE_RMS = 0.7
+BF16_DENOISER_RUNS = {"fused": "fused_block_bf16", "projected": "projected_attention_bf16",
+                      "no_eff": "flash_attention_bf16", "fast_ln": "fused_block_bf16",
+                      "rms_norm": "projected_attention_bf16"}
+FORMS_WITH_INNER_ROUNDINGS = ("fused_block_bf16", "flash_attention_bf16")
+PEAK_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores (H100 SXM data sheet)
+
+
+def bound_parts(parts, nbytes: float) -> tuple[float, str, str]:
+    """The card's least time for work in ``parts``, [(flops, rate)], each
+    part at its own rate ("bf16": 989 TFLOP/s; "3xtf32": a float32-accurate
+    product, 495 / 3), against ``nbytes`` at 3.35 TB/s. Returns (ms,
+    "operations" or "bytes", the kind)."""
+    rates = {"bf16": PEAK_BF16_FLOPS, "3xtf32": PEAK_TF32_FLOPS / TF32_SPLIT}
+    t_ops = sum(flops / rates[rate] for flops, rate in parts)
+    t_bytes = nbytes / PEAK_BYTES
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes", "bytes"
+    return t_ops * 1e3, "operations", "ops_" + "+".join(sorted({r for _, r in parts}))
+
+
+def bf16_counts() -> dict:
+    """Launch counts of every form: the float32 kernels' and the bfloat16 forms'."""
+    kernels = wrappers()
+    counts = {name: w.launches for name, w in kernels.items()}
+    counts.update({form: kernels[base].launches_bf16 for form, base in BF16_FORMS.items()})
+    return counts
+
+
+def reset_counts() -> None:
+    for w in wrappers().values():
+        w.launches = 0
+        if hasattr(w, "launches_bf16"):
+            w.launches_bf16 = 0
+
+
+def on_cpu(args):
+    """The arguments of a plain version, tensors (and BlockWeights) on the CPU."""
+    from hig_tpu_torch.ops.fused_block import BlockWeights
+
+    def move(a):
+        if isinstance(a, BlockWeights):
+            return BlockWeights(*[t.cpu() for t in a])
+        return a.cpu() if torch.is_tensor(a) else a
+
+    return [move(a) for a in args]
+
+
+def bf16_gate_row(got, twin, twin_f32, twin_cpu) -> dict:
+    """The kernel-against-twin gates (see BF16_KERNEL_RMS and BF16_FLOOR):
+    the readings, and under "passed" whether ``got`` meets them."""
+    def rms(d):
+        return d.pow(2).mean().sqrt().item()
+
+    d = got.float() - twin.float()
+    max_abs = d.abs().max().item()
+    lim = BF16_ULPS * BF16_ULP * twin.float().abs().max().item()
+    err, ref = rms(d), rms(twin.float() - twin_f32)
+    floor = rms(twin.float().cpu() - twin_cpu.float())
+    rms_lim = max(BF16_KERNEL_RMS * ref, BF16_FLOOR * floor)
+    return {"max_abs_err": max_abs, "max_abs_lim": lim, "rms_err": err,
+            "rms_twin_vs_f32": ref, "rms_ratio": err / ref if ref else None,
+            "rms_ratio_lim": BF16_KERNEL_RMS, "rms_twin_vs_cpu_twin": floor,
+            "rms_floor_ratio": floor / ref if ref else None, "rms_lim": rms_lim,
+            "passed": bool(got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+                           and max_abs <= lim and err <= rms_lim)}
+
+
+def gate_bf16(label: str, got, twin, twin_f32, twin_cpu, failures) -> dict:
+    row = bf16_gate_row(got, twin, twin_f32, twin_cpu)
+    fail_if(failures, not row.pop("passed"), f"{label}: {row}")
+    return row
+
+
+def to_bf16(t):
+    return t.to(torch.bfloat16)
+
+
+def check_fused_block_bf16(w, x, mask, scale, shift, failures) -> dict:
+    """B1-bf16, self-attention and interaction, against its twin."""
+    from hig_tpu_torch.ops.fused_block import BlockWeights, fused_attention_block
+    from hig_tpu_torch.ops.fused_block import fused_attention_block_plain as plain
+
+    N, Tq, hd = 2 * x.shape[0], x.shape[2], D // HEADS
+    M = N * Tq
+    wb = BlockWeights(*[to_bf16(t) for t in w])
+    w32 = BlockWeights(*[t.float() for t in wb])
+    xb, sb, shb = to_bf16(x), to_bf16(scale), to_bf16(shift)
+    cases = {}
+    for interaction in (False, True):
+        args = (xb, mask, sb, shb, wb, HEADS, interaction)
+        got = fused_attention_block(*args)
+        twin = plain(*args)
+        twin32 = plain(xb.float(), mask, sb.float(), shb.float(), w32, HEADS, interaction)
+        twin_cpu = plain(*on_cpu(args))
+        torch.cuda.synchronize()
+        name = "interaction" if interaction else "self"
+        label = f"fused_block_bf16 {name} {N}x{Tq}"
+        cases[name] = gate_bf16(label, got, twin, twin32, twin_cpu, failures)
+        controls = {}
+        for left_out in B1_CORE_ROUNDINGS:
+            row = bf16_gate_row(plain(*args, unrounded=(left_out,)), twin, twin32, twin_cpu)
+            fail_if(failures, row["passed"],
+                    f"{label}: the twin without the {left_out} rounding passes: {row}")
+            controls[left_out] = row["rms_ratio"]
+        cases[name]["controls_rms_ratio"] = controls
+        cases[name]["ms"] = time_ms(lambda: fused_attention_block(*args))
+        cases[name]["plain_ms"] = time_ms(lambda: plain(*args))
+    parts = [(2 * M * D * 3 * D + 2 * M * D * D, "bf16"),
+             (2 * 2 * N * HEADS * Tq * hd * hd, "bf16")]
+    nbytes = 2 * (2 * M * D + 2 * N * D + 4 * D * D + 8 * D) + 4 * M
+    return bf16_row("fused_block_bf16", "hig_tpu_torch/csrc/fused_block.cu",
+                    "hig_tpu/ops/fused_block.py:48", [N, Tq, D, HEADS], cases, parts, nbytes)
+
+
+def bf16_row(name, source, replaces, shape, cases, parts, nbytes, library=None) -> dict:
+    """Print the kernel's line and return its row: the slower case's time."""
+    b_ms, b_by, b_kind = bound_parts(parts, nbytes)
+    print(json.dumps({"phase": "kernel_bf16", "kernel": name, "shape": shape, "cases": cases,
+                      "gflop": sum(f for f, _ in parts) / 1e9, "mbytes": nbytes / 1e6,
+                      "bound_us": b_ms * 1e3, "bound_by": b_by, "bound_kind": b_kind,
+                      **(library or {})}), flush=True)
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+            "rms_ratio": max(c["rms_ratio"] for c in cases.values()),
+            "ms": max(c["ms"] for c in cases.values()),
+            "plain_ms": max(c["plain_ms"] for c in cases.values()),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_kind": b_kind,
+            "library_ms": (library or {}).get("library_ms")}
+
+
+def check_projected_attention_bf16(w, x, mask, failures) -> dict:
+    """B2-bf16 as the interaction block calls it (kv from the partner)."""
+    from hig_tpu_torch.ops.pallas_attention import fused_projected_attention
+    from hig_tpu_torch.ops.pallas_attention import fused_projected_attention_plain as plain
+
+    N, Tq, hd = 2 * x.shape[0], x.shape[2], D // HEADS
+    M = N * Tq
+    xn = to_bf16(torch.nn.functional.layer_norm(x, (D,), w.ln_g, w.ln_b, 1e-6))
+    kv, kmask = xn.flip(1).contiguous(), mask.flip(1).contiguous()
+    ws = [to_bf16(t) for t in (w.wq, w.bq, w.wk, w.bk, w.wv, w.bv)]
+    args = (xn, kv, *ws, HEADS, kmask)
+    got = fused_projected_attention(*args)
+    twin = plain(*args)
+    twin32 = plain(xn.float(), kv.float(), *[t.float() for t in ws], HEADS, kmask)
+    torch.cuda.synchronize()
+    case = gate_bf16(f"projected_attention_bf16 {N}x{Tq}", got, twin, twin32,
+                     plain(*on_cpu(args)), failures)
+    case["ms"] = time_ms(lambda: fused_projected_attention(*args))
+    case["plain_ms"] = time_ms(lambda: plain(*args))
+    parts = [(2 * M * D * 3 * D, "bf16"), (2 * 2 * N * HEADS * Tq * hd * hd, "3xtf32")]
+    nbytes = 2 * (3 * M * D + 3 * D * D + 3 * D) + 4 * M
+    return bf16_row("projected_attention_bf16", "hig_tpu_torch/csrc/projected_attention.cu",
+                    "hig_tpu/ops/pallas_attention.py:116", [N, Tq, D, HEADS],
+                    {"partner": case}, parts, nbytes)
+
+
+def sdpa_backend(q, k, v, bias) -> str:
+    """The backend torch's scaled_dot_product_attention dispatches these
+    inputs to (``torch._fused_sdp_choice``)."""
+    from torch.nn.attention import SDPBackend
+
+    try:
+        return SDPBackend(torch._fused_sdp_choice(q, k, v, bias, 0.0, False)).name
+    except (AttributeError, RuntimeError, TypeError, ValueError) as e:  # the chooser moved
+        return f"unknown ({type(e).__name__})"
+
+
+def check_flash_attention_bf16(w, x, mask, failures) -> dict:
+    """B4-bf16 as the quadratic blocks call it (q, k, v views of one merged
+    bfloat16 product; partner; causal; 91 queries on 77 keys), against its
+    twin, and torch's scaled_dot_product_attention on the same bfloat16
+    inputs (mask as a bfloat16 bias)."""
+    from hig_tpu_torch.ops.flash_attention import flash_attention
+    from hig_tpu_torch.ops.flash_attention import flash_attention_plain as plain
+
+    F = torch.nn.functional
+    N, Tq, hd = 2 * x.shape[0], x.shape[2], D // HEADS
+    xb = to_bf16(x)
+    wqkv = to_bf16(torch.cat([w.wq, w.wk, w.wv]))
+    bqkv = to_bf16(torch.cat([w.bq, w.bk, w.bv]))
+    q, k, v = (F.linear(xb, wqkv) + bqkv).chunk(3, dim=-1)
+    pk, pv = (F.linear(xb, wqkv[D:]) + bqkv[D:]).chunk(2, dim=-1)
+    cases = {"self": (q, k, v, HEADS, mask, False, False),
+             "partner": (q, pk, pv, HEADS, mask, False, True),
+             "causal": (q, k, v, HEADS, mask, True, False),
+             f"tq{Tq}_tk{TK_SHORT}": (q.contiguous(), k[..., :TK_SHORT, :].contiguous(),
+                                       v[..., :TK_SHORT, :].contiguous(), HEADS,
+                                       mask[..., :TK_SHORT], False, False)}
+
+    def heads(t):
+        return t.reshape(N, t.shape[-2], HEADS, hd).transpose(1, 2)
+
+    out, backend = {}, None
+    for name, args in cases.items():
+        qq, kk, vv, _, m, causal, partner = args
+        Tk = kk.shape[-2]
+        got = flash_attention(*args)
+        twin = plain(*args)
+        twin32 = plain(*[a.float() if torch.is_tensor(a) else a for a in args])
+        if partner:
+            kk, vv, m = kk.flip(1), vv.flip(1), m.flip(1)
+        bias = ((1.0 - m.reshape(N, 1, 1, Tk)) * -1e6).expand(N, 1, Tq, Tk)
+        if causal:
+            bias = bias + (torch.arange(Tk, device=x.device)[None, :]
+                           > torch.arange(Tq, device=x.device)[:, None]) * -1e6
+        sdpa = (heads(qq), heads(kk), heads(vv), to_bf16(bias).contiguous())
+        torch.cuda.synchronize()
+        out[name] = gate_bf16(f"flash_attention_bf16 {name} {N}x{Tq}", got, twin, twin32,
+                              plain(*on_cpu(args)), failures)
+        out[name]["ms"] = time_ms(lambda: flash_attention(*args))
+        out[name]["plain_ms"] = time_ms(lambda: plain(*args))
+        out[name]["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            *sdpa[:3], attn_mask=sdpa[3]))
+        backend = backend or sdpa_backend(*sdpa)
+    path = {c: out[c] for c in ("self", "partner", "causal")}
+    flops = 2 * 2 * N * HEADS * Tq * Tq * hd  # q·kᵀ and P·v, products of bfloat16 values
+    nbytes = 2 * (4 * N * Tq * D) + 4 * N * Tq
+    row = bf16_row("flash_attention_bf16", "hig_tpu_torch/csrc/flash_attention.cu",
+                   "hig_tpu/ops/flash_attention.py:53", [N, Tq, D, HEADS], path,
+                   [(flops, "bf16")], nbytes,
+                   {"library_ms": max(c["library_ms"] for c in path.values()),
+                    "library_backend": backend, "tq_ne_tk": out[f"tq{Tq}_tk{TK_SHORT}"]})
+    row["library_backend"] = backend
+    row["max_abs_err"] = max(c["max_abs_err"] for c in out.values())
+    return row
+
+
+def bf16_kernel_rows(device, failures) -> dict:
+    """Each bfloat16 form at the serving shape, then at the evaluation
+    chunk's shape (under "eval_shape")."""
+    rows = {"fused_block_bf16": check_fused_block_bf16(*block_inputs(device), failures)}
+    w, x, mask, _, _ = block_inputs(device)
+    rows["projected_attention_bf16"] = check_projected_attention_bf16(w, x, mask, failures)
+    rows["flash_attention_bf16"] = check_flash_attention_bf16(w, x, mask, failures)
+    inputs = block_inputs(device, EVAL_CLIPS, EVAL_T)
+    keys = (*TRAIN_SHAPE_KEYS, "rms_ratio")
+    for name, row in (("fused_block_bf16", check_fused_block_bf16(*inputs, failures)),
+                      ("projected_attention_bf16",
+                       check_projected_attention_bf16(*inputs[:3], failures)),
+                      ("flash_attention_bf16", check_flash_attention_bf16(*inputs[:3],
+                                                                          failures))):
+        rows[name]["eval_shape"] = {k: row[k] for k in keys}
+    return rows
+
+
+def bf16_models(f32_models: dict, device) -> dict:
+    """The bfloat16 models at full width, parameters cast once, with the
+    phase-4 models' weights: fused, fast_ln and guided (whose null
+    conditioning is drawn from a seed, N(0, 1) as ``random_flax_tree``
+    draws it) the fused model's, projected and rms_norm (RMSNorm keeps the
+    LayerNorms' scales) the projected one's, no_eff its own."""
+    from hig_tpu_torch.models.interaction_model import InteractionModel
+    from hig_tpu_torch.weights import cast_floating
+
+    gen = torch.Generator().manual_seed(3)
+    models = {}
+    for run, base, extra in (("fused", "fused", {}), ("projected", "projected", {}),
+                             ("no_eff", "no_eff", {}), ("fast_ln", "fused", {"fast_ln": True}),
+                             ("rms_norm", "projected", {"rms_norm": True}),
+                             ("guided", "fused", {"cond_drop_prob": 0.1})):
+        src = f32_models[base].state_dict()
+        model = InteractionModel(dataclasses.replace(f32_models[base].cfg,
+                                                     compute_dtype="bfloat16", **extra))
+        model.load_state_dict({k: src[k] if k in src else torch.randn(v.shape, generator=gen)
+                               for k, v in model.state_dict().items()})
+        models[run] = cast_floating(model.to(device), torch.bfloat16).eval()
+    return models
+
+
+def f32_twin_model(model):
+    """The float32 model with ``model``'s bfloat16-rounded weights."""
+    from hig_tpu_torch.models.interaction_model import InteractionModel
+
+    twin = InteractionModel(dataclasses.replace(model.cfg, compute_dtype="float32"))
+    twin.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
+    return twin.to(next(model.parameters()).device).eval()
+
+
+def route_row(got, plain16, plain32) -> dict:
+    """A route against the plain route (see BF16_ROUTE_RMS): the readings,
+    and under "passed" whether ``got`` meets the limit."""
+    got, plain16, plain32 = (np.asarray(a, np.float64) for a in (got, plain16, plain32))
+    rms = float(np.sqrt(np.mean((got - plain16) ** 2)))
+    ref = float(np.sqrt(np.mean((plain16 - plain32) ** 2)))
+    return {"rms_vs_plain_bf16": rms, "rms_plain_bf16_vs_f32": ref,
+            "rms_ratio": rms / ref if ref else None, "rms_ratio_lim": BF16_ROUTE_RMS,
+            "max_abs_out": float(np.abs(plain16).max()),
+            "passed": bool(np.isfinite(got).all() and rms <= BF16_ROUTE_RMS * ref)}
+
+
+def route_gate(label, got, plain16, plain32, failures) -> dict:
+    row = route_row(got, plain16, plain32)
+    fail_if(failures, not row.pop("passed"), f"{label}: {row}")
+    return row
+
+
+def first_layer(model):
+    """``model`` cut to its first layer: full width, the same weights and dtype."""
+    from hig_tpu_torch.models.interaction_model import InteractionModel
+    from hig_tpu_torch.weights import cast_floating
+
+    cut = InteractionModel(dataclasses.replace(model.cfg, num_layers=1))
+    state = model.state_dict()
+    cut.load_state_dict({k: state[k] for k in cut.state_dict()})
+    return cast_floating(cut.to(next(model.parameters()).device), model.cfg.dtype).eval()
+
+
+def phase_bf16(f32_models: dict, device, failures, smi: str, tmp: str) -> tuple:
+    """Phase 10 (see the module doc). Returns (the bfloat16 kernel rows with
+    their launches, the serving calls for the profile and their walls)."""
+    from hig_tpu_torch import serve
+    from hig_tpu_torch.diffusion import gaussian as g
+    from hig_tpu_torch.train.trainer import make_sampler
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    rows = bf16_kernel_rows(device, failures)
+    launches = {form: 0 for form in BF16_FORMS}
+    models = bf16_models(f32_models, device)
+
+    # denoiser: one full-width call per model through the kernels, against
+    # the plain route in bfloat16 and in float32 on the same inputs, at
+    # full depth (reported) and at the first layer (held, with the control)
+    gen = torch.Generator().manual_seed(2)
+    cfg = models["fused"].cfg
+    x = torch.randn((N_PAIRS, 2, T, cfg.input_feats), generator=gen).to(device)
+    t = torch.full((N_PAIRS,), 500, device=device)
+    lengths = torch.tensor(LENGTHS, device=device) + 1
+    xf_proj = to_bf16(torch.randn((N_PAIRS, 2, cfg.time_embed_dim), generator=gen).to(device))
+    xf_out = to_bf16(torch.randn((N_PAIRS, 2, 77, cfg.text_latent_dim), generator=gen)
+                     .to(device))
+    # the same conditioning with one element a pair moved by one bfloat16 ulp
+    xf_proj_ulp = xf_proj.clone()
+    xf_proj_ulp[:, 0, 0] = (xf_proj_ulp[:, 0, 0].view(torch.int16) + 1).view(torch.bfloat16)
+    with torch.no_grad():
+        for run, form in BF16_DENOISER_RUNS.items():
+            model = models[run]
+            twin = f32_twin_model(model)
+            got = model.denoise(x, t, lengths, xf_proj, xf_out)
+            with plain_blocks():
+                p16 = model.denoise(x, t, lengths, xf_proj, xf_out)
+                p32 = twin.denoise(x, t, lengths, xf_proj.float(), xf_out.float())
+                p16_ulp = model.denoise(x, t, lengths, xf_proj_ulp, xf_out)
+            del twin
+            row = route_row(got.float().cpu(), p16.float().cpu(), p32.cpu())
+            del row["passed"]  # reported: see BF16_ROUTE_RMS
+            ulp = (p16_ulp.float() - p16.float()).pow(2).mean().sqrt().item()
+            row.update(rms_plain_bf16_one_ulp_a_pair=ulp,
+                       one_ulp_ratio=ulp / row["rms_plain_bf16_vs_f32"])
+            fail_if(failures, got.dtype != torch.bfloat16
+                    or not torch.isfinite(got.float()).all(),
+                    f"bf16 denoiser ({run}): {got.dtype}, {row}")
+            cut = first_layer(model)
+            twin = f32_twin_model(cut)
+            got = cut.denoise(x, t, lengths, xf_proj, xf_out)
+            with plain_blocks():
+                p16 = cut.denoise(x, t, lengths, xf_proj, xf_out).float().cpu()
+                p32 = twin.denoise(x, t, lengths, xf_proj.float(), xf_out.float()).cpu()
+            with plain_blocks(control=True):
+                control = route_row(cut.denoise(x, t, lengths, xf_proj, xf_out).float().cpu(),
+                                    p16, p32)
+            del cut, twin
+            first = route_gate(f"bf16 denoiser ({run}, first layer)", got.float().cpu(), p16,
+                               p32, failures)
+            if form in FORMS_WITH_INNER_ROUNDINGS:
+                fail_if(failures, control["passed"],
+                        f"bf16 denoiser ({run}, first layer): the control passes: {control}")
+            print(json.dumps({"phase": "bf16_denoiser", "run": run, "full_depth": row,
+                              "first_layer": first,
+                              "first_layer_control_rms_ratio": control["rms_ratio"]}),
+                  flush=True)
+
+    # serving: 8 requests, DDIM-50, through each run's bfloat16 form
+    requests = serve_requests()
+    sched = g.make_schedule(g.linear_betas(1000))
+    mean, std = serve.load_stats(None, cfg.input_feats)
+    runs, walls = {}, {}
+    for run, (own, w) in BF16_SERVE_RUNS.items():
+        model = models[run]
+        twin = f32_twin_model(model)
+        t_run = time.perf_counter()
+
+        def call(seed=0, sample_fn=make_sampler(model, sched, T=T, dim_pose=cfg.input_feats,
+                                                ddim_steps=DDIM_STEPS, guidance_scale=w)):
+            gen = torch.Generator(device=device).manual_seed(seed)
+            return serve.serve_batch(sample_fn, requests, mean, std, device, gen)
+
+        call()  # warm-up
+        call_walls, call_counts = [], []
+        for _ in range(SERVE_CALLS):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            features, joints = call()
+            torch.cuda.synchronize()
+            call_walls.append(time.perf_counter() - t0)
+            call_counts.append(bf16_counts())
+        twin_fn = make_sampler(twin, sched, T=T, dim_pose=cfg.input_feats,
+                               ddim_steps=DDIM_STEPS, guidance_scale=w)
+        with plain_blocks():
+            p16, _ = call()
+            p32, _ = serve.serve_batch(twin_fn, requests, mean, std, device,
+                                       torch.Generator(device=device).manual_seed(0))
+        with plain_blocks(control=True):
+            control = route_row(call()[0], p16, p32)
+        del twin, twin_fn
+        row = route_gate(f"bf16 serve ({run})", features, p16, p32, failures)
+        row["control_rms_ratio"] = control["rms_ratio"]
+        wall = statistics.median(call_walls)
+        print(json.dumps({"phase": "bf16_serve", "run": run, "nvidia_smi": smi,
+                          "guidance_scale": w, "requests": len(requests), "T": T,
+                          "ddim_steps": DDIM_STEPS, "launches": call_counts[0],
+                          "wall_s_per_call": wall, "wall_s_calls": call_walls,
+                          "finite": bool(np.isfinite(features).all()
+                                         and np.isfinite(joints).all()),
+                          "joints_shape": list(joints.shape), **row,
+                          "seconds": time.perf_counter() - t_run}), flush=True)
+        fail_if(failures, any(c[name] != (LAUNCHES_PER_CALL if name == own else 0)
+                              for c in call_counts for name in c),
+                f"bf16 serve ({run}) launches {call_counts}")
+        fail_if(failures, tuple(joints.shape) != (N_PAIRS, 2, T - 1, 22, 3)
+                or not np.isfinite(joints).all(), f"bf16 serve ({run}) joints {joints.shape}")
+        launches[own] += call_counts[0][own]
+        if run in ("fused", "guided"):
+            runs[f"serve_bf16_{run}"], walls[f"serve_bf16_{run}"] = call, wall
+    del models
+
+    launches["fused_block_bf16"] += bf16_evaluate(failures, smi, tmp)
+    for form, row in rows.items():
+        row["launches"] = launches[form]
+    seconds = time.perf_counter() - t_phase
+    print(json.dumps({"phase": "bf16", "seconds": seconds}), flush=True)
+    return rows, runs, walls
+
+
+def bf16_evaluate(failures, smi: str, tmp: str) -> int:
+    """``python -m hig_tpu_torch.evaluate``'s main from stage 1-3's
+    checkpoint as a bfloat16 run (a copy of its opt.txt with
+    ``compute_dtype: bfloat16``) with --fast_ln, DPM-20 at T = 196. Returns
+    its B1-bf16 launches."""
+    from hig_tpu_torch import evaluate
+
+    opt = os.path.join(tmp, "cfg_supervised_eval_opt.txt")
+    with open(opt) as f:
+        text = f.read()
+    fail_if(failures, "compute_dtype: float32\n" not in text, "stage 1-3's opt.txt: no dtype")
+    opt_bf16 = os.path.join(tmp, "cfg_supervised_bf16_opt.txt")
+    with open(opt_bf16, "w") as f:
+        f.write(text.replace("compute_dtype: float32\n", "compute_dtype: bfloat16\n"))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = evaluate.main(["--opt_path", opt_bf16, "--mm_num_times", "1", "--file_id", "bf16",
+                         *BF16_EVAL_RUN])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = bf16_counts()
+    with open(os.path.join(out["save_dir"], "summarybf16.json")) as f:
+        summary = json.load(f)
+    cm = np.load(os.path.join(out["save_dir"], "confusion_matrixbf16_rep0.npy"))
+    values = [v for models_ in summary.values() for mv in models_.values() for v in mv]
+    means = {m: {k: v[0] for k, v in summary.get(m, {}).items()} for m in METRICS}
+    print(json.dumps({"phase": "bf16_evaluate", "nvidia_smi": smi, "args": BF16_EVAL_RUN,
+                      "test_clips": EVAL_CLIPS, "launches": counts,
+                      "expected_b1_bf16": BF16_EVAL_LAUNCHES, "wall_s": wall,
+                      "summary": summary, "confusion_sum": int(cm.sum())}), flush=True)
+    fail_if(failures, any(counts[n] != (BF16_EVAL_LAUNCHES if n == "fused_block_bf16" else 0)
+                          for n in counts), f"bf16 evaluate launches {counts}")
+    fail_if(failures, list(summary) != list(METRICS) or not np.isfinite(values).all()
+            or not all(0.0 <= v <= 1.0 for m in ("Acc", "Consistency")
+                       for v in means[m].values())
+            or not all(v >= 0.0 for v in means["FID"].values()),
+            f"bf16 evaluate summary {summary}")
+    fail_if(failures, int(cm.sum()) != EVAL_CLIPS, f"bf16 evaluate confusion sum {cm.sum()}")
+    return counts["fused_block_bf16"]
+
+
 def trainer_dataset(cfg):
     from hig_tpu_torch.data.dataset import PairDataset, load_training_stats
 
@@ -1353,10 +1932,14 @@ def main() -> int:
         eval_launches, eval_runs = phase_evaluate(device, failures, smi, data, tmp,
                                                   models["fused"])
         lap("evaluate")
+        bf16_rows, bf16_runs, bf16_walls = phase_bf16(models, device, failures, smi, tmp)
+        lap("bf16")
         runs["train_step_pit"], walls["train_step_pit"] = train_step, step_s
         for run, (call, wall) in (*pipeline_runs.items(), *eval_runs.items()):
             runs[run], walls[run] = call, wall
-        per_call = {run: LAUNCHES_PER_CALL for run in (*SERVE_RUNS, "serve_guided")}
+        runs.update(bf16_runs)
+        walls.update(bf16_walls)
+        per_call = {run: LAUNCHES_PER_CALL for run in (*SERVE_RUNS, "serve_guided", *bf16_runs)}
         per_call["train_step_pit"] = per_call["label_vote"] = LAUNCHES_PER_STEP
         per_call["serve_ddpm"] = LAUNCHES_PER_STEP * 1000
         phase_profile(runs, walls, per_call)
@@ -1366,6 +1949,7 @@ def main() -> int:
     for name, row in rows.items():
         row["launches"] = (launches[name] + train_launches[name] + pipeline_launches[name]
                            + eval_launches[name])
+    rows.update(bf16_rows)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(smi, flush=True)
     if failures:

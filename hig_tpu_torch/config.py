@@ -4,8 +4,11 @@ read, with the same names and defaults).
 
 Options the port does not carry yet are still fields, so that setting one
 is refused with a clear message instead of being ignored: the
-pipeline/FSDP/tensor-parallel layouts, the native loader, profiling, bf16,
-the single-transformer variant, dropout and the ``--pretrained`` transfer.
+pipeline/FSDP/tensor-parallel layouts, the native loader, profiling, the
+single-transformer variant, dropout and the ``--pretrained`` transfer.
+``compute_dtype: bfloat16``, ``fast_ln`` and ``rms_norm`` are served and
+evaluated; training and labeling refuse them
+(:func:`refuse_reduced_precision`).
 Caption dropout (``cond_drop_prob``) belongs to the supervised stage and is
 refused without ``label_path``, as the JAX loss refuses it.
 
@@ -18,9 +21,8 @@ the port has no field for. They fall in two sets:
   ``save_label_dir``, ``multi``, and ``window_size`` at 90, the window the
   port's datasets take): read and skipped;
 - :data:`JAX_MODEL_KEYS` change the function the model computes
-  (``fast_ln``, ``rms_norm``, ``only_language``, ``only_motion``, and
-  ``window_size`` off 90): refused, naming the key, unless at the JAX
-  default.
+  (``only_language``, ``only_motion``, and ``window_size`` off 90):
+  refused, naming the key, unless at the JAX default.
 
 Other unknown keys (the reference's own opt.txt extras) are skipped, as the
 JAX loader skips them.
@@ -34,7 +36,7 @@ import os
 from os.path import join as pjoin
 from typing import Optional
 
-from hig_tpu_torch.models.interaction_model import ModelConfig
+from hig_tpu_torch.models.interaction_model import COMPUTE_DTYPES, ModelConfig
 from hig_tpu_torch.models.text_encoder import ClipTextConfig
 
 CFG_UNDER_PIT = (
@@ -45,8 +47,7 @@ CFG_UNDER_PIT = (
 SAMPLERS = ("ddpm", "ddim", "dpm")
 # Keys of a JAX run's opt.txt without a field here (hig_tpu/config.py) that
 # change the model's function: refused unless at these JAX defaults.
-JAX_MODEL_KEYS = {"fast_ln": "False", "rms_norm": "False", "only_language": "False",
-                  "only_motion": "False", "window_size": "90"}
+JAX_MODEL_KEYS = {"only_language": "False", "only_motion": "False", "window_size": "90"}
 
 
 @dataclasses.dataclass
@@ -115,9 +116,15 @@ class ExperimentConfig:
     sampler: str = "ddpm"
     ddim_steps: int = 50
 
+    # "float32" | "bfloat16"; fast_ln keeps the efficient blocks' LayerNorm
+    # statistics in the compute dtype; rms_norm swaps their LayerNorms for
+    # RMSNorms. Served and evaluated; training and labeling refuse them.
+    compute_dtype: str = "float32"
+    fast_ln: bool = False
+    rms_norm: bool = False
+
     # not ported yet: must stay at these values
     use_native_loader: bool = False
-    compute_dtype: str = "float32"
     fsdp: bool = False
     tp: bool = False
     pp_micro: int = 0
@@ -134,13 +141,16 @@ class ExperimentConfig:
             "no_cross_attn": self.no_cross_attn, "single_transformer": self.single_transformer,
             "use_native_loader": self.use_native_loader, "fsdp": self.fsdp, "tp": self.tp,
             "pp_micro": self.pp_micro > 0, "profile": self.profile,
-            "dropout": self.dropout > 0.0, "compute_dtype": self.compute_dtype != "float32",
+            "dropout": self.dropout > 0.0,
         }
         bad = sorted(name for name, on in refused.items() if on)
         if bad:
             raise ValueError(f"hig_tpu_torch does not port these training options yet: {bad}")
         if self.cond_drop_prob > 0.0 and self.label_path is None:
             raise ValueError(CFG_UNDER_PIT)
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, "
+                             f"got {self.compute_dtype!r}")
         if self.sampler not in SAMPLERS:
             raise ValueError(f"sampler must be one of {SAMPLERS}, got {self.sampler!r}")
         if self.grad_accum < 1 or self.batch_size % self.grad_accum:
@@ -199,7 +209,20 @@ def model_config(cfg: ExperimentConfig, clip: ClipTextConfig | None = None) -> M
         num_text_layers=cfg.num_text_layers, clip=clip or ClipTextConfig(),
         efficient=not cfg.no_eff, causal=cfg.causal, dropout=cfg.dropout,
         cap_id=cfg.cap_id, cond_drop_prob=cfg.cond_drop_prob,
+        compute_dtype=cfg.compute_dtype, fast_ln=cfg.fast_ln, rms_norm=cfg.rms_norm,
     )
+
+
+def refuse_reduced_precision(cfg: ExperimentConfig, what: str) -> None:
+    """Training and labeling run float32 LayerNorm models only: raise,
+    naming the options, for ``compute_dtype`` other than float32,
+    ``fast_ln`` or ``rms_norm``."""
+    bad = [name for name, on in (("compute_dtype", cfg.compute_dtype != "float32"),
+                                 ("fast_ln", cfg.fast_ln), ("rms_norm", cfg.rms_norm)) if on]
+    if bad:
+        raise ValueError(
+            f"hig_tpu_torch does not port {what} with {bad} yet: bf16 training and labeling "
+            "come in the next slice (serving and evaluation take these options)")
 
 
 _HEADER = "------------ Options -------------"

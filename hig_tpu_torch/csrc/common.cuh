@@ -8,8 +8,17 @@
 // (mma.sync m16n8k8, float32 accumulators). Only lo * lo (~2^-22 of the
 // product) is dropped, so the result keeps float32-level error, where one
 // plain TF32 product keeps ~2^-11.
+//
+// bfloat16. The bfloat16 forms of the kernels take bfloat16 operands on
+// mma.sync m16n8k16 (float32 accumulators), round float32 values to
+// bfloat16 with round-to-nearest-even (what XLA's convert does), and move
+// bfloat16 data through the same float4/float2-sized loads and stores.
+// A bfloat16 value has 8 significant bits, so it is exact in TF32 (11): a
+// TF32 product of two bfloat16-rounded floats is exact, and
+// mma_tf32_exact takes it in one term where 3xTF32 would add two zeros.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -76,6 +85,87 @@ __device__ __forceinline__ void mma_3xtf32(float* acc, const Split* a, const Spl
         mma_tf32(acc + 4 * (J * i + j), af, bf);
       }
 }
+
+// acc[i][j] += a[i] * b[j] for operands that are exact in TF32 (bfloat16-
+// rounded floats): the hi parts only, one term. Layouts as mma_3xtf32.
+template <int I, int J>
+__device__ __forceinline__ void mma_tf32_exact(float* acc, const Split* a, const Split* b) {
+#pragma unroll
+  for (int i = 0; i < I; ++i)
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const uint32_t af[4] = {a[4 * i].hi, a[4 * i + 1].hi, a[4 * i + 2].hi, a[4 * i + 3].hi};
+      const uint32_t bf[2] = {b[2 * j].hi, b[2 * j + 1].hi};
+      mma_tf32(acc + 4 * (J * i + j), af, bf);
+    }
+}
+
+// d += a * b for one m16n8k16 tile, bfloat16 inputs, float32 accumulators.
+// Each register holds two bfloat16, the lower k in the low half. Fragments
+// (g = lane / 4, c = lane % 4): a[0] (row g, k 2c, 2c + 1), a[1] (g + 8,
+// 2c..), a[2] (g, 2c + 8..), a[3] (g + 8, 2c + 8..); b[0] (k 2c, 2c + 1,
+// col g), b[1] (k 2c + 8.., col g); d as mma_tf32.
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Two floats as one register of two bfloat16, `lo` in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
+// Four consecutive elements (16-byte aligned for float, 8 for bfloat16)
+// as a float4, and back.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = unpack_bf16(u.x), b = unpack_bf16(u.y);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+}
+
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return unpack_bf16(*reinterpret_cast<const uint32_t*>(p));
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
 
 // 16-byte asynchronous copy global -> shared; `valid` false writes zeros.
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {

@@ -254,6 +254,193 @@ __global__ void __launch_bounds__(FA_MAX_WARPS * 32) flash_attention_kernel(
   }
 }
 
+// B4-bf16: the kernel above for bfloat16 q, k, v and out, rounding where
+// the Pallas kernel rounds for dt = bfloat16 (hig_tpu/ops/flash_attention.py:
+// 53-86): scores and the online softmax in float32 over the Pallas key
+// blocks of `bk` keys (min(128, Tk rounded up to 8)); in each block
+// p = exp(s - running max) is rounded to bfloat16 for P v. Where p rounds
+// depends on the running max, so the key blocks are the Pallas kernel's:
+// each warp scores a whole block (up to 128 keys) on mma.sync m16n8k16
+// bfloat16 with float32 accumulators: a product of two bfloat16 values is
+// exact in float32, so these are the products of the Pallas kernel's
+// upcast q and k, summed in float32. It takes the block's row max, rescales
+// its running sums, and runs P v on the same instruction, P taken from the
+// score registers (an S tile pair of 16 keys is P's A fragment).
+// Keys past Tk inside a block score -1e6 (the Pallas kernel's zero
+// padding with a zero mask); keys past the block, up to the next multiple
+// of 16, score -inf and weigh exactly 0. out = acc / l rounded to bfloat16.
+// One block per (sequence, head, up to 128 query rows), one warp per 16
+// rows, a Pallas key block in shared memory at a time.
+constexpr int FB_BLOCK = 128;         // the Pallas kernel's largest key block
+constexpr int FB_RS = FA_HD + 8;      // bfloat16 row stride of k and v in shared memory
+constexpr int FB_TILES = FB_BLOCK / 8;  // n8 score tiles of a block
+
+__global__ void __launch_bounds__(FA_MAX_WARPS * 32) flash_attention_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const float* __restrict__ mask, bf16* __restrict__ out, int H, int Tq, int Tk,
+    int ldq, int ldkv, int ldo, int partner, int causal, int bk) {
+  __shared__ __align__(16) bf16 k_s[FB_BLOCK * FB_RS];
+  __shared__ __align__(16) bf16 v_s[FB_BLOCK * FB_RS];
+  __shared__ float bias_s[FB_BLOCK];
+
+  const int n = blockIdx.x / H, h = blockIdx.x % H;
+  const int src = partner ? (n ^ 1) : n;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, c = lane & 3;
+  const int nthreads = blockDim.x;
+  const int tw0 = blockIdx.y * (blockDim.x / 2) + warp * 16;  // first query row of this warp
+  const int t_lo = tw0 + g, t_hi = tw0 + g + 8;
+  const bool warp_rows = tw0 < Tq;
+  const bf16* kb = k + (size_t)src * Tk * ldkv + h * FA_HD;
+  const bf16* vb = v + (size_t)src * Tk * ldkv + h * FA_HD;
+  const float* mb = mask + (size_t)src * Tk;
+  const int steps = (bk + 15) / 16;  // k16 steps of P v per block
+
+  // q fragments: the A operand of m16n8k16, bfloat16 pairs read in place
+  // (rows t_lo and t_hi; depth 2c, 2c + 1 and 2c + 8, 2c + 9 of each
+  // 16-deep step). The scale 1/8 goes on the float32 scores, where it is
+  // exact, as on q in the Pallas kernel.
+  uint32_t qa[FA_HD / 16][4];
+  {
+    const bf16* q0 = q + ((size_t)n * Tq + min(t_lo, Tq - 1)) * ldq + h * FA_HD + 2 * c;
+    const bf16* q1 = q + ((size_t)n * Tq + min(t_hi, Tq - 1)) * ldq + h * FA_HD + 2 * c;
+#pragma unroll
+    for (int kk = 0; kk < FA_HD / 16; ++kk) {
+      qa[kk][0] = *reinterpret_cast<const uint32_t*>(q0 + 16 * kk);
+      qa[kk][1] = *reinterpret_cast<const uint32_t*>(q1 + 16 * kk);
+      qa[kk][2] = *reinterpret_cast<const uint32_t*>(q0 + 16 * kk + 8);
+      qa[kk][3] = *reinterpret_cast<const uint32_t*>(q1 + 16 * kk + 8);
+    }
+  }
+
+  float o[FA_HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < FA_HD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m_lo = -1e30f, m_hi = -1e30f, l_lo = 0.f, l_hi = 0.f;  // Pallas's m0
+
+  for (int j0 = 0; j0 < Tk; j0 += bk) {
+    for (int i = tid; i < steps * 16 * (FA_HD / 8); i += nthreads) {
+      const int r = i / (FA_HD / 8), col = (i % (FA_HD / 8)) * 8;
+      const int key = j0 + r;
+      const bool ok = r < bk && key < Tk;
+      const size_t off = (size_t)(ok ? key : 0) * ldkv + col;
+      cp_async16(k_s + r * FB_RS + col, kb + off, ok);
+      cp_async16(v_s + r * FB_RS + col, vb + off, ok);
+    }
+    cp_async_commit();
+    for (int r = tid; r < steps * 16; r += nthreads) {
+      const int key = j0 + r;
+      bias_s[r] = r >= bk ? -INFINITY : key < Tk ? (1.f - mb[key]) * FA_MASK_BIAS
+                                                 : FA_MASK_BIAS;
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the block's keys, values and biases are in
+
+    if (warp_rows) {
+      // S = q k^T over the block: n8 tiles of keys j0 + 8 j + {2c, 2c + 1}
+      float sc[FB_TILES][4];
+#pragma unroll
+      for (int j = 0; j < FB_TILES; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < FA_HD / 16; ++kk) {
+#pragma unroll
+        for (int j = 0; j < FB_TILES; ++j) {
+          if (j < 2 * steps) {
+            const bf16* kr = k_s + (8 * j + g) * FB_RS + 16 * kk + 2 * c;
+            const uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(kr),
+                                   *reinterpret_cast<const uint32_t*>(kr + 8)};
+            mma_bf16(sc[j], qa[kk], b);
+          }
+        }
+      }
+      float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < FB_TILES; ++j) {
+        if (j < 2 * steps) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = 8 * j + 2 * c + (e & 1);
+            const int t = e < 2 ? t_lo : t_hi;
+            float x = sc[j][e] * FA_SCALE + bias_s[r];
+            if (causal && j0 + r > t) x += FA_MASK_BIAS;
+            sc[j][e] = x;
+            if (e < 2) mx_lo = fmaxf(mx_lo, x); else mx_hi = fmaxf(mx_hi, x);
+          }
+        }
+      }
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
+      const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+      const float al_lo = expf(m_lo - mn_lo), al_hi = expf(m_hi - mn_hi);
+      m_lo = mn_lo;
+      m_hi = mn_hi;
+      l_lo *= al_lo;
+      l_hi *= al_hi;
+#pragma unroll
+      for (int j = 0; j < FB_TILES; ++j) {
+        if (j < 2 * steps) {
+          sc[j][0] = expf(sc[j][0] - mn_lo);
+          sc[j][1] = expf(sc[j][1] - mn_lo);
+          sc[j][2] = expf(sc[j][2] - mn_hi);
+          sc[j][3] = expf(sc[j][3] - mn_hi);
+          l_lo += sc[j][0] + sc[j][1];
+          l_hi += sc[j][2] + sc[j][3];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < FA_HD / 8; ++j) {
+        o[j][0] *= al_lo;
+        o[j][1] *= al_lo;
+        o[j][2] *= al_hi;
+        o[j][3] *= al_hi;
+      }
+      // O += P v, 16 keys a step: tiles 2s and 2s + 1 of S are P's A
+      // fragment (rows g, g + 8; keys 2c, 2c + 1 and 2c + 8, 2c + 9)
+#pragma unroll
+      for (int st = 0; st < FB_TILES / 2; ++st) {
+        if (st < steps) {
+          const uint32_t a[4] = {pack_bf16(sc[2 * st][0], sc[2 * st][1]),
+                                 pack_bf16(sc[2 * st][2], sc[2 * st][3]),
+                                 pack_bf16(sc[2 * st + 1][0], sc[2 * st + 1][1]),
+                                 pack_bf16(sc[2 * st + 1][2], sc[2 * st + 1][3])};
+          const bf16* v0 = v_s + (16 * st + 2 * c) * FB_RS + g;
+#pragma unroll
+          for (int jn = 0; jn < FA_HD / 8; ++jn) {
+            const bf16* vc = v0 + 8 * jn;
+            const uint32_t b[2] = {
+                pack_bf16(to_float(vc[0]), to_float(vc[FB_RS])),
+                pack_bf16(to_float(vc[8 * FB_RS]), to_float(vc[9 * FB_RS]))};
+            mma_bf16(o[jn], a, b);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this block before the next one
+  }
+
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
+  const float d_lo = fmaxf(l_lo, 1e-30f), d_hi = fmaxf(l_hi, 1e-30f);
+  if (t_lo < Tq) {
+    bf16* orow = out + ((size_t)n * Tq + t_lo) * ldo + h * FA_HD + 2 * c;
+#pragma unroll
+    for (int j = 0; j < FA_HD / 8; ++j) store2(orow + 8 * j, o[j][0] / d_lo, o[j][1] / d_lo);
+  }
+  if (t_hi < Tq) {
+    bf16* orow = out + ((size_t)n * Tq + t_hi) * ldo + h * FA_HD + 2 * c;
+#pragma unroll
+    for (int j = 0; j < FA_HD / 8; ++j) store2(orow + 8 * j, o[j][2] / d_hi, o[j][3] / d_hi);
+  }
+}
+
 }  // namespace hig
 
 extern "C" int hig_flash_attention(
@@ -272,5 +459,20 @@ extern "C" int hig_flash_attention(
   hig::flash_attention_kernel<<<grid, 32 * warps, hig::fa_smem(tile),
                                 static_cast<cudaStream_t>(stream_ptr)>>>(
       q, k, v, mask, out, H, Tq, Tk, ldq, ldkv, ldo, partner, causal, tile);
+  return cudaGetLastError();
+}
+
+extern "C" int hig_flash_attention_bf16(
+    const hig::bf16* q, const hig::bf16* k, const hig::bf16* v, const float* mask,
+    hig::bf16* out, int N, int H, int Tq, int Tk, int ldq, int ldkv, int ldo, int partner,
+    int causal, void* stream_ptr) {
+  const int tiles = (Tq + 15) / 16;
+  const int warps = tiles < hig::FA_MAX_WARPS ? tiles : hig::FA_MAX_WARPS;
+  const int keys8 = (Tk + 7) / 8 * 8;
+  const int bk = keys8 < hig::FB_BLOCK ? keys8 : hig::FB_BLOCK;  // the Pallas key block
+  const dim3 grid(N * H, (tiles + warps - 1) / warps);
+  hig::flash_attention_bf16_kernel<<<grid, 32 * warps, 0,
+                                     static_cast<cudaStream_t>(stream_ptr)>>>(
+      q, k, v, mask, out, H, Tq, Tk, ldq, ldkv, ldo, partner, causal, bk);
   return cudaGetLastError();
 }

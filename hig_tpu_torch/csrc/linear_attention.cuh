@@ -51,9 +51,23 @@
 // column blocks of their (N*T, 3*D) q | k | v buffer (stride 3*D), B3
 // passes three (N, T, D) tensors (stride D).
 //
+// bfloat16 forms (B1-bf16, B2-bf16). The row pass reads float32 or
+// bfloat16 rows and writes either (statistics in float32 always, as the
+// Pallas kernel keeps them); gemm_bf16_kernel is the GEMM above with
+// bfloat16 operands on mma.sync m16n8k16 (float32 accumulators; 32-deep
+// stages of 40-element rows, so the 32-bit fragment loads are free of bank
+// conflicts), float32 output for q | k | v and, for Wo, a bfloat16 output
+// rounded once after the bias and the residual are added in float32. The
+// core takes ROUND (B1-bf16): it normalizes softmax_time(k) before it
+// rounds it (a pass over the keys for the column sums first), rounds v, the
+// state and softmax_feat(q) to bfloat16 where the Pallas kernel casts, and
+// multiplies the rounded values exactly (mma_tf32_exact); without ROUND it
+// is the float32 core, which may store its output as bfloat16 (B2-bf16).
+//
 // Assumptions, checked by the Python wrappers: D % 64 == 0 (B1: D % 128 ==
 // 0 and D <= 1024 for the row pass), head dim 64, every pointer 16-byte
-// aligned, every row stride a multiple of 4 floats, float32 throughout.
+// aligned, every row stride a multiple of 4 floats, float32 throughout
+// except the bfloat16 forms' activations and weights.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -103,23 +117,24 @@ struct GemmArgs {
 // One warp per row, read once into registers (D <= NORM_MAX_D, D % 128 ==
 // 0), statistics in two passes (mean, then centred variance) as the plain
 // LayerNorm takes them. `in` may equal `out`.
+// TI, TO: the element types of `in` and `out`; TP: of g, b, scale, shift.
 constexpr int NORM_MAX_D = 1024;
-template <bool STYL>
+template <bool STYL, typename TI = float, typename TO = float, typename TP = float>
 __global__ void __launch_bounds__(NORM_THREADS) row_norm_kernel(
-    const float* in, float* out, const float* __restrict__ g, const float* __restrict__ b,
-    const float* __restrict__ scale, const float* __restrict__ shift, int M, int D, int T) {
+    const TI* in, TO* out, const TP* __restrict__ g, const TP* __restrict__ b,
+    const TP* __restrict__ scale, const TP* __restrict__ shift, int M, int D, int T) {
   constexpr int VPL = NORM_MAX_D / 128;  // float4s per lane at most
   const int row = blockIdx.x * (NORM_THREADS / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= M) return;
   const int nv = D / 128;
-  const float4* xr = reinterpret_cast<const float4*>(in + (size_t)row * D);
+  const TI* xr = in + (size_t)row * D;
   float4 x[VPL];
   float s = 0.f;
 #pragma unroll
   for (int i = 0; i < VPL; ++i) {
     if (i < nv) {
-      x[i] = xr[lane + 32 * i];
+      x[i] = load4(xr + 4 * (lane + 32 * i));
       s += (x[i].x + x[i].y) + (x[i].z + x[i].w);
     }
   }
@@ -136,18 +151,18 @@ __global__ void __launch_bounds__(NORM_THREADS) row_norm_kernel(
   }
   const float rs = rsqrtf(warp_sum(var) / D + LN_EPS);
   const size_t nD = (size_t)(row / T) * D;
-  float4* orow = reinterpret_cast<float4*>(out + (size_t)row * D);
+  TO* orow = out + (size_t)row * D;
 #pragma unroll
   for (int i = 0; i < VPL; ++i) {
     if (i < nv) {
       const int c4 = lane + 32 * i;
-      const float4 gg = reinterpret_cast<const float4*>(g)[c4];
-      const float4 bb = reinterpret_cast<const float4*>(b)[c4];
+      const float4 gg = load4(g + 4 * c4);
+      const float4 bb = load4(b + 4 * c4);
       float e[4] = {(x[i].x - mu) * rs * gg.x + bb.x, (x[i].y - mu) * rs * gg.y + bb.y,
                     (x[i].z - mu) * rs * gg.z + bb.z, (x[i].w - mu) * rs * gg.w + bb.w};
       if (STYL) {
-        const float4 sc = reinterpret_cast<const float4*>(scale + nD)[c4];
-        const float4 sh = reinterpret_cast<const float4*>(shift + nD)[c4];
+        const float4 sc = load4(scale + nD + 4 * c4);
+        const float4 sh = load4(shift + nD + 4 * c4);
         const float scv[4] = {sc.x, sc.y, sc.z, sc.w}, shv[4] = {sh.x, sh.y, sh.z, sh.w};
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -155,7 +170,7 @@ __global__ void __launch_bounds__(NORM_THREADS) row_norm_kernel(
           e[j] = a / (1.f + expf(-a));
         }
       }
-      orow[c4] = make_float4(e[0], e[1], e[2], e[3]);
+      store4(orow + 4 * c4, make_float4(e[0], e[1], e[2], e[3]));
     }
   }
 }
@@ -267,6 +282,135 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(const GemmArgs p) {
   }
 }
 
+// The bfloat16 GEMM's arguments: as GemmArgs with bfloat16 activations,
+// weights, biases and residual; `out` is float (BIAS) or bfloat16
+// (BIAS_RESID).
+struct GemmArgsBf16 {
+  const bf16* a0;
+  const bf16* a1;
+  const bf16* w0;
+  const bf16* w1;
+  const bf16* w2;
+  const bf16* b0;
+  const bf16* b1;
+  const bf16* b2;
+  const bf16* resid;
+  void* out;
+  int M, K, D, ldo;
+};
+
+constexpr int BK16 = 32;         // bfloat16 GEMM depth per pipeline stage
+constexpr int SK16 = BK16 + 8;   // its shared-memory row stride (80 bytes)
+
+// gemm_kernel with bfloat16 operands: grid and tiles as there, a 32-deep
+// stage is two m16n8k16 steps. TO is the output's element type.
+template <int BM, int BN, int EPI, typename TO>
+__global__ void __launch_bounds__(GEMM_THREADS) gemm_bf16_kernel(const GemmArgsBf16 p) {
+  constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;  // warp tile
+  constexpr int MT = WM / 16, NT = WN / 8;  // m16 and n8 tiles per warp
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  bf16* As = reinterpret_cast<bf16*>(smem_bytes);  // [STAGES][BM][SK16]
+  bf16* Bs = As + STAGES * BM * SK16;               // [STAGES][BN][SK16]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, c = lane & 3;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const int row0 = blockIdx.y * BM;
+  const int col0 = blockIdx.x * BN;
+  const int seg = col0 / p.D;
+  const int wrow0 = col0 - seg * p.D;
+  const bf16* A = seg == 0 ? p.a0 : p.a1;
+  const bf16* W = seg == 0 ? p.w0 : (seg == 1 ? p.w1 : p.w2);
+  const bf16* bias = seg == 0 ? p.b0 : (seg == 1 ? p.b1 : p.b2);
+  const int KT = p.K / BK16;
+
+  auto load_stage = [&](int kt, int s) {
+    const int k0 = kt * BK16;
+    bf16* as = As + s * BM * SK16;
+    bf16* bs = Bs + s * BN * SK16;
+#pragma unroll
+    for (int i = tid; i < BM * (BK16 / 8); i += GEMM_THREADS) {
+      const int r = i / (BK16 / 8), q = (i % (BK16 / 8)) * 8;
+      const int row = row0 + r;
+      const bool ok = row < p.M;
+      cp_async16(as + r * SK16 + q, A + (size_t)(ok ? row : 0) * p.K + k0 + q, ok);
+    }
+#pragma unroll
+    for (int i = tid; i < BN * (BK16 / 8); i += GEMM_THREADS) {
+      const int r = i / (BK16 / 8), q = (i % (BK16 / 8)) * 8;
+      cp_async16(bs + r * SK16 + q, W + (size_t)(wrow0 + r) * p.K + k0 + q, true);
+    }
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < KT) load_stage(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // tile kt is in; every warp is done with tile kt - 1
+    if (kt + STAGES - 1 < KT) load_stage(kt + STAGES - 1, (kt + STAGES - 1) % STAGES);
+    cp_async_commit();
+    const bf16* as = As + (kt % STAGES) * BM * SK16 + (wm * WM + g) * SK16 + 2 * c;
+    const bf16* bs = Bs + (kt % STAGES) * BN * SK16 + (wn * WN + g) * SK16 + 2 * c;
+#pragma unroll
+    for (int kk = 0; kk < BK16; kk += 16) {
+      uint32_t a[MT][4], b[NT][2];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const bf16* a0 = as + (i * 16) * SK16 + kk;
+        a[i][0] = *reinterpret_cast<const uint32_t*>(a0);
+        a[i][1] = *reinterpret_cast<const uint32_t*>(a0 + 8 * SK16);
+        a[i][2] = *reinterpret_cast<const uint32_t*>(a0 + 8);
+        a[i][3] = *reinterpret_cast<const uint32_t*>(a0 + 8 * SK16 + 8);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const bf16* b0 = bs + (j * 8) * SK16 + kk;
+        b[j][0] = *reinterpret_cast<const uint32_t*>(b0);
+        b[j][1] = *reinterpret_cast<const uint32_t*>(b0 + 8);
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], a[i], b[j]);
+    }
+  }
+  cp_async_wait<0>();
+
+  TO* out = static_cast<TO*>(p.out);
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + wm * WM + i * 16 + g + 8 * half;
+      if (row >= p.M) continue;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int col = wn * WN + j * 8 + 2 * c;  // within the block
+        const float2 bb = load2(bias + wrow0 + col);
+        float o0 = acc[i][j][2 * half] + bb.x;
+        float o1 = acc[i][j][2 * half + 1] + bb.y;
+        if (EPI == BIAS_RESID) {
+          const float2 r = load2(p.resid + (size_t)row * p.D + col0 + col);
+          o0 += r.x;
+          o1 += r.y;
+        }
+        store2(out + (size_t)row * p.ldo + col0 + col, o0, o1);
+      }
+    }
+  }
+}
+
 // One block per (head, sequence, CORE_BQ query rows): grid (H, N, ceil(Tq / CORE_BQ)).
 //   k += (1 - mask) * -1e6;  v *= mask              (the keys' mask)
 //   state[d][l] = sum_t softmax_t(k)[t][d] * v[t][l]
@@ -274,17 +418,20 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(const GemmArgs p) {
 // q has Tq rows per sequence at row stride ldq; k and v have Tk rows at
 // row stride ldkv; the mask is (N, Tk); y is (N, Tq, D). k, v and the mask
 // come from sequence n ^ 1 when `interaction` is set (the other actor of
-// the pair in the (B, 2) layout), else from n.
+// the pair in the (B, 2) layout), else from n. ROUND rounds softmax_t(k),
+// v, the state and softmax_d(q) to bfloat16 before the products (B1-bf16);
+// TO is y's element type.
+template <bool ROUND = false, typename TO = float>
 __global__ void __launch_bounds__(CORE_THREADS) linear_attention_core(
     const float* __restrict__ qp, const float* __restrict__ kp,
     const float* __restrict__ vp, const float* __restrict__ mask,
-    float* __restrict__ y, int Tq, int Tk, int D, int ldq, int ldkv, int interaction) {
+    TO* __restrict__ y, int Tq, int Tk, int D, int ldq, int ldkv, int interaction) {
   // Two stages of (k chunk, v chunk); after the key loop the same memory
   // holds the normalized state [HD][KS] and the softmaxed queries [CORE_BQ][QS].
   __shared__ __align__(16) float buf[2 * 2 * TC * KS];
   __shared__ float red[2][HD];
   __shared__ float colmax[HD];
-  __shared__ float zinv[HD];
+  __shared__ float zinv[HD];  // 1 / column sums; under ROUND the column sums
 
   const int h = blockIdx.x, n = blockIdx.y, t0q = blockIdx.z * CORE_BQ;
   const int src = interaction ? (n ^ 1) : n;
@@ -333,6 +480,18 @@ __global__ void __launch_bounds__(CORE_THREADS) linear_attention_core(
     __syncthreads();
     if (tid < HD) colmax[tid] = fmaxf(red[0][tid], red[1][tid]);
   }
+  if constexpr (ROUND) {
+    // pass 1b: the column sums, so that softmax_t(k) is normalized before
+    // it is rounded, as the Pallas kernel rounds it
+    __syncthreads();  // colmax is visible, red is free
+    const float cm = colmax[d];
+    float zs = 0.f;
+    for (int t = r0; t < Tk; t += CORE_THREADS / HD)
+      zs += expf(k[(size_t)t * ldkv + d] + (1.f - m[t]) * MASK_BIAS - cm);
+    red[r0][d] = zs;
+    __syncthreads();
+    if (tid < HD) zinv[tid] = red[0][tid] + red[1][tid];
+  }
 
   // pass 2: state = E^T V over 32-key chunks on the tensor cores, E =
   // exp(k - colmax) formed in place in shared memory; warp w owns state
@@ -359,6 +518,10 @@ __global__ void __launch_bounds__(CORE_THREADS) linear_attention_core(
         const float mt = m[t];
         ev = expf(ks[r * KS + d] + (1.f - mt) * MASK_BIAS - cm);
         vv = vs[r * KS + d] * mt;
+        if constexpr (ROUND) {
+          ev = round_bf16(ev / zinv[d]);
+          vv = round_bf16(vv);
+        }
       }
       ks[r * KS + d] = ev;
       vs[r * KS + d] = vv;
@@ -377,27 +540,39 @@ __global__ void __launch_bounds__(CORE_THREADS) linear_attention_core(
         b[j][0] = split_tf32(v0[0]);
         b[j][1] = split_tf32(v0[4 * KS]);
       }
-      mma_3xtf32<1, 8>(&acc[0][0], a, &b[0][0]);
+      if constexpr (ROUND)
+        mma_tf32_exact<1, 8>(&acc[0][0], a, &b[0][0]);
+      else
+        mma_3xtf32<1, 8>(&acc[0][0], a, &b[0][0]);
     }
     __syncthreads();  // done reading stage s before it is refilled
   }
 
-  red[r0][d] = z;
-  __syncthreads();
-  if (tid < HD) zinv[tid] = 1.f / (red[0][tid] + red[1][tid]);
-  __syncthreads();
+  if constexpr (!ROUND) {
+    red[r0][d] = z;
+    __syncthreads();
+    if (tid < HD) zinv[tid] = 1.f / (red[0][tid] + red[1][tid]);
+    __syncthreads();
+  }
   float* state = buf;             // [HD][KS]
   float* qs = buf + HD * KS;      // [CORE_BQ][QS]
   {
     const int dr = warp * 16 + g;
-    const float z0 = zinv[dr], z1 = zinv[dr + 8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int l = j * 8 + 2 * c;
-      *reinterpret_cast<float2*>(state + dr * KS + l) =
-          make_float2(acc[j][0] * z0, acc[j][1] * z0);
-      *reinterpret_cast<float2*>(state + (dr + 8) * KS + l) =
-          make_float2(acc[j][2] * z1, acc[j][3] * z1);
+      if constexpr (ROUND) {  // the state, normalized already, rounded
+        *reinterpret_cast<float2*>(state + dr * KS + l) =
+            make_float2(round_bf16(acc[j][0]), round_bf16(acc[j][1]));
+        *reinterpret_cast<float2*>(state + (dr + 8) * KS + l) =
+            make_float2(round_bf16(acc[j][2]), round_bf16(acc[j][3]));
+      } else {
+        const float z0 = zinv[dr], z1 = zinv[dr + 8];
+        *reinterpret_cast<float2*>(state + dr * KS + l) =
+            make_float2(acc[j][0] * z0, acc[j][1] * z0);
+        *reinterpret_cast<float2*>(state + (dr + 8) * KS + l) =
+            make_float2(acc[j][2] * z1, acc[j][3] * z1);
+      }
     }
   }
   // pass 3: feature softmax of this block's query rows (one warp per row),
@@ -412,9 +587,15 @@ __global__ void __launch_bounds__(CORE_THREADS) linear_attention_core(
       const float mx = warp_max(fmaxf(a0, a1));
       e0 = expf(a0 - mx);
       e1 = expf(a1 - mx);
-      const float inv = 1.f / warp_sum(e0 + e1);
-      e0 *= inv;
-      e1 *= inv;
+      if constexpr (ROUND) {
+        const float sum = warp_sum(e0 + e1);
+        e0 = round_bf16(e0 / sum);
+        e1 = round_bf16(e1 / sum);
+      } else {
+        const float inv = 1.f / warp_sum(e0 + e1);
+        e0 *= inv;
+        e1 *= inv;
+      }
     }
     qs[r * QS + lane] = e0;
     qs[r * QS + lane + 32] = e1;
@@ -438,17 +619,19 @@ __global__ void __launch_bounds__(CORE_THREADS) linear_attention_core(
       b[j][0] = split_tf32(s0[0]);
       b[j][1] = split_tf32(s0[4 * KS]);
     }
-    mma_3xtf32<1, 4>(&out[0][0], a, &b[0][0]);
+    if constexpr (ROUND)
+      mma_tf32_exact<1, 4>(&out[0][0], a, &b[0][0]);
+    else
+      mma_3xtf32<1, 4>(&out[0][0], a, &b[0][0]);
   }
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int t = t0q + mt * 16 + g + 8 * half;
     if (t >= Tq) continue;
-    float* yr = y + ((size_t)n * Tq + t) * D + h * HD;
+    TO* yr = y + ((size_t)n * Tq + t) * D + h * HD;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float2*>(yr + (nt0 + j) * 8 + 2 * c) =
-          make_float2(out[j][2 * half], out[j][2 * half + 1]);
+      store2(yr + (nt0 + j) * 8 + 2 * c, out[j][2 * half], out[j][2 * half + 1]);
   }
 }
 
@@ -480,30 +663,61 @@ inline cudaError_t launch_gemm_out(const GemmArgs& p, cudaStream_t stream) {
   return launch_gemm_tiles<32, 64, BIAS_RESID>(p, p.D, stream);
 }
 
-template <bool STYL>
-cudaError_t launch_row_norm(const float* in, float* out, const float* g, const float* b,
-                            const float* scale, const float* shift, int M, int D, int T,
+template <int BM, int BN, int EPI, typename TO>
+cudaError_t launch_gemm_bf16_tiles(const GemmArgsBf16& p, int ncols, cudaStream_t stream) {
+  constexpr size_t smem = sizeof(bf16) * STAGES * (BM + BN) * SK16;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      gemm_bf16_kernel<BM, BN, EPI, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(ncols / BN, (p.M + BM - 1) / BM);
+  gemm_bf16_kernel<BM, BN, EPI, TO><<<grid, GEMM_THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// bfloat16 q | k | v projections: float32 out (M, 3 * D) at ldo = 3 * D.
+inline cudaError_t launch_gemm_bf16_qkv(const GemmArgsBf16& p, cudaStream_t stream) {
+  return launch_gemm_bf16_tiles<96, 64, BIAS, float>(p, 3 * p.D, stream);
+}
+
+// bfloat16 (D, D) projection with the bias and the bfloat16 residual added in
+// float32, rounded once: bfloat16 out (M, D).
+inline cudaError_t launch_gemm_bf16_out(const GemmArgsBf16& p, cudaStream_t stream) {
+  return launch_gemm_bf16_tiles<32, 64, BIAS_RESID, bf16>(p, p.D, stream);
+}
+
+template <typename T>
+struct NoDeduce {  // keeps a parameter out of template deduction (a nullptr scale)
+  using type = T;
+};
+
+template <bool STYL, typename TI = float, typename TO = float, typename TP = float>
+cudaError_t launch_row_norm(const TI* in, TO* out, const TP* g, const TP* b,
+                            const typename NoDeduce<TP>::type* scale,
+                            const typename NoDeduce<TP>::type* shift, int M, int D, int T,
                             cudaStream_t stream) {
   constexpr int rows = NORM_THREADS / 32;
-  row_norm_kernel<STYL><<<(M + rows - 1) / rows, NORM_THREADS, 0, stream>>>(
+  row_norm_kernel<STYL, TI, TO, TP><<<(M + rows - 1) / rows, NORM_THREADS, 0, stream>>>(
       in, out, g, b, scale, shift, M, D, T);
   return cudaGetLastError();
 }
 
-inline cudaError_t launch_core(const float* q, const float* k, const float* v,
-                               const float* mask, float* y, int N, int Tq, int Tk, int D,
-                               int ldq, int ldkv, int interaction, cudaStream_t stream) {
+template <bool ROUND = false, typename TO = float>
+cudaError_t launch_core(const float* q, const float* k, const float* v, const float* mask,
+                        TO* y, int N, int Tq, int Tk, int D, int ldq, int ldkv,
+                        int interaction, cudaStream_t stream) {
   const dim3 grid(D / HD, N, (Tq + CORE_BQ - 1) / CORE_BQ);
-  linear_attention_core<<<grid, CORE_THREADS, 0, stream>>>(q, k, v, mask, y, Tq, Tk, D, ldq,
-                                                           ldkv, interaction);
+  linear_attention_core<ROUND, TO><<<grid, CORE_THREADS, 0, stream>>>(
+      q, k, v, mask, y, Tq, Tk, D, ldq, ldkv, interaction);
   return cudaGetLastError();
 }
 
 // The core over a (N*T, 3*D) q | k | v buffer, as B1 and B2 produce it.
-inline cudaError_t launch_core_qkv(const float* qkv, const float* mask, float* y, int N, int T,
-                                   int D, int interaction, cudaStream_t stream) {
-  return launch_core(qkv, qkv + D, qkv + 2 * D, mask, y, N, T, T, D, 3 * D, 3 * D,
-                     interaction, stream);
+template <bool ROUND = false, typename TO = float>
+cudaError_t launch_core_qkv(const float* qkv, const float* mask, TO* y, int N, int T, int D,
+                            int interaction, cudaStream_t stream) {
+  return launch_core<ROUND, TO>(qkv, qkv + D, qkv + 2 * D, mask, y, N, T, T, D, 3 * D,
+                                3 * D, interaction, stream);
 }
 
 }  // namespace hig

@@ -248,7 +248,7 @@ def p_sample_loop(sched: DiffusionSchedule, model: Denoiser, noise: torch.Tensor
                 target = torch.tensor([tx, tz], dtype=x.dtype, device=x.device)
                 z = pin_noise(i, pin_i) if pin_noise is not None else draw((batch, 2))
                 x[:, frame_idx, 1:3] = q_sample(tabs, target.expand(batch, 2), t, z)
-        eps = model(x, t)
+        eps = model(x, t).to(x.dtype)  # a bfloat16 model's ε joins the float32 state
         mean, log_var, _ = p_mean_variance(tabs, eps, x, t, mean_type, var_type, clip_denoised)
         if cond_fn is not None:
             mean = condition_mean(tabs, cond_fn, mean, torch.exp(log_var), x, t)
@@ -316,7 +316,7 @@ def ddim_sample_loop(sched: DiffusionSchedule, model: Denoiser, noise: torch.Ten
     for i, (t_scalar, t_prev) in enumerate(zip(ts, ts_prev)):
         t = torch.full((batch,), int(t_scalar), dtype=torch.int64, device=x.device)
         eps = model(x, t) if model_aux is None else model(x, t, model_aux[i])
-        x0 = predict_xstart_from_eps(tabs, x, t, eps)
+        x0 = predict_xstart_from_eps(tabs, x, t, eps.to(x.dtype))
         if clip_denoised:
             x0 = x0.clamp(-1.0, 1.0)
         eps = predict_eps_from_xstart(tabs, x, t, x0)

@@ -19,9 +19,13 @@ ddim_steps unless --sampler / --ddim_steps say otherwise, and with
 --guidance_scale (default the run's). --blocks fused (the default) runs
 the efficient model's self-attention and interaction blocks through the
 fused-block kernel, --blocks projected through the projected-attention
-kernel; a --no_eff run goes through the flash-attention kernel. The
-evaluator models are plain PyTorch. --fast_ln is refused (bf16 LayerNorm
-statistics are not ported).
+kernel (the default of an rms_norm run); a --no_eff run goes through the
+flash-attention kernel. A run with
+``compute_dtype: bfloat16`` (``rms_norm`` too) samples in bfloat16 through
+the kernels' bfloat16 forms; --fast_ln keeps the generator's efficient-block
+LayerNorm statistics in bfloat16, as ``tools/evaluation.py --fast_ln``
+does for an existing checkpoint. The evaluator models are plain PyTorch
+in float32.
 
     python -m hig_tpu_torch.evaluate --opt_path checkpoints/ntu_mul/interaction/opt.txt \\
         --replication_times 20 --sampler ddim
@@ -102,7 +106,7 @@ def main(argv=None) -> dict:
     parser.add_argument("--ddim_steps", type=int, default=None)
     parser.add_argument("--guidance_scale", type=float, default=None)
     parser.add_argument("--fast_ln", action="store_true",
-                        help="refused: bf16 LayerNorm statistics are not ported")
+                        help="LayerNorm statistics in the compute dtype (the run's fast_ln)")
     parser.add_argument("--mm_num_times", type=int, default=None,
                         help="MultiModality comparisons (default 15)")
     parser.add_argument("--mm_num_repeats", type=int, default=None,
@@ -117,10 +121,10 @@ def main(argv=None) -> dict:
                         help="kernel of the efficient blocks (default fused)")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    if args.fast_ln:
-        parser.error("--fast_ln (bf16 LayerNorm statistics) is not ported")
 
     cfg = load_opt_txt(args.opt_path)
+    if args.fast_ln:
+        cfg.fast_ln = True
     if cfg.no_eff and args.blocks is not None:
         parser.error("--blocks picks the kernel of the efficient blocks; the run's "
                      "quadratic (--no_eff) model has none to pick")
@@ -130,9 +134,14 @@ def main(argv=None) -> dict:
         cfg.guidance_scale = args.guidance_scale
     device = resolve_device(args.device)
     mean, std = load_stats(cfg.meta_dir, cfg.dim_pose)
-    fused = not cfg.no_eff and (args.blocks or "fused") == "fused"
-    model = build_model(dataclasses.replace(model_config(cfg), fused_blocks=fused), device,
-                        params=pjoin(cfg.model_dir, f"{args.model_name}.pt"))
+    # an RMSNorm model has no fused block (its kernel computes LayerNorm)
+    fused = not cfg.no_eff and (args.blocks or ("projected" if cfg.rms_norm else "fused")) \
+        == "fused"
+    try:
+        mcfg = dataclasses.replace(model_config(cfg), fused_blocks=fused)
+    except ValueError as e:
+        parser.error(str(e))
+    model = build_model(mcfg, device, params=pjoin(cfg.model_dir, f"{args.model_name}.pt"))
 
     root = pjoin(cfg.checkpoints_dir, cfg.dataset_name)
     eval_dir = args.eval_model_dir or pjoin(root, "eval_model", "model")

@@ -29,7 +29,7 @@ import json
 from os.path import join as pjoin
 
 from hig_tpu_torch import resolve_device
-from hig_tpu_torch.config import load_opt_txt, model_config
+from hig_tpu_torch.config import load_opt_txt, model_config, refuse_reduced_precision
 from hig_tpu_torch.data.dataset import PairDataset
 from hig_tpu_torch.diffusion import gaussian as g
 from hig_tpu_torch.models.interaction_model import InteractionModel
@@ -56,6 +56,10 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     cfg = load_opt_txt(args.opt_path)
+    try:
+        refuse_reduced_precision(cfg, "labeling")
+    except ValueError as e:
+        parser.error(str(e))
     if cfg.no_eff and args.blocks is not None:
         parser.error("--blocks picks the kernel of the efficient blocks; the run's "
                      "quadratic (--no_eff) model has none to pick")

@@ -25,15 +25,29 @@ cross-attention and the FFN are plain PyTorch on every device, as JAX
 computes them outside any Pallas kernel. :func:`_attend` routes bare
 efficient attention through B3 (``fused_efficient_attention``), as the JAX
 ``_attend`` does under ``use_pallas``; no block calls it.
+
+In bfloat16 (``dtype``) every block computes in the dtype and rounds where
+the flax block rounds (``embeddings.py``); the self-attention and
+interaction blocks hand bfloat16 tensors to B1 or B2, the quadratic ones to
+B4, which take their bfloat16 forms. ``fast_ln`` and ``rms`` reach the
+efficient blocks' norms, the FFN's gate and every efficient block's
+``StylizationBlock``; the text cross-attention's ``text_norm`` stays a
+float32-statistics LayerNorm, and the quadratic blocks take neither.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from hig_tpu_torch.models.embeddings import StylizationBlock, layer_norm
+from hig_tpu_torch.models.embeddings import (
+    StylizationBlock,
+    dense,
+    gelu,
+    linear,
+    make_norm,
+    softmax,
+)
 from hig_tpu_torch.ops.flash_attention import (
     causal_bias,
     flash_attention,
@@ -75,15 +89,16 @@ class _KernelBlock(nn.Module):
     interaction = False
 
     def __init__(self, latent_dim: int, num_heads: int, emb_dim: int,
-                 fused: bool = False):
+                 fused: bool = False, dtype: torch.dtype = torch.float32,
+                 fast_ln: bool = False, rms: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.fused = fused
-        self.norm = layer_norm(latent_dim)
+        self.norm = make_norm(latent_dim, dtype, fast_ln, rms)
         self.query = nn.Linear(latent_dim, latent_dim)
         self.key = nn.Linear(latent_dim, latent_dim)
         self.value = nn.Linear(latent_dim, latent_dim)
-        self.proj_out = StylizationBlock(latent_dim, emb_dim)
+        self.proj_out = StylizationBlock(latent_dim, emb_dim, dtype, fast_ln, rms)
 
     def block_weights(self) -> BlockWeights:
         return BlockWeights(
@@ -134,26 +149,28 @@ class EfficientCrossAttention(nn.Module):
     :meth:`from_kv` is the per-step body."""
 
     def __init__(self, latent_dim: int, text_latent_dim: int, num_heads: int,
-                 emb_dim: int):
+                 emb_dim: int, dtype: torch.dtype = torch.float32, fast_ln: bool = False,
+                 rms: bool = False):
         super().__init__()
         self.latent_dim = latent_dim
         self.num_heads = num_heads
-        self.norm = layer_norm(latent_dim)
-        self.text_norm = layer_norm(text_latent_dim)
+        self.dtype = dtype
+        self.norm = make_norm(latent_dim, dtype, fast_ln, rms)
+        self.text_norm = make_norm(text_latent_dim, dtype)
         self.query = nn.Linear(latent_dim, latent_dim)
         self.key = nn.Linear(text_latent_dim, latent_dim)
         self.value = nn.Linear(text_latent_dim, latent_dim)
-        self.proj_out = StylizationBlock(latent_dim, emb_dim)
+        self.proj_out = StylizationBlock(latent_dim, emb_dim, dtype, fast_ln, rms)
 
     def kv(self, xf: torch.Tensor) -> torch.Tensor:
         """(..., L, Dt) → (..., H, dh, dh)."""
         xfn = self.text_norm(xf)
-        k = split_heads(self.key(xfn), self.num_heads).softmax(dim=-3)
-        v = split_heads(self.value(xfn), self.num_heads)
+        k = softmax(split_heads(dense(self.key, xfn, self.dtype), self.num_heads), -3)
+        v = split_heads(dense(self.value, xfn, self.dtype), self.num_heads)
         return torch.einsum("...nhd,...nhl->...hdl", k, v)
 
     def from_kv(self, x, kv, emb, adaln=None):
-        q = split_heads(self.query(self.norm(x)), self.num_heads).softmax(dim=-1)
+        q = softmax(split_heads(dense(self.query, self.norm(x), self.dtype), self.num_heads), -1)
         y = torch.einsum("...nhd,...hdl->...nhl", q, kv)
         y = y.reshape(*y.shape[:-2], self.latent_dim)
         if adaln is not None:
@@ -172,15 +189,15 @@ class QuadraticSelfAttention(nn.Module):
     """
 
     def __init__(self, latent_dim: int, num_heads: int, emb_dim: int,
-                 causal: bool = False):
+                 causal: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
         self.causal = causal
-        self.norm = layer_norm(latent_dim)
+        self.norm = make_norm(latent_dim, dtype)
         self.query = nn.Linear(latent_dim, latent_dim)
         self.key = nn.Linear(latent_dim, latent_dim)
         self.value = nn.Linear(latent_dim, latent_dim)
-        self.proj_out = StylizationBlock(latent_dim, emb_dim)
+        self.proj_out = StylizationBlock(latent_dim, emb_dim, dtype)
 
     def forward(self, x, emb, src_mask, adaln=None):
         """x (B, 2, T, D); src_mask (B, 1|2, T); ``adaln`` as in the
@@ -201,24 +218,26 @@ class QuadraticCrossAttention(nn.Module):
     is the per-step body."""
 
     def __init__(self, latent_dim: int, text_latent_dim: int, num_heads: int,
-                 emb_dim: int):
+                 emb_dim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
-        self.norm = layer_norm(latent_dim)
-        self.text_norm = layer_norm(text_latent_dim)
+        self.dtype = dtype
+        self.norm = make_norm(latent_dim, dtype)
+        self.text_norm = make_norm(text_latent_dim, dtype)
         self.query = nn.Linear(latent_dim, latent_dim)
         self.key = nn.Linear(text_latent_dim, latent_dim)
         self.value = nn.Linear(text_latent_dim, latent_dim)
-        self.proj_out = StylizationBlock(latent_dim, emb_dim)
+        self.proj_out = StylizationBlock(latent_dim, emb_dim, dtype)
 
     def kv(self, xf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """(..., L, Dt) → (k, v), each (..., L, D)."""
         xfn = self.text_norm(xf)
-        return self.key(xfn), self.value(xfn)
+        return dense(self.key, xfn, self.dtype), dense(self.value, xfn, self.dtype)
 
     def from_kv(self, x, kv, emb, adaln=None):
         k, v = kv
-        y = quadratic_attention(self.query(self.norm(x)), k, v, self.num_heads)
+        y = quadratic_attention(dense(self.query, self.norm(x), self.dtype), k, v,
+                                self.num_heads)
         if adaln is not None:
             return x + self.proj_out.from_scale_shift(y, *adaln)
         return x + self.proj_out(y, emb)
@@ -234,27 +253,28 @@ class QuadraticInteractionAttention(nn.Module):
     partner's."""
 
     def __init__(self, latent_dim: int, num_heads: int, emb_dim: int,
-                 causal: bool = False):
+                 causal: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
         self.causal = causal
-        self.norm = layer_norm(latent_dim)
-        self.text_norm = layer_norm(latent_dim)
+        self.dtype = dtype
+        self.norm = make_norm(latent_dim, dtype)
+        self.text_norm = make_norm(latent_dim, dtype)
         self.query = nn.Linear(latent_dim, latent_dim)
         self.key = nn.Linear(latent_dim, latent_dim)
         self.value = nn.Linear(latent_dim, latent_dim)
-        self.proj_out = StylizationBlock(latent_dim, emb_dim)
+        self.proj_out = StylizationBlock(latent_dim, emb_dim, dtype)
 
     def forward(self, x, emb, src_mask, adaln=None):
         """x (B, 2, T, D); src_mask (B, 1|2, T), each actor's own mask."""
         scale, shift = adaln if adaln is not None else self.proj_out.scale_shift(emb)
-        q = self.query(self.norm(x))
+        q = dense(self.query, self.norm(x), self.dtype)
         # LayerNorm and the projections act per token, so k and v are
         # projected from the unflipped x in one (D, 2D) product and B4 reads
         # the partner's rows (partner=True) instead of a flipped copy.
         w = torch.cat([self.key.weight, self.value.weight])
         b = torch.cat([self.key.bias, self.value.bias])
-        k, v = F.linear(self.text_norm(x), w, b).chunk(2, dim=-1)
+        k, v = linear(self.text_norm(x), w, b).chunk(2, dim=-1)
         y = flash_attention(q, k, v, self.num_heads, key_mask=src_mask.expand(x.shape[:-1]),
                             causal=self.causal, partner=True)
         return x + self.proj_out.from_scale_shift(y, scale, shift)
@@ -263,14 +283,16 @@ class QuadraticInteractionAttention(nn.Module):
 class FFN(nn.Module):
     """Exact-GELU MLP + stylization gate."""
 
-    def __init__(self, latent_dim: int, ffn_dim: int, emb_dim: int):
+    def __init__(self, latent_dim: int, ffn_dim: int, emb_dim: int,
+                 dtype: torch.dtype = torch.float32, fast_ln: bool = False, rms: bool = False):
         super().__init__()
+        self.dtype = dtype
         self.linear1 = nn.Linear(latent_dim, ffn_dim)
         self.linear2 = nn.Linear(ffn_dim, latent_dim)
-        self.proj_out = StylizationBlock(latent_dim, emb_dim)
+        self.proj_out = StylizationBlock(latent_dim, emb_dim, dtype, fast_ln, rms)
 
     def forward(self, x, emb, adaln=None):
-        h = self.linear2(F.gelu(self.linear1(x)))
+        h = dense(self.linear2, gelu(dense(self.linear1, x, self.dtype)), self.dtype)
         if adaln is not None:
             return x + self.proj_out.from_scale_shift(h, *adaln)
         return x + self.proj_out(h, emb)

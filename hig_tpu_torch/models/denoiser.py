@@ -6,7 +6,10 @@ self-attention, text cross-attention, cross-actor interaction attention and
 an FFN, each gated by its own AdaLN ``StylizationBlock``. The attention
 blocks are the efficient (linear) family, or with ``efficient=False`` the
 quadratic (softmax) family of the reference's ``--no_eff`` mode, which may
-be ``causal``.
+be ``causal``. ``dtype`` is the compute dtype (float32 or bfloat16);
+``fast_ln`` and ``rms_norm`` pick the efficient blocks' norms
+(``embeddings.make_norm``). The motion input stays float32 until the first
+Linear, and the output ε is in the compute dtype.
 """
 
 from __future__ import annotations
@@ -23,13 +26,22 @@ from hig_tpu_torch.models.attention import (
     QuadraticInteractionAttention,
     QuadraticSelfAttention,
 )
-from hig_tpu_torch.models.embeddings import TimeEmbedMLP, length_mask
+from hig_tpu_torch.models.embeddings import TimeEmbedMLP, cast, dense, length_mask
 
 BLOCKS = (("sa", "sa_block"), ("ca", "ca_block"), ("int", "int_ca_block"), ("ffn", "ffn"))
 
 
-def check_block_options(efficient: bool, causal: bool, fused_blocks: bool) -> None:
-    """Refuse the combinations the port has no blocks for."""
+RMS_NORM_ROUTES = ("--rms_norm requires the efficient attention path and is "
+                   "incompatible with --fused_blocks")
+
+
+def check_block_options(efficient: bool, causal: bool, fused_blocks: bool,
+                        rms_norm: bool = False) -> None:
+    """Refuse the combinations the port has no blocks for. RMSNorm takes
+    JAX's refusal: the quadratic blocks keep the reference's LayerNorms and
+    the fused-block kernel computes LayerNorm inside."""
+    if rms_norm and (not efficient or fused_blocks):
+        raise ValueError(RMS_NORM_ROUTES)
     if efficient and causal:
         raise ValueError("causal attention is ported for the quadratic (efficient=False) "
                          "blocks only; causal efficient attention is not ported yet")
@@ -43,23 +55,28 @@ class InteractionDenoiserLayer(nn.Module):
 
     def __init__(self, latent_dim: int, text_latent_dim: int, ff_size: int,
                  num_heads: int, emb_dim: int, fused_blocks: bool = False,
-                 efficient: bool = True, causal: bool = False):
+                 efficient: bool = True, causal: bool = False,
+                 dtype: torch.dtype = torch.float32, fast_ln: bool = False,
+                 rms_norm: bool = False):
         super().__init__()
-        check_block_options(efficient, causal, fused_blocks)
+        check_block_options(efficient, causal, fused_blocks, rms_norm)
         if efficient:
-            self.sa_block = EfficientSelfAttention(latent_dim, num_heads, emb_dim, fused_blocks)
+            norm = dict(dtype=dtype, fast_ln=fast_ln, rms=rms_norm)
+            self.sa_block = EfficientSelfAttention(latent_dim, num_heads, emb_dim, fused_blocks,
+                                                   **norm)
             self.ca_block = EfficientCrossAttention(latent_dim, text_latent_dim, num_heads,
-                                                    emb_dim)
+                                                    emb_dim, **norm)
             self.int_ca_block = EfficientInteractionAttention(
-                latent_dim, num_heads, emb_dim, fused_blocks
+                latent_dim, num_heads, emb_dim, fused_blocks, **norm
             )
         else:
-            self.sa_block = QuadraticSelfAttention(latent_dim, num_heads, emb_dim, causal)
+            # the quadratic blocks keep float32-statistics LayerNorms
+            self.sa_block = QuadraticSelfAttention(latent_dim, num_heads, emb_dim, causal, dtype)
             self.ca_block = QuadraticCrossAttention(latent_dim, text_latent_dim, num_heads,
-                                                    emb_dim)
+                                                    emb_dim, dtype)
             self.int_ca_block = QuadraticInteractionAttention(latent_dim, num_heads, emb_dim,
-                                                              causal)
-        self.ffn = FFN(latent_dim, ff_size, emb_dim)
+                                                              causal, dtype)
+        self.ffn = FFN(latent_dim, ff_size, emb_dim, dtype, fast_ln and efficient, rms_norm)
 
     def text_kv(self, xf_out):
         """The text cross-attention state: a KᵀV tensor (efficient) or a
@@ -90,17 +107,21 @@ class InteractionDenoiser(nn.Module):
     def __init__(self, input_feats: int = 263, num_frames: int = 196,
                  latent_dim: int = 512, ff_size: int = 1024, num_layers: int = 8,
                  num_heads: int = 8, text_latent_dim: int = 256,
-                 fused_blocks: bool = False, efficient: bool = True, causal: bool = False):
+                 fused_blocks: bool = False, efficient: bool = True, causal: bool = False,
+                 dtype: torch.dtype = torch.float32, fast_ln: bool = False,
+                 rms_norm: bool = False):
         super().__init__()
         self.latent_dim = latent_dim
+        self.dtype = dtype
         self.time_embed_dim = 4 * latent_dim
         self.sequence_embedding = nn.Parameter(torch.empty(num_frames, latent_dim))
         self.joint_embed = nn.Linear(input_feats, latent_dim)
         self.joint_embed2 = nn.Linear(4, latent_dim)
-        self.time_embed = TimeEmbedMLP(latent_dim, self.time_embed_dim)
+        self.time_embed = TimeEmbedMLP(latent_dim, self.time_embed_dim, dtype)
         self.layers = nn.ModuleList(
             InteractionDenoiserLayer(latent_dim, text_latent_dim, ff_size, num_heads,
-                                     self.time_embed_dim, fused_blocks, efficient, causal)
+                                     self.time_embed_dim, fused_blocks, efficient, causal,
+                                     dtype, fast_ln, rms_norm)
             for _ in range(num_layers)
         )
         self.out = nn.Linear(latent_dim, input_feats)
@@ -112,18 +133,21 @@ class InteractionDenoiser(nn.Module):
 
     def embed_inputs(self, x, lengths):
         """(B, 2, T, D_in) → (hidden (B, 2, T, D), src_mask (B, 1, T))."""
-        T = x.shape[2]
-        move = self.joint_embed(x[:, :, 1:]) + self.sequence_embedding[: T - 1]
-        init = self.joint_embed2(x[:, :, 0, :4])
+        T, dt = x.shape[2], self.dtype
+        seq = cast(self.sequence_embedding[: T - 1], dt)
+        move = dense(self.joint_embed, x[:, :, 1:], dt) + seq
+        init = dense(self.joint_embed2, x[:, :, 0, :4], dt)
         h = torch.cat([init[:, :, None, :], move], dim=2)
-        return h, length_mask(lengths, T, x.dtype)[:, None, :]
+        mask_dtype = x.dtype if dt == torch.float32 else dt
+        return h, length_mask(lengths, T, mask_dtype)[:, None, :]
 
     def conditioning(self, timesteps, xf_proj):
         """(B,) timesteps + (B, 2, E) pooled text → per-block emb (B, 2, E)."""
         return self.time_embed(timesteps)[:, None, :] + xf_proj
 
     def project_out(self, h):
-        return torch.cat([self.out2(h[:, :, :1]), self.out(h[:, :, 1:])], dim=2)
+        return torch.cat([dense(self.out2, h[:, :, :1], self.dtype),
+                          dense(self.out, h[:, :, 1:], self.dtype)], dim=2)
 
     def forward(self, x, timesteps, lengths, xf_proj, xf_out=None, text_kv=None,
                 adaln=None):

@@ -1,8 +1,10 @@
 """Text conditioning stack + interaction denoiser under one parameter tree
 (counterpart of ``hig_tpu/models/interaction_model.py:25-189,261-291``).
 
-The port serves and trains in float32, with the efficient (linear) denoiser
-or, with ``efficient=False``, the quadratic (``--no_eff``) one, optionally
+The port trains in float32 and serves in float32 or bfloat16
+(``compute_dtype``, with flax's ``fast_ln`` LayerNorm statistics or
+``rms_norm`` blocks), with the efficient (linear) denoiser or, with
+``efficient=False``, the quadratic (``--no_eff``) one, optionally
 ``causal``. Text conditioning comes in the JAX package's flavors: caption
 tokens through the frozen CLIP tower and the learnable suffix, precomputed
 tower features through the suffix alone (training's fast path,
@@ -10,10 +12,11 @@ tower features through the suffix alone (training's fast path,
 :meth:`~InteractionModel.encode_text_from_tower`), or caption ids through a
 learned table (``cap_id``, the PIT stage's model). With ``cond_drop_prob``
 > 0 the model owns the learned null conditioning of classifier-free
-guidance (:meth:`InteractionModel.null_conditioning`). Dropout, bf16
-compute, ``fast_ln``, RMSNorm, causal efficient attention and the
-single-transformer variant are not ported yet: :class:`ModelConfig` refuses
-the ones it has fields for.
+guidance (:meth:`InteractionModel.null_conditioning`). Dropout, causal
+efficient attention and the single-transformer variant are not ported yet:
+:class:`ModelConfig` refuses the ones it has fields for. A bfloat16 model is
+built with float32 parameters; ``weights.cast_floating`` casts them once, as
+the JAX sampler does (``make_sampler`` calls it).
 """
 
 from __future__ import annotations
@@ -24,7 +27,10 @@ import torch
 from torch import nn
 
 from hig_tpu_torch.models.denoiser import InteractionDenoiser, check_block_options
+from hig_tpu_torch.models.embeddings import cast
 from hig_tpu_torch.models.text_encoder import ClassConditioner, ClipTextConfig, TextEncoder
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,28 +57,34 @@ class ModelConfig:
     # > 0: the model owns the learned null conditioning of classifier-free
     # guidance, and the supervised loss drops captions with this probability
     cond_drop_prob: float = 0.0
-    # not ported yet: must stay at these values
+    # "float32" or "bfloat16"; fast_ln keeps the efficient blocks' norm
+    # statistics in the compute dtype; rms_norm swaps their LayerNorms for
+    # RMSNorms (efficient, unfused blocks only)
     compute_dtype: str = "float32"
     fast_ln: bool = False
     rms_norm: bool = False
+    # not ported yet: must stay at this value
     dropout: float = 0.0
 
     def __post_init__(self):
         if isinstance(self.clip, dict):
             object.__setattr__(self, "clip", ClipTextConfig(**self.clip))
-        if self.compute_dtype != "float32" or self.fast_ln or self.rms_norm:
-            raise ValueError(
-                "hig_tpu_torch serves float32 LayerNorm models only: bf16 "
-                "compute, fast_ln and RMSNorm are not ported yet"
-            )
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, "
+                             f"got {self.compute_dtype!r}")
         if self.dropout > 0.0:
             raise ValueError(f"dropout > 0 is not ported yet (got {self.dropout}); "
                              "the JAX default, 0.0, is")
-        check_block_options(self.efficient, self.causal, self.fused_blocks)
+        check_block_options(self.efficient, self.causal, self.fused_blocks, self.rms_norm)
 
     @property
     def time_embed_dim(self) -> int:
         return 4 * self.latent_dim
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The compute dtype as a torch dtype."""
+        return COMPUTE_DTYPES[self.compute_dtype]
 
 
 class InteractionModel(nn.Module):
@@ -83,7 +95,7 @@ class InteractionModel(nn.Module):
         self.cfg = cfg
         if cfg.cap_id:
             self.text = ClassConditioner(cfg.num_captions, cfg.text_latent_dim,
-                                         cfg.time_embed_dim)
+                                         cfg.time_embed_dim, cfg.dtype)
         else:
             self.text = TextEncoder(
                 clip_config=cfg.clip,
@@ -92,6 +104,7 @@ class InteractionModel(nn.Module):
                 text_num_heads=cfg.text_num_heads,
                 num_text_layers=cfg.num_text_layers,
                 time_embed_dim=cfg.time_embed_dim,
+                dtype=cfg.dtype,
             )
         self.denoiser = InteractionDenoiser(
             input_feats=cfg.input_feats,
@@ -104,6 +117,9 @@ class InteractionModel(nn.Module):
             fused_blocks=cfg.fused_blocks,
             efficient=cfg.efficient,
             causal=cfg.causal,
+            dtype=cfg.dtype,
+            fast_ln=cfg.fast_ln,
+            rms_norm=cfg.rms_norm,
         )
         if cfg.cond_drop_prob > 0.0:
             self.null_xf_proj = nn.Parameter(torch.zeros(cfg.time_embed_dim))
@@ -148,8 +164,9 @@ class InteractionModel(nn.Module):
         token's, so L is free. Exists only when ``cond_drop_prob`` > 0."""
         if self.cfg.cond_drop_prob <= 0.0:
             raise ValueError("the model has no null conditioning (cond_drop_prob is 0)")
-        return (self.null_xf_proj.expand(B, 2, -1),
-                self.null_xf_token.expand(B, 2, L, -1))
+        dt = self.cfg.dtype
+        return (cast(self.null_xf_proj, dt).expand(B, 2, -1),
+                cast(self.null_xf_token, dt).expand(B, 2, L, -1))
 
     def text_kv(self, xf_out: torch.Tensor) -> tuple:
         return self.denoiser.text_kv(xf_out)

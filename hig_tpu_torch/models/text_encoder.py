@@ -8,6 +8,9 @@
 
 or, for a caption-id model, a learned caption table (:class:`ClassConditioner`).
 This runs once per sampling call, outside the step loop, as plain PyTorch.
+In bfloat16 (``dtype``) the tower and the suffix round where the flax
+modules round (``embeddings.py``'s helpers); their LayerNorms keep float32
+statistics, and ``fast_ln`` does not reach them.
 """
 
 from __future__ import annotations
@@ -16,10 +19,9 @@ import dataclasses
 import math
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from hig_tpu_torch.models.embeddings import layer_norm
+from hig_tpu_torch.models.embeddings import cast, dense, gelu, make_norm, reduced, softmax
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,68 +36,82 @@ class ClipTextConfig:
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.sigmoid(1.702 * x)
+    if not reduced(x.dtype):
+        return x * torch.sigmoid(1.702 * x)
+    # JAX casts the constant to the dtype first; jax.nn.sigmoid's op chain
+    c = torch.tensor(1.702, dtype=x.dtype, device=x.device)
+    return x * (1 / (1 + torch.exp(-(c * x))))
 
 
 def _attention(x, in_proj: nn.Linear, out_proj: nn.Linear, heads: int, causal: bool,
-               key_mask: torch.Tensor | None = None):
-    """Softmax self-attention; ``key_mask`` (N, L), 1 = attend, 0 = pad,
-    gives padded keys a bias of −inf."""
+               key_mask: torch.Tensor | None = None, dtype: torch.dtype = torch.float32):
+    """Softmax self-attention in ``dtype``; ``key_mask`` (N, L), 1 = attend,
+    0 = pad, gives padded keys a bias of −inf."""
     N, L, D = x.shape
-    q, k, v = in_proj(x).reshape(N, L, 3, heads, D // heads).permute(2, 0, 3, 1, 4)
-    logits = q @ k.transpose(-1, -2) / math.sqrt(D // heads)
+    qkv = dense(in_proj, x, dtype)
+    q, k, v = qkv.reshape(N, L, 3, heads, D // heads).permute(2, 0, 3, 1, 4)
+    if dtype == torch.float32:
+        logits = q @ k.transpose(-1, -2) / math.sqrt(D // heads)
+    else:  # the scale is 1 / sqrt(head dim), each op in the dtype, as in JAX
+        scale = 1.0 / torch.sqrt(torch.tensor(D // heads, dtype=dtype, device=x.device))
+        logits = (q @ k.transpose(-1, -2)) * scale
     if causal:
         keep = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
         logits = logits.masked_fill(~keep, float("-inf"))
     if key_mask is not None:
         logits = logits.masked_fill(~key_mask.bool()[:, None, None, :], float("-inf"))
-    y = logits.softmax(dim=-1) @ v  # (N, H, L, hd)
-    return out_proj(y.transpose(1, 2).reshape(N, L, D))
+    y = softmax(logits, -1) @ v  # (N, H, L, hd)
+    return dense(out_proj, y.transpose(1, 2).reshape(N, L, D), dtype)
 
 
 class ClipAttention(nn.Module):
-    def __init__(self, width: int, heads: int):
+    def __init__(self, width: int, heads: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.heads = heads
+        self.heads, self.dtype = heads, dtype
         self.in_proj = nn.Linear(width, 3 * width)
         self.out_proj = nn.Linear(width, width)
 
     def forward(self, x, causal: bool = True):
-        return _attention(x, self.in_proj, self.out_proj, self.heads, causal)
+        return _attention(x, self.in_proj, self.out_proj, self.heads, causal, dtype=self.dtype)
 
 
 class ClipResidualBlock(nn.Module):
     """Pre-LN residual attention block with QuickGELU MLP."""
 
-    def __init__(self, width: int, heads: int):
+    def __init__(self, width: int, heads: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.ln_1 = layer_norm(width)
-        self.attn = ClipAttention(width, heads)
-        self.ln_2 = layer_norm(width)
+        self.dtype = dtype
+        self.ln_1 = make_norm(width, dtype)
+        self.attn = ClipAttention(width, heads, dtype)
+        self.ln_2 = make_norm(width, dtype)
         self.mlp_fc = nn.Linear(width, 4 * width)
         self.mlp_proj = nn.Linear(4 * width, width)
 
     def forward(self, x):
         x = x + self.attn(self.ln_1(x))
-        return x + self.mlp_proj(quick_gelu(self.mlp_fc(self.ln_2(x))))
+        h = quick_gelu(dense(self.mlp_fc, self.ln_2(x), self.dtype))
+        return x + dense(self.mlp_proj, h, self.dtype)
 
 
 class ClipTextTower(nn.Module):
     """Token ids (N, 77) → final-LN token features (N, 77, width)."""
 
-    def __init__(self, config: ClipTextConfig = ClipTextConfig()):
+    def __init__(self, config: ClipTextConfig = ClipTextConfig(),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.token_embedding = nn.Parameter(torch.empty(config.vocab_size, config.width))
         self.positional_embedding = nn.Parameter(
             torch.empty(config.context_length, config.width)
         )
         self.blocks = nn.ModuleList(
-            ClipResidualBlock(config.width, config.heads) for _ in range(config.layers)
+            ClipResidualBlock(config.width, config.heads, dtype) for _ in range(config.layers)
         )
-        self.ln_final = layer_norm(config.width)
+        self.ln_final = make_norm(config.width, dtype)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.token_embedding[tokens.long()] + self.positional_embedding
+        x = (cast(self.token_embedding[tokens.long()], self.dtype)
+             + cast(self.positional_embedding, self.dtype))
         for block in self.blocks:
             x = block(x)
         return self.ln_final(x)
@@ -106,20 +122,22 @@ class PostLNEncoderLayer(nn.Module):
     with flax's LayerNorm eps. The text suffix calls it unmasked; the
     evaluator models pass ``key_mask`` (N, L), 1 = attend, 0 = pad."""
 
-    def __init__(self, d_model: int, heads: int, ff_size: int):
+    def __init__(self, d_model: int, heads: int, ff_size: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.heads = heads
+        self.heads, self.dtype = heads, dtype
         self.in_proj = nn.Linear(d_model, 3 * d_model)
         self.out_proj = nn.Linear(d_model, d_model)
-        self.norm1 = layer_norm(d_model)
+        self.norm1 = make_norm(d_model, dtype)
         self.linear1 = nn.Linear(d_model, ff_size)
         self.linear2 = nn.Linear(ff_size, d_model)
-        self.norm2 = layer_norm(d_model)
+        self.norm2 = make_norm(d_model, dtype)
 
     def forward(self, x, key_mask=None):
         x = self.norm1(x + _attention(x, self.in_proj, self.out_proj, self.heads, False,
-                                      key_mask))
-        return self.norm2(x + self.linear2(F.gelu(self.linear1(x))))
+                                      key_mask, self.dtype))
+        h = dense(self.linear2, gelu(dense(self.linear1, x, self.dtype)), self.dtype)
+        return self.norm2(x + h)
 
 
 class TextEncoder(nn.Module):
@@ -128,18 +146,19 @@ class TextEncoder(nn.Module):
     def __init__(self, clip_config: ClipTextConfig = ClipTextConfig(),
                  text_latent_dim: int = 256, text_ff_size: int = 2048,
                  text_num_heads: int = 4, num_text_layers: int = 4,
-                 time_embed_dim: int = 2048):
+                 time_embed_dim: int = 2048, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.clip = ClipTextTower(clip_config)
+        self.dtype = dtype
+        self.clip = ClipTextTower(clip_config, dtype)
         self.text_pre_proj = (
             nn.Linear(clip_config.width, text_latent_dim)
             if text_latent_dim != clip_config.width else None
         )
         self.text_blocks = nn.ModuleList(
-            PostLNEncoderLayer(text_latent_dim, text_num_heads, text_ff_size)
+            PostLNEncoderLayer(text_latent_dim, text_num_heads, text_ff_size, dtype)
             for _ in range(num_text_layers)
         )
-        self.text_ln = layer_norm(text_latent_dim)
+        self.text_ln = make_norm(text_latent_dim, dtype)
         self.text_proj = nn.Linear(text_latent_dim, time_embed_dim)
 
     def tower(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -151,13 +170,15 @@ class TextEncoder(nn.Module):
 
     def from_tower(self, tower_out: torch.Tensor, tokens: torch.Tensor):
         """Learnable suffix: tower features + tokens → (xf_proj, xf_out)."""
-        x = tower_out if self.text_pre_proj is None else self.text_pre_proj(tower_out)
+        x = tower_out
+        if self.text_pre_proj is not None:
+            x = dense(self.text_pre_proj, tower_out, self.dtype)
         for block in self.text_blocks:
             x = block(x)
         xf_out = self.text_ln(x)
         eot = tokens.argmax(dim=-1)
         pooled = xf_out[torch.arange(xf_out.shape[0], device=xf_out.device), eot]
-        return self.text_proj(pooled), xf_out
+        return dense(self.text_proj, pooled, self.dtype), xf_out
 
     def forward(self, tokens: torch.Tensor):
         return self.from_tower(self.tower(tokens), tokens)
@@ -170,12 +191,13 @@ class ClassConditioner(nn.Module):
     ``text_proj``."""
 
     def __init__(self, num_captions: int = 43, text_latent_dim: int = 256,
-                 time_embed_dim: int = 2048):
+                 time_embed_dim: int = 2048, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.cap_embedding = nn.Parameter(torch.empty(num_captions, text_latent_dim))
         self.text_proj = nn.Linear(text_latent_dim, time_embed_dim)
 
     def forward(self, cap_ids: torch.Tensor):
         """(N,) caption ids → (xf_proj (N, time_embed_dim), xf_out (N, 1, Dt))."""
-        emb = self.cap_embedding[cap_ids.long()]
-        return self.text_proj(emb), emb[:, None, :]
+        emb = cast(self.cap_embedding[cap_ids.long()], self.dtype)
+        return dense(self.text_proj, emb, self.dtype), emb[:, None, :]

@@ -110,9 +110,9 @@ def load(name: str) -> ctypes.CDLL:
 
 
 @functools.cache
-def _entry(name: str, n_pointers: int, n_ints: int):
+def _entry(name: str, entry: str, n_pointers: int, n_ints: int):
     lib = load(name)
-    fn = getattr(lib, f"hig_{name}")
+    fn = getattr(lib, f"hig_{entry}")
     fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.hig_error_string.argtypes = [ctypes.c_int]
@@ -120,12 +120,12 @@ def _entry(name: str, n_pointers: int, n_ints: int):
     return fn, lib.hig_error_string
 
 
-def launch(name: str, tensors, ints, stream: int) -> None:
-    """Call ``hig_<name>`` of ``csrc/<name>.cu``'s library with the tensors'
-    device pointers, then the ints, then the CUDA stream handle; raise if
-    it returns a CUDA error (a refused launch never runs, and a later
-    synchronize would not report it)."""
-    fn, error_string = _entry(name, len(tensors), len(ints))
+def launch(name: str, tensors, ints, stream: int, entry: str | None = None) -> None:
+    """Call ``hig_<entry>`` (default ``hig_<name>``) of ``csrc/<name>.cu``'s
+    library with the tensors' device pointers, then the ints, then the CUDA
+    stream handle; raise if it returns a CUDA error (a refused launch never
+    runs, and a later synchronize would not report it)."""
+    fn, error_string = _entry(name, entry or name, len(tensors), len(ints))
     err = fn(*(ctypes.c_void_p(t.data_ptr()) for t in tensors), *ints, stream)
     if err:
         raise RuntimeError(f"{name} kernel: {error_string(err).decode()}")

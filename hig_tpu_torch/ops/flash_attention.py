@@ -27,6 +27,21 @@ hi·lo + hi·hi in float32) with the online softmax in the accumulator
 registers; key ranges past 256 go through in tiles, and causal blocks skip
 keys past their last query when key 0 is unmasked. The work there is 0.27
 GFLOP against 12 MB, so the card's bound is bytes: 3.6 µs at 3.35 TB/s.
+
+bfloat16 form (B4-bf16, ``hig_flash_attention_bf16``). The Pallas kernel
+upcasts q and k to float32 (scores, the online softmax and its running sum
+stay float32), walks the keys in blocks of bk = min(128, Tk rounded up to
+8), and in each block rounds p = exp(s − running max) to the dtype for
+dot(p, v) with float32 accumulation; the output is acc / l in the dtype.
+Where p is rounded depends on the block's running max, so B4-bf16 walks the
+same key blocks: per warp the block's scores (q·kᵀ on mma.sync m16n8k16
+bfloat16 with float32 accumulators: a product of two bfloat16 values is
+exact in float32, so these are the upcast operands' products; the 1/8 scale
+on the float32 scores, where it is exact), its row max, then p rounded to
+bfloat16 and P·V on the same instruction, the rescale between blocks in
+float32. q, k and v are read in place from the merged bfloat16
+q|k|v product. :func:`flash_attention_plain` on bfloat16 inputs is its
+twin, block for block.
 """
 
 from __future__ import annotations
@@ -35,6 +50,7 @@ import math
 
 import torch
 
+from hig_tpu_torch.models.embeddings import reduced, softmax
 from hig_tpu_torch.ops import _build
 from hig_tpu_torch.ops.pallas_attention import (
     MASK_BIAS,
@@ -56,22 +72,78 @@ def causal_bias(Tq: int, Tk: int | None = None, device=None) -> torch.Tensor:
 def quadratic_attention(query, key, value, num_heads: int, logit_bias=None):
     """Standard softmax attention; ``logit_bias`` (..., Tq, Tk, 1) added raw.
 
-    query (..., Tq, D), key/value (..., Tk, D); scale 1/√(D/num_heads).
+    query (..., Tq, D), key/value (..., Tk, D); scale 1/√(D/num_heads), in
+    bfloat16 computed in bfloat16 as JAX computes it, with ``jax.nn.softmax``'s
+    op chain (``embeddings.softmax``).
     """
     D = query.shape[-1]
     q = split_heads(query, num_heads)
     k = split_heads(key, num_heads)
     v = split_heads(value, num_heads)
-    logits = torch.einsum("...nhd,...mhd->...nmh", q, k) * (1.0 / math.sqrt(D // num_heads))
+    if not reduced(query.dtype):
+        scale = 1.0 / math.sqrt(D // num_heads)
+    else:
+        scale = 1.0 / torch.sqrt(torch.tensor(D // num_heads, dtype=query.dtype,
+                                              device=query.device))
+    logits = torch.einsum("...nhd,...mhd->...nmh", q, k) * scale
     if logit_bias is not None:
         logits = logits + logit_bias
-    y = torch.einsum("...nmh,...mhd->...nhd", logits.softmax(dim=-2), v)
+    y = torch.einsum("...nmh,...mhd->...nhd", softmax(logits, -2), v)
     return y.reshape(*y.shape[:-2], D)
+
+
+def pallas_key_block(Tk: int) -> int:
+    """The key block of the Pallas kernel's online softmax."""
+    return min(128, max(8, -(-Tk // 8) * 8))
+
+
+def _flash_bf16_plain(query, key, value, num_heads: int, key_mask, causal: bool,
+                      partner: bool):
+    """B4-bf16's twin: the Pallas kernel's key blocks and rounding points."""
+    f32 = torch.float32
+    lead, (Tq, D), Tk = query.shape[:-2], query.shape[-2:], key.shape[-2]
+    hd = D // num_heads
+    mask = torch.ones((*lead, Tk), dtype=f32, device=query.device)
+    if key_mask is not None:
+        mask = key_mask.to(f32).expand(*lead, Tk)
+    if partner:
+        key, value, mask = key.flip(-3), value.flip(-3), mask.flip(-2)
+    bk = pallas_key_block(Tk)
+    pad = -Tk % bk
+    # padded keys are zeros with a zero mask, as the kernel's padding
+    key = torch.nn.functional.pad(key, (0, 0, 0, pad))
+    value = torch.nn.functional.pad(value, (0, 0, 0, pad))
+    mask = torch.nn.functional.pad(mask, (0, pad))
+    q = split_heads(query.float() * (1.0 / float(hd) ** 0.5), num_heads)
+    k, v = split_heads(key.float(), num_heads), split_heads(value.float(), num_heads)
+    m = torch.full((*lead, Tq, num_heads, 1), -1e30, dtype=f32, device=query.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((*lead, Tq, num_heads, hd), dtype=f32, device=query.device)
+    iq = torch.arange(Tq, device=query.device)[:, None, None]
+    for j0 in range(0, Tk + pad, bk):
+        s = torch.einsum("...nhd,...mhd->...nhm", q, k[..., j0:j0 + bk, :, :])
+        s = s + ((1.0 - mask[..., None, None, j0:j0 + bk]) * MASK_BIAS)
+        if causal:
+            ik = torch.arange(j0, j0 + bk, device=query.device)
+            s = s + torch.where(ik > iq, MASK_BIAS, 0.0)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        pv = torch.einsum("...nhm,...mhd->...nhd", p.to(value.dtype).float(),
+                          v[..., j0:j0 + bk, :, :])
+        acc = acc * alpha + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.reshape(*lead, Tq, D).to(query.dtype)
 
 
 def flash_attention_plain(query, key, value, num_heads: int, key_mask=None,
                           causal: bool = False, partner: bool = False):
-    """Plain PyTorch version of B4; arguments as :func:`flash_attention`."""
+    """Plain PyTorch version of B4; arguments as :func:`flash_attention`. On
+    bfloat16 inputs, the twin of B4-bf16."""
+    if query.dtype == torch.bfloat16:
+        return _flash_bf16_plain(query, key, value, num_heads, key_mask, causal, partner)
     Tq, Tk = query.shape[-2], key.shape[-2]
     mask = None
     if key_mask is not None:
@@ -88,16 +160,16 @@ def flash_attention_plain(query, key, value, num_heads: int, key_mask=None,
     return quadratic_attention(query, key, value, num_heads, logit_bias=bias)
 
 
-def row_stride(name: str, t: torch.Tensor) -> int:
-    """The row stride of a float32 CUDA tensor (..., T, D) whose rows are
+def row_stride(name: str, t: torch.Tensor, dtype=torch.float32) -> int:
+    """The row stride of a ``dtype`` CUDA tensor (..., T, D) whose rows are
     contiguous and evenly spaced, as a column slice of a wider buffer is;
     raises for any other layout."""
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     ld = t.stride(-2)
-    if t.stride(-1) != 1 or ld % 4 or ld < t.shape[-1]:
+    if t.stride(-1) != 1 or ld % (16 // t.element_size()) or ld < t.shape[-1]:
         raise ValueError(f"{name} must have contiguous rows, got strides {t.stride()}")
     rows = t.shape[-2]
     for size, stride in zip(reversed(t.shape[:-2]), reversed(t.stride()[:-2])):
@@ -122,11 +194,13 @@ def flash_attention_backward(saved, grad_out, num_heads: int, causal: bool, part
 def _launch_flash(query, key, value, mask, num_heads, causal, partner):
     lead, (Tq, D), Tk = query.shape[:-2], query.shape[-2:], key.shape[-2]
     N = query.numel() // (Tq * D)
-    out = torch.empty((*lead, Tq, D), device=query.device, dtype=torch.float32)
+    out = torch.empty((*lead, Tq, D), device=query.device, dtype=query.dtype)
+    bf16 = query.dtype == torch.bfloat16
     _build.launch("flash_attention", (query, key, value, mask, out),
                   (N, num_heads, Tq, Tk, query.stride(-2), key.stride(-2), D, int(partner),
                    int(causal)),
-                  torch.cuda.current_stream(query.device).cuda_stream)
+                  torch.cuda.current_stream(query.device).cuda_stream,
+                  entry="flash_attention_bf16" if bf16 else None)
     return out
 
 
@@ -158,7 +232,8 @@ def flash_attention(query, key, value, num_heads: int, key_mask=None,
     Returns (..., Tq, D). CPU tensors take the plain version; CUDA tensors
     launch the kernel, under autograd through :class:`FlashAttention`, which
     reads q, k and v in place as long as each has evenly spaced contiguous
-    rows (k and v at one stride).
+    rows (k and v at one stride): the float32 form, or for bfloat16 q, k and
+    v the bfloat16 form (``launches_bf16``); other dtypes raise.
     """
     if query.device.type == "cpu":
         return flash_attention_plain(query, key, value, num_heads, key_mask, causal, partner)
@@ -169,9 +244,12 @@ def flash_attention(query, key, value, num_heads: int, key_mask=None,
     if partner and (not lead or lead[-1] != 2):
         raise ValueError(f"partner attention takes (..., 2, T, D), got {tuple(query.shape)}")
     check_cuda_width(D, num_heads)
-    row_stride("query", query)
-    ldkv = row_stride("key", key)
-    if row_stride("value", value) != ldkv:
+    dt = query.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the flash-attention kernel takes float32 or bfloat16, got {dt}")
+    row_stride("query", query, dt)
+    ldkv = row_stride("key", key, dt)
+    if row_stride("value", value, dt) != ldkv:
         raise ValueError("the CUDA kernel takes key and value at one row stride; got "
                          f"{key.stride(-2)} and {value.stride(-2)}")
     if key_mask is None:
@@ -180,8 +258,12 @@ def flash_attention(query, key, value, num_heads: int, key_mask=None,
         mask = key_mask.to(torch.float32).expand(*lead, Tk).contiguous()
     check_cuda_operand("key_mask", mask)
     out = FlashAttention.apply(query, key, value, mask, num_heads, causal, partner)
-    flash_attention.launches += 1
+    if dt == torch.bfloat16:
+        flash_attention.launches_bf16 += 1
+    else:
+        flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_bf16 = 0

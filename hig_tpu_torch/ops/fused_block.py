@@ -29,6 +29,25 @@ cvt.rna.tf32(x − hi), summed as lo·hi + hi·lo + hi·hi in float32, which
 keeps float32-level error. At N = 16, T = 91, D = 512 the block is 3.24
 GFLOP against 10 MB, so the card's bound is its 3xTF32 rate (495 / 3
 TFLOP/s): 0.020 ms.
+
+bfloat16 form (B1-bf16, ``hig_fused_block_bf16`` in the same library). The
+Pallas kernel takes any dtype dt and rounds to it at fixed points: x and
+the partner are upcast and LayerNorm_attn runs in float32; q|k|v =
+dot(xn.astype(dt), W) with float32 accumulation, plus the bias, stays
+float32; the softmaxes are float32, then att = dot(kh.astype(dt),
+v.astype(dt)) and y = dot(qh.astype(dt), att.astype(dt)), each with float32
+accumulation; the gate is float32; out = dot(z.astype(dt), Wo) + bo, and
+(x + out).astype(dt). The bfloat16 form rounds at exactly those points:
+the row pass writes xn as bfloat16, the q|k|v GEMM takes bfloat16 operands
+(mma.sync m16n8k16, float32 accumulators) and writes float32, the core
+normalizes kh before rounding it (a pass over the keys for the column sums
+first), rounds v, qh and the state att, and multiplies the rounded values
+exactly (bfloat16 values are exact in TF32, so one TF32 product per pair
+is exact), the gate's row pass writes z as bfloat16, and the Wo GEMM adds
+bo and the float32 residual before it stores bfloat16. LayerNorm keeps
+float32 statistics under ``fast_ln`` too, as the Pallas kernel does.
+:func:`fused_attention_block_plain` on bfloat16 inputs is its twin with the
+same rounding points; products of rounded values are taken in float32.
 """
 
 from __future__ import annotations
@@ -40,9 +59,11 @@ import torch.nn.functional as F
 
 from hig_tpu_torch.ops import _build
 from hig_tpu_torch.ops.pallas_attention import (
+    MASK_BIAS,
     check_cuda_operand,
     check_cuda_width,
     efficient_attention,
+    split_heads,
 )
 
 LN_EPS = 1e-6
@@ -65,13 +86,58 @@ class BlockWeights(NamedTuple):
     bo: torch.Tensor
 
 
+def _round(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bfloat16, as float32."""
+    return t.to(torch.bfloat16).float()
+
+
+def _fused_block_bf16_plain(x, key_mask, scale, shift, w: BlockWeights, num_heads: int,
+                            interaction: bool, unrounded=()):
+    """B1-bf16's twin: the Pallas kernel's rounding points (module doc),
+    but those of the core named in ``unrounded`` ("kh", "v", "att", "qh")."""
+    def core_round(name, t):
+        return t if name in unrounded else _round(t)
+
+    f32 = torch.float32
+    D = x.shape[-1]
+    mask = key_mask.to(f32).expand(x.shape[:-1])
+    xf = x.float()
+    xn = F.layer_norm(xf, (D,), w.ln_g.float(), w.ln_b.float(), LN_EPS)
+    kvn = xn
+    if interaction:
+        kvn, mask = xn.flip(-3), mask.flip(-2)
+    xb, kvb = _round(xn), _round(kvn)
+    q = xb @ w.wq.float().T + w.bq.float()
+    k = kvb @ w.wk.float().T + w.bk.float()
+    v = kvb @ w.wv.float().T + w.bv.float()
+    k = k + (1.0 - mask[..., None]) * MASK_BIAS
+    v = v * mask[..., None]
+    qh = split_heads(q, num_heads).softmax(dim=-1)
+    kh = split_heads(k, num_heads).softmax(dim=-3)  # over the time axis
+    att = torch.einsum("...nhd,...nhl->...hdl", core_round("kh", kh),
+                       core_round("v", split_heads(v, num_heads)))
+    y = torch.einsum("...nhd,...hdl->...nhl", core_round("qh", qh),
+                     core_round("att", att)).reshape(q.shape)
+    z = F.layer_norm(y, (D,), w.styl_g.float(), w.styl_b.float(), LN_EPS)
+    z = F.silu(z * (1 + scale.float()) + shift.float())
+    out = _round(z) @ w.wo.float().T + w.bo.float()
+    return (xf + out).to(x.dtype)
+
+
 def fused_attention_block_plain(x, key_mask, scale, shift, w: BlockWeights,
-                                num_heads: int, interaction: bool = False):
-    """Plain PyTorch version of B1.
+                                num_heads: int, interaction: bool = False, unrounded=()):
+    """Plain PyTorch version of B1; on bfloat16 x, the twin of B1-bf16.
 
     x (..., T, D) — (B, 2, T, D) for the interaction variant; key_mask
     broadcastable to (..., T), x's own mask; scale/shift (..., 1, D).
+    ``unrounded`` leaves out roundings of the bfloat16 core, for the
+    planted controls that show the kernel's gates fail such a form.
     """
+    if x.dtype == torch.bfloat16:
+        return _fused_block_bf16_plain(x, key_mask, scale, shift, w, num_heads, interaction,
+                                       unrounded)
+    if unrounded:
+        raise ValueError("only the bfloat16 twin has roundings to leave out")
     D = x.shape[-1]
     mask = key_mask.to(x.dtype).expand(x.shape[:-1])
     xn = F.layer_norm(x, (D,), w.ln_g, w.ln_b, LN_EPS)
@@ -90,10 +156,12 @@ def fused_attention_block(x, key_mask, scale, shift, w: BlockWeights,
                           num_heads: int, interaction: bool = False):
     """One fused efficient-attention block (B1 forward); see the module doc.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel. B1
-    has no backward (the JAX kernel has no VJP either), so on CUDA tensors it
-    raises when grad is enabled and an input requires grad, rather than
-    return an output cut off from autograd; training takes B2.
+    CPU tensors take the plain version; CUDA tensors launch the kernel: the
+    float32 form, or for bfloat16 x, scale, shift and weights the bfloat16
+    form (``launches_bf16``); other dtypes raise. B1 has no backward (the
+    JAX kernel has no VJP either), so on CUDA tensors it raises when grad is
+    enabled and an input requires grad, rather than return an output cut
+    off from autograd; training takes B2.
     """
     if x.device.type == "cpu":
         return fused_attention_block_plain(x, key_mask, scale, shift, w, num_heads,
@@ -104,16 +172,20 @@ def fused_attention_block(x, key_mask, scale, shift, w: BlockWeights,
     check_cuda_width(D, num_heads)
     if D % 128 or D > 1024:
         raise ValueError(f"the CUDA block takes D a multiple of 128 up to 1024, got {D}")
-    check_cuda_operand("x", x)
+    dt = x.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the fused-block kernel takes float32 or bfloat16 x, got {dt}")
+    check_cuda_operand("x", x, dtype=dt)
     N = x.numel() // (T * D)
     mask = key_mask.to(torch.float32).expand(*lead, T).reshape(N, T).contiguous()
     scale = scale.expand(*lead, 1, D).reshape(N, D).contiguous()
     shift = shift.expand(*lead, 1, D).reshape(N, D).contiguous()
-    for name, t in (("key_mask", mask), ("scale", scale), ("shift", shift)):
-        check_cuda_operand(name, t)
+    check_cuda_operand("key_mask", mask)
+    for name, t in (("scale", scale), ("shift", shift)):
+        check_cuda_operand(name, t, dtype=dt)
     shapes = ((D,), (D,), (D, D), (D,), (D, D), (D,), (D, D), (D,), (D,), (D,), (D, D), (D,))
     for name, t, shape in zip(BlockWeights._fields, w, shapes):
-        check_cuda_operand(name, t, shape)
+        check_cuda_operand(name, t, shape, dtype=dt)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, scale, shift, *w)):
         raise RuntimeError(
             "the fused-block kernel (B1) has no backward: call it under torch.no_grad(), "
@@ -123,10 +195,18 @@ def fused_attention_block(x, key_mask, scale, shift, w: BlockWeights,
     qkv = torch.empty((N * T, 3 * D), device=x.device, dtype=torch.float32)
     y = torch.empty((N * T, D), device=x.device, dtype=torch.float32)
     out = torch.empty_like(x)
-    _build.launch("fused_block", (x, mask, scale, shift, *w, qkv, y, out),
-                  (N, T, D, int(interaction)), torch.cuda.current_stream(x.device).cuda_stream)
-    fused_attention_block.launches += 1
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if dt == torch.float32:
+        _build.launch("fused_block", (x, mask, scale, shift, *w, qkv, y, out),
+                      (N, T, D, int(interaction)), stream)
+        fused_attention_block.launches += 1
+        return out
+    xz = torch.empty((N * T, D), device=x.device, dtype=torch.bfloat16)  # xn, then z
+    _build.launch("fused_block", (x, mask, scale, shift, *w, xz, qkv, y, out),
+                  (N, T, D, int(interaction)), stream, entry="fused_block_bf16")
+    fused_attention_block.launches_bf16 += 1
     return out
 
 
 fused_attention_block.launches = 0
+fused_attention_block.launches_bf16 = 0

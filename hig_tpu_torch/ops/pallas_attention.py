@@ -33,6 +33,16 @@ T = 91. The work is ~0.19 GFLOP against ~12 MB, so the bound is bytes
 (~3.6 µs at 3.35 TB/s); the core reads q, k and v once from device memory
 (k again, from L2, for its column max and in each query block of a head)
 and keeps the KᵀV state in shared memory.
+
+bfloat16 form of B2 (B2-bf16, ``hig_projected_attention_bf16``). The
+Pallas kernel takes q/k/v = dot(x, W) with float32 accumulation plus the
+bias, keeps the whole core in float32 (its two dots take no cast) and
+stores the output in the input dtype. B2-bf16 does the same: the q|k|v
+GEMM takes bfloat16 operands (mma.sync m16n8k16, float32 accumulators) and
+writes float32, the core is B2's 3xTF32 float32 core, and it stores y as
+bfloat16. :func:`fused_projected_attention_plain` on bfloat16 inputs is its
+twin. B3 has no bfloat16 form (no model path calls it): its wrapper raises
+on a bfloat16 tensor on every device.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from hig_tpu_torch.models.embeddings import linear
 from hig_tpu_torch.ops import _build
 
 HEAD_DIM = 64  # the only head width the CUDA core takes
@@ -73,12 +84,23 @@ def merged_qkv(xn, wq, bq, wk, bk, wv, bv):
     """One (D, 3D) product instead of three (D, D) ones; q, k, v order."""
     w = torch.cat([wq, wk, wv], dim=0)
     b = torch.cat([bq, bk, bv])
-    return F.linear(xn, w, b).chunk(3, dim=-1)
+    return linear(xn, w, b).chunk(3, dim=-1)
 
 
 def fused_projected_attention_plain(q_src, kv_src, wq, bq, wk, bk, wv, bv,
                                     num_heads: int, key_mask=None):
-    """Plain PyTorch version of B2. Weights are torch Linear (out, in)."""
+    """Plain PyTorch version of B2. Weights are torch Linear (out, in). On
+    bfloat16 inputs, the twin of B2-bf16: the products of the rounded
+    operands in float32, the float32 core, the output rounded."""
+    if q_src.dtype == torch.bfloat16:
+        mask = None if key_mask is None else key_mask.float()
+
+        def proj(x, w, b):
+            return x.float() @ w.float().T + b.float()
+
+        q = proj(q_src, wq, bq)
+        k, v = proj(kv_src, wk, bk), proj(kv_src, wv, bv)
+        return efficient_attention(q, k, v, num_heads, mask).to(q_src.dtype)
     if kv_src is q_src:
         q, k, v = merged_qkv(q_src, wq, bq, wk, bk, wv, bv)
     else:
@@ -88,11 +110,11 @@ def fused_projected_attention_plain(q_src, kv_src, wq, bq, wk, bk, wv, bv,
     return efficient_attention(q, k, v, num_heads, key_mask)
 
 
-def check_cuda_operand(name: str, t: torch.Tensor, shape=None) -> None:
+def check_cuda_operand(name: str, t: torch.Tensor, shape=None, dtype=torch.float32) -> None:
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
@@ -152,8 +174,10 @@ def _launch_projected(q_src, kv_src, wq, bq, wk, bk, wv, bv, mask):
     N = q_src.numel() // (T * D)
     qkv = torch.empty((N * T, 3 * D), device=q_src.device, dtype=torch.float32)
     out = torch.empty_like(q_src)
+    bf16 = q_src.dtype == torch.bfloat16
     _build.launch("projected_attention", (q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, qkv, out),
-                  (N, T, D), torch.cuda.current_stream(q_src.device).cuda_stream)
+                  (N, T, D), torch.cuda.current_stream(q_src.device).cuda_stream,
+                  entry="projected_attention_bf16" if bf16 else None)
     return out
 
 
@@ -182,7 +206,9 @@ def fused_projected_attention(q_src, kv_src, wq, bq, wk, bk, wv, bv,
     torch Linear layout (out, in); key_mask broadcastable to (..., T), the
     mask of kv_src's tokens. Returns the pre-gate output (..., T, D).
     CPU tensors take the plain version; CUDA tensors launch the kernel,
-    under autograd through :class:`ProjectedAttention`.
+    under autograd through :class:`ProjectedAttention`: the float32 form,
+    or for bfloat16 activations and weights the bfloat16 form
+    (``launches_bf16``); other dtypes raise.
     """
     if q_src.device.type == "cpu":
         return fused_projected_attention_plain(q_src, kv_src, wq, bq, wk, bk, wv, bv,
@@ -194,11 +220,14 @@ def fused_projected_attention(q_src, kv_src, wq, bq, wk, bk, wv, bv,
             f"{tuple(q_src.shape)} and {tuple(kv_src.shape)}"
         )
     check_cuda_width(D, num_heads)
-    check_cuda_operand("q_src", q_src)
-    check_cuda_operand("kv_src", kv_src)
+    dt = q_src.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the projected-attention kernel takes float32 or bfloat16, got {dt}")
+    check_cuda_operand("q_src", q_src, dtype=dt)
+    check_cuda_operand("kv_src", kv_src, dtype=dt)
     for name, w, b in (("query", wq, bq), ("key", wk, bk), ("value", wv, bv)):
-        check_cuda_operand(f"{name} weight", w, (D, D))
-        check_cuda_operand(f"{name} bias", b, (D,))
+        check_cuda_operand(f"{name} weight", w, (D, D), dtype=dt)
+        check_cuda_operand(f"{name} bias", b, (D,), dtype=dt)
     if key_mask is None:
         mask = torch.ones((*lead, T), device=q_src.device, dtype=torch.float32)
     else:
@@ -206,11 +235,17 @@ def fused_projected_attention(q_src, kv_src, wq, bq, wk, bk, wv, bv,
     check_cuda_operand("key_mask", mask)
     out = ProjectedAttention.apply(q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, num_heads,
                                    kv_src is q_src)
-    fused_projected_attention.launches += 1
+    if dt == torch.bfloat16:
+        fused_projected_attention.launches_bf16 += 1
+    else:
+        fused_projected_attention.launches += 1
     return out
 
 
 fused_projected_attention.launches = 0
+fused_projected_attention.launches_bf16 = 0
+B3_BF16 = ("the efficient-attention kernel (B3) has no bfloat16 form: no model path calls it "
+           "(ROADMAP.md, Queue B: 'B3-bf16, not ported')")
 
 
 def efficient_attention_backward(saved, grad_out, num_heads: int, needs=(True,) * 3):
@@ -253,8 +288,11 @@ def fused_efficient_attention(query, key, value, num_heads: int, key_mask=None):
     query (..., Tq, D); key/value (..., Tk, D); key_mask broadcastable to
     (..., Tk), 0/1. Returns (..., Tq, D). CPU tensors take the plain
     :func:`efficient_attention`; CUDA tensors launch the kernel, under
-    autograd through :class:`EfficientAttention`.
+    autograd through :class:`EfficientAttention`. A bfloat16 tensor raises
+    on every device (:data:`B3_BF16`).
     """
+    if torch.bfloat16 in (query.dtype, key.dtype, value.dtype):
+        raise ValueError(B3_BF16)
     if query.device.type == "cpu":
         return efficient_attention(query, key, value, num_heads, key_mask)
     lead, (Tq, D), Tk = query.shape[:-2], query.shape[-2:], key.shape[-2]

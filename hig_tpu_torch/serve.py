@@ -15,19 +15,22 @@ flattened JAX parameter tree saved with np.savez under
 from --random_init SEED (seeded random weights, every leaf nonzero). A
 trained run's feature statistics are in ``<run>/meta`` (--stats). The
 model comes from --opt_path, a training run's opt.txt (its widths,
---cap_id, --cond_drop_prob, --no_eff, --causal, --diffusion_steps, and
+--cap_id, --cond_drop_prob, --no_eff, --causal, --compute_dtype, --fast_ln,
+--rms_norm, --diffusion_steps, and
 its --sampler and --ddim_steps as the defaults of these options; --params
 and --stats then default to the run's model/latest.pt and meta/),
-or from --model_config (a JSON object of ModelConfig fields), default the
-flagship. A caption-id
+or from --model_config (a JSON object of ModelConfig fields, which may set
+compute_dtype "bfloat16", fast_ln and rms_norm), default the flagship. A
+bfloat16 model samples through the kernels' bfloat16 forms. A caption-id
 (--cap_id) model takes each request's captions as their ids in the NTU
 caption table. --guidance_scale w ≠ 1 samples with classifier-free
 guidance, for a model trained with --cond_drop_prob > 0 (default: the
 run's guidance_scale with --opt_path, else 1). --blocks fused (the
 default) runs the efficient self-attention and interaction blocks through
 the fused-block kernel, --blocks projected through the projected-attention
-kernel. --no_eff serves the quadratic (softmax-attention) model instead,
-whose self-attention and interaction blocks go through the flash-attention
+kernel (the default of an rms_norm model, which has no fused block).
+--no_eff serves the quadratic (softmax-attention) model instead, whose
+self-attention and interaction blocks go through the flash-attention
 kernel; --causal makes its attention causal. --blocks has no effect with
 --no_eff and is refused there. --sampler picks DDPM (every timestep of the
 schedule), DDIM or DPM-Solver++(2M) over --ddim_steps (default without
@@ -211,8 +214,13 @@ def main(argv=None):
     if not efficient and args.blocks is not None:
         parser.error("--blocks picks the kernel of the efficient blocks; the quadratic "
                      "(--no_eff) model has none to pick")
-    cfg_fields["fused_blocks"] = efficient and (args.blocks or "fused") == "fused"
-    cfg = ModelConfig(**cfg_fields)
+    # an RMSNorm model has no fused block (its kernel computes LayerNorm)
+    default_blocks = "projected" if cfg_fields.get("rms_norm") else "fused"
+    cfg_fields["fused_blocks"] = efficient and (args.blocks or default_blocks) == "fused"
+    try:
+        cfg = ModelConfig(**cfg_fields)
+    except ValueError as e:
+        parser.error(str(e))
     device = resolve_device(args.device)
     model = build_model(cfg, device, args.params, args.random_init)
     mean, std = load_stats(args.stats, cfg.input_feats)

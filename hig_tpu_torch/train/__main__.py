@@ -33,7 +33,12 @@ import os
 from os.path import join as pjoin
 
 from hig_tpu_torch import resolve_device
-from hig_tpu_torch.config import add_config_args, config_from_args, save_opt_txt
+from hig_tpu_torch.config import (
+    add_config_args,
+    config_from_args,
+    refuse_reduced_precision,
+    save_opt_txt,
+)
 from hig_tpu_torch.data.dataset import PairDataset, load_training_stats
 from hig_tpu_torch.train import checkpoint as ckpt
 from hig_tpu_torch.train.trainer import Trainer
@@ -48,6 +53,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
     try:
         cfg = config_from_args(args)
+        refuse_reduced_precision(cfg, "training")
     except (ValueError, KeyError) as e:
         parser.error(str(e))
     device = resolve_device(args.device)

@@ -44,22 +44,27 @@ from typing import Callable
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from hig_tpu_torch import resolve_device
-from hig_tpu_torch.config import CFG_UNDER_PIT, SAMPLERS, ExperimentConfig, model_config
+from hig_tpu_torch.config import (
+    CFG_UNDER_PIT,
+    SAMPLERS,
+    ExperimentConfig,
+    model_config,
+    refuse_reduced_precision,
+)
 from hig_tpu_torch.data.dataset import PairDataset, epoch_batches
 from hig_tpu_torch.data.vocab import CAPS
 from hig_tpu_torch.diffusion import gaussian as g
 from hig_tpu_torch.diffusion import timestep_samplers as tss
 from hig_tpu_torch.diffusion.solvers import dpmpp_2m_sample_loop
 from hig_tpu_torch.models.denoiser import BLOCKS
-from hig_tpu_torch.models.embeddings import length_mask, timestep_embedding
+from hig_tpu_torch.models.embeddings import length_mask
 from hig_tpu_torch.models.interaction_model import InteractionModel
 from hig_tpu_torch.models.text_encoder import ClipTextConfig
 from hig_tpu_torch.models.tokenizer import tokenize
 from hig_tpu_torch.train import checkpoint as ckpt
-from hig_tpu_torch.weights import load_flax_tree, random_flax_tree
+from hig_tpu_torch.weights import cast_floating, load_flax_tree, random_flax_tree
 
 MAX_FAILURE_RETRIES = 2  # rollbacks a run may take before a non-finite loss raises
 VAL_MAX_BATCHES = 8  # validation batches per pass
@@ -377,9 +382,8 @@ def adaln_scale_shift_grid(model: InteractionModel, ts: np.ndarray, xf_proj: tor
     """
     den = model.denoiser
     t = torch.as_tensor(np.ascontiguousarray(ts), device=xf_proj.device)
-    h = timestep_embedding(t, den.latent_dim)
-    temb = den.time_embed.fc2(F.silu(den.time_embed.fc1(h)))
-    emb = temb[:, None, None, :] + xf_proj[None]  # (S, B, 2, E)
+    # in the model's compute dtype, as JAX's grid takes every Dense
+    emb = den.time_embed(t)[:, None, None, :] + xf_proj[None]  # (S, B, 2, E)
     return [
         {short: getattr(layer, full).proj_out.scale_shift(emb) for short, full in BLOCKS}
         for layer in den.layers
@@ -406,6 +410,12 @@ def make_sampler(model: InteractionModel, sched: g.DiffusionSchedule, T: int,
     does not: over 1000 steps the grid would take 1000 × 2B sequences × 32
     blocks × 2·latent floats (13.6 GB at 52 pairs), so its denoiser computes
     the gates each step.
+
+    A bfloat16 model (``compute_dtype``) has its floating parameters cast
+    once, here and in place (``cast_floating``, as JAX's sampler casts its
+    parameter tree), and computes the gates, the text state and ε in
+    bfloat16; the state x stays float32 and each ε is upcast before its
+    update.
     """
     if sampler not in SAMPLERS:
         raise ValueError(f"unknown sampler {sampler!r} (one of {SAMPLERS})")
@@ -416,6 +426,8 @@ def make_sampler(model: InteractionModel, sched: g.DiffusionSchedule, T: int,
             "(no null conditioning in this model)"
         )
     ts = g.ddim_timesteps(sched.num_timesteps, ddim_steps)
+    if model.cfg.dtype != torch.float32:
+        cast_floating(model, model.cfg.dtype)
 
     @torch.no_grad()
     def sample(cond, lengths, noise=None, generator=None, step_noise=None):
@@ -484,6 +496,7 @@ class Trainer:
 
     def __init__(self, cfg: ExperimentConfig, device=None,
                  clip_config: ClipTextConfig | None = None):
+        refuse_reduced_precision(cfg, "training")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model_config = model_config(cfg, clip_config)

@@ -9,7 +9,13 @@ modules: flax Dense ``kernel`` (in, out) becomes Linear ``weight``
 ``layer_{i}``, ``text_blocks_{i}`` and ``clip/block_{i}`` become the
 ``ModuleList`` entries ``layers.{i}``, ``text_blocks.{i}`` and
 ``clip.blocks.{i}``. A leaf left over or a parameter left unset is an
-error.
+error. An ``rms_norm`` model's RMSNorm leaves carry a ``scale`` and no
+``bias`` (the efficient blocks' ``norm`` and every ``proj_out/norm``; the
+text cross-attention's ``text_norm`` stays a LayerNorm).
+
+:func:`cast_floating` is the JAX sampler's ``cast_floating``
+(``hig_tpu/train/trainer.py:409-416``): it casts every floating parameter
+of a model once, in place, for a bfloat16 model's sampling.
 
 The evaluator models' trees (``embed``, ``block_{i}`` → ``blocks.{i}``,
 ``out1``/``out2``/``fin_proj`` or ``cls_input``/``cls_output``) map the same
@@ -118,8 +124,8 @@ def _dense(d_in: int, d_out: int) -> dict:
     return {"kernel": (d_in, d_out), "bias": (d_out,)}
 
 
-def _ln(d: int) -> dict:
-    return {"scale": (d,), "bias": (d,)}
+def _ln(d: int, rms: bool = False) -> dict:
+    return {"scale": (d,)} if rms else {"scale": (d,), "bias": (d,)}
 
 
 def _post_ln_layer(d: int, ff: int) -> dict:
@@ -154,11 +160,13 @@ def flax_param_shapes(cfg: ModelConfig | EvalModelConfig) -> dict:
     else:
         text = _clip_text_shapes(cfg)
 
+    rms = cfg.rms_norm  # the efficient blocks' norms (the quadratic ones refuse it)
+
     def styl():
-        return {"emb": _dense(E, 2 * D), "norm": _ln(D), "out": _dense(D, D)}
+        return {"emb": _dense(E, 2 * D), "norm": _ln(D, rms), "out": _dense(D, D)}
 
     def attn(d_kv):
-        return {"norm": _ln(D), "query": _dense(D, D), "key": _dense(d_kv, D),
+        return {"norm": _ln(D, rms), "query": _dense(D, D), "key": _dense(d_kv, D),
                 "value": _dense(d_kv, D), "proj_out": styl()}
 
     den = {
@@ -234,3 +242,14 @@ def random_flax_tree(cfg: ModelConfig | EvalModelConfig, seed: int) -> dict:
             z *= np.float32(embed_std[leaf])
         flat[path] = z
     return unflatten(flat)
+
+
+def cast_floating(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast every floating parameter and buffer of ``model`` to ``dtype``,
+    in place (``nn.Module.to`` leaves integer tensors alone). For bfloat16
+    it also turns off cuBLAS's reduced-precision bfloat16 reductions (a
+    process-wide setting), so that the model's bfloat16 products outside
+    the kernels reduce in float32, as XLA's do."""
+    if dtype == torch.bfloat16:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    return model.to(dtype)

@@ -2,7 +2,8 @@
 time: the larger of the bytes' time at 3.35 TB/s and the float32-accurate
 operations' time at the faster of the FMA rate (67 TFLOP/s) and the 3xTF32
 rate (495 / 3 TFLOP/s), at the serving shape N = 16, T = 91, D = 512, 8
-heads of 64."""
+heads of 64; and the gates that hold the bfloat16 forms to their twins,
+against planted controls."""
 
 import pytest
 
@@ -30,3 +31,64 @@ def test_bound_takes_the_faster_float32_accurate_rate(kernel):
     assert by == ("bytes" if want_kind == "bytes" else "operations")
     t_fma = flops / chip_smoke.PEAK_F32_FLOPS * 1e3
     assert ms <= max(t_fma, nbytes / chip_smoke.PEAK_BYTES * 1e3)
+
+
+# The bfloat16 forms' bound: each part of the work at its own rate (bf16
+# 989 TFLOP/s on the tensor cores for every product of two bfloat16 values,
+# B4-bf16's q·kᵀ too: its upcast operands' products are exact; 3xTF32
+# 495 / 3 for B2-bf16's float32 core), bytes at 2 per bfloat16 element.
+BF16_CASES = {
+    "fused_block_bf16": ([(2 * M * D * 3 * D + 2 * M * D * D, "bf16"), (CORE, "bf16")],
+                         2 * (2 * M * D + 2 * N * D + 4 * D * D + 8 * D) + 4 * M, "ops_bf16"),
+    "projected_attention_bf16": ([(2 * M * D * 3 * D, "bf16"), (CORE, "3xtf32")],
+                                 2 * (3 * M * D + 3 * D * D + 3 * D) + 4 * M,
+                                 "ops_3xtf32+bf16"),
+    "flash_attention_bf16": ([(2 * 2 * N * H * T * T * HD, "bf16")],
+                             2 * 4 * N * T * D + 4 * N * T, "bytes"),
+}
+
+
+@pytest.mark.parametrize("form", sorted(BF16_CASES))
+def test_bf16_bound_counts_each_part_at_its_rate(form):
+    parts, nbytes, want_kind = BF16_CASES[form]
+    ms, by, kind = chip_smoke.bound_parts(parts, nbytes)
+    rates = {"bf16": chip_smoke.PEAK_BF16_FLOPS,
+             "3xtf32": chip_smoke.PEAK_TF32_FLOPS / chip_smoke.TF32_SPLIT}
+    want = max(sum(f / rates[r] for f, r in parts), nbytes / chip_smoke.PEAK_BYTES) * 1e3
+    assert ms == pytest.approx(want, rel=1e-12)
+    assert kind == want_kind
+    assert by == ("bytes" if want_kind == "bytes" else "operations")
+
+
+# The gates phase 10 holds each bfloat16 form to against its twin fail a
+# form that skips one of B1's core roundings: the B1 twin without it, put
+# in the kernel's place at the serving shape. On the CPU the float32-order
+# floor is 0, so the limit is 0.25 of the twin's distance from float32.
+@pytest.fixture(scope="module")
+def b1_bf16_twin():
+    import torch
+
+    from hig_tpu_torch.ops.fused_block import BlockWeights, fused_attention_block_plain
+
+    w, x, mask, scale, shift = chip_smoke.block_inputs(torch.device("cpu"))
+    wb = BlockWeights(*[t.to(torch.bfloat16) for t in w])
+    args = (x.to(torch.bfloat16), mask, scale.to(torch.bfloat16), shift.to(torch.bfloat16),
+            wb, H, True)
+    args32 = (args[0].float(), mask, args[2].float(), args[3].float(),
+              BlockWeights(*[t.float() for t in wb]), H, True)
+    return args, args32, fused_attention_block_plain(*args), fused_attention_block_plain(*args32)
+
+
+@pytest.mark.parametrize("left_out", chip_smoke.B1_CORE_ROUNDINGS)
+def test_bf16_gate_fails_b1_without_a_core_rounding(b1_bf16_twin, left_out):
+    from hig_tpu_torch.ops.fused_block import fused_attention_block_plain
+
+    args, args32, twin, twin32 = b1_bf16_twin
+    assert chip_smoke.bf16_gate_row(twin, twin, twin32, twin)["passed"]
+    control = fused_attention_block_plain(*args, unrounded=(left_out,))
+    row = chip_smoke.bf16_gate_row(control, twin, twin32, twin)
+    assert control.dtype == twin.dtype
+    assert not row["passed"], row
+    assert row["rms_ratio"] > 2 * chip_smoke.BF16_KERNEL_RMS, row
+    with pytest.raises(ValueError, match="bfloat16"):
+        fused_attention_block_plain(*args32, unrounded=(left_out,))

@@ -17,6 +17,17 @@ cuBLAS's and the block's second LayerNorm rescales the attention output by
 kernels' 3xTF32 products meet and plain TF32 products (the low parts
 dropped) miss by more than an order of magnitude.
 
+bfloat16 forms (B1-bf16, B2-bf16, B4-bf16) against their bfloat16 twins
+at the serving shape (B4 also at T = 196, two of the Pallas kernel's key
+blocks), with cuBLAS's reduced-precision bf16 reductions off, under
+``chip_smoke.py``'s gates: max |kernel − twin| within 2 bfloat16 ulps of
+the twin's largest magnitude, and rms(kernel − twin) within 0.25 of
+rms(twin − the float32 twin on the same rounded inputs) or, where larger,
+1.5 × the twin's distance from the same twin on the CPU (the float32 order
+of sums alone; B1's cancelling KᵀV sum sits there); each form counts its
+own launches, and a bfloat16 tensor into B3, or beside float32 operands,
+raises.
+
 Gradients: B2, B3 and B4 under autograd against autograd through their
 plain versions (the backwards recompute the plain versions, so only the
 forward's rounding differs), at the same tolerances; B1 refuses to run
@@ -220,6 +231,91 @@ def test_kernels_refuse_unsupported_shapes(cuda):
             kernel(x.transpose(0, 1), x.transpose(0, 1), x.transpose(0, 1), H)
     with pytest.raises(ValueError):  # partner without an actor axis of 2
         flash_attention(x[:, 0], x[:, 0], x[:, 0], H, partner=True)
+
+
+# --- bfloat16 forms ----------------------------------------------------------------
+
+BF16 = torch.bfloat16
+
+
+@pytest.fixture
+def cuda_bf16(cuda):
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    return cuda
+
+
+def bf16_close(got, twin, twin32, twin_cpu):
+    """chip_smoke's kernel gates: (whether ``got`` meets them, the readings)."""
+    def rms(t):
+        return t.pow(2).mean().sqrt().item()
+
+    d = got.float() - twin.float()
+    max_abs, lim = d.abs().max().item(), 2 * 2 ** -8 * twin.float().abs().max().item()
+    err, ref = rms(d), rms(twin.float() - twin32)
+    floor = rms(twin.float().cpu() - twin_cpu.float())
+    ok = got.dtype == BF16 and max_abs <= lim and err <= max(0.25 * ref, 1.5 * floor)
+    return ok, (max_abs, lim, err, ref, floor)
+
+
+def _bf16(t):
+    return t.to(BF16)
+
+
+@pytest.mark.parametrize("case", ["b1_self", "b1_interaction", "b2_partner", "b4_self",
+                                  "b4_partner", "b4_causal", "b4_two_blocks"])
+def test_bf16_forms_match_their_twins(cuda_bf16, case):
+    t = 196 if case == "b4_two_blocks" else T
+    w, x, mask, scale, shift = _inputs(cuda_bf16, t)
+    wb = BlockWeights(*[_bf16(a) for a in w])
+    xb = _bf16(x)
+    if case.startswith("b1"):
+        fn, plain, counter = fused_attention_block, fused_attention_block_plain, \
+            fused_attention_block
+        args = (xb, mask, _bf16(scale), _bf16(shift), wb, H, case == "b1_interaction")
+    elif case.startswith("b2"):
+        fn, plain, counter = fused_projected_attention, fused_projected_attention_plain, \
+            fused_projected_attention
+        xn = _bf16(torch.nn.functional.layer_norm(x, (D,), w.ln_g, w.ln_b, 1e-6))
+        args = (xn, xn.flip(1).contiguous(), wb.wq, wb.bq, wb.wk, wb.bk, wb.wv, wb.bv, H,
+                mask.flip(1).contiguous())
+    else:
+        fn, plain, counter = flash_attention, flash_attention_plain, flash_attention
+        qkv = (torch.nn.functional.linear(xb, torch.cat([wb.wq, wb.wk, wb.wv]))
+               + torch.cat([wb.bq, wb.bk, wb.bv]))
+        q, k, v = qkv.chunk(3, dim=-1)
+        args = (q, k, v, H, mask, case == "b4_causal", case == "b4_partner")
+    before, before_f32 = counter.launches_bf16, counter.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert (counter.launches_bf16, counter.launches) == (before + 1, before_f32)
+    args32 = tuple(a.float() if torch.is_tensor(a) else a for a in args)
+    cpu = tuple(a.cpu() if torch.is_tensor(a) else a for a in args)
+    if case.startswith("b1"):
+        args32 = args32[:4] + (BlockWeights(*[a.float() for a in wb]),) + args32[5:]
+        cpu = cpu[:4] + (BlockWeights(*[a.cpu() for a in wb]),) + cpu[5:]
+    twin, twin32, twin_cpu = plain(*args), plain(*args32), plain(*cpu)
+    ok, readings = bf16_close(got, twin, twin32, twin_cpu)
+    assert ok, readings
+    if case.startswith("b1"):
+        # planted controls: the twin without one core rounding fails the gates
+        for left_out in ("kh", "v", "att", "qh"):
+            ok, readings = bf16_close(plain(*args, unrounded=(left_out,)), twin, twin32,
+                                      twin_cpu)
+            assert not ok, (left_out, readings)
+
+
+def test_bf16_without_a_form_raises(cuda_bf16):
+    """B3 has no bfloat16 form, and no form takes bfloat16 beside float32."""
+    w, x, mask, scale, shift = _inputs(cuda_bf16)
+    xb = _bf16(x)
+    with pytest.raises(ValueError, match="no bfloat16 form"):
+        fused_efficient_attention(xb, xb, xb, H, mask)
+    with pytest.raises(ValueError):  # float32 weights
+        fused_attention_block(xb, mask, _bf16(scale), _bf16(shift), w, H)
+    with pytest.raises(ValueError):  # float32 weights
+        fused_projected_attention(xb, xb, w.wq, w.bq, w.wk, w.bk, w.wv, w.bv, H, mask)
+    with pytest.raises(ValueError):  # float32 keys
+        flash_attention(xb, x, x, H, mask)
 
 
 # --- gradients ---------------------------------------------------------------------

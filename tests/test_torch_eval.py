@@ -419,9 +419,19 @@ def test_eval_clis(data_root, tmp_path):
         assert all(np.isfinite(v).all() for v in models.values())
     for rep in range(2):
         assert np.load(save_dir / f"confusion_matrix0_rep{rep}.npy").sum() == 52
-    with pytest.raises(SystemExit):
-        evaluate.main(["--opt_path", os.path.join(ckpts, "synthetic_mul", "gen", "opt.txt"),
-                       "--device", "cpu", "--fast_ln"])
+    # --fast_ln runs: the same checkpoint evaluated as a bfloat16 run with
+    # bf16 LayerNorm statistics (the efficient blocks' norms)
+    opt = os.path.join(ckpts, "synthetic_mul", "gen", "opt.txt")
+    text = open(opt).read()
+    assert "compute_dtype: float32\n" in text
+    bf16_opt = str(tmp_path / "gen_bf16_opt.txt")
+    with open(bf16_opt, "w") as f:
+        f.write(text.replace("compute_dtype: float32\n", "compute_dtype: bfloat16\n"))
+    out = evaluate.main(["--opt_path", bf16_opt, "--device", "cpu", "--fast_ln",
+                         "--sampler", "ddim", "--ddim_steps", "2", "--file_id", "fast_ln"])
+    summary = json.load(open(save_dir / "summaryfast_ln.json"))
+    assert all(np.isfinite(v).all() for models in summary.values() for v in models.values())
+    assert np.load(save_dir / "confusion_matrixfast_ln_rep0.npy").sum() == 52
 
 
 @pytest.mark.parametrize("cli", ["eval.train", "eval.test", "evaluate"])

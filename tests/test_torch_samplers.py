@@ -34,7 +34,7 @@ from hig_tpu.diffusion import gaussian as jg
 from hig_tpu.diffusion import solvers as jsolvers
 from hig_tpu.train import trainer as jt
 from hig_tpu_torch import serve
-from hig_tpu_torch.config import ExperimentConfig, load_opt_txt, save_opt_txt
+from hig_tpu_torch.config import ExperimentConfig, load_opt_txt, model_config, save_opt_txt
 from hig_tpu_torch.data.vocab import CAPS
 from hig_tpu_torch.diffusion import gaussian as tg
 from hig_tpu_torch.diffusion import solvers as tsolvers
@@ -301,12 +301,21 @@ def test_serve_picks_the_runs_sampler(tmp_path, monkeypatch):
 
 MODEL_KEYS = {"fast_ln": True, "rms_norm": True, "only_language": True, "only_motion": True,
               "window_size": 60}
+SERVED_MODEL_KEYS = ("fast_ln", "rms_norm")  # carried by the bf16 serving path
 
 
 @pytest.mark.parametrize("key", list(MODEL_KEYS))
 def test_load_opt_txt_refuses_jax_model_keys(tmp_path, key):
+    """The JAX keys that change the model's function are refused, naming
+    the key, unless the port carries them: fast_ln and rms_norm load into
+    their fields (and reach the model's config)."""
     path = str(tmp_path / "opt.txt")
     jcfg.save_opt_txt(jcfg.ExperimentConfig(**{key: MODEL_KEYS[key]}), path)
+    if key in SERVED_MODEL_KEYS:
+        cfg = load_opt_txt(path)
+        assert getattr(cfg, key) is True
+        assert getattr(model_config(cfg), key) is True
+        return
     with pytest.raises(ValueError, match=key):
         load_opt_txt(path)
 

@@ -7,7 +7,8 @@ Phases, each printing one JSON line (or several):
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; TF32 is turned off so float32 products stay float32;
   2. build: nvcc builds every kernel library (B1-B4), one process per
-     source, all started together;
+     source, all started together; each kernel's registers, shared memory
+     and spills from ptxas;
   3. kernels: each kernel against its plain PyTorch version on the card at
      the serving shape (N = 16 sequences = 8 caption pairs, T = 91 tokens,
      D = 512, 8 heads, float32, ragged lengths): B1 self and interaction;
@@ -88,8 +89,10 @@ Phases, each printing one JSON line (or several):
      itself run on the CPU where the float32 order of sums alone moves more
      roundings than that), B1-bf16 beside four planted controls (its twin
      with one core rounding left out, each of which must fail the same
-     gates), timed as phase 3 times, with its bound (each part at its own
-     rate: bf16 989 TFLOP/s for products of bfloat16 values, 3xTF32
+     gates), timed as phase 3 times (B1-bf16 also per launch: row pass,
+     q|k|v projection + core, gate row pass, Wo GEMM), with its bound
+     (each part at its own rate: bf16 989 TFLOP/s for products of
+     bfloat16 values, 3xTF32
      495 / 3 for B2-bf16's float32 core) and, for B4-bf16, SDPA on the
      same bfloat16 inputs and the backend it took; one full-width bfloat16
      denoiser call each for fused (B1-bf16), projected (B2-bf16), no_eff
@@ -108,7 +111,8 @@ Phases, each printing one JSON line (or several):
      ``python -m hig_tpu_torch.evaluate`` from stage 1-3's checkpoint as a
      bfloat16 run with --fast_ln, DPM-20 at T = 196 (exactly 320 B1-bf16
      launches, finite metrics in range, confusion matrices of 52 clips).
-     The profile then adds the bfloat16 fused and guided serving calls.
+     The profile then adds the bfloat16 fused, no_eff and guided serving
+     calls.
 Then the kernel table (the bfloat16 forms' rows after the float32 ones), the
 nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero without
@@ -365,12 +369,21 @@ def phase_build() -> None:
     from hig_tpu_torch.ops import _build
 
     log = _build.build_all()
-    ptxas = {
-        lib: [ln.strip() for ln in text.splitlines() if "registers" in ln or "spill" in ln]
-        for lib, text in log.items() if lib != "seconds"
-    }
+    ptxas = {lib: ptxas_lines(text) for lib, text in log.items() if lib != "seconds"}
     print(json.dumps({"phase": "build", "seconds": log["seconds"], "ptxas": ptxas}),
           flush=True)
+
+
+def ptxas_lines(text: str) -> dict:
+    """nvcc -Xptxas -v output → {kernel (mangled name): "registers, shared
+    memory, spills"}."""
+    out, name = {}, None
+    for ln in text.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln.strip()
+        elif name and ("registers" in ln or "spill" in ln):
+            out[name] = f"{out[name]}; {ln.strip()}" if name in out else ln.strip()
+    return out
 
 
 def block_inputs(device, pairs: int = N_PAIRS, tq: int = T):
@@ -1504,11 +1517,36 @@ def check_fused_block_bf16(w, x, mask, scale, shift, failures) -> dict:
         cases[name]["controls_rms_ratio"] = controls
         cases[name]["ms"] = time_ms(lambda: fused_attention_block(*args))
         cases[name]["plain_ms"] = time_ms(lambda: plain(*args))
+        cases[name]["launch_ms"] = b1_bf16_launch_ms(*args)
     parts = [(2 * M * D * 3 * D + 2 * M * D * D, "bf16"),
              (2 * 2 * N * HEADS * Tq * hd * hd, "bf16")]
     nbytes = 2 * (2 * M * D + 2 * N * D + 4 * D * D + 8 * D) + 4 * M
     return bf16_row("fused_block_bf16", "hig_tpu_torch/csrc/fused_block.cu",
                     "hig_tpu/ops/fused_block.py:48", [N, Tq, D, HEADS], cases, parts, nbytes)
+
+
+B1_BF16_LAUNCHES = ("row_pass", "qkv_core", "gate_row_pass", "wo_gemm")
+
+
+def b1_bf16_launch_ms(x, mask, scale, shift, w, heads, interaction) -> dict:
+    """B1-bf16's time per launch (``B1_BF16_LAUNCHES``, in order), each timed
+    alone as ``time_ms`` times a kernel, on buffers that one whole block has
+    filled (the q|k|v + core launch then reads z where it would read xn:
+    the same shapes and work)."""
+    from hig_tpu_torch.ops.fused_block import launch_bf16
+
+    lead, (Tq, Dm) = x.shape[:-2], x.shape[-2:]
+    N = x.numel() // (Tq * Dm)
+    m = mask.to(torch.float32).expand(*lead, Tq).reshape(N, Tq).contiguous()
+    sc = scale.expand(*lead, 1, Dm).reshape(N, Dm).contiguous()
+    sh = shift.expand(*lead, 1, Dm).reshape(N, Dm).contiguous()
+    xz = torch.empty((N * Tq, Dm), device=x.device, dtype=torch.bfloat16)
+    y = torch.empty((N * Tq, Dm), device=x.device, dtype=torch.float32)
+    tensors = (x, m, sc, sh, *w, xz, y, torch.empty_like(x))
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    launch_bf16(tensors, N, Tq, Dm, interaction, stream())
+    return {name: time_ms(lambda: launch_bf16(tensors, N, Tq, Dm, interaction, stream(), part))
+            for part, name in enumerate(B1_BF16_LAUNCHES)}
 
 
 def bf16_row(name, source, replaces, shape, cases, parts, nbytes, library=None) -> dict:
@@ -1820,7 +1858,7 @@ def phase_bf16(f32_models: dict, device, failures, smi: str, tmp: str) -> tuple:
         fail_if(failures, tuple(joints.shape) != (N_PAIRS, 2, T - 1, 22, 3)
                 or not np.isfinite(joints).all(), f"bf16 serve ({run}) joints {joints.shape}")
         launches[own] += call_counts[0][own]
-        if run in ("fused", "guided"):
+        if run in ("fused", "no_eff", "guided"):
             runs[f"serve_bf16_{run}"], walls[f"serve_bf16_{run}"] = call, wall
     del models
 

@@ -9,13 +9,11 @@
 // product) is dropped, so the result keeps float32-level error, where one
 // plain TF32 product keeps ~2^-11.
 //
-// bfloat16. The bfloat16 forms of the kernels take bfloat16 operands on
-// mma.sync m16n8k16 (float32 accumulators), round float32 values to
-// bfloat16 with round-to-nearest-even (what XLA's convert does), and move
-// bfloat16 data through the same float4/float2-sized loads and stores.
-// A bfloat16 value has 8 significant bits, so it is exact in TF32 (11): a
-// TF32 product of two bfloat16-rounded floats is exact, and
-// mma_tf32_exact takes it in one term where 3xTF32 would add two zeros.
+// bfloat16. B2-bf16 takes bfloat16 operands on mma.sync m16n8k16 (float32
+// accumulators), and every bfloat16 form rounds float32 values to bfloat16
+// with round-to-nearest-even (what XLA's convert does) and moves bfloat16
+// data through the same float4/float2-sized loads and stores. B1-bf16 and
+// B4-bf16 run their products on wgmma (hopper.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -86,20 +84,6 @@ __device__ __forceinline__ void mma_3xtf32(float* acc, const Split* a, const Spl
       }
 }
 
-// acc[i][j] += a[i] * b[j] for operands that are exact in TF32 (bfloat16-
-// rounded floats): the hi parts only, one term. Layouts as mma_3xtf32.
-template <int I, int J>
-__device__ __forceinline__ void mma_tf32_exact(float* acc, const Split* a, const Split* b) {
-#pragma unroll
-  for (int i = 0; i < I; ++i)
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const uint32_t af[4] = {a[4 * i].hi, a[4 * i + 1].hi, a[4 * i + 2].hi, a[4 * i + 3].hi};
-      const uint32_t bf[2] = {b[2 * j].hi, b[2 * j + 1].hi};
-      mma_tf32(acc + 4 * (J * i + j), af, bf);
-    }
-}
-
 // d += a * b for one m16n8k16 tile, bfloat16 inputs, float32 accumulators.
 // Each register holds two bfloat16, the lower k in the low half. Fragments
 // (g = lane / 4, c = lane % 4): a[0] (row g, k 2c, 2c + 1), a[1] (g + 8,
@@ -113,10 +97,6 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint
 }
 
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 // Two floats as one register of two bfloat16, `lo` in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -163,9 +143,6 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
 }
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
 
 // 16-byte asynchronous copy global -> shared; `valid` false writes zeros.
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {

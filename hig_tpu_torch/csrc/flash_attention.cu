@@ -47,6 +47,7 @@
 #include <stddef.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace hig {
 
@@ -258,186 +259,294 @@ __global__ void __launch_bounds__(FA_MAX_WARPS * 32) flash_attention_kernel(
 // the Pallas kernel rounds for dt = bfloat16 (hig_tpu/ops/flash_attention.py:
 // 53-86): scores and the online softmax in float32 over the Pallas key
 // blocks of `bk` keys (min(128, Tk rounded up to 8)); in each block
-// p = exp(s - running max) is rounded to bfloat16 for P v. Where p rounds
-// depends on the running max, so the key blocks are the Pallas kernel's:
-// each warp scores a whole block (up to 128 keys) on mma.sync m16n8k16
-// bfloat16 with float32 accumulators: a product of two bfloat16 values is
-// exact in float32, so these are the products of the Pallas kernel's
-// upcast q and k, summed in float32. It takes the block's row max, rescales
-// its running sums, and runs P v on the same instruction, P taken from the
-// score registers (an S tile pair of 16 keys is P's A fragment).
-// Keys past Tk inside a block score -1e6 (the Pallas kernel's zero
-// padding with a zero mask); keys past the block, up to the next multiple
-// of 16, score -inf and weigh exactly 0. out = acc / l rounded to bfloat16.
-// One block per (sequence, head, up to 128 query rows), one warp per 16
-// rows, a Pallas key block in shared memory at a time.
-constexpr int FB_BLOCK = 128;         // the Pallas kernel's largest key block
-constexpr int FB_RS = FA_HD + 8;      // bfloat16 row stride of k and v in shared memory
-constexpr int FB_TILES = FB_BLOCK / 8;  // n8 score tiles of a block
+// p = exp(s - running max) is rounded to bfloat16 for P v; out = acc / l
+// rounded to bfloat16. Keys past Tk inside a block score -1e6 (the Pallas
+// kernel's zero padding with a zero mask); keys past the block, up to 128,
+// score -inf and weigh exactly 0.
+//
+// Bound on this card: at N = 104, H = 8, T = 196 the work is 2.6 GFLOP of
+// bfloat16 products (2.6 us at 989 TFLOP/s) against 83 MB of q, k, v, mask
+// and out (25 us at 3.35 TB/s); at the serving shape 1.8 us, also bytes. So
+// the design reads each byte once and keeps the loads in flight under the
+// products:
+// - A work item is one (sequence, head) with all its query rows, 64 per
+//   consumer warpgroup (up to 4; longer query ranges in passes), so K and
+//   V are read once per (sequence, head). Blocks are persistent, one per
+//   SM, and walk over the items, so one item's loads overlap the previous
+//   item's products.
+// - Each Pallas key block (128 rows of k and of v, rows past Tk
+//   zero-filled by TMA) comes by TMA into a 2-stage ring with
+//   mbarriers: block j + 1 (of this item or the next) loads while block j
+//   is computed. Thread 0 issues the loads and refills a stage once every
+//   warpgroup has released it; each warpgroup's q tiles come by TMA into a
+//   double buffer, the next tile's while this one is computed. (Beside four
+//   consumer warpgroups a producer warp makes ptxas allocate registers as
+//   for 640 threads, and spill; a producer warpgroup that hands its
+//   registers over with setmaxnreg ran slower.)
+// - Both products run on wgmma: S = q k^T (m64n128k16, q and k from
+//   128-byte-swizzled shared memory) and O += P v (m64n64k16), P the
+//   register A operand taken from the score registers once p is rounded,
+//   v the MN-major B operand; nothing of S or P goes to shared memory.
+// - The 1/8 scale goes on the float32 scores, where it is exact, as on q
+//   in the Pallas kernel. Rows past Tq read as zeros and are not stored.
+constexpr int FB_BLOCK = 128;  // the Pallas kernel's largest key block, one ring stage
+constexpr int FB_BQ = 64;      // query rows per consumer warpgroup
+constexpr int FB_MAX_WG = 4;   // consumer warpgroups
+constexpr int FB_STAGES = 2;
+constexpr uint32_t FB_Q_BYTES = FB_BQ * FA_HD * 2;      // 8 KB
+constexpr uint32_t FB_KV_BYTES = FB_BLOCK * FA_HD * 2;  // 16 KB each of k and v
 
-__global__ void __launch_bounds__(FA_MAX_WARPS * 32) flash_attention_bf16_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const float* __restrict__ mask, bf16* __restrict__ out, int H, int Tq, int Tk,
-    int ldq, int ldkv, int ldo, int partner, int causal, int bk) {
-  __shared__ __align__(16) bf16 k_s[FB_BLOCK * FB_RS];
-  __shared__ __align__(16) bf16 v_s[FB_BLOCK * FB_RS];
-  __shared__ float bias_s[FB_BLOCK];
+struct FlashBf16Smem {  // at a 1024-byte boundary
+  bf16 q[FB_MAX_WG][2][FB_BQ * FA_HD];
+  bf16 k[FB_STAGES][FB_BLOCK * FA_HD];
+  bf16 v[FB_STAGES][FB_BLOCK * FA_HD];
+  float bias[FB_MAX_WG][2][FB_BLOCK];  // each warpgroup's key biases, by block parity
+  uint64_t kfull[FB_STAGES], vfull[FB_STAGES], empty[FB_STAGES], qfull[FB_MAX_WG][2];
+};
 
-  const int n = blockIdx.x / H, h = blockIdx.x % H;
-  const int src = partner ? (n ^ 1) : n;
+constexpr float FB_LOG2E = 1.4426950408889634f;
+
+// 2^x on the special-function unit (float32-level error, results below
+// 2^-126 flushed to 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <bool CAUSAL>
+__global__ void __launch_bounds__(FB_MAX_WG * 128, 1) flash_attention_bf16_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const float* __restrict__ mask,
+    bf16* __restrict__ out, int H, int Tq, int Tk, int ldo, int partner, int bk, int nwg,
+    int items) {
+  extern __shared__ unsigned char smem_raw[];
+  FlashBf16Smem& sm = *reinterpret_cast<FlashBf16Smem*>(align1024(smem_raw));
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, c = lane & 3;
-  const int nthreads = blockDim.x;
-  const int tw0 = blockIdx.y * (blockDim.x / 2) + warp * 16;  // first query row of this warp
-  const int t_lo = tw0 + g, t_hi = tw0 + g + 8;
-  const bool warp_rows = tw0 < Tq;
-  const bf16* kb = k + (size_t)src * Tk * ldkv + h * FA_HD;
-  const bf16* vb = v + (size_t)src * Tk * ldkv + h * FA_HD;
-  const float* mb = mask + (size_t)src * Tk;
-  const int steps = (bk + 15) / 16;  // k16 steps of P v per block
+  const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, c = lane & 3;
+  const int qtiles = (Tq + FB_BQ - 1) / FB_BQ;
+  const int passes = (qtiles + nwg - 1) / nwg;
+  const int kblocks = (Tk + bk - 1) / bk;
+  const int my_items = (items - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int loads = my_items * passes * kblocks;  // key blocks through the ring
+  const int wsteps = (qtiles - wg + nwg - 1) / nwg;  // this warpgroup's q tiles of an item
 
-  // q fragments: the A operand of m16n8k16, bfloat16 pairs read in place
-  // (rows t_lo and t_hi; depth 2c, 2c + 1 and 2c + 8, 2c + 9 of each
-  // 16-deep step). The scale 1/8 goes on the float32 scores, where it is
-  // exact, as on q in the Pallas kernel.
-  uint32_t qa[FA_HD / 16][4];
-  {
-    const bf16* q0 = q + ((size_t)n * Tq + min(t_lo, Tq - 1)) * ldq + h * FA_HD + 2 * c;
-    const bf16* q1 = q + ((size_t)n * Tq + min(t_hi, Tq - 1)) * ldq + h * FA_HD + 2 * c;
-#pragma unroll
-    for (int kk = 0; kk < FA_HD / 16; ++kk) {
-      qa[kk][0] = *reinterpret_cast<const uint32_t*>(q0 + 16 * kk);
-      qa[kk][1] = *reinterpret_cast<const uint32_t*>(q1 + 16 * kk);
-      qa[kk][2] = *reinterpret_cast<const uint32_t*>(q0 + 16 * kk + 8);
-      qa[kk][3] = *reinterpret_cast<const uint32_t*>(q1 + 16 * kk + 8);
+  auto item_of = [&](int k) { return (int)blockIdx.x + k * (int)gridDim.x; };
+  auto load_block = [&](int it) {  // ring position it: stage it % FB_STAGES
+    const int st = it % FB_STAGES, j0 = (it % kblocks) * bk;
+    const int item = item_of(it / (passes * kblocks)), n = item / H;
+    const int src = partner ? (n ^ 1) : n;
+    // k on one barrier, v on another: S runs while v arrives
+    mbar_arrive_expect_tx(&sm.kfull[st], FB_KV_BYTES);
+    tma_load_3d(sm.k[st], &tk, &sm.kfull[st], (item % H) * FA_HD, j0, src);
+    mbar_arrive_expect_tx(&sm.vfull[st], FB_KV_BYTES);
+    tma_load_3d(sm.v[st], &tv, &sm.vfull[st], (item % H) * FA_HD, j0, src);
+  };
+  auto load_q = [&](int w, int idx) {  // warpgroup w's q tile idx into buffer idx & 1
+    const int ws = (qtiles - w + nwg - 1) / nwg;
+    const int item = item_of(idx / ws), tile = (idx % ws) * nwg + w;
+    uint64_t* bar = &sm.qfull[w][idx & 1];
+    mbar_arrive_expect_tx(bar, FB_Q_BYTES);
+    tma_load_3d(sm.q[w][idx & 1], &tq, bar, (item % H) * FA_HD, tile * FB_BQ, item / H);
+  };
+
+  if (tid == 0) {
+    prefetch_tensormap(&tq);
+    prefetch_tensormap(&tk);
+    prefetch_tensormap(&tv);
+    for (int s = 0; s < FB_STAGES; ++s) {
+      mbar_init(&sm.kfull[s], 1);
+      mbar_init(&sm.vfull[s], 1);
+      mbar_init(&sm.empty[s], 128 * nwg);
     }
+    for (int w = 0; w < FB_MAX_WG; ++w) {
+      mbar_init(&sm.qfull[w][0], 1);
+      mbar_init(&sm.qfull[w][1], 1);
+    }
+    fence_barrier_init();
+    for (int w = 0; w < nwg; ++w) load_q(w, 0);
+    for (int it = 0; it < loads && it < FB_STAGES; ++it) load_block(it);
   }
+  __syncthreads();
 
-  float o[FA_HD / 8][4];
-#pragma unroll
-  for (int j = 0; j < FA_HD / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-  float m_lo = -1e30f, m_hi = -1e30f, l_lo = 0.f, l_hi = 0.f;  // Pallas's m0
-
-  for (int j0 = 0; j0 < Tk; j0 += bk) {
-    for (int i = tid; i < steps * 16 * (FA_HD / 8); i += nthreads) {
-      const int r = i / (FA_HD / 8), col = (i % (FA_HD / 8)) * 8;
-      const int key = j0 + r;
-      const bool ok = r < bk && key < Tk;
-      const size_t off = (size_t)(ok ? key : 0) * ldkv + col;
-      cp_async16(k_s + r * FB_RS + col, kb + off, ok);
-      cp_async16(v_s + r * FB_RS + col, vb + off, ok);
+  // The next ring block's (local item, pass, key block) and its item's mask
+  // row; each thread reads the mask value of its key r = tid % 128 one block
+  // ahead.
+  int nk = 0, npass = 0, njb = 0;
+  auto mask_row = [&](int k) {
+    const int n = item_of(k) / H;
+    return mask + (size_t)(partner ? (n ^ 1) : n) * Tk;
+  };
+  const float* nrow = mask_row(0);
+  auto next_mask = [&]() {  // the value for block (nk, npass, njb), then advance
+    const int key = njb * bk + (tid & 127);
+    const float m = nk < my_items && key < Tk ? nrow[key] : 0.f;
+    if (++njb == kblocks) {
+      njb = 0;
+      if (++npass == passes) {
+        npass = 0;
+        if (++nk < my_items) nrow = mask_row(nk);
+      }
     }
-    cp_async_commit();
-    for (int r = tid; r < steps * 16; r += nthreads) {
-      const int key = j0 + r;
-      bias_s[r] = r >= bk ? -INFINITY : key < Tk ? (1.f - mb[key]) * FA_MASK_BIAS
+    return m;
+  };
+  float mnext = next_mask();
+
+  int it = 0, idx = 0;  // ring position; this warpgroup's q tiles so far
+  for (int k = 0; k < my_items; ++k) {
+    const int item = item_of(k), n = item / H, h = item % H;
+    for (int pass = 0; pass < passes; ++pass) {
+      const int tile = pass * nwg + wg;
+      const bool active = tile < qtiles;  // uniform over the warpgroup
+      if (active) {
+        named_barrier(1 + wg, 128);  // the warpgroup is done with buffer (idx + 1) & 1
+        if ((tid & 127) == 0 && idx + 1 < my_items * wsteps) load_q(wg, idx + 1);
+        mbar_wait(&sm.qfull[wg][idx & 1], (idx >> 1) & 1);
+      }
+      const uint64_t dq = sw128_desc(sm.q[wg][idx & 1]);
+      const int t_lo = tile * FB_BQ + 16 * wl + g, t_hi = t_lo + 8;
+      float o[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[i] = 0.f;
+      float m_lo = -1e30f, m_hi = -1e30f, l_lo = 0.f, l_hi = 0.f;  // Pallas's m0
+      const bool warp_rows = tile * FB_BQ + 16 * wl < Tq;
+      bool key0 = false;  // key 0 of the sequence unmasked (read with block 0)
+
+      for (int jb = 0; jb < kblocks; ++jb, ++it) {
+        const int st = it % FB_STAGES, j0 = jb * bk;
+        const uint32_t parity = (it / FB_STAGES) & 1;
+        {  // the block's key biases into this warpgroup's buffer; the next block's
+           // mask value goes in flight
+          const int r = tid & 127;
+          sm.bias[wg][it & 1][r] = r >= bk ? -INFINITY
+                                   : j0 + r < Tk ? fmaf(mnext, -FA_MASK_BIAS, FA_MASK_BIAS)
                                                  : FA_MASK_BIAS;
-    }
-    cp_async_wait<0>();
-    __syncthreads();  // the block's keys, values and biases are in
+          mnext = next_mask();
+          named_barrier(1 + wg, 128);
+        }
+        mbar_wait(&sm.kfull[st], parity);
+        if (active) {
+          // S = q k^T over the block's 128 rows: sc[4 j + e] is row t_lo / t_hi
+          // (e / 2), key j0 + 8 j + 2 c + (e % 2)
+          float sc[64];
+          const uint64_t dk = sw128_desc(sm.k[st]);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < FA_HD / 16; ++kk)
+            wgmma_m64n128_ss<0, 0>(sc, desc_add(dq, 32 * kk), desc_add(dk, 32 * kk), kk);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs<64>(sc);
 
-    if (warp_rows) {
-      // S = q k^T over the block: n8 tiles of keys j0 + 8 j + {2c, 2c + 1}
-      float sc[FB_TILES][4];
+          // x = s / 8 + the Pallas kernel's key bias ((1 - mask) * -1e6; -1e6
+          // past Tk), -inf past the block. Only the 16-key steps that can
+          // weigh anything are taken: keys below bk and, once key 0 of the
+          // sequence has mask 1 (every row max is then at least its finite
+          // score, and a padded key's weight exp(-1e6 - max) is exactly 0),
+          // below Tk (causal: and at or before the warp's last row); a warp
+          // whose 16 rows all lie past Tq takes none. p =
+          // exp(x - max) is taken as exp2 of the scaled difference on the
+          // special-function unit (float32-level error) and rounded to
+          // bfloat16.
+          const float* bias = sm.bias[wg][it & 1];
+          if (jb == 0) key0 = bias[0] == 0.f;
+          int kend = key0 ? min(bk, Tk - j0) : bk;
+          // causal: keys past the warp's last row weigh exactly 0 too
+          if (CAUSAL && key0) kend = min(kend, tile * FB_BQ + 16 * wl + 16 - j0);
+          const int jt = warp_rows && kend > 0 ? 2 * ((kend + 15) / 16) : 0;  // 8-key tiles taken
+          // causal: key j0 + r is masked for row t when r > t - j0; tiles whose
+          // keys all lie at or before the warp's first row need no test
+          const int wrow = tile * FB_BQ + 16 * wl - j0;
+          const int lim_lo = t_lo - j0 - 2 * c, lim_hi = t_hi - j0 - 2 * c;
+          float mx_lo = -INFINITY, mx_hi = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < FB_TILES; ++j)
+          for (int j = 0; j < FB_BLOCK / 8; ++j) {
+            if (j < jt) {
+              const int r = 8 * j + 2 * c;
+              const float2 bv = *reinterpret_cast<const float2*>(bias + r);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < FA_HD / 16; ++kk) {
-#pragma unroll
-        for (int j = 0; j < FB_TILES; ++j) {
-          if (j < 2 * steps) {
-            const bf16* kr = k_s + (8 * j + g) * FB_RS + 16 * kk + 2 * c;
-            const uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(kr),
-                                   *reinterpret_cast<const uint32_t*>(kr + 8)};
-            mma_bf16(sc[j], qa[kk], b);
+              for (int e = 0; e < 4; ++e) {
+                float x = fmaf(sc[4 * j + e], FA_SCALE, (e & 1) ? bv.y : bv.x);
+                if (CAUSAL && 8 * j + 7 > wrow && 8 * j + (e & 1) > (e < 2 ? lim_lo : lim_hi))
+                  x += FA_MASK_BIAS;
+                sc[4 * j + e] = x;
+                if (e < 2) mx_lo = fmaxf(mx_lo, x); else mx_hi = fmaxf(mx_hi, x);
+              }
+            }
           }
-        }
-      }
-      float mx_lo = -INFINITY, mx_hi = -INFINITY;
+          mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
+          mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
+          mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
+          mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
+          const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+          const float al_lo = exp2_approx((m_lo - mn_lo) * FB_LOG2E);
+          const float al_hi = exp2_approx((m_hi - mn_hi) * FB_LOG2E);
+          m_lo = mn_lo;
+          m_hi = mn_hi;
+          l_lo *= al_lo;
+          l_hi *= al_hi;
+          uint32_t pa[FB_BLOCK / 16][4];  // P, rounded, as the A operand of each 16-key step
 #pragma unroll
-      for (int j = 0; j < FB_TILES; ++j) {
-        if (j < 2 * steps) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = 8 * j + 2 * c + (e & 1);
-            const int t = e < 2 ? t_lo : t_hi;
-            float x = sc[j][e] * FA_SCALE + bias_s[r];
-            if (causal && j0 + r > t) x += FA_MASK_BIAS;
-            sc[j][e] = x;
-            if (e < 2) mx_lo = fmaxf(mx_lo, x); else mx_hi = fmaxf(mx_hi, x);
+          for (int j = 0; j < FB_BLOCK / 8; ++j) {
+            uint32_t lo = 0u, hi = 0u;
+            if (j < jt) {
+              const float p0 = exp2_approx((sc[4 * j] - mn_lo) * FB_LOG2E);
+              const float p1 = exp2_approx((sc[4 * j + 1] - mn_lo) * FB_LOG2E);
+              const float p2 = exp2_approx((sc[4 * j + 2] - mn_hi) * FB_LOG2E);
+              const float p3 = exp2_approx((sc[4 * j + 3] - mn_hi) * FB_LOG2E);
+              l_lo += p0 + p1;
+              l_hi += p2 + p3;
+              lo = pack_bf16(p0, p1);
+              hi = pack_bf16(p2, p3);
+            }
+            pa[j >> 1][2 * (j & 1)] = lo;
+            pa[j >> 1][2 * (j & 1) + 1] = hi;
           }
-        }
-      }
-      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
-      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
-      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
-      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
-      const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
-      const float al_lo = expf(m_lo - mn_lo), al_hi = expf(m_hi - mn_hi);
-      m_lo = mn_lo;
-      m_hi = mn_hi;
-      l_lo *= al_lo;
-      l_hi *= al_hi;
 #pragma unroll
-      for (int j = 0; j < FB_TILES; ++j) {
-        if (j < 2 * steps) {
-          sc[j][0] = expf(sc[j][0] - mn_lo);
-          sc[j][1] = expf(sc[j][1] - mn_lo);
-          sc[j][2] = expf(sc[j][2] - mn_hi);
-          sc[j][3] = expf(sc[j][3] - mn_hi);
-          l_lo += sc[j][0] + sc[j][1];
-          l_hi += sc[j][2] + sc[j][3];
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < FA_HD / 8; ++j) {
-        o[j][0] *= al_lo;
-        o[j][1] *= al_lo;
-        o[j][2] *= al_hi;
-        o[j][3] *= al_hi;
-      }
-      // O += P v, 16 keys a step: tiles 2s and 2s + 1 of S are P's A
-      // fragment (rows g, g + 8; keys 2c, 2c + 1 and 2c + 8, 2c + 9)
-#pragma unroll
-      for (int st = 0; st < FB_TILES / 2; ++st) {
-        if (st < steps) {
-          const uint32_t a[4] = {pack_bf16(sc[2 * st][0], sc[2 * st][1]),
-                                 pack_bf16(sc[2 * st][2], sc[2 * st][3]),
-                                 pack_bf16(sc[2 * st + 1][0], sc[2 * st + 1][1]),
-                                 pack_bf16(sc[2 * st + 1][2], sc[2 * st + 1][3])};
-          const bf16* v0 = v_s + (16 * st + 2 * c) * FB_RS + g;
-#pragma unroll
-          for (int jn = 0; jn < FA_HD / 8; ++jn) {
-            const bf16* vc = v0 + 8 * jn;
-            const uint32_t b[2] = {
-                pack_bf16(to_float(vc[0]), to_float(vc[FB_RS])),
-                pack_bf16(to_float(vc[8 * FB_RS]), to_float(vc[9 * FB_RS]))};
-            mma_bf16(o[jn], a, b);
+          for (int j = 0; j < FA_HD / 8; ++j) {
+            o[4 * j] *= al_lo;
+            o[4 * j + 1] *= al_lo;
+            o[4 * j + 2] *= al_hi;
+            o[4 * j + 3] *= al_hi;
           }
+          mbar_wait(&sm.vfull[st], parity);
+          const uint64_t dv = sw128_desc(sm.v[st]);
+          fence_regs<32>(o);
+          wgmma_fence();
+#pragma unroll
+          for (int s = 0; s < FB_BLOCK / 16; ++s)
+            wgmma_m64n64_rs<1>(o, pa[s], desc_add(dv, 2048 * s), 1);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs<32>(o);
         }
+        mbar_arrive(&sm.empty[st]);
+        if (tid == 0 && it + FB_STAGES < loads) {  // refill the stage once all are done
+          mbar_wait(&sm.empty[st], (it / FB_STAGES) & 1);
+          load_block(it + FB_STAGES);
+        }
+      }
+
+      if (!active) continue;
+      ++idx;
+      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
+      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
+      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
+      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
+      const float d_lo = fmaxf(l_lo, 1e-30f), d_hi = fmaxf(l_hi, 1e-30f);
+      if (t_lo < Tq) {
+        bf16* orow = out + ((size_t)n * Tq + t_lo) * ldo + h * FA_HD + 2 * c;
+#pragma unroll
+        for (int j = 0; j < FA_HD / 8; ++j)
+          store2(orow + 8 * j, o[4 * j] / d_lo, o[4 * j + 1] / d_lo);
+      }
+      if (t_hi < Tq) {
+        bf16* orow = out + ((size_t)n * Tq + t_hi) * ldo + h * FA_HD + 2 * c;
+#pragma unroll
+        for (int j = 0; j < FA_HD / 8; ++j)
+          store2(orow + 8 * j, o[4 * j + 2] / d_hi, o[4 * j + 3] / d_hi);
       }
     }
-    __syncthreads();  // every warp is done with this block before the next one
-  }
-
-  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
-  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
-  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
-  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
-  const float d_lo = fmaxf(l_lo, 1e-30f), d_hi = fmaxf(l_hi, 1e-30f);
-  if (t_lo < Tq) {
-    bf16* orow = out + ((size_t)n * Tq + t_lo) * ldo + h * FA_HD + 2 * c;
-#pragma unroll
-    for (int j = 0; j < FA_HD / 8; ++j) store2(orow + 8 * j, o[j][0] / d_lo, o[j][1] / d_lo);
-  }
-  if (t_hi < Tq) {
-    bf16* orow = out + ((size_t)n * Tq + t_hi) * ldo + h * FA_HD + 2 * c;
-#pragma unroll
-    for (int j = 0; j < FA_HD / 8; ++j) store2(orow + 8 * j, o[j][2] / d_hi, o[j][3] / d_hi);
   }
 }
 
@@ -466,13 +575,27 @@ extern "C" int hig_flash_attention_bf16(
     const hig::bf16* q, const hig::bf16* k, const hig::bf16* v, const float* mask,
     hig::bf16* out, int N, int H, int Tq, int Tk, int ldq, int ldkv, int ldo, int partner,
     int causal, void* stream_ptr) {
-  const int tiles = (Tq + 15) / 16;
-  const int warps = tiles < hig::FA_MAX_WARPS ? tiles : hig::FA_MAX_WARPS;
+  using namespace hig;
+  const int D = H * FA_HD;
+  CUtensorMap mq, mk, mv;
+  cudaError_t err = make_tile_map(&mq, q, D, Tq, N, ldq, FB_BQ);
+  if (err == cudaSuccess) err = make_tile_map(&mk, k, D, Tk, N, ldkv, FB_BLOCK);
+  if (err == cudaSuccess) err = make_tile_map(&mv, v, D, Tk, N, ldkv, FB_BLOCK);
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const int qtiles = (Tq + FB_BQ - 1) / FB_BQ;
+  const int nwg = qtiles < FB_MAX_WG ? qtiles : FB_MAX_WG;
   const int keys8 = (Tk + 7) / 8 * 8;
-  const int bk = keys8 < hig::FB_BLOCK ? keys8 : hig::FB_BLOCK;  // the Pallas key block
-  const dim3 grid(N * H, (tiles + warps - 1) / warps);
-  hig::flash_attention_bf16_kernel<<<grid, 32 * warps, 0,
-                                     static_cast<cudaStream_t>(stream_ptr)>>>(
-      q, k, v, mask, out, H, Tq, Tk, ldq, ldkv, ldo, partner, causal, bk);
+  const int bk = keys8 < FB_BLOCK ? keys8 : FB_BLOCK;  // the Pallas key block
+  const int items = N * H, grid = items < sms ? items : sms;
+  const int smem = (int)sizeof(FlashBf16Smem) + 1024;
+  auto kernel = causal ? flash_attention_bf16_kernel<true> : flash_attention_bf16_kernel<false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, 128 * nwg, smem, static_cast<cudaStream_t>(stream_ptr)>>>(
+      mq, mk, mv, mask, out, H, Tq, Tk, ldo, partner, bk, nwg, items);
   return cudaGetLastError();
 }

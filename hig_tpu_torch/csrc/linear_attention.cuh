@@ -53,16 +53,12 @@
 //
 // bfloat16 forms (B1-bf16, B2-bf16). The row pass reads float32 or
 // bfloat16 rows and writes either (statistics in float32 always, as the
-// Pallas kernel keeps them); gemm_bf16_kernel is the GEMM above with
-// bfloat16 operands on mma.sync m16n8k16 (float32 accumulators; 32-deep
-// stages of 40-element rows, so the 32-bit fragment loads are free of bank
-// conflicts), float32 output for q | k | v and, for Wo, a bfloat16 output
-// rounded once after the bias and the residual are added in float32. The
-// core takes ROUND (B1-bf16): it normalizes softmax_time(k) before it
-// rounds it (a pass over the keys for the column sums first), rounds v, the
-// state and softmax_feat(q) to bfloat16 where the Pallas kernel casts, and
-// multiplies the rounded values exactly (mma_tf32_exact); without ROUND it
-// is the float32 core, which may store its output as bfloat16 (B2-bf16).
+// Pallas kernel keeps them). B2-bf16 takes gemm_bf16_kernel, the q | k | v
+// GEMM above with bfloat16 operands on mma.sync m16n8k16 (float32
+// accumulators; 32-deep stages of 40-element rows, so the 32-bit fragment
+// loads are free of bank conflicts, float32 output), and the core, which
+// may store its output as bfloat16. B1-bf16 takes the row pass and its own
+// wgmma kernels (fused_block.cu).
 //
 // Assumptions, checked by the Python wrappers: D % 64 == 0 (B1: D % 128 ==
 // 0 and D <= 1024 for the row pass), head dim 64, every pointer 16-byte
@@ -283,8 +279,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(const GemmArgs p) {
 }
 
 // The bfloat16 GEMM's arguments: as GemmArgs with bfloat16 activations,
-// weights, biases and residual; `out` is float (BIAS) or bfloat16
-// (BIAS_RESID).
+// weights and biases, float32 out (the BIAS epilogue).
 struct GemmArgsBf16 {
   const bf16* a0;
   const bf16* a1;
@@ -294,17 +289,16 @@ struct GemmArgsBf16 {
   const bf16* b0;
   const bf16* b1;
   const bf16* b2;
-  const bf16* resid;
-  void* out;
+  float* out;
   int M, K, D, ldo;
 };
 
 constexpr int BK16 = 32;         // bfloat16 GEMM depth per pipeline stage
 constexpr int SK16 = BK16 + 8;   // its shared-memory row stride (80 bytes)
 
-// gemm_kernel with bfloat16 operands: grid and tiles as there, a 32-deep
-// stage is two m16n8k16 steps. TO is the output's element type.
-template <int BM, int BN, int EPI, typename TO>
+// gemm_kernel (BIAS) with bfloat16 operands: grid and tiles as there, a
+// 32-deep stage is two m16n8k16 steps.
+template <int BM, int BN>
 __global__ void __launch_bounds__(GEMM_THREADS) gemm_bf16_kernel(const GemmArgsBf16 p) {
   constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;  // warp tile
   constexpr int MT = WM / 16, NT = WN / 8;  // m16 and n8 tiles per warp
@@ -387,7 +381,6 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_bf16_kernel(const GemmArgsB
   }
   cp_async_wait<0>();
 
-  TO* out = static_cast<TO*>(p.out);
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
 #pragma unroll
@@ -398,14 +391,8 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_bf16_kernel(const GemmArgsB
       for (int j = 0; j < NT; ++j) {
         const int col = wn * WN + j * 8 + 2 * c;  // within the block
         const float2 bb = load2(bias + wrow0 + col);
-        float o0 = acc[i][j][2 * half] + bb.x;
-        float o1 = acc[i][j][2 * half + 1] + bb.y;
-        if (EPI == BIAS_RESID) {
-          const float2 r = load2(p.resid + (size_t)row * p.D + col0 + col);
-          o0 += r.x;
-          o1 += r.y;
-        }
-        store2(out + (size_t)row * p.ldo + col0 + col, o0, o1);
+        store2(p.out + (size_t)row * p.ldo + col0 + col, acc[i][j][2 * half] + bb.x,
+               acc[i][j][2 * half + 1] + bb.y);
       }
     }
   }
@@ -418,10 +405,8 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_bf16_kernel(const GemmArgsB
 // q has Tq rows per sequence at row stride ldq; k and v have Tk rows at
 // row stride ldkv; the mask is (N, Tk); y is (N, Tq, D). k, v and the mask
 // come from sequence n ^ 1 when `interaction` is set (the other actor of
-// the pair in the (B, 2) layout), else from n. ROUND rounds softmax_t(k),
-// v, the state and softmax_d(q) to bfloat16 before the products (B1-bf16);
-// TO is y's element type.
-template <bool ROUND = false, typename TO = float>
+// the pair in the (B, 2) layout), else from n. TO is y's element type.
+template <typename TO = float>
 __global__ void __launch_bounds__(CORE_THREADS) linear_attention_core(
     const float* __restrict__ qp, const float* __restrict__ kp,
     const float* __restrict__ vp, const float* __restrict__ mask,
@@ -431,7 +416,7 @@ __global__ void __launch_bounds__(CORE_THREADS) linear_attention_core(
   __shared__ __align__(16) float buf[2 * 2 * TC * KS];
   __shared__ float red[2][HD];
   __shared__ float colmax[HD];
-  __shared__ float zinv[HD];  // 1 / column sums; under ROUND the column sums
+  __shared__ float zinv[HD];  // 1 / column sums
 
   const int h = blockIdx.x, n = blockIdx.y, t0q = blockIdx.z * CORE_BQ;
   const int src = interaction ? (n ^ 1) : n;
@@ -480,18 +465,6 @@ __global__ void __launch_bounds__(CORE_THREADS) linear_attention_core(
     __syncthreads();
     if (tid < HD) colmax[tid] = fmaxf(red[0][tid], red[1][tid]);
   }
-  if constexpr (ROUND) {
-    // pass 1b: the column sums, so that softmax_t(k) is normalized before
-    // it is rounded, as the Pallas kernel rounds it
-    __syncthreads();  // colmax is visible, red is free
-    const float cm = colmax[d];
-    float zs = 0.f;
-    for (int t = r0; t < Tk; t += CORE_THREADS / HD)
-      zs += expf(k[(size_t)t * ldkv + d] + (1.f - m[t]) * MASK_BIAS - cm);
-    red[r0][d] = zs;
-    __syncthreads();
-    if (tid < HD) zinv[tid] = red[0][tid] + red[1][tid];
-  }
 
   // pass 2: state = E^T V over 32-key chunks on the tensor cores, E =
   // exp(k - colmax) formed in place in shared memory; warp w owns state
@@ -518,10 +491,6 @@ __global__ void __launch_bounds__(CORE_THREADS) linear_attention_core(
         const float mt = m[t];
         ev = expf(ks[r * KS + d] + (1.f - mt) * MASK_BIAS - cm);
         vv = vs[r * KS + d] * mt;
-        if constexpr (ROUND) {
-          ev = round_bf16(ev / zinv[d]);
-          vv = round_bf16(vv);
-        }
       }
       ks[r * KS + d] = ev;
       vs[r * KS + d] = vv;
@@ -540,20 +509,15 @@ __global__ void __launch_bounds__(CORE_THREADS) linear_attention_core(
         b[j][0] = split_tf32(v0[0]);
         b[j][1] = split_tf32(v0[4 * KS]);
       }
-      if constexpr (ROUND)
-        mma_tf32_exact<1, 8>(&acc[0][0], a, &b[0][0]);
-      else
-        mma_3xtf32<1, 8>(&acc[0][0], a, &b[0][0]);
+      mma_3xtf32<1, 8>(&acc[0][0], a, &b[0][0]);
     }
     __syncthreads();  // done reading stage s before it is refilled
   }
 
-  if constexpr (!ROUND) {
-    red[r0][d] = z;
-    __syncthreads();
-    if (tid < HD) zinv[tid] = 1.f / (red[0][tid] + red[1][tid]);
-    __syncthreads();
-  }
+  red[r0][d] = z;
+  __syncthreads();
+  if (tid < HD) zinv[tid] = 1.f / (red[0][tid] + red[1][tid]);
+  __syncthreads();
   float* state = buf;             // [HD][KS]
   float* qs = buf + HD * KS;      // [CORE_BQ][QS]
   {
@@ -561,18 +525,11 @@ __global__ void __launch_bounds__(CORE_THREADS) linear_attention_core(
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int l = j * 8 + 2 * c;
-      if constexpr (ROUND) {  // the state, normalized already, rounded
-        *reinterpret_cast<float2*>(state + dr * KS + l) =
-            make_float2(round_bf16(acc[j][0]), round_bf16(acc[j][1]));
-        *reinterpret_cast<float2*>(state + (dr + 8) * KS + l) =
-            make_float2(round_bf16(acc[j][2]), round_bf16(acc[j][3]));
-      } else {
-        const float z0 = zinv[dr], z1 = zinv[dr + 8];
-        *reinterpret_cast<float2*>(state + dr * KS + l) =
-            make_float2(acc[j][0] * z0, acc[j][1] * z0);
-        *reinterpret_cast<float2*>(state + (dr + 8) * KS + l) =
-            make_float2(acc[j][2] * z1, acc[j][3] * z1);
-      }
+      const float z0 = zinv[dr], z1 = zinv[dr + 8];
+      *reinterpret_cast<float2*>(state + dr * KS + l) =
+          make_float2(acc[j][0] * z0, acc[j][1] * z0);
+      *reinterpret_cast<float2*>(state + (dr + 8) * KS + l) =
+          make_float2(acc[j][2] * z1, acc[j][3] * z1);
     }
   }
   // pass 3: feature softmax of this block's query rows (one warp per row),
@@ -587,15 +544,9 @@ __global__ void __launch_bounds__(CORE_THREADS) linear_attention_core(
       const float mx = warp_max(fmaxf(a0, a1));
       e0 = expf(a0 - mx);
       e1 = expf(a1 - mx);
-      if constexpr (ROUND) {
-        const float sum = warp_sum(e0 + e1);
-        e0 = round_bf16(e0 / sum);
-        e1 = round_bf16(e1 / sum);
-      } else {
-        const float inv = 1.f / warp_sum(e0 + e1);
-        e0 *= inv;
-        e1 *= inv;
-      }
+      const float inv = 1.f / warp_sum(e0 + e1);
+      e0 *= inv;
+      e1 *= inv;
     }
     qs[r * QS + lane] = e0;
     qs[r * QS + lane + 32] = e1;
@@ -619,10 +570,7 @@ __global__ void __launch_bounds__(CORE_THREADS) linear_attention_core(
       b[j][0] = split_tf32(s0[0]);
       b[j][1] = split_tf32(s0[4 * KS]);
     }
-    if constexpr (ROUND)
-      mma_tf32_exact<1, 4>(&out[0][0], a, &b[0][0]);
-    else
-      mma_3xtf32<1, 4>(&out[0][0], a, &b[0][0]);
+    mma_3xtf32<1, 4>(&out[0][0], a, &b[0][0]);
   }
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -663,27 +611,16 @@ inline cudaError_t launch_gemm_out(const GemmArgs& p, cudaStream_t stream) {
   return launch_gemm_tiles<32, 64, BIAS_RESID>(p, p.D, stream);
 }
 
-template <int BM, int BN, int EPI, typename TO>
-cudaError_t launch_gemm_bf16_tiles(const GemmArgsBf16& p, int ncols, cudaStream_t stream) {
-  constexpr size_t smem = sizeof(bf16) * STAGES * (BM + BN) * SK16;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      gemm_bf16_kernel<BM, BN, EPI, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (attr != cudaSuccess) return attr;
-  const dim3 grid(ncols / BN, (p.M + BM - 1) / BM);
-  gemm_bf16_kernel<BM, BN, EPI, TO><<<grid, GEMM_THREADS, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
 // bfloat16 q | k | v projections: float32 out (M, 3 * D) at ldo = 3 * D.
 inline cudaError_t launch_gemm_bf16_qkv(const GemmArgsBf16& p, cudaStream_t stream) {
-  return launch_gemm_bf16_tiles<96, 64, BIAS, float>(p, 3 * p.D, stream);
-}
-
-// bfloat16 (D, D) projection with the bias and the bfloat16 residual added in
-// float32, rounded once: bfloat16 out (M, D).
-inline cudaError_t launch_gemm_bf16_out(const GemmArgsBf16& p, cudaStream_t stream) {
-  return launch_gemm_bf16_tiles<32, 64, BIAS_RESID, bf16>(p, p.D, stream);
+  constexpr int BM = 96, BN = 64;
+  constexpr size_t smem = sizeof(bf16) * STAGES * (BM + BN) * SK16;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      gemm_bf16_kernel<BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(3 * p.D / BN, (p.M + BM - 1) / BM);
+  gemm_bf16_kernel<BM, BN><<<grid, GEMM_THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -702,21 +639,21 @@ cudaError_t launch_row_norm(const TI* in, TO* out, const TP* g, const TP* b,
   return cudaGetLastError();
 }
 
-template <bool ROUND = false, typename TO = float>
+template <typename TO = float>
 cudaError_t launch_core(const float* q, const float* k, const float* v, const float* mask,
                         TO* y, int N, int Tq, int Tk, int D, int ldq, int ldkv,
                         int interaction, cudaStream_t stream) {
   const dim3 grid(D / HD, N, (Tq + CORE_BQ - 1) / CORE_BQ);
-  linear_attention_core<ROUND, TO><<<grid, CORE_THREADS, 0, stream>>>(
+  linear_attention_core<TO><<<grid, CORE_THREADS, 0, stream>>>(
       q, k, v, mask, y, Tq, Tk, D, ldq, ldkv, interaction);
   return cudaGetLastError();
 }
 
 // The core over a (N*T, 3*D) q | k | v buffer, as B1 and B2 produce it.
-template <bool ROUND = false, typename TO = float>
+template <typename TO = float>
 cudaError_t launch_core_qkv(const float* qkv, const float* mask, TO* y, int N, int T, int D,
                             int interaction, cudaStream_t stream) {
-  return launch_core<ROUND, TO>(qkv, qkv + D, qkv + 2 * D, mask, y, N, T, T, D, 3 * D,
+  return launch_core<TO>(qkv, qkv + D, qkv + 2 * D, mask, y, N, T, T, D, 3 * D,
                                 3 * D, interaction, stream);
 }
 

@@ -34,14 +34,21 @@ stay float32), walks the keys in blocks of bk = min(128, Tk rounded up to
 8), and in each block rounds p = exp(s − running max) to the dtype for
 dot(p, v) with float32 accumulation; the output is acc / l in the dtype.
 Where p is rounded depends on the block's running max, so B4-bf16 walks the
-same key blocks: per warp the block's scores (q·kᵀ on mma.sync m16n8k16
-bfloat16 with float32 accumulators: a product of two bfloat16 values is
-exact in float32, so these are the upcast operands' products; the 1/8 scale
-on the float32 scores, where it is exact), its row max, then p rounded to
-bfloat16 and P·V on the same instruction, the rescale between blocks in
-float32. q, k and v are read in place from the merged bfloat16
-q|k|v product. :func:`flash_attention_plain` on bfloat16 inputs is its
-twin, block for block.
+same key blocks. Its design for the H100 (``csrc/flash_attention.cu``): a
+work item is one (sequence, head) with all its query rows, 64 per consumer
+warpgroup (up to 4, longer query ranges in passes), so k and v are read
+once per (sequence, head); persistent blocks, one per SM, walk over the
+items. Each key block (128 rows of k and of v, rows past Tk zero-filled)
+comes by TMA into a 2-stage ring with mbarriers, q tiles into a double
+buffer per warpgroup, so loads overlap the products. S = q·kᵀ and O += P·V
+run on wgmma (bfloat16 operands, float32 accumulators: the upcast
+operands' products, exact), P the register A operand taken from the score
+registers once p is rounded; the 1/8 scale on the float32 scores, where it
+is exact; exp on the special-function unit (float32-level error). Padded
+keys of a sequence whose key 0 has mask 1 are skipped: their weight
+exp(−1e6 − max) is exactly 0. q, k and v are read in place from the merged
+bfloat16 q|k|v product. :func:`flash_attention_plain` on bfloat16 inputs
+is its twin, block for block.
 """
 
 from __future__ import annotations

@@ -37,15 +37,20 @@ dot(xn.astype(dt), W) with float32 accumulation, plus the bias, stays
 float32; the softmaxes are float32, then att = dot(kh.astype(dt),
 v.astype(dt)) and y = dot(qh.astype(dt), att.astype(dt)), each with float32
 accumulation; the gate is float32; out = dot(z.astype(dt), Wo) + bo, and
-(x + out).astype(dt). The bfloat16 form rounds at exactly those points:
-the row pass writes xn as bfloat16, the q|k|v GEMM takes bfloat16 operands
-(mma.sync m16n8k16, float32 accumulators) and writes float32, the core
-normalizes kh before rounding it (a pass over the keys for the column sums
-first), rounds v, qh and the state att, and multiplies the rounded values
-exactly (bfloat16 values are exact in TF32, so one TF32 product per pair
-is exact), the gate's row pass writes z as bfloat16, and the Wo GEMM adds
-bo and the float32 residual before it stores bfloat16. LayerNorm keeps
-float32 statistics under ``fast_ln`` too, as the Pallas kernel does.
+(x + out).astype(dt). The bfloat16 form rounds at exactly those points, in
+four launches designed for the H100: the row pass writes xn as bfloat16;
+one kernel per (sequence, head) projects the partner's (or its own) xn
+rows onto the head's columns of Wk | Wv and its own onto Wq on wgmma
+(bfloat16 operands from a TMA ring, float32 accumulators plus the bias),
+keeps k (float32) and the rounded v in shared memory, takes the column max
+and sums over all T keys once, normalizes kh before rounding it, builds the
+rounded 64 × 64 state once (wgmma), and multiplies each q tile's rounded
+feature softmax by it from registers (exact products of rounded values);
+so the float32 q|k|v never reaches device memory. The gate's row pass
+writes z as bfloat16, and a wgmma GEMM fed by TMA adds bo and the float32
+residual before it stores bfloat16. LayerNorm keeps float32 statistics
+under ``fast_ln`` too, as the Pallas kernel does. The kernel holds one
+sequence's keys in shared memory: T up to ``BF16_MAX_T`` (320).
 :func:`fused_attention_block_plain` on bfloat16 inputs is its twin with the
 same rounding points; products of rounded values are taken in float32.
 """
@@ -67,6 +72,7 @@ from hig_tpu_torch.ops.pallas_attention import (
 )
 
 LN_EPS = 1e-6
+BF16_MAX_T = 320  # rows of one sequence the bfloat16 kernel keeps in shared memory
 
 
 class BlockWeights(NamedTuple):
@@ -175,6 +181,8 @@ def fused_attention_block(x, key_mask, scale, shift, w: BlockWeights,
     dt = x.dtype
     if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"the fused-block kernel takes float32 or bfloat16 x, got {dt}")
+    if dt == torch.bfloat16 and T > BF16_MAX_T:
+        raise ValueError(f"the bfloat16 block kernel takes T up to {BF16_MAX_T}, got {T}")
     check_cuda_operand("x", x, dtype=dt)
     N = x.numel() // (T * D)
     mask = key_mask.to(torch.float32).expand(*lead, T).reshape(N, T).contiguous()
@@ -192,20 +200,29 @@ def fused_attention_block(x, key_mask, scale, shift, w: BlockWeights,
             "or put the model in train mode, where its blocks take the projected-attention "
             "kernel (B2)"
         )
-    qkv = torch.empty((N * T, 3 * D), device=x.device, dtype=torch.float32)
     y = torch.empty((N * T, D), device=x.device, dtype=torch.float32)
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if dt == torch.float32:
+        qkv = torch.empty((N * T, 3 * D), device=x.device, dtype=torch.float32)
         _build.launch("fused_block", (x, mask, scale, shift, *w, qkv, y, out),
                       (N, T, D, int(interaction)), stream)
         fused_attention_block.launches += 1
         return out
     xz = torch.empty((N * T, D), device=x.device, dtype=torch.bfloat16)  # xn, then z
-    _build.launch("fused_block", (x, mask, scale, shift, *w, xz, qkv, y, out),
-                  (N, T, D, int(interaction)), stream, entry="fused_block_bf16")
+    launch_bf16((x, mask, scale, shift, *w, xz, y, out), N, T, D, interaction, stream)
     fused_attention_block.launches_bf16 += 1
     return out
+
+
+def launch_bf16(tensors, N: int, T: int, D: int, interaction: bool, stream: int,
+                part: int = -1) -> None:
+    """Launch B1-bf16 on ``tensors`` (x, mask, scale, shift, the 12 weights,
+    xz, y, out; checked by :func:`fused_attention_block`): all four launches,
+    or with ``part`` 0..3 only that one (row pass, q|k|v + core, gate row
+    pass, Wo GEMM), to time it alone. Counts nothing."""
+    _build.launch("fused_block", tensors, (N, T, D, int(interaction), part), stream,
+                  entry="fused_block_bf16")
 
 
 fused_attention_block.launches = 0

@@ -203,11 +203,10 @@ def block_weights(w, dtype):
                         vec("bo"))
 
 
-@pytest.mark.parametrize("interaction", [False, True], ids=["self", "interaction"])
-def test_b1_twin_matches_pallas(interaction):
+def _b1_twin_vs_pallas(interaction, tq=T):
     from hig_tpu.ops.fused_block import fused_attention_block as pallas_block
 
-    w, x, mask, scale, shift = kernel_inputs()
+    w, x, mask, scale, shift = kernel_inputs(tq=tq)
     params = {"norm": {"scale": w["ln_g"], "bias": w["ln_b"]},
               "query": {"kernel": w["wq"], "bias": w["bq"]},
               "key": {"kernel": w["wk"], "bias": w["bk"]},
@@ -233,6 +232,18 @@ def test_b1_twin_matches_pallas(interaction):
                        fused_attention_block_plain(*args32))
 
 
+@pytest.mark.parametrize("interaction", [False, True], ids=["self", "interaction"])
+def test_b1_twin_matches_pallas(interaction):
+    _b1_twin_vs_pallas(interaction)
+
+
+@pytest.mark.parametrize("interaction", [False, True], ids=["self", "interaction"])
+def test_b1_twin_matches_pallas_at_t196(interaction):
+    """T = 196, the evaluation length: the bfloat16 kernel's 4 tiles of 64
+    rows, the last holding 4 rows."""
+    _b1_twin_vs_pallas(interaction, tq=196)
+
+
 def test_b2_twin_matches_pallas():
     from hig_tpu.ops.pallas_attention import fused_projected_attention as pallas_proj
 
@@ -254,17 +265,13 @@ def test_b2_twin_matches_pallas():
                        fused_projected_attention_plain(*args32))
 
 
-@pytest.mark.parametrize("case", ["self", "partner", "causal", "two_blocks"])
-def test_b4_twin_matches_pallas(case):
-    """B4's twin walks the Pallas kernel's 128-key blocks: ``two_blocks``
-    has 150 keys, two blocks with a rescale between them."""
+def _b4_twin_vs_pallas(tq, tk, causal, partner, seed=22):
     from hig_tpu.ops.flash_attention import flash_attention as pallas_flash
 
-    tq = 150 if case == "two_blocks" else T
-    w, x, mask, _, _ = kernel_inputs(tq=tq, seed=22)
-    rng = np.random.RandomState(23)
-    q, k, v = (rng.randn(2, 2, tq, KD).astype(np.float32) for _ in range(3))
-    partner, causal = case == "partner", case == "causal"
+    _, _, mask, _, _ = kernel_inputs(tq=tk, seed=seed)  # the keys' mask
+    rng = np.random.RandomState(seed + 1)
+    q = rng.randn(2, 2, tq, KD).astype(np.float32)
+    k, v = (rng.randn(2, 2, tk, KD).astype(np.float32) for _ in range(2))
 
     def pallas(dtype):
         jq, jk, jv, jm = (jnp.asarray(jb(a), dtype) for a in (q, k, v, mask))
@@ -277,6 +284,25 @@ def test_b4_twin_matches_pallas(case):
     got = flash_attention(*args)
     assert_bf16_parity(got, pallas(jnp.bfloat16), pallas(jnp.float32),
                        flash_attention_plain(*args32))
+
+
+@pytest.mark.parametrize("case", ["self", "partner", "causal", "two_blocks"])
+def test_b4_twin_matches_pallas(case):
+    """B4's twin walks the Pallas kernel's 128-key blocks: ``two_blocks``
+    has 150 keys, two blocks with a rescale between them."""
+    tq = 150 if case == "two_blocks" else T
+    _b4_twin_vs_pallas(tq, tq, case == "causal", case == "partner")
+
+
+@pytest.mark.parametrize("tq,tk,causal,partner", [(91, 77, False, False),
+                                                  (196, 196, False, True),
+                                                  (196, 196, True, False)],
+                         ids=["tq91_tk77", "partner_t196", "causal_t196"])
+def test_b4_twin_matches_pallas_on_ragged_blocks(tq, tk, causal, partner):
+    """Shapes the bfloat16 kernel cuts otherwise: 91 queries over one
+    80-key block of 77 keys, and T = 196 (4 query tiles of 64, the last
+    holding 4 rows; a 128-key block then a ragged one of 68 keys)."""
+    _b4_twin_vs_pallas(tq, tk, causal, partner)
 
 
 def test_b3_raises_on_bf16():

@@ -18,8 +18,10 @@ kernels' 3xTF32 products meet and plain TF32 products (the low parts
 dropped) miss by more than an order of magnitude.
 
 bfloat16 forms (B1-bf16, B2-bf16, B4-bf16) against their bfloat16 twins
-at the serving shape (B4 also at T = 196, two of the Pallas kernel's key
-blocks), with cuBLAS's reduced-precision bf16 reductions off, under
+at the serving shape (B1 also at T = 1, 17 and 196 and at an evaluation
+chunk's shape, where B1's planted controls must fail too; B4 at T = 196,
+two of the Pallas kernel's key blocks, self, partner and causal, and with
+91 queries over 77 keys; B2 at T = 196), with cuBLAS's reduced-precision bf16 reductions off, under
 ``chip_smoke.py``'s gates: max |kernel − twin| within 2 bfloat16 ulps of
 the twin's largest magnitude, and rms(kernel − twin) within 0.25 of
 rms(twin − the float32 twin on the same rounded inputs) or, where larger,
@@ -261,18 +263,41 @@ def _bf16(t):
     return t.to(BF16)
 
 
-@pytest.mark.parametrize("case", ["b1_self", "b1_interaction", "b2_partner", "b4_self",
-                                  "b4_partner", "b4_causal", "b4_two_blocks"])
+# case → (form, variant, T, caption pairs)
+BF16_CASES = {
+    "b1_self": ("b1", "self", T, N_PAIRS),
+    "b1_interaction": ("b1", "interaction", T, N_PAIRS),
+    "b2_partner": ("b2", "partner", T, N_PAIRS),
+    "b4_self": ("b4", "self", T, N_PAIRS),
+    "b4_partner": ("b4", "partner", T, N_PAIRS),
+    "b4_causal": ("b4", "causal", T, N_PAIRS),
+    "b4_two_blocks": ("b4", "self", 196, N_PAIRS),
+    "b1_self_t1": ("b1", "self", 1, N_PAIRS),
+    "b1_interaction_t1": ("b1", "interaction", 1, N_PAIRS),
+    "b1_self_t17": ("b1", "self", 17, N_PAIRS),
+    "b1_interaction_t17": ("b1", "interaction", 17, N_PAIRS),
+    "b1_self_t196": ("b1", "self", 196, N_PAIRS),
+    "b1_interaction_t196": ("b1", "interaction", 196, N_PAIRS),
+    "b1_self_eval": ("b1", "self", EVAL_T, EVAL_PAIRS),
+    "b1_interaction_eval": ("b1", "interaction", EVAL_T, EVAL_PAIRS),
+    "b4_partner_t196": ("b4", "partner", 196, N_PAIRS),
+    "b4_causal_t196": ("b4", "causal", 196, N_PAIRS),
+    "b4_tq91_tk77": ("b4", "tq_tk77", T, N_PAIRS),
+    "b2_partner_t196": ("b2", "partner", 196, N_PAIRS),
+}
+
+
+@pytest.mark.parametrize("case", list(BF16_CASES))
 def test_bf16_forms_match_their_twins(cuda_bf16, case):
-    t = 196 if case == "b4_two_blocks" else T
-    w, x, mask, scale, shift = _inputs(cuda_bf16, t)
+    form, variant, t, pairs = BF16_CASES[case]
+    w, x, mask, scale, shift = _inputs(cuda_bf16, t, pairs)
     wb = BlockWeights(*[_bf16(a) for a in w])
     xb = _bf16(x)
-    if case.startswith("b1"):
+    if form == "b1":
         fn, plain, counter = fused_attention_block, fused_attention_block_plain, \
             fused_attention_block
-        args = (xb, mask, _bf16(scale), _bf16(shift), wb, H, case == "b1_interaction")
-    elif case.startswith("b2"):
+        args = (xb, mask, _bf16(scale), _bf16(shift), wb, H, variant == "interaction")
+    elif form == "b2":
         fn, plain, counter = fused_projected_attention, fused_projected_attention_plain, \
             fused_projected_attention
         xn = _bf16(torch.nn.functional.layer_norm(x, (D,), w.ln_g, w.ln_b, 1e-6))
@@ -283,25 +308,38 @@ def test_bf16_forms_match_their_twins(cuda_bf16, case):
         qkv = (torch.nn.functional.linear(xb, torch.cat([wb.wq, wb.wk, wb.wv]))
                + torch.cat([wb.bq, wb.bk, wb.bv]))
         q, k, v = qkv.chunk(3, dim=-1)
-        args = (q, k, v, H, mask, case == "b4_causal", case == "b4_partner")
+        if variant == "tq_tk77":  # 91 queries over 77 keys
+            q, k, v, mask = (q.contiguous(), k[..., :77, :].contiguous(),
+                             v[..., :77, :].contiguous(), mask[..., :77].contiguous())
+        args = (q, k, v, H, mask, variant == "causal", variant == "partner")
     before, before_f32 = counter.launches_bf16, counter.launches
     got = fn(*args)
     torch.cuda.synchronize()
     assert (counter.launches_bf16, counter.launches) == (before + 1, before_f32)
     args32 = tuple(a.float() if torch.is_tensor(a) else a for a in args)
     cpu = tuple(a.cpu() if torch.is_tensor(a) else a for a in args)
-    if case.startswith("b1"):
+    if form == "b1":
         args32 = args32[:4] + (BlockWeights(*[a.float() for a in wb]),) + args32[5:]
         cpu = cpu[:4] + (BlockWeights(*[a.cpu() for a in wb]),) + cpu[5:]
     twin, twin32, twin_cpu = plain(*args), plain(*args32), plain(*cpu)
     ok, readings = bf16_close(got, twin, twin32, twin_cpu)
     assert ok, readings
-    if case.startswith("b1"):
+    if form == "b1" and t >= T:
         # planted controls: the twin without one core rounding fails the gates
+        # (at T = 1 softmax_time(k) is exactly 1, so leaving its rounding out
+        # changes nothing)
         for left_out in ("kh", "v", "att", "qh"):
             ok, readings = bf16_close(plain(*args, unrounded=(left_out,)), twin, twin32,
                                       twin_cpu)
             assert not ok, (left_out, readings)
+
+
+def test_bf16_block_refuses_long_sequences(cuda_bf16):
+    """B1-bf16 keeps one sequence's keys in shared memory: T up to 320."""
+    w, x, mask, scale, shift = _inputs(cuda_bf16, 321, 1)
+    with pytest.raises(ValueError, match="T up to 320"):
+        fused_attention_block(_bf16(x), mask, _bf16(scale), _bf16(shift),
+                              BlockWeights(*[_bf16(a) for a in w]), H)
 
 
 def test_bf16_without_a_form_raises(cuda_bf16):

@@ -81,20 +81,22 @@ Phases, each printing one JSON line (or several):
      noises), with its wall time per call.
  10. bf16 (after phase 9, before the profile; cuBLAS's reduced-precision
      bf16 reductions off): each bfloat16 form (B1-bf16 self and
-     interaction, B2-bf16, B4-bf16 self, partner, causal and 91 queries on
+     interaction, B2-bf16 self and partner, B3-bf16 through ``_attend``
+     with 91 and 77 keys, B4-bf16 self, partner, causal and 91 queries on
      77 keys) at the serving shape and at the evaluation chunk's shape
      against its bfloat16 twin (max |err| ≤ 2 bfloat16 ulps of the twin's
      largest magnitude; rms(kernel − twin) ≤ 0.25 · rms(twin − the float32
      twin on the same rounded inputs), or 1.5 × the twin's distance from
      itself run on the CPU where the float32 order of sums alone moves more
-     roundings than that), B1-bf16 beside four planted controls (its twin
-     with one core rounding left out, each of which must fail the same
-     gates), timed as phase 3 times (B1-bf16 also per launch: row pass,
-     q|k|v projection + core, gate row pass, Wo GEMM), with its bound
-     (each part at its own rate: bf16 989 TFLOP/s for products of
-     bfloat16 values, 3xTF32
-     495 / 3 for B2-bf16's float32 core) and, for B4-bf16, SDPA on the
-     same bfloat16 inputs and the backend it took; one full-width bfloat16
+     roundings than that), beside planted controls that must fail the same
+     gates: B1-bf16's twin with one core rounding left out (four), B3-bf16's
+     twin without one of its nine rounding points, and B2-bf16's twin with
+     B1-bf16's core roundings (its core must be float32); timed as phase 3
+     times (B1-bf16 also per launch: row pass, q|k|v projection + core,
+     gate row pass, Wo GEMM), with its bound (each part at its own rate:
+     bf16 989 TFLOP/s for products of bfloat16 values, 3xTF32 495 / 3 for
+     B2-bf16's float32 core) and, for B4-bf16, SDPA on the same bfloat16
+     inputs and the backend it took; one full-width bfloat16
      denoiser call each for fused (B1-bf16), projected (B2-bf16), no_eff
      (B4-bf16), rms_norm (B2-bf16) and fast_ln (B1-bf16): at 8 layers
      against the plain route in bfloat16 and in float32 (reported, with
@@ -111,8 +113,7 @@ Phases, each printing one JSON line (or several):
      ``python -m hig_tpu_torch.evaluate`` from stage 1-3's checkpoint as a
      bfloat16 run with --fast_ln, DPM-20 at T = 196 (exactly 320 B1-bf16
      launches, finite metrics in range, confusion matrices of 52 clips).
-     The profile then adds the bfloat16 fused, no_eff and guided serving
-     calls.
+     The profile then adds the five bfloat16 serving runs' calls.
 Then the kernel table (the bfloat16 forms' rows after the float32 ones), the
 nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero without
@@ -309,7 +310,7 @@ def plain_blocks(control: bool = False):
 
     plain = {"fused_attention_block": fused_block.fused_attention_block_plain,
              "fused_projected_attention": pallas_attention.fused_projected_attention_plain,
-             "fused_efficient_attention": pallas_attention.efficient_attention,
+             "fused_efficient_attention": pallas_attention.fused_efficient_attention_plain,
              "flash_attention": flash_attention.flash_attention_plain}
     if control:
         plain = {name: unrounded(fn) for name, fn in plain.items()}
@@ -1363,6 +1364,7 @@ def phase_evaluate(device, failures, smi: str, data: str, tmp: str, model) -> tu
 # bfloat16 form → the wrapper whose ``launches_bf16`` counts it
 BF16_FORMS = {"fused_block_bf16": "fused_block",
               "projected_attention_bf16": "projected_attention",
+              "efficient_attention_bf16": "efficient_attention",
               "flash_attention_bf16": "flash_attention"}
 # serving run (a model of ``bf16_models``) → (the form its attention blocks
 # launch, guidance weight)
@@ -1392,6 +1394,11 @@ BF16_ULP, BF16_ULPS, BF16_KERNEL_RMS, BF16_FLOOR = 2.0 ** -8, 2.0, 0.25, 1.5
 # B1's core roundings that a planted control leaves out, one at a time: the
 # twin without it, put in the kernel's place, must fail the gates above.
 B1_CORE_ROUNDINGS = ("kh", "v", "att", "qh")
+# B3-bf16's rounding points (its Pallas kernel's softmaxes run on bfloat16
+# values, so each of their ops rounds); the twin without any one of them,
+# put in the kernel's place, must fail the gates too. B2-bf16's core is
+# float32: its twin with B1's core roundings must fail its gates.
+B3_CORE_ROUNDINGS = ("q_sub", "q_exp", "q_sum", "qh", "k_sub", "k_exp", "k_sum", "kh", "att")
 # Denoiser and serving through the kernels against the plain route in
 # bfloat16, held to rms(kernel − plain bf16) ≤ BF16_ROUTE_RMS ·
 # rms(plain bf16 − plain float32) on the same inputs and weights. One
@@ -1566,29 +1573,89 @@ def bf16_row(name, source, replaces, shape, cases, parts, nbytes, library=None) 
 
 
 def check_projected_attention_bf16(w, x, mask, failures) -> dict:
-    """B2-bf16 as the interaction block calls it (kv from the partner)."""
+    """B2-bf16 as the self-attention block calls it (kv_src is q_src) and as
+    the interaction block does (kv from the partner), against its twin,
+    beside the planted control (the twin with B1-bf16's core roundings)."""
     from hig_tpu_torch.ops.pallas_attention import fused_projected_attention
     from hig_tpu_torch.ops.pallas_attention import fused_projected_attention_plain as plain
 
     N, Tq, hd = 2 * x.shape[0], x.shape[2], D // HEADS
     M = N * Tq
     xn = to_bf16(torch.nn.functional.layer_norm(x, (D,), w.ln_g, w.ln_b, 1e-6))
-    kv, kmask = xn.flip(1).contiguous(), mask.flip(1).contiguous()
     ws = [to_bf16(t) for t in (w.wq, w.bq, w.wk, w.bk, w.wv, w.bv)]
-    args = (xn, kv, *ws, HEADS, kmask)
-    got = fused_projected_attention(*args)
-    twin = plain(*args)
-    twin32 = plain(xn.float(), kv.float(), *[t.float() for t in ws], HEADS, kmask)
-    torch.cuda.synchronize()
-    case = gate_bf16(f"projected_attention_bf16 {N}x{Tq}", got, twin, twin32,
-                     plain(*on_cpu(args)), failures)
-    case["ms"] = time_ms(lambda: fused_projected_attention(*args))
-    case["plain_ms"] = time_ms(lambda: plain(*args))
+    cases = {}
+    for name, kv, kmask in (("self", xn, mask),
+                            ("partner", xn.flip(1).contiguous(), mask.flip(1).contiguous())):
+        args = (xn, kv, *ws, HEADS, kmask)
+        got = fused_projected_attention(*args)
+        twin = plain(*args)
+        twin32 = plain(xn.float(), kv.float(), *[t.float() for t in ws], HEADS, kmask)
+        twin_cpu = plain(*on_cpu(args))
+        torch.cuda.synchronize()
+        label = f"projected_attention_bf16 {name} {N}x{Tq}"
+        cases[name] = gate_bf16(label, got, twin, twin32, twin_cpu, failures)
+        row = bf16_gate_row(plain(*args, rounded=B1_CORE_ROUNDINGS), twin, twin32, twin_cpu)
+        fail_if(failures, row["passed"],
+                f"{label}: the twin with B1's core roundings passes: {row}")
+        cases[name]["control_rms_ratio"] = row["rms_ratio"]
+        cases[name]["ms"] = time_ms(lambda: fused_projected_attention(*args))
+        cases[name]["plain_ms"] = time_ms(lambda: plain(*args))
     parts = [(2 * M * D * 3 * D, "bf16"), (2 * 2 * N * HEADS * Tq * hd * hd, "3xtf32")]
     nbytes = 2 * (3 * M * D + 3 * D * D + 3 * D) + 4 * M
     return bf16_row("projected_attention_bf16", "hig_tpu_torch/csrc/projected_attention.cu",
-                    "hig_tpu/ops/pallas_attention.py:116", [N, Tq, D, HEADS],
-                    {"partner": case}, parts, nbytes)
+                    "hig_tpu/ops/pallas_attention.py:116", [N, Tq, D, HEADS], cases, parts,
+                    nbytes)
+
+
+def b3_bf16_inputs(w, x, mask, tk: int):
+    """B3-bf16's operands at x's shape with ``tk`` keys: the bfloat16 q, k, v
+    projections of x (k, v cut to their first tk rows) and the keys' mask."""
+    F = torch.nn.functional
+    q, k, v = (to_bf16(F.linear(x, wt, b)) for wt, b in ((w.wq, w.bq), (w.wk, w.bk),
+                                                          (w.wv, w.bv)))
+    return (q, k[..., :tk, :].contiguous(), v[..., :tk, :].contiguous(), HEADS,
+            mask[..., :tk].contiguous())
+
+
+def b3_bf16_work(N: int, tq: int, tk: int) -> tuple[list, int]:
+    """B3-bf16's bound inputs: its products (K^T V and q . state, bfloat16
+    values) and its bytes (q, k, v, y in bfloat16, the float32 key mask)."""
+    hd = D // HEADS
+    return ([(2 * N * HEADS * hd * hd * (tq + tk), "bf16")],
+            2 * (2 * N * tq * D + 2 * N * tk * D) + 4 * N * tk)
+
+
+def check_efficient_attention_bf16(w, x, mask, failures) -> dict:
+    """B3-bf16 through the model's ``_attend``, with Tq keys and with
+    TK_SHORT, against its twin, beside the planted controls (the twin
+    without each of B3_CORE_ROUNDINGS)."""
+    from hig_tpu_torch.models import attention
+    from hig_tpu_torch.ops.pallas_attention import fused_efficient_attention_plain as plain
+
+    N, Tq = 2 * x.shape[0], x.shape[2]
+    cases = {}
+    for tk in (Tq, TK_SHORT):
+        args = b3_bf16_inputs(w, x, mask, tk)
+        got = attention._attend(*args)
+        twin = plain(*args)
+        twin32 = plain(*[a.float() if torch.is_tensor(a) else a for a in args])
+        twin_cpu = plain(*on_cpu(args))
+        torch.cuda.synchronize()
+        label = f"efficient_attention_bf16 {N}x{Tq}, {tk} keys"
+        case = gate_bf16(label, got, twin, twin32, twin_cpu, failures)
+        controls = {}
+        for left_out in B3_CORE_ROUNDINGS:
+            row = bf16_gate_row(plain(*args, unrounded=(left_out,)), twin, twin32, twin_cpu)
+            fail_if(failures, row["passed"],
+                    f"{label}: the twin without the {left_out} rounding passes: {row}")
+            controls[left_out] = row["rms_ratio"]
+        case["controls_rms_ratio"] = controls
+        case["ms"] = time_ms(lambda: attention._attend(*args))
+        case["plain_ms"] = time_ms(lambda: plain(*args))
+        cases[f"tk{tk}"] = case
+    return bf16_row("efficient_attention_bf16", "hig_tpu_torch/csrc/efficient_attention.cu",
+                    "hig_tpu/ops/pallas_attention.py:46", [N, Tq, D, HEADS], cases,
+                    *b3_bf16_work(N, Tq, Tq))
 
 
 def sdpa_backend(q, k, v, bias) -> str:
@@ -1665,18 +1732,21 @@ def check_flash_attention_bf16(w, x, mask, failures) -> dict:
 def bf16_kernel_rows(device, failures) -> dict:
     """Each bfloat16 form at the serving shape, then at the evaluation
     chunk's shape (under "eval_shape")."""
-    rows = {"fused_block_bf16": check_fused_block_bf16(*block_inputs(device), failures)}
-    w, x, mask, _, _ = block_inputs(device)
-    rows["projected_attention_bf16"] = check_projected_attention_bf16(w, x, mask, failures)
-    rows["flash_attention_bf16"] = check_flash_attention_bf16(w, x, mask, failures)
-    inputs = block_inputs(device, EVAL_CLIPS, EVAL_T)
+    checks = {"fused_block_bf16": check_fused_block_bf16,
+              "projected_attention_bf16": check_projected_attention_bf16,
+              "efficient_attention_bf16": check_efficient_attention_bf16,
+              "flash_attention_bf16": check_flash_attention_bf16}
     keys = (*TRAIN_SHAPE_KEYS, "rms_ratio")
-    for name, row in (("fused_block_bf16", check_fused_block_bf16(*inputs, failures)),
-                      ("projected_attention_bf16",
-                       check_projected_attention_bf16(*inputs[:3], failures)),
-                      ("flash_attention_bf16", check_flash_attention_bf16(*inputs[:3],
-                                                                          failures))):
-        rows[name]["eval_shape"] = {k: row[k] for k in keys}
+    rows = {}
+    for shape, inputs in (("serve", block_inputs(device)),
+                          ("eval", block_inputs(device, EVAL_CLIPS, EVAL_T))):
+        for name, check in checks.items():
+            row = check(*inputs, failures) if name == "fused_block_bf16" else \
+                check(*inputs[:3], failures)
+            if shape == "serve":
+                rows[name] = row
+            else:
+                rows[name]["eval_shape"] = {k: row[k] for k in keys}
     return rows
 
 
@@ -1858,8 +1928,7 @@ def phase_bf16(f32_models: dict, device, failures, smi: str, tmp: str) -> tuple:
         fail_if(failures, tuple(joints.shape) != (N_PAIRS, 2, T - 1, 22, 3)
                 or not np.isfinite(joints).all(), f"bf16 serve ({run}) joints {joints.shape}")
         launches[own] += call_counts[0][own]
-        if run in ("fused", "no_eff", "guided"):
-            runs[f"serve_bf16_{run}"], walls[f"serve_bf16_{run}"] = call, wall
+        runs[f"serve_bf16_{run}"], walls[f"serve_bf16_{run}"] = call, wall
     del models
 
     launches["fused_block_bf16"] += bf16_evaluate(failures, smi, tmp)

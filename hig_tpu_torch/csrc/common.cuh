@@ -9,11 +9,12 @@
 // product) is dropped, so the result keeps float32-level error, where one
 // plain TF32 product keeps ~2^-11.
 //
-// bfloat16. B2-bf16 takes bfloat16 operands on mma.sync m16n8k16 (float32
-// accumulators), and every bfloat16 form rounds float32 values to bfloat16
-// with round-to-nearest-even (what XLA's convert does) and moves bfloat16
-// data through the same float4/float2-sized loads and stores. B1-bf16 and
-// B4-bf16 run their products on wgmma (hopper.cuh).
+// bfloat16. Every bfloat16 form rounds float32 values to bfloat16 with
+// round-to-nearest-even (what XLA's convert does) and moves bfloat16 data
+// through the same float4/float2-sized loads and stores. B1-bf16, B2-bf16
+// and B4-bf16 run their bfloat16 products on wgmma (hopper.cuh); B2-bf16's
+// float32 core is 3xTF32 on mma.sync, and B3-bf16 takes its products of
+// bfloat16 values, which are TF32 values, as one exact TF32 mma.sync each.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -82,18 +83,6 @@ __device__ __forceinline__ void mma_3xtf32(float* acc, const Split* a, const Spl
         for (int r = 0; r < 2; ++r) bf[r] = term == 1 ? b[2 * j + r].lo : b[2 * j + r].hi;
         mma_tf32(acc + 4 * (J * i + j), af, bf);
       }
-}
-
-// d += a * b for one m16n8k16 tile, bfloat16 inputs, float32 accumulators.
-// Each register holds two bfloat16, the lower k in the low half. Fragments
-// (g = lane / 4, c = lane % 4): a[0] (row g, k 2c, 2c + 1), a[1] (g + 8,
-// 2c..), a[2] (g, 2c + 8..), a[3] (g + 8, 2c + 8..); b[0] (k 2c, 2c + 1,
-// col g), b[1] (k 2c + 8.., col g); d as mma_tf32.
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 using bf16 = __nv_bfloat16;

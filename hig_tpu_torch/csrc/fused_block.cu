@@ -16,8 +16,8 @@
 // SiLU(LN_styl(y) * (1 + scale) + shift); (5) the 3xTF32 Wo GEMM adds bo and
 // the residual x into `out`. Each row is normalized once, so the GEMMs'
 // main loops do copies and products only. Returns the first cudaError_t.
-#include "hopper.cuh"
 #include "linear_attention.cuh"
+#include "qkv_core.cuh"
 
 extern "C" int hig_fused_block(
     const float* x, const float* mask, const float* scale, const float* shift,
@@ -82,7 +82,9 @@ extern "C" int hig_fused_block(
 //       builds the rounded 64 x 64 state once (wgmma, softmax_time(k)^T as
 //       the MN-major A operand); then softmaxes each 64-row q tile in its
 //       accumulator registers, rounds it and multiplies it by the state as
-//       the register A operand, and writes float32 y;
+//       the register A operand, and writes float32 y (its producer,
+//       projection loop, column statistics and feature softmax are
+//       qkv_core.cuh's, shared with B2-bf16);
 //   (3) the row pass writes z = SiLU(LN_styl(y) * (1 + scale) + shift) as
 //       bfloat16 into `xz`;
 //   (4) out_gemm_bf16_kernel: z Wo^T on wgmma from a TMA ring, + bo + x in
@@ -91,19 +93,6 @@ extern "C" int hig_fused_block(
 // (the rows of one sequence that shared memory holds).
 
 namespace hig {
-
-constexpr int QC_WG = 2;                     // consumer warpgroups, one 64-row tile each
-constexpr int QC_THREADS = 128 * QC_WG + 32;  // and one producer warp
-constexpr int QC_MAX_T = 320;
-constexpr int QC_MAX_STAGES = 4;
-constexpr uint32_t QC_TILE_BYTES = 64 * 64 * 2;   // 64 rows x 64 deep, bfloat16
-constexpr uint32_t QC_STAGE_BYTES = 4 * QC_TILE_BYTES;  // two xn tiles, 128 weight rows
-constexpr int SMEM_MAX = 232448;             // a block's shared memory on the H100
-
-// Shared memory of qkv_core_bf16_kernel past the ring, for tpad rows.
-constexpr int qc_fixed_smem(int tpad) {
-  return tpad * (256 + 128 + 128) + 6 * 64 * 4 + 2 * QC_MAX_STAGES * 8;
-}
 
 __global__ void __launch_bounds__(QC_THREADS, 1) qkv_core_bf16_kernel(
     const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap twq,
@@ -132,42 +121,19 @@ __global__ void __launch_bounds__(QC_THREADS, 1) qkv_core_bf16_kernel(
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 128 * QC_WG);
+      mbar_init(&empty[s], QC_CONSUMERS);
     }
     fence_barrier_init();
   }
   __syncthreads();
 
   if (warp == 4 * QC_WG) {  // producer: k | v chunks of every round, then q's
-    if (lane == 0) {
-      int it = 0;
-      for (int phase = 0; phase < 2; ++phase) {
-        const int seq = phase == 0 ? src : n;
-        for (int r = 0; r < rounds; ++r) {
-          const bool two = QC_WG * r + 1 < tiles;
-          for (int kc = 0; kc < kchunks; ++kc, ++it) {
-            const int st = it % stages;
-            mbar_wait(&empty[st], ((it / stages) & 1) ^ 1);
-            unsigned char* sb = ring + st * QC_STAGE_BYTES;
-            mbar_arrive_expect_tx(&full[st], ((two ? 2 : 1) + (phase == 0 ? 2 : 1)) *
-                                                 QC_TILE_BYTES);
-            tma_load_3d(sb, &tx, &full[st], 64 * kc, 64 * QC_WG * r, seq);
-            if (two) tma_load_3d(sb + QC_TILE_BYTES, &tx, &full[st], 64 * kc, 64 * (QC_WG * r + 1), seq);
-            if (phase == 0) {
-              tma_load_3d(sb + 2 * QC_TILE_BYTES, &twk, &full[st], 64 * kc, 64 * h, 0);
-              tma_load_3d(sb + 3 * QC_TILE_BYTES, &twv, &full[st], 64 * kc, 64 * h, 0);
-            } else {
-              tma_load_3d(sb + 2 * QC_TILE_BYTES, &twq, &full[st], 64 * kc, 64 * h, 0);
-            }
-          }
-        }
-      }
-    }
+    if (lane == 0)
+      qc_produce(&tx, &tx, &twq, &twk, &twv, src, n, h, ring, full, empty, stages, tiles, kchunks);
     return;
   }
 
   const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, c = lane & 3;
-  constexpr int CONSUMERS = 128 * QC_WG;
   int it = 0;
 
   // k | v = kvn [Wk | Wv]^T + [bk | bv]: 64-row tiles of the key rows
@@ -175,25 +141,7 @@ __global__ void __launch_bounds__(QC_THREADS, 1) qkv_core_bf16_kernel(
     const int tile = QC_WG * r + wg;
     const bool active = tile < tiles;  // uniform over the warpgroup
     float acc[64];
-    for (int kc = 0; kc < kchunks; ++kc, ++it) {
-      const int st = it % stages;
-      mbar_wait(&full[st], (it / stages) & 1);
-      if (!active) {
-        mbar_arrive(&empty[st]);
-        continue;
-      }
-      unsigned char* sb = ring + st * QC_STAGE_BYTES;
-      const uint64_t da = sw128_desc(sb + wg * QC_TILE_BYTES);
-      const uint64_t dw = sw128_desc(sb + 2 * QC_TILE_BYTES);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_m64n128_ss<0, 0>(acc, desc_add(da, 32 * kk), desc_add(dw, 32 * kk),
-                               kc > 0 || kk > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-      mbar_arrive(&empty[st]);
-    }
+    qc_project<128>(acc, ring, full, empty, it, stages, kchunks, wg, active);
     if (active) {
       fence_regs<64>(acc);
       // k += (1 - mask) * -1e6 into ks (float32); v * mask, rounded, into vs;
@@ -220,35 +168,20 @@ __global__ void __launch_bounds__(QC_THREADS, 1) qkv_core_bf16_kernel(
       }
     }
   }
-  named_barrier(1, CONSUMERS);
+  named_barrier(1, QC_CONSUMERS);
 
   // column max and sums over the T keys, then E = softmax_time(k) rounded
-  {
-    const int d = tid & 63, r0 = tid >> 6;
-    float mx = -INFINITY;
-    for (int t = r0; t < T; t += 4) mx = fmaxf(mx, ks[t * 64 + d]);
-    red[r0 * 64 + d] = mx;
-    named_barrier(1, CONSUMERS);
-    if (tid < 64) cm[tid] = fmaxf(fmaxf(red[tid], red[64 + tid]), fmaxf(red[128 + tid], red[192 + tid]));
-    named_barrier(1, CONSUMERS);
-    const float cmd = cm[d];
-    float sum = 0.f;
-    for (int t = r0; t < T; t += 4) sum += expf(ks[t * 64 + d] - cmd);
-    red[r0 * 64 + d] = sum;
-    named_barrier(1, CONSUMERS);
-    if (tid < 64) zs[tid] = (red[tid] + red[64 + tid]) + (red[128 + tid] + red[192 + tid]);
-    named_barrier(1, CONSUMERS);
-    for (int i = tid; i < tpad * 32; i += CONSUMERS) {
-      const int t = i >> 5, d2 = 2 * (i & 31);
-      uint32_t e = 0u;
-      if (t < T)
-        e = pack_bf16(expf(ks[t * 64 + d2] - cm[d2]) / zs[d2],
-                      expf(ks[t * 64 + d2 + 1] - cm[d2 + 1]) / zs[d2 + 1]);
-      *reinterpret_cast<uint32_t*>(es + swz128(t, d2)) = e;
-    }
-    fence_proxy_async();
-    named_barrier(1, CONSUMERS);
+  qc_column_stats(ks, T, tid, red, cm, zs, [](int t, int d) { return t * 64 + d; });
+  for (int i = tid; i < tpad * 32; i += QC_CONSUMERS) {
+    const int t = i >> 5, d2 = 2 * (i & 31);
+    uint32_t e = 0u;
+    if (t < T)
+      e = pack_bf16(expf(ks[t * 64 + d2] - cm[d2]) / zs[d2],
+                    expf(ks[t * 64 + d2 + 1] - cm[d2 + 1]) / zs[d2 + 1]);
+    *reinterpret_cast<uint32_t*>(es + swz128(t, d2)) = e;
   }
+  fence_proxy_async();
+  named_barrier(1, QC_CONSUMERS);
 
   // state = E^T v (64 x 64, the depth is time), rounded, over ks
   if (wg == 0) {
@@ -268,7 +201,7 @@ __global__ void __launch_bounds__(QC_THREADS, 1) qkv_core_bf16_kernel(
             pack_bf16(sacc[4 * j + 2 * half], sacc[4 * j + 2 * half + 1]);
     fence_proxy_async();
   }
-  named_barrier(1, CONSUMERS);
+  named_barrier(1, QC_CONSUMERS);
 
   // y = softmax_feat(q) (rounded) . state, per 64-row tile of this sequence
   const uint64_t dst = sw128_desc(state);
@@ -276,61 +209,15 @@ __global__ void __launch_bounds__(QC_THREADS, 1) qkv_core_bf16_kernel(
     const int tile = QC_WG * r + wg;
     const bool active = tile < tiles;
     float qa[32];
-    for (int kc = 0; kc < kchunks; ++kc, ++it) {
-      const int st = it % stages;
-      mbar_wait(&full[st], (it / stages) & 1);
-      if (!active) {
-        mbar_arrive(&empty[st]);
-        continue;
-      }
-      unsigned char* sb = ring + st * QC_STAGE_BYTES;
-      const uint64_t da = sw128_desc(sb + wg * QC_TILE_BYTES);
-      const uint64_t dw = sw128_desc(sb + 2 * QC_TILE_BYTES);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_m64n64_ss<0, 0>(qa, desc_add(da, 32 * kk), desc_add(dw, 32 * kk),
-                              kc > 0 || kk > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-      mbar_arrive(&empty[st]);
-    }
+    qc_project<64>(qa, ring, full, empty, it, stages, kchunks, wg, active);
     if (!active) continue;
     fence_regs<32>(qa);
-    float mx_lo = -INFINITY, mx_hi = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 b = load2(bq + h * HD + 8 * j + 2 * c);
-      qa[4 * j] += b.x;
-      qa[4 * j + 1] += b.y;
-      qa[4 * j + 2] += b.x;
-      qa[4 * j + 3] += b.y;
-      mx_lo = fmaxf(mx_lo, fmaxf(qa[4 * j], qa[4 * j + 1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(qa[4 * j + 2], qa[4 * j + 3]));
-    }
-    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
-    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
-    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
-    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
-    float s_lo = 0.f, s_hi = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      qa[4 * j] = expf(qa[4 * j] - mx_lo);
-      qa[4 * j + 1] = expf(qa[4 * j + 1] - mx_lo);
-      qa[4 * j + 2] = expf(qa[4 * j + 2] - mx_hi);
-      qa[4 * j + 3] = expf(qa[4 * j + 3] - mx_hi);
-      s_lo += qa[4 * j] + qa[4 * j + 1];
-      s_hi += qa[4 * j + 2] + qa[4 * j + 3];
-    }
-    s_lo += __shfl_xor_sync(0xffffffffu, s_lo, 1);
-    s_lo += __shfl_xor_sync(0xffffffffu, s_lo, 2);
-    s_hi += __shfl_xor_sync(0xffffffffu, s_hi, 1);
-    s_hi += __shfl_xor_sync(0xffffffffu, s_hi, 2);
+    qc_feature_softmax(qa, bq + h * HD, c);
     uint32_t pa[4][4];  // softmax_feat(q), rounded: the A operand of each 16-deep step
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      pa[j >> 1][2 * (j & 1)] = pack_bf16(qa[4 * j] / s_lo, qa[4 * j + 1] / s_lo);
-      pa[j >> 1][2 * (j & 1) + 1] = pack_bf16(qa[4 * j + 2] / s_hi, qa[4 * j + 3] / s_hi);
+      pa[j >> 1][2 * (j & 1)] = pack_bf16(qa[4 * j], qa[4 * j + 1]);
+      pa[j >> 1][2 * (j & 1) + 1] = pack_bf16(qa[4 * j + 2], qa[4 * j + 3]);
     }
     float ya[32];
     wgmma_fence();
@@ -453,15 +340,12 @@ extern "C" int hig_fused_block_bf16(
     if (err == cudaSuccess) err = make_tile_map(&mk, wk, D, D, 1, D, 64);
     if (err == cudaSuccess) err = make_tile_map(&mv, wv, D, D, 1, D, 64);
     if (err != cudaSuccess) return err;
-    const int tpad = (T + 63) / 64 * 64;
-    int stages = (SMEM_MAX - 1024 - qc_fixed_smem(tpad)) / (int)QC_STAGE_BYTES;
-    stages = stages < QC_MAX_STAGES ? stages : QC_MAX_STAGES;
-    const int smem = 1024 + stages * (int)QC_STAGE_BYTES + qc_fixed_smem(tpad);
+    const int tpad = (T + 63) / 64 * 64, smem = qc_smem(tpad);
     err = cudaFuncSetAttribute(qkv_core_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
     if (err != cudaSuccess) return err;
     qkv_core_bf16_kernel<<<N * (D / HD), QC_THREADS, smem, stream>>>(
-        mx, mq, mk, mv, bq, bk, bv, mask, y, T, D, D / HD, interaction, stages);
+        mx, mq, mk, mv, bq, bk, bv, mask, y, T, D, D / HD, interaction, qc_stages(tpad));
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }

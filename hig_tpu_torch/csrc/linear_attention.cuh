@@ -51,14 +51,11 @@
 // column blocks of their (N*T, 3*D) q | k | v buffer (stride 3*D), B3
 // passes three (N, T, D) tensors (stride D).
 //
-// bfloat16 forms (B1-bf16, B2-bf16). The row pass reads float32 or
-// bfloat16 rows and writes either (statistics in float32 always, as the
-// Pallas kernel keeps them). B2-bf16 takes gemm_bf16_kernel, the q | k | v
-// GEMM above with bfloat16 operands on mma.sync m16n8k16 (float32
-// accumulators; 32-deep stages of 40-element rows, so the 32-bit fragment
-// loads are free of bank conflicts, float32 output), and the core, which
-// may store its output as bfloat16. B1-bf16 takes the row pass and its own
-// wgmma kernels (fused_block.cu).
+// bfloat16 forms. The row pass reads float32 or bfloat16 rows and writes
+// either (statistics in float32 always, as the Pallas kernel keeps them);
+// B1-bf16 takes it beside its own wgmma kernels (fused_block.cu). B2-bf16
+// (projected_attention.cu) and B3-bf16 (efficient_attention.cu) are kernels
+// of their own.
 //
 // Assumptions, checked by the Python wrappers: D % 64 == 0 (B1: D % 128 ==
 // 0 and D <= 1024 for the row pass), head dim 64, every pointer 16-byte
@@ -278,126 +275,6 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(const GemmArgs p) {
   }
 }
 
-// The bfloat16 GEMM's arguments: as GemmArgs with bfloat16 activations,
-// weights and biases, float32 out (the BIAS epilogue).
-struct GemmArgsBf16 {
-  const bf16* a0;
-  const bf16* a1;
-  const bf16* w0;
-  const bf16* w1;
-  const bf16* w2;
-  const bf16* b0;
-  const bf16* b1;
-  const bf16* b2;
-  float* out;
-  int M, K, D, ldo;
-};
-
-constexpr int BK16 = 32;         // bfloat16 GEMM depth per pipeline stage
-constexpr int SK16 = BK16 + 8;   // its shared-memory row stride (80 bytes)
-
-// gemm_kernel (BIAS) with bfloat16 operands: grid and tiles as there, a
-// 32-deep stage is two m16n8k16 steps.
-template <int BM, int BN>
-__global__ void __launch_bounds__(GEMM_THREADS) gemm_bf16_kernel(const GemmArgsBf16 p) {
-  constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;  // warp tile
-  constexpr int MT = WM / 16, NT = WN / 8;  // m16 and n8 tiles per warp
-  extern __shared__ __align__(16) unsigned char smem_bytes[];
-  bf16* As = reinterpret_cast<bf16*>(smem_bytes);  // [STAGES][BM][SK16]
-  bf16* Bs = As + STAGES * BM * SK16;               // [STAGES][BN][SK16]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, c = lane & 3;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
-  const int seg = col0 / p.D;
-  const int wrow0 = col0 - seg * p.D;
-  const bf16* A = seg == 0 ? p.a0 : p.a1;
-  const bf16* W = seg == 0 ? p.w0 : (seg == 1 ? p.w1 : p.w2);
-  const bf16* bias = seg == 0 ? p.b0 : (seg == 1 ? p.b1 : p.b2);
-  const int KT = p.K / BK16;
-
-  auto load_stage = [&](int kt, int s) {
-    const int k0 = kt * BK16;
-    bf16* as = As + s * BM * SK16;
-    bf16* bs = Bs + s * BN * SK16;
-#pragma unroll
-    for (int i = tid; i < BM * (BK16 / 8); i += GEMM_THREADS) {
-      const int r = i / (BK16 / 8), q = (i % (BK16 / 8)) * 8;
-      const int row = row0 + r;
-      const bool ok = row < p.M;
-      cp_async16(as + r * SK16 + q, A + (size_t)(ok ? row : 0) * p.K + k0 + q, ok);
-    }
-#pragma unroll
-    for (int i = tid; i < BN * (BK16 / 8); i += GEMM_THREADS) {
-      const int r = i / (BK16 / 8), q = (i % (BK16 / 8)) * 8;
-      cp_async16(bs + r * SK16 + q, W + (size_t)(wrow0 + r) * p.K + k0 + q, true);
-    }
-  };
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) load_stage(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // tile kt is in; every warp is done with tile kt - 1
-    if (kt + STAGES - 1 < KT) load_stage(kt + STAGES - 1, (kt + STAGES - 1) % STAGES);
-    cp_async_commit();
-    const bf16* as = As + (kt % STAGES) * BM * SK16 + (wm * WM + g) * SK16 + 2 * c;
-    const bf16* bs = Bs + (kt % STAGES) * BN * SK16 + (wn * WN + g) * SK16 + 2 * c;
-#pragma unroll
-    for (int kk = 0; kk < BK16; kk += 16) {
-      uint32_t a[MT][4], b[NT][2];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const bf16* a0 = as + (i * 16) * SK16 + kk;
-        a[i][0] = *reinterpret_cast<const uint32_t*>(a0);
-        a[i][1] = *reinterpret_cast<const uint32_t*>(a0 + 8 * SK16);
-        a[i][2] = *reinterpret_cast<const uint32_t*>(a0 + 8);
-        a[i][3] = *reinterpret_cast<const uint32_t*>(a0 + 8 * SK16 + 8);
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const bf16* b0 = bs + (j * 8) * SK16 + kk;
-        b[j][0] = *reinterpret_cast<const uint32_t*>(b0);
-        b[j][1] = *reinterpret_cast<const uint32_t*>(b0 + 8);
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], a[i], b[j]);
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = row0 + wm * WM + i * 16 + g + 8 * half;
-      if (row >= p.M) continue;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int col = wn * WN + j * 8 + 2 * c;  // within the block
-        const float2 bb = load2(bias + wrow0 + col);
-        store2(p.out + (size_t)row * p.ldo + col0 + col, acc[i][j][2 * half] + bb.x,
-               acc[i][j][2 * half + 1] + bb.y);
-      }
-    }
-  }
-}
-
 // One block per (head, sequence, CORE_BQ query rows): grid (H, N, ceil(Tq / CORE_BQ)).
 //   k += (1 - mask) * -1e6;  v *= mask              (the keys' mask)
 //   state[d][l] = sum_t softmax_t(k)[t][d] * v[t][l]
@@ -405,12 +282,11 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_bf16_kernel(const GemmArgsB
 // q has Tq rows per sequence at row stride ldq; k and v have Tk rows at
 // row stride ldkv; the mask is (N, Tk); y is (N, Tq, D). k, v and the mask
 // come from sequence n ^ 1 when `interaction` is set (the other actor of
-// the pair in the (B, 2) layout), else from n. TO is y's element type.
-template <typename TO = float>
+// the pair in the (B, 2) layout), else from n.
 __global__ void __launch_bounds__(CORE_THREADS) linear_attention_core(
     const float* __restrict__ qp, const float* __restrict__ kp,
     const float* __restrict__ vp, const float* __restrict__ mask,
-    TO* __restrict__ y, int Tq, int Tk, int D, int ldq, int ldkv, int interaction) {
+    float* __restrict__ y, int Tq, int Tk, int D, int ldq, int ldkv, int interaction) {
   // Two stages of (k chunk, v chunk); after the key loop the same memory
   // holds the normalized state [HD][KS] and the softmaxed queries [CORE_BQ][QS].
   __shared__ __align__(16) float buf[2 * 2 * TC * KS];
@@ -576,7 +452,7 @@ __global__ void __launch_bounds__(CORE_THREADS) linear_attention_core(
   for (int half = 0; half < 2; ++half) {
     const int t = t0q + mt * 16 + g + 8 * half;
     if (t >= Tq) continue;
-    TO* yr = y + ((size_t)n * Tq + t) * D + h * HD;
+    float* yr = y + ((size_t)n * Tq + t) * D + h * HD;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       store2(yr + (nt0 + j) * 8 + 2 * c, out[j][2 * half], out[j][2 * half + 1]);
@@ -611,18 +487,6 @@ inline cudaError_t launch_gemm_out(const GemmArgs& p, cudaStream_t stream) {
   return launch_gemm_tiles<32, 64, BIAS_RESID>(p, p.D, stream);
 }
 
-// bfloat16 q | k | v projections: float32 out (M, 3 * D) at ldo = 3 * D.
-inline cudaError_t launch_gemm_bf16_qkv(const GemmArgsBf16& p, cudaStream_t stream) {
-  constexpr int BM = 96, BN = 64;
-  constexpr size_t smem = sizeof(bf16) * STAGES * (BM + BN) * SK16;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      gemm_bf16_kernel<BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (attr != cudaSuccess) return attr;
-  const dim3 grid(3 * p.D / BN, (p.M + BM - 1) / BM);
-  gemm_bf16_kernel<BM, BN><<<grid, GEMM_THREADS, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
 template <typename T>
 struct NoDeduce {  // keeps a parameter out of template deduction (a nullptr scale)
   using type = T;
@@ -639,22 +503,20 @@ cudaError_t launch_row_norm(const TI* in, TO* out, const TP* g, const TP* b,
   return cudaGetLastError();
 }
 
-template <typename TO = float>
-cudaError_t launch_core(const float* q, const float* k, const float* v, const float* mask,
-                        TO* y, int N, int Tq, int Tk, int D, int ldq, int ldkv,
-                        int interaction, cudaStream_t stream) {
+inline cudaError_t launch_core(const float* q, const float* k, const float* v, const float* mask,
+                               float* y, int N, int Tq, int Tk, int D, int ldq, int ldkv,
+                               int interaction, cudaStream_t stream) {
   const dim3 grid(D / HD, N, (Tq + CORE_BQ - 1) / CORE_BQ);
-  linear_attention_core<TO><<<grid, CORE_THREADS, 0, stream>>>(
+  linear_attention_core<<<grid, CORE_THREADS, 0, stream>>>(
       q, k, v, mask, y, Tq, Tk, D, ldq, ldkv, interaction);
   return cudaGetLastError();
 }
 
 // The core over a (N*T, 3*D) q | k | v buffer, as B1 and B2 produce it.
-template <typename TO = float>
-cudaError_t launch_core_qkv(const float* qkv, const float* mask, TO* y, int N, int T, int D,
-                            int interaction, cudaStream_t stream) {
-  return launch_core<TO>(qkv, qkv + D, qkv + 2 * D, mask, y, N, T, T, D, 3 * D,
-                                3 * D, interaction, stream);
+inline cudaError_t launch_core_qkv(const float* qkv, const float* mask, float* y, int N, int T,
+                                   int D, int interaction, cudaStream_t stream) {
+  return launch_core(qkv, qkv + D, qkv + 2 * D, mask, y, N, T, T, D, 3 * D, 3 * D, interaction,
+                     stream);
 }
 
 }  // namespace hig

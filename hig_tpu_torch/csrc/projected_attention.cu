@@ -30,24 +30,225 @@ extern "C" int hig_projected_attention(
 }
 
 // B2-bf16: bfloat16 activations and weights, as the Pallas kernel computes
-// them for dt = bfloat16 (hig_tpu/ops/pallas_attention.py:116-137): the
-// bfloat16 QKV GEMM writes float32 q | k | v with the bias into `qkv`, the
-// float32 core (no cast inside, as in Pallas) stores y as bfloat16 into
-// `out` (N, T, D). Returns the first cudaError_t.
+// them for dt = bfloat16 (hig_tpu/ops/pallas_attention.py:116-137): q, k, v
+// are float32 dots with the bias added in float32, the whole core is
+// float32 (its dots take no cast), and y is stored in bfloat16.
+//
+// Bound on this card: at N = 104, T = 196, D = 512 the projections are 31
+// GFLOP of bfloat16 products (32 us at 989 TFLOP/s) and the core 0.8 GFLOP
+// of float32-accurate ones (15 us at 495 / 3 TFLOP/s in 3xTF32) against 31
+// MB of q_src, kv_src, weights and y (9 us): operations, 0.049 ms; at the
+// serving shape 0.0035 ms. The Pallas kernel keeps the float32 q | k | v in
+// VMEM (125 MB written and read back at 104 x 196, were it in device
+// memory); here it stays on the chip too. One launch,
+// projected_core_bf16_kernel, one block per (sequence, head), laid out as
+// B1-bf16's q|k|v + core kernel (qkv_core.cuh): a producer warp feeds a TMA
+// ring with 64-column chunks of kv_src's rows and the head's rows of
+// Wk | Wv, then of q_src's rows and Wq, through two tensor maps; two
+// consumer warpgroups project 64-row tiles on wgmma (float32 accumulators)
+// and keep k (+ the mask bias) and v (* the mask) in float32 in shared
+// memory, 512 bytes a key row, so T <= QC_MAX_T; the column max and sums
+// over all T keys are taken once and softmax_time(k) is written in place
+// over k; the state E^T v is built once per (sequence, head) at 3xTF32 on
+// mma.sync m16n8k8 straight from the float32 tiles (tf32 wgmma would take
+// only K-major shared-memory operands), split into TF32 high and low parts
+// once; then each 64-row q tile is softmaxed over the features in its
+// accumulator registers and multiplied by the state at 3xTF32, the
+// accumulator handed over as mma.sync's A operand with the depth index
+// permuted alike in A and in the state (depth 8j + 2c is k index c, 8j +
+// 2c + 1 is c + 4), and y is rounded once. The float32 tiles are
+// [tpad][64] with the 8-float group j of row t at j ^ (t % 4): the state
+// product's fragment loads and the accumulators' stores are free of bank
+// conflicts.
+#include "qkv_core.cuh"
+
+namespace hig {
+
+// Element (t, col) of a swizzled float32 [.][64] tile.
+__device__ __forceinline__ int f32_tile(int t, int col) {
+  return t * 64 + (col ^ ((t & 3) << 3));
+}
+
+__global__ void __launch_bounds__(QC_THREADS, 1) projected_core_bf16_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tkv,
+    const __grid_constant__ CUtensorMap twq, const __grid_constant__ CUtensorMap twk,
+    const __grid_constant__ CUtensorMap twv, const bf16* __restrict__ bq,
+    const bf16* __restrict__ bk, const bf16* __restrict__ bv, const float* __restrict__ mask,
+    bf16* __restrict__ y, int T, int D, int H, int stages) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);  // [stages]: source tiles 0 and 1, W (128 rows)
+  const int tiles = (T + 63) / 64, tpad = 64 * tiles;
+  float* ks = reinterpret_cast<float*>(ring + stages * QC_STAGE_BYTES);  // [tpad][64] k, then E
+  float* vs = ks + tpad * 64;                                            // [tpad][64] v
+  float* red = vs + tpad * 64;                                           // [4][64]
+  float* cm = red + 4 * 64;                                              // column max
+  float* zs = cm + 64;                                                   // column sums
+  uint64_t* full = reinterpret_cast<uint64_t*>(zs + 64);
+  uint64_t* empty = full + QC_MAX_STAGES;
+  // once the state is built, over ks and vs: [32 depth pairs][64 columns] of
+  // {hi(2p), hi(2p + 1), lo(2p), lo(2p + 1)}, column n of pair p at n ^ 2 (p % 4)
+  uint4* state = reinterpret_cast<uint4*>(ks);
+
+  const int n = blockIdx.x / H, h = blockIdx.x % H;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rounds = (tiles + QC_WG - 1) / QC_WG, kchunks = D / 64;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], QC_CONSUMERS);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 4 * QC_WG) {  // producer: k | v chunks of every round, then q's
+    if (lane == 0)
+      qc_produce(&tkv, &tq, &twq, &twk, &twv, n, n, h, ring, full, empty, stages, tiles, kchunks);
+    return;
+  }
+
+  const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, c = lane & 3;
+  int it = 0;
+
+  // k | v = kv_src [Wk | Wv]^T + [bk | bv]: 64-row tiles of the key rows
+  for (int r = 0; r < rounds; ++r) {
+    const int tile = QC_WG * r + wg;
+    const bool active = tile < tiles;  // uniform over the warpgroup
+    float acc[64];
+    qc_project<128>(acc, ring, full, empty, it, stages, kchunks, wg, active);
+    if (!active) continue;
+    fence_regs<64>(acc);
+    // k += (1 - mask) * -1e6; v *= mask (rows past T: v = 0, k unread)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int t = 64 * tile + 16 * wl + g + 8 * half;
+      const float mt = t < T ? mask[(size_t)n * T + t] : 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = 8 * (j & 7) + 2 * c;
+        const float a0 = acc[4 * j + 2 * half], a1 = acc[4 * j + 2 * half + 1];
+        if (j < 8) {
+          const float2 b = load2(bk + h * HD + col);
+          *reinterpret_cast<float2*>(ks + f32_tile(t, col)) =
+              make_float2(a0 + b.x + (1.f - mt) * MASK_BIAS, a1 + b.y + (1.f - mt) * MASK_BIAS);
+        } else {
+          const float2 b = load2(bv + h * HD + col);
+          *reinterpret_cast<float2*>(vs + f32_tile(t, col)) =
+              make_float2((a0 + b.x) * mt, (a1 + b.y) * mt);
+        }
+      }
+    }
+  }
+  named_barrier(1, QC_CONSUMERS);
+
+  // column max and sums over the T keys, then E = softmax_time(k) over k
+  // (rows past T: 0)
+  qc_column_stats(ks, T, tid, red, cm, zs, [](int t, int d) { return f32_tile(t, d); });
+  for (int i = tid; i < tpad * 64; i += QC_CONSUMERS) {
+    const int t = i >> 6, d = i & 63, at = f32_tile(t, d);
+    ks[at] = t < T ? expf(ks[at] - cm[d]) / zs[d] : 0.f;
+  }
+  named_barrier(1, QC_CONSUMERS);
+
+  // state = E^T v (64 x 64, the depth is time) at 3xTF32: consumer warp w
+  // takes state rows 16 (w % 4) .. + 15 and columns 32 (w / 4) .. + 31
+  {
+    const int d0 = 16 * (warp & 3), l0 = 32 * (warp >> 2);
+    float sacc[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[j][e] = 0.f;
+    const int t8 = (T + 7) / 8 * 8;
+    for (int t0 = 0; t0 < t8; t0 += 8) {
+      const int ta = t0 + c, tb = t0 + c + 4;
+      Split a[4] = {split_tf32(ks[f32_tile(ta, d0 + g)]), split_tf32(ks[f32_tile(ta, d0 + g + 8)]),
+                    split_tf32(ks[f32_tile(tb, d0 + g)]), split_tf32(ks[f32_tile(tb, d0 + g + 8)])};
+      Split b[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        b[j][0] = split_tf32(vs[f32_tile(ta, l0 + 8 * j + g)]);
+        b[j][1] = split_tf32(vs[f32_tile(tb, l0 + 8 * j + g)]);
+      }
+      mma_3xtf32<1, 4>(&sacc[0][0], a, &b[0][0]);
+    }
+    named_barrier(1, QC_CONSUMERS);  // every warp is done with E and v
+    uint32_t* sw = reinterpret_cast<uint32_t*>(state);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = d0 + g + 8 * (e >> 1), l = l0 + 8 * j + 2 * c + (e & 1), p = d >> 1;
+        const Split s = split_tf32(sacc[j][e]);
+        uint32_t* u = sw + 4 * (p * 64 + (l ^ (2 * (p & 3))));
+        u[d & 1] = s.hi;
+        u[2 + (d & 1)] = s.lo;
+      }
+  }
+  named_barrier(1, QC_CONSUMERS);
+
+  // y = softmax_feat(q) . state at 3xTF32, per 64-row tile of this sequence
+  for (int r = 0; r < rounds; ++r) {
+    const int tile = QC_WG * r + wg;
+    const bool active = tile < tiles;
+    float qa[32];
+    qc_project<64>(qa, ring, full, empty, it, stages, kchunks, wg, active);
+    if (!active) continue;
+    fence_regs<32>(qa);
+    qc_feature_softmax(qa, bq + h * HD, c);
+    float ya[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ya[j][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {  // depth 8j .. 8j + 7: k index c is 8j + 2c, c + 4 is 8j + 2c + 1
+      const Split a[4] = {split_tf32(qa[4 * j]), split_tf32(qa[4 * j + 2]),
+                          split_tf32(qa[4 * j + 1]), split_tf32(qa[4 * j + 3])};
+      Split b[8][2];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const uint4 u = state[(4 * j + c) * 64 + ((8 * nt + g) ^ (2 * c))];
+        b[nt][0] = {u.x, u.z};
+        b[nt][1] = {u.y, u.w};
+      }
+      mma_3xtf32<1, 8>(&ya[0][0], a, &b[0][0]);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int t = 64 * tile + 16 * wl + g + 8 * half;
+      if (t >= T) continue;
+      bf16* yr = y + ((size_t)n * T + t) * D + h * HD + 2 * c;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) store2(yr + 8 * j, ya[j][2 * half], ya[j][2 * half + 1]);
+    }
+  }
+}
+
+}  // namespace hig
+
+// Returns the first cudaError_t.
 extern "C" int hig_projected_attention_bf16(
     const hig::bf16* q_src, const hig::bf16* kv_src,
     const hig::bf16* wq, const hig::bf16* bq, const hig::bf16* wk, const hig::bf16* bk,
-    const hig::bf16* wv, const hig::bf16* bv, const float* mask,
-    float* qkv, hig::bf16* out, int N, int T, int D, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-
-  hig::GemmArgsBf16 a{};
-  a.a0 = q_src; a.a1 = kv_src;
-  a.w0 = wq; a.w1 = wk; a.w2 = wv;
-  a.b0 = bq; a.b1 = bk; a.b2 = bv;
-  a.out = qkv;
-  a.M = N * T; a.K = D; a.D = D; a.ldo = 3 * D;
-  const cudaError_t err = hig::launch_gemm_bf16_qkv(a, stream);
+    const hig::bf16* wv, const hig::bf16* bv, const float* mask, hig::bf16* out,
+    int N, int T, int D, void* stream_ptr) {
+  using namespace hig;
+  if (T > QC_MAX_T || D % 64) return cudaErrorInvalidValue;
+  CUtensorMap mq, mkv, mwq, mwk, mwv;
+  cudaError_t err = make_tile_map(&mq, q_src, D, T, N, D, 64);
+  if (err == cudaSuccess) err = make_tile_map(&mkv, kv_src, D, T, N, D, 64);
+  if (err == cudaSuccess) err = make_tile_map(&mwq, wq, D, D, 1, D, 64);
+  if (err == cudaSuccess) err = make_tile_map(&mwk, wk, D, D, 1, D, 64);
+  if (err == cudaSuccess) err = make_tile_map(&mwv, wv, D, D, 1, D, 64);
   if (err != cudaSuccess) return err;
-  return hig::launch_core_qkv(qkv, mask, out, N, T, D, 0, stream);
+  const int tpad = (T + 63) / 64 * 64, smem = qc_smem(tpad);
+  err = cudaFuncSetAttribute(projected_core_bf16_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  projected_core_bf16_kernel<<<N * (D / HD), QC_THREADS, smem,
+                               static_cast<cudaStream_t>(stream_ptr)>>>(
+      mq, mkv, mwq, mwk, mwv, bq, bk, bv, mask, out, T, D, D / HD, qc_stages(tpad));
+  return cudaGetLastError();
 }

@@ -64,15 +64,15 @@ import torch.nn.functional as F
 
 from hig_tpu_torch.ops import _build
 from hig_tpu_torch.ops.pallas_attention import (
-    MASK_BIAS,
+    BF16_MAX_T,
+    CORE_ROUNDINGS,
     check_cuda_operand,
     check_cuda_width,
     efficient_attention,
-    split_heads,
+    round_bf16,
 )
 
 LN_EPS = 1e-6
-BF16_MAX_T = 320  # rows of one sequence the bfloat16 kernel keeps in shared memory
 
 
 class BlockWeights(NamedTuple):
@@ -92,18 +92,10 @@ class BlockWeights(NamedTuple):
     bo: torch.Tensor
 
 
-def _round(t: torch.Tensor) -> torch.Tensor:
-    """t rounded to bfloat16, as float32."""
-    return t.to(torch.bfloat16).float()
-
-
 def _fused_block_bf16_plain(x, key_mask, scale, shift, w: BlockWeights, num_heads: int,
                             interaction: bool, unrounded=()):
     """B1-bf16's twin: the Pallas kernel's rounding points (module doc),
-    but those of the core named in ``unrounded`` ("kh", "v", "att", "qh")."""
-    def core_round(name, t):
-        return t if name in unrounded else _round(t)
-
+    but those of the core (``CORE_ROUNDINGS``) named in ``unrounded``."""
     f32 = torch.float32
     D = x.shape[-1]
     mask = key_mask.to(f32).expand(x.shape[:-1])
@@ -112,21 +104,15 @@ def _fused_block_bf16_plain(x, key_mask, scale, shift, w: BlockWeights, num_head
     kvn = xn
     if interaction:
         kvn, mask = xn.flip(-3), mask.flip(-2)
-    xb, kvb = _round(xn), _round(kvn)
+    xb, kvb = round_bf16(xn), round_bf16(kvn)
     q = xb @ w.wq.float().T + w.bq.float()
     k = kvb @ w.wk.float().T + w.bk.float()
     v = kvb @ w.wv.float().T + w.bv.float()
-    k = k + (1.0 - mask[..., None]) * MASK_BIAS
-    v = v * mask[..., None]
-    qh = split_heads(q, num_heads).softmax(dim=-1)
-    kh = split_heads(k, num_heads).softmax(dim=-3)  # over the time axis
-    att = torch.einsum("...nhd,...nhl->...hdl", core_round("kh", kh),
-                       core_round("v", split_heads(v, num_heads)))
-    y = torch.einsum("...nhd,...hdl->...nhl", core_round("qh", qh),
-                     core_round("att", att)).reshape(q.shape)
+    y = efficient_attention(q, k, v, num_heads, mask,
+                            tuple(n for n in CORE_ROUNDINGS if n not in unrounded))
     z = F.layer_norm(y, (D,), w.styl_g.float(), w.styl_b.float(), LN_EPS)
     z = F.silu(z * (1 + scale.float()) + shift.float())
-    out = _round(z) @ w.wo.float().T + w.bo.float()
+    out = round_bf16(z) @ w.wo.float().T + w.bo.float()
     return (xf + out).to(x.dtype)
 
 

@@ -37,12 +37,28 @@ and keeps the KᵀV state in shared memory.
 bfloat16 form of B2 (B2-bf16, ``hig_projected_attention_bf16``). The
 Pallas kernel takes q/k/v = dot(x, W) with float32 accumulation plus the
 bias, keeps the whole core in float32 (its two dots take no cast) and
-stores the output in the input dtype. B2-bf16 does the same: the q|k|v
-GEMM takes bfloat16 operands (mma.sync m16n8k16, float32 accumulators) and
-writes float32, the core is B2's 3xTF32 float32 core, and it stores y as
-bfloat16. :func:`fused_projected_attention_plain` on bfloat16 inputs is its
-twin. B3 has no bfloat16 form (no model path calls it): its wrapper raises
-on a bfloat16 tensor on every device.
+stores the output in the input dtype. B2-bf16 does the same in one launch
+designed for the H100: one block per (sequence, head) projects the head's
+k | v from kv_src and q from q_src on ``wgmma`` (bfloat16 operands from a
+TMA ring, float32 accumulators plus the bias), keeps k and v in float32 in
+shared memory, builds softmax_time(k) and the 64 × 64 state once in float32
+(3xTF32 on ``mma.sync``), takes each 64-row q tile's feature softmax in its
+accumulator registers and multiplies it by the state at 3xTF32, and stores
+y rounded once. One sequence's keys sit in shared memory, so T is at most
+:data:`BF16_MAX_T`. :func:`fused_projected_attention_plain` on bfloat16
+inputs is its twin; ``rounded`` makes the twin round the core as B1-bf16's
+Pallas kernel does, a planted control that the kernel's gates must fail.
+
+bfloat16 form of B3 (B3-bf16, ``hig_efficient_attention_bf16``). The
+Pallas kernel runs the core on bfloat16 q, k, v and mask, so XLA rounds
+after each op: the mask bias, each softmax's subtraction, ``exp``, sum (a
+float32 sum, rounded) and division, the state (a float32 accumulation of
+bfloat16 products, rounded) and y (rounded once). The kernel rounds at
+those points (one block per (head, sequence), reading the bfloat16
+columns in place; the products of bfloat16 values are exact).
+:func:`fused_efficient_attention_plain` on bfloat16 inputs is its twin, and
+``unrounded`` leaves out rounding points (:data:`B3_ROUNDINGS`) for the
+planted controls. No model path calls B3.
 """
 
 from __future__ import annotations
@@ -55,18 +71,35 @@ from hig_tpu_torch.ops import _build
 
 HEAD_DIM = 64  # the only head width the CUDA core takes
 MASK_BIAS = -1000000.0
+BF16_MAX_T = 320  # rows of one sequence the bfloat16 B1 and B2 kernels keep in shared memory
+# The roundings of the core that efficient_attention can take (B1-bf16's):
+# softmax_time(k), v, the state and softmax_feat(q).
+CORE_ROUNDINGS = ("kh", "v", "att", "qh")
+# B3-bf16's rounding points past the mask: each softmax's subtraction, exp,
+# sum and division ("qh", "kh"), and the state.
+B3_ROUNDINGS = ("q_sub", "q_exp", "q_sum", "qh", "k_sub", "k_exp", "k_sum", "kh", "att")
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     return x.reshape(*x.shape[:-1], num_heads, x.shape[-1] // num_heads)
 
 
-def efficient_attention(query, key, value, num_heads: int, key_mask=None):
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bfloat16, as float32."""
+    return t.to(torch.bfloat16).float()
+
+
+def efficient_attention(query, key, value, num_heads: int, key_mask=None, rounded=()):
     """Shared plain core of the linear-attention family.
 
     query (..., T, D), key/value (..., N, D); key_mask (..., N) 0/1.
-    softmax(Q over features) · [softmax(K over time)ᵀ V].
+    softmax(Q over features) · [softmax(K over time)ᵀ V]. ``rounded``
+    names roundings to bfloat16 (:data:`CORE_ROUNDINGS`) taken on float32
+    operands, as B1-bf16's Pallas kernel takes them.
     """
+    def r(name, t):
+        return round_bf16(t) if name in rounded else t
+
     D = query.shape[-1]
     q = split_heads(query, num_heads)
     if key_mask is not None:
@@ -75,8 +108,8 @@ def efficient_attention(query, key, value, num_heads: int, key_mask=None):
     k = split_heads(key, num_heads).softmax(dim=-3)  # over the time axis
     v = split_heads(value, num_heads)
     q = q.softmax(dim=-1)
-    attention = torch.einsum("...nhd,...nhl->...hdl", k, v)
-    y = torch.einsum("...nhd,...hdl->...nhl", q, attention)
+    attention = torch.einsum("...nhd,...nhl->...hdl", r("kh", k), r("v", v))
+    y = torch.einsum("...nhd,...hdl->...nhl", r("qh", q), r("att", attention))
     return y.reshape(*y.shape[:-2], D)
 
 
@@ -88,10 +121,12 @@ def merged_qkv(xn, wq, bq, wk, bk, wv, bv):
 
 
 def fused_projected_attention_plain(q_src, kv_src, wq, bq, wk, bk, wv, bv,
-                                    num_heads: int, key_mask=None):
+                                    num_heads: int, key_mask=None, rounded=()):
     """Plain PyTorch version of B2. Weights are torch Linear (out, in). On
     bfloat16 inputs, the twin of B2-bf16: the products of the rounded
-    operands in float32, the float32 core, the output rounded."""
+    operands in float32, the float32 core, the output rounded; with
+    ``rounded`` (:data:`CORE_ROUNDINGS`), the core rounded at those points
+    as B1-bf16's is (a planted control)."""
     if q_src.dtype == torch.bfloat16:
         mask = None if key_mask is None else key_mask.float()
 
@@ -100,7 +135,9 @@ def fused_projected_attention_plain(q_src, kv_src, wq, bq, wk, bk, wv, bv,
 
         q = proj(q_src, wq, bq)
         k, v = proj(kv_src, wk, bk), proj(kv_src, wv, bv)
-        return efficient_attention(q, k, v, num_heads, mask).to(q_src.dtype)
+        return efficient_attention(q, k, v, num_heads, mask, rounded).to(q_src.dtype)
+    if rounded:
+        raise ValueError("only the bfloat16 twin has roundings to take")
     if kv_src is q_src:
         q, k, v = merged_qkv(q_src, wq, bq, wk, bk, wv, bv)
     else:
@@ -172,12 +209,15 @@ def projected_attention_backward(saved, grad_out, num_heads: int, merged: bool,
 def _launch_projected(q_src, kv_src, wq, bq, wk, bk, wv, bv, mask):
     T, D = q_src.shape[-2:]
     N = q_src.numel() // (T * D)
-    qkv = torch.empty((N * T, 3 * D), device=q_src.device, dtype=torch.float32)
     out = torch.empty_like(q_src)
-    bf16 = q_src.dtype == torch.bfloat16
+    stream = torch.cuda.current_stream(q_src.device).cuda_stream
+    if q_src.dtype == torch.bfloat16:
+        _build.launch("projected_attention", (q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, out),
+                      (N, T, D), stream, entry="projected_attention_bf16")
+        return out
+    qkv = torch.empty((N * T, 3 * D), device=q_src.device, dtype=torch.float32)
     _build.launch("projected_attention", (q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, qkv, out),
-                  (N, T, D), torch.cuda.current_stream(q_src.device).cuda_stream,
-                  entry="projected_attention_bf16" if bf16 else None)
+                  (N, T, D), stream)
     return out
 
 
@@ -208,7 +248,7 @@ def fused_projected_attention(q_src, kv_src, wq, bq, wk, bk, wv, bv,
     CPU tensors take the plain version; CUDA tensors launch the kernel,
     under autograd through :class:`ProjectedAttention`: the float32 form,
     or for bfloat16 activations and weights the bfloat16 form
-    (``launches_bf16``); other dtypes raise.
+    (``launches_bf16``, T up to :data:`BF16_MAX_T`); other dtypes raise.
     """
     if q_src.device.type == "cpu":
         return fused_projected_attention_plain(q_src, kv_src, wq, bq, wk, bk, wv, bv,
@@ -223,6 +263,9 @@ def fused_projected_attention(q_src, kv_src, wq, bq, wk, bk, wv, bv,
     dt = q_src.dtype
     if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"the projected-attention kernel takes float32 or bfloat16, got {dt}")
+    if dt == torch.bfloat16 and T > BF16_MAX_T:
+        raise ValueError(f"the bfloat16 projected-attention kernel takes T up to {BF16_MAX_T}, "
+                         f"got {T}")
     check_cuda_operand("q_src", q_src, dtype=dt)
     check_cuda_operand("kv_src", kv_src, dtype=dt)
     for name, w, b in (("query", wq, bq), ("key", wk, bk), ("value", wv, bv)):
@@ -244,24 +287,64 @@ def fused_projected_attention(q_src, kv_src, wq, bq, wk, bk, wv, bv,
 
 fused_projected_attention.launches = 0
 fused_projected_attention.launches_bf16 = 0
-B3_BF16 = ("the efficient-attention kernel (B3) has no bfloat16 form: no model path calls it "
-           "(ROADMAP.md, Queue B: 'B3-bf16, not ported')")
+
+
+def fused_efficient_attention_plain(query, key, value, num_heads: int, key_mask=None,
+                                    unrounded=()):
+    """Plain PyTorch version of B3: :func:`efficient_attention`. On bfloat16
+    q, k and v, the twin of B3-bf16: float32 values rounded to bfloat16
+    where XLA rounds the Pallas kernel's bfloat16 ops (the module doc), but
+    at the points of :data:`B3_ROUNDINGS` named in ``unrounded``; output
+    bfloat16."""
+    if query.dtype != torch.bfloat16:
+        if unrounded:
+            raise ValueError("only the bfloat16 twin has roundings to leave out")
+        return efficient_attention(query, key, value, num_heads, key_mask)
+    unknown = set(unrounded) - set(B3_ROUNDINGS)
+    if unknown:
+        raise ValueError(f"B3-bf16 has no rounding {sorted(unknown)}; it has {B3_ROUNDINGS}")
+
+    def r(name, t):
+        return t if name in unrounded else round_bf16(t)
+
+    def softmax(x, dim, which):
+        e = r(f"{which}_exp", torch.exp(r(f"{which}_sub", x - x.amax(dim, keepdim=True))))
+        return r(f"{which}h", e / r(f"{which}_sum", e.sum(dim, keepdim=True)))
+
+    D = query.shape[-1]
+    k, v = key.float(), value.float()
+    if key_mask is not None:  # the mask, its bias and both products are bfloat16
+        m = round_bf16(key_mask.float())[..., None]
+        k = round_bf16(k + (1.0 - m) * round_bf16(torch.tensor(MASK_BIAS)))
+        v = v * m
+    qh = softmax(split_heads(query.float(), num_heads), -1, "q")
+    kh = softmax(split_heads(k, num_heads), -3, "k")  # over the time axis
+    att = r("att", torch.einsum("...nhd,...nhl->...hdl", kh, split_heads(v, num_heads)))
+    y = torch.einsum("...nhd,...hdl->...nhl", qh, att)
+    return y.reshape(*y.shape[:-2], D).to(torch.bfloat16)
 
 
 def efficient_attention_backward(saved, grad_out, num_heads: int, needs=(True,) * 3):
     """B3's backward (``_fused_bwd``): ``saved`` is (query, key, value,
-    key_mask); returns the gradients of the first three."""
+    key_mask); returns the gradients of the first three. Like JAX's, it
+    differentiates the plain core, not the kernel's roundings: in float32
+    on the operands, for B3-bf16 too, the gradients rounded to bfloat16 once."""
     *operands, mask = saved
-    return recompute_grads(lambda q, k, v: efficient_attention(q, k, v, num_heads, mask),
-                           operands, needs, grad_out)
+
+    def plain(q, k, v):
+        return efficient_attention(q.float(), k.float(), v.float(), num_heads, mask).to(q.dtype)
+
+    return recompute_grads(plain, operands, needs, grad_out)
 
 
 def _launch_efficient(query, key, value, mask):
     (Tq, D), Tk = query.shape[-2:], key.shape[-2]
     N = query.numel() // (Tq * D)
     out = torch.empty_like(query)
+    bf16 = query.dtype == torch.bfloat16
     _build.launch("efficient_attention", (query, key, value, mask, out), (N, Tq, Tk, D),
-                  torch.cuda.current_stream(query.device).cuda_stream)
+                  torch.cuda.current_stream(query.device).cuda_stream,
+                  entry="efficient_attention_bf16" if bf16 else None)
     return out
 
 
@@ -287,27 +370,35 @@ def fused_efficient_attention(query, key, value, num_heads: int, key_mask=None):
 
     query (..., Tq, D); key/value (..., Tk, D); key_mask broadcastable to
     (..., Tk), 0/1. Returns (..., Tq, D). CPU tensors take the plain
-    :func:`efficient_attention`; CUDA tensors launch the kernel, under
-    autograd through :class:`EfficientAttention`. A bfloat16 tensor raises
-    on every device (:data:`B3_BF16`).
+    :func:`fused_efficient_attention_plain`; CUDA tensors launch the
+    kernel, under autograd through :class:`EfficientAttention`: the float32
+    form, or for bfloat16 q, k and v the bfloat16 form
+    (``launches_bf16``). Other dtypes, and q, k, v of mixed dtypes, raise.
     """
-    if torch.bfloat16 in (query.dtype, key.dtype, value.dtype):
-        raise ValueError(B3_BF16)
+    dt, dts = query.dtype, (query.dtype, key.dtype, value.dtype)
+    if torch.bfloat16 in dts and dts != (dt,) * 3:
+        raise ValueError(f"the bfloat16 form of B3 takes q, k and v all bfloat16, got {dts}")
     if query.device.type == "cpu":
-        return efficient_attention(query, key, value, num_heads, key_mask)
+        return fused_efficient_attention_plain(query, key, value, num_heads, key_mask)
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the efficient-attention kernel takes float32 or bfloat16, got {dt}")
     lead, (Tq, D), Tk = query.shape[:-2], query.shape[-2:], key.shape[-2]
     check_cuda_width(D, num_heads)
-    check_cuda_operand("query", query)
+    check_cuda_operand("query", query, dtype=dt)
     for name, t in (("key", key), ("value", value)):
-        check_cuda_operand(name, t, (*lead, Tk, D))
+        check_cuda_operand(name, t, (*lead, Tk, D), dtype=dt)
     if key_mask is None:
         mask = torch.ones((*lead, Tk), device=query.device, dtype=torch.float32)
     else:
         mask = key_mask.to(torch.float32).expand(*lead, Tk).contiguous()
     check_cuda_operand("key_mask", mask)
     out = EfficientAttention.apply(query, key, value, mask, num_heads)
-    fused_efficient_attention.launches += 1
+    if dt == torch.bfloat16:
+        fused_efficient_attention.launches_bf16 += 1
+    else:
+        fused_efficient_attention.launches += 1
     return out
 
 
 fused_efficient_attention.launches = 0
+fused_efficient_attention.launches_bf16 = 0

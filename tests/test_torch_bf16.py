@@ -5,9 +5,11 @@ and ``rms_norm``.
 - The norm factory against flax's ``make_layer_norm`` in bfloat16: LayerNorm
   with float32 statistics, LayerNorm under ``fast_ln``, RMSNorm, and RMSNorm
   under ``fast_ln``.
-- The bfloat16 twins of B1 (self, interaction), B2 and B4 (self, partner,
-  causal, and a key range past one 128-key block) against the Pallas kernels
-  in interpret mode on bfloat16 inputs.
+- The bfloat16 twins of B1 (self, interaction), B2 (self, partner; T = 12,
+  91, 196), B3 (T = 91, 91 queries on 77 keys, T = 196) and B4 (self,
+  partner, causal, and a key range past one 128-key block) against the
+  Pallas kernels in interpret mode on bfloat16 inputs; B3-bf16's backward
+  against JAX's ``_fused_bwd`` on bfloat16 operands.
 - The text encoder, each block, the FFN and the whole denoiser in bfloat16
   against the flax modules with the matching route flags: the port's fused
   blocks (B1) against JAX ``fused_blocks=True``, its projected blocks (B2)
@@ -17,7 +19,7 @@ and ``rms_norm``.
   DDPM and guided DDIM in bfloat16 against JAX's ``make_sampler``.
 - The RMSNorm weight bridge, ``load_opt_txt`` on JAX ``opt.txt`` files with
   each option, the tiny ``serve`` CLI, the trainer's and the label CLI's
-  refusals, B3's refusal, and ``rms_norm`` with fused blocks refused.
+  refusals, and ``rms_norm`` with fused blocks refused.
 
 Tolerance. XLA rounds a bfloat16 graph after every op; the port rounds at
 the same ops. They differ only where a float32 sum taken in another order,
@@ -53,7 +55,9 @@ from hig_tpu_torch.models.interaction_model import InteractionModel, ModelConfig
 from hig_tpu_torch.models.tokenizer import tokenize
 from hig_tpu_torch.ops.fused_block import fused_attention_block, fused_attention_block_plain
 from hig_tpu_torch.ops.pallas_attention import (
+    efficient_attention_backward,
     fused_efficient_attention,
+    fused_efficient_attention_plain,
     fused_projected_attention,
     fused_projected_attention_plain,
 )
@@ -244,12 +248,18 @@ def test_b1_twin_matches_pallas_at_t196(interaction):
     _b1_twin_vs_pallas(interaction, tq=196)
 
 
-def test_b2_twin_matches_pallas():
+@pytest.mark.parametrize("tq", [T, 91, 196])
+@pytest.mark.parametrize("same_source", [False, True], ids=["partner", "self"])
+def test_b2_twin_matches_pallas(same_source, tq):
+    """B2's twin, kv from the partner (flipped) or q_src itself, at T = 12
+    and at the lengths where the bfloat16 kernel cuts its 64-row tiles
+    otherwise: 91 (two tiles) and 196 (four, the last holding 4 rows)."""
     from hig_tpu.ops.pallas_attention import fused_projected_attention as pallas_proj
 
-    w, x, mask, _, _ = kernel_inputs(seed=21)
+    w, x, mask, _, _ = kernel_inputs(tq=tq, seed=21)
     q_src = x
-    kv_src, kmask = np.flip(x, 1).copy(), np.flip(mask, 1).copy()
+    kv_src, kmask = (x, mask) if same_source else (np.flip(x, 1).copy(),
+                                                  np.flip(mask, 1).copy())
 
     def pallas(dtype):
         cast = lambda a: jnp.asarray(jb(a), dtype)  # noqa: E731
@@ -258,11 +268,87 @@ def test_b2_twin_matches_pallas():
                            key_mask=jnp.asarray(kmask, dtype), interpret=True)
 
     bw = block_weights(w, BF16)
-    args = (tb(q_src), tb(kv_src), bw.wq, bw.bq, bw.wk, bw.bk, bw.wv, bw.bv, KH, t_(kmask))
+    xb = tb(q_src)
+    args = (xb, xb if same_source else tb(kv_src), bw.wq, bw.bq, bw.wk, bw.bk, bw.wv, bw.bv,
+            KH, t_(kmask))
     args32 = tuple(a.float() if isinstance(a, torch.Tensor) else a for a in args)
     got = fused_projected_attention(*args)
     assert_bf16_parity(got, pallas(jnp.bfloat16), pallas(jnp.float32),
                        fused_projected_attention_plain(*args32))
+
+
+def b3_inputs(tq, tk, seed=24):
+    """q (2, 2, tq, KD), k and v (2, 2, tk, KD), the keys' mask."""
+    _, _, mask, _, _ = kernel_inputs(tq=tk, seed=seed)
+    rng = np.random.RandomState(seed + 1)
+    q = rng.randn(2, 2, tq, KD).astype(np.float32)
+    k, v = (rng.randn(2, 2, tk, KD).astype(np.float32) for _ in range(2))
+    return q, k, v, mask
+
+
+def jax_b3(q, k, v, mask, dtype):
+    """JAX's fused_efficient_attention (the Pallas kernel in interpret mode)
+    on the bfloat16-rounded inputs in ``dtype``, compiled as ``jax_run``."""
+    from hig_tpu.ops.pallas_attention import fused_efficient_attention as pallas_core
+
+    args = [jnp.asarray(jb(a), dtype) for a in (q, k, v, mask)]
+    return jax_run(lambda q_, k_, v_, m_: pallas_core(q_, k_, v_, KH, key_mask=m_,
+                                                      interpret=True),
+                   dtype == jnp.bfloat16, *args)
+
+
+@pytest.mark.parametrize("tq,tk", [(91, 91), (91, 77), (196, 196)],
+                         ids=["self_t91", "tq91_tk77", "self_t196"])
+def test_b3_twin_matches_pallas(tq, tk):
+    """B3-bf16's twin rounds after each bfloat16 op of the Pallas kernel:
+    the mask bias, each softmax's subtraction, exp, sum and division, the
+    state, and y."""
+    q, k, v, mask = b3_inputs(tq, tk)
+    args = (tb(q), tb(k), tb(v), KH, t_(mask))
+    args32 = tuple(a.float() if isinstance(a, torch.Tensor) else a for a in args)
+    before = fused_efficient_attention.launches_bf16
+    got = fused_efficient_attention(*args)  # a CPU tensor takes the twin
+    assert fused_efficient_attention.launches_bf16 == before
+    assert_bf16_parity(got, jax_b3(q, k, v, mask, jnp.bfloat16),
+                       jax_b3(q, k, v, mask, jnp.float32), fused_efficient_attention_plain(*args32))
+
+
+def test_b3_backward_matches_jax():
+    """B3-bf16's backward against JAX's ``_fused_bwd`` on bfloat16 operands,
+    91 queries on 77 keys. Both differentiate the plain core, not the
+    kernel's roundings: the port in float32, its gradients rounded once,
+    JAX in bfloat16 op by op. So the port sits within one bfloat16 ulp of
+    the float32 VJP on the same operands (JAX's ``_fused_bwd`` in float32),
+    at most 0.6 of JAX's bfloat16 VJP's distance from it (the one rounding:
+    ~0.5 for dv, whose bfloat16 VJP rounds little more), and as far from
+    JAX's bfloat16 VJP as that is from float32 (≤ 1.25: the two distances
+    add roughly in quadrature, √(1 + 0.6²) ≈ 1.17)."""
+    from hig_tpu.ops.pallas_attention import fused_efficient_attention as pallas_core
+
+    q, k, v, mask = b3_inputs(91, 77)
+    g = np.random.RandomState(26).randn(2, 2, 91, KD).astype(np.float32)
+
+    def jax_grads(dtype):
+        def grads(q_, k_, v_, m_, g_):
+            _, vjp = jax.vjp(lambda a, b, c: pallas_core(a, b, c, KH, key_mask=m_,
+                                                         interpret=True), q_, k_, v_)
+            return vjp(g_)
+
+        return jax_run(grads, dtype == jnp.bfloat16,
+                       *[jnp.asarray(jb(a), dtype) for a in (q, k, v, mask, g)])
+
+    def rms(d):
+        return np.sqrt(np.mean(d ** 2))
+
+    got = efficient_attention_backward((tb(q), tb(k), tb(v), t_(mask)), tb(g), KH)
+    for a, b, b32 in zip(got, jax_grads(jnp.bfloat16), jax_grads(jnp.float32)):
+        assert a.dtype == BF16
+        a, b, b32 = f32(a), f32(b), f32(b32)
+        effect = rms(b - b32)
+        assert effect > 0
+        assert np.abs(a - b32).max() <= ULP * np.abs(b32).max()
+        assert rms(a - b32) <= 0.6 * effect, (rms(a - b32), effect)
+        assert rms(a - b) <= 1.25 * effect, (rms(a - b), effect)
 
 
 def _b4_twin_vs_pallas(tq, tk, causal, partner, seed=22):
@@ -303,12 +389,6 @@ def test_b4_twin_matches_pallas_on_ragged_blocks(tq, tk, causal, partner):
     80-key block of 77 keys, and T = 196 (4 query tiles of 64, the last
     holding 4 rows; a 128-key block then a ragged one of 68 keys)."""
     _b4_twin_vs_pallas(tq, tk, causal, partner)
-
-
-def test_b3_raises_on_bf16():
-    q = torch.zeros((2, 2, T, KD), dtype=BF16)
-    with pytest.raises(ValueError, match="no bfloat16 form"):
-        fused_efficient_attention(q, q, q, KH)
 
 
 # --- modules and the whole denoiser -----------------------------------------------------

@@ -3,7 +3,9 @@ time: the larger of the bytes' time at 3.35 TB/s and the float32-accurate
 operations' time at the faster of the FMA rate (67 TFLOP/s) and the 3xTF32
 rate (495 / 3 TFLOP/s), at the serving shape N = 16, T = 91, D = 512, 8
 heads of 64; and the gates that hold the bfloat16 forms to their twins,
-against planted controls."""
+against planted controls: B1-bf16's twin without one core rounding,
+B3-bf16's twin without one of its rounding points, and B2-bf16's twin with
+B1-bf16's core roundings."""
 
 import pytest
 
@@ -45,6 +47,7 @@ BF16_CASES = {
                                  "ops_3xtf32+bf16"),
     "flash_attention_bf16": ([(2 * 2 * N * H * T * T * HD, "bf16")],
                              2 * 4 * N * T * D + 4 * N * T, "bytes"),
+    "efficient_attention_bf16": ([(CORE, "bf16")], 2 * 4 * N * T * D + 4 * N * T, "bytes"),
 }
 
 
@@ -58,6 +61,8 @@ def test_bf16_bound_counts_each_part_at_its_rate(form):
     assert ms == pytest.approx(want, rel=1e-12)
     assert kind == want_kind
     assert by == ("bytes" if want_kind == "bytes" else "operations")
+    if form == "efficient_attention_bf16":  # what phase 10 passes for B3-bf16
+        assert chip_smoke.b3_bf16_work(N, T, T) == (parts, nbytes)
 
 
 # The gates phase 10 holds each bfloat16 form to against its twin fail a
@@ -92,3 +97,62 @@ def test_bf16_gate_fails_b1_without_a_core_rounding(b1_bf16_twin, left_out):
     assert row["rms_ratio"] > 2 * chip_smoke.BF16_KERNEL_RMS, row
     with pytest.raises(ValueError, match="bfloat16"):
         fused_attention_block_plain(*args32, unrounded=(left_out,))
+
+
+def test_control_names_are_the_twins_rounding_points():
+    from hig_tpu_torch.ops.pallas_attention import B3_ROUNDINGS, CORE_ROUNDINGS
+
+    assert chip_smoke.B1_CORE_ROUNDINGS == CORE_ROUNDINGS
+    assert chip_smoke.B3_CORE_ROUNDINGS == B3_ROUNDINGS
+
+
+@pytest.fixture(scope="module")
+def b3_bf16_twin():
+    """B3-bf16's twin at the serving shape as phase 10 checks it (91 queries
+    on 77 keys), its float32 twin on the same rounded inputs."""
+    import torch
+
+    from hig_tpu_torch.ops.pallas_attention import fused_efficient_attention_plain as plain
+
+    w, x, mask, _, _ = chip_smoke.block_inputs(torch.device("cpu"))
+    args = chip_smoke.b3_bf16_inputs(w, x, mask, chip_smoke.TK_SHORT)
+    args32 = [a.float() if torch.is_tensor(a) else a for a in args]
+    return args, plain(*args), plain(*args32)
+
+
+@pytest.mark.parametrize("left_out", chip_smoke.B3_CORE_ROUNDINGS)
+def test_bf16_gate_fails_b3_without_a_rounding(b3_bf16_twin, left_out):
+    from hig_tpu_torch.ops.pallas_attention import fused_efficient_attention_plain as plain
+
+    args, twin, twin32 = b3_bf16_twin
+    assert chip_smoke.bf16_gate_row(twin, twin, twin32, twin)["passed"]
+    control = plain(*args, unrounded=(left_out,))
+    row = chip_smoke.bf16_gate_row(control, twin, twin32, twin)
+    assert control.dtype == twin.dtype
+    assert not row["passed"], row
+    assert row["rms_ratio"] > 2 * chip_smoke.BF16_KERNEL_RMS, row
+
+
+def test_bf16_gate_fails_b2_with_b1_core_roundings():
+    """B2-bf16's Pallas kernel keeps its core in float32: a twin that rounds
+    the core as B1-bf16's does (softmax_time(k), v, the state, softmax_feat
+    (q)) fails B2-bf16's gates, so they check the float32 core."""
+    import torch
+
+    from hig_tpu_torch.ops.pallas_attention import fused_projected_attention_plain as plain
+
+    w, x, mask, _, _ = chip_smoke.block_inputs(torch.device("cpu"))
+    xn = torch.nn.functional.layer_norm(x, (D,), w.ln_g, w.ln_b, 1e-6).to(torch.bfloat16)
+    ws = [t.to(torch.bfloat16) for t in (w.wq, w.bq, w.wk, w.bk, w.wv, w.bv)]
+    args = (xn, xn.flip(1).contiguous(), *ws, H, mask.flip(1).contiguous())
+    twin = plain(*args)
+    twin32 = plain(*[a.float() if torch.is_tensor(a) else a for a in args])
+    assert chip_smoke.bf16_gate_row(twin, twin, twin32, twin)["passed"]
+    control = plain(*args, rounded=chip_smoke.B1_CORE_ROUNDINGS)
+    row = chip_smoke.bf16_gate_row(control, twin, twin32, twin)
+    assert control.dtype == twin.dtype
+    assert not row["passed"], row
+    assert row["rms_ratio"] > 2 * chip_smoke.BF16_KERNEL_RMS, row
+    with pytest.raises(ValueError, match="bfloat16"):
+        plain(*[a.float() if torch.is_tensor(a) else a for a in args],
+              rounded=chip_smoke.B1_CORE_ROUNDINGS)

@@ -17,20 +17,24 @@ cuBLAS's and the block's second LayerNorm rescales the attention output by
 kernels' 3xTF32 products meet and plain TF32 products (the low parts
 dropped) miss by more than an order of magnitude.
 
-bfloat16 forms (B1-bf16, B2-bf16, B4-bf16) against their bfloat16 twins
-at the serving shape (B1 also at T = 1, 17 and 196 and at an evaluation
-chunk's shape, where B1's planted controls must fail too; B4 at T = 196,
-two of the Pallas kernel's key blocks, self, partner and causal, and with
-91 queries over 77 keys; B2 at T = 196), with cuBLAS's reduced-precision bf16 reductions off, under
+bfloat16 forms (B1-bf16, B2-bf16, B3-bf16, B4-bf16) against their bfloat16
+twins at the serving shape (B1 also at T = 1, 17 and 196 and at an
+evaluation chunk's shape, where B1's planted controls must fail too; B4 at
+T = 196, two of the Pallas kernel's key blocks, self, partner and causal,
+and with 91 queries over 77 keys; B2 self and partner at T = 196 and at
+T = 320, the most its kernel takes, where the twin that rounds the core as
+B1-bf16 does must fail; B3 with 91 or 196 queries over 77 keys, where the
+twin without each of its rounding points must fail), with cuBLAS's
+reduced-precision bf16 reductions off, under
 ``chip_smoke.py``'s gates: max |kernel − twin| within 2 bfloat16 ulps of
 the twin's largest magnitude, and rms(kernel − twin) within 0.25 of
 rms(twin − the float32 twin on the same rounded inputs) or, where larger,
 1.5 × the twin's distance from the same twin on the CPU (the float32 order
 of sums alone; B1's cancelling KᵀV sum sits there); each form counts its
-own launches, and a bfloat16 tensor into B3, or beside float32 operands,
-raises.
+own launches; B1-bf16 and B2-bf16 refuse T = 321; a bfloat16 tensor
+beside float32 operands raises.
 
-Gradients: B2, B3 and B4 under autograd against autograd through their
+Gradients: B2, B3 (float32 and bfloat16) and B4 under autograd against autograd through their
 plain versions (the backwards recompute the plain versions, so only the
 forward's rounding differs), at the same tolerances; B1 refuses to run
 under grad; and whole training steps of the model through the kernels
@@ -51,8 +55,11 @@ from hig_tpu_torch.ops.fused_block import (
     fused_attention_block_plain,
 )
 from hig_tpu_torch.ops.pallas_attention import (
+    B3_ROUNDINGS,
+    CORE_ROUNDINGS,
     efficient_attention,
     fused_efficient_attention,
+    fused_efficient_attention_plain,
     fused_projected_attention,
     fused_projected_attention_plain,
 )
@@ -284,6 +291,13 @@ BF16_CASES = {
     "b4_causal_t196": ("b4", "causal", 196, N_PAIRS),
     "b4_tq91_tk77": ("b4", "tq_tk77", T, N_PAIRS),
     "b2_partner_t196": ("b2", "partner", 196, N_PAIRS),
+    "b2_self": ("b2", "self", T, N_PAIRS),
+    "b2_self_t196": ("b2", "self", 196, N_PAIRS),
+    "b2_self_t320": ("b2", "self", 320, N_PAIRS),
+    "b2_partner_t320": ("b2", "partner", 320, N_PAIRS),
+    "b3_self": ("b3", "self", T, N_PAIRS),
+    "b3_tq91_tk77": ("b3", "tq_tk77", T, N_PAIRS),
+    "b3_tq196_tk77": ("b3", "tq_tk77", 196, N_PAIRS),
 }
 
 
@@ -301,8 +315,17 @@ def test_bf16_forms_match_their_twins(cuda_bf16, case):
         fn, plain, counter = fused_projected_attention, fused_projected_attention_plain, \
             fused_projected_attention
         xn = _bf16(torch.nn.functional.layer_norm(x, (D,), w.ln_g, w.ln_b, 1e-6))
-        args = (xn, xn.flip(1).contiguous(), wb.wq, wb.bq, wb.wk, wb.bk, wb.wv, wb.bv, H,
-                mask.flip(1).contiguous())
+        kv, kmask = (xn, mask) if variant == "self" else (xn.flip(1).contiguous(),
+                                                          mask.flip(1).contiguous())
+        args = (xn, kv, wb.wq, wb.bq, wb.wk, wb.bk, wb.wv, wb.bv, H, kmask)
+    elif form == "b3":
+        fn, plain, counter = fused_efficient_attention, fused_efficient_attention_plain, \
+            fused_efficient_attention
+        q, k, v = (torch.nn.functional.linear(xb, torch.cat([wb.wq, wb.wk, wb.wv]))
+                   + torch.cat([wb.bq, wb.bk, wb.bv])).chunk(3, dim=-1)
+        tk = 77 if variant == "tq_tk77" else t
+        args = (q.contiguous(), k[..., :tk, :].contiguous(), v[..., :tk, :].contiguous(), H,
+                mask[..., :tk].contiguous())
     else:
         fn, plain, counter = flash_attention, flash_attention_plain, flash_attention
         qkv = (torch.nn.functional.linear(xb, torch.cat([wb.wq, wb.wk, wb.wv]))
@@ -332,6 +355,15 @@ def test_bf16_forms_match_their_twins(cuda_bf16, case):
             ok, readings = bf16_close(plain(*args, unrounded=(left_out,)), twin, twin32,
                                       twin_cpu)
             assert not ok, (left_out, readings)
+    if form == "b3":
+        for left_out in B3_ROUNDINGS:
+            ok, readings = bf16_close(plain(*args, unrounded=(left_out,)), twin, twin32,
+                                      twin_cpu)
+            assert not ok, (left_out, readings)
+    if form == "b2":
+        # the twin with B1-bf16's core roundings: B2's core must be float32
+        ok, readings = bf16_close(plain(*args, rounded=CORE_ROUNDINGS), twin, twin32, twin_cpu)
+        assert not ok, readings
 
 
 def test_bf16_block_refuses_long_sequences(cuda_bf16):
@@ -342,12 +374,22 @@ def test_bf16_block_refuses_long_sequences(cuda_bf16):
                               BlockWeights(*[_bf16(a) for a in w]), H)
 
 
+def test_bf16_projected_refuses_long_sequences(cuda_bf16):
+    """B2-bf16 keeps one sequence's keys in shared memory: T up to 320."""
+    w, x, mask, _, _ = _inputs(cuda_bf16, 321, 1)
+    wb = BlockWeights(*[_bf16(a) for a in w])
+    xb = _bf16(x)
+    with pytest.raises(ValueError, match="T up to 320"):
+        fused_projected_attention(xb, xb, wb.wq, wb.bq, wb.wk, wb.bk, wb.wv, wb.bv, H, mask)
+
+
 def test_bf16_without_a_form_raises(cuda_bf16):
-    """B3 has no bfloat16 form, and no form takes bfloat16 beside float32."""
+    """No form takes bfloat16 beside float32 operands."""
     w, x, mask, scale, shift = _inputs(cuda_bf16)
     xb = _bf16(x)
-    with pytest.raises(ValueError, match="no bfloat16 form"):
-        fused_efficient_attention(xb, xb, xb, H, mask)
+    for mixed in ((xb, x, x), (x, xb, xb), (xb, xb, x)):  # mixed dtypes
+        with pytest.raises(ValueError, match="all bfloat16"):
+            fused_efficient_attention(*mixed, H, mask)
     with pytest.raises(ValueError):  # float32 weights
         fused_attention_block(xb, mask, _bf16(scale), _bf16(shift), w, H)
     with pytest.raises(ValueError):  # float32 weights
@@ -402,6 +444,28 @@ def test_efficient_attention_gradients(cuda, Tk):
     assert out.grad_fn is not None
     _, want = _grads(lambda: efficient_attention(q, k, v, H, mask[..., :Tk]), (q, k, v))
     _assert_grads_close(got, want)
+
+
+@pytest.mark.parametrize("Tk", [T, 77])
+def test_efficient_attention_bf16_gradients(cuda_bf16, Tk):
+    """B3-bf16 under autograd: its backward recomputes the plain core in
+    float32 on the bfloat16 operands, output rounded, so the gradients are
+    those of autograd through that plain route, rounded to bfloat16."""
+    _, x, mask, _, _ = _inputs(cuda_bf16)
+    gen = torch.Generator().manual_seed(1)
+    k, v = (torch.randn((N_PAIRS, 2, Tk, D), generator=gen).to(cuda_bf16, BF16).requires_grad_()
+            for _ in range(2))
+    q = _bf16(x).requires_grad_()
+    m = mask[..., :Tk]
+    before = fused_efficient_attention.launches_bf16
+    out, got = _grads(lambda: fused_efficient_attention(q, k, v, H, m), (q, k, v))
+    assert out.grad_fn is not None and out.dtype == BF16
+    assert fused_efficient_attention.launches_bf16 == before + 1
+    _, want = _grads(lambda: _bf16(efficient_attention(q.float(), k.float(), v.float(), H, m)),
+                     (q, k, v))
+    for a, b in zip(got, want):
+        assert a.dtype == BF16
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("case", ["self", "partner", "causal"])

@@ -6,9 +6,9 @@
 Phases, each printing one JSON line (or several):
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; TF32 is turned off so float32 products stay float32;
-  2. build: nvcc builds every kernel library (B1-B4), one process per
-     source, all started together; each kernel's registers, shared memory
-     and spills from ptxas;
+  2. build: nvcc builds every kernel library (B1-B4 and the ordered
+     bfloat16 sum), one process per source, all started together; each
+     kernel's registers, shared memory and spills from ptxas;
   3. kernels: each kernel against its plain PyTorch version on the card at
      the serving shape (N = 16 sequences = 8 caption pairs, T = 91 tokens,
      D = 512, 8 heads, float32, ragged lengths): B1 self and interaction;
@@ -61,8 +61,9 @@ Phases, each printing one JSON line (or several):
   8. profile: the device time by kernel of one more serving call of each
      run, of the guided serving call, of one labeling vote (a denoiser
      forward over 64 pairs under both assignments), of one more PIT
-     training step and of one DDPM-1000 serving call (torch.profiler). It
-     runs last, after phase 9: once the profiler has run, later launches
+     training step and of one DDPM-1000 serving call (torch.profiler), and
+     of one bfloat16 PIT step and one bfloat16 labeling vote (phase 11). It
+     runs last, after phase 11: once the profiler has run, later launches
      are slower;
   9. evaluate, on the same dataset plus a test split of 52 clips (two per
      class): ``python -m hig_tpu_torch.eval.train``'s main for the
@@ -83,7 +84,14 @@ Phases, each printing one JSON line (or several):
      bf16 reductions off): each bfloat16 form (B1-bf16 self and
      interaction, B2-bf16 self and partner, B3-bf16 through ``_attend``
      with 91 and 77 keys, B4-bf16 self, partner, causal and 91 queries on
-     77 keys) at the serving shape and at the evaluation chunk's shape
+     77 keys) and B2-bf16a (bfloat16 activations with float32 weights,
+     self and partner) at the serving shape and at the evaluation chunk's
+     shape, B2-bf16a also at the labeling shape (256 sequences) and
+     B3-bf16 at the training shape (128 sequences, with its backward on the
+     card against the same backward on the CPU, within one bfloat16 ulp of
+     the largest gradient), and the ordered bfloat16 sum of the bfloat16
+     backwards at the training shape over the three axes they sum (bit for
+     bit against its plain version, timed, with its bound), each form
      against its bfloat16 twin (max |err| ≤ 2 bfloat16 ulps of the twin's
      largest magnitude; rms(kernel − twin) ≤ 0.25 · rms(twin − the float32
      twin on the same rounded inputs), or 1.5 × the twin's distance from
@@ -95,8 +103,10 @@ Phases, each printing one JSON line (or several):
      times (B1-bf16 also per launch: row pass, q|k|v projection + core,
      gate row pass, Wo GEMM), with its bound (each part at its own rate:
      bf16 989 TFLOP/s for products of bfloat16 values, 3xTF32 495 / 3 for
-     B2-bf16's float32 core) and, for B4-bf16, SDPA on the same bfloat16
-     inputs and the backend it took; one full-width bfloat16
+     B2-bf16's float32 core, 989 / 3 for B2-bf16a's float32-accurate
+     products of bfloat16 activations and float32 weights) and, for
+     B4-bf16, SDPA on the same bfloat16 inputs and the backend it took; one
+     full-width bfloat16
      denoiser call each for fused (B1-bf16), projected (B2-bf16), no_eff
      (B4-bf16), rms_norm (B2-bf16) and fast_ln (B1-bf16): at 8 layers
      against the plain route in bfloat16 and in float32 (reported, with
@@ -114,6 +124,28 @@ Phases, each printing one JSON line (or several):
      bfloat16 run with --fast_ln, DPM-20 at T = 196 (exactly 320 B1-bf16
      launches, finite metrics in range, confusion matrices of 52 clips).
      The profile then adds the five bfloat16 serving runs' calls.
+ 11. bf16 train and label (after phase 10): ``python -m
+     hig_tpu_torch.train``'s main at full width on phase 6's dataset with
+     ``--compute_dtype bfloat16``: PIT (LayerNorm, 4 steps, B3-bf16), PIT
+     with --rms_norm --fast_ln (2 steps, B3-bf16), PIT --no_eff (2 steps,
+     B4-bf16) and the supervised stage with --cond_drop_prob 0.1 (2 steps
+     and one validation batch, B3-bf16): 16 launches a step of the run's
+     own form and none of any other form or float32 kernel, launches of the
+     ordered bfloat16 sum (none in a float32 run; its kernel and its plain
+     loop also timed in turns over bf16 PIT steps), finite losses,
+     float32 parameters, Adam moments, EMA and checkpoint, ms per step,
+     pairs/s and peak memory beside phase 6's float32 PIT step; for the
+     three PIT runs, one batch's loss and every gradient through the
+     kernels against the plain bfloat16 route at the model cut to its first
+     layer, within BF16_TRAIN_RMS of the bfloat16 effect, beside a control
+     route that must exceed it; ``python -m hig_tpu_torch.label``'s main on
+     the bfloat16 PIT checkpoint (--label_model and --save_label, fused:
+     16 B1-bf16 launches per forward on the block weights cast per call)
+     and on the rms_norm one (--label_model, projected: 16 B2-bf16a
+     launches per forward), complete label files; both scorers on one
+     batch against the plain route (held at the first layer to 0.7 of the
+     bfloat16 effect, full depth reported); 8 requests served in bfloat16
+     (DDIM-50, 800 B1-bf16 launches) from the bfloat16 PIT checkpoint.
 Then the kernel table (the bfloat16 forms' rows after the float32 ones), the
 nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero without
@@ -126,6 +158,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -302,9 +335,10 @@ def unrounded(fn):
 
 @contextlib.contextmanager
 def plain_blocks(control: bool = False):
-    """Route the attention blocks through the plain versions (on any device);
-    with ``control``, through ``unrounded`` plain versions (phase 10's
-    control route)."""
+    """Route the attention blocks through the plain versions (on any device),
+    and the bfloat16 backwards' ordered sums through ``bf16_sum_plain``;
+    with ``control``, the blocks through ``unrounded`` plain versions (phase
+    10's control route)."""
     from hig_tpu_torch.models import attention
     from hig_tpu_torch.ops import flash_attention, fused_block, pallas_attention
 
@@ -318,10 +352,25 @@ def plain_blocks(control: bool = False):
     for name, fn in plain.items():
         setattr(attention, name, fn)
     try:
-        yield
+        with plain_sum():
+            yield
     finally:
         for name, fn in saved.items():
             setattr(attention, name, fn)
+
+
+@contextlib.contextmanager
+def plain_sum():
+    """The bfloat16 backwards' ordered sums through ``bf16_sum_plain``."""
+    from hig_tpu_torch.models import embeddings
+    from hig_tpu_torch.ops.bf16_sum import bf16_sum_plain
+
+    saved = embeddings.bf16_sum
+    embeddings.bf16_sum = bf16_sum_plain
+    try:
+        yield
+    finally:
+        embeddings.bf16_sum = saved
 
 
 def profile_call(fn) -> dict:
@@ -853,25 +902,25 @@ def train_run(run: str, extra: list, steps: int, own: str, data: str, tmp: str, 
               smi: str, val_batches: int = 0) -> tuple:
     """One run of ``python -m hig_tpu_torch.train``'s main at full width on
     the dataset in ``data``: its launch counts (LAUNCHES_PER_STEP a step of
-    its own kernel, and as many a validation batch; 0 of the others), steps,
-    finite losses (and validation losses) in metrics.jsonl, and the latest
-    checkpoint. Returns (trainer, state, the printed row without printing
-    it, the counts)."""
+    its own kernel, and as many a validation batch; 0 of every other form;
+    the ordered bfloat16 sum launched in a bfloat16 run, in no other),
+    steps, finite losses (and validation losses) in metrics.jsonl, and the
+    latest checkpoint. Returns (trainer, state, the printed row without
+    printing it, the counts with the sum's under BF16_SUM)."""
+    from hig_tpu_torch.ops.bf16_sum import bf16_sum
     from hig_tpu_torch.train.__main__ import main as train_main
 
-    kernels = wrappers()
     argv = ["--name", run, "--data_root", data, "--checkpoints_dir", os.path.join(tmp, "runs"),
             "--batch_size", str(TRAIN_PAIRS), "--num_epochs", "1", "--log_every", "1",
             "--seed", "0", *[a.replace("{data}", data).replace("{tmp}", tmp) for a in extra]]
-    for w in kernels.values():
-        w.launches = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     trainer, state = train_main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {name: w.launches for name, w in kernels.items()}
+    counts, sums = bf16_counts(), bf16_sum.launches
     peak = torch.cuda.max_memory_allocated()
     cfg = trainer.cfg
     with open(os.path.join(cfg.save_root, "metrics.jsonl")) as f:
@@ -881,7 +930,8 @@ def train_run(run: str, extra: list, steps: int, own: str, data: str, tmp: str, 
     step_ms = [1e3 * x for x in trainer.step_seconds]
     steady = statistics.median(step_ms[1:]) if len(step_ms) > 1 else step_ms[0]
     row = {"phase": "train", "run": run, "nvidia_smi": smi, "pairs_per_step": TRAIN_PAIRS,
-           "T": T, "steps": state.step, "launches": counts, "step_ms": step_ms,
+           "T": T, "steps": state.step, "launches": {**counts, BF16_SUM: sums},
+           "step_ms": step_ms,
            "median_ms_per_step_after_first": steady, "pairs_per_s": TRAIN_PAIRS * 1e3 / steady,
            "max_memory_allocated_gb": peak / 1e9, "losses": losses, "wall_s": wall,
            "params": sum(p.numel() for p in state.model.parameters()),
@@ -889,8 +939,10 @@ def train_run(run: str, extra: list, steps: int, own: str, data: str, tmp: str, 
     if val_batches:
         row["val_losses"] = val_losses
     want = LAUNCHES_PER_STEP * (steps + val_batches)
-    fail_if(failures, any(counts[n] != (want if n == own else 0) for n in kernels),
+    fail_if(failures, any(counts[n] != (want if n == own else 0) for n in counts),
             f"train ({run}) launches {counts}, expected {want} of {own}")
+    fail_if(failures, (sums > 0) != (cfg.compute_dtype == "bfloat16"),
+            f"train ({run}, {cfg.compute_dtype}) launched the ordered bfloat16 sum {sums} times")
     fail_if(failures, state.step != steps or len(losses) != steps,
             f"train ({run}) ran {state.step} steps, logged {len(losses)}")
     fail_if(failures, not all(np.isfinite(losses)), f"train ({run}) non-finite loss {losses}")
@@ -898,7 +950,7 @@ def train_run(run: str, extra: list, steps: int, own: str, data: str, tmp: str, 
             f"train ({run}) validation losses {val_losses}")
     fail_if(failures, not os.path.exists(os.path.join(cfg.model_dir, "latest.pt")),
             f"train ({run}) wrote no latest checkpoint")
-    return trainer, state, row, counts
+    return trainer, state, row, {**counts, BF16_SUM: sums}
 
 
 def gate_grad_check(failures, run: str, key: str, gc: dict) -> None:
@@ -958,7 +1010,9 @@ def phase_train(device, failures, smi: str, requests: list, data: str,
             launches[name] += counts[name]
         if run == "pit":
             kept = {"trainer": trainer, "state": state, "batch": batch, "step_ms": row[
-                "median_ms_per_step_after_first"], "model_dir": cfg.model_dir,
+                "median_ms_per_step_after_first"], "pairs_per_s": row["pairs_per_s"],
+                "max_memory_allocated_gb": row["max_memory_allocated_gb"],
+                "model_dir": cfg.model_dir,
                 "meta_dir": cfg.meta_dir,
                 "model_config": dataclasses.replace(trainer.model_config, fused_blocks=True)}
         del trainer, state
@@ -991,7 +1045,8 @@ def phase_train(device, failures, smi: str, requests: list, data: str,
     def one_step():
         return {k: float(v) for k, v in train_step(kept["state"], kept["batch"], step_gen).items()}
 
-    return launches, (one_step, kept["step_ms"] / 1e3)
+    f32_pit = {k: kept[k] for k in ("step_ms", "pairs_per_s", "max_memory_allocated_gb")}
+    return launches, (one_step, kept["step_ms"] / 1e3), f32_pit
 
 
 def phase_pipeline(device, failures, smi: str, requests: list, data: str,
@@ -1422,14 +1477,29 @@ BF16_DENOISER_RUNS = {"fused": "fused_block_bf16", "projected": "projected_atten
                       "rms_norm": "projected_attention_bf16"}
 FORMS_WITH_INNER_ROUNDINGS = ("fused_block_bf16", "flash_attention_bf16")
 PEAK_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores (H100 SXM data sheet)
+# B2 on bfloat16 activations with float32 weights, counted in the wrapper's
+# ``launches_mixed``. The card's fastest float32-accurate product of a
+# bfloat16 activation and a float32 weight splits the weight into three
+# bfloat16 pieces (8 + 8 + 8 significand bits, each product exact in
+# float32): three bf16 products at 989 TFLOP/s, faster than the kernel's two
+# TF32 ones at 495.
+MIXED_FORM = "projected_attention_bf16a"
+BF16_SPLIT = 3
+# The ordered bfloat16 sum of the bfloat16 backwards (``ops/bf16_sum.py``),
+# counted in ``bf16_sum.launches``: launched by every bfloat16 train step
+# (B3-bf16's and B4-bf16's backwards, the model's bfloat16 softmaxes).
+BF16_SUM = "bf16_sum"
 
 
 def bound_parts(parts, nbytes: float) -> tuple[float, str, str]:
     """The card's least time for work in ``parts``, [(flops, rate)], each
     part at its own rate ("bf16": 989 TFLOP/s; "3xtf32": a float32-accurate
-    product, 495 / 3), against ``nbytes`` at 3.35 TB/s. Returns (ms,
+    product, 495 / 3; "3xbf16": a float32-accurate product of a bfloat16
+    value and a float32 one, 989 / 3; "f32": float32 adds without the
+    tensor cores, 67 T/s), against ``nbytes`` at 3.35 TB/s. Returns (ms,
     "operations" or "bytes", the kind)."""
-    rates = {"bf16": PEAK_BF16_FLOPS, "3xtf32": PEAK_TF32_FLOPS / TF32_SPLIT}
+    rates = {"bf16": PEAK_BF16_FLOPS, "3xtf32": PEAK_TF32_FLOPS / TF32_SPLIT,
+             "3xbf16": PEAK_BF16_FLOPS / BF16_SPLIT, "f32": PEAK_F32_FLOPS}
     t_ops = sum(flops / rates[rate] for flops, rate in parts)
     t_bytes = nbytes / PEAK_BYTES
     if t_bytes >= t_ops:
@@ -1438,18 +1508,22 @@ def bound_parts(parts, nbytes: float) -> tuple[float, str, str]:
 
 
 def bf16_counts() -> dict:
-    """Launch counts of every form: the float32 kernels' and the bfloat16 forms'."""
+    """Launch counts of every form: the float32 kernels', the bfloat16
+    forms' and B2-bf16a's."""
     kernels = wrappers()
     counts = {name: w.launches for name, w in kernels.items()}
     counts.update({form: kernels[base].launches_bf16 for form, base in BF16_FORMS.items()})
+    counts[MIXED_FORM] = kernels["projected_attention"].launches_mixed
     return counts
 
 
 def reset_counts() -> None:
-    for w in wrappers().values():
-        w.launches = 0
-        if hasattr(w, "launches_bf16"):
-            w.launches_bf16 = 0
+    from hig_tpu_torch.ops.bf16_sum import bf16_sum
+
+    for w in (*wrappers().values(), bf16_sum):
+        for attr in ("launches", "launches_bf16", "launches_mixed"):
+            if hasattr(w, attr):
+                setattr(w, attr, 0)
 
 
 def on_cpu(args):
@@ -1607,6 +1681,107 @@ def check_projected_attention_bf16(w, x, mask, failures) -> dict:
                     nbytes)
 
 
+def check_projected_attention_bf16a(w, x, mask, failures) -> dict:
+    """B2-bf16a (bfloat16 activations, float32 weights) self and partner, as
+    a bfloat16 model's unfused blocks call it in eval mode on float32
+    master weights, against its twin, beside the planted control (the twin
+    with B1-bf16's core roundings: its core must be float32)."""
+    from hig_tpu_torch.ops.pallas_attention import fused_projected_attention
+    from hig_tpu_torch.ops.pallas_attention import fused_projected_attention_plain as plain
+
+    N, Tq, hd = 2 * x.shape[0], x.shape[2], D // HEADS
+    M = N * Tq
+    xn = to_bf16(torch.nn.functional.layer_norm(x, (D,), w.ln_g, w.ln_b, 1e-6))
+    ws = (w.wq, w.bq, w.wk, w.bk, w.wv, w.bv)
+    cases = {}
+    with torch.no_grad():
+        for name, kv, kmask in (("self", xn, mask),
+                                ("partner", xn.flip(1).contiguous(), mask.flip(1).contiguous())):
+            args = (xn, kv, *ws, HEADS, kmask)
+            got = fused_projected_attention(*args)
+            twin = plain(*args)
+            twin32 = plain(xn.float(), kv.float(), *ws, HEADS, kmask)
+            twin_cpu = plain(*on_cpu(args))
+            torch.cuda.synchronize()
+            label = f"{MIXED_FORM} {name} {N}x{Tq}"
+            cases[name] = gate_bf16(label, got, twin, twin32, twin_cpu, failures)
+            row = bf16_gate_row(plain(*args, rounded=B1_CORE_ROUNDINGS), twin, twin32, twin_cpu)
+            fail_if(failures, row["passed"],
+                    f"{label}: the twin with B1's core roundings passes: {row}")
+            cases[name]["control_rms_ratio"] = row["rms_ratio"]
+            cases[name]["ms"] = time_ms(lambda: fused_projected_attention(*args))
+            cases[name]["plain_ms"] = time_ms(lambda: plain(*args))
+    parts = [(2 * M * D * 3 * D, "3xbf16"), (2 * 2 * N * HEADS * Tq * hd * hd, "3xtf32")]
+    nbytes = 2 * M * D * 2 + 4 * (3 * D * D + 3 * D) + 4 * M  # x, y; weights, biases; mask
+    return bf16_row(MIXED_FORM, "hig_tpu_torch/csrc/projected_attention.cu",
+                    "hig_tpu/ops/pallas_attention.py:116", [N, Tq, D, HEADS], cases, parts,
+                    nbytes)
+
+
+def check_b3_bf16_backward(w, x, mask) -> dict:
+    """B3-bf16 under autograd at ``x``'s shape, as a bfloat16 model's
+    efficient blocks call it in train mode: its backward (XLA's bfloat16 VJP
+    of the core, written out) on the card against the same backward on the
+    CPU, with the backward's time."""
+    from hig_tpu_torch.ops.pallas_attention import efficient_attention_backward
+    from hig_tpu_torch.ops.pallas_attention import fused_efficient_attention
+
+    q, k, v, heads, m = b3_bf16_inputs(w, x, mask, x.shape[2])
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fused_efficient_attention(*leaves, heads, m)
+    g = to_bf16(torch.randn(out.shape, generator=torch.Generator().manual_seed(4))
+                .to(out.device))
+    got = torch.autograd.grad(out, leaves, g)
+    mask_full = m.float().expand(*q.shape[:-1]).contiguous()
+    want = efficient_attention_backward((q.cpu(), k.cpu(), v.cpu(), mask_full.cpu()), g.cpu(),
+                                        heads)
+    errs = [(a.float().cpu() - b.float()).abs().max().item() / b.float().abs().max().item()
+            for a, b in zip(got, want)]
+    ms = time_ms(lambda: efficient_attention_backward((q, k, v, mask_full), g, heads))
+    return {"shape": list(q.shape), "max_rel_err_vs_cpu": max(errs),
+            "rel_err_lim": BF16_ULP, "backward_ms": ms,
+            "passed": all(a.dtype == torch.bfloat16 for a in got) and max(errs) <= BF16_ULP}
+
+
+def check_bf16_sum(device, failures) -> dict:
+    """The ordered bfloat16 sum (``ops/bf16_sum.py``) at the training shape
+    (a PIT step's 32 pairs under both assignments, T = 91, 8 heads of 64)
+    over the axes the bfloat16 backwards sum: B3-bf16's feature softmax
+    (64 terms, contiguous), its time softmax (91 terms, 512 apart) and
+    B4-bf16's key softmax (91 terms, 8 apart), against its plain version on
+    the card, bit for bit. The row is one B3-bf16 backward's two sums."""
+    from hig_tpu_torch.ops.bf16_sum import bf16_sum, bf16_sum_plain
+
+    pairs = 2 * TRAIN_PAIRS
+    shapes = {"b3_features": ((pairs, 2, T, HEADS, D // HEADS), -1),
+              "b3_time": ((pairs, 2, T, HEADS, D // HEADS), -3),
+              "b4_keys": ((pairs, 2, T, T, HEADS), -2)}
+    gen = torch.Generator().manual_seed(6)
+    cases = {}
+    for name, (shape, dim) in shapes.items():
+        x = to_bf16(torch.randn(shape, generator=gen) * 1e-2).float().to(device)
+        got, want = bf16_sum(x, dim), bf16_sum_plain(x, dim)
+        err = (got - want).abs().max().item()
+        fail_if(failures, err != 0 or got.shape != want.shape,
+                f"bf16_sum {name} {list(shape)} over {dim}: max |kernel - plain| {err}")
+        ms_bound, by, _ = bound_parts([(x.numel(), "f32")], 4 * (x.numel() + got.numel()))
+        cases[name] = {"shape": list(shape), "dim": dim, "max_abs_err": err,
+                       "ms": time_ms(lambda: bf16_sum(x, dim)),
+                       "plain_ms": time_ms(lambda: bf16_sum_plain(x, dim)),
+                       "bound_ms": ms_bound, "bound_by": by}
+    print(json.dumps({"phase": "kernel_bf16", "kernel": BF16_SUM, "cases": cases}), flush=True)
+    pair = [cases["b3_features"], cases["b3_time"]]
+    b_ms, b_by, b_kind = bound_parts(
+        [(2 * math.prod(shapes["b3_time"][0]), "f32")],
+        4 * sum(math.prod(shapes[n][0]) + math.prod(shapes[n][0]) // shapes[n][0][d]
+                for n, d in (("b3_features", -1), ("b3_time", -3))))
+    return {"name": BF16_SUM, "route": "cuda", "source": "hig_tpu_torch/csrc/bf16_sum.cu",
+            "replaces": "hig_tpu/ops/pallas_attention.py:97",
+            "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+            "ms": sum(c["ms"] for c in pair), "plain_ms": sum(c["plain_ms"] for c in pair),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_kind": b_kind, "library_ms": None}
+
+
 def b3_bf16_inputs(w, x, mask, tk: int):
     """B3-bf16's operands at x's shape with ``tk`` keys: the bfloat16 q, k, v
     projections of x (k, v cut to their first tk rows) and the keys' mask."""
@@ -1730,10 +1905,14 @@ def check_flash_attention_bf16(w, x, mask, failures) -> dict:
 
 
 def bf16_kernel_rows(device, failures) -> dict:
-    """Each bfloat16 form at the serving shape, then at the evaluation
-    chunk's shape (under "eval_shape")."""
+    """Each bfloat16 form and B2-bf16a at the serving shape, then at the
+    evaluation chunk's shape (under "eval_shape"); B2-bf16a also at the
+    labeling shape (a vote's 64 pairs under both assignments), B3-bf16 at
+    the training shape (a PIT step's 32 pairs under both assignments) with
+    its backward against the same on the CPU."""
     checks = {"fused_block_bf16": check_fused_block_bf16,
               "projected_attention_bf16": check_projected_attention_bf16,
+              MIXED_FORM: check_projected_attention_bf16a,
               "efficient_attention_bf16": check_efficient_attention_bf16,
               "flash_attention_bf16": check_flash_attention_bf16}
     keys = (*TRAIN_SHAPE_KEYS, "rms_ratio")
@@ -1747,6 +1926,20 @@ def bf16_kernel_rows(device, failures) -> dict:
                 rows[name] = row
             else:
                 rows[name]["eval_shape"] = {k: row[k] for k in keys}
+    inputs = block_inputs(device, 2 * LABEL_BATCH)
+    rows[MIXED_FORM]["label_shape"] = {
+        k: v for k, v in check_projected_attention_bf16a(*inputs[:3], failures).items()
+        if k in keys}
+    inputs = block_inputs(device, 2 * TRAIN_PAIRS)
+    rows["efficient_attention_bf16"]["train_shape"] = {
+        k: v for k, v in check_efficient_attention_bf16(*inputs[:3], failures).items()
+        if k in keys}
+    backward = check_b3_bf16_backward(*inputs[:3])
+    print(json.dumps({"phase": "kernel_bf16_backward", "kernel": "efficient_attention_bf16",
+                      **backward}), flush=True)
+    fail_if(failures, not backward.pop("passed"), f"B3-bf16 backward on the card: {backward}")
+    rows["efficient_attention_bf16"]["train_shape"]["backward"] = backward
+    rows[BF16_SUM] = check_bf16_sum(device, failures)
     return rows
 
 
@@ -1822,7 +2015,7 @@ def phase_bf16(f32_models: dict, device, failures, smi: str, tmp: str) -> tuple:
     t_phase = time.perf_counter()
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     rows = bf16_kernel_rows(device, failures)
-    launches = {form: 0 for form in BF16_FORMS}
+    launches = {form: 0 for form in (*BF16_FORMS, MIXED_FORM, BF16_SUM)}
     models = bf16_models(f32_models, device)
 
     # denoiser: one full-width call per model through the kernels, against
@@ -1981,6 +2174,373 @@ def bf16_evaluate(failures, smi: str, tmp: str) -> int:
     return counts["fused_block_bf16"]
 
 
+# --- phase 11: bfloat16 training and labeling ------------------------------------------
+
+# bfloat16 runs of python -m hig_tpu_torch.train at full width, global batch
+# 32, T = 91, on phase 6's dataset: run → (extra arguments, steps,
+# validation batches, the form its attention blocks launch). The efficient
+# blocks take JAX's einsum route in train mode, through B3-bf16 (the
+# validation pass too); the quadratic ones B4-bf16.
+BF16 = ["--compute_dtype", "bfloat16"]
+BF16_TRAIN_RUNS = {
+    "pit_bf16": (["--times", "3", *BF16], 4, 0, "efficient_attention_bf16"),
+    "pit_bf16_rms_norm": (["--times", "2", "--limit_data_num", "32", *BF16, "--rms_norm",
+                           "--fast_ln"], 2, 0, "efficient_attention_bf16"),
+    "pit_bf16_no_eff": (["--times", "2", "--limit_data_num", "32", *BF16, "--no_eff"], 2, 0,
+                        "flash_attention_bf16"),
+    "supervised_bf16": (["--times", "2", "--limit_data_num", "32", *BF16, "--label_path",
+                         "{data}/labels.json", "--cond_drop_prob", "0.1", "--eval_every_e", "1"],
+                        2, VAL_CLIPS // TRAIN_PAIRS, "efficient_attention_bf16"),
+}
+BF16_GRAD_RUNS = ("pit_bf16", "pit_bf16_rms_norm", "pit_bf16_no_eff")
+BF16_SUM_AB_STEPS = 4  # bf16 PIT steps a turn, the sum's kernel against its loop
+# One batch's loss and every gradient through the kernels against the plain
+# bfloat16 route (each kernel's twin, under the same bfloat16 backward), at
+# the model cut to its first layer (full width, the run's initial float32
+# weights), each as a fraction of the bfloat16 effect (the plain route
+# against the plain route of the float32 model on the same weights), over
+# every leaf but the key biases (exact gradient 0: rounding noise). The two
+# routes differ only where a float32 sum in another order flips a rounding
+# of the forward, and each flip reshuffles the bfloat16 backward's rounding
+# noise downstream (0.12-0.15 of the effect in the gradients at full
+# width). The control route must exceed the limit in the loss or the
+# gradients: for the efficient blocks, JAX's use_pallas forward (B2's twin
+# on bfloat16 activations with the float32 weights: unrounded q|k|v
+# products, a float32 core), whose VJP JAX cannot take; for the quadratic
+# ones, B4's float32 plain version on the upcast inputs, output rounded. The
+# core's own roundings are a small part of the model's bfloat16 effect at
+# full width: B3's float32 core, output rounded, reads 0.02 of it in the loss
+# and 0.15 in the gradients, within the noise (PERF.md §6).
+BF16_TRAIN_RMS = 0.2
+
+
+@contextlib.contextmanager
+def use_pallas_forward():
+    """The efficient blocks' train-mode route swapped for JAX's
+    ``use_pallas=True`` forward of a bfloat16 model on float32 weights (B2's
+    twin on those dtypes, under autograd), the other kernels plain: phase
+    11's control route for the efficient runs."""
+    from hig_tpu_torch.models import attention
+    from hig_tpu_torch.ops.pallas_attention import fused_projected_attention_plain
+
+    def route(block, xn, mask):
+        kv, kv_mask = (xn.flip(-3), mask.flip(-2)) if block.interaction else (xn, mask)
+        return fused_projected_attention_plain(
+            xn, kv, block.query.weight, block.query.bias, block.key.weight, block.key.bias,
+            block.value.weight, block.value.bias, block.num_heads, kv_mask)
+
+    saved = attention._KernelBlock._einsum_route
+    attention._KernelBlock._einsum_route = route
+    try:
+        with plain_blocks():
+            yield
+    finally:
+        attention._KernelBlock._einsum_route = saved
+
+
+def float32_state(state, model_dir: str) -> dict:
+    """The floating dtypes of the run's parameters, Adam moments, EMA and
+    latest checkpoint."""
+    from hig_tpu_torch.train import checkpoint as ckpt
+
+    def kinds(tensors):
+        return sorted({str(t.dtype) for t in tensors if torch.is_tensor(t) and t.is_floating_point()})
+
+    saved = ckpt.load(os.path.join(model_dir, "latest.pt"))["params"]
+    return {"params": kinds(state.model.parameters()),
+            "adam": kinds(t for st in state.optimizer.adam.state.values() for t in st.values()),
+            "ema": kinds((state.ema or {}).values()), "checkpoint": kinds(saved.values())}
+
+
+def train_cut(model, compute_dtype: str | None = None):
+    """``model`` cut to its first layer in train mode: full width, the same
+    float32 weights, its compute dtype or ``compute_dtype``."""
+    from hig_tpu_torch.models.interaction_model import InteractionModel
+
+    cfg = dataclasses.replace(model.cfg, num_layers=1,
+                              compute_dtype=compute_dtype or model.cfg.compute_dtype)
+    cut = InteractionModel(cfg)
+    state = model.state_dict()
+    cut.load_state_dict({k: state[k] for k in cut.state_dict()})
+    return cut.to(next(model.parameters()).device).train()
+
+
+def tree_rms_ratio(got: dict, want: dict, want32: dict) -> float:
+    """rms(got − want) ÷ rms(want − want32) over the leaves of ``want`` at
+    once, but the key biases'."""
+    keys = sorted(k for k in want if not k.endswith(KEY_BIAS))
+    cat = [torch.cat([d[k].double().ravel() for k in keys]) for d in (got, want, want32)]
+    return float((cat[0] - cat[1]).pow(2).mean().sqrt() / (cat[1] - cat[2]).pow(2).mean().sqrt())
+
+
+def bf16_grad_gate(sched, batch: dict, initial, run: str, failures) -> dict:
+    """The kernel route against the plain bfloat16 route (BF16_TRAIN_RMS),
+    with the control route beside it, on the run's first batch and initial
+    weights (``first_batch``)."""
+    from hig_tpu_torch.train import trainer as tr
+
+    cut, cut32 = train_cut(initial), train_cut(initial, "float32")
+    device = batch["motion"].device
+    gen = torch.Generator(device=device).manual_seed(5)
+    t = torch.randint(0, 1000, (TRAIN_PAIRS,), generator=gen, device=device)
+    noise = torch.randn(batch["motion"].shape, generator=gen, device=device)
+    batch32 = {k: v.float() if v.is_floating_point() else v for k, v in batch.items()}
+
+    def route(model, b, ctx):
+        with ctx:
+            loss, _ = tr.compute_grads(model, tr.make_loss_fn(model, sched, True), b,
+                                       t=t, noise=noise)
+        return float(loss), {n: p.grad.clone() for n, p in model.named_parameters()
+                             if p.grad is not None}
+
+    loss_k, g_k = route(cut, batch, contextlib.nullcontext())
+    loss_p, g_p = route(cut, batch, plain_blocks())
+    control_route = use_pallas_forward() if cut.cfg.efficient else plain_blocks(control=True)
+    loss_c, g_c = route(cut, batch, control_route)
+    loss_32, g_32 = route(cut32, batch32, plain_blocks())
+    effect = abs(loss_p - loss_32)
+
+    def reading(loss, grads):
+        return {"loss_ratio": abs(loss - loss_p) / effect,
+                "grad_ratio": tree_rms_ratio(grads, g_p, g_32)}
+
+    kernel, control = reading(loss_k, g_k), reading(loss_c, g_c)
+    worst = max((n for n in g_p if not n.endswith(KEY_BIAS)),
+                key=lambda n: ((g_k[n] - g_p[n]).double().pow(2).mean()
+                               / (g_p[n] - g_32[n]).double().pow(2).mean().clamp_min(1e-60)))
+    out = {"layers": 1, "loss_kernels": loss_k, "loss_plain_bf16": loss_p,
+           "loss_plain_f32": loss_32, "leaves": len(g_p), "kernels": kernel, "control": control,
+           "worst_leaf": worst, "worst_leaf_ratio": tree_rms_ratio(
+               {worst: g_k[worst]}, {worst: g_p[worst]}, {worst: g_32[worst]}),
+           "lim": BF16_TRAIN_RMS}
+    fail_if(failures, not (g_k.keys() == g_p.keys() and max(kernel.values()) <= BF16_TRAIN_RMS),
+            f"bf16 train ({run}): kernel route against plain route {out}")
+    fail_if(failures, max(control.values()) <= BF16_TRAIN_RMS,
+            f"bf16 train ({run}): the control route passes {out}")
+    return out
+
+
+def bf16_scorer_rows(model_config, model_dir: str, cfg, fused: bool, own: str, failures) -> tuple:
+    """The labeling scorer of a bfloat16 run (float32 parameters) through
+    its kernels against the plain route on one batch of LABEL_BATCH pairs:
+    at the model cut to its first layer, held to BF16_ROUTE_RMS of the
+    bfloat16 effect (the float32 model's plain scorer); at full depth
+    reported, with the votes that differ. Returns (the readings, a function
+    running one vote through the kernels)."""
+    from hig_tpu_torch import serve
+    from hig_tpu_torch.data.dataset import PairDataset, epoch_batches
+    from hig_tpu_torch.diffusion import gaussian as g
+    from hig_tpu_torch.models.interaction_model import InteractionModel
+    from hig_tpu_torch.train import checkpoint as ckpt
+    from hig_tpu_torch.train import labeling
+
+    device = torch.device("cuda")
+    sched = g.make_schedule(g.linear_betas(1000))
+    model = InteractionModel(dataclasses.replace(model_config, fused_blocks=fused))
+    model.load_state_dict(ckpt.load(os.path.join(model_dir, "latest.pt"))["params"])
+    model = model.to(device)
+    mean, std = serve.load_stats(cfg.meta_dir, cfg.dim_pose)
+    b = next(epoch_batches(PairDataset(cfg, mean, std, "train_sub.txt"), LABEL_BATCH, 0,
+                           shuffle=False, drop_last=False))
+    cond = torch.from_numpy(b["cap_ids"] if cfg.cap_id else b["tokens"]).long().to(device)
+    motion = torch.from_numpy(b["motion"]).to(device)
+    lengths = torch.from_numpy(b["lengths"]).long().to(device)
+    noise = torch.randn(motion.shape, generator=torch.Generator(device=device).manual_seed(3),
+                        device=device)
+    t_vote = labeling.LABEL_T_VALUES[0]
+
+    def scores(m, ctx=contextlib.nullcontext()):
+        encode, score = labeling.make_assignment_scorer(m, sched)
+        with ctx:
+            xf_proj, xf_out = encode(cond, cond.flip(1))
+            return score(motion, lengths, xf_proj, xf_out, t_vote, noise=noise)
+
+    rows = {}
+    for depth, m in (("first_layer", train_cut(model)), ("full_depth", model)):
+        reset_counts()
+        got = scores(m)
+        counts = bf16_counts()
+        p16 = scores(m, plain_blocks())
+        twin = f32_twin_model(m)
+        p32 = scores(twin, plain_blocks())
+        del twin
+        row = route_row(got.cpu(), p16.cpu(), p32.cpu())
+        differ = got.argmin(dim=1) != p16.argmin(dim=1)
+        row.update(launches=counts, votes_differing=int(differ.sum()), pairs=LABEL_BATCH)
+        want = 2 * m.cfg.num_layers  # the self-attention and interaction blocks
+        fail_if(failures, any(counts[n] != (want if n == own else 0) for n in counts),
+                f"bf16 scorer ({own}, {depth}) launches {counts}")
+        if depth == "first_layer":
+            fail_if(failures, not row["passed"], f"bf16 scorer ({own}, first layer): {row}")
+        del row["passed"]
+        rows[depth] = row
+
+    encode, score = labeling.make_assignment_scorer(model, sched)
+    xf_proj, xf_out = encode(cond, cond.flip(1))
+
+    def vote():
+        return score(motion, lengths, xf_proj, xf_out, t_vote, noise=noise)
+
+    vote_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vote()
+        torch.cuda.synchronize()
+        vote_s.append(time.perf_counter() - t0)
+    rows["vote_ms"] = [1e3 * x for x in vote_s]
+    return rows, (vote, statistics.median(vote_s))
+
+
+def phase_bf16_train(device, failures, smi: str, requests: list, data: str, tmp: str,
+                     f32_pit: dict) -> tuple:
+    """Phase 11 (see the module doc). Returns (the launches of each form,
+    {run: (call, wall s)} of one bfloat16 PIT step and one bfloat16
+    labeling vote, profiled last)."""
+    from hig_tpu_torch import label, serve
+    from hig_tpu_torch.data.vocab import CAP2KEY, CLASSID2CAPS
+    from hig_tpu_torch.diffusion import gaussian as g
+    from hig_tpu_torch.train import labeling
+    from hig_tpu_torch.train import trainer as tr
+
+    t_phase = time.perf_counter()
+    launches: dict = {}
+
+    def add(counts):
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+
+    runs, kept = {}, {}
+    for run, (extra, steps, val_batches, own) in BF16_TRAIN_RUNS.items():
+        trainer, state, row, counts = train_run(run, extra, steps, own, data, tmp, failures, smi,
+                                                val_batches=val_batches)
+        add(counts)
+        cfg = trainer.cfg
+        dtypes = float32_state(state, cfg.model_dir)
+        row.update(phase="bf16_train", compute_dtype=cfg.compute_dtype, float32_state=dtypes,
+                   float32_pit_phase6=f32_pit,
+                   step_ms_ratio_to_float32_pit=row["median_ms_per_step_after_first"]
+                   / f32_pit["step_ms"])
+        fail_if(failures, any(v not in ([], ["torch.float32"]) for v in dtypes.values())
+                or not dtypes["params"] or not dtypes["adam"] or not dtypes["checkpoint"],
+                f"bf16 train ({run}): state not float32 {dtypes}")
+        if run in BF16_GRAD_RUNS:
+            batch, initial = first_batch(trainer)
+            row["grad_check"] = bf16_grad_gate(trainer.sched, batch, initial, run, failures)
+            del initial
+        print(json.dumps(row), flush=True)
+        if run == "pit_bf16":
+            kept = {"trainer": trainer, "state": state, "batch": batch, "cfg": cfg,
+                    "step_s": row["median_ms_per_step_after_first"] / 1e3}
+        elif run == "pit_bf16_rms_norm":
+            kept["rms"] = (trainer.model_config, cfg)
+        del trainer, state
+
+    # labeling: the LayerNorm run through B1-bf16 (fused, its default), the
+    # rms_norm run through B2-bf16a (projected, its default)
+    pit_cfg = kept["cfg"]
+    for run_cfg, flags, own in ((pit_cfg, ("--label_model", "--save_label"), "fused_block_bf16"),
+                                (kept["rms"][1], ("--label_model",), MIXED_FORM)):
+        opt = os.path.join(run_cfg.save_root, "opt.txt")
+        for flag in flags:
+            clips, repeats = ((ANN_CLIPS, labeling.DISCOVERY_REPEATS) if flag == "--label_model"
+                              else (TRAIN_CLIPS, labeling.LABELING_REPEATS))
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            label.main(["--opt_path", opt, flag, "--batch_size", str(LABEL_BATCH)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = bf16_counts()
+            add(counts)
+            forwards = -(-clips // LABEL_BATCH) * len(labeling.LABEL_T_VALUES) * repeats
+            print(json.dumps({"phase": "bf16_label", "run": run_cfg.name, "flag": flag[2:],
+                              "nvidia_smi": smi, "clips": clips, "forwards": forwards,
+                              "launches": counts, "wall_s": wall,
+                              "forwards_per_s": forwards / wall}), flush=True)
+            want = LAUNCHES_PER_STEP * forwards
+            fail_if(failures, any(counts[n] != (want if n == own else 0) for n in counts),
+                    f"bf16 label {run_cfg.name} {flag}: launches {counts}, expected {want} of "
+                    f"{own}")
+        with open(os.path.join(run_cfg.save_root, "pit_labels.json")) as f:
+            roles = json.load(f)
+        asymmetric = [c for c, (a, p) in enumerate(CLASSID2CAPS) if a != p]
+        fail_if(failures, len(roles) != len(CLASSID2CAPS) or not all(
+            {roles[str(c)].get("active_index"), roles[str(c)].get("passive_index")}
+            == {CAP2KEY[CLASSID2CAPS[c][0]], CAP2KEY[CLASSID2CAPS[c][1]]} for c in asymmetric),
+            f"bf16 label {run_cfg.name}: pit_labels.json incomplete: {roles}")
+    with open(os.path.join(data, "pseudo_labels.json")) as f:
+        labels = json.load(f)
+    with open(os.path.join(data, "train_sub.txt")) as f:
+        train_names = f.read().split()
+    fail_if(failures, set(labels) != set(train_names) or not set(labels.values()) <= {0, 1},
+            f"bf16 label: pseudo_labels.json incomplete: {labels}")
+
+    # both scorers on one batch against the plain route
+    walls = {}
+    trainer = kept["trainer"]
+    for name, (mcfg, cfg, fused, own) in {
+            "fused": (trainer.model_config, pit_cfg, True, "fused_block_bf16"),
+            "rms_norm_projected": (*kept["rms"], False, MIXED_FORM)}.items():
+        rows, (vote, vote_s) = bf16_scorer_rows(mcfg, cfg.model_dir, cfg, fused, own, failures)
+        print(json.dumps({"phase": "bf16_scorer", "scorer": name, "nvidia_smi": smi, **rows}),
+              flush=True)
+        if name == "fused":
+            runs["label_vote_bf16"], walls["label_vote_bf16"] = vote, vote_s
+        del vote
+
+    # 8 requests served in bfloat16 from the PIT run's checkpoint (cast once)
+    model = serve.build_model(dataclasses.replace(trainer.model_config, fused_blocks=True),
+                              device, params=os.path.join(pit_cfg.model_dir, "latest.pt"))
+    mean, std = serve.load_stats(pit_cfg.meta_dir, model.cfg.input_feats)
+    sample_fn = tr.make_sampler(model, g.make_schedule(g.linear_betas(1000)), T=T,
+                                dim_pose=model.cfg.input_feats, ddim_steps=DDIM_STEPS)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    features, joints = serve.serve_batch(sample_fn, requests, mean, std, device,
+                                         torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = bf16_counts()
+    add(counts)
+    finite = bool(np.isfinite(features).all() and np.isfinite(joints).all())
+    print(json.dumps({"phase": "bf16_serve_trained", "checkpoint": "pit_bf16/model/latest.pt",
+                      "requests": len(requests), "launches": counts, "wall_s": wall,
+                      "finite": finite, "joints_shape": list(joints.shape)}), flush=True)
+    fail_if(failures, not finite or tuple(joints.shape) != (N_PAIRS, 2, T - 1, 22, 3)
+            or any(counts[n] != (LAUNCHES_PER_CALL if n == "fused_block_bf16" else 0)
+                   for n in counts),
+            f"serving the bf16 checkpoint: finite {finite}, shape {joints.shape}, {counts}")
+    del model, sample_fn
+
+    train_step = tr.make_train_step(trainer.sched, True)
+    step_gen = torch.Generator(device=device).manual_seed(9)
+
+    def one_step():
+        return {k: float(v) for k, v in train_step(kept["state"], kept["batch"],
+                                                   step_gen).items()}
+
+    # the ordered bfloat16 sum's kernel against its plain loop in the same
+    # step, in turns (kernel, plain, plain, kernel), host clock
+    ab: dict = {"kernel": [], "plain": []}
+    for mode in ("kernel", "plain", "plain", "kernel"):
+        with plain_sum() if mode == "plain" else contextlib.nullcontext():
+            for _ in range(BF16_SUM_AB_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                one_step()
+                ab[mode].append(1e3 * (time.perf_counter() - t0))
+    print(json.dumps({"phase": "bf16_sum_step_ab", "run": "pit_bf16", "nvidia_smi": smi,
+                      "step_ms": ab, "median_ms": {m: statistics.median(v)
+                                                   for m, v in ab.items()}}), flush=True)
+
+    runs["train_step_pit_bf16"], walls["train_step_pit_bf16"] = one_step, kept["step_s"]
+    print(json.dumps({"phase": "bf16_train_label", "seconds": time.perf_counter() - t_phase,
+                      "launches": launches}), flush=True)
+    return launches, runs, walls
+
+
 def trainer_dataset(cfg):
     from hig_tpu_torch.data.dataset import PairDataset, load_training_stats
 
@@ -2030,7 +2590,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         data = os.path.join(tmp, "data")
         write_train_data(data)
-        train_launches, (train_step, step_s) = phase_train(device, failures, smi,
+        train_launches, (train_step, step_s), f32_pit = phase_train(device, failures, smi,
                                                            serve_requests(), data, tmp)
         lap("train")
         pipeline_launches, pipeline_runs = phase_pipeline(device, failures, smi,
@@ -2041,13 +2601,22 @@ def main() -> int:
         lap("evaluate")
         bf16_rows, bf16_runs, bf16_walls = phase_bf16(models, device, failures, smi, tmp)
         lap("bf16")
+        bf16_train_launches, bf16_train_runs, bf16_train_walls = phase_bf16_train(
+            device, failures, smi, serve_requests(), data, tmp, f32_pit)
+        lap("bf16_train")
+        for form, row in bf16_rows.items():
+            row["launches"] += bf16_train_launches.get(form, 0)
         runs["train_step_pit"], walls["train_step_pit"] = train_step, step_s
         for run, (call, wall) in (*pipeline_runs.items(), *eval_runs.items()):
             runs[run], walls[run] = call, wall
         runs.update(bf16_runs)
         walls.update(bf16_walls)
+        runs.update(bf16_train_runs)
+        walls.update(bf16_train_walls)
         per_call = {run: LAUNCHES_PER_CALL for run in (*SERVE_RUNS, "serve_guided", *bf16_runs)}
         per_call["train_step_pit"] = per_call["label_vote"] = LAUNCHES_PER_STEP
+        for run in bf16_train_runs:
+            per_call[run] = LAUNCHES_PER_STEP
         per_call["serve_ddpm"] = LAUNCHES_PER_STEP * 1000
         phase_profile(runs, walls, per_call)
         lap("profile")

@@ -6,9 +6,8 @@ Options the port does not carry yet are still fields, so that setting one
 is refused with a clear message instead of being ignored: the
 pipeline/FSDP/tensor-parallel layouts, the native loader, profiling, the
 single-transformer variant, dropout and the ``--pretrained`` transfer.
-``compute_dtype: bfloat16``, ``fast_ln`` and ``rms_norm`` are served and
-evaluated; training and labeling refuse them
-(:func:`refuse_reduced_precision`).
+``compute_dtype: bfloat16``, ``fast_ln`` and ``rms_norm`` train, label,
+serve and evaluate (the route rule of ``models/attention.py``).
 Caption dropout (``cond_drop_prob``) belongs to the supervised stage and is
 refused without ``label_path``, as the JAX loss refuses it.
 
@@ -211,18 +210,6 @@ def model_config(cfg: ExperimentConfig, clip: ClipTextConfig | None = None) -> M
         cap_id=cfg.cap_id, cond_drop_prob=cfg.cond_drop_prob,
         compute_dtype=cfg.compute_dtype, fast_ln=cfg.fast_ln, rms_norm=cfg.rms_norm,
     )
-
-
-def refuse_reduced_precision(cfg: ExperimentConfig, what: str) -> None:
-    """Training and labeling run float32 LayerNorm models only: raise,
-    naming the options, for ``compute_dtype`` other than float32,
-    ``fast_ln`` or ``rms_norm``."""
-    bad = [name for name, on in (("compute_dtype", cfg.compute_dtype != "float32"),
-                                 ("fast_ln", cfg.fast_ln), ("rms_norm", cfg.rms_norm)) if on]
-    if bad:
-        raise ValueError(
-            f"hig_tpu_torch does not port {what} with {bad} yet: bf16 training and labeling "
-            "come in the next slice (serving and evaluation take these options)")
 
 
 _HEADER = "------------ Options -------------"

@@ -29,6 +29,37 @@ extern "C" int hig_projected_attention(
   return hig::launch_core_qkv(qkv, mask, out, N, T, D, 0, stream);
 }
 
+// B2 on bfloat16 activations with float32 weights (B2-bf16a), as the Pallas
+// kernel computes it for those dtypes (a bfloat16 model's unfused blocks on
+// float32 master weights): jnp.dot of a bfloat16 row and a float32 weight
+// promotes the row, so q, k and v are float32 products plus the float32
+// bias, the whole core is float32, and y is rounded to bfloat16 once, at the
+// store. The float32 form's two launches (linear_attention.cuh): the q|k|v
+// GEMM reads the bfloat16 rows (half the activation bytes; a bfloat16 value
+// is exact in TF32, so each product is a * w_hi + a * w_lo, two TF32 terms
+// where 3xTF32 takes three) into the float32 `qkv`, then the core stores
+// bfloat16 y. Bound on this card: the products are float32-accurate, 2.5
+// GFLOP at the serving shape (N = 16, T = 91, D = 512) against 6 MB, so
+// operations: 0.010 ms at 495 / 2 TFLOP/s for the GEMM and 495 / 3 for the
+// core. Returns the first cudaError_t.
+extern "C" int hig_projected_attention_bf16a(
+    const hig::bf16* q_src, const hig::bf16* kv_src,
+    const float* wq, const float* bq, const float* wk, const float* bk,
+    const float* wv, const float* bv, const float* mask,
+    float* qkv, hig::bf16* out, int N, int T, int D, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+
+  hig::GemmArgsT<hig::bf16> a{};
+  a.a0 = q_src; a.a1 = kv_src;
+  a.w0 = wq; a.w1 = wk; a.w2 = wv;
+  a.b0 = bq; a.b1 = bk; a.b2 = bv;
+  a.out = qkv;
+  a.M = N * T; a.K = D; a.D = D; a.ldo = 3 * D;
+  const cudaError_t err = hig::launch_gemm_qkv(a, stream);
+  if (err != cudaSuccess) return err;
+  return hig::launch_core_qkv(qkv, mask, out, N, T, D, 0, stream);
+}
+
 // B2-bf16: bfloat16 activations and weights, as the Pallas kernel computes
 // them for dt = bfloat16 (hig_tpu/ops/pallas_attention.py:116-137): q, k, v
 // are float32 dots with the bias added in float32, the whole core is

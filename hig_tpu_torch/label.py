@@ -18,7 +18,10 @@ statistics from meta/. The denoiser runs in eval mode: --blocks fused (the
 default) puts the efficient model's self-attention and interaction blocks
 through the fused-block kernel, --blocks projected through the
 projected-attention kernel; a --no_eff run goes through the flash-attention
-kernel.
+kernel. A bfloat16 run (compute_dtype, fast_ln, rms_norm) labels in
+bfloat16 on its float32 parameters, as JAX's scorer does; an rms_norm run
+has no fused block, so its default is --blocks projected and --blocks
+fused is refused.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import json
 from os.path import join as pjoin
 
 from hig_tpu_torch import resolve_device
-from hig_tpu_torch.config import load_opt_txt, model_config, refuse_reduced_precision
+from hig_tpu_torch.config import load_opt_txt, model_config
 from hig_tpu_torch.data.dataset import PairDataset
 from hig_tpu_torch.diffusion import gaussian as g
 from hig_tpu_torch.models.interaction_model import InteractionModel
@@ -51,21 +54,23 @@ def main(argv=None):
     parser.add_argument("--save_label", action="store_true")
     parser.add_argument("--batch_size", type=int, default=64)
     parser.add_argument("--blocks", choices=("fused", "projected"), default=None,
-                        help="kernel of the efficient blocks (default fused)")
+                        help="kernel of the efficient blocks (default fused; "
+                             "projected for an rms_norm run)")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
 
     cfg = load_opt_txt(args.opt_path)
-    try:
-        refuse_reduced_precision(cfg, "labeling")
-    except ValueError as e:
-        parser.error(str(e))
     if cfg.no_eff and args.blocks is not None:
         parser.error("--blocks picks the kernel of the efficient blocks; the run's "
                      "quadratic (--no_eff) model has none to pick")
+    # an RMSNorm model has no fused block (its kernel computes LayerNorm)
+    blocks = args.blocks or ("projected" if cfg.rms_norm else "fused")
+    try:
+        mcfg = dataclasses.replace(model_config(cfg),
+                                   fused_blocks=not cfg.no_eff and blocks == "fused")
+    except ValueError as e:
+        parser.error(str(e))
     device = resolve_device(args.device)
-    mcfg = dataclasses.replace(model_config(cfg),
-                               fused_blocks=not cfg.no_eff and args.blocks != "projected")
     model = InteractionModel(mcfg)
     model.load_state_dict(ckpt.load(pjoin(cfg.model_dir, f"{args.which_epoch}.pt"))["params"],
                           strict=True)

@@ -12,7 +12,7 @@ so the (B, actors, T, D) layout flows through.
   (``ops/pallas_attention.py``, projections + attention core) between a
   plain LayerNorm and the plain gate. B1 has no backward, so a module in
   train mode takes B2, as the JAX blocks take their unfused route when not
-  ``deterministic``.
+  ``deterministic`` (a bfloat16 model B3-bf16: the route rule below).
 * Quadratic (softmax) attention, the ``--no_eff`` model. The self-attention
   and interaction blocks always go through B4 (``ops/flash_attention.py``).
   The reference's quirks are kept: padded keys get a −1e6 bias (the JAX
@@ -28,11 +28,36 @@ efficient attention through B3 (``fused_efficient_attention``), as the JAX
 
 In bfloat16 (``dtype``) every block computes in the dtype and rounds where
 the flax block rounds (``embeddings.py``); the self-attention and
-interaction blocks hand bfloat16 tensors to B1 or B2, the quadratic ones to
-B4, which take their bfloat16 forms. ``fast_ln`` and ``rms`` reach the
+interaction blocks hand bfloat16 tensors to B1, B2 or B3, the quadratic ones
+to B4, which take their bfloat16 forms. ``fast_ln`` and ``rms`` reach the
 efficient blocks' norms, the FFN's gate and every efficient block's
 ``StylizationBlock``; the text cross-attention's ``text_norm`` stays a
 float32-statistics LayerNorm, and the quadratic blocks take neither.
+
+The route rule of a bfloat16 model. Training and labeling keep float32
+master weights (parameters, Adam's moments and the EMA stay float32, as
+JAX's mixed precision keeps them); serving and evaluation cast them once
+(``weights.cast_floating``). Each route is held against the JAX route that
+computes the same function:
+
+- train mode (the train step and the validation pass): JAX's loss with
+  ``use_pallas=False``, the only bfloat16 route whose VJP JAX can take (its
+  ``use_pallas`` VJP recomputes B2 in float32 and fails on the bfloat16
+  cotangent). The efficient self-attention and interaction blocks take its
+  einsum route: ``merged_qkv`` (the product, then the bias add, each
+  rounded), k, v and the key mask flipped on the actor axis for the
+  interaction block, the core through B3-bf16 (``fused_efficient_attention``,
+  whose twin is JAX's ``efficient_attention`` in bfloat16 and whose
+  backward is XLA's VJP of it), then the gate. The quadratic blocks take
+  B4-bf16 (JAX ``no_eff=True, use_pallas=True``; its backward likewise);
+- eval mode with ``fused`` (labeling's default, LayerNorm models): JAX's
+  ``fused_blocks=True`` scorer. B1-bf16 on the block's weights cast to
+  bfloat16 per call, as ``_fused_block_apply`` casts them; the rest of the
+  model keeps its float32 parameters (the norms apply float32 scales);
+- eval mode, unfused (``--blocks projected`` and every ``rms_norm`` model):
+  JAX's ``use_pallas=True`` scorer, whose Pallas kernel takes the bfloat16
+  activations with the raw float32 weights: B2-bf16a, forward only;
+- serving and evaluation, weights cast: B1-bf16 or B2-bf16, and B4-bf16.
 """
 
 from __future__ import annotations
@@ -46,6 +71,7 @@ from hig_tpu_torch.models.embeddings import (
     gelu,
     linear,
     make_norm,
+    reduced,
     softmax,
 )
 from hig_tpu_torch.ops.flash_attention import (
@@ -100,8 +126,10 @@ class _KernelBlock(nn.Module):
         self.value = nn.Linear(latent_dim, latent_dim)
         self.proj_out = StylizationBlock(latent_dim, emb_dim, dtype, fast_ln, rms)
 
-    def block_weights(self) -> BlockWeights:
-        return BlockWeights(
+    def block_weights(self, dtype: torch.dtype | None = None) -> BlockWeights:
+        """The block's parameters, cast to ``dtype`` when given (a cast of
+        float32 master weights is a new tensor on each call)."""
+        w = BlockWeights(
             self.norm.weight, self.norm.bias,
             self.query.weight, self.query.bias,
             self.key.weight, self.key.bias,
@@ -109,27 +137,44 @@ class _KernelBlock(nn.Module):
             self.proj_out.norm.weight, self.proj_out.norm.bias,
             self.proj_out.out.weight, self.proj_out.out.bias,
         )
+        return w if dtype is None else BlockWeights(*(t.to(dtype) for t in w))
 
     def forward(self, x, emb, src_mask, adaln=None):
         """x (B, 2, T, D); emb (B, 2, E) or None when ``adaln`` = (scale,
-        shift), each (B, 2, 1, D), is given; src_mask (B, 1|2, T)."""
+        shift), each (B, 2, 1, D), is given; src_mask (B, 1|2, T). The
+        route follows the module doc's rule."""
         scale, shift = adaln if adaln is not None else self.proj_out.scale_shift(emb)
         mask = src_mask.expand(x.shape[:-1])
         if self.fused and not self.training:
-            return fused_attention_block(x, mask, scale, shift, self.block_weights(),
+            return fused_attention_block(x, mask, scale, shift, self.block_weights(x.dtype),
                                          self.num_heads, self.interaction)
         xn = self.norm(x)
-        kv_src, kv_mask = xn, mask
-        if self.interaction:
-            # the shared LayerNorm normalizes both actors; k/v and the key
-            # mask are the other actor's
-            kv_src, kv_mask = xn.flip(-3), mask.flip(-2)
-        y = fused_projected_attention(
-            xn, kv_src, self.query.weight, self.query.bias, self.key.weight,
-            self.key.bias, self.value.weight, self.value.bias, self.num_heads,
-            key_mask=kv_mask,
-        )
+        if self.training and reduced(xn.dtype):
+            y = self._einsum_route(xn, mask)
+        else:
+            kv_src, kv_mask = xn, mask
+            if self.interaction:
+                # the shared LayerNorm normalizes both actors; k/v and the
+                # key mask are the other actor's
+                kv_src, kv_mask = xn.flip(-3), mask.flip(-2)
+            y = fused_projected_attention(
+                xn, kv_src, self.query.weight, self.query.bias, self.key.weight,
+                self.key.bias, self.value.weight, self.value.bias, self.num_heads,
+                key_mask=kv_mask,
+            )
         return x + self.proj_out.from_scale_shift(y, scale, shift)
+
+    def _einsum_route(self, xn, mask):
+        """JAX's ``use_pallas=False`` block in bfloat16: one merged q|k|v
+        product, k, v and the key mask flipped on the actor axis for the
+        interaction block, the core through B3-bf16 (contiguous copies, as
+        the kernel reads (..., T, D) rows at stride D)."""
+        q, k, v = merged_qkv(xn, self.query.weight, self.query.bias, self.key.weight,
+                             self.key.bias, self.value.weight, self.value.bias)
+        if self.interaction:
+            k, v, mask = k.flip(-3), v.flip(-3), mask.flip(-2)
+        return fused_efficient_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                         self.num_heads, key_mask=mask)
 
 
 class EfficientSelfAttention(_KernelBlock):

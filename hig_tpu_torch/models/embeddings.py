@@ -29,6 +29,14 @@ A Python constant in a JAX expression is cast to the dtype before the op
 (a weak type), where torch keeps it in float32 inside the op: constants
 that bfloat16 does not hold exactly (CLIP's 1.702, the norms' eps) are made
 bfloat16 tensors first.
+
+Gradients in bfloat16. Torch's autograd rounds a bfloat16 op chain's
+backward at its own points. Where the port needs XLA's (the bfloat16
+backwards of the attention kernels), :func:`softmax_vjp` writes out XLA's
+VJP of the softmax op chain, with
+:func:`~hig_tpu_torch.ops.bf16_sum.bf16_sum`, a sum of bfloat16 values
+rounded after every add in the order XLA's CPU backend takes it (a kernel on
+the card).
 """
 
 from __future__ import annotations
@@ -38,6 +46,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from hig_tpu_torch.ops.bf16_sum import bf16_sum
 
 LN_EPS = 1e-6
 
@@ -130,8 +140,45 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 def softmax(x: torch.Tensor, dim: int) -> torch.Tensor:
     if not reduced(x.dtype):
         return x.softmax(dim=dim)
-    e = torch.exp(x - x.amax(dim, keepdim=True))
-    return e / e.float().sum(dim, keepdim=True).to(x.dtype)
+    return _ReducedSoftmax.apply(x, dim)
+
+
+class _ReducedSoftmax(torch.autograd.Function):
+    """``jax.nn.softmax``'s op chain in a reduced dtype: e = exp(x − max),
+    y = e / (a float32 sum of e, rounded); its backward is XLA's VJP of that
+    chain (:func:`softmax_vjp`), with no gradient through the max."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        e = torch.exp(x - x.amax(dim, keepdim=True))
+        z = e.float().sum(dim, keepdim=True).to(x.dtype)
+        ctx.save_for_backward(e, z)
+        ctx.dim = dim
+        return e / z
+
+    @staticmethod
+    def backward(ctx, dy):
+        e, z = ctx.saved_tensors
+        return softmax_vjp(dy.float(), e.float(), z.float(), ctx.dim).to(dy.dtype), None
+
+
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bfloat16, as float32."""
+    return t.to(torch.bfloat16).float()
+
+
+def softmax_vjp(dy: torch.Tensor, e: torch.Tensor, z: torch.Tensor, dim: int) -> torch.Tensor:
+    """The gradient of :func:`softmax` (y = e / z over ``dim``, e = exp(x −
+    max) with no gradient through the max, z = Σ e) in bfloat16, as XLA
+    differentiates that op chain: dx = (dy / z − Σ (dy · z⁻²) · e) · e,
+    with z⁻² = 1 / (z · z), every op rounded and the sum
+    :func:`~hig_tpu_torch.ops.bf16_sum.bf16_sum`.
+    All arguments float32 holding bfloat16 values (``z`` kept over ``dim``);
+    returns the same."""
+    r = round_bf16
+    inv_z2 = r(1.0 / r(z * z))
+    s = bf16_sum(r(r(dy * inv_z2) * e), dim)
+    return r(r(r(dy / z) - s) * e)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Text conditioning stack + interaction denoiser under one parameter tree
 (counterpart of ``hig_tpu/models/interaction_model.py:25-189,261-291``).
 
-The port trains in float32 and serves in float32 or bfloat16
+The port trains, labels, serves and evaluates in float32 or bfloat16
 (``compute_dtype``, with flax's ``fast_ln`` LayerNorm statistics or
 ``rms_norm`` blocks), with the efficient (linear) denoiser or, with
 ``efficient=False``, the quadratic (``--no_eff``) one, optionally
@@ -15,8 +15,9 @@ learned table (``cap_id``, the PIT stage's model). With ``cond_drop_prob``
 guidance (:meth:`InteractionModel.null_conditioning`). Dropout, causal
 efficient attention and the single-transformer variant are not ported yet:
 :class:`ModelConfig` refuses the ones it has fields for. A bfloat16 model is
-built with float32 parameters; ``weights.cast_floating`` casts them once, as
-the JAX sampler does (``make_sampler`` calls it).
+built with float32 parameters, which training and labeling keep (mixed
+precision: each module casts per op); ``weights.cast_floating`` casts them
+once for sampling, as the JAX sampler does (``make_sampler`` calls it).
 """
 
 from __future__ import annotations

@@ -57,12 +57,14 @@ import math
 
 import torch
 
-from hig_tpu_torch.models.embeddings import reduced, softmax
+from hig_tpu_torch.models.embeddings import reduced, round_bf16, softmax, softmax_vjp
 from hig_tpu_torch.ops import _build
 from hig_tpu_torch.ops.pallas_attention import (
     MASK_BIAS,
+    HandBackward,
     check_cuda_operand,
     check_cuda_width,
+    needs_grad,
     recompute_grads,
     split_heads,
 )
@@ -148,9 +150,16 @@ def _flash_bf16_plain(query, key, value, num_heads: int, key_mask, causal: bool,
 def flash_attention_plain(query, key, value, num_heads: int, key_mask=None,
                           causal: bool = False, partner: bool = False):
     """Plain PyTorch version of B4; arguments as :func:`flash_attention`. On
-    bfloat16 inputs, the twin of B4-bf16."""
+    bfloat16 inputs, the twin of B4-bf16, whose gradient under autograd is
+    B4-bf16's backward (:func:`flash_attention_bf16_backward`)."""
     if query.dtype == torch.bfloat16:
-        return _flash_bf16_plain(query, key, value, num_heads, key_mask, causal, partner)
+        if not needs_grad(query, key, value):
+            return _flash_bf16_plain(query, key, value, num_heads, key_mask, causal, partner)
+        return HandBackward.apply(
+            lambda q, k, v: _flash_bf16_plain(q, k, v, num_heads, key_mask, causal, partner),
+            lambda q, k, v, g: flash_attention_bf16_backward(q, k, v, key_mask, g, num_heads,
+                                                             causal, partner),
+            query, key, value)
     Tq, Tk = query.shape[-2], key.shape[-2]
     mask = None
     if key_mask is not None:
@@ -188,11 +197,56 @@ def row_stride(name: str, t: torch.Tensor, dtype=torch.float32) -> int:
     return ld
 
 
+def flash_attention_bf16_backward(query, key, value, key_mask, grad_out, num_heads: int,
+                                  causal: bool, partner: bool):
+    """B4-bf16's backward: the gradients of query, key and value (bfloat16)
+    as XLA differentiates ``_flash_bwd``'s reference (einsum attention,
+    ``hig_tpu/ops/flash_attention.py:26-38``) on bfloat16 operands, op by
+    op: the scores s = bf16(q·kᵀ)·bf16(1/√hd) plus the mask's and the causal
+    bias of bf16(−1e6), each rounded, the softmax op chain, then its
+    transpose: dv = wᵀ·g, dw = g·vᵀ, ds = softmax_vjp(dw)·scale, dq = ds·k,
+    dk = dsᵀ·q, each product a float32 sum rounded. Torch's autograd
+    through the twin (the Pallas kernel's float32 online softmax) sits as
+    far from this as bfloat16 from float32."""
+    r = round_bf16
+    lead, (Tq, D), Tk = query.shape[:-2], query.shape[-2:], key.shape[-2]
+    mask = torch.ones((*lead, Tk), dtype=torch.float32, device=query.device)
+    if key_mask is not None:
+        mask = key_mask.float().expand(*lead, Tk)
+    if partner:
+        key, value, mask = key.flip(-3), value.flip(-3), mask.flip(-2)
+    q, k, v, g = (split_heads(t.float(), num_heads) for t in (query, key, value, grad_out))
+    scale = r(torch.tensor(1.0 / math.sqrt(D // num_heads)))
+    big = r(torch.tensor(MASK_BIAS))
+    s = r(r(torch.einsum("...nhd,...mhd->...nmh", q, k)) * scale)
+    s = r(s + (1.0 - mask)[..., None, :, None] * big)
+    if causal:
+        s = r(s + (causal_bias(Tq, Tk, query.device) < 0) * big)
+    e = r(torch.exp(r(s - s.amax(-2, keepdim=True))))  # over the keys
+    z = r(e.sum(-2, keepdim=True))
+    w = r(e / z)
+    dv = r(torch.einsum("...nmh,...nhd->...mhd", w, g))
+    dw = r(torch.einsum("...nhd,...mhd->...nmh", g, v))
+    ds = r(softmax_vjp(dw, e, z, -2) * scale)
+    dq = r(torch.einsum("...nmh,...mhd->...nhd", ds, k)).reshape(query.shape)
+    dk = r(torch.einsum("...nmh,...nhd->...mhd", ds, q)).reshape(key.shape)
+    dv = dv.reshape(value.shape)
+    if partner:
+        dk, dv = dk.flip(-3), dv.flip(-3)
+    return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
+
+
 def flash_attention_backward(saved, grad_out, num_heads: int, causal: bool, partner: bool,
                              needs=(True,) * 3):
     """B4's backward (``_flash_bwd``): ``saved`` is (query, key, value,
-    key_mask); returns the gradients of the first three."""
+    key_mask); returns the gradients of the first three (None where
+    ``needs`` is False): by autograd through the plain version in float32,
+    by :func:`flash_attention_bf16_backward` in bfloat16."""
     *operands, mask = saved
+    if operands[0].dtype == torch.bfloat16:
+        grads = flash_attention_bf16_backward(*operands, mask, grad_out, num_heads, causal,
+                                              partner)
+        return tuple(g if n else None for g, n in zip(grads, needs))
     return recompute_grads(
         lambda q, k, v: flash_attention_plain(q, k, v, num_heads, mask, causal, partner),
         operands, needs, grad_out)

@@ -8,9 +8,14 @@ core kernel (``_kernel`` at :46, ``fused_efficient_attention`` at :238).
 
 Gradients. Like the JAX ``custom_vjp``s (``_proj_fused_bwd`` at :176,
 ``_fused_bwd`` at :97), the forward launches the kernel and saves its inputs,
-and the backward recomputes the plain version under autograd
+and the backward recomputes the plain version
 (:func:`projected_attention_backward`, :func:`efficient_attention_backward`):
-no backward is a kernel. ``key_mask`` gets no gradient.
+no backward is a kernel. ``key_mask`` gets no gradient. B3-bf16's backward
+is the VJP of its bfloat16 op chain as XLA takes it, written out
+(:func:`efficient_attention_bf16_backward`). B2 on bfloat16 activations with
+float32 weights has none: JAX's VJP of that form fails (its recompute is
+float32, its cotangent bfloat16), so the wrapper raises when a gradient is
+asked of it.
 
 Kernel note (``csrc/projected_attention.cu``). The TPU kernel ran one grid
 step per sequence with the three (D, D) weights resident in VMEM. On the
@@ -49,6 +54,16 @@ y rounded once. One sequence's keys sit in shared memory, so T is at most
 inputs is its twin; ``rounded`` makes the twin round the core as B1-bf16's
 Pallas kernel does, a planted control that the kernel's gates must fail.
 
+B2 on bfloat16 activations with float32 weights (B2-bf16a,
+``hig_projected_attention_bf16a``): the Pallas kernel's dot of a bfloat16
+row and a float32 weight promotes the row, so q, k, v and the core are
+float32 and only y is rounded. The float32 form's two launches, the GEMM
+reading bfloat16 rows (a product of an exact TF32 value and a float32
+weight in two TF32 terms), the core storing bfloat16. The port's bfloat16
+models reach it in eval mode on float32 master weights (``--blocks
+projected`` labeling); :func:`fused_projected_attention_plain` on those
+dtypes is its twin. Counted in ``launches_mixed``.
+
 bfloat16 form of B3 (B3-bf16, ``hig_efficient_attention_bf16``). The
 Pallas kernel runs the core on bfloat16 q, k, v and mask, so XLA rounds
 after each op: the mask bias, each softmax's subtraction, ``exp``, sum (a
@@ -58,7 +73,9 @@ those points (one block per (head, sequence), reading the bfloat16
 columns in place; the products of bfloat16 values are exact).
 :func:`fused_efficient_attention_plain` on bfloat16 inputs is its twin, and
 ``unrounded`` leaves out rounding points (:data:`B3_ROUNDINGS`) for the
-planted controls. No model path calls B3.
+planted controls. The twin is also JAX's ``efficient_attention`` on
+bfloat16 inputs (its einsum route), so B3-bf16 is the core of a bfloat16
+model's efficient blocks in train mode (``models/attention.py``).
 """
 
 from __future__ import annotations
@@ -66,7 +83,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from hig_tpu_torch.models.embeddings import linear
+from hig_tpu_torch.models.embeddings import linear, round_bf16, softmax_vjp
 from hig_tpu_torch.ops import _build
 
 HEAD_DIM = 64  # the only head width the CUDA core takes
@@ -82,11 +99,6 @@ B3_ROUNDINGS = ("q_sub", "q_exp", "q_sum", "qh", "k_sub", "k_exp", "k_sum", "kh"
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     return x.reshape(*x.shape[:-1], num_heads, x.shape[-1] // num_heads)
-
-
-def round_bf16(t: torch.Tensor) -> torch.Tensor:
-    """t rounded to bfloat16, as float32."""
-    return t.to(torch.bfloat16).float()
 
 
 def efficient_attention(query, key, value, num_heads: int, key_mask=None, rounded=()):
@@ -211,13 +223,14 @@ def _launch_projected(q_src, kv_src, wq, bq, wk, bk, wv, bv, mask):
     N = q_src.numel() // (T * D)
     out = torch.empty_like(q_src)
     stream = torch.cuda.current_stream(q_src.device).cuda_stream
-    if q_src.dtype == torch.bfloat16:
+    if wq.dtype == torch.bfloat16:
         _build.launch("projected_attention", (q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, out),
                       (N, T, D), stream, entry="projected_attention_bf16")
         return out
     qkv = torch.empty((N * T, 3 * D), device=q_src.device, dtype=torch.float32)
+    mixed = q_src.dtype == torch.bfloat16  # bfloat16 activations, float32 weights
     _build.launch("projected_attention", (q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, qkv, out),
-                  (N, T, D), stream)
+                  (N, T, D), stream, entry="projected_attention_bf16a" if mixed else None)
     return out
 
 
@@ -244,12 +257,24 @@ def fused_projected_attention(q_src, kv_src, wq, bq, wk, bk, wv, bv,
 
     q_src (..., T, D) and kv_src (..., T, D), already normalized; weights in
     torch Linear layout (out, in); key_mask broadcastable to (..., T), the
-    mask of kv_src's tokens. Returns the pre-gate output (..., T, D).
-    CPU tensors take the plain version; CUDA tensors launch the kernel,
-    under autograd through :class:`ProjectedAttention`: the float32 form,
-    or for bfloat16 activations and weights the bfloat16 form
-    (``launches_bf16``, T up to :data:`BF16_MAX_T`); other dtypes raise.
+    mask of kv_src's tokens. Returns the pre-gate output (..., T, D) in the
+    activations' dtype. CPU tensors take the plain version; CUDA tensors
+    launch the kernel, under autograd through :class:`ProjectedAttention`:
+    the float32 form, for bfloat16 activations and weights the bfloat16
+    form (``launches_bf16``, T up to :data:`BF16_MAX_T`), or for bfloat16
+    activations with float32 weights B2-bf16a (``launches_mixed``), which
+    has no backward and raises, on either device, when grad is enabled and
+    an input requires it; other dtypes raise.
     """
+    adt, wdt = q_src.dtype, wq.dtype
+    mixed = adt == torch.bfloat16 and wdt == torch.float32
+    if mixed and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q_src, kv_src, wq, bq, wk, bk, wv, bv)):
+        raise RuntimeError(
+            "projected attention on bfloat16 activations with float32 weights has no "
+            "backward (JAX's VJP of this form fails too): call it under torch.no_grad(), "
+            "or put the model in train mode, where a bfloat16 model's efficient blocks "
+            "take the einsum route through the efficient-attention kernel (B3-bf16)")
     if q_src.device.type == "cpu":
         return fused_projected_attention_plain(q_src, kv_src, wq, bq, wk, bk, wv, bv,
                                                num_heads, key_mask)
@@ -260,25 +285,31 @@ def fused_projected_attention(q_src, kv_src, wq, bq, wk, bk, wv, bv,
             f"{tuple(q_src.shape)} and {tuple(kv_src.shape)}"
         )
     check_cuda_width(D, num_heads)
-    dt = q_src.dtype
-    if dt not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"the projected-attention kernel takes float32 or bfloat16, got {dt}")
-    if dt == torch.bfloat16 and T > BF16_MAX_T:
+    if (adt, wdt) not in ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                          (torch.bfloat16, torch.float32)):
+        raise ValueError("the projected-attention kernel takes float32 activations and "
+                         "weights, bfloat16 ones, or bfloat16 activations with float32 "
+                         f"weights; got {adt} and {wdt}")
+    if wdt == torch.bfloat16 and T > BF16_MAX_T:
         raise ValueError(f"the bfloat16 projected-attention kernel takes T up to {BF16_MAX_T}, "
                          f"got {T}")
-    check_cuda_operand("q_src", q_src, dtype=dt)
-    check_cuda_operand("kv_src", kv_src, dtype=dt)
+    check_cuda_operand("q_src", q_src, dtype=adt)
+    check_cuda_operand("kv_src", kv_src, dtype=adt)
     for name, w, b in (("query", wq, bq), ("key", wk, bk), ("value", wv, bv)):
-        check_cuda_operand(f"{name} weight", w, (D, D), dtype=dt)
-        check_cuda_operand(f"{name} bias", b, (D,), dtype=dt)
+        check_cuda_operand(f"{name} weight", w, (D, D), dtype=wdt)
+        check_cuda_operand(f"{name} bias", b, (D,), dtype=wdt)
     if key_mask is None:
         mask = torch.ones((*lead, T), device=q_src.device, dtype=torch.float32)
     else:
         mask = key_mask.to(torch.float32).expand(*lead, T).contiguous()
     check_cuda_operand("key_mask", mask)
+    if mixed:
+        out = _launch_projected(q_src, kv_src, wq, bq, wk, bk, wv, bv, mask)
+        fused_projected_attention.launches_mixed += 1
+        return out
     out = ProjectedAttention.apply(q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, num_heads,
                                    kv_src is q_src)
-    if dt == torch.bfloat16:
+    if adt == torch.bfloat16:
         fused_projected_attention.launches_bf16 += 1
     else:
         fused_projected_attention.launches += 1
@@ -287,6 +318,7 @@ def fused_projected_attention(q_src, kv_src, wq, bq, wk, bk, wv, bv,
 
 fused_projected_attention.launches = 0
 fused_projected_attention.launches_bf16 = 0
+fused_projected_attention.launches_mixed = 0
 
 
 def fused_efficient_attention_plain(query, key, value, num_heads: int, key_mask=None,
@@ -295,7 +327,9 @@ def fused_efficient_attention_plain(query, key, value, num_heads: int, key_mask=
     q, k and v, the twin of B3-bf16: float32 values rounded to bfloat16
     where XLA rounds the Pallas kernel's bfloat16 ops (the module doc), but
     at the points of :data:`B3_ROUNDINGS` named in ``unrounded``; output
-    bfloat16."""
+    bfloat16. Under autograd the twin's gradient is B3-bf16's backward
+    (:func:`efficient_attention_bf16_backward`); a twin with roundings left
+    out (a planted control) is differentiated by autograd."""
     if query.dtype != torch.bfloat16:
         if unrounded:
             raise ValueError("only the bfloat16 twin has roundings to leave out")
@@ -303,33 +337,101 @@ def fused_efficient_attention_plain(query, key, value, num_heads: int, key_mask=
     unknown = set(unrounded) - set(B3_ROUNDINGS)
     if unknown:
         raise ValueError(f"B3-bf16 has no rounding {sorted(unknown)}; it has {B3_ROUNDINGS}")
+    if unrounded or not needs_grad(query, key, value):
+        return _b3_bf16_twin(query, key, value, num_heads, key_mask, unrounded)
+    return HandBackward.apply(
+        lambda q, k, v: _b3_bf16_twin(q, k, v, num_heads, key_mask),
+        lambda q, k, v, g: efficient_attention_bf16_backward(q, k, v, key_mask, g, num_heads),
+        query, key, value)
 
+
+def needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class HandBackward(torch.autograd.Function):
+    """``forward(q, k, v)`` computed without autograd, with the gradients of
+    q, k and v from ``backward(q, k, v, grad_out)``: a plain version under
+    its bfloat16 backward."""
+
+    @staticmethod
+    def forward(ctx, forward, backward, query, key, value):
+        ctx.save_for_backward(query, key, value)
+        ctx.hand_backward = backward
+        return forward(query, key, value)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return (None, None, *ctx.hand_backward(*ctx.saved_tensors, grad_out))
+
+
+def _b3_bf16_twin(query, key, value, num_heads: int, key_mask=None, unrounded=()):
+    _, _, qh, _, _, _, _, att = _b3_bf16_parts(query, key, value, num_heads, key_mask, unrounded)
+    y = torch.einsum("...nhd,...hdl->...nhl", qh, att)
+    return y.reshape(*y.shape[:-2], query.shape[-1]).to(torch.bfloat16)
+
+
+def _b3_bf16_parts(query, key, value, num_heads: int, key_mask=None, unrounded=()):
+    """The twin's values before y, float32 holding bfloat16 values: each
+    softmax's exp e, sum z and quotient (eq, zq, qh over the features; ek,
+    zk, kh over time), the masked value vh (heads split) and the state."""
     def r(name, t):
         return t if name in unrounded else round_bf16(t)
 
     def softmax(x, dim, which):
         e = r(f"{which}_exp", torch.exp(r(f"{which}_sub", x - x.amax(dim, keepdim=True))))
-        return r(f"{which}h", e / r(f"{which}_sum", e.sum(dim, keepdim=True)))
+        z = r(f"{which}_sum", e.sum(dim, keepdim=True))
+        return e, z, r(f"{which}h", e / z)
 
-    D = query.shape[-1]
     k, v = key.float(), value.float()
     if key_mask is not None:  # the mask, its bias and both products are bfloat16
         m = round_bf16(key_mask.float())[..., None]
         k = round_bf16(k + (1.0 - m) * round_bf16(torch.tensor(MASK_BIAS)))
         v = v * m
-    qh = softmax(split_heads(query.float(), num_heads), -1, "q")
-    kh = softmax(split_heads(k, num_heads), -3, "k")  # over the time axis
-    att = r("att", torch.einsum("...nhd,...nhl->...hdl", kh, split_heads(v, num_heads)))
-    y = torch.einsum("...nhd,...hdl->...nhl", qh, att)
-    return y.reshape(*y.shape[:-2], D).to(torch.bfloat16)
+    eq, zq, qh = softmax(split_heads(query.float(), num_heads), -1, "q")
+    ek, zk, kh = softmax(split_heads(k, num_heads), -3, "k")  # over the time axis
+    vh = split_heads(v, num_heads)
+    att = r("att", torch.einsum("...nhd,...nhl->...hdl", kh, vh))
+    return eq, zq, qh, ek, zk, kh, vh, att
+
+
+def efficient_attention_bf16_backward(query, key, value, key_mask, grad_out, num_heads: int):
+    """B3-bf16's backward: the gradients of query, key and value (bfloat16)
+    as XLA differentiates JAX's ``efficient_attention`` (and the Pallas
+    kernel's ``_fused_bwd`` reference) on bfloat16 operands: the forward
+    recomputed with the twin's roundings, then its op chain transposed op
+    by op, each op rounded. The state's and y's products transpose into
+    products of bfloat16 values, each a float32 sum rounded; each softmax
+    into :func:`~hig_tpu_torch.models.embeddings.softmax_vjp` (exp, sum and
+    division, no gradient through the max); the mask bias passes dk through
+    and the mask multiplies dv. Torch's autograd through the twin would
+    round elsewhere, and the float32 VJP rounded once sits as far from this
+    as bfloat16 from float32."""
+    r = round_bf16
+    eq, zq, qh, ek, zk, kh, vh, att = _b3_bf16_parts(query, key, value, num_heads, key_mask)
+    g = split_heads(grad_out.float(), num_heads)
+    d_qh = r(torch.einsum("...nhl,...hdl->...nhd", g, att))
+    d_att = r(torch.einsum("...nhd,...nhl->...hdl", qh, g))
+    dv = r(torch.einsum("...hdl,...nhd->...nhl", d_att, kh))
+    d_kh = r(torch.einsum("...hdl,...nhl->...nhd", d_att, vh))
+    dq = softmax_vjp(d_qh, eq, zq, -1).reshape(query.shape)
+    dk = softmax_vjp(d_kh, ek, zk, -3).reshape(key.shape)
+    dv = dv.reshape(value.shape)
+    if key_mask is not None:
+        dv = dv * round_bf16(key_mask.float())[..., None]
+    return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
 
 
 def efficient_attention_backward(saved, grad_out, num_heads: int, needs=(True,) * 3):
     """B3's backward (``_fused_bwd``): ``saved`` is (query, key, value,
-    key_mask); returns the gradients of the first three. Like JAX's, it
-    differentiates the plain core, not the kernel's roundings: in float32
-    on the operands, for B3-bf16 too, the gradients rounded to bfloat16 once."""
+    key_mask); returns the gradients of the first three (None where
+    ``needs`` is False). Like JAX's, it differentiates the plain core, not
+    the kernel's roundings: in float32 by autograd, and for B3-bf16 in
+    bfloat16 op by op (:func:`efficient_attention_bf16_backward`)."""
     *operands, mask = saved
+    if operands[0].dtype == torch.bfloat16:
+        grads = efficient_attention_bf16_backward(*operands, mask, grad_out, num_heads)
+        return tuple(g if n else None for g, n in zip(grads, needs))
 
     def plain(q, k, v):
         return efficient_attention(q.float(), k.float(), v.float(), num_heads, mask).to(q.dtype)

@@ -14,6 +14,7 @@ supervised model for classifier-free guidance.
         --label_path data/NTURGBD_multi/pseudo_labels.json --cond_drop_prob 0.1 ...
     python -m hig_tpu_torch.train ... --loss_aware_sampler  # timesteps by loss
     python -m hig_tpu_torch.train ... --no_eff         # quadratic attention model
+    python -m hig_tpu_torch.train ... --compute_dtype bfloat16 [--fast_ln] [--rms_norm]
     python -m hig_tpu_torch.train ... --device cpu     # plain PyTorch, no kernels
 
 The data root holds the reference's layout: new_joint_vecs/*.npy,
@@ -36,7 +37,7 @@ from hig_tpu_torch import resolve_device
 from hig_tpu_torch.config import (
     add_config_args,
     config_from_args,
-    refuse_reduced_precision,
+    model_config,
     save_opt_txt,
 )
 from hig_tpu_torch.data.dataset import PairDataset, load_training_stats
@@ -53,7 +54,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
     try:
         cfg = config_from_args(args)
-        refuse_reduced_precision(cfg, "training")
+        model_config(cfg)  # refuses the block options the port has no blocks for
     except (ValueError, KeyError) as e:
         parser.error(str(e))
     device = resolve_device(args.device)

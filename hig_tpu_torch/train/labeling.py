@@ -13,8 +13,12 @@
 Each vote is one denoiser forward over both assignments of the whole batch,
 run in eval mode under ``no_grad``: a model with ``fused_blocks`` runs its
 self-attention and interaction blocks through the fused-block kernel (B1),
-else through B2, and the ``--no_eff`` model through B4. The votes are
-counted on the host, as in the reference.
+else through B2, and the ``--no_eff`` model through B4. A bfloat16 model
+scores on its float32 parameters, as JAX's scorer applies the raw tree:
+B1-bf16 on the block weights cast per call, or B2 on bfloat16 activations
+with the float32 weights (B2-bf16a); its bfloat16 prediction is held
+against the float32 target in float32. The votes are counted on the host,
+as in the reference.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from hig_tpu_torch.diffusion import gaussian as g
 from hig_tpu_torch.models.embeddings import length_mask
 from hig_tpu_torch.models.interaction_model import InteractionModel
 from hig_tpu_torch.train.trainer import per_token_loss
+from hig_tpu_torch.weights import reduce_bf16_in_float32
 
 LABEL_T_VALUES = (830, 860, 890, 920)
 DISCOVERY_REPEATS = 5
@@ -51,6 +56,8 @@ def make_assignment_scorer(model: InteractionModel, sched: g.DiffusionSchedule):
         from ``generator`` unless given.
     """
     model.eval()
+    if model.cfg.dtype != torch.float32:
+        reduce_bf16_in_float32()
 
     @torch.no_grad()
     def encode(cond_a, cond_b):

@@ -16,7 +16,13 @@ explicit assignment axis (the noised motions repeated, the captions flipped
 on the actor axis) and the frozen CLIP tower runs once per run, over the 43
 captions, instead of in every step. The model trains in train mode, where
 its self-attention and interaction blocks go through kernel B2 (or B4 in
-the ``--no_eff`` model), whose backwards recompute their plain versions.
+the ``--no_eff`` model), whose backwards recompute their plain versions. A
+bfloat16 model (``compute_dtype``, with ``fast_ln`` or ``rms_norm``) trains
+as JAX's mixed precision does: float32 parameters, Adam moments, EMA and
+checkpoints, every module computing in bfloat16 from them; the efficient
+blocks take JAX's einsum route through B3-bf16 (or the quadratic ones
+B4-bf16), and the loss of the bfloat16 prediction against the float32
+target is taken in float32.
 
 Sampling (``:402-562``), with DDPM, DDIM or DPM-Solver++(2M): everything
 loop-invariant is hoisted out of the step loop: the text is encoded once,
@@ -51,7 +57,6 @@ from hig_tpu_torch.config import (
     SAMPLERS,
     ExperimentConfig,
     model_config,
-    refuse_reduced_precision,
 )
 from hig_tpu_torch.data.dataset import PairDataset, epoch_batches
 from hig_tpu_torch.data.vocab import CAPS
@@ -64,7 +69,12 @@ from hig_tpu_torch.models.interaction_model import InteractionModel
 from hig_tpu_torch.models.text_encoder import ClipTextConfig
 from hig_tpu_torch.models.tokenizer import tokenize
 from hig_tpu_torch.train import checkpoint as ckpt
-from hig_tpu_torch.weights import cast_floating, load_flax_tree, random_flax_tree
+from hig_tpu_torch.weights import (
+    cast_floating,
+    load_flax_tree,
+    random_flax_tree,
+    reduce_bf16_in_float32,
+)
 
 MAX_FAILURE_RETRIES = 2  # rollbacks a run may take before a non-finite loss raises
 VAL_MAX_BATCHES = 8  # validation batches per pass
@@ -183,7 +193,8 @@ def make_optimizer(cfg: ExperimentConfig, model: InteractionModel) -> Optimizer:
 
 def per_token_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """(N, 2, T, D) → per-token squared error (N, 2, T); the init token on
-    channels 0:4 only."""
+    channels 0:4 only. A bfloat16 prediction against the float32 target
+    promotes to float32, as JAX's difference does."""
     init = ((pred[:, :, 0, :4] - target[:, :, 0, :4]) ** 2).mean(dim=-1)
     move = ((pred[:, :, 1:] - target[:, :, 1:]) ** 2).mean(dim=-1)
     return torch.cat([init[:, :, None], move], dim=-1)
@@ -496,17 +507,20 @@ class Trainer:
 
     def __init__(self, cfg: ExperimentConfig, device=None,
                  clip_config: ClipTextConfig | None = None):
-        refuse_reduced_precision(cfg, "training")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model_config = model_config(cfg, clip_config)
+        if self.model_config.dtype != torch.float32:
+            reduce_bf16_in_float32()
         self.sched = g.make_schedule(g.linear_betas(cfg.diffusion_steps))
         self.pit = cfg.label_path is None
         self.step_seconds: list[float] = []  # host time of each step, metrics read back
 
     def init_state(self) -> TrainState:
         """Seeded random weights (``random_flax_tree``, every leaf nonzero)
-        on the trainer's device, in train mode; the EMA starts as a copy."""
+        on the trainer's device, in train mode; the EMA starts as a copy.
+        The weights, Adam's moments and the EMA are float32 whatever the
+        compute dtype (mixed precision: the modules cast per op)."""
         model = InteractionModel(self.model_config)
         load_flax_tree(model, random_flax_tree(self.model_config, self.cfg.seed)["params"])
         model.to(self.device).train()

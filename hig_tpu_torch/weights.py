@@ -251,5 +251,12 @@ def cast_floating(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     process-wide setting), so that the model's bfloat16 products outside
     the kernels reduce in float32, as XLA's do."""
     if dtype == torch.bfloat16:
-        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        reduce_bf16_in_float32()
     return model.to(dtype)
+
+
+def reduce_bf16_in_float32() -> None:
+    """Turn off cuBLAS's reduced-precision bfloat16 reductions (a
+    process-wide setting): a bfloat16 product outside the kernels then sums
+    in float32 and rounds once, as XLA's does."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

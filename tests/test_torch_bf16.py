@@ -18,8 +18,8 @@ and ``rms_norm``.
 - (``test_torch_bf16_samplers.py``) ``make_sampler`` DDIM, DPM-Solver++,
   DDPM and guided DDIM in bfloat16 against JAX's ``make_sampler``.
 - The RMSNorm weight bridge, ``load_opt_txt`` on JAX ``opt.txt`` files with
-  each option, the tiny ``serve`` CLI, the trainer's and the label CLI's
-  refusals, and ``rms_norm`` with fused blocks refused.
+  each option, the tiny ``serve`` CLI, and ``rms_norm`` with fused blocks
+  refused. (bfloat16 training and labeling: ``test_torch_bf16_train.py``.)
 
 Tolerance. XLA rounds a bfloat16 graph after every op; the port rounds at
 the same ops. They differ only where a float32 sum taken in another order,
@@ -55,6 +55,7 @@ from hig_tpu_torch.models.interaction_model import InteractionModel, ModelConfig
 from hig_tpu_torch.models.tokenizer import tokenize
 from hig_tpu_torch.ops.fused_block import fused_attention_block, fused_attention_block_plain
 from hig_tpu_torch.ops.pallas_attention import (
+    efficient_attention,
     efficient_attention_backward,
     fused_efficient_attention,
     fused_efficient_attention_plain,
@@ -315,14 +316,11 @@ def test_b3_twin_matches_pallas(tq, tk):
 
 def test_b3_backward_matches_jax():
     """B3-bf16's backward against JAX's ``_fused_bwd`` on bfloat16 operands,
-    91 queries on 77 keys. Both differentiate the plain core, not the
-    kernel's roundings: the port in float32, its gradients rounded once,
-    JAX in bfloat16 op by op. So the port sits within one bfloat16 ulp of
-    the float32 VJP on the same operands (JAX's ``_fused_bwd`` in float32),
-    at most 0.6 of JAX's bfloat16 VJP's distance from it (the one rounding:
-    ~0.5 for dv, whose bfloat16 VJP rounds little more), and as far from
-    JAX's bfloat16 VJP as that is from float32 (≤ 1.25: the two distances
-    add roughly in quadrature, √(1 + 0.6²) ≈ 1.17)."""
+    91 queries on 77 keys. Both differentiate the plain core op by op in
+    bfloat16 (the einsum reference's VJP as XLA takes it), so the port sits
+    within 0.05 of the bfloat16 effect (JAX's bfloat16 VJP against its
+    float32 one) from JAX's bfloat16 VJP; the float32 VJP rounded once (the
+    backward before bfloat16 training) sits near the effect itself (> 0.5)."""
     from hig_tpu.ops.pallas_attention import fused_efficient_attention as pallas_core
 
     q, k, v, mask = b3_inputs(91, 77)
@@ -341,14 +339,16 @@ def test_b3_backward_matches_jax():
         return np.sqrt(np.mean(d ** 2))
 
     got = efficient_attention_backward((tb(q), tb(k), tb(v), t_(mask)), tb(g), KH)
-    for a, b, b32 in zip(got, jax_grads(jnp.bfloat16), jax_grads(jnp.float32)):
+    leaves = [tb(a).float().requires_grad_() for a in (q, k, v)]
+    once = torch.autograd.grad(efficient_attention(*leaves, KH, t_(mask)), leaves,
+                               tb(g).float())
+    for a, c, b, b32 in zip(got, once, jax_grads(jnp.bfloat16), jax_grads(jnp.float32)):
         assert a.dtype == BF16
-        a, b, b32 = f32(a), f32(b), f32(b32)
+        a, c, b, b32 = f32(a), f32(c.to(BF16)), f32(b), f32(b32)
         effect = rms(b - b32)
         assert effect > 0
-        assert np.abs(a - b32).max() <= ULP * np.abs(b32).max()
-        assert rms(a - b32) <= 0.6 * effect, (rms(a - b32), effect)
-        assert rms(a - b) <= 1.25 * effect, (rms(a - b), effect)
+        assert rms(a - b) <= 0.05 * effect, (rms(a - b), effect)
+        assert rms(c - b) > 0.5 * effect, (rms(c - b), effect)
 
 
 def _b4_twin_vs_pallas(tq, tk, causal, partner, seed=22):
@@ -620,28 +620,3 @@ def test_serve_cli_rms_norm_opt_txt(tmp_path):
     assert np.isfinite(np.load(tmp_path / "out" / "req0.npz")["features"]).all()
     with pytest.raises(SystemExit):
         serve.main(common + ["--blocks", "fused"])
-
-
-@pytest.mark.parametrize("option", [["--compute_dtype", "bfloat16"], ["--fast_ln"],
-                                    ["--rms_norm"]], ids=["compute_dtype", "fast_ln",
-                                                          "rms_norm"])
-def test_train_cli_refuses_bf16(tmp_path, option, capsys):
-    from hig_tpu_torch.train.__main__ import main as train_main
-
-    with pytest.raises(SystemExit):
-        train_main(["--device", "cpu", "--dataset_name", "synthetic_mul", "--data_root",
-                    str(tmp_path), "--checkpoints_dir", str(tmp_path / "ck"), *option])
-    err = capsys.readouterr().err
-    assert option[0][2:] in err and "next slice" in err
-
-
-def test_label_cli_refuses_bf16(tmp_path, capsys):
-    from hig_tpu_torch.label import main as label_main
-
-    opt = str(tmp_path / "opt.txt")
-    jcfg.save_opt_txt(jcfg.ExperimentConfig(**TINY, compute_dtype="bfloat16",
-                                            dataset_name="synthetic_mul",
-                                            data_root=str(tmp_path)), opt)
-    with pytest.raises(SystemExit):
-        label_main(["--opt_path", opt, "--device", "cpu", "--label_model"])
-    assert "labeling" in capsys.readouterr().err

@@ -39,6 +39,8 @@ def test_bound_takes_the_faster_float32_accurate_rate(kernel):
 # 989 TFLOP/s on the tensor cores for every product of two bfloat16 values,
 # B4-bf16's q·kᵀ too: its upcast operands' products are exact; 3xTF32
 # 495 / 3 for B2-bf16's float32 core), bytes at 2 per bfloat16 element.
+# A float32-accurate product of a bfloat16 activation and a float32 weight
+# is three bfloat16 products (B2-bf16a's GEMM): 989 / 3 beats 495 / 2.
 BF16_CASES = {
     "fused_block_bf16": ([(2 * M * D * 3 * D + 2 * M * D * D, "bf16"), (CORE, "bf16")],
                          2 * (2 * M * D + 2 * N * D + 4 * D * D + 8 * D) + 4 * M, "ops_bf16"),
@@ -48,6 +50,15 @@ BF16_CASES = {
     "flash_attention_bf16": ([(2 * 2 * N * H * T * T * HD, "bf16")],
                              2 * 4 * N * T * D + 4 * N * T, "bytes"),
     "efficient_attention_bf16": ([(CORE, "bf16")], 2 * 4 * N * T * D + 4 * N * T, "bytes"),
+    # bfloat16 activations with float32 weights: float32-accurate products,
+    # the GEMM's at the card's fastest such rate, the weight in three
+    # bfloat16 pieces (989 / 3, above two TF32 terms at 495 / 2)
+    "projected_attention_bf16a": ([(2 * M * D * 3 * D, "3xbf16"), (CORE, "3xtf32")],
+                                  2 * 2 * M * D + 4 * (3 * D * D + 3 * D) + 4 * M,
+                                  "ops_3xbf16+3xtf32"),
+    # the ordered bfloat16 sum over one B3-bf16 backward's two axes: float32
+    # adds outside the tensor cores, float32 in and out
+    "bf16_sum": ([(2 * N * T * D, "f32")], 4 * (2 * N * T * D + N * T * H + N * D), "bytes"),
 }
 
 
@@ -56,7 +67,8 @@ def test_bf16_bound_counts_each_part_at_its_rate(form):
     parts, nbytes, want_kind = BF16_CASES[form]
     ms, by, kind = chip_smoke.bound_parts(parts, nbytes)
     rates = {"bf16": chip_smoke.PEAK_BF16_FLOPS,
-             "3xtf32": chip_smoke.PEAK_TF32_FLOPS / chip_smoke.TF32_SPLIT}
+             "3xtf32": chip_smoke.PEAK_TF32_FLOPS / chip_smoke.TF32_SPLIT,
+             "3xbf16": chip_smoke.PEAK_BF16_FLOPS / 3, "f32": chip_smoke.PEAK_F32_FLOPS}
     want = max(sum(f / rates[r] for f, r in parts), nbytes / chip_smoke.PEAK_BYTES) * 1e3
     assert ms == pytest.approx(want, rel=1e-12)
     assert kind == want_kind
@@ -156,3 +168,62 @@ def test_bf16_gate_fails_b2_with_b1_core_roundings():
     with pytest.raises(ValueError, match="bfloat16"):
         plain(*[a.float() if torch.is_tensor(a) else a for a in args],
               rounded=chip_smoke.B1_CORE_ROUNDINGS)
+
+
+def test_bf16a_gate_fails_with_b1_core_roundings():
+    """B2-bf16a (bfloat16 activations, float32 weights) keeps its core in
+    float32 too: its twin with B1-bf16's core roundings fails its gates."""
+    import torch
+
+    from hig_tpu_torch.ops.pallas_attention import fused_projected_attention_plain as plain
+
+    w, x, mask, _, _ = chip_smoke.block_inputs(torch.device("cpu"))
+    xn = torch.nn.functional.layer_norm(x, (D,), w.ln_g, w.ln_b, 1e-6).to(torch.bfloat16)
+    args = (xn, xn, w.wq, w.bq, w.wk, w.bk, w.wv, w.bv, H, mask)
+    twin = plain(*args)
+    twin32 = plain(xn.float(), xn.float(), *args[2:])
+    assert twin.dtype == torch.bfloat16
+    assert chip_smoke.bf16_gate_row(twin, twin, twin32, twin)["passed"]
+    row = chip_smoke.bf16_gate_row(plain(*args, rounded=chip_smoke.B1_CORE_ROUNDINGS), twin,
+                                   twin32, twin)
+    assert not row["passed"], row
+
+
+@pytest.mark.parametrize("no_eff", [False, True], ids=["efficient", "no_eff"])
+def test_phase11_gate_passes_the_plain_route_and_fails_its_control(no_eff):
+    """Phase 11's gradient gate on the CPU, where the kernel route is the
+    plain route: a small bfloat16 model (first layer of 2, latent 128, head
+    dim 64) reads 0, and the control route (JAX's use_pallas forward for
+    the efficient blocks, B4's unrounded plain version for --no_eff)
+    exceeds BF16_TRAIN_RMS."""
+    import dataclasses
+
+    import torch
+
+    from hig_tpu_torch.config import ExperimentConfig, model_config
+    from hig_tpu_torch.diffusion import gaussian as g
+    from hig_tpu_torch.models.interaction_model import InteractionModel
+    from hig_tpu_torch.weights import load_flax_tree, random_flax_tree
+
+    torch.manual_seed(0)
+    mcfg = model_config(ExperimentConfig(num_layers=2, latent_dim=128, ff_size=256,
+                                         num_heads=2, text_latent_dim=32, cap_id=True,
+                                         no_eff=no_eff, compute_dtype="bfloat16"))
+    tree = random_flax_tree(dataclasses.replace(mcfg, compute_dtype="float32"), seed=0)
+    model = load_flax_tree(InteractionModel(mcfg), tree["params"]).train()
+    gen = torch.Generator().manual_seed(1)
+    pairs, T_ = chip_smoke.TRAIN_PAIRS // 4, 24
+    batch = {"motion": torch.randn(pairs, 2, T_, 263, generator=gen),
+             "lengths": torch.tensor([24, 20, 13, 24, 9, 17, 24, 5]),
+             "cap_ids": torch.randint(0, 43, (pairs, 2), generator=gen)}
+    failures = []
+    saved = chip_smoke.TRAIN_PAIRS
+    chip_smoke.TRAIN_PAIRS = pairs
+    try:
+        out = chip_smoke.bf16_grad_gate(g.make_schedule(g.linear_betas(1000)), batch, model,
+                                        "test", failures)
+    finally:
+        chip_smoke.TRAIN_PAIRS = saved
+    assert failures == [], out
+    assert out["kernels"] == {"loss_ratio": 0.0, "grad_ratio": 0.0}
+    assert max(out["control"].values()) > chip_smoke.BF16_TRAIN_RMS

@@ -32,11 +32,20 @@ rms(twin − the float32 twin on the same rounded inputs) or, where larger,
 1.5 × the twin's distance from the same twin on the CPU (the float32 order
 of sums alone; B1's cancelling KᵀV sum sits there); each form counts its
 own launches; B1-bf16 and B2-bf16 refuse T = 321; a bfloat16 tensor
-beside float32 operands raises.
+beside float32 operands raises, but for B2 on bfloat16 activations with
+float32 weights (B2-bf16a, a bfloat16 model's labeling on master weights),
+held to the same gates against its twin at the serving, labeling (128
+pairs) and evaluation (52 pairs, T = 196) shapes, which counts its own
+launches and refuses to run under grad.
 
 Gradients: B2, B3 (float32 and bfloat16) and B4 under autograd against autograd through their
 plain versions (the backwards recompute the plain versions, so only the
-forward's rounding differs), at the same tolerances; B1 refuses to run
+forward's rounding differs), at the same tolerances (B3-bf16's backward,
+XLA's bfloat16 VJP written out, equal to its plain route's on the card and
+within a bfloat16 ulp of its largest magnitude of the same on the CPU, also
+at the training shape: 64 pairs); the ordered bfloat16 sum of the bfloat16
+backwards, bit for bit against its plain version, at the training shape
+over each axis they sum; B1 refuses to run
 under grad; and whole training steps of the model through the kernels
 against the same steps through the plain versions: the loss within 1e-4
 relative and every gradient within 1e-3 of its leaf's largest magnitude
@@ -48,6 +57,7 @@ import numpy as np
 import pytest
 import torch
 
+from hig_tpu_torch.ops.bf16_sum import MAX_TERMS, bf16_sum, bf16_sum_plain
 from hig_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 from hig_tpu_torch.ops.fused_block import (
     BlockWeights,
@@ -392,8 +402,9 @@ def test_bf16_without_a_form_raises(cuda_bf16):
             fused_efficient_attention(*mixed, H, mask)
     with pytest.raises(ValueError):  # float32 weights
         fused_attention_block(xb, mask, _bf16(scale), _bf16(shift), w, H)
-    with pytest.raises(ValueError):  # float32 weights
-        fused_projected_attention(xb, xb, w.wq, w.bq, w.wk, w.bk, w.wv, w.bv, H, mask)
+    wb = BlockWeights(*[_bf16(a) for a in w])
+    with pytest.raises(ValueError):  # bfloat16 weights on float32 activations
+        fused_projected_attention(x, x, wb.wq, wb.bq, wb.wk, wb.bk, wb.wv, wb.bv, H, mask)
     with pytest.raises(ValueError):  # float32 keys
         flash_attention(xb, x, x, H, mask)
 
@@ -446,14 +457,18 @@ def test_efficient_attention_gradients(cuda, Tk):
     _assert_grads_close(got, want)
 
 
-@pytest.mark.parametrize("Tk", [T, 77])
-def test_efficient_attention_bf16_gradients(cuda_bf16, Tk):
-    """B3-bf16 under autograd: its backward recomputes the plain core in
-    float32 on the bfloat16 operands, output rounded, so the gradients are
-    those of autograd through that plain route, rounded to bfloat16."""
-    _, x, mask, _, _ = _inputs(cuda_bf16)
+@pytest.mark.parametrize("Tk,pairs", [(T, N_PAIRS), (77, N_PAIRS), (T, 64)],
+                         ids=["t91", "tk77", "train_shape"])
+def test_efficient_attention_bf16_gradients(cuda_bf16, Tk, pairs):
+    """B3-bf16 under autograd (the core of every bfloat16 efficient train
+    step; the training shape is a PIT step's 32 pairs under both caption
+    assignments): its backward is XLA's bfloat16 VJP of the core, which the
+    plain route's backward is too, so the gradients equal the plain route's
+    on the card, and the same backward on the CPU within one bfloat16 ulp of
+    its largest magnitude (float32 sums in another order)."""
+    _, x, mask, _, _ = _inputs(cuda_bf16, pairs=pairs)
     gen = torch.Generator().manual_seed(1)
-    k, v = (torch.randn((N_PAIRS, 2, Tk, D), generator=gen).to(cuda_bf16, BF16).requires_grad_()
+    k, v = (torch.randn((pairs, 2, Tk, D), generator=gen).to(cuda_bf16, BF16).requires_grad_()
             for _ in range(2))
     q = _bf16(x).requires_grad_()
     m = mask[..., :Tk]
@@ -461,11 +476,91 @@ def test_efficient_attention_bf16_gradients(cuda_bf16, Tk):
     out, got = _grads(lambda: fused_efficient_attention(q, k, v, H, m), (q, k, v))
     assert out.grad_fn is not None and out.dtype == BF16
     assert fused_efficient_attention.launches_bf16 == before + 1
-    _, want = _grads(lambda: _bf16(efficient_attention(q.float(), k.float(), v.float(), H, m)),
-                     (q, k, v))
-    for a, b in zip(got, want):
+    _, want = _grads(lambda: fused_efficient_attention_plain(q, k, v, H, m), (q, k, v))
+    leaves = [t.detach().cpu().requires_grad_() for t in (q, k, v)]
+    _, cpu = _grads(lambda: fused_efficient_attention_plain(*leaves, H, m.cpu()), leaves)
+    for a, b, c in zip(got, want, cpu):
         assert a.dtype == BF16
         assert torch.equal(a, b)
+        err = (a.float().cpu() - c.float()).abs().max().item()
+        assert err <= 2 ** -8 * c.float().abs().max().item(), err
+
+
+# The ordered bfloat16 sum over the axes the bfloat16 backwards sum at the
+# training shape (64 pairs, 8 heads of 64): B3-bf16's feature and time
+# softmaxes, B4-bf16's key softmax (at T = 196 too); one term; the most terms
+# the kernel takes; and a transposed (non-contiguous) input.
+SUM_CASES = {"features": ((64, 2, T, H, 64), -1), "time": ((64, 2, T, H, 64), -3),
+             "keys": ((64, 2, T, T, H), -2), "keys_t196": ((8, 2, 196, 196, H), -2),
+             "one_term": ((4, 1, 8), 1), "max_terms": ((3, MAX_TERMS, 5), 1),
+             "transposed": ((6, 40, 33), 1)}
+
+
+@pytest.mark.parametrize("case", list(SUM_CASES))
+def test_bf16_sum_kernel_is_its_plain_version(cuda, case):
+    """The ordered bfloat16 sum's kernel against its plain version on the
+    card and on the CPU, bit for bit: the same float32 adds, each rounded
+    to bfloat16, in the same order. One launch, counted."""
+    shape, dim = SUM_CASES[case]
+    gen = torch.Generator().manual_seed(7)
+    x = (1e-2 * torch.randn(shape, generator=gen)).to(BF16).float().to(cuda)
+    if case == "transposed":
+        x = x.transpose(1, 2)
+    before = bf16_sum.launches
+    got = bf16_sum(x, dim)
+    assert bf16_sum.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape[dim] == 1
+    assert torch.equal(got, bf16_sum_plain(x, dim))
+    assert torch.equal(got.cpu(), bf16_sum_plain(x.cpu(), dim))
+
+
+def test_bf16_sum_kernel_refuses_what_it_does_not_take(cuda):
+    with pytest.raises(ValueError, match="at most"):
+        bf16_sum(torch.zeros(2, MAX_TERMS + 1, device=cuda), 1)
+    with pytest.raises(ValueError, match="float32"):
+        bf16_sum(torch.zeros(2, 8, device=cuda, dtype=BF16), 1)
+
+
+# label: a labeling vote's 64 pairs under both assignments; eval: a chunk of 52 pairs
+MIXED_SHAPES = {"serve": (T, N_PAIRS), "label": (T, 128), "eval": (196, 52)}
+
+
+@pytest.mark.parametrize("same_source", [True, False], ids=["self", "partner"])
+@pytest.mark.parametrize("shape", list(MIXED_SHAPES))
+def test_mixed_projected_attention_matches_its_twin(cuda_bf16, shape, same_source):
+    """B2-bf16a: bfloat16 activations with float32 weights, under the
+    bfloat16 forms' gates against its twin; the twin with B1-bf16's core
+    roundings fails them."""
+    t, pairs = MIXED_SHAPES[shape]
+    w, x, mask, _, _ = _inputs(cuda_bf16, t, pairs)
+    xn = _bf16(torch.nn.functional.layer_norm(x, (D,), w.ln_g, w.ln_b, 1e-6))
+    kv, kmask = (xn, mask) if same_source else (xn.flip(1).contiguous(),
+                                                mask.flip(1).contiguous())
+    args = (xn, kv, w.wq, w.bq, w.wk, w.bk, w.wv, w.bv, H, kmask)
+    counts = (fused_projected_attention.launches_mixed, fused_projected_attention.launches_bf16,
+              fused_projected_attention.launches)
+    with torch.no_grad():
+        got = fused_projected_attention(*args)
+        torch.cuda.synchronize()
+        assert (fused_projected_attention.launches_mixed, fused_projected_attention.launches_bf16,
+                fused_projected_attention.launches) == (counts[0] + 1, *counts[1:])
+        twin = fused_projected_attention_plain(*args)
+        twin32 = fused_projected_attention_plain(xn.float(), kv.float(), *args[2:])
+        cpu = fused_projected_attention_plain(*[a.cpu() if torch.is_tensor(a) else a
+                                                for a in args])
+        ok, readings = bf16_close(got, twin, twin32, cpu)
+        assert ok, readings
+        control = fused_projected_attention_plain(*args, rounded=CORE_ROUNDINGS)
+        ok, readings = bf16_close(control, twin, twin32, cpu)
+        assert not ok, readings
+
+
+def test_mixed_projected_attention_refuses_grad(cuda_bf16):
+    """JAX's VJP of the mixed form fails: the port's raises under grad."""
+    w, x, mask, _, _ = _inputs(cuda_bf16)
+    xb = _bf16(x).requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_projected_attention(xb, xb, w.wq, w.bq, w.wk, w.bk, w.wv, w.bv, H, mask)
 
 
 @pytest.mark.parametrize("case", ["self", "partner", "causal"])

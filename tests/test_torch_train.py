@@ -476,18 +476,11 @@ def test_epoch_batches_match_jax_bitwise(synth_data, tmp_path, variant):
 
 REFUSED = {"pretrained": True, "no_cross_attn": True,
            "single_transformer": True, "use_native_loader": True, "fsdp": True, "tp": True,
-           "pp_micro": 2, "profile": True, "dropout": 0.1, "compute_dtype": "bfloat16"}
-# served and evaluated, refused by the trainer (bf16 training is the next slice)
-TRAINER_REFUSED = ("compute_dtype",)
+           "pp_micro": 2, "profile": True, "dropout": 0.1}
 
 
 @pytest.mark.parametrize("field", sorted(REFUSED))
 def test_config_refuses_unported_options(field):
-    if field in TRAINER_REFUSED:
-        cfg = ExperimentConfig(**{field: REFUSED[field]})
-        with pytest.raises(ValueError, match=field):
-            tt.Trainer(cfg, device="cpu")
-        return
     with pytest.raises(ValueError, match=field):
         ExperimentConfig(**{field: REFUSED[field]})
 

@@ -62,7 +62,8 @@ Phases, each printing one JSON line (or several):
      run, of the guided serving call, of one labeling vote (a denoiser
      forward over 64 pairs under both assignments), of one more PIT
      training step and of one DDPM-1000 serving call (torch.profiler), and
-     of one bfloat16 PIT step and one bfloat16 labeling vote (phase 11). It
+     of one bfloat16 PIT step and two bfloat16 labeling votes, fused
+     (B1-bf16) and rms_norm projected (B2-bf16a) (phase 11). It
      runs last, after phase 11: once the profiler has run, later launches
      are slower;
   9. evaluate, on the same dataset plus a test split of 52 clips (two per
@@ -89,7 +90,8 @@ Phases, each printing one JSON line (or several):
      shape, B2-bf16a also at the labeling shape (256 sequences) and
      B3-bf16 at the training shape (128 sequences, with its backward on the
      card against the same backward on the CPU, within one bfloat16 ulp of
-     the largest gradient), and the ordered bfloat16 sum of the bfloat16
+     the largest gradient), B2-bf16a's weight split against its plain
+     version bit for bit and timed alone, and the ordered bfloat16 sum of the bfloat16
      backwards at the training shape over the three axes they sum (bit for
      bit against its plain version, timed, with its bound), each form
      against its bfloat16 twin (max |err| ≤ 2 bfloat16 ulps of the twin's
@@ -1481,8 +1483,7 @@ PEAK_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores (H100 SXM data sheet)
 # ``launches_mixed``. The card's fastest float32-accurate product of a
 # bfloat16 activation and a float32 weight splits the weight into three
 # bfloat16 pieces (8 + 8 + 8 significand bits, each product exact in
-# float32): three bf16 products at 989 TFLOP/s, faster than the kernel's two
-# TF32 ones at 495.
+# float32): three bf16 products at 989 TFLOP/s, as the kernel takes them.
 MIXED_FORM = "projected_attention_bf16a"
 BF16_SPLIT = 3
 # The ordered bfloat16 sum of the bfloat16 backwards (``ops/bf16_sum.py``),
@@ -1685,9 +1686,12 @@ def check_projected_attention_bf16a(w, x, mask, failures) -> dict:
     """B2-bf16a (bfloat16 activations, float32 weights) self and partner, as
     a bfloat16 model's unfused blocks call it in eval mode on float32
     master weights, against its twin, beside the planted control (the twin
-    with B1-bf16's core roundings: its core must be float32)."""
+    with B1-bf16's core roundings: its core must be float32); its weight
+    split (the first of its two launches) against the plain split on the
+    card, bit for bit, and timed alone (``split_ms``, part of ``ms``)."""
     from hig_tpu_torch.ops.pallas_attention import fused_projected_attention
     from hig_tpu_torch.ops.pallas_attention import fused_projected_attention_plain as plain
+    from hig_tpu_torch.ops.pallas_attention import split_bf16_pieces, weight_pieces
 
     N, Tq, hd = 2 * x.shape[0], x.shape[2], D // HEADS
     M = N * Tq
@@ -1711,11 +1715,22 @@ def check_projected_attention_bf16a(w, x, mask, failures) -> dict:
             cases[name]["control_rms_ratio"] = row["rms_ratio"]
             cases[name]["ms"] = time_ms(lambda: fused_projected_attention(*args))
             cases[name]["plain_ms"] = time_ms(lambda: plain(*args))
+        pieces = weight_pieces(w.wq, w.wk, w.wv)
+        want = torch.stack([torch.cat(p) for p in
+                            zip(*(split_bf16_pieces(t) for t in (w.wq, w.wk, w.wv)))])
+        split_equal = bool(torch.equal(pieces.view(torch.int16), want.view(torch.int16)))
+        fail_if(failures, not split_equal,
+                f"{MIXED_FORM} {N}x{Tq}: the weight split kernel differs from its plain version")
+        split_ms = time_ms(lambda: weight_pieces(w.wq, w.wk, w.wv))
+        for case in cases.values():
+            case["split_ms"], case["split_bit_for_bit"] = split_ms, split_equal
     parts = [(2 * M * D * 3 * D, "3xbf16"), (2 * 2 * N * HEADS * Tq * hd * hd, "3xtf32")]
     nbytes = 2 * M * D * 2 + 4 * (3 * D * D + 3 * D) + 4 * M  # x, y; weights, biases; mask
-    return bf16_row(MIXED_FORM, "hig_tpu_torch/csrc/projected_attention.cu",
-                    "hig_tpu/ops/pallas_attention.py:116", [N, Tq, D, HEADS], cases, parts,
-                    nbytes)
+    row = bf16_row(MIXED_FORM, "hig_tpu_torch/csrc/projected_attention.cu",
+                   "hig_tpu/ops/pallas_attention.py:116", [N, Tq, D, HEADS], cases, parts,
+                   nbytes)
+    row["split_ms"] = max(c["split_ms"] for c in cases.values())
+    return row
 
 
 def check_b3_bf16_backward(w, x, mask) -> dict:
@@ -1917,6 +1932,7 @@ def bf16_kernel_rows(device, failures) -> dict:
               "flash_attention_bf16": check_flash_attention_bf16}
     keys = (*TRAIN_SHAPE_KEYS, "rms_ratio")
     rows = {}
+    extra = {MIXED_FORM: ("split_ms",)}
     for shape, inputs in (("serve", block_inputs(device)),
                           ("eval", block_inputs(device, EVAL_CLIPS, EVAL_T))):
         for name, check in checks.items():
@@ -1925,11 +1941,11 @@ def bf16_kernel_rows(device, failures) -> dict:
             if shape == "serve":
                 rows[name] = row
             else:
-                rows[name]["eval_shape"] = {k: row[k] for k in keys}
+                rows[name]["eval_shape"] = {k: row[k] for k in (*keys, *extra.get(name, ()))}
     inputs = block_inputs(device, 2 * LABEL_BATCH)
     rows[MIXED_FORM]["label_shape"] = {
         k: v for k, v in check_projected_attention_bf16a(*inputs[:3], failures).items()
-        if k in keys}
+        if k in (*keys, *extra[MIXED_FORM])}
     inputs = block_inputs(device, 2 * TRAIN_PAIRS)
     rows["efficient_attention_bf16"]["train_shape"] = {
         k: v for k, v in check_efficient_attention_bf16(*inputs[:3], failures).items()
@@ -2395,8 +2411,8 @@ def bf16_scorer_rows(model_config, model_dir: str, cfg, fused: bool, own: str, f
 def phase_bf16_train(device, failures, smi: str, requests: list, data: str, tmp: str,
                      f32_pit: dict) -> tuple:
     """Phase 11 (see the module doc). Returns (the launches of each form,
-    {run: (call, wall s)} of one bfloat16 PIT step and one bfloat16
-    labeling vote, profiled last)."""
+    {run: (call, wall s)} of one bfloat16 PIT step and the two bfloat16
+    labeling votes, profiled last)."""
     from hig_tpu_torch import label, serve
     from hig_tpu_torch.data.vocab import CAP2KEY, CLASSID2CAPS
     from hig_tpu_torch.diffusion import gaussian as g
@@ -2485,8 +2501,8 @@ def phase_bf16_train(device, failures, smi: str, requests: list, data: str, tmp:
         rows, (vote, vote_s) = bf16_scorer_rows(mcfg, cfg.model_dir, cfg, fused, own, failures)
         print(json.dumps({"phase": "bf16_scorer", "scorer": name, "nvidia_smi": smi, **rows}),
               flush=True)
-        if name == "fused":
-            runs["label_vote_bf16"], walls["label_vote_bf16"] = vote, vote_s
+        run = "label_vote_bf16" if name == "fused" else "label_vote_bf16_rms_norm"
+        runs[run], walls[run] = vote, vote_s
         del vote
 
     # 8 requests served in bfloat16 from the PIT run's checkpoint (cast once)

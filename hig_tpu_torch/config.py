@@ -5,7 +5,8 @@ read, with the same names and defaults).
 Options the port does not carry yet are still fields, so that setting one
 is refused with a clear message instead of being ignored: the
 pipeline/FSDP/tensor-parallel layouts, the native loader, profiling, the
-single-transformer variant, dropout and the ``--pretrained`` transfer.
+single-transformer variant and the ``--pretrained`` transfer. ``dropout``
+is accepted and applies no dropout, as in JAX (:class:`ExperimentConfig`).
 ``compute_dtype: bfloat16``, ``fast_ln`` and ``rms_norm`` train, label,
 serve and evaluate (the route rule of ``models/attention.py``).
 Caption dropout (``cond_drop_prob``) belongs to the supervised stage and is
@@ -76,6 +77,11 @@ class ExperimentConfig:
     no_clip: bool = False
     no_eff: bool = False
     no_cross_attn: bool = False
+    # accepted and not applied: every JAX path runs deterministically (each
+    # apply passes deterministic=True, hig_tpu/train/trainer.py:224,231,236,
+    # 240,511,518 and hig_tpu/train/labeling.py:53), where nn.Dropout is the
+    # identity (hig_tpu/models/attention.py:572), so a run at any dropout
+    # computes what dropout 0 computes
     dropout: float = 0.0
     causal: bool = False
     single_transformer: bool = False
@@ -117,7 +123,7 @@ class ExperimentConfig:
 
     # "float32" | "bfloat16"; fast_ln keeps the efficient blocks' LayerNorm
     # statistics in the compute dtype; rms_norm swaps their LayerNorms for
-    # RMSNorms. Served and evaluated; training and labeling refuse them.
+    # RMSNorms. Trained, labeled, served and evaluated.
     compute_dtype: str = "float32"
     fast_ln: bool = False
     rms_norm: bool = False
@@ -140,7 +146,6 @@ class ExperimentConfig:
             "no_cross_attn": self.no_cross_attn, "single_transformer": self.single_transformer,
             "use_native_loader": self.use_native_loader, "fsdp": self.fsdp, "tp": self.tp,
             "pp_micro": self.pp_micro > 0, "profile": self.profile,
-            "dropout": self.dropout > 0.0,
         }
         bad = sorted(name for name, on in refused.items() if on)
         if bad:

@@ -11,10 +11,10 @@
 //
 // bfloat16. Every bfloat16 form rounds float32 values to bfloat16 with
 // round-to-nearest-even (what XLA's convert does) and moves bfloat16 data
-// through the same float4/float2-sized loads and stores. B1-bf16, B2-bf16
-// and B4-bf16 run their bfloat16 products on wgmma (hopper.cuh); B2-bf16's
-// float32 core is 3xTF32 on mma.sync, and B3-bf16 takes its products of
-// bfloat16 values, which are TF32 values, as one exact TF32 mma.sync each.
+// through the same float4/float2-sized loads and stores. B1-bf16, B2-bf16,
+// B2-bf16a, B3-bf16 and B4-bf16 run their bfloat16 products on wgmma
+// (hopper.cuh); the float32 core of B2-bf16 and B2-bf16a is 3xTF32 on
+// mma.sync.
 #pragma once
 
 #include <cuda_bf16.h>

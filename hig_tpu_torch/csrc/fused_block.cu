@@ -129,7 +129,8 @@ __global__ void __launch_bounds__(QC_THREADS, 1) qkv_core_bf16_kernel(
 
   if (warp == 4 * QC_WG) {  // producer: k | v chunks of every round, then q's
     if (lane == 0)
-      qc_produce(&tx, &tx, &twq, &twk, &twv, src, n, h, ring, full, empty, stages, tiles, kchunks);
+      qc_produce(&tx, &tx, QcWeights{&twq, &twk, &twv, 64 * h, 64 * h, 64 * h}, src, n, ring,
+                 full, empty, stages, tiles, kchunks);
     return;
   }
 

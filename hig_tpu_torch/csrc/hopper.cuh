@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the redesigned bfloat16 kernels
-// (B4-bf16 in flash_attention.cu; B1-bf16 in fused_block.cu and B2-bf16 in
-// projected_attention.cu, over qkv_core.cuh): mbarriers,
+// (B4-bf16 in flash_attention.cu; B1-bf16 in fused_block.cu and B2-bf16 and
+// B2-bf16a in projected_attention.cu, over qkv_core.cuh; B3-bf16 in
+// efficient_attention.cu): mbarriers,
 // TMA tile loads, wgmma with bfloat16 operands and float32 accumulators,
 // the shared-memory descriptors of 128-byte-swizzled tiles, and the host
 // side that encodes a tensor map.

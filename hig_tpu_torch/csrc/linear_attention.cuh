@@ -54,11 +54,8 @@
 // bfloat16 forms. The row pass reads float32 or bfloat16 rows and writes
 // either (statistics in float32 always, as the Pallas kernel keeps them);
 // B1-bf16 takes it beside its own wgmma kernels (fused_block.cu). B2-bf16
-// (projected_attention.cu) and B3-bf16 (efficient_attention.cu) are kernels
-// of their own. B2 on bfloat16 activations with float32 weights runs the
-// float32 form's two launches: the GEMM reads bfloat16 A rows (TA = bf16),
-// each an exact TF32 value, so a product takes two TF32 terms, a * w_hi +
-// a * w_lo (mma_2xtf32), and the core stores y rounded to bfloat16 (TO).
+// and B2-bf16a (projected_attention.cu) and B3-bf16 (efficient_attention.cu)
+// are kernels of their own.
 //
 // Assumptions, checked by the Python wrappers: D % 64 == 0 (B1: D % 128 ==
 // 0 and D <= 1024 for the row pass), head dim 64, every pointer 16-byte
@@ -69,8 +66,6 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
-
-#include <type_traits>
 
 #include "common.cuh"
 
@@ -96,10 +91,9 @@ constexpr float MASK_BIAS = -1000000.0f;
 // BIAS_RESID: out = A W^T + bias + resid          (Wo of B1)
 enum Epilogue { BIAS = 0, BIAS_RESID = 1 };
 
-template <typename TA>
-struct GemmArgsT {
-  const TA* a0;        // (M, K) source of output segment 0 (queries / input)
-  const TA* a1;        // (M, K) source of segments 1, 2 (keys, values)
+struct GemmArgs {
+  const float* a0;     // (M, K) source of output segment 0 (queries / input)
+  const float* a1;     // (M, K) source of segments 1, 2 (keys, values)
   const float* w0;     // (D, K) weight of segment 0
   const float* w1;
   const float* w2;
@@ -110,26 +104,6 @@ struct GemmArgsT {
   float* out;          // (M, ldo)
   int M, K, D, ldo;
 };
-using GemmArgs = GemmArgsT<float>;
-
-// acc[i][j] += a[i] * b[j] for A fragments that are exact TF32 values (a
-// bfloat16 value widened): a * b_lo, then a * b_hi, over every tile in turn.
-// Only b's part below its TF32 low half (< 2^-22 of b) is dropped, as in
-// 3xTF32, with two TF32 products where 3xTF32 takes three.
-template <int I, int J>
-__device__ __forceinline__ void mma_2xtf32(float* acc, const uint32_t* a, const Split* b) {
-#pragma unroll
-  for (int term = 0; term < 2; ++term)
-#pragma unroll
-    for (int i = 0; i < I; ++i)
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-        uint32_t bf[2];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) bf[r] = term == 0 ? b[2 * j + r].lo : b[2 * j + r].hi;
-        mma_tf32(acc + 4 * (J * i + j), a + 4 * i, bf);
-      }
-}
 
 // LayerNorm of each row of `in` (M, D) with weight g and bias b into `out`;
 // with STYL also out = SiLU(out * (1 + scale[n]) + shift[n]), n = row / T.
@@ -195,17 +169,14 @@ __global__ void __launch_bounds__(NORM_THREADS) row_norm_kernel(
 }
 
 // grid (ldo / BN, ceil(M / BM)); a column block never straddles two output
-// segments because D % BN == 0. Dynamic shared memory: gemm_smem<TA>(BM, BN).
-// TA: the element type of A, float or bf16 (exact TF32 values: two products).
-template <int BM, int BN, int EPI, typename TA = float>
-__global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(const GemmArgsT<TA> p) {
+// segments because D % BN == 0. Dynamic shared memory: gemm_smem(BM, BN).
+template <int BM, int BN, int EPI>
+__global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(const GemmArgs p) {
   constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;  // warp tile
   constexpr int MT = WM / 16, NT = WN / 8;  // m16 and n8 tiles per warp
-  constexpr bool EXACT_A = !std::is_same<TA, float>::value;
-  constexpr int AV = 16 / sizeof(TA);       // A elements per 16-byte copy
   extern __shared__ __align__(16) float smem[];
-  TA* As = reinterpret_cast<TA*>(smem);                         // [STAGES][BM][SK]
-  float* Bs = smem + STAGES * BM * SK * sizeof(TA) / sizeof(float);  // [STAGES][BN][SK]
+  float* As = smem;                          // [STAGES][BM][SK]
+  float* Bs = smem + STAGES * BM * SK;       // [STAGES][BN][SK]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, c = lane & 3;
@@ -214,18 +185,18 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(const GemmArgsT<TA> 
   const int col0 = blockIdx.x * BN;
   const int seg = col0 / p.D;
   const int wrow0 = col0 - seg * p.D;
-  const TA* A = seg == 0 ? p.a0 : p.a1;
+  const float* A = seg == 0 ? p.a0 : p.a1;
   const float* W = seg == 0 ? p.w0 : (seg == 1 ? p.w1 : p.w2);
   const float* bias = seg == 0 ? p.b0 : (seg == 1 ? p.b1 : p.b2);
   const int KT = p.K / BK;
 
   auto load_stage = [&](int kt, int s) {
     const int k0 = kt * BK;
-    TA* as = As + s * BM * SK;
+    float* as = As + s * BM * SK;
     float* bs = Bs + s * BN * SK;
 #pragma unroll
-    for (int i = tid; i < BM * (BK / AV); i += GEMM_THREADS) {
-      const int r = i / (BK / AV), q = (i % (BK / AV)) * AV;
+    for (int i = tid; i < BM * (BK / 4); i += GEMM_THREADS) {
+      const int r = i / (BK / 4), q = (i % (BK / 4)) * 4;
       const int row = row0 + r;
       const bool ok = row < p.M;
       cp_async16(as + r * SK + q, A + (size_t)(ok ? row : 0) * p.K + k0 + q, ok);
@@ -255,42 +226,27 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(const GemmArgsT<TA> 
     __syncthreads();  // tile kt is in; every warp is done with tile kt - 1
     if (kt + STAGES - 1 < KT) load_stage(kt + STAGES - 1, (kt + STAGES - 1) % STAGES);
     cp_async_commit();
-    const TA* as = As + (kt % STAGES) * BM * SK + (wm * WM + g) * SK + 2 * c;
+    const float* as = As + (kt % STAGES) * BM * SK + (wm * WM + g) * SK + 2 * c;
     const float* bs = Bs + (kt % STAGES) * BN * SK + (wn * WN + g) * SK + 2 * c;
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 8) {
-      Split b[NT][2];
+      Split a[MT][4], b[NT][2];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const float2 r0 = *reinterpret_cast<const float2*>(as + (i * 16) * SK + kk);
+        const float2 r8 = *reinterpret_cast<const float2*>(as + (i * 16 + 8) * SK + kk);
+        a[i][0] = split_tf32(r0.x);
+        a[i][2] = split_tf32(r0.y);
+        a[i][1] = split_tf32(r8.x);
+        a[i][3] = split_tf32(r8.y);
+      }
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const float2 w = *reinterpret_cast<const float2*>(bs + (j * 8) * SK + kk);
         b[j][0] = split_tf32(w.x);
         b[j][1] = split_tf32(w.y);
       }
-      if constexpr (EXACT_A) {
-        uint32_t a[MT][4];
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          const float2 r0 = load2(as + (i * 16) * SK + kk);
-          const float2 r8 = load2(as + (i * 16 + 8) * SK + kk);
-          a[i][0] = __float_as_uint(r0.x);
-          a[i][2] = __float_as_uint(r0.y);
-          a[i][1] = __float_as_uint(r8.x);
-          a[i][3] = __float_as_uint(r8.y);
-        }
-        mma_2xtf32<MT, NT>(&acc[0][0][0], &a[0][0], &b[0][0]);
-      } else {
-        Split a[MT][4];
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          const float2 r0 = load2(as + (i * 16) * SK + kk);
-          const float2 r8 = load2(as + (i * 16 + 8) * SK + kk);
-          a[i][0] = split_tf32(r0.x);
-          a[i][2] = split_tf32(r0.y);
-          a[i][1] = split_tf32(r8.x);
-          a[i][3] = split_tf32(r8.y);
-        }
-        mma_3xtf32<MT, NT>(&acc[0][0][0], &a[0][0], &b[0][0]);
-      }
+      mma_3xtf32<MT, NT>(&acc[0][0][0], &a[0][0], &b[0][0]);
     }
   }
   cp_async_wait<0>();
@@ -324,15 +280,13 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(const GemmArgsT<TA> 
 //   state[d][l] = sum_t softmax_t(k)[t][d] * v[t][l]
 //   y[t] = softmax_d(q[t]) . state
 // q has Tq rows per sequence at row stride ldq; k and v have Tk rows at
-// row stride ldkv; the mask is (N, Tk); y is (N, Tq, D) of TO (float, or
-// bfloat16: each value rounded once at the store). k, v and the mask come
-// from sequence n ^ 1 when `interaction` is set (the other actor of the pair
-// in the (B, 2) layout), else from n.
-template <typename TO = float>
+// row stride ldkv; the mask is (N, Tk); y is (N, Tq, D). k, v and the mask
+// come from sequence n ^ 1 when `interaction` is set (the other actor of
+// the pair in the (B, 2) layout), else from n.
 __global__ void __launch_bounds__(CORE_THREADS) linear_attention_core(
     const float* __restrict__ qp, const float* __restrict__ kp,
     const float* __restrict__ vp, const float* __restrict__ mask,
-    TO* __restrict__ y, int Tq, int Tk, int D, int ldq, int ldkv, int interaction) {
+    float* __restrict__ y, int Tq, int Tk, int D, int ldq, int ldkv, int interaction) {
   // Two stages of (k chunk, v chunk); after the key loop the same memory
   // holds the normalized state [HD][KS] and the softmaxed queries [CORE_BQ][QS].
   __shared__ __align__(16) float buf[2 * 2 * TC * KS];
@@ -498,35 +452,33 @@ __global__ void __launch_bounds__(CORE_THREADS) linear_attention_core(
   for (int half = 0; half < 2; ++half) {
     const int t = t0q + mt * 16 + g + 8 * half;
     if (t >= Tq) continue;
-    TO* yr = y + ((size_t)n * Tq + t) * D + h * HD;
+    float* yr = y + ((size_t)n * Tq + t) * D + h * HD;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       store2(yr + (nt0 + j) * 8 + 2 * c, out[j][2 * half], out[j][2 * half + 1]);
   }
 }
 
-template <typename TA = float>
 constexpr size_t gemm_smem(int bm, int bn) {
-  return (sizeof(TA) * bm + sizeof(float) * bn) * STAGES * SK;
+  return sizeof(float) * STAGES * (bm + bn) * SK;
 }
 
-template <int BM, int BN, int EPI, typename TA>
-cudaError_t launch_gemm_tiles(const GemmArgsT<TA>& p, int ncols, cudaStream_t stream) {
+template <int BM, int BN, int EPI>
+cudaError_t launch_gemm_tiles(const GemmArgs& p, int ncols, cudaStream_t stream) {
   // Set on every launch, not once through a static: a static local of an
   // inline function is one object across every library loaded in the
   // process, and each library has its own copy of the kernel.
-  constexpr size_t smem = gemm_smem<TA>(BM, BN);
+  constexpr size_t smem = gemm_smem(BM, BN);
   const cudaError_t attr = cudaFuncSetAttribute(
-      gemm_kernel<BM, BN, EPI, TA>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      gemm_kernel<BM, BN, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return attr;
   const dim3 grid(ncols / BN, (p.M + BM - 1) / BM);
-  gemm_kernel<BM, BN, EPI, TA><<<grid, GEMM_THREADS, smem, stream>>>(p);
+  gemm_kernel<BM, BN, EPI><<<grid, GEMM_THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 // The q | k | v projections: out (M, 3 * D) at ldo = 3 * D.
-template <typename TA>
-inline cudaError_t launch_gemm_qkv(const GemmArgsT<TA>& p, cudaStream_t stream) {
+inline cudaError_t launch_gemm_qkv(const GemmArgs& p, cudaStream_t stream) {
   return launch_gemm_tiles<96, 64, BIAS>(p, 3 * p.D, stream);
 }
 
@@ -551,19 +503,17 @@ cudaError_t launch_row_norm(const TI* in, TO* out, const TP* g, const TP* b,
   return cudaGetLastError();
 }
 
-template <typename TO>
 inline cudaError_t launch_core(const float* q, const float* k, const float* v, const float* mask,
-                               TO* y, int N, int Tq, int Tk, int D, int ldq, int ldkv,
+                               float* y, int N, int Tq, int Tk, int D, int ldq, int ldkv,
                                int interaction, cudaStream_t stream) {
   const dim3 grid(D / HD, N, (Tq + CORE_BQ - 1) / CORE_BQ);
-  linear_attention_core<TO><<<grid, CORE_THREADS, 0, stream>>>(
+  linear_attention_core<<<grid, CORE_THREADS, 0, stream>>>(
       q, k, v, mask, y, Tq, Tk, D, ldq, ldkv, interaction);
   return cudaGetLastError();
 }
 
 // The core over a (N*T, 3*D) q | k | v buffer, as B1 and B2 produce it.
-template <typename TO>
-inline cudaError_t launch_core_qkv(const float* qkv, const float* mask, TO* y, int N, int T,
+inline cudaError_t launch_core_qkv(const float* qkv, const float* mask, float* y, int N, int T,
                                    int D, int interaction, cudaStream_t stream) {
   return launch_core(qkv, qkv + D, qkv + 2 * D, mask, y, N, T, T, D, 3 * D, 3 * D, interaction,
                      stream);

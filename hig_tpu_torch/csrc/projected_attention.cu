@@ -29,37 +29,6 @@ extern "C" int hig_projected_attention(
   return hig::launch_core_qkv(qkv, mask, out, N, T, D, 0, stream);
 }
 
-// B2 on bfloat16 activations with float32 weights (B2-bf16a), as the Pallas
-// kernel computes it for those dtypes (a bfloat16 model's unfused blocks on
-// float32 master weights): jnp.dot of a bfloat16 row and a float32 weight
-// promotes the row, so q, k and v are float32 products plus the float32
-// bias, the whole core is float32, and y is rounded to bfloat16 once, at the
-// store. The float32 form's two launches (linear_attention.cuh): the q|k|v
-// GEMM reads the bfloat16 rows (half the activation bytes; a bfloat16 value
-// is exact in TF32, so each product is a * w_hi + a * w_lo, two TF32 terms
-// where 3xTF32 takes three) into the float32 `qkv`, then the core stores
-// bfloat16 y. Bound on this card: the products are float32-accurate, 2.5
-// GFLOP at the serving shape (N = 16, T = 91, D = 512) against 6 MB, so
-// operations: 0.010 ms at 495 / 2 TFLOP/s for the GEMM and 495 / 3 for the
-// core. Returns the first cudaError_t.
-extern "C" int hig_projected_attention_bf16a(
-    const hig::bf16* q_src, const hig::bf16* kv_src,
-    const float* wq, const float* bq, const float* wk, const float* bk,
-    const float* wv, const float* bv, const float* mask,
-    float* qkv, hig::bf16* out, int N, int T, int D, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-
-  hig::GemmArgsT<hig::bf16> a{};
-  a.a0 = q_src; a.a1 = kv_src;
-  a.w0 = wq; a.w1 = wk; a.w2 = wv;
-  a.b0 = bq; a.b1 = bk; a.b2 = bv;
-  a.out = qkv;
-  a.M = N * T; a.K = D; a.D = D; a.ldo = 3 * D;
-  const cudaError_t err = hig::launch_gemm_qkv(a, stream);
-  if (err != cudaSuccess) return err;
-  return hig::launch_core_qkv(qkv, mask, out, N, T, D, 0, stream);
-}
-
 // B2-bf16: bfloat16 activations and weights, as the Pallas kernel computes
 // them for dt = bfloat16 (hig_tpu/ops/pallas_attention.py:116-137): q, k, v
 // are float32 dots with the bias added in float32, the whole core is
@@ -72,7 +41,7 @@ extern "C" int hig_projected_attention_bf16a(
 // serving shape 0.0035 ms. The Pallas kernel keeps the float32 q | k | v in
 // VMEM (125 MB written and read back at 104 x 196, were it in device
 // memory); here it stays on the chip too. One launch,
-// projected_core_bf16_kernel, one block per (sequence, head), laid out as
+// projected_core_kernel, one block per (sequence, head), laid out as
 // B1-bf16's q|k|v + core kernel (qkv_core.cuh): a producer warp feeds a TMA
 // ring with 64-column chunks of kv_src's rows and the head's rows of
 // Wk | Wv, then of q_src's rows and Wq, through two tensor maps; two
@@ -91,6 +60,24 @@ extern "C" int hig_projected_attention_bf16a(
 // [tpad][64] with the 8-float group j of row t at j ^ (t % 4): the state
 // product's fragment loads and the accumulators' stores are free of bank
 // conflicts.
+//
+// B2-bf16a: bfloat16 activations with float32 weights and biases (a
+// bfloat16 model's unfused blocks on float32 master weights), as the Pallas
+// kernel computes them for those dtypes: jnp.dot of a bfloat16 row and a
+// float32 weight promotes the row, so q, k and v are float32 products plus
+// the float32 bias, the core is float32, and y is rounded to bfloat16 once.
+// The same kernel, with each weight split into three bfloat16 pieces, hi =
+// bf16(w), mid = bf16(w - hi), lo = bf16(w - hi - mid) (split_pieces_kernel,
+// one pass a call: 3 MB read, 4.5 MB written at D = 512): hi + mid + lo = w
+// exactly for 2^-110 <= |w| <= 3.39e38 (the largest bfloat16), and a
+// bfloat16 activation times a piece is exact in float32, so each 64-column
+// chunk takes three wgmmas into the same float32 accumulators, lo first. A
+// ring stage then holds the two source tiles and 128 weight rows of each
+// piece, 64 KB: 2 stages fit beside the float32 k | v at T <= 192, 1 at
+// T <= 320. No float32 q | k | v leaves the chip (the float32 form's two
+// launches wrote and read back 143 MB at 256 x 91). Bound: the products at
+// 989 / 3 TFLOP/s (three bfloat16 products each), the core at 3xTF32:
+// 0.130 ms at 256 x 91, operations.
 #include "qkv_core.cuh"
 
 namespace hig {
@@ -100,16 +87,20 @@ __device__ __forceinline__ int f32_tile(int t, int col) {
   return t * 64 + (col ^ ((t & 3) << 3));
 }
 
-__global__ void __launch_bounds__(QC_THREADS, 1) projected_core_bf16_kernel(
+// NP weight pieces (1: bfloat16 weights, the maps twq, twk, twv; 3: float32
+// weights split, one map over the [3 pieces][3 D rows: Wq, Wk, Wv][D]
+// pieces) and biases of BiasT.
+template <int NP, typename BiasT>
+__global__ void __launch_bounds__(QC_THREADS, 1) projected_core_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tkv,
     const __grid_constant__ CUtensorMap twq, const __grid_constant__ CUtensorMap twk,
-    const __grid_constant__ CUtensorMap twv, const bf16* __restrict__ bq,
-    const bf16* __restrict__ bk, const bf16* __restrict__ bv, const float* __restrict__ mask,
-    bf16* __restrict__ y, int T, int D, int H, int stages) {
+    const __grid_constant__ CUtensorMap twv, const BiasT* __restrict__ bq,
+    const BiasT* __restrict__ bk, const BiasT* __restrict__ bv, const float* __restrict__ mask,
+    bf16* __restrict__ y, int T, int D, int H, int stages, int wrows) {
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* ring = align1024(smem_raw);  // [stages]: source tiles 0 and 1, W (128 rows)
+  unsigned char* ring = align1024(smem_raw);  // [stages]: source tiles 0 and 1, W pieces
   const int tiles = (T + 63) / 64, tpad = 64 * tiles;
-  float* ks = reinterpret_cast<float*>(ring + stages * QC_STAGE_BYTES);  // [tpad][64] k, then E
+  float* ks = reinterpret_cast<float*>(ring + stages * qc_stage_bytes(NP));  // [tpad][64] k, then E
   float* vs = ks + tpad * 64;                                            // [tpad][64] v
   float* red = vs + tpad * 64;                                           // [4][64]
   float* cm = red + 4 * 64;                                              // column max
@@ -135,7 +126,9 @@ __global__ void __launch_bounds__(QC_THREADS, 1) projected_core_bf16_kernel(
 
   if (warp == 4 * QC_WG) {  // producer: k | v chunks of every round, then q's
     if (lane == 0)
-      qc_produce(&tkv, &tq, &twq, &twk, &twv, n, n, h, ring, full, empty, stages, tiles, kchunks);
+      qc_produce<NP>(&tkv, &tq,
+                     QcWeights{&twq, &twk, &twv, 64 * h, wrows + 64 * h, 2 * wrows + 64 * h},
+                     n, n, ring, full, empty, stages, tiles, kchunks);
     return;
   }
 
@@ -147,7 +140,7 @@ __global__ void __launch_bounds__(QC_THREADS, 1) projected_core_bf16_kernel(
     const int tile = QC_WG * r + wg;
     const bool active = tile < tiles;  // uniform over the warpgroup
     float acc[64];
-    qc_project<128>(acc, ring, full, empty, it, stages, kchunks, wg, active);
+    qc_project<128, NP>(acc, ring, full, empty, it, stages, kchunks, wg, active);
     if (!active) continue;
     fence_regs<64>(acc);
     // k += (1 - mask) * -1e6; v *= mask (rows past T: v = 0, k unread)
@@ -224,7 +217,7 @@ __global__ void __launch_bounds__(QC_THREADS, 1) projected_core_bf16_kernel(
     const int tile = QC_WG * r + wg;
     const bool active = tile < tiles;
     float qa[32];
-    qc_project<64>(qa, ring, full, empty, it, stages, kchunks, wg, active);
+    qc_project<64, NP>(qa, ring, full, empty, it, stages, kchunks, wg, active);
     if (!active) continue;
     fence_regs<32>(qa);
     qc_feature_softmax(qa, bq + h * HD, c);
@@ -257,6 +250,62 @@ __global__ void __launch_bounds__(QC_THREADS, 1) projected_core_bf16_kernel(
   }
 }
 
+// The three bfloat16 pieces of the float32 weights w0, w1, w2 (n elements
+// each, n % 4 == 0): hi = bf16(w), mid = bf16(w - hi), lo = bf16(w - hi -
+// mid), each rounded to nearest even (the differences are exact in
+// float32), into pieces[3][3][n], piece p of weight i at (3 p + i) n.
+__global__ void __launch_bounds__(256) split_pieces_kernel(
+    const float* __restrict__ w0, const float* __restrict__ w1, const float* __restrict__ w2,
+    bf16* __restrict__ pieces, int n) {
+  const int per = n / 4, i4 = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i4 >= 3 * per) return;
+  const int m = i4 / per, j = 4 * (i4 - m * per);
+  const float4 x = load4((m == 0 ? w0 : (m == 1 ? w1 : w2)) + j);
+  const float xs[4] = {x.x, x.y, x.z, x.w};
+  uint32_t bits[3][4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const bf16 hi = __float2bfloat16_rn(xs[e]);
+    const float r = xs[e] - __bfloat162float(hi);
+    const bf16 mid = __float2bfloat16_rn(r);
+    const bf16 lo = __float2bfloat16_rn(r - __bfloat162float(mid));
+    bits[0][e] = __bfloat16_as_ushort(hi);
+    bits[1][e] = __bfloat16_as_ushort(mid);
+    bits[2][e] = __bfloat16_as_ushort(lo);
+  }
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+    *reinterpret_cast<uint2*>(pieces + (size_t)(3 * p + m) * n + j) =
+        make_uint2(bits[p][0] | (bits[p][1] << 16), bits[p][2] | (bits[p][3] << 16));
+}
+
+inline cudaError_t launch_split_pieces(const float* w0, const float* w1, const float* w2,
+                                       bf16* pieces, int n, cudaStream_t stream) {
+  if (n % 4) return cudaErrorInvalidValue;
+  const int threads = 3 * (n / 4);
+  split_pieces_kernel<<<(threads + 255) / 256, 256, 0, stream>>>(w0, w1, w2, pieces, n);
+  return cudaGetLastError();
+}
+
+// projected_core_kernel<NP, BiasT> on the caller's maps (wrows: the rows of
+// one weight in a pieces' map, 0 for three maps).
+template <int NP, typename BiasT>
+cudaError_t launch_projected_core(const CUtensorMap& mq, const CUtensorMap& mkv,
+                                  const CUtensorMap& mwq, const CUtensorMap& mwk,
+                                  const CUtensorMap& mwv, const BiasT* bq, const BiasT* bk,
+                                  const BiasT* bv, const float* mask, bf16* out, int N, int T,
+                                  int D, int wrows, cudaStream_t stream) {
+  const int tpad = (T + 63) / 64 * 64, stages = qc_stages(tpad, NP);
+  if (stages < 1) return cudaErrorInvalidValue;
+  const int smem = qc_smem(tpad, NP);
+  const cudaError_t err = cudaFuncSetAttribute(
+      projected_core_kernel<NP, BiasT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  projected_core_kernel<NP, BiasT><<<N * (D / HD), QC_THREADS, smem, stream>>>(
+      mq, mkv, mwq, mwk, mwv, bq, bk, bv, mask, out, T, D, D / HD, stages, wrows);
+  return cudaGetLastError();
+}
+
 }  // namespace hig
 
 // Returns the first cudaError_t.
@@ -274,12 +323,34 @@ extern "C" int hig_projected_attention_bf16(
   if (err == cudaSuccess) err = make_tile_map(&mwk, wk, D, D, 1, D, 64);
   if (err == cudaSuccess) err = make_tile_map(&mwv, wv, D, D, 1, D, 64);
   if (err != cudaSuccess) return err;
-  const int tpad = (T + 63) / 64 * 64, smem = qc_smem(tpad);
-  err = cudaFuncSetAttribute(projected_core_bf16_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  return launch_projected_core<1>(mq, mkv, mwq, mwk, mwv, bq, bk, bv, mask, out, N, T, D, 0,
+                                  static_cast<cudaStream_t>(stream_ptr));
+}
+
+// The weight split alone: `pieces` (3, 3 D, D) bfloat16 from wq, wk, wv
+// (D, D) float32. Returns the cudaError_t of the launch.
+extern "C" int hig_split_bf16_pieces(const float* wq, const float* wk, const float* wv,
+                                     hig::bf16* pieces, int D, void* stream_ptr) {
+  return hig::launch_split_pieces(wq, wk, wv, pieces, D * D,
+                                  static_cast<cudaStream_t>(stream_ptr));
+}
+
+// B2-bf16a: the weight split into `pieces` (3, 3 D, D) bfloat16 scratch,
+// then the kernel on three pieces. Returns the first cudaError_t.
+extern "C" int hig_projected_attention_bf16a(
+    const hig::bf16* q_src, const hig::bf16* kv_src,
+    const float* wq, const float* bq, const float* wk, const float* bk,
+    const float* wv, const float* bv, const float* mask, hig::bf16* pieces, hig::bf16* out,
+    int N, int T, int D, void* stream_ptr) {
+  using namespace hig;
+  if (T > QC_MAX_T || D % 64) return cudaErrorInvalidValue;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  CUtensorMap mq, mkv, mw;
+  cudaError_t err = launch_split_pieces(wq, wk, wv, pieces, D * D, stream);
+  if (err == cudaSuccess) err = make_tile_map(&mq, q_src, D, T, N, D, 64);
+  if (err == cudaSuccess) err = make_tile_map(&mkv, kv_src, D, T, N, D, 64);
+  if (err == cudaSuccess) err = make_tile_map(&mw, pieces, D, 3 * D, 3, D, 64);
   if (err != cudaSuccess) return err;
-  projected_core_bf16_kernel<<<N * (D / HD), QC_THREADS, smem,
-                               static_cast<cudaStream_t>(stream_ptr)>>>(
-      mq, mkv, mwq, mwk, mwv, bq, bk, bv, mask, out, T, D, D / HD, qc_stages(tpad));
-  return cudaGetLastError();
+  return launch_projected_core<3>(mq, mkv, mw, mw, mw, bq, bk, bv, mask, out, N, T, D, D,
+                                  stream);
 }

@@ -1,17 +1,21 @@
-// The parts that B1-bf16's q|k|v + core kernel (fused_block.cu) and
-// B2-bf16's kernel (projected_attention.cu) share: one block per
-// (sequence, head), two consumer warpgroups of 64 rows each and one
+// The parts that B1-bf16's q|k|v + core kernel (fused_block.cu) and the
+// kernels of B2-bf16 and B2-bf16a (projected_attention.cu) share: one block
+// per (sequence, head), two consumer warpgroups of 64 rows each and one
 // producer warp that feeds them through a TMA ring (hopper.cuh).
 //
 // The producer loads, for every round of two 64-row tiles, the key/value
 // source's rows with the head's 64 rows of Wk and of Wv (phase 0), then
 // the query source's rows with the head's 64 rows of Wq (phase 1), in
-// 64-column chunks of the model width D. Each consumer warpgroup projects
-// its tile on wgmma (qc_project: k | v as m64n128, q as m64n64) and
-// releases each ring stage once its products are done. The keys' column
-// statistics and the queries' feature softmax are shared too; what each
-// kernel keeps in shared memory, and at what precision it builds the state
-// and y, is its own.
+// 64-column chunks of the model width D. A weight comes in NP bfloat16
+// pieces (NP = 1: a bfloat16 weight; NP = 3: a float32 weight split into
+// hi + mid + lo, each product with a bfloat16 row exact in float32), and a
+// ring stage holds the two source tiles and every piece of the chunk. Each
+// consumer warpgroup projects its tile on wgmma (qc_project: k | v as
+// m64n128, q as m64n64, the pieces smallest first into the same float32
+// accumulators) and releases each ring stage once its products are done.
+// The keys' column statistics and the queries' feature softmax are shared
+// too; what each kernel keeps in shared memory, and at what precision it
+// builds the state and y, is its own.
 #pragma once
 
 #include <math.h>
@@ -26,8 +30,14 @@ constexpr int QC_THREADS = QC_CONSUMERS + 32;  // and one producer warp
 constexpr int QC_MAX_T = 320;
 constexpr int QC_MAX_STAGES = 4;
 constexpr uint32_t QC_TILE_BYTES = 64 * 64 * 2;   // 64 rows x 64 deep, bfloat16
-constexpr uint32_t QC_STAGE_BYTES = 4 * QC_TILE_BYTES;  // two source tiles, 128 weight rows
 constexpr int SMEM_MAX = 232448;             // a block's shared memory on the H100
+
+// A ring stage: two source tiles, then 128 weight rows (two tiles) of each
+// of the NP pieces; piece p's rows start at tile 2 + 2 p.
+__host__ __device__ constexpr uint32_t qc_stage_bytes(int np) {
+  return (2 + 2 * np) * QC_TILE_BYTES;
+}
+constexpr uint32_t QC_STAGE_BYTES = qc_stage_bytes(1);
 
 // Shared memory past the ring, for tpad rows: 512 bytes a key row (B1-bf16:
 // k, E and v; B2-bf16: k and v), the column statistics and the barriers.
@@ -35,23 +45,34 @@ __host__ __device__ constexpr int qc_fixed_smem(int tpad) {
   return tpad * 512 + 6 * 64 * 4 + 2 * QC_MAX_STAGES * 8;
 }
 
-// The ring stages that fit beside qc_fixed_smem(tpad), at most QC_MAX_STAGES,
-// and the dynamic shared memory to request for them.
-inline int qc_stages(int tpad) {
-  const int s = (SMEM_MAX - 1024 - qc_fixed_smem(tpad)) / (int)QC_STAGE_BYTES;
+// The ring stages of NP pieces that fit beside qc_fixed_smem(tpad), at most
+// QC_MAX_STAGES, and the dynamic shared memory to request for them.
+inline int qc_stages(int tpad, int np = 1) {
+  const int s = (SMEM_MAX - 1024 - qc_fixed_smem(tpad)) / (int)qc_stage_bytes(np);
   return s < QC_MAX_STAGES ? s : QC_MAX_STAGES;
 }
 
-inline int qc_smem(int tpad) {
-  return 1024 + qc_stages(tpad) * (int)QC_STAGE_BYTES + qc_fixed_smem(tpad);
+inline int qc_smem(int tpad, int np = 1) {
+  return 1024 + qc_stages(tpad, np) * (int)qc_stage_bytes(np) + qc_fixed_smem(tpad);
 }
 
+// Where the producer finds the head's weight rows: one tensor map each for
+// Wq, Wk and Wv, the first row of the head's 64 in each, and pieces
+// 0 .. NP - 1 at the map's outermost coordinate.
+struct QcWeights {
+  const CUtensorMap *q, *k, *v;
+  int rq, rk, rv;
+};
+
 // The producer warp's lane 0: phase 0 loads the rows of sequence `skv` of
-// `tkv` with Wk and Wv, phase 1 those of sequence `sq` of `tq` with Wq.
-__device__ __forceinline__ void qc_produce(
-    const CUtensorMap* tkv, const CUtensorMap* tq, const CUtensorMap* twq,
-    const CUtensorMap* twk, const CUtensorMap* twv, int skv, int sq, int h,
-    unsigned char* ring, uint64_t* full, uint64_t* empty, int stages, int tiles, int kchunks) {
+// `tkv` with every piece of Wk and Wv, phase 1 those of sequence `sq` of
+// `tq` with every piece of Wq.
+template <int NP = 1>
+__device__ __forceinline__ void qc_produce(const CUtensorMap* tkv, const CUtensorMap* tq,
+                                           const QcWeights& w, int skv, int sq,
+                                           unsigned char* ring, uint64_t* full, uint64_t* empty,
+                                           int stages, int tiles, int kchunks) {
+  constexpr uint32_t stage_bytes = qc_stage_bytes(NP);
   const int rounds = (tiles + QC_WG - 1) / QC_WG;
   int it = 0;
   for (int phase = 0; phase < 2; ++phase) {
@@ -60,18 +81,22 @@ __device__ __forceinline__ void qc_produce(
     for (int r = 0; r < rounds; ++r) {
       const bool two = QC_WG * r + 1 < tiles;
       for (int kc = 0; kc < kchunks; ++kc, ++it) {
-        const int st = it % stages;
+        const int st = it % stages, col = 64 * kc;
         mbar_wait(&empty[st], ((it / stages) & 1) ^ 1);
-        unsigned char* sb = ring + st * QC_STAGE_BYTES;
-        mbar_arrive_expect_tx(&full[st], ((two ? 2 : 1) + (phase == 0 ? 2 : 1)) *
+        unsigned char* sb = ring + st * stage_bytes;
+        mbar_arrive_expect_tx(&full[st], ((two ? 2 : 1) + NP * (phase == 0 ? 2 : 1)) *
                                              QC_TILE_BYTES);
-        tma_load_3d(sb, tx, &full[st], 64 * kc, 64 * QC_WG * r, seq);
-        if (two) tma_load_3d(sb + QC_TILE_BYTES, tx, &full[st], 64 * kc, 64 * (QC_WG * r + 1), seq);
-        if (phase == 0) {
-          tma_load_3d(sb + 2 * QC_TILE_BYTES, twk, &full[st], 64 * kc, 64 * h, 0);
-          tma_load_3d(sb + 3 * QC_TILE_BYTES, twv, &full[st], 64 * kc, 64 * h, 0);
-        } else {
-          tma_load_3d(sb + 2 * QC_TILE_BYTES, twq, &full[st], 64 * kc, 64 * h, 0);
+        tma_load_3d(sb, tx, &full[st], col, 64 * QC_WG * r, seq);
+        if (two) tma_load_3d(sb + QC_TILE_BYTES, tx, &full[st], col, 64 * (QC_WG * r + 1), seq);
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          unsigned char* wb = sb + (2 + 2 * p) * QC_TILE_BYTES;
+          if (phase == 0) {
+            tma_load_3d(wb, w.k, &full[st], col, w.rk, p);
+            tma_load_3d(wb + QC_TILE_BYTES, w.v, &full[st], col, w.rv, p);
+          } else {
+            tma_load_3d(wb, w.q, &full[st], col, w.rq, p);
+          }
         }
       }
     }
@@ -80,12 +105,14 @@ __device__ __forceinline__ void qc_produce(
 
 // One tile's projection, acc = src rows . W^T over the D / 64 chunks (NC
 // 128: the k | v columns, 64: q), for warpgroup `wg`; `it` counts the ring
-// stages consumed. An inactive warpgroup (its tile lies past T) only
-// releases the stages.
-template <int NC>
+// stages consumed. Each chunk takes the NP pieces smallest first (lo, mid,
+// hi). An inactive warpgroup (its tile lies past T) only releases the
+// stages.
+template <int NC, int NP = 1>
 __device__ __forceinline__ void qc_project(float* acc, unsigned char* ring, uint64_t* full,
                                            uint64_t* empty, int& it, int stages, int kchunks,
                                            int wg, bool active) {
+  constexpr uint32_t stage_bytes = qc_stage_bytes(NP);
   for (int kc = 0; kc < kchunks; ++kc, ++it) {
     const int st = it % stages;
     mbar_wait(&full[st], (it / stages) & 1);
@@ -93,18 +120,20 @@ __device__ __forceinline__ void qc_project(float* acc, unsigned char* ring, uint
       mbar_arrive(&empty[st]);
       continue;
     }
-    unsigned char* sb = ring + st * QC_STAGE_BYTES;
+    unsigned char* sb = ring + st * stage_bytes;
     const uint64_t da = sw128_desc(sb + wg * QC_TILE_BYTES);
-    const uint64_t dw = sw128_desc(sb + 2 * QC_TILE_BYTES);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      if constexpr (NC == 128)
-        wgmma_m64n128_ss<0, 0>(acc, desc_add(da, 32 * kk), desc_add(dw, 32 * kk),
-                               kc > 0 || kk > 0);
-      else
-        wgmma_m64n64_ss<0, 0>(acc, desc_add(da, 32 * kk), desc_add(dw, 32 * kk),
-                              kc > 0 || kk > 0);
+    for (int p = NP - 1; p >= 0; --p) {
+      const uint64_t dw = sw128_desc(sb + (2 + 2 * p) * QC_TILE_BYTES);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int acc_in = kc > 0 || kk > 0 || p < NP - 1;
+        if constexpr (NC == 128)
+          wgmma_m64n128_ss<0, 0>(acc, desc_add(da, 32 * kk), desc_add(dw, 32 * kk), acc_in);
+        else
+          wgmma_m64n64_ss<0, 0>(acc, desc_add(da, 32 * kk), desc_add(dw, 32 * kk), acc_in);
+      }
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -134,9 +163,11 @@ __device__ __forceinline__ void qc_column_stats(const float* ks, int T, int tid,
   named_barrier(1, QC_CONSUMERS);
 }
 
-// q += bq (the head's 64 biases), then softmax over the 64 columns of each
-// row of a warpgroup's m64n64 accumulator (hopper.cuh's layout), in place.
-__device__ __forceinline__ void qc_feature_softmax(float* qa, const bf16* bq, int c) {
+// q += bq (the head's 64 biases, float32 or bfloat16), then softmax over the
+// 64 columns of each row of a warpgroup's m64n64 accumulator (hopper.cuh's
+// layout), in place.
+template <typename BiasT>
+__device__ __forceinline__ void qc_feature_softmax(float* qa, const BiasT* bq, int c) {
   float mx_lo = -INFINITY, mx_hi = -INFINITY;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {

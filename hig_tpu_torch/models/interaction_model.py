@@ -12,9 +12,10 @@ tower features through the suffix alone (training's fast path,
 :meth:`~InteractionModel.encode_text_from_tower`), or caption ids through a
 learned table (``cap_id``, the PIT stage's model). With ``cond_drop_prob``
 > 0 the model owns the learned null conditioning of classifier-free
-guidance (:meth:`InteractionModel.null_conditioning`). Dropout, causal
-efficient attention and the single-transformer variant are not ported yet:
-:class:`ModelConfig` refuses the ones it has fields for. A bfloat16 model is
+guidance (:meth:`InteractionModel.null_conditioning`). ``dropout`` is
+accepted and applies no dropout, as every JAX path computes (the field's
+comment). Causal efficient attention and the single-transformer variant are
+not ported yet. A bfloat16 model is
 built with float32 parameters, which training and labeling keep (mixed
 precision: each module casts per op); ``weights.cast_floating`` casts them
 once for sampling, as the JAX sampler does (``make_sampler`` calls it).
@@ -64,7 +65,10 @@ class ModelConfig:
     compute_dtype: str = "float32"
     fast_ln: bool = False
     rms_norm: bool = False
-    # not ported yet: must stay at this value
+    # accepted and not applied: JAX runs every path with deterministic=True
+    # (hig_tpu/train/trainer.py:224,231,236,240,511,518,
+    # hig_tpu/train/labeling.py:53), where nn.Dropout is the identity
+    # (hig_tpu/models/attention.py:572): any dropout computes what 0 does
     dropout: float = 0.0
 
     def __post_init__(self):
@@ -73,9 +77,6 @@ class ModelConfig:
         if self.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, "
                              f"got {self.compute_dtype!r}")
-        if self.dropout > 0.0:
-            raise ValueError(f"dropout > 0 is not ported yet (got {self.dropout}); "
-                             "the JAX default, 0.0, is")
         check_block_options(self.efficient, self.causal, self.fused_blocks, self.rms_norm)
 
     @property

@@ -57,20 +57,24 @@ Pallas kernel does, a planted control that the kernel's gates must fail.
 B2 on bfloat16 activations with float32 weights (B2-bf16a,
 ``hig_projected_attention_bf16a``): the Pallas kernel's dot of a bfloat16
 row and a float32 weight promotes the row, so q, k, v and the core are
-float32 and only y is rounded. The float32 form's two launches, the GEMM
-reading bfloat16 rows (a product of an exact TF32 value and a float32
-weight in two TF32 terms), the core storing bfloat16. The port's bfloat16
-models reach it in eval mode on float32 master weights (``--blocks
-projected`` labeling); :func:`fused_projected_attention_plain` on those
-dtypes is its twin. Counted in ``launches_mixed``.
+float32 and only y is rounded. B2-bf16's kernel with each float32 weight
+split into three bfloat16 pieces (:func:`split_bf16_pieces`; its kernel,
+one pass a call, behind :func:`weight_pieces`): a bfloat16 activation
+times a piece is exact in float32, so each product is three ``wgmma``
+products into float32 accumulators, and T is at most :data:`BF16_MAX_T`.
+The port's bfloat16 models reach it in eval mode on float32 master weights
+(``--blocks projected`` labeling); :func:`fused_projected_attention_plain`
+on those dtypes is its twin. Counted in ``launches_mixed``.
 
 bfloat16 form of B3 (B3-bf16, ``hig_efficient_attention_bf16``). The
 Pallas kernel runs the core on bfloat16 q, k, v and mask, so XLA rounds
 after each op: the mask bias, each softmax's subtraction, ``exp``, sum (a
 float32 sum, rounded) and division, the state (a float32 accumulation of
 bfloat16 products, rounded) and y (rounded once). The kernel rounds at
-those points (one block per (head, sequence), reading the bfloat16
-columns in place; the products of bfloat16 values are exact).
+those points: one block of two warpgroups per (sequence, head) takes the
+head's columns of q, k and v into shared memory through TMA, the key
+passes there, the state and y on ``wgmma`` (products of bfloat16 values
+are exact), so Tq and Tk are at most :data:`BF16_MAX_T`.
 :func:`fused_efficient_attention_plain` on bfloat16 inputs is its twin, and
 ``unrounded`` leaves out rounding points (:data:`B3_ROUNDINGS`) for the
 planted controls. The twin is also JAX's ``efficient_attention`` on
@@ -88,7 +92,7 @@ from hig_tpu_torch.ops import _build
 
 HEAD_DIM = 64  # the only head width the CUDA core takes
 MASK_BIAS = -1000000.0
-BF16_MAX_T = 320  # rows of one sequence the bfloat16 B1 and B2 kernels keep in shared memory
+BF16_MAX_T = 320  # rows of one sequence the bfloat16 B1, B2 and B3 kernels keep in shared memory
 # The roundings of the core that efficient_attention can take (B1-bf16's):
 # softmax_time(k), v, the state and softmax_feat(q).
 CORE_ROUNDINGS = ("kh", "v", "att", "qh")
@@ -218,19 +222,61 @@ def projected_attention_backward(saved, grad_out, num_heads: int, merged: bool,
     return recompute_grads(plain, operands, needs, grad_out, ((0, 1),) if merged else ())
 
 
+def split_bf16_pieces(w: torch.Tensor):
+    """The three bfloat16 pieces of float32 ``w``: hi = bf16(w), mid =
+    bf16(w − hi), lo = bf16(w − hi − mid), each rounded to nearest even
+    (both differences are exact in float32). hi + mid + lo = w exactly for
+    2^-110 ≤ |w| ≤ 3.39e38 (the largest bfloat16), and a bfloat16 value
+    times a piece is exact in float32, so three bfloat16 products give
+    B2-bf16a its float32-accurate q, k and v. The plain version of the
+    split kernel (:func:`weight_pieces`)."""
+    hi = w.to(torch.bfloat16)
+    r = w - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
+
+
+def weight_pieces(wq, wk, wv):
+    """B2-bf16a's weight pieces, (3, 3D, D) bfloat16: piece p (hi, mid, lo)
+    of [wq; wk; wv], float32 (D, D) each. CPU tensors take the plain
+    :func:`split_bf16_pieces`; CUDA tensors launch the split kernel that
+    B2-bf16a's entry launches before its own (counted in ``launches``)."""
+    if wq.device.type == "cpu":
+        return torch.stack([torch.cat(p) for p in
+                            zip(*(split_bf16_pieces(w) for w in (wq, wk, wv)))])
+    D = wq.shape[0]
+    for name, w in (("query", wq), ("key", wk), ("value", wv)):
+        check_cuda_operand(f"{name} weight", w, (D, D))
+    pieces = torch.empty((3, 3 * D, D), device=wq.device, dtype=torch.bfloat16)
+    _build.launch("projected_attention", (wq, wk, wv, pieces), (D,),
+                  torch.cuda.current_stream(wq.device).cuda_stream, entry="split_bf16_pieces")
+    weight_pieces.launches += 1
+    return pieces
+
+
+weight_pieces.launches = 0
+
+
 def _launch_projected(q_src, kv_src, wq, bq, wk, bk, wv, bv, mask):
     T, D = q_src.shape[-2:]
     N = q_src.numel() // (T * D)
     out = torch.empty_like(q_src)
     stream = torch.cuda.current_stream(q_src.device).cuda_stream
-    if wq.dtype == torch.bfloat16:
-        _build.launch("projected_attention", (q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, out),
-                      (N, T, D), stream, entry="projected_attention_bf16")
+    if q_src.dtype == torch.bfloat16:
+        if wq.dtype == torch.bfloat16:
+            _build.launch("projected_attention",
+                          (q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, out),
+                          (N, T, D), stream, entry="projected_attention_bf16")
+            return out
+        # B2-bf16a: the weights split into pieces (scratch), then the kernel
+        pieces = torch.empty((3, 3 * D, D), device=q_src.device, dtype=torch.bfloat16)
+        _build.launch("projected_attention",
+                      (q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, pieces, out),
+                      (N, T, D), stream, entry="projected_attention_bf16a")
         return out
     qkv = torch.empty((N * T, 3 * D), device=q_src.device, dtype=torch.float32)
-    mixed = q_src.dtype == torch.bfloat16  # bfloat16 activations, float32 weights
     _build.launch("projected_attention", (q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, qkv, out),
-                  (N, T, D), stream, entry="projected_attention_bf16a" if mixed else None)
+                  (N, T, D), stream)
     return out
 
 
@@ -261,10 +307,10 @@ def fused_projected_attention(q_src, kv_src, wq, bq, wk, bk, wv, bv,
     activations' dtype. CPU tensors take the plain version; CUDA tensors
     launch the kernel, under autograd through :class:`ProjectedAttention`:
     the float32 form, for bfloat16 activations and weights the bfloat16
-    form (``launches_bf16``, T up to :data:`BF16_MAX_T`), or for bfloat16
-    activations with float32 weights B2-bf16a (``launches_mixed``), which
-    has no backward and raises, on either device, when grad is enabled and
-    an input requires it; other dtypes raise.
+    form (``launches_bf16``), or for bfloat16 activations with float32
+    weights B2-bf16a (``launches_mixed``), which has no backward and raises,
+    on either device, when grad is enabled and an input requires it; both
+    bfloat16 forms take T up to :data:`BF16_MAX_T`; other dtypes raise.
     """
     adt, wdt = q_src.dtype, wq.dtype
     mixed = adt == torch.bfloat16 and wdt == torch.float32
@@ -290,8 +336,8 @@ def fused_projected_attention(q_src, kv_src, wq, bq, wk, bk, wv, bv,
         raise ValueError("the projected-attention kernel takes float32 activations and "
                          "weights, bfloat16 ones, or bfloat16 activations with float32 "
                          f"weights; got {adt} and {wdt}")
-    if wdt == torch.bfloat16 and T > BF16_MAX_T:
-        raise ValueError(f"the bfloat16 projected-attention kernel takes T up to {BF16_MAX_T}, "
+    if adt == torch.bfloat16 and T > BF16_MAX_T:
+        raise ValueError(f"the bfloat16 projected-attention kernels take T up to {BF16_MAX_T}, "
                          f"got {T}")
     check_cuda_operand("q_src", q_src, dtype=adt)
     check_cuda_operand("kv_src", kv_src, dtype=adt)
@@ -474,8 +520,9 @@ def fused_efficient_attention(query, key, value, num_heads: int, key_mask=None):
     (..., Tk), 0/1. Returns (..., Tq, D). CPU tensors take the plain
     :func:`fused_efficient_attention_plain`; CUDA tensors launch the
     kernel, under autograd through :class:`EfficientAttention`: the float32
-    form, or for bfloat16 q, k and v the bfloat16 form
-    (``launches_bf16``). Other dtypes, and q, k, v of mixed dtypes, raise.
+    form, or for bfloat16 q, k and v the bfloat16 form (``launches_bf16``,
+    Tq and Tk up to :data:`BF16_MAX_T`). Other dtypes, and q, k, v of mixed
+    dtypes, raise.
     """
     dt, dts = query.dtype, (query.dtype, key.dtype, value.dtype)
     if torch.bfloat16 in dts and dts != (dt,) * 3:
@@ -485,6 +532,9 @@ def fused_efficient_attention(query, key, value, num_heads: int, key_mask=None):
     if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"the efficient-attention kernel takes float32 or bfloat16, got {dt}")
     lead, (Tq, D), Tk = query.shape[:-2], query.shape[-2:], key.shape[-2]
+    if dt == torch.bfloat16 and max(Tq, Tk) > BF16_MAX_T:
+        raise ValueError(f"the bfloat16 efficient-attention kernel takes T up to {BF16_MAX_T} "
+                         f"queries and keys, got Tq={Tq}, Tk={Tk}")
     check_cuda_width(D, num_heads)
     check_cuda_operand("query", query, dtype=dt)
     for name, t in (("key", key), ("value", value)):

@@ -23,20 +23,23 @@ evaluation chunk's shape, where B1's planted controls must fail too; B4 at
 T = 196, two of the Pallas kernel's key blocks, self, partner and causal,
 and with 91 queries over 77 keys; B2 self and partner at T = 196 and at
 T = 320, the most its kernel takes, where the twin that rounds the core as
-B1-bf16 does must fail; B3 with 91 or 196 queries over 77 keys, where the
-twin without each of its rounding points must fail), with cuBLAS's
+B1-bf16 does must fail; B3 with 91 or 196 queries over 77 keys and with
+T = 1, 17, 91, 196 and 320 queries and keys, where the twin without each of
+its rounding points must fail but at T = 1), with cuBLAS's
 reduced-precision bf16 reductions off, under
 ``chip_smoke.py``'s gates: max |kernel − twin| within 2 bfloat16 ulps of
 the twin's largest magnitude, and rms(kernel − twin) within 0.25 of
 rms(twin − the float32 twin on the same rounded inputs) or, where larger,
 1.5 × the twin's distance from the same twin on the CPU (the float32 order
 of sums alone; B1's cancelling KᵀV sum sits there); each form counts its
-own launches; B1-bf16 and B2-bf16 refuse T = 321; a bfloat16 tensor
-beside float32 operands raises, but for B2 on bfloat16 activations with
-float32 weights (B2-bf16a, a bfloat16 model's labeling on master weights),
-held to the same gates against its twin at the serving, labeling (128
-pairs) and evaluation (52 pairs, T = 196) shapes, which counts its own
-launches and refuses to run under grad.
+own launches; B1-bf16, B2-bf16 and B3-bf16 refuse T = 321; a bfloat16
+tensor beside float32 operands raises, but for B2 on bfloat16 activations
+with float32 weights (B2-bf16a, a bfloat16 model's labeling on master
+weights), held to the same gates against its twin at the serving, labeling
+(128 pairs) and evaluation (52 pairs, T = 196) shapes and at T = 1, 17,
+196 and 320 (its control from T = 17), which counts its own launches,
+refuses T = 321 and refuses to run under grad; its weight split kernel
+equals its plain version bit for bit.
 
 Gradients: B2, B3 (float32 and bfloat16) and B4 under autograd against autograd through their
 plain versions (the backwards recompute the plain versions, so only the
@@ -72,6 +75,7 @@ from hig_tpu_torch.ops.pallas_attention import (
     fused_efficient_attention_plain,
     fused_projected_attention,
     fused_projected_attention_plain,
+    weight_pieces,
 )
 
 pytestmark = pytest.mark.cuda
@@ -308,6 +312,10 @@ BF16_CASES = {
     "b3_self": ("b3", "self", T, N_PAIRS),
     "b3_tq91_tk77": ("b3", "tq_tk77", T, N_PAIRS),
     "b3_tq196_tk77": ("b3", "tq_tk77", 196, N_PAIRS),
+    "b3_self_t1": ("b3", "self", 1, N_PAIRS),
+    "b3_self_t17": ("b3", "self", 17, N_PAIRS),
+    "b3_self_t196": ("b3", "self", 196, N_PAIRS),
+    "b3_self_t320": ("b3", "self", 320, N_PAIRS),
 }
 
 
@@ -366,7 +374,13 @@ def test_bf16_forms_match_their_twins(cuda_bf16, case):
                                       twin_cpu)
             assert not ok, (left_out, readings)
     if form == "b3":
-        for left_out in B3_ROUNDINGS:
+        # planted controls; at T = 1 softmax_time(k) is exactly 1 and the
+        # state is the one bfloat16 v row, so the key side's roundings and
+        # the state's change nothing there, and only the feature softmax's
+        # are planted (on the CPU they read 0.62-1.03 of the bf16 effect
+        # at T = 1 against the 0.25 limit)
+        key_side = ("k_sub", "k_exp", "k_sum", "kh", "att")
+        for left_out in (r for r in B3_ROUNDINGS if t > 1 or r not in key_side):
             ok, readings = bf16_close(plain(*args, unrounded=(left_out,)), twin, twin32,
                                       twin_cpu)
             assert not ok, (left_out, readings)
@@ -391,6 +405,17 @@ def test_bf16_projected_refuses_long_sequences(cuda_bf16):
     xb = _bf16(x)
     with pytest.raises(ValueError, match="T up to 320"):
         fused_projected_attention(xb, xb, wb.wq, wb.bq, wb.wk, wb.bk, wb.wv, wb.bv, H, mask)
+
+
+def test_bf16_efficient_refuses_long_sequences(cuda_bf16):
+    """B3-bf16 keeps a head's queries and keys in shared memory: up to 320
+    of each."""
+    gen = torch.Generator().manual_seed(2)
+    for tq, tk in ((321, 77), (91, 321)):
+        q = torch.randn((1, 2, tq, D), generator=gen).to(cuda_bf16, BF16)
+        k, v = (torch.randn((1, 2, tk, D), generator=gen).to(cuda_bf16, BF16) for _ in range(2))
+        with pytest.raises(ValueError, match="T up to 320"):
+            fused_efficient_attention(q, k, v, H, torch.ones((1, 2, tk), device=cuda_bf16))
 
 
 def test_bf16_without_a_form_raises(cuda_bf16):
@@ -522,7 +547,9 @@ def test_bf16_sum_kernel_refuses_what_it_does_not_take(cuda):
 
 
 # label: a labeling vote's 64 pairs under both assignments; eval: a chunk of 52 pairs
-MIXED_SHAPES = {"serve": (T, N_PAIRS), "label": (T, 128), "eval": (196, 52)}
+MIXED_SHAPES = {"serve": (T, N_PAIRS), "label": (T, 128), "eval": (196, 52),
+                "t1": (1, N_PAIRS), "t17": (17, N_PAIRS), "t196": (196, N_PAIRS),
+                "t320": (320, N_PAIRS)}
 
 
 @pytest.mark.parametrize("same_source", [True, False], ids=["self", "partner"])
@@ -530,7 +557,8 @@ MIXED_SHAPES = {"serve": (T, N_PAIRS), "label": (T, 128), "eval": (196, 52)}
 def test_mixed_projected_attention_matches_its_twin(cuda_bf16, shape, same_source):
     """B2-bf16a: bfloat16 activations with float32 weights, under the
     bfloat16 forms' gates against its twin; the twin with B1-bf16's core
-    roundings fails them."""
+    roundings fails them (from T = 17: with one key that twin reads as the
+    kernel's own)."""
     t, pairs = MIXED_SHAPES[shape]
     w, x, mask, _, _ = _inputs(cuda_bf16, t, pairs)
     xn = _bf16(torch.nn.functional.layer_norm(x, (D,), w.ln_g, w.ln_b, 1e-6))
@@ -550,9 +578,38 @@ def test_mixed_projected_attention_matches_its_twin(cuda_bf16, shape, same_sourc
                                                 for a in args])
         ok, readings = bf16_close(got, twin, twin32, cpu)
         assert ok, readings
-        control = fused_projected_attention_plain(*args, rounded=CORE_ROUNDINGS)
-        ok, readings = bf16_close(control, twin, twin32, cpu)
-        assert not ok, readings
+        if t > 1:
+            control = fused_projected_attention_plain(*args, rounded=CORE_ROUNDINGS)
+            ok, readings = bf16_close(control, twin, twin32, cpu)
+            assert not ok, readings
+
+
+def test_mixed_projected_attention_refuses_long_sequences(cuda_bf16):
+    """B2-bf16a keeps one sequence's keys in shared memory: T up to 320."""
+    w, x, mask, _, _ = _inputs(cuda_bf16, 321, 1)
+    xb = _bf16(x)
+    with torch.no_grad(), pytest.raises(ValueError, match="T up to 320"):
+        fused_projected_attention(xb, xb, w.wq, w.bq, w.wk, w.bk, w.wv, w.bv, H, mask)
+
+
+def test_weight_split_kernel_is_its_plain_version(cuda):
+    """B2-bf16a's weight split on the card against the plain split, bit for
+    bit: seeded block weights with edge values written in (signed zeros,
+    tiny and huge magnitudes, bfloat16 rounding ties). One launch, counted."""
+    w = _inputs(cuda)[0]
+    edges = torch.tensor([0.0, -0.0, 2.0 ** -126, 2.0 ** -100 * (1 + 2.0 ** -23), 3e38,
+                          -3.38e38, 1 + 2.0 ** -8, 1 + 3 * 2.0 ** -8, 1 + 2.0 ** -9 + 2.0 ** -17,
+                          -(1 + 2.0 ** -8)], device=cuda)
+    ws = [a.clone() for a in (w.wq, w.wk, w.wv)]
+    for i, a in enumerate(ws):
+        a.view(-1)[i::97][:len(edges)] = edges
+    before = weight_pieces.launches
+    got = weight_pieces(*ws)
+    torch.cuda.synchronize()
+    assert weight_pieces.launches == before + 1
+    want = weight_pieces(*[a.cpu() for a in ws])
+    assert got.dtype == BF16 and got.shape == want.shape
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
 
 
 def test_mixed_projected_attention_refuses_grad(cuda_bf16):

@@ -10,7 +10,9 @@
 - Whole-step loss and gradients against ``jax.value_and_grad`` of
   ``make_loss_fn`` (its einsum path, the VJP its Pallas kernels carry), for
   PIT and supervised, efficient and ``no_eff``, the tower-feature and the
-  tokens-only conditioning, and ``grad_accum=2``; JAX's t and noise are
+  tokens-only conditioning, ``grad_accum=2``, and PIT and supervised at
+  ``dropout=0.5`` (JAX runs every path deterministically, so dropout is
+  the identity in both packages); JAX's t and noise are
   drawn with its own ``jax.random.split`` and handed to the port. Loss within
   1e-5 relative, every gradient leaf within 1e-4 of its largest magnitude.
   The key biases of the attention blocks have an exact gradient of 0 (a
@@ -272,6 +274,9 @@ STEP_CASES = {
     "pit_no_eff": dict(pit=True, no_eff=True, no_clip=False, accum=1),
     "supervised_no_eff": dict(pit=False, no_eff=True, no_clip=False, accum=1),
     "pit_efficient_grad_accum2": dict(pit=True, no_eff=False, no_clip=False, accum=2),
+    "pit_efficient_dropout": dict(pit=True, no_eff=False, no_clip=False, accum=1, dropout=0.5),
+    "supervised_efficient_tokens_dropout": dict(pit=False, no_eff=False, no_clip=True, accum=1,
+                                                dropout=0.5),
 }
 
 
@@ -317,13 +322,16 @@ def assert_grads_close(got: dict, want: dict):
 @pytest.mark.parametrize("case", list(STEP_CASES))
 def test_whole_step_loss_and_grads_match_jax(jax_grad_fns, case):
     c = STEP_CASES[case]
-    jcfg = JaxConfig(**TINY, no_eff=c["no_eff"], no_clip=c["no_clip"])
-    key = (c["pit"], c["no_eff"], c["no_clip"])
+    dropout = c.get("dropout", 0.0)
+    jcfg = JaxConfig(**TINY, no_eff=c["no_eff"], no_clip=c["no_clip"], dropout=dropout)
+    key = (c["pit"], c["no_eff"], c["no_clip"], dropout)
     if key not in jax_grad_fns:
         jmodel = model_from_config(jcfg, clip_config=JAX_CLIP)
         loss_fn = jt.make_loss_fn(jmodel, jg.make_schedule(jg.linear_betas(100)), c["pit"])
         jax_grad_fns[key] = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
-    cfg = port_cfg(no_eff=c["no_eff"], no_clip=c["no_clip"], grad_accum=c["accum"])
+    cfg = port_cfg(no_eff=c["no_eff"], no_clip=c["no_clip"], grad_accum=c["accum"],
+                   dropout=dropout)
+    assert model_config(cfg, PORT_CLIP).dropout == dropout
     tree = random_flax_tree(model_config(cfg, PORT_CLIP), seed=0)
     params = jax.tree_util.tree_map(jnp.asarray, tree)
     batch = step_batch(B * c["accum"], c["no_clip"])
@@ -476,13 +484,36 @@ def test_epoch_batches_match_jax_bitwise(synth_data, tmp_path, variant):
 
 REFUSED = {"pretrained": True, "no_cross_attn": True,
            "single_transformer": True, "use_native_loader": True, "fsdp": True, "tp": True,
-           "pp_micro": 2, "profile": True, "dropout": 0.1}
+           "pp_micro": 2, "profile": True}
 
 
 @pytest.mark.parametrize("field", sorted(REFUSED))
 def test_config_refuses_unported_options(field):
     with pytest.raises(ValueError, match=field):
         ExperimentConfig(**{field: REFUSED[field]})
+
+
+def test_config_accepts_dropout():
+    """dropout > 0 is accepted by both configs and applies no dropout, as in
+    JAX, whose every path runs deterministically (the whole-step cases at
+    dropout 0.5 hold the loss and gradients to JAX's)."""
+    from hig_tpu_torch.models.interaction_model import ModelConfig
+
+    assert ExperimentConfig(dropout=0.1).dropout == 0.1
+    assert ModelConfig(dropout=0.1).dropout == 0.1
+    assert model_config(port_cfg(dropout=0.1), PORT_CLIP).dropout == 0.1
+
+
+def test_load_opt_txt_reads_jax_dropout(tmp_path):
+    """A JAX run trained with --dropout 0.1 loads from its opt.txt."""
+    from hig_tpu.config import save_opt_txt as jax_save_opt_txt
+    from hig_tpu_torch.config import load_opt_txt
+
+    path = str(tmp_path / "opt.txt")
+    jax_save_opt_txt(JaxConfig(**TINY, dropout=0.1), path)
+    cfg = load_opt_txt(path)
+    assert cfg.dropout == 0.1
+    assert model_config(cfg, PORT_CLIP).dropout == 0.1
 
 
 def test_config_refuses_caption_dropout_under_pit():

@@ -28,10 +28,15 @@ Phases, each printing one JSON line (or several):
      through B2, and the quadratic (--no_eff) denoiser through B4;
   5. serve: 8 caption-pair requests at full width with seeded random
      weights, DDIM-50, three times: --blocks fused, --blocks projected and
-     --no_eff, through hig_tpu_torch.serve's functions; the launch counts
-     of each of 3 timed calls (800 for the run's own kernel, 0 for every
+     --no_eff, through hig_tpu_torch.serve's functions and the sampler
+     users get, one CUDA graph per shape: the capturing call (its warm-up
+     denoiser call, capture seconds, the graph's pool), the launch counts
+     of each of 3 timed replays (800 for the run's own kernel, 0 for every
      other), finite outputs of the right shape, the median wall time per
-     call, and agreement with the same sampler through the plain versions;
+     call and peak memory; two calls of the eager loop (graph=False),
+     timed, whose output must equal the replay's bit for bit and whose
+     launch counts the replays' must equal; and agreement of the eager loop
+     through the plain versions (a replay would run the kernels there);
   6. train: ``python -m hig_tpu_torch.train``'s main at full width (global
      batch 32 caption pairs, T = 91, CLIP frozen) on a seeded dataset in the
      reference's layout written to a temporary directory: PIT through B2 (6
@@ -42,7 +47,8 @@ Phases, each printing one JSON line (or several):
      the two PIT runs, one batch's loss and every gradient through the
      kernels against the plain route, at the run's initial weights and, with
      both routes also against a float64 plain route, at its trained ones;
-     then 8 requests served from the PIT run's checkpoint through B1;
+     then 8 requests served from the PIT run's checkpoint through B1 (the
+     sampler's capturing call: 800 launches and the warm-up's 16);
   7. pipeline: the paper's three stages through the port's entry points on
      the same dataset: (1-1) PIT with caption ids (``train --cap_id``, 6
      steps, B2); (1-2) ``python -m hig_tpu_torch.label``'s main, role
@@ -56,16 +62,25 @@ Phases, each printing one JSON line (or several):
      pairs); then 8 requests served with classifier-free guidance (w =
      GUIDANCE) from stage 1-3's checkpoint through B1 (one denoiser call
      over the conditional and null pairs a step: 800 launches a DDIM-50
-     call), against the plain route, and 8 from stage 1-1's caption-id
-     checkpoint (w = 1, 800 launches);
-  8. profile: the device time by kernel of one more serving call of each
-     run, of the guided serving call, of one labeling vote (a denoiser
-     forward over 64 pairs under both assignments), of one more PIT
-     training step and of one DDPM-1000 serving call (torch.profiler), and
-     of one bfloat16 PIT step and two bfloat16 labeling votes, fused
-     (B1-bf16) and rms_norm projected (B2-bf16a) (phase 11). It
-     runs last, after phase 11: once the profiler has run, later launches
-     are slower;
+     call), graphed against the eager loop as in phase 5 and the eager
+     loop against the plain route, and 8 from stage 1-1's caption-id
+     checkpoint (w = 1, the capturing call: 816 launches);
+  8. profile: the device time by kernel (torch.profiler) of one more
+     serving call of each run, of the guided and caption-id serving calls,
+     of the serving calls from the trained PIT checkpoints (float32 and
+     bfloat16), of one DDPM-1000 serving call, of the first chunk of each
+     ``evaluate`` run (float32 DDIM-50 guided, DPM-20, DDPM-1000; bfloat16
+     DPM-20), of one labeling vote (a denoiser forward over 64 pairs under both
+     assignments) and one more PIT training step, and of one bfloat16 PIT
+     step and two bfloat16 labeling votes, fused (B1-bf16) and rms_norm
+     projected (B2-bf16a) (phase 11). Every sampler call there is a replay
+     of its graph, whose launch counts the graph credits; beside them one
+     eager call (float32 fused DDIM-50). The port kernels (``hig::``) that
+     one wrapper call of each serving form launches are profiled first, by
+     kernel name, and each sampler call's trace must hold, name by name,
+     its counts times that table. Each busy share divides by the
+     unprofiled wall of its own kind of call. It runs last, after phase 11:
+     once the profiler has run, later launches are slower;
   9. evaluate, on the same dataset plus a test split of 52 clips (two per
      class): ``python -m hig_tpu_torch.eval.train``'s main for the
      classifier and the consistency model at full width (8 layers, latent
@@ -75,12 +90,17 @@ Phases, each printing one JSON line (or several):
      hig_tpu_torch.evaluate``'s main from stage 1-3's checkpoint three times
      (DDIM-50 guided w = GUIDANCE at T = 196 over 2 replications; DPM-20 at
      T = 196; DDPM-1000 at T = 91), each with exactly 16 B1 launches per
-     denoiser call and none of the others, finite metrics, Acc and
+     denoiser call and per captured graph's warm-up and none of the
+     others, the graphs' capture seconds and pools, the first chunk of the
+     DDIM and DPM runs replayed again and run through the eager loop (equal
+     bit for bit, timed), finite metrics, Acc and
      Consistency in [0, 1], FID ≥ 0, confusion matrices of 52 clips, the
      five metrics in summary<run>.json, and for DDPM a peak memory below
      the size of the AdaLN grid it does not build; then DDPM-1000 at the
-     serving shape through B1 against the plain route (same x_T and step
-     noises), with its wall time per call.
+     serving shape through B1: the capture, a replay and the eager loop
+     (equal bit for bit, the generator left in the same state), and the
+     eager loop against the plain route (same x_T and step noises), with
+     the wall time of each call.
  10. bf16 (after phase 9, before the profile; cuBLAS's reduced-precision
      bf16 reductions off): each bfloat16 form (B1-bf16 self and
      interaction, B2-bf16 self and partner, B3-bf16 through ``_attend``
@@ -118,14 +138,17 @@ Phases, each printing one JSON line (or several):
      inputs and weights, where the control route (the kernels' roundings
      left out) must fail for B1 and B4 (BF16_ROUTE_RMS says why); 8
      requests served in bfloat16, DDIM-50, for fused, projected, no_eff,
-     rms_norm and guided w = GUIDANCE (800 launches of the run's own form
-     a call, none of any other form or float32 kernel; the median wall of
-     3 calls; the same 0.7 gate on the same x_T and weights, the control
-     route's reading beside); and
+     rms_norm and guided w = GUIDANCE, graphed against the eager loop as
+     in phase 5 (800 launches of the run's own form a replay, none of any
+     other form or float32 kernel; the median wall of 3 replays; the same
+     0.7 gate on the eager loop's plain route on the same x_T and weights,
+     the control route's reading beside); and
      ``python -m hig_tpu_torch.evaluate`` from stage 1-3's checkpoint as a
      bfloat16 run with --fast_ln, DPM-20 at T = 196 (exactly 320 B1-bf16
-     launches, finite metrics in range, confusion matrices of 52 clips).
-     The profile then adds the five bfloat16 serving runs' calls.
+     launches and one warm-up's 16, finite metrics in range, confusion
+     matrices of 52 clips).
+     The profile then adds the five bfloat16 serving runs' calls and the
+     ``evaluate`` run's first chunk.
  11. bf16 train and label (after phase 10): ``python -m
      hig_tpu_torch.train``'s main at full width on phase 6's dataset with
      ``--compute_dtype bfloat16``: PIT (LayerNorm, 4 steps, B3-bf16), PIT
@@ -147,7 +170,8 @@ Phases, each printing one JSON line (or several):
      launches per forward), complete label files; both scorers on one
      batch against the plain route (held at the first layer to 0.7 of the
      bfloat16 effect, full depth reported); 8 requests served in bfloat16
-     (DDIM-50, 800 B1-bf16 launches) from the bfloat16 PIT checkpoint.
+     (DDIM-50, 816 B1-bf16 launches: a capturing call) from the bfloat16
+     PIT checkpoint.
 Then the kernel table (the bfloat16 forms' rows after the float32 ones), the
 nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero without
@@ -176,6 +200,10 @@ N_PAIRS, T, D, HEADS = 8, 91, 512, 8
 LENGTHS = (90, 84, 77, 63, 90, 51, 35, 70)  # frames; T = max + 1 (init token)
 DDIM_STEPS = 50
 LAUNCHES_PER_CALL = 8 * 2 * DDIM_STEPS  # layers × kernel blocks × steps
+# The graphed sampler's first call of a shape warms up with one denoiser
+# call (16 launches, real and counted) before it captures; its capture
+# launches nothing, and each replay credits the eager call's counts.
+FIRST_CALL = LAUNCHES_PER_CALL + 8 * 2
 SERVE_CALLS = 3  # timed serving calls per serving run
 TK_SHORT = 77  # keys of the Tq != Tk kernel checks
 # serving run → the kernel its self-attention and interaction blocks launch
@@ -375,11 +403,15 @@ def plain_sum():
         embeddings.bf16_sum = saved
 
 
-def profile_call(fn) -> dict:
+def profile_call(fn, check: bool = False) -> dict:
     """Device time by kernel over one call of ``fn`` (torch.profiler). Only
     device activity is recorded: host op events would add ~30,000 events
     to a call and some 15 s to their summary, and no number here reads
-    them."""
+    them. The device events are summed as the profiler hands them over: its
+    own summary (``key_averages``) builds a Python object per event, 30-40 s
+    for the 200,000 of a DDPM-1000 call. With ``check`` that summary is
+    built as well, and "summary_agrees" says whether it reads the same
+    count and time (to 1e-6) of every kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -388,18 +420,97 @@ def profile_call(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = []
-    for e in prof.key_averages():
-        if "CUDA" not in str(e.device_type):
-            continue
-        us = e.self_device_time_total
-        if us > 0 and e.count > 0:
-            kernels.append((e.key, us / 1e3, e.count))
-    kernels.sort(key=lambda k: -k[1])
+    by_name: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if "CUDA" in str(e.device_type()):
+            ms_n = by_name.setdefault(e.name(), [0.0, 0])
+            ms_n[0] += (e.end_ns() - e.start_ns()) / 1e6
+            ms_n[1] += 1
+    kernels = sorted(((name, ms, n) for name, (ms, n) in by_name.items() if ms > 0),
+                     key=lambda k: -k[1])
     device_ms = sum(k[1] for k in kernels)
-    return {"profiled_wall_ms": wall_ms, "device_ms": device_ms,
-            "port_kernels_ms": sum(k[1] for k in kernels if "hig::" in k[0]),
-            "top": [[name[:90], ms, n] for name, ms, n in kernels[:16]]}
+    port = [k for k in kernels if "hig::" in k[0]]
+    out = {"profiled_wall_ms": wall_ms, "device_ms": device_ms,
+           "port_kernels_ms": sum(k[1] for k in port),
+           "port_kernel_launches": sum(k[2] for k in port),
+           "port_kernels": {name: n for name, _, n in sorted(port)},
+           "top": [[name[:90], ms, n] for name, ms, n in kernels[:16]]}
+    if check:
+        summary = {e.key: (e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages() if "CUDA" in str(e.device_type)
+                   and e.self_device_time_total > 0 and e.count > 0}
+        out["summary_agrees"] = summary.keys() == {k[0] for k in kernels} and all(
+            summary[name][1] == n and abs(summary[name][0] - ms) <= 1e-6 * ms
+            for name, ms, n in kernels)
+    return out
+
+
+def serve_with(sample_fn, requests, mean, std, cap_id: bool = False):
+    """``call(gen)``: the requests served through ``sample_fn`` from ``gen``."""
+    from hig_tpu_torch import serve
+
+    def call(gen):
+        return serve.serve_batch(sample_fn, requests, mean, std, torch.device("cuda"), gen,
+                                 cap_id)
+
+    return call
+
+
+def seeded(call, seed: int = 0):
+    """``call`` on a fresh CUDA generator seeded ``seed``, for the profile."""
+    return lambda: call(torch.Generator(device="cuda").manual_seed(seed))
+
+
+def graph_and_eager(label: str, call, eager, graphs: dict, failures, replays: int = SERVE_CALLS,
+                    eager_calls: int = 2):
+    """A serving run through the graphed sampler beside the eager loop.
+    ``call(gen)`` serves through the graphed sampler (``graphs``: its
+    ``sample.graphs``), ``eager(gen)`` the same requests through the same
+    model's ``graph=False`` sampler, each from a CUDA generator seeded 0.
+    The first call captures; ``replays`` replays are timed, each with every
+    launch count set to 0 before it and read after; then ``eager_calls``
+    eager calls (the wall: their median), whose output must equal the last
+    replay's bit for bit, the generator left in the same state, and whose
+    counts every replay must equal.
+    Peak memory: ``torch.cuda.max_memory_allocated`` over a call (the
+    model's weights included), and for the graphed call the graph's pool
+    beside it (a replay allocates nothing in the pool: its blocks were
+    reserved at the capture). Returns (the row, the last replay's
+    (features, joints), the first call's counts, the replays' counts)."""
+    def timed(fn):
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        t0 = time.perf_counter()
+        out = fn(gen)
+        torch.cuda.synchronize()
+        return (out, time.perf_counter() - t0, bf16_counts(), torch.cuda.max_memory_allocated(),
+                gen.get_state())
+
+    _, first_s, first_counts, _, _ = timed(call)
+    runs = [timed(call) for _ in range(replays)]
+    out, _, _, peak, state = runs[-1]
+    eagers = [timed(eager) for _ in range(eager_calls)]
+    _, _, eager_counts, eager_peak, _ = eagers[0]
+    same = all(all(np.array_equal(a, b) for a, b in zip(out, e[0])) and torch.equal(state, e[4])
+               for e in eagers)
+    (capture,) = [c.summary() for c in graphs.values()]
+    walls = [r[1] for r in runs]
+    eager_walls = [e[1] for e in eagers]
+    row = {"capture": capture, "first_call_s": first_s, "launches_first_call": first_counts,
+           "wall_s_per_call": statistics.median(walls), "wall_s_calls": walls,
+           "eager_wall_s": statistics.median(eager_walls), "eager_wall_s_calls": eager_walls,
+           "eager_launches": eager_counts,
+           "peak_allocated_gb": peak / 1e9, "graph_pool_gb": capture["pool_bytes"] / 1e9,
+           "eager_peak_allocated_gb": eager_peak / 1e9, "graph_equals_eager": same}
+    fail_if(failures, not same, f"{label}: the replayed call differs from the eager loop")
+    fail_if(failures, not capture["pool_bytes"] > 0,
+            f"{label}: graph pool {capture['pool_bytes']} B")
+    fail_if(failures, any(r[2] != eager_counts for r in runs + eagers),
+            f"{label}: replayed launches {[r[2] for r in runs]}, eager "
+            f"{[e[2] for e in eagers]}")
+    return row, out, first_counts, [r[2] for r in runs]
 
 
 def phase_device() -> str:
@@ -708,7 +819,10 @@ def serve_requests() -> list:
             for i, ((c1, c2), L) in enumerate(zip(CLASSID2CAPS, LENGTHS))]
 
 
-def phase_serve(models: dict, device, failures) -> tuple[dict, dict, dict]:
+def phase_serve(models: dict, device, failures) -> tuple[dict, dict, tuple]:
+    """Phase 5. Returns the launch counts, {"serve_<run>": (graphed call,
+    replayed wall s)} for the profile, and ("serve_fused_eager", the fused
+    model's eager call, its wall s)."""
     from hig_tpu_torch import serve
     from hig_tpu_torch.diffusion import gaussian as g
     from hig_tpu_torch.train.trainer import make_sampler
@@ -718,43 +832,28 @@ def phase_serve(models: dict, device, failures) -> tuple[dict, dict, dict]:
     mean, std = serve.load_stats(None, models["fused"].cfg.input_feats)
     kernels = wrappers()
     launches = {name: 0 for name in kernels}
-    runs, walls = {}, {}
+    runs = {}
     for run_name, model in models.items():
         own = SERVE_RUNS[run_name]
         t_run = time.perf_counter()
-        sample_fn = make_sampler(model, sched, T=T, dim_pose=model.cfg.input_feats,
-                                 ddim_steps=DDIM_STEPS)
-
-        def run(seed=0, sample_fn=sample_fn):
-            gen = torch.Generator(device=device).manual_seed(seed)
-            return serve.serve_batch(sample_fn, requests, mean, std, device, gen)
-
-        run()  # warm-up
+        kw = dict(T=T, dim_pose=model.cfg.input_feats, ddim_steps=DDIM_STEPS)
+        sample_fn = make_sampler(model, sched, **kw)
+        run = serve_with(sample_fn, requests, mean, std)
+        eager = serve_with(make_sampler(model, sched, graph=False, **kw), requests, mean, std)
         # The host clock varies from call to call (the machine's CPU cores
-        # are shared), so the wall time is the median of a few calls, each
-        # with the launch counts set to 0 before it and read after it.
-        call_walls, call_counts = [], []
-        for _ in range(SERVE_CALLS):
-            for w in kernels.values():
-                w.launches = 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            features, joints = run()
-            torch.cuda.synchronize()
-            call_walls.append(time.perf_counter() - t0)
-            call_counts.append({name: w.launches for name, w in kernels.items()})
-        wall = statistics.median(call_walls)
-        counts = call_counts[0]
+        # are shared), so the wall time is the median of a few calls.
+        row, (features, joints), first, call_counts = graph_and_eager(
+            f"serve ({run_name})", run, eager, sample_fn.graphs, failures)
         with plain_blocks():
             t1 = time.perf_counter()
-            ref_features, _ = run()
+            ref_features, _ = eager(torch.Generator(device=device).manual_seed(0))
             torch.cuda.synchronize()
             plain_wall = time.perf_counter() - t1
         rel = float(np.abs(features - ref_features).max() / np.abs(ref_features).max())
         print(json.dumps({
             "phase": "serve", "run": run_name, "requests": len(requests), "T": T,
-            "ddim_steps": DDIM_STEPS, "launches": counts, "wall_s_per_call": wall,
-            "wall_s_calls": call_walls, "plain_wall_s_per_call": plain_wall,
+            "ddim_steps": DDIM_STEPS, "launches": call_counts[0], **row,
+            "plain_wall_s_per_call": plain_wall,
             "features_shape": list(features.shape), "joints_shape": list(joints.shape),
             "finite": bool(np.isfinite(features).all() and np.isfinite(joints).all()),
             "max_abs_features": float(np.abs(features).max()),
@@ -764,28 +863,111 @@ def phase_serve(models: dict, device, failures) -> tuple[dict, dict, dict]:
         fail_if(failures, any(c[name] != (LAUNCHES_PER_CALL if name == own else 0)
                               for c in call_counts for name in kernels),
                 f"serve ({run_name}) launches {call_counts}")
+        fail_if(failures, any(first[name] != (FIRST_CALL if name == own else 0)
+                              for name in kernels),
+                f"serve ({run_name}) launches of the capturing call {first}")
         fail_if(failures, tuple(joints.shape) != (N_PAIRS, 2, T - 1, 22, 3),
                 f"serve ({run_name}) joints shape {joints.shape}")
         fail_if(failures, not (np.isfinite(features).all() and np.isfinite(joints).all()),
                 f"serve ({run_name}) non-finite output")
         fail_if(failures, not rel <= SAMPLER_REL_TOL, f"serve ({run_name}) rel err {rel}")
         for name in kernels:
-            launches[name] += counts[name]
-        runs[run_name], walls[run_name] = run, wall
-    return launches, runs, walls
+            launches[name] += call_counts[0][name]
+        runs[f"serve_{run_name}"] = (seeded(run), row["wall_s_per_call"])
+        if run_name == "fused":
+            eager_run = ("serve_fused_eager", seeded(eager), row["eager_wall_s"])
+    return launches, runs, eager_run
 
 
-def phase_profile(runs: dict, walls: dict, launches_per_call: dict) -> None:
-    """One profiled call of each run (serving calls and a training step).
-    Profiling comes last: once the profiler has run, later launches in the
-    process are slower, so no timing is taken after it."""
-    for run_name, run in runs.items():
+def sampler_run(run: str) -> bool:
+    """A profiled run that is a sampler call: ``serve_*`` and ``evaluate_*``
+    (each a replay of its graph, but for the one eager call)."""
+    return run.startswith(("serve_", "evaluate_"))
+
+
+def kernels_per_launch(device) -> dict:
+    """{form: {port kernel name: launches}}: what one call of each wrapper
+    form on the sampler's path launches on the card (torch.profiler), at the
+    serving shape, as the denoiser's blocks call it (self-attention, not
+    causal)."""
+    from hig_tpu_torch.ops.flash_attention import flash_attention
+    from hig_tpu_torch.ops.fused_block import BlockWeights, fused_attention_block
+    from hig_tpu_torch.ops.pallas_attention import fused_projected_attention
+
+    F = torch.nn.functional
+    w, x, mask, scale, shift = block_inputs(device)
+    xn = F.layer_norm(x, (D,), w.ln_g, w.ln_b, 1e-6)
+    table = {}
+    for suffix, cast in (("", torch.Tensor.float), ("_bf16", to_bf16)):
+        wc = BlockWeights(*[cast(t) for t in w])
+        q, k, v = F.linear(cast(x), torch.cat([wc.wq, wc.wk, wc.wv]),
+                           torch.cat([wc.bq, wc.bk, wc.bv])).chunk(3, dim=-1)
+        calls = {
+            "fused_block": (fused_attention_block, cast(x), mask, cast(scale), cast(shift), wc,
+                            HEADS),
+            "projected_attention": (fused_projected_attention, cast(xn), cast(xn), wc.wq, wc.bq,
+                                    wc.wk, wc.bk, wc.wv, wc.bv, HEADS, mask),
+            "flash_attention": (flash_attention, q, k, v, HEADS, mask),
+        }
+        for form, (fn, *args) in calls.items():
+            with torch.no_grad():
+                table[form + suffix] = profile_call(lambda: fn(*args))["port_kernels"]
+    return table
+
+
+def expected_port_kernels(counts: dict, per_launch: dict) -> dict | None:
+    """The port kernels by name that ``counts`` launches of each form make
+    (``kernels_per_launch``); None where a counted form has no entry."""
+    want: dict = {}
+    for form, n in counts.items():
+        if form not in per_launch:
+            return None
+        for name, k in per_launch[form].items():
+            want[name] = want.get(name, 0) + n * k
+    return want
+
+
+def phase_profile(runs: dict, eager: tuple, device, failures) -> None:
+    """Phase 8. First what one wrapper call of each form launches, by
+    kernel name (``kernels_per_launch``). Then one profiled call of each run
+    in ``runs`` ({run: (call, its unprofiled wall s or None)}: serving calls,
+    ``evaluate``'s first chunks, training steps and labeling votes) and of
+    one eager sampler call (``eager``: (run, call, wall s)), every launch
+    count set to 0 before the call and read after. A replay runs no Python
+    per launch: its counts are those its graph credits. So the trace of each
+    sampler call (``sampler_run``) must hold, kernel name by kernel name,
+    its counts times the per-call table, the eager call's as well. The first
+    run's trace is also read through the profiler's own summary, which must
+    agree (``profile_call``). Each busy share is the device time over the
+    unprofiled wall of the same kind of call. Profiling comes last: once the
+    profiler has run, later launches in the process are slower, so no
+    timing is taken after it."""
+    per_launch = kernels_per_launch(device)
+    print(json.dumps({"phase": "profile", "kernels_per_launch": per_launch}), flush=True)
+    eager_run, eager_call, eager_wall = eager
+    todo = {**runs, eager_run: (eager_call, eager_wall)}
+    # the DDPM-1000 calls last: after a trace of their ~200,000 device events
+    # every later profile session on the H100 took ~8 s longer
+    todo = dict(sorted(todo.items(), key=lambda item: "ddpm" in item[0]))
+    for i, (run_name, (run, wall)) in enumerate(todo.items()):
+        reset_counts()
         t_run = time.perf_counter()
-        prof = profile_call(run)
+        prof = profile_call(run, check=i == 0)
+        fail_if(failures, prof.get("summary_agrees") is False,
+                f"profile ({run_name}): the profiler's summary reads otherwise")
         prof["seconds"] = time.perf_counter() - t_run
-        prof["device_busy_share_unprofiled"] = prof["device_ms"] / (walls[run_name] * 1e3)
-        prof["port_kernels_ms_per_launch"] = (prof["port_kernels_ms"]
-                                              / launches_per_call[run_name])
+        counts = {form: n for form, n in bf16_counts().items() if n}
+        prof["launches"] = counts
+        if wall is not None:
+            prof["device_busy_share_unprofiled"] = prof["device_ms"] / (wall * 1e3)
+        if counts:
+            prof["port_kernels_ms_per_launch"] = prof["port_kernels_ms"] / sum(counts.values())
+        if sampler_run(run_name):
+            want = expected_port_kernels(counts, per_launch)
+            prof["port_kernels_as_counted"] = want == prof["port_kernels"]
+            fail_if(failures, not counts or want != prof["port_kernels"],
+                    f"profile ({run_name}): the trace's port kernels {prof['port_kernels']}, "
+                    f"its counts {counts} make {want}")
         print(json.dumps({"phase": "profile", "run": run_name, **prof}), flush=True)
 
 
@@ -978,13 +1160,15 @@ def first_batch(trainer):
 
 
 def phase_train(device, failures, smi: str, requests: list, data: str,
-                tmp: str) -> tuple[dict, object]:
+                tmp: str) -> tuple[dict, dict, dict]:
     """Drive ``python -m hig_tpu_torch.train``'s main at full width on a
     seeded dataset: PIT through B2, PIT --no_eff through B4, the supervised
     stage; hold one fixed batch's loss and gradients through the kernels
     against the plain route; serve 8 requests from the PIT run's checkpoint.
-    Returns the launch counts of the three runs and a function that runs one
-    more PIT training step (profiled last). Files go under ``tmp``."""
+    Returns the launch counts of the three runs and the serving call,
+    {run: (call, wall s or None)} of one more PIT training step and one more
+    serving call from the checkpoint (a replay), profiled last, and the PIT
+    run's step time, pairs/s and peak memory. Files go under ``tmp``."""
     from hig_tpu_torch import serve
     from hig_tpu_torch.diffusion import gaussian as g
     from hig_tpu_torch.train import trainer as tr
@@ -1035,11 +1219,11 @@ def phase_train(device, failures, smi: str, requests: list, data: str,
                       "requests": len(requests), "launches": counts, "finite": finite,
                       "joints_shape": list(joints.shape)}), flush=True)
     fail_if(failures, not finite or tuple(joints.shape) != (N_PAIRS, 2, T - 1, 22, 3)
-            or counts["fused_block"] != LAUNCHES_PER_CALL,
+            or counts["fused_block"] != FIRST_CALL,
             f"serving the trained checkpoint: finite {finite}, shape {joints.shape}, {counts}")
     for name in kernels:
         launches[name] += counts[name]
-    del model, sample_fn
+    serve_trained = serve_with(sample_fn, requests, mean, std)
 
     train_step = tr.make_train_step(kept["trainer"].sched, True)
     step_gen = torch.Generator(device=device).manual_seed(9)
@@ -1048,15 +1232,17 @@ def phase_train(device, failures, smi: str, requests: list, data: str,
         return {k: float(v) for k, v in train_step(kept["state"], kept["batch"], step_gen).items()}
 
     f32_pit = {k: kept[k] for k in ("step_ms", "pairs_per_s", "max_memory_allocated_gb")}
-    return launches, (one_step, kept["step_ms"] / 1e3), f32_pit
+    return launches, {"train_step_pit": (one_step, kept["step_ms"] / 1e3),
+                      "serve_trained": (seeded(serve_trained), None)}, f32_pit
 
 
 def phase_pipeline(device, failures, smi: str, requests: list, data: str,
                    tmp: str) -> tuple[dict, dict]:
     """The paper's three stages through the port's entry points on the
     dataset in ``data`` (see the module doc, phase 7). Returns the launch
-    counts of every stage, and {run: (call, median wall s)} of one labeling
-    vote and of the guided serving call (profiled last)."""
+    counts of every stage and {run: (call, median wall s or None)} of one
+    labeling vote and of the guided and caption-id serving calls (replays),
+    profiled last."""
     from hig_tpu_torch import label, serve
     from hig_tpu_torch.data.dataset import PairDataset, epoch_batches
     from hig_tpu_torch.data.vocab import CAP2KEY, CLASSID2CAPS
@@ -1188,36 +1374,28 @@ def phase_pipeline(device, failures, smi: str, requests: list, data: str,
     model = serve.build_model(dataclasses.replace(cfg_model_config, fused_blocks=True), device,
                               params=os.path.join(cfg_dir, "latest.pt"))
     mean, std = serve.load_stats(cfg_meta, model.cfg.input_feats)
-    sample_fn = tr.make_sampler(model, sched, T=T, dim_pose=model.cfg.input_feats,
-                                ddim_steps=DDIM_STEPS, guidance_scale=GUIDANCE)
-
-    def guided(seed=0):
-        gen = torch.Generator(device=device).manual_seed(seed)
-        return serve.serve_batch(sample_fn, requests, mean, std, device, gen)
-
-    guided()  # warm-up
-    call_walls, call_counts = [], []
-    for _ in range(SERVE_CALLS):
-        t0 = reset()
-        features, joints = guided()
-        wall, counts = read(t0)
-        call_walls.append(wall)
-        call_counts.append(counts)
+    kw = dict(T=T, dim_pose=model.cfg.input_feats, ddim_steps=DDIM_STEPS,
+              guidance_scale=GUIDANCE)
+    sample_fn = tr.make_sampler(model, sched, **kw)
+    guided = serve_with(sample_fn, requests, mean, std)
+    eager = serve_with(tr.make_sampler(model, sched, graph=False, **kw), requests, mean, std)
+    row, (features, joints), first, call_counts = graph_and_eager(
+        "guided serving", guided, eager, sample_fn.graphs, failures)
     with plain_blocks():
-        ref_features, _ = guided()
+        ref_features, _ = eager(torch.Generator(device=device).manual_seed(0))
     rel = float(np.abs(features - ref_features).max() / np.abs(ref_features).max())
     finite = bool(np.isfinite(features).all() and np.isfinite(joints).all())
-    wall = statistics.median(call_walls)
+    wall = row["wall_s_per_call"]
     add(call_counts[0])
     print(json.dumps({"phase": "pipeline", "stage": "serve_guided", "nvidia_smi": smi,
                       "guidance_scale": GUIDANCE, "requests": len(requests),
-                      "ddim_steps": DDIM_STEPS, "launches": call_counts[0],
-                      "wall_s_per_call": wall, "wall_s_calls": call_walls, "finite": finite,
-                      "joints_shape": list(joints.shape), "rel_err_vs_plain": rel,
-                      "rel_tol": GUIDED_REL_TOL,
+                      "ddim_steps": DDIM_STEPS, "launches": call_counts[0], **row,
+                      "finite": finite, "joints_shape": list(joints.shape),
+                      "rel_err_vs_plain": rel, "rel_tol": GUIDED_REL_TOL,
                       "rel_err_over_sampler_tol": rel / SAMPLER_REL_TOL}), flush=True)
-    fail_if(failures, not all(only(c, "fused_block", LAUNCHES_PER_CALL) for c in call_counts),
-            f"guided serving launches {call_counts}")
+    fail_if(failures, not all(only(c, "fused_block", LAUNCHES_PER_CALL) for c in call_counts)
+            or not only(first, "fused_block", FIRST_CALL),
+            f"guided serving launches {first}, {call_counts}")
     fail_if(failures, not finite or tuple(joints.shape) != (N_PAIRS, 2, T - 1, 22, 3),
             f"guided serving: finite {finite}, shape {joints.shape}")
     fail_if(failures, not rel <= GUIDED_REL_TOL, f"guided serving rel err {rel}")
@@ -1239,11 +1417,12 @@ def phase_pipeline(device, failures, smi: str, requests: list, data: str,
                       "launches": counts, "wall_s": cap_wall, "finite": finite,
                       "joints_shape": list(joints.shape)}), flush=True)
     fail_if(failures, not finite or tuple(joints.shape) != (N_PAIRS, 2, T - 1, 22, 3)
-            or not only(counts, "fused_block", LAUNCHES_PER_CALL),
+            or not only(counts, "fused_block", FIRST_CALL),
             f"serving the caption-id checkpoint: finite {finite}, shape {joints.shape}, {counts}")
-    del model, cap_sample
+    cap_id = serve_with(cap_sample, requests, mean, std, cap_id=True)
     return launches, {"label_vote": (vote, statistics.median(vote_s)),
-                      "serve_guided": (guided, wall)}
+                      "serve_guided": (seeded(guided), wall),
+                      "serve_cap_id": (seeded(cap_id), None)}
 
 
 def eval_train_run(kind: str, data: str, tmp: str, failures, smi: str) -> tuple[dict, dict]:
@@ -1304,12 +1483,82 @@ def eval_train_run(kind: str, data: str, tmp: str, failures, smi: str) -> tuple[
     return row, counts
 
 
-def phase_evaluate(device, failures, smi: str, data: str, tmp: str, model) -> tuple[dict, dict]:
+@contextlib.contextmanager
+def spy_samplers(module):
+    """Every sampler that ``module.make_sampler`` makes while in the block,
+    as (sampler, the arguments it was made with, its first call's (cond,
+    lengths, generator state)), the last filled in at that call."""
+    real, made = module.make_sampler, []
+
+    def spy(*args, **kwargs):
+        fn, first = real(*args, **kwargs), []
+
+        def recording(cond, lengths, generator=None, **kw):
+            if not first:
+                first.append((cond.clone(), lengths.clone(), generator.get_state()))
+            return fn(cond, lengths, generator=generator, **kw)
+
+        recording.graphs = fn.graphs
+        made.append((fn, args, kwargs, first))
+        return recording
+
+    module.make_sampler = spy
+    try:
+        yield made
+    finally:
+        module.make_sampler = real
+
+
+def first_chunk(made):
+    """``call()``: a recorded sampler's first chunk again (see
+    ``spy_samplers``), from the chunk's generator state."""
+    fn, _, _, ((cond, lengths, state),) = made
+
+    def call():
+        gen = torch.Generator(device="cuda")
+        gen.set_state(state)
+        return fn(cond, lengths, generator=gen)
+
+    return call
+
+
+def chunk_graph_and_eager(label: str, made, failures) -> dict:
+    """A recorded sampler's first chunk again (see ``spy_samplers``): one
+    replay of its graph and one call of the same model's eager loop
+    (``graph=False``), each from the chunk's generator state, timed; the
+    outputs must be equal bit for bit."""
+    from hig_tpu_torch.train.trainer import make_sampler
+
+    fn, args, kwargs, ((cond, lengths, state),) = made
+    eager = make_sampler(*args, **{**kwargs, "graph": False})
+    row, outs = {}, []
+    for name, sample in (("replay", fn), ("eager", eager)):
+        gen = torch.Generator(device="cuda")
+        gen.set_state(state)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(sample(cond, lengths, generator=gen).cpu())
+        torch.cuda.synchronize()
+        row[f"{name}_wall_s"] = time.perf_counter() - t0
+        row[f"{name}_launches"] = {k: v for k, v in bf16_counts().items() if v}
+    row["graph_equals_eager"] = bool(torch.equal(*outs))
+    fail_if(failures, not row["graph_equals_eager"]
+            or row["replay_launches"] != row["eager_launches"],
+            f"{label}: the first chunk's replay against the eager loop: {row}")
+    return row
+
+
+def phase_evaluate(device, failures, smi: str, data: str, tmp: str,
+                   model) -> tuple[dict, dict]:
     """Phase 9 (see the module doc): both evaluator trainings, the three
-    ``python -m hig_tpu_torch.evaluate`` runs from stage 1-3's checkpoint,
-    and DDPM-1000 through B1 against the plain route on ``model`` (the
+    ``python -m hig_tpu_torch.evaluate`` runs from stage 1-3's checkpoint
+    (the first chunk of DDIM-50 guided and of DPM-20 again through the
+    graph and through the eager loop), and DDPM-1000 through B1, graphed
+    against the eager loop and against the plain route, on ``model`` (the
     flagship with fused blocks) at the serving shape. Returns the launch
-    counts and {"serve_ddpm": (call, wall s)} for the profile."""
+    counts and, for the profile, {run: (call, replayed wall s or None)}:
+    "serve_ddpm" and each evaluate run's first chunk ("evaluate_<run>")."""
     from hig_tpu_torch import evaluate, serve
     from hig_tpu_torch.diffusion import gaussian as g
     from hig_tpu_torch.train import trainer as tr
@@ -1329,30 +1578,38 @@ def phase_evaluate(device, failures, smi: str, data: str, tmp: str, model) -> tu
         f.write(text.replace("limit_data_num: 32\n", "limit_data_num: -1\n"))
     fail_if(failures, "limit_data_num: 32\n" not in text, "stage 1-3's opt.txt: no limit line")
     ddpm_grid_bytes = 1000 * 2 * EVAL_CLIPS * 8 * 4 * 2 * D * 4  # steps × seqs × blocks × 2D
+    runs = {}
     for run, (extra, calls, reps) in EVAL_RUNS.items():
         for w in kernels.values():
             w.launches = 0
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = evaluate.main(["--opt_path", opt, "--mm_num_times", "1", "--file_id", run,
-                             *extra])
+        with spy_samplers(evaluate) as made:
+            out = evaluate.main(["--opt_path", opt, "--mm_num_times", "1", "--file_id", run,
+                                 *extra])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {name: w.launches for name, w in kernels.items()}
         peak = torch.cuda.max_memory_allocated()
+        graph_row = (None if run == "ddpm1000" else
+                     chunk_graph_and_eager(f"evaluate {run}", made[0], failures))
+        runs[f"evaluate_{run}"] = (first_chunk(made[0]),
+                                   graph_row and graph_row["replay_wall_s"])
         with open(os.path.join(out["save_dir"], f"summary{run}.json")) as f:
             summary = json.load(f)
         cms = [np.load(os.path.join(out["save_dir"], f"confusion_matrix{run}_rep{r}.npy"))
                for r in range(reps)]
         values = [v for models in summary.values() for mv in models.values() for v in mv]
         means = {m: {k: v[0] for k, v in summary.get(m, {}).items()} for m in METRICS}
-        want = LAUNCHES_PER_STEP * calls * reps  # one chunk of EVAL_CLIPS pairs
+        # one chunk of EVAL_CLIPS pairs, and one warm-up denoiser call a capture
+        want = LAUNCHES_PER_STEP * (calls * reps + len(out["graphs"]))
         print(json.dumps({
             "phase": "evaluate", "run": run, "nvidia_smi": smi, "args": extra,
             "test_clips": EVAL_CLIPS, "launches": counts, "expected_b1": want,
             "wall_s": wall, "wall_s_per_replication": wall / reps,
-            "max_memory_allocated_gb": peak / 1e9, "summary": summary,
+            "max_memory_allocated_gb": peak / 1e9, "graphs": list(out["graphs"].values()),
+            "first_chunk_graph_vs_eager": graph_row, "summary": summary,
             "confusion_sums": [int(cm.sum()) for cm in cms]}), flush=True)
         fail_if(failures, any(counts[n] != (want if n == "fused_block" else 0) for n in kernels),
                 f"evaluate {run}: launches {counts}, expected {want} of B1")
@@ -1378,42 +1635,40 @@ def phase_evaluate(device, failures, smi: str, data: str, tmp: str, model) -> tu
     # x_T and step noises (one generator seed)
     requests = serve_requests()
     mean, std = serve.load_stats(None, model.cfg.input_feats)
-    sample_fn = tr.make_sampler(model, g.make_schedule(g.linear_betas(1000)), T=T,
-                                dim_pose=model.cfg.input_feats, sampler="ddpm")
-
-    def ddpm(seed=0):
-        gen = torch.Generator(device=device).manual_seed(seed)
-        return serve.serve_batch(sample_fn, requests, mean, std, device, gen)
-
-    for w in kernels.values():
-        w.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    features, joints = ddpm()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = {name: w.launches for name, w in kernels.items()}
+    kw = dict(T=T, dim_pose=model.cfg.input_feats, sampler="ddpm")
+    sched = g.make_schedule(g.linear_betas(1000))
+    sample_fn = tr.make_sampler(model, sched, **kw)
+    ddpm = serve_with(sample_fn, requests, mean, std)
+    eager = serve_with(tr.make_sampler(model, sched, graph=False, **kw), requests, mean, std)
+    # the capture, one replay, one eager call (the same x_T and step noises
+    # from one generator seed, which must end in the same state)
+    row, (features, joints), first, (counts,) = graph_and_eager(
+        "DDPM-1000", ddpm, eager, sample_fn.graphs, failures, replays=1, eager_calls=1)
     with plain_blocks():
         t1 = time.perf_counter()
-        ref_features, _ = ddpm()
+        ref_features, _ = eager(torch.Generator(device=device).manual_seed(0))
         torch.cuda.synchronize()
         plain_wall = time.perf_counter() - t1
     rel = float(np.abs(features - ref_features).max() / np.abs(ref_features).max())
     finite = bool(np.isfinite(features).all() and np.isfinite(joints).all())
+    wall = row["wall_s_per_call"]
     print(json.dumps({"phase": "evaluate", "run": "serve_ddpm1000_vs_plain", "nvidia_smi": smi,
                       "requests": len(requests), "T": T, "steps": 1000, "launches": counts,
-                      "wall_s_per_call": wall, "plain_wall_s_per_call": plain_wall,
+                      **row, "plain_wall_s_per_call": plain_wall,
                       "finite": finite, "joints_shape": list(joints.shape),
                       "max_abs_features": float(np.abs(ref_features).max()),
                       "rel_err_vs_plain": rel, "rel_tol": SAMPLER_REL_TOL}), flush=True)
     fail_if(failures, any(counts[n] != (LAUNCHES_PER_STEP * 1000 if n == "fused_block" else 0)
-                          for n in kernels), f"DDPM-1000 launches {counts}")
+                          for n in kernels)
+            or any(first[n] != (LAUNCHES_PER_STEP * 1001 if n == "fused_block" else 0)
+                   for n in kernels), f"DDPM-1000 launches {first}, {counts}")
     fail_if(failures, not finite or tuple(joints.shape) != (N_PAIRS, 2, T - 1, 22, 3),
             f"DDPM-1000: finite {finite}, shape {joints.shape}")
     fail_if(failures, not rel <= SAMPLER_REL_TOL, f"DDPM-1000 rel err {rel}")
     for name in kernels:
         launches[name] += counts[name]
-    return launches, {"serve_ddpm": (ddpm, wall)}
+    runs["serve_ddpm"] = (seeded(ddpm), wall)
+    return launches, runs
 
 
 # --- phase 10: bfloat16 ----------------------------------------------------------------
@@ -2023,7 +2278,9 @@ def first_layer(model):
 
 def phase_bf16(f32_models: dict, device, failures, smi: str, tmp: str) -> tuple:
     """Phase 10 (see the module doc). Returns (the bfloat16 kernel rows with
-    their launches, the serving calls for the profile and their walls)."""
+    their launches, and for the profile {run: (call, replayed wall s or
+    None)}: the serving calls and the ``evaluate`` run's first chunk, all
+    replays)."""
     from hig_tpu_torch import serve
     from hig_tpu_torch.diffusion import gaussian as g
     from hig_tpu_torch.train.trainer import make_sampler
@@ -2090,69 +2347,61 @@ def phase_bf16(f32_models: dict, device, failures, smi: str, tmp: str) -> tuple:
     requests = serve_requests()
     sched = g.make_schedule(g.linear_betas(1000))
     mean, std = serve.load_stats(None, cfg.input_feats)
-    runs, walls = {}, {}
+    runs = {}
     for run, (own, w) in BF16_SERVE_RUNS.items():
         model = models[run]
         twin = f32_twin_model(model)
         t_run = time.perf_counter()
-
-        def call(seed=0, sample_fn=make_sampler(model, sched, T=T, dim_pose=cfg.input_feats,
-                                                ddim_steps=DDIM_STEPS, guidance_scale=w)):
-            gen = torch.Generator(device=device).manual_seed(seed)
-            return serve.serve_batch(sample_fn, requests, mean, std, device, gen)
-
-        call()  # warm-up
-        call_walls, call_counts = [], []
-        for _ in range(SERVE_CALLS):
-            reset_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            features, joints = call()
-            torch.cuda.synchronize()
-            call_walls.append(time.perf_counter() - t0)
-            call_counts.append(bf16_counts())
-        twin_fn = make_sampler(twin, sched, T=T, dim_pose=cfg.input_feats,
-                               ddim_steps=DDIM_STEPS, guidance_scale=w)
+        kw = dict(T=T, dim_pose=cfg.input_feats, ddim_steps=DDIM_STEPS, guidance_scale=w)
+        sample_fn = make_sampler(model, sched, **kw)
+        call = serve_with(sample_fn, requests, mean, std)
+        eager = serve_with(make_sampler(model, sched, graph=False, **kw), requests, mean, std)
+        graph_row, (features, joints), first, call_counts = graph_and_eager(
+            f"bf16 serve ({run})", call, eager, sample_fn.graphs, failures)
+        twin_fn = make_sampler(twin, sched, graph=False, **kw)
         with plain_blocks():
-            p16, _ = call()
+            p16, _ = eager(torch.Generator(device=device).manual_seed(0))
             p32, _ = serve.serve_batch(twin_fn, requests, mean, std, device,
                                        torch.Generator(device=device).manual_seed(0))
         with plain_blocks(control=True):
-            control = route_row(call()[0], p16, p32)
+            control = route_row(eager(torch.Generator(device=device).manual_seed(0))[0],
+                                p16, p32)
         del twin, twin_fn
         row = route_gate(f"bf16 serve ({run})", features, p16, p32, failures)
         row["control_rms_ratio"] = control["rms_ratio"]
-        wall = statistics.median(call_walls)
+        wall = graph_row["wall_s_per_call"]
         print(json.dumps({"phase": "bf16_serve", "run": run, "nvidia_smi": smi,
                           "guidance_scale": w, "requests": len(requests), "T": T,
-                          "ddim_steps": DDIM_STEPS, "launches": call_counts[0],
-                          "wall_s_per_call": wall, "wall_s_calls": call_walls,
+                          "ddim_steps": DDIM_STEPS, "launches": call_counts[0], **graph_row,
                           "finite": bool(np.isfinite(features).all()
                                          and np.isfinite(joints).all()),
                           "joints_shape": list(joints.shape), **row,
                           "seconds": time.perf_counter() - t_run}), flush=True)
         fail_if(failures, any(c[name] != (LAUNCHES_PER_CALL if name == own else 0)
-                              for c in call_counts for name in c),
-                f"bf16 serve ({run}) launches {call_counts}")
+                              for c in call_counts for name in c)
+                or any(first[name] != (FIRST_CALL if name == own else 0) for name in first),
+                f"bf16 serve ({run}) launches {first}, {call_counts}")
         fail_if(failures, tuple(joints.shape) != (N_PAIRS, 2, T - 1, 22, 3)
                 or not np.isfinite(joints).all(), f"bf16 serve ({run}) joints {joints.shape}")
         launches[own] += call_counts[0][own]
-        runs[f"serve_bf16_{run}"], walls[f"serve_bf16_{run}"] = call, wall
+        runs[f"serve_bf16_{run}"] = (seeded(call), wall)
     del models
 
-    launches["fused_block_bf16"] += bf16_evaluate(failures, smi, tmp)
+    n, runs["evaluate_bf16"] = bf16_evaluate(failures, smi, tmp)
+    launches["fused_block_bf16"] += n
     for form, row in rows.items():
         row["launches"] = launches[form]
     seconds = time.perf_counter() - t_phase
     print(json.dumps({"phase": "bf16", "seconds": seconds}), flush=True)
-    return rows, runs, walls
+    return rows, runs
 
 
-def bf16_evaluate(failures, smi: str, tmp: str) -> int:
+def bf16_evaluate(failures, smi: str, tmp: str) -> tuple:
     """``python -m hig_tpu_torch.evaluate``'s main from stage 1-3's
     checkpoint as a bfloat16 run (a copy of its opt.txt with
     ``compute_dtype: bfloat16``) with --fast_ln, DPM-20 at T = 196. Returns
-    its B1-bf16 launches."""
+    its B1-bf16 launches and (its first chunk again, None) for the
+    profile."""
     from hig_tpu_torch import evaluate
 
     opt = os.path.join(tmp, "cfg_supervised_eval_opt.txt")
@@ -2165,8 +2414,9 @@ def bf16_evaluate(failures, smi: str, tmp: str) -> int:
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = evaluate.main(["--opt_path", opt_bf16, "--mm_num_times", "1", "--file_id", "bf16",
-                         *BF16_EVAL_RUN])
+    with spy_samplers(evaluate) as made:
+        out = evaluate.main(["--opt_path", opt_bf16, "--mm_num_times", "1", "--file_id", "bf16",
+                             *BF16_EVAL_RUN])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = bf16_counts()
@@ -2178,16 +2428,18 @@ def bf16_evaluate(failures, smi: str, tmp: str) -> int:
     print(json.dumps({"phase": "bf16_evaluate", "nvidia_smi": smi, "args": BF16_EVAL_RUN,
                       "test_clips": EVAL_CLIPS, "launches": counts,
                       "expected_b1_bf16": BF16_EVAL_LAUNCHES, "wall_s": wall,
+                      "graphs": list(out["graphs"].values()),
                       "summary": summary, "confusion_sum": int(cm.sum())}), flush=True)
-    fail_if(failures, any(counts[n] != (BF16_EVAL_LAUNCHES if n == "fused_block_bf16" else 0)
-                          for n in counts), f"bf16 evaluate launches {counts}")
+    want = BF16_EVAL_LAUNCHES + LAUNCHES_PER_STEP * len(out["graphs"])
+    fail_if(failures, any(counts[n] != (want if n == "fused_block_bf16" else 0)
+                          for n in counts), f"bf16 evaluate launches {counts}, expected {want}")
     fail_if(failures, list(summary) != list(METRICS) or not np.isfinite(values).all()
             or not all(0.0 <= v <= 1.0 for m in ("Acc", "Consistency")
                        for v in means[m].values())
             or not all(v >= 0.0 for v in means["FID"].values()),
             f"bf16 evaluate summary {summary}")
     fail_if(failures, int(cm.sum()) != EVAL_CLIPS, f"bf16 evaluate confusion sum {cm.sum()}")
-    return counts["fused_block_bf16"]
+    return counts["fused_block_bf16"], (first_chunk(made[0]), None)
 
 
 # --- phase 11: bfloat16 training and labeling ------------------------------------------
@@ -2411,8 +2663,9 @@ def bf16_scorer_rows(model_config, model_dir: str, cfg, fused: bool, own: str, f
 def phase_bf16_train(device, failures, smi: str, requests: list, data: str, tmp: str,
                      f32_pit: dict) -> tuple:
     """Phase 11 (see the module doc). Returns (the launches of each form,
-    {run: (call, wall s)} of one bfloat16 PIT step and the two bfloat16
-    labeling votes, profiled last)."""
+    {run: call} and {run: wall s or None} of one bfloat16 PIT step, the two
+    bfloat16 labeling votes and one more serving call from the bfloat16
+    checkpoint (a replay), profiled last)."""
     from hig_tpu_torch import label, serve
     from hig_tpu_torch.data.vocab import CAP2KEY, CLASSID2CAPS
     from hig_tpu_torch.diffusion import gaussian as g
@@ -2525,10 +2778,11 @@ def phase_bf16_train(device, failures, smi: str, requests: list, data: str, tmp:
                       "requests": len(requests), "launches": counts, "wall_s": wall,
                       "finite": finite, "joints_shape": list(joints.shape)}), flush=True)
     fail_if(failures, not finite or tuple(joints.shape) != (N_PAIRS, 2, T - 1, 22, 3)
-            or any(counts[n] != (LAUNCHES_PER_CALL if n == "fused_block_bf16" else 0)
+            or any(counts[n] != (FIRST_CALL if n == "fused_block_bf16" else 0)
                    for n in counts),
             f"serving the bf16 checkpoint: finite {finite}, shape {joints.shape}, {counts}")
-    del model, sample_fn
+    runs["serve_bf16_trained"] = seeded(serve_with(sample_fn, requests, mean, std))
+    walls["serve_bf16_trained"] = None
 
     train_step = tr.make_train_step(trainer.sched, True)
     step_gen = torch.Generator(device=device).manual_seed(9)
@@ -2601,40 +2855,30 @@ def main() -> int:
                                  for run, m in models.items()}}), flush=True)
     phase_denoiser(models, device, failures)
     lap("denoiser")
-    launches, runs, walls = phase_serve(models, device, failures)
+    launches, runs, eager = phase_serve(models, device, failures)
     lap("serve")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         data = os.path.join(tmp, "data")
         write_train_data(data)
-        train_launches, (train_step, step_s), f32_pit = phase_train(device, failures, smi,
-                                                           serve_requests(), data, tmp)
-        lap("train")
-        pipeline_launches, pipeline_runs = phase_pipeline(device, failures, smi,
+        train_launches, train_runs, f32_pit = phase_train(device, failures, smi,
                                                           serve_requests(), data, tmp)
+        lap("train")
+        pipeline_launches, pipeline_runs = phase_pipeline(
+            device, failures, smi, serve_requests(), data, tmp)
         lap("pipeline")
         eval_launches, eval_runs = phase_evaluate(device, failures, smi, data, tmp,
                                                   models["fused"])
         lap("evaluate")
-        bf16_rows, bf16_runs, bf16_walls = phase_bf16(models, device, failures, smi, tmp)
+        bf16_rows, bf16_runs = phase_bf16(models, device, failures, smi, tmp)
         lap("bf16")
         bf16_train_launches, bf16_train_runs, bf16_train_walls = phase_bf16_train(
             device, failures, smi, serve_requests(), data, tmp, f32_pit)
         lap("bf16_train")
         for form, row in bf16_rows.items():
             row["launches"] += bf16_train_launches.get(form, 0)
-        runs["train_step_pit"], walls["train_step_pit"] = train_step, step_s
-        for run, (call, wall) in (*pipeline_runs.items(), *eval_runs.items()):
-            runs[run], walls[run] = call, wall
-        runs.update(bf16_runs)
-        walls.update(bf16_walls)
-        runs.update(bf16_train_runs)
-        walls.update(bf16_train_walls)
-        per_call = {run: LAUNCHES_PER_CALL for run in (*SERVE_RUNS, "serve_guided", *bf16_runs)}
-        per_call["train_step_pit"] = per_call["label_vote"] = LAUNCHES_PER_STEP
-        for run in bf16_train_runs:
-            per_call[run] = LAUNCHES_PER_STEP
-        per_call["serve_ddpm"] = LAUNCHES_PER_STEP * 1000
-        phase_profile(runs, walls, per_call)
+        runs.update({**train_runs, **pipeline_runs, **eval_runs, **bf16_runs})
+        runs.update({run: (call, bf16_train_walls[run]) for run, call in bf16_train_runs.items()})
+        phase_profile(runs, eager, device, failures)
         lap("profile")
     print(json.dumps({"phase": "seconds", **seconds}), flush=True)
 

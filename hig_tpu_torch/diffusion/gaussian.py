@@ -6,10 +6,12 @@ The coefficient tables are computed once in float64 on the host and stored
 as float32, as the JAX package does. The ancestral sampler
 (:func:`p_sample_loop`) and the general DDIM step (eta > 0 or x0 clipping)
 gather their coefficients per timestep, on the device, from the tables
-moved there once per call. The deterministic DDIM fast path (eta = 0, no
-x0 clipping) is linear in (x, eps), x' = c1·x + c2·eps, with c1/c2 computed
-in float32 numpy from the float32 tables exactly as the JAX sampler
-computes them.
+there: the caller's ``tables=`` (:meth:`DiffusionSchedule.on`, which a
+sampler makes once, so a step copies nothing from the host and a CUDA
+graph can capture it), else moved there once per call. The deterministic
+DDIM fast path (eta = 0, no x0 clipping) is linear in (x, eps), x' =
+c1·x + c2·eps, with c1/c2 computed in float32 numpy from the float32 tables
+exactly as the JAX sampler computes them.
 
 Every draw of a loop (x_T, each step's noise, the prefix and pin draws)
 comes from its ``generator`` unless the caller hands it in (``noise=``,
@@ -123,10 +125,17 @@ def make_schedule(betas: np.ndarray) -> DiffusionSchedule:
     return DiffusionSchedule(**{k: v.astype(np.float32) for k, v in tables.items()})
 
 
+def _on_device(table, device) -> torch.Tensor:
+    """``table`` itself when it is a tensor (on ``device``), else a copy of
+    the host table there."""
+    return table if torch.is_tensor(table) else torch.as_tensor(table, device=device)
+
+
 def _extract(table, t: torch.Tensor, ndim: int) -> torch.Tensor:
-    """Per-timestep coefficients of ``table`` (numpy or a tensor) for ``t``
-    (B,), shaped to broadcast over an ``ndim`` tensor."""
-    out = torch.as_tensor(table, device=t.device)[t]
+    """Per-timestep coefficients of ``table`` (a tensor on t's device, or a
+    host table, copied there per call) for ``t`` (B,), shaped to broadcast
+    over an ``ndim`` tensor."""
+    out = _on_device(table, t.device)[t]
     return out.reshape(*out.shape, *(1,) * (ndim - out.ndim))
 
 
@@ -167,8 +176,8 @@ def p_mean_variance(sched: DiffusionSchedule, model_output: torch.Tensor, x: tor
     if var_type == VarType.FIXED_SMALL:
         log_var = _extract(sched.posterior_log_variance_clipped, t, x.ndim)
     else:
-        pv = torch.as_tensor(sched.posterior_variance, device=x.device)
-        betas = torch.as_tensor(sched.betas, device=x.device)
+        pv = _on_device(sched.posterior_variance, x.device)
+        betas = _on_device(sched.betas, x.device)
         log_var = _extract(torch.log(torch.cat([pv[1:2], betas[1:]])), t, x.ndim)
     if mean_type == MeanType.EPSILON:
         pred_xstart = predict_xstart_from_eps(sched, x, t, model_output)
@@ -218,8 +227,8 @@ def p_sample_loop(sched: DiffusionSchedule, model: Denoiser, noise: torch.Tensor
                   var_type: VarType = VarType.FIXED_SMALL, cond_fn: Callable | None = None,
                   pre_seq: torch.Tensor | None = None, pre_seq_len: int = 0,
                   transl_req: list | None = None, step_noise: Callable | None = None,
-                  pre_noise: Callable | None = None,
-                  pin_noise: Callable | None = None) -> torch.Tensor:
+                  pre_noise: Callable | None = None, pin_noise: Callable | None = None,
+                  tables: DiffusionSchedule | None = None) -> torch.Tensor:
     """Ancestral (DDPM) sampler over every timestep, from x_T = ``noise``.
 
     ``model(x, t)`` predicts for timesteps ``t`` (B,) int64. Hooks, as in
@@ -230,9 +239,10 @@ def p_sample_loop(sched: DiffusionSchedule, model: Denoiser, noise: torch.Tensor
     (B, T, D) sample. Step ``i`` (t = T − 1 − i) draws, in this order, the
     prefix noise ``pre_noise(i)``, each pin's ``pin_noise(i, pin_i)`` (B,
     2), and the step noise ``step_noise(i)`` (like x; multiplied by 0 at
-    t = 0); a hook not given draws from ``generator``.
+    t = 0); a hook not given draws from ``generator``. ``tables``: the
+    schedule's tables on x's device (``sched.on``), else moved there here.
     """
-    tabs = sched.on(noise.device)
+    tabs = tables if tables is not None else sched.on(noise.device)
     x, batch, T = noise, noise.shape[0], tabs.num_timesteps
     draw = _drawer(noise, generator)
     for i in range(T):
@@ -287,7 +297,8 @@ def ddim_coefficients(sched: DiffusionSchedule, ts: np.ndarray):
 def ddim_sample_loop(sched: DiffusionSchedule, model: Denoiser, noise: torch.Tensor,
                      num_steps: int | None = None, model_aux=None, eta: float = 0.0,
                      clip_denoised: bool = False, generator: torch.Generator | None = None,
-                     step_noise: Callable | None = None) -> torch.Tensor:
+                     step_noise: Callable | None = None,
+                     tables: DiffusionSchedule | None = None) -> torch.Tensor:
     """DDIM from the initial ``noise`` (B, ...) over ``num_steps`` of the
     stride grid.
 
@@ -295,7 +306,8 @@ def ddim_sample_loop(sched: DiffusionSchedule, model: Denoiser, noise: torch.Ten
     ``model_aux`` (a list with one entry per step) it is called as
     ``model(x, t, model_aux[i])``. With eta = 0 and no clipping the update
     is the linear fast path; otherwise the general step, whose noise
-    (σ·z, 0 at t = 0) is ``step_noise(i)`` or drawn from ``generator``.
+    (σ·z, 0 at t = 0) is ``step_noise(i)`` or drawn from ``generator``;
+    ``tables`` as in :func:`p_sample_loop`.
     """
     ts = ddim_timesteps(sched.num_timesteps, num_steps or sched.num_timesteps)
     x = noise
@@ -308,7 +320,7 @@ def ddim_sample_loop(sched: DiffusionSchedule, model: Denoiser, noise: torch.Ten
             x = float(c1[i]) * x + float(c2[i]) * eps.to(x.dtype)
         return x
 
-    tabs = sched.on(x.device)
+    tabs = tables if tables is not None else sched.on(x.device)
     # index -1 (t_prev before 0) reads alpha_bar = 1
     ab_ext = torch.cat([tabs.alphas_cumprod, torch.ones_like(tabs.alphas_cumprod[:1])])
     ts_prev = np.append(ts[1:], -1)

@@ -51,13 +51,14 @@ def dpmpp_2m_coefficients(sched: g.DiffusionSchedule, ts: np.ndarray):
 
 
 def dpmpp_2m_sample_loop(sched: g.DiffusionSchedule, model: g.Denoiser, noise: torch.Tensor,
-                         num_steps: int = 20, model_aux=None) -> torch.Tensor:
+                         num_steps: int = 20, model_aux=None,
+                         tables: g.DiffusionSchedule | None = None) -> torch.Tensor:
     """Deterministic DPM-Solver++(2M) from x_T = ``noise`` over
-    ``g.ddim_timesteps(T, num_steps)``; ``model`` and ``model_aux`` as in
-    :func:`~hig_tpu_torch.diffusion.gaussian.ddim_sample_loop`."""
+    ``g.ddim_timesteps(T, num_steps)``; ``model``, ``model_aux`` and
+    ``tables`` as in :func:`~hig_tpu_torch.diffusion.gaussian.ddim_sample_loop`."""
     ts = g.ddim_timesteps(sched.num_timesteps, num_steps)
     x_coef, d_coef, c0, c1, first = dpmpp_2m_coefficients(sched, ts)
-    tabs = sched.on(noise.device)
+    tabs = tables if tables is not None else sched.on(noise.device)
     x, x0_prev, batch = noise, torch.zeros_like(noise), noise.shape[0]
     for i, t_scalar in enumerate(ts):
         t = torch.full((batch,), int(t_scalar), dtype=torch.int64, device=x.device)

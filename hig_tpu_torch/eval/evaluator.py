@@ -68,8 +68,9 @@ def generate_test_set(sample_fn: Callable, eval_samples: list[dict], tokens_of: 
     """One generated pair per test clip, in chunks of ``batch_size`` pairs a
     sampler call, and the per-class MultiModality subsets. Chunk ``c``
     samples with ``**draws(c, b)`` (the sampler's ``noise=`` and
-    ``step_noise=`` of its b pairs) when given, else with a generator seeded
-    by (seed, rep, c)."""
+    ``step_noise=`` of its b pairs; a graphed sampler refuses a callable
+    ``step_noise``) when given, else with a generator seeded by (seed, rep,
+    c), whose state a graphed sampler hands to its graph and back."""
     motions: list = []
     mm_groups: dict[int, list] = {}
     gt_mm_groups: dict[int, list] = {}

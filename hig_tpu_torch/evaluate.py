@@ -25,7 +25,10 @@ flash-attention kernel. A run with
 the kernels' bfloat16 forms; --fast_ln keeps the generator's efficient-block
 LayerNorm statistics in bfloat16, as ``tools/evaluation.py --fast_ln``
 does for an existing checkpoint. The evaluator models are plain PyTorch
-in float32.
+in float32. On the card the sampler is one CUDA graph per chunk shape
+(``make_sampler``), captured at the first chunk of that shape; each chunk's
+generator, seeded by (seed, replication, chunk), hands its state to the
+graph and back.
 
     python -m hig_tpu_torch.evaluate --opt_path checkpoints/ntu_mul/interaction/opt.txt \\
         --replication_times 20 --sampler ddim
@@ -191,9 +194,13 @@ def main(argv=None) -> dict:
                     gen = pickle.load(cf)
                 print(f"loaded cached generations from {cache_path}")
             else:
+                graphs_before = set(sample_fn.graphs)
                 gen = generate_test_set(sample_fn, rep_samples, tokens_of, T_gen, device,
                                         seed=cfg.seed, rep=rep, batch_size=args.gen_batch,
                                         **gen_kwargs)
+                for key in set(sample_fn.graphs) - graphs_before:
+                    print(f"captured the sampler for chunks of shape {key[0]}: "
+                          f"{json.dumps(sample_fn.graphs[key].summary())}")
                 if args.cache_generations or args.use_cache:
                     with open(cache_path, "wb") as cf:
                         pickle.dump(gen, cf)
@@ -215,7 +222,8 @@ def main(argv=None) -> dict:
     with open(pjoin(save_dir, f"summary{args.file_id}.json"), "w") as jf:
         json.dump({m: {k: list(v) for k, v in d.items()} for m, d in summary.items()}, jf)
     print(f"wrote {log_file}")
-    return {"summary": summary, "replications": replications, "save_dir": save_dir}
+    return {"summary": summary, "replications": replications, "save_dir": save_dir,
+            "graphs": {key: call.summary() for key, call in sample_fn.graphs.items()}}
 
 
 if __name__ == "__main__":

@@ -52,6 +52,14 @@ from hig_tpu_torch.ops.bf16_sum import bf16_sum
 LN_EPS = 1e-6
 
 
+def constant(value: float, dtype: torch.dtype, device) -> torch.Tensor:
+    """``value`` as a 0-d ``dtype`` tensor (rounded to the dtype first, as
+    JAX's weak type is), made on ``device`` by a fill: a CUDA graph
+    captures that, where ``torch.tensor(value, device=...)`` is a copy from
+    the host, which a capture refuses."""
+    return torch.full((), value, dtype=dtype, device=device)
+
+
 def layer_norm(dim: int) -> nn.LayerNorm:
     return nn.LayerNorm(dim, eps=LN_EPS)
 
@@ -80,7 +88,7 @@ class Norm(nn.Module):
                 mu = mean(xs)
                 var = torch.clamp(var - mu * mu, min=0.0)
             # torch's bfloat16 rsqrt is an approximation: round the float32 one
-            eps = torch.tensor(LN_EPS, dtype=self.dtype, device=x.device)  # JAX's weak type
+            eps = constant(LN_EPS, self.dtype, x.device)  # JAX's weak type
             mul = torch.rsqrt((var + eps).float()).to(self.dtype)
         else:
             xs = x.float()
@@ -185,7 +193,7 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact GELU."""
     if not reduced(x.dtype):
         return F.gelu(x)
-    sqrt_half = torch.tensor(math.sqrt(0.5), dtype=x.dtype, device=x.device)
+    sqrt_half = constant(math.sqrt(0.5), x.dtype, x.device)
     return (0.5 * x) * torch.special.erfc(-x * sqrt_half)
 
 

@@ -21,7 +21,15 @@ import math
 import torch
 from torch import nn
 
-from hig_tpu_torch.models.embeddings import cast, dense, gelu, make_norm, reduced, softmax
+from hig_tpu_torch.models.embeddings import (
+    cast,
+    constant,
+    dense,
+    gelu,
+    make_norm,
+    reduced,
+    softmax,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,7 +47,7 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     if not reduced(x.dtype):
         return x * torch.sigmoid(1.702 * x)
     # JAX casts the constant to the dtype first; jax.nn.sigmoid's op chain
-    c = torch.tensor(1.702, dtype=x.dtype, device=x.device)
+    c = constant(1.702, x.dtype, x.device)
     return x * (1 / (1 + torch.exp(-(c * x))))
 
 
@@ -53,7 +61,7 @@ def _attention(x, in_proj: nn.Linear, out_proj: nn.Linear, heads: int, causal: b
     if dtype == torch.float32:
         logits = q @ k.transpose(-1, -2) / math.sqrt(D // heads)
     else:  # the scale is 1 / sqrt(head dim), each op in the dtype, as in JAX
-        scale = 1.0 / torch.sqrt(torch.tensor(D // heads, dtype=dtype, device=x.device))
+        scale = 1.0 / torch.sqrt(constant(D // heads, dtype, x.device))
         logits = (q @ k.transpose(-1, -2)) * scale
     if causal:
         keep = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()

@@ -19,6 +19,7 @@ import math
 import torch
 
 from hig_tpu_torch.ops import _build
+from hig_tpu_torch.utils.graphs import counted
 
 WINDOW = 32  # XLA's reduce window for long reductions
 MAX_TERMS = WINDOW * WINDOW  # the kernel's two levels of windows
@@ -67,4 +68,4 @@ def bf16_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
     return out
 
 
-bf16_sum.launches = 0
+counted(bf16_sum, "launches")

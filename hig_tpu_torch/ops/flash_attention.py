@@ -57,7 +57,7 @@ import math
 
 import torch
 
-from hig_tpu_torch.models.embeddings import reduced, round_bf16, softmax, softmax_vjp
+from hig_tpu_torch.models.embeddings import constant, reduced, round_bf16, softmax, softmax_vjp
 from hig_tpu_torch.ops import _build
 from hig_tpu_torch.ops.pallas_attention import (
     MASK_BIAS,
@@ -68,6 +68,7 @@ from hig_tpu_torch.ops.pallas_attention import (
     recompute_grads,
     split_heads,
 )
+from hig_tpu_torch.utils.graphs import counted
 
 
 def causal_bias(Tq: int, Tk: int | None = None, device=None) -> torch.Tensor:
@@ -92,8 +93,7 @@ def quadratic_attention(query, key, value, num_heads: int, logit_bias=None):
     if not reduced(query.dtype):
         scale = 1.0 / math.sqrt(D // num_heads)
     else:
-        scale = 1.0 / torch.sqrt(torch.tensor(D // num_heads, dtype=query.dtype,
-                                              device=query.device))
+        scale = 1.0 / torch.sqrt(constant(D // num_heads, query.dtype, query.device))
     logits = torch.einsum("...nhd,...mhd->...nmh", q, k) * scale
     if logit_bias is not None:
         logits = logits + logit_bias
@@ -326,5 +326,4 @@ def flash_attention(query, key, value, num_heads: int, key_mask=None,
     return out
 
 
-flash_attention.launches = 0
-flash_attention.launches_bf16 = 0
+counted(flash_attention, "launches", "launches_bf16")

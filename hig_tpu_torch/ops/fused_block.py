@@ -71,6 +71,7 @@ from hig_tpu_torch.ops.pallas_attention import (
     efficient_attention,
     round_bf16,
 )
+from hig_tpu_torch.utils.graphs import counted
 
 LN_EPS = 1e-6
 
@@ -211,5 +212,4 @@ def launch_bf16(tensors, N: int, T: int, D: int, interaction: bool, stream: int,
                   entry="fused_block_bf16")
 
 
-fused_attention_block.launches = 0
-fused_attention_block.launches_bf16 = 0
+counted(fused_attention_block, "launches", "launches_bf16")

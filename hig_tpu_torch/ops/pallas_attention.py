@@ -89,6 +89,7 @@ import torch.nn.functional as F
 
 from hig_tpu_torch.models.embeddings import linear, round_bf16, softmax_vjp
 from hig_tpu_torch.ops import _build
+from hig_tpu_torch.utils.graphs import counted
 
 HEAD_DIM = 64  # the only head width the CUDA core takes
 MASK_BIAS = -1000000.0
@@ -254,7 +255,7 @@ def weight_pieces(wq, wk, wv):
     return pieces
 
 
-weight_pieces.launches = 0
+counted(weight_pieces, "launches")
 
 
 def _launch_projected(q_src, kv_src, wq, bq, wk, bk, wv, bv, mask):
@@ -362,9 +363,7 @@ def fused_projected_attention(q_src, kv_src, wq, bq, wk, bk, wv, bv,
     return out
 
 
-fused_projected_attention.launches = 0
-fused_projected_attention.launches_bf16 = 0
-fused_projected_attention.launches_mixed = 0
+counted(fused_projected_attention, "launches", "launches_bf16", "launches_mixed")
 
 
 def fused_efficient_attention_plain(query, key, value, num_heads: int, key_mask=None,
@@ -552,5 +551,4 @@ def fused_efficient_attention(query, key, value, num_heads: int, key_mask=None):
     return out
 
 
-fused_efficient_attention.launches = 0
-fused_efficient_attention.launches_bf16 = 0
+counted(fused_efficient_attention, "launches", "launches_bf16")

@@ -244,8 +244,12 @@ def main(argv=None):
     frames_done = 0
     for lo in range(0, len(requests), args.batch_size):
         chunk = requests[lo : lo + args.batch_size]
+        graphs_before = set(sample_fn.graphs)
         features, joints = serve_batch(sample_fn, chunk, mean, std, device, generator,
                                        cfg.cap_id)
+        for key in set(sample_fn.graphs) - graphs_before:
+            print(f"captured the sampler for {len(chunk)} requests: "
+                  f"{json.dumps(sample_fn.graphs[key].summary())}")
         write_results(args.out_dir, chunk, features, joints, index)
         frames_done += sum(r["length"] * 2 for r in chunk)
         elapsed = time.time() - t_start

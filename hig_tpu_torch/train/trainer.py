@@ -35,7 +35,9 @@ and feeds the fused-block kernel the hoisted (scale, shift): the function
 computed is the same. DDPM hoists no AdaLN grid, as in JAX. With
 ``guidance_scale`` w ≠ 1 (classifier-free guidance) each step evaluates
 the conditional and the null conditioning in one denoiser call over 2B
-pairs, where the JAX sampler makes two calls of B pairs.
+pairs, where the JAX sampler makes two calls of B pairs. As JAX jits its
+sampler, the port captures a whole sampling call on the card as one CUDA
+graph per shape and replays it (``make_sampler``'s ``graph``).
 """
 
 from __future__ import annotations
@@ -69,6 +71,7 @@ from hig_tpu_torch.models.interaction_model import InteractionModel
 from hig_tpu_torch.models.text_encoder import ClipTextConfig
 from hig_tpu_torch.models.tokenizer import tokenize
 from hig_tpu_torch.train import checkpoint as ckpt
+from hig_tpu_torch.utils.graphs import GraphedCall
 from hig_tpu_torch.weights import (
     cast_floating,
     load_flax_tree,
@@ -385,14 +388,16 @@ def eval_params(state: dict) -> dict:
 
 
 @torch.no_grad()
-def adaln_scale_shift_grid(model: InteractionModel, ts: np.ndarray, xf_proj: torch.Tensor):
-    """Every StylizationBlock's (scale, shift) for every timestep in ``ts``.
+def adaln_scale_shift_grid(model: InteractionModel, ts, xf_proj: torch.Tensor):
+    """Every StylizationBlock's (scale, shift) for every timestep in ``ts``
+    (a host array, or an int64 tensor on xf_proj's device).
 
     Returns a list over layers of {block: (scale, shift)}, each of shape
     (len(ts), B, 2, 1, D).
     """
     den = model.denoiser
-    t = torch.as_tensor(np.ascontiguousarray(ts), device=xf_proj.device)
+    t = ts if torch.is_tensor(ts) else torch.as_tensor(np.ascontiguousarray(ts),
+                                                       device=xf_proj.device)
     # in the model's compute dtype, as JAX's grid takes every Dense
     emb = den.time_embed(t)[:, None, None, :] + xf_proj[None]  # (S, B, 2, E)
     return [
@@ -401,9 +406,15 @@ def adaln_scale_shift_grid(model: InteractionModel, ts: np.ndarray, xf_proj: tor
     ]
 
 
+def _to_device(a, device) -> torch.Tensor:
+    """``a`` (a tensor, array or list) on ``device``; a copy from the host
+    happens here, before any graph replays."""
+    return (a if torch.is_tensor(a) else torch.from_numpy(np.ascontiguousarray(a))).to(device)
+
+
 def make_sampler(model: InteractionModel, sched: g.DiffusionSchedule, T: int,
                  dim_pose: int, sampler: str = "ddim", ddim_steps: int = 50,
-                 guidance_scale: float = 1.0) -> Callable:
+                 guidance_scale: float = 1.0, graph: bool = True) -> Callable:
     """Returns ``sample(cond, lengths (B,), noise=None, generator=None,
     step_noise=None) -> (B, 2, T, dim_pose)``; cond is (B, 2, 77) caption
     tokens or, for a ``cap_id`` model, (B, 2) caption ids.
@@ -426,7 +437,20 @@ def make_sampler(model: InteractionModel, sched: g.DiffusionSchedule, T: int,
     once, here and in place (``cast_floating``, as JAX's sampler casts its
     parameter tree), and computes the gates, the text state and ε in
     bfloat16; the state x stays float32 and each ε is upcast before its
-    update.
+    update. The schedule's tables and the grid's timesteps are moved to the
+    model's device once, here: the model stays on that device.
+
+    On a CUDA model with ``graph`` (the default) the whole call — the text
+    tower and suffix, the text state, the AdaLN grid, every step and, for
+    DDPM, its draws — is one CUDA graph per (cond shape, cond dtype),
+    captured at the first call of that shape and replayed after
+    (``hig_tpu_torch.utils.graphs``): the counterpart of the JAX sampler's
+    ``jax.jit``. cond, lengths and x_T are copied into the graph's buffers,
+    and DDPM's step noise is drawn from the caller's generator state, which
+    ends where the eager loop leaves it. A callable ``step_noise`` cannot be
+    replayed and raises there. ``graph=False``, and any CPU model, run the
+    eager loop, every op launched from the host. ``sample.graphs`` holds
+    the graphs by key (capture seconds, pool bytes, launches a replay).
     """
     if sampler not in SAMPLERS:
         raise ValueError(f"unknown sampler {sampler!r} (one of {SAMPLERS})")
@@ -439,12 +463,14 @@ def make_sampler(model: InteractionModel, sched: g.DiffusionSchedule, T: int,
     ts = g.ddim_timesteps(sched.num_timesteps, ddim_steps)
     if model.cfg.dtype != torch.float32:
         cast_floating(model, model.cfg.dtype)
+    device = next(model.parameters()).device
+    tables = sched.on(device)
+    grid_ts = torch.as_tensor(np.ascontiguousarray(ts), device=device)
 
-    @torch.no_grad()
-    def sample(cond, lengths, noise=None, generator=None, step_noise=None):
-        device = next(model.parameters()).device
-        cond = torch.as_tensor(cond, device=device)
-        lengths = torch.clamp(torch.as_tensor(lengths, device=device), max=T)
+    def run(cond, lengths, noise, generator=None, step_noise=None, warmup=False):
+        """One sampling call on device tensors from x_T = ``noise``; with
+        ``warmup``, only its first denoiser call."""
+        lengths = torch.clamp(lengths, max=T)
         B = cond.shape[0]
         xf_proj, xf_out = model.encode_text(cond)
         if guided:
@@ -456,7 +482,7 @@ def make_sampler(model: InteractionModel, sched: g.DiffusionSchedule, T: int,
         text_kv = model.text_kv(xf_out)
         aux = None
         if sampler != "ddpm":
-            grid = adaln_scale_shift_grid(model, ts, xf_proj)
+            grid = adaln_scale_shift_grid(model, grid_ts, xf_proj)
             aux = [
                 [{k: (s[i], sh[i]) for k, (s, sh) in layer.items()} for layer in grid]
                 for i in range(len(ts))
@@ -470,7 +496,42 @@ def make_sampler(model: InteractionModel, sched: g.DiffusionSchedule, T: int,
             e_c, e_u = eps[:B], eps[B:]
             return e_u + guidance_scale * (e_c - e_u)
 
-        shape = (B, 2, T, dim_pose)
+        if warmup:
+            t0 = sched.num_timesteps - 1 if sampler == "ddpm" else int(ts[0])
+            t = torch.full((B,), t0, dtype=torch.int64, device=device)
+            return denoiser(noise, t, None if aux is None else aux[0])
+        if sampler == "ddpm":
+            return g.p_sample_loop(sched, denoiser, noise, generator=generator,
+                                   step_noise=step_noise, tables=tables)
+        if sampler == "dpm":
+            return dpmpp_2m_sample_loop(sched, denoiser, noise, num_steps=ddim_steps,
+                                        model_aux=aux, tables=tables)
+        return g.ddim_sample_loop(sched, denoiser, noise, num_steps=ddim_steps, model_aux=aux,
+                                  tables=tables)
+
+    graphs: dict = {}
+    graphed = graph and device.type == "cuda"
+    if graphed:  # what every graph of this sampler shares; DDPM's draws come from rng
+        pool, stream = torch.cuda.graph_pool_handle(), torch.cuda.Stream(device)
+        rng = torch.Generator(device=device) if sampler == "ddpm" else None
+
+    def replay(cond, lengths, noise, generator):
+        if rng is not None and generator is None:
+            raise ValueError("the graphed DDPM sampler draws its step noise from a "
+                             "torch.Generator: pass generator=")
+        key = (tuple(cond.shape), cond.dtype)
+        if key not in graphs:
+            graphs[key] = GraphedCall(
+                lambda **inputs: run(**inputs, generator=rng),
+                {"cond": cond, "lengths": lengths, "noise": noise}, pool, stream,
+                warmup=lambda **inputs: run(**inputs, warmup=True), generator=rng)
+        return graphs[key](generator if rng is not None else None, cond=cond,
+                           lengths=lengths, noise=noise)
+
+    @torch.no_grad()
+    def sample(cond, lengths, noise=None, generator=None, step_noise=None):
+        cond, lengths = _to_device(cond, device), _to_device(lengths, device)
+        shape = (cond.shape[0], 2, T, dim_pose)
         if noise is None:
             if generator is None:
                 raise ValueError("sample needs the initial noise or a torch.Generator")
@@ -478,14 +539,14 @@ def make_sampler(model: InteractionModel, sched: g.DiffusionSchedule, T: int,
         elif tuple(noise.shape) != shape:
             raise ValueError(f"noise has shape {tuple(noise.shape)}, expected {shape}")
         noise = noise.to(device, torch.float32)
-        if sampler == "ddpm":
-            return g.p_sample_loop(sched, denoiser, noise, generator=generator,
-                                   step_noise=step_noise)
-        if sampler == "dpm":
-            return dpmpp_2m_sample_loop(sched, denoiser, noise, num_steps=ddim_steps,
-                                        model_aux=aux)
-        return g.ddim_sample_loop(sched, denoiser, noise, num_steps=ddim_steps, model_aux=aux)
+        if not graphed:
+            return run(cond, lengths, noise, generator, step_noise)
+        if step_noise is not None:
+            raise ValueError("step_noise= cannot be replayed by a CUDA graph: make the "
+                             "sampler with graph=False to pass it")
+        return replay(cond, lengths, noise, generator)
 
+    sample.graphs = graphs
     return sample
 
 

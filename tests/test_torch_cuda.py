@@ -54,6 +54,16 @@ against the same steps through the plain versions: the loss within 1e-4
 relative and every gradient within 1e-3 of its leaf's largest magnitude
 (the key biases, whose exact gradient is 0, within 1e-6 of the largest
 gradient of the model).
+
+The sampler as one CUDA graph per shape, at a small width (latent 128, 2
+layers, 4 pairs, T = 40, a 100-step schedule): the capture and a replay
+equal the eager loop (``graph=False``) bit for bit, with the generator in
+the same state after each call and the eager call's launch counts credited
+to a replay, for DDIM through B1 in float32 and bfloat16, guided DDIM, DPM
+through B2, DDIM through B4 and DDPM over two calls on one generator; a
+second shape captures a second graph; the graphed DDPM sampler refuses a
+callable ``step_noise`` (naming ``graph=False``) and a call without a
+generator; an eager sampler on the plain route launches no kernel.
 """
 
 import numpy as np
@@ -830,8 +840,9 @@ def test_guided_ddim_step_through_b1_matches_plain_route(cuda, plain_route):
     cap_ids = torch.randint(0, len(CAPS), (N_PAIRS, 2), generator=gen)
     tokens = torch.from_numpy(tokenize(CAPS).astype(np.int64))[cap_ids].to(cuda)
     noise = torch.randn((N_PAIRS, 2, T, 263), generator=gen).to(cuda)
+    # the eager loop: a graph would replay the kernels on the plain route too
     sample = make_sampler(model, g.make_schedule(g.linear_betas(1000)), T=T, dim_pose=263,
-                          ddim_steps=1, guidance_scale=2.5)
+                          ddim_steps=1, guidance_scale=2.5, graph=False)
     lengths = torch.tensor(LENGTHS, device=cuda)
     before = fused_attention_block.launches
     got = sample(tokens, lengths, noise=noise)
@@ -871,3 +882,100 @@ def test_cap_id_pit_step_grads_match_plain_route(cuda, plain_route):
             assert float(got[name].abs().max()) <= 1e-6 * scale, name
             continue
         assert float((got[name] - w).abs().max()) <= 1e-3 * float(w.abs().max()), name
+
+
+# --- the sampler as one CUDA graph per shape ------------------------------------------
+
+GRAPH_MODEL = dict(latent_dim=128, ff_size=256, num_layers=2, num_heads=2, text_latent_dim=64,
+                   text_ff_size=128, num_text_layers=1, text_num_heads=2,
+                   clip={"width": 64, "heads": 2, "layers": 1})
+GRAPH_PAIRS, GRAPH_T = 4, 40
+# case → (model fields, sampler, grid steps, guidance weight); a 100-step schedule
+GRAPH_CASES = {
+    "ddim_fused": (dict(fused_blocks=True), "ddim", 10, 1.0),
+    "ddim_fused_bf16": (dict(fused_blocks=True, compute_dtype="bfloat16"), "ddim", 10, 1.0),
+    "ddim_guided": (dict(fused_blocks=True, cond_drop_prob=0.1), "ddim", 10, 2.5),
+    "dpm_projected": (dict(), "dpm", 10, 1.0),
+    "ddim_no_eff": (dict(efficient=False), "ddim", 10, 1.0),
+    "ddpm_fused": (dict(fused_blocks=True), "ddpm", 0, 1.0),
+}
+
+
+def _graph_case(device, case, graph=True):
+    from hig_tpu_torch.diffusion import gaussian as g
+    from hig_tpu_torch.train.trainer import make_sampler
+
+    fields, sampler, steps, w = GRAPH_CASES[case]
+    model = _seeded_model(device, **GRAPH_MODEL, **fields).eval()
+    sched = g.make_schedule(g.linear_betas(100))
+    return [make_sampler(model, sched, T=GRAPH_T, dim_pose=263, sampler=sampler,
+                         ddim_steps=steps or 50, guidance_scale=w, graph=graph)
+            for graph in ((True, False) if graph else (False,))]
+
+
+def _graph_inputs(device, pairs=GRAPH_PAIRS):
+    from hig_tpu_torch.data.vocab import CAPS
+    from hig_tpu_torch.models.tokenizer import tokenize
+
+    tokens = torch.from_numpy(tokenize(CAPS).astype(np.int64)[np.arange(2 * pairs) % 43])
+    lengths = torch.tensor([GRAPH_T, 31, 17, 26, 9, 40][:pairs])
+    return tokens.reshape(pairs, 2, -1).to(device), lengths.to(device)
+
+
+def _launches(fn):
+    from hig_tpu_torch.utils.graphs import launch_counts
+
+    before = launch_counts()
+    out = fn()
+    after = launch_counts()
+    return out, {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_graphed_sampler_equals_the_eager_loop(cuda, case):
+    """Two calls of the graphed sampler (the capture, then a replay) and of
+    the eager loop (``graph=False``) from one generator seed each: equal
+    outputs bit for bit and equal generator states after each call (DDPM
+    draws its step noise in the graph), one graph, and a replay credits
+    the eager call's launch counts."""
+    graphed, eager = _graph_case(cuda, case)
+    tokens, lengths = _graph_inputs(cuda)
+    gens = [torch.Generator(device=cuda).manual_seed(5) for _ in range(2)]
+    for _ in range(2):
+        got, got_counts = _launches(lambda: graphed(tokens, lengths, generator=gens[0]))
+        want, want_counts = _launches(lambda: eager(tokens, lengths, generator=gens[1]))
+        assert torch.equal(got, want)
+        assert torch.equal(gens[0].get_state(), gens[1].get_state())
+    assert got_counts == want_counts and sum(want_counts.values()) > 0
+    assert len(graphed.graphs) == 1
+
+
+def test_a_second_shape_captures_a_second_graph(cuda):
+    graphed, eager = _graph_case(cuda, "ddim_fused")
+    tokens, lengths = _graph_inputs(cuda)
+    for pairs in (GRAPH_PAIRS, 3, GRAPH_PAIRS):
+        noise = torch.randn((pairs, 2, GRAPH_T, 263), device=cuda)
+        got = graphed(tokens[:pairs], lengths[:pairs], noise=noise)
+        assert torch.equal(got, eager(tokens[:pairs], lengths[:pairs], noise=noise))
+    assert sorted(key[0][0] for key in graphed.graphs) == [3, GRAPH_PAIRS]
+
+
+def test_graphed_ddpm_refuses_what_it_cannot_replay(cuda):
+    graphed, = _graph_case(cuda, "ddpm_fused")[:1]
+    tokens, lengths = _graph_inputs(cuda)
+    noise = torch.randn((GRAPH_PAIRS, 2, GRAPH_T, 263), device=cuda)
+    with pytest.raises(ValueError, match="graph=False"):
+        graphed(tokens, lengths, noise=noise, step_noise=lambda i: torch.zeros_like(noise))
+    with pytest.raises(ValueError, match="generator"):
+        graphed(tokens, lengths, noise=noise)
+    assert graphed.graphs == {}
+
+
+@pytest.mark.parametrize("case", ["ddim_fused", "dpm_projected", "ddim_no_eff"])
+def test_eager_sampler_on_the_plain_route_launches_no_kernel(cuda, plain_route, case):
+    plain_route()
+    eager, = _graph_case(cuda, case, graph=False)
+    tokens, lengths = _graph_inputs(cuda)
+    out, counts = _launches(lambda: eager(tokens, lengths,
+                                          generator=torch.Generator(device=cuda).manual_seed(0)))
+    assert counts == {} and torch.isfinite(out).all()

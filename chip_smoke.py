@@ -41,16 +41,23 @@ Phases, each printing one JSON line (or several):
      batch 32 caption pairs, T = 91, CLIP frozen) on a seeded dataset in the
      reference's layout written to a temporary directory: PIT through B2 (6
      steps), PIT --no_eff through B4 (4 steps) and the supervised stage with
-     a 0/1 label file (2 steps). Each run's launch counts (16 a step of its
-     own kernel, 0 of the others), finite losses in metrics.jsonl, the
-     latest checkpoint, ms per step, pairs/s and peak device memory; for
+     a 0/1 label file (2 steps), each step after the first a replay of the
+     run's CUDA graph (the first runs eagerly, then the capture: its
+     seconds, warm-up seconds and pool). Each run's launch counts (16 a step
+     of its own kernel, 0 of the others; a replay credits its capture's),
+     finite losses in metrics.jsonl, the latest checkpoint, ms per step
+     (the median leaves out the capturing step), pairs/s and peak device
+     memory; PIT also run eagerly (``graph=False``) from the same seed, whose
+     final parameters, Adam moments, metrics and launch counts the graphed
+     run must equal bit for bit, with the eager step's ms beside; for
      the two PIT runs, one batch's loss and every gradient through the
      kernels against the plain route, at the run's initial weights and, with
      both routes also against a float64 plain route, at its trained ones;
      then 8 requests served from the PIT run's checkpoint through B1 (the
      sampler's capturing call: 800 launches and the warm-up's 16);
   7. pipeline: the paper's three stages through the port's entry points on
-     the same dataset: (1-1) PIT with caption ids (``train --cap_id``, 6
+     the same dataset, every training run through its step's graph as in
+     phase 6: (1-1) PIT with caption ids (``train --cap_id``, 6
      steps, B2); (1-2) ``python -m hig_tpu_torch.label``'s main, role
      discovery on 26 annotated clips and pseudo-labels of the 48 training
      clips through B1 (16 launches per denoiser forward, none of B2-B4),
@@ -73,13 +80,21 @@ Phases, each printing one JSON line (or several):
      DPM-20), of one labeling vote (a denoiser forward over 64 pairs under both
      assignments) and one more PIT training step, and of one bfloat16 PIT
      step and two bfloat16 labeling votes, fused (B1-bf16) and rms_norm
-     projected (B2-bf16a) (phase 11). Every sampler call there is a replay
-     of its graph, whose launch counts the graph credits; beside them one
-     eager call (float32 fused DDIM-50). The port kernels (``hig::``) that
-     one wrapper call of each serving form launches are profiled first, by
-     kernel name, and each sampler call's trace must hold, name by name,
-     its counts times that table. Each busy share divides by the
-     unprofiled wall of its own kind of call. It runs last, after phase 11:
+     projected (B2-bf16a) (phase 11). Every sampler call and both training
+     steps there are replays of their graphs, whose launch counts the graph
+     credits; beside them one eager call (float32 fused DDIM-50) and one
+     eager step of each PIT run (float32 and bfloat16). The port
+     kernels (``hig::``) that one wrapper call of each serving form launches,
+     and one training call (forward and backward) of B2, B4, B3-bf16 and
+     B4-bf16 and one ordered bfloat16 sum, are profiled first, by kernel
+     name, and the trace of each sampler call and each training step must
+     hold, name by name, its counts times that table. Each busy share
+     divides by the unprofiled wall of its own kind of call (a step: the
+     run's median replayed step). The profiler now and then loses device
+     events, so a call is profiled again, at most 8 sessions, until its
+     trace passes its check or two traces agree kernel by kernel (a table
+     row: two must agree); "sessions" in each line. It runs last, after
+     phase 11:
      once the profiler has run, later launches are slower;
   9. evaluate, on the same dataset plus a test split of 52 clips (two per
      class): ``python -m hig_tpu_torch.eval.train``'s main for the
@@ -154,10 +169,12 @@ Phases, each printing one JSON line (or several):
      ``--compute_dtype bfloat16``: PIT (LayerNorm, 4 steps, B3-bf16), PIT
      with --rms_norm --fast_ln (2 steps, B3-bf16), PIT --no_eff (2 steps,
      B4-bf16) and the supervised stage with --cond_drop_prob 0.1 (2 steps
-     and one validation batch, B3-bf16): 16 launches a step of the run's
+     and one validation batch, B3-bf16), every step after the first a
+     replay of the run's graph, and PIT also eagerly beside it as in phase
+     6 (bit for bit): 16 launches a step of the run's
      own form and none of any other form or float32 kernel, launches of the
      ordered bfloat16 sum (none in a float32 run; its kernel and its plain
-     loop also timed in turns over bf16 PIT steps), finite losses,
+     loop also timed in turns over eager bf16 PIT steps), finite losses,
      float32 parameters, Adam moments, EMA and checkpoint, ms per step,
      pairs/s and peak memory beside phase 6's float32 PIT step; for the
      three PIT runs, one batch's loss and every gradient through the
@@ -403,7 +420,40 @@ def plain_sum():
         embeddings.bf16_sum = saved
 
 
-def profile_call(fn, check: bool = False) -> dict:
+# A torch.profiler session on the H100 now and then loses device events:
+# a short one all or some of them (its host events intact), a long one a
+# stretch (one denoiser block's kernels of a 20-step call, every kind short
+# by the same stretch), up to three sessions in a row (profile_sessions.py
+# shows them). Every call profiled here launches the same kernels each time
+# it runs, so a session is taken again (``kept_session``, up to
+# PROFILE_SESSIONS, each retake after RETAKE_PAUSE_S) unless its trace passes
+# its check or equals an earlier session's trace, kernel by kernel: two
+# equal traces are the call's, and are held to the check as they are.
+PROFILE_SESSIONS, RETAKE_PAUSE_S = 8, 1.0
+
+
+def kept_session(session, held=None, sessions: int = PROFILE_SESSIONS,
+                 pause_s: float = RETAKE_PAUSE_S) -> tuple:
+    """``session()`` (one profiled call: ({kernel name: device events}, ...))
+    until its trace is kept, at most ``sessions`` times. A trace without
+    a device event is never kept; one that passes ``held(result)`` is, and
+    so is one equal to an earlier session's (``held`` None: only that, so
+    the second session is no retake). Returns (the last result, the
+    sessions taken, whether it was kept)."""
+    seen = []
+    for taken in range(1, sessions + 1):
+        if taken > (1 if held is not None else 2):
+            time.sleep(pause_s)
+        out = session()
+        trace = out[0]
+        if trace:
+            if (held is not None and held(out)) or trace in seen:
+                return out, taken, True
+            seen.append(trace)
+    return out, sessions, False
+
+
+def profile_call(fn, check: bool = False, before=None, held=None) -> dict:
     """Device time by kernel over one call of ``fn`` (torch.profiler). Only
     device activity is recorded: host op events would add ~30,000 events
     to a call and some 15 s to their summary, and no number here reads
@@ -411,38 +461,55 @@ def profile_call(fn, check: bool = False) -> dict:
     own summary (``key_averages``) builds a Python object per event, 30-40 s
     for the 200,000 of a DDPM-1000 call. With ``check`` that summary is
     built as well, and "summary_agrees" says whether it reads the same
-    count and time (to 1e-6) of every kernel."""
+    count and time (to 1e-6) of every kernel. The call runs again, with
+    ``before()`` (if given) ahead of each run, until ``kept_session`` keeps
+    its trace (``held`` gets this function's result for the session);
+    "sessions" and "kept" say how it went."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    def session():
+        if before is not None:
+            before()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name: dict = {}
-    for e in prof.profiler.kineto_results.events():
-        if "CUDA" in str(e.device_type()):
-            ms_n = by_name.setdefault(e.name(), [0.0, 0])
-            ms_n[0] += (e.end_ns() - e.start_ns()) / 1e6
-            ms_n[1] += 1
-    kernels = sorted(((name, ms, n) for name, (ms, n) in by_name.items() if ms > 0),
-                     key=lambda k: -k[1])
-    device_ms = sum(k[1] for k in kernels)
-    port = [k for k in kernels if "hig::" in k[0]]
-    out = {"profiled_wall_ms": wall_ms, "device_ms": device_ms,
-           "port_kernels_ms": sum(k[1] for k in port),
-           "port_kernel_launches": sum(k[2] for k in port),
-           "port_kernels": {name: n for name, _, n in sorted(port)},
-           "top": [[name[:90], ms, n] for name, ms, n in kernels[:16]]}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        by_name: dict = {}
+        for e in prof.profiler.kineto_results.events():
+            if "CUDA" in str(e.device_type()):
+                ms_n = by_name.setdefault(e.name(), [0.0, 0])
+                ms_n[0] += (e.end_ns() - e.start_ns()) / 1e6
+                ms_n[1] += 1
+        out = summarize(by_name, wall_ms)
+        return {name: n for name, (_, n) in by_name.items()}, out, prof
+
+    (_, out, prof), taken, kept = kept_session(
+        session, None if held is None else lambda result: held(result[1]))
+    out.update(sessions=taken, kept=kept)
     if check:
         summary = {e.key: (e.self_device_time_total / 1e3, e.count)
                    for e in prof.key_averages() if "CUDA" in str(e.device_type)
                    and e.self_device_time_total > 0 and e.count > 0}
+        kernels = out.pop("_kernels")
         out["summary_agrees"] = summary.keys() == {k[0] for k in kernels} and all(
             summary[name][1] == n and abs(summary[name][0] - ms) <= 1e-6 * ms
             for name, ms, n in kernels)
+    out.pop("_kernels", None)
     return out
+
+
+def summarize(by_name: dict, wall_ms: float) -> dict:
+    """``profile_call``'s numbers from {kernel name: [ms, events]}."""
+    kernels = sorted(((name, ms, n) for name, (ms, n) in by_name.items() if ms > 0),
+                     key=lambda k: -k[1])
+    port = [k for k in kernels if "hig::" in k[0]]
+    return {"profiled_wall_ms": wall_ms, "device_ms": sum(k[1] for k in kernels),
+            "port_kernels_ms": sum(k[1] for k in port),
+            "port_kernel_launches": sum(k[2] for k in port),
+            "port_kernels": {name: n for name, _, n in sorted(port)},
+            "top": [[name[:90], ms, n] for name, ms, n in kernels[:16]], "_kernels": kernels}
 
 
 def serve_with(sample_fn, requests, mean, std, cap_id: bool = False):
@@ -885,11 +952,12 @@ def sampler_run(run: str) -> bool:
     return run.startswith(("serve_", "evaluate_"))
 
 
-def kernels_per_launch(device) -> dict:
-    """{form: {port kernel name: launches}}: what one call of each wrapper
-    form on the sampler's path launches on the card (torch.profiler), at the
-    serving shape, as the denoiser's blocks call it (self-attention, not
-    causal)."""
+def kernels_per_launch(device) -> tuple[dict, dict]:
+    """({form: {port kernel name: launches}}, {form: (profiler sessions,
+    kept)}): what
+    one call of each wrapper form on the sampler's path launches on the card
+    (torch.profiler), at the serving shape, as the denoiser's blocks call it
+    (self-attention, not causal)."""
     from hig_tpu_torch.ops.flash_attention import flash_attention
     from hig_tpu_torch.ops.fused_block import BlockWeights, fused_attention_block
     from hig_tpu_torch.ops.pallas_attention import fused_projected_attention
@@ -897,7 +965,7 @@ def kernels_per_launch(device) -> dict:
     F = torch.nn.functional
     w, x, mask, scale, shift = block_inputs(device)
     xn = F.layer_norm(x, (D,), w.ln_g, w.ln_b, 1e-6)
-    table = {}
+    table, sessions = {}, {}
     for suffix, cast in (("", torch.Tensor.float), ("_bf16", to_bf16)):
         wc = BlockWeights(*[cast(t) for t in w])
         q, k, v = F.linear(cast(x), torch.cat([wc.wq, wc.wk, wc.wv]),
@@ -911,8 +979,76 @@ def kernels_per_launch(device) -> dict:
         }
         for form, (fn, *args) in calls.items():
             with torch.no_grad():
-                table[form + suffix] = profile_call(lambda: fn(*args))["port_kernels"]
-    return table
+                prof = profile_call(lambda: fn(*args))
+            table[form + suffix] = prof["port_kernels"]
+            sessions[form + suffix] = (prof["sessions"], prof["kept"])
+    return table, sessions
+
+
+def train_kernels_per_launch(device) -> tuple[dict, dict]:
+    """({form: {port kernel name: launches}}, {form: (profiler sessions,
+    kept)}): what
+    one training call of each form a train step launches on the card
+    (torch.profiler), its forward and its backward, at the serving shape
+    as the blocks call it: B2 (float32 efficient, self-attention), B4
+    (``--no_eff``), B3-bf16 (bfloat16 efficient, the einsum route's core)
+    and B4-bf16. The ordered bfloat16
+    sums of the bfloat16 backwards count in ``bf16_sum.launches``, so they
+    are taken out of their form's row and have their own (BF16_SUM, one
+    call)."""
+    from hig_tpu_torch.ops.bf16_sum import bf16_sum
+    from hig_tpu_torch.ops.flash_attention import flash_attention
+    from hig_tpu_torch.ops.pallas_attention import (
+        fused_efficient_attention,
+        fused_projected_attention,
+    )
+
+    F = torch.nn.functional
+    w, x, mask, _, _ = block_inputs(device)
+    xn = F.layer_norm(x, (D,), w.ln_g, w.ln_b, 1e-6)
+    q, k, v = F.linear(x, torch.cat([w.wq, w.wk, w.wv]),
+                       torch.cat([w.bq, w.bk, w.bv])).chunk(3, dim=-1)
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    q16, k16, v16 = (to_bf16(t) for t in (q, k, v))
+    prof = profile_call(lambda: bf16_sum(torch.randn((N_PAIRS, 2, T, D), device=device), -2))
+    sum_row, sessions = prof["port_kernels"], {BF16_SUM: (prof["sessions"], prof["kept"])}
+    table = {BF16_SUM: sum_row}
+
+    def leaves(*ts):
+        return [t.detach().requires_grad_() for t in ts]
+
+    calls = {
+        "projected_attention": lambda: (lambda a, *ws: fused_projected_attention(
+            a, a, *ws, HEADS, mask))(*leaves(xn, w.wq, w.bq, w.wk, w.bk, w.wv, w.bv)),
+        "flash_attention": lambda: flash_attention(*leaves(q, k, v), HEADS, mask),
+        "efficient_attention_bf16": lambda: fused_efficient_attention(
+            *leaves(q16, k16, v16), HEADS, mask),
+        "flash_attention_bf16": lambda: flash_attention(*leaves(q16, k16, v16), HEADS, mask),
+    }
+    for form, call in calls.items():
+        def fwd_bwd(call=call):
+            out = call()
+            out.backward(torch.ones_like(out))
+
+        prof = profile_call(fwd_bwd, before=reset_counts)
+        table[form] = without_sums(prof["port_kernels"], sum_row, bf16_sum.launches)
+        sessions[form] = (prof["sessions"], prof["kept"])
+    reset_counts()
+    return table, sessions
+
+
+def without_sums(traced: dict, sum_row: dict, sums: int) -> dict:
+    """The port kernels of ``traced`` but those of its ``sums`` ordered
+    bfloat16 sums (``sum_row`` each)."""
+    row = dict(traced)
+    for name, n in sum_row.items():
+        row[name] = row.get(name, 0) - n * sums
+    return {name: n for name, n in row.items() if n}
+
+
+def train_step_run(run: str) -> bool:
+    """A profiled run that is a replayed train step."""
+    return run.startswith("train_step_")
 
 
 def expected_port_kernels(counts: dict, per_launch: dict) -> dict | None:
@@ -938,32 +1074,59 @@ def phase_profile(runs: dict, eager: tuple, device, failures) -> None:
     sampler call (``sampler_run``) must hold, kernel name by kernel name,
     its counts times the per-call table, the eager call's as well. The first
     run's trace is also read through the profiler's own summary, which must
-    agree (``profile_call``). Each busy share is the device time over the
+    agree (``profile_call``). A trace that fails its check is the run's
+    only once a second session's trace equals it kernel by kernel; till
+    then the run is profiled again (``kept_session``), as is each table
+    row till two agree. Each busy share is the device time over the
     unprofiled wall of the same kind of call. Profiling comes last: once the
     profiler has run, later launches in the process are slower, so no
     timing is taken after it."""
-    per_launch = kernels_per_launch(device)
-    print(json.dumps({"phase": "profile", "kernels_per_launch": per_launch}), flush=True)
+    from hig_tpu_torch.ops.bf16_sum import bf16_sum
+
+    per_launch, sessions = kernels_per_launch(device)
+    per_train_call, train_sessions = train_kernels_per_launch(device)
+    sessions.update({f"train {form}": n for form, n in train_sessions.items()})
+    print(json.dumps({"phase": "profile", "kernels_per_launch": per_launch,
+                      "kernels_per_train_call": per_train_call, "sessions": sessions}),
+          flush=True)
+    for form, (_, kept) in sessions.items():
+        fail_if(failures, not kept, f"profile: no two traces of one {form} call agree")
+
+    def counted() -> dict:
+        counts = {form: n for form, n in bf16_counts().items() if n}
+        if bf16_sum.launches:
+            counts[BF16_SUM] = bf16_sum.launches
+        return counts
+
     eager_run, eager_call, eager_wall = eager
     todo = {**runs, eager_run: (eager_call, eager_wall)}
     # the DDPM-1000 calls last: after a trace of their ~200,000 device events
     # every later profile session on the H100 took ~8 s longer
     todo = dict(sorted(todo.items(), key=lambda item: "ddpm" in item[0]))
     for i, (run_name, (run, wall)) in enumerate(todo.items()):
-        reset_counts()
+        table = (per_launch if sampler_run(run_name)
+                 else per_train_call if train_step_run(run_name) else None)
+
+        def held(prof, table=table) -> bool:
+            counts = counted()
+            return table is None or (bool(counts) and
+                                     expected_port_kernels(counts, table) == prof["port_kernels"])
+
         t_run = time.perf_counter()
-        prof = profile_call(run, check=i == 0)
+        prof = profile_call(run, check=i == 0, before=reset_counts, held=held)
         fail_if(failures, prof.get("summary_agrees") is False,
                 f"profile ({run_name}): the profiler's summary reads otherwise")
+        fail_if(failures, not prof["kept"],
+                f"profile ({run_name}): {prof['sessions']} sessions, none kept")
         prof["seconds"] = time.perf_counter() - t_run
-        counts = {form: n for form, n in bf16_counts().items() if n}
+        counts = counted()
         prof["launches"] = counts
         if wall is not None:
             prof["device_busy_share_unprofiled"] = prof["device_ms"] / (wall * 1e3)
         if counts:
             prof["port_kernels_ms_per_launch"] = prof["port_kernels_ms"] / sum(counts.values())
-        if sampler_run(run_name):
-            want = expected_port_kernels(counts, per_launch)
+        if table is not None:
+            want = expected_port_kernels(counts, table)
             prof["port_kernels_as_counted"] = want == prof["port_kernels"]
             fail_if(failures, not counts or want != prof["port_kernels"],
                     f"profile ({run_name}): the trace's port kernels {prof['port_kernels']}, "
@@ -1083,14 +1246,18 @@ def grad_route_errors(model, sched, batch, pit: bool, float64: bool = False, kee
 
 
 def train_run(run: str, extra: list, steps: int, own: str, data: str, tmp: str, failures,
-              smi: str, val_batches: int = 0) -> tuple:
+              smi: str, val_batches: int = 0, graph: bool = True) -> tuple:
     """One run of ``python -m hig_tpu_torch.train``'s main at full width on
-    the dataset in ``data``: its launch counts (LAUNCHES_PER_STEP a step of
-    its own kernel, and as many a validation batch; 0 of every other form;
-    the ordered bfloat16 sum launched in a bfloat16 run, in no other),
-    steps, finite losses (and validation losses) in metrics.jsonl, and the
-    latest checkpoint. Returns (trainer, state, the printed row without
-    printing it, the counts with the sum's under BF16_SUM)."""
+    the dataset in ``data``, its steps replayed from one CUDA graph (the
+    first step eager, then the capture) or, without ``graph``, eager: its
+    launch counts (LAUNCHES_PER_STEP a step of its own kernel, and as many a
+    validation batch; 0 of every other form; the ordered bfloat16 sum
+    launched in a bfloat16 run, in no other), steps, finite losses (and
+    validation losses) in metrics.jsonl, the latest checkpoint, and for a
+    graphed run one capture with a pool above 0 (its seconds and GB in the
+    row; the graph is dropped after the run). Returns (trainer, state, the
+    printed row without printing it, the counts with the sum's under
+    BF16_SUM)."""
     from hig_tpu_torch.ops.bf16_sum import bf16_sum
     from hig_tpu_torch.train.__main__ import main as train_main
 
@@ -1101,9 +1268,11 @@ def train_run(run: str, extra: list, steps: int, own: str, data: str, tmp: str, 
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    trainer, state = train_main(argv)
+    trainer, state = train_main(argv, graph=graph)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    captures = [c.summary() for c in trainer.graphs.values()]
+    trainer.graphs.clear()  # its pool goes back to the allocator
     counts, sums = bf16_counts(), bf16_sum.launches
     peak = torch.cuda.max_memory_allocated()
     cfg = trainer.cfg
@@ -1119,7 +1288,12 @@ def train_run(run: str, extra: list, steps: int, own: str, data: str, tmp: str, 
            "median_ms_per_step_after_first": steady, "pairs_per_s": TRAIN_PAIRS * 1e3 / steady,
            "max_memory_allocated_gb": peak / 1e9, "losses": losses, "wall_s": wall,
            "params": sum(p.numel() for p in state.model.parameters()),
-           "trainable": sum(p.numel() for p in state.optimizer.params)}
+           "trainable": sum(p.numel() for p in state.optimizer.params), "graph": graph}
+    if graph:
+        row["captures"] = [{k: c[k] for k in ("warmup_s", "capture_s", "launches")}
+                           | {"pool_gb": c["pool_bytes"] / 1e9} for c in captures]
+        fail_if(failures, len(captures) != 1 or not captures[0]["pool_bytes"] > 0,
+                f"train ({run}): captures {captures}")
     if val_batches:
         row["val_losses"] = val_losses
     want = LAUNCHES_PER_STEP * (steps + val_batches)
@@ -1135,6 +1309,48 @@ def train_run(run: str, extra: list, steps: int, own: str, data: str, tmp: str, 
     fail_if(failures, not os.path.exists(os.path.join(cfg.model_dir, "latest.pt")),
             f"train ({run}) wrote no latest checkpoint")
     return trainer, state, row, {**counts, BF16_SUM: sums}
+
+
+def final_state_tensors(state) -> dict:
+    """A run's parameters, Adam's moments and EMA, by name."""
+    opt = state.optimizer
+    out = {f"param.{n}": p.detach() for n, p in state.model.named_parameters()}
+    out.update({f"exp_avg.{i}": m for i, m in enumerate(opt.exp_avg)})
+    out.update({f"exp_avg_sq.{i}": v for i, v in enumerate(opt.exp_avg_sq)})
+    out.update({f"ema.{n}": e for n, e in (state.ema or {}).items()})
+    return out
+
+
+def graphed_and_eager_run(run: str, extra: list, steps: int, own: str, data: str, tmp: str,
+                          failures, smi: str) -> tuple:
+    """``train_run`` of ``run`` through the graph, then of the same
+    arguments and seed eagerly (``graph=False``, as ``<run>_eager``): the
+    eager run's final parameters, Adam moments and EMA, its metrics.jsonl
+    and its launch counts must equal the graphed run's bit for bit (two
+    eager runs do: no step of these runs sums with atomics). The graphed
+    run's row gets the eager run's step times and peak memory under
+    "eager". Returns what ``train_run`` returns for the graphed run."""
+    trainer, state, row, counts = train_run(run, extra, steps, own, data, tmp, failures, smi)
+    e_trainer, e_state, e_row, e_counts = train_run(f"{run}_eager", extra, steps, own, data,
+                                                    tmp, failures, smi, graph=False)
+    got, want = final_state_tensors(state), final_state_tensors(e_state)
+    differ = {n: float((got[n] - w).abs().max()) for n, w in want.items()
+              if not torch.equal(got[n], w)}
+    metrics = []
+    for t in (trainer, e_trainer):
+        with open(os.path.join(t.cfg.save_root, "metrics.jsonl")) as f:
+            metrics.append([json.loads(line) for line in f])
+    row["eager"] = {k: e_row[k] for k in ("step_ms", "median_ms_per_step_after_first",
+                                          "pairs_per_s", "max_memory_allocated_gb", "wall_s")}
+    row["graph_equals_eager"] = {"tensors": len(want), "differ": differ,
+                                 "metrics": metrics[0] == metrics[1],
+                                 "launches": counts == e_counts}
+    fail_if(failures, bool(differ) or metrics[0] != metrics[1] or counts != e_counts
+            or got.keys() != want.keys(),
+            f"train ({run}): the graphed run differs from the eager run: "
+            f"{row['graph_equals_eager']}, launches {counts} against {e_counts}")
+    del e_trainer, e_state
+    return trainer, state, row, counts
 
 
 def gate_grad_check(failures, run: str, key: str, gc: dict) -> None:
@@ -1177,7 +1393,8 @@ def phase_train(device, failures, smi: str, requests: list, data: str,
     launches = {name: 0 for name in kernels}
     kept = {}
     for run, (extra, steps, own) in TRAIN_RUNS.items():
-        trainer, state, row, counts = train_run(run, extra, steps, own, data, tmp, failures, smi)
+        trainer, state, row, counts = (graphed_and_eager_run if run == "pit" else train_run)(
+            run, extra, steps, own, data, tmp, failures, smi)
         cfg = trainer.cfg
         if run != "supervised":
             # the run's first batch; the run's initial weights, rebuilt from its seed
@@ -1197,6 +1414,7 @@ def phase_train(device, failures, smi: str, requests: list, data: str,
         if run == "pit":
             kept = {"trainer": trainer, "state": state, "batch": batch, "step_ms": row[
                 "median_ms_per_step_after_first"], "pairs_per_s": row["pairs_per_s"],
+                "eager_step_ms": row["eager"]["median_ms_per_step_after_first"],
                 "max_memory_allocated_gb": row["max_memory_allocated_gb"],
                 "model_dir": cfg.model_dir,
                 "meta_dir": cfg.meta_dir,
@@ -1225,14 +1443,19 @@ def phase_train(device, failures, smi: str, requests: list, data: str,
         launches[name] += counts[name]
     serve_trained = serve_with(sample_fn, requests, mean, std)
 
-    train_step = tr.make_train_step(kept["trainer"].sched, True)
     step_gen = torch.Generator(device=device).manual_seed(9)
+    steps = {graph: tr.make_train_step(kept["trainer"].sched, True, graph=graph)
+             for graph in (True, False)}
 
-    def one_step():
-        return {k: float(v) for k, v in train_step(kept["state"], kept["batch"], step_gen).items()}
+    def one_step(graph=True):
+        return {k: float(v) for k, v in steps[graph](kept["state"], kept["batch"],
+                                                     step_gen).items()}
 
+    one_step()  # eager, then the capture: the profile traces a replay
     f32_pit = {k: kept[k] for k in ("step_ms", "pairs_per_s", "max_memory_allocated_gb")}
     return launches, {"train_step_pit": (one_step, kept["step_ms"] / 1e3),
+                      "train_step_pit_eager": (lambda: one_step(graph=False),
+                                               kept["eager_step_ms"] / 1e3),
                       "serve_trained": (seeded(serve_trained), None)}, f32_pit
 
 
@@ -2516,7 +2739,7 @@ def float32_state(state, model_dir: str) -> dict:
 
     saved = ckpt.load(os.path.join(model_dir, "latest.pt"))["params"]
     return {"params": kinds(state.model.parameters()),
-            "adam": kinds(t for st in state.optimizer.adam.state.values() for t in st.values()),
+            "adam": kinds(state.optimizer.exp_avg + state.optimizer.exp_avg_sq),
             "ema": kinds((state.ema or {}).values()), "checkpoint": kinds(saved.values())}
 
 
@@ -2681,8 +2904,12 @@ def phase_bf16_train(device, failures, smi: str, requests: list, data: str, tmp:
 
     runs, kept = {}, {}
     for run, (extra, steps, val_batches, own) in BF16_TRAIN_RUNS.items():
-        trainer, state, row, counts = train_run(run, extra, steps, own, data, tmp, failures, smi,
-                                                val_batches=val_batches)
+        if run == "pit_bf16":
+            trainer, state, row, counts = graphed_and_eager_run(run, extra, steps, own, data,
+                                                                tmp, failures, smi)
+        else:
+            trainer, state, row, counts = train_run(run, extra, steps, own, data, tmp, failures,
+                                                    smi, val_batches=val_batches)
         add(counts)
         cfg = trainer.cfg
         dtypes = float32_state(state, cfg.model_dir)
@@ -2700,7 +2927,8 @@ def phase_bf16_train(device, failures, smi: str, requests: list, data: str, tmp:
         print(json.dumps(row), flush=True)
         if run == "pit_bf16":
             kept = {"trainer": trainer, "state": state, "batch": batch, "cfg": cfg,
-                    "step_s": row["median_ms_per_step_after_first"] / 1e3}
+                    "step_s": row["median_ms_per_step_after_first"] / 1e3,
+                    "eager_step_s": row["eager"]["median_ms_per_step_after_first"] / 1e3}
         elif run == "pit_bf16_rms_norm":
             kept["rms"] = (trainer.model_config, cfg)
         del trainer, state
@@ -2784,11 +3012,12 @@ def phase_bf16_train(device, failures, smi: str, requests: list, data: str, tmp:
     runs["serve_bf16_trained"] = seeded(serve_with(sample_fn, requests, mean, std))
     walls["serve_bf16_trained"] = None
 
-    train_step = tr.make_train_step(trainer.sched, True)
+    # eager steps: a replay would not see plain_sum's swap
+    eager_step = tr.make_train_step(trainer.sched, True, graph=False)
     step_gen = torch.Generator(device=device).manual_seed(9)
 
     def one_step():
-        return {k: float(v) for k, v in train_step(kept["state"], kept["batch"],
+        return {k: float(v) for k, v in eager_step(kept["state"], kept["batch"],
                                                    step_gen).items()}
 
     # the ordered bfloat16 sum's kernel against its plain loop in the same
@@ -2805,7 +3034,16 @@ def phase_bf16_train(device, failures, smi: str, requests: list, data: str, tmp:
                       "step_ms": ab, "median_ms": {m: statistics.median(v)
                                                    for m, v in ab.items()}}), flush=True)
 
-    runs["train_step_pit_bf16"], walls["train_step_pit_bf16"] = one_step, kept["step_s"]
+    train_step = tr.make_train_step(trainer.sched, True)
+
+    def replayed_step():
+        return {k: float(v) for k, v in train_step(kept["state"], kept["batch"],
+                                                   step_gen).items()}
+
+    replayed_step()  # eager, then the capture: the profile traces a replay
+    runs["train_step_pit_bf16"], walls["train_step_pit_bf16"] = replayed_step, kept["step_s"]
+    runs["train_step_pit_bf16_eager"] = one_step
+    walls["train_step_pit_bf16_eager"] = kept["eager_step_s"]
     print(json.dumps({"phase": "bf16_train_label", "seconds": time.perf_counter() - t_phase,
                       "launches": launches}), flush=True)
     return launches, runs, walls

@@ -133,6 +133,8 @@ class ExperimentConfig:
     fsdp: bool = False
     tp: bool = False
     pp_micro: int = 0
+
+    # a torch.profiler trace of steps [5, 10) and a step-latency summary
     profile: bool = False
 
     # dataset-derived (filled by add_dataset_paths)
@@ -145,7 +147,7 @@ class ExperimentConfig:
             "pretrained": self.pretrained,
             "no_cross_attn": self.no_cross_attn, "single_transformer": self.single_transformer,
             "use_native_loader": self.use_native_loader, "fsdp": self.fsdp, "tp": self.tp,
-            "pp_micro": self.pp_micro > 0, "profile": self.profile,
+            "pp_micro": self.pp_micro > 0,
         }
         bad = sorted(name for name, on in refused.items() if on)
         if bad:

@@ -64,26 +64,29 @@ def loss_aware_update(state: LossSecondMomentState, t: torch.Tensor,
     """Fold a step's per-sample ``losses`` at timesteps ``t`` into the
     history, in batch order: a row appends until it is full, then shifts
     the oldest loss out. The JAX package folds one sample at a time; here
-    each touched row is rebuilt at once, with a timestep that repeats in the
-    batch taking its losses in batch order, which gives the same rows."""
+    every shape is fixed by the batch size (no ``unique``, nothing sized by
+    the data, so a CUDA graph captures it): each sample rebuilds its
+    timestep's row, the row's history followed by the batch's losses at
+    that timestep in batch order, so samples that share a timestep build
+    the same row and writing them all gives the rows of the sequential
+    fold. Returns a new state; ``state`` is left as it was."""
     T, H = state.losses.shape
+    B = t.shape[0]
     t = t.long()
-    rows, inverse, repeats = torch.unique(t, return_inverse=True, return_counts=True)
-    # j: the sample's place among the batch's samples of its timestep
-    order = torch.argsort(inverse, stable=True)
-    first = torch.cumsum(repeats, 0) - repeats
-    j = torch.empty_like(t)
-    j[order] = torch.arange(t.shape[0], device=t.device) - first[inverse[order]]
-    count = state.counts[rows]
-    # each touched row's history followed by its new losses, then the last H
-    ext = torch.zeros((rows.shape[0], H + t.shape[0]), dtype=state.losses.dtype,
-                      device=state.losses.device)
-    ext[:, :H] = state.losses[rows]
-    ext[inverse, count[inverse] + j] = losses.detach().to(ext.dtype)
-    total = count + repeats
+    order = torch.arange(B, device=t.device)
+    same = t[:, None] == t[None, :]  # (i, k): sample k's timestep is sample i's
+    j = (same & (order[None, :] < order[:, None])).sum(dim=1)  # i's place among them
+    count = state.counts[t]
+    # row i: its history, then its timestep's new losses at count + j; the
+    # other samples' losses land in a spare last column, dropped below
+    ext = torch.zeros((B, H + B + 1), dtype=state.losses.dtype, device=state.losses.device)
+    ext[:, :H] = state.losses[t]
+    slot = torch.where(same, count[:, None] + j[None, :], H + B)
+    ext.scatter_(1, slot, losses.detach().to(ext.dtype)[None, :].expand(B, B))
+    total = count + same.sum(dim=1)
     start = (total - H).clamp(min=0)
-    new_rows = ext.gather(1, start[:, None] + torch.arange(H, device=t.device))
+    rows = ext.gather(1, start[:, None] + torch.arange(H, device=t.device))
     losses_out, counts_out = state.losses.clone(), state.counts.clone()
-    losses_out[rows] = new_rows
-    counts_out[rows] = total.clamp(max=H)
+    losses_out[t] = rows
+    counts_out[t] = total.clamp(max=H)
     return LossSecondMomentState(losses=losses_out, counts=counts_out)

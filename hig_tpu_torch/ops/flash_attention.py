@@ -216,8 +216,8 @@ def flash_attention_bf16_backward(query, key, value, key_mask, grad_out, num_hea
     if partner:
         key, value, mask = key.flip(-3), value.flip(-3), mask.flip(-2)
     q, k, v, g = (split_heads(t.float(), num_heads) for t in (query, key, value, grad_out))
-    scale = r(torch.tensor(1.0 / math.sqrt(D // num_heads)))
-    big = r(torch.tensor(MASK_BIAS))
+    scale = r(constant(1.0 / math.sqrt(D // num_heads), torch.float32, query.device))
+    big = r(constant(MASK_BIAS, torch.float32, query.device))
     s = r(r(torch.einsum("...nhd,...mhd->...nmh", q, k)) * scale)
     s = r(s + (1.0 - mask)[..., None, :, None] * big)
     if causal:

@@ -87,7 +87,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from hig_tpu_torch.models.embeddings import linear, round_bf16, softmax_vjp
+from hig_tpu_torch.models.embeddings import constant, linear, round_bf16, softmax_vjp
 from hig_tpu_torch.ops import _build
 from hig_tpu_torch.utils.graphs import counted
 
@@ -431,7 +431,7 @@ def _b3_bf16_parts(query, key, value, num_heads: int, key_mask=None, unrounded=(
     k, v = key.float(), value.float()
     if key_mask is not None:  # the mask, its bias and both products are bfloat16
         m = round_bf16(key_mask.float())[..., None]
-        k = round_bf16(k + (1.0 - m) * round_bf16(torch.tensor(MASK_BIAS)))
+        k = round_bf16(k + (1.0 - m) * round_bf16(constant(MASK_BIAS, torch.float32, k.device)))
         v = v * m
     eq, zq, qh = softmax(split_heads(query.float(), num_heads), -1, "q")
     ek, zk, kh = softmax(split_heads(k, num_heads), -3, "k")  # over the time axis

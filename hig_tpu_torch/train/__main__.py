@@ -16,13 +16,15 @@ supervised model for classifier-free guidance.
     python -m hig_tpu_torch.train ... --no_eff         # quadratic attention model
     python -m hig_tpu_torch.train ... --compute_dtype bfloat16 [--fast_ln] [--rms_norm]
     python -m hig_tpu_torch.train ... --device cpu     # plain PyTorch, no kernels
+    python -m hig_tpu_torch.train ... --profile        # trace of steps [5, 10), step latency
 
 The data root holds the reference's layout: new_joint_vecs/*.npy,
 texts/*.txt, train_sub.txt, Mean.npy and Std.npy; with val_sub.txt there the
 validation loss is logged every --eval_every_e epochs. Weights start from
 seeded random values (--seed). Runs write opt.txt, metrics.jsonl,
 meta/{mean,std}.npy and model/{latest,ckpt_eNNN}.pt under
-<checkpoints_dir>/<dataset_name>/<name>; --is_continue resumes from
+<checkpoints_dir>/<dataset_name>/<name> (with --profile also profile/trace.json
+and step_times.jsonl); --is_continue resumes from
 model/latest.pt. ``python -m hig_tpu_torch.serve --opt_path <...>/opt.txt``
 serves the result.
 """
@@ -45,8 +47,10 @@ from hig_tpu_torch.train import checkpoint as ckpt
 from hig_tpu_torch.train.trainer import Trainer
 
 
-def main(argv=None):
-    """Parse ``argv``, train, and return (trainer, final state)."""
+def main(argv=None, graph: bool = True):
+    """Parse ``argv``, train, and return (trainer, final state). On the card
+    each step replays the CUDA graph of its batch shape; ``graph=False``
+    (no flag: JAX has none) runs the eager step."""
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     add_config_args(parser)
@@ -64,7 +68,7 @@ def main(argv=None):
     dataset = PairDataset(cfg, mean, std, "train_sub.txt", times=cfg.times,
                           label_path=cfg.label_path, seed=cfg.seed)
     print(f"dataset: {dataset.real_len()} clips x times={cfg.times}")
-    trainer = Trainer(cfg, device)
+    trainer = Trainer(cfg, device, graph=graph)
     state = trainer.init_state()
     start_epoch = 0
     if cfg.is_continue:

@@ -50,8 +50,10 @@ def load(path: str) -> dict:
 
 
 def restore_state(path: str, state) -> tuple[object, int, int]:
-    """Load the checkpoint into ``state`` (a freshly initialized TrainState
-    of the same model) and return (state, epoch, total_it).
+    """Load the checkpoint into ``state`` (a TrainState of the same model)
+    and return (state, epoch, total_it). Parameters, Adam's moments and the
+    EMA are copied into the tensors ``state`` holds, so a CUDA graph of the
+    train step (which replays on those tensors) goes on after a rollback.
 
     The EMA follows the run, not the file: a run with ``ema_decay`` that
     resumes from a checkpoint without EMA seeds it from the parameters; a run
@@ -64,8 +66,9 @@ def restore_state(path: str, state) -> tuple[object, int, int]:
     ema = payload.get("ema_params")
     if state.ema is not None:
         source = ema if ema is not None else payload["params"]
-        device = next(iter(state.ema.values())).device
-        state.ema = {k: source[k].to(device, copy=True) for k in state.ema}
+        with torch.no_grad():
+            for k, e in state.ema.items():
+                e.copy_(source[k])
     elif ema is not None:
         print("checkpoint has ema_params but this run has no --ema_decay; "
               "discarding the stored EMA (serving will use the live params)")

@@ -22,7 +22,11 @@ as JAX's mixed precision does: float32 parameters, Adam moments, EMA and
 checkpoints, every module computing in bfloat16 from them; the efficient
 blocks take JAX's einsum route through B3-bf16 (or the quadratic ones
 B4-bf16), and the loss of the bfloat16 prediction against the float32
-target is taken in float32.
+target is taken in float32. As JAX jits and donates its train step, the
+port captures the whole step on the card (loss, backward, the
+``grad_accum`` loop, clip, Adam, EMA, the loss-aware history) as one CUDA
+graph per batch shape and replays it (``make_train_step``'s ``graph``);
+the loop reads the step's two metrics back once a step, as JAX does.
 
 Sampling (``:402-562``), with DDPM, DDIM or DPM-Solver++(2M): everything
 loop-invariant is hoisted out of the step loop: the text is encoded once,
@@ -72,6 +76,7 @@ from hig_tpu_torch.models.text_encoder import ClipTextConfig
 from hig_tpu_torch.models.tokenizer import tokenize
 from hig_tpu_torch.train import checkpoint as ckpt
 from hig_tpu_torch.utils.graphs import GraphedCall
+from hig_tpu_torch.utils.profiling import DeviceTrace, StepTimer
 from hig_tpu_torch.weights import (
     cast_floating,
     load_flax_tree,
@@ -147,18 +152,44 @@ class Optimizer:
     the trainable parameters; the frozen ones are left out, as
     ``multi_transform`` sets their updates to zero. The clip's norm is over
     the trainable gradients only. Adam keeps optax's defaults (b1 0.9, b2
-    0.999, eps 1e-8)."""
+    0.999, eps 1e-8).
+
+    Adam is written in ``torch._foreach_*`` ops over device tensors, the
+    same code on the CPU and the card: the moments (``exp_avg``,
+    ``exp_avg_sq``) and two 0-dim tensors that :meth:`prepare` fills from
+    the host before each update, −lr / (1 − b1ⁿ) and √(1 − b2ⁿ) of update
+    n. :meth:`update` reads no host value, so one CUDA graph of it serves
+    every step count. The state dict has ``torch.optim.Adam``'s layout, so
+    checkpoints of either load."""
+
+    BETAS, EPS = (0.9, 0.999), 1e-8
 
     def __init__(self, params: list[torch.nn.Parameter], lr: Callable[[int], float],
                  grad_clip: float):
         self.params = params
         self.lr = lr
         self.grad_clip = grad_clip
-        self.adam = torch.optim.Adam(params, lr=lr(0), betas=(0.9, 0.999), eps=1e-8)
+        self.exp_avg = [torch.zeros_like(p) for p in params]
+        self.exp_avg_sq = [torch.zeros_like(p) for p in params]
+        device = params[0].device if params else None
+        self.step_size = torch.zeros((), device=device)
+        self.bias_correction2_sqrt = torch.ones((), device=device)
+        self.count = 0  # updates prepared
 
-    def step(self, count: int) -> None:
-        """One update from the parameters' ``.grad`` at optimizer step
-        ``count``; a trainable parameter without a gradient counts as 0."""
+    def prepare(self, count: int) -> None:
+        """Fill the device scalars of the update at optimizer step ``count``
+        (0 for the first): the host's only part of a step."""
+        n = count + 1
+        b1, b2 = self.BETAS
+        self.step_size.fill_(-self.lr(count) / (1 - b1 ** n))
+        self.bias_correction2_sqrt.fill_(math.sqrt(1 - b2 ** n))
+        self.count = n
+
+    @torch.no_grad()
+    def update(self) -> None:
+        """One update from the parameters' ``.grad`` (clipped in place) at
+        the prepared step count; a trainable parameter without a gradient
+        counts as 0."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -167,15 +198,52 @@ class Optimizer:
         scale = torch.where(norm < self.grad_clip, torch.ones_like(norm),
                             self.grad_clip / norm)
         torch._foreach_mul_(grads, scale)
-        for group in self.adam.param_groups:
-            group["lr"] = self.lr(count)
-        self.adam.step()
+        b1, b2 = self.BETAS
+        torch._foreach_lerp_(self.exp_avg, grads, 1 - b1)
+        torch._foreach_mul_(self.exp_avg_sq, b2)
+        torch._foreach_addcmul_(self.exp_avg_sq, grads, grads, value=1 - b2)
+        # p += step_size · m / (√v / √(1 − b2ⁿ) + eps), with one temporary
+        denom = torch._foreach_sqrt(self.exp_avg_sq)
+        torch._foreach_div_(denom, self.bias_correction2_sqrt)
+        torch._foreach_add_(denom, self.EPS)
+        torch._foreach_div_(denom, self.step_size)
+        torch._foreach_addcdiv_(self.params, self.exp_avg, denom)
+
+    def step(self, count: int) -> None:
+        """:meth:`prepare` then :meth:`update`."""
+        self.prepare(count)
+        self.update()
 
     def state_dict(self) -> dict:
-        return self.adam.state_dict()
+        """``torch.optim.Adam``'s layout: per parameter index its step count
+        and moments (CPU copies), and the hyperparameters."""
+        state = {i: {"step": torch.tensor(float(self.count)), "exp_avg": m.detach().cpu(),
+                     "exp_avg_sq": v.detach().cpu()}
+                 for i, (m, v) in enumerate(zip(self.exp_avg, self.exp_avg_sq))} \
+            if self.count else {}
+        return {"state": state, "param_groups": [{
+            "lr": self.lr(max(self.count - 1, 0)), "betas": self.BETAS, "eps": self.EPS,
+            "weight_decay": 0, "amsgrad": False, "maximize": False,
+            "params": list(range(len(self.params)))}]}
 
     def load_state_dict(self, state: dict) -> None:
-        self.adam.load_state_dict(state)
+        """Copy a state dict's moments and step count in place (a graph
+        replays on these tensors); a parameter without state starts from
+        zero moments, as Adam does."""
+        if len(state["param_groups"][0]["params"]) != len(self.params):
+            raise ValueError(f"the optimizer state holds "
+                             f"{len(state['param_groups'][0]['params'])} parameters, this "
+                             f"optimizer {len(self.params)}")
+        self.count = 0
+        for i, (m, v) in enumerate(zip(self.exp_avg, self.exp_avg_sq)):
+            entry = state["state"].get(i)
+            if entry is None:
+                m.zero_()
+                v.zero_()
+                continue
+            m.copy_(entry["exp_avg"])
+            v.copy_(entry["exp_avg_sq"])
+            self.count = int(entry["step"])
 
 
 def make_optimizer(cfg: ExperimentConfig, model: InteractionModel) -> Optimizer:
@@ -238,7 +306,8 @@ def pit_loss(pred, target, mask, sample_weights=None):
 def make_loss_fn(model: InteractionModel, sched: g.DiffusionSchedule, pit: bool,
                  loss_aware: bool = False) -> Callable:
     """``loss_fn(batch, generator=None, t=None, noise=None, keep=None,
-    ts_state=None) -> (loss, aux)``.
+    ts_state=None) -> (loss, aux)``. ``sched`` holds host tables (copied to
+    the device per call) or the device's own (:meth:`DiffusionSchedule.on`).
 
     batch: motion (B, 2, T, D), lengths (B,), and the conditioning: cap_ids
     (B, 2) for a ``cap_id`` model, else tokens (B, 2, 77) and, when the
@@ -313,15 +382,21 @@ def make_loss_fn(model: InteractionModel, sched: g.DiffusionSchedule, pit: bool,
 def compute_grads(model: InteractionModel, loss_fn: Callable, batch: dict, grad_accum: int = 1,
                   generator=None, t=None, noise=None, keep=None,
                   ts_state=None) -> tuple[torch.Tensor, dict]:
-    """Set each trainable parameter's ``.grad`` to the mean of its gradient
-    over ``grad_accum`` equal microbatches (activation memory of one), and
-    return the mean loss and the aux of every microbatch (t and per-sample
-    losses, concatenated in batch order). Each microbatch draws its own t,
+    """Write into each trainable parameter's ``.grad`` the mean of its
+    gradient over ``grad_accum`` equal microbatches (activation memory of
+    one), and return the mean loss and the aux of every microbatch (t and
+    per-sample losses, concatenated in batch order). The gradients keep
+    their storage: a parameter's first step makes it, each step zeroes it
+    in place and accumulates into it, so a CUDA graph of the step replays
+    into the tensors ``.grad`` holds. Each microbatch draws its own t,
     noise and keep from ``generator``, or takes its slice of ``t``,
     ``noise`` and ``keep``."""
     params = [p for p in model.parameters() if p.requires_grad]
     for p in params:
-        p.grad = None
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    grads = [p.grad for p in params]
+    torch._foreach_zero_(grads)
     size = batch["motion"].shape[0] // grad_accum
     total = torch.zeros((), device=batch["motion"].device)
     auxs = []
@@ -338,46 +413,133 @@ def compute_grads(model: InteractionModel, loss_fn: Callable, batch: dict, grad_
         total = total + loss.detach()
         auxs.append({k: v.detach() for k, v in aux.items()})
     if grad_accum > 1:
-        torch._foreach_div_([p.grad for p in params if p.grad is not None], float(grad_accum))
+        torch._foreach_div_(grads, float(grad_accum))
     return total / grad_accum, {k: torch.cat([a[k] for a in auxs]) for k in auxs[0]}
 
 
-def apply_update(state: TrainState, ema_decay: float = 0.0) -> None:
-    """One optimizer update from the parameters' ``.grad``, then the EMA
-    (e ← e·decay + (1 − decay)·p over every parameter)."""
-    state.optimizer.step(state.step)
+@torch.no_grad()
+def update_ema(state: TrainState, ema_decay: float) -> None:
+    """e ← e·decay + (1 − decay)·p over every parameter, in place."""
     if ema_decay > 0.0 and state.ema is not None:
         ema = list(state.ema.values())
         torch._foreach_mul_(ema, ema_decay)
         torch._foreach_add_(ema, [p.detach() for _, p in state.model.named_parameters()],
                             alpha=1.0 - ema_decay)
+
+
+def apply_update(state: TrainState, ema_decay: float = 0.0) -> None:
+    """One optimizer update from the parameters' ``.grad``, then the EMA
+    (:func:`update_ema`)."""
+    state.optimizer.step(state.step)
+    update_ema(state, ema_decay)
     state.step += 1
 
 
+TRAIN_METRICS = ("loss_mot_rec", "grad_norm")
+
+
 def make_train_step(sched: g.DiffusionSchedule, pit: bool, grad_accum: int = 1,
-                    ema_decay: float = 0.0, loss_aware: bool = False) -> Callable:
+                    ema_decay: float = 0.0, loss_aware: bool = False,
+                    graph: bool = True) -> Callable:
     """``train_step(state, batch, generator=None, t=None, noise=None,
-    keep=None) -> metrics``: gradients (:func:`compute_grads`),
-    :func:`apply_update`, and ``{"loss_mot_rec", "grad_norm"}`` as 0-dim
-    tensors; the logged norm is over every gradient, before the clip. With
-    ``loss_aware``: ``train_step(state, batch, generator, ..., ts_state=) ->
-    (metrics, ts_state)``, the history with the step's t and per-sample
-    losses (every microbatch's) folded in."""
+    keep=None) -> metrics``: gradients (:func:`compute_grads`), the
+    optimizer update, the EMA, and ``{"loss_mot_rec", "grad_norm"}`` as
+    0-dim tensors (views of one (2,) tensor: :data:`TRAIN_METRICS` order,
+    read back in one copy); the logged norm is over every gradient, before
+    the clip. With ``loss_aware``: ``train_step(state, batch, generator,
+    ..., ts_state=) -> (metrics, ts_state)``, a new history with the step's
+    t and per-sample losses (every microbatch's) folded in.
+
+    On a CUDA batch with ``graph`` (the default) the whole step is one CUDA
+    graph per key: the inputs' names, shapes and dtypes (the batch, which
+    carries the conditioning: tokens with tower features, tokens alone or
+    caption ids; t, noise and keep where given; the history): the
+    counterpart of JAX's jitted, donated step. A key's first call runs the
+    step eagerly on the capture stream, as the real step (the trajectory
+    is the eager one), then captures it (``hig_tpu_torch.utils.graphs``);
+    later calls copy their inputs into the graph's buffers and replay. A
+    replay draws t, noise and keep from the caller's ``generator`` state
+    (required) and hands the advanced state back; the host only fills the
+    optimizer's step scalars (:meth:`Optimizer.prepare`) before it and
+    counts the step after. The graphs replay on the TrainState they
+    captured (its parameters, gradients, moments and EMA, updated in
+    place; restore a checkpoint into it in place); another state raises. A
+    capture that fails raises. ``graph=False``, and any CPU batch, run the
+    eager step. ``train_step.graphs`` holds the graphs by key.
+    """
+    tables: dict = {}  # device → the schedule's tables there, made at the first step
+    graphs: dict = {}
+    captured: dict = {}  # the TrainState the graphs replay on, and what they share
+
+    def run(state, generator, t=None, noise=None, keep=None, ts_losses=None, ts_counts=None,
+            **batch):
+        """The step's device work: no host value is read, nothing is copied
+        from the host."""
+        model = state.model
+        loss_fn = make_loss_fn(model, tables[batch["motion"].device], pit, loss_aware)
+        ts_state = None
+        if loss_aware:
+            ts_state = tss.LossSecondMomentState(losses=ts_losses, counts=ts_counts)
+        loss, aux = compute_grads(model, loss_fn, batch, grad_accum, generator, t, noise, keep,
+                                  ts_state)
+        gnorm = global_norm([p.grad for p in model.parameters() if p.grad is not None])
+        state.optimizer.update()
+        update_ema(state, ema_decay)
+        metrics = torch.stack([loss, gnorm])
+        if loss_aware:
+            new = tss.loss_aware_update(ts_state, aux["t"], aux["per_sample"])
+            return metrics, new.losses, new.counts
+        return metrics
+
+    def replay(state, inputs, generator):
+        if generator is None:
+            raise ValueError("the graphed train step draws t, noise and keep from a "
+                             "torch.Generator: pass generator= (or make the step with "
+                             "graph=False)")
+        bound = (state.model, state.optimizer, state.ema)
+        if not captured:
+            device = inputs["motion"].device
+            captured.update(bound=bound, pool=torch.cuda.graph_pool_handle(),
+                            stream=torch.cuda.Stream(device),
+                            rng=torch.Generator(device=device))
+        elif any(a is not b for a, b in zip(bound, captured["bound"])):
+            raise ValueError("a graphed train step replays on the TrainState it captured; "
+                             "make another step for another state")
+        key = tuple((name, tuple(x.shape), x.dtype) for name, x in sorted(inputs.items()))
+        if key not in graphs:
+            rng = captured["rng"]
+            graphs[key] = GraphedCall(lambda **i: run(state, rng, **i), inputs,
+                                      captured["pool"], captured["stream"],
+                                      warmup=lambda **i: run(state, generator, **i),
+                                      generator=rng)
+            return graphs[key].warmup_output
+        return graphs[key](generator, **inputs)
 
     def train_step(state: TrainState, batch: dict, generator=None, t=None, noise=None,
                    keep=None, ts_state=None):
-        model = state.model
-        loss, aux = compute_grads(model, make_loss_fn(model, sched, pit, loss_aware), batch,
-                                  grad_accum, generator, t, noise, keep, ts_state)
-        gnorm = global_norm([p.grad for p in model.parameters() if p.grad is not None])
-        apply_update(state, ema_decay)
-        metrics = {"loss_mot_rec": loss, "grad_norm": gnorm}
+        device = batch["motion"].device
+        if device not in tables:
+            tables[device] = sched.on(device)
+        inputs = dict(batch)
+        for name, x in (("t", t), ("noise", noise), ("keep", keep)):
+            if x is not None:
+                inputs[name] = x
         if loss_aware:
-            return metrics, tss.loss_aware_update(ts_state, aux["t"], aux["per_sample"])
+            inputs.update(ts_losses=ts_state.losses, ts_counts=ts_state.counts)
+        state.optimizer.prepare(state.step)
+        if graph and device.type == "cuda":
+            out = replay(state, inputs, generator)
+        else:
+            out = run(state, generator, **inputs)
+        state.step += 1
+        values = out[0] if loss_aware else out
+        metrics = dict(zip(TRAIN_METRICS, values))
+        if loss_aware:
+            return metrics, tss.LossSecondMomentState(losses=out[1], counts=out[2])
         return metrics
 
+    train_step.graphs = graphs
     return train_step
-
 
 
 def eval_params(state: dict) -> dict:
@@ -564,11 +726,15 @@ def step_generator(seed: int, it: int, generation: int, device) -> torch.Generat
 
 
 class Trainer:
-    """Epoch loop, logging and checkpoints of one training run."""
+    """Epoch loop, logging and checkpoints of one training run. On the card
+    each step is a replay of :func:`make_train_step`'s CUDA graph of its
+    batch shape (``graph=False``: the eager step)."""
 
     def __init__(self, cfg: ExperimentConfig, device=None,
-                 clip_config: ClipTextConfig | None = None):
+                 clip_config: ClipTextConfig | None = None, graph: bool = True):
         self.cfg = cfg
+        self.graph = graph
+        self.graphs: dict = {}  # the last run's step graphs by key
         self.device = resolve_device(device)
         self.model_config = model_config(cfg, clip_config)
         if self.model_config.dtype != torch.float32:
@@ -628,7 +794,7 @@ class Trainer:
         """Mean loss of up to VAL_MAX_BATCHES validation batches under the
         raw parameters (uniform t, and caption dropout as in training); each
         batch's t, noise and keep come from a generator seeded by (seed + 2,
-        epoch, batch)."""
+        epoch, batch). It runs eagerly, a forward per batch: no graph."""
         loss_fn = make_loss_fn(state.model, self.sched, self.pit)
         losses = []
         for i, batch in enumerate(epoch_batches(val_dataset, self.cfg.batch_size, 0,
@@ -643,11 +809,23 @@ class Trainer:
     def train(self, dataset: PairDataset, state: TrainState, num_epochs: int | None = None,
               log=print, start_epoch: int = 0,
               val_dataset: PairDataset | None = None) -> TrainState:
+        """The epoch loop. Each step's two metrics come back to the host in
+        one copy, which the non-finite check (a rollback to ``latest``,
+        restored in place) and the log read. With ``profile``: a
+        ``torch.profiler`` trace of steps [5, 10) of this run in
+        ``<save_root>/profile``, and each step's host time (metrics read
+        back) summarized in ``step_times.jsonl`` and a "step latency" line."""
         cfg = self.cfg
         num_epochs = num_epochs or cfg.num_epochs
         os.makedirs(cfg.model_dir, exist_ok=True)
         train_step = make_train_step(self.sched, self.pit, cfg.grad_accum, cfg.ema_decay,
-                                     cfg.loss_aware_sampler)
+                                     cfg.loss_aware_sampler, graph=self.graph)
+        self.graphs = train_step.graphs
+        step_timer = trace = None
+        steps_run, tracing = 0, False
+        if cfg.profile:
+            step_timer = StepTimer(items_per_step=cfg.batch_size)
+            trace = DeviceTrace(pjoin(cfg.save_root, "profile"), self.device)
         state.model.train()
         tower_feats = self.precompute_tower(state.model)
         ts_state = self.new_loss_history()  # per run; not checkpointed
@@ -663,15 +841,27 @@ class Trainer:
             for batch in epoch_batches(dataset, cfg.batch_size, epoch, seed=cfg.seed,
                                        token_cache=token_cache):
                 generator = step_generator(cfg.seed + 1, it, generation, self.device)
+                if trace is not None and steps_run == 5 and not tracing:
+                    trace.start()
+                    tracing = True
                 dev_batch = self._device_batch(batch, tower_feats)
+                graphs_before = len(self.graphs)
                 t_step = time.perf_counter()
                 if ts_state is None:
                     metrics = train_step(state, dev_batch, generator)
                 else:
                     metrics, ts_state = train_step(state, dev_batch, generator,
                                                    ts_state=ts_state)
-                metrics = {k: float(v) for k, v in metrics.items()}
+                values = torch.stack([metrics[k] for k in TRAIN_METRICS]).tolist()
+                metrics = dict(zip(TRAIN_METRICS, values))
                 self.step_seconds.append(time.perf_counter() - t_step)
+                if step_timer is not None:
+                    step_timer.times.append(self.step_seconds[-1])
+                if len(self.graphs) > graphs_before:
+                    captured = list(self.graphs.values())[-1]
+                    log(f"train step graph {len(self.graphs)} captured: "
+                        f"{captured.capture_s:.2f}s after a {captured.warmup_s:.2f}s eager "
+                        f"first step, pool {captured.pool_bytes / 1e9:.3f} GB")
                 if not all(math.isfinite(v) for v in metrics.values()):
                     if retries_left <= 0 or not ckpt_exists:
                         raise FloatingPointError(f"non-finite training loss at it {it}: {metrics}")
@@ -684,6 +874,10 @@ class Trainer:
                     ts_state = self.new_loss_history()
                     continue
                 it += 1
+                steps_run += 1
+                if tracing and steps_run == 10:
+                    log(f"device trace written to {trace.stop()}")
+                    tracing = False
                 for k, v in metrics.items():
                     logs[k] = logs.get(k, 0.0) + v
                 if it % cfg.log_every == 0:
@@ -709,4 +903,9 @@ class Trainer:
                 log(f"epoch {epoch} val_loss: {val:.5f}")
                 with open(metrics_path, "a") as f:
                     f.write(json.dumps({"it": it, "epoch": epoch, "val_loss": val}) + "\n")
+        if tracing:
+            log(f"device trace written to {trace.stop()}")
+        if step_timer is not None and step_timer.times:
+            step_timer.dump(pjoin(cfg.save_root, "step_times.jsonl"))
+            log(f"step latency: {step_timer.summary()}")
         return state

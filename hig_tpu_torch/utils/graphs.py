@@ -1,17 +1,19 @@
 """One CUDA graph per call shape: capture once, replay after (the
-counterpart of ``jax.jit`` over the JAX sampler, one compiled program per
-shape that runs with no host work per step).
+counterpart of ``jax.jit`` over the JAX sampler and train step, one
+compiled program per shape that runs with no host work per step).
 
 :class:`GraphedCall` captures ``body(**inputs)`` into one
 ``torch.cuda.CUDAGraph`` and replays it:
 
 - inputs are static buffers, cloned at capture from the first call's
   tensors; a call copies its tensors into them, replays, and returns a
-  clone of the static output;
+  clone of the static output (a tensor, or a tuple of tensors);
 - ``warmup(**inputs)`` runs once, eagerly, on the capture stream before
   the capture, so that what a capture refuses happens outside it: the
   kernel libraries are built and loaded, cuBLAS makes its handle and its
-  workspace for that stream, each kernel sets its shared-memory attribute;
+  workspace for that stream, each kernel sets its shared-memory attribute.
+  Its result is kept (``warmup_output``): the train step's warm-up is the
+  shape's first step itself, which the capture then follows;
 - the graphs of one owner share one memory pool
   (``torch.cuda.graph_pool_handle()``): they never run at once;
 - with ``generator`` (a CUDA generator the owner keeps for its graphs) the
@@ -67,18 +69,23 @@ def _credit(delta: dict[str, int]) -> None:
             setattr(owner, attr, getattr(owner, attr) + n)
 
 
-class GraphedCall:
-    """``body(**inputs) -> Tensor`` captured once; see the module doc.
+def _clone(out):
+    return out.clone() if torch.is_tensor(out) else tuple(t.clone() for t in out)
 
-    After the capture: ``capture_s`` (warm-up excluded), ``warmup_s``,
-    ``pool_bytes`` (what the capture added to the device memory reserved,
-    read from just after ``torch.cuda.graph`` empties the cache on entering:
-    the segments the pool took; a later graph on the same pool reuses the
-    blocks it can),
-    ``launches`` (the counts one replay credits) and ``warmup_launches``.
+
+class GraphedCall:
+    """``body(**inputs) -> Tensor or tuple of Tensors`` captured once; see
+    the module doc.
+
+    After the capture: ``warmup_output``, ``capture_s`` (warm-up
+    excluded), ``warmup_s``, ``pool_bytes`` (what the capture added to the
+    device memory reserved, read from just after ``torch.cuda.graph``
+    empties the cache on entering: the segments the pool took; a later
+    graph on the same pool reuses the blocks it can), ``launches`` (the
+    counts one replay credits) and ``warmup_launches``.
     """
 
-    def __init__(self, body: Callable[..., torch.Tensor], inputs: dict[str, torch.Tensor],
+    def __init__(self, body: Callable[..., object], inputs: dict[str, torch.Tensor],
                  pool, stream: torch.cuda.Stream, warmup: Callable[..., object],
                  generator: torch.Generator | None = None):
         self.inputs = {name: t.clone() for name, t in inputs.items()}
@@ -87,7 +94,7 @@ class GraphedCall:
         before = launch_counts()
         t0 = time.perf_counter()
         with torch.cuda.stream(stream):
-            warmup(**self.inputs)
+            self.warmup_output = warmup(**self.inputs)
         torch.cuda.synchronize()
         self.warmup_s = time.perf_counter() - t0
         self.warmup_launches = _count_delta(launch_counts(), before)
@@ -116,7 +123,7 @@ class GraphedCall:
                 "warmup_launches": self.warmup_launches}
 
     def __call__(self, generator: torch.Generator | None = None,
-                 **inputs: torch.Tensor) -> torch.Tensor:
+                 **inputs: torch.Tensor):
         """Replay on ``inputs`` (the capture's names and shapes); with a
         registered generator, draw from ``generator``'s state and advance it."""
         for name, t in inputs.items():
@@ -127,4 +134,4 @@ class GraphedCall:
         if generator is not None:
             generator.set_state(self.generator.get_state())
         _credit(self.launches)
-        return self.output.clone()
+        return _clone(self.output)

@@ -64,6 +64,21 @@ through B2, DDIM through B4 and DDPM over two calls on one generator; a
 second shape captures a second graph; the graphed DDPM sampler refuses a
 callable ``step_noise`` (naming ``graph=False``) and a call without a
 generator; an eager sampler on the plain route launches no kernel.
+
+The train step as one CUDA graph per batch shape, at the same small width
+(4 pairs, T = 40): three steps from one seeded state with per-step
+generator seeds, graphed (the first step eager on the capture stream, then
+the capture, replays after) against eager (``graph=False``), and eager
+against eager: metrics, generator states, parameters, Adam's moments, EMA
+and the loss-aware history bit for bit (two eager steps agree bit for bit
+on every path here, so the graphed one must), each replay crediting the
+eager step's launch counts, for float32 PIT (B2), ``--no_eff`` (B4),
+caption ids, CFG with the loss-aware sampler (supervised), bf16 PIT
+(B3-bf16 and the ordered sum), bf16 ``--no_eff`` (B4-bf16), and
+``grad_accum`` 2 with the EMA; a second batch shape captures a second
+graph; a rollback mid-run (``restore_state`` in place) keeps the one graph
+on the same tensors and equals the eager run; the graphed step refuses a
+call without a generator and another TrainState.
 """
 
 import numpy as np
@@ -979,3 +994,216 @@ def test_eager_sampler_on_the_plain_route_launches_no_kernel(cuda, plain_route, 
     out, counts = _launches(lambda: eager(tokens, lengths,
                                           generator=torch.Generator(device=cuda).manual_seed(0)))
     assert counts == {} and torch.isfinite(out).all()
+
+
+# --- the train step as one CUDA graph per batch shape ---------------------------------
+
+TRAIN_GRAPH_MODEL = dict(latent_dim=128, ff_size=256, num_layers=2, num_heads=2,
+                         text_latent_dim=64, text_ff_size=128, num_text_layers=1,
+                         text_num_heads=2, lr=1e-3)
+TRAIN_GRAPH_PAIRS, TRAIN_GRAPH_STEPS = 4, 3
+# case → (ExperimentConfig fields, PIT): every route a train step takes
+TRAIN_GRAPH_CASES = {
+    "pit_b2": (dict(), True),
+    "pit_no_eff_b4": (dict(no_eff=True), True),
+    "pit_cap_id_b2": (dict(cap_id=True), True),
+    "cfg_loss_aware_supervised_b2": (dict(label_path="labels.json", cond_drop_prob=0.5,
+                                          loss_aware_sampler=True), False),
+    "pit_bf16_b3": (dict(compute_dtype="bfloat16"), True),
+    "pit_bf16_no_eff_b4": (dict(compute_dtype="bfloat16", no_eff=True), True),
+    "pit_grad_accum_2_ema_b2": (dict(grad_accum=2, ema_decay=0.9), True),
+}
+
+
+def _train_graph_setup(device, case):
+    """(config, make_state(), a step maker, a history maker, batch(pairs))
+    of ``case`` at TRAIN_GRAPH_MODEL's widths."""
+    from hig_tpu_torch.config import ExperimentConfig, model_config
+    from hig_tpu_torch.data.vocab import CAPS
+    from hig_tpu_torch.diffusion import gaussian as g
+    from hig_tpu_torch.diffusion import timestep_samplers as tss
+    from hig_tpu_torch.models.interaction_model import InteractionModel
+    from hig_tpu_torch.models.text_encoder import ClipTextConfig
+    from hig_tpu_torch.models.tokenizer import tokenize
+    from hig_tpu_torch.train import trainer as tt
+    from hig_tpu_torch.weights import load_flax_tree, random_flax_tree, reduce_bf16_in_float32
+
+    fields, pit = TRAIN_GRAPH_CASES[case]
+    cfg = ExperimentConfig(**TRAIN_GRAPH_MODEL, **fields)
+    mcfg = model_config(cfg, ClipTextConfig(width=64, heads=2, layers=1))
+    if mcfg.dtype != torch.float32:
+        reduce_bf16_in_float32()
+    sched = g.make_schedule(g.linear_betas(1000))
+
+    def make_state():
+        model = InteractionModel(mcfg)
+        load_flax_tree(model, random_flax_tree(mcfg, 0)["params"])
+        model.to(device).train()
+        ema = None
+        if cfg.ema_decay > 0:
+            ema = {n: p.detach().clone() for n, p in model.named_parameters()}
+        return tt.TrainState(model=model, optimizer=tt.make_optimizer(cfg, model), ema=ema)
+
+    def make_step(graph):
+        return tt.make_train_step(sched, pit, cfg.grad_accum, cfg.ema_decay,
+                                  cfg.loss_aware_sampler, graph=graph)
+
+    def history():
+        return tss.LossSecondMomentState.create(1000, device=device) \
+            if cfg.loss_aware_sampler else None
+
+    def batch(model, pairs=TRAIN_GRAPH_PAIRS, seed=0):
+        gen = torch.Generator().manual_seed(seed)
+        cap_ids = torch.randint(0, len(CAPS), (pairs, 2), generator=gen)
+        out = {"motion": torch.randn((pairs, 2, GRAPH_T, 263), generator=gen).to(device),
+               "lengths": torch.tensor([GRAPH_T, 31, 17, 26, 9, 40][:pairs], device=device)}
+        if cfg.cap_id:
+            out["cap_ids"] = cap_ids.to(device)
+            return out
+        out["tokens"] = torch.from_numpy(tokenize(CAPS).astype(np.int64))[cap_ids].to(device)
+        with torch.no_grad():
+            feats = model.clip_tower(out["tokens"].reshape(-1, 77))
+        out["tower_feats"] = feats.reshape(pairs, 2, 77, -1)
+        return out
+
+    return cfg, make_state, make_step, history, batch
+
+
+def _train_state_tensors(state, history):
+    opt = state.optimizer
+    out = {f"param.{n}": p for n, p in state.model.named_parameters()}
+    out.update({f"exp_avg.{i}": m for i, m in enumerate(opt.exp_avg)})
+    out.update({f"exp_avg_sq.{i}": v for i, v in enumerate(opt.exp_avg_sq)})
+    out.update({f"ema.{n}": e for n, e in (state.ema or {}).items()})
+    if history is not None:
+        out.update(history_losses=history.losses, history_counts=history.counts)
+    return out
+
+
+def _train_run(step, state, batches, history, seed=10):
+    """One step per batch, each from a fresh CUDA generator seeded seed + i
+    (the trainer's per-step generator): the metrics, the launch counts and
+    the generator's state after each step."""
+    from hig_tpu_torch.train.trainer import TRAIN_METRICS
+
+    rows = []
+    for i, batch in enumerate(batches):
+        gen = torch.Generator(device=batch["motion"].device).manual_seed(seed + i)
+        if history is None:
+            metrics, counts = _launches(lambda: step(state, batch, gen))
+        else:
+            (metrics, history), counts = _launches(lambda: step(state, batch, gen,
+                                                                ts_state=history))
+        rows.append((torch.stack([metrics[k] for k in TRAIN_METRICS]), counts, gen.get_state()))
+    return rows, history
+
+
+def _assert_runs_equal(got, want):
+    (rows_g, tensors_g), (rows_w, tensors_w) = got, want
+    for (m_g, c_g, s_g), (m_w, c_w, s_w) in zip(rows_g, rows_w, strict=True):
+        assert torch.equal(m_g, m_w), (m_g, m_w)
+        assert c_g == c_w and sum(c_w.values()) > 0, (c_g, c_w)
+        assert torch.equal(s_g, s_w)
+    assert tensors_g.keys() == tensors_w.keys()
+    differ = [n for n in tensors_w if not torch.equal(tensors_g[n], tensors_w[n])]
+    assert not differ, differ
+
+
+@pytest.mark.parametrize("case", list(TRAIN_GRAPH_CASES))
+def test_graphed_train_step_equals_the_eager_step(cuda, case):
+    """TRAIN_GRAPH_STEPS steps from one seeded state and per-step generator
+    seeds, graphed (the first step eager on the capture stream, then the
+    capture; replays after) and eager (``graph=False``), twice eager to
+    show the eager step repeats itself: metrics, generator states,
+    parameters, Adam's moments, EMA and history bit for bit, and each
+    replay credits the eager step's launch counts."""
+    _, make_state, make_step, history, batch = _train_graph_setup(cuda, case)
+    runs = []
+    for graph in (False, False, True):
+        state, step = make_state(), make_step(graph)
+        batches = [batch(state.model)] * TRAIN_GRAPH_STEPS
+        rows, hist = _train_run(step, state, batches, history())
+        runs.append((rows, {n: t.clone() for n, t in _train_state_tensors(state, hist).items()}))
+        assert len(step.graphs) == (1 if graph else 0)
+    _assert_runs_equal(runs[1], runs[0])
+    _assert_runs_equal(runs[2], runs[0])
+
+
+def test_a_second_batch_shape_captures_a_second_train_graph(cuda):
+    _, make_state, make_step, history, batch = _train_graph_setup(cuda, "pit_b2")
+    runs = []
+    for graph in (True, False):
+        state, step = make_state(), make_step(graph)
+        batches = [batch(state.model, pairs) for pairs in (4, 3, 4, 3)]
+        rows, hist = _train_run(step, state, batches, history())
+        runs.append((rows, {n: t.clone() for n, t in _train_state_tensors(state, hist).items()}))
+        if graph:
+            assert sorted(key[-1][1][0] for key in step.graphs) == [3, 4]  # ("tower_feats", shape)
+    _assert_runs_equal(*runs)
+
+
+def test_graphed_train_step_rolls_back_in_place(cuda, tmp_path):
+    """Two steps, a checkpoint, two steps, ``restore_state`` into the same
+    state, two more steps: the graphed run equals the eager run bit for bit,
+    keeps its one graph, and every tensor it replays on keeps its storage."""
+    from hig_tpu_torch.train import checkpoint as ckpt
+
+    _, make_state, make_step, history, batch = _train_graph_setup(
+        cuda, "pit_grad_accum_2_ema_b2")
+    runs = []
+    for graph in (True, False):
+        state, step = make_state(), make_step(graph)
+        b = batch(state.model)
+        path = str(tmp_path / f"latest_{graph}.pt")
+        rows, _ = _train_run(step, state, [b, b], None)
+        ckpt.save_state(path, state, epoch=0, total_it=2)
+        more, _ = _train_run(step, state, [b, b], None, seed=20)
+        ptrs = {n: t.data_ptr() for n, t in _train_state_tensors(state, None).items()}
+        state, _, it = ckpt.restore_state(path, state)
+        assert it == 2 == state.step
+        assert {n: t.data_ptr() for n, t in _train_state_tensors(state, None).items()} == ptrs
+        after, _ = _train_run(step, state, [b, b], None, seed=30)
+        runs.append((rows + more + after,
+                     {n: t.clone() for n, t in _train_state_tensors(state, None).items()}))
+        assert len(step.graphs) == (1 if graph else 0)
+    _assert_runs_equal(*runs)
+
+
+def test_graphed_train_step_refuses_what_it_cannot_replay(cuda):
+    _, make_state, make_step, history, batch = _train_graph_setup(cuda, "pit_b2")
+    state, step = make_state(), make_step(True)
+    b = batch(state.model)
+    with pytest.raises(ValueError, match="generator"):
+        step(state, b)
+    step(state, b, torch.Generator(device=cuda).manual_seed(0))
+    with pytest.raises(ValueError, match="TrainState it captured"):
+        step(make_state(), b, torch.Generator(device=cuda).manual_seed(0))
+
+
+def test_train_cli_profile_traces_the_replayed_steps(cuda, tmp_path):
+    """``python -m hig_tpu_torch.train --profile`` on the card (caption ids,
+    small widths, 8 steps): the trace of steps [5, 8) holds the port's B2
+    kernels (replays of the step's graph), ``step_times.jsonl`` counts
+    every step, and the step was captured once."""
+    import json
+    import os
+
+    import chip_smoke
+    from hig_tpu_torch.train.__main__ import main
+
+    data = str(tmp_path / "data")
+    chip_smoke.write_train_data(data)
+    argv = ["--data_root", data, "--checkpoints_dir", str(tmp_path / "runs"), "--name", "prof",
+            "--cap_id", "--batch_size", "4", "--limit_data_num", "8", "--num_epochs", "4",
+            "--log_every", "1", "--profile"]
+    for k, v in TRAIN_GRAPH_MODEL.items():
+        if k != "lr":
+            argv += [f"--{k}", str(v)]
+    trainer, state = main(argv)
+    root = trainer.cfg.save_root
+    assert state.step == 8 and len(trainer.graphs) == 1
+    with open(os.path.join(root, "profile", "trace.json")) as f:
+        kernels = [e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    assert sum("hig::linear_attention_core" in k for k in kernels) == 3 * 2 * 2  # steps × layers × blocks
+    with open(os.path.join(root, "step_times.jsonl")) as f:
+        assert json.loads(f.readline())["steps"] == 8

@@ -309,6 +309,7 @@ def test_port_imports_neither_jax_nor_hig_tpu():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
+        "import profile_sessions\n"
         "print(' '.join(names))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

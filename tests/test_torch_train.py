@@ -484,7 +484,7 @@ def test_epoch_batches_match_jax_bitwise(synth_data, tmp_path, variant):
 
 REFUSED = {"pretrained": True, "no_cross_attn": True,
            "single_transformer": True, "use_native_loader": True, "fsdp": True, "tp": True,
-           "pp_micro": 2, "profile": True}
+           "pp_micro": 2}
 
 
 @pytest.mark.parametrize("field", sorted(REFUSED))
@@ -532,6 +532,31 @@ def test_config_fields_are_the_jax_fields_with_their_defaults():
         assert f.default == jax_fields[f.name].default, f.name
     with pytest.raises(ValueError, match="grad-accumulation"):
         ExperimentConfig(batch_size=6, grad_accum=4)
+
+
+def test_cli_profile_writes_its_trace_and_step_times(synth_data, tmp_path, capsys):
+    """``--profile`` is accepted (JAX's option) and, on the CPU, the CLI
+    writes a ``torch.profiler`` trace of steps [5, 10) under
+    ``<save_root>/profile``, ``step_times.jsonl`` with every step's time
+    and the "step latency" line, as ``hig_tpu/train/trainer.py`` does."""
+    from hig_tpu_torch.train.__main__ import main
+
+    assert ExperimentConfig(profile=True).profile
+    argv = ["--device", "cpu", "--dataset_name", "synthetic_mul", "--data_root", synth_data,
+            "--checkpoints_dir", str(tmp_path), "--name", "prof", "--cap_id", "--batch_size",
+            "2", "--limit_data_num", "12", "--num_epochs", "3", "--log_every", "1", "--profile"]
+    for k, v in TINY.items():
+        argv += [f"--{k}", str(v)]
+    trainer, state = main(argv)
+    lines = capsys.readouterr().out.splitlines()
+    root = trainer.cfg.save_root
+    assert state.step == 12  # 4 a pass: the trace covers steps [5, 10)
+    trace = json.load(open(os.path.join(root, "profile", "trace.json")))
+    assert any(e.get("ph") == "X" for e in trace["traceEvents"])
+    (times,) = [json.loads(x) for x in open(os.path.join(root, "step_times.jsonl"))]
+    assert times["steps"] == 12 and times["p50_ms"] > 0 and times["items_per_sec"] > 0
+    assert any(line.startswith("step latency: ") for line in lines)
+    assert any(line.startswith("device trace written to ") for line in lines)
 
 
 def test_cli_refuses_unported_options(capsys):

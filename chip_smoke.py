@@ -189,8 +189,32 @@ Phases, each printing one JSON line (or several):
      bfloat16 effect, full depth reported); 8 requests served in bfloat16
      (DDIM-50, 816 B1-bf16 launches: a capturing call) from the bfloat16
      PIT checkpoint.
-Then the kernel table (the bfloat16 forms' rows after the float32 ones), the
-nvidia-smi line, and as the last line
+ 12. ablations (after phase 11, before the profile): the paper's ablation
+     models at full width. B2-bf16 at 392 rows (each pair's two actors end
+     to end, as a --single_transformer model's self-attention sees them at
+     the evaluation length) at 16 and 104 sequences against its twin under
+     phase 10's gates beside its planted control, timed, with its bound;
+     8 requests served, DDIM-50, on seeded weights: --no_cross_attn
+     --blocks fused (B1, 400 launches a call), float32 --single_transformer
+     at T = 91 (B2 at 182 rows, 400) and bfloat16 --single_transformer at
+     T = 196 (B2-bf16 at 392 rows, 400), each graphed against the eager
+     loop as in phase 5 (a capturing call 408, then 2 replays and 1 eager
+     call), the float32 runs held to
+     the plain route at SAMPLER_REL_TOL, the bfloat16 one to
+     BF16_ROUTE_RMS of the bfloat16 effect as in phase 10; one labeling
+     vote of the float32 --single_transformer model (8 B2 launches at 182
+     rows) against the plain route; ``python -m hig_tpu_torch.train``'s
+     main for 3 steps each of float32 PIT --no_cross_attn (B2) and
+     bfloat16 PIT --single_transformer (B3-bf16 at 182 rows), graphed and
+     eager from one seed bit for bit, one batch's loss and gradients held
+     to the plain route as in phases 6 and 11; ``python -m
+     hig_tpu_torch.train_single``'s main for 3 steps at batch 32, window
+     60, t2m widths, on a seeded t2m-format dataset, graphed and eager bit
+     for bit (8 B2 launches a step), then one ``make_single_sampler``
+     DDIM-50 call of 8 captions at T = 196, graphed against eager bit for
+     bit and against the plain route.
+Then the kernel table (the bfloat16 forms' rows after the float32 ones, and
+phase 12's launches added), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero without
 that line. Imports nothing of JAX or of the JAX package.
 """
@@ -1246,11 +1270,12 @@ def grad_route_errors(model, sched, batch, pit: bool, float64: bool = False, kee
 
 
 def train_run(run: str, extra: list, steps: int, own: str, data: str, tmp: str, failures,
-              smi: str, val_batches: int = 0, graph: bool = True) -> tuple:
+              smi: str, val_batches: int = 0, graph: bool = True,
+              per_step: int = LAUNCHES_PER_STEP) -> tuple:
     """One run of ``python -m hig_tpu_torch.train``'s main at full width on
     the dataset in ``data``, its steps replayed from one CUDA graph (the
     first step eager, then the capture) or, without ``graph``, eager: its
-    launch counts (LAUNCHES_PER_STEP a step of its own kernel, and as many a
+    launch counts (``per_step`` a step of its own kernel, and as many a
     validation batch; 0 of every other form; the ordered bfloat16 sum
     launched in a bfloat16 run, in no other), steps, finite losses (and
     validation losses) in metrics.jsonl, the latest checkpoint, and for a
@@ -1296,7 +1321,7 @@ def train_run(run: str, extra: list, steps: int, own: str, data: str, tmp: str, 
                 f"train ({run}): captures {captures}")
     if val_batches:
         row["val_losses"] = val_losses
-    want = LAUNCHES_PER_STEP * (steps + val_batches)
+    want = per_step * (steps + val_batches)
     fail_if(failures, any(counts[n] != (want if n == own else 0) for n in counts),
             f"train ({run}) launches {counts}, expected {want} of {own}")
     fail_if(failures, (sums > 0) != (cfg.compute_dtype == "bfloat16"),
@@ -1322,7 +1347,7 @@ def final_state_tensors(state) -> dict:
 
 
 def graphed_and_eager_run(run: str, extra: list, steps: int, own: str, data: str, tmp: str,
-                          failures, smi: str) -> tuple:
+                          failures, smi: str, per_step: int = LAUNCHES_PER_STEP) -> tuple:
     """``train_run`` of ``run`` through the graph, then of the same
     arguments and seed eagerly (``graph=False``, as ``<run>_eager``): the
     eager run's final parameters, Adam moments and EMA, its metrics.jsonl
@@ -1330,9 +1355,11 @@ def graphed_and_eager_run(run: str, extra: list, steps: int, own: str, data: str
     eager runs do: no step of these runs sums with atomics). The graphed
     run's row gets the eager run's step times and peak memory under
     "eager". Returns what ``train_run`` returns for the graphed run."""
-    trainer, state, row, counts = train_run(run, extra, steps, own, data, tmp, failures, smi)
+    trainer, state, row, counts = train_run(run, extra, steps, own, data, tmp, failures, smi,
+                                            per_step=per_step)
     e_trainer, e_state, e_row, e_counts = train_run(f"{run}_eager", extra, steps, own, data,
-                                                    tmp, failures, smi, graph=False)
+                                                    tmp, failures, smi, graph=False,
+                                                    per_step=per_step)
     got, want = final_state_tensors(state), final_state_tensors(e_state)
     differ = {n: float((got[n] - w).abs().max()) for n, w in want.items()
               if not torch.equal(got[n], w)}
@@ -3049,6 +3076,343 @@ def phase_bf16_train(device, failures, smi: str, requests: list, data: str, tmp:
     return launches, runs, walls
 
 
+# --- phase 12: the paper's ablation models ---------------------------------------------
+
+# A --no_cross_attn or --single_transformer layer has one kernel block, its
+# self-attention: 8 launches a denoiser call, 400 a DDIM-50 call.
+ABLATION_PER_CALL = 8
+ABLATION_LAUNCHES_PER_CALL = ABLATION_PER_CALL * DDIM_STEPS
+# serving run → (ModelConfig fields, T, the form its attention blocks launch):
+# --no_cross_attn fuses its self-attention (B1); a --single_transformer
+# model's merged timeline never fuses, so --blocks fused takes B2 at 2T rows
+# (182, and 392 at the evaluation length, past the 320 rows B2-bf16 holds
+# whole)
+ABLATION_SERVE_RUNS = {
+    "no_cross_attn_fused": (dict(fused_blocks=True, interaction=False), T, "fused_block"),
+    "single_transformer": (dict(fused_blocks=True, single_transformer=True), T,
+                           "projected_attention"),
+    "single_transformer_bf16": (dict(fused_blocks=True, single_transformer=True,
+                                     compute_dtype="bfloat16"), EVAL_T,
+                                "projected_attention_bf16"),
+}
+# training run → (extra arguments, steps, the form its blocks launch): 48
+# clips, 2 passes, 3 batches of 32 pairs
+ABLATION_TRAIN_RUNS = {
+    "pit_no_cross_attn": (["--times", "2", "--no_cross_attn"], 3, "projected_attention"),
+    "pit_single_transformer_bf16": (["--times", "2", "--single_transformer", "--compute_dtype",
+                                     "bfloat16"], 3, "efficient_attention_bf16"),
+}
+# train_single: t2m widths (263 features, 22 joints), SINGLE_CLIPS whole
+# clips of 70 to 199 rows, 2 passes: 3 batches of 32 at the 60-frame window;
+# then one DDIM-50 sampler call of 8 captions at the dataset's 196 frames
+SINGLE_CLIPS, SINGLE_STEPS = 48, 3
+# B2-bf16 past 320 rows: (sequences, caption pairs merged end to end at
+# EVAL_T each)
+B2_LONG_SHAPES = {"16x392": 16, "104x392": 2 * EVAL_CLIPS}
+
+
+def merged_inputs(device, sequences: int):
+    """``block_inputs`` at EVAL_T with each pair's two actors put end to end:
+    (sequences, 2 EVAL_T, D) rows and their mask, as a --single_transformer
+    model's self-attention sees them."""
+    w, x, mask, _, _ = block_inputs(device, sequences, EVAL_T)
+    return w, x.reshape(sequences, 2 * EVAL_T, D), mask.reshape(sequences, 2 * EVAL_T)
+
+
+def check_projected_attention_bf16_long(device, failures) -> dict:
+    """B2-bf16 at 392 rows (a --single_transformer model's merged timeline at
+    the evaluation length) against its twin beside the planted control (the
+    twin with B1-bf16's core roundings), timed, with its bound, at
+    B2_LONG_SHAPES."""
+    from hig_tpu_torch.ops.pallas_attention import fused_projected_attention
+    from hig_tpu_torch.ops.pallas_attention import fused_projected_attention_plain as plain
+
+    hd, rows = D // HEADS, {}
+    for name, sequences in B2_LONG_SHAPES.items():
+        w, x, mask = merged_inputs(device, sequences)
+        xn = to_bf16(torch.nn.functional.layer_norm(x, (D,), w.ln_g, w.ln_b, 1e-6))
+        ws = [to_bf16(t) for t in (w.wq, w.bq, w.wk, w.bk, w.wv, w.bv)]
+        args = (xn, xn, *ws, HEADS, mask)
+        twin = plain(*args)
+        twin32 = plain(xn.float(), xn.float(), *[t.float() for t in ws], HEADS, mask)
+        twin_cpu = plain(*on_cpu(args))
+        label = f"projected_attention_bf16 {name}"
+        row = gate_bf16(label, fused_projected_attention(*args), twin, twin32, twin_cpu,
+                        failures)
+        control = bf16_gate_row(plain(*args, rounded=B1_CORE_ROUNDINGS), twin, twin32, twin_cpu)
+        fail_if(failures, control["passed"],
+                f"{label}: the twin with B1's core roundings passes: {control}")
+        row["control_rms_ratio"] = control["rms_ratio"]
+        row["ms"] = time_ms(lambda: fused_projected_attention(*args))
+        row["plain_ms"] = time_ms(lambda: plain(*args))
+        N, Tq = x.shape[:2]
+        M = N * Tq
+        parts = [(2 * M * D * 3 * D, "bf16"), (2 * 2 * N * HEADS * Tq * hd * hd, "3xtf32")]
+        row["bound_ms"], row["bound_by"], row["bound_kind"] = bound_parts(
+            parts, 2 * (3 * M * D + 3 * D * D + 3 * D) + 4 * M)
+        rows[name] = row
+        del args, twin, twin32, twin_cpu
+    print(json.dumps({"phase": "ablations", "kernel": "projected_attention_bf16",
+                      "rows_392": rows}), flush=True)
+    return {"rows_392": rows}
+
+
+def write_single_data(root: str, seed: int = 0) -> None:
+    """A seeded t2m-format dataset: SINGLE_CLIPS clips of 70 to 199 rows (the
+    init row last) of random 263-d features, one whole-clip caption each
+    from the caption table, train.txt, Mean.npy / Std.npy of 266 entries."""
+    from hig_tpu_torch.data.vocab import CAPS
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "new_joint_vecs"))
+    os.makedirs(os.path.join(root, "texts"))
+    names = []
+    for i in range(SINGLE_CLIPS):
+        name = f"S{i:03d}"
+        motion = rng.standard_normal((int(rng.integers(70, 200)), 263), dtype=np.float32)
+        np.save(os.path.join(root, "new_joint_vecs", name + ".npy"), motion)
+        with open(os.path.join(root, "texts", name + ".txt"), "w") as f:
+            f.write(f"{CAPS[i % len(CAPS)]}#none#0.0#0.0\n")
+        names.append(name)
+    with open(os.path.join(root, "train.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    np.save(os.path.join(root, "Mean.npy"), np.zeros(266, np.float32))
+    np.save(os.path.join(root, "Std.npy"), np.ones(266, np.float32))
+
+
+def ablation_serve(device, failures, smi: str) -> dict:
+    """8 requests served, DDIM-50, through each ABLATION_SERVE_RUNS model
+    (seeded weights), graphed against the eager loop as in phase 5 (2
+    timed replays, 1 eager call) with exact launch counts; a float32 run held to the plain route at
+    SAMPLER_REL_TOL, the bfloat16 one to BF16_ROUTE_RMS of the bfloat16
+    effect as phase 10's serving runs are (its relative error reported).
+    Returns the launch counts."""
+    from hig_tpu_torch import serve
+    from hig_tpu_torch.diffusion import gaussian as g
+    from hig_tpu_torch.models.interaction_model import ModelConfig
+    from hig_tpu_torch.train.trainer import make_sampler
+
+    sched = g.make_schedule(g.linear_betas(1000))
+    launches: dict = {}
+    for run, (fields, t_run, own) in ABLATION_SERVE_RUNS.items():
+        t0 = time.perf_counter()
+        requests = [dict(r, length=r["length"] * (t_run - 1) // (T - 1))
+                    for r in serve_requests()]
+        model = serve.build_model(ModelConfig(**fields), device, random_init=0)
+        mean, std = serve.load_stats(None, model.cfg.input_feats)
+        kw = dict(T=t_run, dim_pose=model.cfg.input_feats, ddim_steps=DDIM_STEPS)
+        sample_fn = make_sampler(model, sched, **kw)
+        call = serve_with(sample_fn, requests, mean, std)
+        eager = serve_with(make_sampler(model, sched, graph=False, **kw), requests, mean, std)
+        row, (features, joints), first, call_counts = graph_and_eager(
+            f"ablation serve ({run})", call, eager, sample_fn.graphs, failures, replays=2,
+            eager_calls=1)
+        with plain_blocks():
+            p16, _ = eager(torch.Generator(device=device).manual_seed(0))
+        rel = float(np.abs(features - p16).max() / np.abs(p16).max())
+        row.update(rel_err_vs_plain=rel, rel_tol=SAMPLER_REL_TOL)
+        if model.cfg.dtype == torch.bfloat16:
+            twin = f32_twin_model(model)
+            twin_fn = make_sampler(twin, sched, graph=False, **kw)
+            with plain_blocks():
+                p32, _ = serve.serve_batch(twin_fn, requests, mean, std, device,
+                                           torch.Generator(device=device).manual_seed(0))
+            del twin, twin_fn
+            row.update(route_gate(f"ablation serve ({run})", features, p16, p32, failures))
+        else:
+            fail_if(failures, not rel <= SAMPLER_REL_TOL,
+                    f"ablation serve ({run}): rel err {rel} against the plain route")
+        print(json.dumps({"phase": "ablations", "run": f"serve_{run}", "nvidia_smi": smi,
+                          "requests": len(requests), "T": t_run, "rows": 2 * t_run if
+                          model.cfg.single_transformer else t_run, "ddim_steps": DDIM_STEPS,
+                          "launches": call_counts[0], **row,
+                          "finite": bool(np.isfinite(features).all()
+                                         and np.isfinite(joints).all()),
+                          "joints_shape": list(joints.shape),
+                          "seconds": time.perf_counter() - t0}), flush=True)
+        fail_if(failures, any(c[name] != (ABLATION_LAUNCHES_PER_CALL if name == own else 0)
+                              for c in call_counts for name in c)
+                or any(first[name] != (ABLATION_LAUNCHES_PER_CALL + ABLATION_PER_CALL
+                                       if name == own else 0) for name in first),
+                f"ablation serve ({run}) launches {first}, {call_counts}")
+        fail_if(failures, tuple(joints.shape) != (N_PAIRS, 2, t_run - 1, 22, 3)
+                or not np.isfinite(joints).all(),
+                f"ablation serve ({run}) joints {joints.shape}")
+        for name, n in first.items():
+            launches[name] = launches.get(name, 0) + n
+        if run == "single_transformer":
+            launches = merge_counts(launches, ablation_vote(model, sched, device, failures))
+        del model, sample_fn
+    return launches
+
+
+def merge_counts(a: dict, b: dict) -> dict:
+    return {k: a.get(k, 0) + b.get(k, 0) for k in {*a, *b}}
+
+
+def ablation_vote(model, sched, device, failures) -> dict:
+    """One labeling vote (the scorer's forward over LABEL_BATCH pairs under
+    both caption assignments) of a --single_transformer model: 8 B2
+    launches at 182 rows, against the plain route (DENOISER_TOL of the
+    largest summed loss). Returns its launch counts."""
+    from hig_tpu_torch.data.vocab import CAPS
+    from hig_tpu_torch.models.tokenizer import tokenize
+    from hig_tpu_torch.train import labeling
+
+    gen = torch.Generator().manual_seed(4)
+    encode, score = labeling.make_assignment_scorer(model, sched)
+    tokens = torch.from_numpy(tokenize(CAPS).astype(np.int64))
+    cond = tokens[torch.randint(0, len(CAPS), (LABEL_BATCH, 2), generator=gen)].to(device)
+    motion = torch.randn((LABEL_BATCH, 2, T, model.cfg.input_feats), generator=gen).to(device)
+    lengths = (torch.tensor(LENGTHS * (LABEL_BATCH // N_PAIRS)) + 1).to(device)
+    noise = torch.randn(motion.shape, generator=gen).to(device)
+    t_vote = labeling.LABEL_T_VALUES[0]
+    xf_proj, xf_out = encode(cond, cond.flip(1))
+    reset_counts()
+    got = score(motion, lengths, xf_proj, xf_out, t_vote, noise=noise)
+    torch.cuda.synchronize()
+    counts = bf16_counts()
+    with plain_blocks():
+        want = score(motion, lengths, xf_proj, xf_out, t_vote, noise=noise)
+    rel = float((got - want).abs().max() / want.abs().max())
+    print(json.dumps({"phase": "ablations", "run": "label_vote_single_transformer",
+                      "pairs": LABEL_BATCH, "rows": 2 * T, "t": t_vote, "launches": counts,
+                      "rel_err": rel, "rel_tol": DENOISER_TOL,
+                      "votes_differing": int((got.argmin(1) != want.argmin(1)).sum())}),
+          flush=True)
+    fail_if(failures, not rel <= DENOISER_TOL, f"single_transformer vote: rel err {rel}")
+    fail_if(failures, any(n != (ABLATION_PER_CALL if k == "projected_attention" else 0)
+                          for k, n in counts.items()),
+            f"single_transformer vote launches {counts}")
+    return counts
+
+
+def ablation_train(device, failures, smi: str, data: str, tmp: str) -> dict:
+    """ABLATION_TRAIN_RUNS through ``python -m hig_tpu_torch.train``'s main
+    on phase 6's dataset, each graphed and eagerly from the same seed (bit
+    for bit, ``graphed_and_eager_run``; 8 launches a step of the run's own
+    form), and one batch's loss and gradients at the run's initial weights
+    against the plain route: float32 at phase 6's tolerances
+    (``grad_route_errors``), bfloat16 at the first layer within
+    BF16_TRAIN_RMS of the bfloat16 effect beside phase 11's control
+    (``bf16_grad_gate``). Returns the launch counts, the ordered bfloat16
+    sum's under BF16_SUM."""
+    launches: dict = {}
+    for run, (extra, steps, own) in ABLATION_TRAIN_RUNS.items():
+        trainer, state, row, counts = graphed_and_eager_run(
+            run, extra, steps, own, data, tmp, failures, smi, per_step=ABLATION_PER_CALL)
+        batch, initial = first_batch(trainer)
+        if trainer.model_config.compute_dtype == "bfloat16":
+            row["grad_gate"] = bf16_grad_gate(trainer.sched, batch, initial, run, failures)
+        else:
+            row["grad_check"] = grad_route_errors(initial, trainer.sched, batch, pit=True)
+            gate_grad_check(failures, run, "grad_check", row["grad_check"])
+        del initial, batch, trainer, state
+        print(json.dumps({**row, "phase": "ablations"}), flush=True)
+        launches = merge_counts(launches, counts)
+    return launches
+
+
+def ablation_train_single(device, failures, smi: str, tmp: str) -> dict:
+    """``python -m hig_tpu_torch.train_single``'s main at full width on a
+    seeded t2m-format dataset, SINGLE_STEPS steps graphed and eagerly (the
+    final parameters, Adam moments and metrics bit for bit, 8 B2 launches a
+    step), then ``make_single_sampler`` DDIM-50 on the trained model:
+    graphed (the capture and a replay) against the eager loop bit for bit,
+    and the eager loop against the plain route at SAMPLER_REL_TOL. Returns
+    the launch counts."""
+    from hig_tpu_torch.data.vocab import CAPS
+    from hig_tpu_torch.diffusion import gaussian as g
+    from hig_tpu_torch.models.tokenizer import tokenize
+    from hig_tpu_torch.train.trainer import make_single_sampler
+    from hig_tpu_torch.train_single import main as single_main
+
+    data = os.path.join(tmp, "single_data")
+    write_single_data(data)
+    launches: dict = {}
+    states, metrics, rows = [], [], []
+    for graph in (True, False):
+        name = "single" if graph else "single_eager"
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = single_main(["--name", name, "--dataset_name", "t2m", "--data_root", data,
+                             "--checkpoints_dir", os.path.join(tmp, "runs"), "--batch_size",
+                             str(TRAIN_PAIRS), "--num_epochs", "1", "--times", "2",
+                             "--log_every", "1", "--seed", "0"], graph=graph)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = bf16_counts()
+        with open(os.path.join(tmp, "runs", "t2m", name, "metrics.jsonl")) as f:
+            metrics.append([json.loads(line) for line in f])
+        states.append(state)
+        rows.append({"graph": graph, "steps": state.step, "launches": counts, "wall_s": wall,
+                     "losses": [m["loss_mot_rec"] for m in metrics[-1]]})
+        fail_if(failures, state.step != SINGLE_STEPS
+                or any(n != (ABLATION_PER_CALL * SINGLE_STEPS if k == "projected_attention"
+                             else 0) for k, n in counts.items())
+                or not all(np.isfinite(rows[-1]["losses"])),
+                f"train_single ({name}): {rows[-1]}")
+        launches = merge_counts(launches, counts)
+    got, want = final_state_tensors(states[0]), final_state_tensors(states[1])
+    differ = [n for n in want if not torch.equal(got[n], want[n])]
+    fail_if(failures, bool(differ) or metrics[0] != metrics[1] or got.keys() != want.keys(),
+            f"train_single: the graphed run differs from the eager run: {differ}")
+
+    model = states[0].model.eval()
+    sched = g.make_schedule(g.linear_betas(1000))
+    tokens = torch.from_numpy(tokenize(CAPS).astype(np.int64)[np.arange(N_PAIRS) * 5 % 43])
+    lengths = torch.tensor([L * (EVAL_T - 1) // (T - 1) + 1 for L in LENGTHS])
+    kw = dict(T=EVAL_T, dim_pose=263, sampler="ddim", ddim_steps=DDIM_STEPS)
+    graphed = make_single_sampler(model, sched, **kw)
+    eager = make_single_sampler(model, sched, graph=False, **kw)
+    noise = torch.randn((N_PAIRS, EVAL_T, 263), generator=torch.Generator().manual_seed(6))
+    calls = []
+    for fn in (graphed, graphed, eager):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(tokens, lengths, noise=noise.to(device))
+        torch.cuda.synchronize()
+        calls.append((out, time.perf_counter() - t0, bf16_counts()))
+    with plain_blocks():
+        ref = eager(tokens, lengths, noise=noise.to(device))
+    same = all(torch.equal(calls[0][0], c[0]) for c in calls[1:])
+    rel = float((calls[2][0] - ref).abs().max() / ref.abs().max())
+    sample_row = {"T": EVAL_T, "captions": N_PAIRS, "ddim_steps": DDIM_STEPS,
+                  "capture": next(iter(graphed.graphs.values())).summary(),
+                  "wall_s": [c[1] for c in calls], "launches": [c[2] for c in calls],
+                  "graph_equals_eager": same, "rel_err_vs_plain": rel,
+                  "rel_tol": SAMPLER_REL_TOL, "finite": bool(torch.isfinite(ref).all())}
+    print(json.dumps({"phase": "ablations", "run": "train_single", "nvidia_smi": smi,
+                      "pairs_per_step": TRAIN_PAIRS, "window": 60, "runs": rows,
+                      "graph_equals_eager": not differ and metrics[0] == metrics[1],
+                      "sampler": sample_row}), flush=True)
+    fail_if(failures, not same or not rel <= SAMPLER_REL_TOL
+            or tuple(calls[0][0].shape) != (N_PAIRS, EVAL_T, 263),
+            f"train_single sampler: {sample_row}")
+    want_counts = [ABLATION_LAUNCHES_PER_CALL + ABLATION_PER_CALL, ABLATION_LAUNCHES_PER_CALL,
+                   ABLATION_LAUNCHES_PER_CALL]
+    fail_if(failures, any(c[2][k] != (n if k == "projected_attention" else 0)
+                          for c, n in zip(calls, want_counts) for k in c[2]),
+            f"train_single sampler launches {[c[2] for c in calls]}")
+    return merge_counts(launches, calls[0][2])
+
+
+def phase_ablations(device, failures, smi: str, data: str, tmp: str) -> tuple[dict, dict]:
+    """Phase 12 (see the module doc). Returns (the launch counts of its
+    runs by form, B2-bf16's rows past 320 rows)."""
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    kernel = check_projected_attention_bf16_long(device, failures)
+    launches = ablation_serve(device, failures, smi)
+    launches = merge_counts(launches, ablation_train(device, failures, smi, data, tmp))
+    launches = merge_counts(launches, ablation_train_single(device, failures, smi, tmp))
+    print(json.dumps({"phase": "ablations", "launches": launches,
+                      "seconds": time.perf_counter() - t_phase}), flush=True)
+    return launches, kernel
+
+
 def trainer_dataset(cfg):
     from hig_tpu_torch.data.dataset import PairDataset, load_training_stats
 
@@ -3112,8 +3476,11 @@ def main() -> int:
         bf16_train_launches, bf16_train_runs, bf16_train_walls = phase_bf16_train(
             device, failures, smi, serve_requests(), data, tmp, f32_pit)
         lap("bf16_train")
+        ablation_launches, b2_long = phase_ablations(device, failures, smi, data, tmp)
+        lap("ablations")
+        bf16_rows["projected_attention_bf16"].update(b2_long)
         for form, row in bf16_rows.items():
-            row["launches"] += bf16_train_launches.get(form, 0)
+            row["launches"] += bf16_train_launches.get(form, 0) + ablation_launches.get(form, 0)
         runs.update({**train_runs, **pipeline_runs, **eval_runs, **bf16_runs})
         runs.update({run: (call, bf16_train_walls[run]) for run, call in bf16_train_runs.items()})
         phase_profile(runs, eager, device, failures)
@@ -3122,7 +3489,7 @@ def main() -> int:
 
     for name, row in rows.items():
         row["launches"] = (launches[name] + train_launches[name] + pipeline_launches[name]
-                           + eval_launches[name])
+                           + eval_launches[name] + ablation_launches.get(name, 0))
     rows.update(bf16_rows)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(smi, flush=True)

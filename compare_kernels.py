@@ -2,10 +2,14 @@
 """Time this checkout's bfloat16 kernels beside the forms of an earlier
 checkout, on one NVIDIA GPU.
 
-    git archive e788215 hig_tpu_torch/csrc | tar -x -C result/parent
+    git archive <commit> hig_tpu_torch/csrc | tar -x -C result/parent
     python3 compare_kernels.py --parent result/parent/hig_tpu_torch/csrc
 
-``--parent`` holds the earlier ``csrc`` (commit e788215: B2-bf16a as the
+``--parent`` holds the earlier ``csrc``, from e788215 on (whose entries
+take these arguments; its B2-bf16a's scratch is a float32 q|k|v, a later
+one's the (3, 3 D, D) bfloat16 weight pieces, and the scratch passed holds
+either). At 0f3a84c B2-bf16 held one sequence's keys whole (T <= 320);
+since, it streams them at every T. At e788215: B2-bf16a as the
 float32 form's two launches, a q|k|v GEMM on mma.sync that writes float32
 q|k|v to device memory and the float32 core that reads it back, through
 ``hig_projected_attention_bf16a`` with a q|k|v scratch argument; B3-bf16 as

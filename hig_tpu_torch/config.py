@@ -4,8 +4,12 @@ read, with the same names and defaults).
 
 Options the port does not carry yet are still fields, so that setting one
 is refused with a clear message instead of being ignored: the
-pipeline/FSDP/tensor-parallel layouts, the native loader, profiling, the
-single-transformer variant and the ``--pretrained`` transfer. ``dropout``
+pipeline/FSDP/tensor-parallel layouts, the native loader and the
+``--pretrained`` transfer. The paper's ablations train, label, serve and
+evaluate: ``no_cross_attn`` (no interaction block) and
+``single_transformer`` (both actors on one 2T-token timeline), as does the
+single-person model of ``python -m hig_tpu_torch.train_single`` on the
+``t2m`` and ``kit`` datasets (:func:`single_model_config`). ``dropout``
 is accepted and applies no dropout, as in JAX (:class:`ExperimentConfig`).
 ``compute_dtype: bfloat16``, ``fast_ln`` and ``rms_norm`` train, label,
 serve and evaluate (the route rule of ``models/attention.py``).
@@ -36,7 +40,11 @@ import os
 from os.path import join as pjoin
 from typing import Optional
 
-from hig_tpu_torch.models.interaction_model import COMPUTE_DTYPES, ModelConfig
+from hig_tpu_torch.models.interaction_model import (
+    COMPUTE_DTYPES,
+    ModelConfig,
+    SingleModelConfig,
+)
 from hig_tpu_torch.models.text_encoder import ClipTextConfig
 
 CFG_UNDER_PIT = (
@@ -145,7 +153,6 @@ class ExperimentConfig:
     def __post_init__(self):
         refused = {
             "pretrained": self.pretrained,
-            "no_cross_attn": self.no_cross_attn, "single_transformer": self.single_transformer,
             "use_native_loader": self.use_native_loader, "fsdp": self.fsdp, "tp": self.tp,
             "pp_micro": self.pp_micro > 0,
         }
@@ -185,6 +192,11 @@ class ExperimentConfig:
 
 
 _DATASET_PRESETS = {
+    # the single-person datasets of python -m hig_tpu_torch.train_single
+    "t2m": dict(data_root="./data/HumanML3D", joints_num=22, dim_pose=263,
+                max_motion_length=196),
+    "kit": dict(data_root="./data/KIT-ML", joints_num=21, dim_pose=251,
+                max_motion_length=196),
     "ntu_mul": dict(data_root="./data/NTURGBD_multi", joints_num=22, dim_pose=263,
                     max_motion_length=196),
     "synthetic_mul": dict(data_root="./data/synthetic_mul", joints_num=22, dim_pose=263,
@@ -193,11 +205,14 @@ _DATASET_PRESETS = {
 
 
 def add_dataset_paths(cfg: ExperimentConfig) -> ExperimentConfig:
-    """Fill the per-dataset constants; an explicit ``data_root`` stays."""
+    """Fill the per-dataset constants; an explicit ``data_root`` stays. The
+    two-person datasets (``ntu_mul``, ``synthetic_mul``) train the
+    interaction model, the single-person ones (``t2m``, ``kit``) the model
+    of ``train_single``."""
     preset = _DATASET_PRESETS.get(cfg.dataset_name)
     if preset is None:
         raise KeyError(f"dataset not recognized by the port: {cfg.dataset_name} "
-                       f"(it trains the two-person datasets {sorted(_DATASET_PRESETS)})")
+                       f"(one of {sorted(_DATASET_PRESETS)})")
     for k, v in preset.items():
         if k == "data_root" and cfg.data_root:
             continue
@@ -216,6 +231,23 @@ def model_config(cfg: ExperimentConfig, clip: ClipTextConfig | None = None) -> M
         efficient=not cfg.no_eff, causal=cfg.causal, dropout=cfg.dropout,
         cap_id=cfg.cap_id, cond_drop_prob=cfg.cond_drop_prob,
         compute_dtype=cfg.compute_dtype, fast_ln=cfg.fast_ln, rms_norm=cfg.rms_norm,
+        interaction=not cfg.no_cross_attn, single_transformer=cfg.single_transformer,
+    )
+
+
+def single_model_config(cfg: ExperimentConfig,
+                        clip: ClipTextConfig | None = None) -> SingleModelConfig:
+    """The single-person model of ``train_single``: the fields that
+    ``tools/train_single.py`` hands ``SingleMotionModel`` (the widths,
+    ``no_eff`` and the compute dtype); the pair model's options are not
+    read, as there."""
+    return SingleModelConfig(
+        input_feats=cfg.dim_pose, num_frames=cfg.max_motion_length,
+        latent_dim=cfg.latent_dim, ff_size=cfg.ff_size, num_layers=cfg.num_layers,
+        num_heads=cfg.num_heads, text_latent_dim=cfg.text_latent_dim,
+        text_ff_size=cfg.text_ff_size, text_num_heads=cfg.text_num_heads,
+        num_text_layers=cfg.num_text_layers, clip=clip or ClipTextConfig(),
+        efficient=not cfg.no_eff, dropout=cfg.dropout, compute_dtype=cfg.compute_dtype,
     )
 
 

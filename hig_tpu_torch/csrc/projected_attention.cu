@@ -47,7 +47,7 @@ extern "C" int hig_projected_attention(
 // Wk | Wv, then of q_src's rows and Wq, through two tensor maps; two
 // consumer warpgroups project 64-row tiles on wgmma (float32 accumulators)
 // and keep k (+ the mask bias) and v (* the mask) in float32 in shared
-// memory, 512 bytes a key row, so T <= QC_MAX_T; the column max and sums
+// memory, 512 bytes a key row, at T <= QC_MAX_T; the column max and sums
 // over all T keys are taken once and softmax_time(k) is written in place
 // over k; the state E^T v is built once per (sequence, head) at 3xTF32 on
 // mma.sync m16n8k8 straight from the float32 tiles (tf32 wgmma would take
@@ -60,6 +60,25 @@ extern "C" int hig_projected_attention(
 // [tpad][64] with the 8-float group j of row t at j ^ (t % 4): the state
 // product's fragment loads and the accumulators' stores are free of bank
 // conflicts.
+//
+// That whole-sequence form (B2-bf16a's below) holds one sequence's float32
+// k and v at once, so it takes T <= QC_MAX_T; a --single_transformer
+// model's merged timeline is 2 x 196 = 392 rows at the evaluation length.
+// B2-bf16 takes the streaming form of the kernel (STREAM) at every T: each
+// round's two 64-row key tiles are projected into a 128-row k | v buffer
+// (64 KB) and the state is built round by round as an online softmax over
+// time. Per column d it keeps the running max m_d and sum l_d of
+// exp(k - m_d); a round whose max raises m_d rescales the state's row d and
+// l_d by exp(m_old - m_new), then adds the round's exp(k - m_new)^T v at
+// 3xTF32 into the same registers; at the end row d of the state is divided
+// by l_d. That is softmax_time(k) over all T keys, the float32 core of the
+// Pallas kernel, in another order of float32 operations. The query phase
+// is the same; the ring has 4 stages at any T (2 for the whole-sequence
+// form at T = 196). On the H100 the streaming form took 0.0220 ms at 16 x
+// 91 and 0.263 at 104 x 196 against the whole-sequence form's 0.0244 and
+// 0.280 on the same inputs, so no form is kept for short sequences. Bound
+// at 104 x 392: 64 GFLOP of bfloat16 products and 5.3 GFLOP of 3xTF32
+// ones against 127 MB: operations, 0.097 ms.
 //
 // B2-bf16a: bfloat16 activations with float32 weights and biases (a
 // bfloat16 model's unfused blocks on float32 master weights), as the Pallas
@@ -87,10 +106,88 @@ __device__ __forceinline__ int f32_tile(int t, int col) {
   return t * 64 + (col ^ ((t & 3) << 3));
 }
 
+// Key rows in shared memory of the streaming form: one round of tiles.
+constexpr int PC_STREAM_ROWS = 64 * QC_WG;
+
+// Shared memory past the ring of the streaming form: its k | v rows, the
+// column statistics with the rescale factors, and the barriers.
+__host__ __device__ constexpr int pc_stream_fixed_smem() {
+  return PC_STREAM_ROWS * 512 + 7 * 64 * 4 + 2 * QC_MAX_STAGES * 8;
+}
+
+// One 64-row key tile's projection `acc` (a warpgroup's m64n128
+// accumulator: k | v columns of the head) into the float32 tiles: k + bk +
+// (1 - mask) * -1e6 and (v + bv) * mask, key t0 + r at tile row t0l + r
+// (rows past T: v = 0). bk and bv are the head's 64 biases.
+template <typename BiasT>
+__device__ __forceinline__ void pc_store_kv(const float* acc, float* ks, float* vs,
+                                            const BiasT* bk, const BiasT* bv,
+                                            const float* mask, int n, int T, int t0, int t0l,
+                                            int wl, int g, int c) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = 16 * wl + g + 8 * half, t = t0 + r, tl = t0l + r;
+    const float mt = t < T ? mask[(size_t)n * T + t] : 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = 8 * (j & 7) + 2 * c;
+      const float a0 = acc[4 * j + 2 * half], a1 = acc[4 * j + 2 * half + 1];
+      if (j < 8) {
+        const float2 b = load2(bk + col);
+        *reinterpret_cast<float2*>(ks + f32_tile(tl, col)) =
+            make_float2(a0 + b.x + (1.f - mt) * MASK_BIAS, a1 + b.y + (1.f - mt) * MASK_BIAS);
+      } else {
+        const float2 b = load2(bv + col);
+        *reinterpret_cast<float2*>(vs + f32_tile(tl, col)) =
+            make_float2((a0 + b.x) * mt, (a1 + b.y) * mt);
+      }
+    }
+  }
+}
+
+// sacc += E^T v over tile rows [0, t8) at 3xTF32 (the depth is time):
+// consumer warp w holds state rows d0 = 16 (w % 4) .. + 15 and columns l0 =
+// 32 (w / 4) .. + 31, row d0 + g + 8 (e / 2) in sacc[.][e].
+__device__ __forceinline__ void pc_state_mma(float (&sacc)[4][4], const float* ks,
+                                             const float* vs, int t8, int d0, int l0, int g,
+                                             int c) {
+  for (int t0 = 0; t0 < t8; t0 += 8) {
+    const int ta = t0 + c, tb = t0 + c + 4;
+    Split a[4] = {split_tf32(ks[f32_tile(ta, d0 + g)]), split_tf32(ks[f32_tile(ta, d0 + g + 8)]),
+                  split_tf32(ks[f32_tile(tb, d0 + g)]), split_tf32(ks[f32_tile(tb, d0 + g + 8)])};
+    Split b[4][2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      b[j][0] = split_tf32(vs[f32_tile(ta, l0 + 8 * j + g)]);
+      b[j][1] = split_tf32(vs[f32_tile(tb, l0 + 8 * j + g)]);
+    }
+    mma_3xtf32<1, 4>(&sacc[0][0], a, &b[0][0]);
+  }
+}
+
+// The state's TF32 high and low parts into `state` (the layout at its
+// declaration), each row d divided by zs[d] first when DIV.
+template <bool DIV>
+__device__ __forceinline__ void pc_store_state(const float (&sacc)[4][4], uint4* state,
+                                               const float* zs, int d0, int l0, int g, int c) {
+  uint32_t* sw = reinterpret_cast<uint32_t*>(state);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int d = d0 + g + 8 * (e >> 1), l = l0 + 8 * j + 2 * c + (e & 1), p = d >> 1;
+      const Split s = split_tf32(DIV ? sacc[j][e] / zs[d] : sacc[j][e]);
+      uint32_t* u = sw + 4 * (p * 64 + (l ^ (2 * (p & 3))));
+      u[d & 1] = s.hi;
+      u[2 + (d & 1)] = s.lo;
+    }
+}
+
 // NP weight pieces (1: bfloat16 weights, the maps twq, twk, twv; 3: float32
 // weights split, one map over the [3 pieces][3 D rows: Wq, Wk, Wv][D]
-// pieces) and biases of BiasT.
-template <int NP, typename BiasT>
+// pieces) and biases of BiasT; STREAM: the streaming form (header note;
+// B2-bf16's), else one sequence's keys whole (B2-bf16a's, T <= QC_MAX_T).
+template <int NP, typename BiasT, bool STREAM = false>
 __global__ void __launch_bounds__(QC_THREADS, 1) projected_core_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tkv,
     const __grid_constant__ CUtensorMap twq, const __grid_constant__ CUtensorMap twk,
@@ -100,14 +197,16 @@ __global__ void __launch_bounds__(QC_THREADS, 1) projected_core_kernel(
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = align1024(smem_raw);  // [stages]: source tiles 0 and 1, W pieces
   const int tiles = (T + 63) / 64, tpad = 64 * tiles;
-  float* ks = reinterpret_cast<float*>(ring + stages * qc_stage_bytes(NP));  // [tpad][64] k, then E
-  float* vs = ks + tpad * 64;                                            // [tpad][64] v
-  float* red = vs + tpad * 64;                                           // [4][64]
+  const int krows = STREAM ? PC_STREAM_ROWS : tpad;  // key rows held at once
+  float* ks = reinterpret_cast<float*>(ring + stages * qc_stage_bytes(NP));  // [krows][64] k, then E
+  float* vs = ks + krows * 64;                                           // [krows][64] v
+  float* red = vs + krows * 64;                                          // [4][64]
   float* cm = red + 4 * 64;                                              // column max
   float* zs = cm + 64;                                                   // column sums
-  uint64_t* full = reinterpret_cast<uint64_t*>(zs + 64);
+  float* al = zs + 64;  // STREAM: the round's rescale factors exp(m_old - m_new)
+  uint64_t* full = reinterpret_cast<uint64_t*>(zs + (STREAM ? 128 : 64));
   uint64_t* empty = full + QC_MAX_STAGES;
-  // once the state is built, over ks and vs: [32 depth pairs][64 columns] of
+  // once the state is built, over ks (and vs): [32 depth pairs][64 columns] of
   // {hi(2p), hi(2p + 1), lo(2p), lo(2p + 1)}, column n of pair p at n ^ 2 (p % 4)
   uint4* state = reinterpret_cast<uint4*>(ks);
 
@@ -133,82 +232,97 @@ __global__ void __launch_bounds__(QC_THREADS, 1) projected_core_kernel(
   }
 
   const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, c = lane & 3;
+  const int d0 = 16 * (warp & 3), l0 = 32 * (warp >> 2);
   int it = 0;
+  float sacc[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sacc[j][e] = 0.f;
 
-  // k | v = kv_src [Wk | Wv]^T + [bk | bv]: 64-row tiles of the key rows
-  for (int r = 0; r < rounds; ++r) {
-    const int tile = QC_WG * r + wg;
-    const bool active = tile < tiles;  // uniform over the warpgroup
-    float acc[64];
-    qc_project<128, NP>(acc, ring, full, empty, it, stages, kchunks, wg, active);
-    if (!active) continue;
-    fence_regs<64>(acc);
-    // k += (1 - mask) * -1e6; v *= mask (rows past T: v = 0, k unread)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int t = 64 * tile + 16 * wl + g + 8 * half;
-      const float mt = t < T ? mask[(size_t)n * T + t] : 0.f;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int col = 8 * (j & 7) + 2 * c;
-        const float a0 = acc[4 * j + 2 * half], a1 = acc[4 * j + 2 * half + 1];
-        if (j < 8) {
-          const float2 b = load2(bk + h * HD + col);
-          *reinterpret_cast<float2*>(ks + f32_tile(t, col)) =
-              make_float2(a0 + b.x + (1.f - mt) * MASK_BIAS, a1 + b.y + (1.f - mt) * MASK_BIAS);
-        } else {
-          const float2 b = load2(bv + h * HD + col);
-          *reinterpret_cast<float2*>(vs + f32_tile(t, col)) =
-              make_float2((a0 + b.x) * mt, (a1 + b.y) * mt);
+  if constexpr (!STREAM) {
+    // k | v = kv_src [Wk | Wv]^T + [bk | bv]: 64-row tiles of the key rows
+    for (int r = 0; r < rounds; ++r) {
+      const int tile = QC_WG * r + wg;
+      const bool active = tile < tiles;  // uniform over the warpgroup
+      float acc[64];
+      qc_project<128, NP>(acc, ring, full, empty, it, stages, kchunks, wg, active);
+      if (!active) continue;
+      fence_regs<64>(acc);
+      pc_store_kv(acc, ks, vs, bk + h * HD, bv + h * HD, mask, n, T, 64 * tile, 64 * tile, wl,
+                  g, c);
+    }
+    named_barrier(1, QC_CONSUMERS);
+
+    // column max and sums over the T keys, then E = softmax_time(k) over k
+    // (rows past T: 0)
+    qc_column_stats(ks, T, tid, red, cm, zs, [](int t, int d) { return f32_tile(t, d); });
+    for (int i = tid; i < tpad * 64; i += QC_CONSUMERS) {
+      const int t = i >> 6, d = i & 63, at = f32_tile(t, d);
+      ks[at] = t < T ? expf(ks[at] - cm[d]) / zs[d] : 0.f;
+    }
+    named_barrier(1, QC_CONSUMERS);
+    pc_state_mma(sacc, ks, vs, (T + 7) / 8 * 8, d0, l0, g, c);
+    named_barrier(1, QC_CONSUMERS);  // every warp is done with E and v
+    pc_store_state<false>(sacc, state, zs, d0, l0, g, c);
+  } else {
+    // a round at a time: k | v of its two tiles, the round's column max, the
+    // running max m (cm) and sum l (zs) of exp(k - m), the state rescaled
+    // by exp(m_old - m_new) and the round's E^T v added
+    const int d = tid & 63, r0 = tid >> 6;
+    if (tid < 64) {
+      cm[tid] = -INFINITY;
+      zs[tid] = 0.f;
+    }
+    for (int r = 0; r < rounds; ++r) {
+      const int tile = QC_WG * r + wg;
+      const bool active = tile < tiles;
+      {
+        float acc[64];
+        qc_project<128, NP>(acc, ring, full, empty, it, stages, kchunks, wg, active);
+        if (active) {
+          fence_regs<64>(acc);
+          pc_store_kv(acc, ks, vs, bk + h * HD, bv + h * HD, mask, n, T, 64 * tile, 64 * wg,
+                      wl, g, c);
         }
       }
-    }
-  }
-  named_barrier(1, QC_CONSUMERS);
-
-  // column max and sums over the T keys, then E = softmax_time(k) over k
-  // (rows past T: 0)
-  qc_column_stats(ks, T, tid, red, cm, zs, [](int t, int d) { return f32_tile(t, d); });
-  for (int i = tid; i < tpad * 64; i += QC_CONSUMERS) {
-    const int t = i >> 6, d = i & 63, at = f32_tile(t, d);
-    ks[at] = t < T ? expf(ks[at] - cm[d]) / zs[d] : 0.f;
-  }
-  named_barrier(1, QC_CONSUMERS);
-
-  // state = E^T v (64 x 64, the depth is time) at 3xTF32: consumer warp w
-  // takes state rows 16 (w % 4) .. + 15 and columns 32 (w / 4) .. + 31
-  {
-    const int d0 = 16 * (warp & 3), l0 = 32 * (warp >> 2);
-    float sacc[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sacc[j][e] = 0.f;
-    const int t8 = (T + 7) / 8 * 8;
-    for (int t0 = 0; t0 < t8; t0 += 8) {
-      const int ta = t0 + c, tb = t0 + c + 4;
-      Split a[4] = {split_tf32(ks[f32_tile(ta, d0 + g)]), split_tf32(ks[f32_tile(ta, d0 + g + 8)]),
-                    split_tf32(ks[f32_tile(tb, d0 + g)]), split_tf32(ks[f32_tile(tb, d0 + g + 8)])};
-      Split b[4][2];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        b[j][0] = split_tf32(vs[f32_tile(ta, l0 + 8 * j + g)]);
-        b[j][1] = split_tf32(vs[f32_tile(tb, l0 + 8 * j + g)]);
+      named_barrier(1, QC_CONSUMERS);
+      const int rows = min(PC_STREAM_ROWS, T - PC_STREAM_ROWS * r);  // keys of the round
+      float mx = -INFINITY;
+      for (int t = r0; t < rows; t += 4) mx = fmaxf(mx, ks[f32_tile(t, d)]);
+      red[r0 * 64 + d] = mx;
+      named_barrier(1, QC_CONSUMERS);
+      if (tid < 64) {
+        const float m_old = cm[tid];
+        const float m_new = fmaxf(m_old, fmaxf(fmaxf(red[tid], red[64 + tid]),
+                                               fmaxf(red[128 + tid], red[192 + tid])));
+        al[tid] = expf(m_old - m_new);  // 0 in the first round
+        cm[tid] = m_new;
       }
-      mma_3xtf32<1, 4>(&sacc[0][0], a, &b[0][0]);
-    }
-    named_barrier(1, QC_CONSUMERS);  // every warp is done with E and v
-    uint32_t* sw = reinterpret_cast<uint32_t*>(state);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int d = d0 + g + 8 * (e >> 1), l = l0 + 8 * j + 2 * c + (e & 1), p = d >> 1;
-        const Split s = split_tf32(sacc[j][e]);
-        uint32_t* u = sw + 4 * (p * 64 + (l ^ (2 * (p & 3))));
-        u[d & 1] = s.hi;
-        u[2 + (d & 1)] = s.lo;
+      named_barrier(1, QC_CONSUMERS);
+      // E = exp(k - m) in place (rows past the round's keys: 0); each thread
+      // sums the rows it writes
+      const float cmd = cm[d];
+      float sum = 0.f;
+      for (int t = r0; t < PC_STREAM_ROWS; t += 4) {
+        const int at = f32_tile(t, d);
+        const float e = t < rows ? expf(ks[at] - cmd) : 0.f;
+        ks[at] = e;
+        sum += e;
       }
+      red[r0 * 64 + d] = sum;
+      named_barrier(1, QC_CONSUMERS);
+      if (tid < 64)
+        zs[tid] = zs[tid] * al[tid] +
+                  ((red[tid] + red[64 + tid]) + (red[128 + tid] + red[192 + tid]));
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sacc[j][e] *= al[d0 + g + 8 * (e >> 1)];
+      pc_state_mma(sacc, ks, vs, (rows + 7) / 8 * 8, d0, l0, g, c);
+      named_barrier(1, QC_CONSUMERS);  // every warp is done with the round's E and v
+    }
+    pc_store_state<true>(sacc, state, zs, d0, l0, g, c);
   }
   named_barrier(1, QC_CONSUMERS);
 
@@ -287,35 +401,40 @@ inline cudaError_t launch_split_pieces(const float* w0, const float* w1, const f
   return cudaGetLastError();
 }
 
-// projected_core_kernel<NP, BiasT> on the caller's maps (wrows: the rows of
-// one weight in a pieces' map, 0 for three maps).
-template <int NP, typename BiasT>
+// projected_core_kernel<NP, BiasT, STREAM> on the caller's maps (wrows: the
+// rows of one weight in a pieces' map, 0 for three maps).
+template <int NP, typename BiasT, bool STREAM = false>
 cudaError_t launch_projected_core(const CUtensorMap& mq, const CUtensorMap& mkv,
                                   const CUtensorMap& mwq, const CUtensorMap& mwk,
                                   const CUtensorMap& mwv, const BiasT* bq, const BiasT* bk,
                                   const BiasT* bv, const float* mask, bf16* out, int N, int T,
                                   int D, int wrows, cudaStream_t stream) {
-  const int tpad = (T + 63) / 64 * 64, stages = qc_stages(tpad, NP);
+  const int tpad = (T + 63) / 64 * 64;
+  int stages, smem;
+  if (STREAM) {
+    const int fixed = pc_stream_fixed_smem();
+    const int fit = (SMEM_MAX - 1024 - fixed) / (int)qc_stage_bytes(NP);
+    stages = fit < QC_MAX_STAGES ? fit : QC_MAX_STAGES;
+    smem = 1024 + stages * (int)qc_stage_bytes(NP) + fixed;
+  } else {
+    stages = qc_stages(tpad, NP);
+    smem = qc_smem(tpad, NP);
+  }
   if (stages < 1) return cudaErrorInvalidValue;
-  const int smem = qc_smem(tpad, NP);
-  const cudaError_t err = cudaFuncSetAttribute(
-      projected_core_kernel<NP, BiasT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err = cudaFuncSetAttribute(projected_core_kernel<NP, BiasT, STREAM>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  projected_core_kernel<NP, BiasT><<<N * (D / HD), QC_THREADS, smem, stream>>>(
+  projected_core_kernel<NP, BiasT, STREAM><<<N * (D / HD), QC_THREADS, smem, stream>>>(
       mq, mkv, mwq, mwk, mwv, bq, bk, bv, mask, out, T, D, D / HD, stages, wrows);
   return cudaGetLastError();
 }
 
-}  // namespace hig
-
-// Returns the first cudaError_t.
-extern "C" int hig_projected_attention_bf16(
-    const hig::bf16* q_src, const hig::bf16* kv_src,
-    const hig::bf16* wq, const hig::bf16* bq, const hig::bf16* wk, const hig::bf16* bk,
-    const hig::bf16* wv, const hig::bf16* bv, const float* mask, hig::bf16* out,
-    int N, int T, int D, void* stream_ptr) {
-  using namespace hig;
-  if (T > QC_MAX_T || D % 64) return cudaErrorInvalidValue;
+// B2-bf16 on bfloat16 weights: the streaming form, at any T.
+inline cudaError_t projected_bf16(const bf16* q_src, const bf16* kv_src, const bf16* wq,
+                                  const bf16* bq, const bf16* wk, const bf16* bk, const bf16* wv,
+                                  const bf16* bv, const float* mask, bf16* out, int N, int T,
+                                  int D, cudaStream_t stream) {
+  if (D % 64) return cudaErrorInvalidValue;
   CUtensorMap mq, mkv, mwq, mwk, mwv;
   cudaError_t err = make_tile_map(&mq, q_src, D, T, N, D, 64);
   if (err == cudaSuccess) err = make_tile_map(&mkv, kv_src, D, T, N, D, 64);
@@ -323,8 +442,20 @@ extern "C" int hig_projected_attention_bf16(
   if (err == cudaSuccess) err = make_tile_map(&mwk, wk, D, D, 1, D, 64);
   if (err == cudaSuccess) err = make_tile_map(&mwv, wv, D, D, 1, D, 64);
   if (err != cudaSuccess) return err;
-  return launch_projected_core<1>(mq, mkv, mwq, mwk, mwv, bq, bk, bv, mask, out, N, T, D, 0,
-                                  static_cast<cudaStream_t>(stream_ptr));
+  return launch_projected_core<1, bf16, true>(mq, mkv, mwq, mwk, mwv, bq, bk, bv, mask, out, N,
+                                              T, D, 0, stream);
+}
+
+}  // namespace hig
+
+// B2-bf16 (its streaming form, at any T). Returns the first cudaError_t.
+extern "C" int hig_projected_attention_bf16(
+    const hig::bf16* q_src, const hig::bf16* kv_src,
+    const hig::bf16* wq, const hig::bf16* bq, const hig::bf16* wk, const hig::bf16* bk,
+    const hig::bf16* wv, const hig::bf16* bv, const float* mask, hig::bf16* out,
+    int N, int T, int D, void* stream_ptr) {
+  return hig::projected_bf16(q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, out, N, T, D,
+                             static_cast<cudaStream_t>(stream_ptr));
 }
 
 // The weight split alone: `pieces` (3, 3 D, D) bfloat16 from wq, wk, wv

@@ -27,6 +27,8 @@ namespace hig {
 constexpr int QC_WG = 2;                     // consumer warpgroups, one 64-row tile each
 constexpr int QC_CONSUMERS = 128 * QC_WG;
 constexpr int QC_THREADS = QC_CONSUMERS + 32;  // and one producer warp
+// Key rows of one sequence that a kernel holding them all in shared memory
+// takes (B1-bf16, B2-bf16a; B2-bf16 streams its keys).
 constexpr int QC_MAX_T = 320;
 constexpr int QC_MAX_STAGES = 4;
 constexpr uint32_t QC_TILE_BYTES = 64 * 64 * 2;   // 64 rows x 64 deep, bfloat16

@@ -1,7 +1,8 @@
 """NTU two-person motion dataset pipeline, host side, for a single process
-(own numpy copy of ``hig_tpu/data/dataset.py:35-288,403-470``): the
-caption-pair dataset of training, labeling and evaluation, and the
-mismatched-pair dataset of the consistency evaluator.
+(own numpy copy of ``hig_tpu/data/dataset.py``): the caption-pair dataset
+of training, labeling and evaluation, the mismatched-pair dataset of the
+consistency evaluator, and the single-person (HumanML3D / KIT-ML) dataset
+of ``train_single`` (:class:`SingleMotionDataset`).
 
 Every batch is a dict of fixed-shape numpy arrays with the captions already
 tokenized, and every random choice comes from an ``np.random.Generator``
@@ -223,10 +224,102 @@ class PairMismatchDataset(PairDataset):
                     class_id=clip.class_id, dummy_label=dummy_label, name=clip.name)
 
 
+SINGLE_WINDOW = 60  # the single-person training window (ref: dataset.py single-person)
+SINGLE_MIN_LEN = {"t2m": 40, "kit": 24}  # rows (ref dataset.py:21-27), fps 20
+
+
+class SingleMotionDataset:
+    """The single-person dataset (counterpart of
+    ``hig_tpu/data/dataset.py:291-383``). Its conventions are not the pair
+    dataset's: a ``window``-frame window with the init row at the END, the
+    init channels 0:3 against the 3 trailing mean/std entries, one caption
+    per line. A clip is a (rows, D) npy whose last row is the init row,
+    kept when SINGLE_MIN_LEN ≤ rows < 200 (24 for other dataset names).
+    Caption lines are ``caption#tokens#f_tag#to_tag``: zero tags caption
+    the whole clip, nonzero ones the frames [f_tag·20, to_tag·20) clamped
+    to rows − 1, which become a clip of their own (with the init row) when
+    long enough. Clips are sorted by length; ``__getitem__(item, epoch)`` is
+    a function of (seed, epoch, item)."""
+
+    def __init__(self, cfg: ExperimentConfig, mean: np.ndarray, std: np.ndarray,
+                 split_file: str, times: int = 1, seed: int = 0, window: int = SINGLE_WINDOW):
+        self.cfg = cfg
+        self.times = times
+        self.seed = seed
+        self.window = window
+        self.mean, self.std = mean, std
+        with open(pjoin(cfg.data_root, split_file)) as f:
+            names = [line.strip() for line in f if line.strip()]
+        min_len = SINGLE_MIN_LEN.get(cfg.dataset_name, 24)
+        self.clips = []
+        for name in names:
+            npy = pjoin(cfg.motion_dir, name + ".npy")
+            txt = pjoin(cfg.text_dir, name + ".txt")
+            if not (os.path.exists(npy) and os.path.exists(txt)):
+                continue
+            motion = np.load(npy).astype(np.float32)
+            if motion.ndim != 2:
+                continue
+            rows = len(motion)
+            if rows < min_len or rows >= 200:
+                continue
+            captions = []
+            with open(txt, encoding="utf-8") as f:
+                lines = f.readlines()
+            for seg_i, line in enumerate(lines):
+                if not line.strip():
+                    continue
+                parts = line.strip().split("#")
+                f_tag = float(parts[2]) if len(parts) > 2 and parts[2] else 0.0
+                to_tag = float(parts[3]) if len(parts) > 3 and parts[3] else 0.0
+                f_tag = 0.0 if np.isnan(f_tag) else f_tag
+                to_tag = 0.0 if np.isnan(to_tag) else to_tag
+                if f_tag == 0.0 and to_tag == 0.0:
+                    captions.append(parts[0])
+                    continue
+                # to_tags overshoot the clip's end: clamp to the frame rows,
+                # so the init row is not taken in as a frame
+                seg = motion[int(f_tag * 20): min(int(to_tag * 20), rows - 1)]
+                if len(seg) < min_len or len(seg) >= 200:
+                    continue
+                seg = np.concatenate([seg, motion[-1:]], axis=0)
+                self.clips.append(Clip(name=f"S{seg_i}_{name}", motion=seg, length=len(seg),
+                                       texts=[parts[0]], class_id=0))
+            if captions:
+                self.clips.append(Clip(name=name, motion=motion, length=rows, texts=captions,
+                                       class_id=0))
+        self.clips.sort(key=lambda c: c.length)
+
+    def real_len(self) -> int:
+        return len(self.clips)
+
+    def __len__(self) -> int:
+        return self.real_len() * self.times
+
+    def __getitem__(self, item: int, epoch: int = 0) -> dict:
+        clip = self.clips[item % self.real_len()]
+        rng = np.random.default_rng((self.seed, epoch, item))
+        nframes = clip.motion.shape[0] - 1
+        if self.window > nframes:
+            padding = (nframes - 1) * np.ones(self.window - nframes, dtype=int)
+            ix = np.concatenate([np.arange(nframes), padding, [nframes]])
+        else:
+            shift_max = nframes - self.window
+            shift = int(rng.integers(0, shift_max if shift_max > 0 else 1))
+            ix = np.concatenate([shift + np.arange(self.window), [nframes]])
+        sample = clip.motion[ix].copy()
+        sample[:-1] = (sample[:-1] - self.mean[:-3]) / self.std[:-3]
+        sample[-1, :3] = (sample[-1, :3] - self.mean[-3:]) / self.std[-3:]
+        caption = clip.texts[int(rng.integers(len(clip.texts)))]
+        return dict(motion=sample, length=min(sample.shape[0], clip.length), caption=caption,
+                    class_id=0, name=clip.name)
+
+
 def collate(samples: list[dict], token_cache: dict | None = None) -> dict:
     """Stack samples into fixed-shape arrays and tokenize the captions
-    (``token_cache`` keeps each caption's tokens across calls); samples
-    without captions (the mismatch dataset's) carry ``dummy_label``."""
+    (``token_cache`` keeps each caption's tokens across calls): (B, 2, 77)
+    for caption pairs, (B, 77) for single-person samples; samples without
+    captions (the mismatch dataset's) carry ``dummy_label``."""
     cache = {} if token_cache is None else token_cache
 
     def tokens(caption):
@@ -244,17 +337,19 @@ def collate(samples: list[dict], token_cache: dict | None = None) -> dict:
                                     for s in samples]).astype(np.int32)
         batch["cap_ids"] = np.asarray([[s["cap_key1"], s["cap_key2"]] for s in samples],
                                       np.int32)
+    if "caption" in samples[0]:
+        batch["tokens"] = np.stack([tokens(s["caption"]) for s in samples]).astype(np.int32)
     if "dummy_label" in samples[0]:
         batch["dummy_label"] = np.asarray([s["dummy_label"] for s in samples], np.int32)
     batch["names"] = [s["name"] for s in samples]
     return batch
 
 
-def epoch_batches(dataset: PairDataset, batch_size: int, epoch: int, shuffle: bool = True,
+def epoch_batches(dataset, batch_size: int, epoch: int, shuffle: bool = True,
                   drop_last: bool = True, seed: int = 0, token_cache: dict | None = None):
-    """The batches of one epoch: the order is a function of (seed, epoch);
-    with ``drop_last`` the ragged tail is dropped, else the order wraps
-    round to fill the last batch."""
+    """The batches of one epoch of any of the datasets above: the order is
+    a function of (seed, epoch); with ``drop_last`` the ragged tail is
+    dropped, else the order wraps round to fill the last batch."""
     n = len(dataset)
     order = np.arange(n)
     if shuffle:

@@ -20,7 +20,10 @@ ddim_steps unless --sampler / --ddim_steps say otherwise, and with
 the efficient model's self-attention and interaction blocks through the
 fused-block kernel, --blocks projected through the projected-attention
 kernel (the default of an rms_norm run); a --no_eff run goes through the
-flash-attention kernel. A run with
+flash-attention kernel. The ablations come from the run's opt.txt: a
+--no_cross_attn run has no interaction block, and a --single_transformer
+run's merged 2T-token timeline never fuses (the projected-attention kernel
+over 2T rows, 392 at the default --gen_T). A run with
 ``compute_dtype: bfloat16`` (``rms_norm`` too) samples in bfloat16 through
 the kernels' bfloat16 forms; --fast_ln keeps the generator's efficient-block
 LayerNorm statistics in bfloat16, as ``tools/evaluation.py --fast_ln``

@@ -21,7 +21,10 @@ projected-attention kernel; a --no_eff run goes through the flash-attention
 kernel. A bfloat16 run (compute_dtype, fast_ln, rms_norm) labels in
 bfloat16 on its float32 parameters, as JAX's scorer does; an rms_norm run
 has no fused block, so its default is --blocks projected and --blocks
-fused is refused.
+fused is refused. A --no_cross_attn run has no interaction block (B1 runs
+its self-attention blocks only), and a --single_transformer run's layers
+never fuse, as in JAX: its merged timeline takes the projected-attention
+kernel whatever --blocks says.
 """
 
 from __future__ import annotations

@@ -3,7 +3,8 @@
 
 Two families, each with the residual and the AdaLN ``StylizationBlock``
 gate applied inside each block. Every leading axis before (T, D) is batch,
-so the (B, actors, T, D) layout flows through.
+so the (B, actors, T, D) layout flows through, and so does a
+``--single_transformer`` model's merged (B, 2T, D) timeline.
 
 * Efficient (linear) attention, the default: softmax(Q over features) ·
   [softmax(K over time)ᵀ V]. The self-attention and interaction blocks
@@ -140,9 +141,11 @@ class _KernelBlock(nn.Module):
         return w if dtype is None else BlockWeights(*(t.to(dtype) for t in w))
 
     def forward(self, x, emb, src_mask, adaln=None):
-        """x (B, 2, T, D); emb (B, 2, E) or None when ``adaln`` = (scale,
-        shift), each (B, 2, 1, D), is given; src_mask (B, 1|2, T). The
-        route follows the module doc's rule."""
+        """x (B, 2, T, D), emb (B, 2, E) and src_mask (B, 1|2, T); or, on a
+        ``--single_transformer`` model's merged timeline (self-attention
+        only), x (B, 2T, D), emb (B, E) and src_mask (B, 2T). emb is None
+        when ``adaln`` = (scale, shift), each (B, 2, 1, D) or (B, 1, D), is
+        given. The route follows the module doc's rule."""
         scale, shift = adaln if adaln is not None else self.proj_out.scale_shift(emb)
         mask = src_mask.expand(x.shape[:-1])
         if self.fused and not self.training:

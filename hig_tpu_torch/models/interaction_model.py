@@ -1,5 +1,7 @@
 """Text conditioning stack + interaction denoiser under one parameter tree
-(counterpart of ``hig_tpu/models/interaction_model.py:25-189,261-291``).
+(counterpart of ``hig_tpu/models/interaction_model.py``), and the
+single-person model (:class:`SingleMotionModel`, the text stack and
+``MotionDenoiser``: the paper's baseline and ``--pretrained`` donor).
 
 The port trains, labels, serves and evaluates in float32 or bfloat16
 (``compute_dtype``, with flax's ``fast_ln`` LayerNorm statistics or
@@ -14,8 +16,9 @@ learned table (``cap_id``, the PIT stage's model). With ``cond_drop_prob``
 > 0 the model owns the learned null conditioning of classifier-free
 guidance (:meth:`InteractionModel.null_conditioning`). ``dropout`` is
 accepted and applies no dropout, as every JAX path computes (the field's
-comment). Causal efficient attention and the single-transformer variant are
-not ported yet. A bfloat16 model is
+comment). The paper's ablations are ``interaction=False``
+(``--no_cross_attn``) and ``single_transformer`` (both actors on one
+timeline). Causal efficient attention is not ported yet. A bfloat16 model is
 built with float32 parameters, which training and labeling keep (mixed
 precision: each module casts per op); ``weights.cast_floating`` casts them
 once for sampling, as the JAX sampler does (``make_sampler`` calls it).
@@ -28,7 +31,11 @@ import dataclasses
 import torch
 from torch import nn
 
-from hig_tpu_torch.models.denoiser import InteractionDenoiser, check_block_options
+from hig_tpu_torch.models.denoiser import (
+    InteractionDenoiser,
+    MotionDenoiser,
+    check_block_options,
+)
 from hig_tpu_torch.models.embeddings import cast
 from hig_tpu_torch.models.text_encoder import ClassConditioner, ClipTextConfig, TextEncoder
 
@@ -70,6 +77,10 @@ class ModelConfig:
     # hig_tpu/train/labeling.py:53), where nn.Dropout is the identity
     # (hig_tpu/models/attention.py:572): any dropout computes what 0 does
     dropout: float = 0.0
+    # the paper's ablations: no interaction block (--no_cross_attn), and both
+    # actors on one 2T-token timeline (--single_transformer)
+    interaction: bool = True
+    single_transformer: bool = False
 
     def __post_init__(self):
         if isinstance(self.clip, dict):
@@ -77,7 +88,8 @@ class ModelConfig:
         if self.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, "
                              f"got {self.compute_dtype!r}")
-        check_block_options(self.efficient, self.causal, self.fused_blocks, self.rms_norm)
+        check_block_options(self.efficient, self.causal, self.fused_blocks, self.rms_norm,
+                            self.single_transformer)
 
     @property
     def time_embed_dim(self) -> int:
@@ -122,6 +134,8 @@ class InteractionModel(nn.Module):
             dtype=cfg.dtype,
             fast_ln=cfg.fast_ln,
             rms_norm=cfg.rms_norm,
+            interaction=cfg.interaction,
+            single_transformer=cfg.single_transformer,
         )
         if cfg.cond_drop_prob > 0.0:
             self.null_xf_proj = nn.Parameter(torch.zeros(cfg.time_embed_dim))
@@ -177,6 +191,79 @@ class InteractionModel(nn.Module):
                 adaln=None):
         return self.denoiser(x, timesteps, lengths, xf_proj, xf_out,
                              text_kv=text_kv, adaln=adaln)
+
+    def forward(self, x, timesteps, lengths, tokens):
+        xf_proj, xf_out = self.encode_text(tokens)
+        return self.denoise(x, timesteps, lengths, xf_proj, xf_out)
+
+
+# The pair model's options that the single-person model has no use for
+# (JAX's SingleMotionModel takes none of them), at the values it runs.
+_PAIR_ONLY = {"fused_blocks": False, "causal": False, "cap_id": False, "cond_drop_prob": 0.0,
+              "fast_ln": False, "rms_norm": False, "interaction": True,
+              "single_transformer": False}
+
+
+@dataclasses.dataclass(frozen=True)
+class SingleModelConfig(ModelConfig):
+    """Hyper-parameters of :class:`SingleMotionModel`: the widths, the CLIP
+    tower, ``efficient``, ``compute_dtype`` and ``dropout`` of
+    :class:`ModelConfig`; the pair model's other options must stay at their
+    defaults."""
+
+    def __post_init__(self):
+        super().__post_init__()
+        bad = sorted(k for k, v in _PAIR_ONLY.items() if getattr(self, k) != v)
+        if bad:
+            raise ValueError(f"the single-person model has no {bad}")
+
+
+class SingleMotionModel(nn.Module):
+    """The single-person model (counterpart of
+    ``hig_tpu/models/interaction_model.py:192-259``): the CLIP tower and
+    text suffix, and :class:`~hig_tpu_torch.models.denoiser.MotionDenoiser`
+    on (B, T, input_feats) conditioned on one caption's (B, 77) tokens."""
+
+    def __init__(self, cfg: SingleModelConfig = SingleModelConfig()):
+        super().__init__()
+        self.cfg = cfg
+        self.text = TextEncoder(
+            clip_config=cfg.clip,
+            text_latent_dim=cfg.text_latent_dim,
+            text_ff_size=cfg.text_ff_size,
+            text_num_heads=cfg.text_num_heads,
+            num_text_layers=cfg.num_text_layers,
+            time_embed_dim=cfg.time_embed_dim,
+            dtype=cfg.dtype,
+        )
+        self.denoiser = MotionDenoiser(
+            input_feats=cfg.input_feats,
+            num_frames=cfg.num_frames,
+            latent_dim=cfg.latent_dim,
+            ff_size=cfg.ff_size,
+            num_layers=cfg.num_layers,
+            num_heads=cfg.num_heads,
+            text_latent_dim=cfg.text_latent_dim,
+            efficient=cfg.efficient,
+            dtype=cfg.dtype,
+        )
+
+    def encode_text(self, tokens: torch.Tensor):
+        """(B, 77) tokens → ((B, E), (B, 77, Dt))."""
+        return self.text(tokens.long())
+
+    def clip_parameters(self) -> set[str]:
+        """Names of the CLIP tower's parameters (the frozen partition)."""
+        return {f"text.clip.{name}" for name, _ in self.text.clip.named_parameters()}
+
+    def freeze_clip(self) -> None:
+        self.text.clip.requires_grad_(False)
+
+    def text_kv(self, xf_out: torch.Tensor) -> tuple:
+        return self.denoiser.text_kv(xf_out)
+
+    def denoise(self, x, timesteps, lengths, xf_proj, xf_out=None, text_kv=None):
+        return self.denoiser(x, timesteps, lengths, xf_proj, xf_out, text_kv=text_kv)
 
     def forward(self, x, timesteps, lengths, tokens):
         xf_proj, xf_out = self.encode_text(tokens)

@@ -49,15 +49,20 @@ TMA ring, float32 accumulators plus the bias), keeps k and v in float32 in
 shared memory, builds softmax_time(k) and the 64 × 64 state once in float32
 (3xTF32 on ``mma.sync``), takes each 64-row q tile's feature softmax in its
 accumulator registers and multiplies it by the state at 3xTF32, and stores
-y rounded once. One sequence's keys sit in shared memory, so T is at most
-:data:`BF16_MAX_T`. :func:`fused_projected_attention_plain` on bfloat16
-inputs is its twin; ``rounded`` makes the twin round the core as B1-bf16's
-Pallas kernel does, a planted control that the kernel's gates must fail.
+y rounded once. It streams the keys, two 64-row tiles a round, and builds
+the state as an online softmax over time (a running column max and sum,
+the state rescaled when the max rises, divided by the sum at the end), so
+it takes any T, as the Pallas kernel does: a ``--single_transformer``
+model's merged timeline is 392 rows at the evaluation length.
+:func:`fused_projected_attention_plain` on bfloat16 inputs is its twin;
+``rounded`` makes the twin round the core as B1-bf16's Pallas kernel does,
+a planted control that the kernel's gates must fail.
 
 B2 on bfloat16 activations with float32 weights (B2-bf16a,
 ``hig_projected_attention_bf16a``): the Pallas kernel's dot of a bfloat16
 row and a float32 weight promotes the row, so q, k, v and the core are
-float32 and only y is rounded. B2-bf16's kernel with each float32 weight
+float32 and only y is rounded. B2-bf16's kernel, holding one sequence's
+keys whole rather than streaming them, with each float32 weight
 split into three bfloat16 pieces (:func:`split_bf16_pieces`; its kernel,
 one pass a call, behind :func:`weight_pieces`): a bfloat16 activation
 times a piece is exact in float32, so each product is three ``wgmma``
@@ -93,7 +98,10 @@ from hig_tpu_torch.utils.graphs import counted
 
 HEAD_DIM = 64  # the only head width the CUDA core takes
 MASK_BIAS = -1000000.0
-BF16_MAX_T = 320  # rows of one sequence the bfloat16 B1, B2 and B3 kernels keep in shared memory
+# Rows of one sequence that B1-bf16, B2-bf16a and B3-bf16 keep in shared
+# memory whole: the most they take (the ablations' training and labeling
+# reach 2 × 91 = 182). B2-bf16 streams its keys and takes any T.
+BF16_MAX_T = 320
 # The roundings of the core that efficient_attention can take (B1-bf16's):
 # softmax_time(k), v, the state and softmax_feat(q).
 CORE_ROUNDINGS = ("kh", "v", "att", "qh")
@@ -310,8 +318,9 @@ def fused_projected_attention(q_src, kv_src, wq, bq, wk, bk, wv, bv,
     the float32 form, for bfloat16 activations and weights the bfloat16
     form (``launches_bf16``), or for bfloat16 activations with float32
     weights B2-bf16a (``launches_mixed``), which has no backward and raises,
-    on either device, when grad is enabled and an input requires it; both
-    bfloat16 forms take T up to :data:`BF16_MAX_T`; other dtypes raise.
+    on either device, when grad is enabled and an input requires it.
+    B2-bf16 takes any T, B2-bf16a T up to :data:`BF16_MAX_T`; other dtypes
+    raise.
     """
     adt, wdt = q_src.dtype, wq.dtype
     mixed = adt == torch.bfloat16 and wdt == torch.float32
@@ -337,9 +346,9 @@ def fused_projected_attention(q_src, kv_src, wq, bq, wk, bk, wv, bv,
         raise ValueError("the projected-attention kernel takes float32 activations and "
                          "weights, bfloat16 ones, or bfloat16 activations with float32 "
                          f"weights; got {adt} and {wdt}")
-    if adt == torch.bfloat16 and T > BF16_MAX_T:
-        raise ValueError(f"the bfloat16 projected-attention kernels take T up to {BF16_MAX_T}, "
-                         f"got {T}")
+    if mixed and T > BF16_MAX_T:
+        raise ValueError(f"projected attention on bfloat16 activations with float32 weights "
+                         f"takes T up to {BF16_MAX_T}, got {T}")
     check_cuda_operand("q_src", q_src, dtype=adt)
     check_cuda_operand("kv_src", kv_src, dtype=adt)
     for name, w, b in (("query", wq, bq), ("key", wk, bk), ("value", wv, bv)):
@@ -364,6 +373,7 @@ def fused_projected_attention(q_src, kv_src, wq, bq, wk, bk, wv, bv,
 
 
 counted(fused_projected_attention, "launches", "launches_bf16", "launches_mixed")
+
 
 
 def fused_efficient_attention_plain(query, key, value, num_heads: int, key_mask=None,

@@ -32,7 +32,13 @@ kernel (the default of an rms_norm model, which has no fused block).
 --no_eff serves the quadratic (softmax-attention) model instead, whose
 self-attention and interaction blocks go through the flash-attention
 kernel; --causal makes its attention causal. --blocks has no effect with
---no_eff and is refused there. --sampler picks DDPM (every timestep of the
+--no_eff and is refused there. The paper's ablations (or a run's opt.txt
+with them): --no_cross_attn serves a model without the interaction block
+(--blocks fused: B1 runs the self-attention blocks only), and
+--single_transformer one that puts both actors on one 2T-token timeline,
+whose layers never fuse: there --blocks fused runs the self-attention
+through the projected-attention kernel, as JAX's layers do, and the
+printout says so. --sampler picks DDPM (every timestep of the
 schedule), DDIM or DPM-Solver++(2M) over --ddim_steps (default without
 --opt_path: DDIM-50).
 
@@ -175,6 +181,10 @@ def main(argv=None):
                         help="quadratic (softmax) attention blocks")
     parser.add_argument("--causal", action="store_true",
                         help="causal attention (with --no_eff)")
+    parser.add_argument("--no_cross_attn", action="store_true",
+                        help="no cross-actor interaction block")
+    parser.add_argument("--single_transformer", action="store_true",
+                        help="both actors on one 2T-token timeline")
     parser.add_argument("--batch_size", type=int, default=256)
     parser.add_argument("--motion_length", type=int, default=60)
     parser.add_argument("--sampler", choices=SAMPLERS, default=None,
@@ -191,9 +201,10 @@ def main(argv=None):
     cfg_fields, guidance, steps = {}, 1.0, 1000
     sampler, ddim_steps = "ddim", 50
     if args.opt_path:
-        if args.model_config or args.no_eff or args.causal:
-            parser.error("--opt_path gives the model; --model_config, --no_eff and "
-                         "--causal are refused with it")
+        if args.model_config or args.no_eff or args.causal or args.no_cross_attn \
+                or args.single_transformer:
+            parser.error("--opt_path gives the model; --model_config, --no_eff, --causal, "
+                         "--no_cross_attn and --single_transformer are refused with it")
         run = load_opt_txt(args.opt_path)
         cfg_fields = dataclasses.asdict(model_config(run))
         guidance, steps = run.guidance_scale, run.diffusion_steps
@@ -210,6 +221,10 @@ def main(argv=None):
         cfg_fields["efficient"] = False
     if args.causal:
         cfg_fields["causal"] = True
+    if args.no_cross_attn:
+        cfg_fields["interaction"] = False
+    if args.single_transformer:
+        cfg_fields["single_transformer"] = True
     efficient = cfg_fields.get("efficient", True)
     if not efficient and args.blocks is not None:
         parser.error("--blocks picks the kernel of the efficient blocks; the quadratic "
@@ -224,6 +239,9 @@ def main(argv=None):
     device = resolve_device(args.device)
     model = build_model(cfg, device, args.params, args.random_init)
     mean, std = load_stats(args.stats, cfg.input_feats)
+    if cfg.single_transformer and cfg.fused_blocks:
+        print("--single_transformer: the merged timeline's layers never fuse (as in JAX); "
+              "its self-attention runs the projected-attention kernel")
 
     requests = load_requests(args.requests, args.motion_length)
     print(f"{len(requests)} requests")

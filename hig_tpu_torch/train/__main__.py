@@ -14,6 +14,8 @@ supervised model for classifier-free guidance.
         --label_path data/NTURGBD_multi/pseudo_labels.json --cond_drop_prob 0.1 ...
     python -m hig_tpu_torch.train ... --loss_aware_sampler  # timesteps by loss
     python -m hig_tpu_torch.train ... --no_eff         # quadratic attention model
+    python -m hig_tpu_torch.train ... --no_cross_attn  # ablation: no interaction block
+    python -m hig_tpu_torch.train ... --single_transformer  # ablation: one 2T timeline
     python -m hig_tpu_torch.train ... --compute_dtype bfloat16 [--fast_ln] [--rms_norm]
     python -m hig_tpu_torch.train ... --device cpu     # plain PyTorch, no kernels
     python -m hig_tpu_torch.train ... --profile        # trace of steps [5, 10), step latency

@@ -28,6 +28,10 @@ port captures the whole step on the card (loss, backward, the
 graph per batch shape and replays it (``make_train_step``'s ``graph``);
 the loop reads the step's two metrics back once a step, as JAX does.
 
+The single-person model trains with :func:`make_single_train_step` (the
+masked MSE over (B, T, D), the same optimizer and graphs) and samples with
+:func:`make_single_sampler` (``python -m hig_tpu_torch.train_single``).
+
 Sampling (``:402-562``), with DDPM, DDIM or DPM-Solver++(2M): everything
 loop-invariant is hoisted out of the step loop: the text is encoded once,
 each layer's text state is computed once (the KᵀV tensor of the efficient
@@ -69,7 +73,7 @@ from hig_tpu_torch.data.vocab import CAPS
 from hig_tpu_torch.diffusion import gaussian as g
 from hig_tpu_torch.diffusion import timestep_samplers as tss
 from hig_tpu_torch.diffusion.solvers import dpmpp_2m_sample_loop
-from hig_tpu_torch.models.denoiser import BLOCKS
+from hig_tpu_torch.models.denoiser import BLOCKS, actor_mean
 from hig_tpu_torch.models.embeddings import length_mask
 from hig_tpu_torch.models.interaction_model import InteractionModel
 from hig_tpu_torch.models.text_encoder import ClipTextConfig
@@ -440,9 +444,11 @@ TRAIN_METRICS = ("loss_mot_rec", "grad_norm")
 
 def make_train_step(sched: g.DiffusionSchedule, pit: bool, grad_accum: int = 1,
                     ema_decay: float = 0.0, loss_aware: bool = False,
-                    graph: bool = True) -> Callable:
+                    graph: bool = True, make_loss: Callable | None = None) -> Callable:
     """``train_step(state, batch, generator=None, t=None, noise=None,
-    keep=None) -> metrics``: gradients (:func:`compute_grads`), the
+    keep=None) -> metrics``: the loss (``make_loss(model, sched)``, default
+    :func:`make_loss_fn` with ``pit`` and ``loss_aware``), gradients
+    (:func:`compute_grads`), the
     optimizer update, the EMA, and ``{"loss_mot_rec", "grad_norm"}`` as
     0-dim tensors (views of one (2,) tensor: :data:`TRAIN_METRICS` order,
     read back in one copy); the logged norm is over every gradient, before
@@ -467,6 +473,9 @@ def make_train_step(sched: g.DiffusionSchedule, pit: bool, grad_accum: int = 1,
     capture that fails raises. ``graph=False``, and any CPU batch, run the
     eager step. ``train_step.graphs`` holds the graphs by key.
     """
+    if make_loss is None:
+        def make_loss(model, sched):
+            return make_loss_fn(model, sched, pit, loss_aware)
     tables: dict = {}  # device → the schedule's tables there, made at the first step
     graphs: dict = {}
     captured: dict = {}  # the TrainState the graphs replay on, and what they share
@@ -476,7 +485,7 @@ def make_train_step(sched: g.DiffusionSchedule, pit: bool, grad_accum: int = 1,
         """The step's device work: no host value is read, nothing is copied
         from the host."""
         model = state.model
-        loss_fn = make_loss_fn(model, tables[batch["motion"].device], pit, loss_aware)
+        loss_fn = make_loss(model, tables[batch["motion"].device])
         ts_state = None
         if loss_aware:
             ts_state = tss.LossSecondMomentState(losses=ts_losses, counts=ts_counts)
@@ -542,6 +551,41 @@ def make_train_step(sched: g.DiffusionSchedule, pit: bool, grad_accum: int = 1,
     return train_step
 
 
+def make_single_loss_fn(model, sched: g.DiffusionSchedule) -> Callable:
+    """The single-person model's loss (``make_single_train_step`` of
+    ``hig_tpu/train/trainer.py:572-600``): ``loss_fn(batch, generator=None,
+    t=None, noise=None, keep=None, ts_state=None) -> (loss, aux)``, the
+    masked MSE of the epsilon prediction over (B, T, D), each valid frame's
+    squared error averaged over the features. batch: motion (B, T, D),
+    lengths (B,), tokens (B, 77) (the frozen CLIP tower runs in the step,
+    as in JAX). ``t`` (B,) and ``noise`` (like motion) are drawn from
+    ``generator`` unless given; ``keep`` and ``ts_state`` are not read. aux
+    holds t."""
+
+    def loss_fn(batch, generator=None, t=None, noise=None, keep=None, ts_state=None):
+        motion = batch["motion"]
+        B, T, _ = motion.shape
+        lengths = batch["lengths"].clamp(max=T)
+        t, _ = tss.uniform_sample(B, sched.num_timesteps, generator, motion.device, t)
+        if noise is None:
+            noise = torch.randn(motion.shape, generator=generator, device=motion.device,
+                                dtype=motion.dtype)
+        x_t, target = g.training_targets(sched, motion, t, noise)
+        mask = length_mask(lengths, T, motion.dtype)
+        pred = model(x_t, t, lengths, batch["tokens"])
+        per_tok = ((pred - target) ** 2).mean(dim=-1)
+        return (per_tok * mask).sum() / mask.sum(), {"t": t}
+
+    return loss_fn
+
+
+def make_single_train_step(sched: g.DiffusionSchedule, graph: bool = True) -> Callable:
+    """The single-person model's train step: :func:`make_train_step` (the
+    optimizer update, metrics, one CUDA graph per batch shape on the card)
+    over :func:`make_single_loss_fn`."""
+    return make_train_step(sched, pit=False, graph=graph, make_loss=make_single_loss_fn)
+
+
 def eval_params(state: dict) -> dict:
     """Parameters to sample with: the EMA average when present, else the
     raw parameters (``state`` holds ``params`` and maybe ``ema_params``)."""
@@ -554,16 +598,21 @@ def adaln_scale_shift_grid(model: InteractionModel, ts, xf_proj: torch.Tensor):
     """Every StylizationBlock's (scale, shift) for every timestep in ``ts``
     (a host array, or an int64 tensor on xf_proj's device).
 
-    Returns a list over layers of {block: (scale, shift)}, each of shape
-    (len(ts), B, 2, 1, D).
+    Returns a list over layers of {block: (scale, shift)} for the blocks
+    the layer has (a ``--no_cross_attn`` or ``--single_transformer`` layer
+    has no "int"), each of shape (len(ts), B, 2, 1, D), or (len(ts), B, 1,
+    D) under ``single_transformer``, whose conditioning is the actors' mean.
     """
     den = model.denoiser
     t = ts if torch.is_tensor(ts) else torch.as_tensor(np.ascontiguousarray(ts),
                                                        device=xf_proj.device)
     # in the model's compute dtype, as JAX's grid takes every Dense
     emb = den.time_embed(t)[:, None, None, :] + xf_proj[None]  # (S, B, 2, E)
+    if den.single_transformer:
+        emb = actor_mean(emb, 2)
     return [
-        {short: getattr(layer, full).proj_out.scale_shift(emb) for short, full in BLOCKS}
+        {short: getattr(layer, full).proj_out.scale_shift(emb) for short, full in BLOCKS
+         if hasattr(layer, full)}
         for layer in den.layers
     ]
 
@@ -658,19 +707,72 @@ def make_sampler(model: InteractionModel, sched: g.DiffusionSchedule, T: int,
             e_c, e_u = eps[:B], eps[B:]
             return e_u + guidance_scale * (e_c - e_u)
 
-        if warmup:
-            t0 = sched.num_timesteps - 1 if sampler == "ddpm" else int(ts[0])
-            t = torch.full((B,), t0, dtype=torch.int64, device=device)
-            return denoiser(noise, t, None if aux is None else aux[0])
-        if sampler == "ddpm":
-            return g.p_sample_loop(sched, denoiser, noise, generator=generator,
-                                   step_noise=step_noise, tables=tables)
-        if sampler == "dpm":
-            return dpmpp_2m_sample_loop(sched, denoiser, noise, num_steps=ddim_steps,
-                                        model_aux=aux, tables=tables)
-        return g.ddim_sample_loop(sched, denoiser, noise, num_steps=ddim_steps, model_aux=aux,
-                                  tables=tables)
+        return _sampling_loop(sched, tables, sampler, ts, ddim_steps, denoiser, noise, aux,
+                              generator, step_noise, warmup)
 
+    return _sampling_call(run, device, lambda cond: (cond.shape[0], 2, T, dim_pose), sampler,
+                          graph)
+
+
+def make_single_sampler(model, sched: g.DiffusionSchedule, T: int, dim_pose: int,
+                        sampler: str = "ddim", ddim_steps: int = 50,
+                        graph: bool = True) -> Callable:
+    """The single-person model's sampler (counterpart of
+    ``hig_tpu/train/trainer.py:603-631``): ``sample(tokens (B, 77), lengths
+    (B,), noise=None, generator=None, step_noise=None) -> (B, T,
+    dim_pose)``, with DDPM, DDIM or DPM as :func:`make_sampler`. The text is
+    encoded once and each layer's text state computed once; as in JAX, no
+    AdaLN grid is hoisted. A bfloat16 model's parameters are cast once,
+    here, and on the card the whole call is one CUDA graph per shape, as in
+    :func:`make_sampler`."""
+    if sampler not in SAMPLERS:
+        raise ValueError(f"unknown sampler {sampler!r} (one of {SAMPLERS})")
+    ts = g.ddim_timesteps(sched.num_timesteps, ddim_steps)
+    if model.cfg.dtype != torch.float32:
+        cast_floating(model, model.cfg.dtype)
+    device = next(model.parameters()).device
+    tables = sched.on(device)
+
+    def run(cond, lengths, noise, generator=None, step_noise=None, warmup=False):
+        lengths = torch.clamp(lengths, max=T)
+        xf_proj, xf_out = model.encode_text(cond)
+        text_kv = model.text_kv(xf_out)
+
+        def denoiser(x, t):
+            return model.denoise(x, t, lengths, xf_proj, text_kv=text_kv)
+
+        return _sampling_loop(sched, tables, sampler, ts, ddim_steps, denoiser, noise, None,
+                              generator, step_noise, warmup)
+
+    return _sampling_call(run, device, lambda cond: (cond.shape[0], T, dim_pose), sampler,
+                          graph)
+
+
+def _sampling_loop(sched, tables, sampler: str, ts, ddim_steps: int, denoiser, noise,
+                   aux=None, generator=None, step_noise=None, warmup: bool = False):
+    """The step loop of one sampling call of ``denoiser(x, t[, aux_i])``
+    from x_T = ``noise``; with ``warmup``, only its first denoiser call."""
+    if warmup:
+        t0 = sched.num_timesteps - 1 if sampler == "ddpm" else int(ts[0])
+        t = torch.full((noise.shape[0],), t0, dtype=torch.int64, device=noise.device)
+        return denoiser(noise, t) if aux is None else denoiser(noise, t, aux[0])
+    if sampler == "ddpm":
+        return g.p_sample_loop(sched, denoiser, noise, generator=generator,
+                               step_noise=step_noise, tables=tables)
+    if sampler == "dpm":
+        return dpmpp_2m_sample_loop(sched, denoiser, noise, num_steps=ddim_steps,
+                                    model_aux=aux, tables=tables)
+    return g.ddim_sample_loop(sched, denoiser, noise, num_steps=ddim_steps, model_aux=aux,
+                              tables=tables)
+
+
+def _sampling_call(run: Callable, device, shape_of: Callable, sampler: str,
+                   graph: bool) -> Callable:
+    """``sample(cond, lengths, noise=None, generator=None, step_noise=None)``
+    around ``run(cond, lengths, noise, generator=None, step_noise=None,
+    warmup=False)`` on ``device``: x_T of ``shape_of(cond)`` from
+    ``generator`` unless given, and on the card with ``graph`` one CUDA
+    graph per (cond shape, cond dtype) (:func:`make_sampler`'s doc)."""
     graphs: dict = {}
     graphed = graph and device.type == "cuda"
     if graphed:  # what every graph of this sampler shares; DDPM's draws come from rng
@@ -693,7 +795,7 @@ def make_sampler(model: InteractionModel, sched: g.DiffusionSchedule, T: int,
     @torch.no_grad()
     def sample(cond, lengths, noise=None, generator=None, step_noise=None):
         cond, lengths = _to_device(cond, device), _to_device(lengths, device)
-        shape = (cond.shape[0], 2, T, dim_pose)
+        shape = shape_of(cond)
         if noise is None:
             if generator is None:
                 raise ValueError("sample needs the initial noise or a torch.Generator")

@@ -11,7 +11,13 @@ modules: flax Dense ``kernel`` (in, out) becomes Linear ``weight``
 ``clip.blocks.{i}``. A leaf left over or a parameter left unset is an
 error. An ``rms_norm`` model's RMSNorm leaves carry a ``scale`` and no
 ``bias`` (the efficient blocks' ``norm`` and every ``proj_out/norm``; the
-text cross-attention's ``text_norm`` stays a LayerNorm).
+text cross-attention's ``text_norm`` stays a LayerNorm). A
+``--no_cross_attn`` model's layers have no ``int_ca_block``, and a
+``--single_transformer`` model's layers hold ``sa_block``, ``ca_block`` and
+``ffn`` only. The single-person ``SingleMotionModel`` tree
+(:class:`~hig_tpu_torch.models.interaction_model.SingleModelConfig`) is the
+CLIP tower and suffix under ``text`` and a ``denoiser`` of those layers
+without ``joint_embed2`` and ``out2``.
 
 :func:`cast_floating` is the JAX sampler's ``cast_floating``
 (``hig_tpu/train/trainer.py:409-416``): it casts every floating parameter
@@ -36,7 +42,7 @@ import torch
 from torch import nn
 
 from hig_tpu_torch.models.eval_models import EvalModelConfig
-from hig_tpu_torch.models.interaction_model import ModelConfig
+from hig_tpu_torch.models.interaction_model import ModelConfig, SingleModelConfig
 
 _LIST_NAMES = (
     (re.compile(r"layer_(\d+)"), "layers.{}"),
@@ -150,10 +156,12 @@ def _eval_model_shapes(cfg: EvalModelConfig) -> dict:
 
 def flax_param_shapes(cfg: ModelConfig | EvalModelConfig) -> dict:
     """The JAX parameter tree of ``cfg`` as shapes: the ``InteractionModel``
-    of a :class:`ModelConfig`, or the evaluator model of an
+    of a :class:`ModelConfig`, the ``SingleMotionModel`` of a
+    :class:`SingleModelConfig`, or the evaluator model of an
     :class:`EvalModelConfig`."""
     if isinstance(cfg, EvalModelConfig):
         return _eval_model_shapes(cfg)
+    single = isinstance(cfg, SingleModelConfig)
     D, Dt, E = cfg.latent_dim, cfg.text_latent_dim, cfg.time_embed_dim
     if cfg.cap_id:
         text = {"cap_embedding": (cfg.num_captions, Dt), "text_proj": _dense(Dt, E)}
@@ -172,21 +180,25 @@ def flax_param_shapes(cfg: ModelConfig | EvalModelConfig) -> dict:
     den = {
         "sequence_embedding": (cfg.num_frames, D),
         "joint_embed": _dense(cfg.input_feats, D),
-        "joint_embed2": _dense(4, D),
         "time_embed": {"fc1": _dense(D, E), "fc2": _dense(E, E)},
         "out": _dense(D, cfg.input_feats),
-        "out2": _dense(D, cfg.input_feats),
     }
+    if not single:
+        den.update(joint_embed2=_dense(4, D), out2=_dense(D, cfg.input_feats))
+    interaction = cfg.interaction and not (cfg.single_transformer or single)
     for i in range(cfg.num_layers):
-        den[f"layer_{i}"] = {
+        layer = {
             "sa_block": attn(D),
             "ca_block": {**attn(Dt), "text_norm": _ln(Dt)},
-            # the quadratic interaction block normalizes the partner with
-            # its own text_norm; the efficient one shares ``norm``
-            "int_ca_block": attn(D) if cfg.efficient else {**attn(D), "text_norm": _ln(D)},
             "ffn": {"linear1": _dense(D, cfg.ff_size), "linear2": _dense(cfg.ff_size, D),
                     "proj_out": styl()},
         }
+        if interaction:
+            # the quadratic interaction block normalizes the partner with
+            # its own text_norm; the efficient one shares ``norm``
+            layer["int_ca_block"] = attn(D) if cfg.efficient else {**attn(D),
+                                                                   "text_norm": _ln(D)}
+        den[f"layer_{i}"] = layer
     params = {"text": text, "denoiser": den}
     if cfg.cond_drop_prob > 0.0:
         params.update(null_xf_proj=(E,), null_xf_token=(Dt,))

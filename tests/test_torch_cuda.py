@@ -21,18 +21,21 @@ bfloat16 forms (B1-bf16, B2-bf16, B3-bf16, B4-bf16) against their bfloat16
 twins at the serving shape (B1 also at T = 1, 17 and 196 and at an
 evaluation chunk's shape, where B1's planted controls must fail too; B4 at
 T = 196, two of the Pallas kernel's key blocks, self, partner and causal,
-and with 91 queries over 77 keys; B2 self and partner at T = 196 and at
-T = 320, the most its kernel takes, where the twin that rounds the core as
-B1-bf16 does must fail; B3 with 91 or 196 queries over 77 keys and with
-T = 1, 17, 91, 196 and 320 queries and keys, where the twin without each of
-its rounding points must fail but at T = 1), with cuBLAS's
+and with 91 queries over 77 keys; B2 self and partner at T = 1, 129
+(the edges of its 128-row rounds), 196, 320, 321, 392 and 512, and over a
+merged two-actor timeline of 392 rows (the serving and evaluation chunk's
+pairs), where the twin that rounds the core as B1-bf16 does must fail
+but at T = 1; B3 with 91 or 196 queries over 77 keys and with T = 1, 17,
+91, 196 and 320 queries and keys, where the twin without each of its
+rounding points must fail but at T = 1), with cuBLAS's
 reduced-precision bf16 reductions off, under
 ``chip_smoke.py``'s gates: max |kernel − twin| within 2 bfloat16 ulps of
 the twin's largest magnitude, and rms(kernel − twin) within 0.25 of
 rms(twin − the float32 twin on the same rounded inputs) or, where larger,
 1.5 × the twin's distance from the same twin on the CPU (the float32 order
 of sums alone; B1's cancelling KᵀV sum sits there); each form counts its
-own launches; B1-bf16, B2-bf16 and B3-bf16 refuse T = 321; a bfloat16
+own launches; B1-bf16 and B3-bf16 refuse T = 321, B2-bf16 takes it and T
+= 1000; a bfloat16
 tensor beside float32 operands raises, but for B2 on bfloat16 activations
 with float32 weights (B2-bf16a, a bfloat16 model's labeling on master
 weights), held to the same gates against its twin at the serving, labeling
@@ -60,7 +63,9 @@ layers, 4 pairs, T = 40, a 100-step schedule): the capture and a replay
 equal the eager loop (``graph=False``) bit for bit, with the generator in
 the same state after each call and the eager call's launch counts credited
 to a replay, for DDIM through B1 in float32 and bfloat16, guided DDIM, DPM
-through B2, DDIM through B4 and DDPM over two calls on one generator; a
+through B2, DDIM through B4, DDPM over two calls on one generator, and the
+ablations (``--no_cross_attn`` through B1, ``--single_transformer``
+through B2 and B2-bf16, and guided DDPM); a
 second shape captures a second graph; the graphed DDPM sampler refuses a
 callable ``step_noise`` (naming ``graph=False``) and a call without a
 generator; an eager sampler on the plain route launches no kernel.
@@ -74,9 +79,11 @@ and the loss-aware history bit for bit (two eager steps agree bit for bit
 on every path here, so the graphed one must), each replay crediting the
 eager step's launch counts, for float32 PIT (B2), ``--no_eff`` (B4),
 caption ids, CFG with the loss-aware sampler (supervised), bf16 PIT
-(B3-bf16 and the ordered sum), bf16 ``--no_eff`` (B4-bf16), and
-``grad_accum`` 2 with the EMA; a second batch shape captures a second
-graph; a rollback mid-run (``restore_state`` in place) keeps the one graph
+(B3-bf16 and the ordered sum), bf16 ``--no_eff`` (B4-bf16),
+``grad_accum`` 2 with the EMA, PIT ``--no_cross_attn`` (B2), supervised
+``--single_transformer`` (B2) and bf16 PIT ``--single_transformer``
+(B3-bf16), and the single-person model's step and sampler; a second batch
+shape captures a second graph; a rollback mid-run (``restore_state`` in place) keeps the one graph
 on the same tensors and equals the eager run; the graphed step refuses a
 call without a generator and another TrainState.
 """
@@ -334,6 +341,18 @@ BF16_CASES = {
     "b2_self_t196": ("b2", "self", 196, N_PAIRS),
     "b2_self_t320": ("b2", "self", 320, N_PAIRS),
     "b2_partner_t320": ("b2", "partner", 320, N_PAIRS),
+    # B2-bf16 streams its keys, so it takes any T: a --single_transformer
+    # model's merged timeline (two actors' masks end to end) at the
+    # evaluation length is 392 rows
+    "b2_self_t321": ("b2", "self", 321, N_PAIRS),
+    "b2_self_t392": ("b2", "self", 392, N_PAIRS),
+    "b2_partner_t392": ("b2", "partner", 392, N_PAIRS),
+    "b2_merged_t392": ("b2", "merged", 196, N_PAIRS),
+    "b2_merged_eval": ("b2", "merged", EVAL_T, EVAL_PAIRS),
+    "b2_self_t512": ("b2", "self", 512, N_PAIRS),
+    # the edges of its 128-row rounds
+    "b2_self_t1": ("b2", "self", 1, N_PAIRS),
+    "b2_self_t129": ("b2", "self", 129, N_PAIRS),
     "b3_self": ("b3", "self", T, N_PAIRS),
     "b3_tq91_tk77": ("b3", "tq_tk77", T, N_PAIRS),
     "b3_tq196_tk77": ("b3", "tq_tk77", 196, N_PAIRS),
@@ -358,8 +377,10 @@ def test_bf16_forms_match_their_twins(cuda_bf16, case):
         fn, plain, counter = fused_projected_attention, fused_projected_attention_plain, \
             fused_projected_attention
         xn = _bf16(torch.nn.functional.layer_norm(x, (D,), w.ln_g, w.ln_b, 1e-6))
-        kv, kmask = (xn, mask) if variant == "self" else (xn.flip(1).contiguous(),
-                                                          mask.flip(1).contiguous())
+        if variant == "merged":  # (pairs, 2T): both actors on one timeline
+            xn, mask = xn.reshape(pairs, 2 * t, D), mask.reshape(pairs, 2 * t)
+        kv, kmask = (xn, mask) if variant != "partner" else (xn.flip(1).contiguous(),
+                                                             mask.flip(1).contiguous())
         args = (xn, kv, wb.wq, wb.bq, wb.wk, wb.bk, wb.wv, wb.bv, H, kmask)
     elif form == "b3":
         fn, plain, counter = fused_efficient_attention, fused_efficient_attention_plain, \
@@ -409,8 +430,9 @@ def test_bf16_forms_match_their_twins(cuda_bf16, case):
             ok, readings = bf16_close(plain(*args, unrounded=(left_out,)), twin, twin32,
                                       twin_cpu)
             assert not ok, (left_out, readings)
-    if form == "b2":
+    if form == "b2" and t > 1:
         # the twin with B1-bf16's core roundings: B2's core must be float32
+        # (at T = 1 the state is the one v row, whose rounding is y's)
         ok, readings = bf16_close(plain(*args, rounded=CORE_ROUNDINGS), twin, twin32, twin_cpu)
         assert not ok, readings
 
@@ -423,13 +445,23 @@ def test_bf16_block_refuses_long_sequences(cuda_bf16):
                               BlockWeights(*[_bf16(a) for a in w]), H)
 
 
-def test_bf16_projected_refuses_long_sequences(cuda_bf16):
-    """B2-bf16 keeps one sequence's keys in shared memory: T up to 320."""
-    w, x, mask, _, _ = _inputs(cuda_bf16, 321, 1)
-    wb = BlockWeights(*[_bf16(a) for a in w])
-    xb = _bf16(x)
-    with pytest.raises(ValueError, match="T up to 320"):
-        fused_projected_attention(xb, xb, wb.wq, wb.bq, wb.wk, wb.bk, wb.wv, wb.bv, H, mask)
+def test_bf16_projected_takes_long_sequences(cuda_bf16):
+    """B2-bf16 streams its keys: it takes T = 321 and 1000 rows (past any
+    shared memory) and counts each launch; B2-bf16a, which holds one
+    sequence's keys whole, refuses T = 321."""
+    for t in (321, 1000):
+        w, x, mask, _, _ = _inputs(cuda_bf16, t, 1)
+        wb = BlockWeights(*[_bf16(a) for a in w])
+        xb = _bf16(x)
+        before = fused_projected_attention.launches_bf16
+        got = fused_projected_attention(xb, xb, wb.wq, wb.bq, wb.wk, wb.bk, wb.wv, wb.bv, H,
+                                        mask)
+        torch.cuda.synchronize()
+        assert fused_projected_attention.launches_bf16 == before + 1
+        assert got.shape == xb.shape and torch.isfinite(got.float()).all()
+    with torch.no_grad(), pytest.raises(ValueError, match="T up to 320"):
+        fused_projected_attention(xb[..., :321, :].contiguous(), xb[..., :321, :].contiguous(),
+                                  w.wq, w.bq, w.wk, w.bk, w.wv, w.bv, H, mask[..., :321])
 
 
 def test_bf16_efficient_refuses_long_sequences(cuda_bf16):
@@ -913,6 +945,12 @@ GRAPH_CASES = {
     "dpm_projected": (dict(), "dpm", 10, 1.0),
     "ddim_no_eff": (dict(efficient=False), "ddim", 10, 1.0),
     "ddpm_fused": (dict(fused_blocks=True), "ddpm", 0, 1.0),
+    "ddim_no_cross_attn_fused": (dict(fused_blocks=True, interaction=False), "ddim", 10, 1.0),
+    "ddim_single_transformer": (dict(single_transformer=True), "ddim", 10, 1.0),
+    "ddim_single_transformer_bf16": (dict(single_transformer=True, compute_dtype="bfloat16"),
+                                     "ddim", 10, 1.0),
+    "ddpm_single_transformer_guided": (dict(single_transformer=True, cond_drop_prob=0.1),
+                                       "ddpm", 0, 2.5),
 }
 
 
@@ -1012,6 +1050,11 @@ TRAIN_GRAPH_CASES = {
     "pit_bf16_b3": (dict(compute_dtype="bfloat16"), True),
     "pit_bf16_no_eff_b4": (dict(compute_dtype="bfloat16", no_eff=True), True),
     "pit_grad_accum_2_ema_b2": (dict(grad_accum=2, ema_decay=0.9), True),
+    "pit_no_cross_attn_b2": (dict(no_cross_attn=True), True),
+    "supervised_single_transformer_b2": (dict(single_transformer=True,
+                                              label_path="labels.json"), False),
+    "pit_single_transformer_bf16_b3": (dict(single_transformer=True,
+                                            compute_dtype="bfloat16"), True),
 }
 
 
@@ -1207,3 +1250,57 @@ def test_train_cli_profile_traces_the_replayed_steps(cuda, tmp_path):
     assert sum("hig::linear_attention_core" in k for k in kernels) == 3 * 2 * 2  # steps × layers × blocks
     with open(os.path.join(root, "step_times.jsonl")) as f:
         assert json.loads(f.readline())["steps"] == 8
+
+
+def test_graphed_single_person_step_and_sampler_equal_eager(cuda):
+    """The single-person model: TRAIN_GRAPH_STEPS steps of
+    make_single_train_step graphed against eager (and eager against eager),
+    bit for bit as above, then make_single_sampler's DDIM call graphed (the
+    capture and a replay) against its eager loop."""
+    from hig_tpu_torch.config import ExperimentConfig, add_dataset_paths, single_model_config
+    from hig_tpu_torch.data.vocab import CAPS
+    from hig_tpu_torch.diffusion import gaussian as g
+    from hig_tpu_torch.models.interaction_model import SingleMotionModel
+    from hig_tpu_torch.models.text_encoder import ClipTextConfig
+    from hig_tpu_torch.models.tokenizer import tokenize
+    from hig_tpu_torch.train import trainer as tt
+    from hig_tpu_torch.weights import load_flax_tree, random_flax_tree
+
+    cfg = add_dataset_paths(ExperimentConfig(**TRAIN_GRAPH_MODEL, dataset_name="t2m"))
+    mcfg = single_model_config(cfg, ClipTextConfig(width=64, heads=2, layers=1))
+    sched = g.make_schedule(g.linear_betas(1000))
+    gen = torch.Generator().manual_seed(0)
+    pairs = 2 * TRAIN_GRAPH_PAIRS
+    tokens = torch.from_numpy(tokenize(CAPS).astype(np.int64)[np.arange(pairs) * 5 % 43])
+    batch = {"motion": torch.randn((pairs, 61, 263), generator=gen).to(cuda),
+             "lengths": torch.tensor([61, 40, 25, 61, 12, 33, 50, 61], device=cuda),
+             "tokens": tokens.to(cuda)}
+
+    def make_state():
+        model = SingleMotionModel(mcfg)
+        load_flax_tree(model, random_flax_tree(mcfg, 0)["params"])
+        model.to(cuda).train()
+        return tt.TrainState(model=model, optimizer=tt.make_optimizer(cfg, model))
+
+    runs = []
+    for graph in (False, False, True):
+        state, step = make_state(), tt.make_single_train_step(sched, graph=graph)
+        rows, _ = _train_run(step, state, [batch] * TRAIN_GRAPH_STEPS, None)
+        runs.append((rows, {n: t.clone() for n, t in _train_state_tensors(state, None).items()}))
+        assert len(step.graphs) == (1 if graph else 0)
+    _assert_runs_equal(runs[1], runs[0])
+    _assert_runs_equal(runs[2], runs[0])
+
+    model = state.model.eval()
+    graphed, eager = (tt.make_single_sampler(model, sched, T=61, dim_pose=263, sampler="ddim",
+                                             ddim_steps=10, graph=graph)
+                      for graph in (True, False))
+    noise = torch.randn((pairs, 61, 263), device=cuda)
+    for _ in range(2):
+        got, got_counts = _launches(lambda: graphed(batch["tokens"], batch["lengths"],
+                                                    noise=noise))
+        want, want_counts = _launches(lambda: eager(batch["tokens"], batch["lengths"],
+                                                    noise=noise))
+        assert torch.equal(got, want) and torch.isfinite(got).all()
+    assert got_counts == want_counts and sum(want_counts.values()) > 0
+    assert len(graphed.graphs) == 1

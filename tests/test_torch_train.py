@@ -482,8 +482,7 @@ def test_epoch_batches_match_jax_bitwise(synth_data, tmp_path, variant):
 
 # --- config ----------------------------------------------------------------------
 
-REFUSED = {"pretrained": True, "no_cross_attn": True,
-           "single_transformer": True, "use_native_loader": True, "fsdp": True, "tp": True,
+REFUSED = {"pretrained": True, "use_native_loader": True, "fsdp": True, "tp": True,
            "pp_micro": 2}
 
 

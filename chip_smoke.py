@@ -213,8 +213,32 @@ Phases, each printing one JSON line (or several):
      for bit (8 B2 launches a step), then one ``make_single_sampler``
      DDIM-50 call of 8 captions at T = 196, graphed against eager bit for
      bit and against the plain route.
+ 13. options (after phase 12, before the profile): the single-chip options
+     of a JAX run at full width. (a) The causal efficient model (seeded
+     weights, --blocks fused, which a causal block ignores: it takes the
+     causal core in plain PyTorch, as JAX's causal blocks take their einsum
+     route) serving 8 requests, DDIM-50, in float32 and bfloat16, graphed
+     against the eager loop as in phase 5 (2 replays, 1 eager call), no
+     launch of any kernel; one denoiser call in float32 against the same in
+     float64 (DENOISER_TOL), in bfloat16 cut to its first layer against its
+     CPU twin within BF16_ROUTE_RMS of the bfloat16 effect; the profile
+     adds one call of each. (b) ``python -m hig_tpu_torch.train``'s main,
+     PIT --causal in float32 and bfloat16, 3 steps each, graphed and eager
+     bit for bit (no kernel launch; the ordered bfloat16 sum in bfloat16),
+     with step times, peak memory and the graph's pool. (c) One epoch of
+     phase 6's clips (4 passes, 6 batches) through the Python and the
+     native loader, batches/s of each; a native batch from 1 and 8 threads
+     equal bit for bit; PIT --use_native_loader --window_size 60 (T = 61,
+     B2, 3 steps) graphed and eager bit for bit. (d) A full-width state
+     dict with the reference's key names (CLIP ViT-B/32 included, seeded)
+     loaded by ``train --pretrained``: every converted leaf on the card
+     equal to the dict's. (e) ``python -m hig_tpu_torch.add_cfg_branch`` on
+     phase 6's supervised checkpoint (trained without caption dropout):
+     unguided DDIM-50 serving of the graft equal to the donor's bit for
+     bit (B1), then ``train --is_continue --cond_drop_prob 0.1`` from the
+     graft for one step (B2).
 Then the kernel table (the bfloat16 forms' rows after the float32 ones, and
-phase 12's launches added), the nvidia-smi line, and as the last line
+phase 12's and 13's launches added), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero without
 that line. Imports nothing of JAX or of the JAX package.
 """
@@ -3413,6 +3437,412 @@ def phase_ablations(device, failures, smi: str, data: str, tmp: str) -> tuple[di
     return launches, kernel
 
 
+# Phase 13: the single-chip options. The causal efficient model runs no
+# kernel (JAX's causal blocks take their einsum route), so its runs launch
+# nothing but the ordered bfloat16 sum of a bfloat16 step's softmax
+# backwards.
+CAUSAL_SERVE_RUNS = {"f32": "float32", "bf16": "bfloat16"}
+# step run → (ExperimentConfig fields, the form its blocks launch): PIT at
+# batch 32, OPTION_STEPS steps graphed and eagerly from one state
+OPTION_STEP_RUNS = {
+    "pit_causal": (dict(causal=True), None),
+    "pit_causal_bf16": (dict(causal=True, compute_dtype="bfloat16"), None),
+    "pit_native_w60": (dict(use_native_loader=True, window_size=60), "projected_attention"),
+}
+OPTION_STEPS = 3
+NATIVE_WINDOW = 60
+LOADER_TIMES = 4  # the loader timing's epoch: 48 clips, 4 passes, 6 batches of 32
+# The reference's CLIP text tower (ViT-B/32) and learnable text stack, as
+# its state dict names them
+REF_CLIP = dict(width=512, layers=12, vocab=49408, context=77)
+
+
+def model_from(cfg, weights: dict, device):
+    """An InteractionModel of ``cfg`` on ``device`` holding copies of
+    ``weights`` (a state dict), built on the meta device: no init of its
+    own to pay for at full width."""
+    from hig_tpu_torch.models.interaction_model import InteractionModel
+
+    with torch.device("meta"):
+        model = InteractionModel(cfg)
+    model.load_state_dict({k: v.to(device, copy=True) for k, v in weights.items()},
+                          strict=True, assign=True)
+    return model
+
+
+def causal_denoiser_check(model, device, failures, label: str) -> dict:
+    """One full-width denoiser call of the causal model on 8 pairs: float32
+    against the same call in float64 on the card (DENOISER_TOL of the
+    largest magnitude); bfloat16 cut to its first layer against the same
+    cut on the CPU (the XLA-order twin the CPU tests hold to JAX), within
+    BF16_ROUTE_RMS of the bfloat16 effect (that twin against the float32
+    cut on the same weights)."""
+    gen = torch.Generator().manual_seed(2)
+    cfg = model.cfg
+    x = torch.randn((N_PAIRS, 2, T, cfg.input_feats), generator=gen)
+    t = torch.full((N_PAIRS,), 500)
+    lengths = torch.tensor(LENGTHS) + 1
+    xf_proj = torch.randn((N_PAIRS, 2, cfg.time_embed_dim), generator=gen)
+    xf_out = torch.randn((N_PAIRS, 2, 77, cfg.text_latent_dim), generator=gen)
+
+    def run(m, dev, dt):
+        # the motion input is float32 until the first Linear, but in float64
+        with torch.no_grad():
+            x_dt = torch.float64 if dt == torch.float64 else torch.float32
+            return m.denoise(x.to(dev, x_dt),
+                             t.to(dev), lengths.to(dev), xf_proj.to(dev, dt),
+                             xf_out.to(dev, dt)).double().cpu()
+
+    if cfg.dtype == torch.float32:
+        got = run(model, device, torch.float32)
+        model64 = copy.deepcopy(model).double()
+        want = run(model64, device, torch.float64)
+        del model64
+        rel = float((got - want).abs().max() / want.abs().max())
+        fail_if(failures, not rel <= DENOISER_TOL, f"{label}: rel err {rel} against float64")
+        return {"rel_err_vs_float64": rel, "tol": DENOISER_TOL}
+    cut = first_layer(model)
+    got = run(cut, device, torch.bfloat16)
+    twin = run(copy.deepcopy(cut).cpu(), "cpu", torch.bfloat16)
+    twin32 = run(f32_twin_model(cut).cpu(), "cpu", torch.float32)
+    return {"first_layer": route_gate(f"{label} first layer", got.numpy(), twin.numpy(),
+                                      twin32.numpy(), failures)}
+
+
+def causal_serve(device, failures, smi: str, weights: dict) -> dict:
+    """(a) 8 requests served, DDIM-50, by the causal efficient model (phase
+    4's seeded ``weights``, --blocks fused, which a causal block ignores) in float32 and
+    bfloat16, graphed against the eager loop as in phase 5 (2 replays, 1
+    eager call), no launch of any kernel, with ``causal_denoiser_check``.
+    Returns {"causal_serve_<run>": (call, wall s)} for the profile."""
+    from hig_tpu_torch import serve
+    from hig_tpu_torch.diffusion import gaussian as g
+    from hig_tpu_torch.models.interaction_model import ModelConfig
+    from hig_tpu_torch.train.trainer import make_sampler
+
+    sched = g.make_schedule(g.linear_betas(1000))
+    runs = {}
+    for run, dtype in CAUSAL_SERVE_RUNS.items():
+        t0 = time.perf_counter()
+        model = model_from(ModelConfig(causal=True, fused_blocks=True, compute_dtype=dtype),
+                           weights, device).eval()
+        mean, std = serve.load_stats(None, model.cfg.input_feats)
+        kw = dict(T=T, dim_pose=model.cfg.input_feats, ddim_steps=DDIM_STEPS)
+        sample_fn = make_sampler(model, sched, **kw)
+        call = serve_with(sample_fn, serve_requests(), mean, std)
+        eager = serve_with(make_sampler(model, sched, graph=False, **kw), serve_requests(),
+                           mean, std)
+        row, (features, joints), first, call_counts = graph_and_eager(
+            f"causal serve ({run})", call, eager, sample_fn.graphs, failures, replays=2,
+            eager_calls=1)
+        row.update(causal_denoiser_check(model, device, failures, f"causal serve ({run})"))
+        print(json.dumps({"phase": "options", "run": f"serve_causal_{run}", "nvidia_smi": smi,
+                          "requests": N_PAIRS, "T": T, "ddim_steps": DDIM_STEPS,
+                          "launches": call_counts[0], **row,
+                          "finite": bool(np.isfinite(features).all()
+                                         and np.isfinite(joints).all()),
+                          "joints_shape": list(joints.shape),
+                          "seconds": time.perf_counter() - t0}), flush=True)
+        fail_if(failures, any(n for c in [first, *call_counts] for n in c.values()),
+                f"causal serve ({run}) launched a kernel: {first}, {call_counts}")
+        fail_if(failures, tuple(joints.shape) != (N_PAIRS, 2, T - 1, 22, 3)
+                or not np.isfinite(joints).all(), f"causal serve ({run}) joints {joints.shape}")
+        runs[f"causal_serve_{run}"] = (seeded(call), row["wall_s_per_call"])
+        del model, sample_fn
+    return runs
+
+
+def loader_rates(data: str, tmp: str, failures) -> dict:
+    """(c) One epoch (LOADER_TIMES passes over phase 6's clips, batches of
+    32) through the Python loader and through the native one, batches/s of
+    each (the native one's first call builds its store), and one native
+    batch from 1 and from 8 threads, equal bit for bit."""
+    from hig_tpu_torch.config import ExperimentConfig, add_dataset_paths
+    from hig_tpu_torch.data.native_loader import store_from_dataset
+    from hig_tpu_torch.train.trainer import Trainer
+
+    out = {}
+    for native in (False, True):
+        cfg = add_dataset_paths(ExperimentConfig(
+            data_root=data, batch_size=TRAIN_PAIRS, times=LOADER_TIMES,
+            use_native_loader=native, window_size=NATIVE_WINDOW,
+            checkpoints_dir=os.path.join(tmp, "runs")))
+        dataset = trainer_dataset(cfg)
+        batches = Trainer(cfg, "cpu").epoch_batches_fn(dataset, {}, log=lambda _: None)
+        t0 = time.perf_counter()
+        shapes = [b["motion"].shape for b in batches(0)]
+        wall = time.perf_counter() - t0
+        out["native" if native else "python"] = {
+            "batches": len(shapes), "batches_per_s": len(shapes) / wall, "wall_s": wall,
+            "T": shapes[0][2]}
+    store, swaps = store_from_dataset(dataset)
+    idx = np.arange(TRAIN_PAIRS) % len(store)
+    one, eight = (store.sample_batch(idx, window=NATIVE_WINDOW, seed=0, epoch=0,
+                                     swap_flags=swaps[idx], num_threads=n) for n in (1, 8))
+    out["threads_1_equal_8"] = all(np.array_equal(a, b) for a, b in zip(one, eight))
+    fail_if(failures, not out["threads_1_equal_8"], "native loader: 1 and 8 threads differ")
+    fail_if(failures, out["python"]["T"] != T or out["native"]["T"] != NATIVE_WINDOW + 1
+            or out["python"]["batches"] != out["native"]["batches"],
+            f"loaders: {out}")
+    return out
+
+
+def option_steps(device, failures, smi: str, data: str, weights: dict) -> dict:
+    """(b) and (c): each OPTION_STEP_RUNS run's first OPTION_STEPS batches of
+    phase 6's clips (2 passes) from the trainer's own batch path (the
+    native loader at window 60: T = 61, its own capture) through
+    ``make_train_step``, graphed (the first step eager, the capture, then
+    replays) and eagerly from one seeded state (phase 4's ``weights``, which
+    are ``Trainer.init_state``'s of seed 0) with the trainer's per-step
+    generators: metrics, parameters and Adam's moments bit for bit, no
+    kernel launch on the causal route (the ordered bfloat16 sum in
+    bfloat16), 16 B2 launches a step on the native one; step ms, peak
+    memory and the graph's pool. Returns the launch counts."""
+    from hig_tpu_torch.config import ExperimentConfig, add_dataset_paths
+    from hig_tpu_torch.ops.bf16_sum import bf16_sum
+    from hig_tpu_torch.train import trainer as tr
+
+    launches: dict = {}
+    for run, (fields, own) in OPTION_STEP_RUNS.items():
+        t0 = time.perf_counter()
+        cfg = add_dataset_paths(ExperimentConfig(data_root=data, batch_size=TRAIN_PAIRS,
+                                                 times=2, **fields))
+        trainer = tr.Trainer(cfg, device)
+        states = []
+        for _ in range(2):
+            model = model_from(trainer.model_config, weights, device).train()
+            states.append(tr.TrainState(model=model, optimizer=tr.make_optimizer(cfg, model)))
+        tower = trainer.precompute_tower(states[0].model)
+        batches = trainer.epoch_batches_fn(trainer_dataset(cfg), {}, log=lambda _: None)(0)
+        batches = [trainer._device_batch(next(batches), tower) for _ in range(OPTION_STEPS)]
+        row = {"phase": "options", "run": run, "nvidia_smi": smi,
+               "pairs_per_step": TRAIN_PAIRS, "T": batches[0]["motion"].shape[2]}
+        finals = []
+        for graph, state in zip((True, False), states):
+            step = tr.make_train_step(trainer.sched, True, graph=graph)
+            reset_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            metrics, ms = [], []
+            for it, batch in enumerate(batches):
+                t_step = time.perf_counter()
+                out = step(state, batch, tr.step_generator(cfg.seed + 1, it, 0, device))
+                metrics.append(torch.stack([out[k] for k in tr.TRAIN_METRICS]).tolist())
+                ms.append(1e3 * (time.perf_counter() - t_step))
+            counts = {**bf16_counts(), BF16_SUM: bf16_sum.launches}
+            key = "graphed" if graph else "eager"
+            row[key] = {"step_ms": ms, "median_ms_after_first": statistics.median(ms[1:]),
+                        "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+                        "launches": counts, "losses": [m[0] for m in metrics]}
+            if graph:
+                (capture,) = [c.summary() for c in step.graphs.values()]
+                row[key]["capture"] = {k: capture[k] for k in ("warmup_s", "capture_s")} | {
+                    "pool_gb": capture["pool_bytes"] / 1e9}
+                row["pairs_per_s"] = TRAIN_PAIRS * 1e3 / row[key]["median_ms_after_first"]
+            finals.append((metrics, final_state_tensors(state), counts))
+            del step
+        (m_g, t_g, c_g), (m_e, t_e, c_e) = finals
+        differ = [n for n in t_e if not torch.equal(t_g[n], t_e[n])]
+        row["graph_equals_eager"] = not differ and m_g == m_e and c_g == c_e
+        row["seconds"] = time.perf_counter() - t0
+        print(json.dumps(row), flush=True)
+        fail_if(failures, not row["graph_equals_eager"],
+                f"steps ({run}): graphed differs from eager: {differ[:4]}, {m_g} vs {m_e}")
+        fail_if(failures, any(n != (LAUNCHES_PER_STEP * OPTION_STEPS if k == own else 0)
+                              for k, n in c_g.items() if k != BF16_SUM)
+                or (c_g[BF16_SUM] > 0) != (cfg.compute_dtype == "bfloat16"),
+                f"steps ({run}) launches {c_g}")
+        fail_if(failures, not np.isfinite(m_g).all(), f"steps ({run}) metrics {m_g}")
+        fail_if(failures, row["T"] != (NATIVE_WINDOW + 1 if cfg.use_native_loader else T),
+                f"steps ({run}): T {row['T']}")
+        launches = merge_counts(launches, c_g)
+        del trainer, states, model, batches, finals
+    return launches
+
+
+def reference_state_dict(cfg, seed: int = 0) -> dict:
+    """A seeded state dict with the reference's key names (the
+    MotionInteractionTransformer ``encoder`` entry of its latest.tar) at the
+    widths of ``cfg``, a ModelConfig of the efficient model with CLIP
+    ViT-B/32; Linear weights (out, in)."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def arr(*shape, scale=0.05):
+        return (scale * rng.standard_normal(shape, dtype=np.float32)).astype(np.float32)
+
+    def lin(name, i, o):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = arr(o, i, scale=i ** -0.5), arr(o)
+
+    def ln(name, d):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = 1 + arr(d), arr(d)
+
+    def encoder_layer(prefix, d, ff, attn="self_attn", names=("linear1", "linear2")):
+        sd[f"{prefix}.{attn}.in_proj_weight"] = arr(3 * d, d, scale=d ** -0.5)
+        sd[f"{prefix}.{attn}.in_proj_bias"] = arr(3 * d)
+        lin(f"{prefix}.{attn}.out_proj", d, d)
+        lin(f"{prefix}.{names[0]}", d, ff)
+        lin(f"{prefix}.{names[1]}", ff, d)
+
+    W, D, Dt, E = REF_CLIP["width"], cfg.latent_dim, cfg.text_latent_dim, cfg.time_embed_dim
+    sd["clip.token_embedding.weight"] = arr(REF_CLIP["vocab"], W, scale=0.02)
+    sd["clip.positional_embedding"] = arr(REF_CLIP["context"], W, scale=0.01)
+    ln("clip.ln_final", W)
+    for i in range(REF_CLIP["layers"]):
+        rb = f"clip.transformer.resblocks.{i}"
+        encoder_layer(rb, W, 4 * W, attn="attn", names=("mlp.c_fc", "mlp.c_proj"))
+        ln(f"{rb}.ln_1", W)
+        ln(f"{rb}.ln_2", W)
+    lin("text_pre_proj", W, Dt)
+    for i in range(cfg.num_text_layers):
+        t = f"textTransEncoder.layers.{i}"
+        encoder_layer(t, Dt, cfg.text_ff_size)
+        ln(f"{t}.norm1", Dt)
+        ln(f"{t}.norm2", Dt)
+    ln("text_ln", Dt)
+    lin("text_proj.0", Dt, E)
+    sd["sequence_embedding"] = arr(cfg.num_frames, D, scale=1.0)
+    lin("joint_embed", cfg.input_feats, D)
+    lin("joint_embed2", 4, D)
+    lin("time_embed.0", D, E)
+    lin("time_embed.2", E, E)
+    lin("out", D, cfg.input_feats)
+    lin("out2", D, cfg.input_feats)
+
+    def block(prefix, kv, text_norm=False):
+        ln(f"{prefix}.norm", D)
+        if text_norm:
+            ln(f"{prefix}.text_norm", kv)
+        lin(f"{prefix}.query", D, D)
+        lin(f"{prefix}.key", kv, D)
+        lin(f"{prefix}.value", kv, D)
+        lin(f"{prefix}.proj_out.emb_layers.1", E, 2 * D)
+        ln(f"{prefix}.proj_out.norm", D)
+        lin(f"{prefix}.proj_out.out_layers.2", D, D)
+
+    for i in range(cfg.num_layers):
+        blk = f"temporal_decoder_blocks.{i}"
+        block(f"{blk}.sa_block", D)
+        block(f"{blk}.ca_block", Dt, text_norm=True)
+        block(f"{blk}.int_ca_block", D)
+        lin(f"{blk}.ffn.linear1", D, cfg.ff_size)
+        lin(f"{blk}.ffn.linear2", cfg.ff_size, D)
+        lin(f"{blk}.ffn.proj_out.emb_layers.1", E, 2 * D)
+        ln(f"{blk}.ffn.proj_out.norm", D)
+        lin(f"{blk}.ffn.proj_out.out_layers.2", D, D)
+    return sd
+
+
+def pretrained_load(failures, data: str, tmp: str) -> dict:
+    """(d) A full-width reference state dict (``reference_state_dict``, saved
+    as the reference's {"encoder": ...} latest.tar) loaded by ``python -m
+    hig_tpu_torch.train --pretrained`` (no step: 0 epochs): every converted
+    leaf on the card equal to the dict's, every other parameter at its
+    seeded value."""
+    from hig_tpu_torch.config import ExperimentConfig, add_dataset_paths, model_config
+    from hig_tpu_torch.train import torch_port
+    from hig_tpu_torch.train.__main__ import main as train_main
+    from hig_tpu_torch.weights import torch_state_from_flax
+
+    t0 = time.perf_counter()
+    cfg = add_dataset_paths(ExperimentConfig(data_root=data))
+    sd = reference_state_dict(model_config(cfg))
+    path = os.path.join(tmp, "reference_latest.tar")
+    torch.save({"encoder": {k: torch.from_numpy(v) for k, v in sd.items()}}, path)
+    trainer, state = train_main(["--name", "pretrained", "--data_root", data,
+                                 "--checkpoints_dir", os.path.join(tmp, "runs"),
+                                 "--batch_size", str(TRAIN_PAIRS), "--num_epochs", "0",
+                                 "--pretrained", "--pretrained_path", path])
+    want = torch_state_from_flax(torch_port.convert_interaction_model(sd))
+    params = dict(state.model.named_parameters())
+    differ = [n for n, w in want.items() if not torch.equal(params[n].cpu(), w)]
+    row = {"phase": "options", "run": "pretrained", "reference_tensors": len(sd),
+           "reference_params": int(sum(v.size for v in sd.values())),
+           "converted_leaves": len(want), "model_leaves": len(params),
+           "on_device": str(params["denoiser.out.weight"].device), "differ": differ,
+           "seconds": time.perf_counter() - t0}
+    print(json.dumps(row), flush=True)
+    fail_if(failures, bool(differ) or len(want) != len(params) or state.step != 0,
+            f"pretrained: {row}")
+    del trainer, state, sd
+    os.remove(path)
+    return row
+
+
+def graft_run(device, failures, smi: str, data: str, tmp: str) -> dict:
+    """(e) ``python -m hig_tpu_torch.add_cfg_branch`` on phase 6's
+    supervised checkpoint (trained without caption dropout): 8 requests
+    served, DDIM-50 unguided, from the donor and from the graft equal bit
+    for bit (B1, a capturing call each); then ``train --is_continue
+    --cond_drop_prob 0.1`` from the graft for one step (16 B2 launches).
+    Returns the launch counts."""
+    from hig_tpu_torch import add_cfg_branch, serve
+    from hig_tpu_torch.config import load_opt_txt, model_config
+    from hig_tpu_torch.diffusion import gaussian as g
+    from hig_tpu_torch.train import checkpoint as ckpt
+    from hig_tpu_torch.train.__main__ import main as train_main
+    from hig_tpu_torch.train.trainer import eval_params, make_sampler
+
+    t0 = time.perf_counter()
+    donor = load_opt_txt(os.path.join(tmp, "runs", "ntu_mul", "supervised", "opt.txt"))
+    new = add_cfg_branch.main(["--opt_path", os.path.join(donor.save_root, "opt.txt"),
+                               "--name", "graft_cfg", "--cond_drop_prob", "0.1"])
+    sched = g.make_schedule(g.linear_betas(1000))
+    outs, launches = [], {}
+    for cfg in (donor, new):
+        payload = ckpt.load(os.path.join(cfg.model_dir, "latest.pt"))
+        model = model_from(dataclasses.replace(model_config(cfg), fused_blocks=True),
+                           eval_params(payload), device).eval()
+        mean, std = serve.load_stats(cfg.meta_dir, model.cfg.input_feats)
+        sample_fn = make_sampler(model, sched, T=T, dim_pose=model.cfg.input_feats,
+                                 ddim_steps=DDIM_STEPS)
+        reset_counts()
+        outs.append(serve_with(sample_fn, serve_requests(), mean, std)(
+            torch.Generator(device=device).manual_seed(0)))
+        launches = merge_counts(launches, bf16_counts())
+        del model, sample_fn
+    same = all(np.array_equal(a, b) for a, b in zip(*outs))
+    reset_counts()
+    # one more epoch after the graft's (the donor's), of one batch
+    _, state = train_main(["--name", "graft_cfg", "--data_root", data, "--checkpoints_dir",
+                           os.path.join(tmp, "runs"), "--batch_size", str(TRAIN_PAIRS),
+                           "--num_epochs", str(payload["epoch"] + 1), "--times", "1",
+                           "--limit_data_num", str(TRAIN_PAIRS), "--label_path",
+                           os.path.join(data, "labels.json"), "--cond_drop_prob", "0.1",
+                           "--is_continue", "--log_every", "1", "--seed", "0"])
+    counts = bf16_counts()
+    with open(os.path.join(new.save_root, "metrics.jsonl")) as f:
+        losses = [json.loads(line)["loss_mot_rec"] for line in f]
+    row = {"phase": "options", "run": "graft", "nvidia_smi": smi, "unguided_equal": same,
+           "serve_launches": launches, "finetune_steps": state.step, "finetune_losses": losses,
+           "finetune_launches": counts, "adam_count": state.optimizer.count,
+           "seconds": time.perf_counter() - t0}
+    print(json.dumps(row), flush=True)
+    fail_if(failures, not same, "graft: unguided sampling differs from the donor's")
+    fail_if(failures, launches.get("fused_block") != 2 * FIRST_CALL
+            or counts.get("projected_attention") != LAUNCHES_PER_STEP
+            or state.optimizer.count != 1 or len(losses) != 1
+            or not np.isfinite(losses).all(), f"graft: {row}")
+    return merge_counts(launches, counts)
+
+
+def phase_options(device, failures, smi: str, data: str, tmp: str,
+                  weights: dict) -> tuple[dict, dict]:
+    """Phase 13 (see the module doc); ``weights``: phase 4's seeded fused
+    model's state dict. Returns (the launch counts of its runs by form,
+    {run: (call, wall s)} of the causal serving calls, profiled last)."""
+    t_phase = time.perf_counter()
+    runs = causal_serve(device, failures, smi, weights)
+    launches = option_steps(device, failures, smi, data, weights)
+    print(json.dumps({"phase": "options", "run": "loaders",
+                      **loader_rates(data, tmp, failures)}), flush=True)
+    pretrained_load(failures, data, tmp)
+    launches = merge_counts(launches, graft_run(device, failures, smi, data, tmp))
+    print(json.dumps({"phase": "options", "launches": launches,
+                      "seconds": time.perf_counter() - t_phase}), flush=True)
+    return launches, runs
+
+
 def trainer_dataset(cfg):
     from hig_tpu_torch.data.dataset import PairDataset, load_training_stats
 
@@ -3478,10 +3908,14 @@ def main() -> int:
         lap("bf16_train")
         ablation_launches, b2_long = phase_ablations(device, failures, smi, data, tmp)
         lap("ablations")
+        option_launches, option_runs = phase_options(device, failures, smi, data, tmp,
+                                                     models["fused"].state_dict())
+        lap("options")
+        ablation_launches = merge_counts(ablation_launches, option_launches)
         bf16_rows["projected_attention_bf16"].update(b2_long)
         for form, row in bf16_rows.items():
             row["launches"] += bf16_train_launches.get(form, 0) + ablation_launches.get(form, 0)
-        runs.update({**train_runs, **pipeline_runs, **eval_runs, **bf16_runs})
+        runs.update({**train_runs, **pipeline_runs, **eval_runs, **bf16_runs, **option_runs})
         runs.update({run: (call, bf16_train_walls[run]) for run, call in bf16_train_runs.items()})
         phase_profile(runs, eager, device, failures)
         lap("profile")

@@ -2,34 +2,31 @@
 ``hig_tpu/config.py`` that the trainer and ``python -m hig_tpu_torch.train``
 read, with the same names and defaults).
 
-Options the port does not carry yet are still fields, so that setting one
-is refused with a clear message instead of being ignored: the
-pipeline/FSDP/tensor-parallel layouts, the native loader and the
-``--pretrained`` transfer. The paper's ablations train, label, serve and
-evaluate: ``no_cross_attn`` (no interaction block) and
-``single_transformer`` (both actors on one 2T-token timeline), as does the
-single-person model of ``python -m hig_tpu_torch.train_single`` on the
-``t2m`` and ``kit`` datasets (:func:`single_model_config`). ``dropout``
-is accepted and applies no dropout, as in JAX (:class:`ExperimentConfig`).
+Every option of a one-chip JAX run is carried. The pipeline, FSDP and
+tensor-parallel layouts (``pp_micro``, ``fsdp``, ``tp``), which need
+several devices, are still fields, so that setting one is refused with a
+clear message instead of being ignored. The paper's ablations train,
+label, serve and evaluate: ``no_cross_attn`` (no interaction block),
+``single_transformer`` (both actors on one 2T-token timeline) and
+``causal`` (either attention family), as does the single-person model of
+``python -m hig_tpu_torch.train_single`` on the ``t2m`` and ``kit``
+datasets (:func:`single_model_config`). ``dropout`` is accepted and
+applies no dropout, as in JAX (:class:`ExperimentConfig`).
 ``compute_dtype: bfloat16``, ``fast_ln`` and ``rms_norm`` train, label,
 serve and evaluate (the route rule of ``models/attention.py``).
+``pretrained`` with ``only_language`` / ``only_motion`` warm-starts from a
+reference checkpoint (``train/torch_port.py``); ``use_native_loader`` takes
+the native batch loader, the only reader of ``window_size`` (the Python
+loader always windows ``WINDOW_FRAMES`` = 90 frames, as JAX's does).
 Caption dropout (``cond_drop_prob``) belongs to the supervised stage and is
 refused without ``label_path``, as the JAX loss refuses it.
 
-:func:`load_opt_txt` also reads a JAX run's ``opt.txt``, which holds keys
-the port has no field for. They fall in two sets:
-
-- route keys pick a JAX route or layout whose numbers the port computes
-  the same way (``use_pallas``, ``fused_blocks``, ``sampler_unroll``, the
-  mesh, ``distributed``, ``is_train``, ``label_model``,
-  ``save_label_dir``, ``multi``, and ``window_size`` at 90, the window the
-  port's datasets take): read and skipped;
-- :data:`JAX_MODEL_KEYS` change the function the model computes
-  (``only_language``, ``only_motion``, and ``window_size`` off 90):
-  refused, naming the key, unless at the JAX default.
-
-Other unknown keys (the reference's own opt.txt extras) are skipped, as the
-JAX loader skips them.
+:func:`load_opt_txt` also reads a JAX run's ``opt.txt``. Its keys without
+a field here pick a JAX route or layout whose numbers the port computes
+the same way (``use_pallas``, ``fused_blocks``, ``sampler_unroll``, the
+mesh, ``distributed``, ``is_train``, ``label_model``, ``save_label_dir``,
+``multi``) or are the reference's own extras: they are skipped, as the JAX
+loader skips unknown keys.
 """
 
 from __future__ import annotations
@@ -53,9 +50,6 @@ CFG_UNDER_PIT = (
     "degenerating the role signal. Train CFG on the final text-conditioned model."
 )
 SAMPLERS = ("ddpm", "ddim", "dpm")
-# Keys of a JAX run's opt.txt without a field here (hig_tpu/config.py) that
-# change the model's function: refused unless at these JAX defaults.
-JAX_MODEL_KEYS = {"only_language": "False", "only_motion": "False", "window_size": "90"}
 
 
 @dataclasses.dataclass
@@ -69,7 +63,11 @@ class ExperimentConfig:
     # task flags
     cap_id: bool = False
     cap_same: bool = False
+    # --pretrained: start from a reference checkpoint; only_language /
+    # only_motion load its text stack / its motion denoiser alone
     pretrained: bool = False
+    only_language: bool = False
+    only_motion: bool = False
     label_path: Optional[str] = None
 
     # model
@@ -136,8 +134,12 @@ class ExperimentConfig:
     fast_ln: bool = False
     rms_norm: bool = False
 
-    # not ported yet: must stay at these values
+    # the native C++ batch loader, and its training window (frames): the
+    # Python loader always windows 90 frames, as JAX's does
     use_native_loader: bool = False
+    window_size: int = 90
+
+    # the multi-device layouts, not ported: must stay at these values
     fsdp: bool = False
     tp: bool = False
     pp_micro: int = 0
@@ -151,14 +153,11 @@ class ExperimentConfig:
     max_motion_length: int = 196
 
     def __post_init__(self):
-        refused = {
-            "pretrained": self.pretrained,
-            "use_native_loader": self.use_native_loader, "fsdp": self.fsdp, "tp": self.tp,
-            "pp_micro": self.pp_micro > 0,
-        }
+        refused = {"fsdp": self.fsdp, "tp": self.tp, "pp_micro": self.pp_micro > 0}
         bad = sorted(name for name, on in refused.items() if on)
         if bad:
-            raise ValueError(f"hig_tpu_torch does not port these training options yet: {bad}")
+            raise ValueError(f"hig_tpu_torch does not port these multi-device training "
+                             f"options: {bad}")
         if self.cond_drop_prob > 0.0 and self.label_path is None:
             raise ValueError(CFG_UNDER_PIT)
         if self.compute_dtype not in COMPUTE_DTYPES:
@@ -267,10 +266,8 @@ def save_opt_txt(cfg: ExperimentConfig, path: str) -> None:
 
 def load_opt_txt(path: str, **overrides) -> ExperimentConfig:
     """The configuration a run's ``opt.txt`` (the port's :func:`save_opt_txt`
-    or the JAX package's) holds, with ``overrides``. A JAX key that changes
-    the model's function and is off its default (:data:`JAX_MODEL_KEYS`)
-    raises, naming the key; the other keys without a field here (the JAX
-    route keys and the reference's extras) are skipped."""
+    or the JAX package's) holds, with ``overrides``; keys without a field
+    here (the JAX route keys and the reference's extras) are skipped."""
     fields = {f.name: f.type for f in dataclasses.fields(ExperimentConfig)}
     kwargs = {}
     with open(path) as f:
@@ -279,9 +276,6 @@ def load_opt_txt(path: str, **overrides) -> ExperimentConfig:
             if not line or line in (_HEADER, _FOOTER):
                 continue
             key, _, value = line.partition(": ")
-            if key in JAX_MODEL_KEYS and value != JAX_MODEL_KEYS[key]:
-                raise ValueError(f"{path}: '{key}: {value}' changes the model's function and "
-                                 f"is not ported (the port runs {key}: {JAX_MODEL_KEYS[key]})")
             ftype = fields.get(key)
             if ftype is None:
                 continue

@@ -14,6 +14,16 @@ so the (B, actors, T, D) layout flows through, and so does a
   plain LayerNorm and the plain gate. B1 has no backward, so a module in
   train mode takes B2, as the JAX blocks take their unfused route when not
   ``deterministic`` (a bfloat16 model B3-bf16: the route rule below).
+* Causal efficient attention (``causal``, counterpart of JAX's
+  ``causal_efficient_attention``): position i's time softmax over the keys
+  j ≤ i, by cumulative sums (:func:`causal_efficient_attention`). As in
+  JAX, whose blocks test ``not self.causal`` before the fused kernel and
+  before ``use_pallas``, a causal block always takes the einsum route
+  below (``merged_qkv``, the actor flip, the causal core) in either dtype
+  and either mode: it launches no kernel. The core keeps the running
+  (T, H, 64, 64) state; under autograd it saves its inputs only and
+  recomputes itself in the backward (:class:`CausalCore`), the same
+  arithmetic in the same order.
 * Quadratic (softmax) attention, the ``--no_eff`` model. The self-attention
   and interaction blocks always go through B4 (``ops/flash_attention.py``).
   The reference's quirks are kept: padded keys get a −1e6 bias (the JAX
@@ -68,6 +78,7 @@ from torch import nn
 
 from hig_tpu_torch.models.embeddings import (
     StylizationBlock,
+    constant,
     dense,
     gelu,
     linear,
@@ -82,10 +93,13 @@ from hig_tpu_torch.ops.flash_attention import (
 )
 from hig_tpu_torch.ops.fused_block import BlockWeights, fused_attention_block
 from hig_tpu_torch.ops.pallas_attention import (
+    MASK_BIAS,
     efficient_attention,
     fused_efficient_attention,
     fused_projected_attention,
     merged_qkv,
+    needs_grad,
+    recompute_grads,
     split_heads,
 )
 
@@ -98,6 +112,7 @@ __all__ = [
     "QuadraticInteractionAttention",
     "QuadraticSelfAttention",
     "causal_bias",
+    "causal_efficient_attention",
     "efficient_attention",
     "merged_qkv",
     "quadratic_attention",
@@ -109,6 +124,95 @@ def _attend(query, key, value, num_heads: int, key_mask=None):
     return fused_efficient_attention(query, key, value, num_heads, key_mask)
 
 
+XLA_SCAN_BLOCK = 16  # the block of XLA:CPU's rewrite of a long cumulative sum
+
+
+def _sequential_cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    parts = [x.select(dim, 0)]
+    for j in range(1, x.shape[dim]):
+        parts.append(parts[-1] + x.select(dim, j))
+    return torch.stack(parts, dim)
+
+
+def xla_cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``jnp.cumsum`` of a bfloat16 ``x`` over ``dim`` in XLA:CPU's order,
+    each add rounded to bfloat16. JAX lowers the sum to a ``reduce_window``,
+    which XLA rewrites past XLA_SCAN_BLOCK terms: the axis zero-padded to
+    blocks of 16, a running sum within each block, the running sum of the
+    block totals (the same rewrite again past 16 blocks) shifted by one
+    block, and each block's prefix added once."""
+    dim %= x.dim()
+    n = x.shape[dim]
+    if n <= XLA_SCAN_BLOCK:
+        return _sequential_cumsum(x, dim)
+    nb = -(-n // XLA_SCAN_BLOCK)
+    if nb * XLA_SCAN_BLOCK > n:
+        pad = list(x.shape)
+        pad[dim] = nb * XLA_SCAN_BLOCK - n
+        x = torch.cat([x, x.new_zeros(pad)], dim)
+    inner = _sequential_cumsum(x.reshape(*x.shape[:dim], nb, XLA_SCAN_BLOCK,
+                                         *x.shape[dim + 1:]), dim + 1)
+    running = xla_cumsum(inner.select(dim + 1, XLA_SCAN_BLOCK - 1), dim)
+    before = torch.cat([torch.zeros_like(running.narrow(dim, 0, 1)),
+                        running.narrow(dim, 0, nb - 1)], dim)
+    return (inner + before.unsqueeze(dim + 1)).reshape(x.shape).narrow(dim, 0, n)
+
+
+def _causal_core(query, key, value, num_heads: int, key_mask=None):
+    D, dt = query.shape[-1], query.dtype
+    q = split_heads(query, num_heads)
+    if key_mask is not None:
+        m = key_mask[..., None].to(dt)
+        key = key + (1.0 - m) * constant(MASK_BIAS, dt, key.device)
+        value = value * m
+    k = split_heads(key, num_heads)
+    v = split_heads(value, num_heads)
+    q = softmax(q, -1)
+    k = torch.exp(k - k.amax(dim=-3, keepdim=True).detach())
+    cumsum = xla_cumsum if reduced(dt) else torch.cumsum
+    S = cumsum(k[..., :, None] * v[..., None, :], -4)  # (..., n, h, d, l)
+    z = cumsum(k, -3)
+    A = S / torch.maximum(z[..., None], constant(1e-30, dt, z.device))
+    y = torch.einsum("...nhd,...nhdl->...nhl", q, A)
+    return y.reshape(*y.shape[:-2], D)
+
+
+class CausalCore(torch.autograd.Function):
+    """The causal core under autograd: the forward saves its inputs only,
+    and the backward recomputes the core and differentiates it, so the
+    running (..., T, H, 64, 64) state lives one block at a time."""
+
+    @staticmethod
+    def forward(ctx, query, key, value, key_mask, num_heads):
+        ctx.save_for_backward(query, key, value, key_mask)
+        ctx.num_heads = num_heads
+        return _causal_core(query, key, value, num_heads, key_mask)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        *operands, mask = ctx.saved_tensors
+
+        def plain(q, k, v):
+            return _causal_core(q, k, v, ctx.num_heads, mask)
+
+        return (*recompute_grads(plain, operands, ctx.needs_input_grad[:3], grad_out),
+                None, None)
+
+
+def causal_efficient_attention(query, key, value, num_heads: int, key_mask=None):
+    """Causal linear attention (JAX ``causal_efficient_attention``): query
+    (..., T, D), key/value (..., T, D), key_mask (..., T) 0/1.
+    y_i = softmax_feat(q_i) · Σ_{j≤i} exp(k_j) ⊗ v_j / Σ_{j≤i} exp(k_j),
+    with exp(k − max over time) (no gradient through the max), a −1e6 bias
+    on masked keys and masked values zeroed, the running state
+    S = cumsum(k ⊗ v) and z = cumsum(k), and S / max(z, 1e-30). Plain
+    PyTorch in the input dtype; bfloat16 rounds after every op as XLA does,
+    its cumulative sums in XLA:CPU's order (:func:`xla_cumsum`)."""
+    if needs_grad(query, key, value):
+        return CausalCore.apply(query, key, value, key_mask, num_heads)
+    return _causal_core(query, key, value, num_heads, key_mask)
+
+
 class _KernelBlock(nn.Module):
     """Parameters shared by the self-attention and interaction blocks:
     norm, query/key/value and the ``proj_out`` gate (flax names)."""
@@ -117,10 +221,11 @@ class _KernelBlock(nn.Module):
 
     def __init__(self, latent_dim: int, num_heads: int, emb_dim: int,
                  fused: bool = False, dtype: torch.dtype = torch.float32,
-                 fast_ln: bool = False, rms: bool = False):
+                 fast_ln: bool = False, rms: bool = False, causal: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.fused = fused
+        self.causal = causal
         self.norm = make_norm(latent_dim, dtype, fast_ln, rms)
         self.query = nn.Linear(latent_dim, latent_dim)
         self.key = nn.Linear(latent_dim, latent_dim)
@@ -148,11 +253,11 @@ class _KernelBlock(nn.Module):
         given. The route follows the module doc's rule."""
         scale, shift = adaln if adaln is not None else self.proj_out.scale_shift(emb)
         mask = src_mask.expand(x.shape[:-1])
-        if self.fused and not self.training:
+        if self.fused and not self.training and not self.causal:
             return fused_attention_block(x, mask, scale, shift, self.block_weights(x.dtype),
                                          self.num_heads, self.interaction)
         xn = self.norm(x)
-        if self.training and reduced(xn.dtype):
+        if self.causal or (self.training and reduced(xn.dtype)):
             y = self._einsum_route(xn, mask)
         else:
             kv_src, kv_mask = xn, mask
@@ -168,14 +273,17 @@ class _KernelBlock(nn.Module):
         return x + self.proj_out.from_scale_shift(y, scale, shift)
 
     def _einsum_route(self, xn, mask):
-        """JAX's ``use_pallas=False`` block in bfloat16: one merged q|k|v
-        product, k, v and the key mask flipped on the actor axis for the
-        interaction block, the core through B3-bf16 (contiguous copies, as
-        the kernel reads (..., T, D) rows at stride D)."""
+        """JAX's einsum route (``use_pallas=False``, or any causal block): one
+        merged q|k|v product, k, v and the key mask flipped on the actor axis
+        for the interaction block, then the causal core or, in bfloat16
+        training, the core through B3-bf16 (contiguous copies, as the kernel
+        reads (..., T, D) rows at stride D)."""
         q, k, v = merged_qkv(xn, self.query.weight, self.query.bias, self.key.weight,
                              self.key.bias, self.value.weight, self.value.bias)
         if self.interaction:
             k, v, mask = k.flip(-3), v.flip(-3), mask.flip(-2)
+        if self.causal:
+            return causal_efficient_attention(q, k, v, self.num_heads, key_mask=mask)
         return fused_efficient_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                          self.num_heads, key_mask=mask)
 

@@ -11,8 +11,8 @@ and FFN (:class:`SinglePersonDenoiserLayer`), conditioned on the mean of
 the two actors' embeddings and attending to both captions' tokens.
 :class:`MotionDenoiser` is the single-person model on ``(B, T, D)``. The attention
 blocks are the efficient (linear) family, or with ``efficient=False`` the
-quadratic (softmax) family of the reference's ``--no_eff`` mode, which may
-be ``causal``. ``dtype`` is the compute dtype (float32 or bfloat16);
+quadratic (softmax) family of the reference's ``--no_eff`` mode; either
+may be ``causal``. ``dtype`` is the compute dtype (float32 or bfloat16);
 ``fast_ln`` and ``rms_norm`` pick the efficient blocks' norms
 (``embeddings.make_norm``). The motion input stays float32 until the first
 Linear, and the output ε is in the compute dtype.
@@ -58,9 +58,6 @@ def check_block_options(efficient: bool, causal: bool, fused_blocks: bool,
         raise ValueError(RMS_NORM_ROUTES)
     if causal and single_transformer:
         raise ValueError(CAUSAL_SINGLE)
-    if efficient and causal:
-        raise ValueError("causal attention is ported for the quadratic (efficient=False) "
-                         "blocks only; causal efficient attention is not ported yet")
     if fused_blocks and not efficient:
         raise ValueError("fused_blocks fuses efficient-attention blocks; it cannot be "
                          "combined with efficient=False")
@@ -89,12 +86,12 @@ class InteractionDenoiserLayer(nn.Module):
         if efficient:
             norm = dict(dtype=dtype, fast_ln=fast_ln, rms=rms_norm)
             self.sa_block = EfficientSelfAttention(latent_dim, num_heads, emb_dim, fused_blocks,
-                                                   **norm)
+                                                   causal=causal, **norm)
             self.ca_block = EfficientCrossAttention(latent_dim, text_latent_dim, num_heads,
                                                     emb_dim, **norm)
             if interaction:
                 self.int_ca_block = EfficientInteractionAttention(
-                    latent_dim, num_heads, emb_dim, fused_blocks, **norm
+                    latent_dim, num_heads, emb_dim, fused_blocks, causal=causal, **norm
                 )
         else:
             # the quadratic blocks keep float32-statistics LayerNorms

@@ -18,7 +18,8 @@ guidance (:meth:`InteractionModel.null_conditioning`). ``dropout`` is
 accepted and applies no dropout, as every JAX path computes (the field's
 comment). The paper's ablations are ``interaction=False``
 (``--no_cross_attn``) and ``single_transformer`` (both actors on one
-timeline). Causal efficient attention is not ported yet. A bfloat16 model is
+timeline). A ``causal`` efficient model runs the causal core in plain
+PyTorch, as JAX runs it outside its kernels. A bfloat16 model is
 built with float32 parameters, which training and labeling keep (mixed
 precision: each module casts per op); ``weights.cast_floating`` casts them
 once for sampling, as the JAX sampler does (``make_sampler`` calls it).

@@ -18,7 +18,8 @@ model comes from --opt_path, a training run's opt.txt (its widths,
 --cap_id, --cond_drop_prob, --no_eff, --causal, --compute_dtype, --fast_ln,
 --rms_norm, --diffusion_steps, and
 its --sampler and --ddim_steps as the defaults of these options; --params
-and --stats then default to the run's model/latest.pt and meta/),
+and --stats then default to the run's model/<--which_epoch>.pt, by default
+model/latest.pt, and meta/),
 or from --model_config (a JSON object of ModelConfig fields, which may set
 compute_dtype "bfloat16", fast_ln and rms_norm), default the flagship. A
 bfloat16 model samples through the kernels' bfloat16 forms. A caption-id
@@ -31,8 +32,10 @@ the fused-block kernel, --blocks projected through the projected-attention
 kernel (the default of an rms_norm model, which has no fused block).
 --no_eff serves the quadratic (softmax-attention) model instead, whose
 self-attention and interaction blocks go through the flash-attention
-kernel; --causal makes its attention causal. --blocks has no effect with
---no_eff and is refused there. The paper's ablations (or a run's opt.txt
+kernel. --blocks has no effect with --no_eff and is refused there.
+--causal makes either model's attention causal; a causal efficient model's
+self-attention and interaction blocks take the causal core in plain
+PyTorch whatever --blocks says, as JAX's blocks take their einsum route. The paper's ablations (or a run's opt.txt
 with them): --no_cross_attn serves a model without the interaction block
 (--blocks fused: B1 runs the self-attention blocks only), and
 --single_transformer one that puts both actors on one 2T-token timeline,
@@ -170,6 +173,9 @@ def main(argv=None):
                         help="seed of random weights (instead of --params)")
     parser.add_argument("--opt_path", default=None,
                         help="a training run's opt.txt: the model to serve")
+    parser.add_argument("--which_epoch", default="latest",
+                        help="checkpoint under the --opt_path run's model/ (latest, "
+                             "ckpt_e004, ...)")
     parser.add_argument("--model_config", default=None,
                         help="JSON file of ModelConfig fields (default: flagship)")
     parser.add_argument("--guidance_scale", type=float, default=None,
@@ -179,8 +185,7 @@ def main(argv=None):
                         help="kernel of the efficient blocks (default fused)")
     parser.add_argument("--no_eff", action="store_true",
                         help="quadratic (softmax) attention blocks")
-    parser.add_argument("--causal", action="store_true",
-                        help="causal attention (with --no_eff)")
+    parser.add_argument("--causal", action="store_true", help="causal attention")
     parser.add_argument("--no_cross_attn", action="store_true",
                         help="no cross-actor interaction block")
     parser.add_argument("--single_transformer", action="store_true",
@@ -198,6 +203,10 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
 
+    if args.which_epoch != "latest" and (not args.opt_path or args.params
+                                         or args.random_init is not None):
+        parser.error("--which_epoch picks a checkpoint of the --opt_path run; --params and "
+                     "--random_init give the weights themselves")
     cfg_fields, guidance, steps = {}, 1.0, 1000
     sampler, ddim_steps = "ddim", 50
     if args.opt_path:
@@ -210,7 +219,7 @@ def main(argv=None):
         guidance, steps = run.guidance_scale, run.diffusion_steps
         sampler, ddim_steps = run.sampler, run.ddim_steps
         if args.params is None and args.random_init is None:
-            args.params = os.path.join(run.model_dir, "latest.pt")
+            args.params = os.path.join(run.model_dir, f"{args.which_epoch}.pt")
         args.stats = args.stats or run.meta_dir
     elif args.model_config:
         with open(args.model_config) as f:

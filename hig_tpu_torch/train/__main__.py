@@ -19,11 +19,20 @@ supervised model for classifier-free guidance.
     python -m hig_tpu_torch.train ... --compute_dtype bfloat16 [--fast_ln] [--rms_norm]
     python -m hig_tpu_torch.train ... --device cpu     # plain PyTorch, no kernels
     python -m hig_tpu_torch.train ... --profile        # trace of steps [5, 10), step latency
+    python -m hig_tpu_torch.train ... --causal         # causal attention (either family)
+    python -m hig_tpu_torch.train ... --use_native_loader [--window_size 60]  # C++ batches
+    python -m hig_tpu_torch.train ... --pretrained [--pretrained_path P] \
+        [--only_language | --only_motion]  # warm start from a reference checkpoint
 
 The data root holds the reference's layout: new_joint_vecs/*.npy,
 texts/*.txt, train_sub.txt, Mean.npy and Std.npy; with val_sub.txt there the
 validation loss is logged every --eval_every_e epochs. Weights start from
-seeded random values (--seed). Runs write opt.txt, metrics.jsonl,
+seeded random values (--seed), or with --pretrained from the reference's
+torch checkpoint (``train/torch_port.py``: its text stack and motion
+denoiser, or one of them; every other parameter and, as in JAX, the EMA
+keep their seeded values). --use_native_loader fills batches with the
+native C++ loader (built with g++ at first use), whose windows are
+--window_size frames; the Python loader always takes 90. Runs write opt.txt, metrics.jsonl,
 meta/{mean,std}.npy and model/{latest,ckpt_eNNN}.pt under
 <checkpoints_dir>/<dataset_name>/<name> (with --profile also profile/trace.json
 and step_times.jsonl); --is_continue resumes from
@@ -46,7 +55,23 @@ from hig_tpu_torch.config import (
 )
 from hig_tpu_torch.data.dataset import PairDataset, load_training_stats
 from hig_tpu_torch.train import checkpoint as ckpt
+from hig_tpu_torch.train import torch_port
 from hig_tpu_torch.train.trainer import Trainer
+
+DEFAULT_PRETRAINED = "checkpoints/t2m/t2m_motiondiffuse/model/latest.tar"
+
+
+def load_pretrained(trainer: Trainer, state, path: str) -> None:
+    """--pretrained (``tools/train.py:69-86``): the reference checkpoint's
+    subtree (``only_language`` / ``only_motion``) into the model's
+    parameters in place."""
+    cfg = trainer.cfg
+    converted = torch_port.convert_interaction_model(
+        torch_port.load_torch_state_dict(path), num_layers=cfg.num_layers,
+        num_text_layers=cfg.num_text_layers, clip_layers=trainer.model_config.clip.layers,
+        interaction=not cfg.no_cross_attn, cap_id=cfg.cap_id,
+        only_language=cfg.only_language, only_motion=cfg.only_motion)
+    torch_port.load_into(state.model, converted)
 
 
 def main(argv=None, graph: bool = True):
@@ -57,6 +82,9 @@ def main(argv=None, graph: bool = True):
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     add_config_args(parser)
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--pretrained_path", type=str, default=DEFAULT_PRETRAINED,
+                        help="reference torch checkpoint for --pretrained transfer "
+                             "(ref tools/train.py:48-50)")
     args = parser.parse_args(argv)
     try:
         cfg = config_from_args(args)
@@ -72,6 +100,9 @@ def main(argv=None, graph: bool = True):
     print(f"dataset: {dataset.real_len()} clips x times={cfg.times}")
     trainer = Trainer(cfg, device, graph=graph)
     state = trainer.init_state()
+    if cfg.pretrained:
+        load_pretrained(trainer, state, args.pretrained_path)
+        print(f"loaded pretrained weights from {args.pretrained_path}")
     start_epoch = 0
     if cfg.is_continue:
         state, start_epoch, it = ckpt.restore_state(pjoin(cfg.model_dir, "latest.pt"), state)

@@ -13,12 +13,16 @@ One ``torch.save`` file per checkpoint, ``<model_dir>/latest.pt`` and
               keeps one
 
 A file is written beside its target and renamed over it, so a crash while
-saving leaves the previous checkpoint whole.
+saving leaves the previous checkpoint whole. An epoch's ``ckpt_eNNN.pt``
+holds what ``latest.pt`` was just given: :func:`save_copy` links it to
+that file (a copy where the file system takes no hard link) instead of
+writing the same bytes twice.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 
 import torch
 
@@ -42,6 +46,20 @@ def save_state(path: str, state, epoch: int, total_it: int) -> None:
     tmp = f"{path}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
+
+
+def save_copy(src: str, dst: str) -> None:
+    """``dst`` holding the checkpoint ``src`` holds: a hard link where the
+    file system takes one, else a copy. A later save of ``src`` replaces
+    that file rather than writing into it, so ``dst`` keeps these bytes."""
+    tmp = f"{dst}.tmp"
+    if os.path.exists(tmp):
+        os.remove(tmp)
+    try:
+        os.link(src, tmp)
+    except OSError:
+        shutil.copyfile(src, tmp)
+    os.replace(tmp, dst)
 
 
 def load(path: str) -> dict:

@@ -11,7 +11,9 @@ with optax's defaults behind a global-norm clip of the trainable partition
 warmup+cosine schedule, gradient accumulation and an EMA of the
 parameters; the epoch loop with ``metrics.jsonl``, checkpoints, resume,
 rollback to ``latest`` on a non-finite loss, and the validation pass
-(``eval_every_e``). As in the JAX package, the PIT duplication is an
+(``eval_every_e``), over batches of the Python loader or, with
+``use_native_loader``, of the native C++ one (``data/native_loader.py``,
+``window_size`` frames). As in the JAX package, the PIT duplication is an
 explicit assignment axis (the noised motions repeated, the captions flipped
 on the actor axis) and the frozen CLIP tower runs once per run, over the 43
 captions, instead of in every step. The model trains in train mode, where
@@ -68,7 +70,8 @@ from hig_tpu_torch.config import (
     ExperimentConfig,
     model_config,
 )
-from hig_tpu_torch.data.dataset import PairDataset, epoch_batches
+from hig_tpu_torch.data.dataset import PairDataset, collate, epoch_batches
+from hig_tpu_torch.data.native_loader import store_from_dataset
 from hig_tpu_torch.data.vocab import CAPS
 from hig_tpu_torch.diffusion import gaussian as g
 from hig_tpu_torch.diffusion import timestep_samplers as tss
@@ -535,7 +538,9 @@ def make_train_step(sched: g.DiffusionSchedule, pit: bool, grad_accum: int = 1,
                 inputs[name] = x
         if loss_aware:
             inputs.update(ts_losses=ts_state.losses, ts_counts=ts_state.counts)
-        state.optimizer.prepare(state.step)
+        # Adam's own count (optax's): the step count, except after
+        # add_cfg_branch, whose fresh Adam restarts it while the step is kept
+        state.optimizer.prepare(state.optimizer.count)
         if graph and device.type == "cuda":
             out = replay(state, inputs, generator)
         else:
@@ -844,6 +849,7 @@ class Trainer:
         self.sched = g.make_schedule(g.linear_betas(cfg.diffusion_steps))
         self.pit = cfg.label_path is None
         self.step_seconds: list[float] = []  # host time of each step, metrics read back
+        self._native_store = None  # the native loader's clips, built per run
 
     def init_state(self) -> TrainState:
         """Seeded random weights (``random_flax_tree``, every leaf nonzero)
@@ -890,6 +896,52 @@ class Trainer:
             return None
         return tss.LossSecondMomentState.create(self.sched.num_timesteps, device=self.device)
 
+    def _native_epoch_batches(self, dataset: PairDataset, batch_size: int, epoch: int,
+                              seed: int, token_cache: dict | None = None):
+        """One epoch's batches from the native loader (``data/native_loader.py``,
+        as ``hig_tpu/train/trainer.py:744-778``): the order of (seed, epoch)
+        truncated to whole batches, each clip windowed to ``window_size`` + 1
+        rows, normalized and role-swapped natively, its captions those of
+        ``dataset.__getitem__(i, epoch=0)``. The store is built on the first
+        call of a run."""
+        if self._native_store is None:
+            self._native_store, self._native_swaps = store_from_dataset(dataset)
+            self._native_caps = [dataset.__getitem__(i, epoch=0)
+                                 for i in range(dataset.real_len())]
+        n = len(dataset)
+        order = np.arange(n)
+        np.random.default_rng((seed, epoch)).shuffle(order)
+        order = order[: (n // batch_size) * batch_size]
+        real = dataset.real_len()
+        for lo in range(0, len(order), batch_size):
+            idx = order[lo : lo + batch_size] % real
+            motion, lengths = self._native_store.sample_batch(
+                idx, window=self.cfg.window_size, seed=seed, epoch=epoch,
+                swap_flags=self._native_swaps[idx])
+            samples = []
+            for j, i in enumerate(idx):
+                sample = dict(self._native_caps[int(i)])
+                sample["motion"] = motion[j]
+                sample["length"] = int(lengths[j])
+                samples.append(sample)
+            yield collate(samples, token_cache)
+
+    def epoch_batches_fn(self, dataset: PairDataset, token_cache: dict, log=print):
+        """``epoch → batches`` of the run: the Python loader, or under
+        ``use_native_loader`` the native one, unless a clip has several
+        caption lines (JAX's rule: the native store keeps one caption pair
+        a clip)."""
+        cfg = self.cfg
+        if cfg.use_native_loader:
+            if all(len(c.texts) == 1 for c in dataset.clips):
+                self._native_store = None
+                log("using native C++ batch loader")
+                return lambda epoch: self._native_epoch_batches(
+                    dataset, cfg.batch_size, epoch, cfg.seed, token_cache)
+            log("--use_native_loader: a clip has several captions; using the Python loader")
+        return lambda epoch: epoch_batches(dataset, cfg.batch_size, epoch, seed=cfg.seed,
+                                           token_cache=token_cache)
+
     @torch.no_grad()
     def val_loss(self, val_dataset: PairDataset, state: TrainState, tower_feats,
                  epoch: int) -> float:
@@ -934,14 +986,14 @@ class Trainer:
         metrics_path = pjoin(cfg.save_root, "metrics.jsonl")
         latest = pjoin(cfg.model_dir, "latest.pt")
         token_cache: dict = {}
+        batches = self.epoch_batches_fn(dataset, token_cache, log)
         it, generation, retries_left = state.step, 0, MAX_FAILURE_RETRIES
         logs: dict[str, float] = {}
         start = time.time()
         # a `latest` that --is_continue restored is a rollback target too
         ckpt_exists = cfg.is_continue and os.path.exists(latest)
         for epoch in range(start_epoch, num_epochs):
-            for batch in epoch_batches(dataset, cfg.batch_size, epoch, seed=cfg.seed,
-                                       token_cache=token_cache):
+            for batch in batches(epoch):
                 generator = step_generator(cfg.seed + 1, it, generation, self.device)
                 if trace is not None and steps_run == 5 and not tracing:
                     trace.start()
@@ -998,7 +1050,7 @@ class Trainer:
             ckpt.save_state(latest, state, epoch + 1, it)
             ckpt_exists = True
             if epoch % cfg.save_every_e == 0:
-                ckpt.save_state(pjoin(cfg.model_dir, f"ckpt_e{epoch:03d}.pt"), state, epoch + 1, it)
+                ckpt.save_copy(latest, pjoin(cfg.model_dir, f"ckpt_e{epoch:03d}.pt"))
             if val_dataset is not None and cfg.eval_every_e > 0 \
                     and (epoch + 1) % cfg.eval_every_e == 0:
                 val = self.val_loss(val_dataset, state, tower_feats, epoch)

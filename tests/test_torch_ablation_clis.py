@@ -3,8 +3,8 @@ tiny widths: ``python -m hig_tpu_torch.train`` (PIT with caption ids, then
 the supervised stage), ``label`` (role discovery and pseudo-labels),
 ``serve`` (from the run's opt.txt, and from the CLI flags) and
 ``evaluate`` (DDIM-2 against evaluators trained once for the module), for
-``--no_cross_attn`` and ``--single_transformer`` in float32 and
-``--single_transformer`` in bfloat16.
+``--no_cross_attn`` and ``--single_transformer`` in float32,
+``--single_transformer`` in bfloat16, and the ``--causal`` efficient model.
 """
 
 import json
@@ -23,6 +23,7 @@ VARIANTS = {
     "no_cross_attn": ["--no_cross_attn"],
     "single_transformer": ["--single_transformer"],
     "single_transformer_bf16": ["--single_transformer", "--compute_dtype", "bfloat16"],
+    "causal": ["--causal"],
 }
 
 
@@ -76,11 +77,13 @@ def test_train_label_serve_evaluate(runs, variant, capsys):
               "--log_every", "1", "--limit_data_num", "8", "--result_path", str(tmp / "result")]
     _, pit = train_main(common + widths() + flags + ["--name", f"{variant}_pit", "--cap_id"])
     names = {n for n, _ in pit.model.named_parameters()}
-    assert pit.step == 2 and not any(".int_ca_block." in n for n in names)
+    assert pit.step == 2
+    assert any(".int_ca_block." in n for n in names) == (variant == "causal")
     assert all(torch.isfinite(p).all() for p in pit.model.parameters())
     run = os.path.join(ckpts, "synthetic_mul", f"{variant}_pit")
     opt = os.path.join(run, "opt.txt")
     assert ("single_transformer: True" in open(opt).read()) == ("single" in variant)
+    assert ("causal: True" in open(opt).read()) == (variant == "causal")
 
     label.main(["--opt_path", opt, "--label_model", "--save_label", "--batch_size", "8",
                 "--device", "cpu"])

@@ -86,6 +86,13 @@ caption ids, CFG with the loss-aware sampler (supervised), bf16 PIT
 shape captures a second graph; a rollback mid-run (``restore_state`` in place) keeps the one graph
 on the same tensors and equals the eager run; the graphed step refuses a
 call without a generator and another TrainState.
+
+Causal efficient attention and the native loader: the causal self-attention
+and interaction blocks at the serving shape on the card against the same
+blocks on the CPU (float32 with a train-mode call's gradients, and bf16),
+launching no kernel; the causal model's DDIM sampler and PIT step, float32
+and bf16, graphed against eager bit for bit; the native batch loader built
+with g++ into ``hig_tpu_torch/_build/`` and loaded from there.
 """
 
 import numpy as np
@@ -1304,3 +1311,148 @@ def test_graphed_single_person_step_and_sampler_equal_eager(cuda):
         assert torch.equal(got, want) and torch.isfinite(got).all()
     assert got_counts == want_counts and sum(want_counts.values()) > 0
     assert len(graphed.graphs) == 1
+
+
+# --- causal efficient attention and the native loader ----------------------------------
+
+
+def _causal_block(interaction: bool):
+    """A causal efficient block at full width (fused, which a causal block
+    ignores) with torch's seeded default init, and its serving inputs."""
+    from hig_tpu_torch.models.attention import (
+        EfficientInteractionAttention,
+        EfficientSelfAttention,
+    )
+
+    torch.manual_seed(0)
+    cls = EfficientInteractionAttention if interaction else EfficientSelfAttention
+    block = cls(D, H, 4 * D, fused=True, causal=True)
+    w, x, mask, _, _ = _inputs("cpu")
+    emb = torch.randn((N_PAIRS, 2, 4 * D), generator=torch.Generator().manual_seed(1))
+    return block, x, emb, mask
+
+
+@pytest.mark.parametrize("interaction", [False, True], ids=["self", "interaction"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_causal_block_matches_its_cpu_twin(cuda_bf16, dtype, interaction):
+    """A causal efficient block at the serving shape on the card against the
+    same block on the CPU, launching no kernel. float32 within TOL and
+    REL_TOL, with the gradients of a train-mode call within 1e-3 of each
+    leaf's largest magnitude (the key bias, whose exact gradient is 0,
+    within 1e-6 of the largest gradient); bfloat16 (weights cast) within 2 bfloat16 ulps
+    of the largest magnitude and 0.25 of the bfloat16 effect in rms (the
+    CPU twin's distance from the float32 block on the same inputs)."""
+    import copy
+
+    from hig_tpu_torch.utils.graphs import launch_counts
+    from hig_tpu_torch.weights import cast_floating
+
+    block, x, emb, mask = _causal_block(interaction)
+    before = launch_counts()
+    if dtype == "float32":
+        card = copy.deepcopy(block).to(cuda_bf16)
+        with torch.no_grad():
+            assert_close(card(x.to(cuda_bf16), emb.to(cuda_bf16), mask.to(cuda_bf16)).cpu(),
+                         block(x, emb, mask))
+        grads = []
+        for b, dev in ((card, cuda_bf16), (block, "cpu")):
+            b.train()
+            leaf = x.to(dev).requires_grad_()
+            b(leaf, emb.to(dev), mask.to(dev)).square().mean().backward()
+            grads.append({"x": leaf.grad.cpu(),
+                          **{n: p.grad.cpu() for n, p in b.named_parameters()}})
+        scale = max(g.abs().max().item() for g in grads[1].values())
+        for name, want in grads[1].items():
+            err = (grads[0][name] - want).abs().max().item()
+            if name == "key.bias":  # an exact gradient of 0: rounding noise
+                assert err <= 1e-6 * scale, name
+                continue
+            assert err <= 1e-3 * want.abs().max().item(), name
+    else:
+        b16 = cast_floating(copy.deepcopy(block), torch.bfloat16).eval()
+        args = [t.bfloat16() for t in (x, emb, mask)]
+        with torch.no_grad():
+            got = b16.to(cuda_bf16)(*(t.to(cuda_bf16) for t in args)).float().cpu()
+            twin = cast_floating(copy.deepcopy(block), torch.bfloat16).eval()(*args).float()
+            twin32 = block.eval()(*(t.float() for t in args))
+        ulp = 2.0 ** -8
+        assert (got - twin).abs().max().item() <= 2 * ulp * twin.abs().max().item()
+        rms = (got - twin).pow(2).mean().sqrt().item()
+        assert rms <= 0.25 * (twin - twin32).pow(2).mean().sqrt().item()
+    torch.cuda.synchronize()
+    assert launch_counts() == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graphed_causal_sampler_and_step_equal_eager(cuda_bf16, dtype, monkeypatch):
+    """The causal efficient model's DDIM sampler and PIT train step, graphed
+    against eager bit for bit, launching no attention kernel (a bfloat16
+    step only the ordered sum of its softmax backwards): two sampler calls
+    each from one generator seed, then TRAIN_GRAPH_STEPS steps from one
+    seeded state (metrics, parameters, Adam's moments)."""
+    from hig_tpu_torch.diffusion import gaussian as g
+    from hig_tpu_torch.train.trainer import make_sampler
+
+    model = _seeded_model(cuda_bf16, **GRAPH_MODEL, causal=True, fused_blocks=True,
+                          compute_dtype=dtype).eval()
+    sched = g.make_schedule(g.linear_betas(100))
+    fns = [make_sampler(model, sched, T=GRAPH_T, dim_pose=263, sampler="ddim", ddim_steps=10,
+                        graph=graph) for graph in (True, False)]
+    tokens, lengths = _graph_inputs(cuda_bf16)
+    gens = [torch.Generator(device=cuda_bf16).manual_seed(5) for _ in range(2)]
+    for _ in range(2):
+        (got, got_counts), (want, want_counts) = (
+            _launches(lambda f=f, gen=gen: f(tokens, lengths, generator=gen))
+            for f, gen in zip(fns, gens))
+        assert torch.equal(got, want) and got_counts == want_counts == {}
+    assert len(fns[0].graphs) == 1
+
+    monkeypatch.setitem(TRAIN_GRAPH_CASES, "pit_causal", (dict(causal=True,
+                                                                compute_dtype=dtype), True))
+    _, make_state, make_step, history, batch = _train_graph_setup(cuda_bf16, "pit_causal")
+    runs = []
+    for graph in (False, True):
+        state, step = make_state(), make_step(graph)
+        rows, hist = _train_run(step, state, [batch(state.model)] * TRAIN_GRAPH_STEPS, history())
+        # the ordered bfloat16 sum of a bfloat16 step's softmax backwards, nothing else
+        assert all(set(counts) == ({"bf16_sum.launches"} if dtype == "bfloat16" else set())
+                   for _, counts, _ in rows), rows
+        runs.append(([m for m, _, _ in rows], [c for _, c, _ in rows],
+                     _train_state_tensors(state, hist)))
+    (m_e, c_e, t_e), (m_g, c_g, t_g) = runs
+    assert c_e == c_g and all(torch.equal(a, b) for a, b in zip(m_g, m_e, strict=True))
+    assert not [n for n in t_e if not torch.equal(t_g[n], t_e[n])]
+
+
+def test_native_loader_builds_and_loads_from_the_package(cuda):
+    """The native batch loader built with g++ from native/loader.cpp into
+    hig_tpu_torch/_build/ and loaded from there (never the tracked
+    native/libhig_loader.so): a batch of 16 clips at window 60, the same
+    from 1 and 8 threads, normalized and role-swapped."""
+    import os
+
+    from hig_tpu_torch.data import native_loader as nl
+    from hig_tpu_torch.ops._build import BUILD_DIR
+
+    lib = nl.load()
+    assert lib._name == nl.library_path() and os.path.dirname(lib._name) == BUILD_DIR
+    rng = np.random.default_rng(0)
+    mean = rng.standard_normal(263 + 4).astype(np.float32)
+    std = (1 + rng.random(263 + 4)).astype(np.float32)
+    store = nl.NativeClipStore(mean, std)
+    clips = [rng.standard_normal((2, int(n), 263)).astype(np.float32)
+             for n in rng.integers(40, 130, 16)]
+    for c in clips:
+        store.add_clip(c)
+    idx, swaps = np.arange(16), (np.arange(16) % 3 == 0).astype(np.uint8)
+    one = store.sample_batch(idx, window=60, seed=1, epoch=2, swap_flags=swaps, num_threads=1)
+    eight = store.sample_batch(idx, window=60, seed=1, epoch=2, swap_flags=swaps,
+                               num_threads=8)
+    for a, b in zip(one, eight):
+        np.testing.assert_array_equal(a, b)
+    motion, lengths = one
+    assert motion.shape == (16, 2, 61, 263)
+    np.testing.assert_array_equal(lengths, np.minimum([c.shape[1] for c in clips], 61))
+    c = clips[0]  # swapped: actor 1 first; its init row normalized by the init stats
+    np.testing.assert_allclose(motion[0, 0, 0, :4], (c[1, -1, :4] - mean[-4:]) / std[-4:],
+                               rtol=1e-6)

@@ -291,8 +291,14 @@ def test_bridge_refuses_a_tree_of_the_other_family():
 @pytest.mark.parametrize("fields", [dict(causal=True), dict(efficient=False, fused_blocks=True)],
                          ids=["causal_efficient", "fused_quadratic"])
 def test_config_refuses_unported_combinations(fields):
-    with pytest.raises(ValueError):
-        ModelConfig(**fields)
+    """The quadratic model has no fused block. Causal efficient attention is
+    ported (the causal core): its blocks are built causal, and accepted."""
+    if not fields.get("efficient", True):
+        with pytest.raises(ValueError):
+            ModelConfig(**fields)
+        return
+    layer = InteractionModel(ModelConfig(**fields, num_layers=1)).denoiser.layers[0]
+    assert layer.sa_block.causal and layer.int_ca_block.causal
 
 
 # --- serving CLI --------------------------------------------------------------
@@ -333,6 +339,13 @@ def test_serve_cli_no_eff_writes_results(tmp_path, causal):
 @pytest.mark.parametrize("extra", [["--no_eff", "--blocks", "fused"], ["--causal"]],
                          ids=["no_eff_blocks", "causal_efficient"])
 def test_serve_cli_refuses_meaningless_flags(tmp_path, extra):
+    """--blocks means nothing to the quadratic model. --causal on the
+    efficient model is ported (the causal core) and serves."""
     res = _serve(tmp_path, *extra)
+    if "--no_eff" not in extra:
+        assert res.returncode == 0, res.stderr
+        assert '"efficient": true' in res.stdout and '"causal": true' in res.stdout
+        assert (tmp_path / "out" / "index.json").exists()
+        return
     assert res.returncode != 0
     assert not (tmp_path / "out" / "index.json").exists()

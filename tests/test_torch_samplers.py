@@ -306,18 +306,17 @@ SERVED_MODEL_KEYS = ("fast_ln", "rms_norm")  # carried by the bf16 serving path
 
 @pytest.mark.parametrize("key", list(MODEL_KEYS))
 def test_load_opt_txt_refuses_jax_model_keys(tmp_path, key):
-    """The JAX keys that change the model's function are refused, naming
-    the key, unless the port carries them: fast_ln and rms_norm load into
-    their fields (and reach the model's config)."""
+    """The JAX keys that change the model's function or its batches are all
+    carried now, none refused: each loads into its field, fast_ln and
+    rms_norm reach the model's config, and only_language, only_motion
+    (--pretrained's filters) and window_size (the native loader's window)
+    stay the run's."""
     path = str(tmp_path / "opt.txt")
     jcfg.save_opt_txt(jcfg.ExperimentConfig(**{key: MODEL_KEYS[key]}), path)
+    cfg = load_opt_txt(path)
+    assert getattr(cfg, key) == MODEL_KEYS[key]
     if key in SERVED_MODEL_KEYS:
-        cfg = load_opt_txt(path)
-        assert getattr(cfg, key) is True
         assert getattr(model_config(cfg), key) is True
-        return
-    with pytest.raises(ValueError, match=key):
-        load_opt_txt(path)
 
 
 def test_load_opt_txt_accepts_jax_route_keys(tmp_path):

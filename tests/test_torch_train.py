@@ -12,7 +12,8 @@
   PIT and supervised, efficient and ``no_eff``, the tower-feature and the
   tokens-only conditioning, ``grad_accum=2``, and PIT and supervised at
   ``dropout=0.5`` (JAX runs every path deterministically, so dropout is
-  the identity in both packages); JAX's t and noise are
+  the identity in both packages), and PIT with ``causal`` efficient
+  attention (the causal core, no kernel); JAX's t and noise are
   drawn with its own ``jax.random.split`` and handed to the port. Loss within
   1e-5 relative, every gradient leaf within 1e-4 of its largest magnitude.
   The key biases of the attention blocks have an exact gradient of 0 (a
@@ -277,6 +278,7 @@ STEP_CASES = {
     "pit_efficient_dropout": dict(pit=True, no_eff=False, no_clip=False, accum=1, dropout=0.5),
     "supervised_efficient_tokens_dropout": dict(pit=False, no_eff=False, no_clip=True, accum=1,
                                                 dropout=0.5),
+    "pit_efficient_causal": dict(pit=True, no_eff=False, no_clip=False, accum=1, causal=True),
 }
 
 
@@ -322,15 +324,16 @@ def assert_grads_close(got: dict, want: dict):
 @pytest.mark.parametrize("case", list(STEP_CASES))
 def test_whole_step_loss_and_grads_match_jax(jax_grad_fns, case):
     c = STEP_CASES[case]
-    dropout = c.get("dropout", 0.0)
-    jcfg = JaxConfig(**TINY, no_eff=c["no_eff"], no_clip=c["no_clip"], dropout=dropout)
-    key = (c["pit"], c["no_eff"], c["no_clip"], dropout)
+    dropout, causal = c.get("dropout", 0.0), c.get("causal", False)
+    jcfg = JaxConfig(**TINY, no_eff=c["no_eff"], no_clip=c["no_clip"], dropout=dropout,
+                     causal=causal)
+    key = (c["pit"], c["no_eff"], c["no_clip"], dropout, causal)
     if key not in jax_grad_fns:
         jmodel = model_from_config(jcfg, clip_config=JAX_CLIP)
         loss_fn = jt.make_loss_fn(jmodel, jg.make_schedule(jg.linear_betas(100)), c["pit"])
         jax_grad_fns[key] = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
     cfg = port_cfg(no_eff=c["no_eff"], no_clip=c["no_clip"], grad_accum=c["accum"],
-                   dropout=dropout)
+                   dropout=dropout, causal=causal)
     assert model_config(cfg, PORT_CLIP).dropout == dropout
     tree = random_flax_tree(model_config(cfg, PORT_CLIP), seed=0)
     params = jax.tree_util.tree_map(jnp.asarray, tree)
@@ -484,10 +487,16 @@ def test_epoch_batches_match_jax_bitwise(synth_data, tmp_path, variant):
 
 REFUSED = {"pretrained": True, "use_native_loader": True, "fsdp": True, "tp": True,
            "pp_micro": 2}
+PORTED = ("pretrained", "use_native_loader")
 
 
 @pytest.mark.parametrize("field", sorted(REFUSED))
 def test_config_refuses_unported_options(field):
+    """The multi-device layouts are refused, naming the field; --pretrained
+    and the native loader are ported, and accepted."""
+    if field in PORTED:
+        assert getattr(ExperimentConfig(**{field: REFUSED[field]}), field) is True
+        return
     with pytest.raises(ValueError, match=field):
         ExperimentConfig(**{field: REFUSED[field]})
 

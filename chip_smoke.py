@@ -237,8 +237,36 @@ Phases, each printing one JSON line (or several):
      unguided DDIM-50 serving of the graft equal to the donor's bit for
      bit (B1), then ``train --is_continue --cond_drop_prob 0.1`` from the
      graft for one step (B2).
+ 14. geometry (after phase 13, before the profile): the motion geometry,
+     the JAX-free data tools and visualization. ``python -m
+     hig_tpu_torch.make_synthetic_data`` (GEO_CLIPS_PER_CLASS clips a
+     class, 90 to 197 frames: FK and the batched encode on the card), wall
+     seconds beside the same with --device cpu, the two datasets held
+     against each other (the same files, texts and splits byte for byte,
+     features within GEO_FEAT_TOL, foot contacts and Mean/Std equal to it);
+     GEO_PREPROCESS_CLIPS generator pairs (FK on the card) through ``python
+     -m hig_tpu_torch.preprocess`` on the card: the encode's clips/s on the
+     card and on the CPU, the features against the CPU's, encode →
+     recover_from_ric2 against the generator's joints within
+     GEO_ROUND_TRIP_TOL; PIT through ``python -m hig_tpu_torch.train`` on
+     the port-made dataset (GEO_STEPS steps, 16 B2 launches a step, graphed;
+     the loss-curve PNG's presence reported: the card's machine has no
+     matplotlib); ``python -m hig_tpu_torch.visualize --no-gif
+     --motion_length VIS_LENGTH`` from that checkpoint, DDIM-50 (816 B1
+     launches: 800 and the capture's warm-up, none of another form), its
+     wall time, its joints equal bit for bit to serve's decode of a replay
+     of the same graph on the same seed; B3-bf16's whole and streaming
+     forms timed side by side at 128 × 91 and 104 × 196 (equal bit for
+     bit) and the streaming form at 64 × 394 against its twin beside the
+     planted controls, with the bound; and one bfloat16
+     --single_transformer PIT step at a native window of 196 (394 merged
+     rows, B3-bf16's streaming form) at full width cut to its first layer
+     against the plain route on the card within BF16_TRAIN_RMS of the
+     bfloat16 effect, the control route above it, and against the same
+     step on the CPU within BF16_ROUTE_RMS.
 Then the kernel table (the bfloat16 forms' rows after the float32 ones, and
-phase 12's and 13's launches added), the nvidia-smi line, and as the last line
+phase 12's, 13's and 14's launches added; B3-bf16's row with both forms'
+times under "forms"), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero without
 that line. Imports nothing of JAX or of the JAX package.
 """
@@ -3843,6 +3871,311 @@ def phase_options(device, failures, smi: str, data: str, tmp: str,
     return launches, runs
 
 
+# --- phase 14: the motion geometry, the data tools and visualization -------------------
+
+# the port's synthetic dataset: GEO_CLIPS_PER_CLASS clips a class of 90 to
+# 197 frames (four lengths), FK and encode on the card and on the CPU
+GEO_CLIPS_PER_CLASS, GEO_FRAMES = 2, (90, 198)
+GEO_PREPROCESS_CLIPS = 64  # generator pairs through python -m hig_tpu_torch.preprocess
+GEO_FEAT_TOL = 1e-4  # the card's features against the CPU's (contacts: exactly)
+GEO_ROUND_TRIP_TOL = 1e-3  # encode → recover_from_ric2 against the joints, m
+GEO_STEPS, GEO_TIMES = 3, 3  # PIT steps from the port-made dataset (32 pairs each)
+VIS_LENGTH = 90  # visualize --motion_length: T = 91, one DDIM-50 pair
+# B3-bf16's forms side by side: (sequences, Tq, Tk) of the bf16 PIT step (32
+# pairs under both assignments, 2 actors), the evaluation chunk, and a
+# --single_transformer model's merged timeline at a native window of 196
+B3_FORM_SHAPES = {"128x91": (2 * 2 * TRAIN_PAIRS, T, T),
+                  "104x196": (2 * EVAL_CLIPS, EVAL_T, EVAL_T),
+                  "64x394": (2 * TRAIN_PAIRS, 2 * (EVAL_T + 1), 2 * (EVAL_T + 1))}
+ST_WINDOW, ST_PAIRS = 196, 4  # the bf16 --single_transformer step against its CPU twin
+
+
+def dataset_diff(got: str, want: str) -> dict:
+    """Two dataset roots: file names, texts and splits equal, the largest
+    feature difference past the foot contacts, contacts that differ, and
+    Mean/Std's largest difference."""
+    names = sorted(os.listdir(os.path.join(want, "new_joint_vecs")))
+    same_files = names == sorted(os.listdir(os.path.join(got, "new_joint_vecs")))
+    feat, flips, entries = 0.0, 0, 0
+    for name in names if same_files else []:
+        a, b = (np.load(os.path.join(r, "new_joint_vecs", name)) for r in (got, want))
+        feat = max(feat, float(np.abs(a[..., :-4] - b[..., :-4]).max()),
+                   float(np.abs(a[:, -1] - b[:, -1]).max()))
+        flips += int((a[:, :-1, -4:] != b[:, :-1, -4:]).sum())
+        entries += a[:, :-1, -4:].size
+    texts = sorted(os.listdir(os.path.join(want, "texts")))
+
+    def same_bytes(rel):
+        with open(os.path.join(got, rel), "rb") as f, open(os.path.join(want, rel), "rb") as g:
+            return f.read() == g.read()
+
+    return {"clips": len(names), "same_files": same_files, "max_feature_diff": feat,
+            "contact_flips": flips, "contact_entries": entries,
+            "same_texts": all(same_bytes(os.path.join("texts", t)) for t in texts),
+            "same_splits": all(same_bytes(s) for s in ("train_sub.txt", "val_sub.txt",
+                                                       "test_sub.txt")),
+            "max_stats_diff": max(float(np.abs(np.load(os.path.join(got, s))
+                                               - np.load(os.path.join(want, s))).max())
+                                  for s in ("Mean.npy", "Std.npy"))}
+
+
+def geometry_dataset(failures, tmp: str) -> tuple[str, dict]:
+    """python -m hig_tpu_torch.make_synthetic_data on the card and with
+    --device cpu, held against each other. Returns the card's root."""
+    from hig_tpu_torch import make_synthetic_data
+
+    argv = ["--clips_per_class", str(GEO_CLIPS_PER_CLASS), "--min_frames", str(GEO_FRAMES[0]),
+            "--max_frames", str(GEO_FRAMES[1]), "--seed", "0"]
+    roots, walls = {}, {}
+    for where in ("cuda", "cpu"):
+        roots[where] = os.path.join(tmp, f"geo_{where}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        make_synthetic_data.main(["--root", roots[where], "--device", where, *argv])
+        torch.cuda.synchronize()
+        walls[where] = time.perf_counter() - t0
+    diff = dataset_diff(roots["cuda"], roots["cpu"])
+    row = {"wall_s": walls, **diff}
+    fail_if(failures, not (diff["same_files"] and diff["same_texts"] and diff["same_splits"]
+                           and diff["clips"] == GEO_CLIPS_PER_CLASS * 26),
+            f"geometry: the card's dataset differs from the CPU's in its files {diff}")
+    fail_if(failures, diff["max_feature_diff"] > GEO_FEAT_TOL or diff["contact_flips"]
+            or diff["max_stats_diff"] > GEO_FEAT_TOL,
+            f"geometry: the card's features against the CPU's {diff}")
+    return roots["cuda"], row
+
+
+def geometry_preprocess(failures, tmp: str) -> dict:
+    """GEO_PREPROCESS_CLIPS generator pairs (FK on the card) written as
+    joint clips, then python -m hig_tpu_torch.preprocess on the card: the
+    encode rate beside the same encode on the CPU, the features against
+    the CPU's, and encode → recover_from_ric2 against the joints."""
+    from hig_tpu_torch import preprocess
+    from hig_tpu_torch.data.synthetic import generate_pair
+    from hig_tpu_torch.utils.motion_codec import recover_from_ric2
+
+    rng = np.random.RandomState(1)
+    joints_dir, out_root = os.path.join(tmp, "geo_joints"), os.path.join(tmp, "geo_pre")
+    os.makedirs(joints_dir)
+    clips = []
+    for i in range(GEO_PREPROCESS_CLIPS):
+        frames = int(rng.randint(GEO_FRAMES[0], GEO_FRAMES[1]))
+        pair = generate_pair(rng, frames, i % 26, "cuda")
+        clips.append(torch.stack(pair).cpu().numpy())
+        np.save(os.path.join(joints_dir, f"P{i:03d}.npy"), clips[-1])
+    t0 = time.perf_counter()
+    preprocess.main(["--joints_dir", joints_dir, "--out_root", out_root])
+    cli_wall = time.perf_counter() - t0
+    feats = [np.load(os.path.join(out_root, "new_joint_vecs", f"P{i:03d}.npy"))
+             for i in range(GEO_PREPROCESS_CLIPS)]
+    rates = {}
+    for where in ("cuda", "cpu", "cuda"):  # the card's again: its first call warms it
+        got, timing = preprocess.encode_clips(clips, torch.device(where))
+        rates[where] = timing["clips_per_s"]
+        if where == "cpu":
+            cpu_feats = got
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(feats, cpu_feats))
+    flips = sum(int((a[:, :-1, -4:] != b[:, :-1, -4:]).sum()) for a, b in zip(feats, cpu_feats))
+    trip = 0.0
+    for joints, clip in zip(clips, feats):
+        c = torch.from_numpy(clip).cuda()
+        r1, r2 = recover_from_ric2(c[0], c[1], 22)
+        j = torch.from_numpy(joints).cuda()
+        floor = j[..., 1].amin()
+        up = torch.tensor([0.0, 1.0, 0.0], device="cuda")
+        want = j[:, :-1] - floor * up
+        trip = max(trip, float((torch.stack([r1, r2]) - want).abs().max()))
+    row = {"clips": GEO_PREPROCESS_CLIPS, "cli_wall_s": cli_wall,
+           "encode_clips_per_s": rates, "max_feature_diff_vs_cpu": diff,
+           "contact_flips_vs_cpu": flips, "round_trip_max_err_m": trip}
+    fail_if(failures, diff > GEO_FEAT_TOL or flips, f"geometry: preprocess vs the CPU {row}")
+    fail_if(failures, not trip <= GEO_ROUND_TRIP_TOL, f"geometry: round trip {row}")
+    fail_if(failures, not os.path.exists(os.path.join(out_root, "Mean.npy")),
+            "geometry: preprocess wrote no Mean.npy")
+    return row
+
+
+def geometry_visualize(failures, opt_path: str, tmp: str) -> tuple[dict, dict]:
+    """python -m hig_tpu_torch.visualize from the PIT checkpoint, DDIM-50 at
+    --motion_length VIS_LENGTH: its launch counts (the capturing call: 800
+    B1 launches and the warm-up's 16, none of another form), its wall time,
+    and its joints against serve's decode of the same graph replayed on the
+    same seed, bit for bit. Returns (row, counts)."""
+    from hig_tpu_torch import serve, visualize
+
+    argv = ["--opt_path", opt_path, "--no-gif", "--motion_length", str(VIS_LENGTH),
+            "--sampler", "ddim", "--ddim_steps", str(DDIM_STEPS), "--class_id", "3", "--seed",
+            "0", "--result_path", os.path.join(tmp, "geo_vis")]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    made = visualize.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = bf16_counts()
+    joints = np.load(made["path"])
+    cond = serve.conditioning_for([dict(zip(("caption1", "caption2"), made["captions"]))])
+    generator = torch.Generator(device="cuda").manual_seed(0)
+    out = made["sample"](torch.from_numpy(cond), torch.tensor([VIS_LENGTH + 1]),
+                         generator=generator)
+    mean, std = serve.load_stats(os.path.join(os.path.dirname(opt_path), "meta"), 263)
+    _, again = serve.decode(out, mean, std)
+    row = {"wall_s": wall, "sampling_s": made["seconds"], "launches": counts,
+           "joints_shape": list(joints.shape), "finite": bool(np.isfinite(joints).all()),
+           "equals_serve_decode": bool(np.array_equal(joints, again[0].cpu().numpy()))}
+    fail_if(failures, any(n != (FIRST_CALL if k == "fused_block" else 0)
+                          for k, n in counts.items()), f"visualize launches {counts}")
+    fail_if(failures, row["joints_shape"] != [2, VIS_LENGTH, 22, 3] or not row["finite"]
+            or not row["equals_serve_decode"], f"visualize joints {row}")
+    return row, counts
+
+
+def b3_bf16_forms(device, failures) -> dict:
+    """B3-bf16's whole and streaming forms at B3_FORM_SHAPES: each form's ms
+    (the whole form where it runs), the plain twin's, the bound; at 394 rows
+    the streaming form against its twin beside the planted controls; where
+    both run, the two forms equal bit for bit."""
+    from hig_tpu_torch.ops.pallas_attention import (
+        BF16_MAX_T, efficient_attention_bf16_form, fused_efficient_attention_plain as plain)
+
+    out = {}
+    for label, (N, tq, tk) in B3_FORM_SHAPES.items():
+        w, x, mask, _, _ = block_inputs(device, N // 2, max(tq, tk))
+        q, k, v, heads, m = b3_bf16_inputs(w, x, mask, tk)
+        q = q[..., :tq, :].contiguous()
+        row = {"shape": [N, tq, tk, D]}
+        forms = ("whole", "stream") if max(tq, tk) <= BF16_MAX_T else ("stream",)
+        got = {}
+        for form in forms:
+            got[form] = efficient_attention_bf16_form(q, k, v, heads, m, form)
+            row[f"{form}_ms"] = time_ms(lambda f=form: efficient_attention_bf16_form(
+                q, k, v, heads, m, f))
+        torch.cuda.synchronize()
+        row["plain_ms"] = time_ms(lambda: plain(q, k, v, heads, m))
+        parts, nbytes = b3_bf16_work(N, tq, tk)
+        row["bound_ms"], row["bound_by"], _ = bound_parts(parts, nbytes)
+        if len(forms) == 2:
+            row["forms_equal"] = bool(torch.equal(got["whole"], got["stream"]))
+            fail_if(failures, not row["forms_equal"], f"B3-bf16 forms differ at {label}")
+        else:
+            args = (q, k, v, heads, m)
+            twin = plain(*args)
+            twin32 = plain(*[a.float() if torch.is_tensor(a) else a for a in args])
+            twin_cpu = plain(*on_cpu(args))
+            row.update(gate_bf16(f"efficient_attention_bf16 stream {label}", got["stream"],
+                                 twin, twin32, twin_cpu, failures))
+            controls = {}
+            for left_out in B3_CORE_ROUNDINGS:
+                c = bf16_gate_row(plain(*args, unrounded=(left_out,)), twin, twin32, twin_cpu)
+                fail_if(failures, c["passed"], f"B3-bf16 stream {label}: the twin without "
+                        f"{left_out} passes: {c}")
+                controls[left_out] = c["rms_ratio"]
+            row["controls_rms_ratio"] = controls
+        out[label] = row
+    return out
+
+
+def single_transformer_step_gate(device, failures) -> dict:
+    """One bfloat16 --single_transformer PIT step at a native window of
+    ST_WINDOW (2 × 197 = 394 merged rows, past the whole form's 320), full
+    width cut to its first layer, ST_PAIRS pairs of ragged lengths: its loss
+    and gradients through B3-bf16 (its streaming form) on the card against
+    the plain route on the card within BF16_TRAIN_RMS of the bfloat16
+    effect, beside the control route (JAX's use_pallas forward), which must
+    exceed it, as phase 11 holds its steps; and against the same step on
+    the CPU (the plain twin; the effect the CPU's bfloat16 step against its
+    float32 one) within BF16_ROUTE_RMS, as phase 13 holds its bfloat16
+    first layer to its CPU twin: there cuBLAS's bfloat16 GEMMs and the
+    CPU's round the rest of the layer in other orders."""
+    from hig_tpu_torch import serve
+    from hig_tpu_torch.diffusion import gaussian as g
+    from hig_tpu_torch.models.interaction_model import ModelConfig
+    from hig_tpu_torch.ops.pallas_attention import fused_efficient_attention
+    from hig_tpu_torch.train import trainer as tr
+
+    cfg = ModelConfig(single_transformer=True, compute_dtype="bfloat16", cap_id=True)
+    initial = serve.build_model(cfg, device, random_init=0)
+    Tw = ST_WINDOW + 1
+    gen = torch.Generator().manual_seed(3)
+    batch = {"motion": torch.randn((ST_PAIRS, 2, Tw, 263), generator=gen),
+             "lengths": torch.tensor([Tw, 150, 97, Tw - 30][:ST_PAIRS]),
+             "cap_ids": torch.randint(0, 43, (ST_PAIRS, 2), generator=gen)}
+    t = torch.randint(0, 1000, (ST_PAIRS,), generator=gen)
+    noise = torch.randn(batch["motion"].shape, generator=gen)
+    sched = g.make_schedule(g.linear_betas(1000))
+
+    def route(dtype, where, ctx=contextlib.nullcontext()):
+        model = train_cut(initial, dtype).to(where)
+        b = {k: v.to(where) for k, v in batch.items()}
+        with ctx:
+            loss, _ = tr.compute_grads(model, tr.make_loss_fn(model, sched, True), b,
+                                       t=t.to(where), noise=noise.to(where))
+        return float(loss), {n: p.grad.detach().cpu().clone()
+                             for n, p in model.named_parameters() if p.grad is not None}
+
+    reset_counts()
+    kernel = route(None, device)
+    launches = fused_efficient_attention.launches_bf16
+    plain = route(None, device, plain_blocks())
+    control = route(None, device, use_pallas_forward())
+    plain32 = route("float32", device, plain_blocks())
+    twin, twin32 = route(None, "cpu"), route("float32", "cpu")
+
+    def reading(got, want, want32):
+        return {"loss_ratio": abs(got[0] - want[0]) / abs(want[0] - want32[0]),
+                "grad_ratio": tree_rms_ratio(got[1], want[1], want32[1])}
+
+    row = {"window": ST_WINDOW, "merged_rows": 2 * Tw, "pairs": ST_PAIRS, "layers": 1,
+           "b3_bf16_launches": launches, "loss_card": kernel[0], "loss_card_plain": plain[0],
+           "loss_cpu_twin": twin[0], "loss_cpu_f32": twin32[0],
+           "vs_plain_route": reading(kernel, plain, plain32),
+           "control_vs_plain_route": reading(control, plain, plain32), "lim": BF16_TRAIN_RMS,
+           "vs_cpu_twin": reading(kernel, twin, twin32), "cpu_twin_lim": BF16_ROUTE_RMS}
+    fail_if(failures, launches < 1 or max(row["vs_plain_route"].values()) > BF16_TRAIN_RMS,
+            f"bf16 --single_transformer window {ST_WINDOW} step against the plain route {row}")
+    fail_if(failures, max(row["control_vs_plain_route"].values()) <= BF16_TRAIN_RMS,
+            f"bf16 --single_transformer window {ST_WINDOW}: the control passes {row}")
+    fail_if(failures, max(row["vs_cpu_twin"].values()) > BF16_ROUTE_RMS,
+            f"bf16 --single_transformer window {ST_WINDOW} step against its CPU twin {row}")
+    return row
+
+
+def phase_geometry(device, failures, smi: str, tmp: str) -> tuple[dict, dict]:
+    """Phase 14 (see the module doc). Returns (the launch counts of its
+    main path by form, B3-bf16's rows of both forms)."""
+    t_phase = time.perf_counter()
+    data, row = geometry_dataset(failures, tmp)
+    print(json.dumps({"phase": "geometry", "run": "make_synthetic_data", "nvidia_smi": smi,
+                      **row}), flush=True)
+    print(json.dumps({"phase": "geometry", "run": "preprocess", "nvidia_smi": smi,
+                      **geometry_preprocess(failures, tmp)}), flush=True)
+    with open(os.path.join(data, "train_sub.txt")) as f:
+        steps = len(f.read().split()) * GEO_TIMES // TRAIN_PAIRS
+    trainer, state, row, counts = train_run("geo_pit", ["--times", str(GEO_TIMES)], steps,
+                                            "projected_attention", data, tmp, failures, smi)
+    row["loss_curve_png"] = os.path.exists(os.path.join(trainer.cfg.save_root, "result",
+                                                        "result_loss.png"))
+    print(json.dumps({**row, "phase": "geometry"}), flush=True)
+    fail_if(failures, steps != GEO_STEPS, f"geometry: {steps} PIT steps, expected {GEO_STEPS}")
+    opt_path = os.path.join(trainer.cfg.save_root, "opt.txt")
+    del trainer, state
+    vis, vis_counts = geometry_visualize(failures, opt_path, tmp)
+    print(json.dumps({"phase": "geometry", "run": "visualize", "nvidia_smi": smi, **vis}),
+          flush=True)
+    forms = b3_bf16_forms(device, failures)
+    print(json.dumps({"phase": "geometry", "kernel": "efficient_attention_bf16",
+                      "forms": forms}), flush=True)
+    step = single_transformer_step_gate(device, failures)
+    print(json.dumps({"phase": "geometry", "run": "single_transformer_bf16_w196", **step}),
+          flush=True)
+    launches = merge_counts({k: v for k, v in counts.items() if k != BF16_SUM}, vis_counts)
+    launches["efficient_attention_bf16"] = launches.get("efficient_attention_bf16", 0) \
+        + step["b3_bf16_launches"]
+    print(json.dumps({"phase": "geometry", "launches": launches,
+                      "seconds": time.perf_counter() - t_phase}), flush=True)
+    return launches, forms
+
+
 def trainer_dataset(cfg):
     from hig_tpu_torch.data.dataset import PairDataset, load_training_stats
 
@@ -3911,7 +4244,11 @@ def main() -> int:
         option_launches, option_runs = phase_options(device, failures, smi, data, tmp,
                                                      models["fused"].state_dict())
         lap("options")
+        geometry_launches, b3_forms = phase_geometry(device, failures, smi, tmp)
+        lap("geometry")
         ablation_launches = merge_counts(ablation_launches, option_launches)
+        ablation_launches = merge_counts(ablation_launches, geometry_launches)
+        bf16_rows["efficient_attention_bf16"]["forms"] = b3_forms
         bf16_rows["projected_attention_bf16"].update(b2_long)
         for form, row in bf16_rows.items():
             row["launches"] += bf16_train_launches.get(form, 0) + ablation_launches.get(form, 0)

@@ -159,7 +159,7 @@ class InteractionDenoiser(nn.Module):
         self.latent_dim = latent_dim
         self.dtype = dtype
         self.time_embed_dim = 4 * latent_dim
-        self.sequence_embedding = nn.Parameter(torch.empty(num_frames, latent_dim))
+        self.sequence_embedding = nn.Parameter(torch.randn(num_frames, latent_dim))
         self.joint_embed = nn.Linear(input_feats, latent_dim)
         self.joint_embed2 = nn.Linear(4, latent_dim)
         self.time_embed = TimeEmbedMLP(latent_dim, self.time_embed_dim, dtype)
@@ -245,7 +245,7 @@ class MotionDenoiser(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.time_embed_dim = 4 * latent_dim
-        self.sequence_embedding = nn.Parameter(torch.empty(num_frames, latent_dim))
+        self.sequence_embedding = nn.Parameter(torch.randn(num_frames, latent_dim))
         self.joint_embed = nn.Linear(input_feats, latent_dim)
         self.time_embed = TimeEmbedMLP(latent_dim, self.time_embed_dim, dtype)
         self.layers = nn.ModuleList(

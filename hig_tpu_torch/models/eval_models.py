@@ -56,7 +56,7 @@ class PairEmbedding(nn.Module):
 
     def __init__(self, input_feats: int, latent_dim: int, num_frames: int):
         super().__init__()
-        self.sequence_embedding = nn.Parameter(torch.empty(num_frames, latent_dim))
+        self.sequence_embedding = nn.Parameter(torch.randn(num_frames, latent_dim))
         self.joint_embed1 = nn.Linear(input_feats, latent_dim)
         self.joint_embed2 = nn.Linear(4, latent_dim)
 
@@ -109,7 +109,7 @@ class MotionConsistencyEvalModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.embed = PairEmbedding(cfg.input_feats, cfg.latent_dim, cfg.num_frames)
-        self.cls_input = nn.Parameter(torch.empty(1, 1, cfg.latent_dim))
+        self.cls_input = nn.Parameter(torch.randn(1, 1, cfg.latent_dim))
         self.blocks = _encoder_layers(cfg)
         self.cls_output = nn.Linear(cfg.latent_dim, cfg.class_num)
 

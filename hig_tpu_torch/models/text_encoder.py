@@ -108,9 +108,9 @@ class ClipTextTower(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
-        self.token_embedding = nn.Parameter(torch.empty(config.vocab_size, config.width))
+        self.token_embedding = nn.Parameter(0.02 * torch.randn(config.vocab_size, config.width))
         self.positional_embedding = nn.Parameter(
-            torch.empty(config.context_length, config.width)
+            0.01 * torch.randn(config.context_length, config.width)
         )
         self.blocks = nn.ModuleList(
             ClipResidualBlock(config.width, config.heads, dtype) for _ in range(config.layers)
@@ -202,7 +202,7 @@ class ClassConditioner(nn.Module):
                  time_embed_dim: int = 2048, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
-        self.cap_embedding = nn.Parameter(torch.empty(num_captions, text_latent_dim))
+        self.cap_embedding = nn.Parameter(torch.randn(num_captions, text_latent_dim))
         self.text_proj = nn.Linear(text_latent_dim, time_embed_dim)
 
     def forward(self, cap_ids: torch.Tensor):

@@ -79,7 +79,15 @@ bfloat16 products, rounded) and y (rounded once). The kernel rounds at
 those points: one block of two warpgroups per (sequence, head) takes the
 head's columns of q, k and v into shared memory through TMA, the key
 passes there, the state and y on ``wgmma`` (products of bfloat16 values
-are exact), so Tq and Tk are at most :data:`BF16_MAX_T`.
+are exact): the whole form, for Tq and Tk up to :data:`BF16_MAX_T`. Above
+that the streaming form runs (``hig_efficient_attention_bf16_stream``):
+the same rounding points, the column max and the rounded exponentials'
+float32 sum taken in two passes over the keys in device memory, then E =
+softmax_time(k) recomputed and streamed with v through shared memory in
+128-row rounds into the state's float32 accumulator, so it takes any T (a
+``--single_transformer`` model's merged timeline is 394 rows at a native
+window of 196) and equals the whole form bit for bit where both run
+(:func:`b3_bf16_form` picks).
 :func:`fused_efficient_attention_plain` on bfloat16 inputs is its twin, and
 ``unrounded`` leaves out rounding points (:data:`B3_ROUNDINGS`) for the
 planted controls. The twin is also JAX's ``efficient_attention`` on
@@ -98,10 +106,14 @@ from hig_tpu_torch.utils.graphs import counted
 
 HEAD_DIM = 64  # the only head width the CUDA core takes
 MASK_BIAS = -1000000.0
-# Rows of one sequence that B1-bf16, B2-bf16a and B3-bf16 keep in shared
-# memory whole: the most they take (the ablations' training and labeling
-# reach 2 × 91 = 182). B2-bf16 streams its keys and takes any T.
+# Rows of one sequence that B1-bf16, B2-bf16a and B3-bf16's whole form keep
+# in shared memory whole: the most they take (the ablations' training and
+# labeling reach 2 × 91 = 182). B2-bf16 and B3-bf16's streaming form take
+# any T.
 BF16_MAX_T = 320
+# B3-bf16's two forms (the module doc): "whole" up to BF16_MAX_T rows,
+# "stream" at any T.
+B3_FORMS = ("whole", "stream")
 # The roundings of the core that efficient_attention can take (B1-bf16's):
 # softmax_time(k), v, the state and softmax_feat(q).
 CORE_ROUNDINGS = ("kh", "v", "att", "qh")
@@ -494,14 +506,39 @@ def efficient_attention_backward(saved, grad_out, num_heads: int, needs=(True,) 
     return recompute_grads(plain, operands, needs, grad_out)
 
 
-def _launch_efficient(query, key, value, mask):
+def b3_bf16_form(Tq: int, Tk: int) -> str:
+    """The form of B3-bf16 that runs at Tq queries over Tk keys: the whole
+    form up to :data:`BF16_MAX_T` rows of each, else the streaming form."""
+    return "whole" if max(Tq, Tk) <= BF16_MAX_T else "stream"
+
+
+def _launch_efficient(query, key, value, mask, form=None):
     (Tq, D), Tk = query.shape[-2:], key.shape[-2]
     N = query.numel() // (Tq * D)
     out = torch.empty_like(query)
-    bf16 = query.dtype == torch.bfloat16
+    entry = None
+    if query.dtype == torch.bfloat16:
+        form = form or b3_bf16_form(Tq, Tk)
+        if form not in B3_FORMS or (form == "whole" and max(Tq, Tk) > BF16_MAX_T):
+            raise ValueError(f"B3-bf16 has no form {form!r} at Tq={Tq}, Tk={Tk}")
+        entry = "efficient_attention_bf16" + ("_stream" if form == "stream" else "")
     _build.launch("efficient_attention", (query, key, value, mask, out), (N, Tq, Tk, D),
-                  torch.cuda.current_stream(query.device).cuda_stream,
-                  entry="efficient_attention_bf16" if bf16 else None)
+                  torch.cuda.current_stream(query.device).cuda_stream, entry=entry)
+    return out
+
+
+def efficient_attention_bf16_form(query, key, value, num_heads: int, key_mask, form: str):
+    """One launch of B3-bf16's ``form`` ("whole" or "stream") on CUDA
+    bfloat16 operands, without autograd, counted in ``launches_bf16``: the
+    two forms side by side where both run."""
+    lead, (Tq, D), Tk = query.shape[:-2], query.shape[-2:], key.shape[-2]
+    check_cuda_width(D, num_heads)
+    check_cuda_operand("query", query, dtype=torch.bfloat16)
+    for name, t in (("key", key), ("value", value)):
+        check_cuda_operand(name, t, (*lead, Tk, D), dtype=torch.bfloat16)
+    mask = key_mask.to(torch.float32).expand(*lead, Tk).contiguous()
+    out = _launch_efficient(query, key, value, mask, form)
+    fused_efficient_attention.launches_bf16 += 1
     return out
 
 
@@ -529,9 +566,9 @@ def fused_efficient_attention(query, key, value, num_heads: int, key_mask=None):
     (..., Tk), 0/1. Returns (..., Tq, D). CPU tensors take the plain
     :func:`fused_efficient_attention_plain`; CUDA tensors launch the
     kernel, under autograd through :class:`EfficientAttention`: the float32
-    form, or for bfloat16 q, k and v the bfloat16 form (``launches_bf16``,
-    Tq and Tk up to :data:`BF16_MAX_T`). Other dtypes, and q, k, v of mixed
-    dtypes, raise.
+    form, or for bfloat16 q, k and v the bfloat16 form (``launches_bf16``;
+    :func:`b3_bf16_form` picks whole or streaming, at any Tq and Tk). Other
+    dtypes, and q, k, v of mixed dtypes, raise.
     """
     dt, dts = query.dtype, (query.dtype, key.dtype, value.dtype)
     if torch.bfloat16 in dts and dts != (dt,) * 3:
@@ -541,9 +578,6 @@ def fused_efficient_attention(query, key, value, num_heads: int, key_mask=None):
     if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"the efficient-attention kernel takes float32 or bfloat16, got {dt}")
     lead, (Tq, D), Tk = query.shape[:-2], query.shape[-2:], key.shape[-2]
-    if dt == torch.bfloat16 and max(Tq, Tk) > BF16_MAX_T:
-        raise ValueError(f"the bfloat16 efficient-attention kernel takes T up to {BF16_MAX_T} "
-                         f"queries and keys, got Tq={Tq}, Tk={Tk}")
     check_cuda_width(D, num_heads)
     check_cuda_operand("query", query, dtype=dt)
     for name, t in (("key", key), ("value", value)):

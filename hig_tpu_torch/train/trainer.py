@@ -824,6 +824,38 @@ def _sampling_call(run: Callable, device, shape_of: Callable, sampler: str,
 # --------------------------------------------------------------------------
 
 
+def render_loss_curve(metrics_path: str, save_root: str) -> None:
+    """``<save_root>/result/result_loss.png``: loss_mot_rec over the
+    iterations of ``metrics.jsonl`` (counterpart of JAX's
+    ``Trainer._render_loss_curve``). Best-effort, as there: any failure,
+    matplotlib missing included, writes nothing."""
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        its, losses = [], []
+        with open(metrics_path) as f:
+            for line in f:
+                rec = json.loads(line)
+                if "loss_mot_rec" in rec:
+                    its.append(rec["it"])
+                    losses.append(rec["loss_mot_rec"])
+        if not its:
+            return
+        fig, ax = plt.subplots(figsize=(6, 4))
+        ax.plot(its, losses)
+        ax.set_xlabel("iteration")
+        ax.set_ylabel("loss_mot_rec")
+        fig.tight_layout()
+        os.makedirs(pjoin(save_root, "result"), exist_ok=True)
+        fig.savefig(pjoin(save_root, "result", "result_loss.png"), dpi=100)
+        plt.close(fig)
+    except Exception:  # an observability aid: training's result stands without it
+        pass
+
+
 def step_generator(seed: int, it: int, generation: int, device) -> torch.Generator:
     """The generator of one step's t and noise: a function of (seed, it,
     rollback generation), so a resumed run draws what an unbroken one would
@@ -1062,4 +1094,5 @@ class Trainer:
         if step_timer is not None and step_timer.times:
             step_timer.dump(pjoin(cfg.save_root, "step_times.jsonl"))
             log(f"step latency: {step_timer.summary()}")
+        render_loss_curve(metrics_path, cfg.save_root)
         return state

@@ -25,17 +25,20 @@ and with 91 queries over 77 keys; B2 self and partner at T = 1, 129
 (the edges of its 128-row rounds), 196, 320, 321, 392 and 512, and over a
 merged two-actor timeline of 392 rows (the serving and evaluation chunk's
 pairs), where the twin that rounds the core as B1-bf16 does must fail
-but at T = 1; B3 with 91 or 196 queries over 77 keys and with T = 1, 17,
-91, 196 and 320 queries and keys, where the twin without each of its
-rounding points must fail but at T = 1), with cuBLAS's
+but at T = 1; B3 with 91, 196 or 321 queries over 77 keys, 91 queries
+over 394 keys and with T = 1, 17, 91, 196, 320, 392 and 394 queries and
+keys, where the twin without each of its rounding points must fail but at
+T = 1), with cuBLAS's
 reduced-precision bf16 reductions off, under
 ``chip_smoke.py``'s gates: max |kernel − twin| within 2 bfloat16 ulps of
 the twin's largest magnitude, and rms(kernel − twin) within 0.25 of
 rms(twin − the float32 twin on the same rounded inputs) or, where larger,
 1.5 × the twin's distance from the same twin on the CPU (the float32 order
 of sums alone; B1's cancelling KᵀV sum sits there); each form counts its
-own launches; B1-bf16 and B3-bf16 refuse T = 321, B2-bf16 takes it and T
-= 1000; a bfloat16
+own launches; B1-bf16 refuses T = 321, B2-bf16 takes it and T = 1000;
+B3-bf16 streams past 320 rows (394 × 394, 321 × 77 and 91 × 394 queries
+× keys within the same gates) and its streaming form equals its whole form
+bit for bit where both run (T = 1 to 320); a bfloat16
 tensor beside float32 operands raises, but for B2 on bfloat16 activations
 with float32 weights (B2-bf16a, a bfloat16 model's labeling on master
 weights), held to the same gates against its twin at the serving, labeling
@@ -87,6 +90,16 @@ shape captures a second graph; a rollback mid-run (``restore_state`` in place) k
 on the same tensors and equals the eager run; the graphed step refuses a
 call without a generator and another TrainState.
 
+The motion geometry and visualization: one bfloat16 --single_transformer
+PIT step at a native window of 196 (394 merged rows) at full width cut to
+its first layer against the plain route and against the same step on the
+CPU (``chip_smoke``'s gates);
+the generator's FK and a batched ``encode_pair`` on the card against the
+CPU (features within 1e-4, foot contacts equal); ``python -m
+hig_tpu_torch.visualize`` on an 8-layer caption-id run: 816 B1 launches
+(a DDIM-50 pair and the capture's warm-up), its joints equal to serve's
+decode of a replay.
+
 Causal efficient attention and the native loader: the causal self-attention
 and interaction blocks at the serving shape on the card against the same
 blocks on the CPU (float32 with a train-mode call's gradients, and bf16),
@@ -94,6 +107,8 @@ launching no kernel; the causal model's DDIM sampler and PIT step, float32
 and bf16, graphed against eager bit for bit; the native batch loader built
 with g++ into ``hig_tpu_torch/_build/`` and loaded from there.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -109,7 +124,9 @@ from hig_tpu_torch.ops.fused_block import (
 from hig_tpu_torch.ops.pallas_attention import (
     B3_ROUNDINGS,
     CORE_ROUNDINGS,
+    b3_bf16_form,
     efficient_attention,
+    efficient_attention_bf16_form,
     fused_efficient_attention,
     fused_efficient_attention_plain,
     fused_projected_attention,
@@ -367,6 +384,14 @@ BF16_CASES = {
     "b3_self_t17": ("b3", "self", 17, N_PAIRS),
     "b3_self_t196": ("b3", "self", 196, N_PAIRS),
     "b3_self_t320": ("b3", "self", 320, N_PAIRS),
+    # past 320 rows the streaming form: a --single_transformer model's
+    # merged timeline at a native window of 196 (394) and at the evaluation
+    # length (392), more queries than the whole form holds over 77 keys, and
+    # 91 queries over 394 keys
+    "b3_self_t394": ("b3", "self", 394, N_PAIRS),
+    "b3_self_t392": ("b3", "self", 392, N_PAIRS),
+    "b3_tq321_tk77": ("b3", "tq_tk77", 321, N_PAIRS),
+    "b3_tq91_tk394": ("b3", "tq91", 394, N_PAIRS),
 }
 
 
@@ -395,8 +420,9 @@ def test_bf16_forms_match_their_twins(cuda_bf16, case):
         q, k, v = (torch.nn.functional.linear(xb, torch.cat([wb.wq, wb.wk, wb.wv]))
                    + torch.cat([wb.bq, wb.bk, wb.bv])).chunk(3, dim=-1)
         tk = 77 if variant == "tq_tk77" else t
-        args = (q.contiguous(), k[..., :tk, :].contiguous(), v[..., :tk, :].contiguous(), H,
-                mask[..., :tk].contiguous())
+        tq = 91 if variant == "tq91" else t
+        args = (q[..., :tq, :].contiguous(), k[..., :tk, :].contiguous(),
+                v[..., :tk, :].contiguous(), H, mask[..., :tk].contiguous())
     else:
         fn, plain, counter = flash_attention, flash_attention_plain, flash_attention
         qkv = (torch.nn.functional.linear(xb, torch.cat([wb.wq, wb.wk, wb.wv]))
@@ -471,15 +497,47 @@ def test_bf16_projected_takes_long_sequences(cuda_bf16):
                                   w.wq, w.bq, w.wk, w.bk, w.wv, w.bv, H, mask[..., :321])
 
 
-def test_bf16_efficient_refuses_long_sequences(cuda_bf16):
-    """B3-bf16 keeps a head's queries and keys in shared memory: up to 320
-    of each."""
-    gen = torch.Generator().manual_seed(2)
-    for tq, tk in ((321, 77), (91, 321)):
-        q = torch.randn((1, 2, tq, D), generator=gen).to(cuda_bf16, BF16)
-        k, v = (torch.randn((1, 2, tk, D), generator=gen).to(cuda_bf16, BF16) for _ in range(2))
-        with pytest.raises(ValueError, match="T up to 320"):
-            fused_efficient_attention(q, k, v, H, torch.ones((1, 2, tk), device=cuda_bf16))
+def _b3_bf16_operands(device, tq, tk, seed=2):
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn((N_PAIRS, 2, tq, D), generator=gen).to(device, BF16)
+    k, v = (torch.randn((N_PAIRS, 2, tk, D), generator=gen).to(device, BF16) for _ in range(2))
+    lengths = torch.tensor([max(1, L * tk // 91) for L in LENGTHS], device=device)
+    mask = (torch.arange(tk, device=device) < lengths[:, None]).float()
+    return q, k, v, mask[:, None, :].expand(N_PAIRS, 2, tk).contiguous()
+
+
+@pytest.mark.parametrize("tq,tk", [(394, 394), (321, 77), (91, 394)])
+def test_bf16_efficient_streams_long_sequences(cuda_bf16, tq, tk):
+    """Past 320 queries or keys B3-bf16 takes its streaming form, one
+    counted launch, within the gates of its twin."""
+    q, k, v, mask = _b3_bf16_operands(cuda_bf16, tq, tk)
+    assert b3_bf16_form(tq, tk) == "stream"
+    before = fused_efficient_attention.launches_bf16
+    got = fused_efficient_attention(q, k, v, H, mask)
+    torch.cuda.synchronize()
+    assert fused_efficient_attention.launches_bf16 == before + 1
+    args = (q, k, v, H, mask)
+    twin = fused_efficient_attention_plain(*args)
+    twin32 = fused_efficient_attention_plain(q.float(), k.float(), v.float(), H, mask)
+    twin_cpu = fused_efficient_attention_plain(*(a.cpu() if torch.is_tensor(a) else a
+                                                 for a in args))
+    ok, readings = bf16_close(got, twin, twin32, twin_cpu)
+    assert ok, readings
+
+
+@pytest.mark.parametrize("tq,tk", [(1, 1), (17, 17), (91, 91), (91, 77), (196, 196),
+                                   (320, 320), (320, 129)])
+def test_bf16_efficient_stream_form_is_the_whole_form(cuda_bf16, tq, tk):
+    """The streaming form rounds at the whole form's points and sums in its
+    order, so where both run they agree bit for bit."""
+    q, k, v, mask = _b3_bf16_operands(cuda_bf16, tq, tk, seed=3)
+    whole = efficient_attention_bf16_form(q, k, v, H, mask, "whole")
+    stream = efficient_attention_bf16_form(q, k, v, H, mask, "stream")
+    torch.cuda.synchronize()
+    assert torch.equal(whole, stream)
+    q, k, v, mask = _b3_bf16_operands(cuda_bf16, 321, 8)
+    with pytest.raises(ValueError, match="no form"):
+        efficient_attention_bf16_form(q, k, v, H, mask, "whole")
 
 
 def test_bf16_without_a_form_raises(cuda_bf16):
@@ -1456,3 +1514,77 @@ def test_native_loader_builds_and_loads_from_the_package(cuda):
     c = clips[0]  # swapped: actor 1 first; its init row normalized by the init stats
     np.testing.assert_allclose(motion[0, 0, 0, :4], (c[1, -1, :4] - mean[-4:]) / std[-4:],
                                rtol=1e-6)
+
+
+# --- the motion geometry, the data tools and visualization --------------------------------
+
+
+def test_single_transformer_bf16_step_at_window_196_matches_its_cpu_twin(cuda_bf16):
+    """One bfloat16 --single_transformer PIT step at a native window of 196
+    (394 merged rows: B3-bf16's streaming form), full width cut to its first
+    layer: chip_smoke's gates (loss and gradients within 0.2 of the bfloat16
+    effect from the plain route on the card, the control route above it;
+    within 0.7 from the same step on the CPU)."""
+    import chip_smoke
+
+    failures = []
+    row = chip_smoke.single_transformer_step_gate(cuda_bf16, failures)
+    assert not failures, failures
+    assert row["merged_rows"] == 394 and row["b3_bf16_launches"] >= 1
+
+
+def test_encode_pair_on_the_card_matches_the_cpu(cuda):
+    """The generator's FK and a batched encode_pair on the card against the
+    same on the CPU: joints within 1e-5, features within 1e-4, the foot
+    contacts exactly equal."""
+    from hig_tpu_torch.data.synthetic import generate_pair
+    from hig_tpu_torch.utils import motion_codec as codec
+
+    pairs = {}
+    for device in ("cuda", "cpu"):
+        rng = np.random.RandomState(4)
+        pairs[device] = [generate_pair(rng, 120, c, device) for c in range(6)]
+    for (a1, a2), (b1, b2) in zip(pairs["cuda"], pairs["cpu"]):
+        assert (a1.cpu() - b1).abs().max() <= 1e-5 and (a2.cpu() - b2).abs().max() <= 1e-5
+    feats = {d: codec.encode_pair(torch.stack([p[0] for p in ps]), torch.stack([p[1] for p in ps]),
+                                  0.002, codec.t2m_spec()).cpu()
+             for d, ps in pairs.items()}
+    assert feats["cuda"].shape == (6, 2, 120, 263)
+    assert (feats["cuda"] - feats["cpu"]).abs().max() <= 1e-4
+    assert torch.equal(feats["cuda"][..., :-1, -4:], feats["cpu"][..., :-1, -4:])
+
+
+def test_visualize_launches_b1_for_each_denoiser_block(cuda, tmp_path):
+    """python -m hig_tpu_torch.visualize on a caption-id run of 8 layers
+    (head width 64, narrow otherwise): its capturing DDIM-50 call launches B1
+    16 × 50 = 800 times plus the capture's warm-up's 16, and no other
+    kernel; its joints equal serve's decode of a replay on the same seed."""
+    from hig_tpu_torch import serve, visualize
+    from hig_tpu_torch.data.synthetic import generate_dataset
+    from hig_tpu_torch.train.__main__ import main as train_main
+
+    data, runs = str(tmp_path / "data"), str(tmp_path / "runs")
+    generate_dataset(data, clips_per_class=1, min_frames=90, max_frames=91)
+    widths = dict(num_layers=8, latent_dim=128, ff_size=256, num_heads=2, text_latent_dim=64,
+                  text_ff_size=128, text_num_heads=1, num_text_layers=1)
+    train_main(["--data_root", data, "--checkpoints_dir", runs, "--name", "vis", "--cap_id",
+                "--batch_size", "4", "--num_epochs", "1", "--limit_data_num", "4",
+                *[a for k, v in widths.items() for a in (f"--{k}", str(v))]])
+    opt = os.path.join(runs, "ntu_mul", "vis", "opt.txt")
+    counters = (fused_attention_block, fused_projected_attention, fused_efficient_attention,
+                flash_attention)
+    for c in counters:
+        c.launches = c.launches_bf16 = 0
+    made = visualize.main(["--opt_path", opt, "--no-gif", "--motion_length", "90", "--sampler",
+                           "ddim", "--ddim_steps", "50", "--class_id", "3", "--result_path",
+                           str(tmp_path / "vis")])
+    assert fused_attention_block.launches == 800 + 16
+    assert all(c.launches == c.launches_bf16 == 0 for c in counters[1:])
+    assert fused_attention_block.launches_bf16 == 0
+    joints = np.load(made["path"])
+    cond = serve.conditioning_for([dict(zip(("caption1", "caption2"), made["captions"]))],
+                                  cap_id=True)
+    out = made["sample"](torch.from_numpy(cond), torch.tensor([91]),
+                         generator=torch.Generator(device="cuda").manual_seed(0))
+    mean, std = serve.load_stats(os.path.join(os.path.dirname(opt), "meta"), 263)
+    assert np.array_equal(joints, serve.decode(out, mean, std)[1][0].cpu().numpy())

@@ -302,7 +302,7 @@ def test_port_imports_neither_jax_nor_hig_tpu():
         "for k in list(sys.modules):\n"
         "    if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'hig_tpu'):\n"
         "        del sys.modules[k]\n"
-        "for k in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'hig_tpu'):\n"
+        "for k in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'hig_tpu', 'matplotlib'):\n"
         "    sys.modules[k] = None\n"
         "import hig_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(hig_tpu_torch.__path__, 'hig_tpu_torch.')]\n"
@@ -323,4 +323,9 @@ def test_port_imports_neither_jax_nor_hig_tpu():
             "hig_tpu_torch.diffusion.solvers", "hig_tpu_torch.models.eval_models",
             "hig_tpu_torch.eval.metrics", "hig_tpu_torch.eval.evaluator",
             "hig_tpu_torch.eval.trainer", "hig_tpu_torch.eval.train", "hig_tpu_torch.eval.test",
-            "hig_tpu_torch.evaluate"} <= names
+            "hig_tpu_torch.evaluate", "hig_tpu_torch.utils.kinematics",
+            "hig_tpu_torch.utils.skeleton", "hig_tpu_torch.utils.filters",
+            "hig_tpu_torch.data.synthetic", "hig_tpu_torch.data.pose_tracks",
+            "hig_tpu_torch.viz.plot", "hig_tpu_torch.make_synthetic_data",
+            "hig_tpu_torch.preprocess", "hig_tpu_torch.extract_pose",
+            "hig_tpu_torch.visualize"} <= names

@@ -264,8 +264,34 @@ Phases, each printing one JSON line (or several):
      against the plain route on the card within BF16_TRAIN_RMS of the
      bfloat16 effect, the control route above it, and against the same
      step on the CPU within BF16_ROUTE_RMS.
+ 15. rest (after phase 14, before the profile): the rest of Queue A at full
+     width. (a) ``python -m hig_tpu_torch.distill``'s main from phase 7's
+     cfg_supervised run, one stage 50 -> 25, 2 steps of 32 pairs, with
+     --distill_w 1 and 2.5 (exactly DISTILL_STEP_LAUNCHES a step: the
+     fused teacher's 32 B1, the student's 16 B2), each stage's opt.txt;
+     ``serve`` of each stage from its opt.txt (DDIM-25, unguided: 400 B1
+     launches a call, 416 a capturing call; 3 more replays of the w = 1
+     student timed); the distillation step at batch 32 graphed and eager
+     from one seed (bit for bit, ms, the capture) and its first step's
+     loss and student gradients through the kernels against the plain
+     route (the train step's gates). (b) ``vb_terms_bpd`` and
+     ``prior_bpd`` on a full-width batch against the CPU twin
+     (LIKELIHOOD_TOL); ``calc_bpd_loop`` over a 100-step schedule through
+     the fused denoiser (1600 B1 launches). (c) ``serve --fit_smpl`` of 2
+     requests of 91 frames from the w = 2.5 stage on the 6890-vertex
+     synthetic model (the fits' walls and objective evaluations, each a
+     replay of the objective's CUDA graph); the camera stage's L-BFGS on
+     the card graphed and eager (bit for bit) and against the CPU: its
+     first 5 iterates within SMPL_ITERATE_TOL on SMPL-posed joints,
+     reported on the served ones; a 5-iteration fit of the first request's
+     joints on the card against the same on the CPU (final objective within
+     1%); ``python -m hig_tpu_torch.render_smpl --no-gif`` on the joints.
+     (d) ``CoEmbeddingEvaluator`` at the reference's widths on phase 9's
+     52 test clips at T = 196 against its CPU twin (LEGACY_TOL), its ms,
+     the matching score and R-precision of the first 32. SMPL and the
+     legacy protocol launch no kernel.
 Then the kernel table (the bfloat16 forms' rows after the float32 ones, and
-phase 12's, 13's and 14's launches added; B3-bf16's row with both forms'
+phase 12's, 13's, 14's and 15's launches added; B3-bf16's row with both forms'
 times under "forms"), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero without
 that line. Imports nothing of JAX or of the JAX package.
@@ -4176,6 +4202,532 @@ def phase_geometry(device, failures, smi: str, tmp: str) -> tuple[dict, dict]:
     return launches, forms
 
 
+# Phase 15: the rest of Queue A. Distillation from phase 7's cfg_supervised
+# run (its opt.txt: DDIM-50, a 32-clip subset): one stage 50 -> 25 at
+# --times 2, two steps of 32 pairs. One distillation step launches B1 2 x 16
+# times (the teacher's two half-steps: one denoiser call each over B pairs,
+# or over the conditional and null 2B pairs under --distill_w, 8 layers x 2
+# efficient blocks, eval mode, fused) and B2 16 times (the student's forward
+# in train mode; its backward recomputes the plain version and launches
+# nothing), nothing else.
+DISTILL_STAGE, DISTILL_TIMES, DISTILL_WS = 25, 2, (1.0, 2.5)
+DISTILL_STEP_LAUNCHES = {"fused_block": 2 * LAUNCHES_PER_STEP,
+                         "projected_attention": LAUNCHES_PER_STEP}
+DISTILL_CALL_B1 = LAUNCHES_PER_STEP * DISTILL_STAGE  # a DDIM-25 call of the student: 400
+DISTILL_GRAPH_STEPS = 4  # the step-level graphed/eager check: the first captures
+BPD_STEPS, BPD_PAIRS = 100, 4  # calc_bpd_loop: 100 denoiser calls, 1600 B1 launches
+LIKELIHOOD_TOL = 1e-5  # vb and prior bits on the card against the CPU, of the largest
+SMPL_VERTICES, SMPL_LENGTH, SMPL_REQUESTS = 6890, 91, 2  # 2 x 91 frames a request
+SMPL_ITERATE_TOL, SMPL_OBJECTIVE_TOL = 1e-4, 0.01
+SMPL_COMPARE_ITERS = 5  # the card-against-CPU fit: the CPU twin of serve's takes ~15 s
+RENDER_ITERS = 10  # render_smpl --num_smplify_iters (the camera stage 10 times as many)
+LEGACY_TOL = 1e-4
+
+
+def distill_check(device, failures, opt: str) -> dict:
+    """The distillation step at batch 32 from the cfg_supervised run (full
+    width, the teacher fused): DISTILL_GRAPH_STEPS steps graphed and eager
+    from one seed (metrics and the student bit for bit, each step's
+    launches DISTILL_STEP_LAUNCHES), their ms and the capture; the loss and
+    student gradients of a first step through the kernels against the
+    plain route, gated as phase 6 gates a train step: at the run's initial
+    weights (the train step's gates), and at its trained ones the loss and
+    the exact-zero leaves, with the per-leaf errors reported (there
+    float32 misses float64 by ~1e-3 of the smallest leaves in either route:
+    PERF.md §6)."""
+    from hig_tpu_torch.config import load_opt_txt, model_config
+    from hig_tpu_torch.data.dataset import epoch_batches
+    from hig_tpu_torch.diffusion import distill as pd
+    from hig_tpu_torch.models.interaction_model import InteractionModel
+    from hig_tpu_torch.train import checkpoint as ckpt
+    from hig_tpu_torch.train.trainer import Trainer, TrainState, eval_params, make_optimizer
+
+    cfg = load_opt_txt(opt)
+    trainer = Trainer(cfg, device)
+    weights = eval_params(ckpt.load(os.path.join(cfg.model_dir, "latest.pt")))
+    mcfg = model_config(cfg)
+    with torch.device(device):
+        teacher = InteractionModel(dataclasses.replace(mcfg, fused_blocks=True))
+    teacher.load_state_dict(weights)
+    teacher.to(device).eval().requires_grad_(False)
+    batch = trainer._device_batch(
+        next(epoch_batches(trainer_dataset(cfg), TRAIN_PAIRS, 0, seed=cfg.seed)),
+        trainer.precompute_tower(teacher))
+    grids = pd.distill_grids(trainer.sched.num_timesteps, DISTILL_STAGE, cfg.ddim_steps)
+
+    def student():
+        with torch.device(device):
+            model = InteractionModel(mcfg)
+        model.load_state_dict(weights)
+        return model.to(device).train()
+
+    runs, row = {}, {}
+    for graph in (False, True):
+        model = student()
+        state = TrainState(model=model, optimizer=make_optimizer(cfg, model))
+        step = pd.make_distill_step(trainer.sched, grids, teacher, graph=graph)
+        metrics, walls, counts = [], [], []
+        for i in range(DISTILL_GRAPH_STEPS):
+            gen = torch.Generator(device=device).manual_seed(100 + i)
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(state, batch, gen)
+            values = torch.stack([m[k] for k in pd.DISTILL_METRICS]).cpu()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            counts.append({k: v for k, v in bf16_counts().items() if v})
+            metrics.append(values)
+        runs[graph] = (torch.stack(metrics), {k: v.detach().clone()
+                                              for k, v in model.state_dict().items()})
+        key = "graphed" if graph else "eager"
+        row[f"{key}_step_ms"] = statistics.median(walls[1:])
+        row[f"{key}_first_step_ms"] = walls[0]
+        fail_if(failures, any(c != DISTILL_STEP_LAUNCHES for c in counts),
+                f"distill step ({key}) launches {counts}")
+        if graph:
+            captured = list(step.graphs.values())
+            row["graph"] = captured[0].summary() if len(captured) == 1 else len(captured)
+            fail_if(failures, len(captured) != 1, f"distill step graphs {len(captured)}")
+        del state, step, model
+    row["graph_equals_eager"] = bool(torch.equal(runs[True][0], runs[False][0]) and all(
+        torch.equal(v, runs[False][1][k]) for k, v in runs[True][1].items()))
+    row["loss_distill"] = runs[True][0][:, 0].tolist()
+    fail_if(failures, not row["graph_equals_eager"], "distill step: graphed != eager")
+    fail_if(failures, not torch.isfinite(runs[True][0]).all(), "distill step: non-finite")
+
+    from hig_tpu_torch.weights import load_flax_tree, random_flax_tree
+
+    with torch.device(device):  # the cfg_supervised run's seeded start (Trainer.init_state)
+        initial = load_flax_tree(InteractionModel(mcfg),
+                                 random_flax_tree(mcfg, cfg.seed)["params"]).state_dict()
+    for key, weights_at in (("grad_check", initial), ("grad_check_trained", weights)):
+        gc = distill_grad_routes(mcfg, weights_at, trainer.sched, grids, batch)
+        row[key] = gc
+        gate_grad_check(failures, "distill", key, gc)
+    return row
+
+
+def distill_grad_routes(mcfg, weights: dict, sched, grids, batch: dict) -> dict:
+    """The distillation loss of one fixed draw (grid indices, noise, a keep
+    mask dropping 8 of the 32 pairs) and every student gradient, the
+    student and the fused teacher both at ``weights``, through the kernels
+    against the plain versions, as ``grad_route_errors`` holds a train step."""
+    from hig_tpu_torch.diffusion import distill as pd
+    from hig_tpu_torch.models.interaction_model import InteractionModel
+
+    device = batch["motion"].device
+    with torch.device(device):  # built on the card: the CPU's init of CLIP takes seconds
+        student = InteractionModel(mcfg)
+        teacher = InteractionModel(dataclasses.replace(mcfg, fused_blocks=True))
+    student.load_state_dict(weights)
+    student.to(device).train()
+    teacher.load_state_dict(weights)
+    teacher.to(device).eval().requires_grad_(False)
+    gen = torch.Generator(device=device).manual_seed(7)
+    i = torch.randint(0, grids.num_steps, (TRAIN_PAIRS,), generator=gen, device=device)
+    noise = torch.randn(batch["motion"].shape, generator=gen, device=device)
+    keep = torch.arange(TRAIN_PAIRS, device=device) % 4 != 0
+
+    def route(plain: bool):
+        student.zero_grad(set_to_none=True)
+        with plain_blocks() if plain else contextlib.nullcontext():
+            loss, _ = pd.make_distill_loss(student, teacher, sched, grids)(batch, None, i, noise,
+                                                                           keep)
+            loss.backward()
+        return loss.item(), {n: p.grad.clone() for n, p in student.named_parameters()
+                             if p.grad is not None}
+
+    loss_k, got = route(False)
+    loss_p, want = route(True)
+    zero = zero_grad_leaves(student)
+    rel = leaf_rel_errs(got, want, zero)
+    worst = max(rel, key=rel.get)
+    scale = max(float(w.abs().max()) for w in want.values())
+    gc = {"loss_kernels": loss_k, "loss_plain": loss_p,
+          "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p), "leaves": len(want),
+          "same_leaves": got.keys() == want.keys(), "grad_rel_err_max": rel[worst],
+          "grad_rel_err_worst_leaf": worst, "worst_leaf_max": float(want[worst].abs().max()),
+          "grad_rel_err_median": statistics.median(rel.values()),
+          "zero_grad_leaves_max": max(float(got[n].abs().max()) / scale
+                                      for n in got if n.endswith(zero)),
+          "grad_max": scale, "kept_pairs": int(keep.sum())}
+    return gc
+
+
+def distill_runs(failures, smi: str, data: str, tmp: str, smpl_npz: str) -> tuple[dict, dict]:
+    """``python -m hig_tpu_torch.distill``'s main from the cfg_supervised run,
+    one stage 50 -> 25 with --distill_w 1 and 2.5, each then served by
+    ``serve``: the w = 1 stage 16 requests in two calls of 8 (the capture,
+    then a replay), then 3 more replays timed; the w = 2.5 stage, which
+    samples unguided, SMPL_REQUESTS requests of SMPL_LENGTH frames with
+    --fit_smpl on the SMPL_VERTICES-vertex synthetic model. Returns (rows,
+    the launch counts of these runs by form)."""
+    from hig_tpu_torch import distill, serve
+
+    opt = os.path.join(tmp, "runs", "ntu_mul", "cfg_supervised", "opt.txt")
+    stage = os.path.join(os.path.dirname(opt) + f"_distill{DISTILL_STAGE}", "opt.txt")
+    rows, total = {}, {}
+    made, fits = [], []
+    real_make, real_fit = serve.make_sampler, serve.fit_smpl
+
+    def spy_make(*args, **kw):
+        made.append((kw, real_make(*args, **kw)))
+        return made[-1][1]
+
+    def spy_fit(*args, **kw):
+        t0 = time.perf_counter()
+        fits.append(real_fit(*args, **kw))
+        fits.append(time.perf_counter() - t0)
+        return fits[-2]
+
+    serve.make_sampler, serve.fit_smpl = spy_make, spy_fit
+    try:
+        for w in DISTILL_WS:
+            label = f"distill_w{w}"
+            reset_counts()
+            t0 = time.perf_counter()
+            distill.main(["--opt_path", opt, "--stages", str(DISTILL_STAGE), "--epochs_per_stage",
+                          "1", "--times", str(DISTILL_TIMES), "--distill_w", str(w),
+                          "--log_every", "1"])
+            wall = time.perf_counter() - t0
+            counts = {k: v for k, v in bf16_counts().items() if v}
+            with open(os.path.join(os.path.dirname(stage), "metrics.jsonl")) as f:
+                lines = [json.loads(x) for x in f][-DISTILL_TIMES:]
+            steps = len(lines)
+            want = {k: steps * n for k, n in DISTILL_STEP_LAUNCHES.items()}
+            opt_text = open(stage).read()
+            row = {"wall_s": wall, "steps": steps, "launches": counts, "expected": want,
+                   "loss_distill": [x["loss_distill"] for x in lines],
+                   "grad_norm": [x["grad_norm"] for x in lines],
+                   "opt_ddim_steps": f"ddim_steps: {DISTILL_STAGE}" in opt_text,
+                   "opt_guidance_1": "guidance_scale: 1.0" in opt_text}
+            fail_if(failures, counts != want or steps != DISTILL_TIMES,
+                    f"{label}: launches {counts}, expected {want} ({steps} steps)")
+            fail_if(failures, not all(math.isfinite(x) for x in row["loss_distill"]),
+                    f"{label}: losses {row['loss_distill']}")
+            fail_if(failures, not (row["opt_ddim_steps"] and "sampler: ddim" in opt_text
+                                   and (w == 1.0 or row["opt_guidance_1"])),
+                    f"{label}: stage opt.txt")
+            total = merge_counts(total, counts)
+
+            reqs = os.path.join(tmp, f"{label}_requests.jsonl")
+            out = os.path.join(tmp, f"{label}_serve")
+            if w == 1.0:
+                requests = serve_requests() * 2
+                extra = ["--batch_size", str(N_PAIRS)]
+                want_b1 = 2 * DISTILL_CALL_B1 + LAUNCHES_PER_STEP
+            else:
+                requests = [{**r, "length": SMPL_LENGTH} for r in serve_requests()[:SMPL_REQUESTS]]
+                extra = ["--fit_smpl", "--smpl_model", smpl_npz]
+                want_b1 = DISTILL_CALL_B1 + LAUNCHES_PER_STEP
+            with open(reqs, "w") as f:
+                f.write("".join(json.dumps({**r, "id": f"r{i}"}) + "\n"
+                                for i, r in enumerate(requests)))
+            made.clear()
+            reset_counts()
+            t0 = time.perf_counter()
+            serve.main(["--requests", reqs, "--opt_path", stage, "--out_dir", out, *extra])
+            serve_wall = time.perf_counter() - t0
+            counts = {k: v for k, v in bf16_counts().items() if v}
+            kw, sample = made[0]
+            srow = {"wall_s": serve_wall, "launches": counts, "expected_b1": want_b1,
+                    "sampler": kw["sampler"], "ddim_steps": kw["ddim_steps"],
+                    "guidance_scale": kw["guidance_scale"]}
+            fail_if(failures, counts != {"fused_block": want_b1},
+                    f"{label} serve: launches {counts}, expected {want_b1} B1")
+            fail_if(failures, (kw["sampler"], kw["ddim_steps"], kw["guidance_scale"])
+                    != ("ddim", DISTILL_STAGE, 1.0), f"{label} serve: sampler {kw}")
+            total = merge_counts(total, counts)
+            if w == 1.0:
+                from hig_tpu_torch.serve import conditioning_for
+
+                cond = torch.from_numpy(conditioning_for(serve_requests())).to("cuda")
+                lengths = torch.tensor([r["length"] + 1 for r in serve_requests()], device="cuda")
+                walls = []
+                for k in range(SERVE_CALLS):
+                    reset_counts()
+                    gen = torch.Generator(device="cuda").manual_seed(k)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    sample(cond, lengths, generator=gen)
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                    counts = {k2: v for k2, v in bf16_counts().items() if v}
+                    fail_if(failures, counts != {"fused_block": DISTILL_CALL_B1},
+                            f"{label} DDIM-{DISTILL_STAGE} replay launches {counts}")
+                    total = merge_counts(total, counts)
+                srow["ddim25_call_ms"] = statistics.median(walls)
+                srow["graph"] = list(sample.graphs.values())[0].summary()
+            else:
+                with open(os.path.join(out, "index.json")) as f:
+                    index = json.load(f)
+                results, fit_walls = fits[0::2], fits[1::2]
+                srow["smpl"] = {
+                    "fit_wall_s": fit_walls[0],
+                    "fits": [{"frames": int(r.pose.shape[0]),
+                              "evaluations": r.camera_info.evaluations + r.body_info.evaluations,
+                              "camera_iterations": len(r.camera_info.linesearch_steps),
+                              "body_iterations": len(r.body_info.linesearch_steps),
+                              "final_loss": float(r.final_loss)} for r in results[0]],
+                    "files": all(os.path.exists(e.get("smpl", "")) for e in index)}
+                fail_if(failures, not srow["smpl"]["files"] or len(results[0]) != SMPL_REQUESTS
+                        or any(f["frames"] != 2 * SMPL_LENGTH or not math.isfinite(f["final_loss"])
+                               for f in srow["smpl"]["fits"]), f"serve --fit_smpl {srow['smpl']}")
+                rows["smpl_serve"] = (index[0]["path"], results[0][0], fit_walls[0])
+            rows[label] = {"distill": row, "serve": srow}
+            print(json.dumps({"phase": "rest", "run": label, "nvidia_smi": smi, **row,
+                              "serve": srow}), flush=True)
+    finally:
+        serve.make_sampler, serve.fit_smpl = real_make, real_fit
+    t0 = time.perf_counter()
+    rows["check"] = distill_check(torch.device("cuda"), failures, opt)
+    rows["check"]["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"phase": "rest", "run": "distill_step", "nvidia_smi": smi,
+                      **rows["check"]}), flush=True)
+    return rows, total
+
+
+def likelihood_check(model, device, failures) -> tuple[dict, dict]:
+    """vb_terms_bpd and prior_bpd on one full-width batch (32 pairs, T = 91,
+    t over the schedule with zeros, eps within 0.02 of the noise) on the
+    card against the CPU twin; calc_bpd_loop over a BPD_STEPS-step schedule
+    through the fused denoiser (16 B1 launches a step). Returns (row,
+    launch counts)."""
+    from hig_tpu_torch import serve
+    from hig_tpu_torch.diffusion import gaussian as g
+
+    sched = g.make_schedule(g.linear_betas(1000))
+    gen = torch.Generator().manual_seed(11)
+    x0 = torch.randn(TRAIN_PAIRS, 2, T, 263, generator=gen).clamp(-1.2, 1.2)
+    noise = torch.randn(x0.shape, generator=gen)
+    t = torch.randint(0, 1000, (TRAIN_PAIRS,), generator=gen)
+    t[:4] = 0
+    out = noise + 0.02 * torch.randn(x0.shape, generator=gen)
+    twins = {}
+    for d in (device, torch.device("cpu")):
+        x_t = g.q_sample(sched, x0.to(d), t.to(d), noise.to(d))
+        vb, _ = g.vb_terms_bpd(sched, out.to(d), x0.to(d), x_t, t.to(d))
+        twins[d.type] = (vb.cpu(), g.prior_bpd(sched, x0.to(d)).cpu())
+    row = {"vb_rel_err": float((twins["cuda"][0] - twins["cpu"][0]).abs().max()
+                               / twins["cpu"][0].abs().max()),
+           "prior_rel_err": float((twins["cuda"][1] - twins["cpu"][1]).abs().max()
+                                  / twins["cpu"][1].abs().max())}
+    fail_if(failures, not (row["vb_rel_err"] <= LIKELIHOOD_TOL
+                           and row["prior_rel_err"] <= LIKELIHOOD_TOL),
+            f"likelihood terms card vs CPU {row}")
+
+    sched100 = g.make_schedule(g.linear_betas(BPD_STEPS))
+    requests = serve_requests()[:BPD_PAIRS]
+    cond = torch.from_numpy(serve.conditioning_for(requests)).to(device)
+    lengths = torch.tensor([r["length"] + 1 for r in requests], device=device)
+    with torch.no_grad():
+        xf_proj, xf_out = model.encode_text(cond)
+        text_kv = model.text_kv(xf_out)
+        x_start = torch.randn(BPD_PAIRS, 2, T, 263, generator=gen).clamp(-1, 1).to(device)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bpd = g.calc_bpd_loop(sched100, lambda x, tt: model.denoise(x, tt, lengths, xf_proj,
+                                                                    text_kv=text_kv),
+                              x_start, generator=torch.Generator(device=device).manual_seed(0))
+        torch.cuda.synchronize()
+    counts = {k: v for k, v in bf16_counts().items() if v}
+    row.update(bpd_wall_ms=(time.perf_counter() - t0) * 1e3, bpd_launches=counts,
+               total_bpd=bpd["total_bpd"].tolist(), prior_bpd=bpd["prior_bpd"].tolist(),
+               vb_shape=list(bpd["vb"].shape))
+    fail_if(failures, counts != {"fused_block": BPD_STEPS * LAUNCHES_PER_STEP},
+            f"calc_bpd_loop launches {counts}")
+    fail_if(failures, row["vb_shape"] != [BPD_STEPS, BPD_PAIRS]
+            or not all(torch.isfinite(v).all() for v in bpd.values())
+            or not torch.allclose(bpd["total_bpd"], bpd["vb"].sum(0) + bpd["prior_bpd"]),
+            f"calc_bpd_loop output {row}")
+    return row, counts
+
+
+def smpl_check(device, failures, served: tuple, smpl_npz: str, tmp: str) -> dict:
+    """For the first served request's joints (2 x SMPL_LENGTH frames) and
+    its fit on the card in ``serve --fit_smpl``: the camera stage's L-BFGS
+    for 5 iterations on the card graphed, on the card eager (equal bit for
+    bit) and on the CPU, on SMPL-posed joints of as many frames (iterates
+    within SMPL_ITERATE_TOL of the CPU's) and on the served joints
+    (reported: a random-weight model's motions put the objective near 5e13,
+    where float32's order of sums alone moves a 17-step line search's
+    iterates ~1e-4); a fit of SMPL_COMPARE_ITERS iterations (the camera
+    stage 10 times as many) of the served joints on the card and on the
+    CPU, whose final objectives must agree within SMPL_OBJECTIVE_TOL, with
+    walls and evaluations beside the serve fit's; then ``python -m
+    hig_tpu_torch.render_smpl --no-gif`` on the joints."""
+    from hig_tpu_torch import render_smpl
+    from hig_tpu_torch.smpl import lbs as tl
+    from hig_tpu_torch.smpl import smplify
+    from hig_tpu_torch.smpl.fit import joint_confidences
+    from hig_tpu_torch.smpl.lbfgs import lbfgs_run
+    from hig_tpu_torch.smpl.prior import synthetic_gmm_prior
+
+    path, card_fit, card_wall = served
+    joints = np.load(path)["joints"]
+    N = joints.shape[0] * joints.shape[1]
+    j3d_cpu = torch.from_numpy(np.asarray(joints.reshape(N, 22, 3), np.float32))
+    cpu_model = tl.load_smpl_model(smpl_npz)
+    # SMPL-posed joints (seeded poses and shapes, 2 cm of noise): the
+    # well-scaled input the iterates are gated on
+    gen = torch.Generator().manual_seed(3)
+    _, posed = tl.lbs(cpu_model, 0.5 * torch.randn(N, 10, generator=gen),
+                      0.3 * torch.randn(N, 72, generator=gen))
+    posed = posed[:, :22] + 0.02 * torch.randn(N, 22, 3, generator=gen)
+    lbfgs_rows = {}
+    for name, j3d_host in (("posed", posed), ("served", j3d_cpu)):
+        iterates = {}
+        for label, d, graph in (("graphed", device, True), ("eager", device, False),
+                                ("cpu", torch.device("cpu"), False)):
+            model, j3d = cpu_model.to(d), j3d_host.to(d)
+            zeros = torch.zeros(N, 72, device=d)
+            init_cam = smplify.guess_init_3d(tl.lbs_joints(model, zeros[:, :10], zeros), j3d)
+
+            def cam_loss(p, model=model, j3d=j3d, init_cam=init_cam, zeros=zeros):
+                mj = tl.lbs_joints(model, zeros[:, :10],
+                                   torch.cat([p["global_orient"], zeros[:, 3:]], dim=-1))
+                return smplify.camera_fitting_loss_3d(mj[:, :22], p["cam_t"], init_cam, j3d)
+
+            iterates[label] = lbfgs_run(cam_loss, {"global_orient": zeros[:, :3],
+                                                   "cam_t": init_cam}, 5,
+                                        record_iterates=True, graph=graph)[2]
+        lbfgs_rows[name] = {
+            "iterate_rel_err": max(float((a[k].cpu() - b[k]).abs().max() / b[k].abs().max())
+                                   for a, b in zip(iterates["graphed"].iterates,
+                                                   iterates["cpu"].iterates) for k in b),
+            "graphed_equals_eager": all(torch.equal(a[k], b[k]) for a, b in zip(
+                iterates["graphed"].iterates, iterates["eager"].iterates) for k in b),
+            "linesearch_steps": iterates["graphed"].linesearch_steps,
+            "same_linesearch_steps": iterates["graphed"].linesearch_steps
+            == iterates["cpu"].linesearch_steps}
+    err = lbfgs_rows["posed"]["iterate_rel_err"]
+    same = all(r["graphed_equals_eager"] for r in lbfgs_rows.values())
+    row = {"frames": N, "serve_fit_wall_s": card_wall,
+           "serve_fit_evaluations": (card_fit.camera_info.evaluations
+                                     + card_fit.body_info.evaluations)}
+    losses = {}
+    for d in (device, torch.device("cpu")):
+        fit = smplify.SMPLify3D(model=cpu_model.to(d), prior=synthetic_gmm_prior().to(d),
+                                num_iters=SMPL_COMPARE_ITERS)
+        t0 = time.perf_counter()
+        result = fit(torch.zeros(N, 72, device=d), torch.zeros(N, 10, device=d), j3d_cpu.to(d),
+                     joint_confidences(d))
+        losses[d.type] = float(result.final_loss)
+        row[f"{d.type}_fit_wall_s"] = time.perf_counter() - t0
+        row[f"{d.type}_evaluations"] = (result.camera_info.evaluations
+                                        + result.body_info.evaluations)
+    row.update(lbfgs=lbfgs_rows, final_loss=losses,
+               final_loss_rel_diff=abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"]))
+    fail_if(failures, not (err <= SMPL_ITERATE_TOL and same
+                           and row["final_loss_rel_diff"] <= SMPL_OBJECTIVE_TOL),
+            f"SMPL card vs CPU {row}")
+
+    npy = os.path.join(tmp, "smpl_joints.npy")
+    np.save(npy, joints)
+    out = os.path.join(tmp, "render_smpl")
+    t0 = time.perf_counter()
+    rendered = render_smpl.main(["--file_name", npy, "--save_dir", out, "--smpl_model",
+                                 smpl_npz, "--num_smplify_iters", str(RENDER_ITERS), "--no-gif"])
+    row["render_wall_s"] = time.perf_counter() - t0
+    with open(os.path.join(out, "smpl_joints.pkl"), "rb") as f:
+        import pickle
+
+        meshes = pickle.load(f)
+    row["render_meshes"] = [list(m.shape) for m in meshes]
+    row["render_evaluations"] = (rendered.camera_info.evaluations
+                                 + rendered.body_info.evaluations)
+    fail_if(failures, row["render_meshes"] != [[SMPL_LENGTH, SMPL_VERTICES, 3]] * 2
+            or not all(np.isfinite(m).all() for m in meshes)
+            or not os.path.exists(os.path.join(out, "smpl_joints_params.npz")),
+            f"render_smpl {row['render_meshes']}")
+    return row
+
+
+def legacy_check(device, failures, data: str) -> dict:
+    """CoEmbeddingEvaluator at the reference's widths (seeded weights) on
+    phase 9's EVAL_CLIPS test clips at EVAL_T (the first actor's features,
+    the first caption's words) on the card against the CPU twin
+    (LEGACY_TOL), its ms, and the matching score and R-precision of the
+    protocol's batches of 32 (the first 32 clips)."""
+    from hig_tpu_torch.data.word_vectorizer import WordVectorizer
+    from hig_tpu_torch.eval.legacy_protocol import (
+        CoEmbeddingEvaluator,
+        evaluate_matching_and_r_precision,
+        vectorize_tokens,
+    )
+
+    with open(os.path.join(data, "test_sub.txt")) as f:
+        names = f.read().split()
+    motions = np.zeros((len(names), EVAL_T, 263), np.float32)
+    m_lens, vecs, wv = [], [], WordVectorizer()
+    for i, name in enumerate(names):
+        clip = np.load(os.path.join(data, "new_joint_vecs", name + ".npy"))[0]
+        n = min(len(clip), EVAL_T)
+        motions[i, :n] = clip[:n]
+        m_lens.append(n)
+        with open(os.path.join(data, "texts", name + ".txt")) as f:
+            caption = f.readline().split("#")[0].split("_")[0]
+        vecs.append(vectorize_tokens([f"{w}/OTHER" for w in caption.split()], 20, wv))
+    inputs = (motions, np.asarray(m_lens), np.stack([v[0] for v in vecs]),
+              np.stack([v[1] for v in vecs]), np.asarray([v[2] for v in vecs]))
+    out, row = {}, {"clips": len(names)}
+    for d in (device, torch.device("cpu")):
+        ev = CoEmbeddingEvaluator(263, device=d)
+        ev.get_co_embeddings(*inputs)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[d.type] = [e.cpu() for e in ev.get_co_embeddings(*inputs)]
+        row[f"{d.type}_ms"] = (time.perf_counter() - t0) * 1e3
+    errs = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(out["cuda"], out["cpu"])]
+    match, r_prec = evaluate_matching_and_r_precision(out["cuda"][0].numpy(),
+                                                      out["cuda"][1].numpy())
+    row.update(text_rel_err=errs[0], motion_rel_err=errs[1], matching_score=float(match),
+               r_precision=[float(x) for x in r_prec])
+    fail_if(failures, max(errs) > LEGACY_TOL or not all(np.isfinite(row["r_precision"])),
+            f"legacy co-embeddings card vs CPU {row}")
+    return row
+
+
+def phase_rest(device, failures, smi: str, data: str, tmp: str, fused_model) -> dict:
+    """Phase 15 (see the module doc). Returns the launch counts of its main
+    path by form: the distillation runs, the distilled students' serving
+    calls and calc_bpd_loop (the step-level check's and the gradient
+    check's launches compare routes and are left out)."""
+    from hig_tpu_torch.smpl.lbs import save_smpl_npz, synthetic_smpl_model
+
+    t_phase = time.perf_counter()
+    smpl_npz = os.path.join(tmp, f"smpl_synthetic_{SMPL_VERTICES}.npz")
+    save_smpl_npz(synthetic_smpl_model(SMPL_VERTICES), smpl_npz)
+    parts = {}
+
+    def lap(name, t0):
+        parts[name] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    t0 = time.perf_counter()
+    rows, launches = distill_runs(failures, smi, data, tmp, smpl_npz)
+    t0 = lap("distill", t0)
+    row, counts = likelihood_check(fused_model, device, failures)
+    launches = merge_counts(launches, counts)
+    print(json.dumps({"phase": "rest", "run": "likelihood", "nvidia_smi": smi, **row}),
+          flush=True)
+    t0 = lap("likelihood", t0)
+    reset_counts()
+    row = smpl_check(device, failures, rows["smpl_serve"], smpl_npz, tmp)
+    print(json.dumps({"phase": "rest", "run": "smpl", "nvidia_smi": smi, **row}), flush=True)
+    t0 = lap("smpl", t0)
+    row = legacy_check(device, failures, data)
+    print(json.dumps({"phase": "rest", "run": "legacy", "nvidia_smi": smi, **row}), flush=True)
+    lap("legacy", t0)
+    counts = {k: v for k, v in bf16_counts().items() if v}
+    fail_if(failures, bool(counts), f"SMPL and the legacy protocol launched {counts}")
+    print(json.dumps({"phase": "rest", "launches": launches, "parts_s": parts,
+                      "seconds": time.perf_counter() - t_phase}), flush=True)
+    return launches
+
+
 def trainer_dataset(cfg):
     from hig_tpu_torch.data.dataset import PairDataset, load_training_stats
 
@@ -4246,8 +4798,11 @@ def main() -> int:
         lap("options")
         geometry_launches, b3_forms = phase_geometry(device, failures, smi, tmp)
         lap("geometry")
+        rest_launches = phase_rest(device, failures, smi, data, tmp, models["fused"])
+        lap("rest")
         ablation_launches = merge_counts(ablation_launches, option_launches)
         ablation_launches = merge_counts(ablation_launches, geometry_launches)
+        ablation_launches = merge_counts(ablation_launches, rest_launches)
         bf16_rows["efficient_attention_bf16"]["forms"] = b3_forms
         bf16_rows["projected_attention_bf16"].update(b2_long)
         for form, row in bf16_rows.items():

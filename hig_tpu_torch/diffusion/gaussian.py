@@ -1,6 +1,6 @@
 """Diffusion schedule tables, the forward process the trainer noises with,
-and the DDPM and DDIM samplers (counterpart of
-``hig_tpu/diffusion/gaussian.py:25-410,522-541``).
+the DDPM and DDIM samplers and the likelihood terms (counterpart of
+``hig_tpu/diffusion/gaussian.py``).
 
 The coefficient tables are computed once in float64 on the host and stored
 as float32, as the JAX package does. The ancestral sampler
@@ -16,9 +16,12 @@ exactly as the JAX sampler computes them.
 Every draw of a loop (x_T, each step's noise, the prefix and pin draws)
 comes from its ``generator`` unless the caller hands it in (``noise=``,
 ``step_noise=``, ``pre_noise=``, ``pin_noise=``), so a test can replay the
-JAX package's key chain. The likelihood terms (``vb_terms_bpd``,
-``calc_bpd_loop``) are not ported: no tool calls them. Training takes the
-epsilon target only.
+JAX package's key chain. Training takes the epsilon target only.
+
+The likelihood terms (``normal_kl`` to ``calc_bpd_loop``, JAX's
+``:413-520``) give the variational bound in bits per dimension; the loop
+draws one noise per timestep from its ``generator`` unless handed them
+(``noise=``).
 """
 
 from __future__ import annotations
@@ -340,3 +343,81 @@ def ddim_sample_loop(sched: DiffusionSchedule, model: Denoiser, noise: torch.Ten
         z = step_noise(i) if step_noise is not None else draw(x.shape)
         x = mean + float(t_scalar != 0) * sigma * z
     return x
+
+
+def normal_kl(mean1, logvar1, mean2, logvar2):
+    """KL between two diagonal Gaussians, in nats."""
+    return 0.5 * (-1.0 + logvar2 - logvar1 + torch.exp(logvar1 - logvar2)
+                  + ((mean1 - mean2) ** 2) * torch.exp(-logvar2))
+
+
+def _approx_standard_normal_cdf(x):
+    return 0.5 * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (x + 0.044715 * x ** 3)))
+
+
+def discretized_gaussian_log_likelihood(x, means, log_scales):
+    """Log-likelihood of a Gaussian discretized to [-1, 1] 8-bit bins."""
+    centered_x = x - means
+    inv_stdv = torch.exp(-log_scales)
+    cdf_plus = _approx_standard_normal_cdf(inv_stdv * (centered_x + 1.0 / 255.0))
+    cdf_min = _approx_standard_normal_cdf(inv_stdv * (centered_x - 1.0 / 255.0))
+    log_cdf_plus = torch.log(cdf_plus.clamp(min=1e-12))
+    log_one_minus_cdf_min = torch.log((1.0 - cdf_min).clamp(min=1e-12))
+    log_cdf_delta = torch.log((cdf_plus - cdf_min).clamp(min=1e-12))
+    return torch.where(x < -0.999, log_cdf_plus,
+                       torch.where(x > 0.999, log_one_minus_cdf_min, log_cdf_delta))
+
+
+def _mean_bits(v: torch.Tensor) -> torch.Tensor:
+    """Mean over every axis but the first, nats → bits."""
+    return v.mean(dim=tuple(range(1, v.ndim))) / math.log(2.0)
+
+
+def vb_terms_bpd(sched: DiffusionSchedule, model_output: torch.Tensor, x_start: torch.Tensor,
+                 x_t: torch.Tensor, t: torch.Tensor, clip_denoised: bool = False):
+    """The variational-bound term of timestep ``t`` (B,) in bits per
+    dimension: the decoder NLL at t = 0, else KL(q(x_{t-1}|x_t, x_0) ‖
+    p(x_{t-1}|x_t)). Returns (output (B,), pred_xstart)."""
+    true_mean, _, true_log_var = q_posterior_mean_variance(sched, x_start, x_t, t)
+    mean, log_var, pred_xstart = p_mean_variance(sched, model_output, x_t, t,
+                                                 clip_denoised=clip_denoised)
+    kl = _mean_bits(normal_kl(true_mean, true_log_var, mean, log_var))
+    decoder_nll = _mean_bits(-discretized_gaussian_log_likelihood(x_start, mean, 0.5 * log_var))
+    return torch.where(t == 0, decoder_nll, kl), pred_xstart
+
+
+def prior_bpd(sched: DiffusionSchedule, x_start: torch.Tensor) -> torch.Tensor:
+    """KL(q(x_T | x_0) ‖ N(0, I)) in bits per dimension, (B,)."""
+    t = torch.full((x_start.shape[0],), sched.num_timesteps - 1, dtype=torch.int64,
+                   device=x_start.device)
+    mean = _extract(sched.sqrt_alphas_cumprod, t, x_start.ndim) * x_start
+    log_var = _extract(sched.log_one_minus_alphas_cumprod, t, x_start.ndim)
+    return _mean_bits(normal_kl(mean, log_var, torch.zeros_like(mean),
+                                torch.zeros_like(log_var)))
+
+
+def calc_bpd_loop(sched: DiffusionSchedule, model: Denoiser, x_start: torch.Tensor,
+                  noise=None, generator: torch.Generator | None = None,
+                  clip_denoised: bool = False, tables: DiffusionSchedule | None = None) -> dict:
+    """The bound over every timestep, t = T − 1 down to 0, as JAX's scan
+    runs it: step i noises x_0 to t = T − 1 − i with ``noise[i]`` (``noise``
+    (T, *x_start.shape); drawn from ``generator`` when not given), calls ``model(x_t, t)`` once and takes its vb term and the
+    MSE of the implied eps. Returns total_bpd (B,), prior_bpd (B,), vb (T,
+    B) and mse (T, B). ``tables`` as in :func:`p_sample_loop`."""
+    tabs = tables if tables is not None else sched.on(x_start.device)
+    draw = _drawer(x_start, generator)
+    batch, T = x_start.shape[0], tabs.num_timesteps
+    vbs, mses = [], []
+    for i in range(T):
+        t = torch.full((batch,), T - 1 - i, dtype=torch.int64, device=x_start.device)
+        z = draw(x_start.shape) if noise is None else noise[i]
+        x_t = q_sample(tabs, x_start, t, z)
+        out = model(x_t, t).to(x_start.dtype)
+        vb, pred_xstart = vb_terms_bpd(tabs, out, x_start, x_t, t, clip_denoised)
+        eps = predict_eps_from_xstart(tabs, x_t, t, pred_xstart)
+        vbs.append(vb)
+        mses.append(((eps - z) ** 2).mean(dim=tuple(range(1, z.ndim))))
+    prior = prior_bpd(tabs, x_start)
+    vb = torch.stack(vbs)
+    return {"total_bpd": vb.sum(dim=0) + prior, "prior_bpd": prior, "vb": vb,
+            "mse": torch.stack(mses)}

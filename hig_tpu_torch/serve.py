@@ -43,7 +43,12 @@ whose layers never fuse: there --blocks fused runs the self-attention
 through the projected-attention kernel, as JAX's layers do, and the
 printout says so. --sampler picks DDPM (every timestep of the
 schedule), DDIM or DPM-Solver++(2M) over --ddim_steps (default without
---opt_path: DDIM-50).
+--opt_path: DDIM-50). --fit_smpl fits SMPL bodies to each result's joints
+(``smpl/smplify.py``: 30 iterations, the camera stage 10 times as many,
+from a zero pose and shape; --smpl_model SMPL_NEUTRAL.pkl or an .npz
+export, --gmm gmm_08.pkl, else the synthetic model and prior) and writes
+<id>_smpl.npz (pose, betas, cam_t) beside each result, under "smpl" in
+index.json.
 
     python -m hig_tpu_torch.serve --requests reqs.jsonl --random_init 0
     python -m hig_tpu_torch.serve --requests reqs.jsonl --random_init 0 --no_eff
@@ -68,6 +73,8 @@ from hig_tpu_torch.data.vocab import CAP2KEY
 from hig_tpu_torch.diffusion import gaussian as g
 from hig_tpu_torch.models.interaction_model import InteractionModel, ModelConfig
 from hig_tpu_torch.models.tokenizer import tokenize
+from hig_tpu_torch.smpl.fit import joint_confidences, load_assets
+from hig_tpu_torch.smpl.smplify import SMPLify3D
 from hig_tpu_torch.train import checkpoint as ckpt
 from hig_tpu_torch.train.trainer import eval_params, make_sampler
 from hig_tpu_torch.utils.motion_codec import recover_from_ric2
@@ -162,6 +169,36 @@ def write_results(out_dir: str, requests: list[dict], features, joints, index: l
         index.append({"id": req["id"], "path": path, "length": L})
 
 
+FIT_SMPL_ITERS = 30  # the body stage's L-BFGS iterations (the camera stage 10 times as many)
+
+
+def fit_smpl(index: list, smpl_model: str | None, gmm: str | None, device) -> list:
+    """SMPLify3D on each result's joints (2, L, 22, 3), every frame of both
+    actors in one batch from a zero pose and shape; writes
+    <id>_smpl.npz beside the result and adds its path to the entry under
+    "smpl". Returns each fit's result."""
+    model, prior = load_assets(smpl_model, gmm, device)
+    fitter = SMPLify3D(model=model, prior=prior, num_iters=FIT_SMPL_ITERS)
+    conf = joint_confidences(device)
+    results = []
+    for entry in index:
+        joints = np.load(entry["path"])["joints"]
+        N = joints.shape[0] * joints.shape[1]
+        j3d = torch.from_numpy(np.asarray(joints.reshape(N, 22, 3), np.float32)).to(device)
+        t0 = time.time()
+        result = fitter(torch.zeros((N, 72), device=device), torch.zeros((N, 10), device=device),
+                        j3d, conf)
+        path = entry["path"].replace(".npz", "_smpl.npz")
+        np.savez(path, pose=result.pose.cpu().numpy(), betas=result.betas.cpu().numpy(),
+                 cam_t=result.camera_translation.cpu().numpy())
+        entry["smpl"] = path
+        print(f"fit SMPL to {entry['id']}: {N} frames in {time.time() - t0:.2f}s, "
+              f"{result.camera_info.evaluations + result.body_info.evaluations} evaluations, "
+              f"final loss {float(result.final_loss):.1f}")
+        results.append(result)
+    return results
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -200,6 +237,13 @@ def main(argv=None):
     parser.add_argument("--diffusion_steps", type=int, default=None,
                         help="default: the run's with --opt_path, else 1000")
     parser.add_argument("--seed", type=int, default=0, help="seed of the initial noise")
+    parser.add_argument("--fit_smpl", action="store_true",
+                        help="fit SMPL bodies to each result's joints")
+    parser.add_argument("--smpl_model", default=None,
+                        help="SMPL_NEUTRAL.pkl or .npz (--fit_smpl); the synthetic model "
+                             "if absent")
+    parser.add_argument("--gmm", default=None,
+                        help="gmm_08.pkl (--fit_smpl); the synthetic prior if absent")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
 
@@ -282,6 +326,8 @@ def main(argv=None):
         elapsed = time.time() - t_start
         print(f"[{elapsed:.1f}s] {lo + len(chunk)}/{len(requests)} "
               f"({frames_done / elapsed:.0f} frames/s)")
+    if args.fit_smpl:
+        fit_smpl(index, args.smpl_model, args.gmm, device)
     with open(os.path.join(args.out_dir, "index.json"), "w") as f:
         json.dump(index, f)
     print(f"wrote {len(index)} results to {args.out_dir} "

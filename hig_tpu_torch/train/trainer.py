@@ -447,15 +447,16 @@ TRAIN_METRICS = ("loss_mot_rec", "grad_norm")
 
 def make_train_step(sched: g.DiffusionSchedule, pit: bool, grad_accum: int = 1,
                     ema_decay: float = 0.0, loss_aware: bool = False,
-                    graph: bool = True, make_loss: Callable | None = None) -> Callable:
+                    graph: bool = True, make_loss: Callable | None = None,
+                    metric_names: tuple = TRAIN_METRICS) -> Callable:
     """``train_step(state, batch, generator=None, t=None, noise=None,
     keep=None) -> metrics``: the loss (``make_loss(model, sched)``, default
     :func:`make_loss_fn` with ``pit`` and ``loss_aware``), gradients
     (:func:`compute_grads`), the
-    optimizer update, the EMA, and ``{"loss_mot_rec", "grad_norm"}`` as
-    0-dim tensors (views of one (2,) tensor: :data:`TRAIN_METRICS` order,
-    read back in one copy); the logged norm is over every gradient, before
-    the clip. With ``loss_aware``: ``train_step(state, batch, generator,
+    optimizer update, the EMA, and the loss and the gradient norm under
+    ``metric_names`` (default :data:`TRAIN_METRICS`) as 0-dim tensors
+    (views of one (2,) tensor, read back in one copy); the logged norm is
+    over every gradient, before the clip. With ``loss_aware``: ``train_step(state, batch, generator,
     ..., ts_state=) -> (metrics, ts_state)``, a new history with the step's
     t and per-sample losses (every microbatch's) folded in.
 
@@ -547,7 +548,7 @@ def make_train_step(sched: g.DiffusionSchedule, pit: bool, grad_accum: int = 1,
             out = run(state, generator, **inputs)
         state.step += 1
         values = out[0] if loss_aware else out
-        metrics = dict(zip(TRAIN_METRICS, values))
+        metrics = dict(zip(metric_names, values))
         if loss_aware:
             return metrics, tss.LossSecondMomentState(losses=out[1], counts=out[2])
         return metrics

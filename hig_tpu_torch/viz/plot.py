@@ -139,3 +139,28 @@ def plot_3d_motion2(
     ani = FuncAnimation(fig, update, frames=frame_number, interval=1000 / fps, repeat=False)
     ani.save(save_path, writer=PillowWriter(fps=fps))
     plt.close(fig)
+
+
+def plot_point_clouds(path: str, mesh1: np.ndarray, mesh2: np.ndarray, fps: int = 20,
+                      max_points: int = 400) -> None:
+    """A GIF of two fitted meshes (T, V, 3) as point clouds, one color per
+    actor (``tools/render_smpl.py``'s stand-in for a mesh renderer)."""
+    plt, FuncAnimation, PillowWriter = _pyplot()
+    stride = max(1, mesh1.shape[1] // max_points)
+    fig = plt.figure(figsize=(6, 6))
+    ax = fig.add_subplot(111, projection="3d")
+    both = np.concatenate([mesh1, mesh2], axis=1)
+    lo, hi = both.min(), both.max()
+
+    def update(i):
+        ax.clear()
+        ax.set_xlim(lo, hi)
+        ax.set_ylim(lo, hi)
+        ax.set_zlim(lo, hi)
+        ax.scatter(*mesh1[i, ::stride].T, s=1, c="red")
+        ax.scatter(*mesh2[i, ::stride].T, s=1, c="blue")
+        ax.view_init(elev=110, azim=-90)
+
+    ani = FuncAnimation(fig, update, frames=mesh1.shape[0], interval=1000 / fps)
+    ani.save(path, writer=PillowWriter(fps=fps))
+    plt.close(fig)

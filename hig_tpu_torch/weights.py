@@ -27,6 +27,18 @@ The evaluator models' trees (``embed``, ``block_{i}`` → ``blocks.{i}``,
 ``out1``/``out2``/``fin_proj`` or ``cls_input``/``cls_output``) map the same
 way.
 
+The legacy evaluator zoo's trees (``models/legacy_evaluators.py``) map with
+:func:`load_legacy_tree`: a flax ``GRUCell`` (``ir``, ``iz``, ``in``,
+``hr``, ``hz``, ``hn``) becomes one cell in torch's gate layout, a ``Conv``
+kernel (k, in, out) a ``Conv1d`` weight (out, in, k), a ``ConvTranspose``
+kernel (k, in, out), which flax applies unflipped, a ``ConvTranspose1d``
+weight (in, out, k) flipped along k, a ``Sequential``'s ``layers_{i}`` entry
+``{i}``, ``grus_{i}`` ``grus.{i}``, and a model's top-level ``Dense_{i}``
+and ``LayerNorm_{i}`` (its output head, which flax names in the model's
+scope) ``head.*``. :func:`smpl_model_from` and :func:`gmm_prior_from` take
+the JAX ``SMPLModel`` and ``GMMPrior`` (or any object or dict with their
+fields) as numpy.
+
 :func:`random_flax_tree` builds that same tree from a seed with every leaf
 nonzero. (The JAX init zeroes ``out``, ``out2``, ``ffn/linear2`` and every
 ``proj_out/out``, so a freshly initialized model predicts ε ≡ 0 and any
@@ -272,3 +284,100 @@ def reduce_bf16_in_float32() -> None:
     process-wide setting): a bfloat16 product outside the kernels then sums
     in float32 and rounds once, as XLA's does."""
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+_GRU_GATES = ("r", "z", "n")
+
+
+def _legacy_module_key(path: tuple) -> str:
+    parts = []
+    for i, p in enumerate(path):
+        if p.startswith("GRUCell_"):
+            parts.append("cell")
+        elif re.fullmatch(r"layers_\d+", p):
+            parts.append(p.split("_")[1])
+        elif re.fullmatch(r"grus_\d+", p):
+            parts += ["grus", p.split("_")[1]]
+        elif i == 0 and re.fullmatch(r"(Dense|LayerNorm)_\d+", p):
+            parts += ["head", p]
+        else:
+            parts.append(p)
+    return ".".join(parts)
+
+
+def legacy_state_from_flax(tree: dict) -> dict[str, torch.Tensor]:
+    """A legacy evaluator's flax tree → a torch state dict (module doc)."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    flat = {k: np.asarray(v, np.float32) for k, v in flatten(tree).items()}
+    state: dict[str, np.ndarray] = {}
+    cells = sorted({k[:-2] for k in flat if len(k) >= 2 and k[-2] in ("ir", "hn")})
+    for cell in cells:
+        key = _legacy_module_key(cell)
+        hidden = flat[cell + ("hn", "bias")].shape[0]
+        state[f"{key}.weight_ih"] = np.concatenate(
+            [flat[cell + (f"i{g}", "kernel")].T for g in _GRU_GATES])
+        state[f"{key}.bias_ih"] = np.concatenate([flat[cell + (f"i{g}", "bias")]
+                                                  for g in _GRU_GATES])
+        state[f"{key}.weight_hh"] = np.concatenate(
+            [flat[cell + (f"h{g}", "kernel")].T for g in _GRU_GATES])
+        state[f"{key}.bias_hh"] = np.concatenate(
+            [np.zeros(2 * hidden, np.float32), flat[cell + ("hn", "bias")]])
+    for path, arr in flat.items():
+        if len(path) >= 2 and path[:-2] in cells:
+            continue
+        module, leaf = path[:-1], path[-1]
+        if leaf == "kernel":
+            if module[-1].startswith("ConvTranspose_"):
+                arr = arr[::-1].transpose(1, 2, 0)
+            elif module[-1].startswith("Conv_"):
+                arr = arr.transpose(2, 1, 0)
+            else:
+                arr = arr.T
+            leaf = "weight"
+        elif leaf == "scale":
+            leaf = "weight"
+        prefix = _legacy_module_key(module)
+        state[f"{prefix}.{leaf}" if prefix else leaf] = arr
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in state.items()}
+
+
+def load_legacy_tree(model: nn.Module, tree: dict) -> nn.Module:
+    """Load a legacy evaluator's flax tree into ``model``, every leaf onto
+    one parameter of its shape and every parameter set."""
+    state = legacy_state_from_flax(tree)
+    expected = model.state_dict()
+    unused, unset = sorted(set(state) - set(expected)), sorted(set(expected) - set(state))
+    bad = [(k, tuple(state[k].shape), tuple(v.shape)) for k, v in expected.items()
+           if k in state and state[k].shape != v.shape]
+    if unused or unset or bad:
+        raise ValueError(f"flax tree does not match the model: unused leaves {unused}, "
+                         f"unset parameters {unset}, shape mismatches {bad}")
+    model.load_state_dict(state, strict=True)
+    return model
+
+
+def _fields(src, names) -> dict:
+    return {n: src[n] if isinstance(src, dict) else getattr(src, n) for n in names}
+
+
+def smpl_model_from(src):
+    """An ``smpl.lbs.SMPLModel`` from the JAX ``SMPLModel`` (or a dict) of
+    the same fields."""
+    from hig_tpu_torch.smpl.lbs import FIELDS, SMPLModel
+
+    arrays = {k: torch.from_numpy(np.array(v, np.float32)) for k, v in _fields(src, FIELDS).items()}
+    extra = _fields(src, ("parents", "faces")) if not isinstance(src, dict) else \
+        {k: src.get(k) for k in ("parents", "faces")}
+    faces = None if extra["faces"] is None else torch.from_numpy(np.array(extra["faces"],
+                                                                           np.int32))
+    parents = tuple(extra["parents"]) if extra["parents"] is not None else None
+    return SMPLModel(**arrays, faces=faces, **({"parents": parents} if parents else {}))
+
+
+def gmm_prior_from(src):
+    """An ``smpl.prior.GMMPrior`` from the JAX ``GMMPrior`` (or a dict)."""
+    from hig_tpu_torch.smpl.prior import GMMPrior
+
+    return GMMPrior(**{k: torch.from_numpy(np.array(v, np.float32)) for k, v in
+                       _fields(src, ("means", "precisions", "nll_weights")).items()})

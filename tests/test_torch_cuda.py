@@ -106,8 +106,18 @@ blocks on the CPU (float32 with a train-mode call's gradients, and bf16),
 launching no kernel; the causal model's DDIM sampler and PIT step, float32
 and bf16, graphed against eager bit for bit; the native batch loader built
 with g++ into ``hig_tpu_torch/_build/`` and loaded from there.
+
+Distillation, SMPL and the legacy protocol: the distillation step graphed
+against eager bit for bit over two stages (the teacher copied in place from
+the student between them, each stage its own step and graph), plain and
+fixed-w, with its exact B1 (teacher) and B2 (student) launches; the SMPL
+joints-only ``lbs`` against the full one and both against the CPU, the
+L-BFGS's first 5 iterates on the card (graphed equal to eager bit for
+bit) against the CPU within 1e-4 and SMPLify3D's final objective within 1%; the legacy co-embeddings at the
+reference's widths on the card against the CPU within 1e-4.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -1588,3 +1598,134 @@ def test_visualize_launches_b1_for_each_denoiser_block(cuda, tmp_path):
                          generator=torch.Generator(device="cuda").manual_seed(0))
     mean, std = serve.load_stats(os.path.join(os.path.dirname(opt), "meta"), 263)
     assert np.array_equal(joints, serve.decode(out, mean, std)[1][0].cpu().numpy())
+
+
+# --- distillation, SMPL, the legacy protocol -------------------------------------------
+
+DISTILL_PAIRS, DISTILL_STEPS = 4, 3
+
+
+def _distill_setup(device, distill_w):
+    from hig_tpu_torch.config import ExperimentConfig, model_config
+    from hig_tpu_torch.diffusion import gaussian as g
+    from hig_tpu_torch.models.interaction_model import InteractionModel
+    from hig_tpu_torch.models.text_encoder import ClipTextConfig
+    from hig_tpu_torch.train import trainer as tt
+    from hig_tpu_torch.weights import load_flax_tree, random_flax_tree
+
+    cfg = ExperimentConfig(**TRAIN_GRAPH_MODEL, cap_id=True, label_path="labels.json",
+                           cond_drop_prob=0.5)
+    mcfg = model_config(cfg, ClipTextConfig(width=64, heads=2, layers=1))
+    sched = g.make_schedule(g.linear_betas(1000))
+
+    def make():
+        student = load_flax_tree(InteractionModel(mcfg), random_flax_tree(mcfg, 0)["params"])
+        teacher = InteractionModel(dataclasses.replace(mcfg, fused_blocks=True))
+        load_flax_tree(teacher, random_flax_tree(mcfg, 1)["params"])
+        return student.to(device).train(), teacher.to(device).eval().requires_grad_(False)
+
+    gen = torch.Generator().manual_seed(3)
+    batch = {"motion": torch.randn((DISTILL_PAIRS, 2, GRAPH_T, 263), generator=gen).to(device),
+             "lengths": torch.tensor([GRAPH_T, 31, 17, 26], device=device),
+             "cap_ids": torch.randint(0, 43, (DISTILL_PAIRS, 2), generator=gen).to(device)}
+    return cfg, sched, make, batch, tt
+
+
+@pytest.mark.parametrize("distill_w", [1.0, 2.5], ids=["branchwise", "fixed_w"])
+def test_graphed_distill_step_equals_eager_across_a_stage_change(cuda, distill_w):
+    """Two stages (DDIM-50 → 25, then 25 → 13 from the student copied into
+    the teacher in place), DISTILL_STEPS steps each, graphed and eager:
+    metrics, generator states, the student's parameters and Adam moments
+    and the teacher's parameters bit for bit; each step launches B1 4 × 2
+    times (two teacher calls of 2 layers × 2 blocks) and B2 4 times (the
+    student), nothing else."""
+    from hig_tpu_torch.diffusion import distill as pd
+
+    cfg, sched, make, batch, tt = _distill_setup(cuda, distill_w)
+    runs = []
+    for graph in (False, False, True):
+        student, teacher = make()
+        rows, tensors = [], {}
+        for stage, (n, prev) in enumerate(((25, 50), (13, 25))):
+            state = tt.TrainState(model=student, optimizer=tt.make_optimizer(cfg, student))
+            step = pd.make_distill_step(sched, pd.distill_grids(1000, n, prev), teacher,
+                                        distill_w, graph=graph)
+            for i in range(DISTILL_STEPS):
+                gen = torch.Generator(device=cuda).manual_seed(10 * stage + i)
+                metrics, counts = _launches(lambda: step(state, batch, gen))
+                rows.append((torch.stack([metrics[k] for k in pd.DISTILL_METRICS]), counts,
+                             gen.get_state()))
+                assert counts == {"fused_attention_block.launches": 8,
+                                  "fused_projected_attention.launches": 4}, counts
+            assert len(step.graphs) == (1 if graph else 0)
+            tensors.update({f"{stage}.exp_avg.{k}": m.clone()
+                            for k, m in enumerate(state.optimizer.exp_avg)})
+            teacher.load_state_dict(student.state_dict())
+        tensors.update({f"student.{k}": v.clone() for k, v in student.state_dict().items()})
+        tensors.update({f"teacher.{k}": v.clone() for k, v in teacher.state_dict().items()})
+        runs.append((rows, tensors))
+    _assert_runs_equal(runs[1], runs[0])
+    _assert_runs_equal(runs[2], runs[0])
+
+
+def test_smpl_joints_only_lbs_and_lbfgs_on_the_card_match_the_cpu(cuda):
+    """The 6890-vertex synthetic model: the joints-only lbs against the full
+    lbs on the card (1e-5) and both against the CPU (1e-5); the L-BFGS on
+    the card, each evaluation a graph replay, equal to the eager one bit for
+    bit and against the CPU, its first 5 iterates within 1e-4 and the same
+    line-search steps; SMPLify3D's final objective within 1%."""
+    from hig_tpu_torch.smpl import lbs as tl
+    from hig_tpu_torch.smpl.lbfgs import lbfgs_run
+    from hig_tpu_torch.smpl.prior import synthetic_gmm_prior
+    from hig_tpu_torch.smpl.smplify import SMPLify3D
+
+    cpu_model = tl.synthetic_smpl_model(6890)
+    model = cpu_model.to(cuda)
+    gen = torch.Generator().manual_seed(0)
+    betas, pose = 0.5 * torch.randn(12, 10, generator=gen), 0.3 * torch.randn(12, 72, generator=gen)
+    v_cpu, j_cpu = tl.lbs(cpu_model, betas, pose)
+    v, j = tl.lbs(model, betas.to(cuda), pose.to(cuda))
+    j_only = tl.lbs_joints(model, betas.to(cuda), pose.to(cuda))
+    for got, want in ((j_only, j), (j.cpu(), j_cpu), (v.cpu(), v_cpu)):
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+    def objective(p):
+        x = p["x"]
+        return (100 * (x[1:] - x[:-1] ** 2) ** 2 + (1 - x[:-1]) ** 2).sum() + (p["s"] ** 2).sum()
+
+    p0 = {"x": 0.5 * torch.randn(6, generator=gen), "s": torch.randn(4, generator=gen)}
+    runs = [lbfgs_run(objective, {k: v.to(d) for k, v in p0.items()}, 5, record_iterates=True,
+                      graph=graph)[2]
+            for d, graph in ((cuda, True), (cuda, False), ("cpu", False))]
+    assert runs[0].linesearch_steps == runs[1].linesearch_steps == runs[2].linesearch_steps
+    for graphed, eager, want in zip(*(r.iterates for r in runs)):
+        for k in want:
+            assert torch.equal(graphed[k], eager[k])  # a replay is the eager evaluation
+            assert (graphed[k].cpu() - want[k]).abs().max() <= 1e-4 * want[k].abs().max()
+    j3d = j_cpu[:, :22] + 0.02 * torch.randn(12, 22, 3, generator=gen)
+    conf = torch.ones(22)
+    losses = []
+    for m, d in ((model, cuda), (cpu_model, "cpu")):
+        fit = SMPLify3D(model=m, prior=synthetic_gmm_prior().to(d), num_iters=5, camera_outer=2)
+        losses.append(float(fit(torch.zeros(12, 72, device=d), torch.zeros(12, 10, device=d),
+                                j3d.to(d), conf.to(d)).final_loss))
+    assert abs(losses[0] - losses[1]) <= 0.01 * losses[1], losses
+
+
+def test_legacy_embeddings_on_the_card_match_the_cpu(cuda):
+    """CoEmbeddingEvaluator at the reference's widths (seeded weights) on 8
+    clips of 64 frames and their captions: the text and motion embeddings
+    on the card within 1e-4 of the CPU's."""
+    from hig_tpu_torch.data.word_vectorizer import WordVectorizer
+    from hig_tpu_torch.eval.legacy_protocol import CoEmbeddingEvaluator, vectorize_tokens
+
+    wv = WordVectorizer()
+    tokens = [["a/DET", "person/NOUN", "walks/VERB", "left/ADV"][: 1 + k % 4] for k in range(8)]
+    vecs = [vectorize_tokens(t, 20, wv) for t in tokens]
+    gen = torch.Generator().manual_seed(1)
+    inputs = (torch.randn(8, 64, 263, generator=gen), torch.tensor([64, 60, 33, 48, 8, 12, 64, 40]),
+              np.stack([v[0] for v in vecs]), np.stack([v[1] for v in vecs]),
+              np.array([v[2] for v in vecs]))
+    out = [CoEmbeddingEvaluator(263, device=d).get_co_embeddings(*inputs) for d in (cuda, "cpu")]
+    for got, want in zip(*out):
+        assert (got.cpu() - want).abs().max() <= 1e-4 * want.abs().max()

@@ -302,7 +302,8 @@ def test_port_imports_neither_jax_nor_hig_tpu():
         "for k in list(sys.modules):\n"
         "    if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'hig_tpu'):\n"
         "        del sys.modules[k]\n"
-        "for k in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'hig_tpu', 'matplotlib'):\n"
+        "for k in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'hig_tpu', 'matplotlib', 'h5py',\n"
+        "          'pyrender'):\n"
         "    sys.modules[k] = None\n"
         "import hig_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(hig_tpu_torch.__path__, 'hig_tpu_torch.')]\n"
@@ -328,4 +329,8 @@ def test_port_imports_neither_jax_nor_hig_tpu():
             "hig_tpu_torch.data.synthetic", "hig_tpu_torch.data.pose_tracks",
             "hig_tpu_torch.viz.plot", "hig_tpu_torch.make_synthetic_data",
             "hig_tpu_torch.preprocess", "hig_tpu_torch.extract_pose",
-            "hig_tpu_torch.visualize"} <= names
+            "hig_tpu_torch.visualize", "hig_tpu_torch.diffusion.distill",
+            "hig_tpu_torch.distill", "hig_tpu_torch.smpl.lbs", "hig_tpu_torch.smpl.prior",
+            "hig_tpu_torch.smpl.lbfgs", "hig_tpu_torch.smpl.smplify", "hig_tpu_torch.smpl.fit",
+            "hig_tpu_torch.render_smpl", "hig_tpu_torch.models.legacy_evaluators",
+            "hig_tpu_torch.eval.legacy_protocol", "hig_tpu_torch.data.word_vectorizer"} <= names

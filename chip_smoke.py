@@ -103,7 +103,7 @@ Phases, each printing one JSON line (or several):
      finite losses, the checkpoint, ms per step, peak memory, one batch's
      logits on the card against the CPU); ``python -m
      hig_tpu_torch.evaluate``'s main from stage 1-3's checkpoint three times
-     (DDIM-50 guided w = GUIDANCE at T = 196 over 2 replications; DPM-20 at
+     (DDIM-50 guided w = GUIDANCE at T = 196, one replication; DPM-20 at
      T = 196; DDPM-1000 at T = 91), each with exactly 16 B1 launches per
      denoiser call and per captured graph's warm-up and none of the
      others, the graphs' capture seconds and pools, the first chunk of the
@@ -290,9 +290,30 @@ Phases, each printing one JSON line (or several):
      52 test clips at T = 196 against its CPU twin (LEGACY_TOL), its ms,
      the matching score and R-precision of the first 32. SMPL and the
      legacy protocol launch no kernel.
+ 16. parallel (after phase 15, before the profile): B2's rectangular form
+     (a tensor-parallel rank's (256, 512) q|k|v weights at 4 heads) at the
+     serving shape against its plain version (float32) and its twins
+     (bfloat16, B2-bf16a), then ``PAR_RANKS`` processes of this script
+     (``--parallel-rank``) on cuda:0 over gloo (NCCL refuses two ranks on
+     one device) at full width from seed PAR_SEED, caption ids: (a) DP,
+     two PIT steps at global batch 32 (losses equal across ranks bit for
+     bit and within TRAIN_LOSS_TOL of the one-rank eager step, 16 B2
+     launches a step on each rank); (b) FSDP (1 x 2), one step (shards of
+     ``_leaf_spec``'s shapes; loss, gradients and the updated weights as
+     DP's first step); (c) TP (1 x 2), a DDIM-50 call for PAR_REQUESTS
+     requests, 800 launches of B2's rectangular form on each rank and none
+     of another kernel, within SAMPLER_REL_TOL of the one-rank projected
+     call; (d) PP (1 x 2, pp_micro 2), one PIT step's loss and gradients
+     against the sequential stack on the rank; (e) ``serve`` over 2 data
+     ranks (8 requests each, B1), the primary's files within
+     SAMPLER_REL_TOL of one-rank serving. The ranks start with the phase,
+     after phase 15; the one-rank counterparts run on the card while the
+     ranks start up and run; a failing rank fails the phase. Two ranks on
+     one card time nothing about scaling.
 Then the kernel table (the bfloat16 forms' rows after the float32 ones, and
 phase 12's, 13's, 14's and 15's launches added; B3-bf16's row with both forms'
-times under "forms"), the nvidia-smi line, and as the last line
+times under "forms"; B2's rectangular form's row, its launches phase 16's
+TP call's on rank 0), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero without
 that line. Imports nothing of JAX or of the JAX package.
 """
@@ -371,7 +392,7 @@ EVAL_CLIPS, EVAL_T = 52, 196
 # calls a replication, replications)
 EVAL_RUNS = {
     "ddim_guided": (["--sampler", "ddim", "--guidance_scale", str(GUIDANCE),
-                     "--replication_times", "2"], DDIM_STEPS, 2),
+                     "--replication_times", "1"], DDIM_STEPS, 1),
     "dpm20": (["--sampler", "dpm", "--ddim_steps", "20"], 20, 1),
     "ddpm1000": (["--sampler", "ddpm", "--gen_T", str(T)], 1000, 1),
 }
@@ -2819,11 +2840,9 @@ def use_pallas_forward():
     from hig_tpu_torch.models import attention
     from hig_tpu_torch.ops.pallas_attention import fused_projected_attention_plain
 
-    def route(block, xn, mask):
+    def route(block, xn, mask, weights, heads):
         kv, kv_mask = (xn.flip(-3), mask.flip(-2)) if block.interaction else (xn, mask)
-        return fused_projected_attention_plain(
-            xn, kv, block.query.weight, block.query.bias, block.key.weight, block.key.bias,
-            block.value.weight, block.value.bias, block.num_heads, kv_mask)
+        return fused_projected_attention_plain(xn, kv, *weights, heads, kv_mask)
 
     saved = attention._KernelBlock._einsum_route
     attention._KernelBlock._einsum_route = route
@@ -4728,6 +4747,471 @@ def phase_rest(device, failures, smi: str, data: str, tmp: str, fused_model) -> 
     return launches
 
 
+# Phase 16: two ranks on the one card over gloo (NCCL refuses two ranks on
+# one device), at full width from the phase's seed: DP, FSDP, TP, PP and DP
+# serving, each against its one-rank counterpart. The ranks share a card, so
+# their times say nothing of scaling.
+PAR_RANKS, PAR_PAIRS, PAR_STEPS, PAR_SEED = 2, 32, 2, 16
+PAR_REQUESTS = 16
+PAR_TIMEOUT = 300  # seconds the ranks may take once phase 16 starts
+# FSDP's step against DP's: the gradients per leaf as phase 6's routes
+# (TRAIN_GRAD_TOL of the leaf, the exact-zero ones TRAIN_ZERO_GRAD_TOL of
+# the largest); an Adam step moves each element by about lr whatever its
+# gradient's size, so the updated weights are held where the gradient is
+# at least PAR_LIVE_GRAD of its leaf's largest, within PAR_UPDATE_TOL · lr.
+PAR_LIVE_GRAD, PAR_UPDATE_TOL = 1e-3, 1e-2
+RECT_DOUT = D // 2  # a TP rank's q|k|v width: 4 of the 8 heads
+
+
+def par_cfg(tmp: str, **kw):
+    """The phase's full-width caption-id run (global batch 32, T = 91)."""
+    from hig_tpu_torch.config import ExperimentConfig, add_dataset_paths
+
+    return add_dataset_paths(ExperimentConfig(
+        name="par", dataset_name="synthetic_mul", data_root=tmp, checkpoints_dir=tmp,
+        cap_id=True, batch_size=PAR_PAIRS, seed=PAR_SEED, **kw))
+
+
+def par_inputs(step: int) -> dict:
+    """The global batch of PIT step ``step`` and its t and noise (numpy)."""
+    rs = np.random.RandomState(PAR_SEED + step)
+    lengths = np.resize(np.asarray(LENGTHS) + 1, PAR_PAIRS)
+    return {"motion": rs.randn(PAR_PAIRS, 2, T, 263).astype(np.float32), "lengths": lengths,
+            "cap_ids": rs.randint(0, 43, (PAR_PAIRS, 2)), "t": rs.randint(0, 1000, PAR_PAIRS),
+            "noise": rs.randn(PAR_PAIRS, 2, T, 263).astype(np.float32)}
+
+
+def par_batch(x: dict, layout, device) -> tuple:
+    """This rank's rows of ``x`` on the card: (batch, t, noise)."""
+    from hig_tpu_torch.parallel.mesh import shard_batch
+
+    x = shard_batch(x, layout.batch_index, layout.batch_count)
+    batch = {"motion": torch.from_numpy(x["motion"]).to(device),
+             "lengths": torch.from_numpy(x["lengths"]).long().to(device),
+             "cap_ids": torch.from_numpy(x["cap_ids"]).long().to(device)}
+    return batch, torch.from_numpy(x["t"]).long().to(device), torch.from_numpy(
+        x["noise"]).to(device)
+
+
+def par_steps(trainer, state, steps: int, device, after=None) -> dict:
+    """``steps`` eager PIT steps of ``trainer``'s layout on par_inputs: the
+    losses and gradient norms, each step's seconds, and B2's launches;
+    ``after(i)`` runs after step i."""
+    from hig_tpu_torch.train import trainer as tt
+
+    layout = trainer.layout
+    step = tt.make_train_step(trainer.sched, pit=True, graph=False,
+                              layout=layout)
+    reset_counts()
+    out = {"metrics": [], "step_s": []}
+    for i in range(steps):
+        batch, t, noise = par_batch(par_inputs(i), layout, device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(state, batch, t=t, noise=noise)
+        out["metrics"].append([float(metrics[k]) for k in tt.TRAIN_METRICS])
+        out["step_s"].append(time.perf_counter() - t0)
+        if after is not None:
+            after(i)
+    out["launches"] = bf16_counts()["projected_attention"]
+    return out
+
+
+def par_requests() -> tuple:
+    """Caption ids, lengths and x_T of PAR_REQUESTS requests (numpy)."""
+    rs = np.random.RandomState(PAR_SEED)
+    lengths = np.resize(np.asarray(LENGTHS) + 1, PAR_REQUESTS)
+    return (rs.randint(0, 43, (PAR_REQUESTS, 2)), lengths,
+            rs.randn(PAR_REQUESTS, 2, T, 263).astype(np.float32))
+
+
+def par_serve_argv(tmp: str, out: str) -> list:
+    """serve's arguments for the phase's requests and model (written by
+    phase_parallel into ``tmp``), results into ``out``."""
+    return ["--requests", os.path.join(tmp, "par_requests.jsonl"), "--random_init",
+            str(PAR_SEED), "--model_config", os.path.join(tmp, "par_model.json"),
+            "--out_dir", out]
+
+
+def leaf_errors(got: dict, want: dict) -> tuple[float, float]:
+    """(the largest per-leaf error over the leaf's largest magnitude, over
+    the leaves with a nonzero exact gradient; the largest error of the
+    exact-zero leaves over the model's largest gradient)."""
+    scale = max(float(w.abs().max()) for w in want.values())
+    live = zero = 0.0
+    for name, w in want.items():
+        err = float((got[name] - w).abs().max())
+        if name.endswith(CAP_ID_ZERO_GRAD):
+            zero = max(zero, err / scale)
+        else:
+            live = max(live, err / max(float(w.abs().max()), 1e-30))
+    return live, zero
+
+
+def parallel_rank(rank: int, port: str, out: str) -> int:
+    """One of phase 16's ranks (``python chip_smoke.py --parallel-rank r
+    port dir``): the five cases on cuda:0 over gloo; writes
+    <dir>/rank<r>.json."""
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)  # two ranks and the parent share the host's cores
+    from hig_tpu_torch import serve
+    from hig_tpu_torch.config import MeshConfig
+    from hig_tpu_torch.diffusion import gaussian as g
+    from hig_tpu_torch.ops.pallas_attention import fused_projected_attention
+    from hig_tpu_torch.parallel import distributed as dist
+    from hig_tpu_torch.train import trainer as tt
+
+    device = dist.initialize(f"127.0.0.1:{port}", PAR_RANKS, rank, device="cuda")
+    res = {"backend": dist.backend(), "device": str(device)}
+    parts = {}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        parts[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    # (a) DP, 2 x 1: two steps; the gradients and weights after the first
+    # are FSDP's reference
+    trainer = tt.Trainer(par_cfg(out, mesh=MeshConfig(PAR_RANKS, 1)), device, graph=False)
+    state = trainer.init_state()
+    before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    first = {}
+
+    def keep(i):
+        if i == 0:
+            first["grads"] = {n: p.grad.clone() for n, p in state.model.named_parameters()
+                              if p.grad is not None}
+            first["params"] = {n: p.detach().clone() for n, p in
+                               state.model.named_parameters()}
+
+    res["dp"] = par_steps(trainer, state, PAR_STEPS, device, keep)
+    del state, trainer
+    lap("dp")
+
+    # (b) FSDP, 1 x 2: one step, against DP's first
+    trainer = tt.Trainer(par_cfg(out, mesh=MeshConfig(1, PAR_RANKS), fsdp=True), device,
+                         graph=False)
+    state = trainer.init_state(before)
+    layout = trainer.layout
+    res["fsdp"] = par_steps(trainer, state, 1, device)
+    res["fsdp"]["shards"] = {n: list(t.shape) for n, t in layout.shards.items()}
+    group = layout.mesh.model_group
+    grads = {n: p.grad for n, p in state.model.named_parameters() if p.grad is not None}
+    for n, shard in layout.shards.items():
+        grads[n] = dist.all_gather(shard.grad, layout.dims[n], group)
+    layout.gather_params(state)
+    res["fsdp"]["grad_live_err"], res["fsdp"]["grad_zero_err"] = leaf_errors(
+        grads, first["grads"])
+    lr, worst = trainer.cfg.lr, 0.0
+    for n, p in state.model.named_parameters():
+        grad = first["grads"].get(n)
+        if grad is None:
+            continue
+        live = grad.abs() >= PAR_LIVE_GRAD * grad.abs().max()
+        du = (p.detach() - first["params"][n]).abs()[live]
+        if du.numel():
+            worst = max(worst, float(du.max()) / lr)
+    res["fsdp"]["update_err_lr"] = worst
+    res["fsdp"]["moved"] = float(max((p.detach() - before[n]).abs().max()
+                                     for n, p in state.model.named_parameters())) / lr
+    del state, trainer, first, grads
+    lap("fsdp")
+
+    # (c) TP, 1 x 2: a DDIM-50 call for PAR_REQUESTS requests, each rank its
+    # 4 heads through B2's rectangular form
+    trainer = tt.Trainer(par_cfg(out, mesh=MeshConfig(1, PAR_RANKS), tp=True), device,
+                         graph=False)
+    model = trainer.init_state(before).model.eval()
+    cap, lengths, noise = par_requests()
+    sample = tt.make_sampler(model, g.make_schedule(g.linear_betas(1000)), T, 263, "ddim",
+                             DDIM_STEPS, graph=False)
+    reset_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    y = sample(torch.from_numpy(cap), torch.from_numpy(lengths), noise=torch.from_numpy(noise))
+    torch.cuda.synchronize()
+    res["tp"] = {"call_s": time.perf_counter() - t1, "counts": bf16_counts(),
+                 "launches_rect": fused_projected_attention.launches_rect}
+    if rank == 0:
+        np.save(os.path.join(out, "tp_ddim.npy"), y.cpu().numpy())
+    del model, trainer, sample
+    lap("tp")
+
+    # (d) PP, 1 x 2, pp_micro 2: one PIT step's loss and gradients against
+    # the sequential stack on this rank (the same weights and inputs)
+    trainer = tt.Trainer(par_cfg(out, mesh=MeshConfig(1, PAR_RANKS), pp_micro=2), device,
+                         graph=False)
+    state = trainer.init_state(before)
+    model, layout = state.model, trainer.layout
+    batch, t, noise = par_batch(par_inputs(0), layout, device)
+    loss_fn = tt.make_loss_fn(model, trainer.sched.on(device), pit=True)
+    reset_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss_pp, _ = tt.compute_grads(model, loss_fn, batch, t=t, noise=noise)
+    layout.reduce_grads(state)
+    torch.cuda.synchronize()
+    res["pp"] = {"step_s": time.perf_counter() - t1, "launches": bf16_counts()}
+    grads_pp = {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
+    model.denoiser.pipeline = None
+    loss_seq, _ = tt.compute_grads(model, loss_fn, batch, t=t, noise=noise)
+    grads_seq = {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
+    res["pp"].update(loss=float(loss_pp), loss_seq=float(loss_seq))
+    res["pp"]["grad_live_err"], res["pp"]["grad_zero_err"] = leaf_errors(grads_pp, grads_seq)
+    del state, trainer, model, grads_pp, grads_seq
+    lap("pp")
+
+    # (e) serving, 2 x 1: each rank its 8 requests, the primary gathers and writes
+    reset_counts()
+    t1 = time.perf_counter()
+    serve.main(par_serve_argv(out, os.path.join(out, "serve_dp")) + ["--device", "cuda"])
+    res["serve"] = {"call_s": time.perf_counter() - t1, "counts": bf16_counts()}
+    lap("serve")
+    res["parts_s"] = parts
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.shutdown()
+    return 0
+
+
+def check_projected_attention_rect(device, failures) -> dict:
+    """B2's rectangular form (a TP rank's (D/2, D) q|k|v weights, 4 heads:
+    rank 1's rows) at the serving shape, float32 against its plain version
+    and bfloat16 and B2-bf16a against their twins, as the interaction block
+    calls it (kv from the partner). The row's time and bound are the
+    float32 form's (the form phase 16's TP call launches), from the square
+    form's operation count at Dout = 256."""
+    from hig_tpu_torch.ops.pallas_attention import fused_projected_attention
+    from hig_tpu_torch.ops.pallas_attention import fused_projected_attention_plain as plain
+
+    w, x, mask, _, _ = block_inputs(device)
+    N, Tq, hd, heads = 2 * x.shape[0], x.shape[2], D // HEADS, HEADS // 2
+    M = N * Tq
+    rows = slice(D - RECT_DOUT, D)
+    ws = [t[rows].contiguous() for t in (w.wq, w.bq, w.wk, w.bk, w.wv, w.bv)]
+    xn = torch.nn.functional.layer_norm(x, (D,), w.ln_g, w.ln_b, 1e-6)
+    kv, kmask = xn.flip(1).contiguous(), mask.flip(1).contiguous()
+    cases = {}
+    with torch.no_grad():
+        args = (xn, kv, *ws, heads, kmask)
+        got = fused_projected_attention(*args)
+        err = (got - plain(*args)).abs().max().item()
+        fail_if(failures, not err <= KERNEL_TOL, f"projected_attention_rect max |err| {err}")
+        k_ms = time_ms(lambda: fused_projected_attention(*args))
+        p_ms = time_ms(lambda: plain(*args))
+        for form in ("bf16", "bf16a"):
+            xb, kvb = to_bf16(xn), to_bf16(kv)
+            wsb = [to_bf16(t) for t in ws] if form == "bf16" else ws
+            args_b = (xb, kvb, *wsb, heads, kmask)
+            got_b = fused_projected_attention(*args_b)
+            twin = plain(*args_b)
+            twin32 = plain(xb.float(), kvb.float(), *[t.float() for t in wsb], heads, kmask)
+            cases[form] = gate_bf16(f"projected_attention_rect {form}", got_b, twin, twin32,
+                                    plain(*on_cpu(args_b)), failures)
+            cases[form]["ms"] = time_ms(lambda: fused_projected_attention(*args_b))
+    flops = 2 * M * D * 3 * RECT_DOUT + 2 * 2 * N * heads * Tq * hd * hd
+    nbytes = 4 * (2 * M * D + M * RECT_DOUT + M + 3 * RECT_DOUT * D + 3 * RECT_DOUT)
+    b_ms, b_by, b_kind = bound(flops, nbytes)
+    print(json.dumps({"phase": "parallel", "kernel": "projected_attention_rect",
+                      "shape": [N, Tq, D, RECT_DOUT, heads], "tol": KERNEL_TOL,
+                      "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bf16": cases,
+                      "gflop": flops / 1e9, "mbytes": nbytes / 1e6, "bound_us": b_ms * 1e3,
+                      "bound_by": b_by, "bound_kind": b_kind}), flush=True)
+    return {"name": "projected_attention_rect", "route": "cuda",
+            "source": "hig_tpu_torch/csrc/projected_attention.cu",
+            "replaces": "hig_tpu/ops/pallas_attention.py:116", "max_abs_err": err,
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_kind": b_kind, "library_ms": None}
+
+
+def start_parallel_ranks(tmp: str) -> dict:
+    """Phase 16's PAR_RANKS rank processes (``--parallel-rank``), with the
+    phase's request and model files: each imports, joins the gloo group on
+    cuda:0 and runs the cases. Started once phase 15 is over, so that no
+    timed figure of an earlier phase shares the host with their start-up.
+    Returns what phase_parallel and stop_parallel_ranks take."""
+    import socket
+
+    from hig_tpu_torch.data.vocab import CAPS
+
+    out = os.path.join(tmp, "parallel")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "par_model.json"), "w") as f:
+        json.dump({"cap_id": True}, f)
+    cap, lengths, _ = par_requests()
+    with open(os.path.join(out, "par_requests.jsonl"), "w") as f:
+        for (a, b), n in zip(cap, lengths):
+            f.write(json.dumps({"caption1": CAPS[a], "caption2": CAPS[b],
+                                "length": int(n) - 1}) + "\n")
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = str(sock.getsockname()[1])
+    sock.close()
+    logs = [open(os.path.join(out, f"log{r}.txt"), "w") for r in range(PAR_RANKS)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-rank",
+                               str(r), port, out], stdout=logs[r], stderr=subprocess.STDOUT,
+                              cwd=ROOT) for r in range(PAR_RANKS)]
+    return {"out": out, "procs": procs, "logs": logs, "t_start": time.perf_counter()}
+
+
+def stop_parallel_ranks(ranks: dict) -> None:
+    """End the ranks (whether or not they finished) and close their logs."""
+    for p in ranks["procs"]:
+        p.kill()
+        p.wait()
+    for f in ranks["logs"]:
+        if not f.closed:
+            f.close()
+
+
+def phase_parallel(device, failures, smi: str, ranks: dict) -> dict:
+    """Phase 16 (see the module doc): B2's rectangular form alone, then the
+    ranks of ``start_parallel_ranks`` on cuda:0 over gloo, each case against
+    its one-rank counterpart, run here on the card while the ranks run.
+    Returns the row of B2's rectangular form, its launches those of the TP
+    call on rank 0."""
+    from hig_tpu_torch import serve
+    from hig_tpu_torch.diffusion import gaussian as g
+    from hig_tpu_torch.parallel.mesh import flax_leaves, shard_dims
+    from hig_tpu_torch.train import trainer as tt
+
+    t_phase = time.perf_counter()
+    out, procs = ranks["out"], ranks["procs"]
+    cap, lengths, _ = par_requests()
+    t0 = ranks["t_start"]
+    refs = {}
+    try:
+        # B2's rectangular form alone and the one-rank counterparts, on the
+        # card while the ranks run
+        row = check_projected_attention_rect(device, failures)
+        trainer = tt.Trainer(par_cfg(out), device, graph=False)
+        state = trainer.init_state()
+        weights = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+        refs["dp"] = par_steps(trainer, state, PAR_STEPS, device)
+        model = trainer.init_state(weights).model.eval()
+        del trainer, state, weights
+        sample = tt.make_sampler(model, g.make_schedule(g.linear_betas(1000)), T, 263, "ddim",
+                                 DDIM_STEPS, graph=False)
+        refs["tp"] = sample(torch.from_numpy(cap), torch.from_numpy(lengths),
+                            noise=torch.from_numpy(par_requests()[2])).cpu().numpy()
+        del model, sample
+        t1 = time.perf_counter()
+        serve.main(par_serve_argv(out, os.path.join(out, "serve_one")))
+        refs["serve_s"] = time.perf_counter() - t1
+        refs_s = time.perf_counter() - t0
+        for p in procs:
+            p.wait(timeout=max(1.0, PAR_TIMEOUT - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        stop_parallel_ranks(ranks)
+    ranks_s = time.perf_counter() - t0
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        for r in range(PAR_RANKS):
+            print(open(os.path.join(out, f"log{r}.txt")).read()[-3000:], file=sys.stderr)
+        fail_if(failures, True, f"parallel ranks exited {codes}")
+        return {**row, "launches": 0}
+    res = [json.load(open(os.path.join(out, f"rank{r}.json"))) for r in range(PAR_RANKS)]
+    report = {"phase": "parallel", "nvidia_smi": smi, "ranks": PAR_RANKS,
+              "note": "2 ranks on one card, gloo: times are not a DP speed",
+              "ranks_s": ranks_s, "one_rank_refs_s": refs_s,
+              "rank_parts_s": [r["parts_s"] for r in res]}
+    fail_if(failures, any(r["backend"] != "gloo" or r["device"] != "cuda:0" for r in res),
+            f"parallel: ranks on {[(r['backend'], r['device']) for r in res]}")
+
+    # (a) DP: bitwise across ranks, against the one-rank eager step at batch 32
+    one = refs["dp"]
+    dp = [r["dp"] for r in res]
+    rel = max(abs(a - b) / abs(b) for got, want in zip(dp[0]["metrics"], one["metrics"])
+              for a, b in zip(got, want))
+    report["dp"] = {"metrics": dp[0]["metrics"], "one_rank": one["metrics"], "rel_err": rel,
+                    "step_s": [r["step_s"] for r in dp], "one_rank_step_s": one["step_s"],
+                    "launches": [r["launches"] for r in dp], "one_rank_launches": one["launches"]}
+    fail_if(failures, dp[0]["metrics"] != dp[1]["metrics"], f"parallel dp: ranks differ {dp}")
+    fail_if(failures, not rel <= TRAIN_LOSS_TOL, f"parallel dp: vs one rank {rel}")
+    fail_if(failures, any(r["launches"] != PAR_STEPS * LAUNCHES_PER_STEP for r in dp),
+            f"parallel dp: B2 launches {[r['launches'] for r in dp]}")
+
+    # (b) FSDP: shards as _leaf_spec, loss, gradients and weights as DP's
+    fs = [r["fsdp"] for r in res]
+    mcfg = tt.model_config(par_cfg(out))
+    dims = shard_dims(mcfg, PAR_RANKS, "fsdp")
+    bad_shards = []
+    for name, (path, flax_shape) in flax_leaves(mcfg).items():
+        if dims[name] is None:
+            continue
+        want_shape = list(flax_shape[::-1] if path[-1] == "kernel" else flax_shape)
+        want_shape[dims[name]] //= PAR_RANKS
+        if fs[0]["shards"].get(name, want_shape) != want_shape:
+            bad_shards.append(name)
+    fail_if(failures, bool(bad_shards) or not fs[0]["shards"],
+            f"parallel fsdp: shards off _leaf_spec {bad_shards}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(fs[0]["metrics"][0], dp[0]["metrics"][0]))
+    report["fsdp"] = {**{k: fs[0][k] for k in ("metrics", "grad_live_err", "grad_zero_err",
+                                               "update_err_lr", "moved", "step_s",
+                                               "launches")},
+                      "rel_err_vs_dp": rel, "shards": len(fs[0]["shards"])}
+    fail_if(failures, fs[0]["metrics"] != fs[1]["metrics"], f"parallel fsdp: ranks differ {fs}")
+    fail_if(failures, not rel <= TRAIN_LOSS_TOL, f"parallel fsdp: loss vs dp {rel}")
+    fail_if(failures, not (fs[0]["grad_live_err"] <= TRAIN_GRAD_TOL
+                           and fs[0]["grad_zero_err"] <= TRAIN_ZERO_GRAD_TOL),
+            f"parallel fsdp: gradients vs dp {report['fsdp']}")
+    fail_if(failures, not (fs[0]["update_err_lr"] <= PAR_UPDATE_TOL and fs[0]["moved"] > 0.5),
+            f"parallel fsdp: weights vs dp {report['fsdp']}")
+    fail_if(failures, fs[0]["launches"] != LAUNCHES_PER_STEP,
+            f"parallel fsdp: B2 launches {fs[0]['launches']}")
+
+    # (c) TP: against the one-rank projected call; B2's rectangular form only
+    want = refs["tp"]
+    got = np.load(os.path.join(out, "tp_ddim.npy"))
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    tp = [r["tp"] for r in res]
+    report["tp"] = {"rel_err": rel, "call_s": [r["call_s"] for r in tp],
+                    "launches_rect": [r["launches_rect"] for r in tp]}
+    fail_if(failures, not (np.isfinite(got).all() and rel <= SAMPLER_REL_TOL),
+            f"parallel tp: vs one rank {rel}")
+    others = [{k: v for k, v in r["counts"].items() if v} for r in tp]
+    fail_if(failures, any(r["launches_rect"] != LAUNCHES_PER_CALL or o for r, o in
+                          zip(tp, others)),
+            f"parallel tp: launches {report['tp']['launches_rect']}, others {others}")
+
+    # (d) PP: loss and gradients as the sequential stack's
+    pp = [r["pp"] for r in res]
+    report["pp"] = {k: [r[k] for r in pp] for k in ("loss", "loss_seq", "grad_live_err",
+                                                    "grad_zero_err", "step_s")}
+    report["pp"]["launches"] = [r["launches"]["projected_attention"] for r in pp]
+    fail_if(failures, any(abs(r["loss"] - r["loss_seq"]) > TRAIN_LOSS_TOL * abs(r["loss_seq"])
+                          or r["grad_live_err"] > TRAIN_GRAD_TOL
+                          or r["grad_zero_err"] > TRAIN_ZERO_GRAD_TOL for r in pp),
+            f"parallel pp: vs the sequential stack {report['pp']}")
+    # a stage: 4 of the 8 layers, 2 kernel blocks each, over 2 microbatches
+    fail_if(failures, report["pp"]["launches"] != [8 // PAR_RANKS * 2 * 2] * PAR_RANKS,
+            f"parallel pp: B2 launches {report['pp']['launches']}")
+
+    # (e) serving: the primary's files against one-rank serving
+    one_s = refs["serve_s"]
+    errs = []
+    for i in range(PAR_REQUESTS):
+        a = np.load(os.path.join(out, "serve_dp", f"req{i}.npz"))["features"]
+        b = np.load(os.path.join(out, "serve_one", f"req{i}.npz"))["features"]
+        errs.append(float(np.abs(a - b).max() / np.abs(b).max()))
+    sv = [r["serve"] for r in res]
+    b1 = [r["counts"]["fused_block"] for r in sv]
+    report["serve"] = {"rel_err": max(errs), "call_s": [r["call_s"] for r in sv],
+                       "one_rank_s": one_s, "fused_block_launches": b1}
+    fail_if(failures, not max(errs) <= SAMPLER_REL_TOL, f"parallel serve: vs one rank {errs}")
+    fail_if(failures, b1 != [LAUNCHES_PER_CALL] * PAR_RANKS,
+            f"parallel serve: B1 launches {b1}")
+    report["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps(report), flush=True)
+    row["launches"] = res[0]["tp"]["launches_rect"]
+    return row
+
+
 def trainer_dataset(cfg):
     from hig_tpu_torch.data.dataset import PairDataset, load_training_stats
 
@@ -4800,6 +5284,12 @@ def main() -> int:
         lap("geometry")
         rest_launches = phase_rest(device, failures, smi, data, tmp, models["fused"])
         lap("rest")
+        ranks = start_parallel_ranks(tmp)
+        try:
+            rect_row = phase_parallel(device, failures, smi, ranks)
+            lap("parallel")
+        finally:
+            stop_parallel_ranks(ranks)
         ablation_launches = merge_counts(ablation_launches, option_launches)
         ablation_launches = merge_counts(ablation_launches, geometry_launches)
         ablation_launches = merge_counts(ablation_launches, rest_launches)
@@ -4817,6 +5307,7 @@ def main() -> int:
         row["launches"] = (launches[name] + train_launches[name] + pipeline_launches[name]
                            + eval_launches[name] + ablation_launches.get(name, 0))
     rows.update(bf16_rows)
+    rows["projected_attention_rect"] = rect_row
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(smi, flush=True)
     if failures:
@@ -4829,4 +5320,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:  # one of phase 16's ranks
+        sys.exit(parallel_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

@@ -2,10 +2,12 @@
 ``hig_tpu/config.py`` that the trainer and ``python -m hig_tpu_torch.train``
 read, with the same names and defaults).
 
-Every option of a one-chip JAX run is carried. The pipeline, FSDP and
-tensor-parallel layouts (``pp_micro``, ``fsdp``, ``tp``), which need
-several devices, are still fields, so that setting one is refused with a
-clear message instead of being ignored. The paper's ablations train,
+Every option of a JAX run is carried, the multi-device ones too: the
+(data, model) grid of ranks (``mesh``: ``--mesh_data``, ``--mesh_model``,
+``--mesh_dcn_data``), ``distributed`` (several processes, ``HIG_*``), and the
+layouts of the model axis, FSDP (``fsdp``), tensor parallelism (``tp``) and
+the GPipe schedule (``pp_micro``), refused together where JAX's trainer
+refuses them, with its messages (:func:`check_parallel_options`). The paper's ablations train,
 label, serve and evaluate: ``no_cross_attn`` (no interaction block),
 ``single_transformer`` (both actors on one 2T-token timeline) and
 ``causal`` (either attention family), as does the single-person model of
@@ -23,10 +25,10 @@ refused without ``label_path``, as the JAX loss refuses it.
 
 :func:`load_opt_txt` also reads a JAX run's ``opt.txt``. Its keys without
 a field here pick a JAX route or layout whose numbers the port computes
-the same way (``use_pallas``, ``fused_blocks``, ``sampler_unroll``, the
-mesh, ``distributed``, ``is_train``, ``label_model``, ``save_label_dir``,
-``multi``) or are the reference's own extras: they are skipped, as the JAX
-loader skips unknown keys.
+the same way (``use_pallas``, ``fused_blocks``, ``sampler_unroll``,
+``is_train``, ``label_model``, ``save_label_dir``, ``multi``) or are the
+reference's own extras: they are skipped, as the JAX loader skips unknown
+keys. Its ``mesh_data``, ``mesh_model`` and ``mesh_dcn_data`` fill ``mesh``.
 """
 
 from __future__ import annotations
@@ -50,6 +52,37 @@ CFG_UNDER_PIT = (
     "degenerating the role signal. Train CFG on the final text-conditioned model."
 )
 SAMPLERS = ("ddpm", "ddim", "dpm")
+
+# JAX's refusals of the model-axis layouts (hig_tpu/train/trainer.py:648-662)
+FSDP_WITH_TP = "fsdp and tp both shard the mesh's model axis — enable one"
+PP_WITH_FSDP_TP = ("pp_micro stages the layer stack over the mesh's model "
+                   "axis — mutually exclusive with fsdp/tp")
+PP_NEEDS_EFFICIENT = ("pp_micro requires the efficient interaction stack "
+                      "(no --single_transformer / --no_eff)")
+
+
+@dataclasses.dataclass
+class MeshConfig:
+    """The (data, model) grid of ranks (``parallel/mesh.py``): ``data`` of -1
+    takes every rank the model axis leaves; ``dcn_data`` granules (hosts)
+    lay the data axis out host-major."""
+
+    data: int = -1
+    model: int = 1
+    dcn_data: int = 1
+
+
+def check_parallel_options(cfg) -> None:
+    """JAX's refusals, in JAX's order and words: FSDP with TP, the pipeline
+    with either, and the pipeline without the efficient interaction
+    stack."""
+    if cfg.fsdp and cfg.tp:
+        raise ValueError(FSDP_WITH_TP)
+    if cfg.pp_micro > 0:
+        if cfg.fsdp or cfg.tp:
+            raise ValueError(PP_WITH_FSDP_TP)
+        if cfg.single_transformer or cfg.no_eff:
+            raise ValueError(PP_NEEDS_EFFICIENT)
 
 
 @dataclasses.dataclass
@@ -139,7 +172,12 @@ class ExperimentConfig:
     use_native_loader: bool = False
     window_size: int = 90
 
-    # the multi-device layouts, not ported: must stay at these values
+    # the rank grid; distributed: several processes (HIG_* or
+    # torch.distributed's coordinator), initialized at the CLI's entry
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    distributed: bool = False
+    # the model axis's layout: FSDP shards, tensor-parallel blocks, or the
+    # GPipe schedule over pp_micro microbatches (parallel/)
     fsdp: bool = False
     tp: bool = False
     pp_micro: int = 0
@@ -153,11 +191,9 @@ class ExperimentConfig:
     max_motion_length: int = 196
 
     def __post_init__(self):
-        refused = {"fsdp": self.fsdp, "tp": self.tp, "pp_micro": self.pp_micro > 0}
-        bad = sorted(name for name, on in refused.items() if on)
-        if bad:
-            raise ValueError(f"hig_tpu_torch does not port these multi-device training "
-                             f"options: {bad}")
+        if isinstance(self.mesh, dict):
+            self.mesh = MeshConfig(**self.mesh)
+        check_parallel_options(self)
         if self.cond_drop_prob > 0.0 and self.label_path is None:
             raise ValueError(CFG_UNDER_PIT)
         if self.compute_dtype not in COMPUTE_DTYPES:
@@ -254,12 +290,20 @@ _HEADER = "------------ Options -------------"
 _FOOTER = "-------------- End ----------------"
 
 
+def _flatten(cfg: ExperimentConfig) -> dict:
+    d = dataclasses.asdict(cfg)
+    mesh = d.pop("mesh")
+    d.update(mesh_data=mesh["data"], mesh_model=mesh["model"], mesh_dcn_data=mesh["dcn_data"])
+    return d
+
+
 def save_opt_txt(cfg: ExperimentConfig, path: str) -> None:
-    """The reference's ``key: value`` opt.txt."""
+    """The reference's ``key: value`` opt.txt (the mesh as JAX writes it,
+    ``mesh_data``, ``mesh_model``, ``mesh_dcn_data``)."""
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:
         f.write(_HEADER + "\n")
-        for k, v in sorted(dataclasses.asdict(cfg).items()):
+        for k, v in sorted(_flatten(cfg).items()):
             f.write(f"{k}: {v}\n")
         f.write(_FOOTER + "\n")
 
@@ -269,15 +313,18 @@ def load_opt_txt(path: str, **overrides) -> ExperimentConfig:
     or the JAX package's) holds, with ``overrides``; keys without a field
     here (the JAX route keys and the reference's extras) are skipped."""
     fields = {f.name: f.type for f in dataclasses.fields(ExperimentConfig)}
-    kwargs = {}
+    kwargs, mesh = {}, {}
     with open(path) as f:
         for line in f:
             line = line.strip()
             if not line or line in (_HEADER, _FOOTER):
                 continue
             key, _, value = line.partition(": ")
+            if key in ("mesh_data", "mesh_model", "mesh_dcn_data"):
+                mesh[key[len("mesh_"):]] = int(value)
+                continue
             ftype = fields.get(key)
-            if ftype is None:
+            if ftype is None or key == "mesh":
                 continue
             if value == "None":
                 kwargs[key] = None
@@ -289,14 +336,20 @@ def load_opt_txt(path: str, **overrides) -> ExperimentConfig:
                 kwargs[key] = float(value)
             else:
                 kwargs[key] = value
+    kwargs["mesh"] = MeshConfig(**mesh)
     kwargs.update(overrides)
     return add_dataset_paths(ExperimentConfig(**kwargs))
 
 
 def add_config_args(parser: argparse.ArgumentParser) -> None:
-    """Every field as a --flag (bools as --flag/--no-flag pairs)."""
+    """Every field as a --flag (bools as --flag/--no-flag pairs), the mesh
+    as JAX's --mesh_data, --mesh_model and --mesh_dcn_data."""
     for f in dataclasses.fields(ExperimentConfig):
-        if f.type in ("bool", bool):
+        if f.name == "mesh":
+            parser.add_argument("--mesh_data", type=int, default=-1)
+            parser.add_argument("--mesh_model", type=int, default=1)
+            parser.add_argument("--mesh_dcn_data", type=int, default=1)
+        elif f.type in ("bool", bool):
             parser.add_argument(f"--{f.name}", action=argparse.BooleanOptionalAction,
                                 default=f.default)
         elif f.type in ("int", int):
@@ -308,5 +361,7 @@ def add_config_args(parser: argparse.ArgumentParser) -> None:
 
 
 def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
-    kwargs = {f.name: getattr(args, f.name) for f in dataclasses.fields(ExperimentConfig)}
+    kwargs = {f.name: getattr(args, f.name) for f in dataclasses.fields(ExperimentConfig)
+              if f.name != "mesh"}
+    kwargs["mesh"] = MeshConfig(args.mesh_data, args.mesh_model, args.mesh_dcn_data)
     return add_dataset_paths(ExperimentConfig(**kwargs))

@@ -5,6 +5,12 @@
 //   k += (1 - mask) * -1e6; v *= mask
 //   per head: y_h = softmax_feat(q_h) . [softmax_time(k_h)^T v_h]
 //
+// Every form takes an output width Dout = 64 H apart from the input width
+// D: the (Dout, D) weights hold the columns of H heads, so a tensor-parallel
+// rank with D / S of the columns (and H / S heads) runs its own heads
+// through the same kernels, which only change shape: tensor maps of (Dout,
+// D) weights, N x H blocks, y rows of Dout. The square model is Dout = D.
+//
 // Two launches on the caller's stream (linear_attention.cuh has the
 // design): the 3xTF32 QKV GEMM (q columns from q_src, k/v columns from
 // kv_src) into `qkv`, then the attention core into `out` (N, T, D).
@@ -15,18 +21,19 @@ extern "C" int hig_projected_attention(
     const float* q_src, const float* kv_src,
     const float* wq, const float* bq, const float* wk, const float* bk,
     const float* wv, const float* bv, const float* mask,
-    float* qkv, float* out, int N, int T, int D, void* stream_ptr) {
+    float* qkv, float* out, int N, int T, int D, int Dout, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (D % 32 || Dout % 64) return cudaErrorInvalidValue;
 
   hig::GemmArgs a{};
   a.a0 = q_src; a.a1 = kv_src;
   a.w0 = wq; a.w1 = wk; a.w2 = wv;
   a.b0 = bq; a.b1 = bk; a.b2 = bv;
   a.out = qkv;
-  a.M = N * T; a.K = D; a.D = D; a.ldo = 3 * D;
+  a.M = N * T; a.K = D; a.D = Dout; a.ldo = 3 * Dout;
   const cudaError_t err = hig::launch_gemm_qkv(a, stream);
   if (err != cudaSuccess) return err;
-  return hig::launch_core_qkv(qkv, mask, out, N, T, D, 0, stream);
+  return hig::launch_core_qkv(qkv, mask, out, N, T, Dout, 0, stream);
 }
 
 // B2-bf16: bfloat16 activations and weights, as the Pallas kernel computes
@@ -194,6 +201,8 @@ __global__ void __launch_bounds__(QC_THREADS, 1) projected_core_kernel(
     const __grid_constant__ CUtensorMap twv, const BiasT* __restrict__ bq,
     const BiasT* __restrict__ bk, const BiasT* __restrict__ bv, const float* __restrict__ mask,
     bf16* __restrict__ y, int T, int D, int H, int stages, int wrows) {
+  // D: the input width (64-column chunks of the projections); the output
+  // has H heads of 64, rows of 64 H
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = align1024(smem_raw);  // [stages]: source tiles 0 and 1, W pieces
   const int tiles = (T + 63) / 64, tpad = 64 * tiles;
@@ -357,7 +366,7 @@ __global__ void __launch_bounds__(QC_THREADS, 1) projected_core_kernel(
     for (int half = 0; half < 2; ++half) {
       const int t = 64 * tile + 16 * wl + g + 8 * half;
       if (t >= T) continue;
-      bf16* yr = y + ((size_t)n * T + t) * D + h * HD + 2 * c;
+      bf16* yr = y + ((size_t)n * T + t) * (H * HD) + h * HD + 2 * c;
 #pragma unroll
       for (int j = 0; j < 8; ++j) store2(yr + 8 * j, ya[j][2 * half], ya[j][2 * half + 1]);
     }
@@ -402,13 +411,14 @@ inline cudaError_t launch_split_pieces(const float* w0, const float* w1, const f
 }
 
 // projected_core_kernel<NP, BiasT, STREAM> on the caller's maps (wrows: the
-// rows of one weight in a pieces' map, 0 for three maps).
+// rows of one weight in a pieces' map, 0 for three maps): D input columns,
+// Dout = 64 H output columns.
 template <int NP, typename BiasT, bool STREAM = false>
 cudaError_t launch_projected_core(const CUtensorMap& mq, const CUtensorMap& mkv,
                                   const CUtensorMap& mwq, const CUtensorMap& mwk,
                                   const CUtensorMap& mwv, const BiasT* bq, const BiasT* bk,
                                   const BiasT* bv, const float* mask, bf16* out, int N, int T,
-                                  int D, int wrows, cudaStream_t stream) {
+                                  int D, int Dout, int wrows, cudaStream_t stream) {
   const int tpad = (T + 63) / 64 * 64;
   int stages, smem;
   if (STREAM) {
@@ -424,8 +434,8 @@ cudaError_t launch_projected_core(const CUtensorMap& mq, const CUtensorMap& mkv,
   const cudaError_t err = cudaFuncSetAttribute(projected_core_kernel<NP, BiasT, STREAM>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  projected_core_kernel<NP, BiasT, STREAM><<<N * (D / HD), QC_THREADS, smem, stream>>>(
-      mq, mkv, mwq, mwk, mwv, bq, bk, bv, mask, out, T, D, D / HD, stages, wrows);
+  projected_core_kernel<NP, BiasT, STREAM><<<N * (Dout / HD), QC_THREADS, smem, stream>>>(
+      mq, mkv, mwq, mwk, mwv, bq, bk, bv, mask, out, T, D, Dout / HD, stages, wrows);
   return cudaGetLastError();
 }
 
@@ -433,17 +443,17 @@ cudaError_t launch_projected_core(const CUtensorMap& mq, const CUtensorMap& mkv,
 inline cudaError_t projected_bf16(const bf16* q_src, const bf16* kv_src, const bf16* wq,
                                   const bf16* bq, const bf16* wk, const bf16* bk, const bf16* wv,
                                   const bf16* bv, const float* mask, bf16* out, int N, int T,
-                                  int D, cudaStream_t stream) {
-  if (D % 64) return cudaErrorInvalidValue;
+                                  int D, int Dout, cudaStream_t stream) {
+  if (D % 64 || Dout % 64) return cudaErrorInvalidValue;
   CUtensorMap mq, mkv, mwq, mwk, mwv;
   cudaError_t err = make_tile_map(&mq, q_src, D, T, N, D, 64);
   if (err == cudaSuccess) err = make_tile_map(&mkv, kv_src, D, T, N, D, 64);
-  if (err == cudaSuccess) err = make_tile_map(&mwq, wq, D, D, 1, D, 64);
-  if (err == cudaSuccess) err = make_tile_map(&mwk, wk, D, D, 1, D, 64);
-  if (err == cudaSuccess) err = make_tile_map(&mwv, wv, D, D, 1, D, 64);
+  if (err == cudaSuccess) err = make_tile_map(&mwq, wq, D, Dout, 1, D, 64);
+  if (err == cudaSuccess) err = make_tile_map(&mwk, wk, D, Dout, 1, D, 64);
+  if (err == cudaSuccess) err = make_tile_map(&mwv, wv, D, Dout, 1, D, 64);
   if (err != cudaSuccess) return err;
   return launch_projected_core<1, bf16, true>(mq, mkv, mwq, mwk, mwv, bq, bk, bv, mask, out, N,
-                                              T, D, 0, stream);
+                                              T, D, Dout, 0, stream);
 }
 
 }  // namespace hig
@@ -453,35 +463,35 @@ extern "C" int hig_projected_attention_bf16(
     const hig::bf16* q_src, const hig::bf16* kv_src,
     const hig::bf16* wq, const hig::bf16* bq, const hig::bf16* wk, const hig::bf16* bk,
     const hig::bf16* wv, const hig::bf16* bv, const float* mask, hig::bf16* out,
-    int N, int T, int D, void* stream_ptr) {
-  return hig::projected_bf16(q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, out, N, T, D,
+    int N, int T, int D, int Dout, void* stream_ptr) {
+  return hig::projected_bf16(q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, out, N, T, D, Dout,
                              static_cast<cudaStream_t>(stream_ptr));
 }
 
-// The weight split alone: `pieces` (3, 3 D, D) bfloat16 from wq, wk, wv
-// (D, D) float32. Returns the cudaError_t of the launch.
+// The weight split alone: `pieces` (3, 3 Dout, D) bfloat16 from wq, wk, wv
+// (Dout, D) float32. Returns the cudaError_t of the launch.
 extern "C" int hig_split_bf16_pieces(const float* wq, const float* wk, const float* wv,
-                                     hig::bf16* pieces, int D, void* stream_ptr) {
-  return hig::launch_split_pieces(wq, wk, wv, pieces, D * D,
+                                     hig::bf16* pieces, int D, int Dout, void* stream_ptr) {
+  return hig::launch_split_pieces(wq, wk, wv, pieces, Dout * D,
                                   static_cast<cudaStream_t>(stream_ptr));
 }
 
-// B2-bf16a: the weight split into `pieces` (3, 3 D, D) bfloat16 scratch,
+// B2-bf16a: the weight split into `pieces` (3, 3 Dout, D) bfloat16 scratch,
 // then the kernel on three pieces. Returns the first cudaError_t.
 extern "C" int hig_projected_attention_bf16a(
     const hig::bf16* q_src, const hig::bf16* kv_src,
     const float* wq, const float* bq, const float* wk, const float* bk,
     const float* wv, const float* bv, const float* mask, hig::bf16* pieces, hig::bf16* out,
-    int N, int T, int D, void* stream_ptr) {
+    int N, int T, int D, int Dout, void* stream_ptr) {
   using namespace hig;
-  if (T > QC_MAX_T || D % 64) return cudaErrorInvalidValue;
+  if (T > QC_MAX_T || D % 64 || Dout % 64) return cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   CUtensorMap mq, mkv, mw;
-  cudaError_t err = launch_split_pieces(wq, wk, wv, pieces, D * D, stream);
+  cudaError_t err = launch_split_pieces(wq, wk, wv, pieces, Dout * D, stream);
   if (err == cudaSuccess) err = make_tile_map(&mq, q_src, D, T, N, D, 64);
   if (err == cudaSuccess) err = make_tile_map(&mkv, kv_src, D, T, N, D, 64);
-  if (err == cudaSuccess) err = make_tile_map(&mw, pieces, D, 3 * D, 3, D, 64);
+  if (err == cudaSuccess) err = make_tile_map(&mw, pieces, D, 3 * Dout, 3, D, 64);
   if (err != cudaSuccess) return err;
-  return launch_projected_core<3>(mq, mkv, mw, mw, mw, bq, bk, bv, mask, out, N, T, D, D,
-                                  stream);
+  return launch_projected_core<3>(mq, mkv, mw, mw, mw, bq, bk, bv, mask, out, N, T, D, Dout,
+                                  Dout, stream);
 }

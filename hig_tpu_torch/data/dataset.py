@@ -104,12 +104,16 @@ def rescale_std_train(std: np.ndarray, joints_num: int, feat_bias: float) -> np.
     return std
 
 
-def load_training_stats(cfg: ExperimentConfig) -> tuple[np.ndarray, np.ndarray]:
+def load_training_stats(cfg: ExperimentConfig,
+                        write: bool = True) -> tuple[np.ndarray, np.ndarray]:
     """Mean.npy / Std.npy of the data root with the train-time rescale, also
-    written to the run's meta/ (where serving reads them)."""
+    written to the run's meta/ (where serving reads them) unless ``write``
+    is False (a rank other than the primary)."""
     mean = np.load(pjoin(cfg.data_root, "Mean.npy"))
     std = rescale_std_train(np.load(pjoin(cfg.data_root, "Std.npy")), cfg.joints_num,
                             cfg.feat_bias)
+    if not write:
+        return mean, std
     os.makedirs(cfg.meta_dir, exist_ok=True)
     np.save(pjoin(cfg.meta_dir, "mean.npy"), mean)
     np.save(pjoin(cfg.meta_dir, "std.npy"), std)
@@ -346,10 +350,18 @@ def collate(samples: list[dict], token_cache: dict | None = None) -> dict:
 
 
 def epoch_batches(dataset, batch_size: int, epoch: int, shuffle: bool = True,
-                  drop_last: bool = True, seed: int = 0, token_cache: dict | None = None):
+                  drop_last: bool = True, seed: int = 0, token_cache: dict | None = None,
+                  process_index: int = 0, process_count: int = 1):
     """The batches of one epoch of any of the datasets above: the order is
     a function of (seed, epoch); with ``drop_last`` the ragged tail is
-    dropped, else the order wraps round to fill the last batch."""
+    dropped, else the order wraps round to fill the last batch.
+    ``batch_size`` is the global batch: of ``process_count`` ranks, rank
+    ``process_index`` reads its contiguous ``batch_size / process_count``
+    slice of each (as ``hig_tpu/data/dataset.py:436-470``)."""
+    if batch_size % process_count:
+        raise ValueError(f"global batch {batch_size} not divisible by {process_count} "
+                         "processes")
+    local_bs = batch_size // process_count
     n = len(dataset)
     order = np.arange(n)
     if shuffle:
@@ -359,5 +371,6 @@ def epoch_batches(dataset, batch_size: int, epoch: int, shuffle: bool = True,
     elif n % batch_size:
         order = np.concatenate([order, order[: batch_size - n % batch_size]])
     for i in range(0, len(order), batch_size):
-        samples = [dataset.__getitem__(int(j), epoch=epoch) for j in order[i : i + batch_size]]
+        local = order[i + process_index * local_bs : i + (process_index + 1) * local_bs]
+        samples = [dataset.__getitem__(int(j), epoch=epoch) for j in local]
         yield collate(samples, token_cache)

@@ -45,6 +45,7 @@ from hig_tpu_torch.data.dataset import PairDataset, epoch_batches
 from hig_tpu_torch.diffusion import distill as pd
 from hig_tpu_torch.models.interaction_model import InteractionModel
 from hig_tpu_torch.models.text_encoder import ClipTextConfig
+from hig_tpu_torch.parallel import distributed as dist
 from hig_tpu_torch.train import checkpoint as ckpt
 from hig_tpu_torch.train.trainer import (
     Trainer,
@@ -78,6 +79,7 @@ def main(argv=None, clip_config: ClipTextConfig | None = None, graph: bool = Tru
                         help="fixed-w guided distillation (CFG teacher only)")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
+    dist.require_one_process("python -m hig_tpu_torch.distill")
 
     cfg = load_opt_txt(args.opt_path)
     cfg.lr = args.lr

@@ -63,6 +63,7 @@ from hig_tpu_torch.eval.evaluator import (
 from hig_tpu_torch.eval.test import save_confusion_png
 from hig_tpu_torch.eval.trainer import BEST, eval_model_config, load_eval_model
 from hig_tpu_torch.models.tokenizer import tokenize
+from hig_tpu_torch.parallel import distributed as dist
 from hig_tpu_torch.serve import build_model, load_stats
 from hig_tpu_torch.train.trainer import make_sampler
 
@@ -127,6 +128,7 @@ def main(argv=None) -> dict:
                         help="kernel of the efficient blocks (default fused)")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
+    dist.require_one_process("python -m hig_tpu_torch.evaluate")
 
     cfg = load_opt_txt(args.opt_path)
     if args.fast_ln:

@@ -39,6 +39,7 @@ from hig_tpu_torch.config import load_opt_txt, model_config
 from hig_tpu_torch.data.dataset import PairDataset
 from hig_tpu_torch.diffusion import gaussian as g
 from hig_tpu_torch.models.interaction_model import InteractionModel
+from hig_tpu_torch.parallel import distributed as dist
 from hig_tpu_torch.serve import load_stats
 from hig_tpu_torch.train import checkpoint as ckpt
 from hig_tpu_torch.train import labeling
@@ -61,6 +62,7 @@ def main(argv=None):
                              "projected for an rms_norm run)")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
+    dist.require_one_process("python -m hig_tpu_torch.label")
 
     cfg = load_opt_txt(args.opt_path)
     if cfg.no_eff and args.blocks is not None:

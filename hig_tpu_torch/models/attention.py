@@ -31,6 +31,30 @@ so the (B, actors, T, D) layout flows through, and so does a
   weight in float32), and the interaction block normalizes x with ``norm``
   and the partner with its own ``text_norm``.
 
+Tensor parallelism (``tp``, set by ``parallel.mesh.place_tp``; JAX's
+Megatron rule). A rank holds the columns of its H/S heads of
+query/key/value (and its slice of their biases), the columns of linear1
+and the rows of linear2; every norm, the ``StylizationBlock`` gates and
+the embeddings stay whole. The self-attention and interaction blocks take
+B2 on the rank's own heads with (D/S, D) weights (its rectangular form),
+or the einsum route on them, then all-gather y on the feature axis before
+the replicated gate. B1 is not launched under TP: it fuses the gate's
+replicated Wo after the core, which needs every head. The text
+cross-attention keeps its rank's heads (their KᵀV state too) and gathers
+y the same way; the quadratic blocks hand B4 the rank's heads. The FFN
+runs linear1 column-parallel, GELU on the rank's columns, linear2
+row-parallel, an all-reduce of the partial sums and then linear2's bias
+once. The collectives are autograd functions: the backward sums the
+ranks' partial gradients where a replicated activation entered the
+column-parallel products.
+
+Sequence parallelism (``sp``, set by ``parallel.mesh.place_sequence``;
+JAX's ``sequence_sharding``): x is a rank's slice of the time axis. The
+efficient self-attention and interaction blocks take the einsum route with
+:func:`sequence_parallel_attention`, whose time max, exp-sum and KᵀV moment
+are this slice's partial reductions, all-reduced over the ranks; every
+other op acts per token. Forward only, plain PyTorch, as JAX's SP denoiser.
+
 On CPU tensors each kernel wrapper runs its plain version. The text
 cross-attention and the FFN are plain PyTorch on every device, as JAX
 computes them outside any Pallas kernel. :func:`_attend` routes bare
@@ -78,12 +102,13 @@ from torch import nn
 
 from hig_tpu_torch.models.embeddings import (
     StylizationBlock,
+    column_dense,
     constant,
-    dense,
     gelu,
     linear,
     make_norm,
     reduced,
+    row_dense,
     softmax,
 )
 from hig_tpu_torch.ops.flash_attention import (
@@ -158,6 +183,27 @@ def xla_cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
     return (inner + before.unsqueeze(dim + 1)).reshape(x.shape).narrow(dim, 0, n)
 
 
+def sequence_parallel_attention(query, key, value, num_heads: int, key_mask, group):
+    """Efficient attention over a time axis split across ``group`` (a
+    ``parallel.distributed.Group``): query, key, value (..., T/S, D) and
+    key_mask (..., T/S) are this rank's rows. softmax_time(k)ᵀv =
+    Σ exp(k − max)ᵀ v / Σ exp(k − max), the max, the sum and the moment each
+    a partial reduction over the rank's rows and an all-reduce."""
+    from hig_tpu_torch.parallel import distributed as dist
+
+    D = query.shape[-1]
+    m = key_mask[..., None]
+    k = split_heads(key + (1.0 - m) * MASK_BIAS, num_heads)
+    v = split_heads(value * m, num_heads)
+    kmax = dist.all_reduce(k.amax(dim=-3, keepdim=True), group, "max")
+    e = torch.exp(k - kmax)
+    z = dist.all_reduce(e.sum(dim=-3), group)  # (..., h, d)
+    state = dist.all_reduce(torch.einsum("...nhd,...nhl->...hdl", e, v), group)
+    y = torch.einsum("...nhd,...hdl->...nhl", split_heads(query, num_heads).softmax(dim=-1),
+                     state / z[..., None])
+    return y.reshape(*y.shape[:-2], D)
+
+
 def _causal_core(query, key, value, num_heads: int, key_mask=None):
     D, dt = query.shape[-1], query.dtype
     q = split_heads(query, num_heads)
@@ -218,6 +264,8 @@ class _KernelBlock(nn.Module):
     norm, query/key/value and the ``proj_out`` gate (flax names)."""
 
     interaction = False
+    tp = None  # a parallel.mesh.TensorParallel (module doc)
+    sp = None  # a parallel.distributed.Group: sequence parallelism (module doc)
 
     def __init__(self, latent_dim: int, num_heads: int, emb_dim: int,
                  fused: bool = False, dtype: torch.dtype = torch.float32,
@@ -250,42 +298,50 @@ class _KernelBlock(nn.Module):
         ``--single_transformer`` model's merged timeline (self-attention
         only), x (B, 2T, D), emb (B, E) and src_mask (B, 2T). emb is None
         when ``adaln`` = (scale, shift), each (B, 2, 1, D) or (B, 1, D), is
-        given. The route follows the module doc's rule."""
+        given. The route follows the module doc's rule; under ``tp`` the
+        block runs the rank's heads (B2's rectangular form, never B1)."""
         scale, shift = adaln if adaln is not None else self.proj_out.scale_shift(emb)
         mask = src_mask.expand(x.shape[:-1])
-        if self.fused and not self.training and not self.causal:
+        tp = self.tp
+        if self.fused and not self.training and not self.causal and tp is None \
+                and self.sp is None:
             return fused_attention_block(x, mask, scale, shift, self.block_weights(x.dtype),
                                          self.num_heads, self.interaction)
         xn = self.norm(x)
-        if self.causal or (self.training and reduced(xn.dtype)):
-            y = self._einsum_route(xn, mask)
+        heads, biases = self.num_heads, (self.query.bias, self.key.bias, self.value.bias)
+        if tp is not None:
+            xn, heads, biases = tp.enter(xn), tp.heads(heads), tuple(map(tp.cols, biases))
+        weights = (self.query.weight, biases[0], self.key.weight, biases[1],
+                   self.value.weight, biases[2])
+        if self.causal or self.sp is not None or (self.training and reduced(xn.dtype)):
+            y = self._einsum_route(xn, mask, weights, heads)
         else:
             kv_src, kv_mask = xn, mask
             if self.interaction:
                 # the shared LayerNorm normalizes both actors; k/v and the
                 # key mask are the other actor's
                 kv_src, kv_mask = xn.flip(-3), mask.flip(-2)
-            y = fused_projected_attention(
-                xn, kv_src, self.query.weight, self.query.bias, self.key.weight,
-                self.key.bias, self.value.weight, self.value.bias, self.num_heads,
-                key_mask=kv_mask,
-            )
+            y = fused_projected_attention(xn, kv_src, *weights, heads, key_mask=kv_mask)
+        if tp is not None:
+            y = tp.gather(y)
         return x + self.proj_out.from_scale_shift(y, scale, shift)
 
-    def _einsum_route(self, xn, mask):
+    def _einsum_route(self, xn, mask, weights, heads: int):
         """JAX's einsum route (``use_pallas=False``, or any causal block): one
-        merged q|k|v product, k, v and the key mask flipped on the actor axis
-        for the interaction block, then the causal core or, in bfloat16
-        training, the core through B3-bf16 (contiguous copies, as the kernel
-        reads (..., T, D) rows at stride D)."""
-        q, k, v = merged_qkv(xn, self.query.weight, self.query.bias, self.key.weight,
-                             self.key.bias, self.value.weight, self.value.bias)
+        merged q|k|v product of ``weights`` (wq, bq, wk, bk, wv, bv), k, v
+        and the key mask flipped on the actor axis for the interaction
+        block, then the causal core or, in bfloat16 training, the core
+        through B3-bf16 (contiguous copies, as the kernel reads (..., T, D)
+        rows at stride D)."""
+        q, k, v = merged_qkv(xn, *weights)
         if self.interaction:
             k, v, mask = k.flip(-3), v.flip(-3), mask.flip(-2)
+        if self.sp is not None:
+            return sequence_parallel_attention(q, k, v, heads, mask, self.sp)
         if self.causal:
-            return causal_efficient_attention(q, k, v, self.num_heads, key_mask=mask)
+            return causal_efficient_attention(q, k, v, heads, key_mask=mask)
         return fused_efficient_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                         self.num_heads, key_mask=mask)
+                                         heads, key_mask=mask)
 
 
 class EfficientSelfAttention(_KernelBlock):
@@ -302,7 +358,10 @@ class EfficientInteractionAttention(_KernelBlock):
 class EfficientCrossAttention(nn.Module):
     """Text cross-attention. The text tokens are constant across a sampling
     call, so :meth:`kv` computes the per-layer KᵀV state once and
-    :meth:`from_kv` is the per-step body."""
+    :meth:`from_kv` is the per-step body. Under ``tp`` the state and y are
+    the rank's heads'."""
+
+    tp = None  # a parallel.mesh.TensorParallel (module doc)
 
     def __init__(self, latent_dim: int, text_latent_dim: int, num_heads: int,
                  emb_dim: int, dtype: torch.dtype = torch.float32, fast_ln: bool = False,
@@ -318,17 +377,28 @@ class EfficientCrossAttention(nn.Module):
         self.value = nn.Linear(text_latent_dim, latent_dim)
         self.proj_out = StylizationBlock(latent_dim, emb_dim, dtype, fast_ln, rms)
 
+    def _heads(self) -> int:
+        return self.num_heads if self.tp is None else self.tp.heads(self.num_heads)
+
+    def _enter(self, x):
+        return x if self.tp is None else self.tp.enter(x)
+
     def kv(self, xf: torch.Tensor) -> torch.Tensor:
-        """(..., L, Dt) → (..., H, dh, dh)."""
-        xfn = self.text_norm(xf)
-        k = softmax(split_heads(dense(self.key, xfn, self.dtype), self.num_heads), -3)
-        v = split_heads(dense(self.value, xfn, self.dtype), self.num_heads)
+        """(..., L, Dt) → (..., H, dh, dh) (H/S heads under ``tp``)."""
+        xfn = self._enter(self.text_norm(xf))
+        k = softmax(split_heads(column_dense(self.key, xfn, self.dtype, self.tp),
+                                self._heads()), -3)
+        v = split_heads(column_dense(self.value, xfn, self.dtype, self.tp), self._heads())
         return torch.einsum("...nhd,...nhl->...hdl", k, v)
 
     def from_kv(self, x, kv, emb, adaln=None):
-        q = softmax(split_heads(dense(self.query, self.norm(x), self.dtype), self.num_heads), -1)
+        xn = self._enter(self.norm(x))
+        q = softmax(split_heads(column_dense(self.query, xn, self.dtype, self.tp),
+                                self._heads()), -1)
         y = torch.einsum("...nhd,...hdl->...nhl", q, kv)
-        y = y.reshape(*y.shape[:-2], self.latent_dim)
+        y = y.reshape(*y.shape[:-2], -1)
+        if self.tp is not None:
+            y = self.tp.gather(y)
         if adaln is not None:
             return x + self.proj_out.from_scale_shift(y, *adaln)
         return x + self.proj_out(y, emb)
@@ -343,6 +413,8 @@ class QuadraticSelfAttention(nn.Module):
     The reference adds the raw 0/1 mask to the logits, which masks nothing;
     like the JAX package, padded keys get the −1e6 bias instead.
     """
+
+    tp = None  # a parallel.mesh.TensorParallel (module doc)
 
     def __init__(self, latent_dim: int, num_heads: int, emb_dim: int,
                  causal: bool = False, dtype: torch.dtype = torch.float32):
@@ -359,12 +431,17 @@ class QuadraticSelfAttention(nn.Module):
         """x (B, 2, T, D); src_mask (B, 1|2, T); ``adaln`` as in the
         efficient blocks."""
         scale, shift = adaln if adaln is not None else self.proj_out.scale_shift(emb)
+        xn, heads, tp = self.norm(x), self.num_heads, self.tp
+        biases = (self.query.bias, self.key.bias, self.value.bias)
+        if tp is not None:
+            xn, heads, biases = tp.enter(xn), tp.heads(heads), tuple(map(tp.cols, biases))
         # one (D, 3D) product; B4 reads q, k and v from it in place
-        q, k, v = merged_qkv(self.norm(x), self.query.weight, self.query.bias,
-                             self.key.weight, self.key.bias, self.value.weight,
-                             self.value.bias)
-        y = flash_attention(q, k, v, self.num_heads, key_mask=src_mask.expand(x.shape[:-1]),
+        q, k, v = merged_qkv(xn, self.query.weight, biases[0], self.key.weight, biases[1],
+                             self.value.weight, biases[2])
+        y = flash_attention(q, k, v, heads, key_mask=src_mask.expand(x.shape[:-1]),
                             causal=self.causal)
+        if tp is not None:
+            y = tp.gather(y)
         return x + self.proj_out.from_scale_shift(y, scale, shift)
 
 
@@ -372,6 +449,8 @@ class QuadraticCrossAttention(nn.Module):
     """Text softmax cross-attention, unmasked. The text K/V are constant
     across a sampling call: :meth:`kv` projects them once and :meth:`from_kv`
     is the per-step body."""
+
+    tp = None  # a parallel.mesh.TensorParallel (module doc)
 
     def __init__(self, latent_dim: int, text_latent_dim: int, num_heads: int,
                  emb_dim: int, dtype: torch.dtype = torch.float32):
@@ -386,14 +465,21 @@ class QuadraticCrossAttention(nn.Module):
         self.proj_out = StylizationBlock(latent_dim, emb_dim, dtype)
 
     def kv(self, xf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """(..., L, Dt) → (k, v), each (..., L, D)."""
+        """(..., L, Dt) → (k, v), each (..., L, D) (the rank's D/S columns
+        under ``tp``)."""
         xfn = self.text_norm(xf)
-        return dense(self.key, xfn, self.dtype), dense(self.value, xfn, self.dtype)
+        xfn = xfn if self.tp is None else self.tp.enter(xfn)
+        return (column_dense(self.key, xfn, self.dtype, self.tp),
+                column_dense(self.value, xfn, self.dtype, self.tp))
 
     def from_kv(self, x, kv, emb, adaln=None):
         k, v = kv
-        y = quadratic_attention(dense(self.query, self.norm(x), self.dtype), k, v,
-                                self.num_heads)
+        xn, heads = self.norm(x), self.num_heads
+        if self.tp is not None:
+            xn, heads = self.tp.enter(xn), self.tp.heads(heads)
+        y = quadratic_attention(column_dense(self.query, xn, self.dtype, self.tp), k, v, heads)
+        if self.tp is not None:
+            y = self.tp.gather(y)
         if adaln is not None:
             return x + self.proj_out.from_scale_shift(y, *adaln)
         return x + self.proj_out(y, emb)
@@ -407,6 +493,8 @@ class QuadraticInteractionAttention(nn.Module):
     timeline. Unlike the efficient block, x is normalized with ``norm`` and
     the partner with its own ``text_norm``, and the key mask is the
     partner's."""
+
+    tp = None  # a parallel.mesh.TensorParallel (module doc)
 
     def __init__(self, latent_dim: int, num_heads: int, emb_dim: int,
                  causal: bool = False, dtype: torch.dtype = torch.float32):
@@ -424,20 +512,29 @@ class QuadraticInteractionAttention(nn.Module):
     def forward(self, x, emb, src_mask, adaln=None):
         """x (B, 2, T, D); src_mask (B, 1|2, T), each actor's own mask."""
         scale, shift = adaln if adaln is not None else self.proj_out.scale_shift(emb)
-        q = dense(self.query, self.norm(x), self.dtype)
+        xn, xt, heads, tp = self.norm(x), self.text_norm(x), self.num_heads, self.tp
+        bk, bv = self.key.bias, self.value.bias
+        if tp is not None:
+            xn, xt, heads = tp.enter(xn), tp.enter(xt), tp.heads(heads)
+            bk, bv = tp.cols(bk), tp.cols(bv)
+        q = column_dense(self.query, xn, self.dtype, tp)
         # LayerNorm and the projections act per token, so k and v are
         # projected from the unflipped x in one (D, 2D) product and B4 reads
         # the partner's rows (partner=True) instead of a flipped copy.
         w = torch.cat([self.key.weight, self.value.weight])
-        b = torch.cat([self.key.bias, self.value.bias])
-        k, v = linear(self.text_norm(x), w, b).chunk(2, dim=-1)
-        y = flash_attention(q, k, v, self.num_heads, key_mask=src_mask.expand(x.shape[:-1]),
+        k, v = linear(xt, w, torch.cat([bk, bv])).chunk(2, dim=-1)
+        y = flash_attention(q, k, v, heads, key_mask=src_mask.expand(x.shape[:-1]),
                             causal=self.causal, partner=True)
+        if tp is not None:
+            y = tp.gather(y)
         return x + self.proj_out.from_scale_shift(y, scale, shift)
 
 
 class FFN(nn.Module):
-    """Exact-GELU MLP + stylization gate."""
+    """Exact-GELU MLP + stylization gate; under ``tp`` linear1 column- and
+    linear2 row-parallel (module doc)."""
+
+    tp = None  # a parallel.mesh.TensorParallel
 
     def __init__(self, latent_dim: int, ffn_dim: int, emb_dim: int,
                  dtype: torch.dtype = torch.float32, fast_ln: bool = False, rms: bool = False):
@@ -448,7 +545,9 @@ class FFN(nn.Module):
         self.proj_out = StylizationBlock(latent_dim, emb_dim, dtype, fast_ln, rms)
 
     def forward(self, x, emb, adaln=None):
-        h = dense(self.linear2, gelu(dense(self.linear1, x, self.dtype)), self.dtype)
+        xin = x if self.tp is None else self.tp.enter(x)
+        h = row_dense(self.linear2, gelu(column_dense(self.linear1, xin, self.dtype, self.tp)),
+                      self.dtype, self.tp)
         if adaln is not None:
             return x + self.proj_out.from_scale_shift(h, *adaln)
         return x + self.proj_out(h, emb)

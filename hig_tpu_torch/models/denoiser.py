@@ -143,8 +143,16 @@ class InteractionDenoiser(nn.Module):
     Separate output heads for the init token (``out2``) and the frames
     (``out``). ``interaction`` and ``single_transformer`` are the
     ablations of the module doc; under ``single_transformer`` the layers
-    never fuse, whatever ``fused_blocks`` says, as in JAX.
+    never fuse, whatever ``fused_blocks`` says, as in JAX. With
+    ``pipeline`` set (a ``parallel.pipeline.Pipeline``, ``--pp_micro``) the
+    layer stack runs under the GPipe schedule over the model axis's ranks.
+    With ``sequence`` set (a ``parallel.distributed.Group``, by
+    ``parallel.mesh.place_sequence``) x is this rank's contiguous slice of
+    the time axis and so is the output: sequence parallelism.
     """
+
+    pipeline = None
+    sequence = None
 
     def __init__(self, input_feats: int = 263, num_frames: int = 196,
                  latent_dim: int = 512, ff_size: int = 1024, num_layers: int = 8,
@@ -187,21 +195,32 @@ class InteractionDenoiser(nn.Module):
             xf_out = merge_text(xf_out)
         return tuple(layer.text_kv(xf_out) for layer in self.layers)
 
-    def embed_inputs(self, x, lengths):
-        """(B, 2, T, D_in) → (hidden (B, 2, T, D), src_mask (B, 1, T))."""
+    def embed_inputs(self, x, lengths, offset: int = 0):
+        """(B, 2, T, D_in) → (hidden (B, 2, T, D), src_mask (B, 1, T)).
+        ``offset``: the global index of x's first token (a sequence-parallel
+        rank's slice of the time axis); token 0 is the init token."""
         T, dt = x.shape[2], self.dtype
-        seq = cast(self.sequence_embedding[: T - 1], dt)
-        move = dense(self.joint_embed, x[:, :, 1:], dt) + seq
-        init = dense(self.joint_embed2, x[:, :, 0, :4], dt)
-        h = torch.cat([init[:, :, None, :], move], dim=2)
+        first = 1 if offset == 0 else 0  # whether x holds the init token
+        seq = cast(self.sequence_embedding[offset + first - 1: offset + T - 1], dt)
+        h = dense(self.joint_embed, x[:, :, first:], dt) + seq
+        if first:
+            init = dense(self.joint_embed2, x[:, :, 0, :4], dt)
+            h = torch.cat([init[:, :, None, :], h], dim=2)
         mask_dtype = x.dtype if dt == torch.float32 else dt
-        return h, length_mask(lengths, T, mask_dtype)[:, None, :]
+        mask = (torch.arange(offset, offset + T, device=lengths.device)
+                < lengths[..., None]).to(mask_dtype) if offset else \
+            length_mask(lengths, T, mask_dtype)
+        return h, mask[:, None, :]
 
     def conditioning(self, timesteps, xf_proj):
         """(B,) timesteps + (B, 2, E) pooled text → per-block emb (B, 2, E)."""
         return self.time_embed(timesteps)[:, None, :] + xf_proj
 
-    def project_out(self, h):
+    def project_out(self, h, offset: int = 0):
+        """The output heads: ``out2`` for the init token (when h, starting at
+        global token ``offset``, holds it), ``out`` for the frames."""
+        if offset:
+            return dense(self.out, h, self.dtype)
         return torch.cat([dense(self.out2, h[:, :, :1], self.dtype),
                           dense(self.out, h[:, :, 1:], self.dtype)], dim=2)
 
@@ -211,7 +230,8 @@ class InteractionDenoiser(nn.Module):
         (``adaln_scale_shift_grid``); emb is then not computed."""
         if x.shape[1] != 2:
             raise ValueError(f"actor axis must be 2, got {tuple(x.shape)}")
-        h, src_mask = self.embed_inputs(x, lengths)
+        offset = 0 if self.sequence is None else self.sequence.index() * x.shape[2]
+        h, src_mask = self.embed_inputs(x, lengths, offset)
         emb = self.conditioning(timesteps, xf_proj) if adaln is None else None
         B, A, T = h.shape[:3]
         if self.single_transformer:
@@ -220,11 +240,18 @@ class InteractionDenoiser(nn.Module):
             emb = None if emb is None else actor_mean(emb, 1)
             src_mask = src_mask.expand(B, A, T).reshape(B, A * T)
             xf_out = None if xf_out is None else merge_text(xf_out)
+        if self.pipeline is not None:
+            if text_kv is not None or adaln is not None or self.single_transformer:
+                raise ValueError("the pipelined layer stack takes the text features and "
+                                 "the conditioning (the efficient interaction stack, as "
+                                 "JAX's pipeline_denoise), not hoisted state")
+            h = self.pipeline(self.layers, h, xf_out, emb, src_mask)
+            return self.project_out(h.reshape(B, A, T, -1))
         for i, layer in enumerate(self.layers):
             h = layer(h, xf_out, emb, src_mask,
                       text_kv=None if text_kv is None else text_kv[i],
                       adaln=None if adaln is None else adaln[i])
-        return self.project_out(h.reshape(B, A, T, -1))
+        return self.project_out(h.reshape(B, A, T, -1), offset)
 
 
 def merge_text(xf_out: torch.Tensor) -> torch.Tensor:

@@ -139,6 +139,26 @@ def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype = torch.float32)
     return linear(x.to(dtype), layer.weight, layer.bias)
 
 
+def column_dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype, tp=None):
+    """:func:`dense` of a column-parallel layer: under ``tp`` (a
+    ``parallel.mesh.TensorParallel``) the layer holds this rank's rows of
+    the weight, and its whole bias, of which the rank adds its slice."""
+    if tp is None:
+        return dense(layer, x, dtype)
+    return linear(x.to(dtype), layer.weight, tp.cols(layer.bias))
+
+
+def row_dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype, tp=None):
+    """:func:`dense` of a row-parallel layer: under ``tp`` the layer holds
+    this rank's columns of the weight; the ranks' partial products are
+    summed (an all-reduce), then the whole bias is added once."""
+    if tp is None:
+        return dense(layer, x, dtype)
+    x = x.to(dtype)
+    h = tp.reduce(F.linear(x, layer.weight.to(dtype)))
+    return h + layer.bias.to(dtype)
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     if not reduced(x.dtype):
         return F.silu(x)

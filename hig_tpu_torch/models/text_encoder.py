@@ -23,11 +23,13 @@ from torch import nn
 
 from hig_tpu_torch.models.embeddings import (
     cast,
+    column_dense,
     constant,
     dense,
     gelu,
     make_norm,
     reduced,
+    row_dense,
     softmax,
 )
 
@@ -130,6 +132,8 @@ class PostLNEncoderLayer(nn.Module):
     with flax's LayerNorm eps. The text suffix calls it unmasked; the
     evaluator models pass ``key_mask`` (N, L), 1 = attend, 0 = pad."""
 
+    tp = None  # a parallel.mesh.TensorParallel: linear1 column-, linear2 row-parallel
+
     def __init__(self, d_model: int, heads: int, ff_size: int,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -144,7 +148,9 @@ class PostLNEncoderLayer(nn.Module):
     def forward(self, x, key_mask=None):
         x = self.norm1(x + _attention(x, self.in_proj, self.out_proj, self.heads, False,
                                       key_mask, self.dtype))
-        h = dense(self.linear2, gelu(dense(self.linear1, x, self.dtype)), self.dtype)
+        xin = x if self.tp is None else self.tp.enter(x)
+        h = row_dense(self.linear2, gelu(column_dense(self.linear1, xin, self.dtype, self.tp)),
+                      self.dtype, self.tp)
         return self.norm2(x + h)
 
 

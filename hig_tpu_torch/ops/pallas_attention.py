@@ -258,18 +258,18 @@ def split_bf16_pieces(w: torch.Tensor):
 
 
 def weight_pieces(wq, wk, wv):
-    """B2-bf16a's weight pieces, (3, 3D, D) bfloat16: piece p (hi, mid, lo)
-    of [wq; wk; wv], float32 (D, D) each. CPU tensors take the plain
+    """B2-bf16a's weight pieces, (3, 3 Dout, D) bfloat16: piece p (hi, mid,
+    lo) of [wq; wk; wv], float32 (Dout, D) each. CPU tensors take the plain
     :func:`split_bf16_pieces`; CUDA tensors launch the split kernel that
     B2-bf16a's entry launches before its own (counted in ``launches``)."""
     if wq.device.type == "cpu":
         return torch.stack([torch.cat(p) for p in
                             zip(*(split_bf16_pieces(w) for w in (wq, wk, wv)))])
-    D = wq.shape[0]
+    Dout, D = wq.shape
     for name, w in (("query", wq), ("key", wk), ("value", wv)):
-        check_cuda_operand(f"{name} weight", w, (D, D))
-    pieces = torch.empty((3, 3 * D, D), device=wq.device, dtype=torch.bfloat16)
-    _build.launch("projected_attention", (wq, wk, wv, pieces), (D,),
+        check_cuda_operand(f"{name} weight", w, (Dout, D))
+    pieces = torch.empty((3, 3 * Dout, D), device=wq.device, dtype=torch.bfloat16)
+    _build.launch("projected_attention", (wq, wk, wv, pieces), (D, Dout),
                   torch.cuda.current_stream(wq.device).cuda_stream, entry="split_bf16_pieces")
     weight_pieces.launches += 1
     return pieces
@@ -280,24 +280,25 @@ counted(weight_pieces, "launches")
 
 def _launch_projected(q_src, kv_src, wq, bq, wk, bk, wv, bv, mask):
     T, D = q_src.shape[-2:]
+    Dout = wq.shape[0]
     N = q_src.numel() // (T * D)
-    out = torch.empty_like(q_src)
+    out = q_src.new_empty((*q_src.shape[:-1], Dout))
     stream = torch.cuda.current_stream(q_src.device).cuda_stream
     if q_src.dtype == torch.bfloat16:
         if wq.dtype == torch.bfloat16:
             _build.launch("projected_attention",
                           (q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, out),
-                          (N, T, D), stream, entry="projected_attention_bf16")
+                          (N, T, D, Dout), stream, entry="projected_attention_bf16")
             return out
         # B2-bf16a: the weights split into pieces (scratch), then the kernel
-        pieces = torch.empty((3, 3 * D, D), device=q_src.device, dtype=torch.bfloat16)
+        pieces = torch.empty((3, 3 * Dout, D), device=q_src.device, dtype=torch.bfloat16)
         _build.launch("projected_attention",
                       (q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, pieces, out),
-                      (N, T, D), stream, entry="projected_attention_bf16a")
+                      (N, T, D, Dout), stream, entry="projected_attention_bf16a")
         return out
-    qkv = torch.empty((N * T, 3 * D), device=q_src.device, dtype=torch.float32)
+    qkv = torch.empty((N * T, 3 * Dout), device=q_src.device, dtype=torch.float32)
     _build.launch("projected_attention", (q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, qkv, out),
-                  (N, T, D), stream)
+                  (N, T, D, Dout), stream)
     return out
 
 
@@ -323,16 +324,19 @@ def fused_projected_attention(q_src, kv_src, wq, bq, wk, bk, wv, bv,
     """Efficient attention with the QKV projections fused in (B2).
 
     q_src (..., T, D) and kv_src (..., T, D), already normalized; weights in
-    torch Linear layout (out, in); key_mask broadcastable to (..., T), the
-    mask of kv_src's tokens. Returns the pre-gate output (..., T, D) in the
-    activations' dtype. CPU tensors take the plain version; CUDA tensors
+    torch Linear layout (out, in), (Dout, D) with Dout = 64 · num_heads: the
+    square model's (D, D), or a tensor-parallel rank's own heads, (D / S,
+    D) at num_heads / S heads (the rectangular form); key_mask broadcastable
+    to (..., T), the mask of kv_src's tokens. Returns the pre-gate output
+    (..., T, Dout) in the activations' dtype. CPU tensors take the plain version; CUDA tensors
     launch the kernel, under autograd through :class:`ProjectedAttention`:
     the float32 form, for bfloat16 activations and weights the bfloat16
     form (``launches_bf16``), or for bfloat16 activations with float32
     weights B2-bf16a (``launches_mixed``), which has no backward and raises,
     on either device, when grad is enabled and an input requires it.
     B2-bf16 takes any T, B2-bf16a T up to :data:`BF16_MAX_T`; other dtypes
-    raise.
+    raise. A rectangular launch (Dout ≠ D, a tensor-parallel rank's heads)
+    of any form is counted in ``launches_rect`` instead.
     """
     adt, wdt = q_src.dtype, wq.dtype
     mixed = adt == torch.bfloat16 and wdt == torch.float32
@@ -352,7 +356,11 @@ def fused_projected_attention(q_src, kv_src, wq, bq, wk, bk, wv, bv,
             f"the CUDA kernel takes q_src and kv_src of one shape; got "
             f"{tuple(q_src.shape)} and {tuple(kv_src.shape)}"
         )
-    check_cuda_width(D, num_heads)
+    Dout = wq.shape[0]
+    check_cuda_width(Dout, num_heads)
+    if D % HEAD_DIM:
+        raise ValueError(f"the projected-attention kernel takes an input width divisible by "
+                         f"{HEAD_DIM}, got {D}")
     if (adt, wdt) not in ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
                           (torch.bfloat16, torch.float32)):
         raise ValueError("the projected-attention kernel takes float32 activations and "
@@ -364,8 +372,8 @@ def fused_projected_attention(q_src, kv_src, wq, bq, wk, bk, wv, bv,
     check_cuda_operand("q_src", q_src, dtype=adt)
     check_cuda_operand("kv_src", kv_src, dtype=adt)
     for name, w, b in (("query", wq, bq), ("key", wk, bk), ("value", wv, bv)):
-        check_cuda_operand(f"{name} weight", w, (D, D), dtype=wdt)
-        check_cuda_operand(f"{name} bias", b, (D,), dtype=wdt)
+        check_cuda_operand(f"{name} weight", w, (Dout, D), dtype=wdt)
+        check_cuda_operand(f"{name} bias", b, (Dout,), dtype=wdt)
     if key_mask is None:
         mask = torch.ones((*lead, T), device=q_src.device, dtype=torch.float32)
     else:
@@ -373,18 +381,22 @@ def fused_projected_attention(q_src, kv_src, wq, bq, wk, bk, wv, bv,
     check_cuda_operand("key_mask", mask)
     if mixed:
         out = _launch_projected(q_src, kv_src, wq, bq, wk, bk, wv, bv, mask)
+    else:
+        out = ProjectedAttention.apply(q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, num_heads,
+                                       kv_src is q_src)
+    if Dout != D:
+        fused_projected_attention.launches_rect += 1
+    elif mixed:
         fused_projected_attention.launches_mixed += 1
-        return out
-    out = ProjectedAttention.apply(q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, num_heads,
-                                   kv_src is q_src)
-    if adt == torch.bfloat16:
+    elif adt == torch.bfloat16:
         fused_projected_attention.launches_bf16 += 1
     else:
         fused_projected_attention.launches += 1
     return out
 
 
-counted(fused_projected_attention, "launches", "launches_bf16", "launches_mixed")
+counted(fused_projected_attention, "launches", "launches_bf16", "launches_mixed",
+        "launches_rect")
 
 
 

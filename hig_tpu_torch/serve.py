@@ -21,7 +21,8 @@ its --sampler and --ddim_steps as the defaults of these options; --params
 and --stats then default to the run's model/<--which_epoch>.pt, by default
 model/latest.pt, and meta/),
 or from --model_config (a JSON object of ModelConfig fields, which may set
-compute_dtype "bfloat16", fast_ln and rms_norm), default the flagship. A
+compute_dtype "bfloat16", fast_ln and rms_norm, and "clip" the CLIP tower's
+ClipTextConfig fields), default the flagship. A
 bfloat16 model samples through the kernels' bfloat16 forms. A caption-id
 (--cap_id) model takes each request's captions as their ids in the NTU
 caption table. --guidance_scale w ≠ 1 samples with classifier-free
@@ -54,6 +55,22 @@ index.json.
     python -m hig_tpu_torch.serve --requests reqs.jsonl --random_init 0 --no_eff
     python -m hig_tpu_torch.serve --requests reqs.jsonl \
         --opt_path checkpoints/ntu_mul/interaction/opt.txt --guidance_scale 2.5
+
+Several ranks (one process each, started with the ``HIG_*`` variables as
+``python -m hig_tpu_torch.train --distributed`` is; the mesh is (data,
+model), data × model = the processes, the model axis --mesh_model or the
+--opt_path run's): each data rank samples its contiguous slice of each
+chunk (padded with its last request to a multiple of the data axis), from
+x_T drawn for the whole chunk, padded alike and sliced (and DDPM's step
+noise alike), so the motion is a one-rank call's; the primary gathers the slices,
+decodes and writes. --tp runs the blocks tensor-parallel on the model axis
+(each rank its heads; B2 on them, never B1); without it the model axis's
+ranks repeat their data row's work. Over several ranks the sampler runs
+eagerly (no CUDA graph).
+
+    HIG_COORDINATOR=localhost:29500 HIG_NUM_PROCESSES=2 HIG_PROCESS_ID=<r> \
+        python -m hig_tpu_torch.serve --requests reqs.jsonl --random_init 0 \
+        [--tp --mesh_model 2]
 """
 
 from __future__ import annotations
@@ -68,11 +85,13 @@ import numpy as np
 import torch
 
 from hig_tpu_torch import resolve_device
-from hig_tpu_torch.config import SAMPLERS, load_opt_txt, model_config
+from hig_tpu_torch.config import SAMPLERS, MeshConfig, load_opt_txt, model_config
 from hig_tpu_torch.data.vocab import CAP2KEY
 from hig_tpu_torch.diffusion import gaussian as g
 from hig_tpu_torch.models.interaction_model import InteractionModel, ModelConfig
 from hig_tpu_torch.models.tokenizer import tokenize
+from hig_tpu_torch.parallel import distributed as dist
+from hig_tpu_torch.parallel.mesh import make_mesh, place_tp, shard_batch
 from hig_tpu_torch.smpl.fit import joint_confidences, load_assets
 from hig_tpu_torch.smpl.smplify import SMPLify3D
 from hig_tpu_torch.train import checkpoint as ckpt
@@ -151,12 +170,44 @@ def decode(out: torch.Tensor, mean: np.ndarray, std: np.ndarray):
 
 
 def serve_batch(sample_fn, requests: list[dict], mean, std, device, generator=None,
-                cap_id: bool = False):
-    """Sample and decode one batch; returns (features, joints) on the host."""
+                cap_id: bool = False, mesh=None, shape=None, ddpm: bool = False,
+                noise: np.ndarray | None = None):
+    """Sample and decode one batch; returns (features, joints) on the host.
+    ``noise``: the batch's x_T (else drawn from ``generator``).
+    With a ``mesh`` of several data ranks (``shape``: one sample's (2, T,
+    F); ``ddpm``: the sampler draws step noise) each rank samples its rows
+    of the batch, padded with its last request to a multiple of the data
+    axis, from the draws of a one-rank call padded alike, and the slices
+    are gathered; None is returned on every rank but the primary, which
+    decodes. One data rank keeps its own call: its sampler may be a CUDA
+    graph, which draws x_T and the step noise from ``generator`` inside
+    the graph, while a data rank's slices of the padded batch's draws are
+    cut outside the sampler and handed in (``step_noise``), which only the
+    eager loop takes."""
     cond = conditioning_for(requests, cap_id)
     lengths = np.asarray([r["length"] + 1 for r in requests], np.int64)
-    out = sample_fn(torch.from_numpy(cond).to(device),
-                    torch.from_numpy(lengths).to(device), generator=generator)
+    x_t = None if noise is None else torch.from_numpy(np.asarray(noise, np.float32)).to(device)
+    if mesh is None or mesh.shape["data"] == 1:
+        out = sample_fn(torch.from_numpy(cond).to(device),
+                        torch.from_numpy(lengths).to(device), noise=x_t, generator=generator)
+    else:
+        d, i, n = mesh.shape["data"], mesh.data_index, len(requests)
+        pad = (-n) % d
+        cond = np.concatenate([cond, cond[-1:].repeat(pad, 0)])
+        lengths = np.concatenate([lengths, lengths[-1:].repeat(pad, 0)])
+
+        def draw(z=None):  # the unpadded batch's draw (a one-rank call's), padded alike
+            if z is None:
+                z = torch.randn((n, *shape), generator=generator, device=device)
+            return shard_batch(torch.cat([z, z[-1:].expand(pad, *shape)]), i, d)
+
+        step_noise = (lambda _: draw()) if ddpm else None
+        local = sample_fn(torch.from_numpy(shard_batch(cond, i, d)).to(device),
+                          torch.from_numpy(shard_batch(lengths, i, d)).to(device),
+                          noise=draw(x_t), step_noise=step_noise)
+        out = dist.all_gather(local, 0, mesh.data_group)[:n]
+    if not dist.is_primary():
+        return None
     denorm, joints = decode(out, mean, std)
     return denorm.cpu().numpy(), joints.cpu().numpy()
 
@@ -237,6 +288,9 @@ def main(argv=None):
     parser.add_argument("--diffusion_steps", type=int, default=None,
                         help="default: the run's with --opt_path, else 1000")
     parser.add_argument("--seed", type=int, default=0, help="seed of the initial noise")
+    parser.add_argument("--noise", default=None,
+                        help="an .npy of the requests' x_T (N, 2, T, F), T the longest "
+                             "length + 1 (default: drawn from --seed)")
     parser.add_argument("--fit_smpl", action="store_true",
                         help="fit SMPL bodies to each result's joints")
     parser.add_argument("--smpl_model", default=None,
@@ -244,6 +298,11 @@ def main(argv=None):
                              "if absent")
     parser.add_argument("--gmm", default=None,
                         help="gmm_08.pkl (--fit_smpl); the synthetic prior if absent")
+    parser.add_argument("--tp", action="store_true",
+                        help="serve with tensor-parallel (Megatron-sharded) weights on the "
+                             "mesh's model axis")
+    parser.add_argument("--mesh_model", type=int, default=0,
+                        help="override the mesh's model-axis size (with --tp)")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
 
@@ -253,12 +312,14 @@ def main(argv=None):
                      "--random_init give the weights themselves")
     cfg_fields, guidance, steps = {}, 1.0, 1000
     sampler, ddim_steps = "ddim", 50
+    mesh_cfg = MeshConfig()
     if args.opt_path:
         if args.model_config or args.no_eff or args.causal or args.no_cross_attn \
                 or args.single_transformer:
             parser.error("--opt_path gives the model; --model_config, --no_eff, --causal, "
                          "--no_cross_attn and --single_transformer are refused with it")
         run = load_opt_txt(args.opt_path)
+        mesh_cfg = run.mesh
         cfg_fields = dataclasses.asdict(model_config(run))
         guidance, steps = run.guidance_scale, run.diffusion_steps
         sampler, ddim_steps = run.sampler, run.ddim_steps
@@ -289,43 +350,73 @@ def main(argv=None):
         cfg = ModelConfig(**cfg_fields)
     except ValueError as e:
         parser.error(str(e))
-    device = resolve_device(args.device)
+    device = dist.initialize(device=resolve_device(args.device))
+    if args.mesh_model:
+        mesh_cfg = MeshConfig(data=-1, model=args.mesh_model, dcn_data=mesh_cfg.dcn_data)
+    try:
+        mesh = make_mesh(mesh_cfg)
+    except ValueError as e:
+        parser.error(str(e))
+    ranks = mesh.world_group.size
+    primary = dist.is_primary()
     model = build_model(cfg, device, args.params, args.random_init)
+    if args.tp and mesh.shape["model"] > 1:
+        try:
+            place_tp(model, cfg, mesh.model_group)
+        except ValueError as e:
+            parser.error(str(e))
+        if primary:
+            print(f"--tp: the blocks run tensor-parallel over {mesh.shape['model']} ranks, "
+                  f"each its {cfg.num_heads // mesh.shape['model']} heads through the "
+                  "projected-attention kernel (never the fused block)")
     mean, std = load_stats(args.stats, cfg.input_feats)
-    if cfg.single_transformer and cfg.fused_blocks:
+    if cfg.single_transformer and cfg.fused_blocks and primary:
         print("--single_transformer: the merged timeline's layers never fuse (as in JAX); "
               "its self-attention runs the projected-attention kernel")
 
     requests = load_requests(args.requests, args.motion_length)
-    print(f"{len(requests)} requests")
+    if primary:
+        print(f"{len(requests)} requests")
     T = max(r["length"] for r in requests) + 1  # + init token
     sched = g.make_schedule(g.linear_betas(args.diffusion_steps or steps))
+    sampler = args.sampler or sampler
     try:
         sample_fn = make_sampler(model, sched, T=T, dim_pose=cfg.input_feats,
-                                 sampler=args.sampler or sampler,
-                                 ddim_steps=args.ddim_steps or ddim_steps,
-                                 guidance_scale=guidance)
+                                 sampler=sampler, ddim_steps=args.ddim_steps or ddim_steps,
+                                 guidance_scale=guidance, graph=ranks == 1)
     except ValueError as e:
         parser.error(str(e))
     generator = torch.Generator(device=device).manual_seed(args.seed)
+    x_t = None
+    if args.noise:
+        x_t = np.load(args.noise)
+        if x_t.shape != (len(requests), 2, T, cfg.input_feats):
+            parser.error(f"--noise holds {x_t.shape}, expected "
+                         f"{(len(requests), 2, T, cfg.input_feats)}")
 
-    os.makedirs(args.out_dir, exist_ok=True)
+    if primary:
+        os.makedirs(args.out_dir, exist_ok=True)
     index: list = []
     t_start = time.time()
     frames_done = 0
     for lo in range(0, len(requests), args.batch_size):
         chunk = requests[lo : lo + args.batch_size]
         graphs_before = set(sample_fn.graphs)
-        features, joints = serve_batch(sample_fn, chunk, mean, std, device, generator,
-                                       cfg.cap_id)
+        served = serve_batch(sample_fn, chunk, mean, std, device, generator, cfg.cap_id,
+                             mesh, (2, T, cfg.input_feats), sampler == "ddpm",
+                             None if x_t is None else x_t[lo:lo + len(chunk)])
         for key in set(sample_fn.graphs) - graphs_before:
             print(f"captured the sampler for {len(chunk)} requests: "
                   f"{json.dumps(sample_fn.graphs[key].summary())}")
-        write_results(args.out_dir, chunk, features, joints, index)
         frames_done += sum(r["length"] * 2 for r in chunk)
+        if not primary:
+            continue
+        write_results(args.out_dir, chunk, *served, index)
         elapsed = time.time() - t_start
         print(f"[{elapsed:.1f}s] {lo + len(chunk)}/{len(requests)} "
               f"({frames_done / elapsed:.0f} frames/s)")
+    if not primary:
+        return
     if args.fit_smpl:
         fit_smpl(index, args.smpl_model, args.gmm, device)
     with open(os.path.join(args.out_dir, "index.json"), "w") as f:

@@ -24,6 +24,20 @@ supervised model for classifier-free guidance.
     python -m hig_tpu_torch.train ... --pretrained [--pretrained_path P] \
         [--only_language | --only_motion]  # warm start from a reference checkpoint
 
+Several ranks (one process each; torch.distributed, NCCL when each rank has
+a card of its own, gloo on the CPU or on a shared card):
+
+    HIG_COORDINATOR=localhost:29500 HIG_NUM_PROCESSES=2 HIG_PROCESS_ID=<r> \
+        python -m hig_tpu_torch.train --distributed ... \
+        [--mesh_data 2 | --mesh_model 2 (--fsdp | --tp | --pp_micro 2)]
+
+--batch_size is the global batch; each rank reads its rows of it. The mesh
+is (data, model), data × model = the processes; --fsdp shards the state over
+the model axis, --tp runs the blocks tensor-parallel on it, --pp_micro M
+pipelines the layer stack over it in M microbatches (parallel/). Only the
+primary (rank 0) writes opt.txt, logs, metrics and checkpoints, which are
+in the one-rank format.
+
 The data root holds the reference's layout: new_joint_vecs/*.npy,
 texts/*.txt, train_sub.txt, Mean.npy and Std.npy; with val_sub.txt there the
 validation loss is logged every --eval_every_e epochs. Weights start from
@@ -54,7 +68,7 @@ from hig_tpu_torch.config import (
     save_opt_txt,
 )
 from hig_tpu_torch.data.dataset import PairDataset, load_training_stats
-from hig_tpu_torch.train import checkpoint as ckpt
+from hig_tpu_torch.parallel import distributed as dist
 from hig_tpu_torch.train import torch_port
 from hig_tpu_torch.train.trainer import Trainer
 
@@ -92,12 +106,19 @@ def main(argv=None, graph: bool = True):
     except (ValueError, KeyError) as e:
         parser.error(str(e))
     device = resolve_device(args.device)
+    if cfg.distributed:
+        device = dist.initialize(device=device)
+    if cfg.pretrained and (cfg.fsdp or cfg.tp) and dist.process_count() > 1:
+        parser.error("--pretrained loads whole weights; with --fsdp or --tp over several "
+                     "ranks it is not ported yet (ROADMAP Queue A)")
 
-    save_opt_txt(cfg, pjoin(cfg.save_root, "opt.txt"))
-    mean, std = load_training_stats(cfg)
+    if dist.is_primary():
+        save_opt_txt(cfg, pjoin(cfg.save_root, "opt.txt"))
+    mean, std = load_training_stats(cfg, write=dist.is_primary())
     dataset = PairDataset(cfg, mean, std, "train_sub.txt", times=cfg.times,
                           label_path=cfg.label_path, seed=cfg.seed)
-    print(f"dataset: {dataset.real_len()} clips x times={cfg.times}")
+    if dist.is_primary():
+        print(f"dataset: {dataset.real_len()} clips x times={cfg.times}")
     trainer = Trainer(cfg, device, graph=graph)
     state = trainer.init_state()
     if cfg.pretrained:
@@ -105,7 +126,7 @@ def main(argv=None, graph: bool = True):
         print(f"loaded pretrained weights from {args.pretrained_path}")
     start_epoch = 0
     if cfg.is_continue:
-        state, start_epoch, it = ckpt.restore_state(pjoin(cfg.model_dir, "latest.pt"), state)
+        state, start_epoch, it = trainer.restore(pjoin(cfg.model_dir, "latest.pt"), state)
         print(f"resumed from epoch {start_epoch}, it {it}")
     val_dataset = None
     if cfg.eval_every_e > 0 and os.path.exists(pjoin(cfg.data_root, "val_sub.txt")):

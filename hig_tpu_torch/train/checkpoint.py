@@ -31,8 +31,9 @@ def _cpu(state: dict) -> dict:
     return {k: v.detach().to("cpu", copy=True) for k, v in state.items()}
 
 
-def save_state(path: str, state, epoch: int, total_it: int) -> None:
-    """Write ``state`` (a :class:`~hig_tpu_torch.train.trainer.TrainState`)."""
+def payload_of(state, epoch: int, total_it: int) -> dict:
+    """The checkpoint of ``state`` (a
+    :class:`~hig_tpu_torch.train.trainer.TrainState`), CPU tensors."""
     payload = {
         "params": _cpu(state.model.state_dict()),
         "opt_state": state.optimizer.state_dict(),
@@ -42,6 +43,16 @@ def save_state(path: str, state, epoch: int, total_it: int) -> None:
     }
     if state.ema is not None:
         payload["ema_params"] = _cpu(state.ema)
+    return payload
+
+
+def save_state(path: str, state, epoch: int, total_it: int) -> None:
+    """Write ``state`` (a :class:`~hig_tpu_torch.train.trainer.TrainState`)."""
+    write_payload(path, payload_of(state, epoch, total_it))
+
+
+def write_payload(path: str, payload: dict) -> None:
+    """Write a checkpoint payload beside ``path``, then rename it over."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = f"{path}.tmp"
     torch.save(payload, tmp)
@@ -67,7 +78,7 @@ def load(path: str) -> dict:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def restore_state(path: str, state) -> tuple[object, int, int]:
+def restore_state(path: str, state, local=None) -> tuple[object, int, int]:
     """Load the checkpoint into ``state`` (a TrainState of the same model)
     and return (state, epoch, total_it). Parameters, Adam's moments and the
     EMA are copied into the tensors ``state`` holds, so a CUDA graph of the
@@ -76,8 +87,12 @@ def restore_state(path: str, state) -> tuple[object, int, int]:
     The EMA follows the run, not the file: a run with ``ema_decay`` that
     resumes from a checkpoint without EMA seeds it from the parameters; a run
     without it drops a stored EMA (and says so), since nothing would update
-    it and serving would prefer the stale average."""
+    it and serving would prefer the stale average. ``local`` maps the file's
+    payload onto this rank's tensors (a sharded run's
+    ``TrainLayout.local_payload``)."""
     payload = load(path)
+    if local is not None:
+        payload = local(payload)
     state.model.load_state_dict(payload["params"], strict=True)
     state.optimizer.load_state_dict(payload["opt_state"])
     state.step = int(payload["step"])

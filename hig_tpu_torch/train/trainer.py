@@ -81,6 +81,9 @@ from hig_tpu_torch.models.embeddings import length_mask
 from hig_tpu_torch.models.interaction_model import InteractionModel
 from hig_tpu_torch.models.text_encoder import ClipTextConfig
 from hig_tpu_torch.models.tokenizer import tokenize
+from hig_tpu_torch.parallel import distributed as dist
+from hig_tpu_torch.parallel.layout import TrainLayout
+from hig_tpu_torch.parallel.mesh import make_mesh, shard_batch
 from hig_tpu_torch.train import checkpoint as ckpt
 from hig_tpu_torch.utils.graphs import GraphedCall
 from hig_tpu_torch.utils.profiling import DeviceTrace, StepTimer
@@ -176,6 +179,9 @@ class Optimizer:
         self.params = params
         self.lr = lr
         self.grad_clip = grad_clip
+        # the clip's norm of the gradients: the global one over several
+        # ranks (parallel/layout.py)
+        self.norm = global_norm
         self.exp_avg = [torch.zeros_like(p) for p in params]
         self.exp_avg_sq = [torch.zeros_like(p) for p in params]
         device = params[0].device if params else None
@@ -201,7 +207,7 @@ class Optimizer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
-        norm = global_norm(grads)
+        norm = self.norm(grads)
         scale = torch.where(norm < self.grad_clip, torch.ones_like(norm),
                             self.grad_clip / norm)
         torch._foreach_mul_(grads, scale)
@@ -278,31 +284,33 @@ def per_token_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.cat([init[:, :, None], move], dim=-1)
 
 
-def _weighted(per_sample, mask, sample_weights):
+def _weighted(per_sample, mask, sample_weights, mask_total=None):
     w = per_sample if sample_weights is None else per_sample * sample_weights
-    return w.sum() / (2.0 * mask.sum())
+    return w.sum() / (2.0 * (mask.sum() if mask_total is None else mask_total))
 
 
-def supervised_loss(pred, target, mask, sample_weights=None):
+def supervised_loss(pred, target, mask, sample_weights=None, mask_total=None):
     """Masked MSE with known roles; mask (N, T); ``sample_weights`` (N,)
-    importance-weight each pair (the loss-aware sampler). Returns (loss,
-    per-sample summed losses)."""
+    importance-weight each pair (the loss-aware sampler); ``mask_total``
+    the global batch's mask sum when these rows are a rank's share (their
+    loss is then the share of the global loss). Returns (loss, per-sample
+    summed losses)."""
     per_sample = (per_token_loss(pred, target) * mask[:, None, :]).sum(dim=(1, 2))
-    return _weighted(per_sample, mask, sample_weights), per_sample
+    return _weighted(per_sample, mask, sample_weights, mask_total), per_sample
 
 
-def pit_loss(pred, target, mask, sample_weights=None):
+def pit_loss(pred, target, mask, sample_weights=None, mask_total=None):
     """Min-assignment PIT loss: pred/target (B, 2 assignments, 2 actors, T,
     D), mask (B, T). Per assignment the masked loss summed over both actors,
     per pair the smaller of the two assignments, normalized by 2·Σmask;
-    ``sample_weights`` as in :func:`supervised_loss`. Returns (loss,
-    per-pair losses)."""
+    ``sample_weights`` and ``mask_total`` as in :func:`supervised_loss`.
+    Returns (loss, per-pair losses)."""
     B = pred.shape[0]
     per_tok = per_token_loss(pred.reshape(B * 2, *pred.shape[2:]),
                              target.reshape(B * 2, *target.shape[2:]))
     mask2 = mask.repeat_interleave(2, dim=0)[:, None, :]
     per_sample = (per_tok * mask2).sum(dim=(1, 2)).reshape(B, 2).min(dim=1).values
-    return _weighted(per_sample, mask, sample_weights), per_sample
+    return _weighted(per_sample, mask, sample_weights, mask_total), per_sample
 
 
 # --------------------------------------------------------------------------
@@ -313,8 +321,9 @@ def pit_loss(pred, target, mask, sample_weights=None):
 def make_loss_fn(model: InteractionModel, sched: g.DiffusionSchedule, pit: bool,
                  loss_aware: bool = False) -> Callable:
     """``loss_fn(batch, generator=None, t=None, noise=None, keep=None,
-    ts_state=None) -> (loss, aux)``. ``sched`` holds host tables (copied to
-    the device per call) or the device's own (:meth:`DiffusionSchedule.on`).
+    ts_state=None, mask_total=None) -> (loss, aux)``. ``sched`` holds host
+    tables (copied to the device per call) or the device's own
+    (:meth:`DiffusionSchedule.on`).
 
     batch: motion (B, 2, T, D), lengths (B,), and the conditioning: cap_ids
     (B, 2) for a ``cap_id`` model, else tokens (B, 2, 77) and, when the
@@ -325,8 +334,10 @@ def make_loss_fn(model: InteractionModel, sched: g.DiffusionSchedule, pit: bool,
     loss is importance-weighted. When the model has ``cond_drop_prob`` > 0
     (supervised stage only), ``keep`` (B,) bool says which pairs keep their
     captions; the others, both actors together, take the null conditioning.
-    It is drawn from ``generator`` after t and noise unless given. aux holds
-    t and the per-sample losses.
+    It is drawn from ``generator`` after t and noise unless given. With
+    ``mask_total`` (a rank's share of a global batch: the global mask sum)
+    the loss is the rows' share of the global loss. aux holds t and the
+    per-sample losses.
     """
     drop_prob = model.cfg.cond_drop_prob
     if pit and drop_prob > 0.0:
@@ -337,7 +348,8 @@ def make_loss_fn(model: InteractionModel, sched: g.DiffusionSchedule, pit: bool,
             return model.encode_text_from_tower(*cond)
         return model.encode_text(cond)
 
-    def loss_fn(batch, generator=None, t=None, noise=None, keep=None, ts_state=None):
+    def loss_fn(batch, generator=None, t=None, noise=None, keep=None, ts_state=None,
+                mask_total=None):
         motion = batch["motion"]
         B, _, T, _ = motion.shape
         lengths = batch["lengths"].clamp(max=T)
@@ -367,7 +379,7 @@ def make_loss_fn(model: InteractionModel, sched: g.DiffusionSchedule, pit: bool,
                 xf_proj = torch.where(keep[:, None, None], xf_proj, n_proj)
                 xf_out = torch.where(keep[:, None, None, None], xf_out, n_out)
             pred = model.denoise(x_t, t, lengths, xf_proj, xf_out)
-            loss, per_sample = supervised_loss(pred, target, mask, weights)
+            loss, per_sample = supervised_loss(pred, target, mask, weights, mask_total)
         else:
             # assignment axis: (c1, c2) as given, then (c2, c1), encoded in
             # one pass and denoised over 2B pairs
@@ -380,7 +392,7 @@ def make_loss_fn(model: InteractionModel, sched: g.DiffusionSchedule, pit: bool,
                                   torch.cat([lengths, lengths]), xf_proj, xf_out)
             pred = torch.stack([pred2[:B], pred2[B:]], dim=1)
             loss, per_sample = pit_loss(pred, torch.stack([target, target], dim=1), mask,
-                                        weights)
+                                        weights, mask_total)
         return loss, {"t": t, "per_sample": per_sample}
 
     return loss_fn
@@ -388,7 +400,7 @@ def make_loss_fn(model: InteractionModel, sched: g.DiffusionSchedule, pit: bool,
 
 def compute_grads(model: InteractionModel, loss_fn: Callable, batch: dict, grad_accum: int = 1,
                   generator=None, t=None, noise=None, keep=None,
-                  ts_state=None) -> tuple[torch.Tensor, dict]:
+                  ts_state=None, mask_totals=None) -> tuple[torch.Tensor, dict]:
     """Write into each trainable parameter's ``.grad`` the mean of its
     gradient over ``grad_accum`` equal microbatches (activation memory of
     one), and return the mean loss and the aux of every microbatch (t and
@@ -397,7 +409,8 @@ def compute_grads(model: InteractionModel, loss_fn: Callable, batch: dict, grad_
     in place and accumulates into it, so a CUDA graph of the step replays
     into the tensors ``.grad`` holds. Each microbatch draws its own t,
     noise and keep from ``generator``, or takes its slice of ``t``,
-    ``noise`` and ``keep``."""
+    ``noise`` and ``keep``; ``mask_totals`` (one a microbatch) are the
+    global batch's mask sums when the batch is a rank's share."""
     params = [p for p in model.parameters() if p.requires_grad]
     for p in params:
         if p.grad is None:
@@ -414,8 +427,9 @@ def compute_grads(model: InteractionModel, loss_fn: Callable, batch: dict, grad_
     for i in range(grad_accum):
         part = slice(i * size, (i + 1) * size)
         micro = {key: value[part] for key, value in batch.items()}
+        shared = {} if mask_totals is None else {"mask_total": mask_totals[i]}
         loss, aux = loss_fn(micro, generator, part_of(t, part), part_of(noise, part),
-                            part_of(keep, part), ts_state)
+                            part_of(keep, part), ts_state, **shared)
         loss.backward()
         total = total + loss.detach()
         auxs.append({k: v.detach() for k, v in aux.items()})
@@ -425,13 +439,16 @@ def compute_grads(model: InteractionModel, loss_fn: Callable, batch: dict, grad_
 
 
 @torch.no_grad()
-def update_ema(state: TrainState, ema_decay: float) -> None:
-    """e ← e·decay + (1 − decay)·p over every parameter, in place."""
+def update_ema(state: TrainState, ema_decay: float, masters: list | None = None) -> None:
+    """e ← e·decay + (1 − decay)·p over every parameter, in place; ``masters``
+    are the tensors averaged in the EMA's order (FSDP's shards), by default
+    the model's parameters."""
     if ema_decay > 0.0 and state.ema is not None:
         ema = list(state.ema.values())
+        if masters is None:
+            masters = [p for _, p in state.model.named_parameters()]
         torch._foreach_mul_(ema, ema_decay)
-        torch._foreach_add_(ema, [p.detach() for _, p in state.model.named_parameters()],
-                            alpha=1.0 - ema_decay)
+        torch._foreach_add_(ema, [p.detach() for p in masters], alpha=1.0 - ema_decay)
 
 
 def apply_update(state: TrainState, ema_decay: float = 0.0) -> None:
@@ -445,10 +462,29 @@ def apply_update(state: TrainState, ema_decay: float = 0.0) -> None:
 TRAIN_METRICS = ("loss_mot_rec", "grad_norm")
 
 
+def global_draws(B: int, like: torch.Tensor, sched, generator, loss_aware: bool,
+                 ts_state=None, drop_prob: float = 0.0):
+    """t (B,), noise (B, ...like's trailing shape) and, with ``drop_prob``,
+    the caption-keep mask (B,) of a global batch of B rows, drawn from
+    ``generator`` in the order the loss draws them: what a one-rank step
+    draws, for the ranks to keep their rows of."""
+    device = like.device
+    if loss_aware:
+        t, _ = tss.loss_aware_sample(B, ts_state, generator)
+    else:
+        t, _ = tss.uniform_sample(B, sched.num_timesteps, generator, device)
+    noise = torch.randn((B, *like.shape[1:]), generator=generator, device=device,
+                        dtype=like.dtype)
+    keep = None
+    if drop_prob > 0.0:
+        keep = torch.rand((B,), generator=generator, device=device) >= drop_prob
+    return t, noise, keep
+
+
 def make_train_step(sched: g.DiffusionSchedule, pit: bool, grad_accum: int = 1,
                     ema_decay: float = 0.0, loss_aware: bool = False,
                     graph: bool = True, make_loss: Callable | None = None,
-                    metric_names: tuple = TRAIN_METRICS) -> Callable:
+                    metric_names: tuple = TRAIN_METRICS, layout=None) -> Callable:
     """``train_step(state, batch, generator=None, t=None, noise=None,
     keep=None) -> metrics``: the loss (``make_loss(model, sched)``, default
     :func:`make_loss_fn` with ``pit`` and ``loss_aware``), gradients
@@ -476,7 +512,22 @@ def make_train_step(sched: g.DiffusionSchedule, pit: bool, grad_accum: int = 1,
     place; restore a checkpoint into it in place); another state raises. A
     capture that fails raises. ``graph=False``, and any CPU batch, run the
     eager step. ``train_step.graphs`` holds the graphs by key.
+
+    ``layout`` (``parallel/layout.py``; default the one-rank layout, whose
+    collectives are the identity) says how the ranks share the step. Over
+    several ranks the batch is this rank's rows of the global batch: the
+    step draws the global batch's t, noise and keep from ``generator``
+    (unless given) and keeps its rows, normalizes each microbatch's loss by
+    the global mask, sums the ranks' gradient shares (and gathers or
+    reduce-scatters FSDP's shards), clips by the global norm, and folds
+    every rank's (t, loss) into the loss-aware history: an R-rank step is
+    the one-rank step at the same global batch, up to the order of sums. It
+    runs eagerly: gloo's collectives are host calls a CUDA graph cannot
+    capture, and a capture of NCCL's is not checked without several cards.
     """
+    layout = layout if layout is not None else TrainLayout.one_rank()
+    if layout.ranks > 1:
+        graph = False
     if make_loss is None:
         def make_loss(model, sched):
             return make_loss_fn(model, sched, pit, loss_aware)
@@ -493,11 +544,21 @@ def make_train_step(sched: g.DiffusionSchedule, pit: bool, grad_accum: int = 1,
         ts_state = None
         if loss_aware:
             ts_state = tss.LossSecondMomentState(losses=ts_losses, counts=ts_counts)
-        loss, aux = compute_grads(model, loss_fn, batch, grad_accum, generator, t, noise, keep,
-                                  ts_state)
-        gnorm = global_norm([p.grad for p in model.parameters() if p.grad is not None])
+        layout.gather_params(state)
+        totals = None  # one batch rank: each microbatch's own mask sum
+        if layout.batch_count > 1:
+            T = batch["motion"].shape[2]
+            lengths = batch["lengths"].clamp(max=T).reshape(grad_accum, -1)
+            totals = layout.global_sum(torch.stack(
+                [length_mask(part, T, batch["motion"].dtype).sum() for part in lengths]))
+        loss, aux = compute_grads(model, loss_fn, batch, grad_accum, generator, t, noise,
+                                  keep, ts_state, mask_totals=totals)
+        layout.reduce_grads(state)
+        loss = layout.global_sum(loss)
+        gnorm = layout.grad_norm(layout.grads(state))
+        aux = {k: layout.gather_rows(v) for k, v in aux.items()}
         state.optimizer.update()
-        update_ema(state, ema_decay)
+        update_ema(state, ema_decay, layout.masters(state))
         metrics = torch.stack([loss, gnorm])
         if loss_aware:
             new = tss.loss_aware_update(ts_state, aux["t"], aux["per_sample"])
@@ -534,6 +595,14 @@ def make_train_step(sched: g.DiffusionSchedule, pit: bool, grad_accum: int = 1,
         if device not in tables:
             tables[device] = sched.on(device)
         inputs = dict(batch)
+        if layout.batch_count > 1 and t is None:
+            # the global batch's draws, this rank's rows kept
+            model = state.model
+            drop = model.cfg.cond_drop_prob if not pit else 0.0
+            i, n = layout.batch_index, layout.batch_count
+            draws = global_draws(batch["motion"].shape[0] * n, batch["motion"], sched, generator,
+                                 loss_aware, ts_state, drop)
+            t, noise, keep = (None if x is None else shard_batch(x, i, n) for x in draws)
         for name, x in (("t", t), ("noise", noise), ("keep", keep)):
             if x is not None:
                 inputs[name] = x
@@ -868,15 +937,25 @@ def step_generator(seed: int, it: int, generation: int, device) -> torch.Generat
 class Trainer:
     """Epoch loop, logging and checkpoints of one training run. On the card
     each step is a replay of :func:`make_train_step`'s CUDA graph of its
-    batch shape (``graph=False``: the eager step)."""
+    batch shape (``graph=False``: the eager step).
+
+    Over several ranks (``torch.distributed`` initialized, e.g. by
+    ``python -m hig_tpu_torch.train --distributed``) the run lays its state
+    out on ``cfg.mesh`` (``parallel/layout.py``: DP, FSDP, TP or the GPipe
+    schedule), each rank reads its rows of every global batch, the steps
+    run eagerly, and only the primary writes logs, metrics and
+    checkpoints (the one-rank format, gathered from every rank)."""
 
     def __init__(self, cfg: ExperimentConfig, device=None,
                  clip_config: ClipTextConfig | None = None, graph: bool = True):
         self.cfg = cfg
-        self.graph = graph
+        self.mesh = make_mesh(cfg.mesh)
+        self.graph = graph and self.mesh.world_group.size == 1
         self.graphs: dict = {}  # the last run's step graphs by key
         self.device = resolve_device(device)
         self.model_config = model_config(cfg, clip_config)
+        self.layout = TrainLayout(cfg, self.mesh, self.model_config)
+        self.primary = dist.is_primary()
         if self.model_config.dtype != torch.float32:
             reduce_bf16_in_float32()
         self.sched = g.make_schedule(g.linear_betas(cfg.diffusion_steps))
@@ -884,19 +963,49 @@ class Trainer:
         self.step_seconds: list[float] = []  # host time of each step, metrics read back
         self._native_store = None  # the native loader's clips, built per run
 
-    def init_state(self) -> TrainState:
-        """Seeded random weights (``random_flax_tree``, every leaf nonzero)
-        on the trainer's device, in train mode; the EMA starts as a copy.
-        The weights, Adam's moments and the EMA are float32 whatever the
-        compute dtype (mixed precision: the modules cast per op)."""
-        model = InteractionModel(self.model_config)
-        load_flax_tree(model, random_flax_tree(self.model_config, self.cfg.seed)["params"])
+    def init_state(self, weights: dict | None = None) -> TrainState:
+        """Seeded random weights (``random_flax_tree``, every leaf nonzero),
+        or a copy of ``weights`` (a state dict of this model), on the
+        trainer's device, in train mode, laid out by the run's layout; the
+        EMA starts as a copy. The weights, Adam's moments and the EMA are
+        float32 whatever the compute dtype (mixed precision: the modules
+        cast per op)."""
+        if weights is None:
+            model = InteractionModel(self.model_config)
+            load_flax_tree(model, random_flax_tree(self.model_config, self.cfg.seed)["params"])
+        else:  # no initializer runs: every parameter is assigned
+            with torch.device("meta"):
+                model = InteractionModel(self.model_config)
+            model.load_state_dict({k: v.detach().clone() for k, v in weights.items()},
+                                  strict=True, assign=True)
         model.to(self.device).train()
+        self.layout.place_model(model)
         optimizer = make_optimizer(self.cfg, model)
         ema = None
         if self.cfg.ema_decay > 0.0:
             ema = {name: p.detach().clone() for name, p in model.named_parameters()}
-        return TrainState(model=model, optimizer=optimizer, step=0, ema=ema)
+        state = TrainState(model=model, optimizer=optimizer, step=0, ema=ema)
+        labels = param_labels(model, freeze_clip=not self.cfg.no_clip)
+        self.layout.place_state(state, [n for n, _ in model.named_parameters()
+                                        if labels[n] == "train"])
+        optimizer.norm = self.layout.grad_norm
+        return state
+
+    def save(self, path: str, state: TrainState, epoch: int, total_it: int) -> None:
+        """Write a checkpoint in the one-rank format: every rank takes part
+        in gathering the shards, the primary writes."""
+        self.layout.gather_params(state)
+        payload = self.layout.full_payload(ckpt.payload_of(state, epoch, total_it))
+        if self.primary:
+            ckpt.write_payload(path, payload)
+        dist.barrier()
+
+    def restore(self, path: str, state: TrainState) -> tuple:
+        """Restore a one-rank checkpoint into this rank's state (its shards
+        cut from the whole tensors); returns (state, epoch, total_it)."""
+        out = ckpt.restore_state(path, state, self.layout.local_payload)
+        self.layout.restore_shards(state)
+        return out
 
     @torch.no_grad()
     def precompute_tower(self, model: InteractionModel) -> torch.Tensor | None:
@@ -946,8 +1055,13 @@ class Trainer:
         np.random.default_rng((seed, epoch)).shuffle(order)
         order = order[: (n // batch_size) * batch_size]
         real = dataset.real_len()
+        # this rank's contiguous slice of each global batch
+        pid, pcount = self.layout.batch_index, self.layout.batch_count
+        if batch_size % pcount:
+            raise ValueError(f"global batch {batch_size} not divisible by {pcount} processes")
+        local_bs = batch_size // pcount
         for lo in range(0, len(order), batch_size):
-            idx = order[lo : lo + batch_size] % real
+            idx = order[lo + pid * local_bs : lo + (pid + 1) * local_bs] % real
             motion, lengths = self._native_store.sample_batch(
                 idx, window=self.cfg.window_size, seed=seed, epoch=epoch,
                 swap_flags=self._native_swaps[idx])
@@ -973,7 +1087,9 @@ class Trainer:
                     dataset, cfg.batch_size, epoch, cfg.seed, token_cache)
             log("--use_native_loader: a clip has several captions; using the Python loader")
         return lambda epoch: epoch_batches(dataset, cfg.batch_size, epoch, seed=cfg.seed,
-                                           token_cache=token_cache)
+                                           token_cache=token_cache,
+                                           process_index=self.layout.batch_index,
+                                           process_count=self.layout.batch_count)
 
     @torch.no_grad()
     def val_loss(self, val_dataset: PairDataset, state: TrainState, tower_feats,
@@ -1004,13 +1120,18 @@ class Trainer:
         back) summarized in ``step_times.jsonl`` and a "step latency" line."""
         cfg = self.cfg
         num_epochs = num_epochs or cfg.num_epochs
-        os.makedirs(cfg.model_dir, exist_ok=True)
+        if self.primary:
+            os.makedirs(cfg.model_dir, exist_ok=True)
+        if not self.primary:
+            def log(*args, **kwargs):  # only the primary writes the run's log
+                pass
         train_step = make_train_step(self.sched, self.pit, cfg.grad_accum, cfg.ema_decay,
-                                     cfg.loss_aware_sampler, graph=self.graph)
+                                     cfg.loss_aware_sampler, graph=self.graph,
+                                     layout=self.layout)
         self.graphs = train_step.graphs
         step_timer = trace = None
         steps_run, tracing = 0, False
-        if cfg.profile:
+        if cfg.profile and self.primary:
             step_timer = StepTimer(items_per_step=cfg.batch_size)
             trace = DeviceTrace(pjoin(cfg.save_root, "profile"), self.device)
         state.model.train()
@@ -1056,7 +1177,7 @@ class Trainer:
                     generation += 1
                     log(f"non-finite loss at it {it} ({metrics}); rolling back to the latest "
                         f"checkpoint ({retries_left} retries left)")
-                    state, _, it = ckpt.restore_state(latest, state)
+                    state, _, it = self.restore(latest, state)
                     # the history may hold the failed step's losses
                     ts_state = self.new_loss_history()
                     continue
@@ -1073,27 +1194,30 @@ class Trainer:
                     log(f"epoch {epoch} it {it} "
                         + " ".join(f"{k}: {v:.5f}" for k, v in mean.items())
                         + f" ({time.time() - start:.0f}s)")
-                    with open(metrics_path, "a") as f:
-                        f.write(json.dumps({"it": it, "epoch": epoch, **mean}) + "\n")
+                    if self.primary:
+                        with open(metrics_path, "a") as f:
+                            f.write(json.dumps({"it": it, "epoch": epoch, **mean}) + "\n")
                 if it % cfg.save_latest == 0:
                     # mid-epoch: a resume redoes this (partial) epoch
-                    ckpt.save_state(latest, state, epoch, it)
+                    self.save(latest, state, epoch, it)
                     ckpt_exists = True
             # the stored epoch is the next one to run
-            ckpt.save_state(latest, state, epoch + 1, it)
+            self.save(latest, state, epoch + 1, it)
             ckpt_exists = True
-            if epoch % cfg.save_every_e == 0:
+            if epoch % cfg.save_every_e == 0 and self.primary:
                 ckpt.save_copy(latest, pjoin(cfg.model_dir, f"ckpt_e{epoch:03d}.pt"))
             if val_dataset is not None and cfg.eval_every_e > 0 \
                     and (epoch + 1) % cfg.eval_every_e == 0:
                 val = self.val_loss(val_dataset, state, tower_feats, epoch)
                 log(f"epoch {epoch} val_loss: {val:.5f}")
-                with open(metrics_path, "a") as f:
-                    f.write(json.dumps({"it": it, "epoch": epoch, "val_loss": val}) + "\n")
+                if self.primary:
+                    with open(metrics_path, "a") as f:
+                        f.write(json.dumps({"it": it, "epoch": epoch, "val_loss": val}) + "\n")
         if tracing:
             log(f"device trace written to {trace.stop()}")
         if step_timer is not None and step_timer.times:
             step_timer.dump(pjoin(cfg.save_root, "step_times.jsonl"))
             log(f"step latency: {step_timer.summary()}")
-        render_loss_curve(metrics_path, cfg.save_root)
+        if self.primary:
+            render_loss_curve(metrics_path, cfg.save_root)
         return state

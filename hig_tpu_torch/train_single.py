@@ -47,6 +47,7 @@ from hig_tpu_torch.data.dataset import (
 from hig_tpu_torch.diffusion import gaussian as g
 from hig_tpu_torch.models.interaction_model import SingleMotionModel
 from hig_tpu_torch.models.text_encoder import ClipTextConfig
+from hig_tpu_torch.parallel import distributed as dist
 from hig_tpu_torch.train import checkpoint as ckpt
 from hig_tpu_torch.train.trainer import (
     TrainState,
@@ -81,6 +82,7 @@ def main(argv=None, graph: bool = True, clip_config: ClipTextConfig | None = Non
                         help="training window in frames")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
+    dist.require_one_process("python -m hig_tpu_torch.train_single")
     try:
         cfg = config_from_args(args)
         single_model_config(cfg)

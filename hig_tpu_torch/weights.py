@@ -114,6 +114,15 @@ def torch_state_from_flax(tree: dict) -> dict[str, torch.Tensor]:
     return state
 
 
+def flax_leaves(cfg: ModelConfig) -> dict[str, tuple[tuple, tuple]]:
+    """Each parameter name of ``cfg``'s port model → (flax path under
+    ``params``, flax shape) of the JAX leaf it carries: the name map of
+    :func:`load_flax_tree`, by which a sharding rule keyed on JAX's names
+    and shapes reaches the port's parameters."""
+    return {_torch_key(path): (path, shape)
+            for path, shape in flatten(flax_param_shapes(cfg)["params"]).items()}
+
+
 def load_flax_tree(model: nn.Module, tree: dict) -> nn.Module:
     """Load a JAX parameter tree into ``model``; every leaf must land on one
     parameter of matching shape and every parameter must be set."""

@@ -8,12 +8,21 @@ B3-bf16's twin without one of its rounding points, and B2-bf16's twin with
 B1-bf16's core roundings."""
 
 import pytest
+import torch
 
 import chip_smoke
 
 N, T, D, H, HD = 16, 91, 512, 8, 64
 M = N * T
 CORE = 2 * 2 * N * H * T * HD * HD  # K^T V and q . state of the linear core
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 CASES = {
     "fused_block": (2 * M * D * 3 * D + 2 * M * D * D + CORE,
                     4 * (2 * M * D + M + 2 * N * D + 4 * D * D + 8 * D), 0.0196624, "ops_3xtf32"),

@@ -115,6 +115,11 @@ joints-only ``lbs`` against the full one and both against the CPU, the
 L-BFGS's first 5 iterates on the card (graphed equal to eager bit for
 bit) against the CPU within 1e-4 and SMPLify3D's final objective within 1%; the legacy co-embeddings at the
 reference's widths on the card against the CPU within 1e-4.
+
+Parallelism: B2's rectangular form (a tensor-parallel rank's (D/2, D)
+q|k|v weights at H/2 heads), float32, bfloat16 and B2-bf16a, self and
+partner, against its twins, with its gradients; two gloo ranks sharing
+cuda:0 taking DP PIT steps equal to the one-rank step.
 """
 
 import dataclasses
@@ -599,6 +604,105 @@ def test_projected_attention_gradients(cuda, same_source):
     assert fused_projected_attention.launches == before + 1
     _, want = _grads(lambda: run(fused_projected_attention_plain), leaves)
     _assert_grads_close(got, want)
+
+
+RECT_FORMS = ("f32", "bf16", "bf16a")
+
+
+@pytest.mark.parametrize("same_source", [True, False], ids=["self", "partner"])
+@pytest.mark.parametrize("form", RECT_FORMS)
+def test_rectangular_projected_attention(cuda, form, same_source):
+    """B2's rectangular form: a tensor-parallel rank's (D/2, D) q|k|v
+    weights at H/2 heads (rank 1's rows), each form against its plain twin
+    (float32 within TOL and REL_TOL; bfloat16 and bfloat16 activations on
+    float32 weights under the bfloat16 gates), counted in
+    ``launches_rect`` alone; float32 and bfloat16 gradients through
+    its recompute backward equal the plain route's."""
+    w, x, mask, _, _ = _inputs(cuda)
+    half = slice(D // 2, D)
+    ws = [t[half].contiguous() for t in (w.wq, w.bq, w.wk, w.bk, w.wv, w.bv)]
+    xn = torch.nn.functional.layer_norm(x, (D,), w.ln_g, w.ln_b, 1e-6)
+    if form != "f32":
+        xn = _bf16(xn)
+    if form == "bf16":
+        ws = [_bf16(t) for t in ws]
+    kv, kmask = (xn, mask) if same_source else (xn.flip(1).contiguous(),
+                                                mask.flip(1).contiguous())
+    args = (xn, kv, *ws, H // 2, kmask)
+    counts = dict(torch_counts := {a: getattr(fused_projected_attention, a) for a in
+                                   ("launches", "launches_bf16", "launches_mixed",
+                                    "launches_rect")})
+    with torch.no_grad():
+        got = fused_projected_attention(*args)
+        torch.cuda.synchronize()
+    counts["launches_rect"] += 1
+    assert {a: getattr(fused_projected_attention, a) for a in torch_counts} == counts
+    assert got.shape == (*x.shape[:-1], D // 2)
+    twin = fused_projected_attention_plain(*args)
+    if form == "f32":
+        assert_close(got, twin)
+    else:
+        twin32 = fused_projected_attention_plain(xn.float(), kv.float(),
+                                                 *[t.float() for t in ws], H // 2, kmask)
+        cpu = fused_projected_attention_plain(*[a.cpu() if torch.is_tensor(a) else a
+                                                for a in args])
+        ok, readings = bf16_close(got, twin, twin32, cpu)
+        assert ok, readings
+    if form == "bf16a":
+        return  # no backward (JAX's VJP of this form fails too)
+    leaves = [t.detach().requires_grad_() for t in ws]
+
+    def run(fn):
+        return fn(xn, kv, *leaves, H // 2, kmask)
+
+    _, got = _grads(lambda: run(fused_projected_attention), leaves)
+    _, want = _grads(lambda: run(fused_projected_attention_plain), leaves)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)  # the backward recomputes the plain version
+
+
+def test_two_gloo_ranks_on_one_card_take_the_one_rank_step(cuda, tmp_path):
+    """Two ranks share cuda:0 over gloo (NCCL refuses two ranks on one
+    device): a DP PIT step pair at heads of 64 (tests/_torch_parallel_worker.py),
+    losses and gradient norms equal across ranks and within rtol 1e-5 of
+    the one-rank eager step on the card, each rank launching B2 once per
+    self-attention and interaction block a step."""
+    import json
+    import socket
+    import subprocess
+    import sys
+
+    from tests import _torch_parallel_worker as w
+    from hig_tpu_torch.train import trainer as tt
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = str(s.getsockname()[1])
+    s.close()
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    logs = [open(tmp_path / f"log{r}.txt", "w") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, w.__file__, str(r), "2", port, str(tmp_path),
+                               "cuda"], env=env, stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(2)]
+    try:
+        for p in procs:
+            p.wait(timeout=120)
+    finally:
+        for p in procs:
+            p.kill()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, open(tmp_path / f"log{r}.txt").read()[-3000:]
+    got = [json.load(open(tmp_path / f"card{r}.json")) for r in range(2)]
+    assert got[0]["losses"] == got[1]["losses"]
+    assert [(g["backend"], g["device"]) for g in got] == [("gloo", "cuda:0")] * 2
+    layers = w.CARD["num_layers"]
+    assert [g["launches"] for g in got] == [w.STEPS * layers * 2] * 2
+    trainer = tt.Trainer(w.cfg_of(str(tmp_path), w.CARD), "cuda", w.CLIP, graph=False)
+    want = w.run_steps(trainer, trainer.init_state(), [w.step_inputs(i) for i in range(w.STEPS)])
+    np.testing.assert_allclose(got[0]["losses"], want, rtol=1e-5)
 
 
 @pytest.mark.parametrize("Tk", [T, 77])

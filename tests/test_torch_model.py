@@ -333,4 +333,6 @@ def test_port_imports_neither_jax_nor_hig_tpu():
             "hig_tpu_torch.distill", "hig_tpu_torch.smpl.lbs", "hig_tpu_torch.smpl.prior",
             "hig_tpu_torch.smpl.lbfgs", "hig_tpu_torch.smpl.smplify", "hig_tpu_torch.smpl.fit",
             "hig_tpu_torch.render_smpl", "hig_tpu_torch.models.legacy_evaluators",
-            "hig_tpu_torch.eval.legacy_protocol", "hig_tpu_torch.data.word_vectorizer"} <= names
+            "hig_tpu_torch.eval.legacy_protocol", "hig_tpu_torch.data.word_vectorizer",
+            "hig_tpu_torch.parallel.distributed", "hig_tpu_torch.parallel.mesh",
+            "hig_tpu_torch.parallel.pipeline", "hig_tpu_torch.parallel.layout"} <= names

@@ -334,6 +334,7 @@ def test_load_opt_txt_accepts_jax_route_keys(tmp_path):
     assert (cfg.sampler, cfg.ddim_steps, cfg.which_epoch, cfg.split_file, cfg.result_path) == (
         "dpm", 20, "ckpt_e004", "val_sub.txt", "out")
     want = {f.name: getattr(jax_run, f.name) for f in dataclasses.fields(ExperimentConfig)}
+    want["mesh"] = dataclasses.asdict(jax_run.mesh)  # the port's own MeshConfig
     assert dataclasses.asdict(cfg) == want
     default = str(tmp_path / "default.txt")
     jcfg.save_opt_txt(jcfg.ExperimentConfig(), default)

@@ -14,7 +14,8 @@ Phases, each printing one JSON line (or several):
      D = 512, 8 heads, float32, ragged lengths): B1 self and interaction;
      B2; B3 through the model's ``_attend`` with 91 and 77 keys; B4 self
      (q, k, v read in place from one merged product), partner, causal, and
-     91 queries on 77 keys; B2 and B4 also at the training shape (128
+     91 queries on 77 keys (B3 also under LAZY_KNORM, the same kernel,
+     against the lazy twin); B2 and B4 also at the training shape (128
      sequences: a PIT step's 32 pairs under both caption assignments), B1
      at the labeling shape (256 sequences), and B1 (self and interaction),
      B2 and B4 at the evaluation chunk's shape (104 sequences, T = 196,
@@ -75,7 +76,7 @@ Phases, each printing one JSON line (or several):
   8. profile: the device time by kernel (torch.profiler) of one more
      serving call of each run, of the guided and caption-id serving calls,
      of the serving calls from the trained PIT checkpoints (float32 and
-     bfloat16), of one DDPM-1000 serving call, of the first chunk of each
+     bfloat16), of the first chunk of each
      ``evaluate`` run (float32 DDIM-50 guided, DPM-20, DDPM-1000; bfloat16
      DPM-20), of one labeling vote (a denoiser forward over 64 pairs under both
      assignments) and one more PIT training step, and of one bfloat16 PIT
@@ -114,8 +115,9 @@ Phases, each printing one JSON line (or several):
      the size of the AdaLN grid it does not build; then DDPM-1000 at the
      serving shape through B1: the capture, a replay and the eager loop
      (equal bit for bit, the generator left in the same state), and the
-     eager loop against the plain route (same x_T and step noises), with
-     the wall time of each call.
+     eager loop of a DDPM call over a DDPM_PLAIN_STEPS-step schedule
+     through B1 against the same through the plain route (same x_T and step
+     noises), with the wall time of each call.
  10. bf16 (after phase 9, before the profile; cuBLAS's reduced-precision
      bf16 reductions off): each bfloat16 form (B1-bf16 self and
      interaction, B2-bf16 self and partner, B3-bf16 through ``_attend``
@@ -180,7 +182,12 @@ Phases, each printing one JSON line (or several):
      three PIT runs, one batch's loss and every gradient through the
      kernels against the plain bfloat16 route at the model cut to its first
      layer, within BF16_TRAIN_RMS of the bfloat16 effect, beside a control
-     route that must exceed it; ``python -m hig_tpu_torch.label``'s main on
+     route that must exceed it; the bfloat16 PIT step under LAZY_KNORM
+     (B3-bf16's lazy forms) from the PIT run's initial weights, LAZY_STEPS
+     steps graphed and eager bit for bit (16 launches a step of the lazy
+     form, none of another), its first-layer gradients against the lazy
+     plain route within BF16_TRAIN_RMS (the control above it), as is the
+     same step without the flag; ``python -m hig_tpu_torch.label``'s main on
      the bfloat16 PIT checkpoint (--label_model and --save_label, fused:
      16 B1-bf16 launches per forward on the block weights cast per call)
      and on the rms_norm one (--label_model, projected: 16 B2-bf16a
@@ -236,7 +243,11 @@ Phases, each printing one JSON line (or several):
      phase 6's supervised checkpoint (trained without caption dropout):
      unguided DDIM-50 serving of the graft equal to the donor's bit for
      bit (B1), then ``train --is_continue --cond_drop_prob 0.1`` from the
-     graft for one step (B2).
+     graft for one step (B2). (f) ``python -m hig_tpu_torch.parity_smoke``
+     on (d)'s state dict (DDIM-50, B2): full coverage, the probe's output
+     against the same model's on the CPU within DENOISER_TOL, a finite
+     decoded sample; ``python -m hig_tpu_torch.check_assets`` with no asset
+     present.
  14. geometry (after phase 13, before the profile): the motion geometry,
      the JAX-free data tools and visualization. ``python -m
      hig_tpu_torch.make_synthetic_data`` (GEO_CLIPS_PER_CLASS clips a
@@ -258,7 +269,12 @@ Phases, each printing one JSON line (or several):
      of the same graph on the same seed; B3-bf16's whole and streaming
      forms timed side by side at 128 × 91 and 104 × 196 (equal bit for
      bit) and the streaming form at 64 × 394 against its twin beside the
-     planted controls, with the bound; and one bfloat16
+     planted controls, with the bound; the lazy forms (LAZY_KNORM) at 128 ×
+     91 (whole and streaming, equal bit for bit) and 64 × 394 (streaming)
+     against the lazy twin (the elements that differ counted; phase 10's
+     gates), beside the eager forms' times and controls that must fail
+     (the eager twin, the lazy twin without its state's roundings); and
+     one bfloat16
      --single_transformer PIT step at a native window of 196 (394 merged
      rows, B3-bf16's streaming form) at full width cut to its first layer
      against the plain route on the card within BF16_TRAIN_RMS of the
@@ -300,20 +316,31 @@ Phases, each printing one JSON line (or several):
      bit and within TRAIN_LOSS_TOL of the one-rank eager step, 16 B2
      launches a step on each rank); (b) FSDP (1 x 2), one step (shards of
      ``_leaf_spec``'s shapes; loss, gradients and the updated weights as
-     DP's first step); (c) TP (1 x 2), a DDIM-50 call for PAR_REQUESTS
-     requests, 800 launches of B2's rectangular form on each rank and none
-     of another kernel, within SAMPLER_REL_TOL of the one-rank projected
-     call; (d) PP (1 x 2, pp_micro 2), one PIT step's loss and gradients
+     DP's first step); (c) TP (1 x 2), a DDIM-25 call (PAR_TP_STEPS) for
+     PAR_REQUESTS requests, 400 launches of B2's rectangular form on each
+     rank and none of another kernel, within SAMPLER_REL_TOL of the one-rank
+     projected call; (d) PP (1 x 2, pp_micro 2), one PIT step's loss and gradients
      against the sequential stack on the rank; (e) ``serve`` over 2 data
      ranks (8 requests each, B1), the primary's files within
-     SAMPLER_REL_TOL of one-rank serving. The ranks start with the phase,
+     SAMPLER_REL_TOL of one-rank serving; (f) ``python -m
+     hig_tpu_torch.train_single --distributed`` on phase 12's data, two
+     steps of 48 over the 2 data ranks (the weights equal across ranks bit
+     for bit, the losses within TRAIN_LOSS_TOL of one rank's, 8 B2 launches
+     a step); (g) ``python -m hig_tpu_torch.distill`` over the 2 data ranks
+     from phase 7's cfg_supervised run, one step (the stage's loss within
+     TRAIN_LOSS_TOL of one rank's, DISTILL_STEP_LAUNCHES on each rank); (h)
+     ``train --pretrained``'s load of phase 13's reference state dict with
+     --fsdp and with --tp (1 x 2): the gathered state bit for bit the
+     one-rank load's, one PIT step equal across ranks and within
+     TRAIN_LOSS_TOL of one rank's. The ranks start with the phase,
      after phase 15; the one-rank counterparts run on the card while the
      ranks start up and run; a failing rank fails the phase. Two ranks on
      one card time nothing about scaling.
 Then the kernel table (the bfloat16 forms' rows after the float32 ones, and
 phase 12's, 13's, 14's and 15's launches added; B3-bf16's row with both forms'
-times under "forms"; B2's rectangular form's row, its launches phase 16's
-TP call's on rank 0), the nvidia-smi line, and as the last line
+times under "forms"; its lazy forms' row, their launches phase 11's lazy
+step's; B2's rectangular form's row, its launches phase 16's TP call's on
+rank 0), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero without
 that line. Imports nothing of JAX or of the JAX package.
 """
@@ -400,6 +427,9 @@ METRICS = ("Acc", "Consistency", "FID", "Diversity", "MultiModality")
 # Evaluator logits on the card against the same model on the CPU (TF32 off):
 # 8 post-LN layers over 182 tokens, float32 sums in another order.
 EVAL_LOGITS_REL_TOL = 1e-4
+# the DDPM serving call's kernels against the plain route over a schedule of
+# this many steps (the 1000-step call is graphed against the eager loop)
+DDPM_PLAIN_STEPS = 250
 CAP_ID_RUN = (["--cap_id", "--times", "4"], 6, "projected_attention")
 CFG_RUN = (["--times", "2", "--limit_data_num", "32", "--label_path", "{data}/pseudo_labels.json",
             "--cond_drop_prob", "0.1", "--loss_aware_sampler", "--eval_every_e", "1",
@@ -527,6 +557,19 @@ def plain_blocks(control: bool = False):
     finally:
         for name, fn in saved.items():
             setattr(attention, name, fn)
+
+
+@contextlib.contextmanager
+def lazy_knorm(value: bool = True):
+    """The port's ``LAZY_KNORM`` set to ``value``, then restored."""
+    from hig_tpu_torch.models import attention
+
+    saved = attention.LAZY_KNORM
+    attention.LAZY_KNORM = value
+    try:
+        yield
+    finally:
+        attention.LAZY_KNORM = saved
 
 
 @contextlib.contextmanager
@@ -885,7 +928,15 @@ def check_efficient_attention(w, x, mask, failures) -> dict:
                 mask[..., :Tk].contiguous())
         got = attention._attend(*args)
         want = efficient_attention(*args)
+        # LAZY_KNORM: the same kernel (it divides the state after the
+        # contraction) against the lazy twin, and the eager twin beside
+        with lazy_knorm():
+            got_lazy = attention._attend(*args)
+        want_lazy = efficient_attention(*args, lazy=True)
         torch.cuda.synchronize()
+        lazy = {"max_abs_err": (got_lazy - want_lazy).abs().max().item(),
+                "max_abs_err_vs_eager_twin": (got_lazy - want).abs().max().item(),
+                "plain_ms": time_ms(lambda: efficient_attention(*args, lazy=True))}
         flops = 2 * N * HEADS * hd * hd * (T + Tk)
         nbytes = 4 * (2 * N * T * D + 2 * N * Tk * D + N * Tk)
         b_ms, b_by, b_kind = bound(flops, nbytes)
@@ -894,13 +945,16 @@ def check_efficient_attention(w, x, mask, failures) -> dict:
             "ms": time_ms(lambda: attention._attend(*args)),
             "plain_ms": time_ms(lambda: efficient_attention(*args)),
             "gflop": flops / 1e9, "mbytes": nbytes / 1e6, "bound_ms": b_ms, "bound_by": b_by,
-            "bound_kind": b_kind,
+            "bound_kind": b_kind, "lazy": lazy,
         }
     err = max(c["max_abs_err"] for c in cases.values())
+    lazy_err = max(c["lazy"]["max_abs_err"] for c in cases.values())
     print(json.dumps({"phase": "kernel", "kernel": "efficient_attention",
                       "shape": [N, T, D, HEADS], "tol": KERNEL_TOL, "cases": cases}),
           flush=True)
     fail_if(failures, not err <= KERNEL_TOL, f"efficient_attention max |err| {err}")
+    fail_if(failures, not lazy_err <= KERNEL_TOL,
+            f"efficient_attention against the lazy twin: max |err| {lazy_err}")
     full = cases[f"tk{T}"]
     return {
         "name": "efficient_attention", "route": "cuda",
@@ -908,6 +962,7 @@ def check_efficient_attention(w, x, mask, failures) -> dict:
         "replaces": "hig_tpu/ops/pallas_attention.py:46", "max_abs_err": err,
         "ms": full["ms"], "plain_ms": full["plain_ms"], "bound_ms": full["bound_ms"],
         "bound_by": full["bound_by"], "bound_kind": full["bound_kind"], "library_ms": None,
+        "lazy": {"max_abs_err": lazy_err, "plain_ms": full["lazy"]["plain_ms"]},
     }
 
 
@@ -1904,10 +1959,12 @@ def phase_evaluate(device, failures, smi: str, data: str, tmp: str,
     ``python -m hig_tpu_torch.evaluate`` runs from stage 1-3's checkpoint
     (the first chunk of DDIM-50 guided and of DPM-20 again through the
     graph and through the eager loop), and DDPM-1000 through B1, graphed
-    against the eager loop and against the plain route, on ``model`` (the
-    flagship with fused blocks) at the serving shape. Returns the launch
+    against the eager loop, and DDPM over DDPM_PLAIN_STEPS steps against the
+    plain route, on ``model`` (the flagship with fused blocks) at the
+    serving shape. Returns the launch
     counts and, for the profile, {run: (call, replayed wall s or None)}:
-    "serve_ddpm" and each evaluate run's first chunk ("evaluate_<run>")."""
+    each evaluate run's first chunk ("evaluate_<run>"; its DDPM-1000 one
+    is the profile's DDPM trace)."""
     from hig_tpu_torch import evaluate, serve
     from hig_tpu_torch.diffusion import gaussian as g
     from hig_tpu_torch.train import trainer as tr
@@ -1980,8 +2037,7 @@ def phase_evaluate(device, failures, smi: str, data: str, tmp: str,
         for name in kernels:
             launches[name] += counts[name]
 
-    # DDPM-1000 through B1 against the plain route: 8 requests, the same
-    # x_T and step noises (one generator seed)
+    # DDPM-1000 through B1: 8 requests, graphed against the eager loop
     requests = serve_requests()
     mean, std = serve.load_stats(None, model.cfg.input_feats)
     kw = dict(T=T, dim_pose=model.cfg.input_feats, sampler="ddpm")
@@ -1993,17 +2049,22 @@ def phase_evaluate(device, failures, smi: str, data: str, tmp: str,
     # from one generator seed, which must end in the same state)
     row, (features, joints), first, (counts,) = graph_and_eager(
         "DDPM-1000", ddpm, eager, sample_fn.graphs, failures, replays=1, eager_calls=1)
+    # the kernels against the plain route, the eager loop of a DDPM call of
+    # DDPM_PLAIN_STEPS steps (the same x_T and step noises): the depth cut
+    short = serve_with(tr.make_sampler(model, g.make_schedule(g.linear_betas(DDPM_PLAIN_STEPS)),
+                                       graph=False, **kw), requests, mean, std)
+    kernel_features, _ = short(torch.Generator(device=device).manual_seed(0))
     with plain_blocks():
         t1 = time.perf_counter()
-        ref_features, _ = eager(torch.Generator(device=device).manual_seed(0))
+        ref_features, _ = short(torch.Generator(device=device).manual_seed(0))
         torch.cuda.synchronize()
         plain_wall = time.perf_counter() - t1
-    rel = float(np.abs(features - ref_features).max() / np.abs(ref_features).max())
+    rel = float(np.abs(kernel_features - ref_features).max() / np.abs(ref_features).max())
     finite = bool(np.isfinite(features).all() and np.isfinite(joints).all())
-    wall = row["wall_s_per_call"]
     print(json.dumps({"phase": "evaluate", "run": "serve_ddpm1000_vs_plain", "nvidia_smi": smi,
                       "requests": len(requests), "T": T, "steps": 1000, "launches": counts,
-                      **row, "plain_wall_s_per_call": plain_wall,
+                      **row, "plain_steps": DDPM_PLAIN_STEPS,
+                      "plain_wall_s_per_call": plain_wall,
                       "finite": finite, "joints_shape": list(joints.shape),
                       "max_abs_features": float(np.abs(ref_features).max()),
                       "rel_err_vs_plain": rel, "rel_tol": SAMPLER_REL_TOL}), flush=True)
@@ -2013,10 +2074,9 @@ def phase_evaluate(device, failures, smi: str, data: str, tmp: str,
                    for n in kernels), f"DDPM-1000 launches {first}, {counts}")
     fail_if(failures, not finite or tuple(joints.shape) != (N_PAIRS, 2, T - 1, 22, 3),
             f"DDPM-1000: finite {finite}, shape {joints.shape}")
-    fail_if(failures, not rel <= SAMPLER_REL_TOL, f"DDPM-1000 rel err {rel}")
+    fail_if(failures, not rel <= SAMPLER_REL_TOL, f"DDPM-{DDPM_PLAIN_STEPS} rel err {rel}")
     for name in kernels:
         launches[name] += counts[name]
-    runs["serve_ddpm"] = (seeded(ddpm), wall)
     return launches, runs
 
 
@@ -2089,6 +2149,8 @@ PEAK_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores (H100 SXM data sheet)
 # bfloat16 pieces (8 + 8 + 8 significand bits, each product exact in
 # float32): three bf16 products at 989 TFLOP/s, as the kernel takes them.
 MIXED_FORM = "projected_attention_bf16a"
+# B3-bf16's lazy forms (LAZY_KNORM), counted in ``launches_bf16_lazy``
+LAZY_FORM = "efficient_attention_bf16_lazy"
 BF16_SPLIT = 3
 # The ordered bfloat16 sum of the bfloat16 backwards (``ops/bf16_sum.py``),
 # counted in ``bf16_sum.launches``: launched by every bfloat16 train step
@@ -2119,6 +2181,7 @@ def bf16_counts() -> dict:
     counts = {name: w.launches for name, w in kernels.items()}
     counts.update({form: kernels[base].launches_bf16 for form, base in BF16_FORMS.items()})
     counts[MIXED_FORM] = kernels["projected_attention"].launches_mixed
+    counts[LAZY_FORM] = kernels["efficient_attention"].launches_bf16_lazy
     return counts
 
 
@@ -2126,7 +2189,7 @@ def reset_counts() -> None:
     from hig_tpu_torch.ops.bf16_sum import bf16_sum
 
     for w in (*wrappers().values(), bf16_sum):
-        for attr in ("launches", "launches_bf16", "launches_mixed"):
+        for attr in ("launches", "launches_bf16", "launches_mixed", "launches_bf16_lazy"):
             if hasattr(w, attr):
                 setattr(w, attr, 0)
 
@@ -2888,10 +2951,11 @@ def tree_rms_ratio(got: dict, want: dict, want32: dict) -> float:
     return float((cat[0] - cat[1]).pow(2).mean().sqrt() / (cat[1] - cat[2]).pow(2).mean().sqrt())
 
 
-def bf16_grad_gate(sched, batch: dict, initial, run: str, failures) -> dict:
+def bf16_grad_gate(sched, batch: dict, initial, run: str, failures, beside=None) -> dict:
     """The kernel route against the plain bfloat16 route (BF16_TRAIN_RMS),
     with the control route beside it, on the run's first batch and initial
-    weights (``first_batch``)."""
+    weights (``first_batch``); ``beside`` ({name: context}) adds routes read
+    against the plain route and reported, not held."""
     from hig_tpu_torch.train import trainer as tr
 
     cut, cut32 = train_cut(initial), train_cut(initial, "float32")
@@ -2920,6 +2984,7 @@ def bf16_grad_gate(sched, batch: dict, initial, run: str, failures) -> dict:
                 "grad_ratio": tree_rms_ratio(grads, g_p, g_32)}
 
     kernel, control = reading(loss_k, g_k), reading(loss_c, g_c)
+    also = {name: reading(*route(cut, batch, ctx)) for name, ctx in (beside or {}).items()}
     worst = max((n for n in g_p if not n.endswith(KEY_BIAS)),
                 key=lambda n: ((g_k[n] - g_p[n]).double().pow(2).mean()
                                / (g_p[n] - g_32[n]).double().pow(2).mean().clamp_min(1e-60)))
@@ -2927,12 +2992,70 @@ def bf16_grad_gate(sched, batch: dict, initial, run: str, failures) -> dict:
            "loss_plain_f32": loss_32, "leaves": len(g_p), "kernels": kernel, "control": control,
            "worst_leaf": worst, "worst_leaf_ratio": tree_rms_ratio(
                {worst: g_k[worst]}, {worst: g_p[worst]}, {worst: g_32[worst]}),
-           "lim": BF16_TRAIN_RMS}
+           "lim": BF16_TRAIN_RMS, **({"beside": also} if also else {})}
     fail_if(failures, not (g_k.keys() == g_p.keys() and max(kernel.values()) <= BF16_TRAIN_RMS),
             f"bf16 train ({run}): kernel route against plain route {out}")
     fail_if(failures, max(control.values()) <= BF16_TRAIN_RMS,
             f"bf16 train ({run}): the control route passes {out}")
     return out
+
+
+LAZY_STEPS = 3  # the lazy step's run: the first eager, then the capture, then replays
+
+
+def lazy_pit_step(trainer, batch: dict, initial, failures, smi: str) -> dict:
+    """The bfloat16 PIT step under LAZY_KNORM (B3-bf16's lazy forms), from
+    the run's initial weights and first batch: LAZY_STEPS steps through the
+    graph and eagerly, one generator seed each, whose metrics, parameters
+    and Adam's moments must be equal bit for bit, with 16 launches a step of
+    the lazy form and none of the eager one or of another form's; one
+    batch's loss and gradients at the first-layer cut through the kernels
+    against the lazy plain route within BF16_TRAIN_RMS of the bfloat16
+    effect (beside the control route), and the same step without the flag
+    within BF16_TRAIN_RMS of the lazy plain route too."""
+    from hig_tpu_torch.train import trainer as tr
+
+    weights = {k: v.detach() for k, v in initial.state_dict().items()}
+    device = batch["motion"].device
+    row = {"phase": "bf16_train", "run": "pit_bf16_lazy_knorm", "nvidia_smi": smi,
+           "pairs_per_step": TRAIN_PAIRS, "steps": LAZY_STEPS}
+    finals, counts = [], []
+    with lazy_knorm():
+        for graph in (True, False):
+            model = model_from(trainer.model_config, weights, device).train()
+            state = tr.TrainState(model=model, optimizer=tr.make_optimizer(trainer.cfg, model))
+            step = tr.make_train_step(trainer.sched, True, graph=graph)
+            gen = torch.Generator(device=device).manual_seed(11)
+            reset_counts()
+            metrics, ms = [], []
+            for _ in range(LAZY_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(state, batch, gen)
+                metrics.append([float(out[k]) for k in tr.TRAIN_METRICS])
+                ms.append(1e3 * (time.perf_counter() - t0))
+            counts.append(bf16_counts())
+            finals.append(final_state_tensors(state))
+            key = "graphed" if graph else "eager"
+            row[key] = {"metrics": metrics, "step_ms": ms}
+            if graph:
+                row[key]["capture"] = next(iter(step.graphs.values())).summary()
+            del model, state, step
+        row["grads"] = bf16_grad_gate(trainer.sched, batch, initial, "pit_bf16_lazy_knorm",
+                                      failures, beside={"without_flag": lazy_knorm(False)})
+    differ = [n for n, t in finals[1].items() if not torch.equal(finals[0][n], t)]
+    row.update(launches=counts[0], eager_launches=counts[1], differ=differ,
+               metrics_equal=row["graphed"]["metrics"] == row["eager"]["metrics"])
+    want = LAZY_STEPS * LAUNCHES_PER_STEP
+    fail_if(failures, bool(differ) or not row["metrics_equal"],
+            f"lazy PIT step: graphed against eager {row}")
+    without = row["grads"]["beside"]["without_flag"]
+    fail_if(failures, not max(without.values()) <= BF16_TRAIN_RMS,
+            f"lazy PIT step: the step without the flag against the lazy plain route {without}")
+    fail_if(failures, any(c[n] != (want if n == LAZY_FORM else 0) for c in counts for n in c),
+            f"lazy PIT step: launches {counts}, expected {want} of {LAZY_FORM}")
+    del finals
+    return row
 
 
 def bf16_scorer_rows(model_config, model_dir: str, cfg, fused: bool, own: str, failures) -> tuple:
@@ -3047,6 +3170,11 @@ def phase_bf16_train(device, failures, smi: str, requests: list, data: str, tmp:
         if run in BF16_GRAD_RUNS:
             batch, initial = first_batch(trainer)
             row["grad_check"] = bf16_grad_gate(trainer.sched, batch, initial, run, failures)
+            if run == "pit_bf16":
+                lazy_row = lazy_pit_step(trainer, batch, initial, failures, smi)
+                print(json.dumps(lazy_row), flush=True)
+                add({LAZY_FORM: lazy_row["launches"][LAZY_FORM]
+                     + lazy_row["eager_launches"][LAZY_FORM]})
             del initial
         print(json.dumps(row), flush=True)
         if run == "pit_bf16":
@@ -3527,7 +3655,6 @@ NATIVE_WINDOW = 60
 LOADER_TIMES = 4  # the loader timing's epoch: 48 clips, 4 passes, 6 batches of 32
 # The reference's CLIP text tower (ViT-B/32) and learnable text stack, as
 # its state dict names them
-REF_CLIP = dict(width=512, layers=12, vocab=49408, context=77)
 
 
 def model_from(cfg, weights: dict, device):
@@ -3733,79 +3860,6 @@ def option_steps(device, failures, smi: str, data: str, weights: dict) -> dict:
     return launches
 
 
-def reference_state_dict(cfg, seed: int = 0) -> dict:
-    """A seeded state dict with the reference's key names (the
-    MotionInteractionTransformer ``encoder`` entry of its latest.tar) at the
-    widths of ``cfg``, a ModelConfig of the efficient model with CLIP
-    ViT-B/32; Linear weights (out, in)."""
-    rng = np.random.default_rng(seed)
-    sd = {}
-
-    def arr(*shape, scale=0.05):
-        return (scale * rng.standard_normal(shape, dtype=np.float32)).astype(np.float32)
-
-    def lin(name, i, o):
-        sd[f"{name}.weight"], sd[f"{name}.bias"] = arr(o, i, scale=i ** -0.5), arr(o)
-
-    def ln(name, d):
-        sd[f"{name}.weight"], sd[f"{name}.bias"] = 1 + arr(d), arr(d)
-
-    def encoder_layer(prefix, d, ff, attn="self_attn", names=("linear1", "linear2")):
-        sd[f"{prefix}.{attn}.in_proj_weight"] = arr(3 * d, d, scale=d ** -0.5)
-        sd[f"{prefix}.{attn}.in_proj_bias"] = arr(3 * d)
-        lin(f"{prefix}.{attn}.out_proj", d, d)
-        lin(f"{prefix}.{names[0]}", d, ff)
-        lin(f"{prefix}.{names[1]}", ff, d)
-
-    W, D, Dt, E = REF_CLIP["width"], cfg.latent_dim, cfg.text_latent_dim, cfg.time_embed_dim
-    sd["clip.token_embedding.weight"] = arr(REF_CLIP["vocab"], W, scale=0.02)
-    sd["clip.positional_embedding"] = arr(REF_CLIP["context"], W, scale=0.01)
-    ln("clip.ln_final", W)
-    for i in range(REF_CLIP["layers"]):
-        rb = f"clip.transformer.resblocks.{i}"
-        encoder_layer(rb, W, 4 * W, attn="attn", names=("mlp.c_fc", "mlp.c_proj"))
-        ln(f"{rb}.ln_1", W)
-        ln(f"{rb}.ln_2", W)
-    lin("text_pre_proj", W, Dt)
-    for i in range(cfg.num_text_layers):
-        t = f"textTransEncoder.layers.{i}"
-        encoder_layer(t, Dt, cfg.text_ff_size)
-        ln(f"{t}.norm1", Dt)
-        ln(f"{t}.norm2", Dt)
-    ln("text_ln", Dt)
-    lin("text_proj.0", Dt, E)
-    sd["sequence_embedding"] = arr(cfg.num_frames, D, scale=1.0)
-    lin("joint_embed", cfg.input_feats, D)
-    lin("joint_embed2", 4, D)
-    lin("time_embed.0", D, E)
-    lin("time_embed.2", E, E)
-    lin("out", D, cfg.input_feats)
-    lin("out2", D, cfg.input_feats)
-
-    def block(prefix, kv, text_norm=False):
-        ln(f"{prefix}.norm", D)
-        if text_norm:
-            ln(f"{prefix}.text_norm", kv)
-        lin(f"{prefix}.query", D, D)
-        lin(f"{prefix}.key", kv, D)
-        lin(f"{prefix}.value", kv, D)
-        lin(f"{prefix}.proj_out.emb_layers.1", E, 2 * D)
-        ln(f"{prefix}.proj_out.norm", D)
-        lin(f"{prefix}.proj_out.out_layers.2", D, D)
-
-    for i in range(cfg.num_layers):
-        blk = f"temporal_decoder_blocks.{i}"
-        block(f"{blk}.sa_block", D)
-        block(f"{blk}.ca_block", Dt, text_norm=True)
-        block(f"{blk}.int_ca_block", D)
-        lin(f"{blk}.ffn.linear1", D, cfg.ff_size)
-        lin(f"{blk}.ffn.linear2", cfg.ff_size, D)
-        lin(f"{blk}.ffn.proj_out.emb_layers.1", E, 2 * D)
-        ln(f"{blk}.ffn.proj_out.norm", D)
-        lin(f"{blk}.ffn.proj_out.out_layers.2", D, D)
-    return sd
-
-
 def pretrained_load(failures, data: str, tmp: str) -> dict:
     """(d) A full-width reference state dict (``reference_state_dict``, saved
     as the reference's {"encoder": ...} latest.tar) loaded by ``python -m
@@ -3819,9 +3873,9 @@ def pretrained_load(failures, data: str, tmp: str) -> dict:
 
     t0 = time.perf_counter()
     cfg = add_dataset_paths(ExperimentConfig(data_root=data))
-    sd = reference_state_dict(model_config(cfg))
+    sd = torch_port.reference_state_dict(model_config(cfg))
     path = os.path.join(tmp, "reference_latest.tar")
-    torch.save({"encoder": {k: torch.from_numpy(v) for k, v in sd.items()}}, path)
+    torch_port.save_reference_checkpoint(sd, path)
     trainer, state = train_main(["--name", "pretrained", "--data_root", data,
                                  "--checkpoints_dir", os.path.join(tmp, "runs"),
                                  "--batch_size", str(TRAIN_PAIRS), "--num_epochs", "0",
@@ -3838,7 +3892,63 @@ def pretrained_load(failures, data: str, tmp: str) -> dict:
     fail_if(failures, bool(differ) or len(want) != len(params) or state.step != 0,
             f"pretrained: {row}")
     del trainer, state, sd
-    os.remove(path)
+    return row
+
+
+PARITY_LENGTH = 60  # parity_smoke's --motion_length (its default): T = 61
+
+
+def asset_tools(failures, smi: str, tmp: str) -> dict:
+    """(f) ``python -m hig_tpu_torch.parity_smoke`` on (d)'s full-width
+    reference state dict (DDIM-50 sampling; every leaf from the dict), its
+    probe's output on the card against the same model's on the CPU within
+    DENOISER_TOL of its largest magnitude, the launches (the probe's
+    forward and the capturing sampler call through B2), a finite decoded
+    sample; ``python -m hig_tpu_torch.check_assets`` with no asset present."""
+    from hig_tpu_torch import check_assets, parity_smoke
+
+    meta = os.path.join(tmp, "parity_meta")
+    os.makedirs(meta, exist_ok=True)
+    np.save(os.path.join(meta, "mean.npy"), np.zeros(267, np.float32))
+    np.save(os.path.join(meta, "std.npy"), np.ones(267, np.float32))
+    ref = os.path.join(tmp, "reference_latest.tar")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = parity_smoke.main(["--checkpoint", ref, "--mean", os.path.join(meta, "mean.npy"),
+                             "--std", os.path.join(meta, "std.npy"), "--sampler", "ddim",
+                             "--motion_length", str(PARITY_LENGTH), "--out",
+                             os.path.join(tmp, "parity")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in bf16_counts().items() if v}
+    t1 = time.perf_counter()
+    model = copy.deepcopy(out.pop("model")).cpu()  # the same weights on the CPU
+    twin = parity_smoke.probe(model, 2, PARITY_LENGTH + 1)
+    twin_s = time.perf_counter() - t1
+    del model
+    err = float(np.abs(out["probe"] - twin).max() / np.abs(twin).max())
+    joints = np.load(out["sample"])
+    row = {"phase": "options", "run": "parity_smoke", "nvidia_smi": smi, "wall_s": wall,
+           "cpu_twin_s": twin_s, "coverage": list(out["coverage"]),
+           "probe": parity_smoke.probe_stats(out["probe"]),
+           "cpu_probe": parity_smoke.probe_stats(twin), "probe_rel_err": err,
+           "tol": DENOISER_TOL, "launches": counts, "joints_shape": list(joints.shape),
+           "graphs": [g.summary() for g in out["graphs"].values()]}
+    want = {"projected_attention": LAUNCHES_PER_STEP + FIRST_CALL}
+    fail_if(failures, not err <= DENOISER_TOL or out["coverage"][0] != out["coverage"][1]
+            or counts != want or not np.isfinite(joints).all()
+            or joints.shape != (2, PARITY_LENGTH, 22, 3), f"parity_smoke: {row}, launches "
+            f"expected {want}")
+    print(json.dumps(row), flush=True)
+    reset_counts()
+    report = check_assets.main(["--assets_dir", os.path.join(tmp, "no_assets"), "--data_root",
+                                os.path.join(tmp, "no_data"), "--reference_ckpt",
+                                os.path.join(tmp, "no_checkpoint.tar")])
+    rows = [{"asset": a, "present": p is not None, "status": st} for a, p, st in report]
+    print(json.dumps({"phase": "options", "run": "check_assets", "rows": rows}), flush=True)
+    fail_if(failures, len(rows) != 8 or any(r["present"] for r in rows)
+            or any(bf16_counts().values()), f"check_assets: {rows}")
     return row
 
 
@@ -3910,6 +4020,7 @@ def phase_options(device, failures, smi: str, data: str, tmp: str,
     print(json.dumps({"phase": "options", "run": "loaders",
                       **loader_rates(data, tmp, failures)}), flush=True)
     pretrained_load(failures, data, tmp)
+    launches = merge_counts(launches, asset_tools(failures, smi, tmp)["launches"])
     launches = merge_counts(launches, graft_run(device, failures, smi, data, tmp))
     print(json.dumps({"phase": "options", "launches": launches,
                       "seconds": time.perf_counter() - t_phase}), flush=True)
@@ -4120,6 +4231,71 @@ def b3_bf16_forms(device, failures) -> dict:
     return out
 
 
+# B3-bf16's lazy forms (LAZY_KNORM): the whole and streaming forms at the
+# training shape, the streaming form past 320 rows
+B3_LAZY_SHAPES = {k: B3_FORM_SHAPES[k] for k in ("128x91", "64x394")}
+
+
+def b3_lazy_forms(device, failures) -> dict:
+    """B3-bf16's lazy forms at B3_LAZY_SHAPES against the lazy twin: each
+    form's ms beside the eager form's (the whole form where it runs), the
+    plain lazy twin's, the bound (the eager form's work); the kernel's
+    elements that differ from the twin (bit for bit expected) and, at any
+    rate, the gates of phase 10, beside the eager twin and the lazy twin
+    without its state's roundings, which must fail them. Returns the row of
+    ``efficient_attention_bf16_lazy`` for the kernel table (its launches
+    phase 11's lazy step's)."""
+    from hig_tpu_torch.ops.pallas_attention import (
+        BF16_MAX_T, efficient_attention_bf16_form, fused_efficient_attention_plain as plain)
+
+    out = {}
+    for label, (N, tq, tk) in B3_LAZY_SHAPES.items():
+        w, x, mask, _, _ = block_inputs(device, N // 2, max(tq, tk))
+        q, k, v, heads, m = b3_bf16_inputs(w, x, mask, tk)
+        args = (q[..., :tq, :].contiguous(), k, v, heads, m)
+        row = {"shape": [N, tq, tk, D]}
+        forms = ("whole", "stream") if max(tq, tk) <= BF16_MAX_T else ("stream",)
+        got = {}
+        for form in forms:
+            got[form] = efficient_attention_bf16_form(*args, form, lazy=True)
+            row[f"{form}_ms"] = time_ms(lambda f=form: efficient_attention_bf16_form(
+                *args, f, lazy=True))
+            row[f"eager_{form}_ms"] = time_ms(lambda f=form: efficient_attention_bf16_form(
+                *args, f))
+        torch.cuda.synchronize()
+        row["plain_ms"] = time_ms(lambda: plain(*args, lazy=True))
+        parts, nbytes = b3_bf16_work(N, tq, tk)
+        row["bound_ms"], row["bound_by"], _ = bound_parts(parts, nbytes)
+        twin = plain(*args, lazy=True)
+        twin32 = plain(*[a.float() if torch.is_tensor(a) else a for a in args], lazy=True)
+        twin_cpu = plain(*on_cpu(args), lazy=True)
+        for form in forms:
+            row[f"{form}_differ"] = int((got[form] != twin).sum())
+            row[form] = gate_bf16(f"{LAZY_FORM} {form} {label}", got[form], twin, twin32,
+                                  twin_cpu, failures)
+        if len(forms) == 2:
+            row["forms_equal"] = bool(torch.equal(got["whole"], got["stream"]))
+            fail_if(failures, not row["forms_equal"], f"{LAZY_FORM}: forms differ at {label}")
+        controls = {"eager_twin": bf16_gate_row(plain(*args), twin, twin32, twin_cpu)}
+        for left_out in ("att", "att_z"):
+            controls[left_out] = bf16_gate_row(plain(*args, unrounded=(left_out,), lazy=True),
+                                               twin, twin32, twin_cpu)
+        for name, c in controls.items():
+            fail_if(failures, c["passed"], f"{LAZY_FORM} {label}: the control {name} passes")
+        row["controls_rms_ratio"] = {n: c["rms_ratio"] for n, c in controls.items()}
+        out[label] = row
+    first = out["128x91"]
+    return {"name": LAZY_FORM, "route": "cuda",
+            "source": "hig_tpu_torch/csrc/efficient_attention.cu",
+            "replaces": "hig_tpu/ops/pallas_attention.py:46 (LAZY_KNORM, "
+                        "hig_tpu/models/attention.py:114)",
+            "max_abs_err": max(r[f]["max_abs_err"] for r in out.values()
+                               for f in ("whole", "stream") if f in r),
+            "ms": first["whole_ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": None, "forms": out}
+
+
 def single_transformer_step_gate(device, failures) -> dict:
     """One bfloat16 --single_transformer PIT step at a native window of
     ST_WINDOW (2 × 197 = 394 merged rows, past the whole form's 320), full
@@ -4185,9 +4361,10 @@ def single_transformer_step_gate(device, failures) -> dict:
     return row
 
 
-def phase_geometry(device, failures, smi: str, tmp: str) -> tuple[dict, dict]:
+def phase_geometry(device, failures, smi: str, tmp: str) -> tuple[dict, dict, dict]:
     """Phase 14 (see the module doc). Returns (the launch counts of its
-    main path by form, B3-bf16's rows of both forms)."""
+    main path by form, B3-bf16's rows of both forms, the row of its lazy
+    forms)."""
     t_phase = time.perf_counter()
     data, row = geometry_dataset(failures, tmp)
     print(json.dumps({"phase": "geometry", "run": "make_synthetic_data", "nvidia_smi": smi,
@@ -4210,6 +4387,9 @@ def phase_geometry(device, failures, smi: str, tmp: str) -> tuple[dict, dict]:
     forms = b3_bf16_forms(device, failures)
     print(json.dumps({"phase": "geometry", "kernel": "efficient_attention_bf16",
                       "forms": forms}), flush=True)
+    lazy_row = b3_lazy_forms(device, failures)
+    print(json.dumps({"phase": "geometry", "kernel": LAZY_FORM, "nvidia_smi": smi,
+                      **lazy_row}), flush=True)
     step = single_transformer_step_gate(device, failures)
     print(json.dumps({"phase": "geometry", "run": "single_transformer_bf16_w196", **step}),
           flush=True)
@@ -4218,7 +4398,7 @@ def phase_geometry(device, failures, smi: str, tmp: str) -> tuple[dict, dict]:
         + step["b3_bf16_launches"]
     print(json.dumps({"phase": "geometry", "launches": launches,
                       "seconds": time.perf_counter() - t_phase}), flush=True)
-    return launches, forms
+    return launches, forms, lazy_row
 
 
 # Phase 15: the rest of Queue A. Distillation from phase 7's cfg_supervised
@@ -4761,6 +4941,13 @@ PAR_TIMEOUT = 300  # seconds the ranks may take once phase 16 starts
 # at least PAR_LIVE_GRAD of its leaf's largest, within PAR_UPDATE_TOL · lr.
 PAR_LIVE_GRAD, PAR_UPDATE_TOL = 1e-3, 1e-2
 RECT_DOUT = D // 2  # a TP rank's q|k|v width: 4 of the 8 heads
+# (f) train_single on phase 12's t2m data: 48 clips twice over, 2 steps of 48
+PAR_SINGLE_ARGS = ["--dataset_name", "t2m", "--batch_size", "48", "--num_epochs", "1",
+                   "--times", "2", "--log_every", "1", "--seed", "0"]
+PAR_SINGLE_STEPS = 2
+PAR_TP_STEPS = 25  # (c)'s DDIM call: the depth cut to pay for (f)-(h)
+PAR_DISTILL_STAGE = 25  # (g) one stage from phase 7's cfg_supervised run: 1 step of 32
+PAR_PRETRAINED = {"fsdp": {"fsdp": True}, "tp": {"tp": True}}  # (h), each 1 x 2
 
 
 def par_cfg(tmp: str, **kw):
@@ -4817,6 +5004,155 @@ def par_steps(trainer, state, steps: int, device, after=None) -> dict:
     return out
 
 
+def digest(tensors: dict) -> dict:
+    """Each tensor's bytes hashed: two states compared bit for bit across
+    processes without moving them."""
+    import hashlib
+
+    return {k: hashlib.sha1(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+            for k, t in tensors.items()}
+
+
+def payload_digest(payload: dict) -> dict:
+    """``digest`` of a one-rank checkpoint payload's parameters, Adam moments
+    and EMA."""
+    out = {f"params.{k}": v for k, v in digest(payload["params"]).items()}
+    for i, entry in payload["opt_state"]["state"].items():
+        out.update({f"{m}.{i}": v for m, v in digest(
+            {m: entry[m] for m in ("exp_avg", "exp_avg_sq")}).items()})
+    out.update({f"ema.{k}": v for k, v in digest(payload.get("ema_params") or {}).items()})
+    return out
+
+
+def par_pretrained(out: str, device, mode: str | None) -> dict:
+    """(h) ``train --pretrained``'s load (``load_pretrained``) of phase 13's
+    reference state dict into a full-width token model laid out by ``mode``
+    (PAR_PRETRAINED; None: one rank), started from zero weights so that
+    every value must come from the load: the gathered one-rank payload's
+    digest, and one PIT step's loss and gradient norm on par_inputs(0)'s
+    rows with their tower features."""
+    from hig_tpu_torch.config import ExperimentConfig, MeshConfig, add_dataset_paths
+    from hig_tpu_torch.data.vocab import CAPS
+    from hig_tpu_torch.models.tokenizer import tokenize
+    from hig_tpu_torch.parallel.mesh import shard_batch
+    from hig_tpu_torch.train import checkpoint as ckpt
+    from hig_tpu_torch.train import trainer as tt
+    from hig_tpu_torch.train.__main__ import load_pretrained
+
+    kw = {} if mode is None else dict(mesh=MeshConfig(1, PAR_RANKS), **PAR_PRETRAINED[mode])
+    cfg = add_dataset_paths(ExperimentConfig(
+        name=f"par_pretrained_{mode}", dataset_name="synthetic_mul", data_root=out,
+        checkpoints_dir=out, batch_size=PAR_PAIRS, seed=PAR_SEED, pretrained=True, **kw))
+    trainer = tt.Trainer(cfg, device, graph=False)
+    with torch.device("meta"):
+        shapes = tt.InteractionModel(trainer.model_config).state_dict()
+    state = trainer.init_state({k: torch.zeros(v.shape) for k, v in shapes.items()})
+    t0 = time.perf_counter()
+    load_pretrained(trainer, state, os.path.join(os.path.dirname(out), "reference_latest.tar"))
+    res = {"load_s": time.perf_counter() - t0, "mode": trainer.layout.mode,
+           "digest": payload_digest(trainer.layout.full_payload(ckpt.payload_of(state, 0, 0)))}
+    x = par_inputs(0)
+    tokens = tokenize(CAPS).astype(np.int64)[x["cap_ids"]]
+    x = shard_batch({**x, "tokens": tokens}, trainer.layout.batch_index,
+                    trainer.layout.batch_count)
+    cap_ids = torch.from_numpy(x["cap_ids"]).long().to(device)
+    batch = {"motion": torch.from_numpy(x["motion"]).to(device),
+             "lengths": torch.from_numpy(x["lengths"]).long().to(device),
+             "tokens": torch.from_numpy(x["tokens"]).to(device),
+             "tower_feats": trainer.precompute_tower(state.model)[cap_ids]}
+    step = tt.make_train_step(trainer.sched, pit=True, graph=False, layout=trainer.layout)
+    metrics = step(state, batch, t=torch.from_numpy(x["t"]).long().to(device),
+                   noise=torch.from_numpy(x["noise"]).to(device))
+    res["metrics"] = [float(metrics[k]) for k in tt.TRAIN_METRICS]
+    return res
+
+
+def par_distill_opt(out: str, name: str) -> str:
+    """A copy of phase 7's cfg_supervised run under ``name`` (its opt.txt
+    renamed, its model directory linked), so that each distillation writes
+    its own stage: the opt.txt's path."""
+    runs = os.path.join(os.path.dirname(out), "runs", "ntu_mul")
+    src, dst = os.path.join(runs, "cfg_supervised"), os.path.join(runs, name)
+    os.makedirs(dst, exist_ok=True)
+    os.symlink(os.path.join(src, "model"), os.path.join(dst, "model"))
+    os.symlink(os.path.join(src, "meta"), os.path.join(dst, "meta"))
+    with open(os.path.join(src, "opt.txt")) as f:
+        text = f.read()
+    with open(os.path.join(dst, "opt.txt"), "w") as f:
+        f.write(text.replace("name: cfg_supervised\n", f"name: {name}\n"))
+    return os.path.join(dst, "opt.txt")
+
+
+def par_entry_points(out: str, device, rank: int) -> dict:
+    """(f), (g) and (h) on this rank (the module doc)."""
+    from hig_tpu_torch import distill
+    from hig_tpu_torch.parallel import distributed as dist
+    from hig_tpu_torch.train_single import main as single_main
+
+    res, parts = {}, {}
+    t0 = time.perf_counter()
+    # (f) train_single over the 2 data ranks, the state replicated (each
+    # case hands back what it cached: the card is shared)
+    reset_counts()
+    state = single_main(["--name", "par_single", "--data_root",
+                         os.path.join(os.path.dirname(out), "single_data"), "--checkpoints_dir",
+                         os.path.join(out, "single_ranks"), "--distributed", *PAR_SINGLE_ARGS],
+                        graph=False)
+    res["single"] = {"steps": state.step, "counts": bf16_counts(),
+                     "digest": digest(state.model.state_dict())}
+    del state
+    torch.cuda.empty_cache()
+    parts["single"] = time.perf_counter() - t0
+    # (g) distillation over the 2 data ranks, the teacher whole on each
+    t0 = time.perf_counter()
+    reset_counts()
+    opt = os.path.join(os.path.dirname(out), "runs", "ntu_mul", "par_cfg_ranks", "opt.txt")
+    if rank == 0:
+        par_distill_opt(out, "par_cfg_ranks")
+    dist.barrier()
+    (written,) = distill.main(["--opt_path", opt, "--stages", str(PAR_DISTILL_STAGE),
+                               "--epochs_per_stage", "1", "--log_every", "1"], graph=False)
+    res["distill"] = {"stage": written, "counts": bf16_counts()}
+    torch.cuda.empty_cache()
+    parts["distill"] = time.perf_counter() - t0
+    # (h) --pretrained under FSDP and TP
+    for mode in PAR_PRETRAINED:
+        t0 = time.perf_counter()
+        res[f"pretrained_{mode}"] = par_pretrained(out, device, mode)
+        torch.cuda.empty_cache()
+        parts[f"pretrained_{mode}"] = time.perf_counter() - t0
+    res["parts_s"] = parts
+    return res
+
+
+def par_entry_refs(out: str, device) -> dict:
+    """The one-rank counterparts of (f), (g) and (h), on the card while the
+    ranks run: train_single's and the distillation stage's metrics, and the
+    --pretrained load's digest and step."""
+    from hig_tpu_torch import distill
+    from hig_tpu_torch.train_single import main as single_main
+
+    refs = {}
+    torch.cuda.empty_cache()
+    single_main(["--name", "par_single_one", "--data_root",
+                 os.path.join(os.path.dirname(out), "single_data"), "--checkpoints_dir",
+                 os.path.join(out, "single_one"), *PAR_SINGLE_ARGS], graph=False)
+    refs["single"] = read_metrics(os.path.join(out, "single_one", "t2m", "par_single_one"))
+    (written,) = distill.main(["--opt_path", par_distill_opt(out, "par_cfg_one"), "--stages",
+                               str(PAR_DISTILL_STAGE), "--epochs_per_stage", "1",
+                               "--log_every", "1"], graph=False)
+    refs["distill"] = read_metrics(written)
+    torch.cuda.empty_cache()
+    refs["pretrained"] = par_pretrained(out, device, None)
+    torch.cuda.empty_cache()
+    return refs
+
+
+def read_metrics(run_dir: str) -> list:
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
 def par_requests() -> tuple:
     """Caption ids, lengths and x_T of PAR_REQUESTS requests (numpy)."""
     rs = np.random.RandomState(PAR_SEED)
@@ -4850,7 +5186,7 @@ def leaf_errors(got: dict, want: dict) -> tuple[float, float]:
 
 def parallel_rank(rank: int, port: str, out: str) -> int:
     """One of phase 16's ranks (``python chip_smoke.py --parallel-rank r
-    port dir``): the five cases on cuda:0 over gloo; writes
+    port dir``): the eight cases on cuda:0 over gloo; writes
     <dir>/rank<r>.json."""
     sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4870,6 +5206,7 @@ def parallel_rank(rank: int, port: str, out: str) -> int:
 
     def lap(name):
         nonlocal t0
+        torch.cuda.empty_cache()  # the card is shared: hand back what this case cached
         parts[name] = time.perf_counter() - t0
         t0 = time.perf_counter()
 
@@ -4920,14 +5257,14 @@ def parallel_rank(rank: int, port: str, out: str) -> int:
     del state, trainer, first, grads
     lap("fsdp")
 
-    # (c) TP, 1 x 2: a DDIM-50 call for PAR_REQUESTS requests, each rank its
+    # (c) TP, 1 x 2: a DDIM-25 call for PAR_REQUESTS requests, each rank its
     # 4 heads through B2's rectangular form
     trainer = tt.Trainer(par_cfg(out, mesh=MeshConfig(1, PAR_RANKS), tp=True), device,
                          graph=False)
     model = trainer.init_state(before).model.eval()
     cap, lengths, noise = par_requests()
     sample = tt.make_sampler(model, g.make_schedule(g.linear_betas(1000)), T, 263, "ddim",
-                             DDIM_STEPS, graph=False)
+                             PAR_TP_STEPS, graph=False)
     reset_counts()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -4970,6 +5307,10 @@ def parallel_rank(rank: int, port: str, out: str) -> int:
     serve.main(par_serve_argv(out, os.path.join(out, "serve_dp")) + ["--device", "cuda"])
     res["serve"] = {"call_s": time.perf_counter() - t1, "counts": bf16_counts()}
     lap("serve")
+
+    # (f)-(h): the entry points JAX runs over several devices
+    res["entry_points"] = par_entry_points(out, device, rank)
+    lap("entry_points")
     res["parts_s"] = parts
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
@@ -5037,6 +5378,9 @@ def start_parallel_ranks(tmp: str) -> dict:
 
     from hig_tpu_torch.data.vocab import CAPS
 
+    # the ranks share the card with this process: hand back the blocks the
+    # earlier phases left cached
+    torch.cuda.empty_cache()
     out = os.path.join(tmp, "parallel")
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "par_model.json"), "w") as f:
@@ -5054,7 +5398,9 @@ def start_parallel_ranks(tmp: str) -> dict:
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-rank",
                                str(r), port, out], stdout=logs[r], stderr=subprocess.STDOUT,
                               cwd=ROOT) for r in range(PAR_RANKS)]
-    return {"out": out, "procs": procs, "logs": logs, "t_start": time.perf_counter()}
+    return {"out": out, "procs": procs, "logs": logs, "t_start": time.perf_counter(),
+            "parent_gb": {"allocated": torch.cuda.memory_allocated() / 1e9,
+                          "reserved": torch.cuda.memory_reserved() / 1e9}}
 
 
 def stop_parallel_ranks(ranks: dict) -> None:
@@ -5094,13 +5440,14 @@ def phase_parallel(device, failures, smi: str, ranks: dict) -> dict:
         model = trainer.init_state(weights).model.eval()
         del trainer, state, weights
         sample = tt.make_sampler(model, g.make_schedule(g.linear_betas(1000)), T, 263, "ddim",
-                                 DDIM_STEPS, graph=False)
+                                 PAR_TP_STEPS, graph=False)
         refs["tp"] = sample(torch.from_numpy(cap), torch.from_numpy(lengths),
                             noise=torch.from_numpy(par_requests()[2])).cpu().numpy()
         del model, sample
         t1 = time.perf_counter()
         serve.main(par_serve_argv(out, os.path.join(out, "serve_one")))
         refs["serve_s"] = time.perf_counter() - t1
+        refs["entry"] = par_entry_refs(out, device)
         refs_s = time.perf_counter() - t0
         for p in procs:
             p.wait(timeout=max(1.0, PAR_TIMEOUT - (time.perf_counter() - t0)))
@@ -5119,6 +5466,7 @@ def phase_parallel(device, failures, smi: str, ranks: dict) -> dict:
     report = {"phase": "parallel", "nvidia_smi": smi, "ranks": PAR_RANKS,
               "note": "2 ranks on one card, gloo: times are not a DP speed",
               "ranks_s": ranks_s, "one_rank_refs_s": refs_s,
+              "parent_gb_at_start": ranks["parent_gb"],
               "rank_parts_s": [r["parts_s"] for r in res]}
     fail_if(failures, any(r["backend"] != "gloo" or r["device"] != "cuda:0" for r in res),
             f"parallel: ranks on {[(r['backend'], r['device']) for r in res]}")
@@ -5175,7 +5523,7 @@ def phase_parallel(device, failures, smi: str, ranks: dict) -> dict:
     fail_if(failures, not (np.isfinite(got).all() and rel <= SAMPLER_REL_TOL),
             f"parallel tp: vs one rank {rel}")
     others = [{k: v for k, v in r["counts"].items() if v} for r in tp]
-    fail_if(failures, any(r["launches_rect"] != LAUNCHES_PER_CALL or o for r, o in
+    fail_if(failures, any(r["launches_rect"] != LAUNCHES_PER_STEP * PAR_TP_STEPS or o for r, o in
                           zip(tp, others)),
             f"parallel tp: launches {report['tp']['launches_rect']}, others {others}")
 
@@ -5206,10 +5554,74 @@ def phase_parallel(device, failures, smi: str, ranks: dict) -> dict:
     fail_if(failures, not max(errs) <= SAMPLER_REL_TOL, f"parallel serve: vs one rank {errs}")
     fail_if(failures, b1 != [LAUNCHES_PER_CALL] * PAR_RANKS,
             f"parallel serve: B1 launches {b1}")
+    report.update(par_entry_checks(out, [r["entry_points"] for r in res], refs["entry"],
+                                   failures))
+    report["entry_parts_s"] = [r["entry_points"]["parts_s"] for r in res]
     report["seconds"] = time.perf_counter() - t_phase
     print(json.dumps(report), flush=True)
     row["launches"] = res[0]["tp"]["launches_rect"]
     return row
+
+
+def rel_errs(got: list, want: list, keys: tuple) -> float:
+    """The largest relative error of metrics lines ``got`` against ``want``
+    over ``keys``, the lines in step order (both runs log every step)."""
+    if len(got) != len(want) or not got:
+        return float("inf")
+    return max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(got, want) for k in keys)
+
+
+def par_entry_checks(out: str, got: list, refs: dict, failures) -> dict:
+    """Phase 16's (f), (g) and (h) against their one-rank counterparts."""
+    from hig_tpu_torch.train.trainer import TRAIN_METRICS
+
+    report = {}
+    # (f) train_single: the replicated weights equal across ranks, rank 0's
+    # losses as one rank's, B2 on the single model's 8 blocks a step
+    single = [g["single"] for g in got]
+    losses = read_metrics(os.path.join(out, "single_ranks", "t2m", "par_single"))
+    rel = rel_errs(losses, refs["single"], ("loss_mot_rec",))
+    b2 = [s["counts"]["projected_attention"] for s in single]
+    report["train_single"] = {"steps": [s["steps"] for s in single], "rel_err": rel,
+                              "losses": [x["loss_mot_rec"] for x in losses],
+                              "weights_equal": single[0]["digest"] == single[1]["digest"],
+                              "launches": b2}
+    fail_if(failures, not report["train_single"]["weights_equal"]
+            or any(s["steps"] != PAR_SINGLE_STEPS for s in single) or not rel <= TRAIN_LOSS_TOL,
+            f"parallel train_single: {report['train_single']}")
+    fail_if(failures, any(v != (ABLATION_PER_CALL * PAR_SINGLE_STEPS
+                                if k == "projected_attention" else 0)
+                          for s in single for k, v in s["counts"].items()),
+            f"parallel train_single: launches {[s['counts'] for s in single]}")
+    # (g) distillation: rank 0's stage as one rank's, each rank the teacher's
+    # B1 and the student's B2 on its rows
+    stage = read_metrics(got[0]["distill"]["stage"])
+    rel = rel_errs(stage, refs["distill"], ("loss_distill", "grad_norm"))
+    counts = [{k: v for k, v in g["distill"]["counts"].items() if v} for g in got]
+    report["distill"] = {"steps": len(stage), "rel_err": rel, "launches": counts,
+                         "loss_distill": [x["loss_distill"] for x in stage]}
+    fail_if(failures, len(stage) != 1 or not rel <= TRAIN_LOSS_TOL,
+            f"parallel distill: {report['distill']}")
+    fail_if(failures, any(c != DISTILL_STEP_LAUNCHES for c in counts),
+            f"parallel distill: launches {counts}, expected {DISTILL_STEP_LAUNCHES}")
+    # (h) --pretrained under FSDP and TP: the gathered state bit for bit the
+    # one-rank load's, the first step as one rank's and equal across ranks
+    want = refs["pretrained"]
+    for mode in PAR_PRETRAINED:
+        cases = [g[f"pretrained_{mode}"] for g in got]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(cases[0]["metrics"], want["metrics"]))
+        differ = sorted(k for k, v in want["digest"].items()
+                        if any(c["digest"].get(k) != v for c in cases))
+        report[f"pretrained_{mode}"] = {
+            "mode": cases[0]["mode"], "tensors": len(want["digest"]), "differ": differ,
+            "metrics": cases[0]["metrics"], "one_rank": want["metrics"], "rel_err": rel,
+            "load_s": [c["load_s"] for c in cases], "one_rank_load_s": want["load_s"],
+            "metric_names": list(TRAIN_METRICS)}
+        fail_if(failures, cases[0]["mode"] != mode or bool(differ)
+                or any(c["digest"].keys() != want["digest"].keys() for c in cases)
+                or cases[0]["metrics"] != cases[1]["metrics"] or not rel <= TRAIN_LOSS_TOL,
+                f"parallel pretrained {mode}: {report[f'pretrained_{mode}']}")
+    return report
 
 
 def trainer_dataset(cfg):
@@ -5280,7 +5692,7 @@ def main() -> int:
         option_launches, option_runs = phase_options(device, failures, smi, data, tmp,
                                                      models["fused"].state_dict())
         lap("options")
-        geometry_launches, b3_forms = phase_geometry(device, failures, smi, tmp)
+        geometry_launches, b3_forms, lazy_row = phase_geometry(device, failures, smi, tmp)
         lap("geometry")
         rest_launches = phase_rest(device, failures, smi, data, tmp, models["fused"])
         lap("rest")
@@ -5307,6 +5719,8 @@ def main() -> int:
         row["launches"] = (launches[name] + train_launches[name] + pipeline_launches[name]
                            + eval_launches[name] + ablation_launches.get(name, 0))
     rows.update(bf16_rows)
+    lazy_row["launches"] = bf16_train_launches.get(LAZY_FORM, 0)
+    rows[LAZY_FORM] = lazy_row
     rows["projected_attention_rect"] = rect_row
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(smi, flush=True)

@@ -161,8 +161,9 @@ def make_distill_loss(student, teacher, sched: g.DiffusionSchedule, grids: Disti
     bool the pairs that keep their captions under a CFG teacher with
     ``distill_w`` = 1; each is drawn from ``generator`` (in that order)
     unless given. ``sched`` holds host or device tables; ``tables`` the
-    grids' (:func:`grid_tables`), else copied per call. aux holds t and the
-    per-sample losses. ``ts_state`` is not read.
+    grids' (:func:`grid_tables`), else copied per call. ``mask_total`` (a
+    rank's share of a global batch) is the global batch's mask sum. aux
+    holds t and the per-sample losses. ``ts_state`` is not read.
     """
     if student.cfg.fused_blocks:
         raise ValueError(FUSED_STUDENT)
@@ -177,7 +178,8 @@ def make_distill_loss(student, teacher, sched: g.DiffusionSchedule, grids: Disti
             return model.encode_text_from_tower(*cond)
         return model.encode_text(cond)
 
-    def loss_fn(batch, generator=None, i=None, noise=None, keep=None, ts_state=None):
+    def loss_fn(batch, generator=None, i=None, noise=None, keep=None, ts_state=None,
+                mask_total=None):
         motion = batch["motion"]
         B, _, T, _ = motion.shape
         device = motion.device
@@ -232,14 +234,33 @@ def make_distill_loss(student, teacher, sched: g.DiffusionSchedule, grids: Disti
         eps_hat = student.denoise(x_t, t, lengths, s_proj, s_out)
         x0_hat = g.predict_xstart_from_eps(sched, x_t, t, eps_hat)
         per_sample = (per_token_loss(x0_hat, x0_target) * mask[:, None, :]).sum(dim=(1, 2))
-        loss = (per_sample * weight).sum() / (2.0 * mask.sum())
+        total = mask.sum() if mask_total is None else mask_total
+        loss = (per_sample * weight).sum() / (2.0 * total)
         return loss, {"t": t, "per_sample": per_sample}
 
     return loss_fn
 
 
+def distill_draws(grids: DistillGrids, drop_prob: float, distill_w: float) -> Callable:
+    """``draws(model, B, like, generator, ts_state) -> (i, noise, keep)`` of
+    a global batch of B rows, in the loss's order (the grid index, the
+    noise, and the keep mask where the loss draws one): what a one-rank
+    step draws, for the ranks to keep their rows of."""
+    def draws(model, B, like, generator, ts_state):
+        device = like.device
+        i = torch.randint(0, grids.num_steps, (B,), generator=generator, device=device)
+        noise = torch.randn((B, *like.shape[1:]), generator=generator, device=device,
+                            dtype=like.dtype)
+        keep = None
+        if drop_prob > 0.0 and distill_w == 1.0:
+            keep = torch.rand((B,), generator=generator, device=device) >= drop_prob
+        return i, noise, keep
+
+    return draws
+
+
 def make_distill_step(sched: g.DiffusionSchedule, grids: DistillGrids, teacher,
-                      distill_w: float = 1.0, graph: bool = True) -> Callable:
+                      distill_w: float = 1.0, graph: bool = True, layout=None) -> Callable:
     """``step(state, batch, generator=None, i=None, noise=None, keep=None)
     -> {"loss_distill", "grad_norm"}``: :func:`make_distill_loss` of
     ``state.model`` (the student) against ``teacher``, its gradients, the
@@ -250,15 +271,20 @@ def make_distill_step(sched: g.DiffusionSchedule, grids: DistillGrids, teacher,
     lie when it is captured: a stage makes its own step (its grids and its
     fresh Adam moments are new tensors) and so captures anew, and the
     teacher module is updated in place between stages. ``step.graphs``
-    holds the graphs by key."""
+    holds the graphs by key. Over several ranks ``layout`` (the student's,
+    ``parallel/layout.py``) shares the step as the train step's: each rank
+    keeps its rows of the global batch's draws (:func:`distill_draws`), the
+    teacher whole on every rank, and the step runs eagerly."""
     tables: dict = {}  # device → the grids there, made before any capture
 
     def make_loss(model, sched_on):
         return make_distill_loss(model, teacher, sched_on, grids, distill_w,
                                  tables[sched_on.betas.device])
 
-    train_step = make_train_step(sched, pit=False, graph=graph, make_loss=make_loss,
-                                 metric_names=DISTILL_METRICS)
+    train_step = make_train_step(
+        sched, pit=False, graph=graph, make_loss=make_loss, metric_names=DISTILL_METRICS,
+        layout=layout, draws=distill_draws(grids, float(teacher.cfg.cond_drop_prob),
+                                           float(distill_w)))
 
     def step(state, batch, generator=None, i=None, noise=None, keep=None):
         device = batch["motion"].device

@@ -23,6 +23,15 @@ guided blend at w: the student samples unguided.
     python -m hig_tpu_torch.distill --opt_path checkpoints/ntu_mul/interaction/opt.txt \
         --epochs_per_stage 6 --lr 5e-5
     python -m hig_tpu_torch.distill ... --stages 25 --distill_w 2.5 --device cpu
+
+Several ranks (one process each; ``HIG_COORDINATOR``, ``HIG_NUM_PROCESSES``
+and ``HIG_PROCESS_ID`` as for ``python -m hig_tpu_torch.train
+--distributed``): the student is laid out as JAX's ``place_state`` lays out
+the teacher run's config (``parallel/layout.py``: DP over the mesh, or
+FSDP or TP where the opt.txt asks for them; a pipelined run's student is
+replicated, as JAX's), each rank reads its rows of every global batch, the
+teacher is whole on every rank, and the steps run eagerly. Only the primary
+(rank 0) writes, in the one-rank format.
 """
 
 from __future__ import annotations
@@ -79,7 +88,6 @@ def main(argv=None, clip_config: ClipTextConfig | None = None, graph: bool = Tru
                         help="fixed-w guided distillation (CFG teacher only)")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
-    dist.require_one_process("python -m hig_tpu_torch.distill")
 
     cfg = load_opt_txt(args.opt_path)
     cfg.lr = args.lr
@@ -98,21 +106,30 @@ def main(argv=None, clip_config: ClipTextConfig | None = None, graph: bool = Tru
     if args.distill_w != 1.0 and cfg.cond_drop_prob <= 0.0:
         parser.error(f"--distill_w {args.distill_w} needs a CFG teacher (a run trained with "
                      f"--cond_drop_prob > 0)")
+    device = dist.initialize(device=resolve_device(args.device))
+    primary = dist.is_primary()
+
+    def log(text: str) -> None:
+        if primary:
+            print(text)
+
     if cfg.sampler != "ddim":
-        print(f"note: teacher opt.txt has sampler={cfg.sampler}; distillation targets the "
-              f"DDIM grid (teacher steps = {cfg.ddim_steps})")
+        log(f"note: teacher opt.txt has sampler={cfg.sampler}; distillation targets the "
+            f"DDIM grid (teacher steps = {cfg.ddim_steps})")
     stages = ([int(s) for s in args.stages.split(",")] if args.stages
               else pd.halving_stages(cfg.ddim_steps, args.min_steps))
-    print(f"distillation ladder: {cfg.ddim_steps} -> {stages}")
-    device = resolve_device(args.device)
+    log(f"distillation ladder: {cfg.ddim_steps} -> {stages}")
 
     mean = np.load(pjoin(cfg.meta_dir, "mean.npy"))
     std = np.load(pjoin(cfg.meta_dir, "std.npy"))
     dataset = PairDataset(cfg, mean, std, "train_sub.txt", times=args.times,
                           label_path=cfg.label_path, seed=cfg.seed)
-    print(f"dataset: {dataset.real_len()} clips x times={args.times}")
+    log(f"dataset: {dataset.real_len()} clips x times={args.times}")
 
-    trainer = Trainer(cfg, device, clip_config=clip_config, graph=graph)
+    # the student's layout: JAX's distillation step runs no pipeline
+    trainer = Trainer(dataclasses.replace(cfg, pp_micro=0), device, clip_config=clip_config,
+                      graph=graph)
+    layout = trainer.layout
     weights = eval_params(ckpt.load(pjoin(cfg.model_dir, f"{args.model_name}.pt")))
     with torch.device(device):  # initialized where they run, then loaded
         teacher, student = InteractionModel(teacher_cfg), InteractionModel(student_cfg)
@@ -120,6 +137,7 @@ def main(argv=None, clip_config: ClipTextConfig | None = None, graph: bool = Tru
     teacher.to(device).eval().requires_grad_(False)
     student.load_state_dict(weights, strict=True)
     student.to(device).train()
+    layout.place_model(student)  # TP: the student's blocks hold this rank's shards
     tower_feats = trainer.precompute_tower(teacher)
     token_cache: dict = {}
     it, written = 0, []
@@ -128,25 +146,29 @@ def main(argv=None, clip_config: ClipTextConfig | None = None, graph: bool = Tru
         prev_steps = cfg.ddim_steps if stage_idx == 0 else stages[stage_idx - 1]
         grids = pd.distill_grids(trainer.sched.num_timesteps, n_steps,
                                  teacher_steps=prev_steps)
-        state = TrainState(model=student, optimizer=make_optimizer(cfg, student))
+        state = trainer.place_state(TrainState(model=student,
+                                               optimizer=make_optimizer(cfg, student)))
         step = pd.make_distill_step(trainer.sched, grids, teacher, args.distill_w,
-                                    graph=graph)
-        print(f"=== stage {stage_idx}: teacher DDIM-{prev_steps} -> student DDIM-{n_steps} ===")
+                                    graph=graph, layout=layout)
+        log(f"=== stage {stage_idx}: teacher DDIM-{prev_steps} -> student DDIM-{n_steps} ===")
         stage_cfg = dataclasses.replace(cfg, name=f"{cfg.name}_distill{n_steps}",
                                         sampler="ddim", ddim_steps=n_steps)
         if args.distill_w != 1.0:
             # the student internalized w: its run samples unguided
             stage_cfg = dataclasses.replace(stage_cfg, guidance_scale=1.0)
-        os.makedirs(stage_cfg.model_dir, exist_ok=True)
-        os.makedirs(stage_cfg.meta_dir, exist_ok=True)
-        for stat in ("mean.npy", "std.npy"):
-            shutil.copyfile(pjoin(cfg.meta_dir, stat), pjoin(stage_cfg.meta_dir, stat))
-        save_opt_txt(stage_cfg, pjoin(stage_cfg.save_root, "opt.txt"))
+        if primary:
+            os.makedirs(stage_cfg.model_dir, exist_ok=True)
+            os.makedirs(stage_cfg.meta_dir, exist_ok=True)
+            for stat in ("mean.npy", "std.npy"):
+                shutil.copyfile(pjoin(cfg.meta_dir, stat), pjoin(stage_cfg.meta_dir, stat))
+            save_opt_txt(stage_cfg, pjoin(stage_cfg.save_root, "opt.txt"))
         metrics_path = pjoin(stage_cfg.save_root, "metrics.jsonl")
         start, logs = time.time(), {}
         for epoch in range(args.epochs_per_stage):
             for batch in epoch_batches(dataset, cfg.batch_size, epoch, seed=cfg.seed,
-                                       token_cache=token_cache):
+                                       token_cache=token_cache,
+                                       process_index=layout.batch_index,
+                                       process_count=layout.batch_count):
                 generator = step_generator(cfg.seed + 3, it, stage_idx, device)
                 graphs_before = len(step.graphs)
                 metrics = step(state, trainer._device_batch(batch, tower_feats), generator)
@@ -154,9 +176,9 @@ def main(argv=None, clip_config: ClipTextConfig | None = None, graph: bool = Tru
                 metrics = dict(zip(pd.DISTILL_METRICS, values))
                 if len(step.graphs) > graphs_before:
                     captured = list(step.graphs.values())[-1]
-                    print(f"distill step graph captured: {captured.capture_s:.2f}s after a "
-                          f"{captured.warmup_s:.2f}s eager first step, pool "
-                          f"{captured.pool_bytes / 1e9:.3f} GB")
+                    log(f"distill step graph captured: {captured.capture_s:.2f}s after a "
+                        f"{captured.warmup_s:.2f}s eager first step, pool "
+                        f"{captured.pool_bytes / 1e9:.3f} GB")
                 if not all(math.isfinite(v) for v in values):
                     raise FloatingPointError(f"non-finite distillation loss at stage {n_steps} "
                                              f"it {it}: {metrics}")
@@ -166,19 +188,21 @@ def main(argv=None, clip_config: ClipTextConfig | None = None, graph: bool = Tru
                 if it % cfg.log_every == 0:
                     mn = {k: v / cfg.log_every for k, v in logs.items()}
                     logs = {}
-                    print(f"stage {n_steps} epoch {epoch} it {it} "
-                          + " ".join(f"{k}: {v:.5f}" for k, v in mn.items())
-                          + f" ({time.time() - start:.0f}s)")
-                    with open(metrics_path, "a") as f:
-                        f.write(json.dumps({"stage": n_steps, "it": it, "epoch": epoch,
-                                            **mn}) + "\n")
-        ckpt.save_state(pjoin(stage_cfg.model_dir, "latest.pt"), state,
-                        args.epochs_per_stage, it)
-        print(f"stage {n_steps}: wrote {stage_cfg.save_root} (serve or evaluate with "
-              f"--opt_path {pjoin(stage_cfg.save_root, 'opt.txt')})")
+                    log(f"stage {n_steps} epoch {epoch} it {it} "
+                        + " ".join(f"{k}: {v:.5f}" for k, v in mn.items())
+                        + f" ({time.time() - start:.0f}s)")
+                    if primary:
+                        with open(metrics_path, "a") as f:
+                            f.write(json.dumps({"stage": n_steps, "it": it, "epoch": epoch,
+                                                **mn}) + "\n")
+        # the one-rank format, gathered from every rank, written by the primary
+        trainer.save(pjoin(stage_cfg.model_dir, "latest.pt"), state, args.epochs_per_stage, it)
+        log(f"stage {n_steps}: wrote {stage_cfg.save_root} (serve or evaluate with "
+            f"--opt_path {pjoin(stage_cfg.save_root, 'opt.txt')})")
         written.append(stage_cfg.save_root)
-        # the student becomes the next stage's teacher, copied in place
-        teacher.load_state_dict(student.state_dict(), strict=True)
+        # the student (its whole weights) becomes the next stage's teacher,
+        # copied in place
+        teacher.load_state_dict(layout.full_params(state), strict=True)
     return written
 
 

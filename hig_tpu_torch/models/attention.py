@@ -61,6 +61,15 @@ computes them outside any Pallas kernel. :func:`_attend` routes bare
 efficient attention through B3 (``fused_efficient_attention``), as the JAX
 ``_attend`` does under ``use_pallas``; no block calls it.
 
+:data:`LAZY_KNORM` (JAX's flag of the same name, ``False`` by default)
+normalizes the keys' time softmax after the time contraction, in JAX's
+order: exp(k − max), the state eᵀv divided by Σ e. It acts where JAX's
+``efficient_attention`` stands: :func:`_attend` and the einsum route
+(B3, B3-bf16 and their twins), read here when a block runs and passed
+down to the op as ``lazy``. JAX's Pallas kernels ignore it, and so do B1's
+and B2's forms. The trainer's and the sampler's CUDA graphs are keyed on
+it.
+
 In bfloat16 (``dtype``) every block computes in the dtype and rounds where
 the flax block rounds (``embeddings.py``); the self-attention and
 interaction blocks hand bfloat16 tensors to B1, B2 or B3, the quadratic ones
@@ -122,6 +131,7 @@ from hig_tpu_torch.ops.pallas_attention import (
     efficient_attention,
     fused_efficient_attention,
     fused_projected_attention,
+    lazy_kw,
     merged_qkv,
     needs_grad,
     recompute_grads,
@@ -144,9 +154,16 @@ __all__ = [
 ]
 
 
+# JAX's layout experiment (hig_tpu/models/attention.py:114-120): the keys'
+# time softmax normalized after the time contraction (the module doc).
+LAZY_KNORM = False
+
+
 def _attend(query, key, value, num_heads: int, key_mask=None):
-    """Bare efficient attention through kernel B3."""
-    return fused_efficient_attention(query, key, value, num_heads, key_mask)
+    """Bare efficient attention through kernel B3 (:data:`LAZY_KNORM`'s
+    order when set)."""
+    return fused_efficient_attention(query, key, value, num_heads, key_mask,
+                                     **lazy_kw(LAZY_KNORM))
 
 
 XLA_SCAN_BLOCK = 16  # the block of XLA:CPU's rewrite of a long cumulative sum
@@ -332,7 +349,7 @@ class _KernelBlock(nn.Module):
         and the key mask flipped on the actor axis for the interaction
         block, then the causal core or, in bfloat16 training, the core
         through B3-bf16 (contiguous copies, as the kernel reads (..., T, D)
-        rows at stride D)."""
+        rows at stride D; its lazy form under :data:`LAZY_KNORM`)."""
         q, k, v = merged_qkv(xn, *weights)
         if self.interaction:
             k, v, mask = k.flip(-3), v.flip(-3), mask.flip(-2)
@@ -341,7 +358,7 @@ class _KernelBlock(nn.Module):
         if self.causal:
             return causal_efficient_attention(q, k, v, heads, key_mask=mask)
         return fused_efficient_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                         heads, key_mask=mask)
+                                         heads, key_mask=mask, **lazy_kw(LAZY_KNORM))
 
 
 class EfficientSelfAttention(_KernelBlock):

@@ -93,6 +93,17 @@ window of 196) and equals the whole form bit for bit where both run
 planted controls. The twin is also JAX's ``efficient_attention`` on
 bfloat16 inputs (its einsum route), so B3-bf16 is the core of a bfloat16
 model's efficient blocks in train mode (``models/attention.py``).
+
+Lazy forms (``lazy``: JAX's ``LAZY_KNORM``, passed down by the model). JAX
+then normalizes the keys after the time contraction: exp(k − max), the
+state eᵀv, z = Σ e (``jnp.sum`` upcasts bfloat16: a float32 sum rounded),
+the state divided by z. The float32 kernel already divides its state
+after the contraction and serves both orders; B3-bf16's two kernels take a
+``LAZY`` template flag (``hig_efficient_attention_bf16[_stream]_lazy``,
+counted in ``launches_bf16_lazy``) that keeps the rounded exponentials and
+divides the rounded state by its row's z at the store, rounding again. The
+lazy twin (:data:`B3_LAZY_ROUNDINGS`) and the lazy bfloat16 backward are
+JAX's lazy chain and its VJP.
 """
 
 from __future__ import annotations
@@ -102,6 +113,7 @@ import torch.nn.functional as F
 
 from hig_tpu_torch.models.embeddings import constant, linear, round_bf16, softmax_vjp
 from hig_tpu_torch.ops import _build
+from hig_tpu_torch.ops.bf16_sum import bf16_sum
 from hig_tpu_torch.utils.graphs import counted
 
 HEAD_DIM = 64  # the only head width the CUDA core takes
@@ -120,30 +132,47 @@ CORE_ROUNDINGS = ("kh", "v", "att", "qh")
 # B3-bf16's rounding points past the mask: each softmax's subtraction, exp,
 # sum and division ("qh", "kh"), and the state.
 B3_ROUNDINGS = ("q_sub", "q_exp", "q_sum", "qh", "k_sub", "k_exp", "k_sum", "kh", "att")
+# Its lazy forms' (``lazy``, JAX's LAZY_KNORM): the keys' subtraction, exp and
+# sum without the division, the state of the exponentials ("att") and the
+# state divided by the sum ("att_z").
+B3_LAZY_ROUNDINGS = ("q_sub", "q_exp", "q_sum", "qh", "k_sub", "k_exp", "k_sum", "att",
+                     "att_z")
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     return x.reshape(*x.shape[:-1], num_heads, x.shape[-1] // num_heads)
 
 
-def efficient_attention(query, key, value, num_heads: int, key_mask=None, rounded=()):
+def efficient_attention(query, key, value, num_heads: int, key_mask=None, rounded=(),
+                        lazy: bool = False):
     """Shared plain core of the linear-attention family.
 
     query (..., T, D), key/value (..., N, D); key_mask (..., N) 0/1.
     softmax(Q over features) · [softmax(K over time)ᵀ V]. ``rounded``
     names roundings to bfloat16 (:data:`CORE_ROUNDINGS`) taken on float32
-    operands, as B1-bf16's Pallas kernel takes them.
+    operands, as B1-bf16's Pallas kernel takes them. ``lazy`` (JAX's
+    ``LAZY_KNORM``) normalizes after the time contraction, in JAX's order:
+    m = the time max (no gradient), e = exp(k − m), the state eᵀv divided
+    by z = Σ e.
     """
     def r(name, t):
         return round_bf16(t) if name in rounded else t
 
+    if lazy and rounded:
+        raise ValueError("the lazy core takes no B1-bf16 roundings")
     D = query.shape[-1]
     q = split_heads(query, num_heads)
     if key_mask is not None:
         key = key + (1.0 - key_mask[..., None]) * MASK_BIAS
         value = value * key_mask[..., None]
-    k = split_heads(key, num_heads).softmax(dim=-3)  # over the time axis
     v = split_heads(value, num_heads)
+    if lazy:
+        k = split_heads(key, num_heads)
+        e = torch.exp(k - k.amax(dim=-3, keepdim=True).detach())
+        attention = torch.einsum("...nhd,...nhl->...hdl", e, v) / e.sum(dim=-3)[..., None]
+        y = torch.einsum("...nhd,...hdl->...nhl", q.softmax(dim=-1), attention)
+        return y.reshape(*y.shape[:-2], D)
+    k = split_heads(key, num_heads).softmax(dim=-3)  # over the time axis
     q = q.softmax(dim=-1)
     attention = torch.einsum("...nhd,...nhl->...hdl", r("kh", k), r("v", v))
     y = torch.einsum("...nhd,...hdl->...nhl", r("qh", q), r("att", attention))
@@ -401,27 +430,38 @@ counted(fused_projected_attention, "launches", "launches_bf16", "launches_mixed"
 
 
 def fused_efficient_attention_plain(query, key, value, num_heads: int, key_mask=None,
-                                    unrounded=()):
+                                    unrounded=(), lazy: bool = False):
     """Plain PyTorch version of B3: :func:`efficient_attention`. On bfloat16
     q, k and v, the twin of B3-bf16: float32 values rounded to bfloat16
     where XLA rounds the Pallas kernel's bfloat16 ops (the module doc), but
     at the points of :data:`B3_ROUNDINGS` named in ``unrounded``; output
     bfloat16. Under autograd the twin's gradient is B3-bf16's backward
     (:func:`efficient_attention_bf16_backward`); a twin with roundings left
-    out (a planted control) is differentiated by autograd."""
+    out (a planted control) is differentiated by autograd. ``lazy`` (JAX's
+    ``LAZY_KNORM``) takes the lazy core: in bfloat16 rounded where XLA
+    rounds JAX's lazy chain (:data:`B3_LAZY_ROUNDINGS`)."""
     if query.dtype != torch.bfloat16:
         if unrounded:
             raise ValueError("only the bfloat16 twin has roundings to leave out")
-        return efficient_attention(query, key, value, num_heads, key_mask)
-    unknown = set(unrounded) - set(B3_ROUNDINGS)
+        return efficient_attention(query, key, value, num_heads, key_mask, lazy=lazy)
+    known = B3_LAZY_ROUNDINGS if lazy else B3_ROUNDINGS
+    unknown = set(unrounded) - set(known)
     if unknown:
-        raise ValueError(f"B3-bf16 has no rounding {sorted(unknown)}; it has {B3_ROUNDINGS}")
+        raise ValueError(f"B3-bf16 has no rounding {sorted(unknown)}; it has {known}")
     if unrounded or not needs_grad(query, key, value):
-        return _b3_bf16_twin(query, key, value, num_heads, key_mask, unrounded)
+        return _b3_bf16_twin(query, key, value, num_heads, key_mask, unrounded, lazy)
     return HandBackward.apply(
-        lambda q, k, v: _b3_bf16_twin(q, k, v, num_heads, key_mask),
-        lambda q, k, v, g: efficient_attention_bf16_backward(q, k, v, key_mask, g, num_heads),
+        lambda q, k, v: _b3_bf16_twin(q, k, v, num_heads, key_mask, lazy=lazy),
+        lambda q, k, v, g: efficient_attention_bf16_backward(q, k, v, key_mask, g, num_heads,
+                                                             **lazy_kw(lazy)),
         query, key, value)
+
+
+def lazy_kw(lazy: bool) -> dict:
+    """The ``lazy`` keyword of B3's functions, given only when set: the
+    eager call keeps the plain signature (a substitute core or backward
+    without the keyword still fits it)."""
+    return {"lazy": True} if lazy else {}
 
 
 def needs_grad(*tensors) -> bool:
@@ -444,16 +484,21 @@ class HandBackward(torch.autograd.Function):
         return (None, None, *ctx.hand_backward(*ctx.saved_tensors, grad_out))
 
 
-def _b3_bf16_twin(query, key, value, num_heads: int, key_mask=None, unrounded=()):
-    _, _, qh, _, _, _, _, att = _b3_bf16_parts(query, key, value, num_heads, key_mask, unrounded)
-    y = torch.einsum("...nhd,...hdl->...nhl", qh, att)
+def _b3_bf16_twin(query, key, value, num_heads: int, key_mask=None, unrounded=(),
+                  lazy: bool = False):
+    p = _b3_bf16_parts(query, key, value, num_heads, key_mask, unrounded, lazy)
+    y = torch.einsum("...nhd,...hdl->...nhl", p["qh"], p["att"])
     return y.reshape(*y.shape[:-2], query.shape[-1]).to(torch.bfloat16)
 
 
-def _b3_bf16_parts(query, key, value, num_heads: int, key_mask=None, unrounded=()):
+def _b3_bf16_parts(query, key, value, num_heads: int, key_mask=None, unrounded=(),
+                   lazy: bool = False) -> dict:
     """The twin's values before y, float32 holding bfloat16 values: each
     softmax's exp e, sum z and quotient (eq, zq, qh over the features; ek,
-    zk, kh over time), the masked value vh (heads split) and the state."""
+    zk, kh over time), the masked value vh (heads split) and the state att.
+    ``lazy``: ek and zk without the quotient, the state of the exponentials
+    (``state``, rounded) and att = state / zk (rounded), zk a float32 sum
+    rounded (``jnp.sum`` upcasts bfloat16), kept over time."""
     def r(name, t):
         return t if name in unrounded else round_bf16(t)
 
@@ -468,13 +513,21 @@ def _b3_bf16_parts(query, key, value, num_heads: int, key_mask=None, unrounded=(
         k = round_bf16(k + (1.0 - m) * round_bf16(constant(MASK_BIAS, torch.float32, k.device)))
         v = v * m
     eq, zq, qh = softmax(split_heads(query.float(), num_heads), -1, "q")
-    ek, zk, kh = softmax(split_heads(k, num_heads), -3, "k")  # over the time axis
     vh = split_heads(v, num_heads)
+    kk = split_heads(k, num_heads)
+    if lazy:
+        ek = r("k_exp", torch.exp(r("k_sub", kk - kk.amax(-3, keepdim=True))))
+        zk = r("k_sum", ek.sum(-3, keepdim=True))
+        state = r("att", torch.einsum("...nhd,...nhl->...hdl", ek, vh))
+        att = r("att_z", state / zk.squeeze(-3)[..., None])
+        return dict(eq=eq, zq=zq, qh=qh, ek=ek, zk=zk, vh=vh, state=state, att=att)
+    ek, zk, kh = softmax(kk, -3, "k")  # over the time axis
     att = r("att", torch.einsum("...nhd,...nhl->...hdl", kh, vh))
-    return eq, zq, qh, ek, zk, kh, vh, att
+    return dict(eq=eq, zq=zq, qh=qh, ek=ek, zk=zk, kh=kh, vh=vh, att=att)
 
 
-def efficient_attention_bf16_backward(query, key, value, key_mask, grad_out, num_heads: int):
+def efficient_attention_bf16_backward(query, key, value, key_mask, grad_out, num_heads: int,
+                                      lazy: bool = False):
     """B3-bf16's backward: the gradients of query, key and value (bfloat16)
     as XLA differentiates JAX's ``efficient_attention`` (and the Pallas
     kernel's ``_fused_bwd`` reference) on bfloat16 operands: the forward
@@ -485,35 +538,57 @@ def efficient_attention_bf16_backward(query, key, value, key_mask, grad_out, num
     division, no gradient through the max); the mask bias passes dk through
     and the mask multiplies dv. Torch's autograd through the twin would
     round elsewhere, and the float32 VJP rounded once sits as far from this
-    as bfloat16 from float32."""
+    as bfloat16 from float32.
+
+    ``lazy``: XLA's VJP of JAX's lazy chain. The division of the state by
+    z transposes into d_state = d_att / z and, for z, −Σ_l (d_att · z⁻²) ·
+    state, z⁻² = 1 / (z · z), each op rounded and the sum over l the
+    ordered bfloat16 sum (the transpose of z's broadcast); z's float32 sum
+    passes its gradient to every exponential; the exponentials' gradient
+    (the state's share plus z's, a rounded add) times e is dk, with no
+    gradient through the max."""
     r = round_bf16
-    eq, zq, qh, ek, zk, kh, vh, att = _b3_bf16_parts(query, key, value, num_heads, key_mask)
+    p = _b3_bf16_parts(query, key, value, num_heads, key_mask, lazy=lazy)
+    qh, att, vh = p["qh"], p["att"], p["vh"]
     g = split_heads(grad_out.float(), num_heads)
     d_qh = r(torch.einsum("...nhl,...hdl->...nhd", g, att))
     d_att = r(torch.einsum("...nhd,...nhl->...hdl", qh, g))
-    dv = r(torch.einsum("...hdl,...nhd->...nhl", d_att, kh))
-    d_kh = r(torch.einsum("...hdl,...nhl->...nhd", d_att, vh))
-    dq = softmax_vjp(d_qh, eq, zq, -1).reshape(query.shape)
-    dk = softmax_vjp(d_kh, ek, zk, -3).reshape(key.shape)
+    dq = softmax_vjp(d_qh, p["eq"], p["zq"], -1).reshape(query.shape)
+    if lazy:
+        ek, z = p["ek"], p["zk"].squeeze(-3)[..., None]  # (..., h, d, 1)
+        d_state = r(d_att / z)
+        inv_z2 = r(1.0 / r(z * z))
+        dz = -bf16_sum(r(r(d_att * inv_z2) * p["state"]), -1).squeeze(-1)  # (..., h, d)
+        dv = r(torch.einsum("...hdl,...nhd->...nhl", d_state, ek))
+        de = r(r(torch.einsum("...hdl,...nhl->...nhd", d_state, vh)) + dz[..., None, :, :])
+        dk = r(de * ek).reshape(key.shape)
+    else:
+        dv = r(torch.einsum("...hdl,...nhd->...nhl", d_att, p["kh"]))
+        d_kh = r(torch.einsum("...hdl,...nhl->...nhd", d_att, vh))
+        dk = softmax_vjp(d_kh, p["ek"], p["zk"], -3).reshape(key.shape)
     dv = dv.reshape(value.shape)
     if key_mask is not None:
         dv = dv * round_bf16(key_mask.float())[..., None]
     return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
 
 
-def efficient_attention_backward(saved, grad_out, num_heads: int, needs=(True,) * 3):
+def efficient_attention_backward(saved, grad_out, num_heads: int, needs=(True,) * 3,
+                                 lazy: bool = False):
     """B3's backward (``_fused_bwd``): ``saved`` is (query, key, value,
     key_mask); returns the gradients of the first three (None where
     ``needs`` is False). Like JAX's, it differentiates the plain core, not
     the kernel's roundings: in float32 by autograd, and for B3-bf16 in
-    bfloat16 op by op (:func:`efficient_attention_bf16_backward`)."""
+    bfloat16 op by op (:func:`efficient_attention_bf16_backward`); ``lazy``
+    the lazy core's."""
     *operands, mask = saved
     if operands[0].dtype == torch.bfloat16:
-        grads = efficient_attention_bf16_backward(*operands, mask, grad_out, num_heads)
+        grads = efficient_attention_bf16_backward(*operands, mask, grad_out, num_heads,
+                                                  **lazy_kw(lazy))
         return tuple(g if n else None for g, n in zip(grads, needs))
 
     def plain(q, k, v):
-        return efficient_attention(q.float(), k.float(), v.float(), num_heads, mask).to(q.dtype)
+        return efficient_attention(q.float(), k.float(), v.float(), num_heads, mask,
+                                   lazy=lazy).to(q.dtype)
 
     return recompute_grads(plain, operands, needs, grad_out)
 
@@ -524,33 +599,45 @@ def b3_bf16_form(Tq: int, Tk: int) -> str:
     return "whole" if max(Tq, Tk) <= BF16_MAX_T else "stream"
 
 
-def _launch_efficient(query, key, value, mask, form=None):
+def _launch_efficient(query, key, value, mask, form=None, lazy: bool = False):
     (Tq, D), Tk = query.shape[-2:], key.shape[-2]
     N = query.numel() // (Tq * D)
     out = torch.empty_like(query)
-    entry = None
+    entry = None  # the float32 core divides the state after the contraction either way
     if query.dtype == torch.bfloat16:
         form = form or b3_bf16_form(Tq, Tk)
         if form not in B3_FORMS or (form == "whole" and max(Tq, Tk) > BF16_MAX_T):
             raise ValueError(f"B3-bf16 has no form {form!r} at Tq={Tq}, Tk={Tk}")
-        entry = "efficient_attention_bf16" + ("_stream" if form == "stream" else "")
+        entry = ("efficient_attention_bf16" + ("_stream" if form == "stream" else "")
+                 + ("_lazy" if lazy else ""))
     _build.launch("efficient_attention", (query, key, value, mask, out), (N, Tq, Tk, D),
                   torch.cuda.current_stream(query.device).cuda_stream, entry=entry)
     return out
 
 
-def efficient_attention_bf16_form(query, key, value, num_heads: int, key_mask, form: str):
-    """One launch of B3-bf16's ``form`` ("whole" or "stream") on CUDA
-    bfloat16 operands, without autograd, counted in ``launches_bf16``: the
-    two forms side by side where both run."""
+def _count_efficient(dt: torch.dtype, lazy: bool) -> None:
+    if dt != torch.bfloat16:
+        fused_efficient_attention.launches += 1
+    elif lazy:
+        fused_efficient_attention.launches_bf16_lazy += 1
+    else:
+        fused_efficient_attention.launches_bf16 += 1
+
+
+def efficient_attention_bf16_form(query, key, value, num_heads: int, key_mask, form: str,
+                                  lazy: bool = False):
+    """One launch of B3-bf16's ``form`` ("whole" or "stream"; ``lazy`` its
+    lazy form) on CUDA bfloat16 operands, without autograd, counted as
+    :func:`fused_efficient_attention` counts it: the two forms side by side
+    where both run."""
     lead, (Tq, D), Tk = query.shape[:-2], query.shape[-2:], key.shape[-2]
     check_cuda_width(D, num_heads)
     check_cuda_operand("query", query, dtype=torch.bfloat16)
     for name, t in (("key", key), ("value", value)):
         check_cuda_operand(name, t, (*lead, Tk, D), dtype=torch.bfloat16)
     mask = key_mask.to(torch.float32).expand(*lead, Tk).contiguous()
-    out = _launch_efficient(query, key, value, mask, form)
-    fused_efficient_attention.launches_bf16 += 1
+    out = _launch_efficient(query, key, value, mask, form, lazy)
+    _count_efficient(torch.bfloat16, lazy)
     return out
 
 
@@ -559,19 +646,20 @@ class EfficientAttention(torch.autograd.Function):
     inputs, the backward is :func:`efficient_attention_backward`."""
 
     @staticmethod
-    def forward(ctx, query, key, value, mask, num_heads):
+    def forward(ctx, query, key, value, mask, num_heads, lazy=False):
         ctx.save_for_backward(query, key, value, mask)
-        ctx.num_heads = num_heads
-        return _launch_efficient(query, key, value, mask)
+        ctx.num_heads, ctx.lazy = num_heads, lazy
+        return _launch_efficient(query, key, value, mask, **lazy_kw(lazy))
 
     @staticmethod
     def backward(ctx, grad_out):
         grads = efficient_attention_backward(ctx.saved_tensors, grad_out, ctx.num_heads,
-                                             ctx.needs_input_grad[:3])
-        return (*grads, None, None)
+                                             ctx.needs_input_grad[:3], **lazy_kw(ctx.lazy))
+        return (*grads, None, None, None)
 
 
-def fused_efficient_attention(query, key, value, num_heads: int, key_mask=None):
+def fused_efficient_attention(query, key, value, num_heads: int, key_mask=None,
+                              lazy: bool = False):
     """Efficient attention through kernel B3.
 
     query (..., Tq, D); key/value (..., Tk, D); key_mask broadcastable to
@@ -580,13 +668,17 @@ def fused_efficient_attention(query, key, value, num_heads: int, key_mask=None):
     kernel, under autograd through :class:`EfficientAttention`: the float32
     form, or for bfloat16 q, k and v the bfloat16 form (``launches_bf16``;
     :func:`b3_bf16_form` picks whole or streaming, at any Tq and Tk). Other
-    dtypes, and q, k, v of mixed dtypes, raise.
+    dtypes, and q, k, v of mixed dtypes, raise. ``lazy`` (JAX's
+    ``LAZY_KNORM``, passed down by the model) is the lazy core: the float32
+    kernel as it is (it divides the state after the contraction), held
+    against the lazy twin, and B3-bf16's lazy forms (``launches_bf16_lazy``).
     """
     dt, dts = query.dtype, (query.dtype, key.dtype, value.dtype)
     if torch.bfloat16 in dts and dts != (dt,) * 3:
         raise ValueError(f"the bfloat16 form of B3 takes q, k and v all bfloat16, got {dts}")
     if query.device.type == "cpu":
-        return fused_efficient_attention_plain(query, key, value, num_heads, key_mask)
+        return fused_efficient_attention_plain(query, key, value, num_heads, key_mask,
+                                               lazy=lazy)
     if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"the efficient-attention kernel takes float32 or bfloat16, got {dt}")
     lead, (Tq, D), Tk = query.shape[:-2], query.shape[-2:], key.shape[-2]
@@ -599,12 +691,9 @@ def fused_efficient_attention(query, key, value, num_heads: int, key_mask=None):
     else:
         mask = key_mask.to(torch.float32).expand(*lead, Tk).contiguous()
     check_cuda_operand("key_mask", mask)
-    out = EfficientAttention.apply(query, key, value, mask, num_heads)
-    if dt == torch.bfloat16:
-        fused_efficient_attention.launches_bf16 += 1
-    else:
-        fused_efficient_attention.launches += 1
+    out = EfficientAttention.apply(query, key, value, mask, num_heads, lazy)
+    _count_efficient(dt, lazy)
     return out
 
 
-counted(fused_efficient_attention, "launches", "launches_bf16")
+counted(fused_efficient_attention, "launches", "launches_bf16", "launches_bf16_lazy")

@@ -132,12 +132,14 @@ def is_primary() -> bool:
 def require_one_process(entry: str) -> None:
     """Raise when ``entry`` is started as one of several ranks (a process
     group of more than one, or ``HIG_NUM_PROCESSES`` > 1): it runs on one
-    rank only, and must not run silently on each."""
+    device, as its JAX counterpart does (``tools/label_data.py`` and
+    ``tools/evaluation.py`` build no mesh), and must not run silently on
+    each rank."""
     count = process_count() if dist.is_available() and dist.is_initialized() else \
         int(os.environ.get("HIG_NUM_PROCESSES", 1))
     if count > 1:
-        raise RuntimeError(f"{entry} runs on one rank; its multi-rank form is not ported "
-                           f"(ROADMAP, Queue A): start it as one process, not {count}")
+        raise RuntimeError(f"{entry} runs on one device, as JAX's runs: start it as one "
+                           f"process, not {count}")
 
 
 def barrier() -> None:

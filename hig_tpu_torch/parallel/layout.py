@@ -37,7 +37,15 @@ squared sums all-reduced over the model axis, the whole ones counted once.
 Checkpoints are the one-rank format: :meth:`TrainLayout.full_payload`
 gathers the shards (every rank takes part, the primary writes), and
 :meth:`TrainLayout.local_payload` cuts a full checkpoint back into this
-rank's shards on restore.
+rank's shards on restore. Whole weights from elsewhere (``--pretrained``'s
+converted checkpoint) take the same cut: :meth:`TrainLayout.model_local`
+into the model, then :meth:`TrainLayout.restore_shards`.
+:meth:`TrainLayout.full_params` gathers the model's whole weights (a
+distillation stage's student, handed to the next stage as its teacher).
+
+:meth:`TrainLayout.data_parallel` is the layout of an entry point whose
+JAX counterpart replicates its state whatever the config asks
+(``tools/train_single.py``): DP over the mesh.
 """
 
 from __future__ import annotations
@@ -58,7 +66,7 @@ class TrainLayout:
         self.cfg, self.mesh, self.model_cfg = cfg, mesh, model_cfg
         S = mesh.shape[pmesh.MODEL_AXIS]
         self.mode = "dp"
-        if S > 1:
+        if S > 1 and cfg is not None:
             self.mode = "fsdp" if cfg.fsdp else "tp" if cfg.tp else \
                 "pp" if cfg.pp_micro > 0 else "dp"
         # the ranks that split the batch: every rank under FSDP, else the
@@ -72,6 +80,13 @@ class TrainLayout:
     def one_rank(cls) -> "TrainLayout":
         """The layout of a one-process run: every collective the identity."""
         return cls(None, pmesh.make_mesh(world=1, rank=0), None)
+
+    @classmethod
+    def data_parallel(cls, mesh: pmesh.Mesh) -> "TrainLayout":
+        """Every rank holds the whole state and the data axis splits the
+        batch (the ranks of a data row see the same rows): JAX's replicated
+        placement (``pmesh.replicated``) on ``mesh``."""
+        return cls(None, mesh, None)
 
     @property
     def ranks(self) -> int:
@@ -212,6 +227,22 @@ class TrainLayout:
         group = self.mesh.model_group
         return pmesh.shard(t, dim, group.index(), group.size)
 
+    def model_local(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole parameter ``name`` = ``t`` as this rank's model holds
+        it: its shard under TP, else whole (FSDP's model holds the whole
+        weights, its optimizer the shards: :meth:`restore_shards` after)."""
+        return self._local(name, t) if self.mode == "tp" else t
+
+    def full_params(self, state) -> dict:
+        """The model's whole parameters, in the one-rank layout (every rank
+        calls it): FSDP's model refreshed from the shards, TP's shards
+        gathered."""
+        self.gather_params(state)
+        params = state.model.state_dict()
+        if self.mode != "tp":
+            return params
+        return {k: self._full(k, v) for k, v in params.items()}
+
     def full_payload(self, payload: dict) -> dict:
         """A checkpoint payload of this rank's tensors, gathered into the
         one-rank format (every rank calls it)."""
@@ -244,8 +275,8 @@ class TrainLayout:
         return {**opt_state, "state": state}
 
     def restore_shards(self, state) -> None:
-        """FSDP after a restore into the model's whole parameters: the
-        shards cut from them."""
+        """FSDP after a restore (or a load) into the model's whole
+        parameters: the shards cut from them."""
         named = dict(state.model.named_parameters())
         group = self.mesh.model_group
         with torch.no_grad():

@@ -78,14 +78,18 @@ DEFAULT_PRETRAINED = "checkpoints/t2m/t2m_motiondiffuse/model/latest.tar"
 def load_pretrained(trainer: Trainer, state, path: str) -> None:
     """--pretrained (``tools/train.py:69-86``): the reference checkpoint's
     subtree (``only_language`` / ``only_motion``) into the model's
-    parameters in place."""
+    parameters in place. Every rank converts the whole checkpoint and takes
+    its cut, as a restore does (``TrainLayout.model_local``: TP's shards;
+    FSDP's optimizer shards recut after). Adam's moments and the EMA keep
+    their seeded values, as JAX replaces only ``params``."""
     cfg = trainer.cfg
     converted = torch_port.convert_interaction_model(
         torch_port.load_torch_state_dict(path), num_layers=cfg.num_layers,
         num_text_layers=cfg.num_text_layers, clip_layers=trainer.model_config.clip.layers,
         interaction=not cfg.no_cross_attn, cap_id=cfg.cap_id,
         only_language=cfg.only_language, only_motion=cfg.only_motion)
-    torch_port.load_into(state.model, converted)
+    torch_port.load_into(state.model, converted, trainer.layout.model_local)
+    trainer.layout.restore_shards(state)
 
 
 def main(argv=None, graph: bool = True):
@@ -108,9 +112,6 @@ def main(argv=None, graph: bool = True):
     device = resolve_device(args.device)
     if cfg.distributed:
         device = dist.initialize(device=device)
-    if cfg.pretrained and (cfg.fsdp or cfg.tp) and dist.process_count() > 1:
-        parser.error("--pretrained loads whole weights; with --fsdp or --tp over several "
-                     "ranks it is not ported yet (ROADMAP Queue A)")
 
     if dist.is_primary():
         save_opt_txt(cfg, pjoin(cfg.save_root, "opt.txt"))
@@ -123,7 +124,8 @@ def main(argv=None, graph: bool = True):
     state = trainer.init_state()
     if cfg.pretrained:
         load_pretrained(trainer, state, args.pretrained_path)
-        print(f"loaded pretrained weights from {args.pretrained_path}")
+        if dist.is_primary():
+            print(f"loaded pretrained weights from {args.pretrained_path}")
     start_epoch = 0
     if cfg.is_continue:
         state, start_epoch, it = trainer.restore(pjoin(cfg.model_dir, "latest.pt"), state)

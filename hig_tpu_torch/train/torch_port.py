@@ -14,7 +14,9 @@ through the bridge of ``hig_tpu_torch/weights.py`` (flax layout → torch
 layout), leaving every parameter outside it at its value.
 
 The converters take a plain {name: np.ndarray} mapping
-(:func:`load_torch_state_dict`).
+(:func:`load_torch_state_dict`). :func:`reference_state_dict` makes a
+seeded stand-in of the reference's checkpoint with its key names, for runs
+and tests without the asset.
 """
 
 from __future__ import annotations
@@ -245,12 +247,16 @@ def merge_params(initialized: dict, converted: dict) -> dict:
     return out
 
 
-def load_into(model: nn.Module, converted: dict) -> list[str]:
+def load_into(model: nn.Module, converted: dict, local=None) -> list[str]:
     """Copy a converted flax subtree (:func:`convert_interaction_model`'s)
     into ``model``'s parameters in place, through the bridge; returns the
-    parameter names it set. A leaf that lands on no parameter, or on one of
-    another shape, raises before anything is copied."""
+    parameter names it set. ``local(name, whole)`` cuts each whole tensor to
+    what a rank's model holds (``TrainLayout.model_local``: a TP shard). A
+    leaf that lands on no parameter, or on one of another shape, raises
+    before anything is copied."""
     state = torch_state_from_flax(converted)
+    if local is not None:
+        state = {k: local(k, v) for k, v in state.items()}
     own = dict(model.named_parameters())
     unused = sorted(set(state) - set(own))
     if unused:
@@ -263,3 +269,88 @@ def load_into(model: nn.Module, converted: dict) -> list[str]:
         for k, v in state.items():
             own[k].copy_(v)
     return sorted(state)
+
+
+def reference_state_dict(cfg, seed: int = 0) -> dict:
+    """A seeded state dict with the reference's key names (the
+    MotionInteractionTransformer ``encoder`` entry of its latest.tar) at the
+    widths of ``cfg``, a ``ModelConfig`` of the efficient model: CLIP at
+    ``cfg.clip``'s widths, or the caption embedding of a ``cap_id`` model;
+    Linear weights (out, in)."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def arr(*shape, scale=0.05):
+        return (scale * rng.standard_normal(shape, dtype=np.float32)).astype(np.float32)
+
+    def lin(name, i, o):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = arr(o, i, scale=i ** -0.5), arr(o)
+
+    def ln(name, d):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = 1 + arr(d), arr(d)
+
+    def encoder_layer(prefix, d, ff, attn="self_attn", names=("linear1", "linear2")):
+        sd[f"{prefix}.{attn}.in_proj_weight"] = arr(3 * d, d, scale=d ** -0.5)
+        sd[f"{prefix}.{attn}.in_proj_bias"] = arr(3 * d)
+        lin(f"{prefix}.{attn}.out_proj", d, d)
+        lin(f"{prefix}.{names[0]}", d, ff)
+        lin(f"{prefix}.{names[1]}", ff, d)
+
+    clip, D, Dt, E = cfg.clip, cfg.latent_dim, cfg.text_latent_dim, cfg.time_embed_dim
+    if cfg.cap_id:
+        sd["cap_embedding"] = arr(cfg.num_captions, Dt, scale=1.0)
+    else:
+        W = clip.width
+        sd["clip.token_embedding.weight"] = arr(clip.vocab_size, W, scale=0.02)
+        sd["clip.positional_embedding"] = arr(clip.context_length, W, scale=0.01)
+        ln("clip.ln_final", W)
+        for i in range(clip.layers):
+            rb = f"clip.transformer.resblocks.{i}"
+            encoder_layer(rb, W, 4 * W, attn="attn", names=("mlp.c_fc", "mlp.c_proj"))
+            ln(f"{rb}.ln_1", W)
+            ln(f"{rb}.ln_2", W)
+        lin("text_pre_proj", W, Dt)
+        for i in range(cfg.num_text_layers):
+            t = f"textTransEncoder.layers.{i}"
+            encoder_layer(t, Dt, cfg.text_ff_size)
+            ln(f"{t}.norm1", Dt)
+            ln(f"{t}.norm2", Dt)
+        ln("text_ln", Dt)
+    lin("text_proj.0", Dt, E)
+    sd["sequence_embedding"] = arr(cfg.num_frames, D, scale=1.0)
+    lin("joint_embed", cfg.input_feats, D)
+    lin("joint_embed2", 4, D)
+    lin("time_embed.0", D, E)
+    lin("time_embed.2", E, E)
+    lin("out", D, cfg.input_feats)
+    lin("out2", D, cfg.input_feats)
+
+    def block(prefix, kv, text_norm=False):
+        ln(f"{prefix}.norm", D)
+        if text_norm:
+            ln(f"{prefix}.text_norm", kv)
+        lin(f"{prefix}.query", D, D)
+        lin(f"{prefix}.key", kv, D)
+        lin(f"{prefix}.value", kv, D)
+        lin(f"{prefix}.proj_out.emb_layers.1", E, 2 * D)
+        ln(f"{prefix}.proj_out.norm", D)
+        lin(f"{prefix}.proj_out.out_layers.2", D, D)
+
+    for i in range(cfg.num_layers):
+        blk = f"temporal_decoder_blocks.{i}"
+        block(f"{blk}.sa_block", D)
+        block(f"{blk}.ca_block", Dt, text_norm=True)
+        if cfg.interaction:
+            block(f"{blk}.int_ca_block", D)
+        lin(f"{blk}.ffn.linear1", D, cfg.ff_size)
+        lin(f"{blk}.ffn.linear2", cfg.ff_size, D)
+        lin(f"{blk}.ffn.proj_out.emb_layers.1", E, 2 * D)
+        ln(f"{blk}.ffn.proj_out.norm", D)
+        lin(f"{blk}.ffn.proj_out.out_layers.2", D, D)
+    return sd
+
+
+def save_reference_checkpoint(sd: dict, path: str) -> None:
+    """``sd`` as the reference saves it: {"encoder": state dict} in a torch
+    file (its latest.tar), which :func:`load_torch_state_dict` reads."""
+    torch.save({"encoder": {k: torch.from_numpy(v) for k, v in sd.items()}}, path)

@@ -76,6 +76,7 @@ from hig_tpu_torch.data.vocab import CAPS
 from hig_tpu_torch.diffusion import gaussian as g
 from hig_tpu_torch.diffusion import timestep_samplers as tss
 from hig_tpu_torch.diffusion.solvers import dpmpp_2m_sample_loop
+from hig_tpu_torch.models import attention
 from hig_tpu_torch.models.denoiser import BLOCKS, actor_mean
 from hig_tpu_torch.models.embeddings import length_mask
 from hig_tpu_torch.models.interaction_model import InteractionModel
@@ -481,10 +482,18 @@ def global_draws(B: int, like: torch.Tensor, sched, generator, loss_aware: bool,
     return t, noise, keep
 
 
+def graph_key(*parts) -> tuple:
+    """A CUDA graph's cache key: ``parts`` (the call's shapes and dtypes)
+    and the model flags a capture bakes in
+    (:data:`~hig_tpu_torch.models.attention.LAZY_KNORM`)."""
+    return (*parts, attention.LAZY_KNORM)
+
+
 def make_train_step(sched: g.DiffusionSchedule, pit: bool, grad_accum: int = 1,
                     ema_decay: float = 0.0, loss_aware: bool = False,
                     graph: bool = True, make_loss: Callable | None = None,
-                    metric_names: tuple = TRAIN_METRICS, layout=None) -> Callable:
+                    metric_names: tuple = TRAIN_METRICS, layout=None,
+                    draws: Callable | None = None) -> Callable:
     """``train_step(state, batch, generator=None, t=None, noise=None,
     keep=None) -> metrics``: the loss (``make_loss(model, sched)``, default
     :func:`make_loss_fn` with ``pit`` and ``loss_aware``), gradients
@@ -521,9 +530,15 @@ def make_train_step(sched: g.DiffusionSchedule, pit: bool, grad_accum: int = 1,
     the global mask, sums the ranks' gradient shares (and gathers or
     reduce-scatters FSDP's shards), clips by the global norm, and folds
     every rank's (t, loss) into the loss-aware history: an R-rank step is
-    the one-rank step at the same global batch, up to the order of sums. It
-    runs eagerly: gloo's collectives are host calls a CUDA graph cannot
-    capture, and a capture of NCCL's is not checked without several cards.
+    the one-rank step at the same global batch, up to the order of sums.
+    ``draws(model, B, like, generator, ts_state) -> (t, noise, keep)`` draws
+    a global batch's B rows in the loss's order (default
+    :func:`global_draws` with the model's caption dropout). It runs
+    eagerly: gloo's collectives are host calls a CUDA graph cannot capture,
+    and a capture of NCCL's is not checked without several cards.
+
+    The graphs are keyed on the flags a capture bakes in too
+    (:func:`graph_key`).
     """
     layout = layout if layout is not None else TrainLayout.one_rank()
     if layout.ranks > 1:
@@ -531,6 +546,10 @@ def make_train_step(sched: g.DiffusionSchedule, pit: bool, grad_accum: int = 1,
     if make_loss is None:
         def make_loss(model, sched):
             return make_loss_fn(model, sched, pit, loss_aware)
+    if draws is None:
+        def draws(model, B, like, generator, ts_state):
+            drop = model.cfg.cond_drop_prob if not pit else 0.0
+            return global_draws(B, like, sched, generator, loss_aware, ts_state, drop)
     tables: dict = {}  # device → the schedule's tables there, made at the first step
     graphs: dict = {}
     captured: dict = {}  # the TrainState the graphs replay on, and what they share
@@ -547,7 +566,7 @@ def make_train_step(sched: g.DiffusionSchedule, pit: bool, grad_accum: int = 1,
         layout.gather_params(state)
         totals = None  # one batch rank: each microbatch's own mask sum
         if layout.batch_count > 1:
-            T = batch["motion"].shape[2]
+            T = batch["motion"].shape[-2]
             lengths = batch["lengths"].clamp(max=T).reshape(grad_accum, -1)
             totals = layout.global_sum(torch.stack(
                 [length_mask(part, T, batch["motion"].dtype).sum() for part in lengths]))
@@ -579,7 +598,8 @@ def make_train_step(sched: g.DiffusionSchedule, pit: bool, grad_accum: int = 1,
         elif any(a is not b for a, b in zip(bound, captured["bound"])):
             raise ValueError("a graphed train step replays on the TrainState it captured; "
                              "make another step for another state")
-        key = tuple((name, tuple(x.shape), x.dtype) for name, x in sorted(inputs.items()))
+        key = graph_key(tuple((name, tuple(x.shape), x.dtype)
+                              for name, x in sorted(inputs.items())))
         if key not in graphs:
             rng = captured["rng"]
             graphs[key] = GraphedCall(lambda **i: run(state, rng, **i), inputs,
@@ -597,12 +617,10 @@ def make_train_step(sched: g.DiffusionSchedule, pit: bool, grad_accum: int = 1,
         inputs = dict(batch)
         if layout.batch_count > 1 and t is None:
             # the global batch's draws, this rank's rows kept
-            model = state.model
-            drop = model.cfg.cond_drop_prob if not pit else 0.0
             i, n = layout.batch_index, layout.batch_count
-            draws = global_draws(batch["motion"].shape[0] * n, batch["motion"], sched, generator,
-                                 loss_aware, ts_state, drop)
-            t, noise, keep = (None if x is None else shard_batch(x, i, n) for x in draws)
+            drawn = draws(state.model, batch["motion"].shape[0] * n, batch["motion"], generator,
+                          ts_state)
+            t, noise, keep = (None if x is None else shard_batch(x, i, n) for x in drawn)
         for name, x in (("t", t), ("noise", noise), ("keep", keep)):
             if x is not None:
                 inputs[name] = x
@@ -634,10 +652,11 @@ def make_single_loss_fn(model, sched: g.DiffusionSchedule) -> Callable:
     squared error averaged over the features. batch: motion (B, T, D),
     lengths (B,), tokens (B, 77) (the frozen CLIP tower runs in the step,
     as in JAX). ``t`` (B,) and ``noise`` (like motion) are drawn from
-    ``generator`` unless given; ``keep`` and ``ts_state`` are not read. aux
-    holds t."""
+    ``generator`` unless given; ``keep`` and ``ts_state`` are not read;
+    ``mask_total`` as in :func:`make_loss_fn`. aux holds t."""
 
-    def loss_fn(batch, generator=None, t=None, noise=None, keep=None, ts_state=None):
+    def loss_fn(batch, generator=None, t=None, noise=None, keep=None, ts_state=None,
+                mask_total=None):
         motion = batch["motion"]
         B, T, _ = motion.shape
         lengths = batch["lengths"].clamp(max=T)
@@ -649,16 +668,24 @@ def make_single_loss_fn(model, sched: g.DiffusionSchedule) -> Callable:
         mask = length_mask(lengths, T, motion.dtype)
         pred = model(x_t, t, lengths, batch["tokens"])
         per_tok = ((pred - target) ** 2).mean(dim=-1)
-        return (per_tok * mask).sum() / mask.sum(), {"t": t}
+        total = mask.sum() if mask_total is None else mask_total
+        return (per_tok * mask).sum() / total, {"t": t}
 
     return loss_fn
 
 
-def make_single_train_step(sched: g.DiffusionSchedule, graph: bool = True) -> Callable:
+def make_single_train_step(sched: g.DiffusionSchedule, graph: bool = True,
+                           layout=None) -> Callable:
     """The single-person model's train step: :func:`make_train_step` (the
     optimizer update, metrics, one CUDA graph per batch shape on the card)
-    over :func:`make_single_loss_fn`."""
-    return make_train_step(sched, pit=False, graph=graph, make_loss=make_single_loss_fn)
+    over :func:`make_single_loss_fn`; over several ranks ``layout``
+    (``TrainLayout.data_parallel``: JAX's ``tools/train_single.py``
+    replicates the state and shards the batch over the data axis)."""
+    def draws(model, B, like, generator, ts_state):
+        return global_draws(B, like, sched, generator, False)
+
+    return make_train_step(sched, pit=False, graph=graph, make_loss=make_single_loss_fn,
+                           layout=layout, draws=draws)
 
 
 def eval_params(state: dict) -> dict:
@@ -728,8 +755,9 @@ def make_sampler(model: InteractionModel, sched: g.DiffusionSchedule, T: int,
 
     On a CUDA model with ``graph`` (the default) the whole call — the text
     tower and suffix, the text state, the AdaLN grid, every step and, for
-    DDPM, its draws — is one CUDA graph per (cond shape, cond dtype),
-    captured at the first call of that shape and replayed after
+    DDPM, its draws — is one CUDA graph per (cond shape, cond dtype) and
+    flags (:func:`graph_key`), captured at the first call of that shape and
+    replayed after
     (``hig_tpu_torch.utils.graphs``): the counterpart of the JAX sampler's
     ``jax.jit``. cond, lengths and x_T are copied into the graph's buffers,
     and DDPM's step noise is drawn from the caller's generator state, which
@@ -858,7 +886,7 @@ def _sampling_call(run: Callable, device, shape_of: Callable, sampler: str,
         if rng is not None and generator is None:
             raise ValueError("the graphed DDPM sampler draws its step noise from a "
                              "torch.Generator: pass generator=")
-        key = (tuple(cond.shape), cond.dtype)
+        key = graph_key(tuple(cond.shape), cond.dtype)
         if key not in graphs:
             graphs[key] = GraphedCall(
                 lambda **inputs: run(**inputs, generator=rng),
@@ -985,10 +1013,16 @@ class Trainer:
         if self.cfg.ema_decay > 0.0:
             ema = {name: p.detach().clone() for name, p in model.named_parameters()}
         state = TrainState(model=model, optimizer=optimizer, step=0, ema=ema)
-        labels = param_labels(model, freeze_clip=not self.cfg.no_clip)
-        self.layout.place_state(state, [n for n, _ in model.named_parameters()
+        return self.place_state(state)
+
+    def place_state(self, state: TrainState) -> TrainState:
+        """Lay ``state`` (its model placed by the layout's ``place_model``,
+        its optimizer fresh) out by the run's layout: FSDP's shards of the
+        trainable parameters, the global clip norm (JAX's ``place_state``)."""
+        labels = param_labels(state.model, freeze_clip=not self.cfg.no_clip)
+        self.layout.place_state(state, [n for n, _ in state.model.named_parameters()
                                         if labels[n] == "train"])
-        optimizer.norm = self.layout.grad_norm
+        state.optimizer.norm = self.layout.grad_norm
         return state
 
     def save(self, path: str, state: TrainState, epoch: int, total_it: int) -> None:

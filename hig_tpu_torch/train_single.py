@@ -6,6 +6,17 @@ weight donor of ``--pretrained``.
         --data_root data/KIT-ML --batch_size 128 --num_epochs 50
     python -m hig_tpu_torch.train_single ... --device cpu  # plain PyTorch, no kernels
 
+Several ranks (one process each, as ``python -m hig_tpu_torch.train``):
+
+    HIG_COORDINATOR=localhost:29500 HIG_NUM_PROCESSES=2 HIG_PROCESS_ID=<r> \
+        python -m hig_tpu_torch.train_single --distributed ... [--mesh_data 2]
+
+As JAX's ``tools/train_single.py`` does on its mesh, every rank holds the
+whole state (--fsdp, --tp and --pp_micro do not apply) and reads its rows
+of each global --batch_size batch over the data axis; the gradients are
+summed over the ranks (``parallel/layout.py``'s DP mode) and the steps run
+eagerly. Only the primary (rank 0) writes.
+
 The data root holds new_joint_vecs/<name>.npy ((rows, D) clips, the init
 row last), texts/<name>.txt (``caption#tokens#f_tag#to_tag`` lines),
 train.txt, Mean.npy and Std.npy (D + 3 entries: the 3 trailing ones are the
@@ -48,6 +59,8 @@ from hig_tpu_torch.diffusion import gaussian as g
 from hig_tpu_torch.models.interaction_model import SingleMotionModel
 from hig_tpu_torch.models.text_encoder import ClipTextConfig
 from hig_tpu_torch.parallel import distributed as dist
+from hig_tpu_torch.parallel.layout import TrainLayout
+from hig_tpu_torch.parallel.mesh import make_mesh
 from hig_tpu_torch.train import checkpoint as ckpt
 from hig_tpu_torch.train.trainer import (
     TrainState,
@@ -82,34 +95,49 @@ def main(argv=None, graph: bool = True, clip_config: ClipTextConfig | None = Non
                         help="training window in frames")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    dist.require_one_process("python -m hig_tpu_torch.train_single")
     try:
         cfg = config_from_args(args)
         single_model_config(cfg)
     except (ValueError, KeyError) as e:
         parser.error(str(e))
     device = resolve_device(args.device)
+    if cfg.distributed:
+        device = dist.initialize(device=device)
+    layout = TrainLayout.data_parallel(make_mesh(cfg.mesh))
+    primary = dist.is_primary()
 
-    os.makedirs(cfg.model_dir, exist_ok=True)
-    save_opt_txt(cfg, pjoin(cfg.save_root, "opt.txt"))
-    mean, std = load_training_stats(cfg)
+    def log(text: str) -> None:
+        if primary:
+            print(text)
+
+    if primary:
+        os.makedirs(cfg.model_dir, exist_ok=True)
+        save_opt_txt(cfg, pjoin(cfg.save_root, "opt.txt"))
+    mean, std = load_training_stats(cfg, write=primary)
     dataset = SingleMotionDataset(cfg, mean, std, "train.txt", times=cfg.times, seed=cfg.seed,
                                   window=args.window)
-    print(f"dataset: {dataset.real_len()} clips (caption segments included) "
-          f"x times={cfg.times}")
+    log(f"dataset: {dataset.real_len()} clips (caption segments included) "
+        f"x times={cfg.times}")
     state = init_state(cfg, device, clip_config)
     latest = pjoin(cfg.model_dir, "latest.pt")
     start_epoch = 0
     if cfg.is_continue:
         state, start_epoch, it = ckpt.restore_state(latest, state)
-        print(f"resumed from epoch {start_epoch}, it {it}")
+        log(f"resumed from epoch {start_epoch}, it {it}")
+
+    def save(epoch: int, it: int) -> None:
+        if primary:  # the state is whole on every rank
+            ckpt.save_state(latest, state, epoch, it)
+        dist.barrier()
 
     sched = g.make_schedule(g.linear_betas(cfg.diffusion_steps))
-    train_step = make_single_train_step(sched, graph=graph)
+    train_step = make_single_train_step(sched, graph=graph, layout=layout)
     metrics_path = pjoin(cfg.save_root, "metrics.jsonl")
     it, t0 = state.step, time.time()
     for epoch in range(start_epoch, cfg.num_epochs):
-        for batch in epoch_batches(dataset, cfg.batch_size, epoch, seed=cfg.seed):
+        for batch in epoch_batches(dataset, cfg.batch_size, epoch, seed=cfg.seed,
+                                   process_index=layout.batch_index,
+                                   process_count=layout.batch_count):
             dev = {"motion": torch.from_numpy(batch["motion"]).to(device),
                    "lengths": torch.from_numpy(batch["lengths"]).long().to(device),
                    "tokens": torch.from_numpy(batch["tokens"]).long().to(device)}
@@ -117,15 +145,17 @@ def main(argv=None, graph: bool = True, clip_config: ClipTextConfig | None = Non
             it += 1
             if it % cfg.log_every == 0:
                 loss = float(metrics["loss_mot_rec"])
-                print(f"epoch {epoch} it {it} loss: {loss:.5f} ({time.time() - t0:.0f}s)")
-                with open(metrics_path, "a") as f:
-                    f.write(json.dumps({"it": it, "epoch": epoch, "loss_mot_rec": loss}) + "\n")
+                log(f"epoch {epoch} it {it} loss: {loss:.5f} ({time.time() - t0:.0f}s)")
+                if primary:
+                    with open(metrics_path, "a") as f:
+                        f.write(json.dumps({"it": it, "epoch": epoch,
+                                            "loss_mot_rec": loss}) + "\n")
             if it % cfg.save_latest == 0:
                 # mid-epoch: a resume redoes this (partial) epoch
-                ckpt.save_state(latest, state, epoch, it)
+                save(epoch, it)
         # the stored epoch is the next one to run
-        ckpt.save_state(latest, state, epoch + 1, it)
-    print(f"done: {it} steps")
+        save(epoch + 1, it)
+    log(f"done: {it} steps")
     return state
 
 

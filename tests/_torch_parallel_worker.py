@@ -13,7 +13,15 @@ GPipe schedule (1 x 2, pp_micro 2) and the hybrid DCN mesh (2 x 1,
 dcn_data 2), two PIT steps each; then TP DDIM-5 calls (efficient and
 ``no_eff``) against the replicated model, the pipelined denoiser's output on fixed inputs, and an
 FSDP checkpoint written by rank 0 and restored on both ranks, and one
-denoiser call with the time axis split over the ranks. Writes
+denoiser call with the time axis split over the ranks. Then the entry
+points JAX runs over several devices, on what the test wrote into
+<outdir> first: the single-person model's step over the data ranks on
+JAX's draws (``single_inputs.npz``) and ``python -m
+hig_tpu_torch.train_single`` on ``single_data``; ``python -m
+hig_tpu_torch.distill`` from the teacher runs ``teacher_dp`` (DP) and
+``teacher_fsdp`` (FSDP, 1 x 2) under ``runs``; and ``python -m
+hig_tpu_torch.train --pretrained`` from ``ref.tar`` with --fsdp and with
+--tp (1 x 2) on ``data``: the gathered state and one PIT step. Writes
 <outdir>/rank<r>.json (and rank 0 the checkpoints).
 """
 
@@ -32,6 +40,8 @@ from hig_tpu_torch.models.interaction_model import InteractionModel
 from hig_tpu_torch.models.text_encoder import ClipTextConfig
 from hig_tpu_torch.parallel import distributed as dist
 from hig_tpu_torch.parallel import mesh as pmesh
+from hig_tpu_torch.parallel.layout import TrainLayout
+from hig_tpu_torch.train import checkpoint as ckpt
 from hig_tpu_torch.train import trainer as tt
 from hig_tpu_torch.weights import load_flax_tree, random_flax_tree
 
@@ -49,6 +59,96 @@ MODES = {"dp": dict(mesh=MeshConfig(data=2, model=1)),
          "pp": dict(mesh=MeshConfig(data=1, model=2), pp_micro=2),
          "hybrid_dcn": dict(mesh=MeshConfig(data=2, model=1, dcn_data=2))}
 STEPS = 2
+# the entry points' runs (the test writes their inputs into <outdir>)
+SINGLE_ROWS, SINGLE_T = 8, 20  # the single-person step's global batch and window
+DISTILL_ARGS = ["--stages", "5", "--epochs_per_stage", "1", "--batch_size", "8",
+                "--log_every", "1", "--device", "cpu"]
+PRETRAINED_MODES = {"fsdp": ["--fsdp"], "tp": ["--tp"]}
+
+
+def model_argv(widths: dict = TINY) -> list:
+    """The train CLI's flags of TINY's widths and batch."""
+    return [a for k, v in widths.items() for a in (f"--{k}", str(v))]
+
+
+def single_argv(outdir: str) -> list:
+    """``python -m hig_tpu_torch.train_single``'s flags on <outdir>/single_data
+    at TINY's widths (the test's one-process run takes them too)."""
+    widths = {k: v for k, v in TINY.items() if k not in ("batch_size", "window_size")}
+    return ["--name", "single", "--dataset_name", "t2m",
+            "--data_root", os.path.join(outdir, "single_data"), "--batch_size", "4",
+            "--window", str(SINGLE_T - 1), "--log_every", "1", "--num_epochs", "1",
+            "--device", "cpu", *model_argv(widths)]
+
+
+def pretrained_argv(outdir: str, name: str) -> list:
+    """``python -m hig_tpu_torch.train --pretrained``'s flags, no epoch: the
+    caption-id model at TINY's widths on <outdir>/data from <outdir>/ref.tar."""
+    return ["--name", name, "--dataset_name", "synthetic_mul", "--cap_id",
+            "--data_root", os.path.join(outdir, "data"), "--checkpoints_dir",
+            os.path.join(outdir, "runs"), "--num_epochs", "0", "--pretrained",
+            "--pretrained_path", os.path.join(outdir, "ref.tar"), "--ema_decay", "0.99",
+            "--device", "cpu", *model_argv()]
+
+
+def single_cfg(outdir: str, **kw):
+    widths = {k: v for k, v in TINY.items() if k != "window_size"}
+    return add_dataset_paths(ExperimentConfig(**widths, dataset_name="t2m",
+                                              data_root=outdir, **kw))
+
+
+def single_steps(state, layout, inputs: dict) -> list:
+    """The single-person model's steps on ``inputs`` (single_inputs.npz:
+    each step's global batch and JAX's draws), this rank's rows: [loss, grad
+    norm] a step."""
+    sched = g.make_schedule(g.linear_betas(TINY["diffusion_steps"]))
+    step = tt.make_single_train_step(sched, graph=False, layout=layout)
+    out = []
+    for i in range(STEPS):
+        x = {k: inputs[f"{k}{i}"] for k in ("motion", "lengths", "tokens", "t", "noise")}
+        x = {k: torch.from_numpy(v) for k, v in
+             pmesh.shard_batch(x, layout.batch_index, layout.batch_count).items()}
+        batch = {"motion": x["motion"], "lengths": x["lengths"].long(),
+                 "tokens": x["tokens"].long()}
+        metrics = step(state, batch, t=x["t"].long(), noise=x["noise"])
+        out.append([float(metrics[k]) for k in tt.TRAIN_METRICS])
+    return out
+
+
+def run_entry_points(outdir: str) -> dict:
+    """train_single, distill and train --pretrained over the ranks (module
+    doc); rank 0 writes each run's files."""
+    from hig_tpu_torch import distill, train_single
+    from hig_tpu_torch.train.__main__ import main as train_main
+
+    out = {}
+    # the single-person step over the data ranks, on JAX's draws
+    cfg = single_cfg(outdir)
+    inputs = dict(np.load(os.path.join(outdir, "single_inputs.npz")))
+    out["single_steps"] = single_steps(train_single.init_state(cfg, "cpu", CLIP),
+                                       TrainLayout.data_parallel(pmesh.make_mesh(cfg.mesh)),
+                                       inputs)
+    # the CLI, each rank its rows of every batch
+    state = train_single.main(single_argv(outdir) + [
+        "--distributed", "--checkpoints_dir", os.path.join(outdir, "single_cli")],
+        graph=False, clip_config=CLIP)
+    out["single_cli_step"] = state.step
+    # distillation of the DP and the FSDP teacher runs
+    for mode in ("dp", "fsdp"):
+        opt = os.path.join(outdir, "runs", "synthetic_mul", f"teacher_{mode}", "opt.txt")
+        written = distill.main(["--opt_path", opt, *DISTILL_ARGS], clip_config=CLIP,
+                               graph=False)
+        out[f"distill_{mode}"] = written
+    # --pretrained under FSDP and TP: the state gathered, then one PIT step
+    for mode, flags in PRETRAINED_MODES.items():
+        trainer, state = train_main(pretrained_argv(outdir, f"pre_{mode}") + [
+            "--distributed", "--mesh_model", "2", *flags], graph=False)
+        full = trainer.layout.full_payload(ckpt.payload_of(state, 0, 0))
+        if dist.is_primary():
+            torch.save(full, os.path.join(outdir, f"pretrained_{mode}.pt"))
+        out[f"pretrained_{mode}"] = {"mode": trainer.layout.mode,
+                                     "losses": run_steps(trainer, state, [step_inputs(0)])}
+    return out
 
 
 def cfg_of(outdir: str, widths: dict = TINY, **kw):
@@ -196,6 +296,7 @@ def main():
     results = {"rank": rank, "modes": {m: run_mode(m, outdir) for m in MODES},
                "tp_ddim5": tp_sampler(outdir), "tp_ddim5_no_eff": tp_sampler(outdir, True),
                "sp_denoise": sp_denoise(outdir),
+               "entry_points": run_entry_points(outdir),
                "imported": sorted(k for k in sys.modules
                                   if k.split(".")[0] in ("jax", "jaxlib", "flax", "hig_tpu"))}
     with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:

@@ -555,6 +555,65 @@ def test_bf16_efficient_stream_form_is_the_whole_form(cuda_bf16, tq, tk):
         efficient_attention_bf16_form(q, k, v, H, mask, "whole")
 
 
+@pytest.mark.parametrize("tq,tk", [(91, 91), (91, 77), (196, 196), (394, 394)])
+def test_bf16_lazy_forms_are_their_twin(cuda_bf16, tq, tk):
+    """B3-bf16's lazy forms (``LAZY_KNORM``): one counted launch in
+    ``launches_bf16_lazy``, the whole and streaming forms equal bit for bit
+    where both run, within the gates of the lazy twin, where the eager
+    twin sits off them; the float32 kernel, unchanged, is within TOL of
+    the lazy float32 twin."""
+    q, k, v, mask = _b3_bf16_operands(cuda_bf16, tq, tk, seed=4)
+    args = (q, k, v, H, mask)
+    before = fused_efficient_attention.launches_bf16_lazy
+    got = fused_efficient_attention(*args, lazy=True)
+    torch.cuda.synchronize()
+    assert fused_efficient_attention.launches_bf16_lazy == before + 1
+    if max(tq, tk) <= 320:
+        whole = efficient_attention_bf16_form(*args, "whole", lazy=True)
+        stream = efficient_attention_bf16_form(*args, "stream", lazy=True)
+        assert torch.equal(whole, got) and torch.equal(stream, got)
+    twin = fused_efficient_attention_plain(*args, lazy=True)
+    twin32 = fused_efficient_attention_plain(q.float(), k.float(), v.float(), H, mask,
+                                             lazy=True)
+    twin_cpu = fused_efficient_attention_plain(*(a.cpu() if torch.is_tensor(a) else a
+                                                 for a in args), lazy=True)
+    ok, readings = bf16_close(got, twin, twin32, twin_cpu)
+    assert ok, readings
+    ok, _ = bf16_close(fused_efficient_attention_plain(*args), twin, twin32, twin_cpu)
+    assert not ok
+    f32 = tuple(a.float() for a in (q, k, v))
+    before = fused_efficient_attention.launches
+    got32 = fused_efficient_attention(*f32, H, mask, lazy=True)
+    assert fused_efficient_attention.launches == before + 1
+    assert_close(got32, efficient_attention(*f32, H, mask, lazy=True))
+
+
+def test_lazy_flag_keys_the_sampler_graphs(cuda):
+    """A sampler captures one graph per value of ``LAZY_KNORM`` and never
+    replays one under the other."""
+    from hig_tpu_torch.diffusion import gaussian as g
+    from hig_tpu_torch.models import attention as tatt
+    from hig_tpu_torch.models.interaction_model import InteractionModel, ModelConfig
+    from hig_tpu_torch.models.text_encoder import ClipTextConfig
+    from hig_tpu_torch.train import trainer as tt
+
+    cfg = ModelConfig(num_layers=1, latent_dim=128, num_heads=2, text_latent_dim=64,
+                      text_ff_size=128, ff_size=256, cap_id=True,
+                      clip=ClipTextConfig(width=32, heads=2, layers=1))
+    model = InteractionModel(cfg).to(cuda).eval()
+    sample = tt.make_sampler(model, g.make_schedule(g.linear_betas(100)), 20, 263, "ddim", 3)
+    cond, lengths = torch.zeros((2, 2), dtype=torch.long), torch.tensor([20, 11])
+    noise = torch.randn((2, 2, 20, 263), generator=torch.Generator().manual_seed(0))
+    try:
+        first = sample(cond, lengths, noise=noise)
+        tatt.LAZY_KNORM = True
+        sample(cond, lengths, noise=noise)
+    finally:
+        tatt.LAZY_KNORM = False
+    assert sorted(key[-1] for key in sample.graphs) == [False, True]
+    assert torch.equal(sample(cond, lengths, noise=noise), first)
+
+
 def test_bf16_without_a_form_raises(cuda_bf16):
     """No form takes bfloat16 beside float32 operands."""
     w, x, mask, scale, shift = _inputs(cuda_bf16)
@@ -1360,7 +1419,8 @@ def test_a_second_batch_shape_captures_a_second_train_graph(cuda):
         rows, hist = _train_run(step, state, batches, history())
         runs.append((rows, {n: t.clone() for n, t in _train_state_tensors(state, hist).items()}))
         if graph:
-            assert sorted(key[-1][1][0] for key in step.graphs) == [3, 4]  # ("tower_feats", shape)
+            # a key: (the inputs' (name, shape, dtype), last "tower_feats"; LAZY_KNORM)
+            assert sorted(key[0][-1][1][0] for key in step.graphs) == [3, 4]
     _assert_runs_equal(*runs)
 
 

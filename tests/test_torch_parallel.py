@@ -22,6 +22,17 @@ the CPU, at tests/test_training.py's tiny widths.
 - ``python -m hig_tpu_torch.train --distributed --device cpu`` in two
   processes with the ``HIG_*`` variables: only rank 0 writes, and its
   checkpoint equals a one-process run's within rtol 1e-5.
+- The entry points JAX runs over several devices, in the same launch:
+  the single-person step over 2 data ranks on JAX's draws, bitwise across
+  ranks and within 2e-5 of ``make_single_train_step`` jitted on a 2-device
+  data mesh (and of the port's one-rank step), and ``python -m
+  hig_tpu_torch.train_single --distributed``; ``python -m
+  hig_tpu_torch.distill`` over DP and FSDP ranks; ``train --pretrained``
+  with --fsdp and --tp, the gathered state bit for bit the one-rank load's
+  (the EMA at its seeded values, as JAX replaces only ``params``) and its
+  first step within rtol 1e-5. Each run's checkpoint (rank 0's) equals a
+  one-process run's as the train CLI's does; ``label`` and ``evaluate``,
+  which JAX runs on one device, refuse several ranks.
 
 Every spawn has a timeout, so a hung rank fails the test.
 """
@@ -49,6 +60,7 @@ from hig_tpu.parallel import pipeline as jpp
 from hig_tpu.train import trainer as jt
 from hig_tpu_torch.config import ExperimentConfig, MeshConfig, add_dataset_paths, model_config
 from hig_tpu_torch.data import dataset as td
+from hig_tpu_torch.data.vocab import CAPS
 from hig_tpu_torch.ops.pallas_attention import fused_projected_attention
 from hig_tpu_torch.parallel import distributed as dist
 from hig_tpu_torch.parallel import mesh as pmesh
@@ -289,9 +301,63 @@ def test_rectangular_b2_is_the_heads_of_the_square_call():
 # --- two gloo ranks -------------------------------------------------------------
 
 
+def write_single_inputs(out) -> None:
+    """Each single-person step's global batch and JAX's draws of its key
+    (``jax.random.key(100 + i)``, as ``make_single_train_step`` draws t and
+    the noise) into <out>/single_inputs.npz."""
+    from hig_tpu.models.tokenizer import tokenize as jax_tokenize
+
+    B, T = w.SINGLE_ROWS, w.SINGLE_T
+    arrays = {}
+    for i in range(w.STEPS):
+        rs = np.random.RandomState(200 + i)
+        t_rng, n_rng = jax.random.split(jax.random.key(100 + i))
+        arrays.update({
+            f"motion{i}": rs.randn(B, T, 263).astype(np.float32),
+            f"lengths{i}": np.array([T, T - 3, 9, T, T, 12, T - 1, T], np.int32),
+            f"tokens{i}": jax_tokenize([CAPS[j] for j in rs.randint(0, 43, B)]),
+            f"t{i}": np.asarray(jax.random.randint(t_rng, (B,), 0, 100)),
+            f"noise{i}": np.asarray(jax.random.normal(n_rng, (B, T, 263)))})
+    np.savez(out / "single_inputs.npz", **arrays)
+
+
+def write_entry_inputs(out, data_root: str) -> None:
+    """What the worker's entry-point runs read (its module doc): the pair
+    data, the single-person data and draws, a reference checkpoint at the
+    caption-id model's widths, and a one-epoch caption-id teacher run copied
+    as ``teacher_dp`` and, with --fsdp over a model axis of 2,
+    ``teacher_fsdp``."""
+    import shutil
+
+    from hig_tpu_torch.train import torch_port
+    from hig_tpu_torch.train.__main__ import main as train_main
+    from tests.test_torch_single import write_single_data
+
+    shutil.copytree(data_root, out / "data")
+    write_single_data(str(out / "single_data"), "t2m")
+    write_single_inputs(out)
+    torch_port.save_reference_checkpoint(
+        torch_port.reference_state_dict(model_config(w.cfg_of(str(out)), w.CLIP)),
+        str(out / "ref.tar"))
+    runs = out / "runs" / "synthetic_mul"
+    train_main(["--name", "teacher", "--dataset_name", "synthetic_mul", "--cap_id",
+                "--data_root", str(out / "data"), "--checkpoints_dir", str(out / "runs"),
+                "--num_epochs", "1", "--limit_data_num", "8", "--device", "cpu",
+                *w.model_argv()], graph=False)
+    for mode, edits in (("dp", {}), ("fsdp", {"fsdp: False": "fsdp: True",
+                                              "mesh_model: 1": "mesh_model: 2"})):
+        shutil.copytree(runs / "teacher", runs / f"teacher_{mode}")
+        opt = (runs / "teacher" / "opt.txt").read_text()
+        for old, new in {"name: teacher\n": f"name: teacher_{mode}\n", **edits}.items():
+            assert old in opt
+            opt = opt.replace(old, new)
+        (runs / f"teacher_{mode}" / "opt.txt").write_text(opt)
+
+
 @pytest.fixture(scope="module")
-def spawned(tmp_path_factory):
+def spawned(tmp_path_factory, data_root):
     out = tmp_path_factory.mktemp("ranks")
+    write_entry_inputs(out, data_root)
     port = str(free_port())
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     done = run_ranks([[sys.executable, w.__file__, str(r), "2", port, str(out)]
@@ -500,15 +566,147 @@ def test_serve_two_processes(tmp_path):
             np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
 
 
-@pytest.mark.parametrize("entry", ["label", "evaluate", "distill", "train_single"])
+@pytest.mark.parametrize("entry", ["label", "evaluate"])
 def test_one_rank_entry_points_refuse_several_ranks(entry, monkeypatch):
-    """The entry points that run on one rank raise, naming ROADMAP, when
-    started as one of several processes (``HIG_NUM_PROCESSES``), instead of
-    running on each rank alone."""
+    """The entry points that JAX runs on one device (``tools/label_data.py``,
+    ``tools/evaluation.py``: no mesh) raise, saying so, when started as one
+    of several processes (``HIG_NUM_PROCESSES``), instead of running on
+    each rank alone."""
     import importlib
 
     main = importlib.import_module(f"hig_tpu_torch.{entry}").main
-    argv = [] if entry == "train_single" else ["--opt_path", "missing/opt.txt"]
     monkeypatch.setenv("HIG_NUM_PROCESSES", "2")
-    with pytest.raises(RuntimeError, match="ROADMAP"):
-        main([*argv, "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="runs on one device, as JAX's runs"):
+        main(["--opt_path", "missing/opt.txt", "--device", "cpu"])
+
+
+# --- the entry points over several ranks (the same launch) -----------------------------
+
+
+def test_train_single_over_data_ranks_matches_jax(spawned, tmp_path):
+    """The single-person step over 2 data ranks on JAX's draws: bitwise
+    across ranks, within 2e-5 of JAX's ``make_single_train_step`` jitted on
+    a 2-device data mesh (the batch sharded by ``shard_batch``) and of the
+    port's one-rank step."""
+    from hig_tpu.models.interaction_model import SingleMotionModel as JaxSingle
+    from hig_tpu_torch import train_single
+    from hig_tpu_torch.config import single_model_config
+
+    out, (r0, r1) = spawned
+    got = r0["entry_points"]["single_steps"]
+    assert got == r1["entry_points"]["single_steps"]
+    inputs = dict(np.load(out / "single_inputs.npz"))
+    cfg = w.single_cfg(str(tmp_path))
+    one = w.single_steps(train_single.init_state(cfg, "cpu", w.CLIP), tt.TrainLayout.one_rank(),
+                         inputs)
+    np.testing.assert_allclose(got, one, rtol=1e-5)
+
+    jcfg = jax_add_paths(JaxConfig(**{k: v for k, v in w.TINY.items() if k != "window_size"},
+                                   dataset_name="t2m", data_root=str(tmp_path)))
+    widths = {k: v for k, v in w.TINY.items()
+              if k not in ("batch_size", "window_size", "diffusion_steps")}
+    jmodel = JaxSingle(**widths, input_feats=263, clip_config=JAX_CLIP)
+    params = jax.tree_util.tree_map(
+        jnp.asarray, random_flax_tree(single_model_config(cfg, w.CLIP), cfg.seed))
+    tx = jt.make_optimizer(jcfg, params)
+    state = jt.TrainState(params=params, opt_state=tx.init(params),
+                          step=jnp.zeros((), jnp.int32))
+    from hig_tpu.diffusion import gaussian as jg
+
+    mesh = jmesh.make_mesh(JaxMesh(data=2, model=1), devices=jax.devices()[:2])
+    step = jax.jit(jt.make_single_train_step(jmodel, jg.make_schedule(jg.linear_betas(100)), tx))
+    want = []
+    for i in range(w.STEPS):
+        batch = {k: inputs[f"{k}{i}"] for k in ("motion", "lengths", "tokens")}
+        state, metrics = step(state, jmesh.shard_batch(mesh, batch), jax.random.key(100 + i))
+        want.append(float(metrics["loss_mot_rec"]))
+    np.testing.assert_allclose([loss for loss, _ in got], want, rtol=2e-5)
+
+
+def test_train_single_cli_two_ranks(spawned, tmp_path):
+    """``python -m hig_tpu_torch.train_single --distributed`` over the 2
+    ranks: rank 0's checkpoint equals a one-process run's."""
+    from hig_tpu_torch.train_single import main
+
+    out, (r0, r1) = spawned
+    one = main(w.single_argv(str(out)) + ["--checkpoints_dir", str(tmp_path)], graph=False,
+               clip_config=w.CLIP)
+    assert r0["entry_points"]["single_cli_step"] == r1["entry_points"]["single_cli_step"] \
+        == one.step > 1
+    got = torch.load(out / "single_cli" / "t2m" / "single" / "model" / "latest.pt",
+                     weights_only=True)
+    assert_params_close(got["params"], one.model.state_dict(), "train_single", one.step)
+
+
+@pytest.fixture(scope="module")
+def one_rank_distill(spawned):
+    """``python -m hig_tpu_torch.distill`` as one process from the teacher
+    the rank runs copied: its stage checkpoint."""
+    from hig_tpu_torch import distill
+
+    out, _ = spawned
+    (written,) = distill.main(["--opt_path", str(out / "runs" / "synthetic_mul" / "teacher" /
+                                                 "opt.txt"), *w.DISTILL_ARGS],
+                              clip_config=w.CLIP, graph=False)
+    return torch.load(os.path.join(written, "model", "latest.pt"), weights_only=True)
+
+
+@pytest.mark.parametrize("mode", ["dp", "fsdp"])
+def test_distill_two_ranks(spawned, one_rank_distill, mode):
+    """``python -m hig_tpu_torch.distill`` over 2 ranks, the student laid out
+    as the teacher run asks (DP; FSDP on a model axis of 2): rank 0 writes
+    the stage in the one-rank format, equal to the one-process stage."""
+    out, (r0, r1) = spawned
+    (written,) = r0["entry_points"][f"distill_{mode}"]
+    assert written.endswith(f"teacher_{mode}_distill5")
+    got = torch.load(os.path.join(written, "model", "latest.pt"), weights_only=True)
+    want = one_rank_distill
+    assert got["step"] == want["step"] >= 1 and "ema_params" not in got
+    assert_params_close(got["params"], want["params"], f"distill {mode}", want["step"])
+
+
+@pytest.fixture(scope="module")
+def one_rank_pretrained(spawned):
+    """``python -m hig_tpu_torch.train --pretrained`` as one process: its
+    state's payload and its first PIT step."""
+    from hig_tpu_torch.train import checkpoint as ckpt
+    from hig_tpu_torch.train.__main__ import main as train_main
+
+    out, _ = spawned
+    trainer, state = train_main(w.pretrained_argv(str(out), "pre_one"), graph=False)
+    payload = ckpt.payload_of(state, 0, 0)
+    return payload, w.run_steps(trainer, state, [w.step_inputs(0)])
+
+
+@pytest.mark.parametrize("mode", list(w.PRETRAINED_MODES))
+def test_pretrained_over_ranks(spawned, one_rank_pretrained, mode):
+    """``train --pretrained`` with --fsdp or --tp over 2 ranks: the gathered
+    state (parameters, Adam's moments, the EMA) equals the one-rank load bit
+    for bit, the EMA kept at its seeded values (JAX's ``tools/train.py``
+    replaces only ``params``), and the first PIT step is the one-rank step's
+    within rtol 1e-5, bitwise across ranks."""
+    from hig_tpu_torch.train import torch_port
+    from hig_tpu_torch.weights import torch_state_from_flax
+
+    out, (r0, r1) = spawned
+    want, want_losses = one_rank_pretrained
+    case = r0["entry_points"][f"pretrained_{mode}"]
+    assert case["mode"] == mode
+    assert case["losses"] == r1["entry_points"][f"pretrained_{mode}"]["losses"]
+    np.testing.assert_allclose(case["losses"], want_losses, rtol=1e-5)
+    got = torch.load(out / f"pretrained_{mode}.pt", weights_only=True)
+    for key in ("params", "ema_params"):
+        assert got[key].keys() == want[key].keys()
+        for name, t in want[key].items():
+            assert torch.equal(got[key][name], t), (key, name)
+    for i, entry in want["opt_state"]["state"].items():
+        for k in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(got["opt_state"]["state"][i][k], entry[k])
+    sd = torch_port.load_torch_state_dict(str(out / "ref.tar"))
+    loaded = torch_state_from_flax(torch_port.convert_interaction_model(
+        sd, num_layers=w.TINY["num_layers"], num_text_layers=w.TINY["num_text_layers"],
+        cap_id=True))
+    assert loaded.keys() == got["params"].keys()
+    for name, t in loaded.items():
+        assert torch.equal(got["params"][name], t), name
+        assert not torch.equal(got["ema_params"][name], t), name

@@ -2151,6 +2151,9 @@ PEAK_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores (H100 SXM data sheet)
 MIXED_FORM = "projected_attention_bf16a"
 # B3-bf16's lazy forms (LAZY_KNORM), counted in ``launches_bf16_lazy``
 LAZY_FORM = "efficient_attention_bf16_lazy"
+# B3-bf16's streaming form, past 320 rows (``b3_bf16_form``), counted in
+# ``launches_bf16`` with the whole form
+STREAM_FORM = "efficient_attention_bf16_stream"
 BF16_SPLIT = 3
 # The ordered bfloat16 sum of the bfloat16 backwards (``ops/bf16_sum.py``),
 # counted in ``bf16_sum.launches``: launched by every bfloat16 train step
@@ -4190,11 +4193,21 @@ def b3_bf16_forms(device, failures) -> dict:
     """B3-bf16's whole and streaming forms at B3_FORM_SHAPES: each form's ms
     (the whole form where it runs), the plain twin's, the bound; at 394 rows
     the streaming form against its twin beside the planted controls; where
-    both run, the two forms equal bit for bit."""
+    both run, the two forms equal bit for bit. First the quotient both
+    forms' softmaxes take in place of the IEEE division, against it over
+    every pair of bfloat16 values where it is used ("division_mismatches",
+    0 expected)."""
+    from hig_tpu_torch.ops import _build
     from hig_tpu_torch.ops.pallas_attention import (
         BF16_MAX_T, efficient_attention_bf16_form, fused_efficient_attention_plain as plain)
 
-    out = {}
+    mismatches = torch.zeros(1, dtype=torch.int32, device=device)
+    _build.launch("efficient_attention", (mismatches,), (),
+                  torch.cuda.current_stream().cuda_stream, entry="b3_division_mismatches")
+    out = {"division_mismatches": int(mismatches.item())}
+    fail_if(failures, out["division_mismatches"] != 0,
+            f"B3-bf16's softmax quotient differs from the IEEE division at "
+            f"{out['division_mismatches']} pairs")
     for label, (N, tq, tk) in B3_FORM_SHAPES.items():
         w, x, mask, _, _ = block_inputs(device, N // 2, max(tq, tk))
         q, k, v, heads, m = b3_bf16_inputs(w, x, mask, tk)
@@ -4361,10 +4374,24 @@ def single_transformer_step_gate(device, failures) -> dict:
     return row
 
 
-def phase_geometry(device, failures, smi: str, tmp: str) -> tuple[dict, dict, dict]:
+def stream_form_row(forms: dict, launches: int) -> dict:
+    """The kernels line's row of B3-bf16's streaming form (eager; its lazy
+    form is in LAZY_FORM's row): its time, plain time, bound and error
+    against its twin at 64 x 394 (``b3_bf16_forms``), its launches those of
+    the window-196 --single_transformer step, where the main path takes it."""
+    row = forms["64x394"]
+    return {"name": STREAM_FORM, "route": "cuda",
+            "source": "hig_tpu_torch/csrc/efficient_attention.cu",
+            "replaces": "hig_tpu/ops/pallas_attention.py:46 (past 320 rows)",
+            "launches": launches, "max_abs_err": row["max_abs_err"], "ms": row["stream_ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None}
+
+
+def phase_geometry(device, failures, smi: str, tmp: str) -> tuple[dict, dict, dict, dict]:
     """Phase 14 (see the module doc). Returns (the launch counts of its
     main path by form, B3-bf16's rows of both forms, the row of its lazy
-    forms)."""
+    forms, the row of its streaming form)."""
     t_phase = time.perf_counter()
     data, row = geometry_dataset(failures, tmp)
     print(json.dumps({"phase": "geometry", "run": "make_synthetic_data", "nvidia_smi": smi,
@@ -4398,7 +4425,7 @@ def phase_geometry(device, failures, smi: str, tmp: str) -> tuple[dict, dict, di
         + step["b3_bf16_launches"]
     print(json.dumps({"phase": "geometry", "launches": launches,
                       "seconds": time.perf_counter() - t_phase}), flush=True)
-    return launches, forms, lazy_row
+    return launches, forms, lazy_row, stream_form_row(forms, step["b3_bf16_launches"])
 
 
 # Phase 15: the rest of Queue A. Distillation from phase 7's cfg_supervised
@@ -5318,13 +5345,30 @@ def parallel_rank(rank: int, port: str, out: str) -> int:
     return 0
 
 
+def rect_bf16_work(form: str, N: int, Tq: int) -> tuple[list, int]:
+    """The bound inputs of B2's rectangular bfloat16 forms at Dout =
+    RECT_DOUT (RECT_DOUT / 64 heads), reckoned as B2-bf16's ("bf16") and
+    B2-bf16a's ("bf16a") are at Dout = D: the q|k|v products (of bfloat16
+    values at 989 TFLOP/s, or of a bfloat16 activation and a float32
+    weight at 989 / 3) and the float32 core at 3xTF32; the bytes of x and
+    kv (bfloat16), y (bfloat16), the weights and biases (bfloat16, or
+    float32) and the float32 mask."""
+    M, hd = N * Tq, D // HEADS
+    parts = [(2 * M * D * 3 * RECT_DOUT, "bf16" if form == "bf16" else "3xbf16"),
+             (2 * 2 * N * (RECT_DOUT // hd) * Tq * hd * hd, "3xtf32")]
+    weight_bytes = 2 if form == "bf16" else 4
+    return parts, (2 * (2 * M * D + M * RECT_DOUT) + 4 * M
+                   + weight_bytes * (3 * RECT_DOUT * D + 3 * RECT_DOUT))
+
+
 def check_projected_attention_rect(device, failures) -> dict:
     """B2's rectangular form (a TP rank's (D/2, D) q|k|v weights, 4 heads:
     rank 1's rows) at the serving shape, float32 against its plain version
     and bfloat16 and B2-bf16a against their twins, as the interaction block
     calls it (kv from the partner). The row's time and bound are the
     float32 form's (the form phase 16's TP call launches), from the square
-    form's operation count at Dout = 256."""
+    form's operation count at Dout = 256; each bfloat16 case has its own
+    bound (``rect_bf16_work``)."""
     from hig_tpu_torch.ops.pallas_attention import fused_projected_attention
     from hig_tpu_torch.ops.pallas_attention import fused_projected_attention_plain as plain
 
@@ -5353,6 +5397,8 @@ def check_projected_attention_rect(device, failures) -> dict:
             cases[form] = gate_bf16(f"projected_attention_rect {form}", got_b, twin, twin32,
                                     plain(*on_cpu(args_b)), failures)
             cases[form]["ms"] = time_ms(lambda: fused_projected_attention(*args_b))
+            (cases[form]["bound_ms"], cases[form]["bound_by"],
+             cases[form]["bound_kind"]) = bound_parts(*rect_bf16_work(form, N, Tq))
     flops = 2 * M * D * 3 * RECT_DOUT + 2 * 2 * N * heads * Tq * hd * hd
     nbytes = 4 * (2 * M * D + M * RECT_DOUT + M + 3 * RECT_DOUT * D + 3 * RECT_DOUT)
     b_ms, b_by, b_kind = bound(flops, nbytes)
@@ -5692,7 +5738,8 @@ def main() -> int:
         option_launches, option_runs = phase_options(device, failures, smi, data, tmp,
                                                      models["fused"].state_dict())
         lap("options")
-        geometry_launches, b3_forms, lazy_row = phase_geometry(device, failures, smi, tmp)
+        geometry_launches, b3_forms, lazy_row, stream_row = phase_geometry(device, failures,
+                                                                           smi, tmp)
         lap("geometry")
         rest_launches = phase_rest(device, failures, smi, data, tmp, models["fused"])
         lap("rest")
@@ -5721,6 +5768,7 @@ def main() -> int:
     rows.update(bf16_rows)
     lazy_row["launches"] = bf16_train_launches.get(LAZY_FORM, 0)
     rows[LAZY_FORM] = lazy_row
+    rows[STREAM_FORM] = stream_row
     rows["projected_attention_rect"] = rect_row
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(smi, flush=True)

@@ -9,47 +9,104 @@
 // model's bfloat16 softmaxes. A float32 sum rounded once sits 0.3-0.7 of the
 // bfloat16 effect from XLA's gradients (PERF.md), so the order is kept.
 //
-// One thread per output element walks its axis; the input is a contiguous
-// float32 array (outer, n, inner) holding bfloat16 values, the output
-// (outer, inner). Neighbouring threads take neighbouring inner elements, so
-// the loads coalesce where inner > 1. n <= 32 * 32 (two levels of windows).
+// Replaces no TPU kernel (XLA's reduce in the VJPs). Bound on this card:
+// bytes, each input read once (one B3-bf16 backward's two sums at 128 x 91:
+// 48 MB, 0.0144 ms). The input is a contiguous float32 array (outer, n,
+// inner) holding bfloat16 values, the output (outer, inner); n <= 32 * 32
+// (two levels of windows). One kernel, so that a profile names one kernel a
+// launch, with a thread per (output, window of 32) and blockDim (outputs,
+// windows): every thread issues its window's 32 loads before its chain of
+// rounded adds, and thread y = 0 of each output chains the window totals in
+// order through shared memory. Where the axis is strided (inner > 1: the
+// time softmax's 91 terms 512 apart, the key softmax's 8 apart),
+// neighbouring threads take neighbouring inner elements, so every load
+// coalesces. Where it is contiguous (inner == 1: the feature softmax's 64
+// terms), a block first stages its rows in shared memory with coalesced
+// 16-byte loads, each row at an odd stride so that 32 threads reading 32
+// rows hit 32 banks, and its threads walk the rows there.
 #include "common.cuh"
 
 namespace hig {
 
 constexpr int SUM_WINDOW = 32;
-constexpr int SUM_THREADS = 256;
+constexpr int SUM_MAX_TERMS = SUM_WINDOW * SUM_WINDOW;
+constexpr int SUM_THREADS = 256;  // a block's threads, about
+constexpr int SUM_ROWS_FLOATS = 10240;  // staged rows (inner == 1): 40 KB
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-__global__ void __launch_bounds__(SUM_THREADS)
+// Window w of one output whose terms are term(i), i in [0, n): its 32 terms
+// (zeros where the padded axis lies past either end) loaded first, then
+// added in turn, each add rounded; up to 32 terms, the n terms alone.
+template <typename Term>
+__device__ __forceinline__ float window_sum(Term term, int n, int w, int lead) {
+  float v[SUM_WINDOW];
+#pragma unroll
+  for (int c = 0; c < SUM_WINDOW; ++c) {
+    const int i = w * SUM_WINDOW + c - lead;
+    v[c] = (i >= 0 && i < n) ? round_bf16(term(i)) : 0.f;
+  }
+  const int terms = n < SUM_WINDOW ? n : SUM_WINDOW;
+  float acc = v[0];
+#pragma unroll
+  for (int c = 1; c < SUM_WINDOW; ++c)
+    if (c < terms) acc = round_bf16(acc + v[c]);
+  return acc;
+}
+
+// blockDim (ox, windows); `lead` zeros pad the axis before x[0]; `stride`
+// is a staged row's (inner == 1).
+__global__ void __launch_bounds__(SUM_WINDOW * SUM_WINDOW)
     bf16_sum_kernel(const float* __restrict__ x, float* __restrict__ out, int outer, int n,
-                    int inner) {
-  const long long t = (long long)blockIdx.x * SUM_THREADS + threadIdx.x;
-  if (t >= (long long)outer * inner) return;
-  const long long o = t / inner, j = t % inner;
-  const float* p = x + o * n * inner + j;
-  if (n <= SUM_WINDOW) {
-    float acc = round_bf16(p[0]);
-    for (int i = 1; i < n; ++i) acc = round_bf16(acc + round_bf16(p[(long long)i * inner]));
-    out[t] = acc;
+                    int inner, int lead, int stride) {
+  extern __shared__ float sm[];  // inner == 1: [ox][stride] rows; then [windows][ox] sums
+  const int ox = blockDim.x, windows = blockDim.y, xo = threadIdx.x, w = threadIdx.y;
+  const long long o = (long long)blockIdx.x * ox + xo, outputs = (long long)outer * inner;
+  float s = 0.f;
+  if (inner == 1) {
+    const long long r0 = (long long)blockIdx.x * ox;
+    const int rows = (int)(outer - r0 < ox ? outer - r0 : ox), count = rows * n;
+    const int tid = w * ox + xo, threads = ox * windows;
+    const float* base = x + r0 * n;
+    if (n % 4 == 0 && (reinterpret_cast<size_t>(base) & 15) == 0) {
+#pragma unroll 4
+      for (int j = tid; j < count / 4; j += threads) {
+        const float4 f = load4(base + 4 * j);
+        const int r = 4 * j / n;
+        float* d = sm + r * stride + (4 * j - r * n);
+        d[0] = f.x;
+        d[1] = f.y;
+        d[2] = f.z;
+        d[3] = f.w;
+      }
+    } else {
+#pragma unroll 4
+      for (int j = tid; j < count; j += threads) {
+        const int r = j / n;
+        sm[r * stride + (j - r * n)] = base[j];
+      }
+    }
+    __syncthreads();
+    const float* row = sm + xo * stride;
+    if (xo < rows) s = window_sum([&](int i) { return row[i]; }, n, w, lead);
+  } else if (o < outputs) {
+    const float* p = x + (o / inner) * n * inner + o % inner;
+    s = window_sum([&](int i) { return p[(long long)i * inner]; }, n, w, lead);
+  }
+  if (windows == 1) {
+    if (o < outputs) out[o] = s;
     return;
   }
-  const int lead = (SUM_WINDOW - n % SUM_WINDOW) % SUM_WINDOW / 2;  // zeros before x[0]
-  const int windows = (n + SUM_WINDOW - 1) / SUM_WINDOW;
-  float total = 0.f;
-  for (int w = 0; w < windows; ++w) {
-    float acc = 0.f;
-    for (int c = 0; c < SUM_WINDOW; ++c) {
-      const int i = w * SUM_WINDOW + c - lead;
-      const float v = (i >= 0 && i < n) ? round_bf16(p[(long long)i * inner]) : 0.f;
-      acc = c == 0 ? v : round_bf16(acc + v);
-    }
-    total = w == 0 ? acc : round_bf16(total + acc);
+  float* part = sm + (inner == 1 ? ox * stride : 0);
+  part[w * ox + xo] = s;
+  __syncthreads();
+  if (w == 0 && o < outputs) {
+    float total = part[xo];
+    for (int k = 1; k < windows; ++k) total = round_bf16(total + part[k * ox + xo]);
+    out[o] = total;
   }
-  out[t] = total;
 }
 
 }  // namespace hig
@@ -57,10 +114,23 @@ __global__ void __launch_bounds__(SUM_THREADS)
 extern "C" int hig_bf16_sum(const float* x, float* out, int outer, int n, int inner,
                             void* stream_ptr) {
   using namespace hig;
-  if (n > SUM_WINDOW * SUM_WINDOW) return cudaErrorInvalidValue;
-  const long long threads = (long long)outer * inner;
-  if (threads == 0) return cudaSuccess;
-  bf16_sum_kernel<<<(unsigned)((threads + SUM_THREADS - 1) / SUM_THREADS), SUM_THREADS, 0,
-                    static_cast<cudaStream_t>(stream_ptr)>>>(x, out, outer, n, inner);
+  if (n < 1 || n > SUM_MAX_TERMS) return cudaErrorInvalidValue;
+  const long long outputs = (long long)outer * inner;
+  if (outputs == 0) return cudaSuccess;
+  const int windows = n <= SUM_WINDOW ? 1 : (n + SUM_WINDOW - 1) / SUM_WINDOW;
+  const int lead = (SUM_WINDOW - n % SUM_WINDOW) % SUM_WINDOW / 2 * (windows > 1);
+  // outputs a block: strided, a multiple of 32 (whole warps of neighbouring
+  // inner elements); staged, as many rows as SUM_ROWS_FLOATS holds
+  int ox = SUM_THREADS / windows / 32 * 32, stride = 0;
+  if (ox < 32) ox = 32;
+  if (inner == 1) {
+    stride = n | 1;
+    ox = SUM_THREADS / windows;
+    if (ox * stride > SUM_ROWS_FLOATS) ox = SUM_ROWS_FLOATS / stride;
+  }
+  const int smem = 4 * (ox * stride + (windows > 1 ? windows * ox : 0));
+  bf16_sum_kernel<<<(unsigned)((outputs + ox - 1) / ox), dim3(ox, windows), smem,
+                    static_cast<cudaStream_t>(stream_ptr)>>>(x, out, outer, n, inner, lead,
+                                                             stride);
   return cudaGetLastError();
 }

@@ -9,7 +9,10 @@ softmax of the model. A float32 sum rounded once sits 0.3-0.7 of the
 bfloat16 effect from XLA's gradients, so the port keeps the order.
 
 :func:`bf16_sum` launches ``csrc/bf16_sum.cu`` on a CUDA tensor (one
-launch, ``launches``) and takes :func:`bf16_sum_plain` on a CPU one.
+launch, ``launches``: a thread per output and window of 32 terms, the
+window's loads issued before its chain of rounded adds, a contiguous axis
+staged through shared memory first) and takes :func:`bf16_sum_plain` on a
+CPU one.
 """
 
 from __future__ import annotations

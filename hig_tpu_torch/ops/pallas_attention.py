@@ -81,13 +81,16 @@ head's columns of q, k and v into shared memory through TMA, the key
 passes there, the state and y on ``wgmma`` (products of bfloat16 values
 are exact): the whole form, for Tq and Tk up to :data:`BF16_MAX_T`. Above
 that the streaming form runs (``hig_efficient_attention_bf16_stream``):
-the same rounding points, the column max and the rounded exponentials'
-float32 sum taken in two passes over the keys in device memory, then E =
-softmax_time(k) recomputed and streamed with v through shared memory in
-128-row rounds into the state's float32 accumulator, so it takes any T (a
+the same rounding points in the same order, fed by a producer warp's TMA
+loads. Up to 448 key rows stay in shared memory (k read once), v comes
+through a ring of stages, E = softmax_time(k) is built a key tile at a
+time while the state's ``wgmma`` steps on the previous tile run, and the
+queries land in the key tiles and ring stages as those free up; past 448
+rows k streams through the ring. So it takes any T (a
 ``--single_transformer`` model's merged timeline is 394 rows at a native
-window of 196) and equals the whole form bit for bit where both run
-(:func:`b3_bf16_form` picks).
+window of 196) and equals the whole form bit for bit where both run.
+:func:`b3_bf16_form` keeps the whole form up to :data:`BF16_MAX_T` rows,
+where the whole form is the faster at the training shape (PERF.md).
 :func:`fused_efficient_attention_plain` on bfloat16 inputs is its twin, and
 ``unrounded`` leaves out rounding points (:data:`B3_ROUNDINGS`) for the
 planted controls. The twin is also JAX's ``efficient_attention`` on
@@ -595,7 +598,8 @@ def efficient_attention_backward(saved, grad_out, num_heads: int, needs=(True,) 
 
 def b3_bf16_form(Tq: int, Tk: int) -> str:
     """The form of B3-bf16 that runs at Tq queries over Tk keys: the whole
-    form up to :data:`BF16_MAX_T` rows of each, else the streaming form."""
+    form up to :data:`BF16_MAX_T` rows of each (the faster of the two at
+    128 × 91 on the H100), else the streaming form."""
     return "whole" if max(Tq, Tk) <= BF16_MAX_T else "stream"
 
 

@@ -171,7 +171,7 @@ def test_b3_twin_is_efficient_attention_in_bf16(shape):
     assert not np.array_equal(f32(control), f32(want))
 
 
-SUM_TERMS = (1, 12, 32, 33, 64, 91, 196, 1000)
+SUM_TERMS = (1, 12, 32, 33, 64, 91, 95, 97, 196, 394, 1000)
 
 
 @pytest.mark.parametrize("n", SUM_TERMS)
@@ -195,6 +195,28 @@ def test_bf16_sum_is_xlas_bf16_reduce(n):
         if n > 2:
             once = xt.sum(axis).to(BF16)
             assert not np.array_equal(f32(once), f32(want))
+
+
+# The sum kernel's two layouts at the shapes the bfloat16 backwards give it:
+# B3-bf16's feature softmax (64 contiguous terms: rows staged in shared
+# memory) and its time softmax (91 terms 512 apart: a thread per output and
+# window); (shape, axis)
+SUM_LAYOUTS = {"contiguous_64": ((300, 64), 1), "stride512_91": ((2, 91, 512), 1)}
+
+
+@pytest.mark.parametrize("layout", list(SUM_LAYOUTS))
+def test_bf16_sum_is_xlas_bf16_reduce_at_the_kernel_layouts(layout):
+    """The plain ordered sum, which the kernel is held to bit for bit on
+    the card, against XLA's reduce of the bfloat16 array (``lax.reduce``),
+    bit for bit, at each of the kernel's layouts."""
+    from hig_tpu_torch.ops.bf16_sum import bf16_sum
+
+    shape, axis = SUM_LAYOUTS[layout]
+    xt = tb(np.random.RandomState(0).randn(*shape).astype(np.float32)).float()
+    want = jax_run(lambda a: jax.lax.reduce(a, np.array(0, a.dtype), jax.lax.add, (axis,)),
+                   True, jb(xt.numpy()))
+    got = bf16_sum(xt, axis)
+    np.testing.assert_array_equal(f32(got).squeeze(axis), f32(want))
 
 
 def sum_rounded_once(x, dim):

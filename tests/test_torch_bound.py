@@ -68,6 +68,14 @@ BF16_CASES = {
     # the ordered bfloat16 sum over one B3-bf16 backward's two axes: float32
     # adds outside the tensor cores, float32 in and out
     "bf16_sum": ([(2 * N * T * D, "f32")], 4 * (2 * N * T * D + N * T * H + N * D), "bytes"),
+    # B2's rectangular bfloat16 forms (a TP rank's 256 output columns, 4
+    # heads; kv from the partner): as B2-bf16's and B2-bf16a's at Dout = 256
+    "projected_attention_rect_bf16": (
+        [(2 * M * D * 3 * 256, "bf16"), (2 * 2 * N * 4 * T * HD * HD, "3xtf32")],
+        2 * (2 * M * D + M * 256 + 3 * 256 * D + 3 * 256) + 4 * M, "ops_3xtf32+bf16"),
+    "projected_attention_rect_bf16a": (
+        [(2 * M * D * 3 * 256, "3xbf16"), (2 * 2 * N * 4 * T * HD * HD, "3xtf32")],
+        2 * (2 * M * D + M * 256) + 4 * (3 * 256 * D + 3 * 256) + 4 * M, "ops_3xbf16+3xtf32"),
 }
 
 
@@ -84,6 +92,8 @@ def test_bf16_bound_counts_each_part_at_its_rate(form):
     assert by == ("bytes" if want_kind == "bytes" else "operations")
     if form == "efficient_attention_bf16":  # what phase 10 passes for B3-bf16
         assert chip_smoke.b3_bf16_work(N, T, T) == (parts, nbytes)
+    if form.startswith("projected_attention_rect_"):  # what phase 16 passes
+        assert chip_smoke.rect_bf16_work(form.rsplit("_", 1)[1], N, T) == (parts, nbytes)
 
 
 # The gates phase 10 holds each bfloat16 form to against its twin fail a

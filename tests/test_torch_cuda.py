@@ -512,19 +512,24 @@ def test_bf16_projected_takes_long_sequences(cuda_bf16):
                                   w.wq, w.bq, w.wk, w.bk, w.wv, w.bv, H, mask[..., :321])
 
 
-def _b3_bf16_operands(device, tq, tk, seed=2):
+def _b3_bf16_operands(device, tq, tk, seed=2, one_key=False):
+    """Seeded bfloat16 q, k, v and a key mask of LENGTHS scaled to tk (the
+    first pair's to one key with ``one_key``)."""
     gen = torch.Generator().manual_seed(seed)
     q = torch.randn((N_PAIRS, 2, tq, D), generator=gen).to(device, BF16)
     k, v = (torch.randn((N_PAIRS, 2, tk, D), generator=gen).to(device, BF16) for _ in range(2))
-    lengths = torch.tensor([max(1, L * tk // 91) for L in LENGTHS], device=device)
+    lengths = torch.tensor([1 if one_key and i == 0 else max(1, L * tk // 91)
+                            for i, L in enumerate(LENGTHS)], device=device)
     mask = (torch.arange(tk, device=device) < lengths[:, None]).float()
     return q, k, v, mask[:, None, :].expand(N_PAIRS, 2, tk).contiguous()
 
 
-@pytest.mark.parametrize("tq,tk", [(394, 394), (321, 77), (91, 394)])
+@pytest.mark.parametrize("tq,tk", [(394, 394), (321, 77), (91, 394), (640, 640), (1000, 1000)])
 def test_bf16_efficient_streams_long_sequences(cuda_bf16, tq, tk):
     """Past 320 queries or keys B3-bf16 takes its streaming form, one
-    counted launch, within the gates of its twin."""
+    counted launch, within the gates of its twin; past 448 keys (640, 1000)
+    the keys stream through its ring, as they no longer fit in shared
+    memory beside it."""
     q, k, v, mask = _b3_bf16_operands(cuda_bf16, tq, tk)
     assert b3_bf16_form(tq, tk) == "stream"
     before = fused_efficient_attention.launches_bf16
@@ -540,12 +545,27 @@ def test_bf16_efficient_streams_long_sequences(cuda_bf16, tq, tk):
     assert ok, readings
 
 
-@pytest.mark.parametrize("tq,tk", [(1, 1), (17, 17), (91, 91), (91, 77), (196, 196),
-                                   (320, 320), (320, 129)])
-def test_bf16_efficient_stream_form_is_the_whole_form(cuda_bf16, tq, tk):
+# B3-bf16's streaming form's ring edges (a key or query tile full, one row
+# past, one short; the fourth and fifth tiles), Tq != Tk both ways, and a
+# sequence whose mask keeps one key: (tq, tk, one_key)
+B3_EDGES = [(t, t, False) for t in (63, 64, 65, 127, 128, 129, 191, 257)] + [
+    (65, 257, False), (257, 65, False), (91, 91, True)]
+
+
+def _edge_id(case) -> str:
+    tq, tk, one_key = case
+    return f"{tq}-{tk}" + ("-one_key" if one_key else "")
+
+
+FORM_CASES = [(1, 1, False), (17, 17, False), (91, 91, False), (91, 77, False),
+              (196, 196, False), (320, 320, False), (320, 129, False), *B3_EDGES]
+
+
+@pytest.mark.parametrize("tq,tk,one_key", FORM_CASES, ids=[_edge_id(c) for c in FORM_CASES])
+def test_bf16_efficient_stream_form_is_the_whole_form(cuda_bf16, tq, tk, one_key):
     """The streaming form rounds at the whole form's points and sums in its
     order, so where both run they agree bit for bit."""
-    q, k, v, mask = _b3_bf16_operands(cuda_bf16, tq, tk, seed=3)
+    q, k, v, mask = _b3_bf16_operands(cuda_bf16, tq, tk, seed=3, one_key=one_key)
     whole = efficient_attention_bf16_form(q, k, v, H, mask, "whole")
     stream = efficient_attention_bf16_form(q, k, v, H, mask, "stream")
     torch.cuda.synchronize()
@@ -555,14 +575,18 @@ def test_bf16_efficient_stream_form_is_the_whole_form(cuda_bf16, tq, tk):
         efficient_attention_bf16_form(q, k, v, H, mask, "whole")
 
 
-@pytest.mark.parametrize("tq,tk", [(91, 91), (91, 77), (196, 196), (394, 394)])
-def test_bf16_lazy_forms_are_their_twin(cuda_bf16, tq, tk):
+LAZY_CASES = [(91, 91, False), (91, 77, False), (196, 196, False), (394, 394, False),
+              *B3_EDGES]
+
+
+@pytest.mark.parametrize("tq,tk,one_key", LAZY_CASES, ids=[_edge_id(c) for c in LAZY_CASES])
+def test_bf16_lazy_forms_are_their_twin(cuda_bf16, tq, tk, one_key):
     """B3-bf16's lazy forms (``LAZY_KNORM``): one counted launch in
     ``launches_bf16_lazy``, the whole and streaming forms equal bit for bit
     where both run, within the gates of the lazy twin, where the eager
     twin sits off them; the float32 kernel, unchanged, is within TOL of
     the lazy float32 twin."""
-    q, k, v, mask = _b3_bf16_operands(cuda_bf16, tq, tk, seed=4)
+    q, k, v, mask = _b3_bf16_operands(cuda_bf16, tq, tk, seed=4, one_key=one_key)
     args = (q, k, v, H, mask)
     before = fused_efficient_attention.launches_bf16_lazy
     got = fused_efficient_attention(*args, lazy=True)
@@ -586,6 +610,20 @@ def test_bf16_lazy_forms_are_their_twin(cuda_bf16, tq, tk):
     got32 = fused_efficient_attention(*f32, H, mask, lazy=True)
     assert fused_efficient_attention.launches == before + 1
     assert_close(got32, efficient_attention(*f32, H, mask, lazy=True))
+
+
+def test_b3_softmax_division_is_ieee_over_its_domain(cuda):
+    """B3-bf16's softmax quotients (a bfloat16 exponential over a rounded
+    sum) take a remainder correction of the correctly rounded reciprocal
+    in place of the IEEE division where ``b3_div_ok`` holds: over every such
+    pair of bfloat16 values x in [0, 1] and s in [1, 2^16] the two agree
+    bit for bit."""
+    from hig_tpu_torch.ops import _build
+
+    mismatches = torch.zeros(1, dtype=torch.int32, device=cuda)
+    _build.launch("efficient_attention", (mismatches,), (),
+                  torch.cuda.current_stream(cuda).cuda_stream, entry="b3_division_mismatches")
+    assert int(mismatches.item()) == 0
 
 
 def test_lazy_flag_keys_the_sampler_graphs(cuda):
@@ -809,11 +847,17 @@ def test_efficient_attention_bf16_gradients(cuda_bf16, Tk, pairs):
 # The ordered bfloat16 sum over the axes the bfloat16 backwards sum at the
 # training shape (64 pairs, 8 heads of 64): B3-bf16's feature and time
 # softmaxes, B4-bf16's key softmax (at T = 196 too); one term; the most terms
-# the kernel takes; and a transposed (non-contiguous) input.
+# the kernel takes; a transposed (non-contiguous) input; the padding's two
+# ends (33, 95, 97 terms, strided and contiguous); contiguous rows that fill
+# no last block (1001 rows of 64 terms, 128 a block); 394 terms 512 apart (a
+# --single_transformer step's time softmax).
 SUM_CASES = {"features": ((64, 2, T, H, 64), -1), "time": ((64, 2, T, H, 64), -3),
              "keys": ((64, 2, T, T, H), -2), "keys_t196": ((8, 2, 196, 196, H), -2),
              "one_term": ((4, 1, 8), 1), "max_terms": ((3, MAX_TERMS, 5), 1),
-             "transposed": ((6, 40, 33), 1)}
+             "transposed": ((6, 40, 33), 1), "n33": ((6, 33, 40), 1), "n95": ((6, 95, 40), 1),
+             "n97": ((6, 97, 40), 1), "n33_rows": ((301, 33), 1), "n95_rows": ((301, 95), 1),
+             "n97_rows": ((301, 97), 1), "ragged_rows": ((1001, 64), 1),
+             "t394_stride512": ((4, 394, 512), 1)}
 
 
 @pytest.mark.parametrize("case", list(SUM_CASES))

@@ -77,8 +77,9 @@ Phases, each printing one JSON line (or several):
      serving call of each run, of the guided and caption-id serving calls,
      of the serving calls from the trained PIT checkpoints (float32 and
      bfloat16), of the first chunk of each
-     ``evaluate`` run (float32 DDIM-50 guided, DPM-20, DDPM-1000; bfloat16
-     DPM-20), of one labeling vote (a denoiser forward over 64 pairs under both
+     ``evaluate`` run (float32 DDIM-50 guided, DPM-20; bfloat16 DPM-20), of
+     phase 9's DDPM serving call (DDPM_STEPS steps), of one labeling
+     vote (a denoiser forward over 64 pairs under both
      assignments) and one more PIT training step, and of one bfloat16 PIT
      step and two bfloat16 labeling votes, fused (B1-bf16) and rms_norm
      projected (B2-bf16a) (phase 11). Every sampler call and both training
@@ -105,19 +106,24 @@ Phases, each printing one JSON line (or several):
      logits on the card against the CPU); ``python -m
      hig_tpu_torch.evaluate``'s main from stage 1-3's checkpoint three times
      (DDIM-50 guided w = GUIDANCE at T = 196, one replication; DPM-20 at
-     T = 196; DDPM-1000 at T = 91), each with exactly 16 B1 launches per
+     T = 196; DDPM over DDPM_STEPS steps at T = 91, from a copy of the
+     run's opt.txt whose diffusion_steps says so: the depth cut of its
+     1000, to pay for phase 17), each with exactly 16 B1 launches per
      denoiser call and per captured graph's warm-up and none of the
      others, the graphs' capture seconds and pools, the first chunk of the
      DDIM and DPM runs replayed again and run through the eager loop (equal
      bit for bit, timed), finite metrics, Acc and
      Consistency in [0, 1], FID ≥ 0, confusion matrices of 52 clips, the
-     five metrics in summary<run>.json, and for DDPM a peak memory below
-     the size of the AdaLN grid it does not build; then DDPM-1000 at the
-     serving shape through B1: the capture, a replay and the eager loop
-     (equal bit for bit, the generator left in the same state), and the
-     eager loop of a DDPM call over a DDPM_PLAIN_STEPS-step schedule
-     through B1 against the same through the plain route (same x_T and step
-     noises), with the wall time of each call.
+     five metrics in summary<run>.json, and for DDPM a peak memory within
+     half the size of the AdaLN grid it does not build of the DPM-20 run's
+     (a 250-step grid is 3.4 GB; a run that built it would sit 3.1 GB more
+     above DPM-20's, the grid less DPM-20's own 20 steps); then
+     DDPM over a
+     DDPM_STEPS-step schedule at the serving shape through B1: the
+     capture, a replay and the eager loop (equal bit for bit, the generator
+     left in the same state), and the replay against the eager loop through
+     the plain route (same x_T and step noises), with the wall time of each
+     call.
  10. bf16 (after phase 9, before the profile; cuBLAS's reduced-precision
      bf16 reductions off): each bfloat16 form (B1-bf16 self and
      interaction, B2-bf16 self and partner, B3-bf16 through ``_attend``
@@ -336,11 +342,34 @@ Phases, each printing one JSON line (or several):
      after phase 15; the one-rank counterparts run on the card while the
      ranks start up and run; a failing rank fails the phase. Two ranks on
      one card time nothing about scaling.
+ 17. head width (after phase 16, before the profile): every kernel form at
+     head width 128 (D = 512, 4 heads, each library's HIG_HD = 128 build)
+     at the serving shape against its plain version under phase 3's and
+     phase 10's gates (planted controls included), timed, with its bound;
+     B1-bf16's and B2-bf16a's streaming forms against their twins at 64 x
+     394, and bit for bit against their whole forms (with B3-bf16's two
+     forms) at 91 and 196 rows (width 64) and 128 rows (width 128); the
+     ordered bfloat16 sum at 1025 and 4096 terms bit for bit against its
+     plain version. Then the path at head width 128 (the models take phase
+     4's weights: a head's width changes no parameter's shape): the
+     denoiser against
+     the plain route (phase 4's check), DDIM-50 serving of 8 pairs fused,
+     projected and --no_eff in float32 (phase 5's checks) and fused and
+     projected in bfloat16 (phase 10's), PIT through ``train --num_heads
+     4`` (PIT, graphed, 3 steps of 32 pairs; gradients against the plain
+     route at the first batch), then 3 PIT steps at batch 32 in float32,
+     bfloat16 and bfloat16 --no_eff (B4-bf16 and its backward), each
+     graphed against eager bit for bit from phase 4's weights (phase 13's
+     step-level check; bf16 gradients against the plain route);
+     and a bfloat16 fused model of num_frames 400 serving 2 requests of 399
+     frames, 800 launches of B1-bf16's streaming form a call.
 Then the kernel table (the bfloat16 forms' rows after the float32 ones, and
 phase 12's, 13's, 14's and 15's launches added; B3-bf16's row with both forms'
 times under "forms"; its lazy forms' row, their launches phase 11's lazy
 step's; B2's rectangular form's row, its launches phase 16's TP call's on
-rank 0), the nvidia-smi line, and as the last line
+rank 0; the width-128 rows and the two streaming forms' rows, their launches
+phase 17's; the ordered sum's row with its cases past 1024 terms), the
+nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero without
 that line. Imports nothing of JAX or of the JAX package.
 """
@@ -413,23 +442,25 @@ LABEL_BATCH = 64  # the label CLI's default: one batch of each split
 GUIDANCE = 2.5
 # The evaluation (phase 9): the test split has two clips per class, all in
 # one generation chunk; generation runs at the evaluation length (the
-# default --gen_T, max_motion_length) except the DDPM-1000 run.
+# default --gen_T, max_motion_length) except the DDPM run.
 EVAL_CLIPS, EVAL_T = 52, 196
+# The DDPM runs (phase 9's evaluate run and serving check) walk a schedule
+# of this many steps, the depth cut of the checkpoint's 1000 (the evaluate
+# run from an opt.txt saying so): DDPM's launches, graphs and checks at a
+# quarter of the time, which pays for phase 17.
+DDPM_STEPS = 250
 # evaluate run → (arguments of python -m hig_tpu_torch.evaluate, denoiser
 # calls a replication, replications)
 EVAL_RUNS = {
     "ddim_guided": (["--sampler", "ddim", "--guidance_scale", str(GUIDANCE),
                      "--replication_times", "1"], DDIM_STEPS, 1),
     "dpm20": (["--sampler", "dpm", "--ddim_steps", "20"], 20, 1),
-    "ddpm1000": (["--sampler", "ddpm", "--gen_T", str(T)], 1000, 1),
+    "ddpm": (["--sampler", "ddpm", "--gen_T", str(T)], DDPM_STEPS, 1),
 }
 METRICS = ("Acc", "Consistency", "FID", "Diversity", "MultiModality")
 # Evaluator logits on the card against the same model on the CPU (TF32 off):
 # 8 post-LN layers over 182 tokens, float32 sums in another order.
 EVAL_LOGITS_REL_TOL = 1e-4
-# the DDPM serving call's kernels against the plain route over a schedule of
-# this many steps (the 1000-step call is graphed against the eager loop)
-DDPM_PLAIN_STEPS = 250
 CAP_ID_RUN = (["--cap_id", "--times", "4"], 6, "projected_attention")
 CFG_RUN = (["--times", "2", "--limit_data_num", "32", "--label_path", "{data}/pseudo_labels.json",
             "--cond_drop_prob", "0.1", "--loss_aware_sampler", "--eval_every_e", "1",
@@ -1035,7 +1066,7 @@ def check_flash_attention(w, x, mask, failures) -> dict:
     }
 
 
-def phase_denoiser(models: dict, device, failures) -> None:
+def phase_denoiser(models: dict, device, failures, tag: str = "") -> None:
     gen = torch.Generator().manual_seed(2)
     cfg = models["fused"].cfg
     x = torch.randn((N_PAIRS, 2, T, cfg.input_feats), generator=gen).to(device)
@@ -1050,10 +1081,11 @@ def phase_denoiser(models: dict, device, failures) -> None:
             with plain_blocks():
                 want = model.denoise(x, t, lengths, xf_proj, text_kv=kv)
             err = (got - want).abs().max().item()
-            print(json.dumps({"phase": "denoiser", "run": blocks, "tol": DENOISER_TOL,
+            print(json.dumps({"phase": "denoiser" + tag, "run": blocks, "tol": DENOISER_TOL,
                               "max_abs_err": err, "max_abs_out": want.abs().max().item()}),
                   flush=True)
-            fail_if(failures, not err <= DENOISER_TOL, f"denoiser ({blocks}) max |err| {err}")
+            fail_if(failures, not err <= DENOISER_TOL,
+                    f"denoiser{tag} ({blocks}) max |err| {err}")
 
 
 def serve_requests() -> list:
@@ -1064,10 +1096,11 @@ def serve_requests() -> list:
             for i, ((c1, c2), L) in enumerate(zip(CLASSID2CAPS, LENGTHS))]
 
 
-def phase_serve(models: dict, device, failures) -> tuple[dict, dict, tuple]:
-    """Phase 5. Returns the launch counts, {"serve_<run>": (graphed call,
-    replayed wall s)} for the profile, and ("serve_fused_eager", the fused
-    model's eager call, its wall s)."""
+def phase_serve(models: dict, device, failures, tag: str = "") -> tuple[dict, dict, tuple]:
+    """Phase 5 (``tag``: another phase's run of it). Returns the launch
+    counts, {"serve_<run>": (graphed call, replayed wall s)} for the
+    profile, and ("serve_fused_eager", the fused model's eager call, its
+    wall s)."""
     from hig_tpu_torch import serve
     from hig_tpu_torch.diffusion import gaussian as g
     from hig_tpu_torch.train.trainer import make_sampler
@@ -1087,8 +1120,9 @@ def phase_serve(models: dict, device, failures) -> tuple[dict, dict, tuple]:
         eager = serve_with(make_sampler(model, sched, graph=False, **kw), requests, mean, std)
         # The host clock varies from call to call (the machine's CPU cores
         # are shared), so the wall time is the median of a few calls.
+        label = f"serve{tag} ({run_name})"
         row, (features, joints), first, call_counts = graph_and_eager(
-            f"serve ({run_name})", run, eager, sample_fn.graphs, failures)
+            label, run, eager, sample_fn.graphs, failures)
         with plain_blocks():
             t1 = time.perf_counter()
             ref_features, _ = eager(torch.Generator(device=device).manual_seed(0))
@@ -1096,7 +1130,7 @@ def phase_serve(models: dict, device, failures) -> tuple[dict, dict, tuple]:
             plain_wall = time.perf_counter() - t1
         rel = float(np.abs(features - ref_features).max() / np.abs(ref_features).max())
         print(json.dumps({
-            "phase": "serve", "run": run_name, "requests": len(requests), "T": T,
+            "phase": "serve" + tag, "run": run_name, "requests": len(requests), "T": T,
             "ddim_steps": DDIM_STEPS, "launches": call_counts[0], **row,
             "plain_wall_s_per_call": plain_wall,
             "features_shape": list(features.shape), "joints_shape": list(joints.shape),
@@ -1107,15 +1141,15 @@ def phase_serve(models: dict, device, failures) -> tuple[dict, dict, tuple]:
         }), flush=True)
         fail_if(failures, any(c[name] != (LAUNCHES_PER_CALL if name == own else 0)
                               for c in call_counts for name in kernels),
-                f"serve ({run_name}) launches {call_counts}")
+                f"{label} launches {call_counts}")
         fail_if(failures, any(first[name] != (FIRST_CALL if name == own else 0)
                               for name in kernels),
-                f"serve ({run_name}) launches of the capturing call {first}")
+                f"{label} launches of the capturing call {first}")
         fail_if(failures, tuple(joints.shape) != (N_PAIRS, 2, T - 1, 22, 3),
-                f"serve ({run_name}) joints shape {joints.shape}")
+                f"{label} joints shape {joints.shape}")
         fail_if(failures, not (np.isfinite(features).all() and np.isfinite(joints).all()),
-                f"serve ({run_name}) non-finite output")
-        fail_if(failures, not rel <= SAMPLER_REL_TOL, f"serve ({run_name}) rel err {rel}")
+                f"{label} non-finite output")
+        fail_if(failures, not rel <= SAMPLER_REL_TOL, f"{label} rel err {rel}")
         for name in kernels:
             launches[name] += call_counts[0][name]
         runs[f"serve_{run_name}"] = (seeded(run), row["wall_s_per_call"])
@@ -1278,8 +1312,8 @@ def phase_profile(runs: dict, eager: tuple, device, failures) -> None:
 
     eager_run, eager_call, eager_wall = eager
     todo = {**runs, eager_run: (eager_call, eager_wall)}
-    # the DDPM-1000 calls last: after a trace of their ~200,000 device events
-    # every later profile session on the H100 took ~8 s longer
+    # the DDPM calls last: after a trace of a DDPM-1000 call's ~200,000
+    # device events every later profile session on the H100 took ~8 s longer
     todo = dict(sorted(todo.items(), key=lambda item: "ddpm" in item[0]))
     for i, (run_name, (run, wall)) in enumerate(todo.items()):
         table = (per_launch if sampler_run(run_name)
@@ -1958,13 +1992,13 @@ def phase_evaluate(device, failures, smi: str, data: str, tmp: str,
     """Phase 9 (see the module doc): both evaluator trainings, the three
     ``python -m hig_tpu_torch.evaluate`` runs from stage 1-3's checkpoint
     (the first chunk of DDIM-50 guided and of DPM-20 again through the
-    graph and through the eager loop), and DDPM-1000 through B1, graphed
-    against the eager loop, and DDPM over DDPM_PLAIN_STEPS steps against the
-    plain route, on ``model`` (the flagship with fused blocks) at the
-    serving shape. Returns the launch
-    counts and, for the profile, {run: (call, replayed wall s or None)}:
-    each evaluate run's first chunk ("evaluate_<run>"; its DDPM-1000 one
-    is the profile's DDPM trace)."""
+    graph and through the eager loop), and DDPM over DDPM_STEPS steps
+    through B1, graphed against the eager loop and against the plain route,
+    on ``model`` (the flagship with fused blocks) at the serving shape.
+    Returns the launch counts and, for the profile, {run: (call, replayed
+    wall s or None)}: the DDIM and DPM evaluate runs' first chunks
+    ("evaluate_<run>") and the DDPM serving call ("serve_ddpm", the
+    profile's DDPM trace)."""
     from hig_tpu_torch import evaluate, serve
     from hig_tpu_torch.diffusion import gaussian as g
     from hig_tpu_torch.train import trainer as tr
@@ -1983,8 +2017,14 @@ def phase_evaluate(device, failures, smi: str, data: str, tmp: str,
     with open(opt, "w") as f:
         f.write(text.replace("limit_data_num: 32\n", "limit_data_num: -1\n"))
     fail_if(failures, "limit_data_num: 32\n" not in text, "stage 1-3's opt.txt: no limit line")
-    ddpm_grid_bytes = 1000 * 2 * EVAL_CLIPS * 8 * 4 * 2 * D * 4  # steps × seqs × blocks × 2D
-    runs = {}
+    opt_ddpm = os.path.join(tmp, "cfg_supervised_eval_ddpm_opt.txt")
+    with open(opt_ddpm, "w") as f:
+        f.write(text.replace("limit_data_num: 32\n", "limit_data_num: -1\n")
+                .replace("diffusion_steps: 1000\n", f"diffusion_steps: {DDPM_STEPS}\n"))
+    fail_if(failures, "diffusion_steps: 1000\n" not in text,
+            "stage 1-3's opt.txt: no diffusion_steps line")
+    ddpm_grid_bytes = DDPM_STEPS * 2 * EVAL_CLIPS * 8 * 4 * 2 * D * 4  # steps × seqs × blocks × 2D
+    runs, peaks = {}, {}
     for run, (extra, calls, reps) in EVAL_RUNS.items():
         for w in kernels.values():
             w.launches = 0
@@ -1992,16 +2032,16 @@ def phase_evaluate(device, failures, smi: str, data: str, tmp: str,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with spy_samplers(evaluate) as made:
-            out = evaluate.main(["--opt_path", opt, "--mm_num_times", "1", "--file_id", run,
-                                 *extra])
+            out = evaluate.main(["--opt_path", opt_ddpm if run == "ddpm" else opt,
+                                 "--mm_num_times", "1", "--file_id", run, *extra])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {name: w.launches for name, w in kernels.items()}
         peak = torch.cuda.max_memory_allocated()
-        graph_row = (None if run == "ddpm1000" else
+        graph_row = (None if run == "ddpm" else
                      chunk_graph_and_eager(f"evaluate {run}", made[0], failures))
-        runs[f"evaluate_{run}"] = (first_chunk(made[0]),
-                                   graph_row and graph_row["replay_wall_s"])
+        if graph_row:  # DDPM: the profile traces the serving call below (its depth cut)
+            runs[f"evaluate_{run}"] = (first_chunk(made[0]), graph_row["replay_wall_s"])
         with open(os.path.join(out["save_dir"], f"summary{run}.json")) as f:
             summary = json.load(f)
         cms = [np.load(os.path.join(out["save_dir"], f"confusion_matrix{run}_rep{r}.npy"))
@@ -2030,51 +2070,58 @@ def phase_evaluate(device, failures, smi: str, data: str, tmp: str,
                 f"evaluate {run}: negative FID {means['FID']}")
         fail_if(failures, any(int(cm.sum()) != EVAL_CLIPS for cm in cms),
                 f"evaluate {run}: confusion sums {[int(cm.sum()) for cm in cms]}")
-        if run == "ddpm1000":
-            fail_if(failures, not peak < ddpm_grid_bytes,
-                    f"evaluate {run}: peak {peak} B, not below the AdaLN grid's "
-                    f"{ddpm_grid_bytes} B")
+        if run == "ddpm":
+            # DDPM builds no AdaLN grid: its peak stays within half its grid's
+            # size of the DPM-20 run's (same chunk). A run that built the grid
+            # would sit the grid less DPM-20's own 20-step grid above it.
+            above = peak - peaks["dpm20"]
+            print(json.dumps({"phase": "evaluate", "run": run,
+                              "peak_above_dpm20_gb": above / 1e9,
+                              "limit_gb": ddpm_grid_bytes / 2e9,
+                              "grid_gb": ddpm_grid_bytes / 1e9}), flush=True)
+            fail_if(failures, not above < ddpm_grid_bytes / 2,
+                    f"evaluate {run}: peak {peak} B, {above} B above DPM-20's, not below "
+                    f"half the AdaLN grid's {ddpm_grid_bytes} B")
+        peaks[run] = peak
         for name in kernels:
             launches[name] += counts[name]
 
-    # DDPM-1000 through B1: 8 requests, graphed against the eager loop
+    # DDPM through B1 over a DDPM_STEPS-step schedule: 8 requests, graphed
+    # against the eager loop, the replay against the plain route's eager loop
+    # (the same x_T and step noises from one generator seed, which must end
+    # in the same state)
     requests = serve_requests()
     mean, std = serve.load_stats(None, model.cfg.input_feats)
     kw = dict(T=T, dim_pose=model.cfg.input_feats, sampler="ddpm")
-    sched = g.make_schedule(g.linear_betas(1000))
+    sched = g.make_schedule(g.linear_betas(DDPM_STEPS))
     sample_fn = tr.make_sampler(model, sched, **kw)
     ddpm = serve_with(sample_fn, requests, mean, std)
     eager = serve_with(tr.make_sampler(model, sched, graph=False, **kw), requests, mean, std)
-    # the capture, one replay, one eager call (the same x_T and step noises
-    # from one generator seed, which must end in the same state)
     row, (features, joints), first, (counts,) = graph_and_eager(
-        "DDPM-1000", ddpm, eager, sample_fn.graphs, failures, replays=1, eager_calls=1)
-    # the kernels against the plain route, the eager loop of a DDPM call of
-    # DDPM_PLAIN_STEPS steps (the same x_T and step noises): the depth cut
-    short = serve_with(tr.make_sampler(model, g.make_schedule(g.linear_betas(DDPM_PLAIN_STEPS)),
-                                       graph=False, **kw), requests, mean, std)
-    kernel_features, _ = short(torch.Generator(device=device).manual_seed(0))
+        f"DDPM-{DDPM_STEPS}", ddpm, eager, sample_fn.graphs, failures, replays=1,
+        eager_calls=1)
     with plain_blocks():
         t1 = time.perf_counter()
-        ref_features, _ = short(torch.Generator(device=device).manual_seed(0))
+        ref_features, _ = eager(torch.Generator(device=device).manual_seed(0))
         torch.cuda.synchronize()
         plain_wall = time.perf_counter() - t1
-    rel = float(np.abs(kernel_features - ref_features).max() / np.abs(ref_features).max())
+    rel = float(np.abs(features - ref_features).max() / np.abs(ref_features).max())
     finite = bool(np.isfinite(features).all() and np.isfinite(joints).all())
-    print(json.dumps({"phase": "evaluate", "run": "serve_ddpm1000_vs_plain", "nvidia_smi": smi,
-                      "requests": len(requests), "T": T, "steps": 1000, "launches": counts,
-                      **row, "plain_steps": DDPM_PLAIN_STEPS,
-                      "plain_wall_s_per_call": plain_wall,
+    print(json.dumps({"phase": "evaluate", "run": "serve_ddpm_vs_plain", "nvidia_smi": smi,
+                      "requests": len(requests), "T": T, "steps": DDPM_STEPS,
+                      "launches": counts, **row, "plain_wall_s_per_call": plain_wall,
                       "finite": finite, "joints_shape": list(joints.shape),
                       "max_abs_features": float(np.abs(ref_features).max()),
                       "rel_err_vs_plain": rel, "rel_tol": SAMPLER_REL_TOL}), flush=True)
-    fail_if(failures, any(counts[n] != (LAUNCHES_PER_STEP * 1000 if n == "fused_block" else 0)
-                          for n in kernels)
-            or any(first[n] != (LAUNCHES_PER_STEP * 1001 if n == "fused_block" else 0)
-                   for n in kernels), f"DDPM-1000 launches {first}, {counts}")
+    fail_if(failures, any(counts[n] != (LAUNCHES_PER_STEP * DDPM_STEPS
+                                        if n == "fused_block" else 0) for n in kernels)
+            or any(first[n] != (LAUNCHES_PER_STEP * (DDPM_STEPS + 1)
+                                if n == "fused_block" else 0) for n in kernels),
+            f"DDPM-{DDPM_STEPS} launches {first}, {counts}")
     fail_if(failures, not finite or tuple(joints.shape) != (N_PAIRS, 2, T - 1, 22, 3),
-            f"DDPM-1000: finite {finite}, shape {joints.shape}")
-    fail_if(failures, not rel <= SAMPLER_REL_TOL, f"DDPM-{DDPM_PLAIN_STEPS} rel err {rel}")
+            f"DDPM-{DDPM_STEPS}: finite {finite}, shape {joints.shape}")
+    fail_if(failures, not rel <= SAMPLER_REL_TOL, f"DDPM-{DDPM_STEPS} rel err {rel}")
+    runs["serve_ddpm"] = (seeded(ddpm), row["wall_s_per_call"])
     for name in kernels:
         launches[name] += counts[name]
     return launches, runs
@@ -2154,6 +2201,11 @@ LAZY_FORM = "efficient_attention_bf16_lazy"
 # B3-bf16's streaming form, past 320 rows (``b3_bf16_form``), counted in
 # ``launches_bf16`` with the whole form
 STREAM_FORM = "efficient_attention_bf16_stream"
+# B1-bf16's and B2-bf16a's streaming forms, past their whole forms' rows
+# (``whole_or_stream``), each counted apart: form → (wrapper, counter)
+STREAM_FORMS = {"fused_block_bf16_stream": ("fused_block", "launches_bf16_stream"),
+                "projected_attention_bf16a_stream": ("projected_attention",
+                                                     "launches_mixed_stream")}
 BF16_SPLIT = 3
 # The ordered bfloat16 sum of the bfloat16 backwards (``ops/bf16_sum.py``),
 # counted in ``bf16_sum.launches``: launched by every bfloat16 train step
@@ -2179,12 +2231,14 @@ def bound_parts(parts, nbytes: float) -> tuple[float, str, str]:
 
 def bf16_counts() -> dict:
     """Launch counts of every form: the float32 kernels', the bfloat16
-    forms' and B2-bf16a's."""
+    forms', B2-bf16a's and the streaming forms of B1-bf16 and B2-bf16a."""
     kernels = wrappers()
     counts = {name: w.launches for name, w in kernels.items()}
     counts.update({form: kernels[base].launches_bf16 for form, base in BF16_FORMS.items()})
     counts[MIXED_FORM] = kernels["projected_attention"].launches_mixed
     counts[LAZY_FORM] = kernels["efficient_attention"].launches_bf16_lazy
+    counts.update({form: getattr(kernels[base], attr)
+                   for form, (base, attr) in STREAM_FORMS.items()})
     return counts
 
 
@@ -2192,7 +2246,8 @@ def reset_counts() -> None:
     from hig_tpu_torch.ops.bf16_sum import bf16_sum
 
     for w in (*wrappers().values(), bf16_sum):
-        for attr in ("launches", "launches_bf16", "launches_mixed", "launches_bf16_lazy"):
+        for attr in ("launches", "launches_bf16", "launches_mixed", "launches_bf16_lazy",
+                     "launches_bf16_stream", "launches_mixed_stream"):
             if hasattr(w, attr):
                 setattr(w, attr, 0)
 
@@ -2287,8 +2342,11 @@ def b1_bf16_launch_ms(x, mask, scale, shift, w, heads, interaction) -> dict:
     the same shapes and work)."""
     from hig_tpu_torch.ops.fused_block import launch_bf16
 
+    from hig_tpu_torch.ops.pallas_attention import whole_or_stream
+
     lead, (Tq, Dm) = x.shape[:-2], x.shape[-2:]
     N = x.numel() // (Tq * Dm)
+    kw = dict(hd=Dm // heads, form=whole_or_stream(Tq, Dm // heads))
     m = mask.to(torch.float32).expand(*lead, Tq).reshape(N, Tq).contiguous()
     sc = scale.expand(*lead, 1, Dm).reshape(N, Dm).contiguous()
     sh = shift.expand(*lead, 1, Dm).reshape(N, Dm).contiguous()
@@ -2296,8 +2354,9 @@ def b1_bf16_launch_ms(x, mask, scale, shift, w, heads, interaction) -> dict:
     y = torch.empty((N * Tq, Dm), device=x.device, dtype=torch.float32)
     tensors = (x, m, sc, sh, *w, xz, y, torch.empty_like(x))
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
-    launch_bf16(tensors, N, Tq, Dm, interaction, stream())
-    return {name: time_ms(lambda: launch_bf16(tensors, N, Tq, Dm, interaction, stream(), part))
+    launch_bf16(tensors, N, Tq, Dm, interaction, stream(), **kw)
+    return {name: time_ms(lambda: launch_bf16(tensors, N, Tq, Dm, interaction, stream(), part,
+                                              **kw))
             for part, name in enumerate(B1_BF16_LAUNCHES)}
 
 
@@ -2532,8 +2591,11 @@ def sdpa_backend(q, k, v, bias) -> str:
 def check_flash_attention_bf16(w, x, mask, failures) -> dict:
     """B4-bf16 as the quadratic blocks call it (q, k, v views of one merged
     bfloat16 product; partner; causal; 91 queries on 77 keys), against its
-    twin, and torch's scaled_dot_product_attention on the same bfloat16
-    inputs (mask as a bfloat16 bias)."""
+    twin, beside a planted control that must fail the same gate (the twin
+    in float32, output rounded: the bf16 train steps' control route), and
+    torch's scaled_dot_product_attention on the same bfloat16 inputs (mask
+    as a bfloat16 bias). Its backward recomputes the twin (the same code on
+    the kernel and plain routes), so the forward is what the gate holds."""
     from hig_tpu_torch.ops.flash_attention import flash_attention
     from hig_tpu_torch.ops.flash_attention import flash_attention_plain as plain
 
@@ -2568,9 +2630,14 @@ def check_flash_attention_bf16(w, x, mask, failures) -> dict:
             bias = bias + (torch.arange(Tk, device=x.device)[None, :]
                            > torch.arange(Tq, device=x.device)[:, None]) * -1e6
         sdpa = (heads(qq), heads(kk), heads(vv), to_bf16(bias).contiguous())
+        twin_cpu = plain(*on_cpu(args))
         torch.cuda.synchronize()
-        out[name] = gate_bf16(f"flash_attention_bf16 {name} {N}x{Tq}", got, twin, twin32,
-                              plain(*on_cpu(args)), failures)
+        label = f"flash_attention_bf16 {name} {N}x{Tq}"
+        out[name] = gate_bf16(label, got, twin, twin32, twin_cpu, failures)
+        control = bf16_gate_row(to_bf16(twin32), twin, twin32, twin_cpu)
+        fail_if(failures, control["passed"], f"{label}: the float32 control passes: {control}")
+        out[name]["control_rms_ratio"] = control["rms_ratio"]
+        out[name]["control_max_abs_err"] = control["max_abs_err"]
         out[name]["ms"] = time_ms(lambda: flash_attention(*args))
         out[name]["plain_ms"] = time_ms(lambda: plain(*args))
         out[name]["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
@@ -2696,10 +2763,6 @@ def phase_bf16(f32_models: dict, device, failures, smi: str, tmp: str) -> tuple:
     their launches, and for the profile {run: (call, replayed wall s or
     None)}: the serving calls and the ``evaluate`` run's first chunk, all
     replays)."""
-    from hig_tpu_torch import serve
-    from hig_tpu_torch.diffusion import gaussian as g
-    from hig_tpu_torch.train.trainer import make_sampler
-
     t_phase = time.perf_counter()
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     rows = bf16_kernel_rows(device, failures)
@@ -2760,45 +2823,11 @@ def phase_bf16(f32_models: dict, device, failures, smi: str, tmp: str) -> tuple:
 
     # serving: 8 requests, DDIM-50, through each run's bfloat16 form
     requests = serve_requests()
-    sched = g.make_schedule(g.linear_betas(1000))
-    mean, std = serve.load_stats(None, cfg.input_feats)
     runs = {}
     for run, (own, w) in BF16_SERVE_RUNS.items():
-        model = models[run]
-        twin = f32_twin_model(model)
-        t_run = time.perf_counter()
-        kw = dict(T=T, dim_pose=cfg.input_feats, ddim_steps=DDIM_STEPS, guidance_scale=w)
-        sample_fn = make_sampler(model, sched, **kw)
-        call = serve_with(sample_fn, requests, mean, std)
-        eager = serve_with(make_sampler(model, sched, graph=False, **kw), requests, mean, std)
-        graph_row, (features, joints), first, call_counts = graph_and_eager(
-            f"bf16 serve ({run})", call, eager, sample_fn.graphs, failures)
-        twin_fn = make_sampler(twin, sched, graph=False, **kw)
-        with plain_blocks():
-            p16, _ = eager(torch.Generator(device=device).manual_seed(0))
-            p32, _ = serve.serve_batch(twin_fn, requests, mean, std, device,
-                                       torch.Generator(device=device).manual_seed(0))
-        with plain_blocks(control=True):
-            control = route_row(eager(torch.Generator(device=device).manual_seed(0))[0],
-                                p16, p32)
-        del twin, twin_fn
-        row = route_gate(f"bf16 serve ({run})", features, p16, p32, failures)
-        row["control_rms_ratio"] = control["rms_ratio"]
-        wall = graph_row["wall_s_per_call"]
-        print(json.dumps({"phase": "bf16_serve", "run": run, "nvidia_smi": smi,
-                          "guidance_scale": w, "requests": len(requests), "T": T,
-                          "ddim_steps": DDIM_STEPS, "launches": call_counts[0], **graph_row,
-                          "finite": bool(np.isfinite(features).all()
-                                         and np.isfinite(joints).all()),
-                          "joints_shape": list(joints.shape), **row,
-                          "seconds": time.perf_counter() - t_run}), flush=True)
-        fail_if(failures, any(c[name] != (LAUNCHES_PER_CALL if name == own else 0)
-                              for c in call_counts for name in c)
-                or any(first[name] != (FIRST_CALL if name == own else 0) for name in first),
-                f"bf16 serve ({run}) launches {first}, {call_counts}")
-        fail_if(failures, tuple(joints.shape) != (N_PAIRS, 2, T - 1, 22, 3)
-                or not np.isfinite(joints).all(), f"bf16 serve ({run}) joints {joints.shape}")
-        launches[own] += call_counts[0][own]
+        call, wall, counts = bf16_serve_run(run, models[run], own, w, requests, T, device,
+                                            failures, smi)
+        launches[own] += counts[own]
         runs[f"serve_bf16_{run}"] = (seeded(call), wall)
     del models
 
@@ -2809,6 +2838,54 @@ def phase_bf16(f32_models: dict, device, failures, smi: str, tmp: str) -> tuple:
     seconds = time.perf_counter() - t_phase
     print(json.dumps({"phase": "bf16", "seconds": seconds}), flush=True)
     return rows, runs
+
+
+def bf16_serve_run(run: str, model, own: str, w: float, requests: list, T_: int, device,
+                   failures, smi: str, tag: str = "") -> tuple:
+    """A bfloat16 model serving ``requests`` at T_ rows, DDIM-50 at guidance
+    ``w``, through the graphed sampler beside the eager loop
+    (``graph_and_eager``) and against the plain route (``route_gate``, the
+    control route reported): each call LAUNCHES_PER_CALL launches of
+    ``own`` (the capturing call FIRST_CALL) and none of any other form.
+    Returns (the graphed call, its replayed wall s, a replay's counts)."""
+    from hig_tpu_torch import serve
+    from hig_tpu_torch.diffusion import gaussian as g
+    from hig_tpu_torch.train.trainer import make_sampler
+
+    sched = g.make_schedule(g.linear_betas(1000))
+    mean, std = serve.load_stats(None, model.cfg.input_feats)
+    label = f"bf16 serve{tag} ({run})"
+    twin = f32_twin_model(model)
+    t_run = time.perf_counter()
+    kw = dict(T=T_, dim_pose=model.cfg.input_feats, ddim_steps=DDIM_STEPS, guidance_scale=w)
+    sample_fn = make_sampler(model, sched, **kw)
+    call = serve_with(sample_fn, requests, mean, std)
+    eager = serve_with(make_sampler(model, sched, graph=False, **kw), requests, mean, std)
+    graph_row, (features, joints), first, call_counts = graph_and_eager(
+        label, call, eager, sample_fn.graphs, failures)
+    twin_fn = make_sampler(twin, sched, graph=False, **kw)
+    with plain_blocks():
+        p16, _ = eager(torch.Generator(device=device).manual_seed(0))
+        p32, _ = serve.serve_batch(twin_fn, requests, mean, std, device,
+                                   torch.Generator(device=device).manual_seed(0))
+    with plain_blocks(control=True):
+        control = route_row(eager(torch.Generator(device=device).manual_seed(0))[0], p16, p32)
+    del twin, twin_fn
+    row = route_gate(label, features, p16, p32, failures)
+    row["control_rms_ratio"] = control["rms_ratio"]
+    print(json.dumps({"phase": "bf16_serve" + tag, "run": run, "nvidia_smi": smi,
+                      "guidance_scale": w, "requests": len(requests), "T": T_,
+                      "ddim_steps": DDIM_STEPS, "launches": call_counts[0], **graph_row,
+                      "finite": bool(np.isfinite(features).all() and np.isfinite(joints).all()),
+                      "joints_shape": list(joints.shape), **row,
+                      "seconds": time.perf_counter() - t_run}), flush=True)
+    fail_if(failures, any(c[name] != (LAUNCHES_PER_CALL if name == own else 0)
+                          for c in call_counts for name in c)
+            or any(first[name] != (FIRST_CALL if name == own else 0) for name in first),
+            f"{label} launches {first}, {call_counts}")
+    fail_if(failures, tuple(joints.shape) != (len(requests), 2, T_ - 1, 22, 3)
+            or not np.isfinite(joints).all(), f"{label} joints {joints.shape}")
+    return call, graph_row["wall_s_per_call"], call_counts[0]
 
 
 def bf16_evaluate(failures, smi: str, tmp: str) -> tuple:
@@ -3790,76 +3867,88 @@ def loader_rates(data: str, tmp: str, failures) -> dict:
     return out
 
 
-def option_steps(device, failures, smi: str, data: str, weights: dict) -> dict:
-    """(b) and (c): each OPTION_STEP_RUNS run's first OPTION_STEPS batches of
-    phase 6's clips (2 passes) from the trainer's own batch path (the
-    native loader at window 60: T = 61, its own capture) through
-    ``make_train_step``, graphed (the first step eager, the capture, then
-    replays) and eagerly from one seeded state (phase 4's ``weights``, which
-    are ``Trainer.init_state``'s of seed 0) with the trainer's per-step
-    generators: metrics, parameters and Adam's moments bit for bit, no
-    kernel launch on the causal route (the ordered bfloat16 sum in
-    bfloat16), 16 B2 launches a step on the native one; step ms, peak
-    memory and the graph's pool. Returns the launch counts."""
+def graphed_eager_steps(run: str, fields: dict, own, steps: int, device, failures, smi: str,
+                        data: str, weights: dict, phase: str = "options") -> tuple:
+    """A PIT run of ``fields`` (an ExperimentConfig's, batch 32, 2 passes of
+    phase 6's clips): its first ``steps`` batches from the trainer's own
+    batch path through ``make_train_step``, graphed (the first step eager,
+    the capture, then replays) and eagerly from one seeded state (phase 4's
+    ``weights``, which are ``Trainer.init_state``'s of seed 0) with the
+    trainer's per-step generators: metrics, parameters and Adam's moments
+    bit for bit, 16 launches a step of ``own`` (None: none) and of no other
+    form, the ordered bfloat16 sum in bfloat16 only; step ms, peak memory
+    and the graph's pool. Returns (the printed row, the graphed run's counts,
+    the trainer, its first batch)."""
     from hig_tpu_torch.config import ExperimentConfig, add_dataset_paths
     from hig_tpu_torch.ops.bf16_sum import bf16_sum
     from hig_tpu_torch.train import trainer as tr
 
+    t0 = time.perf_counter()
+    cfg = add_dataset_paths(ExperimentConfig(data_root=data, batch_size=TRAIN_PAIRS,
+                                             times=2, **fields))
+    trainer = tr.Trainer(cfg, device)
+    states = []
+    for _ in range(2):
+        model = model_from(trainer.model_config, weights, device).train()
+        states.append(tr.TrainState(model=model, optimizer=tr.make_optimizer(cfg, model)))
+    tower = trainer.precompute_tower(states[0].model)
+    batches = trainer.epoch_batches_fn(trainer_dataset(cfg), {}, log=lambda _: None)(0)
+    batches = [trainer._device_batch(next(batches), tower) for _ in range(steps)]
+    row = {"phase": phase, "run": run, "nvidia_smi": smi,
+           "pairs_per_step": TRAIN_PAIRS, "T": batches[0]["motion"].shape[2]}
+    finals = []
+    for graph, state in zip((True, False), states):
+        step = tr.make_train_step(trainer.sched, True, graph=graph)
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        metrics, ms = [], []
+        for it, batch in enumerate(batches):
+            t_step = time.perf_counter()
+            out = step(state, batch, tr.step_generator(cfg.seed + 1, it, 0, device))
+            metrics.append(torch.stack([out[k] for k in tr.TRAIN_METRICS]).tolist())
+            ms.append(1e3 * (time.perf_counter() - t_step))
+        counts = {**bf16_counts(), BF16_SUM: bf16_sum.launches}
+        key = "graphed" if graph else "eager"
+        row[key] = {"step_ms": ms, "median_ms_after_first": statistics.median(ms[1:]),
+                    "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "launches": counts, "losses": [m[0] for m in metrics]}
+        if graph:
+            (capture,) = [c.summary() for c in step.graphs.values()]
+            row[key]["capture"] = {k: capture[k] for k in ("warmup_s", "capture_s")} | {
+                "pool_gb": capture["pool_bytes"] / 1e9}
+            row["pairs_per_s"] = TRAIN_PAIRS * 1e3 / row[key]["median_ms_after_first"]
+        finals.append((metrics, final_state_tensors(state), counts))
+        del step
+    (m_g, t_g, c_g), (m_e, t_e, c_e) = finals
+    differ = [n for n in t_e if not torch.equal(t_g[n], t_e[n])]
+    row["graph_equals_eager"] = not differ and m_g == m_e and c_g == c_e
+    row["seconds"] = time.perf_counter() - t0
+    fail_if(failures, not row["graph_equals_eager"],
+            f"steps ({run}): graphed differs from eager: {differ[:4]}, {m_g} vs {m_e}")
+    fail_if(failures, any(n != (LAUNCHES_PER_STEP * steps if k == own else 0)
+                          for k, n in c_g.items() if k != BF16_SUM)
+            or (c_g[BF16_SUM] > 0) != (cfg.compute_dtype == "bfloat16"),
+            f"steps ({run}) launches {c_g}")
+    fail_if(failures, not np.isfinite(m_g).all(), f"steps ({run}) metrics {m_g}")
+    del states, model, finals
+    return row, c_g, trainer, batches[0]
+
+
+def option_steps(device, failures, smi: str, data: str, weights: dict) -> dict:
+    """(b) and (c): each OPTION_STEP_RUNS run's first OPTION_STEPS batches
+    through ``graphed_eager_steps`` (the native loader at window 60: T = 61,
+    its own capture; no kernel launch on the causal route). Returns the
+    launch counts."""
     launches: dict = {}
     for run, (fields, own) in OPTION_STEP_RUNS.items():
-        t0 = time.perf_counter()
-        cfg = add_dataset_paths(ExperimentConfig(data_root=data, batch_size=TRAIN_PAIRS,
-                                                 times=2, **fields))
-        trainer = tr.Trainer(cfg, device)
-        states = []
-        for _ in range(2):
-            model = model_from(trainer.model_config, weights, device).train()
-            states.append(tr.TrainState(model=model, optimizer=tr.make_optimizer(cfg, model)))
-        tower = trainer.precompute_tower(states[0].model)
-        batches = trainer.epoch_batches_fn(trainer_dataset(cfg), {}, log=lambda _: None)(0)
-        batches = [trainer._device_batch(next(batches), tower) for _ in range(OPTION_STEPS)]
-        row = {"phase": "options", "run": run, "nvidia_smi": smi,
-               "pairs_per_step": TRAIN_PAIRS, "T": batches[0]["motion"].shape[2]}
-        finals = []
-        for graph, state in zip((True, False), states):
-            step = tr.make_train_step(trainer.sched, True, graph=graph)
-            reset_counts()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            metrics, ms = [], []
-            for it, batch in enumerate(batches):
-                t_step = time.perf_counter()
-                out = step(state, batch, tr.step_generator(cfg.seed + 1, it, 0, device))
-                metrics.append(torch.stack([out[k] for k in tr.TRAIN_METRICS]).tolist())
-                ms.append(1e3 * (time.perf_counter() - t_step))
-            counts = {**bf16_counts(), BF16_SUM: bf16_sum.launches}
-            key = "graphed" if graph else "eager"
-            row[key] = {"step_ms": ms, "median_ms_after_first": statistics.median(ms[1:]),
-                        "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-                        "launches": counts, "losses": [m[0] for m in metrics]}
-            if graph:
-                (capture,) = [c.summary() for c in step.graphs.values()]
-                row[key]["capture"] = {k: capture[k] for k in ("warmup_s", "capture_s")} | {
-                    "pool_gb": capture["pool_bytes"] / 1e9}
-                row["pairs_per_s"] = TRAIN_PAIRS * 1e3 / row[key]["median_ms_after_first"]
-            finals.append((metrics, final_state_tensors(state), counts))
-            del step
-        (m_g, t_g, c_g), (m_e, t_e, c_e) = finals
-        differ = [n for n in t_e if not torch.equal(t_g[n], t_e[n])]
-        row["graph_equals_eager"] = not differ and m_g == m_e and c_g == c_e
-        row["seconds"] = time.perf_counter() - t0
+        row, counts, trainer, _ = graphed_eager_steps(run, fields, own, OPTION_STEPS, device,
+                                                      failures, smi, data, weights)
         print(json.dumps(row), flush=True)
-        fail_if(failures, not row["graph_equals_eager"],
-                f"steps ({run}): graphed differs from eager: {differ[:4]}, {m_g} vs {m_e}")
-        fail_if(failures, any(n != (LAUNCHES_PER_STEP * OPTION_STEPS if k == own else 0)
-                              for k, n in c_g.items() if k != BF16_SUM)
-                or (c_g[BF16_SUM] > 0) != (cfg.compute_dtype == "bfloat16"),
-                f"steps ({run}) launches {c_g}")
-        fail_if(failures, not np.isfinite(m_g).all(), f"steps ({run}) metrics {m_g}")
-        fail_if(failures, row["T"] != (NATIVE_WINDOW + 1 if cfg.use_native_loader else T),
-                f"steps ({run}): T {row['T']}")
-        launches = merge_counts(launches, c_g)
-        del trainer, states, model, batches, finals
+        fail_if(failures, row["T"] != (NATIVE_WINDOW + 1 if trainer.cfg.use_native_loader
+                                       else T), f"steps ({run}): T {row['T']}")
+        launches = merge_counts(launches, counts)
+        del trainer
     return launches
 
 
@@ -5678,6 +5767,262 @@ def trainer_dataset(cfg):
                        label_path=cfg.label_path, seed=cfg.seed)
 
 
+# --- phase 17: head width 128, and B1-bf16 and B2-bf16a past their whole forms ----------
+
+# A model of latent 512 with 4 heads: head width 128, the setting of public
+# motion-diffusion models (latent 512 and 4 heads, or 1024 and 8). Every
+# kernel form at that width at the serving shape against its plain version
+# (phase 3's and phase 10's checks with 4 heads: rows "<form>_hd128"); then
+# the path at that width: the denoiser, DDIM-50 serving of 8 pairs (fused,
+# projected, no_eff; float32 and bfloat16), and graphed PIT steps at batch 32
+# in float32 and bfloat16 (efficient and no_eff), each graphed run equal to
+# its eager run bit for bit and held against the plain route.
+HW_HEADS = 4
+# ``train --num_heads 4`` (PIT, graphed, 3 steps of 32 pairs), then each
+# step run (ExperimentConfig fields, the form its blocks launch) graphed
+# against eager at the step level (``graphed_eager_steps``, HW_STEPS steps
+# from phase 4's weights): float32, bfloat16, and bfloat16 --no_eff (B4-bf16
+# and its backward)
+HW_TRAIN_CLI = (["--times", "2", "--num_heads", str(HW_HEADS)], 3, "projected_attention")
+HW_STEP_RUNS = {  # run → (fields, the form its blocks launch, phase 4's model whose weights)
+    "pit_hd128": (dict(num_heads=HW_HEADS), "projected_attention", "fused"),
+    "pit_hd128_bf16": (dict(num_heads=HW_HEADS, compute_dtype="bfloat16"),
+                       "efficient_attention_bf16", "fused"),
+    "pit_hd128_bf16_no_eff": (dict(num_heads=HW_HEADS, compute_dtype="bfloat16", no_eff=True),
+                              "flash_attention_bf16", "no_eff"),
+}
+HW_STEPS = 3
+# B1-bf16's and B2-bf16a's streaming forms against their twins at 64 x 394
+# (caption pairs, T: a --single_transformer merged timeline at a native
+# window of 196), and bit for bit against their whole forms (and B3-bf16's
+# two forms) at 91 and 196 rows at width 64 and at width 128's cap
+STREAM_ROW_SHAPE = (32, 394)
+STREAM_EQUAL = ((64, T), (64, EVAL_T), (128, 128))
+# a bfloat16 fused model of num_frames 400 serving LONG_PAIRS requests of
+# 399 frames: B1-bf16's streaming form on the path
+LONG_FRAMES, LONG_PAIRS = 400, 2
+SUM_LEVEL_TERMS = (1025, 4096)  # the ordered sum past one launch's 32 x 32 terms
+
+
+@contextlib.contextmanager
+def heads_of(heads: int):
+    """The kernel checks (which read HEADS) at ``heads`` heads of D."""
+    global HEADS
+    saved, HEADS = HEADS, heads
+    try:
+        yield
+    finally:
+        HEADS = saved
+
+
+def hd128_kernel_rows(device, failures) -> dict:
+    """Every kernel form at head width 128 at the serving shape (16 x 91, D
+    = 512, 4 heads) against its plain version under its phase-3 or phase-10
+    gates, timed beside the plain version, with its bound."""
+    checks = {"fused_block": check_fused_block, "projected_attention": check_projected_attention,
+              "efficient_attention": check_efficient_attention,
+              "flash_attention": check_flash_attention,
+              "fused_block_bf16": check_fused_block_bf16,
+              "projected_attention_bf16": check_projected_attention_bf16,
+              MIXED_FORM: check_projected_attention_bf16a,
+              "efficient_attention_bf16": check_efficient_attention_bf16,
+              "flash_attention_bf16": check_flash_attention_bf16}
+    inputs = block_inputs(device)
+    rows = {}
+    with heads_of(HW_HEADS):
+        for name, check in checks.items():
+            row = check(*inputs, failures) if name.startswith("fused_block") else \
+                check(*inputs[:3], failures)
+            row["name"] = f"{name}_hd128"
+            row["replaces"] += " (head width 128)"
+            rows[row["name"]] = row
+    return rows
+
+
+def stream_forms_equal(device, failures) -> dict:
+    """B1-bf16 (self and interaction), B2-bf16a and B3-bf16: the streaming
+    form against the whole form, bit for bit, at STREAM_EQUAL; B1-bf16's
+    (self) and B2-bf16a's two forms timed there, one after the other (the
+    routers keep the whole form up to its rows while it is the faster)."""
+    from hig_tpu_torch.ops.fused_block import BlockWeights, fused_attention_block
+    from hig_tpu_torch.ops.pallas_attention import (
+        FORMS, efficient_attention_bf16_form, fused_projected_attention)
+
+    out, times = {}, {}
+    for hd, t in STREAM_EQUAL:
+        heads = D // hd
+        w, x, mask, scale, shift = block_inputs(device, N_PAIRS, t)
+        wb = BlockWeights(*[to_bf16(a) for a in w])
+        xn = to_bf16(torch.nn.functional.layer_norm(x, (D,), w.ln_g, w.ln_b, 1e-6))
+        with heads_of(heads):
+            b3 = b3_bf16_inputs(w, x, mask, t)
+        calls = {
+            "b1_self": lambda f: fused_attention_block(to_bf16(x), mask, to_bf16(scale),
+                                                       to_bf16(shift), wb, heads, False, form=f),
+            "b1_interaction": lambda f: fused_attention_block(
+                to_bf16(x), mask, to_bf16(scale), to_bf16(shift), wb, heads, True, form=f),
+            "b2a": lambda f: fused_projected_attention(xn, xn, w.wq, w.bq, w.wk, w.bk, w.wv,
+                                                       w.bv, heads, mask, form=f),
+            "b3": lambda f: efficient_attention_bf16_form(*b3, f),
+        }
+        with torch.no_grad():
+            row = {name: bool(torch.equal(*(call(f) for f in FORMS)))
+                   for name, call in calls.items()}
+            ms = {f"{name}_{f}_ms": time_ms(lambda: calls[name](f))
+                  for name in ("b1_self", "b2a") for f in FORMS}
+        out[f"hd{hd}_t{t}"] = row
+        times[f"hd{hd}_t{t}"] = {"pairs": N_PAIRS, **ms}
+        fail_if(failures, not all(row.values()),
+                f"streaming forms against whole forms at head width {hd}, T = {t}: {row}")
+    print(json.dumps({"phase": "head_width", "streaming_equals_whole": out,
+                      "whole_and_stream_ms": times}), flush=True)
+    return out
+
+
+def stream_form_rows(device, failures) -> dict:
+    """The kernels line's rows of B1-bf16's and B2-bf16a's streaming forms:
+    each at 64 x 394 against its twin (beside B1's planted controls and
+    B2-bf16a's control), timed beside the twin, with its bound (the work
+    and bytes of the whole form: the scratch is neither input nor output)."""
+    pairs, t = STREAM_ROW_SHAPE
+    inputs = block_inputs(device, pairs, t)
+    equal = stream_forms_equal(device, failures)
+    rows = {}
+    for name, row in (("fused_block_bf16_stream", check_fused_block_bf16(*inputs, failures)),
+                      ("projected_attention_bf16a_stream",
+                       check_projected_attention_bf16a(*inputs[:3], failures))):
+        row.update(name=name, forms_equal=equal)
+        row["replaces"] += " (past the whole form's rows)"
+        rows[name] = row
+    return rows
+
+
+def check_bf16_sum_levels(device, failures) -> dict:
+    """The ordered bfloat16 sum past one launch's 32 x 32 terms
+    (SUM_LEVEL_TERMS), strided and over contiguous rows, against its plain
+    version on the card, bit for bit, timed beside it."""
+    from hig_tpu_torch.ops.bf16_sum import bf16_sum, bf16_sum_plain
+
+    gen = torch.Generator().manual_seed(8)
+    cases = {}
+    for n in SUM_LEVEL_TERMS:
+        for layout, shape in (("strided", (16, n, 64)), ("rows", (256, n))):
+            x = to_bf16(torch.randn(shape, generator=gen) * 1e-2).float().to(device)
+            got, want = bf16_sum(x, 1), bf16_sum_plain(x, 1)
+            equal = bool(torch.equal(got, want))
+            fail_if(failures, not equal, f"bf16_sum {list(shape)}: the kernel differs from "
+                    f"its plain version")
+            b_ms, b_by, _ = bound_parts([(x.numel(), "f32")], 4 * (x.numel() + got.numel()))
+            cases[f"n{n}_{layout}"] = {
+                "shape": list(shape), "equal": equal, "ms": time_ms(lambda: bf16_sum(x, 1)),
+                "plain_ms": time_ms(lambda: bf16_sum_plain(x, 1)), "bound_ms": b_ms,
+                "bound_by": b_by}
+    print(json.dumps({"phase": "head_width", "kernel": BF16_SUM, "past_one_launch": cases}),
+          flush=True)
+    return cases
+
+
+def head_width_rows(device, failures) -> dict:
+    """Phase 17's kernel rows (see the module doc), timed with the card to
+    themselves: every form at head width 128, the two streaming forms, and
+    under BF16_SUM + "_levels" the ordered sum past one launch."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    rows = hd128_kernel_rows(device, failures)
+    rows.update(stream_form_rows(device, failures))
+    rows[BF16_SUM + "_levels"] = check_bf16_sum_levels(device, failures)
+    return rows
+
+
+def head_width_path(device, failures, smi: str, data: str, tmp: str, models: dict) -> tuple:
+    """Phase 17's path (see the module doc): the width-128 models take the
+    weights of phase 4's ``models`` (a head's width changes no parameter's
+    shape), the num_frames-400 model the fused one's but its positional
+    table (seeded). Returns (the launch counts of the width-128 runs by
+    form, those of the num_frames-400 serving call)."""
+    from hig_tpu_torch.data.vocab import CLASSID2CAPS
+    from hig_tpu_torch.models.interaction_model import InteractionModel
+    from hig_tpu_torch.weights import cast_floating
+
+    t_path = time.perf_counter()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    launches: dict = {}
+
+    def add(counts):
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+
+    def derived(run: str, **fields):
+        src = models[run].state_dict()
+        model = InteractionModel(dataclasses.replace(models[run].cfg, **fields))
+        gen = torch.Generator().manual_seed(4)
+        model.load_state_dict({k: src[k] if k in src and src[k].shape == v.shape
+                               else torch.randn(v.shape, generator=gen)
+                               for k, v in model.state_dict().items()})
+        return model.to(device).eval()
+
+    wide = {run: derived(run, num_heads=HW_HEADS) for run in models}
+    phase_denoiser(wide, device, failures, tag="_hd128")
+    counts, _, _ = phase_serve(wide, device, failures, tag="_hd128")
+    add(counts)
+    for run in ("fused", "projected"):  # B4-bf16: the bf16 --no_eff train step
+        bf = cast_floating(derived(run, num_heads=HW_HEADS, compute_dtype="bfloat16"),
+                           torch.bfloat16)
+        own = BF16_SERVE_RUNS[run][0]
+        add(bf16_serve_run(run, bf, own, 1.0, serve_requests(), T, device, failures, smi,
+                           tag="_hd128")[2])
+        del bf
+    del wide
+
+    # the train entry point at width 128, its gradients against the plain route
+    trainer, state, row, counts = train_run("pit_hd128_cli", *HW_TRAIN_CLI, data, tmp, failures,
+                                            smi)
+    add({k: v for k, v in counts.items() if k != BF16_SUM})
+    mcfg = trainer.model_config
+    fail_if(failures, mcfg.latent_dim // mcfg.num_heads != 128,
+            f"train (pit_hd128_cli): head width {mcfg.latent_dim} / {mcfg.num_heads}")
+    batch, initial = first_batch(trainer)
+    row["grad_check"] = grad_route_errors(initial, trainer.sched, batch, pit=True)
+    gate_grad_check(failures, "pit_hd128_cli", "grad_check", row["grad_check"])
+    print(json.dumps({**row, "phase": "train_hd128"}), flush=True)
+    del trainer, state, initial, batch
+    for run, (fields, own, base) in HW_STEP_RUNS.items():
+        weights = models[base].state_dict()
+        row, counts, trainer, batch = graphed_eager_steps(
+            run, fields, own, HW_STEPS, device, failures, smi, data, weights, "train_hd128")
+        add({k: v for k, v in counts.items() if k != BF16_SUM})
+        if trainer.cfg.compute_dtype == "bfloat16":
+            initial = model_from(trainer.model_config, weights, device)
+            row["grad_check"] = bf16_grad_gate(trainer.sched, batch, initial, run, failures)
+            del initial
+        print(json.dumps(row), flush=True)
+        del trainer, batch
+
+    # a bfloat16 fused model of num_frames 400 serving requests of 399 frames
+    model = cast_floating(derived("fused", compute_dtype="bfloat16", num_frames=LONG_FRAMES),
+                          torch.bfloat16)
+    requests = [{"caption1": c1, "caption2": c2, "length": LONG_FRAMES - 1, "id": f"long{i}"}
+                for i, (c1, c2) in enumerate(CLASSID2CAPS[:LONG_PAIRS])]
+    long_counts = bf16_serve_run("fused_t399", model, "fused_block_bf16_stream", 1.0, requests,
+                                 LONG_FRAMES, device, failures, smi, tag="_long")[2]
+    del model
+    print(json.dumps({"phase": "head_width", "launches_hd128": launches,
+                      "launches_long": long_counts,
+                      "path_seconds": time.perf_counter() - t_path}), flush=True)
+    return launches, long_counts
+
+
+def head_width_launches(rows: dict, path: tuple) -> None:
+    """Phase 17's rows get their launches on its path: the width-128 forms'
+    in the width-128 runs, the streaming forms' in those and the
+    num_frames-400 serving call."""
+    launches, long_counts = path
+    for name, row in rows.items():
+        if name.endswith("_hd128"):
+            row["launches"] = launches.get(name[:-len("_hd128")], 0)
+    for name in STREAM_FORMS:
+        rows[name]["launches"] = launches.get(name, 0) + long_counts.get(name, 0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -5749,6 +6094,10 @@ def main() -> int:
             lap("parallel")
         finally:
             stop_parallel_ranks(ranks)
+        width_path = head_width_path(device, failures, smi, data, tmp, models)
+        width_rows = head_width_rows(device, failures)
+        head_width_launches(width_rows, width_path)
+        lap("head_width")
         ablation_launches = merge_counts(ablation_launches, option_launches)
         ablation_launches = merge_counts(ablation_launches, geometry_launches)
         ablation_launches = merge_counts(ablation_launches, rest_launches)
@@ -5770,6 +6119,9 @@ def main() -> int:
     rows[LAZY_FORM] = lazy_row
     rows[STREAM_FORM] = stream_row
     rows["projected_attention_rect"] = rect_row
+    sum_levels = width_rows.pop(BF16_SUM + "_levels")
+    rows[BF16_SUM]["past_one_launch"] = sum_levels
+    rows.update(width_rows)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(smi, flush=True)
     if failures:

@@ -4,7 +4,7 @@
 // tree-reduction rewriter): up to 32 terms in turn; a longer axis is
 // zero-padded to a multiple of 32, the zeros split between its two ends (the
 // smaller half first), each window of 32 summed in turn, and the window sums
-// summed in turn. softmax_vjp (models/embeddings.py) takes it in every
+// summed the same way, level after level. softmax_vjp (models/embeddings.py) takes it in every
 // bfloat16 softmax's gradient: B3-bf16's and B4-bf16's backwards and the
 // model's bfloat16 softmaxes. A float32 sum rounded once sits 0.3-0.7 of the
 // bfloat16 effect from XLA's gradients (PERF.md), so the order is kept.
@@ -12,10 +12,10 @@
 // Replaces no TPU kernel (XLA's reduce in the VJPs). Bound on this card:
 // bytes, each input read once (one B3-bf16 backward's two sums at 128 x 91:
 // 48 MB, 0.0144 ms). The input is a contiguous float32 array (outer, n,
-// inner) holding bfloat16 values, the output (outer, inner); n <= 32 * 32
-// (two levels of windows). One kernel, so that a profile names one kernel a
-// launch, with a thread per (output, window of 32) and blockDim (outputs,
-// windows): every thread issues its window's 32 loads before its chain of
+// inner) holding bfloat16 values, the output (outer, inner). One kernel, so
+// that a profile names one kernel: up to 32 * 32 terms (two levels of
+// windows) one launch, with a thread per (output, window of 32) and
+// blockDim (outputs, windows): every thread issues its window's 32 loads before its chain of
 // rounded adds, and thread y = 0 of each output chains the window totals in
 // order through shared memory. Where the axis is strided (inner > 1: the
 // time softmax's 91 terms 512 apart, the key softmax's 8 apart),
@@ -23,7 +23,12 @@
 // coalesces. Where it is contiguous (inner == 1: the feature softmax's 64
 // terms), a block first stages its rows in shared memory with coalesced
 // 16-byte loads, each row at an odd stride so that 32 threads reading 32
-// rows hit 32 banks, and its threads walk the rows there.
+// rows hit 32 banks, and its threads walk the rows there. Past 32 * 32
+// terms each level of windows that more terms need comes first, one launch
+// of the same kernel each (`partial`: a thread per (output, window) writes
+// the window's sum into a scratch array (outer, windows, inner), which the
+// next level sums), until at most 32 * 32 sums are left for the launch
+// above: 2 launches up to 32^3 terms.
 #include "common.cuh"
 
 namespace hig {
@@ -56,12 +61,34 @@ __device__ __forceinline__ float window_sum(Term term, int n, int w, int lead) {
   return acc;
 }
 
+// A level of `windows` window sums a output past SUM_MAX_TERMS terms, one
+// thread each (neighbouring threads: neighbouring outputs of one window),
+// into out (outer, windows, inner). Not inlined, so that the kernel's
+// one-launch path keeps its own registers and code.
+__device__ __noinline__ void bf16_sum_level(const float* __restrict__ x,
+                                            float* __restrict__ out, int outer, int n,
+                                            int inner, int lead, int windows) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long outputs = (long long)outer * inner;
+  if (i >= outputs * windows) return;
+  const long long o = i % outputs, a = o / inner, b = o % inner;
+  const int w = (int)(i / outputs);
+  const float* p = x + a * n * inner + b;
+  out[(a * windows + w) * inner + b] =
+      window_sum([&](int k) { return p[(long long)k * inner]; }, n, w, lead);
+}
+
 // blockDim (ox, windows); `lead` zeros pad the axis before x[0]; `stride`
-// is a staged row's (inner == 1).
+// is a staged row's (inner == 1). partial > 0: a level of `partial` window
+// sums (bf16_sum_level).
 __global__ void __launch_bounds__(SUM_WINDOW * SUM_WINDOW)
     bf16_sum_kernel(const float* __restrict__ x, float* __restrict__ out, int outer, int n,
-                    int inner, int lead, int stride) {
+                    int inner, int lead, int stride, int partial) {
   extern __shared__ float sm[];  // inner == 1: [ox][stride] rows; then [windows][ox] sums
+  if (partial) {
+    bf16_sum_level(x, out, outer, n, inner, lead, partial);
+    return;
+  }
   const int ox = blockDim.x, windows = blockDim.y, xo = threadIdx.x, w = threadIdx.y;
   const long long o = (long long)blockIdx.x * ox + xo, outputs = (long long)outer * inner;
   float s = 0.f;
@@ -111,12 +138,12 @@ __global__ void __launch_bounds__(SUM_WINDOW * SUM_WINDOW)
 
 }  // namespace hig
 
-extern "C" int hig_bf16_sum(const float* x, float* out, int outer, int n, int inner,
-                            void* stream_ptr) {
-  using namespace hig;
-  if (n < 1 || n > SUM_MAX_TERMS) return cudaErrorInvalidValue;
+namespace hig {
+
+// The sum of n <= SUM_MAX_TERMS terms in one launch.
+inline cudaError_t launch_bf16_sum(const float* x, float* out, int outer, int n, int inner,
+                                   cudaStream_t stream) {
   const long long outputs = (long long)outer * inner;
-  if (outputs == 0) return cudaSuccess;
   const int windows = n <= SUM_WINDOW ? 1 : (n + SUM_WINDOW - 1) / SUM_WINDOW;
   const int lead = (SUM_WINDOW - n % SUM_WINDOW) % SUM_WINDOW / 2 * (windows > 1);
   // outputs a block: strided, a multiple of 32 (whole warps of neighbouring
@@ -129,8 +156,34 @@ extern "C" int hig_bf16_sum(const float* x, float* out, int outer, int n, int in
     if (ox * stride > SUM_ROWS_FLOATS) ox = SUM_ROWS_FLOATS / stride;
   }
   const int smem = 4 * (ox * stride + (windows > 1 ? windows * ox : 0));
-  bf16_sum_kernel<<<(unsigned)((outputs + ox - 1) / ox), dim3(ox, windows), smem,
-                    static_cast<cudaStream_t>(stream_ptr)>>>(x, out, outer, n, inner, lead,
-                                                             stride);
+  bf16_sum_kernel<<<(unsigned)((outputs + ox - 1) / ox), dim3(ox, windows), smem, stream>>>(
+      x, out, outer, n, inner, lead, stride, 0);
   return cudaGetLastError();
+}
+
+}  // namespace hig
+
+// scratch: (outer, sum of each level's windows, inner) floats for the
+// levels past SUM_MAX_TERMS (none up to it; ops/bf16_sum.py sizes it).
+extern "C" int hig_bf16_sum(const float* x, float* out, float* scratch, int outer, int n,
+                            int inner, void* stream_ptr) {
+  using namespace hig;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (n < 1) return cudaErrorInvalidValue;
+  const long long outputs = (long long)outer * inner;
+  if (outputs == 0) return cudaSuccess;
+  const float* src = x;
+  while (n > SUM_MAX_TERMS) {  // a level of window sums into the scratch
+    const int windows = (n + SUM_WINDOW - 1) / SUM_WINDOW;
+    const int lead = (SUM_WINDOW - n % SUM_WINDOW) % SUM_WINDOW / 2;
+    const long long threads = outputs * windows;
+    bf16_sum_kernel<<<(unsigned)((threads + SUM_THREADS - 1) / SUM_THREADS), SUM_THREADS, 0,
+                      stream>>>(src, scratch, outer, n, inner, lead, 0, windows);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    src = scratch;
+    scratch += outputs * windows;
+    n = windows;
+  }
+  return launch_bf16_sum(src, out, outer, n, inner, stream);
 }

@@ -21,7 +21,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// The head width of this translation unit's attention kernels: each
+// library is built once per width (ops/_build.py passes -DHIG_HD=128 for
+// the second), and every kernel takes its tile shapes from HD. A 128-wide
+// head is two 64-column halves (NH) wherever a layout is 64 columns wide.
+#ifndef HIG_HD
+#define HIG_HD 64
+#endif
+
 namespace hig {
+
+constexpr int HD = HIG_HD;
+static_assert(HD == 64 || HD == 128, "the kernels take head widths 64 and 128");
+constexpr int NH = HD / 64;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

@@ -51,13 +51,20 @@
 
 namespace hig {
 
-constexpr int FA_HD = 64;        // head dim
+// Head width (common.cuh's HD, 64 or 128). At 128 the most keys resident
+// at once halve (the block's shared memory stays at 137 KB), and q is kept
+// in registers unsplit, split into TF32 parts at each step, so that the
+// 16-row warp tile's q, S and O fit the registers.
+constexpr int FA_HD = HD;        // head dim
 constexpr int FA_MAX_WARPS = 8;  // 16 query rows each
 constexpr int FA_STEP = 32;      // keys per online-softmax step
-constexpr int FA_TILE = 256;     // most keys resident in shared memory at once
+constexpr int FA_TILE = HD == 64 ? 256 : 128;  // most keys resident in shared memory at once
 constexpr int FA_KS = FA_HD + 8; // row stride of k in shared memory
 constexpr int FA_VS = FA_HD + 4; // row stride of v
-constexpr float FA_SCALE = 0.125f;  // 1 / sqrt(FA_HD), exact in float32
+// 1 / sqrt(FA_HD) in float32: exact at 64 (1/8); at 128 the float32 of
+// 2^-3.5, as JAX's Python scale becomes in its float32 product with q
+constexpr float FA_SCALE = HD == 64 ? 0.125f : 0.0883883461356163f;
+constexpr bool FA_QSPLIT = HD == 64;  // q split once into registers (else per step)
 constexpr float FA_MASK_BIAS = -1000000.0f;
 
 constexpr size_t fa_smem(int rows) {
@@ -107,8 +114,10 @@ __global__ void __launch_bounds__(FA_MAX_WARPS * 32) flash_attention_kernel(
   const int warp_end = skip ? min(Tk, tw0 + 16) : Tk;
   const bool warp_rows = tw0 < Tq;
 
-  // q fragments, scaled, split once: qa[kk][*] for depth 8 kk .. 8 kk + 7.
-  Split qa[FA_HD / 8][4];
+  // q fragments, scaled, split once: qa[kk][*] for depth 8 kk .. 8 kk + 7
+  // (!FA_QSPLIT: the scaled values in qf, split where they are used).
+  Split qa[FA_QSPLIT ? FA_HD / 8 : 1][4];
+  float qf[FA_QSPLIT ? 1 : FA_HD / 8][4];
   {
     const float* q0 = q + ((size_t)n * Tq + min(t_lo, Tq - 1)) * ldq + h * FA_HD + 2 * c;
     const float* q1 = q + ((size_t)n * Tq + min(t_hi, Tq - 1)) * ldq + h * FA_HD + 2 * c;
@@ -116,10 +125,17 @@ __global__ void __launch_bounds__(FA_MAX_WARPS * 32) flash_attention_kernel(
     for (int kk = 0; kk < FA_HD / 8; ++kk) {
       const float2 a = *reinterpret_cast<const float2*>(q0 + 8 * kk);
       const float2 b = *reinterpret_cast<const float2*>(q1 + 8 * kk);
-      qa[kk][0] = split_tf32(a.x * FA_SCALE);
-      qa[kk][2] = split_tf32(a.y * FA_SCALE);
-      qa[kk][1] = split_tf32(b.x * FA_SCALE);
-      qa[kk][3] = split_tf32(b.y * FA_SCALE);
+      if constexpr (FA_QSPLIT) {
+        qa[kk][0] = split_tf32(a.x * FA_SCALE);
+        qa[kk][2] = split_tf32(a.y * FA_SCALE);
+        qa[kk][1] = split_tf32(b.x * FA_SCALE);
+        qa[kk][3] = split_tf32(b.y * FA_SCALE);
+      } else {
+        qf[kk][0] = a.x * FA_SCALE;
+        qf[kk][2] = a.y * FA_SCALE;
+        qf[kk][1] = b.x * FA_SCALE;
+        qf[kk][3] = b.y * FA_SCALE;
+      }
     }
   }
 
@@ -171,7 +187,13 @@ __global__ void __launch_bounds__(FA_MAX_WARPS * 32) flash_attention_kernel(
           b[j][0] = split_tf32(kv.x);
           b[j][1] = split_tf32(kv.y);
         }
-        mma_3xtf32<1, FA_STEP / 8>(&sc[0][0], qa[kk], &b[0][0]);
+        if constexpr (FA_QSPLIT) {
+          mma_3xtf32<1, FA_STEP / 8>(&sc[0][0], qa[kk], &b[0][0]);
+        } else {
+          const Split a[4] = {split_tf32(qf[kk][0]), split_tf32(qf[kk][1]),
+                              split_tf32(qf[kk][2]), split_tf32(qf[kk][3])};
+          mma_3xtf32<1, FA_STEP / 8>(&sc[0][0], a, &b[0][0]);
+        }
       }
 
       // Bias, masks and the online softmax of rows t_lo (e = 0, 1) and
@@ -287,14 +309,19 @@ __global__ void __launch_bounds__(FA_MAX_WARPS * 32) flash_attention_kernel(
 //   128-byte-swizzled shared memory) and O += P v (m64n64k16), P the
 //   register A operand taken from the score registers once p is rounded,
 //   v the MN-major B operand; nothing of S or P goes to shared memory.
+// - Head width HD (64 or 128): q, k and v tiles are NH column halves of 64
+//   (one swizzle atom a row each, one TMA box each). S takes HD / 16 depth
+//   steps, the first four from half 0; O is NH m64n64 accumulators, one per
+//   half of v. At 128 two consumer warpgroups (the q double buffers, the
+//   ring and O fit: 194 KB, 64 + 64 accumulators a thread).
 // - The 1/8 scale goes on the float32 scores, where it is exact, as on q
 //   in the Pallas kernel. Rows past Tq read as zeros and are not stored.
 constexpr int FB_BLOCK = 128;  // the Pallas kernel's largest key block, one ring stage
 constexpr int FB_BQ = 64;      // query rows per consumer warpgroup
-constexpr int FB_MAX_WG = 4;   // consumer warpgroups
+constexpr int FB_MAX_WG = HD == 64 ? 4 : 2;  // consumer warpgroups
 constexpr int FB_STAGES = 2;
-constexpr uint32_t FB_Q_BYTES = FB_BQ * FA_HD * 2;      // 8 KB
-constexpr uint32_t FB_KV_BYTES = FB_BLOCK * FA_HD * 2;  // 16 KB each of k and v
+constexpr uint32_t FB_Q_BYTES = FB_BQ * FA_HD * 2;      // 8 KB a half
+constexpr uint32_t FB_KV_BYTES = FB_BLOCK * FA_HD * 2;  // 16 KB a half, each of k and v
 
 struct FlashBf16Smem {  // at a 1024-byte boundary
   bf16 q[FB_MAX_WG][2][FB_BQ * FA_HD];
@@ -338,16 +365,25 @@ __global__ void __launch_bounds__(FB_MAX_WG * 128, 1) flash_attention_bf16_kerne
     const int src = partner ? (n ^ 1) : n;
     // k on one barrier, v on another: S runs while v arrives
     mbar_arrive_expect_tx(&sm.kfull[st], FB_KV_BYTES);
-    tma_load_3d(sm.k[st], &tk, &sm.kfull[st], (item % H) * FA_HD, j0, src);
+#pragma unroll
+    for (int hh = 0; hh < NH; ++hh)
+      tma_load_3d(sm.k[st] + hh * FB_BLOCK * 64, &tk, &sm.kfull[st],
+                  (item % H) * FA_HD + 64 * hh, j0, src);
     mbar_arrive_expect_tx(&sm.vfull[st], FB_KV_BYTES);
-    tma_load_3d(sm.v[st], &tv, &sm.vfull[st], (item % H) * FA_HD, j0, src);
+#pragma unroll
+    for (int hh = 0; hh < NH; ++hh)
+      tma_load_3d(sm.v[st] + hh * FB_BLOCK * 64, &tv, &sm.vfull[st],
+                  (item % H) * FA_HD + 64 * hh, j0, src);
   };
   auto load_q = [&](int w, int idx) {  // warpgroup w's q tile idx into buffer idx & 1
     const int ws = (qtiles - w + nwg - 1) / nwg;
     const int item = item_of(idx / ws), tile = (idx % ws) * nwg + w;
     uint64_t* bar = &sm.qfull[w][idx & 1];
     mbar_arrive_expect_tx(bar, FB_Q_BYTES);
-    tma_load_3d(sm.q[w][idx & 1], &tq, bar, (item % H) * FA_HD, tile * FB_BQ, item / H);
+#pragma unroll
+    for (int hh = 0; hh < NH; ++hh)
+      tma_load_3d(sm.q[w][idx & 1] + hh * FB_BQ * 64, &tq, bar, (item % H) * FA_HD + 64 * hh,
+                  tile * FB_BQ, item / H);
   };
 
   if (tid == 0) {
@@ -405,9 +441,9 @@ __global__ void __launch_bounds__(FB_MAX_WG * 128, 1) flash_attention_bf16_kerne
       }
       const uint64_t dq = sw128_desc(sm.q[wg][idx & 1]);
       const int t_lo = tile * FB_BQ + 16 * wl + g, t_hi = t_lo + 8;
-      float o[32];
+      float o[32 * NH];  // column 64 hh + 8 j + 2 c + e % 2 at o[32 hh + 4 j + e]
 #pragma unroll
-      for (int i = 0; i < 32; ++i) o[i] = 0.f;
+      for (int i = 0; i < 32 * NH; ++i) o[i] = 0.f;
       float m_lo = -1e30f, m_hi = -1e30f, l_lo = 0.f, l_hi = 0.f;  // Pallas's m0
       const bool warp_rows = tile * FB_BQ + 16 * wl < Tq;
       bool key0 = false;  // key 0 of the sequence unmasked (read with block 0)
@@ -433,7 +469,8 @@ __global__ void __launch_bounds__(FB_MAX_WG * 128, 1) flash_attention_bf16_kerne
           wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < FA_HD / 16; ++kk)
-            wgmma_m64n128_ss<0, 0>(sc, desc_add(dq, 32 * kk), desc_add(dk, 32 * kk), kk);
+            wgmma_m64n128_ss<0, 0>(sc, desc_add(dq, FB_BQ * 128 * (kk / 4) + 32 * (kk % 4)),
+                                   desc_add(dk, FB_BLOCK * 128 * (kk / 4) + 32 * (kk % 4)), kk);
           wgmma_commit();
           wgmma_wait<0>();
           fence_regs<64>(sc);
@@ -511,14 +548,17 @@ __global__ void __launch_bounds__(FB_MAX_WG * 128, 1) flash_attention_bf16_kerne
           }
           mbar_wait(&sm.vfull[st], parity);
           const uint64_t dv = sw128_desc(sm.v[st]);
-          fence_regs<32>(o);
+          fence_regs<32 * NH>(o);
           wgmma_fence();
 #pragma unroll
           for (int s = 0; s < FB_BLOCK / 16; ++s)
-            wgmma_m64n64_rs<1>(o, pa[s], desc_add(dv, 2048 * s), 1);
+#pragma unroll
+            for (int hh = 0; hh < NH; ++hh)
+              wgmma_m64n64_rs<1>(o + 32 * hh, pa[s],
+                                 desc_add(dv, FB_BLOCK * 128 * hh + 2048 * s), 1);
           wgmma_commit();
           wgmma_wait<0>();
-          fence_regs<32>(o);
+          fence_regs<32 * NH>(o);
         }
         mbar_arrive(&sm.empty[st]);
         if (tid == 0 && it + FB_STAGES < loads) {  // refill the stage once all are done

@@ -89,34 +89,67 @@ extern "C" int hig_fused_block(
 //       bfloat16 into `xz`;
 //   (4) out_gemm_bf16_kernel: z Wo^T on wgmma from a TMA ring, + bo + x in
 //       float32, rounded once.
-// mask is float32 (N, T); scale and shift bfloat16 (N, D). T <= QC_MAX_T
-// (the rows of one sequence that shared memory holds).
+// mask is float32 (N, T); scale and shift bfloat16 (N, D).
 
 namespace hig {
 
+// Head width HD (64 or 128; the library's). At 128 phase 0 projects k and
+// then v in two passes (qkv_core.cuh), E and v are held as two 64-column
+// halves, warpgroup dh builds state rows 64 dh .. + 63 as two m64n64
+// chains (one a half of v), the state is four 64 x 64 tiles, and y is two
+// m64n64 chains over eight 16-deep steps. The whole form holds up to
+// qc_whole_max_t(1, 2) key rows (320 at HD 64, 128 at 128).
+//
+// The streaming form (STREAM; B1-bf16 past the whole form's rows, any T):
+// the same block and producer, and the same rounding points in the same
+// order, so the two agree bit for bit where both run. Its projection
+// writes each key row's float32 k (with the bias and the mask's bias) and
+// rounded v to a device scratch of its (sequence, head) (kscr, vscr; tpad
+// rows, L2-resident at the shapes that need it) instead of shared memory;
+// the column max and sums read the scratch in the whole form's thread
+// order; then a 64-row tile at a time E = softmax_time(k), rounded, and v
+// go into one of two shared buffers while the state's wgmma steps on the
+// other run, one accumulator chain in the whole form's step order; the
+// queries' phase is the whole form's. E is rounded after its division by
+// the sum over all T keys, so the sums must be complete before any E is
+// built: hence the scratch rather than an online softmax.
+constexpr int QCS_ROWS = 128;  // the streaming form's E and v buffers: two 64-row tiles
+
+__host__ __device__ constexpr int qcs_fixed_smem() {
+  return 2 * QCS_ROWS * HD * 2 + (QC_RG * HD + 2 * HD) * 4 + 2 * QC_MAX_STAGES * 8;
+}
+
+template <bool STREAM>
 __global__ void __launch_bounds__(QC_THREADS, 1) qkv_core_bf16_kernel(
     const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap twq,
     const __grid_constant__ CUtensorMap twk, const __grid_constant__ CUtensorMap twv,
     const bf16* __restrict__ bq, const bf16* __restrict__ bk, const bf16* __restrict__ bv,
-    const float* __restrict__ mask, float* __restrict__ y, int T, int D, int H,
-    int interaction, int stages) {
+    const float* __restrict__ mask, float* __restrict__ y, float* __restrict__ kscr,
+    bf16* __restrict__ vscr, int T, int D, int H, int interaction, int stages) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = align1024(smem_raw);  // [stages]: xn tile 0, xn tile 1, W (128 rows)
   const int tiles = (T + 63) / 64, tpad = 64 * tiles;
-  float* ks = reinterpret_cast<float*>(ring + stages * QC_STAGE_BYTES);  // [tpad][64] k
-  unsigned char* es = reinterpret_cast<unsigned char*>(ks) + tpad * 256;  // softmax_t(k), bf16
-  unsigned char* vs = es + tpad * 128;                                     // v, bf16
-  float* red = reinterpret_cast<float*>(vs + tpad * 128);                  // [4][64]
-  float* cm = red + 4 * 64;                                                // column max
-  float* zs = cm + 64;                                                     // column sums
-  uint64_t* full = reinterpret_cast<uint64_t*>(zs + 64);
+  const int erows = STREAM ? QCS_ROWS : tpad;  // rows of the E and v halves
+  float* ks = reinterpret_cast<float*>(ring + stages * QC_STAGE_BYTES);  // [tpad][HD] k (whole)
+  unsigned char* es = STREAM ? reinterpret_cast<unsigned char*>(ks)
+                             : reinterpret_cast<unsigned char*>(ks) + tpad * HD * 4;  // E, bf16
+  unsigned char* vs = es + erows * HD * 2;                                 // v, bf16
+  float* red = reinterpret_cast<float*>(vs + erows * HD * 2);              // [QC_RG][HD]
+  float* cm = red + QC_RG * HD;                                            // column max
+  float* zs = cm + HD;                                                     // column sums
+  uint64_t* full = reinterpret_cast<uint64_t*>(zs + HD);
   uint64_t* empty = full + QC_MAX_STAGES;
-  unsigned char* state = reinterpret_cast<unsigned char*>(ks);  // once E is built, bf16 64 x 64
+  // once E is built (whole: over k; streaming: over the E buffers), bf16,
+  // NH x NH tiles of 64 x 64: tile (dh, lh) at 8192 (NH dh + lh)
+  unsigned char* state = STREAM ? es : reinterpret_cast<unsigned char*>(ks);
 
   const int n = blockIdx.x / H, h = blockIdx.x % H;
   const int src = interaction ? (n ^ 1) : n;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rounds = (tiles + QC_WG - 1) / QC_WG, kchunks = D / 64;
+  // the streaming form's scratch rows of this (sequence, head)
+  float* kh = STREAM ? kscr + (size_t)blockIdx.x * tpad * HD : nullptr;
+  bf16* vh = STREAM ? vscr + (size_t)blockIdx.x * tpad * HD : nullptr;
 
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
@@ -129,7 +162,7 @@ __global__ void __launch_bounds__(QC_THREADS, 1) qkv_core_bf16_kernel(
 
   if (warp == 4 * QC_WG) {  // producer: k | v chunks of every round, then q's
     if (lane == 0)
-      qc_produce(&tx, &tx, QcWeights{&twq, &twk, &twv, 64 * h, 64 * h, 64 * h}, src, n, ring,
+      qc_produce(&tx, &tx, QcWeights{&twq, &twk, &twv, HD * h, HD * h, HD * h}, src, n, ring,
                  full, empty, stages, tiles, kchunks);
     return;
   }
@@ -141,11 +174,12 @@ __global__ void __launch_bounds__(QC_THREADS, 1) qkv_core_bf16_kernel(
   for (int r = 0; r < rounds; ++r) {
     const int tile = QC_WG * r + wg;
     const bool active = tile < tiles;  // uniform over the warpgroup
-    float acc[64];
-    qc_project<128>(acc, ring, full, empty, it, stages, kchunks, wg, active);
-    if (active) {
+    for (int pass = 0; pass < QC_KV_PASSES; ++pass) {
+      float acc[64];
+      qc_project<128>(acc, ring, full, empty, it, stages, kchunks, wg, active);
+      if (!active) continue;
       fence_regs<64>(acc);
-      // k += (1 - mask) * -1e6 into ks (float32); v * mask, rounded, into vs;
+      // k += (1 - mask) * -1e6 into k (float32); v * mask, rounded, into v;
       // rows past T: v = 0 (and k unread)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
@@ -154,86 +188,149 @@ __global__ void __launch_bounds__(QC_THREADS, 1) qkv_core_bf16_kernel(
         const float mt = valid ? mask[(size_t)src * T + t] : 0.f;
 #pragma unroll
         for (int j = 0; j < 16; ++j) {
-          const int col = 8 * (j & 7) + 2 * c;
+          const bool is_k = HD == 64 ? j < 8 : pass == 0;
+          const int col = 8 * (HD == 64 ? (j & 7) : j) + 2 * c;
           const float a0 = acc[4 * j + 2 * half], a1 = acc[4 * j + 2 * half + 1];
-          if (j < 8) {
+          if (is_k) {
             const float2 b = load2(bk + h * HD + col);
-            *reinterpret_cast<float2*>(ks + t * 64 + col) =
-                make_float2(a0 + b.x + (1.f - mt) * MASK_BIAS, a1 + b.y + (1.f - mt) * MASK_BIAS);
+            const float2 kv = make_float2(a0 + b.x + (1.f - mt) * MASK_BIAS,
+                                          a1 + b.y + (1.f - mt) * MASK_BIAS);
+            if (!STREAM)
+              *reinterpret_cast<float2*>(ks + t * HD + col) = kv;
+            else if (valid)
+              *reinterpret_cast<float2*>(kh + (size_t)t * HD + col) = kv;
           } else {
             const float2 b = load2(bv + h * HD + col);
-            *reinterpret_cast<uint32_t*>(vs + swz128(t, col)) =
-                valid ? pack_bf16((a0 + b.x) * mt, (a1 + b.y) * mt) : 0u;
+            const uint32_t pv = valid ? pack_bf16((a0 + b.x) * mt, (a1 + b.y) * mt) : 0u;
+            if (!STREAM)
+              *reinterpret_cast<uint32_t*>(vs + half_swz(t, col, tpad)) = pv;
+            else
+              *reinterpret_cast<uint32_t*>(vh + (size_t)t * HD + col) = pv;
           }
         }
       }
     }
   }
+  if (STREAM) __threadfence_block();  // the scratch rows, for the other consumer threads
   named_barrier(1, QC_CONSUMERS);
 
   // column max and sums over the T keys, then E = softmax_time(k) rounded
-  qc_column_stats(ks, T, tid, red, cm, zs, [](int t, int d) { return t * 64 + d; });
-  for (int i = tid; i < tpad * 32; i += QC_CONSUMERS) {
-    const int t = i >> 5, d2 = 2 * (i & 31);
-    uint32_t e = 0u;
-    if (t < T)
-      e = pack_bf16(expf(ks[t * 64 + d2] - cm[d2]) / zs[d2],
-                    expf(ks[t * 64 + d2 + 1] - cm[d2 + 1]) / zs[d2 + 1]);
-    *reinterpret_cast<uint32_t*>(es + swz128(t, d2)) = e;
-  }
-  fence_proxy_async();
-  named_barrier(1, QC_CONSUMERS);
+  const float* kk = STREAM ? kh : ks;
+  qc_column_stats(kk, T, tid, red, cm, zs, [](int t, int d) { return t * HD + d; });
+  auto e_pair = [&](int t, int d2) {
+    return t < T ? pack_bf16(expf(kk[(size_t)t * HD + d2] - cm[d2]) / zs[d2],
+                             expf(kk[(size_t)t * HD + d2 + 1] - cm[d2 + 1]) / zs[d2 + 1])
+                 : 0u;
+  };
+  float sacc[NH][32];  // warpgroup dh < NH: state rows 64 dh .. + 63, one chain a half of v
+  if constexpr (!STREAM) {
+    for (int i = tid; i < tpad * (HD / 2); i += QC_CONSUMERS) {
+      const int t = i / (HD / 2), d2 = 2 * (i % (HD / 2));
+      *reinterpret_cast<uint32_t*>(es + half_swz(t, d2, tpad)) = e_pair(t, d2);
+    }
+    fence_proxy_async();
+    named_barrier(1, QC_CONSUMERS);
 
-  // state = E^T v (64 x 64, the depth is time), rounded, over ks
-  if (wg == 0) {
-    float sacc[32];
-    const uint64_t de = sw128_desc(es), dv = sw128_desc(vs);
-    wgmma_fence();
-    for (int s = 0; s < tpad / 16; ++s)
-      wgmma_m64n64_ss<1, 1>(sacc, desc_add(de, 2048 * s), desc_add(dv, 2048 * s), s > 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs<32>(sacc);
+    // state = E^T v (HD x HD, the depth is time), rounded, over ks
+    if (wg < NH) {
+      const uint64_t de = sw128_desc(es + wg * tpad * 128);
+      wgmma_fence();
+      for (int s = 0; s < tpad / 16; ++s)
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+        for (int lh = 0; lh < NH; ++lh)
+          wgmma_m64n64_ss<1, 1>(sacc[lh], desc_add(de, 2048 * s),
+                                desc_add(sw128_desc(vs + lh * tpad * 128), 2048 * s), s > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<32 * NH>(&sacc[0][0]);
+    }
+  } else {
+    // a tile at a time into buffer i & 1 (rows 64 (i & 1) .. of the halves)
+    for (int i = 0; i < tiles; ++i) {
+      const int b = i & 1;
+      named_barrier(1, QC_CONSUMERS);  // tile i - 2's steps are done: buffer b is free
+      for (int j = tid; j < 64 * (HD / 2); j += QC_CONSUMERS) {
+        const int r = j / (HD / 2), d2 = 2 * (j % (HD / 2));
+        *reinterpret_cast<uint32_t*>(es + half_swz(64 * b + r, d2, QCS_ROWS)) =
+            e_pair(64 * i + r, d2);
+      }
+      for (int j = tid; j < 64 * (HD / 8); j += QC_CONSUMERS) {
+        const int r = j / (HD / 8), c8 = 8 * (j % (HD / 8));
+        *reinterpret_cast<uint4*>(vs + half_swz(64 * b + r, c8, QCS_ROWS)) =
+            *reinterpret_cast<const uint4*>(vh + (size_t)(64 * i + r) * HD + c8);
+      }
+      fence_proxy_async();
+      named_barrier(1, QC_CONSUMERS);
+      if (wg < NH) {
+        const uint64_t de = sw128_desc(es + wg * QCS_ROWS * 128 + b * 8192);
+        wgmma_fence();
 #pragma unroll
-      for (int half = 0; half < 2; ++half)
-        *reinterpret_cast<uint32_t*>(state + swz128(16 * wl + g + 8 * half, 8 * j + 2 * c)) =
-            pack_bf16(sacc[4 * j + 2 * half], sacc[4 * j + 2 * half + 1]);
+        for (int s = 0; s < 4; ++s)
+#pragma unroll
+          for (int lh = 0; lh < NH; ++lh)
+            wgmma_m64n64_ss<1, 1>(
+                sacc[lh], desc_add(de, 2048 * s),
+                desc_add(sw128_desc(vs + lh * QCS_ROWS * 128 + b * 8192), 2048 * s),
+                i > 0 || s > 0);
+        wgmma_commit();
+        wgmma_wait<1>();  // tile i - 1's steps are done
+      }
+    }
+    if (wg < NH) {
+      wgmma_wait<0>();
+      fence_regs<32 * NH>(&sacc[0][0]);
+    }
+    named_barrier(1, QC_CONSUMERS);  // every step is done with the buffers: the state goes there
+  }
+  if (wg < NH) {
+#pragma unroll
+    for (int lh = 0; lh < NH; ++lh)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          *reinterpret_cast<uint32_t*>(state + (wg * NH + lh) * 8192 +
+                                       swz128(16 * wl + g + 8 * half, 8 * j + 2 * c)) =
+              pack_bf16(sacc[lh][4 * j + 2 * half], sacc[lh][4 * j + 2 * half + 1]);
     fence_proxy_async();
   }
   named_barrier(1, QC_CONSUMERS);
 
   // y = softmax_feat(q) (rounded) . state, per 64-row tile of this sequence
-  const uint64_t dst = sw128_desc(state);
   for (int r = 0; r < rounds; ++r) {
     const int tile = QC_WG * r + wg;
     const bool active = tile < tiles;
-    float qa[32];
-    qc_project<64>(qa, ring, full, empty, it, stages, kchunks, wg, active);
+    float qa[HD / 2];
+    qc_project<HD>(qa, ring, full, empty, it, stages, kchunks, wg, active);
     if (!active) continue;
-    fence_regs<32>(qa);
+    fence_regs<HD / 2>(qa);
     qc_feature_softmax(qa, bq + h * HD, c);
-    uint32_t pa[4][4];  // softmax_feat(q), rounded: the A operand of each 16-deep step
+    uint32_t pa[HD / 16][4];  // softmax_feat(q), rounded: the A operand of each 16-deep step
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < HD / 8; ++j) {
       pa[j >> 1][2 * (j & 1)] = pack_bf16(qa[4 * j], qa[4 * j + 1]);
       pa[j >> 1][2 * (j & 1) + 1] = pack_bf16(qa[4 * j + 2], qa[4 * j + 3]);
     }
-    float ya[32];
+    float ya[32 * NH];  // column 64 lh + 8 j + 2 c + e % 2 at ya[32 lh + 4 j + e]
     wgmma_fence();
 #pragma unroll
-    for (int s = 0; s < 4; ++s) wgmma_m64n64_rs<1>(ya, pa[s], desc_add(dst, 2048 * s), s > 0);
+    for (int s = 0; s < HD / 16; ++s)
+#pragma unroll
+      for (int lh = 0; lh < NH; ++lh)
+        wgmma_m64n64_rs<1>(ya + 32 * lh, pa[s],
+                           desc_add(sw128_desc(state + ((s / 4) * NH + lh) * 8192),
+                                    2048 * (s % 4)),
+                           s > 0);
     wgmma_commit();
     wgmma_wait<0>();
-    fence_regs<32>(ya);
+    fence_regs<32 * NH>(ya);
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int t = 64 * tile + 16 * wl + g + 8 * half;
       if (t >= T) continue;
       float* yr = y + ((size_t)n * T + t) * D + h * HD + 2 * c;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < HD / 8; ++j)
         *reinterpret_cast<float2*>(yr + 8 * j) =
             make_float2(ya[4 * j + 2 * half], ya[4 * j + 2 * half + 1]);
     }
@@ -312,22 +409,50 @@ __global__ void __launch_bounds__(QC_THREADS, 1) out_gemm_bf16_kernel(
   }
 }
 
-}  // namespace hig
+
+// The q|k|v + core launch of either form (scratch: the streaming form's).
+template <bool STREAM>
+cudaError_t launch_qkv_core_bf16(const bf16* xz, const bf16* wq, const bf16* bq,
+                                 const bf16* wk, const bf16* bk, const bf16* wv,
+                                 const bf16* bv, const float* mask, float* y, float* kscr,
+                                 bf16* vscr, int N, int T, int D, int interaction,
+                                 cudaStream_t stream) {
+  const int tpad = (T + 63) / 64 * 64;
+  if (!STREAM && tpad > qc_whole_max_t(1, 2)) return cudaErrorInvalidValue;
+  CUtensorMap mx, mq, mk, mv;
+  cudaError_t err = make_tile_map(&mx, xz, D, T, N, D, 64);
+  if (err == cudaSuccess) err = make_tile_map(&mq, wq, D, D, 1, D, 64);
+  if (err == cudaSuccess) err = make_tile_map(&mk, wk, D, D, 1, D, 64);
+  if (err == cudaSuccess) err = make_tile_map(&mv, wv, D, D, 1, D, 64);
+  if (err != cudaSuccess) return err;
+  int stages, smem;
+  if (STREAM) {
+    const int fit = (SMEM_MAX - 1024 - qcs_fixed_smem()) / (int)QC_STAGE_BYTES;
+    stages = fit < QC_MAX_STAGES ? fit : QC_MAX_STAGES;
+    smem = 1024 + stages * (int)QC_STAGE_BYTES + qcs_fixed_smem();
+  } else {
+    stages = qc_stages(tpad);
+    smem = qc_smem(tpad);
+  }
+  err = cudaFuncSetAttribute(qkv_core_bf16_kernel<STREAM>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  qkv_core_bf16_kernel<STREAM><<<N * (D / HD), QC_THREADS, smem, stream>>>(
+      mx, mq, mk, mv, bq, bk, bv, mask, y, kscr, vscr, T, D, D / HD, interaction, stages);
+  return cudaGetLastError();
+}
 
 // part < 0 runs the four launches in order; part 0..3 only that launch (to
-// time each one). Returns the first cudaError_t.
-extern "C" int hig_fused_block_bf16(
-    const hig::bf16* x, const float* mask, const hig::bf16* scale, const hig::bf16* shift,
-    const hig::bf16* ln_g, const hig::bf16* ln_b,
-    const hig::bf16* wq, const hig::bf16* bq, const hig::bf16* wk, const hig::bf16* bk,
-    const hig::bf16* wv, const hig::bf16* bv,
-    const hig::bf16* styl_g, const hig::bf16* styl_b, const hig::bf16* wo,
-    const hig::bf16* bo, hig::bf16* xz, float* y, hig::bf16* out,
-    int N, int T, int D, int interaction, int part, void* stream_ptr) {
-  using namespace hig;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+// time each one). kscr and vscr: the streaming form's scratch (STREAM).
+template <bool STREAM>
+int fused_block_bf16(const bf16* x, const float* mask, const bf16* scale, const bf16* shift,
+                     const bf16* ln_g, const bf16* ln_b, const bf16* wq, const bf16* bq,
+                     const bf16* wk, const bf16* bk, const bf16* wv, const bf16* bv,
+                     const bf16* styl_g, const bf16* styl_b, const bf16* wo, const bf16* bo,
+                     bf16* xz, float* y, bf16* out, float* kscr, bf16* vscr, int N, int T,
+                     int D, int interaction, int part, cudaStream_t stream) {
   const int M = N * T;
-  if (T > QC_MAX_T || D % 64) return cudaErrorInvalidValue;
+  if (D % HD) return cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
 
   if (part < 0 || part == 0) {
@@ -335,19 +460,8 @@ extern "C" int hig_fused_block_bf16(
     if (err != cudaSuccess) return err;
   }
   if (part < 0 || part == 1) {
-    CUtensorMap mx, mq, mk, mv;
-    err = make_tile_map(&mx, xz, D, T, N, D, 64);
-    if (err == cudaSuccess) err = make_tile_map(&mq, wq, D, D, 1, D, 64);
-    if (err == cudaSuccess) err = make_tile_map(&mk, wk, D, D, 1, D, 64);
-    if (err == cudaSuccess) err = make_tile_map(&mv, wv, D, D, 1, D, 64);
-    if (err != cudaSuccess) return err;
-    const int tpad = (T + 63) / 64 * 64, smem = qc_smem(tpad);
-    err = cudaFuncSetAttribute(qkv_core_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return err;
-    qkv_core_bf16_kernel<<<N * (D / HD), QC_THREADS, smem, stream>>>(
-        mx, mq, mk, mv, bq, bk, bv, mask, y, T, D, D / HD, interaction, qc_stages(tpad));
-    err = cudaGetLastError();
+    err = launch_qkv_core_bf16<STREAM>(xz, wq, bq, wk, bk, wv, bv, mask, y, kscr, vscr, N, T,
+                                       D, interaction, stream);
     if (err != cudaSuccess) return err;
   }
   if (part < 0 || part == 2) {
@@ -369,3 +483,39 @@ extern "C" int hig_fused_block_bf16(
   }
   return err;
 }
+
+}  // namespace hig
+
+// B1-bf16's whole form (T up to hig_fused_block_bf16_max_t's rows).
+// Returns the first cudaError_t.
+extern "C" int hig_fused_block_bf16(
+    const hig::bf16* x, const float* mask, const hig::bf16* scale, const hig::bf16* shift,
+    const hig::bf16* ln_g, const hig::bf16* ln_b,
+    const hig::bf16* wq, const hig::bf16* bq, const hig::bf16* wk, const hig::bf16* bk,
+    const hig::bf16* wv, const hig::bf16* bv,
+    const hig::bf16* styl_g, const hig::bf16* styl_b, const hig::bf16* wo,
+    const hig::bf16* bo, hig::bf16* xz, float* y, hig::bf16* out,
+    int N, int T, int D, int interaction, int part, void* stream_ptr) {
+  return hig::fused_block_bf16<false>(x, mask, scale, shift, ln_g, ln_b, wq, bq, wk, bk, wv, bv,
+                                      styl_g, styl_b, wo, bo, xz, y, out, nullptr, nullptr, N,
+                                      T, D, interaction, part,
+                                      static_cast<cudaStream_t>(stream_ptr));
+}
+
+// B1-bf16's streaming form, any T: kscr (N * D / HD, tpad, HD) float32 and
+// vscr (the same) bfloat16 scratch, tpad = T rounded up to 64.
+extern "C" int hig_fused_block_bf16_stream(
+    const hig::bf16* x, const float* mask, const hig::bf16* scale, const hig::bf16* shift,
+    const hig::bf16* ln_g, const hig::bf16* ln_b,
+    const hig::bf16* wq, const hig::bf16* bq, const hig::bf16* wk, const hig::bf16* bk,
+    const hig::bf16* wv, const hig::bf16* bv,
+    const hig::bf16* styl_g, const hig::bf16* styl_b, const hig::bf16* wo,
+    const hig::bf16* bo, hig::bf16* xz, float* y, hig::bf16* out, float* kscr,
+    hig::bf16* vscr, int N, int T, int D, int interaction, int part, void* stream_ptr) {
+  return hig::fused_block_bf16<true>(x, mask, scale, shift, ln_g, ln_b, wq, bq, wk, bk, wv, bv,
+                                     styl_g, styl_b, wo, bo, xz, y, out, kscr, vscr, N, T, D,
+                                     interaction, part, static_cast<cudaStream_t>(stream_ptr));
+}
+
+// The most key rows of B1-bf16's whole form at this library's head width.
+extern "C" int hig_fused_block_bf16_max_t() { return hig::qc_whole_max_t(1, 2); }

@@ -46,7 +46,7 @@
 // multiplies its 32 softmaxed query rows by the state.
 //
 // Layouts: activations are row-major (rows = N sequences x T tokens,
-// columns = features); heads are 64-wide column slices. The core reads q, k
+// columns = features); heads are HD-wide column slices. The core reads q, k
 // and v through a base pointer and a row stride each: B1 and B2 pass the
 // column blocks of their (N*T, 3*D) q | k | v buffer (stride 3*D), B3
 // passes three (N, T, D) tensors (stride D).
@@ -57,8 +57,13 @@
 // and B2-bf16a (projected_attention.cu) and B3-bf16 (efficient_attention.cu)
 // are kernels of their own.
 //
-// Assumptions, checked by the Python wrappers: D % 64 == 0 (B1: D % 128 ==
-// 0 and D <= 1024 for the row pass), head dim 64, every pointer 16-byte
+// Head width. The core takes HD (common.cuh, 64 or 128) from its library:
+// HD / 16 warps, each building 16 rows of the HD x HD state over all HD
+// columns, and a block's query rows split over them; at HD = 128 its
+// shared memory (CORE_BUF, 86 KB) is past the 48 KB of a static array.
+//
+// Assumptions, checked by the Python wrappers: D % HD == 0 (B1: D % 128 ==
+// 0 and D <= 1024 for the row pass), head dim HD, every pointer 16-byte
 // aligned, every row stride a multiple of 4 floats, float32 throughout
 // except the bfloat16 forms' activations and weights.
 #pragma once
@@ -78,12 +83,17 @@ constexpr int WARPS_M = 2;         // GEMM warps along M
 constexpr int WARPS_N = 2;         // GEMM warps along N
 constexpr int GEMM_THREADS = 32 * WARPS_M * WARPS_N;
 constexpr int NORM_THREADS = 256;  // one warp per row
-constexpr int HD = 64;             // head dim
-constexpr int CORE_THREADS = 128;  // 4 warps
+constexpr int CORE_THREADS = 2 * HD;  // HD / 16 warps: one per 16 state rows
+constexpr int CORE_WARPS = CORE_THREADS / 32;
 constexpr int CORE_BQ = 32;        // query rows per core block
 constexpr int TC = 32;             // key rows per chunk in the core
 constexpr int KS = HD + 8;         // row stride of the k, v chunks and the state
 constexpr int QS = HD + 4;         // row stride of the softmaxed queries
+// The core's dynamic shared memory (floats): two stages of (k chunk, v
+// chunk), which the normalized state [HD][KS] and the softmaxed queries
+// [CORE_BQ][QS] take over after the key loop.
+constexpr int CORE_BUF = 2 * 2 * TC * KS > HD * KS + CORE_BQ * QS ? 2 * 2 * TC * KS
+                                                                  : HD * KS + CORE_BQ * QS;
 constexpr float LN_EPS = 1e-6f;
 constexpr float MASK_BIAS = -1000000.0f;
 
@@ -289,7 +299,7 @@ __global__ void __launch_bounds__(CORE_THREADS) linear_attention_core(
     float* __restrict__ y, int Tq, int Tk, int D, int ldq, int ldkv, int interaction) {
   // Two stages of (k chunk, v chunk); after the key loop the same memory
   // holds the normalized state [HD][KS] and the softmaxed queries [CORE_BQ][QS].
-  __shared__ __align__(16) float buf[2 * 2 * TC * KS];
+  extern __shared__ __align__(16) float buf[];  // [CORE_BUF]
   __shared__ float red[2][HD];
   __shared__ float colmax[HD];
   __shared__ float zinv[HD];  // 1 / column sums
@@ -319,15 +329,15 @@ __global__ void __launch_bounds__(CORE_THREADS) linear_attention_core(
   cp_async_commit();
 
   // This warp's query rows for pass 3, loaded now so that their latency
-  // hides behind the key passes.
-  constexpr int QROWS = CORE_BQ / (CORE_THREADS / 32);
-  float qv[QROWS][2];
+  // hides behind the key passes; lane l holds columns l + 32 i.
+  constexpr int QROWS = CORE_BQ / CORE_WARPS, QCOLS = HD / 32;
+  float qv[QROWS][QCOLS];
 #pragma unroll
   for (int i = 0; i < QROWS; ++i) {
-    const int t = t0q + warp + i * (CORE_THREADS / 32);
+    const int t = t0q + warp + i * CORE_WARPS;
     const float* qr = q + (size_t)(t < Tq ? t : 0) * ldq;
-    qv[i][0] = qr[lane];
-    qv[i][1] = qr[lane + 32];
+#pragma unroll
+    for (int j = 0; j < QCOLS; ++j) qv[i][j] = qr[lane + 32 * j];
   }
 
   // pass 1: column max of the masked keys over time
@@ -344,10 +354,11 @@ __global__ void __launch_bounds__(CORE_THREADS) linear_attention_core(
 
   // pass 2: state = E^T V over 32-key chunks on the tensor cores, E =
   // exp(k - colmax) formed in place in shared memory; warp w owns state
-  // rows 16w .. 16w + 15, all 64 columns (8 n8 tiles).
-  float acc[8][4];
+  // rows 16w .. 16w + 15, all HD columns (HD / 8 n8 tiles).
+  constexpr int NT = HD / 8;
+  float acc[NT][4];
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
   float z = 0.f;
@@ -378,14 +389,14 @@ __global__ void __launch_bounds__(CORE_THREADS) linear_attention_core(
       const float* e0 = ks + (kk + c) * KS + warp * 16 + g;
       Split a[4] = {split_tf32(e0[0]), split_tf32(e0[8]), split_tf32(e0[4 * KS]),
                     split_tf32(e0[4 * KS + 8])};
-      Split b[8][2];
+      Split b[NT][2];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < NT; ++j) {
         const float* v0 = vs + (kk + c) * KS + j * 8 + g;
         b[j][0] = split_tf32(v0[0]);
         b[j][1] = split_tf32(v0[4 * KS]);
       }
-      mma_3xtf32<1, 8>(&acc[0][0], a, &b[0][0]);
+      mma_3xtf32<1, NT>(&acc[0][0], a, &b[0][0]);
     }
     __syncthreads();  // done reading stage s before it is refilled
   }
@@ -399,7 +410,7 @@ __global__ void __launch_bounds__(CORE_THREADS) linear_attention_core(
   {
     const int dr = warp * 16 + g;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < NT; ++j) {
       const int l = j * 8 + 2 * c;
       const float z0 = zinv[dr], z1 = zinv[dr + 8];
       *reinterpret_cast<float2*>(state + dr * KS + l) =
@@ -413,19 +424,27 @@ __global__ void __launch_bounds__(CORE_THREADS) linear_attention_core(
   // columns 32 (w >> 1) .. + 31.
 #pragma unroll
   for (int i = 0; i < QROWS; ++i) {
-    const int r = warp + i * (CORE_THREADS / 32), t = t0q + r;
-    float e0 = 0.f, e1 = 0.f;
+    const int r = warp + i * CORE_WARPS, t = t0q + r;
+    float e[QCOLS];
+#pragma unroll
+    for (int j = 0; j < QCOLS; ++j) e[j] = 0.f;
     if (t < Tq) {
-      const float a0 = qv[i][0], a1 = qv[i][1];
-      const float mx = warp_max(fmaxf(a0, a1));
-      e0 = expf(a0 - mx);
-      e1 = expf(a1 - mx);
-      const float inv = 1.f / warp_sum(e0 + e1);
-      e0 *= inv;
-      e1 *= inv;
+      float mx = qv[i][0];
+#pragma unroll
+      for (int j = 1; j < QCOLS; ++j) mx = fmaxf(mx, qv[i][j]);
+      mx = warp_max(mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < QCOLS; ++j) {
+        e[j] = expf(qv[i][j] - mx);
+        sum = j == 0 ? e[0] : sum + e[j];
+      }
+      const float inv = 1.f / warp_sum(sum);
+#pragma unroll
+      for (int j = 0; j < QCOLS; ++j) e[j] *= inv;
     }
-    qs[r * QS + lane] = e0;
-    qs[r * QS + lane + 32] = e1;
+#pragma unroll
+    for (int j = 0; j < QCOLS; ++j) qs[r * QS + lane + 32 * j] = e[j];
   }
   __syncthreads();
   const int mt = warp & 1, nt0 = (warp >> 1) * 4;
@@ -506,8 +525,12 @@ cudaError_t launch_row_norm(const TI* in, TO* out, const TP* g, const TP* b,
 inline cudaError_t launch_core(const float* q, const float* k, const float* v, const float* mask,
                                float* y, int N, int Tq, int Tk, int D, int ldq, int ldkv,
                                int interaction, cudaStream_t stream) {
+  constexpr int smem = CORE_BUF * (int)sizeof(float);
+  const cudaError_t attr = cudaFuncSetAttribute(
+      linear_attention_core, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
   const dim3 grid(D / HD, N, (Tq + CORE_BQ - 1) / CORE_BQ);
-  linear_attention_core<<<grid, CORE_THREADS, 0, stream>>>(
+  linear_attention_core<<<grid, CORE_THREADS, smem, stream>>>(
       q, k, v, mask, y, Tq, Tk, D, ldq, ldkv, interaction);
   return cudaGetLastError();
 }

@@ -261,7 +261,7 @@ def _launch_flash(query, key, value, mask, num_heads, causal, partner):
                   (N, num_heads, Tq, Tk, query.stride(-2), key.stride(-2), D, int(partner),
                    int(causal)),
                   torch.cuda.current_stream(query.device).cuda_stream,
-                  entry="flash_attention_bf16" if bf16 else None)
+                  entry="flash_attention_bf16" if bf16 else None, hd=D // num_heads)
     return out
 
 

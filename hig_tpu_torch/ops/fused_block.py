@@ -50,9 +50,19 @@ so the float32 q|k|v never reaches device memory. The gate's row pass
 writes z as bfloat16, and a wgmma GEMM fed by TMA adds bo and the float32
 residual before it stores bfloat16. LayerNorm keeps float32 statistics
 under ``fast_ln`` too, as the Pallas kernel does. The kernel holds one
-sequence's keys in shared memory: T up to ``BF16_MAX_T`` (320).
-:func:`fused_attention_block_plain` on bfloat16 inputs is its twin with the
-same rounding points; products of rounded values are taken in float32.
+sequence's keys in shared memory: T up to ``whole_max_t(hd)`` (320 at
+head width 64, 128 at 128). Past that its streaming form runs
+(``hig_fused_block_bf16_stream``, counted in ``launches_bf16_stream``):
+the same block and rounding points, its projection writing each key row's
+float32 k and rounded v to a device scratch, the column max and sums over
+all T keys read from there in the whole form's order, then E built and the
+state's wgmma steps taken a 64-row tile at a time, so it equals the whole
+form bit for bit where both run. :func:`fused_attention_block_plain` on
+bfloat16 inputs is its twin with the same rounding points; products of
+rounded values are taken in float32.
+
+Head widths. Every form takes a head width of 64 or 128 (``HEAD_WIDTHS``),
+each from its own build of the library.
 """
 
 from __future__ import annotations
@@ -64,12 +74,14 @@ import torch.nn.functional as F
 
 from hig_tpu_torch.ops import _build
 from hig_tpu_torch.ops.pallas_attention import (
-    BF16_MAX_T,
     CORE_ROUNDINGS,
+    FORMS,
     check_cuda_operand,
     check_cuda_width,
     efficient_attention,
     round_bf16,
+    whole_max_t,
+    whole_or_stream,
 )
 from hig_tpu_torch.utils.graphs import counted
 
@@ -146,12 +158,14 @@ def fused_attention_block_plain(x, key_mask, scale, shift, w: BlockWeights,
 
 
 def fused_attention_block(x, key_mask, scale, shift, w: BlockWeights,
-                          num_heads: int, interaction: bool = False):
+                          num_heads: int, interaction: bool = False, form: str | None = None):
     """One fused efficient-attention block (B1 forward); see the module doc.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel: the
     float32 form, or for bfloat16 x, scale, shift and weights the bfloat16
-    form (``launches_bf16``); other dtypes raise. B1 has no backward (the
+    form, whole (``launches_bf16``) or past its rows streaming
+    (``launches_bf16_stream``; ``form`` picks one where both run); other
+    dtypes raise. B1 has no backward (the
     JAX kernel has no VJP either), so on CUDA tensors it raises when grad is
     enabled and an input requires grad, rather than return an output cut
     off from autograd; training takes B2.
@@ -162,14 +176,16 @@ def fused_attention_block(x, key_mask, scale, shift, w: BlockWeights,
     lead, (T, D) = x.shape[:-2], x.shape[-2:]
     if interaction and (x.dim() != 4 or x.shape[1] != 2):
         raise ValueError(f"the interaction variant takes (B, 2, T, D), got {tuple(x.shape)}")
-    check_cuda_width(D, num_heads)
+    hd = check_cuda_width(D, num_heads)
     if D % 128 or D > 1024:
         raise ValueError(f"the CUDA block takes D a multiple of 128 up to 1024, got {D}")
     dt = x.dtype
     if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"the fused-block kernel takes float32 or bfloat16 x, got {dt}")
-    if dt == torch.bfloat16 and T > BF16_MAX_T:
-        raise ValueError(f"the bfloat16 block kernel takes T up to {BF16_MAX_T}, got {T}")
+    if dt == torch.bfloat16:
+        form = form or whole_or_stream(T, hd)
+        if form not in FORMS or (form == "whole" and T > whole_max_t(hd)):
+            raise ValueError(f"B1-bf16 has no form {form!r} at T={T}, head width {hd}")
     check_cuda_operand("x", x, dtype=dt)
     N = x.numel() // (T * D)
     mask = key_mask.to(torch.float32).expand(*lead, T).reshape(N, T).contiguous()
@@ -193,23 +209,34 @@ def fused_attention_block(x, key_mask, scale, shift, w: BlockWeights,
     if dt == torch.float32:
         qkv = torch.empty((N * T, 3 * D), device=x.device, dtype=torch.float32)
         _build.launch("fused_block", (x, mask, scale, shift, *w, qkv, y, out),
-                      (N, T, D, int(interaction)), stream)
+                      (N, T, D, int(interaction)), stream, hd=hd)
         fused_attention_block.launches += 1
         return out
     xz = torch.empty((N * T, D), device=x.device, dtype=torch.bfloat16)  # xn, then z
-    launch_bf16((x, mask, scale, shift, *w, xz, y, out), N, T, D, interaction, stream)
-    fused_attention_block.launches_bf16 += 1
+    launch_bf16((x, mask, scale, shift, *w, xz, y, out), N, T, D, interaction, stream,
+                hd=hd, form=form)
+    if form == "stream":
+        fused_attention_block.launches_bf16_stream += 1
+    else:
+        fused_attention_block.launches_bf16 += 1
     return out
 
 
 def launch_bf16(tensors, N: int, T: int, D: int, interaction: bool, stream: int,
-                part: int = -1) -> None:
-    """Launch B1-bf16 on ``tensors`` (x, mask, scale, shift, the 12 weights,
-    xz, y, out; checked by :func:`fused_attention_block`): all four launches,
-    or with ``part`` 0..3 only that one (row pass, q|k|v + core, gate row
-    pass, Wo GEMM), to time it alone. Counts nothing."""
+                part: int = -1, hd: int = 64, form: str = "whole") -> None:
+    """Launch B1-bf16's ``form`` at head width ``hd`` on ``tensors`` (x,
+    mask, scale, shift, the 12 weights, xz, y, out; checked by
+    :func:`fused_attention_block`; the streaming form's scratch is made
+    here): all four launches, or with ``part`` 0..3 only that one (row pass,
+    q|k|v + core, gate row pass, Wo GEMM), to time it alone. Counts
+    nothing."""
+    if form == "stream":
+        x = tensors[0]
+        rows = (N * (D // hd), -(-T // 64) * 64, hd)
+        tensors = (*tensors, torch.empty(rows, device=x.device, dtype=torch.float32),
+                   torch.empty(rows, device=x.device, dtype=torch.bfloat16))
     _build.launch("fused_block", tensors, (N, T, D, int(interaction), part), stream,
-                  entry="fused_block_bf16")
+                  entry="fused_block_bf16" + ("_stream" if form == "stream" else ""), hd=hd)
 
 
-counted(fused_attention_block, "launches", "launches_bf16")
+counted(fused_attention_block, "launches", "launches_bf16", "launches_bf16_stream")

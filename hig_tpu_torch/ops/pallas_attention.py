@@ -66,7 +66,10 @@ keys whole rather than streaming them, with each float32 weight
 split into three bfloat16 pieces (:func:`split_bf16_pieces`; its kernel,
 one pass a call, behind :func:`weight_pieces`): a bfloat16 activation
 times a piece is exact in float32, so each product is three ``wgmma``
-products into float32 accumulators, and T is at most :data:`BF16_MAX_T`.
+products into float32 accumulators, and T is at most
+:func:`whole_max_t`; past that its streaming form runs (the whole form's
+float32 order, a device scratch of k and v: bit for bit equal to it where
+both run).
 The port's bfloat16 models reach it in eval mode on float32 master weights
 (``--blocks projected`` labeling); :func:`fused_projected_attention_plain`
 on those dtypes is its twin. Counted in ``launches_mixed``.
@@ -79,7 +82,8 @@ bfloat16 products, rounded) and y (rounded once). The kernel rounds at
 those points: one block of two warpgroups per (sequence, head) takes the
 head's columns of q, k and v into shared memory through TMA, the key
 passes there, the state and y on ``wgmma`` (products of bfloat16 values
-are exact): the whole form, for Tq and Tk up to :data:`BF16_MAX_T`. Above
+are exact): the whole form, for Tq and Tk up to :func:`whole_max_t`
+(:data:`BF16_MAX_T` at width 64). Above
 that the streaming form runs (``hig_efficient_attention_bf16_stream``):
 the same rounding points in the same order, fed by a producer warp's TMA
 loads. Up to 448 key rows stay in shared memory (k read once), v comes
@@ -89,7 +93,7 @@ queries land in the key tiles and ring stages as those free up; past 448
 rows k streams through the ring. So it takes any T (a
 ``--single_transformer`` model's merged timeline is 394 rows at a native
 window of 196) and equals the whole form bit for bit where both run.
-:func:`b3_bf16_form` keeps the whole form up to :data:`BF16_MAX_T` rows,
+:func:`b3_bf16_form` keeps the whole form up to its rows,
 where the whole form is the faster at the training shape (PERF.md).
 :func:`fused_efficient_attention_plain` on bfloat16 inputs is its twin, and
 ``unrounded`` leaves out rounding points (:data:`B3_ROUNDINGS`) for the
@@ -119,16 +123,47 @@ from hig_tpu_torch.ops import _build
 from hig_tpu_torch.ops.bf16_sum import bf16_sum
 from hig_tpu_torch.utils.graphs import counted
 
-HEAD_DIM = 64  # the only head width the CUDA core takes
+# The head widths the CUDA kernels take: every kernel library is built once
+# for each (``_build.HEAD_WIDTHS``), its tile shapes set by the width.
+HEAD_WIDTHS = _build.HEAD_WIDTHS
+D_CHUNK = 64  # the bfloat16 projections' TMA chunk of the input width
 MASK_BIAS = -1000000.0
-# Rows of one sequence that B1-bf16, B2-bf16a and B3-bf16's whole form keep
-# in shared memory whole: the most they take (the ablations' training and
-# labeling reach 2 × 91 = 182). B2-bf16 and B3-bf16's streaming form take
-# any T.
-BF16_MAX_T = 320
-# B3-bf16's two forms (the module doc): "whole" up to BF16_MAX_T rows,
-# "stream" at any T.
-B3_FORMS = ("whole", "stream")
+# The whole forms of B1-bf16, B2-bf16a and B3-bf16 hold one sequence's keys
+# in shared memory. Each kernel computes from its layout the most rows (q and
+# k) it takes at its head width, and refuses more (its library's
+# ``hig_*_max_t`` entry: ``qc_whole_max_t`` in csrc/qkv_core.cuh, ``B3_MAX_T``
+# in csrc/efficient_attention.cu); the three agree at each width, and
+# WHOLE_MAX_T holds their value (a ``cuda`` test holds it equal to every
+# entry). Past it the form's streaming twin runs ("stream", equal to the
+# whole form bit for bit where both run). B2-bf16 streams at any T.
+FORMS = ("whole", "stream")
+WHOLE_MAX_T = {64: 320, 128: 128}
+
+
+def check_width(hd: int) -> None:
+    if hd not in HEAD_WIDTHS:
+        raise ValueError(f"the CUDA kernels take head widths {' and '.join(map(str, HEAD_WIDTHS))}; "
+                         f"got {hd}")
+
+
+def whole_max_t(hd: int) -> int:
+    """The most rows of a sequence that the whole forms of B1-bf16,
+    B2-bf16a and B3-bf16 take at head width ``hd``: 320 at width 64, 128
+    at 128 (other widths raise)."""
+    check_width(hd)
+    return WHOLE_MAX_T[hd]
+
+
+BF16_MAX_T = WHOLE_MAX_T[64]  # the whole forms' rows at width 64
+
+
+def whole_or_stream(T: int, hd: int) -> str:
+    """The form of B1-bf16 or B2-bf16a that runs at T rows and head width
+    ``hd``: the whole form up to :func:`whole_max_t` rows, else the
+    streaming form."""
+    return "whole" if T <= whole_max_t(hd) else "stream"
+
+
 # The roundings of the core that efficient_attention can take (B1-bf16's):
 # softmax_time(k), v, the state and softmax_feat(q).
 CORE_ROUNDINGS = ("kh", "v", "att", "qh")
@@ -229,12 +264,15 @@ def check_cuda_operand(name: str, t: torch.Tensor, shape=None, dtype=torch.float
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def check_cuda_width(D: int, num_heads: int) -> None:
-    if D % num_heads or D // num_heads != HEAD_DIM:
+def check_cuda_width(D: int, num_heads: int) -> int:
+    """The head width D / num_heads, which the CUDA kernels must take
+    (:data:`HEAD_WIDTHS`); raises, naming them, for any other."""
+    if D % num_heads or D // num_heads not in HEAD_WIDTHS:
         raise ValueError(
-            f"the CUDA kernels take a head dim of {HEAD_DIM}; "
+            f"the CUDA kernels take head widths {' and '.join(map(str, HEAD_WIDTHS))}; "
             f"got D={D}, heads={num_heads}"
         )
+    return D // num_heads
 
 
 def recompute_grads(plain, operands, needs, grad_out, same=()):
@@ -310,7 +348,10 @@ def weight_pieces(wq, wk, wv):
 counted(weight_pieces, "launches")
 
 
-def _launch_projected(q_src, kv_src, wq, bq, wk, bk, wv, bv, mask):
+def _launch_projected(q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, hd: int,
+                      form: str | None = None):
+    """One launch of B2's form for the operands' dtypes at head width
+    ``hd`` (B2-bf16a: its ``form``, "whole" or "stream")."""
     T, D = q_src.shape[-2:]
     Dout = wq.shape[0]
     N = q_src.numel() // (T * D)
@@ -320,17 +361,23 @@ def _launch_projected(q_src, kv_src, wq, bq, wk, bk, wv, bv, mask):
         if wq.dtype == torch.bfloat16:
             _build.launch("projected_attention",
                           (q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, out),
-                          (N, T, D, Dout), stream, entry="projected_attention_bf16")
+                          (N, T, D, Dout), stream, entry="projected_attention_bf16", hd=hd)
             return out
         # B2-bf16a: the weights split into pieces (scratch), then the kernel
+        if form not in FORMS or (form == "whole" and T > whole_max_t(hd)):
+            raise ValueError(f"B2-bf16a has no form {form!r} at T={T}, head width {hd}")
         pieces = torch.empty((3, 3 * Dout, D), device=q_src.device, dtype=torch.bfloat16)
-        _build.launch("projected_attention",
-                      (q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, pieces, out),
-                      (N, T, D, Dout), stream, entry="projected_attention_bf16a")
+        tensors = (q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, pieces, out)
+        if form == "stream":  # the float32 k and v rows of each (sequence, head)
+            rows = (N * (Dout // hd), -(-T // 64) * 64, hd)
+            tensors += tuple(torch.empty(rows, device=q_src.device) for _ in "kv")
+        _build.launch("projected_attention", tensors, (N, T, D, Dout), stream,
+                      entry="projected_attention_bf16a" + ("_stream" if form == "stream" else ""),
+                      hd=hd)
         return out
     qkv = torch.empty((N * T, 3 * Dout), device=q_src.device, dtype=torch.float32)
     _build.launch("projected_attention", (q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, qkv, out),
-                  (N, T, D, Dout), stream)
+                  (N, T, D, Dout), stream, hd=hd)
     return out
 
 
@@ -342,7 +389,8 @@ class ProjectedAttention(torch.autograd.Function):
     def forward(ctx, q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, num_heads, merged):
         ctx.save_for_backward(q_src, kv_src, wq, bq, wk, bk, wv, bv, mask)
         ctx.num_heads, ctx.merged = num_heads, merged
-        return _launch_projected(q_src, kv_src, wq, bq, wk, bk, wv, bv, mask)
+        return _launch_projected(q_src, kv_src, wq, bq, wk, bk, wv, bv, mask,
+                                 wq.shape[0] // num_heads)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -352,11 +400,12 @@ class ProjectedAttention(torch.autograd.Function):
 
 
 def fused_projected_attention(q_src, kv_src, wq, bq, wk, bk, wv, bv,
-                              num_heads: int, key_mask=None):
+                              num_heads: int, key_mask=None, form: str | None = None):
     """Efficient attention with the QKV projections fused in (B2).
 
     q_src (..., T, D) and kv_src (..., T, D), already normalized; weights in
-    torch Linear layout (out, in), (Dout, D) with Dout = 64 · num_heads: the
+    torch Linear layout (out, in), (Dout, D) with Dout = hd · num_heads, hd
+    64 or 128 (:data:`HEAD_WIDTHS`): the
     square model's (D, D), or a tensor-parallel rank's own heads, (D / S,
     D) at num_heads / S heads (the rectangular form); key_mask broadcastable
     to (..., T), the mask of kv_src's tokens. Returns the pre-gate output
@@ -366,9 +415,11 @@ def fused_projected_attention(q_src, kv_src, wq, bq, wk, bk, wv, bv,
     form (``launches_bf16``), or for bfloat16 activations with float32
     weights B2-bf16a (``launches_mixed``), which has no backward and raises,
     on either device, when grad is enabled and an input requires it.
-    B2-bf16 takes any T, B2-bf16a T up to :data:`BF16_MAX_T`; other dtypes
-    raise. A rectangular launch (Dout ≠ D, a tensor-parallel rank's heads)
-    of any form is counted in ``launches_rect`` instead.
+    B2-bf16 takes any T; B2-bf16a its whole form up to
+    :func:`whole_max_t` rows and its streaming form past them
+    (``launches_mixed_stream``; ``form`` picks one where both run); other
+    dtypes raise. A rectangular launch (Dout ≠ D, a tensor-parallel rank's
+    heads) of any form is counted in ``launches_rect`` instead.
     """
     adt, wdt = q_src.dtype, wq.dtype
     mixed = adt == torch.bfloat16 and wdt == torch.float32
@@ -389,18 +440,15 @@ def fused_projected_attention(q_src, kv_src, wq, bq, wk, bk, wv, bv,
             f"{tuple(q_src.shape)} and {tuple(kv_src.shape)}"
         )
     Dout = wq.shape[0]
-    check_cuda_width(Dout, num_heads)
-    if D % HEAD_DIM:
+    hd = check_cuda_width(Dout, num_heads)
+    if D % D_CHUNK:
         raise ValueError(f"the projected-attention kernel takes an input width divisible by "
-                         f"{HEAD_DIM}, got {D}")
+                         f"{D_CHUNK}, got {D}")
     if (adt, wdt) not in ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
                           (torch.bfloat16, torch.float32)):
         raise ValueError("the projected-attention kernel takes float32 activations and "
                          "weights, bfloat16 ones, or bfloat16 activations with float32 "
                          f"weights; got {adt} and {wdt}")
-    if mixed and T > BF16_MAX_T:
-        raise ValueError(f"projected attention on bfloat16 activations with float32 weights "
-                         f"takes T up to {BF16_MAX_T}, got {T}")
     check_cuda_operand("q_src", q_src, dtype=adt)
     check_cuda_operand("kv_src", kv_src, dtype=adt)
     for name, w, b in (("query", wq, bq), ("key", wk, bk), ("value", wv, bv)):
@@ -412,12 +460,15 @@ def fused_projected_attention(q_src, kv_src, wq, bq, wk, bk, wv, bv,
         mask = key_mask.to(torch.float32).expand(*lead, T).contiguous()
     check_cuda_operand("key_mask", mask)
     if mixed:
-        out = _launch_projected(q_src, kv_src, wq, bq, wk, bk, wv, bv, mask)
+        form = form or whole_or_stream(T, hd)
+        out = _launch_projected(q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, hd, form)
     else:
         out = ProjectedAttention.apply(q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, num_heads,
                                        kv_src is q_src)
     if Dout != D:
         fused_projected_attention.launches_rect += 1
+    elif mixed and form == "stream":
+        fused_projected_attention.launches_mixed_stream += 1
     elif mixed:
         fused_projected_attention.launches_mixed += 1
     elif adt == torch.bfloat16:
@@ -428,7 +479,7 @@ def fused_projected_attention(q_src, kv_src, wq, bq, wk, bk, wv, bv,
 
 
 counted(fused_projected_attention, "launches", "launches_bf16", "launches_mixed",
-        "launches_rect")
+        "launches_mixed_stream", "launches_rect")
 
 
 
@@ -596,26 +647,29 @@ def efficient_attention_backward(saved, grad_out, num_heads: int, needs=(True,) 
     return recompute_grads(plain, operands, needs, grad_out)
 
 
-def b3_bf16_form(Tq: int, Tk: int) -> str:
-    """The form of B3-bf16 that runs at Tq queries over Tk keys: the whole
-    form up to :data:`BF16_MAX_T` rows of each (the faster of the two at
-    128 × 91 on the H100), else the streaming form."""
-    return "whole" if max(Tq, Tk) <= BF16_MAX_T else "stream"
+def b3_bf16_form(Tq: int, Tk: int, hd: int = 64) -> str:
+    """The form of B3-bf16 that runs at Tq queries over Tk keys and head
+    width ``hd``: the whole form up to :func:`whole_max_t` rows
+    of each (the faster of the two at 128 × 91 on the H100), else the
+    streaming form."""
+    return "whole" if max(Tq, Tk) <= whole_max_t(hd) else "stream"
 
 
-def _launch_efficient(query, key, value, mask, form=None, lazy: bool = False):
+def _launch_efficient(query, key, value, mask, hd: int, form=None, lazy: bool = False):
     (Tq, D), Tk = query.shape[-2:], key.shape[-2]
     N = query.numel() // (Tq * D)
     out = torch.empty_like(query)
     entry = None  # the float32 core divides the state after the contraction either way
     if query.dtype == torch.bfloat16:
-        form = form or b3_bf16_form(Tq, Tk)
-        if form not in B3_FORMS or (form == "whole" and max(Tq, Tk) > BF16_MAX_T):
-            raise ValueError(f"B3-bf16 has no form {form!r} at Tq={Tq}, Tk={Tk}")
+        form = form or b3_bf16_form(Tq, Tk, hd)
+        if form not in FORMS or (form == "whole" and
+                                    max(Tq, Tk) > whole_max_t(hd)):
+            raise ValueError(f"B3-bf16 has no form {form!r} at Tq={Tq}, Tk={Tk}, "
+                             f"head width {hd}")
         entry = ("efficient_attention_bf16" + ("_stream" if form == "stream" else "")
                  + ("_lazy" if lazy else ""))
     _build.launch("efficient_attention", (query, key, value, mask, out), (N, Tq, Tk, D),
-                  torch.cuda.current_stream(query.device).cuda_stream, entry=entry)
+                  torch.cuda.current_stream(query.device).cuda_stream, entry=entry, hd=hd)
     return out
 
 
@@ -635,12 +689,12 @@ def efficient_attention_bf16_form(query, key, value, num_heads: int, key_mask, f
     :func:`fused_efficient_attention` counts it: the two forms side by side
     where both run."""
     lead, (Tq, D), Tk = query.shape[:-2], query.shape[-2:], key.shape[-2]
-    check_cuda_width(D, num_heads)
+    hd = check_cuda_width(D, num_heads)
     check_cuda_operand("query", query, dtype=torch.bfloat16)
     for name, t in (("key", key), ("value", value)):
         check_cuda_operand(name, t, (*lead, Tk, D), dtype=torch.bfloat16)
     mask = key_mask.to(torch.float32).expand(*lead, Tk).contiguous()
-    out = _launch_efficient(query, key, value, mask, form, lazy)
+    out = _launch_efficient(query, key, value, mask, hd, form, lazy)
     _count_efficient(torch.bfloat16, lazy)
     return out
 
@@ -653,7 +707,8 @@ class EfficientAttention(torch.autograd.Function):
     def forward(ctx, query, key, value, mask, num_heads, lazy=False):
         ctx.save_for_backward(query, key, value, mask)
         ctx.num_heads, ctx.lazy = num_heads, lazy
-        return _launch_efficient(query, key, value, mask, **lazy_kw(lazy))
+        return _launch_efficient(query, key, value, mask, query.shape[-1] // num_heads,
+                                 **lazy_kw(lazy))
 
     @staticmethod
     def backward(ctx, grad_out):

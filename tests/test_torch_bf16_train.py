@@ -171,7 +171,7 @@ def test_b3_twin_is_efficient_attention_in_bf16(shape):
     assert not np.array_equal(f32(control), f32(want))
 
 
-SUM_TERMS = (1, 12, 32, 33, 64, 91, 95, 97, 196, 394, 1000)
+SUM_TERMS = (1, 12, 32, 33, 64, 91, 95, 97, 196, 394, 1000, 1025, 2048, 4096)
 
 
 @pytest.mark.parametrize("n", SUM_TERMS)

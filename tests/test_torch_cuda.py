@@ -35,7 +35,8 @@ the twin's largest magnitude, and rms(kernel − twin) within 0.25 of
 rms(twin − the float32 twin on the same rounded inputs) or, where larger,
 1.5 × the twin's distance from the same twin on the CPU (the float32 order
 of sums alone; B1's cancelling KᵀV sum sits there); each form counts its
-own launches; B1-bf16 refuses T = 321, B2-bf16 takes it and T = 1000;
+own launches; B1-bf16's whole form refuses T = 321 (its streaming form
+takes it), B2-bf16 takes it and T = 1000;
 B3-bf16 streams past 320 rows (394 × 394, 321 × 77 and 91 × 394 queries
 × keys within the same gates) and its streaming form equals its whole form
 bit for bit where both run (T = 1 to 320); a bfloat16
@@ -44,7 +45,8 @@ with float32 weights (B2-bf16a, a bfloat16 model's labeling on master
 weights), held to the same gates against its twin at the serving, labeling
 (128 pairs) and evaluation (52 pairs, T = 196) shapes and at T = 1, 17,
 196 and 320 (its control from T = 17), which counts its own launches,
-refuses T = 321 and refuses to run under grad; its weight split kernel
+whose whole form refuses T = 321 (its streaming form takes it) and which
+refuses to run under grad; its weight split kernel
 equals its plain version bit for bit.
 
 Gradients: B2, B3 (float32 and bfloat16) and B4 under autograd against autograd through their
@@ -120,6 +122,17 @@ Parallelism: B2's rectangular form (a tensor-parallel rank's (D/2, D)
 q|k|v weights at H/2 heads), float32, bfloat16 and B2-bf16a, self and
 partner, against its twins, with its gradients; two gloo ranks sharing
 cuda:0 taking DP PIT steps equal to the one-rank step.
+
+Head width 128 and the streaming forms: every form at head width 128 (D =
+512, 4 heads) against its plain version or twin under the same gates
+(float32: B1, B2, B3, B4 with 77 and 300 keys; bfloat16: B1-bf16 and
+B3-bf16 also past their whole forms' 128 rows, B2-bf16a at T = 91 and
+197); B1-bf16's and B2-bf16a's streaming forms against their twins at 394
+and 600 rows; each streaming form (and B3-bf16's) equal to its whole form
+bit for bit at T = 1, 91, 196 and 320 (width 64) and 1, 65 and 128 (width
+128); the whole forms' row caps of Python's routers equal the kernels';
+widths 32 and 512 / 6 raise, naming 64 and 128; the ordered sum at 1025
+and 4096 terms.
 """
 
 import dataclasses
@@ -129,7 +142,13 @@ import numpy as np
 import pytest
 import torch
 
-from hig_tpu_torch.ops.bf16_sum import MAX_TERMS, bf16_sum, bf16_sum_plain
+from hig_tpu_torch.ops import _build
+from hig_tpu_torch.ops.bf16_sum import (
+    ONE_LAUNCH_TERMS,
+    bf16_sum,
+    bf16_sum_plain,
+    scratch_levels,
+)
 from hig_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 from hig_tpu_torch.ops.fused_block import (
     BlockWeights,
@@ -142,6 +161,7 @@ from hig_tpu_torch.ops.pallas_attention import (
     b3_bf16_form,
     efficient_attention,
     efficient_attention_bf16_form,
+    whole_max_t,
     fused_efficient_attention,
     fused_efficient_attention_plain,
     fused_projected_attention,
@@ -308,16 +328,21 @@ def test_efficient_attention_kernel(cuda, Tk):
 
 
 def test_kernels_refuse_unsupported_shapes(cuda):
+    """Head widths other than 64 and 128 (32, and 512 / 6 heads: no width)
+    raise, naming the widths taken; so do float64 and strided rows."""
     w, x, mask, scale, shift = _inputs(cuda)
-    with pytest.raises(ValueError):  # head dim 32
-        fused_attention_block(x, mask, scale, shift, w, 16)
+    for heads in (16, 6):  # head width 32; D not a multiple of the heads
+        with pytest.raises(ValueError, match="64 and 128"):
+            fused_attention_block(x, mask, scale, shift, w, heads)
+        with pytest.raises(ValueError, match="64 and 128"):
+            fused_projected_attention(x, x, w.wq, w.bq, w.wk, w.bk, w.wv, w.bv, heads)
     with pytest.raises(ValueError):  # not contiguous
         fused_attention_block(x.transpose(0, 1), mask, scale, shift, w, H)
     with pytest.raises(ValueError):  # float64
         fused_projected_attention(x.double(), x.double(), w.wq, w.bq, w.wk, w.bk,
                                   w.wv, w.bv, H)
     for kernel in (flash_attention, fused_efficient_attention):
-        with pytest.raises(ValueError):  # head dim 32
+        with pytest.raises(ValueError, match="64 and 128"):  # head width 32
             kernel(x, x, x, 16, mask)
         with pytest.raises(ValueError):  # float64
             kernel(x.double(), x.double(), x.double(), H, mask)
@@ -407,12 +432,31 @@ BF16_CASES = {
     "b3_self_t392": ("b3", "self", 392, N_PAIRS),
     "b3_tq321_tk77": ("b3", "tq_tk77", 321, N_PAIRS),
     "b3_tq91_tk394": ("b3", "tq91", 394, N_PAIRS),
+    # B1-bf16's streaming form past its whole form's 320 rows
+    "b1_self_t394": ("b1", "self", 394, N_PAIRS),
+    "b1_interaction_t600": ("b1", "interaction", 600, N_PAIRS),
+    # head width 128 (4 heads of 128 at D = 512): every form, B1-bf16,
+    # B2-bf16a's and B3-bf16's whole forms up to 128 rows and their
+    # streaming forms past them (197: the evaluation length plus one)
+    "b1_self_hd128": ("b1", "self", T, N_PAIRS, D // 128),
+    "b1_interaction_hd128": ("b1", "interaction", T, N_PAIRS, D // 128),
+    "b1_self_t197_hd128": ("b1", "self", 197, N_PAIRS, D // 128),
+    "b2_self_hd128": ("b2", "self", T, N_PAIRS, D // 128),
+    "b2_partner_t197_hd128": ("b2", "partner", 197, N_PAIRS, D // 128),
+    "b3_self_hd128": ("b3", "self", T, N_PAIRS, D // 128),
+    "b3_tq91_tk77_hd128": ("b3", "tq_tk77", T, N_PAIRS, D // 128),
+    "b3_self_t197_hd128": ("b3", "self", 197, N_PAIRS, D // 128),
+    "b3_self_t394_hd128": ("b3", "self", 394, N_PAIRS, D // 128),
+    "b4_self_hd128": ("b4", "self", T, N_PAIRS, D // 128),
+    "b4_partner_t196_hd128": ("b4", "partner", 196, N_PAIRS, D // 128),
+    "b4_causal_hd128": ("b4", "causal", T, N_PAIRS, D // 128),
 }
 
 
 @pytest.mark.parametrize("case", list(BF16_CASES))
 def test_bf16_forms_match_their_twins(cuda_bf16, case):
-    form, variant, t, pairs = BF16_CASES[case]
+    form, variant, t, pairs, *heads = BF16_CASES[case]
+    H = heads[0] if heads else globals()["H"]
     w, x, mask, scale, shift = _inputs(cuda_bf16, t, pairs)
     wb = BlockWeights(*[_bf16(a) for a in w])
     xb = _bf16(x)
@@ -447,10 +491,13 @@ def test_bf16_forms_match_their_twins(cuda_bf16, case):
             q, k, v, mask = (q.contiguous(), k[..., :77, :].contiguous(),
                              v[..., :77, :].contiguous(), mask[..., :77].contiguous())
         args = (q, k, v, H, mask, variant == "causal", variant == "partner")
-    before, before_f32 = counter.launches_bf16, counter.launches
+    stream = form == "b1" and t > whole_max_t(D // H)
+    before = counter.launches_bf16_stream if stream else counter.launches_bf16
+    before_f32 = counter.launches
     got = fn(*args)
     torch.cuda.synchronize()
-    assert (counter.launches_bf16, counter.launches) == (before + 1, before_f32)
+    after = counter.launches_bf16_stream if stream else counter.launches_bf16
+    assert (after, counter.launches) == (before + 1, before_f32)
     args32 = tuple(a.float() if torch.is_tensor(a) else a for a in args)
     cpu = tuple(a.cpu() if torch.is_tensor(a) else a for a in args)
     if form == "b1":
@@ -486,17 +533,27 @@ def test_bf16_forms_match_their_twins(cuda_bf16, case):
 
 
 def test_bf16_block_refuses_long_sequences(cuda_bf16):
-    """B1-bf16 keeps one sequence's keys in shared memory: T up to 320."""
-    w, x, mask, scale, shift = _inputs(cuda_bf16, 321, 1)
-    with pytest.raises(ValueError, match="T up to 320"):
-        fused_attention_block(_bf16(x), mask, _bf16(scale), _bf16(shift),
-                              BlockWeights(*[_bf16(a) for a in w]), H)
+    """B1-bf16's whole form keeps one sequence's keys in shared memory: T up
+    to 320 at head width 64 (128 at 128), and refuses more when asked for;
+    past that the block takes its streaming form (one counted launch)."""
+    for t, heads in ((321, H), (129, D // 128)):
+        w, x, mask, scale, shift = _inputs(cuda_bf16, t, 1)
+        args = (_bf16(x), mask, _bf16(scale), _bf16(shift),
+                BlockWeights(*[_bf16(a) for a in w]), heads)
+        with pytest.raises(ValueError, match="no form 'whole'"):
+            fused_attention_block(*args, form="whole")
+        before = (fused_attention_block.launches_bf16, fused_attention_block.launches_bf16_stream)
+        got = fused_attention_block(*args)
+        torch.cuda.synchronize()
+        assert (fused_attention_block.launches_bf16,
+                fused_attention_block.launches_bf16_stream) == (before[0], before[1] + 1)
+        assert torch.isfinite(got.float()).all()
 
 
 def test_bf16_projected_takes_long_sequences(cuda_bf16):
     """B2-bf16 streams its keys: it takes T = 321 and 1000 rows (past any
-    shared memory) and counts each launch; B2-bf16a, which holds one
-    sequence's keys whole, refuses T = 321."""
+    shared memory) and counts each launch; B2-bf16a's whole form, which
+    holds one sequence's keys, refuses T = 321 when asked for."""
     for t in (321, 1000):
         w, x, mask, _, _ = _inputs(cuda_bf16, t, 1)
         wb = BlockWeights(*[_bf16(a) for a in w])
@@ -507,9 +564,10 @@ def test_bf16_projected_takes_long_sequences(cuda_bf16):
         torch.cuda.synchronize()
         assert fused_projected_attention.launches_bf16 == before + 1
         assert got.shape == xb.shape and torch.isfinite(got.float()).all()
-    with torch.no_grad(), pytest.raises(ValueError, match="T up to 320"):
+    with torch.no_grad(), pytest.raises(ValueError, match="no form 'whole'"):
         fused_projected_attention(xb[..., :321, :].contiguous(), xb[..., :321, :].contiguous(),
-                                  w.wq, w.bq, w.wk, w.bk, w.wv, w.bv, H, mask[..., :321])
+                                  w.wq, w.bq, w.wk, w.bk, w.wv, w.bv, H, mask[..., :321],
+                                  form="whole")
 
 
 def _b3_bf16_operands(device, tq, tk, seed=2, one_key=False):
@@ -853,7 +911,11 @@ def test_efficient_attention_bf16_gradients(cuda_bf16, Tk, pairs):
 # --single_transformer step's time softmax).
 SUM_CASES = {"features": ((64, 2, T, H, 64), -1), "time": ((64, 2, T, H, 64), -3),
              "keys": ((64, 2, T, T, H), -2), "keys_t196": ((8, 2, 196, 196, H), -2),
-             "one_term": ((4, 1, 8), 1), "max_terms": ((3, MAX_TERMS, 5), 1),
+             "one_term": ((4, 1, 8), 1), "max_terms": ((3, ONE_LAUNCH_TERMS, 5), 1),
+             # past one launch's two levels of windows: 1025 and 4096 terms,
+             # strided and contiguous
+             "n1025": ((3, 1025, 5), 1), "n4096": ((2, 4096, 3), 1),
+             "n4096_rows": ((5, 4096), 1),
              "transposed": ((6, 40, 33), 1), "n33": ((6, 33, 40), 1), "n95": ((6, 95, 40), 1),
              "n97": ((6, 97, 40), 1), "n33_rows": ((301, 33), 1), "n95_rows": ((301, 95), 1),
              "n97_rows": ((301, 97), 1), "ragged_rows": ((1001, 64), 1),
@@ -864,7 +926,8 @@ SUM_CASES = {"features": ((64, 2, T, H, 64), -1), "time": ((64, 2, T, H, 64), -3
 def test_bf16_sum_kernel_is_its_plain_version(cuda, case):
     """The ordered bfloat16 sum's kernel against its plain version on the
     card and on the CPU, bit for bit: the same float32 adds, each rounded
-    to bfloat16, in the same order. One launch, counted."""
+    to bfloat16, in the same order. Each launch counted: one up to 1024
+    terms, one more a further level of windows."""
     shape, dim = SUM_CASES[case]
     gen = torch.Generator().manual_seed(7)
     x = (1e-2 * torch.randn(shape, generator=gen)).to(BF16).float().to(cuda)
@@ -872,23 +935,27 @@ def test_bf16_sum_kernel_is_its_plain_version(cuda, case):
         x = x.transpose(1, 2)
     before = bf16_sum.launches
     got = bf16_sum(x, dim)
-    assert bf16_sum.launches == before + 1
+    assert bf16_sum.launches == before + 1 + len(scratch_levels(x.shape[dim]))
     assert got.dtype == torch.float32 and got.shape[dim] == 1
     assert torch.equal(got, bf16_sum_plain(x, dim))
     assert torch.equal(got.cpu(), bf16_sum_plain(x.cpu(), dim))
 
 
 def test_bf16_sum_kernel_refuses_what_it_does_not_take(cuda):
-    with pytest.raises(ValueError, match="at most"):
-        bf16_sum(torch.zeros(2, MAX_TERMS + 1, device=cuda), 1)
-    with pytest.raises(ValueError, match="float32"):
-        bf16_sum(torch.zeros(2, 8, device=cuda, dtype=BF16), 1)
+    """It takes any number of terms, in float32 holding bfloat16 values only."""
+    for dtype in (BF16, torch.float64):
+        with pytest.raises(ValueError, match="float32"):
+            bf16_sum(torch.zeros(2, 8, device=cuda, dtype=dtype), 1)
 
 
 # label: a labeling vote's 64 pairs under both assignments; eval: a chunk of 52 pairs
 MIXED_SHAPES = {"serve": (T, N_PAIRS), "label": (T, 128), "eval": (196, 52),
                 "t1": (1, N_PAIRS), "t17": (17, N_PAIRS), "t196": (196, N_PAIRS),
-                "t320": (320, N_PAIRS)}
+                "t320": (320, N_PAIRS),
+                # its streaming form past the whole form's rows
+                "t394": (394, N_PAIRS), "t600": (600, N_PAIRS),
+                # head width 128: the whole form, and streaming past 128 rows
+                "serve_hd128": (T, N_PAIRS, D // 128), "t197_hd128": (197, N_PAIRS, D // 128)}
 
 
 @pytest.mark.parametrize("same_source", [True, False], ids=["self", "partner"])
@@ -898,19 +965,25 @@ def test_mixed_projected_attention_matches_its_twin(cuda_bf16, shape, same_sourc
     bfloat16 forms' gates against its twin; the twin with B1-bf16's core
     roundings fails them (from T = 17: with one key that twin reads as the
     kernel's own)."""
-    t, pairs = MIXED_SHAPES[shape]
+    t, pairs, *heads = MIXED_SHAPES[shape]
+    H = heads[0] if heads else globals()["H"]
     w, x, mask, _, _ = _inputs(cuda_bf16, t, pairs)
     xn = _bf16(torch.nn.functional.layer_norm(x, (D,), w.ln_g, w.ln_b, 1e-6))
     kv, kmask = (xn, mask) if same_source else (xn.flip(1).contiguous(),
                                                 mask.flip(1).contiguous())
     args = (xn, kv, w.wq, w.bq, w.wk, w.bk, w.wv, w.bv, H, kmask)
-    counts = (fused_projected_attention.launches_mixed, fused_projected_attention.launches_bf16,
-              fused_projected_attention.launches)
+    stream = t > whole_max_t(D // H)
+
+    def counts():
+        f = fused_projected_attention
+        return (f.launches_mixed_stream if stream else f.launches_mixed, f.launches_bf16,
+                f.launches)
+
+    before = counts()
     with torch.no_grad():
         got = fused_projected_attention(*args)
         torch.cuda.synchronize()
-        assert (fused_projected_attention.launches_mixed, fused_projected_attention.launches_bf16,
-                fused_projected_attention.launches) == (counts[0] + 1, *counts[1:])
+        assert counts() == (before[0] + 1, *before[1:])
         twin = fused_projected_attention_plain(*args)
         twin32 = fused_projected_attention_plain(xn.float(), kv.float(), *args[2:])
         cpu = fused_projected_attention_plain(*[a.cpu() if torch.is_tensor(a) else a
@@ -924,11 +997,22 @@ def test_mixed_projected_attention_matches_its_twin(cuda_bf16, shape, same_sourc
 
 
 def test_mixed_projected_attention_refuses_long_sequences(cuda_bf16):
-    """B2-bf16a keeps one sequence's keys in shared memory: T up to 320."""
+    """B2-bf16a's whole form keeps one sequence's keys in shared memory: T
+    up to 320, and refuses more when asked for; past that B2-bf16a takes its
+    streaming form, counted in ``launches_mixed_stream``."""
     w, x, mask, _, _ = _inputs(cuda_bf16, 321, 1)
     xb = _bf16(x)
-    with torch.no_grad(), pytest.raises(ValueError, match="T up to 320"):
-        fused_projected_attention(xb, xb, w.wq, w.bq, w.wk, w.bk, w.wv, w.bv, H, mask)
+    args = (xb, xb, w.wq, w.bq, w.wk, w.bk, w.wv, w.bv, H, mask)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="no form 'whole'"):
+            fused_projected_attention(*args, form="whole")
+        before = (fused_projected_attention.launches_mixed,
+                  fused_projected_attention.launches_mixed_stream)
+        got = fused_projected_attention(*args)
+        torch.cuda.synchronize()
+    assert (fused_projected_attention.launches_mixed,
+            fused_projected_attention.launches_mixed_stream) == (before[0], before[1] + 1)
+    assert torch.isfinite(got.float()).all()
 
 
 def test_weight_split_kernel_is_its_plain_version(cuda):
@@ -949,6 +1033,108 @@ def test_weight_split_kernel_is_its_plain_version(cuda):
     want = weight_pieces(*[a.cpu() for a in ws])
     assert got.dtype == BF16 and got.shape == want.shape
     assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+
+
+# --- head width 128 and the streaming forms ----------------------------------------
+
+H128 = D // 128  # 4 heads of 128
+
+
+@pytest.mark.parametrize("case", ["b1_self", "b1_interaction", "b2_self", "b2_partner",
+                                  "b3_t91", "b3_tk77", "b4_self", "b4_partner", "b4_causal",
+                                  "b4_tq_ne_tk", "b4_tk300"])
+def test_float32_kernels_at_head_width_128(cuda, case):
+    """B1, B2, B3 and B4 in float32 at head width 128 (the library built
+    with HIG_HD = 128), one counted launch each, within TOL and REL_TOL of
+    their plain versions at the serving shape (B4 also over 300 keys, past
+    its shared-memory tile of 128)."""
+    w, x, mask, scale, shift = _inputs(cuda)
+    F = torch.nn.functional
+    q, k, v = F.linear(x, torch.cat([w.wq, w.wk, w.wv]),
+                       torch.cat([w.bq, w.bk, w.bv])).chunk(3, dim=-1)
+    if case.startswith("b1"):
+        kernel, plain = fused_attention_block, fused_attention_block_plain
+        args = (x, mask, scale, shift, w, H128, case == "b1_interaction")
+    elif case.startswith("b2"):
+        kernel, plain = fused_projected_attention, fused_projected_attention_plain
+        xn = F.layer_norm(x, (D,), w.ln_g, w.ln_b, 1e-6)
+        kv, kmask = (xn, mask) if case == "b2_self" else (xn.flip(1).contiguous(),
+                                                         mask.flip(1).contiguous())
+        args = (xn, kv, w.wq, w.bq, w.wk, w.bk, w.wv, w.bv, H128, kmask)
+    elif case.startswith("b3"):
+        kernel, plain = fused_efficient_attention, efficient_attention
+        tk = 77 if case == "b3_tk77" else T
+        args = (q.contiguous(), k[..., :tk, :].contiguous(), v[..., :tk, :].contiguous(), H128,
+                mask[..., :tk].contiguous())
+    else:
+        kernel, plain = flash_attention, flash_attention_plain
+        if case == "b4_tk300":
+            gen = torch.Generator().manual_seed(2)
+            k, v = (torch.randn((N_PAIRS, 2, 300, D), generator=gen).to(cuda) for _ in "kv")
+            mask = (torch.arange(300, device=cuda) < 250).float().expand(N_PAIRS, 2, 300)
+        elif case == "b4_tq_ne_tk":
+            k, v, mask = k[..., :77, :].contiguous(), v[..., :77, :].contiguous(), mask[..., :77]
+        args = (q, k, v, H128, mask, case == "b4_causal", case == "b4_partner")
+    before = kernel.launches
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert_close(got, plain(*args))
+
+
+# (form, head width, T): the whole form's rows at the serving and evaluation
+# lengths and at each width's cap, one tile short of it, and T = 1
+STREAM_EQUAL_CASES = [(f, hd, t) for f in ("b1_self", "b1_interaction", "b2a", "b3")
+                      for hd, t in ((64, 1), (64, T), (64, 196), (64, 320), (128, 1),
+                                    (128, 65), (128, 128))]
+
+
+@pytest.mark.parametrize("form,hd,t", STREAM_EQUAL_CASES,
+                         ids=[f"{f}_hd{hd}_t{t}" for f, hd, t in STREAM_EQUAL_CASES])
+def test_streaming_forms_are_the_whole_forms(cuda_bf16, form, hd, t):
+    """B1-bf16's, B2-bf16a's and B3-bf16's streaming forms take the whole
+    forms' rounding points in their order, so where both run (up to
+    ``whole_max_t`` rows: 320 at width 64, 128 at 128) they agree bit for
+    bit, each counted in its own way."""
+    heads = D // hd
+    w, x, mask, scale, shift = _inputs(cuda_bf16, t)
+    wb = BlockWeights(*[_bf16(a) for a in w])
+    xb = _bf16(x)
+    with torch.no_grad():
+        if form.startswith("b1"):
+            def run(f):
+                return fused_attention_block(xb, mask, _bf16(scale), _bf16(shift), wb, heads,
+                                             form == "b1_interaction", form=f)
+        elif form == "b2a":
+            xn = _bf16(torch.nn.functional.layer_norm(x, (D,), w.ln_g, w.ln_b, 1e-6))
+
+            def run(f):
+                return fused_projected_attention(xn, xn, w.wq, w.bq, w.wk, w.bk, w.wv, w.bv,
+                                                 heads, mask, form=f)
+        else:
+            q, k, v = (torch.nn.functional.linear(xb, torch.cat([wb.wq, wb.wk, wb.wv]))
+                       + torch.cat([wb.bq, wb.bk, wb.bv])).chunk(3, dim=-1)
+
+            def run(f):
+                return efficient_attention_bf16_form(q.contiguous(), k.contiguous(),
+                                                     v.contiguous(), heads, mask, f)
+        whole, stream = run("whole"), run("stream")
+        torch.cuda.synchronize()
+    assert torch.equal(whole, stream)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_whole_form_rows_are_the_kernels(cuda, hd):
+    """``whole_max_t`` (the routers' table, WHOLE_MAX_T) is each kernel's
+    own (``hig_*_max_t`` of the width's library, from its layout)."""
+    import ctypes
+
+    for lib, entry in (("fused_block", "fused_block_bf16_max_t"),
+                       ("projected_attention", "projected_attention_bf16a_max_t"),
+                       ("efficient_attention", "efficient_attention_bf16_max_t")):
+        fn = getattr(_build.load(_build.library_name(lib, hd)), f"hig_{entry}")
+        fn.restype, fn.argtypes = ctypes.c_int, []
+        assert fn() == whole_max_t(hd), (lib, hd)
 
 
 def test_mixed_projected_attention_refuses_grad(cuda_bf16):

@@ -197,8 +197,8 @@ def test_autograd_functions_carry_the_gradients(monkeypatch, kernel):
     monkeypatch.setattr(pa, "_launch_projected",
                         lambda q, kv, *w_mask: pa.fused_projected_attention_plain(
                             q, kv, *w_mask[:6], H, w_mask[6]))
-    monkeypatch.setattr(pa, "_launch_efficient",
-                        lambda q, k, v, mask: pa.efficient_attention(q, k, v, H, mask))
+    monkeypatch.setattr(pa, "_launch_efficient",  # its head width unused by the plain core
+                        lambda q, k, v, mask, hd: pa.efficient_attention(q, k, v, H, mask))
     monkeypatch.setattr(fa, "_launch_flash",
                         lambda q, k, v, mask, heads, causal, partner: fa.flash_attention_plain(
                             q, k, v, heads, mask, causal, partner))

@@ -108,7 +108,7 @@ Phases, each printing one JSON line (or several):
      (DDIM-50 guided w = GUIDANCE at T = 196, one replication; DPM-20 at
      T = 196; DDPM over DDPM_STEPS steps at T = 91, from a copy of the
      run's opt.txt whose diffusion_steps says so: the depth cut of its
-     1000, to pay for phase 17), each with exactly 16 B1 launches per
+     1000, to pay for phase 17's widths), each with exactly 16 B1 launches per
      denoiser call and per captured graph's warm-up and none of the
      others, the graphs' capture seconds and pools, the first chunk of the
      DDIM and DPM runs replayed again and run through the eager loop (equal
@@ -116,7 +116,7 @@ Phases, each printing one JSON line (or several):
      Consistency in [0, 1], FID ≥ 0, confusion matrices of 52 clips, the
      five metrics in summary<run>.json, and for DDPM a peak memory within
      half the size of the AdaLN grid it does not build of the DPM-20 run's
-     (a 250-step grid is 3.4 GB; a run that built it would sit 3.1 GB more
+     (a 100-step grid is 1.4 GB; a run that built it would sit 1.1 GB more
      above DPM-20's, the grid less DPM-20's own 20 steps); then
      DDPM over a
      DDPM_STEPS-step schedule at the serving shape through B1: the
@@ -362,13 +362,31 @@ Phases, each printing one JSON line (or several):
      graphed against eager bit for bit from phase 4's weights (phase 13's
      step-level check; bf16 gradients against the plain route);
      and a bfloat16 fused model of num_frames 400 serving 2 requests of 399
-     frames, 800 launches of B1-bf16's streaming form a call.
+     frames, 800 launches of B1-bf16's streaming form a call (the width-128
+     serving runs time one replay and one eager call). Then head widths 16
+     and 32 (NARROW_WIDTHS, heads packed to 64-column tiles): the model of
+     every run in results/ (RESULTS_OPT: latent 128, 8 heads of 16) read
+     through ``serve``'s main with --opt_path on seeded weights, DDIM-50 of
+     the 8 pairs in float32 (projected, its own route; fused; --no_eff) and
+     bfloat16 (fused, projected, --no_eff), each CLI call graphed, equal bit
+     for bit to the same model's eager loop and held against the plain
+     route (phase 5's and phase 10's gates), the float32 routes' denoiser
+     against the plain route, and its PIT step at batch 32 in float32 (B2)
+     and bfloat16 (B3-bf16, its backward, the ordered sum), graphed against
+     eager and against the plain route; width 32 (latent 256, 8 heads):
+     the denoiser and DDIM-50 fused in float32 and bfloat16; every kernel
+     form at widths 16 and 32 (rows "<form>_hd16", "<form>_hd32": phase 3's
+     and phase 10's checks with their controls, B4 and B4-bf16 beside SDPA;
+     the streaming and lazy forms at 4 pairs x 394 rows, B2's rectangular
+     form, the streaming forms bit for bit with the whole forms at 320
+     rows); and B4 at width 128 (warp pairs) at 104 x 196 beside SDPA.
 Then the kernel table (the bfloat16 forms' rows after the float32 ones, and
 phase 12's, 13's, 14's and 15's launches added; B3-bf16's row with both forms'
 times under "forms"; its lazy forms' row, their launches phase 11's lazy
 step's; B2's rectangular form's row, its launches phase 16's TP call's on
-rank 0; the width-128 rows and the two streaming forms' rows, their launches
-phase 17's; the ordered sum's row with its cases past 1024 terms), the
+rank 0; the width-128, -16 and -32 rows and the two streaming forms' rows,
+their launches phase 17's; the ordered sum's row with its cases past 1024
+terms), the
 nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero without
 that line. Imports nothing of JAX or of the JAX package.
@@ -395,11 +413,19 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 N_PAIRS, T, D, HEADS = 8, 91, 512, 8
 LENGTHS = (90, 84, 77, 63, 90, 51, 35, 70)  # frames; T = max + 1 (init token)
 DDIM_STEPS = 50
-LAUNCHES_PER_CALL = 8 * 2 * DDIM_STEPS  # layers × kernel blocks × steps
-# The graphed sampler's first call of a shape warms up with one denoiser
-# call (16 launches, real and counted) before it captures; its capture
-# launches nothing, and each replay credits the eager call's counts.
-FIRST_CALL = LAUNCHES_PER_CALL + 8 * 2
+
+
+def call_launches(num_layers: int) -> tuple[int, int]:
+    """(LAUNCHES_PER_CALL, FIRST_CALL) of a model of ``num_layers`` layers:
+    two kernel blocks a layer, a DDIM-50 call and the capturing call."""
+    return 2 * num_layers * DDIM_STEPS, 2 * num_layers * (DDIM_STEPS + 1)
+
+
+# layers × kernel blocks × steps. The graphed sampler's first call of a
+# shape warms up with one denoiser call (16 launches, real and counted)
+# before it captures; its capture launches nothing, and each replay credits
+# the eager call's counts.
+LAUNCHES_PER_CALL, FIRST_CALL = call_launches(8)
 SERVE_CALLS = 3  # timed serving calls per serving run
 TK_SHORT = 77  # keys of the Tq != Tk kernel checks
 # serving run → the kernel its self-attention and interaction blocks launch
@@ -444,11 +470,11 @@ GUIDANCE = 2.5
 # one generation chunk; generation runs at the evaluation length (the
 # default --gen_T, max_motion_length) except the DDPM run.
 EVAL_CLIPS, EVAL_T = 52, 196
-# The DDPM runs (phase 9's evaluate run and serving check) walk a schedule
-# of this many steps, the depth cut of the checkpoint's 1000 (the evaluate
-# run from an opt.txt saying so): DDPM's launches, graphs and checks at a
-# quarter of the time, which pays for phase 17.
-DDPM_STEPS = 250
+# The DDPM runs (phase 9's evaluate run and serving check, and the profile's
+# DDPM trace) walk a schedule of this many steps, the depth cut of the
+# checkpoint's 1000 (the evaluate run from an opt.txt saying so): DDPM's
+# launches, graphs and checks at a tenth of the time, which pays for phase 17.
+DDPM_STEPS = 100
 # evaluate run → (arguments of python -m hig_tpu_torch.evaluate, denoiser
 # calls a replication, replications)
 EVAL_RUNS = {
@@ -1042,7 +1068,7 @@ def check_flash_attention(w, x, mask, failures) -> dict:
         out[name] = {
             "max_abs_err": (got - want).abs().max().item(),
             "library_max_abs_err": (lib.transpose(1, 2).reshape(want.shape) - want)
-            .abs().max().item(),
+            .abs().max().item(), "library_backend": sdpa_backend(*sdpa_args),
             "ms": time_ms(lambda: flash_attention(*args)),
             "plain_ms": time_ms(lambda: flash_attention_plain(*args)),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
@@ -1096,11 +1122,13 @@ def serve_requests() -> list:
             for i, ((c1, c2), L) in enumerate(zip(CLASSID2CAPS, LENGTHS))]
 
 
-def phase_serve(models: dict, device, failures, tag: str = "") -> tuple[dict, dict, tuple]:
-    """Phase 5 (``tag``: another phase's run of it). Returns the launch
-    counts, {"serve_<run>": (graphed call, replayed wall s)} for the
-    profile, and ("serve_fused_eager", the fused model's eager call, its
-    wall s)."""
+def phase_serve(models: dict, device, failures, tag: str = "",
+                replays: int = SERVE_CALLS) -> tuple[dict, dict, tuple]:
+    """Phase 5 (``tag``: another phase's run of it, ``replays`` timed
+    replays and as many eager calls, at most 2). Returns the launch counts,
+    {"serve_<run>": (graphed call, replayed wall s)} for the profile, and
+    ("serve_fused_eager", the fused model's eager call, its wall s; None
+    without a fused model)."""
     from hig_tpu_torch import serve
     from hig_tpu_torch.diffusion import gaussian as g
     from hig_tpu_torch.train.trainer import make_sampler
@@ -1110,9 +1138,10 @@ def phase_serve(models: dict, device, failures, tag: str = "") -> tuple[dict, di
     mean, std = serve.load_stats(None, models["fused"].cfg.input_feats)
     kernels = wrappers()
     launches = {name: 0 for name in kernels}
-    runs = {}
+    runs, eager_run = {}, None
     for run_name, model in models.items():
         own = SERVE_RUNS[run_name]
+        per_call, first_call = call_launches(model.cfg.num_layers)
         t_run = time.perf_counter()
         kw = dict(T=T, dim_pose=model.cfg.input_feats, ddim_steps=DDIM_STEPS)
         sample_fn = make_sampler(model, sched, **kw)
@@ -1122,7 +1151,7 @@ def phase_serve(models: dict, device, failures, tag: str = "") -> tuple[dict, di
         # are shared), so the wall time is the median of a few calls.
         label = f"serve{tag} ({run_name})"
         row, (features, joints), first, call_counts = graph_and_eager(
-            label, run, eager, sample_fn.graphs, failures)
+            label, run, eager, sample_fn.graphs, failures, replays, min(replays, 2))
         with plain_blocks():
             t1 = time.perf_counter()
             ref_features, _ = eager(torch.Generator(device=device).manual_seed(0))
@@ -1139,10 +1168,10 @@ def phase_serve(models: dict, device, failures, tag: str = "") -> tuple[dict, di
             "rel_err_vs_plain": rel, "rel_tol": SAMPLER_REL_TOL,
             "seconds": time.perf_counter() - t_run,
         }), flush=True)
-        fail_if(failures, any(c[name] != (LAUNCHES_PER_CALL if name == own else 0)
+        fail_if(failures, any(c[name] != (per_call if name == own else 0)
                               for c in call_counts for name in kernels),
                 f"{label} launches {call_counts}")
-        fail_if(failures, any(first[name] != (FIRST_CALL if name == own else 0)
+        fail_if(failures, any(first[name] != (first_call if name == own else 0)
                               for name in kernels),
                 f"{label} launches of the capturing call {first}")
         fail_if(failures, tuple(joints.shape) != (N_PAIRS, 2, T - 1, 22, 3),
@@ -2841,12 +2870,13 @@ def phase_bf16(f32_models: dict, device, failures, smi: str, tmp: str) -> tuple:
 
 
 def bf16_serve_run(run: str, model, own: str, w: float, requests: list, T_: int, device,
-                   failures, smi: str, tag: str = "") -> tuple:
+                   failures, smi: str, tag: str = "", replays: int = SERVE_CALLS) -> tuple:
     """A bfloat16 model serving ``requests`` at T_ rows, DDIM-50 at guidance
     ``w``, through the graphed sampler beside the eager loop
-    (``graph_and_eager``) and against the plain route (``route_gate``, the
-    control route reported): each call LAUNCHES_PER_CALL launches of
-    ``own`` (the capturing call FIRST_CALL) and none of any other form.
+    (``graph_and_eager``, ``replays`` timed replays) and against the plain
+    route (``route_gate``, the control route reported): each call
+    LAUNCHES_PER_CALL launches of ``own`` (the capturing call FIRST_CALL; at
+    the model's depth, ``call_launches``) and none of any other form.
     Returns (the graphed call, its replayed wall s, a replay's counts)."""
     from hig_tpu_torch import serve
     from hig_tpu_torch.diffusion import gaussian as g
@@ -2862,7 +2892,7 @@ def bf16_serve_run(run: str, model, own: str, w: float, requests: list, T_: int,
     call = serve_with(sample_fn, requests, mean, std)
     eager = serve_with(make_sampler(model, sched, graph=False, **kw), requests, mean, std)
     graph_row, (features, joints), first, call_counts = graph_and_eager(
-        label, call, eager, sample_fn.graphs, failures)
+        label, call, eager, sample_fn.graphs, failures, replays, min(replays, 2))
     twin_fn = make_sampler(twin, sched, graph=False, **kw)
     with plain_blocks():
         p16, _ = eager(torch.Generator(device=device).manual_seed(0))
@@ -2879,9 +2909,10 @@ def bf16_serve_run(run: str, model, own: str, w: float, requests: list, T_: int,
                       "finite": bool(np.isfinite(features).all() and np.isfinite(joints).all()),
                       "joints_shape": list(joints.shape), **row,
                       "seconds": time.perf_counter() - t_run}), flush=True)
-    fail_if(failures, any(c[name] != (LAUNCHES_PER_CALL if name == own else 0)
+    per_call, first_call = call_launches(model.cfg.num_layers)
+    fail_if(failures, any(c[name] != (per_call if name == own else 0)
                           for c in call_counts for name in c)
-            or any(first[name] != (FIRST_CALL if name == own else 0) for name in first),
+            or any(first[name] != (first_call if name == own else 0) for name in first),
             f"{label} launches {first}, {call_counts}")
     fail_if(failures, tuple(joints.shape) != (len(requests), 2, T_ - 1, 22, 3)
             or not np.isfinite(joints).all(), f"{label} joints {joints.shape}")
@@ -3875,8 +3906,8 @@ def graphed_eager_steps(run: str, fields: dict, own, steps: int, device, failure
     the capture, then replays) and eagerly from one seeded state (phase 4's
     ``weights``, which are ``Trainer.init_state``'s of seed 0) with the
     trainer's per-step generators: metrics, parameters and Adam's moments
-    bit for bit, 16 launches a step of ``own`` (None: none) and of no other
-    form, the ordered bfloat16 sum in bfloat16 only; step ms, peak memory
+    bit for bit, 16 launches a step of ``own`` (None: none; two a layer) and
+    of no other form, the ordered bfloat16 sum in bfloat16 only; step ms, peak memory
     and the graph's pool. Returns (the printed row, the graphed run's counts,
     the trainer, its first batch)."""
     from hig_tpu_torch.config import ExperimentConfig, add_dataset_paths
@@ -3926,7 +3957,7 @@ def graphed_eager_steps(run: str, fields: dict, own, steps: int, device, failure
     row["seconds"] = time.perf_counter() - t0
     fail_if(failures, not row["graph_equals_eager"],
             f"steps ({run}): graphed differs from eager: {differ[:4]}, {m_g} vs {m_e}")
-    fail_if(failures, any(n != (LAUNCHES_PER_STEP * steps if k == own else 0)
+    fail_if(failures, any(n != (2 * cfg.num_layers * steps if k == own else 0)
                           for k, n in c_g.items() if k != BF16_SUM)
             or (c_g[BF16_SUM] > 0) != (cfg.compute_dtype == "bfloat16"),
             f"steps ({run}) launches {c_g}")
@@ -4278,7 +4309,7 @@ def geometry_visualize(failures, opt_path: str, tmp: str) -> tuple[dict, dict]:
     return row, counts
 
 
-def b3_bf16_forms(device, failures) -> dict:
+def b3_bf16_forms(device, failures, shapes: dict = B3_FORM_SHAPES) -> dict:
     """B3-bf16's whole and streaming forms at B3_FORM_SHAPES: each form's ms
     (the whole form where it runs), the plain twin's, the bound; at 394 rows
     the streaming form against its twin beside the planted controls; where
@@ -4297,7 +4328,7 @@ def b3_bf16_forms(device, failures) -> dict:
     fail_if(failures, out["division_mismatches"] != 0,
             f"B3-bf16's softmax quotient differs from the IEEE division at "
             f"{out['division_mismatches']} pairs")
-    for label, (N, tq, tk) in B3_FORM_SHAPES.items():
+    for label, (N, tq, tk) in shapes.items():
         w, x, mask, _, _ = block_inputs(device, N // 2, max(tq, tk))
         q, k, v, heads, m = b3_bf16_inputs(w, x, mask, tk)
         q = q[..., :tq, :].contiguous()
@@ -4338,7 +4369,7 @@ def b3_bf16_forms(device, failures) -> dict:
 B3_LAZY_SHAPES = {k: B3_FORM_SHAPES[k] for k in ("128x91", "64x394")}
 
 
-def b3_lazy_forms(device, failures) -> dict:
+def b3_lazy_forms(device, failures, shapes: dict = B3_LAZY_SHAPES) -> dict:
     """B3-bf16's lazy forms at B3_LAZY_SHAPES against the lazy twin: each
     form's ms beside the eager form's (the whole form where it runs), the
     plain lazy twin's, the bound (the eager form's work); the kernel's
@@ -4351,7 +4382,7 @@ def b3_lazy_forms(device, failures) -> dict:
         BF16_MAX_T, efficient_attention_bf16_form, fused_efficient_attention_plain as plain)
 
     out = {}
-    for label, (N, tq, tk) in B3_LAZY_SHAPES.items():
+    for label, (N, tq, tk) in shapes.items():
         w, x, mask, _, _ = block_inputs(device, N // 2, max(tq, tk))
         q, k, v, heads, m = b3_bf16_inputs(w, x, mask, tk)
         args = (q[..., :tq, :].contiguous(), k, v, heads, m)
@@ -4386,7 +4417,7 @@ def b3_lazy_forms(device, failures) -> dict:
             fail_if(failures, c["passed"], f"{LAZY_FORM} {label}: the control {name} passes")
         row["controls_rms_ratio"] = {n: c["rms_ratio"] for n, c in controls.items()}
         out[label] = row
-    first = out["128x91"]
+    first = out[next(iter(shapes))]
     return {"name": LAZY_FORM, "route": "cuda",
             "source": "hig_tpu_torch/csrc/efficient_attention.cu",
             "replaces": "hig_tpu/ops/pallas_attention.py:46 (LAZY_KNORM, "
@@ -5815,10 +5846,11 @@ def heads_of(heads: int):
         HEADS = saved
 
 
-def hd128_kernel_rows(device, failures) -> dict:
-    """Every kernel form at head width 128 at the serving shape (16 x 91, D
-    = 512, 4 heads) against its plain version under its phase-3 or phase-10
-    gates, timed beside the plain version, with its bound."""
+def width_kernel_rows(device, failures, hd: int) -> dict:
+    """Every kernel form at head width ``hd`` (128: 4 heads) at the serving
+    shape (16 x 91, D = 512) against its plain version under its phase-3
+    or phase-10 gates, timed beside the plain version, with its bound (B4
+    and B4-bf16 beside SDPA): rows "<form>_hd<hd>"."""
     checks = {"fused_block": check_fused_block, "projected_attention": check_projected_attention,
               "efficient_attention": check_efficient_attention,
               "flash_attention": check_flash_attention,
@@ -5829,17 +5861,17 @@ def hd128_kernel_rows(device, failures) -> dict:
               "flash_attention_bf16": check_flash_attention_bf16}
     inputs = block_inputs(device)
     rows = {}
-    with heads_of(HW_HEADS):
+    with heads_of(D // hd):
         for name, check in checks.items():
             row = check(*inputs, failures) if name.startswith("fused_block") else \
                 check(*inputs[:3], failures)
-            row["name"] = f"{name}_hd128"
-            row["replaces"] += " (head width 128)"
+            row["name"] = f"{name}_hd{hd}"
+            row["replaces"] += f" (head width {hd})"
             rows[row["name"]] = row
     return rows
 
 
-def stream_forms_equal(device, failures) -> dict:
+def stream_forms_equal(device, failures, cases=STREAM_EQUAL, timed: bool = True) -> dict:
     """B1-bf16 (self and interaction), B2-bf16a and B3-bf16: the streaming
     form against the whole form, bit for bit, at STREAM_EQUAL; B1-bf16's
     (self) and B2-bf16a's two forms timed there, one after the other (the
@@ -5849,7 +5881,7 @@ def stream_forms_equal(device, failures) -> dict:
         FORMS, efficient_attention_bf16_form, fused_projected_attention)
 
     out, times = {}, {}
-    for hd, t in STREAM_EQUAL:
+    for hd, t in cases:
         heads = D // hd
         w, x, mask, scale, shift = block_inputs(device, N_PAIRS, t)
         wb = BlockWeights(*[to_bf16(a) for a in w])
@@ -5869,7 +5901,7 @@ def stream_forms_equal(device, failures) -> dict:
             row = {name: bool(torch.equal(*(call(f) for f in FORMS)))
                    for name, call in calls.items()}
             ms = {f"{name}_{f}_ms": time_ms(lambda: calls[name](f))
-                  for name in ("b1_self", "b2a") for f in FORMS}
+                  for name in ("b1_self", "b2a") for f in FORMS} if timed else {}
         out[f"hd{hd}_t{t}"] = row
         times[f"hd{hd}_t{t}"] = {"pairs": N_PAIRS, **ms}
         fail_if(failures, not all(row.values()),
@@ -5927,7 +5959,7 @@ def head_width_rows(device, failures) -> dict:
     themselves: every form at head width 128, the two streaming forms, and
     under BF16_SUM + "_levels" the ordered sum past one launch."""
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    rows = hd128_kernel_rows(device, failures)
+    rows = width_kernel_rows(device, failures, 128)
     rows.update(stream_form_rows(device, failures))
     rows[BF16_SUM + "_levels"] = check_bf16_sum_levels(device, failures)
     return rows
@@ -5962,14 +5994,14 @@ def head_width_path(device, failures, smi: str, data: str, tmp: str, models: dic
 
     wide = {run: derived(run, num_heads=HW_HEADS) for run in models}
     phase_denoiser(wide, device, failures, tag="_hd128")
-    counts, _, _ = phase_serve(wide, device, failures, tag="_hd128")
+    counts, _, _ = phase_serve(wide, device, failures, tag="_hd128", replays=1)
     add(counts)
     for run in ("fused", "projected"):  # B4-bf16: the bf16 --no_eff train step
         bf = cast_floating(derived(run, num_heads=HW_HEADS, compute_dtype="bfloat16"),
                            torch.bfloat16)
         own = BF16_SERVE_RUNS[run][0]
         add(bf16_serve_run(run, bf, own, 1.0, serve_requests(), T, device, failures, smi,
-                           tag="_hd128")[2])
+                           tag="_hd128", replays=1)[2])
         del bf
     del wide
 
@@ -6021,6 +6053,331 @@ def head_width_launches(rows: dict, path: tuple) -> None:
             row["launches"] = launches.get(name[:-len("_hd128")], 0)
     for name in STREAM_FORMS:
         rows[name]["launches"] = launches.get(name, 0) + long_counts.get(name, 0)
+
+# --- phase 17, continued: head widths 16 and 32, and B4 at width 128 on warp pairs -------
+
+# Heads of 16 and 32 are packed 4 and 2 to a 64-column tile of width 64's
+# layouts (csrc/common.cuh). Every kernel form at D = 512 with 32 and 16
+# heads (rows "<form>_hd16", "<form>_hd32": phase 3's and phase 10's checks,
+# B4 and B4-bf16 beside SDPA; the streaming forms of B1-bf16, B2-bf16a and
+# B3-bf16 and B3-bf16's lazy form at NARROW_STREAM rows past the whole
+# forms' 320, B2's rectangular form as phase 16 checks it), the streaming
+# forms bit for bit with the whole forms at the cap (320 rows).
+NARROW_WIDTHS = (16, 32)
+# the streaming rows' shape: pairs, and rows (a --single_transformer merged
+# timeline at a native window of 196)
+NARROW_STREAM_PAIRS, NARROW_STREAM = 4, 394
+# The model of every trained run in results/ (latent 128, 8 heads of 16, 4
+# layers; text 64 with 4 heads), read through the port's load_opt_txt on
+# seeded weights (its checkpoint is not in the repo). Serving route → (its
+# opt.txt's lines as a run of that route writes them, serve's --blocks, the
+# form its blocks launch): served through ``python -m hig_tpu_torch.serve
+# --opt_path``'s main, DDIM-50 for the 8 caption pairs of phase 5.
+RESULTS_OPT = os.path.join(ROOT, "results", "eqrun3_allfive", "generator_opt.txt")
+RESULTS_SERVE_RUNS = {
+    "projected": ({}, "projected", "projected_attention"),
+    "fused": ({}, "fused", "fused_block"),
+    "no_eff": ({"no_eff": "True"}, None, "flash_attention"),
+    "bf16_fused": ({"compute_dtype": "bfloat16"}, "fused", "fused_block_bf16"),
+    "bf16_projected": ({"compute_dtype": "bfloat16"}, "projected", "projected_attention_bf16"),
+    "bf16_no_eff": ({"compute_dtype": "bfloat16", "no_eff": "True"}, None,
+                    "flash_attention_bf16"),
+}
+# its PIT steps at batch 32 (run → opt.txt lines, the form its blocks launch)
+RESULTS_STEP_RUNS = {"pit_hd16": ({}, "projected_attention"),
+                     "pit_hd16_bf16": ({"compute_dtype": "bfloat16"},
+                                       "efficient_attention_bf16")}
+RESULTS_STEPS = 2
+# Width 32, the roadmap's example of the fault: latent 256 with 8 heads, every
+# other field the flagship's; the denoiser, and DDIM-50 fused in float32 and
+# bfloat16
+WIDTH32_FIELDS = dict(latent_dim=256, num_heads=8, fused_blocks=True)
+
+
+def narrow_kernel_rows(device, failures, hd: int) -> dict:
+    """Phase 17's rows at head width ``hd`` (see NARROW_WIDTHS): every form
+    at the serving shape, the streaming and lazy forms at
+    NARROW_STREAM_PAIRS x NARROW_STREAM rows, B2's rectangular form, and
+    each streaming form against its whole form at the cap."""
+    rows = width_kernel_rows(device, failures, hd)
+    tag = f"_hd{hd}"
+    inputs = block_inputs(device, NARROW_STREAM_PAIRS, NARROW_STREAM)
+    with heads_of(D // hd):
+        for name, row in (("fused_block_bf16_stream", check_fused_block_bf16(*inputs, failures)),
+                          ("projected_attention_bf16a_stream",
+                           check_projected_attention_bf16a(*inputs[:3], failures))):
+            row.update(name=name + tag)
+            row["replaces"] += f" (past the whole form's rows, head width {hd})"
+            rows[name + tag] = row
+        N = 2 * NARROW_STREAM_PAIRS
+        shape = {f"{N}x{NARROW_STREAM}": (N, NARROW_STREAM, NARROW_STREAM)}
+        forms = b3_bf16_forms(device, failures, shape)[next(iter(shape))]
+        rows[STREAM_FORM + tag] = {
+            "name": STREAM_FORM + tag, "route": "cuda",
+            "source": "hig_tpu_torch/csrc/efficient_attention.cu",
+            "replaces": f"hig_tpu/ops/pallas_attention.py:46 (past 320 rows, head width {hd})",
+            "max_abs_err": forms["max_abs_err"], "rms_ratio": forms["rms_ratio"],
+            "ms": forms["stream_ms"], "plain_ms": forms["plain_ms"],
+            "bound_ms": forms["bound_ms"], "bound_by": forms["bound_by"], "library_ms": None,
+            "controls_rms_ratio": forms["controls_rms_ratio"]}
+        lazy = b3_lazy_forms(device, failures, {"16x91": (2 * N_PAIRS, T, T), **shape})
+        lazy.update(name=LAZY_FORM + tag)
+        lazy["replaces"] += f" (head width {hd})"
+        rows[LAZY_FORM + tag] = lazy
+        rect = check_projected_attention_rect(device, failures)
+        rect.update(name=rect["name"] + tag)
+        rect["replaces"] += f" (head width {hd})"
+        rows[rect["name"]] = rect
+    rows[f"fused_block_bf16_stream{tag}"]["forms_equal"] = stream_forms_equal(
+        device, failures, ((hd, 320),), timed=False)
+    return rows
+
+
+def results_opt(tmp: str, name: str, changes: dict) -> str:
+    """A copy of RESULTS_OPT under ``tmp`` with the lines ``key: value`` of
+    ``changes`` set (each must be there), as that run's opt.txt would read."""
+    with open(RESULTS_OPT) as f:
+        lines = f.read().splitlines()
+    for key, value in changes.items():
+        (i,) = [i for i, ln in enumerate(lines) if ln.startswith(f"{key}: ")]
+        lines[i] = f"{key}: {value}"
+    path = os.path.join(tmp, f"{name}_opt.txt")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+@contextlib.contextmanager
+def spy_returns(module, name: str):
+    """What ``module.<name>`` returns while the context is open, in order."""
+    got, real = [], getattr(module, name)
+
+    def spy(*args, **kwargs):
+        got.append(real(*args, **kwargs))
+        return got[-1]
+
+    setattr(module, name, spy)
+    try:
+        yield got
+    finally:
+        setattr(module, name, real)
+
+
+def results_serve(run: str, opt: str, blocks: str | None, own: str, tmp: str, device,
+                  failures, smi: str) -> tuple:
+    """One RESULTS_SERVE_RUNS route: ``serve``'s main on the run's opt.txt
+    (seeded weights, identity statistics, DDIM-50, the sampler graphed), its
+    launches (the capturing call's: ``own`` only); its graphed sampler
+    replayed (the wall of a replay) and the model it built through the
+    eager loop (``graph=False``), each equal to the CLI's output bit for
+    bit; the plain route, float32 within
+    SAMPLER_REL_TOL, bfloat16 under BF16_ROUTE_RMS (the control route
+    reported). Returns (the row, the counts, the model)."""
+    from hig_tpu_torch import serve
+    from hig_tpu_torch.diffusion import gaussian as g
+    from hig_tpu_torch.train.trainer import make_sampler
+
+    requests = serve_requests()
+    req_path, out_dir = os.path.join(tmp, "requests.jsonl"), os.path.join(tmp, f"serve_{run}")
+    with open(req_path, "w") as f:
+        f.write("".join(json.dumps(r) + "\n" for r in requests))
+    stats = os.path.join(tmp, "identity_stats")
+    os.makedirs(stats, exist_ok=True)
+    mean, std = serve.load_stats(None, 263)
+    np.save(os.path.join(stats, "mean.npy"), mean)
+    np.save(os.path.join(stats, "std.npy"), std)
+    argv = ["--requests", req_path, "--opt_path", opt, "--random_init", "0", "--stats", stats,
+            "--sampler", "ddim", "--ddim_steps", str(DDIM_STEPS), "--out_dir", out_dir,
+            *(["--blocks", blocks] if blocks else [])]
+    label = f"serve_hd16 ({run})"
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with spy_returns(serve, "build_model") as built, \
+            spy_returns(serve, "make_sampler") as samplers:
+        serve.main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    counts = bf16_counts()
+    (model,), (graphed,) = built, samplers
+    per_call, first_call = call_launches(model.cfg.num_layers)
+    fail_if(failures, any(n != (first_call if k == own else 0) for k, n in counts.items()),
+            f"{label}: the CLI's launches {counts}, expected {first_call} of {own}")
+    got = [np.load(os.path.join(out_dir, f"{r['id']}.npz")) for r in requests]
+    sched = g.make_schedule(g.linear_betas(1000))
+    kw = dict(T=T, dim_pose=model.cfg.input_feats, ddim_steps=DDIM_STEPS, graph=False)
+    eager_fn = make_sampler(model, sched, **kw)  # a bfloat16 model: cast here, as the CLI's
+
+    def eager(m=eager_fn):
+        return serve.serve_batch(m, requests, mean, std, device,
+                                 torch.Generator(device=device).manual_seed(0))
+
+    def timed(m):
+        reset_counts()
+        t1 = time.perf_counter()
+        out = eager(m)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t1, bf16_counts()
+
+    def cli_equals(features, joints):
+        return all(np.array_equal(c["features"], features[i, :, :r["length"] + 1])
+                   and np.array_equal(c["joints"], joints[i, :, :r["length"]])
+                   for i, (c, r) in enumerate(zip(got, requests)))
+
+    (gf, gj), graphed_s, graphed_counts = timed(graphed)  # a replay of the CLI's graph
+    (features, joints), eager_s, eager_counts = timed(eager_fn)
+    row = {"phase": "head_width", "run": f"serve_hd16_{run}", "nvidia_smi": smi,
+           "opt": os.path.basename(opt), "blocks": blocks, "requests": len(requests), "T": T,
+           "ddim_steps": DDIM_STEPS, "cli_launches": counts, "replay_launches": graphed_counts,
+           "eager_launches": eager_counts, "cli_wall_s": cli_s, "graphed_wall_s": graphed_s,
+           "eager_wall_s": eager_s, "replay_equals_cli": cli_equals(gf, gj),
+           "cli_equals_eager": cli_equals(features, joints),
+           "finite": bool(np.isfinite(features).all() and np.isfinite(joints).all()),
+           "joints_shape": list(joints.shape)}
+    fail_if(failures, not (row["cli_equals_eager"] and row["replay_equals_cli"]),
+            f"{label}: the CLI's graphed call, its replay and the eager loop differ")
+    fail_if(failures, any(c[k] != (per_call if k == own else 0)
+                          for c in (graphed_counts, eager_counts) for k in c),
+            f"{label}: replayed and eager launches {graphed_counts}, {eager_counts}")
+    fail_if(failures, not row["finite"] or tuple(joints.shape) != (N_PAIRS, 2, T - 1, 22, 3),
+            f"{label}: joints {joints.shape}, finite {row['finite']}")
+    with plain_blocks():
+        plain16, _ = eager()
+    if model.cfg.compute_dtype == "bfloat16":
+        twin = f32_twin_model(model)
+        with plain_blocks():
+            plain32, _ = eager(make_sampler(twin, sched, **kw))
+        with plain_blocks(control=True):
+            control = route_row(eager()[0], plain16, plain32)
+        row.update(route_gate(label, features, plain16, plain32, failures))
+        row["control_rms_ratio"] = control["rms_ratio"]
+        del twin
+    else:
+        rel = float(np.abs(features - plain16).max() / np.abs(plain16).max())
+        row.update(rel_err_vs_plain=rel, rel_tol=SAMPLER_REL_TOL)
+        fail_if(failures, not rel <= SAMPLER_REL_TOL, f"{label}: rel err {rel}")
+    print(json.dumps(row), flush=True)
+    del eager_fn, graphed
+    return row, counts, model
+
+
+def results_model_path(device, failures, smi: str, data: str, tmp: str) -> tuple:
+    """Phase 17's width-16 path on the results/ model (see RESULTS_OPT):
+    each RESULTS_SERVE_RUNS route through ``results_serve``; the float32
+    routes' models' denoiser against the plain route; its PIT steps at
+    batch 32 in float32 and bfloat16, graphed against eager
+    (``graphed_eager_steps``) and against the plain route (float32: the
+    gradients, TRAIN_GRAD_TOL; bfloat16: ``bf16_grad_gate``). Returns (the
+    launch counts by form, {run: row})."""
+    from hig_tpu_torch.config import ExperimentConfig, add_dataset_paths, load_opt_txt
+    from hig_tpu_torch.train import trainer as tr
+
+    t_path = time.perf_counter()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    launches: dict = {}
+
+    def add(counts):
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+
+    run = load_opt_txt(RESULTS_OPT)
+    fail_if(failures, (run.latent_dim, run.num_heads) != (128, 8),
+            f"{RESULTS_OPT}: latent {run.latent_dim}, {run.num_heads} heads")
+    rows, models = {}, {}
+    for name, (changes, blocks, own) in RESULTS_SERVE_RUNS.items():
+        opt = results_opt(tmp, name, changes)
+        rows[name], counts, model = results_serve(name, opt, blocks, own, tmp, device,
+                                                  failures, smi)
+        add(counts)
+        if name in ("fused", "projected", "no_eff"):  # float32: the denoiser check's
+            models[name] = model
+        del model
+    phase_denoiser(models, device, failures, tag="_hd16")
+    del models
+    fields = {k: getattr(run, k) for k in ("num_layers", "latent_dim", "ff_size", "num_heads",
+                                           "num_text_layers", "text_latent_dim",
+                                           "text_ff_size", "text_num_heads")}
+    # the steps start from Trainer.init_state's weights of seed 0, as phase 6's
+    weights = tr.Trainer(add_dataset_paths(ExperimentConfig(
+        data_root=data, batch_size=TRAIN_PAIRS, times=2, **fields)), device).init_state(
+        ).model.state_dict()
+    for name, (changes, own) in RESULTS_STEP_RUNS.items():
+        row, counts, trainer, batch = graphed_eager_steps(
+            name, {**fields, **changes}, own, RESULTS_STEPS, device, failures, smi, data,
+            weights, "train_hd16")
+        add({k: v for k, v in counts.items() if k != BF16_SUM})
+        if trainer.cfg.compute_dtype == "bfloat16":
+            initial = model_from(trainer.model_config, weights, device)
+            row["grad_check"] = bf16_grad_gate(trainer.sched, batch, initial, name, failures)
+        else:  # the run's first batch and initial model (its CLIP tower frozen), as phase 6
+            batch, initial = first_batch(trainer)
+            row["grad_check"] = grad_route_errors(initial, trainer.sched, batch, pit=True)
+            gate_grad_check(failures, name, "grad_check", row["grad_check"])
+        print(json.dumps(row), flush=True)
+        rows[name] = row
+        del trainer, batch, initial
+    print(json.dumps({"phase": "head_width", "launches_hd16": launches,
+                      "path_seconds": time.perf_counter() - t_path}), flush=True)
+    return launches, rows
+
+
+def width32_path(device, failures, smi: str) -> dict:
+    """Phase 17's width-32 path (WIDTH32_FIELDS): the denoiser against the
+    plain route, DDIM-50 of the 8 pairs graphed against eager and against
+    the plain route in float32 (B1) and bfloat16 (B1-bf16). Returns the
+    launch counts by form."""
+    from hig_tpu_torch import serve
+    from hig_tpu_torch.models.interaction_model import ModelConfig
+    from hig_tpu_torch.weights import cast_floating
+
+    t_path = time.perf_counter()
+    cfg = ModelConfig(**WIDTH32_FIELDS)
+    model = serve.build_model(cfg, device, random_init=0)
+    phase_denoiser({"fused": model}, device, failures, tag="_hd32")
+    launches, _, _ = phase_serve({"fused": model}, device, failures, tag="_hd32", replays=1)
+    bf = serve.build_model(dataclasses.replace(cfg, compute_dtype="bfloat16"), device,
+                           random_init=0)
+    counts = bf16_serve_run("fused", cast_floating(bf, torch.bfloat16), "fused_block_bf16", 1.0,
+                            serve_requests(), T, device, failures, smi, tag="_hd32",
+                            replays=1)[2]
+    del model, bf
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
+    print(json.dumps({"phase": "head_width", "launches_hd32": launches,
+                      "path_seconds": time.perf_counter() - t_path}), flush=True)
+    return launches
+
+
+def b4_hd128_eval_shape(device, row: dict) -> None:
+    """B4 at width 128 at the evaluation shape (104 x 196, self) beside SDPA
+    on the same inputs (its backend and its error against B4's plain
+    version), into ``row`` under "eval_shape"."""
+    from hig_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    F = torch.nn.functional
+    w, x, mask, _, _ = block_inputs(device, EVAL_CLIPS, EVAL_T)
+    N, Tq, heads = 2 * EVAL_CLIPS, EVAL_T, HW_HEADS
+    hd = D // heads
+    q, k, v = F.linear(x, torch.cat([w.wq, w.wk, w.wv]),
+                       torch.cat([w.bq, w.bk, w.bv])).chunk(3, dim=-1)
+    args = (q, k, v, heads, mask)
+    with torch.no_grad():
+        got, want = flash_attention(*args), flash_attention_plain(*args)
+        sdpa = tuple(t.reshape(N, Tq, heads, hd).transpose(1, 2) for t in (q, k, v))
+        bias = ((1.0 - mask.reshape(N, 1, 1, Tq)) * -1e6).expand(N, 1, Tq, Tq).contiguous()
+        lib = F.scaled_dot_product_attention(*sdpa, attn_mask=bias)
+        b_ms, b_by, _ = bound(4 * N * heads * Tq * Tq * hd, 4 * (4 * N * Tq * D + N * Tq))
+        row["eval_shape"] = {
+            "shape": [N, Tq, D, heads], "max_abs_err": (got - want).abs().max().item(),
+            "ms": time_ms(lambda: flash_attention(*args)),
+            "plain_ms": time_ms(lambda: flash_attention_plain(*args)),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(*sdpa,
+                                                                         attn_mask=bias)),
+            "library_backend": sdpa_backend(*sdpa, bias),
+            "library_max_abs_err": (lib.transpose(1, 2).reshape(want.shape) - want)
+            .abs().max().item(), "bound_ms": b_ms, "bound_by": b_by}
+    print(json.dumps({"phase": "head_width", "kernel": "flash_attention_hd128",
+                      "eval_shape": row["eval_shape"]}), flush=True)
 
 
 def main() -> int:
@@ -6097,6 +6454,13 @@ def main() -> int:
         width_path = head_width_path(device, failures, smi, data, tmp, models)
         width_rows = head_width_rows(device, failures)
         head_width_launches(width_rows, width_path)
+        results_launches, _ = results_model_path(device, failures, smi, data, tmp)
+        w32_launches = width32_path(device, failures, smi)
+        for hd, counts in zip(NARROW_WIDTHS, (results_launches, w32_launches)):
+            for name, row in narrow_kernel_rows(device, failures, hd).items():
+                row["launches"] = counts.get(name[:-len(f"_hd{hd}")], 0)
+                width_rows[name] = row
+        b4_hd128_eval_shape(device, width_rows["flash_attention_hd128"])
         lap("head_width")
         ablation_launches = merge_counts(ablation_launches, option_launches)
         ablation_launches = merge_counts(ablation_launches, geometry_launches)

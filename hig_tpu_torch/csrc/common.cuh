@@ -22,18 +22,34 @@
 #include <stdint.h>
 
 // The head width of this translation unit's attention kernels: each
-// library is built once per width (ops/_build.py passes -DHIG_HD=128 for
-// the second), and every kernel takes its tile shapes from HD. A 128-wide
-// head is two 64-column halves (NH) wherever a layout is 64 columns wide.
+// library is built once per width (ops/_build.py passes -DHIG_HD=w for
+// every width but 64), and every kernel takes its tile shapes from it.
+// HW is the head width; HD is the width of the column tile a block or a
+// warp owns. A 128-wide head is two 64-column halves (NH) wherever a
+// layout is 64 columns wide. Heads of 16 and 32 are packed 64 / HW side
+// by side into one 64-column tile (HD = 64, HPB heads a tile), so the
+// 128-byte swizzle, the TMA boxes and the wgmma descriptors of width 64
+// serve unchanged: the column softmax over time is per column anyway, the
+// feature softmax takes each head's HW columns apart (its segments), and a
+// linear-attention state keeps only its block-diagonal HW x HW pieces
+// (same_head), so each head's output reads its own depth only.
 #ifndef HIG_HD
 #define HIG_HD 64
 #endif
 
 namespace hig {
 
-constexpr int HD = HIG_HD;
-static_assert(HD == 64 || HD == 128, "the kernels take head widths 64 and 128");
+constexpr int HW = HIG_HD;
+static_assert(HW == 16 || HW == 32 || HW == 64 || HW == 128,
+              "the kernels take head widths 16, 32, 64 and 128");
+constexpr int HD = HW < 64 ? 64 : HW;  // a tile's columns
 constexpr int NH = HD / 64;
+constexpr int HPB = HD / HW;           // heads a tile holds
+
+// Whether tile columns d and l belong to one head (always, from width 64).
+__host__ __device__ __forceinline__ constexpr bool same_head(int d, int l) {
+  return HPB == 1 || d / HW == l / HW;
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

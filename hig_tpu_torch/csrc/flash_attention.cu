@@ -51,24 +51,41 @@
 
 namespace hig {
 
-// Head width (common.cuh's HD, 64 or 128). At 128 the most keys resident
-// at once halve (the block's shared memory stays at 137 KB), and q is kept
-// in registers unsplit, split into TF32 parts at each step, so that the
-// 16-row warp tile's q, S and O fit the registers.
-constexpr int FA_HD = HD;        // head dim
-constexpr int FA_MAX_WARPS = 8;  // 16 query rows each
+// Head width FA_HD (common.cuh's HW: 16, 32, 64 or 128). Each 16-row query
+// tile of a block is owned by FA_PARTS warps, each holding FA_WD of q's
+// depth (split into TF32 parts once) and of O's columns: one warp up to
+// width 64; at 128 a pair, so that q, O and S fit the registers as at 64
+// (the width-128 form that gave one warp all 128 columns took 255
+// registers, spilled 352 bytes and split q at every step). A pair's two
+// partial S tiles of each 32-key step meet in a shared-memory slot under a
+// pair barrier (named barrier 1 + the pair), each warp adds the other's
+// partial to its own (a + b = b + a exactly, so both hold the same S), and
+// both run the same online softmax, so m and l agree bit for bit; each
+// multiplies P by its own 64 columns of v. At 128 the most keys resident at
+// once halve (the block's shared memory stays at 137 KB).
+constexpr int FA_HD = HW;        // head dim
+constexpr int FA_PARTS = HW == 128 ? 2 : 1;  // warps a 16-row query tile
+constexpr int FA_WD = FA_HD / FA_PARTS;      // q depth and O columns a warp owns
+constexpr int FA_MAX_WARPS = 8;  // 16 query rows each (with FA_PARTS = 1)
 constexpr int FA_STEP = 32;      // keys per online-softmax step
-constexpr int FA_TILE = HD == 64 ? 256 : 128;  // most keys resident in shared memory at once
+constexpr int FA_TILE = HW == 128 ? 128 : 256;  // most keys resident in shared memory at once
 constexpr int FA_KS = FA_HD + 8; // row stride of k in shared memory
 constexpr int FA_VS = FA_HD + 4; // row stride of v
-// 1 / sqrt(FA_HD) in float32: exact at 64 (1/8); at 128 the float32 of
-// 2^-3.5, as JAX's Python scale becomes in its float32 product with q
-constexpr float FA_SCALE = HD == 64 ? 0.125f : 0.0883883461356163f;
-constexpr bool FA_QSPLIT = HD == 64;  // q split once into registers (else per step)
+// 1 / sqrt(FA_HD) in float32: exact at 16 (1/4) and 64 (1/8); at 32 and 128
+// the float32 of 2^-2.5 and 2^-3.5, as JAX's Python scale becomes in its
+// float32 product with q
+constexpr float FA_SCALE = HW == 16   ? 0.25f
+                           : HW == 32 ? 0.1767766952966369f
+                           : HW == 64 ? 0.125f
+                                      : 0.0883883461356163f;
 constexpr float FA_MASK_BIAS = -1000000.0f;
+constexpr int FA_XCH = 16 * 32;  // a warp's partial S tile in the pair exchange (floats)
 
-constexpr size_t fa_smem(int rows) {
-  return sizeof(float) * (size_t)rows * (FA_KS + FA_VS + 1);
+// Dynamic shared memory for `rows` resident keys and `warps` warps: k, v,
+// the key biases, and (pairs) two exchange slots a warp.
+constexpr size_t fa_smem(int rows, int warps) {
+  return sizeof(float) * ((size_t)rows * (FA_KS + FA_VS + 1) +
+                          (FA_PARTS == 2 ? (size_t)2 * warps * FA_XCH : 0));
 }
 
 // Wait until at most n of this thread's cp.async groups are pending.
@@ -93,15 +110,17 @@ __global__ void __launch_bounds__(FA_MAX_WARPS * 32) flash_attention_kernel(
   float* k_s = smem;                         // [tile][FA_KS]
   float* v_s = k_s + tile * FA_KS;           // [tile][FA_VS]
   float* bias_s = v_s + tile * FA_VS;        // [tile]
+  float* x_s = bias_s + tile;                // pairs: [2][warps][FA_XCH]
 
   const int n = blockIdx.x / H, h = blockIdx.x % H;
   const int src = partner ? (n ^ 1) : n;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, c = lane & 3;
-  const int nthreads = blockDim.x;
-  const int bq = blockDim.x / 2;  // 16 query rows per warp
+  const int nthreads = blockDim.x, warps = nthreads >> 5;
+  const int part = warp % FA_PARTS;  // this warp's share of the depth and of O's columns
+  const int bq = 16 * (warps / FA_PARTS);  // query rows of the block
   const int tb0 = blockIdx.y * bq;
-  const int tw0 = tb0 + warp * 16;  // first query row of this warp
+  const int tw0 = tb0 + (warp / FA_PARTS) * 16;  // first query row of this warp
   const int t_lo = tw0 + g, t_hi = tw0 + g + 8;
   const float* kb = k + (size_t)src * Tk * ldkv + h * FA_HD;
   const float* vb = v + (size_t)src * Tk * ldkv + h * FA_HD;
@@ -114,37 +133,31 @@ __global__ void __launch_bounds__(FA_MAX_WARPS * 32) flash_attention_kernel(
   const int warp_end = skip ? min(Tk, tw0 + 16) : Tk;
   const bool warp_rows = tw0 < Tq;
 
-  // q fragments, scaled, split once: qa[kk][*] for depth 8 kk .. 8 kk + 7
-  // (!FA_QSPLIT: the scaled values in qf, split where they are used).
-  Split qa[FA_QSPLIT ? FA_HD / 8 : 1][4];
-  float qf[FA_QSPLIT ? 1 : FA_HD / 8][4];
+  // q fragments of this warp's depth, scaled, split once: qa[kk][*] for
+  // depth FA_WD part + 8 kk .. + 7
+  Split qa[FA_WD / 8][4];
   {
-    const float* q0 = q + ((size_t)n * Tq + min(t_lo, Tq - 1)) * ldq + h * FA_HD + 2 * c;
-    const float* q1 = q + ((size_t)n * Tq + min(t_hi, Tq - 1)) * ldq + h * FA_HD + 2 * c;
+    const int col = h * FA_HD + FA_WD * part + 2 * c;
+    const float* q0 = q + ((size_t)n * Tq + min(t_lo, Tq - 1)) * ldq + col;
+    const float* q1 = q + ((size_t)n * Tq + min(t_hi, Tq - 1)) * ldq + col;
 #pragma unroll
-    for (int kk = 0; kk < FA_HD / 8; ++kk) {
+    for (int kk = 0; kk < FA_WD / 8; ++kk) {
       const float2 a = *reinterpret_cast<const float2*>(q0 + 8 * kk);
       const float2 b = *reinterpret_cast<const float2*>(q1 + 8 * kk);
-      if constexpr (FA_QSPLIT) {
-        qa[kk][0] = split_tf32(a.x * FA_SCALE);
-        qa[kk][2] = split_tf32(a.y * FA_SCALE);
-        qa[kk][1] = split_tf32(b.x * FA_SCALE);
-        qa[kk][3] = split_tf32(b.y * FA_SCALE);
-      } else {
-        qf[kk][0] = a.x * FA_SCALE;
-        qf[kk][2] = a.y * FA_SCALE;
-        qf[kk][1] = b.x * FA_SCALE;
-        qf[kk][3] = b.y * FA_SCALE;
-      }
+      qa[kk][0] = split_tf32(a.x * FA_SCALE);
+      qa[kk][2] = split_tf32(a.y * FA_SCALE);
+      qa[kk][1] = split_tf32(b.x * FA_SCALE);
+      qa[kk][3] = split_tf32(b.y * FA_SCALE);
     }
   }
 
-  float o[FA_HD / 8][4];
+  float o[FA_WD / 8][4];  // this warp's FA_WD output columns
 #pragma unroll
-  for (int j = 0; j < FA_HD / 8; ++j)
+  for (int j = 0; j < FA_WD / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
   float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+  int xstep = 0;  // the pair's exchanges so far (the slot's parity)
 
   for (int kt0 = 0; kt0 < kv_end; kt0 += tile) {
     const int steps = (min(tile, kv_end - kt0) + FA_STEP - 1) / FA_STEP;
@@ -168,32 +181,37 @@ __global__ void __launch_bounds__(FA_MAX_WARPS * 32) flash_attention_kernel(
       cp_async_wait_upto(steps - 1 - s);
       __syncthreads();  // keys of step s (and the bias) are in for every warp
       const int key0 = kt0 + s * FA_STEP;
-      if (!warp_rows || key0 >= warp_end) continue;
+      if (!warp_rows || key0 >= warp_end) continue;  // uniform over a pair
       const int r0 = s * FA_STEP;
 
-      // S = q k^T for 32 keys: 4 n8 tiles, keys key0 + 8 j + {2c, 2c + 1}.
+      // S = q k^T for 32 keys (this warp's depth): 4 n8 tiles, keys key0 +
+      // 8 j + {2c, 2c + 1}.
       float sc[FA_STEP / 8][4];
 #pragma unroll
       for (int j = 0; j < FA_STEP / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < FA_HD / 8; ++kk) {
+      for (int kk = 0; kk < FA_WD / 8; ++kk) {
         Split b[FA_STEP / 8][2];
 #pragma unroll
         for (int j = 0; j < FA_STEP / 8; ++j) {
           const float2 kv = *reinterpret_cast<const float2*>(
-              k_s + (r0 + 8 * j + g) * FA_KS + 8 * kk + 2 * c);
+              k_s + (r0 + 8 * j + g) * FA_KS + FA_WD * part + 8 * kk + 2 * c);
           b[j][0] = split_tf32(kv.x);
           b[j][1] = split_tf32(kv.y);
         }
-        if constexpr (FA_QSPLIT) {
-          mma_3xtf32<1, FA_STEP / 8>(&sc[0][0], qa[kk], &b[0][0]);
-        } else {
-          const Split a[4] = {split_tf32(qf[kk][0]), split_tf32(qf[kk][1]),
-                              split_tf32(qf[kk][2]), split_tf32(qf[kk][3])};
-          mma_3xtf32<1, FA_STEP / 8>(&sc[0][0], a, &b[0][0]);
-        }
+        mma_3xtf32<1, FA_STEP / 8>(&sc[0][0], qa[kk], &b[0][0]);
+      }
+      if constexpr (FA_PARTS == 2) {  // the pair's two partial tiles, summed
+        float* mine = x_s + ((xstep & 1) * warps + warp) * FA_XCH + lane;
+        const float* other = x_s + ((xstep & 1) * warps + (warp ^ 1)) * FA_XCH + lane;
+        ++xstep;
+#pragma unroll
+        for (int i = 0; i < 16; ++i) mine[32 * i] = sc[i >> 2][i & 3];
+        named_barrier(1 + warp / 2, 64);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) sc[i >> 2][i & 3] += other[32 * i];
       }
 
       // Bias, masks and the online softmax of rows t_lo (e = 0, 1) and
@@ -232,7 +250,7 @@ __global__ void __launch_bounds__(FA_MAX_WARPS * 32) flash_attention_kernel(
         l_hi += sc[j][2] + sc[j][3];
       }
 #pragma unroll
-      for (int j = 0; j < FA_HD / 8; ++j) {
+      for (int j = 0; j < FA_WD / 8; ++j) {
         o[j][0] *= al_lo;
         o[j][1] *= al_lo;
         o[j][2] *= al_hi;
@@ -245,14 +263,14 @@ __global__ void __launch_bounds__(FA_MAX_WARPS * 32) flash_attention_kernel(
       for (int j = 0; j < FA_STEP / 8; ++j) {
         const Split a[4] = {split_tf32(sc[j][0]), split_tf32(sc[j][2]),
                             split_tf32(sc[j][1]), split_tf32(sc[j][3])};
-        const float* v0 = v_s + (r0 + 8 * j + 2 * c) * FA_VS + g;
-        Split b[FA_HD / 8][2];
+        const float* v0 = v_s + (r0 + 8 * j + 2 * c) * FA_VS + FA_WD * part + g;
+        Split b[FA_WD / 8][2];
 #pragma unroll
-        for (int jn = 0; jn < FA_HD / 8; ++jn) {
+        for (int jn = 0; jn < FA_WD / 8; ++jn) {
           b[jn][0] = split_tf32(v0[8 * jn]);
           b[jn][1] = split_tf32(v0[FA_VS + 8 * jn]);
         }
-        mma_3xtf32<1, FA_HD / 8>(&o[0][0], a, &b[0][0]);
+        mma_3xtf32<1, FA_WD / 8>(&o[0][0], a, &b[0][0]);
       }
     }
     __syncthreads();  // every warp is done with this tile before the next one
@@ -263,16 +281,17 @@ __global__ void __launch_bounds__(FA_MAX_WARPS * 32) flash_attention_kernel(
   l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
   l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
   const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
+  const int ocol = h * FA_HD + FA_WD * part + 2 * c;
   if (t_lo < Tq) {
-    float* orow = out + ((size_t)n * Tq + t_lo) * ldo + h * FA_HD + 2 * c;
+    float* orow = out + ((size_t)n * Tq + t_lo) * ldo + ocol;
 #pragma unroll
-    for (int j = 0; j < FA_HD / 8; ++j)
+    for (int j = 0; j < FA_WD / 8; ++j)
       *reinterpret_cast<float2*>(orow + 8 * j) = make_float2(o[j][0] * inv_lo, o[j][1] * inv_lo);
   }
   if (t_hi < Tq) {
-    float* orow = out + ((size_t)n * Tq + t_hi) * ldo + h * FA_HD + 2 * c;
+    float* orow = out + ((size_t)n * Tq + t_hi) * ldo + ocol;
 #pragma unroll
-    for (int j = 0; j < FA_HD / 8; ++j)
+    for (int j = 0; j < FA_WD / 8; ++j)
       *reinterpret_cast<float2*>(orow + 8 * j) = make_float2(o[j][2] * inv_hi, o[j][3] * inv_hi);
   }
 }
@@ -309,6 +328,11 @@ __global__ void __launch_bounds__(FA_MAX_WARPS * 32) flash_attention_kernel(
 //   128-byte-swizzled shared memory) and O += P v (m64n64k16), P the
 //   register A operand taken from the score registers once p is rounded,
 //   v the MN-major B operand; nothing of S or P goes to shared memory.
+// - Head widths 16 and 32: the item's q, k and v tiles are the 64-column
+//   tile that holds its head (HPB packed heads, common.cuh; the TMA boxes
+//   and descriptors of width 64); S takes the head's HW / 16 depth steps of
+//   it, O = P v runs over the tile's 64 columns and only the head's HW are
+//   stored (simple: the other columns' products are wasted work).
 // - Head width HD (64 or 128): q, k and v tiles are NH column halves of 64
 //   (one swizzle atom a row each, one TMA box each). S takes HD / 16 depth
 //   steps, the first four from half 0; O is NH m64n64 accumulators, one per
@@ -320,13 +344,13 @@ constexpr int FB_BLOCK = 128;  // the Pallas kernel's largest key block, one rin
 constexpr int FB_BQ = 64;      // query rows per consumer warpgroup
 constexpr int FB_MAX_WG = HD == 64 ? 4 : 2;  // consumer warpgroups
 constexpr int FB_STAGES = 2;
-constexpr uint32_t FB_Q_BYTES = FB_BQ * FA_HD * 2;      // 8 KB a half
-constexpr uint32_t FB_KV_BYTES = FB_BLOCK * FA_HD * 2;  // 16 KB a half, each of k and v
+constexpr uint32_t FB_Q_BYTES = FB_BQ * HD * 2;      // 8 KB a half
+constexpr uint32_t FB_KV_BYTES = FB_BLOCK * HD * 2;  // 16 KB a half, each of k and v
 
 struct FlashBf16Smem {  // at a 1024-byte boundary
-  bf16 q[FB_MAX_WG][2][FB_BQ * FA_HD];
-  bf16 k[FB_STAGES][FB_BLOCK * FA_HD];
-  bf16 v[FB_STAGES][FB_BLOCK * FA_HD];
+  bf16 q[FB_MAX_WG][2][FB_BQ * HD];
+  bf16 k[FB_STAGES][FB_BLOCK * HD];
+  bf16 v[FB_STAGES][FB_BLOCK * HD];
   float bias[FB_MAX_WG][2][FB_BLOCK];  // each warpgroup's key biases, by block parity
   uint64_t kfull[FB_STAGES], vfull[FB_STAGES], empty[FB_STAGES], qfull[FB_MAX_WG][2];
 };
@@ -368,12 +392,12 @@ __global__ void __launch_bounds__(FB_MAX_WG * 128, 1) flash_attention_bf16_kerne
 #pragma unroll
     for (int hh = 0; hh < NH; ++hh)
       tma_load_3d(sm.k[st] + hh * FB_BLOCK * 64, &tk, &sm.kfull[st],
-                  (item % H) * FA_HD + 64 * hh, j0, src);
+                  (item % H) / HPB * HD + 64 * hh, j0, src);
     mbar_arrive_expect_tx(&sm.vfull[st], FB_KV_BYTES);
 #pragma unroll
     for (int hh = 0; hh < NH; ++hh)
       tma_load_3d(sm.v[st] + hh * FB_BLOCK * 64, &tv, &sm.vfull[st],
-                  (item % H) * FA_HD + 64 * hh, j0, src);
+                  (item % H) / HPB * HD + 64 * hh, j0, src);
   };
   auto load_q = [&](int w, int idx) {  // warpgroup w's q tile idx into buffer idx & 1
     const int ws = (qtiles - w + nwg - 1) / nwg;
@@ -382,8 +406,8 @@ __global__ void __launch_bounds__(FB_MAX_WG * 128, 1) flash_attention_bf16_kerne
     mbar_arrive_expect_tx(bar, FB_Q_BYTES);
 #pragma unroll
     for (int hh = 0; hh < NH; ++hh)
-      tma_load_3d(sm.q[w][idx & 1] + hh * FB_BQ * 64, &tq, bar, (item % H) * FA_HD + 64 * hh,
-                  tile * FB_BQ, item / H);
+      tma_load_3d(sm.q[w][idx & 1] + hh * FB_BQ * 64, &tq, bar,
+                  (item % H) / HPB * HD + 64 * hh, tile * FB_BQ, item / H);
   };
 
   if (tid == 0) {
@@ -431,6 +455,9 @@ __global__ void __launch_bounds__(FB_MAX_WG * 128, 1) flash_attention_bf16_kerne
   int it = 0, idx = 0;  // ring position; this warpgroup's q tiles so far
   for (int k = 0; k < my_items; ++k) {
     const int item = item_of(k), n = item / H, h = item % H;
+    // packed heads (HW < 64): the head's first 16-deep step and n8 tile
+    // in its tile
+    const int k0 = (h % HPB) * (HW / 16), j0h = (h % HPB) * (HW / 8);
     for (int pass = 0; pass < passes; ++pass) {
       const int tile = pass * nwg + wg;
       const bool active = tile < qtiles;  // uniform over the warpgroup
@@ -468,9 +495,11 @@ __global__ void __launch_bounds__(FB_MAX_WG * 128, 1) flash_attention_bf16_kerne
           const uint64_t dk = sw128_desc(sm.k[st]);
           wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < FA_HD / 16; ++kk)
-            wgmma_m64n128_ss<0, 0>(sc, desc_add(dq, FB_BQ * 128 * (kk / 4) + 32 * (kk % 4)),
-                                   desc_add(dk, FB_BLOCK * 128 * (kk / 4) + 32 * (kk % 4)), kk);
+          for (int kk = 0; kk < HW / 16; ++kk) {  // the head's depth steps in its tile
+            const int ks = k0 + kk;
+            wgmma_m64n128_ss<0, 0>(sc, desc_add(dq, FB_BQ * 128 * (ks / 4) + 32 * (ks % 4)),
+                                   desc_add(dk, FB_BLOCK * 128 * (ks / 4) + 32 * (ks % 4)), kk);
+          }
           wgmma_commit();
           wgmma_wait<0>();
           fence_regs<64>(sc);
@@ -540,7 +569,7 @@ __global__ void __launch_bounds__(FB_MAX_WG * 128, 1) flash_attention_bf16_kerne
             pa[j >> 1][2 * (j & 1) + 1] = hi;
           }
 #pragma unroll
-          for (int j = 0; j < FA_HD / 8; ++j) {
+          for (int j = 0; j < HD / 8; ++j) {
             o[4 * j] *= al_lo;
             o[4 * j + 1] *= al_lo;
             o[4 * j + 2] *= al_hi;
@@ -574,17 +603,22 @@ __global__ void __launch_bounds__(FB_MAX_WG * 128, 1) flash_attention_bf16_kerne
       l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
       l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
       const float d_lo = fmaxf(l_lo, 1e-30f), d_hi = fmaxf(l_hi, 1e-30f);
+      // the head's columns of O (packed heads: n8 tiles j0h .. j0h + HW / 8 - 1
+      // of the tile; the other heads' columns are P v of this head's P, unused)
+      const int tcol = h / HPB * HD + 2 * c;
       if (t_lo < Tq) {
-        bf16* orow = out + ((size_t)n * Tq + t_lo) * ldo + h * FA_HD + 2 * c;
+        bf16* orow = out + ((size_t)n * Tq + t_lo) * ldo + tcol;
 #pragma unroll
-        for (int j = 0; j < FA_HD / 8; ++j)
-          store2(orow + 8 * j, o[4 * j] / d_lo, o[4 * j + 1] / d_lo);
+        for (int j = 0; j < HD / 8; ++j)
+          if (HPB == 1 || (j >= j0h && j < j0h + HW / 8))
+            store2(orow + 8 * j, o[4 * j] / d_lo, o[4 * j + 1] / d_lo);
       }
       if (t_hi < Tq) {
-        bf16* orow = out + ((size_t)n * Tq + t_hi) * ldo + h * FA_HD + 2 * c;
+        bf16* orow = out + ((size_t)n * Tq + t_hi) * ldo + tcol;
 #pragma unroll
-        for (int j = 0; j < FA_HD / 8; ++j)
-          store2(orow + 8 * j, o[4 * j + 2] / d_hi, o[4 * j + 3] / d_hi);
+        for (int j = 0; j < HD / 8; ++j)
+          if (HPB == 1 || (j >= j0h && j < j0h + HW / 8))
+            store2(orow + 8 * j, o[4 * j + 2] / d_hi, o[4 * j + 3] / d_hi);
       }
     }
   }
@@ -596,17 +630,26 @@ extern "C" int hig_flash_attention(
     const float* q, const float* k, const float* v, const float* mask, float* out,
     int N, int H, int Tq, int Tk, int ldq, int ldkv, int ldo, int partner, int causal,
     void* stream_ptr) {
+  using namespace hig;
   const cudaError_t attr = cudaFuncSetAttribute(
-      hig::flash_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)hig::fa_smem(hig::FA_TILE));
+      flash_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)fa_smem(FA_TILE, FA_MAX_WARPS));
   if (attr != cudaSuccess) return attr;
-  const int tiles = (Tq + 15) / 16;
-  const int warps = tiles < hig::FA_MAX_WARPS ? tiles : hig::FA_MAX_WARPS;
-  const int keys = (Tk + hig::FA_STEP - 1) / hig::FA_STEP * hig::FA_STEP;
-  const int tile = keys < hig::FA_TILE ? keys : hig::FA_TILE;
-  const dim3 grid(N * H, (tiles + warps - 1) / warps);
-  hig::flash_attention_kernel<<<grid, 32 * warps, hig::fa_smem(tile),
-                                static_cast<cudaStream_t>(stream_ptr)>>>(
+  const int tiles = (Tq + 15) / 16;  // 16-row query tiles
+  // query tiles a block: up to FA_MAX_WARPS / FA_PARTS; pairs spread a
+  // sequence's tiles evenly over its blocks
+  constexpr int most = FA_MAX_WARPS / FA_PARTS;
+  int per = tiles < most ? tiles : most;
+  if (FA_PARTS == 2) {
+    const int blocks = (tiles + most - 1) / most;
+    per = (tiles + blocks - 1) / blocks;
+  }
+  const int warps = per * FA_PARTS;
+  const int keys = (Tk + FA_STEP - 1) / FA_STEP * FA_STEP;
+  const int tile = keys < FA_TILE ? keys : FA_TILE;
+  const dim3 grid(N * H, (tiles + per - 1) / per);
+  flash_attention_kernel<<<grid, 32 * warps, fa_smem(tile, warps),
+                           static_cast<cudaStream_t>(stream_ptr)>>>(
       q, k, v, mask, out, H, Tq, Tk, ldq, ldkv, ldo, partner, causal, tile);
   return cudaGetLastError();
 }
@@ -616,7 +659,7 @@ extern "C" int hig_flash_attention_bf16(
     hig::bf16* out, int N, int H, int Tq, int Tk, int ldq, int ldkv, int ldo, int partner,
     int causal, void* stream_ptr) {
   using namespace hig;
-  const int D = H * FA_HD;
+  const int D = H * HW;
   CUtensorMap mq, mk, mv;
   cudaError_t err = make_tile_map(&mq, q, D, Tq, N, ldq, FB_BQ);
   if (err == cudaSuccess) err = make_tile_map(&mk, k, D, Tk, N, ldkv, FB_BLOCK);

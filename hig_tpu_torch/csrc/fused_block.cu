@@ -93,7 +93,10 @@ extern "C" int hig_fused_block(
 
 namespace hig {
 
-// Head width HD (64 or 128; the library's). At 128 phase 0 projects k and
+// Head width HW (16, 32, 64 or 128; the library's): at 16 and 32 a block
+// takes one 64-column tile of HPB packed heads (common.cuh), the width-64
+// kernel with the feature softmax per head and the state zeroed off its
+// block diagonal. At 128 phase 0 projects k and
 // then v in two passes (qkv_core.cuh), E and v are held as two 64-column
 // halves, warpgroup dh builds state rows 64 dh .. + 63 as two m64n64
 // chains (one a half of v), the state is four 64 x 64 tiles, and y is two
@@ -288,10 +291,14 @@ __global__ void __launch_bounds__(QC_THREADS, 1) qkv_core_bf16_kernel(
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int half = 0; half < 2; ++half)
-          *reinterpret_cast<uint32_t*>(state + (wg * NH + lh) * 8192 +
-                                       swz128(16 * wl + g + 8 * half, 8 * j + 2 * c)) =
-              pack_bf16(sacc[lh][4 * j + 2 * half], sacc[lh][4 * j + 2 * half + 1]);
+        for (int half = 0; half < 2; ++half) {
+          const int row = 16 * wl + g + 8 * half, col = 8 * j + 2 * c;
+          // packed heads (HW < 64): zero off the block diagonal
+          *reinterpret_cast<uint32_t*>(state + (wg * NH + lh) * 8192 + swz128(row, col)) =
+              same_head(row, col) ? pack_bf16(sacc[lh][4 * j + 2 * half],
+                                              sacc[lh][4 * j + 2 * half + 1])
+                                  : 0u;
+        }
     fence_proxy_async();
   }
   named_barrier(1, QC_CONSUMERS);

@@ -61,6 +61,9 @@
 // HD / 16 warps, each building 16 rows of the HD x HD state over all HD
 // columns, and a block's query rows split over them; at HD = 128 its
 // shared memory (CORE_BUF, 86 KB) is past the 48 KB of a static array.
+// At head widths 16 and 32 a block takes one 64-column tile of HPB packed
+// heads (common.cuh): the width-64 core, its feature softmax taken per
+// head's lanes, its state zeroed off the block diagonal.
 //
 // Assumptions, checked by the Python wrappers: D % HD == 0 (B1: D % 128 ==
 // 0 and D <= 1024 for the row pass), head dim HD, every pointer 16-byte
@@ -285,7 +288,22 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(const GemmArgs p) {
   }
 }
 
+// Max and sum over the lanes of one packed head: the HW lanes (HW < 64)
+// around this one.
+__device__ __forceinline__ float seg_max(float v) {
+#pragma unroll
+  for (int o = HW / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float seg_sum(float v) {
+#pragma unroll
+  for (int o = HW / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
 // One block per (head, sequence, CORE_BQ query rows): grid (H, N, ceil(Tq / CORE_BQ)).
+// (At HW < 64 a "head" of the grid is one 64-column tile of HPB packed heads.)
 //   k += (1 - mask) * -1e6;  v *= mask              (the keys' mask)
 //   state[d][l] = sum_t softmax_t(k)[t][d] * v[t][l]
 //   y[t] = softmax_d(q[t]) . state
@@ -412,7 +430,9 @@ __global__ void __launch_bounds__(CORE_THREADS) linear_attention_core(
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       const int l = j * 8 + 2 * c;
-      const float z0 = zinv[dr], z1 = zinv[dr + 8];
+      // packed heads (HW < 64): zero off the block diagonal
+      const float z0 = same_head(dr, l) ? zinv[dr] : 0.f;
+      const float z1 = same_head(dr + 8, l) ? zinv[dr + 8] : 0.f;
       *reinterpret_cast<float2*>(state + dr * KS + l) =
           make_float2(acc[j][0] * z0, acc[j][1] * z0);
       *reinterpret_cast<float2*>(state + (dr + 8) * KS + l) =
@@ -429,19 +449,30 @@ __global__ void __launch_bounds__(CORE_THREADS) linear_attention_core(
 #pragma unroll
     for (int j = 0; j < QCOLS; ++j) e[j] = 0.f;
     if (t < Tq) {
-      float mx = qv[i][0];
+      if constexpr (HPB == 1) {
+        float mx = qv[i][0];
 #pragma unroll
-      for (int j = 1; j < QCOLS; ++j) mx = fmaxf(mx, qv[i][j]);
-      mx = warp_max(mx);
-      float sum = 0.f;
+        for (int j = 1; j < QCOLS; ++j) mx = fmaxf(mx, qv[i][j]);
+        mx = warp_max(mx);
+        float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < QCOLS; ++j) {
-        e[j] = expf(qv[i][j] - mx);
-        sum = j == 0 ? e[0] : sum + e[j];
+        for (int j = 0; j < QCOLS; ++j) {
+          e[j] = expf(qv[i][j] - mx);
+          sum = j == 0 ? e[0] : sum + e[j];
+        }
+        const float inv = 1.f / warp_sum(sum);
+#pragma unroll
+        for (int j = 0; j < QCOLS; ++j) e[j] *= inv;
+      } else {
+        // packed heads: column lane + 32 j is in head (lane + 32 j) / HW, so
+        // each head is the HW lanes of one j (HW 32) or of a half-warp (16)
+#pragma unroll
+        for (int j = 0; j < QCOLS; ++j) {
+          const float mx = seg_max(qv[i][j]);
+          e[j] = expf(qv[i][j] - mx);
+          e[j] *= 1.f / seg_sum(e[j]);
+        }
       }
-      const float inv = 1.f / warp_sum(sum);
-#pragma unroll
-      for (int j = 0; j < QCOLS; ++j) e[j] *= inv;
     }
 #pragma unroll
     for (int j = 0; j < QCOLS; ++j) qs[r * QS + lane + 32 * j] = e[j];

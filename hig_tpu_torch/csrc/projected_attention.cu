@@ -116,7 +116,11 @@ extern "C" int hig_projected_attention(
 // them in the whole form's order into the same accumulators. (B2-bf16's
 // online softmax is another order of float32 operations.)
 //
-// Head width HD (64 or 128; the library's). At 128 the k | v projection is
+// Head width HW (16, 32, 64 or 128; the library's): at 16 and 32 a block
+// takes one 64-column tile of HPB packed heads (common.cuh), the width-64
+// kernel with the feature softmax per head and the state zeroed off its
+// block diagonal, in every form (and the float32 form's core likewise,
+// linear_attention.cuh). Tile width HD: at 128 the k | v projection is
 // two passes (qkv_core.cuh); the float32 tiles are [rows][HD]; consumer
 // warp w holds state rows 16 (w % (HD / 16)) .. + 15 and HD / (8 / (HD /
 // 16)) columns (32 at 64, all 128 at 128); y's product takes its output
@@ -208,7 +212,9 @@ __device__ __forceinline__ void pc_store_state(const float (&sacc)[PC_LJ][4], ui
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int d = d0 + g + 8 * (e >> 1), l = l0 + 8 * j + 2 * c + (e & 1), p = d >> 1;
-      const Split s = split_tf32(DIV ? sacc[j][e] / zs[d] : sacc[j][e]);
+      // packed heads (HW < 64): zero off the block diagonal
+      const Split s = same_head(d, l) ? split_tf32(DIV ? sacc[j][e] / zs[d] : sacc[j][e])
+                                      : Split{0u, 0u};
       uint32_t* u = sw + 4 * (p * HD + (l ^ (2 * (p & 3))));
       u[d & 1] = s.hi;
       u[2 + (d & 1)] = s.lo;

@@ -203,13 +203,19 @@ __device__ __forceinline__ void qc_column_stats(const float* ks, int T, int tid,
   named_barrier(1, QC_CONSUMERS);
 }
 
-// q += bq (the head's HD biases, float32 or bfloat16), then softmax over the
-// HD columns of each row of a warpgroup's m64nHD accumulator (hopper.cuh's
-// layout), in place.
+// q += bq (the tile's HD biases, float32 or bfloat16), then softmax over
+// the HW columns of each head of each row of a warpgroup's m64nHD
+// accumulator (hopper.cuh's layout; at HW < 64 the tile's HPB packed heads
+// apart, head s over n8 tiles JS s .. JS s + JS - 1), in place.
 template <typename BiasT>
 __device__ __forceinline__ void qc_feature_softmax(float* qa, const BiasT* bq, int c) {
-  constexpr int J = HD / 8;
-  float mx_lo = -INFINITY, mx_hi = -INFINITY;
+  constexpr int J = HD / 8, JS = J / HPB;  // n8 tiles a row, a head
+  float mx_lo[HPB], mx_hi[HPB], s_lo[HPB], s_hi[HPB];
+#pragma unroll
+  for (int s = 0; s < HPB; ++s) {
+    mx_lo[s] = mx_hi[s] = -INFINITY;
+    s_lo[s] = s_hi[s] = 0.f;
+  }
 #pragma unroll
   for (int j = 0; j < J; ++j) {
     const float2 b = load2(bq + 8 * j + 2 * c);
@@ -217,33 +223,38 @@ __device__ __forceinline__ void qc_feature_softmax(float* qa, const BiasT* bq, i
     qa[4 * j + 1] += b.y;
     qa[4 * j + 2] += b.x;
     qa[4 * j + 3] += b.y;
-    mx_lo = fmaxf(mx_lo, fmaxf(qa[4 * j], qa[4 * j + 1]));
-    mx_hi = fmaxf(mx_hi, fmaxf(qa[4 * j + 2], qa[4 * j + 3]));
+    mx_lo[j / JS] = fmaxf(mx_lo[j / JS], fmaxf(qa[4 * j], qa[4 * j + 1]));
+    mx_hi[j / JS] = fmaxf(mx_hi[j / JS], fmaxf(qa[4 * j + 2], qa[4 * j + 3]));
   }
-  mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
-  mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
-  mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
-  mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
-  float s_lo = 0.f, s_hi = 0.f;
+#pragma unroll
+  for (int s = 0; s < HPB; ++s) {
+    mx_lo[s] = fmaxf(mx_lo[s], __shfl_xor_sync(0xffffffffu, mx_lo[s], 1));
+    mx_lo[s] = fmaxf(mx_lo[s], __shfl_xor_sync(0xffffffffu, mx_lo[s], 2));
+    mx_hi[s] = fmaxf(mx_hi[s], __shfl_xor_sync(0xffffffffu, mx_hi[s], 1));
+    mx_hi[s] = fmaxf(mx_hi[s], __shfl_xor_sync(0xffffffffu, mx_hi[s], 2));
+  }
 #pragma unroll
   for (int j = 0; j < J; ++j) {
-    qa[4 * j] = expf(qa[4 * j] - mx_lo);
-    qa[4 * j + 1] = expf(qa[4 * j + 1] - mx_lo);
-    qa[4 * j + 2] = expf(qa[4 * j + 2] - mx_hi);
-    qa[4 * j + 3] = expf(qa[4 * j + 3] - mx_hi);
-    s_lo += qa[4 * j] + qa[4 * j + 1];
-    s_hi += qa[4 * j + 2] + qa[4 * j + 3];
+    qa[4 * j] = expf(qa[4 * j] - mx_lo[j / JS]);
+    qa[4 * j + 1] = expf(qa[4 * j + 1] - mx_lo[j / JS]);
+    qa[4 * j + 2] = expf(qa[4 * j + 2] - mx_hi[j / JS]);
+    qa[4 * j + 3] = expf(qa[4 * j + 3] - mx_hi[j / JS]);
+    s_lo[j / JS] += qa[4 * j] + qa[4 * j + 1];
+    s_hi[j / JS] += qa[4 * j + 2] + qa[4 * j + 3];
   }
-  s_lo += __shfl_xor_sync(0xffffffffu, s_lo, 1);
-  s_lo += __shfl_xor_sync(0xffffffffu, s_lo, 2);
-  s_hi += __shfl_xor_sync(0xffffffffu, s_hi, 1);
-  s_hi += __shfl_xor_sync(0xffffffffu, s_hi, 2);
+#pragma unroll
+  for (int s = 0; s < HPB; ++s) {
+    s_lo[s] += __shfl_xor_sync(0xffffffffu, s_lo[s], 1);
+    s_lo[s] += __shfl_xor_sync(0xffffffffu, s_lo[s], 2);
+    s_hi[s] += __shfl_xor_sync(0xffffffffu, s_hi[s], 1);
+    s_hi[s] += __shfl_xor_sync(0xffffffffu, s_hi[s], 2);
+  }
 #pragma unroll
   for (int j = 0; j < J; ++j) {
-    qa[4 * j] /= s_lo;
-    qa[4 * j + 1] /= s_lo;
-    qa[4 * j + 2] /= s_hi;
-    qa[4 * j + 3] /= s_hi;
+    qa[4 * j] /= s_lo[j / JS];
+    qa[4 * j + 1] /= s_lo[j / JS];
+    qa[4 * j + 2] /= s_hi[j / JS];
+    qa[4 * j + 3] /= s_hi[j / JS];
   }
 }
 

@@ -6,8 +6,9 @@ Each ``csrc/<name>.cu`` becomes one shared library with a plain C interface,
 source and every header of ``csrc``, so an edited source is rebuilt and a
 built one is reused. The attention sources are built once per head width
 they take (:data:`HEAD_WIDTHS`): the width is the compile-time constant
-``HIG_HD`` of the translation unit, and width 128's library is
-``lib<name>_hd128-<hash>.so``, so each width is one nvcc process of its own.
+``HIG_HD`` of the translation unit, and width w's library (w other than
+64) is ``lib<name>_hd<w>-<hash>.so``, so each width is one nvcc process of
+its own (17 libraries in all).
 Nothing is built when a module is imported: the first wrapper call on a
 CUDA tensor builds its library, and :func:`build_all` builds every library
 at once, one nvcc process per library.
@@ -29,8 +30,9 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("fused_block", "projected_attention", "efficient_attention", "flash_attention",
            "bf16_sum")
-# The head widths each attention kernel is built for (``HIG_HD``), in order.
-HEAD_WIDTHS = (64, 128)
+# The head widths each attention kernel is built for (``HIG_HD``), in order;
+# the first is the unsuffixed library.
+HEAD_WIDTHS = (64, 128, 16, 32)
 WIDTH_SOURCES = ("fused_block", "projected_attention", "efficient_attention", "flash_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -49,6 +49,15 @@ keys of a sequence whose key 0 has mask 1 are skipped: their weight
 exp(−1e6 − max) is exactly 0. q, k and v are read in place from the merged
 bfloat16 q|k|v product. :func:`flash_attention_plain` on bfloat16 inputs
 is its twin, block for block.
+
+Head widths (``csrc/flash_attention.cu``, a library per width). B4 takes
+16, 32 and 64 with one warp per 16 query rows, and 128 with a pair of
+warps per 16 rows, each holding half of q's depth (split into TF32 parts
+once) and half of O's columns, their partial scores summed in shared
+memory so that both run the same online softmax. B4-bf16 takes a 16- or
+32-wide head from the 64-column tile that holds it (4 or 2 heads packed,
+width 64's TMA boxes and descriptors): its depth steps for S, its columns
+of O; so D must be a multiple of 64 there.
 """
 
 from __future__ import annotations

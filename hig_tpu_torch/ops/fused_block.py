@@ -61,8 +61,10 @@ form bit for bit where both run. :func:`fused_attention_block_plain` on
 bfloat16 inputs is its twin with the same rounding points; products of
 rounded values are taken in float32.
 
-Head widths. Every form takes a head width of 64 or 128 (``HEAD_WIDTHS``),
-each from its own build of the library.
+Head widths. Every form takes a head width of 16, 32, 64 or 128
+(``HEAD_WIDTHS``), each from its own build of the library; at 16 and 32 a
+block of the kernel takes one 64-column tile of 64 // hd packed heads
+(``csrc/common.cuh``), so the whole form's rows are width 64's.
 """
 
 from __future__ import annotations
@@ -80,6 +82,7 @@ from hig_tpu_torch.ops.pallas_attention import (
     check_cuda_width,
     efficient_attention,
     round_bf16,
+    tile_width,
     whole_max_t,
     whole_or_stream,
 )
@@ -232,7 +235,8 @@ def launch_bf16(tensors, N: int, T: int, D: int, interaction: bool, stream: int,
     nothing."""
     if form == "stream":
         x = tensors[0]
-        rows = (N * (D // hd), -(-T // 64) * 64, hd)
+        tw = tile_width(hd)
+        rows = (N * (D // tw), -(-T // 64) * 64, tw)
         tensors = (*tensors, torch.empty(rows, device=x.device, dtype=torch.float32),
                    torch.empty(rows, device=x.device, dtype=torch.bfloat16))
     _build.launch("fused_block", tensors, (N, T, D, int(interaction), part), stream,

@@ -124,8 +124,11 @@ from hig_tpu_torch.ops.bf16_sum import bf16_sum
 from hig_tpu_torch.utils.graphs import counted
 
 # The head widths the CUDA kernels take: every kernel library is built once
-# for each (``_build.HEAD_WIDTHS``), its tile shapes set by the width.
+# for each (``_build.HEAD_WIDTHS``), its tile shapes set by the width. Heads
+# of 16 and 32 are packed 64 // hd side by side into the 64-column tiles of
+# width 64 (csrc/common.cuh), so there D must be a multiple of TILE.
 HEAD_WIDTHS = _build.HEAD_WIDTHS
+TILE = 64
 D_CHUNK = 64  # the bfloat16 projections' TMA chunk of the input width
 MASK_BIAS = -1000000.0
 # The whole forms of B1-bf16, B2-bf16a and B3-bf16 hold one sequence's keys
@@ -137,19 +140,31 @@ MASK_BIAS = -1000000.0
 # entry). Past it the form's streaming twin runs ("stream", equal to the
 # whole form bit for bit where both run). B2-bf16 streams at any T.
 FORMS = ("whole", "stream")
-WHOLE_MAX_T = {64: 320, 128: 128}
+WHOLE_MAX_T = {16: 320, 32: 320, 64: 320, 128: 128}
+
+
+def widths_named() -> str:
+    """The kernels' head widths, as an error message names them."""
+    *rest, last = sorted(HEAD_WIDTHS)
+    return f"{', '.join(map(str, rest))} and {last}"
 
 
 def check_width(hd: int) -> None:
     if hd not in HEAD_WIDTHS:
-        raise ValueError(f"the CUDA kernels take head widths {' and '.join(map(str, HEAD_WIDTHS))}; "
-                         f"got {hd}")
+        raise ValueError(f"the CUDA kernels take head widths {widths_named()}; got {hd}")
+
+
+def tile_width(hd: int) -> int:
+    """The columns of the kernels' tile at head width ``hd``: the head's
+    own from 64, else the 64 of :data:`TILE` packed heads."""
+    return max(hd, TILE)
 
 
 def whole_max_t(hd: int) -> int:
     """The most rows of a sequence that the whole forms of B1-bf16,
-    B2-bf16a and B3-bf16 take at head width ``hd``: 320 at width 64, 128
-    at 128 (other widths raise)."""
+    B2-bf16a and B3-bf16 take at head width ``hd``: 320 at widths 16, 32
+    and 64 (one 64-column tile's layout), 128 at 128 (other widths
+    raise)."""
     check_width(hd)
     return WHOLE_MAX_T[hd]
 
@@ -266,12 +281,17 @@ def check_cuda_operand(name: str, t: torch.Tensor, shape=None, dtype=torch.float
 
 def check_cuda_width(D: int, num_heads: int) -> int:
     """The head width D / num_heads, which the CUDA kernels must take
-    (:data:`HEAD_WIDTHS`); raises, naming them, for any other."""
+    (:data:`HEAD_WIDTHS`); raises, naming them, for any other, and at
+    widths 16 and 32 for a D that is no multiple of :data:`TILE` (the
+    packed heads' tile)."""
     if D % num_heads or D // num_heads not in HEAD_WIDTHS:
         raise ValueError(
-            f"the CUDA kernels take head widths {' and '.join(map(str, HEAD_WIDTHS))}; "
+            f"the CUDA kernels take head widths {widths_named()}; "
             f"got D={D}, heads={num_heads}"
         )
+    if D % TILE:
+        raise ValueError(f"at head width {D // num_heads} the CUDA kernels pack heads into "
+                         f"{TILE}-column tiles: D must be a multiple of {TILE}, got {D}")
     return D // num_heads
 
 
@@ -368,8 +388,9 @@ def _launch_projected(q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, hd: int,
             raise ValueError(f"B2-bf16a has no form {form!r} at T={T}, head width {hd}")
         pieces = torch.empty((3, 3 * Dout, D), device=q_src.device, dtype=torch.bfloat16)
         tensors = (q_src, kv_src, wq, bq, wk, bk, wv, bv, mask, pieces, out)
-        if form == "stream":  # the float32 k and v rows of each (sequence, head)
-            rows = (N * (Dout // hd), -(-T // 64) * 64, hd)
+        if form == "stream":  # the float32 k and v rows of each (sequence, tile)
+            tw = tile_width(hd)
+            rows = (N * (Dout // tw), -(-T // 64) * 64, tw)
             tensors += tuple(torch.empty(rows, device=q_src.device) for _ in "kv")
         _build.launch("projected_attention", tensors, (N, T, D, Dout), stream,
                       entry="projected_attention_bf16a" + ("_stream" if form == "stream" else ""),
@@ -405,7 +426,7 @@ def fused_projected_attention(q_src, kv_src, wq, bq, wk, bk, wv, bv,
 
     q_src (..., T, D) and kv_src (..., T, D), already normalized; weights in
     torch Linear layout (out, in), (Dout, D) with Dout = hd · num_heads, hd
-    64 or 128 (:data:`HEAD_WIDTHS`): the
+    16, 32, 64 or 128 (:data:`HEAD_WIDTHS`; Dout a multiple of 64): the
     square model's (D, D), or a tensor-parallel rank's own heads, (D / S,
     D) at num_heads / S heads (the rectangular form); key_mask broadcastable
     to (..., T), the mask of kv_src's tokens. Returns the pre-gate output

@@ -131,8 +131,16 @@ B3-bf16 also past their whole forms' 128 rows, B2-bf16a at T = 91 and
 and 600 rows; each streaming form (and B3-bf16's) equal to its whole form
 bit for bit at T = 1, 91, 196 and 320 (width 64) and 1, 65 and 128 (width
 128); the whole forms' row caps of Python's routers equal the kernels';
-widths 32 and 512 / 6 raise, naming 64 and 128; the ordered sum at 1025
-and 4096 terms.
+widths 256 and 512 / 6 raise, naming 16, 32, 64 and 128; the ordered sum
+at 1025 and 4096 terms.
+
+Head widths 16 and 32 (32 and 16 heads at D = 512, packed 4 and 2 to a
+64-column tile): every form in float32 and bfloat16 against its plain
+version or twin under the same gates (B1-bf16 and B3-bf16 also past 320
+rows, B2-bf16a at T = 91 and 394), the streaming forms bit for bit with
+the whole forms at T = 1, 91 and 320, the routers' row caps equal the
+kernels'; B4 at head width 128 (warp pairs) at 91, 196 and 394 rows,
+self, partner and causal.
 """
 
 import dataclasses
@@ -327,14 +335,18 @@ def test_efficient_attention_kernel(cuda, Tk):
     assert_close(got, efficient_attention(*args))
 
 
+WIDTHS_NAMED = "16, 32, 64 and 128"
+
+
 def test_kernels_refuse_unsupported_shapes(cuda):
-    """Head widths other than 64 and 128 (32, and 512 / 6 heads: no width)
-    raise, naming the widths taken; so do float64 and strided rows."""
+    """Head widths other than 16, 32, 64 and 128 (256, and 512 / 6 heads:
+    no width) raise, naming the widths taken; so do float64 and strided
+    rows."""
     w, x, mask, scale, shift = _inputs(cuda)
-    for heads in (16, 6):  # head width 32; D not a multiple of the heads
-        with pytest.raises(ValueError, match="64 and 128"):
+    for heads in (2, 6):  # head width 256; D not a multiple of the heads
+        with pytest.raises(ValueError, match=WIDTHS_NAMED):
             fused_attention_block(x, mask, scale, shift, w, heads)
-        with pytest.raises(ValueError, match="64 and 128"):
+        with pytest.raises(ValueError, match=WIDTHS_NAMED):
             fused_projected_attention(x, x, w.wq, w.bq, w.wk, w.bk, w.wv, w.bv, heads)
     with pytest.raises(ValueError):  # not contiguous
         fused_attention_block(x.transpose(0, 1), mask, scale, shift, w, H)
@@ -342,8 +354,8 @@ def test_kernels_refuse_unsupported_shapes(cuda):
         fused_projected_attention(x.double(), x.double(), w.wq, w.bq, w.wk, w.bk,
                                   w.wv, w.bv, H)
     for kernel in (flash_attention, fused_efficient_attention):
-        with pytest.raises(ValueError, match="64 and 128"):  # head width 32
-            kernel(x, x, x, 16, mask)
+        with pytest.raises(ValueError, match=WIDTHS_NAMED):  # head width 256
+            kernel(x, x, x, 2, mask)
         with pytest.raises(ValueError):  # float64
             kernel(x.double(), x.double(), x.double(), H, mask)
         with pytest.raises(ValueError):  # rows not evenly spaced
@@ -451,6 +463,23 @@ BF16_CASES = {
     "b4_partner_t196_hd128": ("b4", "partner", 196, N_PAIRS, D // 128),
     "b4_causal_hd128": ("b4", "causal", T, N_PAIRS, D // 128),
 }
+# head widths 16 and 32 (32 and 16 heads at D = 512, packed 4 and 2 to a
+# 64-column tile): every form, B1-bf16's streaming form past 320 rows,
+# B3-bf16's past 320 queries and keys
+for _hd in (16, 32):
+    BF16_CASES.update({f"{name}_hd{_hd}": (*case, D // _hd) for name, case in {
+        "b1_self": ("b1", "self", T, N_PAIRS),
+        "b1_interaction": ("b1", "interaction", T, N_PAIRS),
+        "b1_self_t394": ("b1", "self", 394, N_PAIRS),
+        "b2_self": ("b2", "self", T, N_PAIRS),
+        "b2_partner_t196": ("b2", "partner", 196, N_PAIRS),
+        "b3_self": ("b3", "self", T, N_PAIRS),
+        "b3_tq91_tk77": ("b3", "tq_tk77", T, N_PAIRS),
+        "b3_self_t394": ("b3", "self", 394, N_PAIRS),
+        "b4_self": ("b4", "self", T, N_PAIRS),
+        "b4_partner_t196": ("b4", "partner", 196, N_PAIRS),
+        "b4_causal": ("b4", "causal", T, N_PAIRS),
+    }.items()})
 
 
 @pytest.mark.parametrize("case", list(BF16_CASES))
@@ -955,7 +984,10 @@ MIXED_SHAPES = {"serve": (T, N_PAIRS), "label": (T, 128), "eval": (196, 52),
                 # its streaming form past the whole form's rows
                 "t394": (394, N_PAIRS), "t600": (600, N_PAIRS),
                 # head width 128: the whole form, and streaming past 128 rows
-                "serve_hd128": (T, N_PAIRS, D // 128), "t197_hd128": (197, N_PAIRS, D // 128)}
+                "serve_hd128": (T, N_PAIRS, D // 128), "t197_hd128": (197, N_PAIRS, D // 128),
+                # widths 16 and 32: the whole form, and streaming past 320 rows
+                "serve_hd16": (T, N_PAIRS, D // 16), "t394_hd16": (394, N_PAIRS, D // 16),
+                "serve_hd32": (T, N_PAIRS, D // 32), "t394_hd32": (394, N_PAIRS, D // 32)}
 
 
 @pytest.mark.parametrize("same_source", [True, False], ids=["self", "partner"])
@@ -1040,31 +1072,66 @@ def test_weight_split_kernel_is_its_plain_version(cuda):
 H128 = D // 128  # 4 heads of 128
 
 
-@pytest.mark.parametrize("case", ["b1_self", "b1_interaction", "b2_self", "b2_partner",
-                                  "b3_t91", "b3_tk77", "b4_self", "b4_partner", "b4_causal",
-                                  "b4_tq_ne_tk", "b4_tk300"])
+FLOAT32_WIDTH_CASES = ["b1_self", "b1_interaction", "b2_self", "b2_partner", "b3_t91",
+                       "b3_tk77", "b4_self", "b4_partner", "b4_causal", "b4_tq_ne_tk",
+                       "b4_tk300"]
+
+
+@pytest.mark.parametrize("case", FLOAT32_WIDTH_CASES)
 def test_float32_kernels_at_head_width_128(cuda, case):
     """B1, B2, B3 and B4 in float32 at head width 128 (the library built
     with HIG_HD = 128), one counted launch each, within TOL and REL_TOL of
     their plain versions at the serving shape (B4 also over 300 keys, past
     its shared-memory tile of 128)."""
+    float32_kernel_case(cuda, case, H128)
+
+
+@pytest.mark.parametrize("hd", [16, 32])
+@pytest.mark.parametrize("case", FLOAT32_WIDTH_CASES)
+def test_float32_kernels_at_narrow_head_widths(cuda, case, hd):
+    """The same at head widths 16 and 32 (32 and 16 heads at D = 512; B4
+    over 300 keys, past its tile of 256)."""
+    float32_kernel_case(cuda, case, D // hd)
+
+
+@pytest.mark.parametrize("variant", ["self", "partner", "causal"])
+@pytest.mark.parametrize("t", [T, 196, 394])
+def test_b4_pairs_at_head_width_128(cuda, t, variant):
+    """B4 at head width 128 gives each 16-row query tile a pair of warps
+    that sum their partial scores in shared memory: at 91, 196 and 394 rows
+    (over one, two and four tiles of 128 resident keys), self, partner and
+    causal, within TOL and REL_TOL of its plain version."""
+    w, x, mask, _, _ = _inputs(cuda, t)
+    q, k, v = torch.nn.functional.linear(x, torch.cat([w.wq, w.wk, w.wv]),
+                                         torch.cat([w.bq, w.bk, w.bv])).chunk(3, dim=-1)
+    args = (q, k, v, H128, mask, variant == "causal", variant == "partner")
+    before = flash_attention.launches
+    got = flash_attention(*args)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert_close(got, flash_attention_plain(*args))
+
+
+def float32_kernel_case(cuda, case: str, heads: int) -> None:
+    """One float32 kernel case of FLOAT32_WIDTH_CASES at ``heads`` heads of
+    D: a counted launch within TOL and REL_TOL of the plain version."""
     w, x, mask, scale, shift = _inputs(cuda)
     F = torch.nn.functional
     q, k, v = F.linear(x, torch.cat([w.wq, w.wk, w.wv]),
                        torch.cat([w.bq, w.bk, w.bv])).chunk(3, dim=-1)
     if case.startswith("b1"):
         kernel, plain = fused_attention_block, fused_attention_block_plain
-        args = (x, mask, scale, shift, w, H128, case == "b1_interaction")
+        args = (x, mask, scale, shift, w, heads, case == "b1_interaction")
     elif case.startswith("b2"):
         kernel, plain = fused_projected_attention, fused_projected_attention_plain
         xn = F.layer_norm(x, (D,), w.ln_g, w.ln_b, 1e-6)
         kv, kmask = (xn, mask) if case == "b2_self" else (xn.flip(1).contiguous(),
                                                          mask.flip(1).contiguous())
-        args = (xn, kv, w.wq, w.bq, w.wk, w.bk, w.wv, w.bv, H128, kmask)
+        args = (xn, kv, w.wq, w.bq, w.wk, w.bk, w.wv, w.bv, heads, kmask)
     elif case.startswith("b3"):
         kernel, plain = fused_efficient_attention, efficient_attention
         tk = 77 if case == "b3_tk77" else T
-        args = (q.contiguous(), k[..., :tk, :].contiguous(), v[..., :tk, :].contiguous(), H128,
+        args = (q.contiguous(), k[..., :tk, :].contiguous(), v[..., :tk, :].contiguous(), heads,
                 mask[..., :tk].contiguous())
     else:
         kernel, plain = flash_attention, flash_attention_plain
@@ -1074,7 +1141,7 @@ def test_float32_kernels_at_head_width_128(cuda, case):
             mask = (torch.arange(300, device=cuda) < 250).float().expand(N_PAIRS, 2, 300)
         elif case == "b4_tq_ne_tk":
             k, v, mask = k[..., :77, :].contiguous(), v[..., :77, :].contiguous(), mask[..., :77]
-        args = (q, k, v, H128, mask, case == "b4_causal", case == "b4_partner")
+        args = (q, k, v, heads, mask, case == "b4_causal", case == "b4_partner")
     before = kernel.launches
     got = kernel(*args)
     torch.cuda.synchronize()
@@ -1086,7 +1153,8 @@ def test_float32_kernels_at_head_width_128(cuda, case):
 # lengths and at each width's cap, one tile short of it, and T = 1
 STREAM_EQUAL_CASES = [(f, hd, t) for f in ("b1_self", "b1_interaction", "b2a", "b3")
                       for hd, t in ((64, 1), (64, T), (64, 196), (64, 320), (128, 1),
-                                    (128, 65), (128, 128))]
+                                    (128, 65), (128, 128), (16, 1), (16, T), (16, 320),
+                                    (32, 1), (32, T), (32, 320))]
 
 
 @pytest.mark.parametrize("form,hd,t", STREAM_EQUAL_CASES,
@@ -1123,7 +1191,7 @@ def test_streaming_forms_are_the_whole_forms(cuda_bf16, form, hd, t):
     assert torch.equal(whole, stream)
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 16, 32])
 def test_whole_form_rows_are_the_kernels(cuda, hd):
     """``whole_max_t`` (the routers' table, WHOLE_MAX_T) is each kernel's
     own (``hig_*_max_t`` of the width's library, from its layout)."""

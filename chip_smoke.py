@@ -1076,6 +1076,10 @@ def check_flash_attention(w, x, mask, failures) -> dict:
             "gflop": flops / 1e9, "mbytes": nbytes / 1e6, "bound_ms": b_ms, "bound_by": b_by,
             "bound_kind": b_kind,
         }
+        if name == "self":  # beside it, the library's attention without the mask
+            out[name]["library_unmasked_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(*sdpa_args[:3]))
+            out[name]["library_unmasked_backend"] = sdpa_backend(*sdpa_args[:3], None)
     err = max(c["max_abs_err"] for c in out.values())
     print(json.dumps({"phase": "kernel", "kernel": "flash_attention",
                       "shape": [N, Tq, D, HEADS], "tol": KERNEL_TOL, "cases": out}), flush=True)
@@ -1089,6 +1093,7 @@ def check_flash_attention(w, x, mask, failures) -> dict:
         "bound_ms": path[0]["bound_ms"], "bound_by": path[0]["bound_by"],
         "bound_kind": path[0]["bound_kind"],
         "library_ms": max(c["library_ms"] for c in path),
+        "library_unmasked_ms": out["self"]["library_unmasked_ms"],
     }
 
 
@@ -2227,9 +2232,11 @@ PEAK_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores (H100 SXM data sheet)
 MIXED_FORM = "projected_attention_bf16a"
 # B3-bf16's lazy forms (LAZY_KNORM), counted in ``launches_bf16_lazy``
 LAZY_FORM = "efficient_attention_bf16_lazy"
-# B3-bf16's streaming form, past 320 rows (``b3_bf16_form``), counted in
-# ``launches_bf16`` with the whole form
+# B3-bf16's streaming form, past its whole form's rows (``b3_bf16_form``),
+# counted in ``launches_bf16_stream``
 STREAM_FORM = "efficient_attention_bf16_stream"
+# B2's rectangular form (a --tp rank's heads), counted in ``launches_rect``
+RECT_FORM = "projected_attention_rect"
 # B1-bf16's and B2-bf16a's streaming forms, past their whole forms' rows
 # (``whole_or_stream``), each counted apart: form → (wrapper, counter)
 STREAM_FORMS = {"fused_block_bf16_stream": ("fused_block", "launches_bf16_stream"),
@@ -2260,12 +2267,15 @@ def bound_parts(parts, nbytes: float) -> tuple[float, str, str]:
 
 def bf16_counts() -> dict:
     """Launch counts of every form: the float32 kernels', the bfloat16
-    forms', B2-bf16a's and the streaming forms of B1-bf16 and B2-bf16a."""
+    forms', B2-bf16a's, the streaming forms of B1-bf16, B2-bf16a and
+    B3-bf16 and B2's rectangular form."""
     kernels = wrappers()
     counts = {name: w.launches for name, w in kernels.items()}
     counts.update({form: kernels[base].launches_bf16 for form, base in BF16_FORMS.items()})
     counts[MIXED_FORM] = kernels["projected_attention"].launches_mixed
     counts[LAZY_FORM] = kernels["efficient_attention"].launches_bf16_lazy
+    counts[STREAM_FORM] = kernels["efficient_attention"].launches_bf16_stream
+    counts[RECT_FORM] = kernels["projected_attention"].launches_rect
     counts.update({form: getattr(kernels[base], attr)
                    for form, (base, attr) in STREAM_FORMS.items()})
     return counts
@@ -2276,7 +2286,7 @@ def reset_counts() -> None:
 
     for w in (*wrappers().values(), bf16_sum):
         for attr in ("launches", "launches_bf16", "launches_mixed", "launches_bf16_lazy",
-                     "launches_bf16_stream", "launches_mixed_stream"):
+                     "launches_bf16_stream", "launches_mixed_stream", "launches_rect"):
             if hasattr(w, attr):
                 setattr(w, attr, 0)
 
@@ -2390,8 +2400,12 @@ def b1_bf16_launch_ms(x, mask, scale, shift, w, heads, interaction) -> dict:
 
 
 def bf16_row(name, source, replaces, shape, cases, parts, nbytes, library=None) -> dict:
-    """Print the kernel's line and return its row: the slower case's time."""
+    """Print the kernel's line and return its row: the slower case's time,
+    and the least rms ratio of its planted controls (each held to fail)."""
     b_ms, b_by, b_kind = bound_parts(parts, nbytes)
+    controls = [r for c in cases.values()
+                for r in [*c.get("controls_rms_ratio", {}).values(), c.get("control_rms_ratio")]
+                if r is not None]
     print(json.dumps({"phase": "kernel_bf16", "kernel": name, "shape": shape, "cases": cases,
                       "gflop": sum(f for f, _ in parts) / 1e9, "mbytes": nbytes / 1e6,
                       "bound_us": b_ms * 1e3, "bound_by": b_by, "bound_kind": b_kind,
@@ -2402,7 +2416,8 @@ def bf16_row(name, source, replaces, shape, cases, parts, nbytes, library=None) 
             "ms": max(c["ms"] for c in cases.values()),
             "plain_ms": max(c["plain_ms"] for c in cases.values()),
             "bound_ms": b_ms, "bound_by": b_by, "bound_kind": b_kind,
-            "library_ms": (library or {}).get("library_ms")}
+            "library_ms": (library or {}).get("library_ms"),
+            "controls_min_rms_ratio": min(controls, default=None)}
 
 
 def check_projected_attention_bf16(w, x, mask, failures) -> dict:
@@ -4469,7 +4484,8 @@ def single_transformer_step_gate(device, failures) -> dict:
 
     reset_counts()
     kernel = route(None, device)
-    launches = fused_efficient_attention.launches_bf16
+    launches = fused_efficient_attention.launches_bf16_stream
+    whole = fused_efficient_attention.launches_bf16
     plain = route(None, device, plain_blocks())
     control = route(None, device, use_pallas_forward())
     plain32 = route("float32", device, plain_blocks())
@@ -4480,12 +4496,14 @@ def single_transformer_step_gate(device, failures) -> dict:
                 "grad_ratio": tree_rms_ratio(got[1], want[1], want32[1])}
 
     row = {"window": ST_WINDOW, "merged_rows": 2 * Tw, "pairs": ST_PAIRS, "layers": 1,
-           "b3_bf16_launches": launches, "loss_card": kernel[0], "loss_card_plain": plain[0],
+           "b3_bf16_stream_launches": launches, "b3_bf16_whole_launches": whole,
+           "loss_card": kernel[0], "loss_card_plain": plain[0],
            "loss_cpu_twin": twin[0], "loss_cpu_f32": twin32[0],
            "vs_plain_route": reading(kernel, plain, plain32),
            "control_vs_plain_route": reading(control, plain, plain32), "lim": BF16_TRAIN_RMS,
            "vs_cpu_twin": reading(kernel, twin, twin32), "cpu_twin_lim": BF16_ROUTE_RMS}
-    fail_if(failures, launches < 1 or max(row["vs_plain_route"].values()) > BF16_TRAIN_RMS,
+    fail_if(failures, launches < 1 or whole or
+            max(row["vs_plain_route"].values()) > BF16_TRAIN_RMS,
             f"bf16 --single_transformer window {ST_WINDOW} step against the plain route {row}")
     fail_if(failures, max(row["control_vs_plain_route"].values()) <= BF16_TRAIN_RMS,
             f"bf16 --single_transformer window {ST_WINDOW}: the control passes {row}")
@@ -4541,11 +4559,9 @@ def phase_geometry(device, failures, smi: str, tmp: str) -> tuple[dict, dict, di
     print(json.dumps({"phase": "geometry", "run": "single_transformer_bf16_w196", **step}),
           flush=True)
     launches = merge_counts({k: v for k, v in counts.items() if k != BF16_SUM}, vis_counts)
-    launches["efficient_attention_bf16"] = launches.get("efficient_attention_bf16", 0) \
-        + step["b3_bf16_launches"]
     print(json.dumps({"phase": "geometry", "launches": launches,
                       "seconds": time.perf_counter() - t_phase}), flush=True)
-    return launches, forms, lazy_row, stream_form_row(forms, step["b3_bf16_launches"])
+    return launches, forms, lazy_row, stream_form_row(forms, step["b3_bf16_stream_launches"])
 
 
 # Phase 15: the rest of Queue A. Distillation from phase 7's cfg_supervised
@@ -5688,7 +5704,7 @@ def phase_parallel(device, failures, smi: str, ranks: dict) -> dict:
                     "launches_rect": [r["launches_rect"] for r in tp]}
     fail_if(failures, not (np.isfinite(got).all() and rel <= SAMPLER_REL_TOL),
             f"parallel tp: vs one rank {rel}")
-    others = [{k: v for k, v in r["counts"].items() if v} for r in tp]
+    others = [{k: v for k, v in r["counts"].items() if v and k != RECT_FORM} for r in tp]
     fail_if(failures, any(r["launches_rect"] != LAUNCHES_PER_STEP * PAR_TP_STEPS or o for r, o in
                           zip(tp, others)),
             f"parallel tp: launches {report['tp']['launches_rect']}, others {others}")
@@ -5836,14 +5852,33 @@ SUM_LEVEL_TERMS = (1025, 4096)  # the ordered sum past one launch's 32 x 32 term
 
 
 @contextlib.contextmanager
-def heads_of(heads: int):
-    """The kernel checks (which read HEADS) at ``heads`` heads of D."""
-    global HEADS
-    saved, HEADS = HEADS, heads
+def heads_of(heads: int, width: int | None = None):
+    """The kernel checks (which read HEADS and D) at ``heads`` heads of D,
+    or of ``width``."""
+    global HEADS, D
+    saved, HEADS, D = (HEADS, D), heads, width or D
     try:
         yield
     finally:
-        HEADS = saved
+        HEADS, D = saved
+
+
+# every form's check (phase 3's and phase 10's), by form
+FORM_CHECKS = {"fused_block": check_fused_block, "projected_attention": check_projected_attention,
+               "efficient_attention": check_efficient_attention,
+               "flash_attention": check_flash_attention,
+               "fused_block_bf16": check_fused_block_bf16,
+               "projected_attention_bf16": check_projected_attention_bf16,
+               MIXED_FORM: check_projected_attention_bf16a,
+               "efficient_attention_bf16": check_efficient_attention_bf16,
+               "flash_attention_bf16": check_flash_attention_bf16}
+
+
+def run_check(name: str, inputs: tuple, failures) -> dict:
+    """FORM_CHECKS[name] on ``block_inputs``' inputs (B1's forms take all)."""
+    check = FORM_CHECKS[name]
+    return check(*inputs, failures) if name.startswith("fused_block") else \
+        check(*inputs[:3], failures)
 
 
 def width_kernel_rows(device, failures, hd: int) -> dict:
@@ -5851,20 +5886,11 @@ def width_kernel_rows(device, failures, hd: int) -> dict:
     shape (16 x 91, D = 512) against its plain version under its phase-3
     or phase-10 gates, timed beside the plain version, with its bound (B4
     and B4-bf16 beside SDPA): rows "<form>_hd<hd>"."""
-    checks = {"fused_block": check_fused_block, "projected_attention": check_projected_attention,
-              "efficient_attention": check_efficient_attention,
-              "flash_attention": check_flash_attention,
-              "fused_block_bf16": check_fused_block_bf16,
-              "projected_attention_bf16": check_projected_attention_bf16,
-              MIXED_FORM: check_projected_attention_bf16a,
-              "efficient_attention_bf16": check_efficient_attention_bf16,
-              "flash_attention_bf16": check_flash_attention_bf16}
     inputs = block_inputs(device)
     rows = {}
     with heads_of(D // hd):
-        for name, check in checks.items():
-            row = check(*inputs, failures) if name.startswith("fused_block") else \
-                check(*inputs[:3], failures)
+        for name in FORM_CHECKS:
+            row = run_check(name, inputs, failures)
             row["name"] = f"{name}_hd{hd}"
             row["replaces"] += f" (head width {hd})"
             rows[row["name"]] = row
@@ -6050,7 +6076,7 @@ def head_width_launches(rows: dict, path: tuple) -> None:
     launches, long_counts = path
     for name, row in rows.items():
         if name.endswith("_hd128"):
-            row["launches"] = launches.get(name[:-len("_hd128")], 0)
+            row["launches"] = launches[name[:-len("_hd128")]]
     for name in STREAM_FORMS:
         rows[name]["launches"] = launches.get(name, 0) + long_counts.get(name, 0)
 
@@ -6088,6 +6114,13 @@ RESULTS_STEP_RUNS = {"pit_hd16": ({}, "projected_attention"),
                      "pit_hd16_bf16": ({"compute_dtype": "bfloat16"},
                                        "efficient_attention_bf16")}
 RESULTS_STEPS = 2
+# The bfloat16 forms on its path (DDIM-50 on fused, projected and no_eff; the
+# PIT step) at its own shape, 16 sequences x 91 of D = 128 in 8 heads, against
+# their twins beside their planted controls: there the serving gate
+# (BF16_ROUTE_RMS) reads the control route as it reads the kernels', so these
+# rows are what tells the kernels' roundings apart at that shape.
+RESULTS_BF16_CHECKS = ("fused_block_bf16", "projected_attention_bf16",
+                       "efficient_attention_bf16", "flash_attention_bf16")
 # Width 32, the roadmap's example of the fault: latent 256 with 8 heads, every
 # other field the flagship's; the denoiser, and DDIM-50 fused in float32 and
 # bfloat16
@@ -6131,6 +6164,24 @@ def narrow_kernel_rows(device, failures, hd: int) -> dict:
     rows[f"fused_block_bf16_stream{tag}"]["forms_equal"] = stream_forms_equal(
         device, failures, ((hd, 320),), timed=False)
     return rows
+
+
+def results_shape_bf16(device, failures) -> dict:
+    """RESULTS_BF16_CHECKS at the results/ model's shape (phase 10's checks,
+    their controls held to fail): {form: its readings}, for the form's
+    "_hd16" row."""
+    from hig_tpu_torch.config import load_opt_txt
+
+    run = load_opt_txt(RESULTS_OPT)
+    out = {}
+    with heads_of(run.num_heads, run.latent_dim):
+        inputs = block_inputs(device)
+        for name in RESULTS_BF16_CHECKS:
+            row = run_check(name, inputs, failures)
+            out[name] = {"shape": [2 * N_PAIRS, T, D, HEADS],
+                         **{k: row[k] for k in ("max_abs_err", "rms_ratio",
+                                                "controls_min_rms_ratio")}}
+    return out
 
 
 def results_opt(tmp: str, name: str, changes: dict) -> str:
@@ -6351,7 +6402,8 @@ def width32_path(device, failures, smi: str) -> dict:
 def b4_hd128_eval_shape(device, row: dict) -> None:
     """B4 at width 128 at the evaluation shape (104 x 196, self) beside SDPA
     on the same inputs (its backend and its error against B4's plain
-    version), into ``row`` under "eval_shape"."""
+    version; and SDPA without the mask, timed only), into ``row`` under
+    "eval_shape"."""
     from hig_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
     F = torch.nn.functional
@@ -6374,6 +6426,8 @@ def b4_hd128_eval_shape(device, row: dict) -> None:
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(*sdpa,
                                                                          attn_mask=bias)),
             "library_backend": sdpa_backend(*sdpa, bias),
+            "library_unmasked_ms": time_ms(lambda: F.scaled_dot_product_attention(*sdpa)),
+            "library_unmasked_backend": sdpa_backend(*sdpa, None),
             "library_max_abs_err": (lib.transpose(1, 2).reshape(want.shape) - want)
             .abs().max().item(), "bound_ms": b_ms, "bound_by": b_by}
     print(json.dumps({"phase": "head_width", "kernel": "flash_attention_hd128",
@@ -6458,8 +6512,10 @@ def main() -> int:
         w32_launches = width32_path(device, failures, smi)
         for hd, counts in zip(NARROW_WIDTHS, (results_launches, w32_launches)):
             for name, row in narrow_kernel_rows(device, failures, hd).items():
-                row["launches"] = counts.get(name[:-len(f"_hd{hd}")], 0)
+                row["launches"] = counts[name[:-len(f"_hd{hd}")]]
                 width_rows[name] = row
+        for form, reading in results_shape_bf16(device, failures).items():
+            width_rows[f"{form}_hd16"]["results_shape"] = reading
         b4_hd128_eval_shape(device, width_rows["flash_attention_hd128"])
         lap("head_width")
         ablation_launches = merge_counts(ablation_launches, option_launches)

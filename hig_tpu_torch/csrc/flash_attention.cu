@@ -62,7 +62,7 @@ namespace hig {
 // partial to its own (a + b = b + a exactly, so both hold the same S), and
 // both run the same online softmax, so m and l agree bit for bit; each
 // multiplies P by its own 64 columns of v. At 128 the most keys resident at
-// once halve (the block's shared memory stays at 137 KB).
+// once halve (k, v and the biases stay at 137 KB; a slot a warp adds 16 KB).
 constexpr int FA_HD = HW;        // head dim
 constexpr int FA_PARTS = HW == 128 ? 2 : 1;  // warps a 16-row query tile
 constexpr int FA_WD = FA_HD / FA_PARTS;      // q depth and O columns a warp owns
@@ -82,10 +82,10 @@ constexpr float FA_MASK_BIAS = -1000000.0f;
 constexpr int FA_XCH = 16 * 32;  // a warp's partial S tile in the pair exchange (floats)
 
 // Dynamic shared memory for `rows` resident keys and `warps` warps: k, v,
-// the key biases, and (pairs) two exchange slots a warp.
+// the key biases, and (pairs) one exchange slot a warp.
 constexpr size_t fa_smem(int rows, int warps) {
   return sizeof(float) * ((size_t)rows * (FA_KS + FA_VS + 1) +
-                          (FA_PARTS == 2 ? (size_t)2 * warps * FA_XCH : 0));
+                          (FA_PARTS == 2 ? (size_t)warps * FA_XCH : 0));
 }
 
 // Wait until at most n of this thread's cp.async groups are pending.
@@ -110,7 +110,7 @@ __global__ void __launch_bounds__(FA_MAX_WARPS * 32) flash_attention_kernel(
   float* k_s = smem;                         // [tile][FA_KS]
   float* v_s = k_s + tile * FA_KS;           // [tile][FA_VS]
   float* bias_s = v_s + tile * FA_VS;        // [tile]
-  float* x_s = bias_s + tile;                // pairs: [2][warps][FA_XCH]
+  float* x_s = bias_s + tile;                // pairs: [warps][FA_XCH]
 
   const int n = blockIdx.x / H, h = blockIdx.x % H;
   const int src = partner ? (n ^ 1) : n;
@@ -157,7 +157,6 @@ __global__ void __launch_bounds__(FA_MAX_WARPS * 32) flash_attention_kernel(
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
   float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
-  int xstep = 0;  // the pair's exchanges so far (the slot's parity)
 
   for (int kt0 = 0; kt0 < kv_end; kt0 += tile) {
     const int steps = (min(tile, kv_end - kt0) + FA_STEP - 1) / FA_STEP;
@@ -204,9 +203,10 @@ __global__ void __launch_bounds__(FA_MAX_WARPS * 32) flash_attention_kernel(
         mma_3xtf32<1, FA_STEP / 8>(&sc[0][0], qa[kk], &b[0][0]);
       }
       if constexpr (FA_PARTS == 2) {  // the pair's two partial tiles, summed
-        float* mine = x_s + ((xstep & 1) * warps + warp) * FA_XCH + lane;
-        const float* other = x_s + ((xstep & 1) * warps + (warp ^ 1)) * FA_XCH + lane;
-        ++xstep;
+        // (the step's __syncthreads orders the partner's read of a slot
+        // before the slot's next write)
+        float* mine = x_s + warp * FA_XCH + lane;
+        const float* other = x_s + (warp ^ 1) * FA_XCH + lane;
 #pragma unroll
         for (int i = 0; i < 16; ++i) mine[32 * i] = sc[i >> 2][i & 3];
         named_barrier(1 + warp / 2, 64);

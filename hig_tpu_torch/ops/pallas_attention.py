@@ -140,7 +140,7 @@ MASK_BIAS = -1000000.0
 # entry). Past it the form's streaming twin runs ("stream", equal to the
 # whole form bit for bit where both run). B2-bf16 streams at any T.
 FORMS = ("whole", "stream")
-WHOLE_MAX_T = {16: 320, 32: 320, 64: 320, 128: 128}
+WHOLE_MAX_T = {64: 320, 128: 128}  # by tile width (:func:`tile_width`)
 
 
 def widths_named() -> str:
@@ -166,7 +166,7 @@ def whole_max_t(hd: int) -> int:
     and 64 (one 64-column tile's layout), 128 at 128 (other widths
     raise)."""
     check_width(hd)
-    return WHOLE_MAX_T[hd]
+    return WHOLE_MAX_T[tile_width(hd)]
 
 
 BF16_MAX_T = WHOLE_MAX_T[64]  # the whole forms' rows at width 64
@@ -694,11 +694,13 @@ def _launch_efficient(query, key, value, mask, hd: int, form=None, lazy: bool = 
     return out
 
 
-def _count_efficient(dt: torch.dtype, lazy: bool) -> None:
+def _count_efficient(dt: torch.dtype, lazy: bool, form: str = "whole") -> None:
     if dt != torch.bfloat16:
         fused_efficient_attention.launches += 1
     elif lazy:
         fused_efficient_attention.launches_bf16_lazy += 1
+    elif form == "stream":
+        fused_efficient_attention.launches_bf16_stream += 1
     else:
         fused_efficient_attention.launches_bf16 += 1
 
@@ -716,7 +718,7 @@ def efficient_attention_bf16_form(query, key, value, num_heads: int, key_mask, f
         check_cuda_operand(name, t, (*lead, Tk, D), dtype=torch.bfloat16)
     mask = key_mask.to(torch.float32).expand(*lead, Tk).contiguous()
     out = _launch_efficient(query, key, value, mask, hd, form, lazy)
-    _count_efficient(torch.bfloat16, lazy)
+    _count_efficient(torch.bfloat16, lazy, form)
     return out
 
 
@@ -746,8 +748,9 @@ def fused_efficient_attention(query, key, value, num_heads: int, key_mask=None,
     (..., Tk), 0/1. Returns (..., Tq, D). CPU tensors take the plain
     :func:`fused_efficient_attention_plain`; CUDA tensors launch the
     kernel, under autograd through :class:`EfficientAttention`: the float32
-    form, or for bfloat16 q, k and v the bfloat16 form (``launches_bf16``;
-    :func:`b3_bf16_form` picks whole or streaming, at any Tq and Tk). Other
+    form, or for bfloat16 q, k and v the bfloat16 form (:func:`b3_bf16_form`
+    picks whole, ``launches_bf16``, or streaming, ``launches_bf16_stream``,
+    at any Tq and Tk). Other
     dtypes, and q, k, v of mixed dtypes, raise. ``lazy`` (JAX's
     ``LAZY_KNORM``, passed down by the model) is the lazy core: the float32
     kernel as it is (it divides the state after the contraction), held
@@ -762,7 +765,7 @@ def fused_efficient_attention(query, key, value, num_heads: int, key_mask=None,
     if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"the efficient-attention kernel takes float32 or bfloat16, got {dt}")
     lead, (Tq, D), Tk = query.shape[:-2], query.shape[-2:], key.shape[-2]
-    check_cuda_width(D, num_heads)
+    hd = check_cuda_width(D, num_heads)
     check_cuda_operand("query", query, dtype=dt)
     for name, t in (("key", key), ("value", value)):
         check_cuda_operand(name, t, (*lead, Tk, D), dtype=dt)
@@ -772,8 +775,9 @@ def fused_efficient_attention(query, key, value, num_heads: int, key_mask=None,
         mask = key_mask.to(torch.float32).expand(*lead, Tk).contiguous()
     check_cuda_operand("key_mask", mask)
     out = EfficientAttention.apply(query, key, value, mask, num_heads, lazy)
-    _count_efficient(dt, lazy)
+    _count_efficient(dt, lazy, b3_bf16_form(Tq, Tk, hd))
     return out
 
 
-counted(fused_efficient_attention, "launches", "launches_bf16", "launches_bf16_lazy")
+counted(fused_efficient_attention, "launches", "launches_bf16", "launches_bf16_stream",
+        "launches_bf16_lazy")

@@ -520,7 +520,8 @@ def test_bf16_forms_match_their_twins(cuda_bf16, case):
             q, k, v, mask = (q.contiguous(), k[..., :77, :].contiguous(),
                              v[..., :77, :].contiguous(), mask[..., :77].contiguous())
         args = (q, k, v, H, mask, variant == "causal", variant == "partner")
-    stream = form == "b1" and t > whole_max_t(D // H)
+    stream = (form == "b1" and t > whole_max_t(D // H)) or \
+        (form == "b3" and b3_bf16_form(tq, tk, D // H) == "stream")
     before = counter.launches_bf16_stream if stream else counter.launches_bf16
     before_f32 = counter.launches
     got = fn(*args)
@@ -614,15 +615,18 @@ def _b3_bf16_operands(device, tq, tk, seed=2, one_key=False):
 @pytest.mark.parametrize("tq,tk", [(394, 394), (321, 77), (91, 394), (640, 640), (1000, 1000)])
 def test_bf16_efficient_streams_long_sequences(cuda_bf16, tq, tk):
     """Past 320 queries or keys B3-bf16 takes its streaming form, one
-    counted launch, within the gates of its twin; past 448 keys (640, 1000)
+    launch counted in ``launches_bf16_stream``, within the gates of its
+    twin; past 448 keys (640, 1000)
     the keys stream through its ring, as they no longer fit in shared
     memory beside it."""
     q, k, v, mask = _b3_bf16_operands(cuda_bf16, tq, tk)
     assert b3_bf16_form(tq, tk) == "stream"
-    before = fused_efficient_attention.launches_bf16
+    before = (fused_efficient_attention.launches_bf16,
+              fused_efficient_attention.launches_bf16_stream)
     got = fused_efficient_attention(q, k, v, H, mask)
     torch.cuda.synchronize()
-    assert fused_efficient_attention.launches_bf16 == before + 1
+    assert (fused_efficient_attention.launches_bf16,
+            fused_efficient_attention.launches_bf16_stream) == (before[0], before[1] + 1)
     args = (q, k, v, H, mask)
     twin = fused_efficient_attention_plain(*args)
     twin32 = fused_efficient_attention_plain(q.float(), k.float(), v.float(), H, mask)
